@@ -1,16 +1,20 @@
-"""Command-line entry point: generate (the port of ``calm_tpu.cli``).
+"""Command-line entry point: generate, perplexity, chat (the port of
+``calm_tpu.cli``).
 
 Flag-compatible with the reference CLI (src/run.c:421-490):
   -t temperature   -p min-p   -s seed   -n steps   -c context
-  -i prompt (- reads stdin)   --kv KV cache dtype
+  -i prompt (- reads stdin)   -x ppl-file   -y system-prompt
+  --kv KV cache dtype
 
 Env hooks:
   CALM_TOKENS=1  dump prompt token ids
   CALM_POSO=N    offset positions by N (late-context decode profiling)
   CALM_CPU=1     run on the CPU (plain PyTorch path); the GPU otherwise
 
--x (perplexity), -y (chat), -r (several sequences) and --draft are not
-ported yet and exit with a message saying so.
+-x prints ``# perplexity: P ± E``; -y chats (sampled on the host with the
+reference's xorshift64* stream; -n bounds each reply, -1 leaves it
+unbounded). -r (several sequences) and --draft are not ported yet and
+exit 2 with a message saying so.
 
     python -m calm_tpu_torch.cli model.calm -t 0 -n 64 -i "..."
 """
@@ -24,10 +28,9 @@ import time
 
 from calm_tpu_torch.container import ContainerError
 from calm_tpu_torch.device import NoGPUError
-from calm_tpu_torch.engine import Engine
+from calm_tpu_torch.engine import Engine, chat_loop
 
-_NOT_PORTED = {"perplexity": "-x", "system": "-y", "sequences": "-r",
-               "draft": "--draft"}
+_NOT_PORTED = {"sequences": "-r", "draft": "--draft"}
 
 
 def main(argv=None):
@@ -46,10 +49,12 @@ def main(argv=None):
                     help="context length override")
     ap.add_argument("-i", dest="prompt", type=str, default=None,
                     help="input prompt (- to read stdin)")
+    ap.add_argument("-x", dest="perplexity", type=str, default=None,
+                    help="compute perplexity for a text file")
+    ap.add_argument("-y", dest="system", type=str, default=None,
+                    help="chat mode with this system prompt")
     ap.add_argument("--kv", dest="kv", type=str, default=None,
                     choices=["bf16", "fp16", "fp8"], help="KV cache dtype")
-    ap.add_argument("-x", dest="perplexity", default=None, help=argparse.SUPPRESS)
-    ap.add_argument("-y", dest="system", default=None, help=argparse.SUPPRESS)
     ap.add_argument("-r", dest="sequences", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--draft", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
@@ -97,12 +102,26 @@ def main(argv=None):
     engine.step(0, pos_offset)
     engine.reset()
 
-    stats = engine.generate(
-        prompt or "", steps, temperature=args.temperature, minp=args.minp,
-        seed=seed, pos_offset=pos_offset, echo=True,
-        on_piece=lambda s: print(s, end="", flush=True))
-    print()
-    print(stats.perf_line(), file=sys.stderr)
+    if args.perplexity:
+        with open(args.perplexity, "r", errors="replace") as f:
+            text = f.read(64 * 1024)
+        t0 = time.perf_counter()
+        ppl, err, n = engine.perplexity(text, steps,
+                                        progress=lambda s: print(s, flush=True))
+        dt = time.perf_counter() - t0
+        print(f"# perplexity: {ppl:.3f} ± {err:.3f} "
+              f"({dt:.2f} sec, {n / dt:.2f} tok/s)")
+    elif args.system is not None:
+        chat_loop(engine, args.system, prompt, temperature=args.temperature,
+                  minp=args.minp, seed=seed,
+                  max_reply=steps if steps > 0 else None)
+    else:
+        stats = engine.generate(
+            prompt or "", steps, temperature=args.temperature, minp=args.minp,
+            seed=seed, pos_offset=pos_offset, echo=True,
+            on_piece=lambda s: print(s, end="", flush=True))
+        print()
+        print(stats.perf_line(), file=sys.stderr)
 
 
 if __name__ == "__main__":

@@ -240,6 +240,291 @@ cudaError_t launch_kvt(int kvt, const AttnArgs& a, cudaStream_t st) {
   return launch_m<HPL, 2>(a, st);
 }
 
+// ---------------------------------------------------------------------------
+// Prefill: causal flash attention of T queries against the carried cache.
+//
+// Replaces calm_tpu/ops/pallas_attn.py:_prefill_kernel (:326), reached
+// through prefill_attention (:463). Query t of sequence b sits at absolute
+// position pos0[b] + t and sees cache rows col < kv_len[b] and
+// col <= pos0[b] + t (the T fresh rows are written into the cache first).
+//
+// What bounds it on an H100: the tensor cores, ~4 * H * hd * T * kv / 2
+// flops per (b, layer) against ~2 * KVH * kv * hd cache bytes; at T = 2048
+// it does ~170 flops per byte read from the cache by each of the T / 16
+// query blocks, so device memory is not the limit.
+//
+// Design: a block per (query tile, kv head, b). Its 64 rows pack the
+// M = H / KVH query heads of the kv head (row r = query t0 + r / M, head
+// r % M), as the TPU kernel does (:340-342), so each staged cache tile
+// serves every head that reads it. Four warps own 16 rows each. The block
+// walks 64-row cache tiles from 0 to its own causal limit, a pure loop:
+// blocks run in no order and carry nothing between them. Each tile is
+// staged into shared memory as bf16 (bf16 and fp8 e5m2 exactly, fp16
+// rounded); S = Q K^T and O += P V run on mma.sync m16n8k16 with f32 sums,
+// V read with ldmatrix.trans. q and p are rounded once to bf16, as the
+// TPU kernel rounds them (:355-360, 383). Online softmax in registers, in
+// base 2; a row with nothing visible yet keeps m = -inf and its shift is
+// clamped to 0 (:374-378), and the end divides by max(l, 1e-37) (:390).
+
+#define PF_WARPS 4
+#define PF_ROWS (PF_WARPS * 16)  // query rows (t, head) per block
+#define PF_BC 64                 // cache rows per tile
+
+struct PfArgs {
+  const float* q;      // (B, T, KVH, M, hd)
+  const void* k;       // (L, B, KVH, S, hd)
+  const void* v;
+  const int* pos0;     // (B,)
+  const int* kv_len;   // (B,)
+  float* out;          // (B, T, KVH, M, hd)
+  int B, T, KVH, M, S, layer;
+  float scale_log2;    // log2(e) / sqrt(hd)
+};
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
+                                         const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const void* p) {
+  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+// eight cache values from element i of a cache plane -> eight bf16
+template <int KVT>
+__device__ __forceinline__ uint4 kv_bf16x8(const void* base, size_t i);
+
+template <>
+__device__ __forceinline__ uint4 kv_bf16x8<0>(const void* base, size_t i) {  // fp16
+  const uint4 raw = *reinterpret_cast<const uint4*>(static_cast<const __half*>(base) + i);
+  const uint32_t* h = reinterpret_cast<const uint32_t*>(&raw);
+  uint4 o;
+  uint32_t* op = reinterpret_cast<uint32_t*>(&o);
+#pragma unroll
+  for (int j = 0; j < 4; j++) {
+    const float2 f = __half22float2(*reinterpret_cast<const __half2*>(h + j));
+    op[j] = pack_bf16(f.x, f.y);
+  }
+  return o;
+}
+template <>
+__device__ __forceinline__ uint4 kv_bf16x8<1>(const void* base, size_t i) {  // bf16
+  return *reinterpret_cast<const uint4*>(static_cast<const __nv_bfloat16*>(base) + i);
+}
+template <>
+__device__ __forceinline__ uint4 kv_bf16x8<2>(const void* base, size_t i) {  // e5m2
+  const uint2 raw = *reinterpret_cast<const uint2*>(static_cast<const uint8_t*>(base) + i);
+  const uint8_t* b8 = reinterpret_cast<const uint8_t*>(&raw);
+  uint4 o;
+  uint32_t* op = reinterpret_cast<uint32_t*>(&o);
+#pragma unroll
+  for (int j = 0; j < 4; j++) {  // e5m2 -> f16 (exact) -> bf16 (exact)
+    const float lo = __half2float(__ushort_as_half((unsigned short)(b8[2 * j] << 8)));
+    const float hi = __half2float(__ushort_as_half((unsigned short)(b8[2 * j + 1] << 8)));
+    op[j] = pack_bf16(lo, hi);
+  }
+  return o;
+}
+
+template <int HD>
+constexpr int prefill_smem() {  // q, K, V tiles of bf16
+  return (PF_ROWS + 2 * PF_BC) * (HD + 8) * 2;
+}
+
+template <int HD, int KVT>
+__global__ void __launch_bounds__(PF_WARPS * 32) prefill_kernel(PfArgs a) {
+  constexpr int LD = HD + 8;  // bf16 per shared row: 16-byte aligned, no conflicts
+  constexpr int KS = HD / 16;
+  extern __shared__ __align__(16) unsigned char pf_raw[];
+  auto sQ = reinterpret_cast<__nv_bfloat16(*)[LD]>(pf_raw);
+  auto sK = sQ + PF_ROWS;
+  auto sV = sK + PF_BC;
+
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int M = a.M, bqt = PF_ROWS / M;  // query positions per block
+  const int t0 = blockIdx.x * bqt;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int pos0 = a.pos0[b];
+  const int kv_len = min(a.kv_len[b], a.S);
+  const int t_last = min(t0 + bqt, a.T) - 1;
+  const int c_end = min(kv_len, pos0 + t_last + 1);  // rows any query here sees
+
+  // the block's query rows in bf16 (zeros past the end)
+  for (int i = threadIdx.x; i < PF_ROWS * HD / 4; i += PF_WARPS * 32) {
+    const int r = i / (HD / 4), c4 = (i % (HD / 4)) * 4;
+    const int t = t0 + r / M;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r < bqt * M && t < a.T)
+      v = *reinterpret_cast<const float4*>(
+          a.q + ((((size_t)b * a.T + t) * a.KVH + h) * M + r % M) * HD + c4);
+    *reinterpret_cast<uint2*>(&sQ[r][c4]) =
+        make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
+  }
+
+  // this thread's two rows: g and g + 8 of the warp's 16
+  int qpos[2];
+  float* orow[2];
+#pragma unroll
+  for (int i = 0; i < 2; i++) {
+    const int r = warp * 16 + g + 8 * i;
+    const int t = t0 + r / M;
+    const bool ok = r < bqt * M && t < a.T;
+    qpos[i] = ok ? pos0 + t : -1;  // -1 sees nothing
+    orow[i] = ok ? a.out + ((((size_t)b * a.T + t) * a.KVH + h) * M + r % M) * HD
+                 : nullptr;
+  }
+
+  float o[HD / 8][4];
+#pragma unroll
+  for (int i = 0; i < HD / 8; i++) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
+  float mrow[2] = {-INFINITY, -INFINITY}, lrow[2] = {0.f, 0.f};
+
+  const size_t plane = (((size_t)a.layer * a.B + b) * a.KVH + h) * (size_t)a.S * HD;
+  const int qr = warp * 16 + g;
+  for (int c0 = 0; c0 < c_end; c0 += PF_BC) {
+    __syncthreads();  // q staged; every warp is done with the previous tile
+    for (int i = threadIdx.x; i < PF_BC * HD / 8; i += PF_WARPS * 32) {
+      const int r = i / (HD / 8), c8 = (i % (HD / 8)) * 8;
+      uint4 kk = make_uint4(0u, 0u, 0u, 0u), vv = kk;
+      if (c0 + r < c_end) {  // rows past the limit stay 0: 0 * garbage is NaN
+        const size_t e = plane + (size_t)(c0 + r) * HD + c8;
+        kk = kv_bf16x8<KVT>(a.k, e);
+        vv = kv_bf16x8<KVT>(a.v, e);
+      }
+      *reinterpret_cast<uint4*>(&sK[r][c8]) = kk;
+      *reinterpret_cast<uint4*>(&sV[r][c8]) = vv;
+    }
+    __syncthreads();
+
+    float s[PF_BC / 8][4];
+#pragma unroll
+    for (int nt = 0; nt < PF_BC / 8; nt++) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KS; ks++) {
+      uint32_t qa[4];
+#pragma unroll
+      for (int j = 0; j < 4; j++) {
+        const int row = qr + 8 * (j & 1), col = ks * 16 + t4 * 2 + 8 * (j >> 1);
+        qa[j] = *reinterpret_cast<const uint32_t*>(&sQ[row][col]);
+      }
+#pragma unroll
+      for (int nt = 0; nt < PF_BC / 8; nt++) {
+        uint32_t kb[2];
+        kb[0] = *reinterpret_cast<const uint32_t*>(&sK[nt * 8 + g][ks * 16 + t4 * 2]);
+        kb[1] = *reinterpret_cast<const uint32_t*>(&sK[nt * 8 + g][ks * 16 + t4 * 2 + 8]);
+        mma_bf16(s[nt], qa, kb);
+      }
+    }
+
+    // mask, then the online softmax of rows g (i = 0) and g + 8 (i = 1)
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int nt = 0; nt < PF_BC / 8; nt++) {
+#pragma unroll
+      for (int e = 0; e < 4; e++) {
+        const int i = e >> 1;
+        const int col = c0 + nt * 8 + t4 * 2 + (e & 1);
+        const bool ok = col < kv_len && col <= qpos[i];
+        s[nt][e] = ok ? s[nt][e] * a.scale_log2 : -INFINITY;
+        mx[i] = fmaxf(mx[i], s[nt][e]);
+      }
+    }
+    float shift[2], alpha[2];
+#pragma unroll
+    for (int i = 0; i < 2; i++) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float mn = fmaxf(mrow[i], mx[i]);
+      shift[i] = mn == -INFINITY ? 0.f : mn;
+      alpha[i] = mrow[i] == -INFINITY ? 0.f : exp2f(mrow[i] - shift[i]);
+      mrow[i] = mn;
+    }
+    float ls[2] = {0.f, 0.f};
+#pragma unroll
+    for (int nt = 0; nt < PF_BC / 8; nt++) {
+#pragma unroll
+      for (int e = 0; e < 4; e++) {
+        s[nt][e] = exp2f(s[nt][e] - shift[e >> 1]);  // -inf -> 0
+        ls[e >> 1] += s[nt][e];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; i++) lrow[i] = lrow[i] * alpha[i] + ls[i];  // partial: 1/4 of the row
+#pragma unroll
+    for (int nt = 0; nt < HD / 8; nt++) {
+      o[nt][0] *= alpha[0];
+      o[nt][1] *= alpha[0];
+      o[nt][2] *= alpha[1];
+      o[nt][3] *= alpha[1];
+    }
+
+    // O += P V: P's accumulator layout is the A operand's (two n-tiles
+    // make one k16 step); V arrives transposed by ldmatrix
+#pragma unroll
+    for (int kk = 0; kk < PF_BC / 16; kk++) {
+      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+      const int mi = lane >> 3;
+      const int vr = kk * 16 + (mi & 1) * 8 + (lane & 7);
+#pragma unroll
+      for (int nt = 0; nt < HD / 8; nt += 2) {
+        uint32_t vb[4];
+        ldsm_x4_trans(vb, &sV[vr][nt * 8 + (mi >> 1) * 8]);
+        mma_bf16(o[nt], pa, vb);
+        mma_bf16(o[nt + 1], pa, vb + 2);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; i++) {
+    float l = lrow[i];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const float inv = 1.0f / fmaxf(l, 1e-37f);
+    if (orow[i] == nullptr) continue;
+#pragma unroll
+    for (int nt = 0; nt < HD / 8; nt++)
+      *reinterpret_cast<float2*>(orow[i] + nt * 8 + t4 * 2) =
+          make_float2(o[nt][2 * i] * inv, o[nt][2 * i + 1] * inv);
+  }
+}
+
+template <int HD, int KVT>
+cudaError_t launch_prefill_kvt(const PfArgs& a, dim3 grid, cudaStream_t st) {
+  constexpr int smem = prefill_smem<HD>();
+  static cudaError_t attr = cudaFuncSetAttribute(
+      prefill_kernel<HD, KVT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return attr;
+  prefill_kernel<HD, KVT><<<grid, PF_WARPS * 32, smem, st>>>(a);
+  return cudaGetLastError();
+}
+
+template <int HD>
+cudaError_t launch_prefill(int kvt, const PfArgs& a, cudaStream_t st) {
+  const int bqt = PF_ROWS / a.M;
+  dim3 grid((a.T + bqt - 1) / bqt, a.KVH, a.B);
+  if (kvt == 0) return launch_prefill_kvt<HD, 0>(a, grid, st);
+  if (kvt == 1) return launch_prefill_kvt<HD, 1>(a, grid, st);
+  return launch_prefill_kvt<HD, 2>(a, grid, st);
+}
+
 }  // namespace
 
 extern "C" {
@@ -282,6 +567,31 @@ int calm_decode_attention(const void* q, const void* k, const void* v,
                                                  static_cast<float*>(out), KVH,
                                                  M, a.NC, hd);
   return (int)cudaGetLastError();
+}
+
+// q/out (B, T, KVH, M, hd) f32, caches (L, B, KVH, S, hd) in kvt (0 fp16,
+// 1 bf16, 2 fp8 e5m2), pos0/kv_len (B,) int32; hd in {64, 128}; M <= 64.
+int calm_prefill_attention(const void* q, const void* k, const void* v,
+                           const void* pos0, const void* kv_len, void* out,
+                           int B, int T, int KVH, int M, int S, int hd,
+                           int layer, int kvt, void* stream) {
+  PfArgs a;
+  a.q = static_cast<const float*>(q);
+  a.k = k;
+  a.v = v;
+  a.pos0 = static_cast<const int*>(pos0);
+  a.kv_len = static_cast<const int*>(kv_len);
+  a.out = static_cast<float*>(out);
+  a.B = B;
+  a.T = T;
+  a.KVH = KVH;
+  a.M = M;
+  a.S = S;
+  a.layer = layer;
+  a.scale_log2 = 1.4426950408889634f / sqrtf((float)hd);
+  cudaStream_t st = (cudaStream_t)stream;
+  return (int)(hd == 64 ? launch_prefill<64>(kvt, a, st)
+                        : launch_prefill<128>(kvt, a, st));
 }
 
 const char* calm_attn_error_string(int e) {

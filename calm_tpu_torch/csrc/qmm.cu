@@ -1,13 +1,16 @@
-// Dequantizing matvecs over layer-stacked fp8-e5m2 / fp16 weights, for
-// decode (B <= 16 activation rows).
+// Dequantizing matvecs over layer-stacked fp8-e5m2 / fp16 weights and
+// natural gf4 words, for decode (B <= 16 activation rows).
 //
-// Replaces two Pallas kernels of calm_tpu/ops/pallas_qmm.py:
+// Replaces three Pallas kernels of calm_tpu/ops/pallas_qmm.py:
 //   - _layered_qmm_kernel (:92, via qmm_decode :219): y = x . W[layer]^T
 //     -> calm_qmm_decode below;
 //   - _qx_offn_qkv_kernel (:942, via qx_offn_qkv :1198): one layer's
 //     epilogue, wo + residual, ffn-norm, w1/w3 + act, w2 + residual, and
 //     the next layer's attn-norm + q/k/v -> calm_qx_offn_qkv below, six
-//     launches from this file with no torch op between them.
+//     launches from this file with no torch op between them;
+//   - _gf4_offn_qkv_kernel (:737, via gf4_offn_qkv :927): the same
+//     epilogue on gf4 weights, which the TPU reads in plane-permuted
+//     layouts for Mosaic -> calm_qx_offn_qkv with fmt 2 on natural words.
 //
 // What bounds it on an H100: the weight bytes. At B=1 a matvec does
 // 2 flops per weight byte (fp8), below the ~20 flop/byte where the card's
@@ -25,9 +28,11 @@
 // word (the reference's trick, pallas_qmm.py:12-13), two values per
 // __byte_perm. Activations (up to 16 rows of 14336 f32 = 917 KB for w2)
 // stay in global memory, read through the read-only path, and are
-// L1/L2-resident across the rows of a block. Accumulation is f32 per
-// activation row, sized by B at compile time (1, 4 or 16); a warp-shuffle
-// tree closes each row. The attn- and ffn-norms run as a one-block-per-row
+// L1/L2-resident across the rows of a block. A gf4 word holds eight
+// weights (a lane step reads one word and two float4 of x) and decodes as
+// in gf4.cu: the 3-bit codes exactly through the mantissa of 2^23, one
+// scale multiply per word. Accumulation is f32 per activation row, sized
+// by B at compile time (1, 4 or 16); a warp-shuffle tree closes each row. The attn- and ffn-norms run as a one-block-per-row
 // launch that writes the normalised rows to scratch, so the w1/w3 and
 // q/k/v matvecs share the plain inner loop instead of each block
 // recomputing row statistics and normalising x per weight.
@@ -42,7 +47,7 @@
 namespace {
 
 struct Seg {
-  const uint8_t* w;    // (rows, n) storage bytes of this segment's weight
+  const uint8_t* w;    // (rows, n / PER) words of this segment's weight
   const uint8_t* w3;   // dual mode: the w3 weight (same shape), else null
   float* out;          // out[b * ld + r]
   const float* resid;  // optional: out = resid + y, resid[b * ld + r]
@@ -58,41 +63,80 @@ struct Args {
   int n;
 };
 
-// FMT 0: fp16, 1: fp8 e5m2. Word: the load that holds four weights.
-template <int FMT>
-struct Fmt;
-template <>
-struct Fmt<0> {
-  using Word = uint2;
-  static constexpr int ESZ = 2;
-};
-template <>
-struct Fmt<1> {
-  using Word = uint32_t;
-  static constexpr int ESZ = 1;
-};
-
 __device__ __forceinline__ float2 h2f2(uint32_t bits) {
   __half2 h;
   *reinterpret_cast<uint32_t*>(&h) = bits;
   return __half22float2(h);
 }
 
-__device__ __forceinline__ float4 decode4(uint2 q) {  // four fp16
-  const float2 lo = h2f2(q.x), hi = h2f2(q.y);
-  return make_float4(lo.x, lo.y, hi.x, hi.y);
-}
-
-__device__ __forceinline__ float4 decode4(uint32_t q) {  // four e5m2
-  // bytes [0, b0, 0, b1] and [0, b2, 0, b3]: e5m2 in the high byte
-  const float2 lo = h2f2(__byte_perm(q, 0u, 0x1404));
-  const float2 hi = h2f2(__byte_perm(q, 0u, 0x3424));
-  return make_float4(lo.x, lo.y, hi.x, hi.y);
-}
-
 __device__ __forceinline__ float dot4(float4 w, float4 x) {
   return w.x * x.x + w.y * x.y + w.z * x.z + w.w * x.w;
 }
+
+// FMT 0: fp16, 1: fp8 e5m2, 2: gf4. Word: the load that holds PER weights;
+// dec() turns it into Dec, dot() multiplies Dec by the PER values of x held
+// in PER / 4 float4 registers.
+template <int FMT>
+struct Fmt;
+template <>
+struct Fmt<0> {
+  using Word = uint2;
+  using Dec = float4;
+  static constexpr int PER = 4;
+  static __device__ __forceinline__ Dec dec(uint2 q) {
+    const float2 lo = h2f2(q.x), hi = h2f2(q.y);
+    return make_float4(lo.x, lo.y, hi.x, hi.y);
+  }
+  static __device__ __forceinline__ float dot(const Dec& w, const float4* x) {
+    return dot4(w, x[0]);
+  }
+};
+template <>
+struct Fmt<1> {
+  using Word = uint32_t;
+  using Dec = float4;
+  static constexpr int PER = 4;
+  static __device__ __forceinline__ Dec dec(uint32_t q) {
+    // bytes [0, b0, 0, b1] and [0, b2, 0, b3]: e5m2 in the high byte
+    const float2 lo = h2f2(__byte_perm(q, 0u, 0x1404));
+    const float2 hi = h2f2(__byte_perm(q, 0u, 0x3424));
+    return make_float4(lo.x, lo.y, hi.x, hi.y);
+  }
+  static __device__ __forceinline__ float dot(const Dec& w, const float4* x) {
+    return dot4(w, x[0]);
+  }
+};
+struct Gf4Dec {
+  float c[8];  // code_k - 4
+  float s;     // e5m2 scale / -4
+};
+template <>
+struct Fmt<2> {
+  using Word = uint32_t;
+  using Dec = Gf4Dec;
+  static constexpr int PER = 8;
+  static __device__ __forceinline__ Dec dec(uint32_t q) {
+    Dec d;
+#pragma unroll
+    for (int k = 0; k < 8; k++)  // the 3-bit field under the mantissa of 2^23
+      d.c[k] = __uint_as_float(0x4B000000u | ((q >> (8 + 3 * k)) & 7u)) - 8388612.0f;
+    // the e5m2 byte in the high half of an f16 is the same value, exactly
+    d.s = __half2float(__ushort_as_half((unsigned short)((q & 0xffu) << 8))) * -0.25f;
+    return d;
+  }
+  static __device__ __forceinline__ float dot(const Dec& w, const float4* x) {
+    const float4 xa = x[0], xb = x[1];
+    float s = w.c[0] * xa.x;
+    s = fmaf(w.c[1], xa.y, s);
+    s = fmaf(w.c[2], xa.z, s);
+    s = fmaf(w.c[3], xa.w, s);
+    s = fmaf(w.c[4], xb.x, s);
+    s = fmaf(w.c[5], xb.y, s);
+    s = fmaf(w.c[6], xb.z, s);
+    s = fmaf(w.c[7], xb.w, s);
+    return s * w.s;
+  }
+};
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -159,9 +203,10 @@ __global__ void __launch_bounds__(NORM_THREADS)
 // NB: compile-time bound on B (accumulator registers).
 template <int FMT, int ACT, int NB>
 __global__ void __launch_bounds__(WARPS * 32, NB == 1 ? 4 : 1) qmv_kernel(Args a) {
-  using Word = typename Fmt<FMT>::Word;
-  constexpr int ESZ = Fmt<FMT>::ESZ;
-  constexpr int U = 8 / ESZ;  // loads in flight per lane and weight: 32 bytes
+  using F = Fmt<FMT>;
+  using Word = typename F::Word;
+  constexpr int XV = F::PER / 4;              // float4s of x per word
+  constexpr int U = 32 / (int)sizeof(Word);   // loads in flight per lane and weight: 32 bytes
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   int row = blockIdx.x * WARPS + warp;
@@ -179,21 +224,21 @@ __global__ void __launch_bounds__(WARPS * 32, NB == 1 ? 4 : 1) qmv_kernel(Args a
     return;
   }
 
-  const int n4 = a.n >> 2;  // lane steps per row
-  const Word* wr = reinterpret_cast<const Word*>(sg.w + (size_t)row * a.n * ESZ);
-  const Word* wr3 =
-      ACT ? reinterpret_cast<const Word*>(sg.w3 + (size_t)row * a.n * ESZ) : nullptr;
+  const int nw = a.n / F::PER;  // lane steps (words) per row
+  const int n4 = a.n >> 2;      // float4s per row of x
+  const Word* wr = reinterpret_cast<const Word*>(sg.w) + (size_t)row * nw;
+  const Word* wr3 = ACT ? reinterpret_cast<const Word*>(sg.w3) + (size_t)row * nw : nullptr;
   const float4* x4 = reinterpret_cast<const float4*>(a.x);
   float acc[NB], acc3[NB];
 #pragma unroll
   for (int b = 0; b < NB; b++) acc[b] = acc3[b] = 0.f;
 
-  for (int c0 = lane; c0 < n4; c0 += 32 * U) {
+  for (int c0 = lane; c0 < nw; c0 += 32 * U) {
     Word q[U], q3[U];
 #pragma unroll
     for (int u = 0; u < U; u++) {
       const int c = c0 + u * 32;
-      if (c < n4) {
+      if (c < nw) {
         q[u] = __ldcs(wr + c);
         if (ACT) q3[u] = __ldcs(wr3 + c);
       }
@@ -201,15 +246,18 @@ __global__ void __launch_bounds__(WARPS * 32, NB == 1 ? 4 : 1) qmv_kernel(Args a
 #pragma unroll
     for (int u = 0; u < U; u++) {
       const int c = c0 + u * 32;
-      if (c < n4) {
-        const float4 w = decode4(q[u]);
-        const float4 w3 = ACT ? decode4(q3[u]) : w;
+      if (c < nw) {
+        const typename F::Dec w = F::dec(q[u]);
+        const typename F::Dec w3 = ACT ? F::dec(q3[u]) : w;
 #pragma unroll
         for (int b = 0; b < NB; b++) {
           if (b < a.B) {
-            const float4 xv = __ldg(x4 + (size_t)b * n4 + c);
-            acc[b] += dot4(w, xv);
-            if (ACT) acc3[b] += dot4(w3, xv);
+            const float4* xp = x4 + (size_t)b * n4 + (size_t)c * XV;
+            float4 xv[XV];
+#pragma unroll
+            for (int i = 0; i < XV; i++) xv[i] = __ldg(xp + i);
+            acc[b] += F::dot(w, xv);
+            if (ACT) acc3[b] += F::dot(w3, xv);
           }
         }
       }
@@ -254,6 +302,7 @@ cudaError_t launch(const Args& a, cudaStream_t st) {
 
 template <int ACT>
 cudaError_t launch_fmt(int fmt, const Args& a, cudaStream_t st) {
+  if (fmt == 2) return launch<2, ACT>(a, st);
   return fmt == 1 ? launch<1, ACT>(a, st) : launch<0, ACT>(a, st);
 }
 
@@ -300,8 +349,9 @@ int calm_qmm_decode(const void* x, const void* w, void* y, int B, int d, int n,
   return (int)launch_fmt<0>(fmt, a, (cudaStream_t)stream);
 }
 
-// One layer's epilogue (see pallas_qmm._qx_offn_qkv_kernel). Weight
-// pointers are at their layer planes (wq/wk/wv and anx already at
+// One layer's epilogue (see pallas_qmm._qx_offn_qkv_kernel), for fp16
+// (fmt 0), fp8 e5m2 (1) or gf4 words (2). Weight pointers are at their
+// layer planes (wq/wk/wv and anx already at
 // min(layer + 1, L - 1)). r1 (B, D), xn (B, D) and h (B, H) are
 // caller-allocated scratch; qkv is (B, Qd + 2 KVd) with q, k and v side by
 // side.

@@ -1,14 +1,17 @@
-"""Generation engine: model assembly and the decode loop (the port of
-``calm_tpu.engine``'s generate path).
+"""Generation engine: model assembly, decode loop, perplexity and chat
+(the port of ``calm_tpu.engine``).
 
 - one .calm container gives the config, weights, tokenizer and sampler,
   with the reference's bandwidth/params accounting (src/run.c:131-152,
   523-532) feeding the perf line (src/run.c:249-253);
-- the prompt is fed through ``decode_step`` one token at a time, as the
-  reference C engine does (batched prefill comes with the prefill slice);
+- the prompt goes through batched ``prefill`` in chunks of
+  ``PREFILL_CHUNK``; tokens past the window are stepped;
 - greedy decode runs ``decode_loop`` chunks with the argmax on the
   device; ``temperature > 0`` samples min-p on the host with the
-  reference's xorshift64* stream;
+  reference's xorshift64* stream (the JAX package's
+  ``reference_sampling=True`` path);
+- perplexity with a running mean +- standard error (src/run.c:258-316),
+  and chat with vocab-sniffed templates (src/run.c:318-419);
 - fp8 KV is chosen for contexts above 4096 (src/run.c:536-540).
 
 Runs on the GPU unless ``device="cpu"`` is asked for.
@@ -17,6 +20,7 @@ Runs on the GPU unless ``device="cpu"`` is asked for.
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 from typing import Callable
 
@@ -27,7 +31,7 @@ from calm_tpu_torch import model as M
 from calm_tpu_torch.config import ModelConfig
 from calm_tpu_torch.container import TensorFile
 from calm_tpu_torch.device import pick
-from calm_tpu_torch.sampler import Sampler
+from calm_tpu_torch.sampler import Sampler, softmax_prob
 from calm_tpu_torch.tokenizer import Tokenizer
 
 
@@ -63,6 +67,9 @@ def kv_cache_bytes(cfg: ModelConfig, kv_bits: int, pos: int) -> int:
 
 class Engine:
     CHUNK = 16  # greedy tokens per decode_loop call between stop checks
+    # prefill activations are (T, D) f32 per layer and perplexity's logits
+    # (T, V) f32: chunks bound both (the attention kernel itself is flat in T)
+    PREFILL_CHUNK = 8192
 
     def __init__(self, path: str, context: int = 0,
                  kv_dtype: str | None = None, device=None):
@@ -113,14 +120,28 @@ class Engine:
                                         self._token(token), pos, self.cache)
         return out[0].float().cpu().numpy()
 
+    def _prefill(self, tokens: list[int], pos0: int, logits_mode: str):
+        return M.prefill(self.cfg, self.weights,
+                         torch.tensor([tokens], dtype=torch.int64, device=self.device),
+                         [pos0], self.cache, logits_mode)[0]
+
     def prefill_tokens(self, tokens: list[int], pos0: int = 0) -> np.ndarray:
-        """Feed prompt tokens one decode step at a time; returns the logits
+        """Feed prompt tokens in batched chunks (``calm_tpu/engine.py``
+        :151-170); tokens past the window are stepped. Returns the logits
         after the last one."""
-        out = None
-        for i, t in enumerate(tokens):
-            out, self.cache = M.decode_step(self.cfg, self.weights,
-                                            self._token(t), pos0 + i, self.cache)
-        return None if out is None else out[0].float().cpu().numpy()
+        seq_len = self.cfg.seq_len
+        logits = None
+        i = 0
+        while i < len(tokens):
+            if pos0 + i >= seq_len:  # rolling decode steps
+                logits = self.step(tokens[i], pos0 + i)
+                i += 1
+                continue
+            n = min(self.PREFILL_CHUNK, seq_len - (pos0 + i))
+            chunk = tokens[i:i + n]
+            logits = self._prefill(chunk, pos0 + i, "last")[0].float().cpu().numpy()
+            i += len(chunk)
+        return logits
 
     # -- generate -------------------------------------------------------------
 
@@ -201,3 +222,126 @@ class Engine:
         return GenStats(tokens=pos, seconds=seconds, read_bytes=read_bytes,
                         logits_hash=h, text=out.decode("utf-8", errors="replace"),
                         ids=ids)
+
+    def perplexity(self, text: str, steps: int = 0,
+                   progress: Callable[[str], None] | None = None):
+        """Chunked perplexity with running mean +- SE (src/run.c:258-316,
+        ``calm_tpu/engine.py:299-335``): each window of ``steps`` tokens
+        (the context when 0) is teacher-forced from position 0, in
+        prefill chunks of at most ``PREFILL_CHUNK`` rows of logits."""
+        toks = self.tokenizer.encode(text, bos=True)
+        n = len(toks)
+        window = steps if steps > 0 else self.cfg.seq_len
+        s = ss = den = 0.0
+        ppl = pplerr = 0.0
+        i = 0
+        while i + 1 < n:
+            t = min(window, n - i)  # toks[i:i+t] at positions 0..t-1
+            self.reset()
+            for j0 in range(0, t, self.PREFILL_CHUNK):
+                j1 = min(t, j0 + self.PREFILL_CHUNK)
+                logits = self._prefill(toks[i + j0:i + j1], j0, "all")
+                logits = logits[0].float().cpu().numpy()  # (j1 - j0, V)
+                # logits[j] predicts toks[i+j0+j+1] (the last one crosses
+                # the window boundary, as the serial reference loop does)
+                for j in range(j1 - j0):
+                    if i + j0 + j + 1 >= n:
+                        break
+                    lp = math.log(max(softmax_prob(toks[i + j0 + j + 1], logits[j]),
+                                      1e-45))
+                    s += lp
+                    ss += lp * lp
+                    den += 1
+                    ppl = math.exp(-s / den)
+                    pplerr = ppl * math.sqrt(max(ss - s * s / den, 0.0) / den / den)
+            if progress:
+                progress(f"# progress ({int(den)}/{n - 1}): {ppl:.3f} ± {pplerr:.3f}")
+            i += t
+        return ppl, pplerr, int(den)
+
+
+# -- chat templates (vocab-sniffed, reference: src/run.c:318-347) -------------
+
+_TEMPLATES = [
+    ("<|eot_id|>",  # llama3
+     "<|start_header_id|>system<|end_header_id|>\n\n{sys}<|eot_id|>"
+     "<|start_header_id|>user<|end_header_id|>\n\n{user}<|eot_id|>"
+     "<|start_header_id|>assistant<|end_header_id|>\n\n",
+     "<|start_header_id|>user<|end_header_id|>\n\n{user}<|eot_id|>"
+     "<|start_header_id|>assistant<|end_header_id|>\n\n"),
+    ("<|im_start|>",  # chatml
+     "<|im_start|>system\n{sys}<|im_end|>\n<|im_start|>user\n{user}<|im_end|>\n"
+     "<|im_start|>assistant\n",
+     "\n<|im_start|>user\n{user}<|im_end|>\n<|im_start|>assistant\n"),
+    ("<start_of_turn>",  # gemma
+     "<start_of_turn>user\nSYSTEM: {sys}\n\n{user}<end_of_turn>\n<start_of_turn>model\n",
+     "\n<start_of_turn>user\n{user}<end_of_turn>\n<start_of_turn>model\n"),
+    ("<|START_OF_TURN_TOKEN|>",  # cohere
+     "<|START_OF_TURN_TOKEN|><|SYSTEM_TOKEN|>{sys}<|END_OF_TURN_TOKEN|>"
+     "<|START_OF_TURN_TOKEN|><|USER_TOKEN|>{user}<|END_OF_TURN_TOKEN|>"
+     "<|START_OF_TURN_TOKEN|><|CHATBOT_TOKEN|>",
+     "<|START_OF_TURN_TOKEN|><|USER_TOKEN|>{user}<|END_OF_TURN_TOKEN|>"
+     "<|START_OF_TURN_TOKEN|><|CHATBOT_TOKEN|>"),
+    ("<|assistant|>",  # phi3
+     "<|system|>\n{sys}<|end|>\n<|user|>\n{user}<|end|>\n<|assistant|>\n",
+     "\n<|user|>\n{user}<|end|>\n<|assistant|>\n"),
+    ("<|beginofsystem|>",  # k2
+     "<|beginofsystem|>{sys}<|endofsystemprompt|><|beginofuser|>{user}<|beginofsystem|>",
+     "<|beginofuser|>{user}<|beginofsystem|>"),
+]
+_LLAMA2 = ("[INST] <<SYS>>\n{sys}\n<</SYS>>\n\n{user} [/INST]",
+           "[INST] {user} [/INST]")
+
+
+def chat_template(tokenizer: Tokenizer, has_system: bool) -> str:
+    for marker, with_sys, without in _TEMPLATES:
+        if tokenizer.find(marker) >= 0:
+            return with_sys if has_system else without
+    return _LLAMA2[0] if has_system else _LLAMA2[1]
+
+
+def chat_loop(engine: Engine, system_prompt: str = "", cli_prompt: str | None = None,
+              *, temperature: float = 1.0, minp: float = 0.1, seed: int = 42,
+              read_line: Callable[[], str] = input,
+              write: Callable[[str], None] = lambda s: print(s, end="", flush=True),
+              max_turns: int | None = None, max_reply: int | None = None):
+    """Interactive chat (src/run.c:349-419, ``calm_tpu/engine.py:378-441``)
+    with injected IO. Each reply is sampled token by token on the host with
+    the xorshift64* stream (the JAX package's ``reference_sampling=True``
+    path) and ends at eos/eot, or after ``max_reply`` tokens when given.
+    The session ends at EOF on ``read_line`` or after ``max_turns``."""
+    tok = engine.tokenizer
+    sampler = Sampler(engine.cfg.vocab_size, seed, temperature, minp)
+    pos = 0
+    turns = 0
+    while max_turns is None or turns < max_turns:
+        if pos == 0 and cli_prompt is not None:
+            user = cli_prompt + "\n"
+        else:
+            write(f"[{pos}/{engine.cfg.seq_len}] User: ")
+            try:
+                user = read_line()
+            except EOFError:
+                return
+        tpl = chat_template(tok, bool(system_prompt) and pos == 0)
+        rendered = (tpl.format(sys=system_prompt, user=user.rstrip("\n"))
+                    if "{sys}" in tpl else tpl.format(user=user.rstrip("\n")))
+        prompt_tokens = tok.encode(rendered, bos=(pos == 0))
+
+        write("\nAssistant: ")
+        if len(prompt_tokens) > 1:
+            engine.prefill_tokens(prompt_tokens[:-1], pos)
+        pos += len(prompt_tokens) - 1
+        token = prompt_tokens[-1]
+        n = 0
+        while True:
+            nxt = sampler.sample(engine.step(token, pos))
+            pos += 1
+            n += 1
+            if nxt in (tok.eos_id, tok.eot_id) or (max_reply is not None
+                                                   and n >= max_reply):
+                write("\n\n")
+                break
+            write(tok.decode_piece(token, nxt).decode("utf-8", errors="replace"))
+            token = nxt
+        turns += 1

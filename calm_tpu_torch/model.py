@@ -1,25 +1,32 @@
-"""The dense decoder-only transformer in PyTorch: greedy decode of fp8/fp16
-Llama/Mistral-family models (the port of ``calm_tpu.model``'s decode path).
+"""The dense decoder-only transformer in PyTorch: decode and batched
+prefill of fp8/fp16/gf4 Llama/Mistral-family models (the port of
+``calm_tpu.model``'s decode and prefill paths).
 
 Tensor layouts match the JAX package at every public function: weights
-are layer-stacked (L, d, n) in storage dtype, the KV cache is head-major
-(L, B, KVH, S, hd). A decode step runs, for one token per sequence slot:
+are layer-stacked (L, d, n) in storage dtype (gf4: (L, d, n/8) int32
+words), the KV cache is head-major (L, B, KVH, S, hd). A decode step runs,
+for one token per sequence slot:
 
 1. embed the token;
 2. prime layer 0's q/k/v (attn-norm + three ``qmm_decode`` matvecs);
 3. per layer: bias, qk-norm, clip, interleaved RoPE, sink re-rotation
    once the window has wrapped, ``decode_attention`` in fresh mode (the
    current K/V ride into the kernel; the cache write is deferred), then
-   ``qx_offn_qkv`` for wo through w2 plus the next layer's q/k/v
-   (``calm_tpu/model.py:1224-1285``);
+   ``qx_offn_qkv`` (fp8/fp16) or ``gf4_offn_qkv`` (gf4) for wo through w2
+   plus the next layer's q/k/v (``calm_tpu/model.py:1192-1285``);
 4. one cache write for all layers (``model.py:1289-1306``);
 5. final norm and the lm-head through ``qmm_decode``.
 
 Models whose dims are not 128-aligned take the same step with per-op
-matvecs in place of the fused epilogue. On the card every matvec and the
-attention go through the Hopper kernels; on the CPU the wrappers run
-their plain versions. MoE, parallel-norm archs and, on the card, gf4 and
-fp8e4 weights belong to later slices and raise NotImplementedError.
+matvecs in place of the fused epilogue. :func:`prefill` runs T
+tokens per sequence at once (``model.py:1363-1374``): per layer the
+projections, bias/qk-norm/clip, RoPE over T positions, the write of the T
+rows into the cache, then ``prefill_attention`` reading them back, then wo
+and the FFN per op. On the card every product and the attention go
+through the Hopper kernels (products of more than 16 rows of fp8/fp16, or
+17..31 of gf4, through ``dense_matmul``; gf4's w2 product through
+``qmm_prefill_w2``); on the CPU the wrappers run their plain versions. MoE, parallel-norm archs and, on the card, fp8e4 weights
+belong to later slices and raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -32,11 +39,15 @@ import torch
 
 from calm_tpu_torch.config import ModelConfig
 from calm_tpu_torch.container import TensorFile, to_torch
-from calm_tpu_torch.ops.hopper_attn import decode_attention
-from calm_tpu_torch.ops.hopper_qmm import (act, qmm_decode, qx_offn_qkv,
+from calm_tpu_torch.ops.hopper_attn import decode_attention, prefill_attention
+from calm_tpu_torch.ops.hopper_qmm import (MAX_ROWS, act, gf4_offn_qkv,
+                                           gf4_offn_supported, mm_supported,
+                                           qmm_decode, qmm_prefill,
+                                           qmm_prefill_w2, qx_offn_qkv,
                                            qx_offn_supported)
 from calm_tpu_torch.ops.norms import rmsnorm
-from calm_tpu_torch.ops.qmm import STORAGE, QTensor, embed_lookup, qmatmul
+from calm_tpu_torch.ops.qmm import (STORAGE, QTensor, dense_matmul,
+                                    embed_lookup, qmatmul)
 from calm_tpu_torch.ops.rope import apply_rope, rope_tables
 
 KV_SINKS = 2  # attention sinks kept live in the rolling window
@@ -92,10 +103,8 @@ def check_supported(cfg: ModelConfig, device) -> None:
     if cfg.norm_par:
         raise NotImplementedError(
             "parallel attn+ffn norm (norm_par) is not ported yet")
-    if torch.device(device).type == "cuda" and cfg.dtype not in ("fp8", "fp16"):
-        raise NotImplementedError(
-            f"{cfg.dtype} weights on the GPU wait for the "
-            f"{'gf4' if cfg.dtype == 'gf4' else 'fp8e4'} slice")
+    if torch.device(device).type == "cuda" and cfg.dtype == "fp8e4":
+        raise NotImplementedError("fp8e4 weights on the GPU wait for the fp8e4 slice")
 
 
 # ---------------------------------------------------------------------------
@@ -222,13 +231,25 @@ def _norm(cfg: ModelConfig, x, weight):
 
 
 def _mv(x: torch.Tensor, qt: QTensor, layer=None) -> torch.Tensor:
-    """Decode matvec: the Hopper kernel's wrapper for fp8/fp16 (plain on
-    the CPU); the plain f32 path for the other formats on the CPU only."""
-    if qt.fmt in ("fp8", "fp16"):
+    """Decode matvec: the Hopper kernels' wrapper for fp8/fp16/gf4 (plain
+    on the CPU); the plain f32 path for fp8e4 on the CPU only."""
+    if qt.fmt in ("fp8", "fp16", "gf4"):
         return qmm_decode(x, qt.data, qt.fmt, layer)
     if x.is_cuda:
         raise NotImplementedError(f"no CUDA matvec for {qt.fmt} yet")
     return qmatmul(x, qt, layer)
+
+
+def _mm(x: torch.Tensor, qt: QTensor, layer=None, w2: bool = False) -> torch.Tensor:
+    """x (R, n) @ W[layer]^T for any row count, routed as
+    ``calm_tpu.ops.qmm.qmatmul``: <= 16 rows to the matvec kernels, gf4
+    from 32 rows to the gf4 matmul kernel (``qmm_prefill_w2`` for the FFN's
+    w2, as ``qmatmul_w2t``), the rest to ``dense_matmul``."""
+    if x.shape[0] <= MAX_ROWS:
+        return _mv(x, qt, layer)
+    if mm_supported(x.shape[0], qt.data, qt.fmt):
+        return (qmm_prefill_w2 if w2 else qmm_prefill)(x, qt.data, layer)
+    return dense_matmul(x, qt, layer)
 
 
 def _embed(embed: QTensor, tokens: torch.Tensor):
@@ -237,8 +258,10 @@ def _embed(embed: QTensor, tokens: torch.Tensor):
 
 def _fused(cfg: ModelConfig, w: Weights, B: int) -> bool:
     lw = w.layers
-    return qx_offn_supported(lw.wq.fmt, B, (cfg.dim, lw.w1.data.shape[1],
-                                             cfg.q_dim, cfg.kv_dim))
+    shapes = (cfg.dim, lw.w1.data.shape[1], cfg.q_dim, cfg.kv_dim)
+    if lw.wq.fmt == "gf4":
+        return gf4_offn_supported(B, shapes)
+    return qx_offn_supported(lw.wq.fmt, B, shapes)
 
 
 @dataclasses.dataclass
@@ -261,6 +284,30 @@ def _rotate_sinks(cache: KVCache, layer: int, st: _Step):
     cache.k[layer, :, :, :KV_SINKS, :] = rot.transpose(1, 2).to(cache.k.dtype)
 
 
+def _qkv_post(cfg: ModelConfig, lw: LayerWeights, layer: int, q, k, v):
+    """Bias, qk-norm and clip on projected (rows, dim) q/k/v, in the JAX
+    order (``calm_tpu/model.py:930-941``)."""
+    if lw.bq is not None:  # added after the carried projections
+        q, k, v = q + lw.bq[layer], k + lw.bk[layer], v + lw.bv[layer]
+    if cfg.norm_qk:
+        q = q * torch.rsqrt((q * q).sum(-1, keepdim=True) / cfg.q_dim
+                            + cfg.norm_eps) * lw.q_norm[layer]
+        k = k * torch.rsqrt((k * k).sum(-1, keepdim=True) / cfg.kv_dim
+                            + cfg.norm_eps) * lw.k_norm[layer]
+    if math.isfinite(cfg.qkv_clip):
+        c = cfg.qkv_clip
+        q, k, v = q.clamp(-c, c), k.clamp(-c, c), v.clamp(-c, c)
+    return q, k, v
+
+
+def _ffn(cfg: ModelConfig, lw: LayerWeights, layer: int, x, att):
+    """wo + residual, ffn-norm, w1/w3 + activation, w2 + residual, per op."""
+    x = x + _mm(att, lw.wo, layer)
+    xb2 = _norm(cfg, x, lw.ffn_norm[layer])
+    h = act(_mm(xb2, lw.w1, layer), cfg.act_gelu) * _mm(xb2, lw.w3, layer)
+    return x + _mm(h, lw.w2, layer, w2=True)
+
+
 def _layer(cfg: ModelConfig, lw: LayerWeights, layer: int, x, qkv, cache,
            st: _Step, fused: bool):
     """One layer on x (B, D). ``qkv`` is this layer's (q, k, v) from the
@@ -273,18 +320,7 @@ def _layer(cfg: ModelConfig, lw: LayerWeights, layer: int, x, qkv, cache,
         xb = _norm(cfg, x, lw.attn_norm[layer])
         qkv = (_mv(xb, lw.wq, layer), _mv(xb, lw.wk, layer),
                _mv(xb, lw.wv, layer))
-    q, k, v = qkv
-    if lw.bq is not None:  # added after the carried projections
-        q, k, v = q + lw.bq[layer], k + lw.bk[layer], v + lw.bv[layer]
-    if cfg.norm_qk:
-        q = q * torch.rsqrt((q * q).sum(-1, keepdim=True) / cfg.q_dim
-                            + cfg.norm_eps) * lw.q_norm[layer]
-        k = k * torch.rsqrt((k * k).sum(-1, keepdim=True) / cfg.kv_dim
-                            + cfg.norm_eps) * lw.k_norm[layer]
-    if math.isfinite(cfg.qkv_clip):
-        c = cfg.qkv_clip
-        q, k, v = q.clamp(-c, c), k.clamp(-c, c), v.clamp(-c, c)
-
+    q, k, v = _qkv_post(cfg, lw, layer, *qkv)
     q = apply_rope(q.reshape(B, H, hd), st.cos, st.sin)
     k = apply_rope(k.reshape(B, KVH, hd), st.cos, st.sin)
     kc = k.to(cache.k.dtype).contiguous()
@@ -297,21 +333,21 @@ def _layer(cfg: ModelConfig, lw: LayerWeights, layer: int, x, qkv, cache,
     att = att.reshape(B, H * hd)
 
     if fused:
-        x, qn, kn, vn = qx_offn_qkv(
-            att, x, lw.ffn_norm, lw.attn_norm, lw.wo.data, lw.w1.data,
-            lw.w3.data, lw.w2.data, lw.wq.data, lw.wk.data, lw.wv.data,
-            layer, lw.wq.fmt, cfg.act_gelu, cfg.norm_eps, cfg.norm_ln)
+        ws = (att, x, lw.ffn_norm, lw.attn_norm, lw.wo.data, lw.w1.data,
+              lw.w3.data, lw.w2.data, lw.wq.data, lw.wk.data, lw.wv.data, layer)
+        tail = (cfg.act_gelu, cfg.norm_eps, cfg.norm_ln)
+        if lw.wq.fmt == "gf4":
+            x, qn, kn, vn = gf4_offn_qkv(*ws, *tail)
+        else:
+            x, qn, kn, vn = qx_offn_qkv(*ws, lw.wq.fmt, *tail)
         return x, (qn, kn, vn), (kc, vc)
 
-    x = x + _mv(att, lw.wo, layer)
-    xb2 = _norm(cfg, x, lw.ffn_norm[layer])
-    h = act(_mv(xb2, lw.w1, layer), cfg.act_gelu) * _mv(xb2, lw.w3, layer)
-    x = x + _mv(h, lw.w2, layer)
-    return x, None, (kc, vc)
+    return _ffn(cfg, lw, layer, x, att), None, (kc, vc)
 
 
 def _head(cfg: ModelConfig, w: Weights, x):
-    return _mv(_norm(cfg, x, w.final_norm), w.output)
+    """Final norm and the lm-head on x (rows, D)."""
+    return _mm(_norm(cfg, x, w.final_norm), w.output)
 
 
 def _step_state(cfg: ModelConfig, pos: int, B: int, device) -> _Step:
@@ -375,6 +411,58 @@ def decode_loop(cfg: ModelConfig, w: Weights, token: torch.Tensor, pos0: int,
         toks.append(token)
         logits.append(out)
     return torch.stack(toks, 1), cache, torch.stack(logits)
+
+
+def _prefill_layer(cfg: ModelConfig, lw: LayerWeights, layer: int, x,
+                   cache: KVCache, starts: list[int], cos, sin, pos0, kv_len):
+    """One layer on x (B*T, D), in the JAX order (``calm_tpu/model.py``
+    :915-1059, :1112-1149): the T fresh K/V rows are in the cache before
+    the attention reads it."""
+    B, T = len(starts), x.shape[0] // len(starts)
+    hd, H, KVH = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    xb = _norm(cfg, x, lw.attn_norm[layer])
+    q, k, v = _qkv_post(cfg, lw, layer, _mm(xb, lw.wq, layer),
+                        _mm(xb, lw.wk, layer), _mm(xb, lw.wv, layer))
+    q = apply_rope(q.reshape(B, T, H, hd), cos, sin)
+    k = apply_rope(k.reshape(B, T, KVH, hd), cos, sin)
+    kh = k.to(cache.k.dtype).transpose(1, 2)              # (B, KVH, T, hd)
+    vh = v.reshape(B, T, KVH, hd).to(cache.k.dtype).transpose(1, 2)
+    for b, p in enumerate(starts):
+        cache.k[layer, b, :, p:p + T] = kh[b]
+        cache.v[layer, b, :, p:p + T] = vh[b]
+    att = prefill_attention(q.reshape(B, T, KVH, H // KVH, hd).contiguous(),
+                            cache.k, cache.v, pos0, kv_len, layer)
+    return _ffn(cfg, lw, layer, x, att.reshape(B * T, H * hd))
+
+
+@torch.no_grad()
+def prefill(cfg: ModelConfig, w: Weights, tokens: torch.Tensor, pos0,
+            cache: KVCache, logits_mode: str = "last"):
+    """Batched prompt processing (``calm_tpu/model.py:1363-1374``): tokens
+    (B, T) int64 at positions pos0[b] + t, pos0 (B,) ints. Requires
+    pos0 + T <= seq_len (a prefill never rolls). Returns (logits, cache):
+    logits (B, V) for ``"last"``, (B, T, V) for ``"all"``, None for
+    ``"none"``; the cache is updated in place."""
+    if logits_mode not in ("last", "all", "none"):
+        raise ValueError(f"unknown logits_mode {logits_mode!r}")
+    B, T = tokens.shape
+    dev = tokens.device
+    starts = [int(p) for p in torch.as_tensor(pos0).reshape(-1).tolist()]
+    if len(starts) != B or min(starts) < 0 or max(starts) + T > cfg.seq_len:
+        raise ValueError(f"prefill needs B={B} starts with start + {T} <= "
+                         f"{cfg.seq_len}, got {starts}")
+    p0 = torch.tensor(starts, dtype=torch.int32, device=dev)
+    pos = p0[:, None].long() + torch.arange(T, device=dev)  # (B, T)
+    cos, sin = rope_tables(pos, cfg.head_dim, cfg.rope_theta, cfg.rotary_dim)
+    x = _embed(w.embed, tokens).reshape(B * T, cfg.dim)
+    for layer in range(cfg.n_layers):
+        x = _prefill_layer(cfg, w.layers, layer, x, cache, starts, cos, sin,
+                           p0, p0 + T)
+    if logits_mode == "none":
+        return None, cache
+    if logits_mode == "last":
+        return _head(cfg, w, x.reshape(B, T, -1)[:, -1]), cache
+    return _head(cfg, w, x).reshape(B, T, -1), cache
 
 
 def logits_hash(logits: np.ndarray) -> int:

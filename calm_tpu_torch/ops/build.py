@@ -24,7 +24,7 @@ from calm_tpu_torch.device import nvcc_path
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("qmm", "attn")
+SOURCES = ("qmm", "attn", "gf4")
 ARCH = "arch=compute_90a,code=sm_90a"
 
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -37,6 +37,11 @@ SIGNATURES = {
     },
     "attn": {
         "calm_decode_attention": [P] * 11 + [I] * 8 + [P],
+        "calm_prefill_attention": [P] * 6 + [I] * 8 + [P],
+    },
+    "gf4": {
+        "calm_gf4_matvec": [P, P, P, I, I, I, P],
+        "calm_gf4_matmul": [P, P, P, I, I, I, P],
     },
 }
 

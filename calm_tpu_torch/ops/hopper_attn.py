@@ -1,11 +1,13 @@
-"""Flash-decode attention on Hopper: the port of pallas_attn's decode kernel.
+"""Flash attention on Hopper: the ports of pallas_attn's two kernels.
 
-:func:`decode_attention` replaces ``_attn_body``
-(``calm_tpu/ops/pallas_attn.py:77``) in its plain and fresh modes; the
-kernel lives in ``csrc/attn.cu``. The wrapper takes the plain PyTorch
-version (:func:`decode_attention_plain`, f32) for tensors on the CPU, and
-launches the kernel for CUDA tensors or raises; it counts its launches in
-``decode_attention.launches``.
+- :func:`decode_attention` replaces ``_attn_body``
+  (``calm_tpu/ops/pallas_attn.py:77``) in its plain and fresh modes;
+- :func:`prefill_attention` replaces ``_prefill_kernel`` (``:326``): causal
+  attention of T queries against the carried cache.
+
+Both kernels live in ``csrc/attn.cu``. Each wrapper takes its plain PyTorch
+version (``*_plain``, f32) for tensors on the CPU, and launches the kernel
+for CUDA tensors or raises; it counts its launches in ``.launches``.
 """
 
 from __future__ import annotations
@@ -113,3 +115,66 @@ def decode_attention(q, k_cache, v_cache, kv_len, layer, fresh=None):
 
 
 decode_attention.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K13: prefill_attention
+# ---------------------------------------------------------------------------
+
+
+def prefill_attention_plain(q, k_cache, v_cache, pos0, kv_len, layer):
+    """Masked softmax in f32 over the cache rows any query can see."""
+    B, T, KVH, M, hd = q.shape
+    n = max(1, min(k_cache.shape[3], int(kv_len.max())))
+    dev = q.device
+    kc = k_cache[int(layer), :, :, :n].float()            # (B, KVH, n, hd)
+    vc = v_cache[int(layer), :, :, :n].float()
+    scores = torch.einsum("btkmh,bksh->bkmts", q.float(), kc) / math.sqrt(hd)
+    col = torch.arange(n, device=dev)
+    qpos = pos0.to(dev).long()[:, None] + torch.arange(T, device=dev)  # (B, T)
+    ok = ((col[None, None, :] < kv_len.to(dev).long()[:, None, None])
+          & (col[None, None, :] <= qpos[:, :, None]))     # (B, T, n)
+    scores = scores.masked_fill(~ok[:, None, None], float("-inf"))
+    m = scores.amax(-1, keepdim=True)
+    p = torch.exp(scores - torch.where(torch.isfinite(m), m, torch.zeros_like(m)))
+    out = torch.einsum("bkmts,bksh->btkmh", p, vc)
+    l = p.sum(-1).permute(0, 3, 1, 2)[..., None]           # (B, T, KVH, M, 1)
+    return out / l.clamp_min(1e-37)
+
+
+def prefill_attention(q, k_cache, v_cache, pos0, kv_len, layer):
+    """q (B, T, KVH, M, hd) f32; caches (L, B, KVH, S, hd) in
+    bf16/fp16/fp8-e5m2 holding the T fresh rows already; pos0, kv_len (B,)
+    int32 -> (B, T, KVH, M, hd) f32. Query t of sequence b sits at position
+    pos0[b] + t and sees cache rows col < kv_len[b], col <= pos0[b] + t. On
+    the card K/V enter the tensor cores as bf16 (exact for bf16 and e5m2
+    caches, rounded for fp16), and q and p rounded once to bf16, as the TPU
+    kernel rounds them; sums in f32."""
+    if q.device.type == "cpu":
+        return prefill_attention_plain(q, k_cache, v_cache, pos0, kv_len, layer)
+    B, T, KVH, M, hd = q.shape
+    L, Bc, KVHc, S, hd_c = k_cache.shape
+    _check(q.dtype == torch.float32 and q.is_contiguous(), "q must be contiguous float32")
+    _check(k_cache.dtype in _KV_CODE and v_cache.dtype == k_cache.dtype,
+           f"no CUDA kernel for a {k_cache.dtype} cache")
+    _check(tuple(v_cache.shape) == tuple(k_cache.shape) and Bc == B
+           and KVHc == KVH and hd_c == hd, "cache shape mismatch")
+    _check(k_cache.is_contiguous() and v_cache.is_contiguous(), "caches must be contiguous")
+    _check(hd in (64, 128), "the attention kernel takes head_dim 64 or 128")
+    _check(1 <= M <= 64, "the prefill kernel takes 1..64 query heads per kv head")
+    _check(0 <= int(layer) < L, f"layer {layer} out of range for {L}")
+    for t in (pos0, kv_len):
+        _check(t.dtype == torch.int32 and tuple(t.shape) == (B,) and t.device == q.device,
+               "pos0 and kv_len must be (B,) int32 on the card")
+    _check(k_cache.device == q.device, "all inputs must be on one device")
+    out = torch.empty_like(q)
+    rc = build.lib("attn").calm_prefill_attention(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), pos0.data_ptr(),
+        kv_len.data_ptr(), out.data_ptr(), B, T, KVH, M, S, hd, int(layer),
+        _KV_CODE[k_cache.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+    build.check("attn", rc)
+    prefill_attention.launches += 1
+    return out
+
+
+prefill_attention.launches = 0

@@ -1,14 +1,26 @@
-"""Decode matvecs on Hopper: the ports of pallas_qmm's fp8/fp16 kernels.
+"""Quantized products on Hopper: the ports of pallas_qmm's kernels.
 
 - :func:`qmm_decode` replaces ``_layered_qmm_kernel``
-  (``calm_tpu/ops/pallas_qmm.py:92``): y = x . dequant(W[layer])^T.
+  (``calm_tpu/ops/pallas_qmm.py:92``): y = x . dequant(W[layer])^T for
+  fp8/fp16 (``csrc/qmm.cu``); gf4 goes to :func:`qmm_decode_gf4`.
+- :func:`qmm_decode_gf4` replaces ``_layered_gf4_kernel`` (``:100``): the
+  same matvec on natural gf4 words, B <= 16 (``csrc/gf4.cu``).
+- :func:`qmm_prefill` replaces ``_gf4_mm_kernel`` (``:238``): the gf4
+  product for R >= 32 rows (``csrc/gf4.cu``), eligibility as
+  ``mm_supported`` (``:275-283``).
+- :func:`qmm_prefill_w2` replaces ``_gf4_mmt_kernel`` (``:346``): the
+  FFN's w2 product at prefill. The TPU kernel reads word-transposed w2 for
+  Mosaic; on natural words it is K4's product and launches K4's kernel.
 - :func:`qx_offn_qkv` replaces ``_qx_offn_qkv_kernel`` (``:942``): one
   layer's wo + residual, ffn-norm, w1/w3 + activation, w2 + residual and
-  the next layer's attn-norm + q/k/v.
+  the next layer's attn-norm + q/k/v (``csrc/qmm.cu``).
+- :func:`gf4_offn_qkv` replaces ``_gf4_offn_qkv_kernel`` (``:737``): the
+  same epilogue on natural gf4 words (``csrc/qmm.cu``, fmt 2), where the
+  TPU kernel reads plane-permuted layouts.
 
-Both kernels live in ``csrc/qmm.cu``. Each wrapper takes its plain PyTorch
-version (``*_plain``, f32) for tensors on the CPU, and launches the kernel
-for CUDA tensors or raises; it counts its launches in ``.launches``.
+Each wrapper takes its plain PyTorch version (``*_plain``, f32) for tensors
+on the CPU, and launches the kernel for CUDA tensors or raises; it counts
+its launches in ``.launches``.
 """
 
 from __future__ import annotations
@@ -20,8 +32,10 @@ from calm_tpu_torch.ops import build
 from calm_tpu_torch.ops.norms import rmsnorm
 from calm_tpu_torch.ops.qmm import STORAGE, QTensor, dequant
 
-_FMT_CODE = {"fp16": 0, "fp8": 1}
+_FMT_CODE = {"fp16": 0, "fp8": 1}  # qmm_decode, qx_offn_qkv
+_OFFN_CODE = dict(_FMT_CODE, gf4=2)  # the epilogue launches of csrc/qmm.cu
 MAX_ROWS = 16
+MIN_MM_ROWS = 32  # qmm_prefill's least row count (pallas_qmm.mm_supported)
 MAX_NORM_DIM = 16384  # norm_kernel: 1024 threads x 4 float4 in registers
 
 
@@ -35,7 +49,7 @@ def _check(cond: bool, msg: str) -> None:
 
 
 def _check_cuda(fmt: str, x: torch.Tensor, weights) -> None:
-    _check(fmt in _FMT_CODE, f"no CUDA kernel for weight format {fmt!r}")
+    _check(fmt in _OFFN_CODE, f"no CUDA kernel for weight format {fmt!r}")
     _check(x.dtype == torch.float32 and x.is_contiguous(),
            "activations must be contiguous float32")
     _check(x.data_ptr() % 16 == 0, "activations must be 16-byte aligned")
@@ -74,7 +88,9 @@ def qmm_decode_plain(x: torch.Tensor, w: torch.Tensor, fmt: str,
 def qmm_decode(x: torch.Tensor, w: torch.Tensor, fmt: str,
                layer=None) -> torch.Tensor:
     """x (B, n) f32 @ W[layer]^T for W (L, d, n) (or (d, n)) in storage
-    dtype -> (B, d) f32."""
+    dtype, (L, d, n/8) int32 words for gf4 -> (B, d) f32."""
+    if fmt == "gf4":
+        return qmm_decode_gf4(x, w, layer)
     if x.device.type == "cpu":
         return qmm_decode_plain(x, w, fmt, layer)
     wl = _plane(w, layer)
@@ -93,6 +109,97 @@ def qmm_decode(x: torch.Tensor, w: torch.Tensor, fmt: str,
 
 
 qmm_decode.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K3 and K4: gf4 matvec and matmul
+# ---------------------------------------------------------------------------
+
+
+def _check_gf4(x: torch.Tensor, wl: torch.Tensor) -> tuple[int, int, int]:
+    _check(x.dtype == torch.float32 and x.is_contiguous() and x.ndim == 2,
+           "activations must be contiguous 2-D float32")
+    _check(x.data_ptr() % 16 == 0, "activations must be 16-byte aligned")
+    _check(wl.device == x.device, "weights and activations on different devices")
+    _check(wl.dtype == torch.int32 and wl.is_contiguous(),
+           "gf4 weights must be contiguous int32 words")
+    R, n = x.shape
+    d, n8 = wl.shape
+    _check(n == 8 * n8, f"x has {n} columns, W has {n8} words (x8) per row")
+    return R, d, n8
+
+
+def qmm_decode_gf4_plain(x: torch.Tensor, w: torch.Tensor,
+                         layer=None) -> torch.Tensor:
+    return qmm_decode_plain(x, w, "gf4", layer)
+
+
+def qmm_decode_gf4(x: torch.Tensor, w: torch.Tensor, layer=None) -> torch.Tensor:
+    """x (B <= 16, n) f32 @ W[layer]^T for gf4 words W (L, d, n/8) (or
+    (d, n/8)) -> (B, d) f32."""
+    if x.device.type == "cpu":
+        return qmm_decode_gf4_plain(x, w, layer)
+    wl = _plane(w, layer)
+    B, d, n8 = _check_gf4(x, wl)
+    _check(1 <= B <= MAX_ROWS, f"the decode kernel takes 1..{MAX_ROWS} rows")
+    y = torch.empty((B, d), dtype=torch.float32, device=x.device)
+    rc = build.lib("gf4").calm_gf4_matvec(x.data_ptr(), wl.data_ptr(),
+                                          y.data_ptr(), B, d, n8, _stream(x))
+    build.check("gf4", rc)
+    qmm_decode_gf4.launches += 1
+    return y
+
+
+qmm_decode_gf4.launches = 0
+
+
+def mm_supported(rows: int, wdata: torch.Tensor, fmt: str) -> bool:
+    """qmm_prefill's eligibility, as pallas_qmm.mm_supported: gf4 words and
+    prefill-sized row counts (<= 16 rows keep the matvec; 17..31 take the
+    dequantized matmul)."""
+    return fmt == "gf4" and wdata.ndim in (2, 3) and rows >= MIN_MM_ROWS
+
+
+qmm_prefill_plain = qmm_decode_gf4_plain  # the same function, any row count
+qmm_prefill_w2_plain = qmm_decode_gf4_plain
+
+
+def _gf4_matmul(x: torch.Tensor, w: torch.Tensor, layer) -> torch.Tensor:
+    wl = _plane(w, layer)
+    R, d, n8 = _check_gf4(x, wl)
+    _check(R >= MIN_MM_ROWS, f"the matmul kernel takes >= {MIN_MM_ROWS} rows")
+    y = torch.empty((R, d), dtype=torch.float32, device=x.device)
+    rc = build.lib("gf4").calm_gf4_matmul(x.data_ptr(), wl.data_ptr(),
+                                          y.data_ptr(), R, d, n8, _stream(x))
+    build.check("gf4", rc)
+    return y
+
+
+def qmm_prefill(x: torch.Tensor, w: torch.Tensor, layer=None) -> torch.Tensor:
+    """x (R >= 32, n) f32 @ W[layer]^T for gf4 words W (L, d, n/8) (or
+    (d, n/8)) -> (R, d) f32. On the card the weights decode exactly to
+    bf16 and x is rounded once to bf16, as the TPU kernel rounds it."""
+    if x.device.type == "cpu":
+        return qmm_prefill_plain(x, w, layer)
+    y = _gf4_matmul(x, w, layer)
+    qmm_prefill.launches += 1
+    return y
+
+
+qmm_prefill.launches = 0
+
+
+def qmm_prefill_w2(h: torch.Tensor, w2: torch.Tensor, layer=None) -> torch.Tensor:
+    """The FFN's down product at prefill: h (R >= 32, H) f32 @ w2[layer]^T
+    for gf4 words w2 (L, D, H/8) -> (R, D) f32, as :func:`qmm_prefill`."""
+    if h.device.type == "cpu":
+        return qmm_prefill_w2_plain(h, w2, layer)
+    y = _gf4_matmul(h, w2, layer)
+    qmm_prefill_w2.launches += 1
+    return y
+
+
+qmm_prefill_w2.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -121,18 +228,11 @@ def qx_offn_qkv_plain(a, r, g, anx, wo, w1, w3, w2, wq, wk, wv, layer,
     return x, mv(xq, wq, ln), mv(xq, wk, ln), mv(xq, wv, ln)
 
 
-def qx_offn_qkv(a, r, g, anx, wo, w1, w3, w2, wq, wk, wv, layer, fmt: str,
-                act_gelu: bool, eps: float, sub_mean: bool):
-    """a (B, Qd) f32 attention output; r (B, D) f32 residual; g/anx (L, D)
-    f32 ffn/attn norm weights; wo (L, D, Qd), w1/w3 (L, H, D), w2 (L, D, H),
-    wq (L, Qd, D), wk/wv (L, KVd, D) in storage dtype ->
-    (x_new (B, D), q (B, Qd), k (B, KVd), v (B, KVd)) with q/k/v projected
-    from layer + 1, clamped to L - 1, without bias, clip or qk-norm.
-    On CUDA, q, k and v are views of one (B, Qd + 2 KVd) buffer."""
-    if a.device.type == "cpu":
-        return qx_offn_qkv_plain(a, r, g, anx, wo, w1, w3, w2, wq, wk, wv,
-                                 layer, fmt, act_gelu, eps, sub_mean)
-    L, D, Qd = wo.shape
+def _offn_qkv(a, r, g, anx, wo, w1, w3, w2, wq, wk, wv, layer, fmt: str,
+              act_gelu: bool, eps: float, sub_mean: bool):
+    gs = 8 if fmt == "gf4" else 1  # values per stored element
+    L, D = wo.shape[:2]
+    Qd = wo.shape[2] * gs
     H = w1.shape[1]
     KVd = wk.shape[1]
     B = a.shape[0]
@@ -141,10 +241,11 @@ def qx_offn_qkv(a, r, g, anx, wo, w1, w3, w2, wq, wk, wv, layer, fmt: str,
     _check(1 <= B <= MAX_ROWS, f"the decode kernel takes 1..{MAX_ROWS} rows")
     _check(tuple(a.shape) == (B, Qd) and tuple(r.shape) == (B, D),
            "attention output / residual shape mismatch")
-    _check(tuple(w1.shape) == (L, H, D) and tuple(w3.shape) == (L, H, D)
-           and tuple(w2.shape) == (L, D, H) and tuple(wq.shape) == (L, Qd, D)
-           and tuple(wk.shape) == (L, KVd, D)
-           and tuple(wv.shape) == (L, KVd, D), "weight stack shape mismatch")
+    _check(tuple(w1.shape) == (L, H, D // gs) and tuple(w3.shape) == (L, H, D // gs)
+           and tuple(w2.shape) == (L, D, H // gs)
+           and tuple(wq.shape) == (L, Qd, D // gs)
+           and tuple(wk.shape) == (L, KVd, D // gs)
+           and tuple(wv.shape) == (L, KVd, D // gs), "weight stack shape mismatch")
     _check_cuda(fmt, a, [wo, w1, w3, w2, wq, wk, wv])
     for t in (r, g, anx):
         _check(t.dtype == torch.float32 and t.is_contiguous()
@@ -164,20 +265,69 @@ def qx_offn_qkv(a, r, g, anx, wo, w1, w3, w2, wq, wk, wv, layer, fmt: str,
         _plane_ptr(wo, l), _plane_ptr(w1, l), _plane_ptr(w3, l),
         _plane_ptr(w2, l), _plane_ptr(wq, ln), _plane_ptr(wk, ln),
         _plane_ptr(wv, ln), r1.data_ptr(), xn.data_ptr(), h.data_ptr(),
-        x.data_ptr(), qkv.data_ptr(), B, D, H, Qd, KVd, _FMT_CODE[fmt],
+        x.data_ptr(), qkv.data_ptr(), B, D, H, Qd, KVd, _OFFN_CODE[fmt],
         int(act_gelu), float(eps), int(sub_mean), _stream(a))
     build.check("qmm", rc)
-    qx_offn_qkv.launches += 1
     return (x, qkv[:, :Qd], qkv[:, Qd:Qd + KVd], qkv[:, Qd + KVd:])
 
 
+def qx_offn_qkv(a, r, g, anx, wo, w1, w3, w2, wq, wk, wv, layer, fmt: str,
+                act_gelu: bool, eps: float, sub_mean: bool):
+    """a (B, Qd) f32 attention output; r (B, D) f32 residual; g/anx (L, D)
+    f32 ffn/attn norm weights; wo (L, D, Qd), w1/w3 (L, H, D), w2 (L, D, H),
+    wq (L, Qd, D), wk/wv (L, KVd, D) in storage dtype ->
+    (x_new (B, D), q (B, Qd), k (B, KVd), v (B, KVd)) with q/k/v projected
+    from layer + 1, clamped to L - 1, without bias, clip or qk-norm.
+    On CUDA, q, k and v are views of one (B, Qd + 2 KVd) buffer."""
+    if a.device.type == "cpu":
+        return qx_offn_qkv_plain(a, r, g, anx, wo, w1, w3, w2, wq, wk, wv,
+                                 layer, fmt, act_gelu, eps, sub_mean)
+    _check(fmt in _FMT_CODE, f"qx_offn_qkv takes fp8/fp16 weights, not {fmt!r}")
+    out = _offn_qkv(a, r, g, anx, wo, w1, w3, w2, wq, wk, wv, layer, fmt,
+                    act_gelu, eps, sub_mean)
+    qx_offn_qkv.launches += 1
+    return out
+
+
 qx_offn_qkv.launches = 0
+
+
+def gf4_offn_qkv_plain(a, r, g, anx, wo, w1, w3, w2, wq, wk, wv, layer,
+                       act_gelu: bool, eps: float, sub_mean: bool):
+    return qx_offn_qkv_plain(a, r, g, anx, wo, w1, w3, w2, wq, wk, wv, layer,
+                             "gf4", act_gelu, eps, sub_mean)
+
+
+def gf4_offn_qkv(a, r, g, anx, wo, w1, w3, w2, wq, wk, wv, layer,
+                 act_gelu: bool, eps: float, sub_mean: bool):
+    """:func:`qx_offn_qkv` on natural gf4 words: wo (L, D, Qd/8), w1/w3
+    (L, H, D/8), w2 (L, D, H/8), wq (L, Qd, D/8), wk/wv (L, KVd, D/8)
+    int32."""
+    if a.device.type == "cpu":
+        return gf4_offn_qkv_plain(a, r, g, anx, wo, w1, w3, w2, wq, wk, wv,
+                                  layer, act_gelu, eps, sub_mean)
+    out = _offn_qkv(a, r, g, anx, wo, w1, w3, w2, wq, wk, wv, layer, "gf4",
+                    act_gelu, eps, sub_mean)
+    gf4_offn_qkv.launches += 1
+    return out
+
+
+gf4_offn_qkv.launches = 0
+
+
+def _offn_shapes_ok(B: int, shapes) -> bool:
+    return (B <= MAX_ROWS and shapes[0] <= MAX_NORM_DIM
+            and all(s % 128 == 0 for s in shapes))
 
 
 def qx_offn_supported(fmt: str, B: int, shapes) -> bool:
     """The fused epilogue's eligibility, as pallas_qmm.qx_offn_supported:
     fp8/fp16, decode-sized batch, 128-aligned (D, H, Qd, KVd), and D
     within the norm launch's row limit."""
-    if fmt not in _FMT_CODE or B > MAX_ROWS or shapes[0] > MAX_NORM_DIM:
-        return False
-    return all(s % 128 == 0 for s in shapes)
+    return fmt in _FMT_CODE and _offn_shapes_ok(B, shapes)
+
+
+def gf4_offn_supported(B: int, shapes) -> bool:
+    """:func:`gf4_offn_qkv`'s eligibility on gf4 weights: the same shapes
+    as :func:`qx_offn_supported` (128-aligned dims are whole words)."""
+    return _offn_shapes_ok(B, shapes)

@@ -10,7 +10,8 @@
 
 Layer-stacked weights are (L, d, n_packed), as in ``calm_tpu.ops.qmm``.
 The functions here are the plain f32 reference path: the CPU runs them,
-and the Hopper kernels in ``hopper_qmm`` are held against them.
+and the Hopper kernels in ``hopper_qmm`` are held against them. One more,
+:func:`dense_matmul`, is the product of many rows outside any kernel.
 """
 
 from __future__ import annotations
@@ -52,12 +53,14 @@ class QTensor:
 def gf4_decode_words(words: torch.Tensor,
                      out_dtype=torch.float32) -> torch.Tensor:
     """Decode gf4 int32 words (..., g) -> (..., g*8):
-    value_k = (((w >> (8+3k)) & 7) - 4) * (fp8_e5m2(w & 0xff) / -4)."""
-    w = words.to(torch.int64) & 0xFFFFFFFF
-    scale_bits = (w & 0xFF).to(torch.uint8)
-    scale = scale_bits.view(torch.float8_e5m2).to(out_dtype) * (-0.25)
-    codes = torch.stack([(w >> s) & 7 for s in GF4_SHIFTS], dim=-1)
-    vals = (codes.to(out_dtype) - 4.0) * scale[..., None]
+    value_k = (((w >> (8+3k)) & 7) - 4) * (fp8_e5m2(w & 0xff) / -4).
+    (An arithmetic shift of the int32 word leaves the 3 masked bits exact.)"""
+    w = words.to(torch.int32)
+    scale = (w & 0xFF).to(torch.uint8).view(torch.float8_e5m2).to(out_dtype) * (-0.25)
+    vals = torch.empty(*w.shape, 8, dtype=out_dtype, device=w.device)
+    for k, s in enumerate(GF4_SHIFTS):
+        vals[..., k] = ((w >> s) & 7).to(out_dtype) - 4.0
+    vals *= scale[..., None]
     return vals.reshape(*w.shape[:-1], w.shape[-1] * 8)
 
 
@@ -86,6 +89,22 @@ def qmatmul(x: torch.Tensor, qt: QTensor, layer: int | None = None) -> torch.Ten
     w = dequant(QTensor(data, qt.fmt), torch.float32)
     out = x.float() @ w.transpose(-1, -2)
     return out if scale is None else out * scale.float()
+
+
+def dense_matmul(x: torch.Tensor, qt: QTensor, layer: int | None = None) -> torch.Tensor:
+    """x (R, n) f32 @ W[layer]^T -> (R, d) f32 for the products no kernel
+    takes (fp8/fp16 past 16 rows, gf4 at 17..31). On the card, the JAX fast
+    path (``calm_tpu/ops/qmm.py:189-205``): the plane dequantized to bf16
+    (exact for e5m2 and gf4, rounded for fp16), x rounded to bf16, one
+    library product with an f32 result. On the CPU: :func:`qmatmul`'s f32
+    product."""
+    if x.device.type == "cpu":
+        return qmatmul(x, qt, layer)
+    if qt.scale is not None:
+        raise NotImplementedError(f"no CUDA path for {qt.fmt} weights yet")
+    w = QTensor(qt.data if layer is None else qt.data[layer], qt.fmt)
+    return torch.mm(x.to(torch.bfloat16), dequant(w, torch.bfloat16).T,
+                    out_dtype=torch.float32)
 
 
 def embed_lookup(tokens: torch.Tensor, qt: QTensor,

@@ -3,12 +3,15 @@
     python3 chip_smoke.py
 
 Builds the hand-written kernels from ``calm_tpu_torch/csrc``, holds each
-against its plain PyTorch version at Mistral-7B shapes and times it
-beside its bound, drives ``Engine.generate`` and the CLI on a 2-layer
-Mistral-7B-width fp8 container (checked against the CPU plain path), runs
-the 32-layer Mistral-7B fp8 decode protocol of ``bench.py``, and ends with
-a ``kernels`` JSON line and ``{"ok": true, "device": ...}``. Any failure
-exits non-zero before the last line; without a GPU it exits 1 at once.
+against its plain PyTorch version at Mistral-7B shapes and ragged ones and
+times it beside its bound; drives ``Engine.generate`` (batched prefill,
+then decode), ``prefill_tokens``, ``perplexity`` and the CLI (generate,
+``-x``, ``-y``) on 2-layer Mistral-7B-width fp8 and gf4 containers, each
+checked against the CPU plain path; runs a 2048-token prefill and the
+``bench.py`` decode protocol on 32-layer Mistral-7B fp8 and gf4; and ends
+with a ``kernels`` JSON line and ``{"ok": true, "device": ...}``. Any
+failure exits non-zero before the last line; without a GPU it exits 1 at
+once.
 """
 
 from __future__ import annotations
@@ -22,11 +25,14 @@ import sys
 import tempfile
 import time
 
+import numpy as np
 import torch
 
 PEAK_F32 = 67e12  # H100 SXM, f32 outside the tensor cores (NVIDIA data sheet)
+PEAK_BF16 = 989e12  # H100 SXM, dense bf16 tensor cores (NVIDIA data sheet)
 MISTRAL = dict(dim=4096, hidden_dim=14336, head_dim=128, n_layers=32,
                n_heads=32, n_kv_heads=8, vocab_size=32000)
+D, HID, Q, KV = 4096, 14336, 4096, 1024  # Mistral-7B dim, hidden, q and kv width
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -62,24 +68,64 @@ def kernel_rows(run) -> list[tuple[float, int, str]]:
                   reverse=True)
 
 
-def timed(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Device ms per call: the summed duration of the kernels that
-    ``iters`` calls launch, so that the host's own pace (Python and
-    wrapper checks between launches) does not enter."""
+def timed(fn, iters: int = 20, warmup: int = 3) -> tuple[float, str]:
+    """(ms per call, how it was timed). "cupti": device time, the summed
+    duration of the kernels that ``iters`` calls launch, so that the host's
+    own pace (Python and wrapper checks between launches) does not enter.
+    "events": when the profiler sees no device time twice (CUPTI drops a
+    session now and then), CUDA events around the ``iters`` calls, host
+    gaps included."""
     for i in range(warmup):
         fn(i)
 
     def run():
         for i in range(iters):
             fn(i)
-    rows = kernel_rows(run)
-    if not rows:
-        fail("the profiler saw no device time")
-    return sum(r[0] for r in rows) / 1e3 / iters
+    for _ in range(2):
+        rows = kernel_rows(run)
+        if rows:
+            return sum(r[0] for r in rows) / 1e3 / iters, "cupti"
+    log("# timed: the profiler saw no device time; CUDA events instead")
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    run()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters, "events"
 
 
-def bound_ms(nbytes: float, ops: float, gbps: float) -> tuple[float, str]:
-    tb, to = nbytes / (gbps * 1e9) * 1e3, ops / PEAK_F32 * 1e3
+def timings(kernel, plain, library=None, plain_iters: int = 5) -> dict:
+    """ms of a kernel's wrapper, its plain version and the library call
+    (None without one), and ``timed_by``: "events" if any of them fell
+    back to CUDA events, else "cupti"."""
+    hows = []
+
+    def t(fn, *a):
+        ms, how = timed(fn, *a)
+        hows.append(how)
+        return ms
+    out = dict(ms=t(kernel), plain_ms=t(plain, plain_iters, 1),
+               library_ms=None if library is None else t(library))
+    out["timed_by"] = "events" if "events" in hows else "cupti"
+    return out
+
+
+def share(t: dict, b: float) -> str:
+    """The bound's share of the kernel's device time; none for wall time."""
+    if t["timed_by"] != "cupti":
+        return "timed by CUDA events: no share of bound"
+    return f"{100 * b / t['ms']:.1f}% of bound"
+
+
+def ms_line(t: dict) -> str:
+    lib = "n/a" if t["library_ms"] is None else f"{t['library_ms']:.4f}"
+    return (f"kernel_ms {t['ms']:.4f} plain_ms {t['plain_ms']:.4f} library_ms {lib} "
+            f"({t['timed_by']})")
+
+
+def bound_ms(nbytes: float, ops: float, gbps: float,
+             peak: float = PEAK_F32) -> tuple[float, str]:
+    tb, to = nbytes / (gbps * 1e9) * 1e3, ops / peak * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
@@ -87,6 +133,9 @@ def rand_w(shape, fmt, dev):
     if fmt == "fp8":  # small finite e5m2 (exponent <= 7), random sign
         b = torch.randint(0, 256, shape, device=dev, dtype=torch.int32) & 0x9F
         return b.to(torch.uint8).view(torch.float8_e5m2)
+    if fmt == "gf4":  # words: random codes, a positive e5m2 scale <= 1.75
+        i = torch.randint(-2**31, 2**31 - 1, shape, device=dev, dtype=torch.int32)
+        return (i & ~0xFF) | (i & 0x3F)
     return (torch.randn(shape, device=dev) * 0.02).half()
 
 
@@ -102,10 +151,15 @@ def scale_of(want):
     return want.float().abs().max().item()
 
 
+WORST_REL = {}  # kernel -> the largest max_abs_err / max |out| of its checks
+
+
 def check(name, got, want, rel_tol):
     err, sc = max_err(got, want), scale_of(want)
     if not err <= rel_tol * sc:
         fail(f"{name}: max_abs_err {err:.3e} > {rel_tol:g} * {sc:.3e}")
+    key = name.split()[0]
+    WORST_REL[key] = max(WORST_REL.get(key, 0.0), err / sc)
     return err
 
 
@@ -118,8 +172,7 @@ def kernel_phase(gbps, dev):
     from calm_tpu_torch.ops.qmm import QTensor, dequant
 
     rows = {}
-    D, H, Qd, KVd, V = 4096, 14336, 4096, 1024, 32000
-    tol_mv = 1e-5  # f32 sums in both, in another order: rel. to max |y|
+    H, Qd, KVd, V = HID, Q, KV, 32000
 
     # K2 qmm_decode: lm-head (V x D) and wq (Qd x D); 8-plane stacks so a
     # timed launch does not find its plane in the 50 MB L2
@@ -131,19 +184,17 @@ def kernel_phase(gbps, dev):
             x = torch.randn(1, D, device=dev)
             errs.append(check(f"qmm_decode {fmt} {name}",
                               hq.qmm_decode(x, w, fmt, L - 1),
-                              hq.qmm_decode_plain(x, w, fmt, L - 1), tol_mv))
-            ms = timed(lambda i: hq.qmm_decode(x, w, fmt, i % L))
-            plain = timed(lambda i: hq.qmm_decode_plain(x, w, fmt, i % L), 5, 1)
+                              hq.qmm_decode_plain(x, w, fmt, L - 1), TOL_MV))
             wb = dequant(QTensor(w, fmt), torch.bfloat16)
-            lib = timed(lambda i: torch.matmul(x.bfloat16(), wb[i % L].T))
+            t = timings(lambda i: hq.qmm_decode(x, w, fmt, i % L),
+                        lambda i: hq.qmm_decode_plain(x, w, fmt, i % L),
+                        lambda i: torch.matmul(x.bfloat16(), wb[i % L].T))
             b, by = bound_ms(d * D * esz + 4 * (D + d), 2 * d * D, gbps)
             log(f"# K2 qmm_decode {fmt} {name} {d}x{D} B=1: max_abs_err "
-                f"{errs[-1]:.3e} (tol {tol_mv:g} x max|y|); kernel_ms {ms:.4f} "
-                f"plain_ms {plain:.4f} library_ms {lib:.4f} (bf16 matmul) "
-                f"bound_ms {b:.4f} ({by}); {100 * b / ms:.1f}% of bound")
+                f"{errs[-1]:.3e} (tol {TOL_MV:g} x max|y|); {ms_line(t)} (bf16 "
+                f"matmul) bound_ms {b:.4f} ({by}); {share(t, b)}")
             if fmt == "fp8" and name == "lm-head":
-                best = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b,
-                            bound_by=by)
+                best = dict(t, bound_ms=b, bound_by=by)
     rows["qmm_decode"] = dict(best, max_abs_err=max(errs))
 
     # K9 qx_offn_qkv: one full Mistral-7B layer, 2-layer stacks (the clamp)
@@ -162,11 +213,11 @@ def kernel_phase(gbps, dev):
                 f"qx_offn_qkv {fmt} layer {layer}",
                 hq.qx_offn_qkv(a, r, g, anx, *ws, layer, fmt, False, 1e-5, False),
                 hq.qx_offn_qkv_plain(a, r, g, anx, *ws, layer, fmt, False, 1e-5,
-                                     False), tol_mv))
-        ms = timed(lambda i: hq.qx_offn_qkv(a, r, g, anx, *ws, i % L, fmt,
-                                            False, 1e-5, False))
-        plain = timed(lambda i: hq.qx_offn_qkv_plain(
-            a, r, g, anx, *ws, i % L, fmt, False, 1e-5, False), 5, 1)
+                                     False), TOL_MV))
+        t = timings(lambda i: hq.qx_offn_qkv(a, r, g, anx, *ws, i % L, fmt,
+                                             False, 1e-5, False),
+                    lambda i: hq.qx_offn_qkv_plain(a, r, g, anx, *ws, i % L, fmt,
+                                                   False, 1e-5, False))
         wb = [dequant(QTensor(w, fmt), torch.bfloat16) for w in ws]
 
         def chain(i):  # the same function as bf16 torch.matmul calls
@@ -177,22 +228,20 @@ def kernel_phase(gbps, dev):
             x = r1 + torch.matmul(h, wb[3][l].T)
             xq = (x * torch.rsqrt(x.pow(2).mean(-1, keepdim=True) + 1e-5) * anx[l]).bfloat16()
             return [torch.matmul(xq, w[l].T) for w in wb[4:]]
-        chain_ms = timed(chain)
+        chain_ms, how = timed(chain)
         n_w = D * Qd + 3 * H * D + (Qd + 2 * KVd) * D
         b, by = bound_ms(n_w * esz + 4 * (3 * D + 2 * Qd + 2 * KVd), 2 * n_w, gbps)
         log(f"# K9 qx_offn_qkv {fmt} one layer D={D} H={H} Qd={Qd} KVd={KVd} "
-            f"B=1: max_abs_err {max(errs):.3e} (tol {tol_mv:g} x max|out|); "
-            f"kernel_ms {ms:.4f} plain_ms {plain:.4f} bf16_matmul_chain_ms "
-            f"{chain_ms:.4f} bound_ms {b:.4f} ({by}, {n_w * esz / 1e6:.1f} MB); "
-            f"{100 * b / ms:.1f}% of bound")
+            f"B=1: max_abs_err {max(errs):.3e} (tol {TOL_MV:g} x max|out|); "
+            f"{ms_line(t)} bf16_matmul_chain_ms {chain_ms:.4f} ({how}) bound_ms "
+            f"{b:.4f} ({by}, {n_w * esz / 1e6:.1f} MB); {share(t, b)}")
         if fmt == "fp8":
-            best = dict(ms=ms, plain_ms=plain, library_ms=None, bound_ms=b,
-                        bound_by=by)
+            best = dict(t, bound_ms=b, bound_by=by)
+        del ws, wb
     rows["qx_offn_qkv"] = dict(best, max_abs_err=max(errs))
 
     # K12 decode_attention, fresh mode: kv_len 32 and 4096, bf16 and fp8 KV
     errs, best = [], None
-    tol_at = 1e-4  # absolute; outputs are O(1)
     B, KVH, M, S, hd, L = 1, 8, 4, 4096, 128, 8
     for kvd, kvname in ((torch.bfloat16, "bf16"), (torch.float8_e5m2, "fp8")):
         kc = (torch.randn(L, B, KVH, S, hd, device=dev) * 0.5).to(kvd)
@@ -207,62 +256,260 @@ def kernel_phase(gbps, dev):
             fr = (fk, fv, kp)
             e = max_err(ha.decode_attention(q, kc, vc, kl, L - 1, fr),
                         ha.decode_attention_plain(q, kc, vc, kl, L - 1, fr))
-            if not e <= tol_at:
-                fail(f"decode_attention {kvname} kv_len {kv_len}: {e:.3e} > {tol_at}")
+            if not e <= TOL_DA:
+                fail(f"decode_attention {kvname} kv_len {kv_len}: {e:.3e} > {TOL_DA}")
             errs.append(e)
-            ms = timed(lambda i: ha.decode_attention(q, kc, vc, kl, i % L, fr))
-            plain = timed(lambda i: ha.decode_attention_plain(q, kc, vc, kl, i % L, fr), 5, 1)
             kb, vb = kc.bfloat16(), vc.bfloat16()
             q4 = q.reshape(B, KVH * M, 1, hd).bfloat16()
-            lib = timed(lambda i: F.scaled_dot_product_attention(
-                q4, kb[i % L, :, :, :kv_len], vb[i % L, :, :, :kv_len],
-                enable_gqa=True))
+            t = timings(lambda i: ha.decode_attention(q, kc, vc, kl, i % L, fr),
+                        lambda i: ha.decode_attention_plain(q, kc, vc, kl, i % L, fr),
+                        lambda i: F.scaled_dot_product_attention(
+                            q4, kb[i % L, :, :, :kv_len], vb[i % L, :, :, :kv_len],
+                            enable_gqa=True))
             nb = 2 * KVH * kv_len * hd * esz + 2 * KVH * hd * esz + 8 * B * KVH * M * hd
             b, by = bound_ms(nb, 4 * KVH * M * kv_len * hd, gbps)
             log(f"# K12 decode_attention fresh {kvname} KV kv_len {kv_len} "
                 f"(B=1, KVH=8, M=4, hd=128, S=4096): max_abs_err {e:.3e} "
-                f"(tol {tol_at:g}); kernel_ms {ms:.4f} plain_ms {plain:.4f} "
-                f"library_ms {lib:.4f} (bf16 SDPA) bound_ms {b:.4f} ({by}); "
-                f"{100 * b / ms:.1f}% of bound")
+                f"(tol {TOL_DA:g}); {ms_line(t)} (bf16 SDPA) bound_ms {b:.4f} "
+                f"({by}); {share(t, b)}")
             if kvname == "bf16" and kv_len == 4096:
-                best = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b,
-                            bound_by=by)
+                best = dict(t, bound_ms=b, bound_by=by)
+        del kc, vc
     rows["decode_attention"] = dict(best, max_abs_err=max(errs))
     ragged_checks(dev)
+    rows.update(prefill_kernel_rows(gbps, dev))
+    rows.update(gf4_kernel_rows(gbps, dev))
+    ragged_checks_prefill_gf4(dev)
+    log("# max_abs_err / max|out|, worst of each kernel's checks: " + ", ".join(
+        f"{k} {v:.3e}" for k, v in WORST_REL.items()))
     return rows
+
+
+# Tolerances, relative to max |out| unless said otherwise.
+TOL_MV = 1e-5  # f32-FMA kernels (K2, K3, K8, K9): f32 sums in another order
+TOL_DA = 1e-4  # K12, absolute (outputs are O(1)): f32, another order
+# K4, K5, K13 and dense_matmul round their activations (and q, p) once to
+# bf16 as the TPU kernels do: 2^-9 relative per operand, ~1e-3 of max |out|
+# on random data; the JAX package's own tests hold its kernels at 3e-2.
+TOL_MM = 1e-2
+TOL_ATT = 1e-2
+
+
+def causal_pairs(pos0: int, T: int, kv_len: int) -> int:
+    """(query, cache row) pairs the causal mask leaves visible."""
+    return sum(min(kv_len, pos0 + t + 1) for t in range(T))
+
+
+def prefill_kernel_rows(gbps, dev):
+    """K13 at Mistral-7B shapes (32 heads, 8 kv heads, hd 128): T=2048 from
+    position 0 with bf16 and fp8 KV, and T=512 at position 1024."""
+    import torch.nn.functional as F
+
+    from calm_tpu_torch.ops import hopper_attn as ha
+
+    B, KVH, M, S, hd, L = 1, 8, 4, 4096, 128, 2
+    errs, best = [], None
+    for kvd, kvname, T, pos0 in ((torch.bfloat16, "bf16", 2048, 0),
+                                 (torch.float8_e5m2, "fp8", 2048, 0),
+                                 (torch.bfloat16, "bf16", 512, 1024)):
+        kc = (torch.randn(L, B, KVH, S, hd, device=dev) * 0.5).to(kvd)
+        vc = torch.randn(L, B, KVH, S, hd, device=dev).to(kvd)
+        q = torch.randn(B, T, KVH, M, hd, device=dev)
+        p0 = torch.full((B,), pos0, dtype=torch.int32, device=dev)
+        kl = p0 + T
+        got = ha.prefill_attention(q, kc, vc, p0, kl, L - 1)
+        errs.append(check(f"prefill_attention {kvname} T={T} pos0={pos0}", got,
+                          ha.prefill_attention_plain(q, kc, vc, p0, kl, L - 1), TOL_ATT))
+        kv = pos0 + T
+        lib = None
+        if pos0 == 0:
+            q4 = q.reshape(B, T, KVH * M, hd).transpose(1, 2).bfloat16()
+            kb = kc.bfloat16()[:, :, :, :kv]
+            vb = vc.bfloat16()[:, :, :, :kv]
+
+            def lib(i):
+                return F.scaled_dot_product_attention(
+                    q4, kb[i % L], vb[i % L], is_causal=True, enable_gqa=True)
+        t = timings(lambda i: ha.prefill_attention(q, kc, vc, p0, kl, i % L),
+                    lambda i: ha.prefill_attention_plain(q, kc, vc, p0, kl, i % L),
+                    lib, 3)
+        nb = 2 * B * T * KVH * M * hd * 4 + 2 * B * KVH * kv * hd * kc.element_size()
+        flops = 4 * B * KVH * M * hd * causal_pairs(pos0, T, kv)
+        b, by = bound_ms(nb, flops, gbps, PEAK_BF16)
+        log(f"# K13 prefill_attention {kvname} KV T={T} pos0={pos0} (B=1, KVH=8, "
+            f"M=4, hd=128): max_abs_err {errs[-1]:.3e} (tol {TOL_ATT:g} x max|out|); "
+            f"{ms_line(t)} (bf16 causal SDPA) bound_ms {b:.4f} ({by}, "
+            f"{flops / 1e9:.1f} GFLOP); {share(t, b)}")
+        if kvname == "bf16" and T == 2048:
+            best = dict(t, bound_ms=b, bound_by=by)
+        del kc, vc, q
+    return {"prefill_attention": dict(best, max_abs_err=max(errs))}
+
+
+def gf4_kernel_rows(gbps, dev):
+    """K3 at the gf4 lm-head (32000 x 4096) and w2 (4096 x 14336), B=1; K4
+    at T=2048 for w1 (14336 x 4096) and K5 for w2 (4096 x 14336); K8 one
+    Mistral-7B layer."""
+    from calm_tpu_torch.ops import hopper_qmm as hq
+    from calm_tpu_torch.ops.qmm import QTensor, dequant
+
+    rows = {}
+    errs, best = [], None
+    for name, d, n, L in (("lm-head", 32000, 4096, 1), ("w2", 4096, 14336, 8)):
+        w = rand_w((L, d, n // 8), "gf4", dev)  # w2: 8 planes, 235 MB > L2
+        x = torch.randn(1, n, device=dev)
+        errs.append(check(f"qmm_decode_gf4 {name}", hq.qmm_decode_gf4(x, w, L - 1),
+                          hq.qmm_decode_gf4_plain(x, w, L - 1), TOL_MV))
+        wb = dequant(QTensor(w, "gf4"), torch.bfloat16)
+        t = timings(lambda i: hq.qmm_decode_gf4(x, w, i % L),
+                    lambda i: hq.qmm_decode_gf4_plain(x, w, i % L),
+                    lambda i: torch.matmul(x.bfloat16(), wb[i % L].T))
+        b, by = bound_ms(d * n // 2 + 4 * (n + d), 2 * d * n, gbps)
+        log(f"# K3 qmm_decode_gf4 {name} {d}x{n} B=1: max_abs_err {errs[-1]:.3e} "
+            f"(tol {TOL_MV:g} x max|y|); {ms_line(t)} (bf16 matmul, pre-dequantized) "
+            f"bound_ms {b:.4f} ({by}, {d * n / 2e6:.1f} MB); {share(t, b)}")
+        if name == "lm-head":
+            best = dict(t, bound_ms=b, bound_by=by)
+        del w, wb
+    rows["qmm_decode_gf4"] = dict(best, max_abs_err=max(errs))
+
+    R, L = 2048, 2
+    for key, fn, name, d, n in (("qmm_prefill", hq.qmm_prefill, "K4 w1", 14336, 4096),
+                                ("qmm_prefill_w2", hq.qmm_prefill_w2, "K5 w2", 4096, 14336)):
+        w = rand_w((L, d, n // 8), "gf4", dev)
+        x = torch.randn(R, n, device=dev)
+        err = check(f"{key} {name}", fn(x, w, L - 1), hq.qmm_prefill_plain(x, w, L - 1),
+                    TOL_MM)
+        wb = dequant(QTensor(w, "gf4"), torch.bfloat16)
+        xb = x.bfloat16()
+        t = timings(lambda i: fn(x, w, i % L),
+                    lambda i: hq.qmm_prefill_plain(x, w, i % L),
+                    lambda i: torch.matmul(xb, wb[i % L].T), 3)
+        flops = 2 * R * d * n
+        b, by = bound_ms(4 * R * n + d * n // 2 + 4 * R * d, flops, gbps, PEAK_BF16)
+        log(f"# {name} {key} {d}x{n} R={R}: max_abs_err {err:.3e} "
+            f"(tol {TOL_MM:g} x max|y|); {ms_line(t)} (bf16 matmul, pre-dequantized) "
+            f"bound_ms {b:.4f} ({by}, {flops / 1e9:.1f} GFLOP); {share(t, b)}, "
+            f"{flops / t['ms'] / 1e9:.1f} TFLOP/s")
+        rows[key] = dict(t, bound_ms=b, bound_by=by, max_abs_err=err)
+        del w, wb, x, xb
+
+    # K8 gf4_offn_qkv: one Mistral-7B layer, 2-layer stacks (the clamp)
+    errs = []
+    ws = [rand_w((L, d, n // 8), "gf4", dev)
+          for d, n in ((D, Q), (HID, D), (HID, D), (D, HID), (Q, D), (KV, D), (KV, D))]
+    g = 1 + 0.1 * torch.randn(L, D, device=dev)
+    anx = 1 + 0.1 * torch.randn(L, D, device=dev)
+    a, r = torch.randn(1, Q, device=dev), torch.randn(1, D, device=dev)
+    for layer in range(L):
+        errs.append(check(
+            f"gf4_offn_qkv layer {layer}",
+            hq.gf4_offn_qkv(a, r, g, anx, *ws, layer, False, 1e-5, False),
+            hq.gf4_offn_qkv_plain(a, r, g, anx, *ws, layer, False, 1e-5, False), TOL_MV))
+    t = timings(lambda i: hq.gf4_offn_qkv(a, r, g, anx, *ws, i % L, False, 1e-5, False),
+                lambda i: hq.gf4_offn_qkv_plain(a, r, g, anx, *ws, i % L, False, 1e-5,
+                                                False))
+    n_w = D * Q + 3 * HID * D + (Q + 2 * KV) * D
+    b, by = bound_ms(n_w // 2 + 4 * (3 * D + 2 * Q + 2 * KV), 2 * n_w, gbps)
+    log(f"# K8 gf4_offn_qkv one layer D={D} H={HID} Qd={Q} KVd={KV} B=1: "
+        f"max_abs_err {max(errs):.3e} (tol {TOL_MV:g} x max|out|); {ms_line(t)} "
+        f"bound_ms {b:.4f} ({by}, {n_w / 2e6:.1f} MB); {share(t, b)}")
+    rows["gf4_offn_qkv"] = dict(t, bound_ms=b, bound_by=by, max_abs_err=max(errs))
+    del ws
+    return rows
+
+
+def ragged_checks_prefill_gf4(dev):
+    """K3/K4/K5/K13 on shapes the Mistral-7B rows do not reach: ragged rows
+    (33, 100, 2047), a hidden width of 11008 (1376 words a row), a width
+    whose words per row are not a multiple of 4, d off the tile; K13 with T
+    off the 16-query tile, two sequences at other starts, head_dim 64 with
+    8 query heads per kv head, fp16 and fp8 caches. Also the products no
+    kernel takes (``dense_matmul``: fp8/fp16 past 16 rows, gf4 at 17..31)
+    against the f32 product."""
+    from calm_tpu_torch.ops import hopper_attn as ha
+    from calm_tpu_torch.ops import hopper_qmm as hq
+    from calm_tpu_torch.ops.qmm import QTensor, dense_matmul, qmatmul
+
+    worst = {"qmm_decode_gf4": 0.0, "qmm_prefill": 0.0, "prefill_attention": 0.0,
+             "dense_matmul": 0.0}
+    for fmt, R in (("fp8", 100), ("fp16", 100), ("gf4", 20)):
+        qt = QTensor(rand_w((2, 1003, 1040 // (8 if fmt == "gf4" else 1)), fmt, dev), fmt)
+        x = torch.randn(R, 1040, device=dev)
+        e = check(f"dense_matmul {fmt} R={R}", dense_matmul(x, qt, 1),
+                  qmatmul(x, qt, 1), TOL_MM)
+        worst["dense_matmul"] = max(worst["dense_matmul"], e)
+    for d, n in ((1003, 1040), (4096, 11008)):
+        w = rand_w((2, d, n // 8), "gf4", dev)
+        for B in (1, 3, 16):
+            x = torch.randn(B, n, device=dev)
+            e = check(f"qmm_decode_gf4 {d}x{n} B={B}", hq.qmm_decode_gf4(x, w, 1),
+                      hq.qmm_decode_gf4_plain(x, w, 1), TOL_MV)
+            worst["qmm_decode_gf4"] = max(worst["qmm_decode_gf4"], e)
+        for R in (33, 100, 2047):
+            x = torch.randn(R, n, device=dev)
+            for fn in (hq.qmm_prefill, hq.qmm_prefill_w2):
+                e = check(f"{fn.__name__} {d}x{n} R={R}", fn(x, w, 1),
+                          hq.qmm_prefill_plain(x, w, 1), TOL_MM)
+                worst["qmm_prefill"] = max(worst["qmm_prefill"], e)
+    L, S = 2, 512
+    for kvd in (torch.float16, torch.bfloat16, torch.float8_e5m2):
+        for hd, KVH, M, T, starts in ((64, 2, 8, 100, (0, 37)),
+                                      (128, 2, 4, 33, (300, 5))):
+            B = len(starts)
+            kc = torch.randn(L, B, KVH, S, hd, device=dev).to(kvd)
+            vc = torch.randn(L, B, KVH, S, hd, device=dev).to(kvd)
+            q = torch.randn(B, T, KVH, M, hd, device=dev)
+            p0 = torch.tensor(starts, dtype=torch.int32, device=dev)
+            kl = p0 + T
+            e = check(f"prefill_attention {kvd} hd={hd} M={M} T={T} starts={starts}",
+                      ha.prefill_attention(q, kc, vc, p0, kl, 1),
+                      ha.prefill_attention_plain(q, kc, vc, p0, kl, 1), TOL_ATT)
+            worst["prefill_attention"] = max(worst["prefill_attention"], e)
+    torch.cuda.synchronize()
+    log("# ragged shapes (prefill, gf4): max_abs_err " + ", ".join(
+        f"{k} {v:.3e}" for k, v in worst.items()))
 
 
 def ragged_checks(dev):
     """The kernels' other template paths, which the B=1 Mistral-7B path
     does not reach, against their plain versions at small shapes: 3 and 16
-    activation rows with a ragged last block of rows; the fused epilogue at
-    B=2 and 5 with GELU and LayerNorm over a 3-layer stack; attention in
-    plain and fresh mode at B=2 with per-row kv_len, head_dim 64 and 128,
-    8 and 16 query rows per kv head, every cache dtype."""
+    activation rows with a ragged last block of rows; the fused epilogues
+    (fp8, fp16, gf4) at B=2 and 5 with GELU and LayerNorm over a 3-layer
+    stack; attention in plain and fresh mode at B=2 with per-row kv_len,
+    head_dim 64 and 128, 8 and 16 query rows per kv head, every cache
+    dtype."""
     from calm_tpu_torch.ops import hopper_attn as ha
     from calm_tpu_torch.ops import hopper_qmm as hq
 
-    worst = {"qmm_decode": 0.0, "qx_offn_qkv": 0.0, "decode_attention": 0.0}
+    worst = {"qmm_decode": 0.0, "qx_offn_qkv": 0.0, "gf4_offn_qkv": 0.0,
+             "decode_attention": 0.0}
     for fmt in ("fp8", "fp16"):
         w = rand_w((2, 1003, 1040), fmt, dev)  # 1003 rows: a ragged last block
         for B in (3, 16):
             x = torch.randn(B, 1040, device=dev)
             e = check(f"qmm_decode {fmt} B={B}", hq.qmm_decode(x, w, fmt, 1),
-                      hq.qmm_decode_plain(x, w, fmt, 1), 1e-5)
+                      hq.qmm_decode_plain(x, w, fmt, 1), TOL_MV)
             worst["qmm_decode"] = max(worst["qmm_decode"], e)
-        L, D, H, Qd, KVd = 3, 512, 768, 512, 128
-        ws = [rand_w(s, fmt, dev) for s in ((L, D, Qd), (L, H, D), (L, H, D),
-                                             (L, D, H), (L, Qd, D), (L, KVd, D),
-                                             (L, KVd, D))]
-        g = 1 + 0.1 * torch.randn(L, D, device=dev)
-        anx = 1 + 0.1 * torch.randn(L, D, device=dev)
+    L, D, H, Qd, KVd = 3, 512, 768, 512, 128
+    g = 1 + 0.1 * torch.randn(L, D, device=dev)
+    anx = 1 + 0.1 * torch.randn(L, D, device=dev)
+    for fmt in ("fp8", "fp16", "gf4"):
+        gs = 8 if fmt == "gf4" else 1
+        ws = [rand_w((L, d, n // gs), fmt, dev)
+              for d, n in ((D, Qd), (H, D), (H, D), (D, H), (Qd, D), (KVd, D), (KVd, D))]
+        key = "gf4_offn_qkv" if fmt == "gf4" else "qx_offn_qkv"
         for B in (2, 5):
             a, r = torch.randn(B, Qd, device=dev), torch.randn(B, D, device=dev)
             for layer in range(L):
-                args = (a, r, g, anx, *ws, layer, fmt, True, 1e-5, True)
-                e = check(f"qx_offn_qkv {fmt} B={B} layer {layer}",
-                          hq.qx_offn_qkv(*args), hq.qx_offn_qkv_plain(*args), 1e-5)
-                worst["qx_offn_qkv"] = max(worst["qx_offn_qkv"], e)
+                if fmt == "gf4":
+                    args = (a, r, g, anx, *ws, layer, True, 1e-5, True)
+                    got, want = hq.gf4_offn_qkv(*args), hq.gf4_offn_qkv_plain(*args)
+                else:
+                    args = (a, r, g, anx, *ws, layer, fmt, True, 1e-5, True)
+                    got, want = hq.qx_offn_qkv(*args), hq.qx_offn_qkv_plain(*args)
+                e = check(f"{key} {fmt} B={B} layer {layer}", got, want, TOL_MV)
+                worst[key] = max(worst[key], e)
     B, KVH, S, L = 2, 2, 1000, 2
     kl = torch.tensor([700, 1000], dtype=torch.int32, device=dev)
     kp = torch.tensor([3, 999], dtype=torch.int32, device=dev)
@@ -276,89 +523,198 @@ def ragged_checks(dev):
             for fresh in (None, fr):
                 e = max_err(ha.decode_attention(q, kc, vc, kl, 1, fresh),
                             ha.decode_attention_plain(q, kc, vc, kl, 1, fresh))
-                if not e <= 1e-4:
+                if not e <= TOL_DA:
                     fail(f"decode_attention {kvd} hd={hd} M={M} "
-                         f"fresh={fresh is not None}: {e:.3e} > 1e-4")
+                         f"fresh={fresh is not None}: {e:.3e} > {TOL_DA}")
                 worst["decode_attention"] = max(worst["decode_attention"], e)
     torch.cuda.synchronize()
     log("# ragged shapes: max_abs_err " + ", ".join(
         f"{k} {v:.3e}" for k, v in worst.items()))
 
 
-def engine_phase(dev):
-    """Engine + CLI on a 2-layer Mistral-7B-width fp8 container, held
-    against the CPU plain path. Returns (launch counts, tokens)."""
-    import numpy as np
+# a prompt of more than 100 byte tokens: its prefill takes the gf4 matmul
+PROMPT_LONG = ("Batched prefill runs every prompt token through each layer at "
+               "once: the projections as matrix products, then causal flash "
+               "attention over the cache.")
+TOL_STEP = 1e-3     # decode logits, rel. to max |logit|: f32 sums in another
+                    # order, bf16 KV
+TOL_PREFILL = 1e-2  # logits after a prefill, rel. to max |logit|: activations,
+                    # q and p rounded once to bf16 as on the TPU (PERF.md)
 
-    from calm_tpu_torch.config import ModelConfig
-    from calm_tpu_torch.engine import Engine
+
+def counters():
     from calm_tpu_torch.ops import hopper_attn as ha
     from calm_tpu_torch.ops import hopper_qmm as hq
+    return {"qmm_decode": hq.qmm_decode, "qx_offn_qkv": hq.qx_offn_qkv,
+            "decode_attention": ha.decode_attention,
+            "prefill_attention": ha.prefill_attention,
+            "qmm_decode_gf4": hq.qmm_decode_gf4, "qmm_prefill": hq.qmm_prefill,
+            "qmm_prefill_w2": hq.qmm_prefill_w2, "gf4_offn_qkv": hq.gf4_offn_qkv}
+
+
+def drive(run):
+    """``run()`` with every launch count set to 0 just before it; returns
+    its result and the counts read just after."""
+    fns = counters()
+    for f in fns.values():
+        f.launches = 0
+    out = run()
+    torch.cuda.synchronize()
+    return out, {k: f.launches for k, f in fns.items()}
+
+
+def cli(path, args, stdin_path=os.devnull):
+    """The CLI in its own process on the card, started now, read later."""
+    with open(stdin_path) as stdin:
+        return subprocess.Popen([sys.executable, "-m", "calm_tpu_torch.cli", path]
+                                + args, cwd=ROOT, stdin=stdin, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+
+
+def margin(logits) -> float:
+    """The gap between the two largest logits, relative to max |logit|."""
+    top = np.sort(logits)[-2:]
+    return float((top[1] - top[0]) / np.abs(logits).max())
+
+
+def greedy_agrees(what, got: int, logits_cpu, tol: float) -> bool:
+    """The card's greedy id against the CPU's at one position: equal, or
+    else the CPU's top two logits lie within ``tol`` of the scale, a
+    near-tie that the operands' rounding may decide either way (then
+    False). A clear disagreement fails the run."""
+    want = int(logits_cpu.argmax())
+    if got == want:
+        return True
+    if margin(logits_cpu) > tol:
+        fail(f"{what}: greedy id {got} != CPU {want}, top-2 margin "
+             f"{margin(logits_cpu):.3e} of scale > {tol}")
+    return False
+
+
+def same_generation(what, cpu, prompt_toks, got, want, tol) -> str:
+    """Greedy ids generated on the card against the CPU's: equal, or equal
+    up to a position where the CPU's next-token logits are a near-tie."""
+    n = next((i for i, (g, c) in enumerate(zip(got, want)) if g != c), None)
+    if n is None:
+        if len(got) != len(want) or len(got) < 8:
+            fail(f"{what}: greedy ids {got} != CPU {want}")
+        return f"ids equal ({got})"
+    cpu.reset()
+    greedy_agrees(f"{what}, id {n}", got[n], cpu.prefill_tokens(prompt_toks + want[:n]),
+                  tol)
+    return f"ids equal up to {n}, then a near-tie ({got[:n + 1]}...)"
+
+
+def container_phase(fmt, dev):
+    """Engine, prefill, perplexity and CLI on a 2-layer Mistral-7B-width
+    container (seeded random bits), held against the CPU plain path.
+    Returns (launch counts of the main path, tokens)."""
+    from calm_tpu_torch.config import ModelConfig
+    from calm_tpu_torch.engine import Engine
     from calm_tpu_torch.utils.synth import synth_container
 
     cfg = ModelConfig(**dict(MISTRAL, n_layers=2), seq_len=4096,
                       rope_theta=10000.0, rotary_dim=128, norm_ln=False,
-                      dtype="fp8", bos_token_id=1, eos_token_id=2)
+                      dtype=fmt, bos_token_id=1, eos_token_id=2)
     with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "mistral7b-width-2l-fp8.calm")
+        path = os.path.join(tmp, f"mistral7b-width-2l-{fmt}.calm")
         t0 = time.perf_counter()
         # random bits, not the bit pattern: the pattern's rows are all alike
         synth_container(path, cfg, seed=1, device=dev, random=True)
-        log(f"# engine: wrote {os.path.getsize(path) / 1e9:.2f} GB container "
+        log(f"# {fmt} engine: wrote {os.path.getsize(path) / 1e9:.2f} GB container "
             f"in {time.perf_counter() - t0:.1f} s")
+        text_path = os.path.join(tmp, "ppl.txt")
+        with open(text_path, "w") as f:
+            f.write(PROMPT_LONG * 3)
+        user_path = os.path.join(tmp, "user.txt")  # one user line, then EOF
+        with open(user_path, "w") as f:
+            f.write("hello there\n")
+        # the CLI runs on the card beside the checks below
+        procs = [cli(path, ["-t", "0", "-n", "16", "-i", "hello"]),
+                 cli(path, ["-x", text_path]),
+                 cli(path, ["-y", "be brief", "-n", "24", "-s", "7"], user_path)]
         eng = Engine(path)
         log(eng.banner())
-        prompt = "The quick brown fox"
 
-        # the main path: counts from 0 just before, read just after
-        hq.qmm_decode.launches = hq.qx_offn_qkv.launches = 0
-        ha.decode_attention.launches = 0
-        s1 = eng.generate(prompt, 32, temperature=0)
-        torch.cuda.synchronize()
-        counts = {"qmm_decode": hq.qmm_decode.launches,
-                  "qx_offn_qkv": hq.qx_offn_qkv.launches,
-                  "decode_attention": ha.decode_attention.launches}
+        # the main path: fp8 with a short prompt (decode kernels), gf4 with
+        # a long one (its prefill takes the gf4 matmul), counts from 0
+        prompt = "The quick brown fox" if fmt == "fp8" else PROMPT_LONG
+        steps = len(eng.tokenizer.encode(prompt, bos=True)) + 8
+        s1, counts = drive(lambda: eng.generate(prompt, steps, temperature=0))
         tokens = s1.tokens
         eng.reset()
-        s2 = eng.generate(prompt, 32, temperature=0)
+        s2 = eng.generate(prompt, steps, temperature=0)
         log(s1.perf_line())
         log(s2.perf_line())
         if s1.logits_hash != s2.logits_hash or s1.ids != s2.ids:
-            fail("two greedy generations differ")
-        if tokens < 8 or len(set(s1.ids)) < 2:
-            fail(f"degenerate generation: {tokens} tokens, ids {s1.ids}")
-        log(f"# engine: {tokens} tokens, ids {s1.ids[:12]}..., launches {counts}"
-            f" = {[round(c / tokens, 2) for c in counts.values()]} per token")
+            fail(f"{fmt}: two greedy generations differ")
+        if len(s1.ids) < 8 or len(set(s1.ids)) < 2:
+            fail(f"{fmt}: degenerate generation: {tokens} tokens, ids {s1.ids}")
+        log(f"# {fmt} engine: {tokens} positions, ids {s1.ids[:12]}..., launches "
+            f"{counts}")
 
-        r = subprocess.run([sys.executable, "-m", "calm_tpu_torch.cli", path,
-                            "-t", "0", "-n", "16", "-i", "hello"], cwd=ROOT,
-                           capture_output=True, text=True, timeout=600)
-        if r.returncode != 0:
-            fail(f"cli exited {r.returncode}: {r.stderr[-2000:]}")
-        log(f"# cli: {r.stdout.splitlines()[0]} | {r.stderr.strip().splitlines()[-1]}")
-
-        # the whole slice on the card against the plain path on the CPU
+        # decode on the card against the plain path on the CPU, each side
+        # fed the CPU's greedy id
         cpu = Engine(path, device="cpu")
-        tol = 1e-3  # rel. to max |logit|: f32 sums in another order, bf16 KV
-        tok, worst = 1, 0.0
+        tok, worst, ties = 1, 0.0, 0
         eng.reset()
         for pos in range(8):
             lg, lc = eng.step(tok, pos), cpu.step(tok, pos)
             worst = max(worst, float(np.abs(lg - lc).max() / np.abs(lc).max()))
-            if int(lg.argmax()) != int(lc.argmax()):
-                fail(f"greedy id differs from the CPU at step {pos}")
-            tok = int(lg.argmax())
-        if worst > tol:
-            fail(f"logits differ from the CPU by {worst:.3e} > {tol}")
+            ties += not greedy_agrees(f"{fmt} step {pos}", int(lg.argmax()), lc, TOL_STEP)
+            tok = int(lc.argmax())
+        if worst > TOL_STEP:
+            fail(f"{fmt}: logits differ from the CPU by {worst:.3e} > {TOL_STEP}")
         eng.reset()
         cpu.reset()
-        steps = len(eng.tokenizer.encode(prompt, bos=True)) + 8  # 8 past the prompt
-        g_ids = eng.generate(prompt, steps, temperature=0).ids
-        c_ids = cpu.generate(prompt, steps, temperature=0).ids
-        if g_ids != c_ids or len(g_ids) < 8:
-            fail(f"greedy ids {g_ids} != CPU {c_ids}")
-        log(f"# engine vs cpu: 8 steps, greedy ids equal ({g_ids}), max logit "
-            f"diff {worst:.3e} of scale (tol {tol:g})")
+        p_toks = eng.tokenizer.encode(prompt, bos=True)
+        gen = same_generation(f"{fmt} generate", cpu, p_toks,
+                              eng.generate(prompt, steps, temperature=0).ids,
+                              cpu.generate(prompt, steps, temperature=0).ids, TOL_PREFILL)
+        log(f"# {fmt} engine vs cpu: 8 steps, max logit diff {worst:.3e} of scale "
+            f"(tol {TOL_STEP:g}), {ties} near-ties; generate {gen}")
+
+        # batched prefill of > 100 tokens, then 8 greedy steps on each side
+        toks = eng.tokenizer.encode(PROMPT_LONG, bos=True)
+        eng.reset()
+        cpu.reset()
+        lg, lc = eng.prefill_tokens(toks), cpu.prefill_tokens(toks)
+        ids, worst, ties = [], 0.0, 0
+        for i in range(9):
+            worst = max(worst, float(np.abs(lg - lc).max() / np.abs(lc).max()))
+            if i == 8:
+                break
+            ties += not greedy_agrees(f"{fmt} greedy id {i} after prefill",
+                                      int(lg.argmax()), lc, TOL_PREFILL)
+            ids.append(int(lc.argmax()))
+            pos = len(toks) + i
+            lg, lc = eng.step(ids[-1], pos), cpu.step(ids[-1], pos)
+        if not worst <= TOL_PREFILL:
+            fail(f"{fmt}: logits after prefill differ from the CPU by {worst:.3e} "
+                 f"> {TOL_PREFILL}")
+        pg, pc = eng.perplexity(PROMPT_LONG * 3), cpu.perplexity(PROMPT_LONG * 3)
+        if not abs(pg[0] - pc[0]) <= 1e-2 * pc[0] or pg[2] != pc[2]:
+            fail(f"{fmt}: perplexity {pg} != CPU {pc}")
+        log(f"# {fmt} prefill vs cpu: {len(toks)} tokens, then 8 steps: logits diff "
+            f"{worst:.3e} of scale (tol {TOL_PREFILL:g}); next 8 greedy ids {ids}, "
+            f"{ties} near-ties; perplexity {pg[0]:.4f} ± {pg[1]:.4f} vs CPU "
+            f"{pc[0]:.4f} ± {pc[1]:.4f} over {pg[2]} tokens (tol 1e-2 rel.)")
+
+        for p, what in zip(procs, ("generate", "-x", "-y")):
+            out, errs = p.communicate(timeout=600)
+            if p.returncode != 0:
+                fail(f"{fmt} cli {what} exited {p.returncode}: {errs[-2000:]}")
+            if what == "generate":
+                log(f"# {fmt} cli: {out.splitlines()[0]} | {errs.strip().splitlines()[-1]}")
+            elif what == "-x":
+                line = [l for l in out.splitlines() if l.startswith("# perplexity:")]
+                if not line:
+                    fail(f"{fmt} cli -x printed no perplexity line: {out[-1000:]}")
+                log(f"# {fmt} cli -x: {line[0]}")
+            elif "Assistant: " not in out:
+                fail(f"{fmt} cli -y printed no reply: {out[-1000:]}")
+            else:
+                log(f"# {fmt} cli -y: {len(out)} characters, exit 0")
         del eng, cpu
     return counts, tokens
 
@@ -377,25 +733,56 @@ def profile_tokens(run, n_tok: int, ms_tok: float, label: str):
         f"= busy {100 * dev_ms / ms_tok:.1f}%; per token: {top}")
 
 
-def decode_phase(dev, gbps, smi):
-    """bench.py's protocol on 32-layer Mistral-7B fp8 pattern weights."""
+def full_width_phase(fmt, dev, gbps, smi):
+    """32-layer Mistral-7B pattern weights: a 2048-token prefill (median of
+    3), then bench.py's decode protocol (first32 / last32 at ctx 4096)."""
     from calm_tpu_torch import model as M
     from calm_tpu_torch.config import ModelConfig
     from calm_tpu_torch.engine import kv_cache_bytes
     from calm_tpu_torch.utils.synth import synth_weights, weight_bytes
 
-    ctx, steps = 4096, 32
+    ctx, steps, T = 4096, 32, 2048
     cfg = ModelConfig(**MISTRAL, seq_len=ctx, rope_theta=10000.0,
-                      rotary_dim=128, norm_ln=False, dtype="fp8")
+                      rotary_dim=128, norm_ln=False, dtype=fmt)
     t0 = time.perf_counter()
     w = synth_weights(cfg, seed=0, device=dev)
     torch.cuda.synchronize()
     total, bw = weight_bytes(cfg)
-    log(f"# decode: mistral7b fp8 32 layers, {total / 2**30:.2f} GiB pattern "
+    log(f"# {fmt}: mistral7b 32 layers, {total / 2**30:.2f} GiB pattern "
         f"weights in {time.perf_counter() - t0:.1f} s; bf16 KV, ctx {ctx}")
     cache = M.KVCache.create(cfg, 1, torch.bfloat16, dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    prompt = torch.randint(3, cfg.vocab_size, (1, T), generator=gen, device=dev)
+
+    def prefill():
+        return M.prefill(cfg, w, prompt, [0], cache, "last")[0]
+
+    prefill()  # warm
+    secs = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits = prefill()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t)
+    if not torch.isfinite(logits).all():
+        fail(f"prefill {fmt}: non-finite logits")
+    med = statistics.median(secs)
+    spread = 100 * (max(secs) - min(secs)) / med
+    out = {"prefill": dict(ms=1e3 * med, tok_s=T / med, spread_pct=spread)}
+    log(f"# prefill {fmt} T={T}: {1e3 * med:.3f} ms, {T / med:.1f} tok/s "
+        f"(median of 3, spread {spread:.2f}%) on {smi}")
+    rows = kernel_rows(prefill)
+    if rows:
+        dev_ms = sum(r[0] for r in rows) / 1e3
+        top = "; ".join(f"{name} {us / 1e3:.3f} ms x{cnt}" for us, cnt, name in rows[:8])
+        log(f"# profile prefill {fmt} T={T}: device {dev_ms:.3f} ms of {1e3 * med:.3f} "
+            f"ms = busy {100 * dev_ms / (1e3 * med):.1f}%; {top}")
+    else:
+        log(f"# profile prefill {fmt}: the profiler saw no device time (not measured)")
+
     token = torch.zeros(1, dtype=torch.int64, device=dev)
-    out = {}
     for name, pos0 in (("first32", 0), ("last32", ctx - 2 * steps)):
         M.decode_loop(cfg, w, token, pos0, cache, 2)  # warm
         secs = []
@@ -406,21 +793,22 @@ def decode_phase(dev, gbps, smi):
             torch.cuda.synchronize()
             secs.append(time.perf_counter() - t)
         if not torch.isfinite(logits).all():
-            fail(f"decode {name}: non-finite logits")
+            fail(f"decode {fmt} {name}: non-finite logits")
         med = statistics.median(secs)
         spread = 100 * (max(secs) - min(secs)) / med
         read = sum(bw + kv_cache_bytes(cfg, 16, pos0 + i) for i in range(steps))
         gb_s = read / 1e9 / med
         out[name] = dict(tok_s=steps / med, ms_tok=1e3 * med / steps, gb_s=gb_s,
                          pct_hbm=100 * gb_s / gbps, spread_pct=spread)
-        log(f"# decode {name} (pos {pos0}): {steps / med:.2f} tok/s, "
+        log(f"# decode {fmt} {name} (pos {pos0}): {steps / med:.2f} tok/s, "
             f"{1e3 * med / steps:.3f} ms/tok, {gb_s:.1f} GB/s = "
             f"{100 * gb_s / gbps:.2f}% of nominal {gbps:.0f} GB/s "
             f"(median of 3, spread {spread:.2f}%) on {smi}")
         profile_tokens(lambda: M.decode_loop(cfg, w, token, pos0, cache, 4), 4,
-                       1e3 * med / steps, f"{name} (pos {pos0})")
-    log("# decode: " + json.dumps(out))
+                       1e3 * med / steps, f"{fmt} {name} (pos {pos0})")
+    log(f"# {fmt}: " + json.dumps(out))
     del w, cache
+    torch.cuda.empty_cache()
 
 
 def ptxas_summary(build) -> str:
@@ -461,26 +849,44 @@ def main():
     dev = torch.device("cuda")
 
     rows = kernel_phase(gbps, dev)
-    counts, tokens = engine_phase(dev)
-    decode_phase(dev, gbps, smi)
+    log(f"# kernel phase done at {time.perf_counter() - t_start:.1f} s")
+    # each kernel's launches come from the main path that uses it: the fp8
+    # decode path (K2, K9, K12), the gf4 prefill + decode path (K3, K4, K5,
+    # K8, K13)
+    counts8, tok8 = container_phase("fp8", dev)
+    counts4, tok4 = container_phase("gf4", dev)
+    log(f"# container phases done at {time.perf_counter() - t_start:.1f} s")
+    full_width_phase("fp8", dev, gbps, smi)
+    full_width_phase("gf4", dev, gbps, smi)
 
     sources = {"qmm_decode": ("calm_tpu_torch/csrc/qmm.cu",
-                              "calm_tpu/ops/pallas_qmm.py:92"),
+                              "calm_tpu/ops/pallas_qmm.py:92", counts8),
                "qx_offn_qkv": ("calm_tpu_torch/csrc/qmm.cu",
-                               "calm_tpu/ops/pallas_qmm.py:942"),
+                               "calm_tpu/ops/pallas_qmm.py:942", counts8),
                "decode_attention": ("calm_tpu_torch/csrc/attn.cu",
-                                    "calm_tpu/ops/pallas_attn.py:77")}
+                                    "calm_tpu/ops/pallas_attn.py:77", counts8),
+               "prefill_attention": ("calm_tpu_torch/csrc/attn.cu",
+                                     "calm_tpu/ops/pallas_attn.py:326", counts4),
+               "qmm_decode_gf4": ("calm_tpu_torch/csrc/gf4.cu",
+                                  "calm_tpu/ops/pallas_qmm.py:100", counts4),
+               "qmm_prefill": ("calm_tpu_torch/csrc/gf4.cu",
+                               "calm_tpu/ops/pallas_qmm.py:238", counts4),
+               "qmm_prefill_w2": ("calm_tpu_torch/csrc/gf4.cu",
+                                  "calm_tpu/ops/pallas_qmm.py:346", counts4),
+               "gf4_offn_qkv": ("calm_tpu_torch/csrc/qmm.cu",
+                                "calm_tpu/ops/pallas_qmm.py:737", counts4)}
     kernels = []
-    for name, (src, rep) in sources.items():
+    for name, (src, rep, counts) in sources.items():
         if counts[name] <= 0:
-            fail(f"{name} was not launched on the main path")
+            fail(f"{name} was not launched on its main path")
         r = rows[name]
         kernels.append(dict(name=name, route="cuda", source=src, replaces=rep,
                             launches=counts[name], max_abs_err=r["max_abs_err"],
                             ms=r["ms"], plain_ms=r["plain_ms"],
                             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-                            library_ms=r["library_ms"]))
-    log(f"# main path: {tokens} tokens; total {time.perf_counter() - t_start:.1f} s")
+                            library_ms=r["library_ms"], timed_by=r["timed_by"]))
+    log(f"# main paths: fp8 {tok8} positions, gf4 {tok4}; total "
+        f"{time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -1,8 +1,10 @@
 """The port's Engine and CLI against calm_tpu.engine on the CPU: greedy
-and host-sampled generations give the same token ids, stepped prompt
-ingestion gives the logits of JAX's batched prefill, and the perf line
-keeps its format."""
+(fp8 and gf4) and host-sampled generations give the same token ids,
+stepped and batched prompt ingestion give the logits of JAX's batched
+prefill, perplexity and the chat transcript equal JAX's, and the perf
+line keeps its format."""
 
+import io
 import os
 import re
 import subprocess
@@ -64,6 +66,18 @@ def test_greedy_generate_matches_jax(model_path, monkeypatch, prompt, steps):
     assert ts.text == js.text and ts.tokens == js.tokens
 
 
+def test_gf4_greedy_generate_matches_jax(tmp_path, monkeypatch):
+    path = str(tmp_path / "g.calm")
+    write_tiny_model(path, tiny_config(dtype="gf4", seq_len=32, dim=64,
+                                       hidden_dim=64, head_dim=16, rotary_dim=16),
+                     seed=3)
+    ids = _record_jax_ids(monkeypatch)
+    js = JE.Engine(path).generate("hello there", 40, temperature=0)
+    ts = TE.Engine(path, device="cpu").generate("hello there", 40, temperature=0)
+    assert ts.ids == [t for chunk in ids for t in chunk][:len(ts.ids)]
+    assert ts.text == js.text and len(set(ts.ids)) > 3
+
+
 def test_sampled_generate_matches_jax_reference_sampling(model_path, monkeypatch):
     ids = _record_jax_ids(monkeypatch)
     js = JE.Engine(model_path).generate("hi", 40, temperature=0.9, minp=0.05,
@@ -84,6 +98,43 @@ def test_stepped_prefill_matches_batched_prefill(model_path):
     # both caches now continue identically
     np.testing.assert_allclose(te.step(7, len(toks)), je.step(7, len(toks)),
                                rtol=1e-4, atol=1e-4 * np.abs(want).max())
+
+
+def test_perplexity_matches_jax(model_path):
+    """Three windows of 16 tokens, the last one short; f32 logits on both
+    sides, so the running mean and its error agree to 1e-4."""
+    text = "the quick brown fox jumps over the lazy dog, again."
+    want = JE.Engine(model_path).perplexity(text, steps=16)
+    lines = []
+    got = TE.Engine(model_path, device="cpu").perplexity(text, steps=16,
+                                                         progress=lines.append)
+    assert got[2] == want[2] == len(text)  # byte tokens: one per char, + bos
+    np.testing.assert_allclose(got[:2], want[:2], rtol=1e-4)
+    assert len(lines) == 4 and lines[-1].startswith(f"# progress ({got[2]}/")
+
+
+def test_chat_transcript_matches_jax(model_path):
+    """Two turns, sampled on the host with the same seed: the port's
+    chat_loop writes what JAX's writes with reference_sampling=True."""
+    def run(loop, engine, **kw):
+        out = io.StringIO()
+        lines = iter(["and then?"])
+
+        def read_line():
+            try:
+                return next(lines)
+            except StopIteration:
+                raise EOFError from None
+        loop(engine, "be brief", "hello", temperature=1.5, minp=0.01, seed=11,
+             read_line=read_line, write=out.write, **kw)
+        return out.getvalue()
+
+    want = run(JE.chat_loop, JE.Engine(model_path), reference_sampling=True)
+    got = run(TE.chat_loop, TE.Engine(model_path, device="cpu"))
+    assert got == want
+    assert got.count("Assistant: ") == 2 and "User: " in got
+    assert TE.chat_template(TE.Engine(model_path, device="cpu").tokenizer,
+                            True) == JE._LLAMA2[0]
 
 
 def test_perf_line_and_accounting(model_path):
@@ -125,7 +176,29 @@ def test_cli_runs_on_cpu(model_path):
     assert r.returncode == 0, r.stderr
     assert r.stdout.startswith("# ") and "# device: cpu" in r.stdout
     assert PERF.match(r.stderr.strip().splitlines()[-1]), r.stderr
+    txt = os.path.join(os.path.dirname(model_path), "ppl.txt")
+    with open(txt, "w") as f:
+        f.write("ABCDABCDABCDABCD")
     r = subprocess.run([sys.executable, "-m", "calm_tpu_torch.cli", model_path,
-                        "-x", "f.txt"], cwd=ROOT, env=env,
+                        "-x", txt, "-n", "8"], cwd=ROOT, env=env,
                        capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert re.search(r"^# perplexity: [\d.]+ ± [\d.]+ \(", r.stdout, re.M), r.stdout
+
+
+def test_cli_chat_on_cpu(model_path):
+    env = dict(os.environ, CALM_CPU="1")
+    r = subprocess.run([sys.executable, "-m", "calm_tpu_torch.cli", model_path,
+                        "-y", "be brief", "-n", "6", "-s", "3"], cwd=ROOT, env=env,
+                       input="hi\n", capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.count("Assistant: ") == 1 and "] User: " in r.stdout
+
+
+@pytest.mark.parametrize("flag", [["-r", "2"], ["--draft", "d.calm"]])
+def test_cli_unported_flags_exit_2(model_path, flag):
+    env = dict(os.environ, CALM_CPU="1")
+    r = subprocess.run([sys.executable, "-m", "calm_tpu_torch.cli", model_path]
+                       + flag, cwd=ROOT, env=env, capture_output=True, text=True,
+                       timeout=300)
     assert r.returncode == 2 and "not yet ported" in r.stderr

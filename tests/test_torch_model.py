@@ -136,7 +136,8 @@ def test_random_synth_weights_are_seeded_and_varied():
 def _run_both(path, kv, steps, jax_step, prompt_tok=1):
     jtf = JTensorFile(path)
     cfg_j = JM.ModelConfig.from_metadata(jtf.metadata)
-    wj = JM.load_weights(jtf, cfg_j)
+    # gf4 in the JAX engine's layouts (calm_tpu/engine.py:114); a no-op else
+    wj = JM.fuse_gf4_weights(JM.load_weights(jtf, cfg_j), cfg_j)
     tf = TensorFile(path)
     cfg = TM.ModelConfig.from_metadata(tf.metadata)
     wt = TM.load_weights(tf, cfg)
@@ -203,6 +204,45 @@ def test_fused_path_matches_jax_qx_interpret(tmp_path):
     assert calls, "the JAX side did not take the qx path"
     # relative to each step's logit scale (~20 here): the Pallas side rounds
     # operands to bf16, which moves logits by ~0.5% of that scale
+    err = np.abs(got - want).max(axis=-1) / np.abs(want).max(axis=-1)
+    assert err.max() < 5e-2, err
+    np.testing.assert_array_equal(got.argmax(-1), want.argmax(-1))
+
+
+def test_fused_gf4_path_matches_jax_offn_qkv_interpret(tmp_path):
+    """128-aligned gf4 dims take the fused epilogue in both packages: the
+    port's plain gf4_offn_qkv chain on natural words against the JAX planed
+    decode path (gf4_offn_qkv on the fused layouts), its Pallas kernels in
+    interpret mode (bf16 operands there)."""
+    cfg = tiny_config(dtype="gf4", seq_len=32, dim=256, hidden_dim=384,
+                      head_dim=64, rotary_dim=64, n_heads=4, n_kv_heads=2)
+    path = str(tmp_path / "aligned-gf4.calm")
+    write_tiny_model(path, cfg, seed=12)
+    tf = TensorFile(path)
+    tcfg = TM.ModelConfig.from_metadata(tf.metadata)
+    assert TM._fused(tcfg, TM.load_weights(tf, tcfg), 1)
+
+    calls = []
+    real = pallas_qmm.gf4_offn_qkv
+
+    def spy(*a, **k):
+        calls.append(1)
+        return real(*a, **k)
+
+    jqmm.enable_pallas(True)
+    pallas_qmm.set_interpret(True)
+    pallas_attn.set_interpret(True)
+    pallas_qmm.gf4_offn_qkv = spy
+    try:
+        step = jax.jit(JM.decode_step_fn, static_argnames=("cfg",))
+        got, want = _run_both(path, "bf16", 6, step)
+    finally:
+        pallas_qmm.gf4_offn_qkv = real
+        jqmm.enable_pallas(False)
+        pallas_qmm.set_interpret(False)
+        pallas_attn.set_interpret(False)
+    assert calls, "the JAX side did not take the gf4 offn_qkv path"
+    # as the fp8 case above: bf16 operands on the Pallas side
     err = np.abs(got - want).max(axis=-1) / np.abs(want).max(axis=-1)
     assert err.max() < 5e-2, err
     np.testing.assert_array_equal(got.argmax(-1), want.argmax(-1))

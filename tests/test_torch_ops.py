@@ -165,6 +165,94 @@ def test_qmm_decode_plain(rng, interpret, fmt, b):
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
 
 
+# -- K3 and K4: gf4 matvec and matmul ----------------------------------------
+
+
+def _gf4_stack(rng, L, d, n):
+    return np.stack([_weights(rng, (d, n), "gf4") for _ in range(L)])
+
+
+@pytest.mark.parametrize("b,n", [(1, 256), (5, 1000), (16, 256)])
+def test_qmm_decode_gf4_plain(rng, interpret, b, n):
+    """K3's plain version against the f32 path and the Pallas kernel in
+    interpret mode; n = 1000 gives an odd word count per row (125)."""
+    L, d = 2, 256
+    w = _gf4_stack(rng, L, d, n)
+    x = rng.standard_normal((b, n)).astype(np.float32)
+    for layer in range(L):
+        got = hopper_qmm.qmm_decode(torch.from_numpy(x), torch.from_numpy(w),
+                                    "gf4", layer).numpy()
+        want = np.asarray(jqmm.qmatmul(jnp.asarray(x), jqmm.QTensor(jnp.asarray(w), "gf4"),
+                                       layer=jnp.int32(layer)))
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+        pal = np.asarray(pallas_qmm.qmm_decode(jnp.asarray(x), jnp.asarray(w), "gf4", layer))
+        # the Pallas side rounds x to bf16 (weights decode exactly)
+        np.testing.assert_allclose(got, pal, rtol=3e-2, atol=3e-2)
+    assert hopper_qmm.qmm_decode_gf4.launches == 0
+
+
+@pytest.mark.parametrize("rows,n", [(32, 256), (100, 256), (33, 1000)])
+def test_qmm_prefill_plain(rng, interpret, rows, n):
+    """K4's plain version against the f32 path and the Pallas kernel in
+    interpret mode (as tests/test_pallas_qmm.py:480-508), ragged rows and
+    an odd word count per row."""
+    L, d = 3, 384
+    w = _gf4_stack(rng, L, d, n)
+    x = rng.standard_normal((rows, n)).astype(np.float32)
+    assert hopper_qmm.mm_supported(rows, torch.from_numpy(w), "gf4")
+    assert pallas_qmm.mm_supported(x.shape, jnp.asarray(w), "gf4")
+    for layer in range(L):
+        got = hopper_qmm.qmm_prefill(torch.from_numpy(x), torch.from_numpy(w),
+                                     layer).numpy()
+        want = x @ np.asarray(jqmm.dequant(jqmm.QTensor(jnp.asarray(w[layer]), "gf4"))).T
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+        pal = np.asarray(pallas_qmm.qmm_prefill(jnp.asarray(x), jnp.asarray(w),
+                                                jnp.int32(layer)))
+        np.testing.assert_allclose(got, pal, rtol=3e-2, atol=3e-2)
+
+
+def test_mm_routing_matches_jax_eligibility():
+    w = torch.zeros(2, 8, 4, dtype=torch.int32)
+    for rows in (1, 16, 17, 31, 32, 2047):
+        assert hopper_qmm.mm_supported(rows, w, "gf4") == pallas_qmm.mm_supported(
+            (rows, 32), jnp.zeros((2, 8, 4), jnp.int32), "gf4")
+    assert not hopper_qmm.mm_supported(64, w, "fp8")
+
+
+def test_qmm_prefill_w2_plain(rng, interpret):
+    """K5's plain version (natural w2 words) against the Pallas kernel on
+    the word-transposed layout in interpret mode, which takes h in k-major
+    order (as tests/test_pallas_qmm.py:510-529)."""
+    L, D, H, rows = 2, 256, 384, 48
+    w2 = _gf4_stack(rng, L, D, H)                        # (L, D, H/8)
+    h = rng.standard_normal((rows, H)).astype(np.float32)
+    h_perm = h.reshape(rows, H // 8, 8).transpose(0, 2, 1).reshape(rows, H)
+    wt = jnp.asarray(w2.transpose(0, 2, 1))              # (L, H/8, D)
+    assert pallas_qmm.mmt_supported(h_perm.shape, wt)
+    assert hopper_qmm.mm_supported(rows, torch.from_numpy(w2), "gf4")
+    for layer in range(L):
+        got = hopper_qmm.qmm_prefill_w2(torch.from_numpy(h), torch.from_numpy(w2),
+                                        layer).numpy()
+        want = h @ np.asarray(jqmm.dequant(jqmm.QTensor(jnp.asarray(w2[layer]), "gf4"))).T
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+        pal = np.asarray(pallas_qmm.qmm_prefill_t(jnp.asarray(h_perm), wt,
+                                                  jnp.int32(layer)))
+        np.testing.assert_allclose(got, pal, rtol=3e-2, atol=3e-2)
+
+
+@pytest.mark.parametrize("fmt", ["fp16", "fp8", "gf4"])
+def test_dense_matmul_plain(rng, fmt):
+    """The product no kernel takes (fp8/fp16 past 16 rows, gf4 at 17..31):
+    f32 on the CPU, as calm_tpu's f32 path."""
+    w = (_gf4_stack(rng, 2, 64, 128) if fmt == "gf4"
+         else _weights(rng, (2, 64, 128), fmt))
+    x = rng.standard_normal((20, 128)).astype(np.float32)
+    got = qmm.dense_matmul(torch.from_numpy(x), qmm.QTensor(_t(w, fmt), fmt), 1).numpy()
+    want = np.asarray(jqmm.qmatmul(jnp.asarray(x), jqmm.QTensor(jnp.asarray(w), fmt),
+                                   layer=jnp.int32(1)))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
 # -- K9: qx_offn_qkv ----------------------------------------------------------
 
 
@@ -209,6 +297,57 @@ def test_qx_offn_qkv_plain(rng, interpret, fmt, sub_mean, b, gelu):
             *[jnp.asarray(w) for w in ws], jnp.int32(l), fmt, gelu, eps, sub_mean)
         for gt, pt in zip(got, pal):
             np.testing.assert_allclose(gt, np.asarray(pt), rtol=5e-2, atol=5e-2)
+
+
+@pytest.mark.parametrize("sub_mean", [False, True])
+def test_gf4_offn_qkv_plain(rng, interpret, sub_mean):
+    """K8's plain version on natural gf4 words against the f32 chain and
+    the Pallas kernel on its plane-permuted layouts in interpret mode (as
+    tests/test_pallas_qmm.py:215-269; bf16 operands there)."""
+    L, D, Qd, KVd, H, b, eps = 2, 256, 128, 32, 8 * 72, 1, 1e-5
+    wo, w1, w3, w2 = (_gf4_stack(rng, L, *s) for s in ((D, Qd), (H, D), (H, D), (D, H)))
+    wqkv = _gf4_stack(rng, L, Qd + 2 * KVd, D)
+    wq, wk, wv = wqkv[:, :Qd], wqkv[:, Qd:Qd + KVd], wqkv[:, Qd + KVd:]
+    g = (1.0 + rng.standard_normal((L, D)) * 0.1).astype(np.float32)
+    anx = (1.0 + rng.standard_normal((L, D)) * 0.1).astype(np.float32)
+    a = (rng.standard_normal((b, Qd)) * 0.5).astype(np.float32)
+    r = (rng.standard_normal((b, D)) * 0.5).astype(np.float32)
+
+    # the stream layouts the TPU kernel reads (model.fuse_gf4_weights)
+    w1p = jnp.asarray(w1).reshape(L, H // 8, 8, D // 8).transpose(0, 2, 1, 3)
+    w3p = jnp.asarray(w3).reshape(L, H // 8, 8, D // 8).transpose(0, 2, 1, 3)
+    wo_p = jnp.asarray(wo).reshape(L, D // 8, 8, Qd // 8).transpose(0, 2, 1, 3)
+    w2tp = (jnp.asarray(w2).transpose(0, 2, 1).reshape(L, H // 8, D // 8, 8)
+            .transpose(0, 1, 3, 2).reshape(L, H // 8, D))
+
+    def pl(v):  # natural (rows, n) -> plane-permuted (rows, 8, n/8)
+        return jnp.asarray(v.reshape(v.shape[0], -1, 8).transpose(0, 2, 1))
+
+    def jq(w, l):
+        return jqmm.QTensor(jnp.asarray(w[l]), "gf4")
+
+    for l in range(L):  # l = L-1 reads wq/wk/wv[L-1] (the clamp)
+        got = [t.numpy() for t in hopper_qmm.gf4_offn_qkv(
+            torch.from_numpy(a), torch.from_numpy(r), torch.from_numpy(g),
+            torch.from_numpy(anx), *[torch.from_numpy(np.ascontiguousarray(w))
+                                     for w in (wo, w1, w3, w2, wq, wk, wv)],
+            l, False, eps, sub_mean)]
+        ln = min(l + 1, L - 1)
+        r1 = r + np.asarray(jqmm.qmatmul(jnp.asarray(a), jq(wo, l)))
+        xn = jrmsnorm(jnp.asarray(r1), jnp.asarray(g[l]), eps, sub_mean)
+        h = jax.nn.silu(jqmm.qmatmul(xn, jq(w1, l))) * jqmm.qmatmul(xn, jq(w3, l))
+        x = r1 + np.asarray(jqmm.qmatmul(h, jq(w2, l)))
+        xq = jrmsnorm(jnp.asarray(x), jnp.asarray(anx[ln]), eps, sub_mean)
+        want = [x, np.asarray(jqmm.qmatmul(xq, jq(wqkv, ln)))]
+        got = [got[0], np.concatenate(got[1:], axis=1)]
+        for gt, wt in zip(got, want):
+            np.testing.assert_allclose(gt, wt, rtol=1e-5, atol=1e-5)
+        x_pl, qkv = pallas_qmm.gf4_offn_qkv(
+            pl(a), pl(r), pl(g), pl(anx), wo_p, w1p, w3p, w2tp,
+            jnp.asarray(wqkv), jnp.int32(l), False, eps, sub_mean)
+        x_pal = np.asarray(x_pl).transpose(0, 2, 1).reshape(b, D)
+        for gt, pt in zip(got, (x_pal, np.asarray(qkv))):
+            np.testing.assert_allclose(gt, pt, rtol=5e-2, atol=5e-2)
 
 
 # -- K12: decode_attention ----------------------------------------------------
@@ -272,17 +411,29 @@ def test_plane_address_and_fused_eligibility():
     assert not hopper_qmm.qx_offn_supported("fp16", 1, (4096, 14336, 4096, 1000))
     assert not hopper_qmm.qx_offn_supported(  # past the norm launch's rows
         "fp16", 1, (hopper_qmm.MAX_NORM_DIM + 128, 14336, 4096, 1024))
+    assert hopper_qmm.gf4_offn_supported(1, ok)
+    assert not hopper_qmm.gf4_offn_supported(17, ok)
+    assert not hopper_qmm.gf4_offn_supported(1, (4096, 11008 + 64, 4096, 1024))
 
 
 def test_cpu_wrappers_take_the_plain_path(rng):
-    before = (hopper_qmm.qmm_decode.launches, hopper_qmm.qx_offn_qkv.launches,
-              hopper_attn.decode_attention.launches)
+    wrappers = (hopper_qmm.qmm_decode, hopper_qmm.qx_offn_qkv,
+                hopper_qmm.qmm_decode_gf4, hopper_qmm.qmm_prefill,
+                hopper_qmm.qmm_prefill_w2, hopper_qmm.gf4_offn_qkv,
+                hopper_attn.decode_attention, hopper_attn.prefill_attention)
+    assert [f.launches for f in wrappers] == [0] * 8
     w = torch.from_numpy(_weights(rng, (2, 32, 32), "fp16"))
     hopper_qmm.qmm_decode(torch.randn(1, 32), w, "fp16", 1)
-    hopper_attn.decode_attention(
-        torch.randn(1, 4, 64), torch.zeros(1, 1, 2, 8, 64, dtype=torch.bfloat16),
-        torch.zeros(1, 1, 2, 8, 64, dtype=torch.bfloat16),
-        torch.tensor([3], dtype=torch.int32), 0)
-    assert before == (0, 0, 0)
-    assert (hopper_qmm.qmm_decode.launches, hopper_qmm.qx_offn_qkv.launches,
-            hopper_attn.decode_attention.launches) == (0, 0, 0)
+    g = torch.from_numpy(_gf4_stack(rng, 2, 32, 32))
+    hopper_qmm.qmm_decode(torch.randn(2, 32), g, "gf4", 1)
+    hopper_qmm.qmm_prefill(torch.randn(40, 32), g, 0)
+    hopper_qmm.qmm_prefill_w2(torch.randn(40, 32), g, 0)
+    a, r, n = torch.randn(1, 32), torch.randn(1, 32), torch.ones(2, 32)
+    hopper_qmm.gf4_offn_qkv(a, r, n, n, g, g, g, g, g, g, g, 1, False, 1e-5, False)
+    kc = torch.zeros(1, 1, 2, 8, 64, dtype=torch.bfloat16)
+    hopper_attn.decode_attention(torch.randn(1, 4, 64), kc, kc,
+                                 torch.tensor([3], dtype=torch.int32), 0)
+    hopper_attn.prefill_attention(torch.randn(1, 3, 2, 2, 64), kc, kc,
+                                  torch.tensor([0], dtype=torch.int32),
+                                  torch.tensor([3], dtype=torch.int32), 0)
+    assert [f.launches for f in wrappers] == [0] * 8
