@@ -143,13 +143,14 @@ class TensorFile:
                 f"tensor {key!r}: shape mismatch (file {tshape}, want {tuple(shape)})")
         return self._mm[begin:end].view(DTYPES[ttag]).reshape(tshape)
 
-    def count_bytes(self, prefix: str):
-        """(bytes, params) over tensors whose name starts with ``prefix``;
-        gf4 words (I32) count as 8 parameters each."""
+    def count_bytes(self, prefix: str, contains: str | None = None):
+        """(bytes, params) over tensors whose name starts with ``prefix``
+        (and holds ``contains``, when given); gf4 words (I32) count as 8
+        parameters each."""
         total_bytes = 0
         params = 0
         for name, (tag, shape, begin, end) in self._tensors.items():
-            if not name.startswith(prefix):
+            if not name.startswith(prefix) or (contains and contains not in name):
                 continue
             n = math.prod(shape) if shape else 1
             if tag == "I32":

@@ -3,7 +3,9 @@
 
 - one .calm container gives the config, weights, tokenizer and sampler,
   with the reference's bandwidth/params accounting (src/run.c:131-152,
-  523-532) feeding the perf line (src/run.c:249-253);
+  523-532; MoE models count the active experts' share of the FFN bytes,
+  as ``calm_tpu/engine.py:125-128``) feeding the perf line
+  (src/run.c:249-253);
 - the prompt goes through batched ``prefill`` in chunks of
   ``PREFILL_CHUNK``; tokens past the window are stepped;
 - greedy decode runs ``decode_loop`` chunks with the argmax on the
@@ -93,6 +95,10 @@ class Engine:
         self.n_bandwidth = self.n_bytes - embed_bytes
         if self.tf.find("model.output.weight") is None:
             self.n_bandwidth += self.tf.nbytes("model.embed.weight")
+        if self.cfg.n_experts:  # a token reads only its active experts
+            mlp_bytes, _ = self.tf.count_bytes("model.layers.", ".mlp.w")
+            self.n_bandwidth -= mlp_bytes
+            self.n_bandwidth += mlp_bytes // self.cfg.n_experts * self.cfg.n_experts_ac
 
         self.cache = M.KVCache.create(self.cfg, 1, self._kv_torch, self.device)
 
@@ -101,9 +107,10 @@ class Engine:
     def banner(self) -> str:
         c = self.cfg
         kv_gib = kv_cache_bytes(c, self.kv_bits, c.seq_len - 1) / 2**30
+        moe = f", {c.n_experts} experts ({c.n_experts_ac} active)" if c.n_experts else ""
         return (f"# {self.tf.path}: {self.n_params / 1e9:.1f}B params "
                 f"({self.n_bytes / 2**30:.1f} GiB @ {self.n_bytes * 8 / self.n_params:.2f} bpw), "
-                f"{c.seq_len} context (kvcache {kv_gib:.1f} GiB @ {self.kv_dtype})")
+                f"{c.seq_len} context (kvcache {kv_gib:.1f} GiB @ {self.kv_dtype}){moe}")
 
     def reset(self):
         self.cache.k.zero_()

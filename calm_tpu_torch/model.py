@@ -1,11 +1,11 @@
-"""The dense decoder-only transformer in PyTorch: decode and batched
-prefill of fp8/fp16/gf4 Llama/Mistral-family models (the port of
-``calm_tpu.model``'s decode and prefill paths).
+"""The decoder-only transformer in PyTorch: decode and batched prefill of
+fp8/fp16/gf4 Llama/Mistral-family models, dense or Mixtral-style MoE (the
+port of ``calm_tpu.model``'s decode and prefill paths).
 
 Tensor layouts match the JAX package at every public function: weights
 are layer-stacked (L, d, n) in storage dtype (gf4: (L, d, n/8) int32
-words), the KV cache is head-major (L, B, KVH, S, hd). A decode step runs,
-for one token per sequence slot:
+words; MoE expert stacks (L, E, d, n)), the KV cache is head-major (L, B,
+KVH, S, hd). A decode step runs, for one token per sequence slot:
 
 1. embed the token;
 2. prime layer 0's q/k/v (attn-norm + three ``qmm_decode`` matvecs);
@@ -17,16 +17,22 @@ for one token per sequence slot:
 4. one cache write for all layers (``model.py:1289-1306``);
 5. final norm and the lm-head through ``qmm_decode``.
 
-Models whose dims are not 128-aligned take the same step with per-op
-matvecs in place of the fused epilogue. :func:`prefill` runs T
+Models whose dims are not 128-aligned, and MoE models (as
+``model.py:1228``), take the same step with per-op matvecs in place of
+the fused epilogue; a MoE layer's FFN is :func:`_moe_ffn`: the gate
+matvec, top-k routing, then at <= 16 rows the expert sweep over the
+layer's unique experts (``qmm_moe_dense`` three times, or ``gf4_moe_ffn``
+once for gf4), above it the rows grouped by expert through the product
+kernels. :func:`prefill` runs T
 tokens per sequence at once (``model.py:1363-1374``): per layer the
 projections, bias/qk-norm/clip, RoPE over T positions, the write of the T
 rows into the cache, then ``prefill_attention`` reading them back, then wo
 and the FFN per op. On the card every product and the attention go
 through the Hopper kernels (products of more than 16 rows of fp8/fp16, or
 17..31 of gf4, through ``dense_matmul``; gf4's w2 product through
-``qmm_prefill_w2``); on the CPU the wrappers run their plain versions. MoE, parallel-norm archs and, on the card, fp8e4 weights
-belong to later slices and raise NotImplementedError.
+``qmm_prefill_w2``); on the CPU the wrappers run their plain versions.
+Parallel-norm archs and, on the card, fp8e4 weights belong to later
+slices and raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -40,9 +46,10 @@ import torch
 from calm_tpu_torch.config import ModelConfig
 from calm_tpu_torch.container import TensorFile, to_torch
 from calm_tpu_torch.ops.hopper_attn import decode_attention, prefill_attention
-from calm_tpu_torch.ops.hopper_qmm import (MAX_ROWS, act, gf4_offn_qkv,
-                                           gf4_offn_supported, mm_supported,
-                                           qmm_decode, qmm_prefill,
+from calm_tpu_torch.ops.hopper_qmm import (MAX_ROWS, act, gf4_moe_ffn,
+                                           gf4_offn_qkv, gf4_offn_supported,
+                                           mm_supported, qmm_decode,
+                                           qmm_moe_dense, qmm_prefill,
                                            qmm_prefill_w2, qx_offn_qkv,
                                            qx_offn_supported)
 from calm_tpu_torch.ops.norms import rmsnorm
@@ -65,14 +72,15 @@ class LayerWeights:
     wk: QTensor               # (L, kv_dim, D)
     wv: QTensor               # (L, kv_dim, D)
     wo: QTensor               # (L, D, q_dim)
-    w1: QTensor               # (L, H, D)
-    w2: QTensor               # (L, D, H)
-    w3: QTensor               # (L, H, D)
+    w1: QTensor               # (L, [E,] H, D); fp8e4 scales (L, [E,] 1)
+    w2: QTensor               # (L, [E,] D, H)
+    w3: QTensor               # (L, [E,] H, D)
     bq: torch.Tensor | None = None  # (L, q_dim) f32, None when absent
     bk: torch.Tensor | None = None
     bv: torch.Tensor | None = None
     q_norm: torch.Tensor | None = None  # (L, q_dim) f32 when cfg.norm_qk
     k_norm: torch.Tensor | None = None
+    moegate: QTensor | None = None  # (L, E, D) for MoE models
 
 
 @dataclasses.dataclass
@@ -98,8 +106,6 @@ class KVCache:
 
 def check_supported(cfg: ModelConfig, device) -> None:
     """Raise NotImplementedError for configurations of later slices."""
-    if cfg.n_experts:
-        raise NotImplementedError("MoE models wait for the MoE slice")
     if cfg.norm_par:
         raise NotImplementedError(
             "parallel attn+ffn norm (norm_par) is not ported yet")
@@ -119,9 +125,10 @@ def load_weights(tf: TensorFile, cfg: ModelConfig, device="cpu") -> Weights:
     fmt = cfg.dtype
     tag = _TAGS[fmt]
     gs = 8 if fmt == "gf4" else 1
-    L = cfg.n_layers
+    L, E = cfg.n_layers, cfg.n_experts
     D, Hd, Q, KV, V = (cfg.dim, cfg.hidden_dim, cfg.q_dim, cfg.kv_dim,
                        cfg.vocab_size)
+    ex = (E,) if E else ()  # MoE expert stacks: (E, ...) per layer
 
     def one(name, shape, t=tag):
         return to_torch(tf.get(name, None, t, shape), t, device)
@@ -137,9 +144,12 @@ def load_weights(tf: TensorFile, cfg: ModelConfig, device="cpu") -> Weights:
         scale = one(name + ".scale", (1,), "F32") if fmt == "fp8e4" else None
         return QTensor(one(name, shape), fmt, scale)
 
-    def qstack(name, shape):
-        scale = stack(name + ".scale", (1,), "F32") if fmt == "fp8e4" else None
+    def qstack(name, shape, scale_shape=(1,)):
+        scale = stack(name + ".scale", scale_shape, "F32") if fmt == "fp8e4" else None
         return QTensor(stack(name, shape), fmt, scale)
+
+    def qmlp(name, shape):  # MoE stacks quantize per (layer, expert)
+        return qstack(name, ex + shape, ex + (1,))
 
     bias = None
     if tf.find("model.layers.%d.attn.wqkv.bias", 0):
@@ -152,16 +162,18 @@ def load_weights(tf: TensorFile, cfg: ModelConfig, device="cpu") -> Weights:
         wk=qstack("model.layers.%d.attn.wk.weight", (KV, D // gs)),
         wv=qstack("model.layers.%d.attn.wv.weight", (KV, D // gs)),
         wo=qstack("model.layers.%d.attn.wo.weight", (D, Q // gs)),
-        w1=qstack("model.layers.%d.mlp.w1.weight", (Hd, D // gs)),
-        w2=qstack("model.layers.%d.mlp.w2.weight", (D, Hd // gs)),
-        w3=qstack("model.layers.%d.mlp.w3.weight", (Hd, D // gs)),
+        w1=qmlp("model.layers.%d.mlp.w1.weight", (Hd, D // gs)),
+        w2=qmlp("model.layers.%d.mlp.w2.weight", (D, Hd // gs)),
+        w3=qmlp("model.layers.%d.mlp.w3.weight", (Hd, D // gs)),
         bq=None if bias is None else bias[:, :Q].contiguous(),
         bk=None if bias is None else bias[:, Q:Q + KV].contiguous(),
         bv=None if bias is None else bias[:, Q + KV:].contiguous(),
         q_norm=(stack("model.layers.%d.attn.q_norm.weight", (Q,), "F32")
                 if cfg.norm_qk else None),
         k_norm=(stack("model.layers.%d.attn.k_norm.weight", (KV,), "F32")
-                if cfg.norm_qk else None))
+                if cfg.norm_qk else None),
+        moegate=(qstack("model.layers.%d.moegate.weight", (E, D // gs))
+                 if E else None))
     embed = qone("model.embed.weight", (V, D // gs))
     output = (embed if tf.find("model.output.weight") is None
               else qone("model.output.weight", (V, D // gs)))
@@ -176,19 +188,40 @@ def weights_from_numpy(arrays: dict[str, np.ndarray], cfg: ModelConfig,
     field path: ``"embed"``, ``"output"``, ``"final_norm"``,
     ``"layers.wq"`` ... (a QTensor's data under its path, an fp8e4 scale
     under ``<path>.scale``; fp8 as uint8). A missing ``"output"`` ties it to
-    the embedding; all-zero biases (the JAX default) are dropped."""
+    the embedding; all-zero biases (the JAX default) are dropped.
+
+    The fused gf4 layouts that ``calm_tpu.engine.Engine`` holds for MoE
+    models (``fuse_gf4_weights``) are taken too and undone: the row-concat
+    ``"layers.wqkv"`` (L, Q + 2 KV, D/8) is split into wq/wk/wv, and the
+    plane-major ``"layers.w1pe"``/``"layers.w3pe"`` (L, E, 8, H/8, D/8),
+    ``[l, e, k, c] = w1[l, e, 8c + k]``, go back to natural (L, E, H, D/8)."""
     check_supported(cfg, device)
     fmt = cfg.dtype
 
-    def t(key, dtype=None):
-        x = torch.from_numpy(np.array(arrays[key]))  # owned, writable copy
+    def tensor(a, dtype=None):
+        x = torch.from_numpy(np.array(a, order="C"))  # owned, writable copy
         if dtype is not None and x.dtype != dtype:
             x = x.view(dtype)
         return x.to(device)
 
+    def t(key, dtype=None):
+        return tensor(arrays[key], dtype)
+
     def q(key):
+        if key not in arrays and key + "pe" in arrays:  # plane-major experts
+            pe = np.asarray(arrays[key + "pe"])
+            L, E, _, gh, gd = pe.shape
+            return QTensor(tensor(pe.transpose(0, 1, 3, 2, 4).reshape(L, E, 8 * gh, gd),
+                                  STORAGE[fmt]), fmt)
         scale = t(key + ".scale", torch.float32) if key + ".scale" in arrays else None
         return QTensor(t(key, STORAGE[fmt]), fmt, scale)
+
+    if "layers.wq" not in arrays and "layers.wqkv" in arrays:  # row-concat
+        wqkv = np.asarray(arrays["layers.wqkv"])
+        Q, KV = cfg.q_dim, cfg.kv_dim
+        arrays = dict(arrays, **{"layers.wq": wqkv[:, :Q],
+                                 "layers.wk": wqkv[:, Q:Q + KV],
+                                 "layers.wv": wqkv[:, Q + KV:]})
 
     def bias(key):
         if key not in arrays or not np.any(arrays[key]):
@@ -205,7 +238,8 @@ def weights_from_numpy(arrays: dict[str, np.ndarray], cfg: ModelConfig,
         wo=q("layers.wo"), w1=q("layers.w1"), w2=q("layers.w2"),
         w3=q("layers.w3"),
         bq=bias("layers.bq"), bk=bias("layers.bk"), bv=bias("layers.bv"),
-        q_norm=opt("layers.q_norm"), k_norm=opt("layers.k_norm"))
+        q_norm=opt("layers.q_norm"), k_norm=opt("layers.k_norm"),
+        moegate=q("layers.moegate") if cfg.n_experts else None)
     embed = q("embed")
     return Weights(embed=embed, layers=layers,
                    final_norm=t("final_norm", torch.float32),
@@ -257,6 +291,8 @@ def _embed(embed: QTensor, tokens: torch.Tensor):
 
 
 def _fused(cfg: ModelConfig, w: Weights, B: int) -> bool:
+    if cfg.n_experts:  # a MoE layer runs per op (calm_tpu/model.py:1228)
+        return False
     lw = w.layers
     shapes = (cfg.dim, lw.w1.data.shape[1], cfg.q_dim, cfg.kv_dim)
     if lw.wq.fmt == "gf4":
@@ -300,10 +336,104 @@ def _qkv_post(cfg: ModelConfig, lw: LayerWeights, layer: int, q, k, v):
     return q, k, v
 
 
+def route(cfg: ModelConfig, gate: torch.Tensor):
+    """Expert weights and ids (R, k) of each row of the gate logits (R, E)
+    (``calm_tpu/model.py:743-750``): a softmax over the top-k logits under
+    ``moe_renorm`` (Mixtral, DBRX), else the top-k of the softmax over all
+    E (OLMoE). Ties go to the lowest expert index, as ``lax.top_k`` breaks
+    them: a stable descending sort, where ``torch.topk`` promises no order
+    (fp8 pattern weights make every gate logit equal)."""
+    k = cfg.n_experts_ac
+    if cfg.moe_renorm:
+        vals, idx = torch.sort(gate, dim=-1, descending=True, stable=True)
+        return torch.softmax(vals[:, :k], dim=-1), idx[:, :k]
+    vals, idx = torch.sort(torch.softmax(gate, dim=-1), dim=-1, descending=True,
+                           stable=True)
+    return vals[:, :k], idx[:, :k]
+
+
+def expert_slots(idx: torch.Tensor, n_experts: int):
+    """The sorted unique expert ids of ``idx`` (R, k), compacted to the
+    front of A = min(E, R k) slots and padded with the last of them, as
+    int32, and their count as a (1,) int32, all computed on the device with
+    no host sync (``calm_tpu/model.py:774-796``)."""
+    s = torch.sort(idx.reshape(-1)).values
+    R = s.shape[0]
+    firsts = torch.ones_like(s, dtype=torch.bool)
+    firsts[1:] = s[1:] != s[:-1]
+    su = s[torch.sort((~firsts).to(torch.int32), stable=True).indices]
+    cnt = firsts.sum().reshape(1)
+    A = min(n_experts, R)
+    pad = su.index_select(0, (cnt - 1).clamp(0, R - 1))
+    live = torch.arange(A, device=s.device) < cnt
+    return torch.where(live, su[:A], pad).to(torch.int32), cnt.to(torch.int32)
+
+
+def _moe_sweep(cfg: ModelConfig, lw: LayerWeights, layer: int, xb2, wts, idx):
+    """<= 16 rows: every unique expert's weights read once for all rows
+    (``calm_tpu/model.py:764-827``), then each row takes the slots it was
+    routed to with its gate weights; dead slots come back as zeros."""
+    uniq, cnt = expert_slots(idx, cfg.n_experts)
+    if lw.w1.fmt == "gf4":
+        z = gf4_moe_ffn(xb2, lw.w1.data, lw.w3.data, lw.w2.data, uniq, cnt, layer,
+                        cfg.act_gelu)
+    else:
+        xf = xb2[None]
+        h = (act(qmm_moe_dense(xf, lw.w1.data, uniq, cnt, lw.w1.fmt, layer),
+                 cfg.act_gelu)
+             * qmm_moe_dense(xf, lw.w3.data, uniq, cnt, lw.w3.fmt, layer))
+        z = qmm_moe_dense(h, lw.w2.data, uniq, cnt, lw.w2.fmt, layer)  # (A, R, D)
+    live = torch.arange(uniq.shape[0], device=z.device) < cnt
+    wmat = ((wts[:, :, None] * (idx[:, :, None] == uniq)).sum(1)
+            * live)                                                 # (R, A)
+    return torch.einsum("ra,ard->rd", wmat, z)
+
+
+def _moe_grouped(cfg: ModelConfig, lw: LayerWeights, layer: int, xb2, wts, idx):
+    """Any row count: the rows grouped by expert, each group through the
+    product kernels (``_mm``), weighted and summed back. The same function
+    as the JAX per-token vmap (``calm_tpu/model.py:829-857``) without its
+    per-row weight reads. The group sizes cost one host sync per layer,
+    which a prefill's products dwarf; the decode sweep has none."""
+    k = idx.shape[1]
+    flat = idx.reshape(-1)
+    order = torch.sort(flat, stable=True).indices
+    sizes = torch.bincount(flat, minlength=cfg.n_experts).tolist()
+    w_flat = wts.reshape(-1)
+    out = torch.zeros_like(xb2)
+    start = 0
+    for e, c in enumerate(sizes):
+        if not c:
+            continue
+        sel = order[start:start + c]
+        start += c
+        rows = sel // k
+        xe = xb2.index_select(0, rows)
+        h = (act(_mm(xe, lw.w1[layer, e]), cfg.act_gelu)
+             * _mm(xe, lw.w3[layer, e]))
+        y = _mm(h, lw.w2[layer, e], w2=True)
+        out.index_add_(0, rows, y * w_flat[sel, None])
+    return out
+
+
+def _moe_ffn(cfg: ModelConfig, lw: LayerWeights, layer: int, xb2):
+    """Top-k routed MoE FFN on xb2 (R, D) (``calm_tpu/model.py:731-857``,
+    without expert parallelism): the gate matvec, routing, then the expert
+    sweep at <= 16 rows or the grouped products above. fp8e4 experts take
+    the grouped path with their per-expert scales (CPU only)."""
+    wts, idx = route(cfg, _mm(xb2, lw.moegate, layer))
+    if xb2.shape[0] <= MAX_ROWS and lw.w1.fmt in ("fp8", "fp16", "gf4"):
+        return _moe_sweep(cfg, lw, layer, xb2, wts, idx)
+    return _moe_grouped(cfg, lw, layer, xb2, wts, idx)
+
+
 def _ffn(cfg: ModelConfig, lw: LayerWeights, layer: int, x, att):
-    """wo + residual, ffn-norm, w1/w3 + activation, w2 + residual, per op."""
+    """wo + residual, ffn-norm, w1/w3 + activation (or the MoE FFN), w2 +
+    residual, per op."""
     x = x + _mm(att, lw.wo, layer)
     xb2 = _norm(cfg, x, lw.ffn_norm[layer])
+    if cfg.n_experts:
+        return x + _moe_ffn(cfg, lw, layer, xb2)
     h = act(_mm(xb2, lw.w1, layer), cfg.act_gelu) * _mm(xb2, lw.w3, layer)
     return x + _mm(h, lw.w2, layer, w2=True)
 

@@ -24,7 +24,7 @@ from calm_tpu_torch.device import nvcc_path
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("qmm", "attn", "gf4")
+SOURCES = ("qmm", "attn", "gf4", "moe")
 ARCH = "arch=compute_90a,code=sm_90a"
 
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -42,6 +42,10 @@ SIGNATURES = {
     "gf4": {
         "calm_gf4_matvec": [P, P, P, I, I, I, P],
         "calm_gf4_matmul": [P, P, P, I, I, I, P],
+    },
+    "moe": {
+        "calm_moe_dense": [P] * 5 + [I] * 7 + [P],
+        "calm_gf4_moe_ffn": [P] * 8 + [I] * 6 + [P],
     },
 }
 

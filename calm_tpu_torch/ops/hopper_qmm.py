@@ -17,6 +17,12 @@
 - :func:`gf4_offn_qkv` replaces ``_gf4_offn_qkv_kernel`` (``:737``): the
   same epilogue on natural gf4 words (``csrc/qmm.cu``, fmt 2), where the
   TPU kernel reads plane-permuted layouts.
+- :func:`qmm_moe_dense` replaces ``_moe_dense_kernel`` and
+  ``_moe_dense_gf4_kernel`` (``:1248``, ``:1256``): the MoE expert sweep,
+  one matvec per expert slot with the ids on the device (``csrc/moe.cu``).
+- :func:`gf4_moe_ffn` replaces ``_gf4_moe_ffn_kernel`` (``:1361``): each
+  slot's whole expert FFN on natural gf4 words (``csrc/moe.cu``), where
+  the TPU kernel reads plane-major w1/w3.
 
 Each wrapper takes its plain PyTorch version (``*_plain``, f32) for tensors
 on the CPU, and launches the kernel for CUDA tensors or raises; it counts
@@ -33,7 +39,7 @@ from calm_tpu_torch.ops.norms import rmsnorm
 from calm_tpu_torch.ops.qmm import STORAGE, QTensor, dequant
 
 _FMT_CODE = {"fp16": 0, "fp8": 1}  # qmm_decode, qx_offn_qkv
-_OFFN_CODE = dict(_FMT_CODE, gf4=2)  # the epilogue launches of csrc/qmm.cu
+_OFFN_CODE = dict(_FMT_CODE, gf4=2)  # csrc/qmm.cu's epilogue, csrc/moe.cu
 MAX_ROWS = 16
 MIN_MM_ROWS = 32  # qmm_prefill's least row count (pallas_qmm.mm_supported)
 MAX_NORM_DIM = 16384  # norm_kernel: 1024 threads x 4 float4 in registers
@@ -313,6 +319,115 @@ def gf4_offn_qkv(a, r, g, anx, wo, w1, w3, w2, wq, wk, wv, layer,
 
 
 gf4_offn_qkv.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K10 and K11: expert-indexed matvecs for MoE decode
+# ---------------------------------------------------------------------------
+
+
+def qmm_moe_dense_plain(x: torch.Tensor, wstack: torch.Tensor, eidx: torch.Tensor,
+                        cnt: torch.Tensor, fmt: str, layer=None) -> torch.Tensor:
+    A = eidx.shape[0]
+    planes = _plane(wstack, layer).index_select(0, eidx.to(wstack.device).long())
+    wf = dequant(QTensor(planes, fmt), torch.float32)  # (A, d, n)
+    y = torch.einsum("abn,adn->abd", x.float().expand(A, -1, -1), wf)
+    live = torch.arange(A, device=y.device) < cnt.to(y.device).reshape(())
+    return torch.where(live[:, None, None], y, 0.0)
+
+
+def _check_slots(x: torch.Tensor, eidx: torch.Tensor, cnt: torch.Tensor) -> None:
+    _check(eidx.dtype == torch.int32 and eidx.ndim == 1 and eidx.is_contiguous()
+           and eidx.device == x.device, "eidx must be (A,) int32 on the card")
+    _check(cnt.dtype == torch.int32 and cnt.numel() == 1 and cnt.device == x.device,
+           "cnt must be one int32 on the card")
+
+
+def _check_stack(x: torch.Tensor, w: torch.Tensor, fmt: str, layer) -> int:
+    """Checks of one (L, E, d, n_packed) expert stack against x (.., n);
+    returns its layer index."""
+    _check(x.dtype == torch.float32 and x.is_contiguous() and x.data_ptr() % 16 == 0,
+           "activations must be contiguous 16-byte aligned float32")
+    _check(w.device == x.device and w.dtype == STORAGE[fmt] and w.is_contiguous()
+           and w.ndim == 4, f"{fmt} expert stacks must be contiguous (L, E, d, n) "
+           f"{STORAGE[fmt]} on the activations' device")
+    gs = 8 if fmt == "gf4" else 1
+    _check(x.shape[-1] == w.shape[-1] * gs and x.shape[-1] % 4 == 0,
+           f"x has {x.shape[-1]} columns, W rows hold {w.shape[-1] * gs} "
+           "(a multiple of 4)")
+    _check(layer is not None and 0 <= int(layer) < w.shape[0],
+           f"layer {layer} out of range for a stack of {w.shape[0]}")
+    return int(layer)
+
+
+def qmm_moe_dense(x: torch.Tensor, wstack: torch.Tensor, eidx: torch.Tensor,
+                  cnt: torch.Tensor, fmt: str, layer=None) -> torch.Tensor:
+    """The expert sweep: Y[a] = x[min(a, Ax - 1)] @ W[layer, eidx[a]]^T for
+    x (Ax, B <= 16, n) f32 with Ax in {1, A}, W (L, E, d, n) fp16/fp8 or
+    (L, E, d, n/8) gf4 words, eidx (A,) int32 and cnt (1,) int32 on the
+    device -> (A, B, d) f32; slots a >= cnt give zeros."""
+    if x.device.type == "cpu":
+        return qmm_moe_dense_plain(x, wstack, eidx, cnt, fmt, layer)
+    _check(fmt in _OFFN_CODE, f"no CUDA kernel for weight format {fmt!r}")
+    l = _check_stack(x, wstack, fmt, layer)
+    _check_slots(x, eidx, cnt)
+    Ax, B, n = x.shape
+    A = eidx.shape[0]
+    _check(Ax in (1, A) and 1 <= B <= MAX_ROWS,
+           f"x must be (1 or {A}, 1..{MAX_ROWS}, n), got {tuple(x.shape)}")
+    d = wstack.shape[2]
+    y = torch.empty((A, B, d), dtype=torch.float32, device=x.device)
+    rc = build.lib("moe").calm_moe_dense(
+        x.data_ptr(), _plane_ptr(wstack, l), y.data_ptr(), eidx.data_ptr(),
+        cnt.data_ptr(), Ax, A, B, d, n, wstack.shape[1], _OFFN_CODE[fmt], _stream(x))
+    build.check("moe", rc)
+    qmm_moe_dense.launches += 1
+    return y
+
+
+qmm_moe_dense.launches = 0
+
+
+def gf4_moe_ffn_plain(x, w1, w3, w2, eidx, cnt, layer, act_gelu: bool):
+    x1 = x.float()[None]
+    h = (act(qmm_moe_dense_plain(x1, w1, eidx, cnt, "gf4", layer), act_gelu)
+         * qmm_moe_dense_plain(x1, w3, eidx, cnt, "gf4", layer))
+    return qmm_moe_dense_plain(h, w2, eidx, cnt, "gf4", layer)
+
+
+def gf4_moe_ffn(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
+                w2: torch.Tensor, eidx: torch.Tensor, cnt: torch.Tensor, layer,
+                act_gelu: bool) -> torch.Tensor:
+    """The whole expert FFN of each slot on natural gf4 words: x (B <= 16,
+    D) f32, w1/w3 (L, E, H, D/8), w2 (L, E, D, H/8) int32 -> z (A, B, D)
+    f32 with z[a] = (act(x W1[l,e]^T) * (x W3[l,e]^T)) W2[l,e]^T, e =
+    eidx[a]; slots a >= cnt give zeros. Two launches of ``csrc/moe.cu``,
+    the h between them in a buffer allocated here."""
+    if x.device.type == "cpu":
+        return gf4_moe_ffn_plain(x, w1, w3, w2, eidx, cnt, layer, act_gelu)
+    l = _check_stack(x, w1, "gf4", layer)
+    _check_slots(x, eidx, cnt)
+    B, D = x.shape
+    L, E, H, _ = w1.shape
+    _check(1 <= B <= MAX_ROWS, f"the decode kernel takes 1..{MAX_ROWS} rows")
+    _check(w3.shape == w1.shape and w3.dtype == w1.dtype and w3.is_contiguous()
+           and w3.device == x.device, "w3 must match w1")
+    _check(tuple(w2.shape) == (L, E, D, H // 8) and H % 8 == 0 and w2.dtype == w1.dtype
+           and w2.is_contiguous() and w2.device == x.device,
+           f"w2 must be (L, E, D, H/8) = {(L, E, D, H // 8)} int32, got {tuple(w2.shape)}")
+    A = eidx.shape[0]
+    h = torch.empty((A, B, H), dtype=torch.float32, device=x.device)
+    z = torch.empty((A, B, D), dtype=torch.float32, device=x.device)
+    rc = build.lib("moe").calm_gf4_moe_ffn(
+        x.data_ptr(), _plane_ptr(w1, l), _plane_ptr(w3, l), _plane_ptr(w2, l),
+        eidx.data_ptr(), cnt.data_ptr(), h.data_ptr(), z.data_ptr(), A, B, D, H, E,
+        int(act_gelu), _stream(x))
+    build.check("moe", rc)
+    gf4_moe_ffn.launches += 1
+    return z
+
+
+gf4_moe_ffn.launches = 0
 
 
 def _offn_shapes_ok(B: int, shapes) -> bool:

@@ -20,8 +20,6 @@ import dataclasses
 
 import torch
 
-GF4_SHIFTS = tuple(8 + 3 * k for k in range(8))
-
 STORAGE = {"fp16": torch.float16, "fp8": torch.float8_e5m2,
            "fp8e4": torch.float8_e4m3fn, "gf4": torch.int32}
 
@@ -57,10 +55,9 @@ def gf4_decode_words(words: torch.Tensor,
     (An arithmetic shift of the int32 word leaves the 3 masked bits exact.)"""
     w = words.to(torch.int32)
     scale = (w & 0xFF).to(torch.uint8).view(torch.float8_e5m2).to(out_dtype) * (-0.25)
-    vals = torch.empty(*w.shape, 8, dtype=out_dtype, device=w.device)
-    for k, s in enumerate(GF4_SHIFTS):
-        vals[..., k] = ((w >> s) & 7).to(out_dtype) - 4.0
-    vals *= scale[..., None]
+    shifts = torch.arange(8, dtype=torch.int32, device=w.device) * 3 + 8  # 8 + 3k
+    vals = ((w[..., None] >> shifts) & 7).to(out_dtype)  # all 8 codes in one pass
+    vals.sub_(4.0).mul_(scale[..., None])
     return vals.reshape(*w.shape[:-1], w.shape[-1] * 8)
 
 

@@ -17,8 +17,9 @@ def rope_tables(pos: torch.Tensor, head_dim: int, theta: float,
     j = torch.arange(0, head_dim, 2, dtype=torch.float32, device=pos.device)
     freq = torch.where(
         j < rotary_dim,
-        1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                     device=pos.device), j / rotary_dim),
+        # a fill, not a copy from the host: no sync on the decode path
+        1.0 / torch.pow(torch.full((), theta, dtype=torch.float32,
+                                   device=pos.device), j / rotary_dim),
         torch.zeros((), dtype=torch.float32, device=pos.device))
     angles = pos.to(torch.float32)[..., None] * freq
     return torch.cos(angles), torch.sin(angles)

@@ -68,13 +68,13 @@ def _fill(shape, fmt: str, seed: int, device,
 def synth_weights(cfg: ModelConfig, seed: int = 0, device="cpu",
                   random: bool = False) -> Weights:
     """Device-resident pattern weights in the container layouts (untied
-    output, no biases); random bits under the same masks with ``random``."""
-    if cfg.n_experts:
-        raise NotImplementedError("MoE models wait for the MoE slice")
+    output, no biases; MoE expert stacks (L, E, ...) and the gate for MoE
+    configs); random bits under the same masks with ``random``."""
     fmt = cfg.dtype
     gs = 8 if fmt == "gf4" else 1
-    D, Hd, Q, KV, V, L = (cfg.dim, cfg.hidden_dim, cfg.q_dim, cfg.kv_dim,
-                          cfg.vocab_size, cfg.n_layers)
+    D, Hd, Q, KV, V, E, L = (cfg.dim, cfg.hidden_dim, cfg.q_dim, cfg.kv_dim,
+                             cfg.vocab_size, cfg.n_experts, cfg.n_layers)
+    ex = (E,) if E else ()
     k = [seed]
     gen = None
     if random:
@@ -93,15 +93,17 @@ def synth_weights(cfg: ModelConfig, seed: int = 0, device="cpu",
     def f32(*shape):
         return _fill(shape, "f32", nxt(), device, gen)
 
-    # same fill order as calm_tpu.utils.synth.synth_weights
-    w1 = qt(L, Hd, D // gs)
-    w3 = qt(L, Hd, D // gs)
-    w2 = qt(L, D, Hd // gs)
+    # same fill order as calm_tpu.utils.synth.synth_weights (fused=False)
+    w1 = qt(L, *ex, Hd, D // gs)
+    w3 = qt(L, *ex, Hd, D // gs)
+    w2 = qt(L, *ex, D, Hd // gs)
+    moegate = qt(L, E, D // gs) if E else None
     attn_norm, ffn_norm = f32(L, D), f32(L, D)
     wq, wk, wv = qt(L, Q, D // gs), qt(L, KV, D // gs), qt(L, KV, D // gs)
     wo = qt(L, D, Q // gs)
     layers = LayerWeights(attn_norm=attn_norm, ffn_norm=ffn_norm, wq=wq,
-                          wk=wk, wv=wv, wo=wo, w1=w1, w2=w2, w3=w3)
+                          wk=wk, wv=wv, wo=wo, w1=w1, w2=w2, w3=w3,
+                          moegate=moegate)
     embed = qt(V, D // gs)
     final_norm = f32(D)
     return Weights(embed=embed, layers=layers, final_norm=final_norm,
@@ -109,16 +111,29 @@ def synth_weights(cfg: ModelConfig, seed: int = 0, device="cpu",
 
 
 def weight_bytes(cfg: ModelConfig) -> tuple[int, int]:
-    """(total_bytes, decode_bandwidth_bytes) of a synthetic dense model, as
-    the container accounting counts them (src/run.c:523-532): the
-    embedding is one row per token, so it is left out of the bandwidth."""
+    """(total_bytes, decode_bandwidth_bytes) of a synthetic model, as the
+    container accounting counts them (src/run.c:523-532): the embedding is
+    one row per token, so it is left out of the bandwidth, and a MoE token
+    reads the gate and its active experts only
+    (``calm_tpu/utils/synth.py:125-150``)."""
     bits = {"fp16": 16, "fp8": 8, "fp8e4": 8, "gf4": 4}[cfg.dtype]
-    D, Hd, Q, KV, V, L = (cfg.dim, cfg.hidden_dim, cfg.q_dim, cfg.kv_dim,
-                          cfg.vocab_size, cfg.n_layers)
-    per_layer = (Q * D + 2 * KV * D + D * Q + 3 * Hd * D) * bits // 8
+    D, Hd, Q, KV, V, E, L = (cfg.dim, cfg.hidden_dim, cfg.q_dim, cfg.kv_dim,
+                             cfg.vocab_size, cfg.n_experts, cfg.n_layers)
+
+    def b(n):  # quantized tensor bytes
+        return n * bits // 8
+
+    attn = b(Q * D + 2 * KV * D + D * Q)
+    if E:
+        mlp_all, gate = b(E * 3 * Hd * D), b(E * D)
+        mlp_bw = mlp_all // E * cfg.n_experts_ac + gate
+        mlp_total = mlp_all + gate
+    else:
+        mlp_total = mlp_bw = b(3 * Hd * D)
     norms = 4 * (2 * L * D + D)
-    head = V * D * bits // 8
-    return 2 * head + L * per_layer + norms, head + L * per_layer + norms
+    head = b(V * D)
+    return (2 * head + L * (attn + mlp_total) + norms,
+            head + L * (attn + mlp_bw) + norms)
 
 
 def byte_vocab(vocab_size: int):
@@ -143,6 +158,8 @@ def synth_container(path: str, cfg: ModelConfig, seed: int = 0,
                  "attn.wo": lw.wo.data, "mlp.norm": lw.ffn_norm,
                  "mlp.w1": lw.w1.data, "mlp.w2": lw.w2.data,
                  "mlp.w3": lw.w3.data}
+    if cfg.n_experts:
+        per_layer["moegate"] = lw.moegate.data
     for l in range(cfg.n_layers):
         for name, stack in per_layer.items():
             t[f"model.layers.{l}.{name}.weight"] = stack[l]

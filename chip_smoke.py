@@ -3,15 +3,16 @@
     python3 chip_smoke.py
 
 Builds the hand-written kernels from ``calm_tpu_torch/csrc``, holds each
-against its plain PyTorch version at Mistral-7B shapes and ragged ones and
-times it beside its bound; drives ``Engine.generate`` (batched prefill,
-then decode), ``prefill_tokens``, ``perplexity`` and the CLI (generate,
-``-x``, ``-y``) on 2-layer Mistral-7B-width fp8 and gf4 containers, each
-checked against the CPU plain path; runs a 2048-token prefill and the
-``bench.py`` decode protocol on 32-layer Mistral-7B fp8 and gf4; and ends
-with a ``kernels`` JSON line and ``{"ok": true, "device": ...}``. Any
-failure exits non-zero before the last line; without a GPU it exits 1 at
-once.
+against its plain PyTorch version at Mistral-7B and Mixtral 8x7B shapes
+and ragged ones and times it beside its bound; drives ``Engine.generate``
+(batched prefill, then decode), ``prefill_tokens``, ``perplexity`` and the
+CLI (generate, ``-x``, ``-y``) on 2-layer Mistral-7B-width fp8 and gf4
+containers and 2-layer Mixtral-width (4 experts, top-2) fp8 and gf4 MoE
+containers, each checked against the CPU plain path; runs a 2048-token
+prefill and the ``bench.py`` decode protocol on 32-layer Mistral-7B and
+Mixtral 8x7B, fp8 and gf4; and ends with a ``kernels`` JSON line and
+``{"ok": true, "device": ...}``. Any failure exits non-zero before the
+last line; without a GPU it exits 1 at once.
 """
 
 from __future__ import annotations
@@ -214,26 +215,17 @@ def kernel_phase(gbps, dev):
                 hq.qx_offn_qkv(a, r, g, anx, *ws, layer, fmt, False, 1e-5, False),
                 hq.qx_offn_qkv_plain(a, r, g, anx, *ws, layer, fmt, False, 1e-5,
                                      False), TOL_MV))
+        wb = [dequant(QTensor(w, fmt), torch.bfloat16) for w in ws]
         t = timings(lambda i: hq.qx_offn_qkv(a, r, g, anx, *ws, i % L, fmt,
                                              False, 1e-5, False),
                     lambda i: hq.qx_offn_qkv_plain(a, r, g, anx, *ws, i % L, fmt,
-                                                   False, 1e-5, False))
-        wb = [dequant(QTensor(w, fmt), torch.bfloat16) for w in ws]
-
-        def chain(i):  # the same function as bf16 torch.matmul calls
-            l = i % L
-            r1 = r + torch.matmul(a.bfloat16(), wb[0][l].T)
-            xn = (r1 * torch.rsqrt(r1.pow(2).mean(-1, keepdim=True) + 1e-5) * g[l]).bfloat16()
-            h = F.silu(torch.matmul(xn, wb[1][l].T)) * torch.matmul(xn, wb[2][l].T)
-            x = r1 + torch.matmul(h, wb[3][l].T)
-            xq = (x * torch.rsqrt(x.pow(2).mean(-1, keepdim=True) + 1e-5) * anx[l]).bfloat16()
-            return [torch.matmul(xq, w[l].T) for w in wb[4:]]
-        chain_ms, how = timed(chain)
+                                                   False, 1e-5, False),
+                    epilogue_chain(a, r, g, anx, wb, L))
         n_w = D * Qd + 3 * H * D + (Qd + 2 * KVd) * D
         b, by = bound_ms(n_w * esz + 4 * (3 * D + 2 * Qd + 2 * KVd), 2 * n_w, gbps)
         log(f"# K9 qx_offn_qkv {fmt} one layer D={D} H={H} Qd={Qd} KVd={KVd} "
             f"B=1: max_abs_err {max(errs):.3e} (tol {TOL_MV:g} x max|out|); "
-            f"{ms_line(t)} bf16_matmul_chain_ms {chain_ms:.4f} ({how}) bound_ms "
+            f"{ms_line(t)} (7 bf16 matmuls on pre-dequantized planes) bound_ms "
             f"{b:.4f} ({by}, {n_w * esz / 1e6:.1f} MB); {share(t, b)}")
         if fmt == "fp8":
             best = dict(t, bound_ms=b, bound_by=by)
@@ -280,9 +272,144 @@ def kernel_phase(gbps, dev):
     rows.update(prefill_kernel_rows(gbps, dev))
     rows.update(gf4_kernel_rows(gbps, dev))
     ragged_checks_prefill_gf4(dev)
+    rows.update(moe_kernel_rows(gbps, dev))
+    ragged_checks_moe(dev)
     log("# max_abs_err / max|out|, worst of each kernel's checks: " + ", ".join(
         f"{k} {v:.3e}" for k, v in WORST_REL.items()))
     return rows
+
+
+def epilogue_chain(a, r, g, anx, wb, L):
+    """K8's and K9's function as bf16 torch.matmul calls on planes
+    dequantized beforehand: wo + residual, ffn-norm, w1/w3 + SiLU, w2 +
+    residual, attn-norm, q/k/v; the library yardstick of both."""
+    import torch.nn.functional as F
+
+    def chain(i):
+        l = i % L
+        r1 = r + torch.matmul(a.bfloat16(), wb[0][l].T)
+        xn = (r1 * torch.rsqrt(r1.pow(2).mean(-1, keepdim=True) + 1e-5) * g[l]).bfloat16()
+        h = F.silu(torch.matmul(xn, wb[1][l].T)) * torch.matmul(xn, wb[2][l].T)
+        x = r1 + torch.matmul(h, wb[3][l].T)
+        xq = (x * torch.rsqrt(x.pow(2).mean(-1, keepdim=True) + 1e-5) * anx[l]).bfloat16()
+        return [torch.matmul(xq, w[l].T) for w in wb[4:]]
+    return chain
+
+
+EXPERTS = 8  # Mixtral 8x7B, 2 active (bench.py:54-56)
+
+
+def moe_kernel_rows(gbps, dev):
+    """K10 and K11 at Mixtral 8x7B shapes (dim 4096, hidden 14336, 8
+    experts), B=1, two live slots: K10 fp8 and fp16 at w1 (shared x) and
+    w2 (x per slot), its gf4 body at w1; K11 one layer's expert FFN. Two
+    layer stacks cycled, so a call finds none of its planes in L2."""
+    import torch.nn.functional as F
+
+    from calm_tpu_torch.ops import hopper_qmm as hq
+    from calm_tpu_torch.ops.qmm import QTensor, dequant
+
+    rows = {}
+    L, E, B = 2, EXPERTS, 1
+    ids = torch.tensor([1, 5], dtype=torch.int32, device=dev)
+    cnt = torch.tensor([2], dtype=torch.int32, device=dev)
+    A = ids.shape[0]
+    errs, best = [], None
+    for fmt, name, d, n in (("fp8", "w1", HID, D), ("fp8", "w2", D, HID),
+                            ("fp16", "w1", HID, D), ("fp16", "w2", D, HID),
+                            ("gf4", "w1", HID, D)):
+        gs = 8 if fmt == "gf4" else 1
+        esz = {"fp8": 1, "fp16": 2, "gf4": 0.5}[fmt]
+        w = rand_w((L, E, d, n // gs), fmt, dev)
+        x = torch.randn(A if name == "w2" else 1, B, n, device=dev)
+        got = hq.qmm_moe_dense(x, w, ids, cnt, fmt, L - 1)
+        errs.append(check(f"qmm_moe_dense {fmt} {name}", got,
+                          hq.qmm_moe_dense_plain(x, w, ids, cnt, fmt, L - 1), TOL_MV))
+        wb = dequant(QTensor(w[:, ids.long()], fmt), torch.bfloat16).transpose(2, 3)
+        xb = x.bfloat16().expand(A, -1, -1)
+        t = timings(lambda i: hq.qmm_moe_dense(x, w, ids, cnt, fmt, i % L),
+                    lambda i: hq.qmm_moe_dense_plain(x, w, ids, cnt, fmt, i % L),
+                    lambda i: torch.bmm(xb, wb[i % L]))
+        b, by = bound_ms(A * d * n * esz + 4 * (x.numel() + A * B * d),
+                         2 * A * B * d * n, gbps)
+        log(f"# K10 qmm_moe_dense {fmt} {name} {d}x{n}, 2 of {E} experts, B=1, "
+            f"Ax={x.shape[0]}: max_abs_err {errs[-1]:.3e} (tol {TOL_MV:g} x max|y|); "
+            f"{ms_line(t)} (bf16 bmm, pre-dequantized live planes) bound_ms {b:.4f} "
+            f"({by}, {A * d * n * esz / 1e6:.1f} MB); {share(t, b)}")
+        if fmt == "fp8" and name == "w1":
+            best = dict(t, bound_ms=b, bound_by=by)
+        del w, wb
+    rows["qmm_moe_dense"] = dict(best, max_abs_err=max(errs))
+
+    # K11: one layer's expert FFN, gf4 words
+    w1, w3 = (rand_w((L, E, HID, D // 8), "gf4", dev) for _ in range(2))
+    w2 = rand_w((L, E, D, HID // 8), "gf4", dev)
+    x = torch.randn(B, D, device=dev)
+    err = check("gf4_moe_ffn Mixtral", hq.gf4_moe_ffn(x, w1, w3, w2, ids, cnt, L - 1, False),
+                hq.gf4_moe_ffn_plain(x, w1, w3, w2, ids, cnt, L - 1, False), TOL_MV)
+    wb = [dequant(QTensor(w[:, ids.long()], "gf4"), torch.bfloat16).transpose(2, 3)
+          for w in (w1, w3, w2)]
+    xb = x.bfloat16().expand(A, -1, -1)
+
+    def bmm_chain(i):
+        l = i % L
+        h = F.silu(torch.bmm(xb, wb[0][l])) * torch.bmm(xb, wb[1][l])
+        return torch.bmm(h, wb[2][l])
+    t = timings(lambda i: hq.gf4_moe_ffn(x, w1, w3, w2, ids, cnt, i % L, False),
+                lambda i: hq.gf4_moe_ffn_plain(x, w1, w3, w2, ids, cnt, i % L, False),
+                bmm_chain)
+    n_w = A * 3 * HID * D
+    b, by = bound_ms(n_w // 2 + 4 * (B * D + A * B * D), 2 * B * n_w, gbps)
+    log(f"# K11 gf4_moe_ffn D={D} H={HID}, 2 of {E} experts, B=1: max_abs_err "
+        f"{err:.3e} (tol {TOL_MV:g} x max|z|); {ms_line(t)} (3 bf16 bmm, "
+        f"pre-dequantized live planes) bound_ms {b:.4f} ({by}, {n_w / 2e6:.1f} MB); "
+        f"{share(t, b)}")
+    rows["gf4_moe_ffn"] = dict(t, bound_ms=b, bound_by=by, max_abs_err=err)
+    del w1, w3, w2, wb
+    torch.cuda.empty_cache()
+    return rows
+
+
+def ragged_checks_moe(dev):
+    """K10 and K11 on shapes the Mixtral rows do not reach: B = 1, 3, 5
+    and 16, eight experts in four slots of which the last is dead (cnt 3,
+    padded by repeating an id: its output must be exactly 0), d = 1003, a
+    hidden width of 11008 (1376 words), a model width of 1040 (130 words),
+    x shared and per slot, SiLU and GELU."""
+    from calm_tpu_torch.ops import hopper_qmm as hq
+
+    ids = torch.tensor([0, 3, 6, 6], dtype=torch.int32, device=dev)
+    cnt = torch.tensor([3], dtype=torch.int32, device=dev)
+    worst = {"qmm_moe_dense": 0.0, "gf4_moe_ffn": 0.0}
+
+    def dead_zero(what, out):
+        if out[3].abs().max().item() != 0:
+            fail(f"{what}: the dead slot is not zero")
+
+    for fmt, d, n in (("fp8", 1003, 1040), ("fp16", 1003, 1040), ("gf4", 1003, 11008)):
+        w = rand_w((2, EXPERTS, d, n // (8 if fmt == "gf4" else 1)), fmt, dev)
+        for B in (1, 3, 5, 16):
+            for Ax in (1, 4):
+                x = torch.randn(Ax, B, n, device=dev)
+                got = hq.qmm_moe_dense(x, w, ids, cnt, fmt, 1)
+                dead_zero(f"qmm_moe_dense {fmt} B={B}", got)
+                e = check(f"qmm_moe_dense {fmt} {d}x{n} B={B} Ax={Ax}", got,
+                          hq.qmm_moe_dense_plain(x, w, ids, cnt, fmt, 1), TOL_MV)
+                worst["qmm_moe_dense"] = max(worst["qmm_moe_dense"], e)
+    Dm, Hm = 1040, 11008
+    w1, w3 = (rand_w((2, EXPERTS, Hm, Dm // 8), "gf4", dev) for _ in range(2))
+    w2 = rand_w((2, EXPERTS, Dm, Hm // 8), "gf4", dev)
+    for B in (1, 5, 16):
+        for gelu in (False, True):
+            x = torch.randn(B, Dm, device=dev)
+            got = hq.gf4_moe_ffn(x, w1, w3, w2, ids, cnt, 1, gelu)
+            dead_zero(f"gf4_moe_ffn B={B}", got)
+            e = check(f"gf4_moe_ffn D={Dm} H={Hm} B={B} gelu={gelu}", got,
+                      hq.gf4_moe_ffn_plain(x, w1, w3, w2, ids, cnt, 1, gelu), TOL_MV)
+            worst["gf4_moe_ffn"] = max(worst["gf4_moe_ffn"], e)
+    torch.cuda.synchronize()
+    log("# ragged shapes (MoE): max_abs_err " + ", ".join(
+        f"{k} {v:.3e}" for k, v in worst.items()))
 
 
 # Tolerances, relative to max |out| unless said otherwise.
@@ -406,16 +533,19 @@ def gf4_kernel_rows(gbps, dev):
             f"gf4_offn_qkv layer {layer}",
             hq.gf4_offn_qkv(a, r, g, anx, *ws, layer, False, 1e-5, False),
             hq.gf4_offn_qkv_plain(a, r, g, anx, *ws, layer, False, 1e-5, False), TOL_MV))
+    wb = [dequant(QTensor(w, "gf4"), torch.bfloat16) for w in ws]
     t = timings(lambda i: hq.gf4_offn_qkv(a, r, g, anx, *ws, i % L, False, 1e-5, False),
                 lambda i: hq.gf4_offn_qkv_plain(a, r, g, anx, *ws, i % L, False, 1e-5,
-                                                False))
+                                                False),
+                epilogue_chain(a, r, g, anx, wb, L))
     n_w = D * Q + 3 * HID * D + (Q + 2 * KV) * D
     b, by = bound_ms(n_w // 2 + 4 * (3 * D + 2 * Q + 2 * KV), 2 * n_w, gbps)
     log(f"# K8 gf4_offn_qkv one layer D={D} H={HID} Qd={Q} KVd={KV} B=1: "
         f"max_abs_err {max(errs):.3e} (tol {TOL_MV:g} x max|out|); {ms_line(t)} "
-        f"bound_ms {b:.4f} ({by}, {n_w / 2e6:.1f} MB); {share(t, b)}")
+        f"(7 bf16 matmuls on pre-dequantized planes) bound_ms {b:.4f} ({by}, "
+        f"{n_w / 2e6:.1f} MB); {share(t, b)}")
     rows["gf4_offn_qkv"] = dict(t, bound_ms=b, bound_by=by, max_abs_err=max(errs))
-    del ws
+    del ws, wb
     return rows
 
 
@@ -549,7 +679,8 @@ def counters():
             "decode_attention": ha.decode_attention,
             "prefill_attention": ha.prefill_attention,
             "qmm_decode_gf4": hq.qmm_decode_gf4, "qmm_prefill": hq.qmm_prefill,
-            "qmm_prefill_w2": hq.qmm_prefill_w2, "gf4_offn_qkv": hq.gf4_offn_qkv}
+            "qmm_prefill_w2": hq.qmm_prefill_w2, "gf4_offn_qkv": hq.gf4_offn_qkv,
+            "qmm_moe_dense": hq.qmm_moe_dense, "gf4_moe_ffn": hq.gf4_moe_ffn}
 
 
 def drive(run):
@@ -605,23 +736,28 @@ def same_generation(what, cpu, prompt_toks, got, want, tol) -> str:
     return f"ids equal up to {n}, then a near-tie ({got[:n + 1]}...)"
 
 
-def container_phase(fmt, dev):
+def container_phase(fmt, dev, experts: int = 0):
     """Engine, prefill, perplexity and CLI on a 2-layer Mistral-7B-width
-    container (seeded random bits), held against the CPU plain path.
-    Returns (launch counts of the main path, tokens)."""
+    container, or with ``experts`` a 2-layer Mixtral-width MoE one (top-2,
+    bench.py's mixtral4x7b proxy at 4), of seeded random bits, held against
+    the CPU plain path. Returns (launch counts of the main path, tokens)."""
+    from calm_tpu_torch import model as M
     from calm_tpu_torch.config import ModelConfig
     from calm_tpu_torch.engine import Engine
     from calm_tpu_torch.utils.synth import synth_container
 
-    cfg = ModelConfig(**dict(MISTRAL, n_layers=2), seq_len=4096,
-                      rope_theta=10000.0, rotary_dim=128, norm_ln=False,
+    moe = dict(n_experts=experts, n_experts_ac=2, rope_theta=1e6) if experts else {}
+    cfg = ModelConfig(**{**MISTRAL, "n_layers": 2, "rope_theta": 10000.0, **moe},
+                      seq_len=4096, rotary_dim=128, norm_ln=False,
                       dtype=fmt, bos_token_id=1, eos_token_id=2)
+    name = f"mixtral{experts}x7b" if experts else "mistral7b"
+    what = f"{fmt} {name}-width"
     with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, f"mistral7b-width-2l-{fmt}.calm")
+        path = os.path.join(tmp, f"{name}-width-2l-{fmt}.calm")
         t0 = time.perf_counter()
         # random bits, not the bit pattern: the pattern's rows are all alike
         synth_container(path, cfg, seed=1, device=dev, random=True)
-        log(f"# {fmt} engine: wrote {os.path.getsize(path) / 1e9:.2f} GB container "
+        log(f"# {what} engine: wrote {os.path.getsize(path) / 1e9:.2f} GB container "
             f"in {time.perf_counter() - t0:.1f} s")
         text_path = os.path.join(tmp, "ppl.txt")
         with open(text_path, "w") as f:
@@ -635,6 +771,16 @@ def container_phase(fmt, dev):
                  cli(path, ["-y", "be brief", "-n", "24", "-s", "7"], user_path)]
         eng = Engine(path)
         log(eng.banner())
+        if experts:  # routing builds the expert slots on the device
+            tok = torch.ones(1, dtype=torch.int64, device=dev)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")  # raises at a host sync
+            try:
+                M.decode_step(eng.cfg, eng.weights, tok, 0, eng.cache)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            eng.reset()
+            log(f"# {what}: a decode step ran with no host sync")
 
         # the main path: fp8 with a short prompt (decode kernels), gf4 with
         # a long one (its prefill takes the gf4 matmul), counts from 0
@@ -647,10 +793,10 @@ def container_phase(fmt, dev):
         log(s1.perf_line())
         log(s2.perf_line())
         if s1.logits_hash != s2.logits_hash or s1.ids != s2.ids:
-            fail(f"{fmt}: two greedy generations differ")
+            fail(f"{what}: two greedy generations differ")
         if len(s1.ids) < 8 or len(set(s1.ids)) < 2:
-            fail(f"{fmt}: degenerate generation: {tokens} tokens, ids {s1.ids}")
-        log(f"# {fmt} engine: {tokens} positions, ids {s1.ids[:12]}..., launches "
+            fail(f"{what}: degenerate generation: {tokens} tokens, ids {s1.ids}")
+        log(f"# {what} engine: {tokens} positions, ids {s1.ids[:12]}..., launches "
             f"{counts}")
 
         # decode on the card against the plain path on the CPU, each side
@@ -661,17 +807,17 @@ def container_phase(fmt, dev):
         for pos in range(8):
             lg, lc = eng.step(tok, pos), cpu.step(tok, pos)
             worst = max(worst, float(np.abs(lg - lc).max() / np.abs(lc).max()))
-            ties += not greedy_agrees(f"{fmt} step {pos}", int(lg.argmax()), lc, TOL_STEP)
+            ties += not greedy_agrees(f"{what} step {pos}", int(lg.argmax()), lc, TOL_STEP)
             tok = int(lc.argmax())
         if worst > TOL_STEP:
-            fail(f"{fmt}: logits differ from the CPU by {worst:.3e} > {TOL_STEP}")
+            fail(f"{what}: logits differ from the CPU by {worst:.3e} > {TOL_STEP}")
         eng.reset()
         cpu.reset()
         p_toks = eng.tokenizer.encode(prompt, bos=True)
-        gen = same_generation(f"{fmt} generate", cpu, p_toks,
+        gen = same_generation(f"{what} generate", cpu, p_toks,
                               eng.generate(prompt, steps, temperature=0).ids,
                               cpu.generate(prompt, steps, temperature=0).ids, TOL_PREFILL)
-        log(f"# {fmt} engine vs cpu: 8 steps, max logit diff {worst:.3e} of scale "
+        log(f"# {what} engine vs cpu: 8 steps, max logit diff {worst:.3e} of scale "
             f"(tol {TOL_STEP:g}), {ties} near-ties; generate {gen}")
 
         # batched prefill of > 100 tokens, then 8 greedy steps on each side
@@ -684,37 +830,37 @@ def container_phase(fmt, dev):
             worst = max(worst, float(np.abs(lg - lc).max() / np.abs(lc).max()))
             if i == 8:
                 break
-            ties += not greedy_agrees(f"{fmt} greedy id {i} after prefill",
+            ties += not greedy_agrees(f"{what} greedy id {i} after prefill",
                                       int(lg.argmax()), lc, TOL_PREFILL)
             ids.append(int(lc.argmax()))
             pos = len(toks) + i
             lg, lc = eng.step(ids[-1], pos), cpu.step(ids[-1], pos)
         if not worst <= TOL_PREFILL:
-            fail(f"{fmt}: logits after prefill differ from the CPU by {worst:.3e} "
+            fail(f"{what}: logits after prefill differ from the CPU by {worst:.3e} "
                  f"> {TOL_PREFILL}")
         pg, pc = eng.perplexity(PROMPT_LONG * 3), cpu.perplexity(PROMPT_LONG * 3)
         if not abs(pg[0] - pc[0]) <= 1e-2 * pc[0] or pg[2] != pc[2]:
-            fail(f"{fmt}: perplexity {pg} != CPU {pc}")
-        log(f"# {fmt} prefill vs cpu: {len(toks)} tokens, then 8 steps: logits diff "
+            fail(f"{what}: perplexity {pg} != CPU {pc}")
+        log(f"# {what} prefill vs cpu: {len(toks)} tokens, then 8 steps: logits diff "
             f"{worst:.3e} of scale (tol {TOL_PREFILL:g}); next 8 greedy ids {ids}, "
             f"{ties} near-ties; perplexity {pg[0]:.4f} ± {pg[1]:.4f} vs CPU "
             f"{pc[0]:.4f} ± {pc[1]:.4f} over {pg[2]} tokens (tol 1e-2 rel.)")
 
-        for p, what in zip(procs, ("generate", "-x", "-y")):
+        for p, mode in zip(procs, ("generate", "-x", "-y")):
             out, errs = p.communicate(timeout=600)
             if p.returncode != 0:
-                fail(f"{fmt} cli {what} exited {p.returncode}: {errs[-2000:]}")
-            if what == "generate":
-                log(f"# {fmt} cli: {out.splitlines()[0]} | {errs.strip().splitlines()[-1]}")
-            elif what == "-x":
+                fail(f"{what} cli {mode} exited {p.returncode}: {errs[-2000:]}")
+            if mode == "generate":
+                log(f"# {what} cli: {out.splitlines()[0]} | {errs.strip().splitlines()[-1]}")
+            elif mode == "-x":
                 line = [l for l in out.splitlines() if l.startswith("# perplexity:")]
                 if not line:
-                    fail(f"{fmt} cli -x printed no perplexity line: {out[-1000:]}")
-                log(f"# {fmt} cli -x: {line[0]}")
+                    fail(f"{what} cli -x printed no perplexity line: {out[-1000:]}")
+                log(f"# {what} cli -x: {line[0]}")
             elif "Assistant: " not in out:
-                fail(f"{fmt} cli -y printed no reply: {out[-1000:]}")
+                fail(f"{what} cli -y printed no reply: {out[-1000:]}")
             else:
-                log(f"# {fmt} cli -y: {len(out)} characters, exit 0")
+                log(f"# {what} cli -y: {len(out)} characters, exit 0")
         del eng, cpu
     return counts, tokens
 
@@ -729,27 +875,35 @@ def profile_tokens(run, n_tok: int, ms_tok: float, label: str):
     dev_ms = sum(r[0] for r in rows) / 1e3 / n_tok
     top = "; ".join(f"{name} {us / 1e3 / n_tok:.3f} ms x{cnt / n_tok:g}"
                     for us, cnt, name in rows[:8])
+    n_launch = sum(r[1] for r in rows) / n_tok
     log(f"# profile {label}: device {dev_ms:.3f} ms/tok of {ms_tok:.3f} ms/tok "
-        f"= busy {100 * dev_ms / ms_tok:.1f}%; per token: {top}")
+        f"= busy {100 * dev_ms / ms_tok:.1f}%, {n_launch:g} device ops/tok; per "
+        f"token: {top}")
 
 
-def full_width_phase(fmt, dev, gbps, smi):
-    """32-layer Mistral-7B pattern weights: a 2048-token prefill (median of
-    3), then bench.py's decode protocol (first32 / last32 at ctx 4096)."""
+def full_width_phase(fmt, dev, gbps, smi, experts: int = 0):
+    """32-layer Mistral-7B pattern weights, or with ``experts`` Mixtral
+    8x7B (rope_theta 1e6) with seeded random weights, so that tokens spread
+    over the experts as a real prompt's do (the pattern would send every
+    token to experts 0 and 1): a 2048-token prefill (median of 3), then
+    bench.py's decode protocol (first32 / last32 at ctx 4096)."""
     from calm_tpu_torch import model as M
     from calm_tpu_torch.config import ModelConfig
     from calm_tpu_torch.engine import kv_cache_bytes
     from calm_tpu_torch.utils.synth import synth_weights, weight_bytes
 
     ctx, steps, T = 4096, 32, 2048
-    cfg = ModelConfig(**MISTRAL, seq_len=ctx, rope_theta=10000.0,
+    moe = dict(n_experts=experts, n_experts_ac=2, rope_theta=1e6) if experts else {}
+    cfg = ModelConfig(**{**MISTRAL, "rope_theta": 10000.0, **moe}, seq_len=ctx,
                       rotary_dim=128, norm_ln=False, dtype=fmt)
+    what = f"{fmt} mixtral{experts}x7b" if experts else f"{fmt} mistral7b"
     t0 = time.perf_counter()
-    w = synth_weights(cfg, seed=0, device=dev)
+    w = synth_weights(cfg, seed=0, device=dev, random=bool(experts))
     torch.cuda.synchronize()
     total, bw = weight_bytes(cfg)
-    log(f"# {fmt}: mistral7b 32 layers, {total / 2**30:.2f} GiB pattern "
-        f"weights in {time.perf_counter() - t0:.1f} s; bf16 KV, ctx {ctx}")
+    log(f"# {what}: 32 layers, {total / 2**30:.2f} GiB "
+        f"{'random' if experts else 'pattern'} weights in "
+        f"{time.perf_counter() - t0:.1f} s; bf16 KV, ctx {ctx}")
     cache = M.KVCache.create(cfg, 1, torch.bfloat16, dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -758,7 +912,23 @@ def full_width_phase(fmt, dev, gbps, smi):
     def prefill():
         return M.prefill(cfg, w, prompt, [0], cache, "last")[0]
 
-    prefill()  # warm
+    if experts:  # warm, counting layer 0's rows per expert
+        routed, real = [], M.route
+
+        def spy(c, gate):
+            out = real(c, gate)
+            if not routed:
+                routed.append(torch.bincount(out[1].reshape(-1), minlength=experts).tolist())
+            return out
+        M.route = spy
+        try:
+            prefill()
+        finally:
+            M.route = real
+        log(f"# prefill {what} T={T}: layer 0 routes its {T} tokens x 2 to the "
+            f"{experts} experts as {routed[0]}")
+    else:
+        prefill()  # warm
     secs = []
     for _ in range(3):
         torch.cuda.synchronize()
@@ -767,20 +937,20 @@ def full_width_phase(fmt, dev, gbps, smi):
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t)
     if not torch.isfinite(logits).all():
-        fail(f"prefill {fmt}: non-finite logits")
+        fail(f"prefill {what}: non-finite logits")
     med = statistics.median(secs)
     spread = 100 * (max(secs) - min(secs)) / med
     out = {"prefill": dict(ms=1e3 * med, tok_s=T / med, spread_pct=spread)}
-    log(f"# prefill {fmt} T={T}: {1e3 * med:.3f} ms, {T / med:.1f} tok/s "
+    log(f"# prefill {what} T={T}: {1e3 * med:.3f} ms, {T / med:.1f} tok/s "
         f"(median of 3, spread {spread:.2f}%) on {smi}")
     rows = kernel_rows(prefill)
     if rows:
         dev_ms = sum(r[0] for r in rows) / 1e3
         top = "; ".join(f"{name} {us / 1e3:.3f} ms x{cnt}" for us, cnt, name in rows[:8])
-        log(f"# profile prefill {fmt} T={T}: device {dev_ms:.3f} ms of {1e3 * med:.3f} "
+        log(f"# profile prefill {what} T={T}: device {dev_ms:.3f} ms of {1e3 * med:.3f} "
             f"ms = busy {100 * dev_ms / (1e3 * med):.1f}%; {top}")
     else:
-        log(f"# profile prefill {fmt}: the profiler saw no device time (not measured)")
+        log(f"# profile prefill {what}: the profiler saw no device time (not measured)")
 
     token = torch.zeros(1, dtype=torch.int64, device=dev)
     for name, pos0 in (("first32", 0), ("last32", ctx - 2 * steps)):
@@ -793,20 +963,20 @@ def full_width_phase(fmt, dev, gbps, smi):
             torch.cuda.synchronize()
             secs.append(time.perf_counter() - t)
         if not torch.isfinite(logits).all():
-            fail(f"decode {fmt} {name}: non-finite logits")
+            fail(f"decode {what} {name}: non-finite logits")
         med = statistics.median(secs)
         spread = 100 * (max(secs) - min(secs)) / med
         read = sum(bw + kv_cache_bytes(cfg, 16, pos0 + i) for i in range(steps))
         gb_s = read / 1e9 / med
         out[name] = dict(tok_s=steps / med, ms_tok=1e3 * med / steps, gb_s=gb_s,
                          pct_hbm=100 * gb_s / gbps, spread_pct=spread)
-        log(f"# decode {fmt} {name} (pos {pos0}): {steps / med:.2f} tok/s, "
+        log(f"# decode {what} {name} (pos {pos0}): {steps / med:.2f} tok/s, "
             f"{1e3 * med / steps:.3f} ms/tok, {gb_s:.1f} GB/s = "
             f"{100 * gb_s / gbps:.2f}% of nominal {gbps:.0f} GB/s "
             f"(median of 3, spread {spread:.2f}%) on {smi}")
         profile_tokens(lambda: M.decode_loop(cfg, w, token, pos0, cache, 4), 4,
-                       1e3 * med / steps, f"{fmt} {name} (pos {pos0})")
-    log(f"# {fmt}: " + json.dumps(out))
+                       1e3 * med / steps, f"{what} {name} (pos {pos0})")
+    log(f"# {what}: " + json.dumps(out))
     del w, cache
     torch.cuda.empty_cache()
 
@@ -855,9 +1025,15 @@ def main():
     # K8, K13)
     counts8, tok8 = container_phase("fp8", dev)
     counts4, tok4 = container_phase("gf4", dev)
+    # and the MoE paths: fp8 decode (K10), gf4 decode (K11)
+    counts8m, tok8m = container_phase("fp8", dev, experts=4)
+    counts4m, tok4m = container_phase("gf4", dev, experts=4)
     log(f"# container phases done at {time.perf_counter() - t_start:.1f} s")
-    full_width_phase("fp8", dev, gbps, smi)
-    full_width_phase("gf4", dev, gbps, smi)
+    for experts in (0, EXPERTS):
+        for fmt in ("fp8", "gf4"):
+            full_width_phase(fmt, dev, gbps, smi, experts)
+            log(f"# full-width {fmt} {experts} experts done at "
+                f"{time.perf_counter() - t_start:.1f} s")
 
     sources = {"qmm_decode": ("calm_tpu_torch/csrc/qmm.cu",
                               "calm_tpu/ops/pallas_qmm.py:92", counts8),
@@ -874,7 +1050,11 @@ def main():
                "qmm_prefill_w2": ("calm_tpu_torch/csrc/gf4.cu",
                                   "calm_tpu/ops/pallas_qmm.py:346", counts4),
                "gf4_offn_qkv": ("calm_tpu_torch/csrc/qmm.cu",
-                                "calm_tpu/ops/pallas_qmm.py:737", counts4)}
+                                "calm_tpu/ops/pallas_qmm.py:737", counts4),
+               "qmm_moe_dense": ("calm_tpu_torch/csrc/moe.cu",
+                                 "calm_tpu/ops/pallas_qmm.py:1248", counts8m),
+               "gf4_moe_ffn": ("calm_tpu_torch/csrc/moe.cu",
+                               "calm_tpu/ops/pallas_qmm.py:1361", counts4m)}
     kernels = []
     for name, (src, rep, counts) in sources.items():
         if counts[name] <= 0:
@@ -885,7 +1065,8 @@ def main():
                             ms=r["ms"], plain_ms=r["plain_ms"],
                             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                             library_ms=r["library_ms"], timed_by=r["timed_by"]))
-    log(f"# main paths: fp8 {tok8} positions, gf4 {tok4}; total "
+    log(f"# main paths: fp8 {tok8} positions, gf4 {tok4}, fp8 MoE {tok8m}, gf4 MoE "
+        f"{tok4m}; total "
         f"{time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": kernels}))
