@@ -9,8 +9,20 @@
 // passed in and join the softmax, and the stale cache row kv_pos[b] (the
 // row a rolled window is about to overwrite) is masked out.
 //
+// Paged mode replaces the same kernel's paged grid (pallas_attn.py:168-174,
+// :203-211, :247-248): the cache is a page pool (L, P, KVH, PR, hd) and
+// logical row s of slot b lives at page pt[b, s / PR], row s % PR. The
+// grid stays (chunk, kv head, slot); only the row address changes, one
+// page-table load and one divide per row against the row's 256-512 bytes.
+// So any PR that divides the window works (the TPU's >= 512-row pages are
+// a Mosaic DMA size, not a need of this card), chunks past kv_len still
+// exit before reading, and dead page-table entries (they point at the
+// slot's page 0 or at the parking page) lie past kv_len and are never read.
+//
 // What bounds it on an H100: the cache bytes, 2 * KVH * kv_len * hd *
 // bytes per (b, layer); the arithmetic is ~2 * M flops per cache value.
+// At the serving shape (8 slots at kv_len 4096, 8 kv heads, hd 128, bf16)
+// that is 134 MB, 0.040 ms at 3350 GB/s, paged or dense.
 //
 // Design: split-S. A block owns one (b, kv head, chunk of CS rows), so a
 // B=1, 8-kv-head model still fills the 132 SMs (a block per whole plane
@@ -60,16 +72,17 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 struct AttnArgs {
   const float* q;         // (B, KVH * M, hd)
-  const void* k;          // (L, B, KVH, S, hd)
+  const void* k;          // (L, NP, KVH, PR, hd): NP = B, PR = S when dense
   const void* v;
   const int* kv_len;      // (B,)
   const void* fk;         // fresh mode: (B, KVH, hd) in the cache dtype
   const void* fv;
   const int* kv_pos;      // fresh mode: (B,) stale row
+  const int* pt;          // paged mode: (B, S / PR) page table
   float* pacc;            // (B, KVH, NC, M, hd)
   float* pm;              // (B, KVH, NC, M)
   float* pl;
-  int B, KVH, M, S, layer, CS, NC;
+  int B, KVH, M, S, layer, CS, NC, NP, PR;  // S: the logical window
   float scale;
 };
 
@@ -104,8 +117,9 @@ __device__ __forceinline__ void attend_row(const void* kb, const void* vb,
   }
 }
 
-// MM: compile-time bound on M (registers hold MM query rows)
-template <int HPL, int KVT, int MM>
+// MM: compile-time bound on M (registers hold MM query rows); PAGED: rows
+// addressed through the page table
+template <int HPL, int KVT, int MM, bool PAGED>
 __global__ void __launch_bounds__(AWARPS * 32) attn_chunk_kernel(AttnArgs a) {
   constexpr int HD = HPL * 32;
   const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
@@ -147,11 +161,18 @@ __global__ void __launch_bounds__(AWARPS * 32) attn_chunk_kernel(AttnArgs a) {
     attend_row<HPL, KVT, MM>(a.fk, a.fv, off, lane, M, qr, mrun, lrun, acc, a.scale);
   }
   const size_t plane =
-      ((((size_t)a.layer * a.B + b) * a.KVH + h) * (size_t)a.S) * HD;
+      ((((size_t)a.layer * a.NP + b) * a.KVH + h) * (size_t)a.S) * HD;
+  const int* ptb = PAGED ? a.pt + (size_t)b * (a.S / a.PR) : nullptr;
   for (int s = s0 + warp; s < s1; s += AWARPS) {
     if (s == dead) continue;
-    attend_row<HPL, KVT, MM>(a.k, a.v, plane + (size_t)s * HD, lane, M, qr, mrun,
-                         lrun, acc, a.scale);
+    size_t off;
+    if (PAGED) {
+      const size_t page = (size_t)a.layer * a.NP + ptb[s / a.PR];
+      off = ((page * a.KVH + h) * a.PR + s % a.PR) * HD;
+    } else {
+      off = plane + (size_t)s * HD;
+    }
+    attend_row<HPL, KVT, MM>(a.k, a.v, off, lane, M, qr, mrun, lrun, acc, a.scale);
   }
 
   // merge the warps' states: sm = [AWARPS][M][HD + 2]
@@ -213,31 +234,36 @@ __global__ void attn_merge_kernel(const float* pacc, const float* pm,
   }
 }
 
-template <int HPL, int KVT, int MM>
+template <int HPL, int KVT, int MM, bool PAGED>
 cudaError_t launch_chunks(const AttnArgs& a, cudaStream_t st) {
   const int smem = AWARPS * a.M * (HPL * 32 + 2) * (int)sizeof(float);
   cudaError_t e = cudaSuccess;
   if (smem > 48 * 1024)
-    e = cudaFuncSetAttribute(attn_chunk_kernel<HPL, KVT, MM>,
+    e = cudaFuncSetAttribute(attn_chunk_kernel<HPL, KVT, MM, PAGED>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
   dim3 grid(a.NC, a.KVH, a.B);
-  attn_chunk_kernel<HPL, KVT, MM><<<grid, AWARPS * 32, smem, st>>>(a);
+  attn_chunk_kernel<HPL, KVT, MM, PAGED><<<grid, AWARPS * 32, smem, st>>>(a);
   return cudaGetLastError();
 }
 
-template <int HPL, int KVT>
+template <int HPL, int KVT, bool PAGED>
 cudaError_t launch_m(const AttnArgs& a, cudaStream_t st) {
-  if (a.M <= 4) return launch_chunks<HPL, KVT, 4>(a, st);
-  if (a.M <= 8) return launch_chunks<HPL, KVT, 8>(a, st);
-  return launch_chunks<HPL, KVT, MAXM>(a, st);
+  if (a.M <= 4) return launch_chunks<HPL, KVT, 4, PAGED>(a, st);
+  if (a.M <= 8) return launch_chunks<HPL, KVT, 8, PAGED>(a, st);
+  return launch_chunks<HPL, KVT, MAXM, PAGED>(a, st);
+}
+
+template <int HPL, bool PAGED>
+cudaError_t launch_kvt(int kvt, const AttnArgs& a, cudaStream_t st) {
+  if (kvt == 0) return launch_m<HPL, 0, PAGED>(a, st);
+  if (kvt == 1) return launch_m<HPL, 1, PAGED>(a, st);
+  return launch_m<HPL, 2, PAGED>(a, st);
 }
 
 template <int HPL>
-cudaError_t launch_kvt(int kvt, const AttnArgs& a, cudaStream_t st) {
-  if (kvt == 0) return launch_m<HPL, 0>(a, st);
-  if (kvt == 1) return launch_m<HPL, 1>(a, st);
-  return launch_m<HPL, 2>(a, st);
+cudaError_t launch_paged(int kvt, const AttnArgs& a, cudaStream_t st) {
+  return a.pt ? launch_kvt<HPL, true>(kvt, a, st) : launch_kvt<HPL, false>(kvt, a, st);
 }
 
 // ---------------------------------------------------------------------------
@@ -277,7 +303,7 @@ struct PfArgs {
   const int* pos0;     // (B,)
   const int* kv_len;   // (B,)
   float* out;          // (B, T, KVH, M, hd)
-  int B, T, KVH, M, S, layer;
+  int B, T, KVH, M, S, layer, Bc, boff;  // cache slots, first slot read
   float scale_log2;    // log2(e) / sqrt(hd)
 };
 
@@ -393,7 +419,8 @@ __global__ void __launch_bounds__(PF_WARPS * 32) prefill_kernel(PfArgs a) {
   for (int i = 0; i < HD / 8; i++) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
   float mrow[2] = {-INFINITY, -INFINITY}, lrow[2] = {0.f, 0.f};
 
-  const size_t plane = (((size_t)a.layer * a.B + b) * a.KVH + h) * (size_t)a.S * HD;
+  const size_t plane =
+      (((size_t)a.layer * a.Bc + a.boff + b) * a.KVH + h) * (size_t)a.S * HD;
   const int qr = warp * 16 + g;
   for (int c0 = 0; c0 < c_end; c0 += PF_BC) {
     __syncthreads();  // q staged; every warp is done with the previous tile
@@ -530,13 +557,16 @@ cudaError_t launch_prefill(int kvt, const PfArgs& a, cudaStream_t st) {
 extern "C" {
 
 // kvt: 0 fp16, 1 bf16, 2 fp8 e5m2; hd in {64, 128}; M <= 16.
-// fk/fv/kv_pos null for plain mode. Scratch pacc/pm/pl sized by the caller
-// for NC = ceil(S / CS) chunks.
+// fk/fv/kv_pos null for plain mode. pt null for a dense cache (NP = B
+// slots of S rows), else the (B, S / PR) page table of a pool of NP pages
+// of PR rows (S: the logical window). Scratch pacc/pm/pl sized by the
+// caller for NC = ceil(S / CS) chunks.
 int calm_decode_attention(const void* q, const void* k, const void* v,
                           const void* kv_len, const void* fk, const void* fv,
-                          const void* kv_pos, void* pacc, void* pm, void* pl,
-                          void* out, int B, int KVH, int M, int S, int hd,
-                          int layer, int CS, int kvt, void* stream) {
+                          const void* kv_pos, const void* pt, void* pacc,
+                          void* pm, void* pl, void* out, int B, int KVH, int M,
+                          int S, int hd, int layer, int CS, int kvt, int NP,
+                          int PR, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   AttnArgs a;
   a.q = static_cast<const float*>(q);
@@ -546,6 +576,7 @@ int calm_decode_attention(const void* q, const void* k, const void* v,
   a.fk = fk;
   a.fv = fv;
   a.kv_pos = static_cast<const int*>(kv_pos);
+  a.pt = static_cast<const int*>(pt);
   a.pacc = static_cast<float*>(pacc);
   a.pm = static_cast<float*>(pm);
   a.pl = static_cast<float*>(pl);
@@ -556,12 +587,14 @@ int calm_decode_attention(const void* q, const void* k, const void* v,
   a.layer = layer;
   a.CS = CS;
   a.NC = (S + CS - 1) / CS;
+  a.NP = NP;
+  a.PR = PR;
   a.scale = 1.0f / sqrtf((float)hd);
   cudaError_t e;
   if (hd == 64)
-    e = launch_kvt<2>(kvt, a, st);
+    e = launch_paged<2>(kvt, a, st);
   else
-    e = launch_kvt<4>(kvt, a, st);
+    e = launch_paged<4>(kvt, a, st);
   if (e != cudaSuccess) return (int)e;
   attn_merge_kernel<<<B * KVH * M, 128, 0, st>>>(a.pacc, a.pm, a.pl,
                                                  static_cast<float*>(out), KVH,
@@ -569,12 +602,13 @@ int calm_decode_attention(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
-// q/out (B, T, KVH, M, hd) f32, caches (L, B, KVH, S, hd) in kvt (0 fp16,
-// 1 bf16, 2 fp8 e5m2), pos0/kv_len (B,) int32; hd in {64, 128}; M <= 64.
+// q/out (B, T, KVH, M, hd) f32, caches (L, Bc, KVH, S, hd) in kvt (0 fp16,
+// 1 bf16, 2 fp8 e5m2) of which sequence b reads slot boff + b, pos0/kv_len
+// (B,) int32; hd in {64, 128}; M <= 64.
 int calm_prefill_attention(const void* q, const void* k, const void* v,
                            const void* pos0, const void* kv_len, void* out,
                            int B, int T, int KVH, int M, int S, int hd,
-                           int layer, int kvt, void* stream) {
+                           int layer, int kvt, int Bc, int boff, void* stream) {
   PfArgs a;
   a.q = static_cast<const float*>(q);
   a.k = k;
@@ -588,6 +622,8 @@ int calm_prefill_attention(const void* q, const void* k, const void* v,
   a.M = M;
   a.S = S;
   a.layer = layer;
+  a.Bc = Bc;
+  a.boff = boff;
   a.scale_log2 = 1.4426950408889634f / sqrtf((float)hd);
   cudaStream_t st = (cudaStream_t)stream;
   return (int)(hd == 64 ? launch_prefill<64>(kvt, a, st)

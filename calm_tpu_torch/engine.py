@@ -14,7 +14,10 @@
   ``reference_sampling=True`` path);
 - perplexity with a running mean +- standard error (src/run.c:258-316),
   and chat with vocab-sniffed templates (src/run.c:318-419);
-- fp8 KV is chosen for contexts above 4096 (src/run.c:536-540).
+- fp8 KV is chosen for contexts above 4096 (src/run.c:536-540);
+- ``batch`` sizes the cache's slot axis for the continuous-batching
+  server (``calm_tpu/engine.py:130``); the single-stream methods use an
+  Engine of one slot.
 
 Runs on the GPU unless ``device="cpu"`` is asked for.
 """
@@ -74,18 +77,14 @@ class Engine:
     PREFILL_CHUNK = 8192
 
     def __init__(self, path: str, context: int = 0,
-                 kv_dtype: str | None = None, device=None):
+                 kv_dtype: str | None = None, device=None, batch: int = 1):
         self.device = pick(device)
         self.tf = TensorFile(path)
+        self.path = path
         self.cfg = ModelConfig.from_metadata(self.tf.metadata, context)
         M.check_supported(self.cfg, self.device)
         self.tokenizer = Tokenizer.from_container(self.tf)
-
-        if kv_dtype is None:
-            kv_dtype = "fp8" if self.cfg.seq_len > 4096 else "bf16"
-        self.kv_dtype = kv_dtype
-        self._kv_torch = M.KV_DTYPES[kv_dtype]
-        self.kv_bits = 8 if kv_dtype == "fp8" else 16
+        self._set_kv(kv_dtype, batch)
 
         self.weights = M.load_weights(self.tf, self.cfg, self.device)
 
@@ -100,7 +99,33 @@ class Engine:
             self.n_bandwidth -= mlp_bytes
             self.n_bandwidth += mlp_bytes // self.cfg.n_experts * self.cfg.n_experts_ac
 
-        self.cache = M.KVCache.create(self.cfg, 1, self._kv_torch, self.device)
+        self.cache = M.KVCache.create(self.cfg, batch, self._kv_torch, self.device)
+
+    @classmethod
+    def from_weights(cls, cfg: ModelConfig, weights: M.Weights,
+                     tokenizer: Tokenizer, *, n_bytes: int, n_params: int,
+                     n_bandwidth: int, kv_dtype: str | None = None,
+                     device=None, batch: int = 1) -> "Engine":
+        """An Engine around weights already built on the device, with no
+        container (a model made in memory, e.g. by ``utils.synth``); the
+        byte counts feed the banner and the perf line."""
+        self = cls.__new__(cls)
+        self.device = pick(device)
+        self.tf, self.path = None, "<memory>"
+        self.cfg, self.weights, self.tokenizer = cfg, weights, tokenizer
+        M.check_supported(cfg, self.device)
+        self.n_bytes, self.n_params, self.n_bandwidth = n_bytes, n_params, n_bandwidth
+        self._set_kv(kv_dtype, batch)
+        self.cache = M.KVCache.create(cfg, batch, self._kv_torch, self.device)
+        return self
+
+    def _set_kv(self, kv_dtype: str | None, batch: int):
+        if kv_dtype is None:
+            kv_dtype = "fp8" if self.cfg.seq_len > 4096 else "bf16"
+        self.kv_dtype = kv_dtype
+        self._kv_torch = M.KV_DTYPES[kv_dtype]
+        self.kv_bits = 8 if kv_dtype == "fp8" else 16
+        self.batch = batch
 
     # -- info ---------------------------------------------------------------
 
@@ -108,7 +133,7 @@ class Engine:
         c = self.cfg
         kv_gib = kv_cache_bytes(c, self.kv_bits, c.seq_len - 1) / 2**30
         moe = f", {c.n_experts} experts ({c.n_experts_ac} active)" if c.n_experts else ""
-        return (f"# {self.tf.path}: {self.n_params / 1e9:.1f}B params "
+        return (f"# {self.path}: {self.n_params / 1e9:.1f}B params "
                 f"({self.n_bytes / 2**30:.1f} GiB @ {self.n_bytes * 8 / self.n_params:.2f} bpw), "
                 f"{c.seq_len} context (kvcache {kv_gib:.1f} GiB @ {self.kv_dtype}){moe}")
 

@@ -1,21 +1,29 @@
 """The decoder-only transformer in PyTorch: decode and batched prefill of
 fp8/fp16/gf4 Llama/Mistral-family models, dense or Mixtral-style MoE (the
-port of ``calm_tpu.model``'s decode and prefill paths).
+port of ``calm_tpu.model``'s decode and prefill paths, and of
+``calm_tpu.paged``'s paged decode step).
 
 Tensor layouts match the JAX package at every public function: weights
 are layer-stacked (L, d, n) in storage dtype (gf4: (L, d, n/8) int32
 words; MoE expert stacks (L, E, d, n)), the KV cache is head-major (L, B,
-KVH, S, hd). A decode step runs, for one token per sequence slot:
+KVH, S, hd), or a page pool (L, P, KVH, PR, hd) with a page table (B,
+S/PR). A decode step runs, for one token per sequence slot, each slot at
+its own position:
 
 1. embed the token;
 2. prime layer 0's q/k/v (attn-norm + three ``qmm_decode`` matvecs);
-3. per layer: bias, qk-norm, clip, interleaved RoPE, sink re-rotation
-   once the window has wrapped, ``decode_attention`` in fresh mode (the
-   current K/V ride into the kernel; the cache write is deferred), then
-   ``qx_offn_qkv`` (fp8/fp16) or ``gf4_offn_qkv`` (gf4) for wo through w2
-   plus the next layer's q/k/v (``calm_tpu/model.py:1192-1285``);
-4. one cache write for all layers (``model.py:1289-1306``);
+3. per layer: bias, qk-norm, clip, interleaved RoPE, sink re-rotation of
+   the slots whose window has wrapped, ``decode_attention`` in fresh mode
+   (the current K/V ride into the kernel; the cache write is deferred),
+   then ``qx_offn_qkv`` (fp8/fp16) or ``gf4_offn_qkv`` (gf4) for wo
+   through w2 plus the next layer's q/k/v (``calm_tpu/model.py:1192-1285``);
+4. one cache write for all layers, each slot at its own row
+   (``model.py:1289-1306``);
 5. final norm and the lm-head through ``qmm_decode``.
+
+The step's host ints (tokens, positions, window rows) reach the card in
+one non-blocking copy, so a step makes no host sync before its logits are
+read.
 
 Models whose dims are not 128-aligned, and MoE models (as
 ``model.py:1228``), take the same step with per-op matvecs in place of
@@ -303,21 +311,26 @@ def _fused(cfg: ModelConfig, w: Weights, B: int) -> bool:
 @dataclasses.dataclass
 class _Step:
     """Per-step state shared by every layer."""
-    kv_pos: torch.Tensor    # (B,) int32
+    kv_pos: torch.Tensor    # (B,) int32 logical row each slot writes
     kv_len: torch.Tensor    # (B,) int32
-    kv_row: int
     cos: torch.Tensor       # (B, hd/2)
     sin: torch.Tensor
-    sink_cos: torch.Tensor | None  # (B, KV_SINKS, hd/2) once wrapped
+    sink_rows: torch.Tensor | None  # (W,) cache axis-1 index of the sinks of
+                                    # the W slots past the window; None if none
+    sink_cos: torch.Tensor | None   # (W, KV_SINKS, hd/2)
     sink_sin: torch.Tensor | None
+    pt: torch.Tensor | None         # (B, n_blocks) int32 page table
 
 
 def _rotate_sinks(cache: KVCache, layer: int, st: _Step):
-    """Rotate the sink keys forward one position so their relative RoPE
-    phase tracks the sliding window (``calm_tpu/model.py:1020-1033``)."""
-    sink = cache.k[layer, :, :, :KV_SINKS, :]            # (B, KVH, 2, hd)
+    """Rotate the wrapped slots' sink keys forward one position so their
+    relative RoPE phase tracks the sliding window
+    (``calm_tpu/model.py:1007-1033``); a paged slot's sinks live in its
+    own page 0."""
+    idx = (layer, st.sink_rows, slice(None), slice(0, KV_SINKS))
+    sink = cache.k[idx]                                   # (W, KVH, 2, hd)
     rot = apply_rope(sink.float().transpose(1, 2), st.sink_cos, st.sink_sin)
-    cache.k[layer, :, :, :KV_SINKS, :] = rot.transpose(1, 2).to(cache.k.dtype)
+    cache.k[idx] = rot.transpose(1, 2).to(cache.k.dtype)
 
 
 def _qkv_post(cfg: ModelConfig, lw: LayerWeights, layer: int, q, k, v):
@@ -448,18 +461,18 @@ def _layer(cfg: ModelConfig, lw: LayerWeights, layer: int, x, qkv, cache,
     H, KVH = cfg.n_heads, cfg.n_kv_heads
     if qkv is None:
         xb = _norm(cfg, x, lw.attn_norm[layer])
-        qkv = (_mv(xb, lw.wq, layer), _mv(xb, lw.wk, layer),
-               _mv(xb, lw.wv, layer))
+        qkv = (_mm(xb, lw.wq, layer), _mm(xb, lw.wk, layer),
+               _mm(xb, lw.wv, layer))
     q, k, v = _qkv_post(cfg, lw, layer, *qkv)
     q = apply_rope(q.reshape(B, H, hd), st.cos, st.sin)
     k = apply_rope(k.reshape(B, KVH, hd), st.cos, st.sin)
     kc = k.to(cache.k.dtype).contiguous()
     vc = v.reshape(B, KVH, hd).to(cache.k.dtype).contiguous()
 
-    if st.sink_cos is not None:
+    if st.sink_rows is not None:
         _rotate_sinks(cache, layer, st)
     att = decode_attention(q.float().contiguous(), cache.k, cache.v,
-                           st.kv_len, layer, fresh=(kc, vc, st.kv_pos))
+                           st.kv_len, layer, fresh=(kc, vc, st.kv_pos), pt=st.pt)
     att = att.reshape(B, H * hd)
 
     if fused:
@@ -480,19 +493,58 @@ def _head(cfg: ModelConfig, w: Weights, x):
     return _mm(_norm(cfg, x, w.final_norm), w.output)
 
 
-def _step_state(cfg: ModelConfig, pos: int, B: int, device) -> _Step:
-    kv_row, kv_len = decode_indices(cfg, pos)
-    cos, sin = rope_tables(torch.full((B,), pos, device=device),
-                           cfg.head_dim, cfg.rope_theta, cfg.rotary_dim)
-    sink_cos = sink_sin = None
-    if pos >= cfg.seq_len:
+def upload(values, device, dtype=torch.int32) -> torch.Tensor:
+    """Host numbers -> a tensor on ``device`` in one copy that makes no
+    host sync (``non_blocking``; CUDA stages the pageable source
+    before the call returns, so no pinned buffer has to outlive it)."""
+    return torch.tensor(list(values), dtype=dtype).to(device, non_blocking=True)
+
+
+def _step_state(cfg: ModelConfig, token, pos, device, pt=None):
+    """The step's per-slot state from host ints, as ``decode_indices`` per
+    element (``calm_tpu/model.py:1334-1345``), and the tokens on the
+    device. ``token`` is a (B,) tensor, or host ints that then join the
+    one upload; ``pos`` an int (every slot) or B host ints."""
+    B = token.shape[0] if isinstance(token, torch.Tensor) else len(token)
+    pos = [int(pos)] * B if isinstance(pos, (int, np.integer)) else [int(p) for p in pos]
+    if len(pos) != B:
+        raise ValueError(f"{len(pos)} positions for {B} slots")
+    rows, lens = zip(*(decode_indices(cfg, p) for p in pos))
+    wrapped = [b for b, p in enumerate(pos) if p >= cfg.seq_len]
+    head = [] if isinstance(token, torch.Tensor) else [int(t) for t in token]
+    vals = upload(head + pos + list(rows) + list(lens) + wrapped, device)
+    n = len(head)
+    if n:
+        token = vals[:n].long()
+    p_d, kv_pos, kv_len = (vals[n + i * B:n + (i + 1) * B] for i in range(3))
+    cos, sin = rope_tables(p_d, cfg.head_dim, cfg.rope_theta, cfg.rotary_dim)
+    sink_rows = sink_cos = sink_sin = None
+    if wrapped:
+        sink_rows = vals[n + 3 * B:].long()
+        if pt is not None:  # each wrapped slot's own page 0
+            sink_rows = pt[sink_rows, 0].long()
         sink_cos, sink_sin = rope_tables(
-            torch.ones((B, KV_SINKS), dtype=torch.int64, device=device),
+            torch.ones((len(wrapped), KV_SINKS), dtype=torch.int64, device=device),
             cfg.head_dim, cfg.rope_theta, cfg.rotary_dim)
-    return _Step(
-        kv_pos=torch.full((B,), kv_row, dtype=torch.int32, device=device),
-        kv_len=torch.full((B,), kv_len, dtype=torch.int32, device=device),
-        kv_row=kv_row, cos=cos, sin=sin, sink_cos=sink_cos, sink_sin=sink_sin)
+    return _Step(kv_pos=kv_pos, kv_len=kv_len, cos=cos, sin=sin, sink_rows=sink_rows,
+                 sink_cos=sink_cos, sink_sin=sink_sin, pt=pt), token
+
+
+def _write_rows(cache: KVCache, st: _Step, fk: torch.Tensor, fv: torch.Tensor):
+    """The deferred write: every layer's fresh row (L, B, KVH, hd) of each
+    slot at its own row kv_pos[b], in one copy per cache; a paged slot's
+    row lives at page pt[b, kv_pos // PR], row kv_pos % PR. Two advanced
+    indices apart put the slot axis first: (B, L, KVH, hd)."""
+    B = fk.shape[1]
+    rows = st.kv_pos.long()
+    if st.pt is None:
+        slots = torch.arange(B, device=rows.device)
+    else:
+        PR = cache.k.shape[3]
+        slots = st.pt[torch.arange(B, device=rows.device), rows // PR].long()
+        rows = rows % PR
+    cache.k[:, slots, :, rows, :] = fk.transpose(0, 1)
+    cache.v[:, slots, :, rows, :] = fv.transpose(0, 1)
 
 
 def _run_layers(cfg: ModelConfig, w: Weights, x, cache: KVCache, st: _Step):
@@ -510,22 +562,34 @@ def _run_layers(cfg: ModelConfig, w: Weights, x, cache: KVCache, st: _Step):
         x, qkv, (fk, fv) = _layer(cfg, lw, layer, x, qkv, cache, st, fused)
         fresh_k.append(fk)
         fresh_v.append(fv)
-    # every layer's row in one copy per cache
-    cache.k[:, :, :, st.kv_row, :] = torch.stack(fresh_k)
-    cache.v[:, :, :, st.kv_row, :] = torch.stack(fresh_v)
+    _write_rows(cache, st, torch.stack(fresh_k), torch.stack(fresh_v))
     return x
 
 
 @torch.no_grad()
-def decode_step(cfg: ModelConfig, w: Weights, token: torch.Tensor, pos: int,
-                cache: KVCache):
-    """One token for each of the B sequence slots, all at position ``pos``:
-    token (B,) int64 -> (logits (B, V) f32, cache). The cache is updated in
-    place."""
-    x = _embed(w.embed, token)
-    st = _step_state(cfg, pos, token.shape[0], x.device)
-    x = _run_layers(cfg, w, x, cache, st)
+def decode_step(cfg: ModelConfig, w: Weights, token, pos, cache: KVCache):
+    """One token for each of the B sequence slots: token (B,) int64 (or B
+    host ints), pos an int for every slot or B host ints, one a slot ->
+    (logits (B, V) f32, cache). Each slot attends its own window and
+    writes its own row; only slots at pos >= seq_len rotate their sinks.
+    The cache is updated in place."""
+    st, token = _step_state(cfg, token, pos, cache.k.device)
+    x = _run_layers(cfg, w, _embed(w.embed, token), cache, st)
     return _head(cfg, w, x), cache
+
+
+@torch.no_grad()
+def paged_decode_step(cfg: ModelConfig, w: Weights, token, pos,
+                      pool: KVCache, pt: torch.Tensor):
+    """:func:`decode_step` on a page pool (``calm_tpu/paged.py:36-48``):
+    pool (L, P, KVH, PR, hd), pt (B, seq_len // PR) int32 on the pool's
+    device. Attention reads each slot's pages through the table (K12 paged
+    and fresh mode); the deferred write lands at page pt[b, kv_pos // PR],
+    row kv_pos % PR; a wrapped slot rotates the sinks in its own page
+    pt[b, 0]. The pool is updated in place."""
+    st, token = _step_state(cfg, token, pos, pool.k.device, pt)
+    x = _run_layers(cfg, w, _embed(w.embed, token), pool, st)
+    return _head(cfg, w, x), pool
 
 
 @torch.no_grad()
@@ -544,10 +608,11 @@ def decode_loop(cfg: ModelConfig, w: Weights, token: torch.Tensor, pos0: int,
 
 
 def _prefill_layer(cfg: ModelConfig, lw: LayerWeights, layer: int, x,
-                   cache: KVCache, starts: list[int], cos, sin, pos0, kv_len):
+                   cache: KVCache, starts: list[int], cos, sin, pos0, kv_len,
+                   batch_off: int):
     """One layer on x (B*T, D), in the JAX order (``calm_tpu/model.py``
-    :915-1059, :1112-1149): the T fresh K/V rows are in the cache before
-    the attention reads it."""
+    :915-1059, :1112-1149): the T fresh K/V rows are in the cache (slots
+    from ``batch_off`` on) before the attention reads it."""
     B, T = len(starts), x.shape[0] // len(starts)
     hd, H, KVH = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
     xb = _norm(cfg, x, lw.attn_norm[layer])
@@ -558,21 +623,21 @@ def _prefill_layer(cfg: ModelConfig, lw: LayerWeights, layer: int, x,
     kh = k.to(cache.k.dtype).transpose(1, 2)              # (B, KVH, T, hd)
     vh = v.reshape(B, T, KVH, hd).to(cache.k.dtype).transpose(1, 2)
     for b, p in enumerate(starts):
-        cache.k[layer, b, :, p:p + T] = kh[b]
-        cache.v[layer, b, :, p:p + T] = vh[b]
+        cache.k[layer, batch_off + b, :, p:p + T] = kh[b]
+        cache.v[layer, batch_off + b, :, p:p + T] = vh[b]
     att = prefill_attention(q.reshape(B, T, KVH, H // KVH, hd).contiguous(),
-                            cache.k, cache.v, pos0, kv_len, layer)
+                            cache.k, cache.v, pos0, kv_len, layer, batch_off)
     return _ffn(cfg, lw, layer, x, att.reshape(B * T, H * hd))
 
 
 @torch.no_grad()
 def prefill(cfg: ModelConfig, w: Weights, tokens: torch.Tensor, pos0,
-            cache: KVCache, logits_mode: str = "last"):
+            cache: KVCache, logits_mode: str = "last", batch_off: int = 0):
     """Batched prompt processing (``calm_tpu/model.py:1363-1374``): tokens
-    (B, T) int64 at positions pos0[b] + t, pos0 (B,) ints. Requires
-    pos0 + T <= seq_len (a prefill never rolls). Returns (logits, cache):
-    logits (B, V) for ``"last"``, (B, T, V) for ``"all"``, None for
-    ``"none"``; the cache is updated in place."""
+    (B, T) int64 at positions pos0[b] + t, pos0 (B,) ints, sequence b in
+    cache slot batch_off + b. Requires pos0 + T <= seq_len (a prefill never
+    rolls). Returns (logits, cache): logits (B, V) for ``"last"``, (B, T, V)
+    for ``"all"``, None for ``"none"``; the cache is updated in place."""
     if logits_mode not in ("last", "all", "none"):
         raise ValueError(f"unknown logits_mode {logits_mode!r}")
     B, T = tokens.shape
@@ -581,18 +646,39 @@ def prefill(cfg: ModelConfig, w: Weights, tokens: torch.Tensor, pos0,
     if len(starts) != B or min(starts) < 0 or max(starts) + T > cfg.seq_len:
         raise ValueError(f"prefill needs B={B} starts with start + {T} <= "
                          f"{cfg.seq_len}, got {starts}")
+    if not 0 <= batch_off <= cache.k.shape[1] - B:
+        raise ValueError(f"slots {batch_off}..{batch_off + B - 1} out of range "
+                         f"for a cache of {cache.k.shape[1]}")
     p0 = torch.tensor(starts, dtype=torch.int32, device=dev)
     pos = p0[:, None].long() + torch.arange(T, device=dev)  # (B, T)
     cos, sin = rope_tables(pos, cfg.head_dim, cfg.rope_theta, cfg.rotary_dim)
     x = _embed(w.embed, tokens).reshape(B * T, cfg.dim)
     for layer in range(cfg.n_layers):
         x = _prefill_layer(cfg, w.layers, layer, x, cache, starts, cos, sin,
-                           p0, p0 + T)
+                           p0, p0 + T, batch_off)
     if logits_mode == "none":
         return None, cache
     if logits_mode == "last":
         return _head(cfg, w, x.reshape(B, T, -1)[:, -1]), cache
     return _head(cfg, w, x).reshape(B, T, -1), cache
+
+
+def prefill_slot(cfg: ModelConfig, w: Weights, tokens: torch.Tensor,
+                 slot: int, cache: KVCache, pos0: int = 0):
+    """Prefill one slot of a shared multi-slot cache in place (continuous
+    batching admission; ``calm_tpu/model.py:1525-1570`` without dp): tokens
+    (1, T) at positions pos0 + t into slot ``slot``, whose rows [0, pos0)
+    must already hold valid K/V (a prefix-cache hit copies them in). The
+    other slots are untouched. Returns (logits after the last token (V,),
+    cache).
+
+    The JAX package right-pads T to a bucket so that XLA compiles once per
+    bucket; eager PyTorch has no such compile, so exactly T rows run here.
+    Under the causal mask padded rows could not change the last real
+    token's logits, and the rows they wrote lie past kv_len, so the result
+    is the same function."""
+    logits, cache = prefill(cfg, w, tokens, [pos0], cache, "last", batch_off=slot)
+    return logits[0], cache
 
 
 def logits_hash(logits: np.ndarray) -> int:

@@ -36,8 +36,8 @@ SIGNATURES = {
         "calm_qx_offn_qkv": [P] * 16 + [I] * 7 + [F, I, P],
     },
     "attn": {
-        "calm_decode_attention": [P] * 11 + [I] * 8 + [P],
-        "calm_prefill_attention": [P] * 6 + [I] * 8 + [P],
+        "calm_decode_attention": [P] * 12 + [I] * 10 + [P],
+        "calm_prefill_attention": [P] * 6 + [I] * 10 + [P],
     },
     "gf4": {
         "calm_gf4_matvec": [P, P, P, I, I, I, P],

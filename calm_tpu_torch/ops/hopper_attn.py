@@ -1,13 +1,16 @@
 """Flash attention on Hopper: the ports of pallas_attn's two kernels.
 
 - :func:`decode_attention` replaces ``_attn_body``
-  (``calm_tpu/ops/pallas_attn.py:77``) in its plain and fresh modes;
+  (``calm_tpu/ops/pallas_attn.py:77``) in its plain and fresh modes, over
+  a dense cache or, with a page table, over a page pool (paged mode,
+  ``:168-174``, ``:203-211``);
 - :func:`prefill_attention` replaces ``_prefill_kernel`` (``:326``): causal
-  attention of T queries against the carried cache.
+  attention of T queries against the carried cache, from any slot on.
 
 Both kernels live in ``csrc/attn.cu``. Each wrapper takes its plain PyTorch
 version (``*_plain``, f32) for tensors on the CPU, and launches the kernel
-for CUDA tensors or raises; it counts its launches in ``.launches``.
+for CUDA tensors or raises; it counts its launches in ``.launches``
+(:func:`decode_attention` those in paged mode also in ``.paged_launches``).
 """
 
 from __future__ import annotations
@@ -22,14 +25,28 @@ _KV_CODE = {torch.float16: 0, torch.bfloat16: 1, torch.float8_e5m2: 2}
 _TARGET_BLOCKS = 264  # two blocks per SM on a 132-SM H100
 
 
-def decode_attention_plain(q, k_cache, v_cache, kv_len, layer, fresh=None):
+def paged_view(pool_plane: torch.Tensor, pt: torch.Tensor) -> torch.Tensor:
+    """One layer's pool (P, KVH, PR, hd) through the page table (B, nb) ->
+    the slots' dense (B, KVH, nb * PR, hd) windows (a gather, as the jnp
+    oracle does, ``calm_tpu/model.py:580-588``)."""
+    B, nb = pt.shape
+    _, KVH, PR, hd = pool_plane.shape
+    return (pool_plane[pt.long()].transpose(1, 2)
+            .reshape(B, KVH, nb * PR, hd))
+
+
+def decode_attention_plain(q, k_cache, v_cache, kv_len, layer, fresh=None,
+                           pt=None):
     B, H, hd = q.shape
-    KVH, S = k_cache.shape[2], k_cache.shape[3]
+    KVH = k_cache.shape[2]
     M = H // KVH
     scale = 1.0 / math.sqrt(hd)
     qg = q.float().reshape(B, KVH, M, hd)
-    kc = k_cache[int(layer)].float()                     # (B, KVH, S, hd)
-    vc = v_cache[int(layer)].float()
+    kc, vc = k_cache[int(layer)], v_cache[int(layer)]
+    if pt is not None:
+        kc, vc = paged_view(kc, pt), paged_view(vc, pt)
+    kc, vc = kc.float(), vc.float()                      # (B, KVH, S, hd)
+    S = kc.shape[2]
     scores = torch.einsum("bkmh,bksh->bkms", qg, kc) * scale
     col = torch.arange(S, device=q.device)
     live = col[None, :] < kv_len.to(q.device).long()[:, None]   # (B, S)
@@ -59,22 +76,33 @@ def _check(cond: bool, msg: str) -> None:
         raise ValueError(msg)
 
 
-def decode_attention(q, k_cache, v_cache, kv_len, layer, fresh=None):
+def decode_attention(q, k_cache, v_cache, kv_len, layer, fresh=None, pt=None):
     """q (B, H, hd) f32; caches (L, B, KVH, S, hd) in bf16/fp16/fp8-e5m2
     with ``layer`` selecting the plane; kv_len (B,) int32 -> (B, H, hd) f32.
 
     ``fresh`` = (fresh_k (B, KVH, hd) in the cache dtype, fresh_v, kv_pos
     (B,) int32): the current token's rows join the softmax directly and the
-    stale cache row kv_pos is masked (deferred-write decode)."""
+    stale cache row kv_pos is masked (deferred-write decode).
+
+    ``pt`` (B, n_blocks) int32: paged mode. The caches are a page pool
+    (L, P, KVH, PR, hd) and logical row s of slot b lives at page
+    pt[b, s // PR], row s % PR; kv_len and kv_pos are logical rows. Every
+    entry must lie in [0, P); entries past kv_len are never read."""
     if q.device.type == "cpu":
-        return decode_attention_plain(q, k_cache, v_cache, kv_len, layer, fresh)
+        return decode_attention_plain(q, k_cache, v_cache, kv_len, layer, fresh, pt)
     B, H, hd = q.shape
-    L, Bc, KVH, S, hd_c = k_cache.shape
+    L, NP, KVH, PR, hd_c = k_cache.shape
     _check(q.dtype == torch.float32 and q.is_contiguous(), "q must be contiguous float32")
     _check(k_cache.dtype in _KV_CODE and v_cache.dtype == k_cache.dtype,
            f"no CUDA kernel for a {k_cache.dtype} cache")
-    _check(tuple(v_cache.shape) == tuple(k_cache.shape) and Bc == B and hd_c == hd,
-           "cache shape mismatch")
+    _check(tuple(v_cache.shape) == tuple(k_cache.shape) and hd_c == hd
+           and (pt is not None or NP == B), "cache shape mismatch")
+    S = PR
+    if pt is not None:
+        _check(pt.dtype == torch.int32 and pt.dim() == 2 and pt.shape[0] == B
+               and pt.is_contiguous() and pt.device == q.device,
+               "pt must be a contiguous (B, n_blocks) int32 tensor on the card")
+        S = pt.shape[1] * PR
     _check(k_cache.is_contiguous() and v_cache.is_contiguous(), "caches must be contiguous")
     _check(hd in (64, 128), "the attention kernel takes head_dim 64 or 128")
     _check(H % KVH == 0 and H // KVH <= 16, "the attention kernel takes <= 16 query rows per kv head")
@@ -106,15 +134,17 @@ def decode_attention(q, k_cache, v_cache, kv_len, layer, fresh=None):
 
     rc = build.lib("attn").calm_decode_attention(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), kv_len.data_ptr(),
-        ptr(fk), ptr(fv), ptr(kv_pos), pacc.data_ptr(), pm.data_ptr(),
+        ptr(fk), ptr(fv), ptr(kv_pos), ptr(pt), pacc.data_ptr(), pm.data_ptr(),
         pl.data_ptr(), out.data_ptr(), B, KVH, M, S, hd, int(layer), cs,
-        _KV_CODE[k_cache.dtype], torch.cuda.current_stream(dev).cuda_stream)
+        _KV_CODE[k_cache.dtype], NP, PR, torch.cuda.current_stream(dev).cuda_stream)
     build.check("attn", rc)
     decode_attention.launches += 1
+    decode_attention.paged_launches += pt is not None
     return out
 
 
 decode_attention.launches = 0
+decode_attention.paged_launches = 0  # the launches in paged mode
 
 
 # ---------------------------------------------------------------------------
@@ -122,13 +152,15 @@ decode_attention.launches = 0
 # ---------------------------------------------------------------------------
 
 
-def prefill_attention_plain(q, k_cache, v_cache, pos0, kv_len, layer):
+def prefill_attention_plain(q, k_cache, v_cache, pos0, kv_len, layer,
+                            batch_off=0):
     """Masked softmax in f32 over the cache rows any query can see."""
     B, T, KVH, M, hd = q.shape
     n = max(1, min(k_cache.shape[3], int(kv_len.max())))
     dev = q.device
-    kc = k_cache[int(layer), :, :, :n].float()            # (B, KVH, n, hd)
-    vc = v_cache[int(layer), :, :, :n].float()
+    slots = slice(batch_off, batch_off + B)
+    kc = k_cache[int(layer), slots, :, :n].float()        # (B, KVH, n, hd)
+    vc = v_cache[int(layer), slots, :, :n].float()
     scores = torch.einsum("btkmh,bksh->bkmts", q.float(), kc) / math.sqrt(hd)
     col = torch.arange(n, device=dev)
     qpos = pos0.to(dev).long()[:, None] + torch.arange(T, device=dev)  # (B, T)
@@ -142,23 +174,25 @@ def prefill_attention_plain(q, k_cache, v_cache, pos0, kv_len, layer):
     return out / l.clamp_min(1e-37)
 
 
-def prefill_attention(q, k_cache, v_cache, pos0, kv_len, layer):
-    """q (B, T, KVH, M, hd) f32; caches (L, B, KVH, S, hd) in
-    bf16/fp16/fp8-e5m2 holding the T fresh rows already; pos0, kv_len (B,)
-    int32 -> (B, T, KVH, M, hd) f32. Query t of sequence b sits at position
-    pos0[b] + t and sees cache rows col < kv_len[b], col <= pos0[b] + t. On
-    the card K/V enter the tensor cores as bf16 (exact for bf16 and e5m2
-    caches, rounded for fp16), and q and p rounded once to bf16, as the TPU
-    kernel rounds them; sums in f32."""
+def prefill_attention(q, k_cache, v_cache, pos0, kv_len, layer, batch_off=0):
+    """q (B, T, KVH, M, hd) f32; caches (L, Bc, KVH, S, hd) in
+    bf16/fp16/fp8-e5m2 holding the T fresh rows already, sequence b in slot
+    batch_off + b; pos0, kv_len (B,) int32 -> (B, T, KVH, M, hd) f32. Query
+    t of sequence b sits at position pos0[b] + t and sees cache rows col <
+    kv_len[b], col <= pos0[b] + t. On the card K/V enter the tensor cores as
+    bf16 (exact for bf16 and e5m2 caches, rounded for fp16), and q and p
+    rounded once to bf16, as the TPU kernel rounds them; sums in f32."""
     if q.device.type == "cpu":
-        return prefill_attention_plain(q, k_cache, v_cache, pos0, kv_len, layer)
+        return prefill_attention_plain(q, k_cache, v_cache, pos0, kv_len, layer,
+                                       batch_off)
     B, T, KVH, M, hd = q.shape
     L, Bc, KVHc, S, hd_c = k_cache.shape
     _check(q.dtype == torch.float32 and q.is_contiguous(), "q must be contiguous float32")
     _check(k_cache.dtype in _KV_CODE and v_cache.dtype == k_cache.dtype,
            f"no CUDA kernel for a {k_cache.dtype} cache")
-    _check(tuple(v_cache.shape) == tuple(k_cache.shape) and Bc == B
-           and KVHc == KVH and hd_c == hd, "cache shape mismatch")
+    _check(tuple(v_cache.shape) == tuple(k_cache.shape) and 0 <= batch_off
+           and batch_off + B <= Bc and KVHc == KVH and hd_c == hd,
+           "cache shape mismatch")
     _check(k_cache.is_contiguous() and v_cache.is_contiguous(), "caches must be contiguous")
     _check(hd in (64, 128), "the attention kernel takes head_dim 64 or 128")
     _check(1 <= M <= 64, "the prefill kernel takes 1..64 query heads per kv head")
@@ -171,7 +205,8 @@ def prefill_attention(q, k_cache, v_cache, pos0, kv_len, layer):
     rc = build.lib("attn").calm_prefill_attention(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), pos0.data_ptr(),
         kv_len.data_ptr(), out.data_ptr(), B, T, KVH, M, S, hd, int(layer),
-        _KV_CODE[k_cache.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+        _KV_CODE[k_cache.dtype], Bc, int(batch_off),
+        torch.cuda.current_stream(q.device).cuda_stream)
     build.check("attn", rc)
     prefill_attention.launches += 1
     return out

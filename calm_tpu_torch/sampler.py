@@ -11,8 +11,8 @@ Functional contract mirrors the reference sampler (src/sampler.c):
   perplexity harness (src/sampler.c:19-32)
 
 Host-side numpy: logits arrive on host once per token; sampling cost is
-negligible next to the forward pass. Copy of ``calm_tpu.sampler`` without
-the JAX device sampler.
+negligible next to the forward pass. :func:`device_sample` is the batched
+serving path's sampler on the logits' device (``calm_tpu/sampler.py:55-81``).
 """
 
 from __future__ import annotations
@@ -20,6 +20,7 @@ from __future__ import annotations
 import math
 
 import numpy as np
+import torch
 
 _MASK64 = (1 << 64) - 1
 
@@ -50,6 +51,35 @@ def softmax_prob(idx: int, logits: np.ndarray) -> float:
     m = float(logits.max())
     e = np.exp(logits - m, dtype=np.float32)
     return float(e[idx]) / float(e.sum(dtype=np.float32))
+
+
+def device_sample(logits: torch.Tensor, generator: torch.Generator,
+                  temperature: torch.Tensor, minp: torch.Tensor) -> torch.Tensor:
+    """Batched min-p sampling on the logits' device: logits (B, V), per-row
+    temperature and minp (B,) on the same device -> token ids (B,) int64,
+    with no host sync.
+
+    The cutoff in logit space is the host sampler's (max + log(minp) * T);
+    rows with T = 0 or minp >= 1 take the argmax (first max wins). A row
+    draws by the Gumbel-max rule, argmax(logits / T + g) over the kept
+    logits with g = -log(-log(u)), u uniform from ``generator`` (a
+    ``torch.Generator`` on the logits' device): a draw from softmax(logits
+    / T) restricted to the kept set. These are not JAX's PRNG bits, so the
+    draws differ from ``calm_tpu``'s, as its own remark says of the
+    reference's xorshift stream."""
+    logits = logits.float()
+    t = temperature.float().reshape(-1, 1)
+    mp = minp.float().reshape(-1, 1)
+    top = logits.max(dim=-1, keepdim=True).values
+    safe_t = torch.where(t > 0, t, torch.ones_like(t))
+    cutoff = top + torch.log(mp.clamp(1e-9, 1.0)) * safe_t
+    masked = torch.where(logits >= cutoff, logits / safe_t,
+                         torch.full_like(logits, float("-inf")))
+    u = torch.rand(logits.shape, generator=generator, device=logits.device)
+    drawn = (masked - torch.log(-torch.log(u))).argmax(dim=-1)
+    greedy = logits.argmax(dim=-1)
+    pick = (t[:, 0] == 0.0) | (mp[:, 0] >= 1.0)
+    return torch.where(pick, greedy, drawn)
 
 
 class Sampler:

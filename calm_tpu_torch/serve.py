@@ -1,0 +1,471 @@
+"""Continuous-batching serving loop (the port of ``calm_tpu.serve`` on one
+device).
+
+- B decode slots share one decode step a tick; finished slots take new
+  requests mid-flight;
+- the KV cache is one dense (L, B, KVH, S, hd) buffer whose slots are
+  prefilled in place (``model.prefill_slot``), or with ``page_rows`` the
+  paged pool of :class:`calm_tpu_torch.paged.PagedDecoder`;
+- free slots decode garbage at their parked position: the batched
+  products pay for them anyway, and their rows are masked or overwritten
+  on reuse (a paged slot's table row points at the parking page);
+- the prefix cache keeps prompt-prefix rows (dense) or pins prompt pages
+  (paged) so that a later request with the same prefix prefills only its
+  suffix;
+- sampling runs on the host per slot (greedy, or min-p with the
+  reference's xorshift64* stream per request, bit-compatible with the JAX
+  server's) or, with ``device_sampling``, on the device, so that only the
+  (B,) ids reach the host each tick.
+
+Prompts are prefilled at their exact length: the JAX server pads them to
+buckets so that XLA compiles once per bucket, which eager PyTorch does not
+need. Sharded serving (``mesh``/``plan``/``dp_devices``) and speculative
+serving (``draft_path``) belong to later slices and raise.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import sys
+import threading
+import time
+from collections import OrderedDict, deque
+from typing import Callable
+
+import numpy as np
+import torch
+
+from calm_tpu_torch import model as M
+from calm_tpu_torch.engine import Engine
+from calm_tpu_torch.paged import PagedDecoder
+from calm_tpu_torch.sampler import Sampler, device_sample
+
+
+class QueueFull(Exception):
+    """Raised by submit() when the pending queue is at max_pending."""
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: str
+    max_tokens: int = 128
+    temperature: float = 1.0
+    minp: float = 0.1
+    seed: int = 42
+    # called with each decoded text piece, then once with None when the
+    # request reaches a terminal state (done, timeout, cancel)
+    on_piece: Callable[[str | None], None] | None = None
+    timeout_s: float = 0.0  # deadline from submit (0: none)
+    # results
+    text: str = ""
+    done: bool = False
+    cancelled: bool = False  # the client went away: freed at the next tick
+    timed_out: bool = False
+    n_generated: int = 0
+    ids: list = dataclasses.field(default_factory=list)  # generated token ids
+    cached_prefix: int = 0  # prompt tokens served from the prefix cache
+    truncated_prompt: int = 0  # prompt tokens dropped to fit the window
+    out_of_pages: bool = False  # paged: finished early under pool pressure
+    submitted_at: float = 0.0
+    first_token_at: float = 0.0
+    finished_at: float = 0.0
+    # set once, at the terminal state; waiters block here
+    done_event: threading.Event = dataclasses.field(
+        default_factory=threading.Event, repr=False, compare=False)
+
+
+class PrefixCache:
+    """LRU store of prompt-prefix KV (``calm_tpu/serve.py:98-153``).
+    Entries are keyed by the token prefix from position 0 (RoPE'd keys are
+    position-absolute, so a block serves any prompt that starts with those
+    tokens) and hold (k, v) row blocks on the device, or in paged mode the
+    pinned page list, whose eviction calls ``on_evict``."""
+
+    GRAIN = 16  # saved prefixes are cut to a multiple of this
+
+    def __init__(self, capacity_tokens: int = 16384, on_evict=None):
+        self.capacity = capacity_tokens
+        self.tokens = 0
+        self.hits = 0
+        self.hit_tokens = 0
+        self._entries: OrderedDict[tuple, tuple] = OrderedDict()
+        # length -> stored keys of that length: a match probes one hash per
+        # distinct stored length
+        self._lengths: dict[int, set] = {}
+        self._on_evict = on_evict
+
+    def match(self, toks) -> tuple[int, tuple | None]:
+        """Longest stored prefix of ``toks``; marks the entry most recent."""
+        for n in sorted(self._lengths, reverse=True):
+            if n > len(toks):
+                continue
+            key = tuple(toks[:n])
+            if key in self._lengths[n]:
+                self._entries.move_to_end(key)
+                self.hits += 1
+                self.hit_tokens += n
+                return n, self._entries[key]
+        return 0, None
+
+    def put(self, toks, *payload):
+        key = tuple(toks)
+        if key in self._entries:
+            return
+        self._entries[key] = payload if len(payload) != 1 else payload[0]
+        self._lengths.setdefault(len(key), set()).add(key)
+        self.tokens += len(key)
+        while self.tokens > self.capacity and len(self._entries) > 1:
+            old, pay = self._entries.popitem(last=False)
+            self.tokens -= len(old)
+            bucket = self._lengths.get(len(old))
+            if bucket is not None:
+                bucket.discard(old)
+                if not bucket:
+                    del self._lengths[len(old)]
+            if self._on_evict is not None:
+                self._on_evict(pay)
+
+
+@dataclasses.dataclass
+class _Slot:
+    active: bool = False
+    req: Request | None = None
+    pos: int = 0
+    token: int = 0
+    sampler: Sampler | None = None
+    out: bytearray = dataclasses.field(default_factory=bytearray)
+    _save_prefix: list | None = None  # prefix save, after the admission prefill
+
+
+class Server:
+    """Batched multi-request decode on one Engine.
+
+    ``device_sampling=True`` samples min-p on the device
+    (``sampler.device_sample``): only (B,) ids cross to the host each tick.
+    ``seed`` then seeds the server's generator instead of a per-request
+    xorshift stream; leave it off for draws bit-compatible with the JAX
+    server's host sampling. ``engine`` hands the server an Engine built
+    already (one made in memory); ``device`` selects the CPU for tests."""
+
+    def __init__(self, path: str | None = None, batch: int = 4, context: int = 0,
+                 kv_dtype: str | None = None, device_sampling: bool = False,
+                 seed: int = 42, mesh=None, plan=None,
+                 prefix_cache_tokens: int = 0, page_rows: int = 0,
+                 pool_pages: int = 0, max_pending: int = 0, dp_devices=None,
+                 draft_path: str | None = None, spec_sampled: bool = False,
+                 device=None,
+                 engine: Engine | None = None):
+        if mesh is not None or plan is not None or dp_devices is not None:
+            raise NotImplementedError(
+                "sharded serving (mesh/plan/dp_devices) is not ported yet")
+        if draft_path is not None or spec_sampled:
+            raise NotImplementedError("speculative serving is not ported yet")
+        if engine is None:
+            # a paged server keeps no dense cache: a one-slot engine
+            engine = Engine(path, context=context, kv_dtype=kv_dtype,
+                            device=device, batch=1 if page_rows else batch)
+        elif not page_rows and engine.batch != batch:
+            raise ValueError(f"the engine has {engine.batch} slots, not {batch}")
+        self.engine = engine
+        self.batch = batch
+        eng = engine
+        self._paged = None
+        if page_rows:
+            if not pool_pages:
+                pool_pages = batch * (eng.cfg.seq_len // page_rows)
+            eng.cache = None  # the pool replaces the dense cache
+            self._paged = PagedDecoder(eng.cfg, eng.weights, pool_pages,
+                                       page_rows, eng._kv_torch, batch)
+        # paged mode shares pages: a hit maps pinned pool pages, a save pins
+        # the slot's prompt pages in place, an eviction unpins them
+        self.prefix_cache = None
+        if prefix_cache_tokens:
+            self.prefix_cache = PrefixCache(
+                prefix_cache_tokens,
+                on_evict=None if self._paged is None else self._paged.unpin_pages)
+        self.slots = [_Slot() for _ in range(batch)]
+        self.pending: deque[Request] = deque()
+        self.max_pending = max_pending  # 0: unbounded
+        self.rejected = 0  # submit() calls bounced on a full queue
+        self._next_rid = 0
+        # parked decode state per slot
+        self._tokens = np.zeros(batch, np.int64)
+        self._pos = np.zeros(batch, np.int64)
+        self.device_sampling = device_sampling
+        self._temps = np.zeros(batch, np.float32)  # parked slots: greedy
+        self._minps = np.ones(batch, np.float32)
+        self._sampling_dev = None  # device copies of temps/minps; None: stale
+        if device_sampling:
+            self._gen = torch.Generator(device=eng.device)
+            self._gen.manual_seed(seed)
+        self._last_tick_at = time.monotonic()  # watchdog liveness stamp
+        self._wd_thread = None
+
+    # -- client api ---------------------------------------------------------
+
+    def submit(self, prompt: str, **kw) -> Request:
+        if self.max_pending and len(self.pending) >= self.max_pending:
+            self.rejected += 1
+            raise QueueFull(f"pending queue full ({self.max_pending})")
+        req = Request(rid=self._next_rid, prompt=prompt, **kw)
+        req.submitted_at = time.perf_counter()
+        self._next_rid += 1
+        self.pending.append(req)
+        return req
+
+    def cancel(self, req: Request):
+        """The client went away: a pending request ends now; an active one
+        is swept (its slot freed) at the start of the next tick."""
+        req.cancelled = True
+        if not req.done and any(r is req for r in self.pending):
+            self.pending = deque(r for r in self.pending if r is not req)
+            self._finish(req, None, time.perf_counter())
+
+    def _set_sampling(self, b: int, temperature: float, minp: float):
+        self._temps[b] = temperature
+        self._minps[b] = minp
+        self._sampling_dev = None
+
+    def _finish(self, req: Request, b: int | None, now: float, *,
+                timed_out: bool = False, out_of_pages: bool = False):
+        """The one terminal path: park the slot, flag the request, fire the
+        on_piece(None) sentinel, set the done_event."""
+        if b is not None:
+            slot = self.slots[b]
+            req.text = slot.out.decode("utf-8", errors="replace")
+            slot.active = False
+            slot.req = None
+            self._set_sampling(b, 0.0, 1.0)  # park greedy
+            if self._paged is not None:
+                self._paged.release(b)  # pages back to the pool
+        req.timed_out = timed_out
+        req.out_of_pages = out_of_pages
+        req.done = True
+        req.finished_at = now
+        if req.on_piece:
+            req.on_piece(None)
+        req.done_event.set()
+
+    def _sweep(self):
+        """Free slots whose request was cancelled or passed its deadline,
+        and drop dead pending requests, before admission."""
+        now = time.perf_counter()
+
+        def dead(req):
+            to = req.timeout_s > 0 and now - req.submitted_at >= req.timeout_s
+            return req.cancelled or to, to
+
+        live = deque()
+        for req in self.pending:
+            is_dead, to = dead(req)
+            if is_dead:
+                self._finish(req, None, now, timed_out=to)
+            else:
+                live.append(req)
+        self.pending = live
+        for b, slot in enumerate(self.slots):
+            if not slot.active:
+                continue
+            is_dead, to = dead(slot.req)
+            if is_dead:
+                self._finish(slot.req, b, now, timed_out=to)
+
+    # -- liveness watchdog ----------------------------------------------------
+
+    def watchdog_start(self, stall_s: float = 60.0,
+                       on_stall: Callable[[float], None] | None = None,
+                       poll_s: float | None = None):
+        """Start a liveness watchdog: while requests are in flight and no
+        tick() has completed within ``stall_s``, ``on_stall(age_seconds)``
+        fires (default: a line on stderr), then re-arms. Idempotent; stop
+        with watchdog_stop()."""
+        if self._wd_thread is not None:
+            return
+        self._wd_stop = threading.Event()
+        self._wd_fired = 0
+
+        def _default(age: float):
+            print(f"# watchdog: serving loop stalled for {age:.1f}s "
+                  f"({sum(1 for s in self.slots if s.active)} active slots, "
+                  f"{len(self.pending)} pending)", file=sys.stderr)
+
+        cb = on_stall or _default
+        poll = poll_s if poll_s is not None else max(stall_s / 4, 0.01)
+
+        def _loop():
+            while not self._wd_stop.wait(poll):
+                if not (self.pending or any(s.active for s in self.slots)):
+                    continue
+                age = time.monotonic() - self._last_tick_at
+                if age >= stall_s:
+                    self._wd_fired += 1
+                    try:
+                        cb(age)
+                    except Exception:
+                        pass
+                    self._last_tick_at = time.monotonic()  # re-arm
+
+        self._last_tick_at = time.monotonic()
+        self._wd_thread = threading.Thread(target=_loop, daemon=True,
+                                           name="calm-serve-watchdog")
+        self._wd_thread.start()
+
+    def watchdog_stop(self):
+        if self._wd_thread is not None:
+            self._wd_stop.set()
+            self._wd_thread.join(timeout=5)
+            self._wd_thread = None
+
+    def run_until_drained(self, max_ticks: int | None = None):
+        ticks = 0
+        while self.pending or any(s.active for s in self.slots):
+            self.tick()
+            ticks += 1
+            if max_ticks is not None and ticks >= max_ticks:
+                break
+
+    # -- scheduler ----------------------------------------------------------
+
+    def _admit(self):
+        eng = self.engine
+        S = eng.cfg.seq_len
+        admissions: list[tuple[int, list[int], int]] = []
+        for b, slot in enumerate(self.slots):
+            if slot.active or not self.pending:
+                continue
+            req = self.pending.popleft()
+            toks = eng.tokenizer.encode(req.prompt, bos=True)
+            if not toks:
+                toks = [max(eng.tokenizer.bos_id, 0)]
+            if len(toks) > S - 1:
+                # clamp absurd prompts to the window minus generation room
+                req.truncated_prompt = len(toks) - (S - 1)
+                toks = toks[:S - 1]
+            pre = toks[:-1]
+
+            if self._paged is not None:
+                pc = self.prefix_cache
+                hit, pages = pc.match(pre) if pc is not None else (0, ())
+                if not self._paged.admit(b, toks, shared_pages=pages or (),
+                                         hit_rows=hit):
+                    self.pending.appendleft(req)  # pool full: retry later
+                    break
+                req.cached_prefix = min(hit, len(pre))
+                if pc is not None:  # pin the full prompt pages in place
+                    pr = self._paged.page_rows
+                    key = tuple(pre[:len(pre) // pr * pr])
+                    if key and key not in pc._entries:
+                        _, pinned = self._paged.pin_prompt(b, len(key))
+                        if pinned:
+                            pc.put(key, pinned)
+            elif pre:
+                hit = 0
+                if self.prefix_cache is not None:
+                    hit, kv = self.prefix_cache.match(pre)
+                    if hit:
+                        # the cached rows go in before the suffix prefill,
+                        # which attends them
+                        eng.cache.k[:, b:b + 1, :, :hit] = kv[0]
+                        eng.cache.v[:, b:b + 1, :, :hit] = kv[1]
+                    slot._save_prefix = pre  # saved after the prefill below
+                req.cached_prefix = hit
+                if pre[hit:]:
+                    admissions.append((b, pre[hit:], hit))
+
+            slot.active = True
+            slot.req = req
+            slot.sampler = Sampler(eng.cfg.vocab_size, req.seed,
+                                   req.temperature, req.minp)
+            self._set_sampling(b, req.temperature, req.minp)
+            slot.out = bytearray()
+            slot.token = toks[-1]
+            slot.pos = len(toks) - 1
+            self._tokens[b] = slot.token
+            self._pos[b] = slot.pos
+
+        for b, suffix, hit in admissions:
+            M.prefill_slot(eng.cfg, eng.weights,
+                           torch.tensor([suffix], dtype=torch.int64, device=eng.device),
+                           b, eng.cache, pos0=hit)
+
+        if self.prefix_cache is not None and self._paged is None:
+            for b, slot in enumerate(self.slots):
+                pre, slot._save_prefix = slot._save_prefix, None
+                if pre is None:
+                    continue
+                n = len(pre) // PrefixCache.GRAIN * PrefixCache.GRAIN
+                key = tuple(pre[:n])
+                if n and key not in self.prefix_cache._entries:
+                    self.prefix_cache.put(key, eng.cache.k[:, b:b + 1, :, :n].clone(),
+                                          eng.cache.v[:, b:b + 1, :, :n].clone())
+
+    def tick(self):
+        """One scheduler tick: sweep, admit, one decode step for all."""
+        self._tick()
+        # stamped after a tick that returned only: a loop that retries a
+        # raising tick must look stalled to the watchdog
+        self._last_tick_at = time.monotonic()
+
+    def _sampling_tensors(self):
+        if self._sampling_dev is None:
+            dev = self.engine.device
+            self._sampling_dev = (M.upload(self._temps, dev, torch.float32),
+                                  M.upload(self._minps, dev, torch.float32))
+        return self._sampling_dev
+
+    def _tick(self):
+        self._sweep()
+        self._admit()
+        if not any(s.active for s in self.slots):
+            return
+        eng = self.engine
+        sampled = logits = None
+        if self._paged is not None:
+            now0 = time.perf_counter()
+            for b, slot in enumerate(self.slots):
+                if not slot.active:
+                    continue
+                self._paged.set_token(b, slot.token)
+                if not self._paged.ensure_capacity(b):
+                    # pool pressure: finish this request with what it has
+                    # (flagged) instead of stalling the whole batch
+                    self._finish(slot.req, b, now0, out_of_pages=True)
+            if not any(s.active for s in self.slots):
+                return
+            if self.device_sampling:
+                sampled = self._paged.step_sampled(self._gen, *self._sampling_tensors())
+            else:
+                logits = self._paged.step()
+        else:
+            out, eng.cache = M.decode_step(eng.cfg, eng.weights, self._tokens.tolist(),
+                                           self._pos.tolist(), eng.cache)
+            if self.device_sampling:
+                sampled = device_sample(out, self._gen, *self._sampling_tensors()).tolist()
+            else:
+                logits = out.float().cpu().numpy()
+
+        tok = eng.tokenizer
+        now = time.perf_counter()
+        for b, slot in enumerate(self.slots):
+            if not slot.active:
+                continue
+            req = slot.req
+            nxt = (int(sampled[b]) if sampled is not None
+                   else slot.sampler.sample(logits[b]))
+            if req.n_generated == 0:
+                req.first_token_at = now
+            slot.pos += 1
+            req.n_generated += 1
+            req.ids.append(nxt)
+            if (nxt in (tok.bos_id, tok.eos_id, tok.eot_id)
+                    or req.n_generated >= req.max_tokens):
+                self._finish(req, b, now)
+                continue
+            piece = tok.decode_piece(slot.token, nxt)
+            slot.out += piece
+            if req.on_piece:
+                req.on_piece(piece.decode("utf-8", errors="replace"))
+            slot.token = nxt
+            self._tokens[b] = nxt
+            self._pos[b] = slot.pos

@@ -10,9 +10,12 @@ CLI (generate, ``-x``, ``-y``) on 2-layer Mistral-7B-width fp8 and gf4
 containers and 2-layer Mixtral-width (4 experts, top-2) fp8 and gf4 MoE
 containers, each checked against the CPU plain path; runs a 2048-token
 prefill and the ``bench.py`` decode protocol on 32-layer Mistral-7B and
-Mixtral 8x7B, fp8 and gf4; and ends with a ``kernels`` JSON line and
-``{"ok": true, "device": ...}``. Any failure exits non-zero before the
-last line; without a GPU it exits 1 at once.
+Mixtral 8x7B, fp8 and gf4; serves the containers through ``Server``
+(dense, paged, prefix cache) against the CPU's server and through
+``python -m calm_tpu_torch.httpd``; serves 16 requests on a 32-layer
+Mistral-7B with 8 slots, dense and paged; and ends with a ``kernels``
+JSON line and ``{"ok": true, "device": ...}``. Any failure exits non-zero
+before the last line; without a GPU it exits 1 at once.
 """
 
 from __future__ import annotations
@@ -20,11 +23,13 @@ from __future__ import annotations
 import json
 import os
 import re
+import signal
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
+import urllib.request
 
 import numpy as np
 import torch
@@ -274,9 +279,174 @@ def kernel_phase(gbps, dev):
     ragged_checks_prefill_gf4(dev)
     rows.update(moe_kernel_rows(gbps, dev))
     ragged_checks_moe(dev)
+    rows.update(paged_kernel_rows(gbps, dev))
+    ragged_checks_paged(dev)
     log("# max_abs_err / max|out|, worst of each kernel's checks: " + ", ".join(
         f"{k} {v:.3e}" for k, v in WORST_REL.items()))
     return rows
+
+
+def kv_rand(shape, kvd, dev, scale=1.0):
+    """Random cache values in ``kvd``; e5m2 from finite codes only (0x7c-0x7f
+    and 0xfc-0xff are inf/nan)."""
+    if kvd == torch.float8_e5m2:
+        b = torch.randint(0, 256, shape, device=dev, dtype=torch.int32) & 0xBB
+        return b.to(torch.uint8).view(torch.float8_e5m2)
+    return (torch.randn(shape, device=dev) * scale).to(kvd)
+
+
+def to_pages(dense, PR, order):
+    """Dense rows (L, B, KVH, S, hd) -> a pool (L, B*S/PR + 1, KVH, PR, hd)
+    holding block j of slot b at page order[b, j] (the last page parks)."""
+    L, B, KVH, S, hd = dense.shape
+    nb = S // PR
+    pool = torch.zeros((L, B * nb + 1, KVH, PR, hd), dtype=dense.dtype, device=dense.device)
+    blocks = dense.reshape(L, B, KVH, nb, PR, hd).permute(0, 1, 3, 2, 4, 5)
+    pool[:, order.reshape(-1).long()] = blocks.reshape(L, B * nb, KVH, PR, hd)
+    return pool
+
+
+def paged_kernel_rows(gbps, dev):
+    """K12 at the serving tick's shape (8 slots at kv_len 4096, 8 kv heads,
+    hd 128, bf16): paged + fresh with scrambled tables of 512- and 64-row
+    pages beside dense fresh mode; K9 and K2 (lm-head) at 8 rows."""
+    import torch.nn.functional as F
+
+    from calm_tpu_torch.ops import hopper_attn as ha
+    from calm_tpu_torch.ops import hopper_qmm as hq
+    from calm_tpu_torch.ops.qmm import QTensor, dequant
+
+    rows = {}
+    B, KVH, M, S, hd, L = 8, 8, 4, 4096, 128, 2
+    kc = kv_rand((L, B, KVH, S, hd), torch.bfloat16, dev, 0.5)
+    vc = kv_rand((L, B, KVH, S, hd), torch.bfloat16, dev)
+    q = torch.randn(B, KVH * M, hd, device=dev)
+    fr = (kv_rand((B, KVH, hd), torch.bfloat16, dev), kv_rand((B, KVH, hd), torch.bfloat16, dev),
+          torch.randint(0, S, (B,), dtype=torch.int32, device=dev))
+    kl = torch.full((B,), S, dtype=torch.int32, device=dev)
+    q4 = q.reshape(B, KVH * M, 1, hd).bfloat16()
+
+    def sdpa(i):  # the same rows held densely: the gather excluded
+        return F.scaled_dot_product_attention(q4, kc[i % L], vc[i % L], enable_gqa=True)
+    nbytes = 2 * B * KVH * S * hd * 2 + 2 * B * KVH * hd * 2 + 8 * B * KVH * M * hd
+    b, by = bound_ms(nbytes, 4 * B * KVH * M * S * hd, gbps)
+    want = ha.decode_attention(q, kc, vc, kl, L - 1, fr)
+    e = max_err(want, ha.decode_attention_plain(q, kc, vc, kl, L - 1, fr))
+    t = timings(lambda i: ha.decode_attention(q, kc, vc, kl, i % L, fr),
+                lambda i: ha.decode_attention_plain(q, kc, vc, kl, i % L, fr), sdpa)
+    log(f"# K12 decode_attention fresh bf16 KV B=8 kv_len {S} (KVH=8, M=4, hd=128): "
+        f"max_abs_err {e:.3e} (tol {TOL_DA:g}); {ms_line(t)} (bf16 SDPA) bound_ms "
+        f"{b:.4f} ({by}, {nbytes / 1e6:.1f} MB); {share(t, b)}")
+    gen = torch.Generator().manual_seed(3)
+    for PR in (512, 64):
+        nb = S // PR
+        order = torch.randperm(B * nb, generator=gen).reshape(B, nb).to(torch.int32).to(dev)
+        kp, vp = to_pages(kc, PR, order), to_pages(vc, PR, order)
+        got = ha.decode_attention(q, kp, vp, kl, L - 1, fr, pt=order)
+        e = max_err(got, ha.decode_attention_plain(q, kp, vp, kl, L - 1, fr, pt=order))
+        if not e <= TOL_DA or not torch.equal(got, want):
+            fail(f"decode_attention paged PR={PR}: {e:.3e} against the plain version, "
+                 f"or not equal to dense mode on the same rows")
+        t = timings(lambda i: ha.decode_attention(q, kp, vp, kl, i % L, fr, pt=order),
+                    lambda i: ha.decode_attention_plain(q, kp, vp, kl, i % L, fr, pt=order),
+                    sdpa)
+        log(f"# K12 decode_attention paged+fresh bf16 KV B=8 kv_len {S} PR={PR} "
+            f"(scrambled table): max_abs_err {e:.3e} (tol {TOL_DA:g}), equal to dense "
+            f"mode; {ms_line(t)} (bf16 SDPA on the rows held densely, gather excluded) "
+            f"bound_ms {b:.4f} ({by}); {share(t, b)}")
+        if PR == 512:
+            rows["decode_attention_paged"] = dict(t, bound_ms=b, bound_by=by, max_abs_err=e)
+        del kp, vp
+    del kc, vc
+
+    # K9 one layer and K2 at the lm-head, fp8, 8 rows
+    H, V = HID, 32000
+    ws = [rand_w(sh, "fp8", dev) for sh in ((2, D, Q), (2, H, D), (2, H, D), (2, D, H),
+                                            (2, Q, D), (2, KV, D), (2, KV, D))]
+    g = 1 + 0.1 * torch.randn(2, D, device=dev)
+    anx = 1 + 0.1 * torch.randn(2, D, device=dev)
+    a, r = torch.randn(B, Q, device=dev), torch.randn(B, D, device=dev)
+    e = check("qx_offn_qkv fp8 B=8", hq.qx_offn_qkv(a, r, g, anx, *ws, 1, "fp8", False,
+                                                    1e-5, False),
+              hq.qx_offn_qkv_plain(a, r, g, anx, *ws, 1, "fp8", False, 1e-5, False), TOL_MV)
+    wb = [dequant(QTensor(w, "fp8"), torch.bfloat16) for w in ws]
+    t = timings(lambda i: hq.qx_offn_qkv(a, r, g, anx, *ws, i % 2, "fp8", False, 1e-5, False),
+                lambda i: hq.qx_offn_qkv_plain(a, r, g, anx, *ws, i % 2, "fp8", False, 1e-5,
+                                               False),
+                epilogue_chain(a, r, g, anx, wb, 2))
+    n_w = D * Q + 3 * H * D + (Q + 2 * KV) * D
+    b, by = bound_ms(n_w + 4 * B * (3 * D + 2 * Q + 2 * KV), 2 * B * n_w, gbps)
+    log(f"# K9 qx_offn_qkv fp8 one layer B=8: max_abs_err {e:.3e} (tol {TOL_MV:g} x "
+        f"max|out|); {ms_line(t)} (7 bf16 matmuls) bound_ms {b:.4f} ({by}); {share(t, b)}")
+    del ws, wb
+    w = rand_w((1, V, D), "fp8", dev)
+    x = torch.randn(B, D, device=dev)
+    e = check("qmm_decode fp8 lm-head B=8", hq.qmm_decode(x, w, "fp8", 0),
+              hq.qmm_decode_plain(x, w, "fp8", 0), TOL_MV)
+    wb = dequant(QTensor(w, "fp8"), torch.bfloat16)
+    t = timings(lambda i: hq.qmm_decode(x, w, "fp8", 0),
+                lambda i: hq.qmm_decode_plain(x, w, "fp8", 0),
+                lambda i: torch.matmul(x.bfloat16(), wb[0].T))
+    b, by = bound_ms(V * D + 4 * B * (D + V), 2 * B * V * D, gbps)
+    log(f"# K2 qmm_decode fp8 lm-head {V}x{D} B=8: max_abs_err {e:.3e} (tol {TOL_MV:g} x "
+        f"max|y|); {ms_line(t)} (bf16 matmul) bound_ms {b:.4f} ({by}); {share(t, b)}")
+    del w, wb
+    torch.cuda.empty_cache()
+    return rows
+
+
+def ragged_checks_paged(dev):
+    """K12 paged on shapes the serving row does not reach: pages of 16, 64
+    and 512 rows, 1, 3 and 16 slots, kv_len off a page boundary, the stale
+    row inside a page, dead entries at a parking page filled with large
+    values (a read of it would show), head_dim 64 with 16 query rows per kv
+    head, every cache dtype, plain and fresh mode; K13 on slots 3 and 3-4
+    of a 5-slot cache."""
+    from calm_tpu_torch.ops import hopper_attn as ha
+
+    worst, n = 0.0, 0
+    L, S = 2, 1024
+    gen = torch.Generator().manual_seed(5)
+    for kvd in (torch.float16, torch.bfloat16, torch.float8_e5m2):
+        for hd, M in ((64, 16), (128, 4)):
+            for PR in (16, 64, 512):
+                for B in (1, 3, 16):
+                    KVH, nb = 2, S // PR
+                    parking = B * nb
+                    kq = kv_rand((L, parking + 1, KVH, PR, hd), kvd, dev)
+                    vq = kv_rand((L, parking + 1, KVH, PR, hd), kvd, dev)
+                    kq[:, parking] = torch.full_like(kq[:, parking], 3e4, dtype=torch.float32)
+                    vq[:, parking] = torch.full_like(vq[:, parking], 3e4, dtype=torch.float32)
+                    order = torch.randperm(parking, generator=gen).reshape(B, nb)
+                    kl = torch.randint(1, S + 1, (B,), generator=gen)
+                    kl[0] = PR - 5                  # slot 0: one block, the rest dead
+                    order[0, 1:] = parking
+                    kp = (torch.rand(B, generator=gen) * kl).to(torch.int32).to(dev)
+                    kl = kl.to(torch.int32).to(dev)
+                    pt = order.to(torch.int32).to(dev)
+                    q = torch.randn(B, KVH * M, hd, device=dev)
+                    fr = (kv_rand((B, KVH, hd), kvd, dev), kv_rand((B, KVH, hd), kvd, dev), kp)
+                    for fresh in (None, fr):
+                        e = max_err(ha.decode_attention(q, kq, vq, kl, 1, fresh, pt=pt),
+                                    ha.decode_attention_plain(q, kq, vq, kl, 1, fresh, pt=pt))
+                        if not e <= TOL_DA:
+                            fail(f"decode_attention paged {kvd} hd={hd} PR={PR} B={B} "
+                                 f"fresh={fresh is not None}: {e:.3e} > {TOL_DA}")
+                        worst, n = max(worst, e), n + 1
+    e13 = 0.0
+    for B in (1, 2):
+        kc = kv_rand((2, 5, 2, 512, 128), torch.bfloat16, dev)
+        vc = kv_rand((2, 5, 2, 512, 128), torch.bfloat16, dev)
+        q = torch.randn(B, 37, 2, 4, 128, device=dev)
+        p0 = torch.tensor([100, 7][:B], dtype=torch.int32, device=dev)
+        e13 = max(e13, check(f"prefill_attention batch_off 3 of 5, B={B}",
+                             ha.prefill_attention(q, kc, vc, p0, p0 + 37, 1, batch_off=3),
+                             ha.prefill_attention_plain(q, kc, vc, p0, p0 + 37, 1, 3),
+                             TOL_ATT))
+    torch.cuda.synchronize()
+    log(f"# ragged shapes (paged): {n} K12 paged checks, max_abs_err {worst:.3e} "
+        f"(tol {TOL_DA:g}); K13 from slot 3 of 5, max_abs_err {e13:.3e} "
+        f"(tol {TOL_ATT:g} x max|out|)")
 
 
 def epilogue_chain(a, r, g, anx, wb, L):
@@ -673,25 +843,29 @@ TOL_PREFILL = 1e-2  # logits after a prefill, rel. to max |logit|: activations,
 
 
 def counters():
+    """kernel name -> (wrapper, the attribute that counts its launches)."""
     from calm_tpu_torch.ops import hopper_attn as ha
     from calm_tpu_torch.ops import hopper_qmm as hq
-    return {"qmm_decode": hq.qmm_decode, "qx_offn_qkv": hq.qx_offn_qkv,
-            "decode_attention": ha.decode_attention,
-            "prefill_attention": ha.prefill_attention,
-            "qmm_decode_gf4": hq.qmm_decode_gf4, "qmm_prefill": hq.qmm_prefill,
-            "qmm_prefill_w2": hq.qmm_prefill_w2, "gf4_offn_qkv": hq.gf4_offn_qkv,
-            "qmm_moe_dense": hq.qmm_moe_dense, "gf4_moe_ffn": hq.gf4_moe_ffn}
+    fns = {"qmm_decode": hq.qmm_decode, "qx_offn_qkv": hq.qx_offn_qkv,
+           "decode_attention": ha.decode_attention,
+           "prefill_attention": ha.prefill_attention,
+           "qmm_decode_gf4": hq.qmm_decode_gf4, "qmm_prefill": hq.qmm_prefill,
+           "qmm_prefill_w2": hq.qmm_prefill_w2, "gf4_offn_qkv": hq.gf4_offn_qkv,
+           "qmm_moe_dense": hq.qmm_moe_dense, "gf4_moe_ffn": hq.gf4_moe_ffn}
+    out = {k: (f, "launches") for k, f in fns.items()}
+    out["decode_attention_paged"] = (ha.decode_attention, "paged_launches")
+    return out
 
 
 def drive(run):
     """``run()`` with every launch count set to 0 just before it; returns
     its result and the counts read just after."""
     fns = counters()
-    for f in fns.values():
-        f.launches = 0
+    for f, attr in fns.values():
+        setattr(f, attr, 0)
     out = run()
     torch.cuda.synchronize()
-    return out, {k: f.launches for k, f in fns.items()}
+    return out, {k: getattr(f, attr) for k, (f, attr) in fns.items()}
 
 
 def cli(path, args, stdin_path=os.devnull):
@@ -765,10 +939,12 @@ def container_phase(fmt, dev, experts: int = 0):
         user_path = os.path.join(tmp, "user.txt")  # one user line, then EOF
         with open(user_path, "w") as f:
             f.write("hello there\n")
-        # the CLI runs on the card beside the checks below
+        # the CLI and the HTTP server run on the card beside the checks below
         procs = [cli(path, ["-t", "0", "-n", "16", "-i", "hello"]),
                  cli(path, ["-x", text_path]),
                  cli(path, ["-y", "be brief", "-n", "24", "-s", "7"], user_path)]
+        http_args = ["--page-rows", "16"] if fmt == "gf4" else []
+        httpd = httpd_proc(path, http_args)
         eng = Engine(path)
         log(eng.banner())
         if experts:  # routing builds the expert slots on the device
@@ -861,8 +1037,199 @@ def container_phase(fmt, dev, experts: int = 0):
                 fail(f"{what} cli -y printed no reply: {out[-1000:]}")
             else:
                 log(f"# {what} cli -y: {len(out)} characters, exit 0")
+        t_serve = time.perf_counter()
+        serving_checks(path, what, cpu, full=not experts)
+        http_check(httpd, what + (" paged" if http_args else ""))
+        log(f"# {what}: container phase {time.perf_counter() - t0:.1f} s, of it serving "
+            f"{time.perf_counter() - t_serve:.1f} s")
         del eng, cpu
     return counts, tokens
+
+# Serving: requests of 5-150 tokens, greedy and host-sampled (the
+# per-request xorshift stream makes card and CPU draws comparable); two of
+# them share a 64-token prefix, the second admitted after the first
+SHARED = "A system prompt that several requests share, sixty-three bytes."
+SERVE_REQUESTS = [  # (prompt, max_tokens, temperature, seed)
+    (SHARED + " Q1", 8, 0.0, 1),
+    ("Hi all", 10, 0.8, 5),
+    (PROMPT_LONG, 12, 0.0, 1),
+    ("The quick brown fox", 9, 0.0, 1),
+    (SHARED + " And a second question", 11, 0.0, 1),
+    ("Pack my box with five dozen liquor jugs", 8, 1.0, 9),
+]
+
+
+def serve_recorded(srv, reqs):
+    """Submit ``reqs`` at once and drain; returns the requests and the
+    logits each one sampled from, step by step (requests are admitted in
+    submission order, so the k-th sampler made serves request k)."""
+    from calm_tpu_torch import serve as S
+
+    made = []
+
+    class Recording(S.Sampler):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            self.seen = []
+            made.append(self)
+
+        def sample(self, logits):
+            self.seen.append(np.array(logits, np.float32))
+            return super().sample(logits)
+
+    real, S.Sampler = S.Sampler, Recording
+    try:
+        out = [srv.submit(p, max_tokens=n, temperature=t, seed=sd)
+               for p, n, t, sd in reqs]
+        srv.run_until_drained(max_ticks=2000)
+    finally:
+        S.Sampler = real
+    if not all(r.done for r in out) or len(made) != len(out):
+        fail("a served request did not finish")
+    return out, [m.seen for m in made]
+
+
+def same_served(what, got, want, temperature, lg, lc, tol) -> str:
+    """A request's ids ``got`` against the reference server's ``want``:
+    equal, or equal up to a step where both servers' logits (``lg``,
+    ``lc``, one array a step) agree within ``tol`` of their scale, so the
+    draw (or greedy pick) fell on a near-tie that the operands' rounding
+    may decide either way."""
+    n = next((i for i, (g, c) in enumerate(zip(got, want)) if g != c), None)
+    if n is None:
+        if len(got) != len(want):
+            fail(f"{what}: ids {got} != reference {want}")
+        return "equal"
+    err = float(np.abs(lg[n] - lc[n]).max() / np.abs(lc[n]).max())
+    if err > tol:
+        fail(f"{what}: ids differ at {n} where the logits differ by {err:.3e} > {tol}")
+    if temperature == 0 and margin(lc[n]) > tol:
+        fail(f"{what}: greedy id {got[n]} != reference {want[n]}, top-2 margin "
+             f"{margin(lc[n]):.3e} of scale > {tol}")
+    return f"differ from id {n} (logits {err:.1e} apart: a near-tie)"
+
+
+def serving_checks(path, what, cpu, full=True):
+    """``Server`` on the card, dense, paged (16-row pages, a pool of half
+    the dense rows) and dense with the prefix cache (``full``; else dense
+    and paged on the first two requests, greedy, 8 tokens each), each held
+    to a CPU server on the same requests. The CPU server runs on ``cpu``'s
+    weights with a slot for each request: a request's ids do not depend on
+    the slot count, and the CPU's ticks, each a pass over all weights, are
+    fewest so."""
+    from calm_tpu_torch import model as M
+    from calm_tpu_torch.engine import Engine
+    from calm_tpu_torch.serve import Server
+
+    reqs = SERVE_REQUESTS if full else [(p, 8, 0.0, s) for p, _, _, s in SERVE_REQUESTS[:2]]
+    t0 = time.perf_counter()
+    ref = Engine.from_weights(cpu.cfg, cpu.weights, cpu.tokenizer, n_bytes=cpu.n_bytes,
+                              n_params=cpu.n_params, n_bandwidth=cpu.n_bandwidth,
+                              batch=len(reqs), device="cpu")
+    want, lcs = serve_recorded(Server(batch=len(reqs), engine=ref), reqs)
+    log(f"# {what} serve: CPU server ({len(reqs)} slots) "
+        f"{time.perf_counter() - t0:.1f} s, {sum(r.n_generated for r in want)} tokens")
+    del ref
+    rows = 4 * 4096 // 2 // 16
+    modes = {"dense": {}, "paged": dict(page_rows=16, pool_pages=rows)}
+    if full:
+        modes["prefix"] = dict(prefix_cache_tokens=4096)
+    for mode, kw in modes.items():
+        srv = Server(path, batch=4, **kw)
+        if mode == "paged":  # one tick: K12 in paged mode on every layer
+            srv.submit("Hi", max_tokens=1)
+            _, one = drive(srv.tick)
+            if one["decode_attention_paged"] != srv.engine.cfg.n_layers:
+                fail(f"{what}: a paged tick launched K12 paged "
+                     f"{one['decode_attention_paged']} times")
+            (got, lgs), counts = drive(lambda: serve_recorded(srv, reqs))
+        else:
+            got, lgs = serve_recorded(srv, reqs)
+        res = [same_served(f"{what} serve {mode} request {i}", g.ids, w.ids,
+                           w.temperature, lg, lc, TOL_PREFILL)
+               for i, (g, w, lg, lc) in enumerate(zip(got, want, lgs, lcs))]
+        extra = ""
+        if mode == "prefix":
+            hit = got[4].cached_prefix
+            if hit != 64 or srv.prefix_cache.hits != 1:
+                fail(f"{what}: the shared prefix was not served from the cache "
+                     f"({hit} rows, {srv.prefix_cache.hits} hits)")
+            extra = f", request 4 took {hit} prefix rows from the cache"
+        if mode == "paged":
+            extra = (f", pages in use after {srv._paged.pages_in_use()}, "
+                     f"K12 paged launches {counts['decode_attention_paged']}")
+        log(f"# {what} serve {mode} vs CPU: " + "; ".join(
+            f"{i} {r}" for i, r in enumerate(res)) + extra)
+        if mode == "paged":  # a step makes no host sync before its logits
+            dec, cfg = srv._paged, srv.engine.cfg
+            pt = dec.page_table()
+            toks = [s.token for s in dec.slots]
+            pos = [5, 900, 4095 + 7, 30]  # one slot past the window
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                M.paged_decode_step(cfg, srv.engine.weights, toks, pos, dec.pool, pt)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            log(f"# {what}: a paged decode step of 4 slots at positions {pos} ran "
+                "with no host sync")
+        del srv
+
+
+def httpd_proc(path, args):
+    """``python -m calm_tpu_torch.httpd`` on the card, on a free port."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "calm_tpu_torch.httpd", path, "--port", "0",
+         "--batch", "4", "--access-log"] + args, cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+
+
+def same_stream(streamed: str, text: str) -> bool:
+    """A streamed text against the whole one: pieces are decoded one at a
+    time, so a character split over two byte tokens streams as U+FFFD;
+    every other streamed character appears in the text, in order."""
+    it = iter(text)
+    return bool(streamed) and all(c in it for c in streamed if c != "\ufffd")
+
+
+def http_check(proc, what):
+    """Health, a streamed and a plain greedy generate (the same text),
+    stats, then SIGTERM: the server drains and exits 0."""
+    banner = proc.stdout.readline()
+    line = proc.stdout.readline()
+    m = re.search(r"http://[\d.]+:(\d+)", line)
+    if not m:
+        proc.kill()
+        fail(f"{what} httpd did not start: {banner!r} {line!r} {proc.stderr.read()[-2000:]}")
+    base = f"http://127.0.0.1:{m.group(1)}"
+
+    def post(obj):
+        r = urllib.request.Request(f"{base}/v1/generate", data=json.dumps(obj).encode(),
+                                   headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(r, timeout=300) as f:
+            return f.read().decode()
+
+    with urllib.request.urlopen(f"{base}/v1/health", timeout=60) as f:
+        health = json.load(f)
+    body = {"prompt": "The quick brown fox", "max_tokens": 8, "temperature": 0.0}
+    plain = json.loads(post(body))
+    streamed = post(dict(body, stream=True))
+    with urllib.request.urlopen(f"{base}/v1/stats", timeout=60) as f:
+        stats = json.load(f)
+    proc.send_signal(signal.SIGTERM)
+    try:
+        out, errs = proc.communicate(timeout=120)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        fail(f"{what} httpd did not drain on SIGTERM")
+    if (health.get("status") != "ok" or not same_stream(streamed, plain["text"])
+            or proc.returncode != 0
+            or "# drained" not in errs or plain["tokens"] < 1):
+        fail(f"{what} httpd: health {health}, plain {plain}, streamed {streamed!r}, "
+             f"exit {proc.returncode}, stderr {errs[-2000:]}")
+    log(f"# {what} httpd on port {m.group(1)}: health ok, generate {plain['tokens']} "
+        f"tokens (streamed the same text), ttft {plain['ttft_ms']} ms; stats "
+        f"{json.dumps(stats)}; SIGTERM drained, exit 0")
 
 
 def profile_tokens(run, n_tok: int, ms_tok: float, label: str):
@@ -883,17 +1250,19 @@ def profile_tokens(run, n_tok: int, ms_tok: float, label: str):
 
 def full_width_phase(fmt, dev, gbps, smi, experts: int = 0):
     """32-layer Mistral-7B pattern weights, or with ``experts`` Mixtral
-    8x7B (rope_theta 1e6) with seeded random weights, so that tokens spread
-    over the experts as a real prompt's do (the pattern would send every
-    token to experts 0 and 1): a 2048-token prefill (median of 3), then
-    bench.py's decode protocol (first32 / last32 at ctx 4096)."""
+    8x7B (rope_theta 1e6) cut to 16 of its 32 layers (the serving phases
+    need the script's time) with seeded random weights, so that tokens
+    spread over the experts as a real prompt's do (the pattern would send
+    every token to experts 0 and 1): a 2048-token prefill (median of 3),
+    then bench.py's decode protocol (first32 / last32 at ctx 4096)."""
     from calm_tpu_torch import model as M
     from calm_tpu_torch.config import ModelConfig
     from calm_tpu_torch.engine import kv_cache_bytes
     from calm_tpu_torch.utils.synth import synth_weights, weight_bytes
 
     ctx, steps, T = 4096, 32, 2048
-    moe = dict(n_experts=experts, n_experts_ac=2, rope_theta=1e6) if experts else {}
+    moe = (dict(n_experts=experts, n_experts_ac=2, rope_theta=1e6, n_layers=16)
+           if experts else {})
     cfg = ModelConfig(**{**MISTRAL, "rope_theta": 10000.0, **moe}, seq_len=ctx,
                       rotary_dim=128, norm_ln=False, dtype=fmt)
     what = f"{fmt} mixtral{experts}x7b" if experts else f"{fmt} mistral7b"
@@ -901,7 +1270,7 @@ def full_width_phase(fmt, dev, gbps, smi, experts: int = 0):
     w = synth_weights(cfg, seed=0, device=dev, random=bool(experts))
     torch.cuda.synchronize()
     total, bw = weight_bytes(cfg)
-    log(f"# {what}: 32 layers, {total / 2**30:.2f} GiB "
+    log(f"# {what}: {cfg.n_layers} layers, {total / 2**30:.2f} GiB "
         f"{'random' if experts else 'pattern'} weights in "
         f"{time.perf_counter() - t0:.1f} s; bf16 KV, ctx {ctx}")
     cache = M.KVCache.create(cfg, 1, torch.bfloat16, dev)
@@ -981,6 +1350,146 @@ def full_width_phase(fmt, dev, gbps, smi, experts: int = 0):
     torch.cuda.empty_cache()
 
 
+def full_width_serving_phase(dev, gbps, smi):
+    """32-layer Mistral-7B fp8 with seeded random weights built in memory,
+    bf16 KV, ctx 4096, 8 slots: 16 requests of seeded random bytes (one
+    token a byte) of 128-1024 tokens, 64 greedy tokens each, submitted at
+    once and drained, dense and then paged (512-row pages, a pool of half
+    the dense rows); 3 drains each. Returns the launch counts of a paged
+    drain."""
+    from calm_tpu_torch import model as M
+    from calm_tpu_torch.config import ModelConfig
+    from calm_tpu_torch.engine import Engine, kv_cache_bytes
+    from calm_tpu_torch.serve import Server
+    from calm_tpu_torch.tokenizer import Tokenizer
+    from calm_tpu_torch.utils.synth import byte_vocab, synth_weights, weight_bytes
+
+    ctx, B, n_req, n_gen = 4096, 8, 16, 64
+    cfg = ModelConfig(**MISTRAL, rope_theta=10000.0, seq_len=ctx, rotary_dim=128,
+                      norm_ln=False, dtype="fp8", bos_token_id=1, eos_token_id=2)
+    t0 = time.perf_counter()
+    w = synth_weights(cfg, seed=0, device=dev, random=True)
+    total, bw = weight_bytes(cfg)
+    tokenizer = Tokenizer.from_tensors(*byte_vocab(cfg.vocab_size), 1, 2, cfg.vocab_size)
+    rng = np.random.default_rng(0)
+    prompts = ["".join(chr(c) for c in rng.integers(97, 123, n))
+               for n in rng.integers(128, 1025, n_req)]
+    log(f"# serve fp8 mistral7b: 32 layers, {total / 2**30:.2f} GiB random weights in "
+        f"{time.perf_counter() - t0:.1f} s; bf16 KV, ctx {ctx}, {B} slots, {n_req} "
+        f"requests of {min(map(len, prompts)) + 1}-{max(map(len, prompts)) + 1} "
+        f"tokens, {n_gen} greedy tokens each")
+
+    def engine():
+        return Engine.from_weights(cfg, w, tokenizer, n_bytes=total, n_params=0,
+                                   n_bandwidth=bw, batch=B, device=dev)
+
+    def drain(srv):
+        ticks = []
+        real = srv.tick
+
+        def tick():
+            free = sum(not s.active for s in srv.slots)
+            admits = min(free, len(srv.pending))
+            kv = sum(kv_cache_bytes(cfg, 16, s.pos) for s in srv.slots if s.active)
+            t = time.perf_counter()
+            real()
+            ticks.append((time.perf_counter() - t, admits, kv))
+        srv.tick = tick
+        reqs = [srv.submit(p, max_tokens=n_gen, temperature=0.0) for p in prompts]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        srv.run_until_drained()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        srv.tick = real
+        if not all(r.done for r in reqs):
+            fail("serve: a request did not finish")
+        return reqs, wall, ticks
+
+    out, ids, seen = {}, {}, {}
+    paged_counts = None
+    for mode, kw in (("dense", {}), ("paged", dict(page_rows=512, pool_pages=32))):
+        srv = Server(batch=B, engine=engine(), **kw)
+        # a first drain, warm, keeps each request's ids and logits
+        reqs, seen[mode] = serve_recorded(srv, [(p, n_gen, 0.0, 1) for p in prompts])
+        ids[mode] = [r.ids for r in reqs]
+        runs = []
+        for _ in range(3):
+            if mode == "paged" and paged_counts is None:
+                (reqs, wall, ticks), paged_counts = drive(lambda: drain(srv))
+            else:
+                reqs, wall, ticks = drain(srv)
+            runs.append((wall, reqs, ticks))
+        walls = [r[0] for r in runs]
+        n_tok = sum(r.n_generated for r in runs[0][1])
+        dec = [t for r in runs for t in r[2] if t[1] == 0]  # decode-only ticks
+        tick_ms = [1e3 * statistics.median(t[0] for t in r[2] if t[1] == 0) for r in runs]
+        med = statistics.median(tick_ms)
+        gbs = statistics.median((bw + kv) / dt / 1e9 for dt, _, kv in dec)
+        ttft = sorted(1e3 * (r.first_token_at - r.submitted_at) for r in runs[0][1])
+        # busy share: device time of 10 decode ticks against their unprofiled time
+        for p in prompts[:B]:
+            srv.submit(p, max_tokens=n_gen, temperature=0.0)
+        srv.tick()  # admits all eight
+        rows = kernel_rows(lambda: [srv.tick() for _ in range(10)])
+        srv.run_until_drained()
+        dev_ms = sum(r[0] for r in rows) / 1e3 / 10 if rows else None
+        busy = "not measured" if dev_ms is None else (
+            f"device {dev_ms:.3f} ms/tick = busy {100 * dev_ms / med:.1f}%; " + "; ".join(
+                f"{name} {us / 1e4:.3f} ms x{cnt / 10:g}" for us, cnt, name in rows[:6]))
+        wall = statistics.median(walls)
+        out[mode] = dict(wall_s=wall, tok_s=n_tok / wall, tick_ms=med,
+                         tick_spread_pct=100 * (max(tick_ms) - min(tick_ms)) / med,
+                         ttft_p50_ms=statistics.median(ttft), ttft_max_ms=ttft[-1],
+                         gb_s=gbs, busy_pct=None if dev_ms is None else 100 * dev_ms / med)
+        log(f"# serve fp8 mistral7b {mode}: drain {wall:.3f} s (median of 3, "
+            f"{min(walls):.3f}-{max(walls):.3f}), {n_tok} tokens, {n_tok / wall:.1f} tok/s "
+            f"over {B} slots; decode tick {med:.3f} ms (median of each run's median: "
+            f"{', '.join(f'{x:.3f}' for x in tick_ms)}; spread "
+            f"{out[mode]['tick_spread_pct']:.2f}%); TTFT p50 {statistics.median(ttft):.1f} ms, "
+            f"max {ttft[-1]:.1f} ms; {gbs:.1f} GB/s per decode tick (weights + live KV) = "
+            f"{100 * gbs / gbps:.2f}% of nominal; {busy} on {smi}")
+        del srv
+        torch.cuda.empty_cache()
+
+    # paged against dense: the same ids, and logits the same kernels give
+    split, worst = [], 0.0
+    for i, (a, b) in enumerate(zip(ids["paged"], ids["dense"])):
+        n = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), len(a))
+        for lg, lc in zip(seen["paged"][i][:n], seen["dense"][i][:n]):
+            worst = max(worst, float(np.abs(lg - lc).max() / np.abs(lc).max()))
+        if n < len(a) or len(a) != len(b):
+            split.append(f"{i}: " + same_served(f"serve paged request {i}", a, b, 0.0,
+                                                seen["paged"][i], seen["dense"][i], TOL_STEP))
+    if worst > TOL_STEP:
+        fail(f"serve: paged logits differ from dense by {worst:.3e} > {TOL_STEP}")
+    for i in (0, 7):  # and two requests against a single-stream run
+        toks = tokenizer.encode(prompts[i], bos=True)
+        cache = M.KVCache.create(cfg, 1, torch.bfloat16, dev)
+        M.prefill(cfg, w, torch.tensor([toks[:-1]], device=dev), [0], cache, "none")
+        st, _, lg = M.decode_loop(cfg, w, torch.tensor([toks[-1]], device=dev),
+                                  len(toks) - 1, cache, len(ids["dense"][i]))
+        want = st[0].tolist()
+        got = ids["dense"][i]
+        n = next((j for j, (x, y) in enumerate(zip(got, want)) if x != y), None)
+        if n is not None:
+            greedy_agrees(f"serve request {i} vs single stream, id {n}", got[n],
+                          lg[n, 0].float().cpu().numpy(), TOL_PREFILL)
+        log(f"# serve request {i} ({len(toks)} tokens) against prefill + decode_loop: "
+            + ("ids equal" if n is None else f"equal up to {n}, then a near-tie")
+            + f" ({len(set(got))} distinct of {len(got)}: {got[:8]}...)")
+        del cache
+    distinct = len({t for r in ids["dense"] for t in r})
+    if distinct < 2:
+        fail("serve: every request generated one id")
+    log(f"# serve fp8 mistral7b paged vs dense: {n_req - len(split)} of {n_req} requests "
+        f"with equal ids ({distinct} distinct ids in all), their logits within {worst:.3e} "
+        f"of scale (tol {TOL_STEP:g}); split: {split or 'none'}; " + json.dumps(out))
+    del w
+    torch.cuda.empty_cache()
+    return paged_counts
+
+
 def ptxas_summary(build) -> str:
     """Registers and spills of each library's kernels, from nvcc -Xptxas -v."""
     out = []
@@ -1022,7 +1531,7 @@ def main():
     log(f"# kernel phase done at {time.perf_counter() - t_start:.1f} s")
     # each kernel's launches come from the main path that uses it: the fp8
     # decode path (K2, K9, K12), the gf4 prefill + decode path (K3, K4, K5,
-    # K8, K13)
+    # K8, K13); each container is then served (Server, httpd)
     counts8, tok8 = container_phase("fp8", dev)
     counts4, tok4 = container_phase("gf4", dev)
     # and the MoE paths: fp8 decode (K10), gf4 decode (K11)
@@ -1034,6 +1543,9 @@ def main():
             full_width_phase(fmt, dev, gbps, smi, experts)
             log(f"# full-width {fmt} {experts} experts done at "
                 f"{time.perf_counter() - t_start:.1f} s")
+    # the paged serving path: K12 in paged mode
+    counts_pg = full_width_serving_phase(dev, gbps, smi)
+    log(f"# full-width serving done at {time.perf_counter() - t_start:.1f} s")
 
     sources = {"qmm_decode": ("calm_tpu_torch/csrc/qmm.cu",
                               "calm_tpu/ops/pallas_qmm.py:92", counts8),
@@ -1041,6 +1553,8 @@ def main():
                                "calm_tpu/ops/pallas_qmm.py:942", counts8),
                "decode_attention": ("calm_tpu_torch/csrc/attn.cu",
                                     "calm_tpu/ops/pallas_attn.py:77", counts8),
+               "decode_attention_paged": ("calm_tpu_torch/csrc/attn.cu",
+                                          "calm_tpu/ops/pallas_attn.py:77", counts_pg),
                "prefill_attention": ("calm_tpu_torch/csrc/attn.cu",
                                      "calm_tpu/ops/pallas_attn.py:326", counts4),
                "qmm_decode_gf4": ("calm_tpu_torch/csrc/gf4.cu",
