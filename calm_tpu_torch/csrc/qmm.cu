@@ -1,7 +1,7 @@
 // Dequantizing matvecs over layer-stacked fp8-e5m2 / fp16 weights and
 // natural gf4 words, for decode (B <= 16 activation rows).
 //
-// Replaces three Pallas kernels of calm_tpu/ops/pallas_qmm.py:
+// Replaces five Pallas kernels of calm_tpu/ops/pallas_qmm.py:
 //   - _layered_qmm_kernel (:92, via qmm_decode :219): y = x . W[layer]^T
 //     -> calm_qmm_decode below;
 //   - _qx_offn_qkv_kernel (:942, via qx_offn_qkv :1198): one layer's
@@ -10,7 +10,21 @@
 //     launches from this file with no torch op between them;
 //   - _gf4_offn_qkv_kernel (:737, via gf4_offn_qkv :927): the same
 //     epilogue on gf4 weights, which the TPU reads in plane-permuted
-//     layouts for Mosaic -> calm_qx_offn_qkv with fmt 2 on natural words.
+//     layouts for Mosaic -> calm_qx_offn_qkv with fmt 2 on natural words;
+//   - _gf4_ffn_kernel (:464, via gf4_ffn :571): the gf4 FFN alone, w2 .
+//     (act(w1 . x) * (w3 . x)), which parallel-norm (Cohere) decode runs
+//     on the attn-normed input -> calm_gf4_ffn below: the epilogue's dual
+//     w1/w3 launch, then its w2 launch with no residual. The TPU kernel
+//     reads plane-major w1/w3 and word-transposed w2 so that h needs no
+//     lane shuffle; natural words need none here;
+//   - _gf4_offn_kernel (:601, via gf4_offn :729): wo + residual, ffn-norm
+//     and the FFN, returning ffn and r1 apart (the CALM_ROT=0 decode) ->
+//     calm_gf4_offn below: the epilogue's first four launches with no
+//     residual in the w2 launch. The TPU kernel runs on a plane-permuted
+//     residual stream, Mosaic's layout; the port keeps natural order.
+//
+// K6 and K7 are bound like the epilogue: by their weight bytes (3 H D / 2,
+// plus Q D / 2 for K7's wo), and they are made of its launches.
 //
 // What bounds it on an H100: the weight bytes. At B=1 a matvec does
 // 2 flops per weight byte (fp8), below the ~20 flop/byte where the card's
@@ -336,6 +350,35 @@ Args args(const void* x, int B, int n) {
   return a;
 }
 
+// h = act(x . w1^T) * (x . w3^T), then out = [resid +] h . w2^T: two
+// launches; x (B, D), h (B, H) scratch, out and resid (B, D).
+cudaError_t ffn(int fmt, const void* x, const void* w1, const void* w3,
+                const void* w2, void* h, void* out, const void* resid, int B,
+                int D, int H, int act_gelu, cudaStream_t st) {
+  Args s2 = args(x, B, D);
+  s2.seg[0] = seg(w1, w3, h, nullptr, H, H);
+  cudaError_t e = act_gelu ? launch_fmt<2>(fmt, s2, st) : launch_fmt<1>(fmt, s2, st);
+  if (e != cudaSuccess) return e;
+  Args s3 = args(h, B, H);
+  s3.seg[0] = seg(w2, nullptr, out, resid, D, D);
+  return launch_fmt<0>(fmt, s3, st);
+}
+
+// r1 = r + a . wo^T, xn = ffn-norm(r1), then ffn() of xn into out with
+// [resid +]: the epilogue's stages before the next layer's q/k/v.
+cudaError_t offn(int fmt, const void* a, const void* r, const void* g,
+                 const void* wo, const void* w1, const void* w3, const void* w2,
+                 void* r1, void* xn, void* h, void* out, const void* resid,
+                 int B, int D, int H, int Qd, int act_gelu, float eps,
+                 int sub_mean, cudaStream_t st) {
+  Args s1 = args(a, B, Qd);
+  s1.seg[0] = seg(wo, nullptr, r1, r, D, D);
+  cudaError_t e = launch_fmt<0>(fmt, s1, st);
+  if (e != cudaSuccess) return e;
+  if ((e = launch_norm(r1, g, xn, B, D, eps, sub_mean, st)) != cudaSuccess) return e;
+  return ffn(fmt, xn, w1, w3, w2, h, out, resid, B, D, H, act_gelu, st);
+}
+
 }  // namespace
 
 extern "C" {
@@ -363,23 +406,10 @@ int calm_qx_offn_qkv(const void* a, const void* r, const void* g,
                      int KVd, int fmt, int act_gelu, float eps, int sub_mean,
                      void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t e;
-
-  Args s1 = args(a, B, Qd);  // r1 = r + a . wo^T
-  s1.seg[0] = seg(wo, nullptr, r1, r, D, D);
-  if ((e = launch_fmt<0>(fmt, s1, st)) != cudaSuccess) return (int)e;
-
-  // h = act(xn . w1^T) * (xn . w3^T), xn = ffn-norm(r1)
-  if ((e = launch_norm(r1, g, xn, B, D, eps, sub_mean, st)) != cudaSuccess)
-    return (int)e;
-  Args s2 = args(xn, B, D);
-  s2.seg[0] = seg(w1, w3, h, nullptr, H, H);
-  e = act_gelu ? launch_fmt<2>(fmt, s2, st) : launch_fmt<1>(fmt, s2, st);
+  // x = r1 + ffn(ffn-norm(r1)), r1 = r + a . wo^T
+  cudaError_t e = offn(fmt, a, r, g, wo, w1, w3, w2, r1, xn, h, x, r1, B, D, H,
+                       Qd, act_gelu, eps, sub_mean, st);
   if (e != cudaSuccess) return (int)e;
-
-  Args s3 = args(h, B, H);  // x = r1 + h . w2^T
-  s3.seg[0] = seg(w2, nullptr, x, r1, D, D);
-  if ((e = launch_fmt<0>(fmt, s3, st)) != cudaSuccess) return (int)e;
 
   // q/k/v of the next layer from xn = attn-norm(x)
   if ((e = launch_norm(x, anx, xn, B, D, eps, sub_mean, st)) != cudaSuccess)
@@ -392,6 +422,26 @@ int calm_qx_offn_qkv(const void* a, const void* r, const void* g,
   s4.seg[2] = seg(wv, nullptr, o + Qd + KVd, nullptr, KVd, ld);
   s4.nseg = 3;
   return (int)launch_fmt<0>(fmt, s4, st);
+}
+
+// K6: out (B, D) = w2 . (act(w1 . x) * (w3 . x)) on natural gf4 words at
+// the layer's planes: w1/w3 (H, D/8), w2 (D, H/8); h (B, H) scratch.
+int calm_gf4_ffn(const void* x, const void* w1, const void* w3, const void* w2,
+                 void* h, void* out, int B, int D, int H, int act_gelu,
+                 void* stream) {
+  return (int)ffn(2, x, w1, w3, w2, h, out, nullptr, B, D, H, act_gelu,
+                  (cudaStream_t)stream);
+}
+
+// K7: r1 (B, D) = r + a . wo^T and ffn (B, D) = the FFN of ffn-norm(r1),
+// apart, on natural gf4 words at the layer's planes (wo (D, Qd/8)); g is
+// the layer's ffn-norm row; xn (B, D) and h (B, H) scratch.
+int calm_gf4_offn(const void* a, const void* r, const void* g, const void* wo,
+                  const void* w1, const void* w3, const void* w2, void* r1,
+                  void* xn, void* h, void* ffn_out, int B, int D, int H, int Qd,
+                  int act_gelu, float eps, int sub_mean, void* stream) {
+  return (int)offn(2, a, r, g, wo, w1, w3, w2, r1, xn, h, ffn_out, nullptr, B,
+                   D, H, Qd, act_gelu, eps, sub_mean, (cudaStream_t)stream);
 }
 
 const char* calm_qmm_error_string(int e) {

@@ -4,7 +4,8 @@
 - one .calm container gives the config, weights, tokenizer and sampler,
   with the reference's bandwidth/params accounting (src/run.c:131-152,
   523-532; MoE models count the active experts' share of the FFN bytes,
-  as ``calm_tpu/engine.py:125-128``) feeding the perf line
+  as ``calm_tpu/engine.py:125-128``; a parallel-norm (Cohere) container
+  holds no ffn-norm, so none is counted) feeding the perf line
   (src/run.c:249-253);
 - the prompt goes through batched ``prefill`` in chunks of
   ``PREFILL_CHUNK``; tokens past the window are stepped;

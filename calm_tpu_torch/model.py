@@ -25,9 +25,14 @@ The step's host ints (tokens, positions, window rows) reach the card in
 one non-blocking copy, so a step makes no host sync before its logits are
 read.
 
-Models whose dims are not 128-aligned, and MoE models (as
-``model.py:1228``), take the same step with per-op matvecs in place of
-the fused epilogue; a MoE layer's FFN is :func:`_moe_ffn`: the gate
+Models whose dims are not 128-aligned, MoE and parallel-norm (Cohere)
+models (as ``model.py:1228``), and fp8/fp16 models under ``CALM_ROT=0``
+take the same step with per-op matvecs in place of the fused epilogue;
+gf4 under ``CALM_ROT=0`` runs each layer's own q/k/v, then ``gf4_offn``
+(wo + residual, ffn-norm and the FFN). A parallel-norm layer feeds its
+FFN the attn-normed input (``gf4_ffn`` for gf4 at <= 16 rows) and adds wo
+and the FFN to the residual, as ``model.py:1119-1149``. A MoE layer's
+FFN is :func:`_moe_ffn`: the gate
 matvec, top-k routing, then at <= 16 rows the expert sweep over the
 layer's unique experts (``qmm_moe_dense`` three times, or ``gf4_moe_ffn``
 once for gf4), above it the rows grouped by expert through the product
@@ -39,14 +44,15 @@ and the FFN per op. On the card every product and the attention go
 through the Hopper kernels (products of more than 16 rows of fp8/fp16, or
 17..31 of gf4, through ``dense_matmul``; gf4's w2 product through
 ``qmm_prefill_w2``); on the CPU the wrappers run their plain versions.
-Parallel-norm archs and, on the card, fp8e4 weights belong to later
-slices and raise NotImplementedError.
+fp8e4 weights on the card belong to a later slice and raise
+NotImplementedError.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
 
 import numpy as np
 import torch
@@ -54,18 +60,25 @@ import torch
 from calm_tpu_torch.config import ModelConfig
 from calm_tpu_torch.container import TensorFile, to_torch
 from calm_tpu_torch.ops.hopper_attn import decode_attention, prefill_attention
-from calm_tpu_torch.ops.hopper_qmm import (MAX_ROWS, act, gf4_moe_ffn,
-                                           gf4_offn_qkv, gf4_offn_supported,
-                                           mm_supported, qmm_decode,
-                                           qmm_moe_dense, qmm_prefill,
-                                           qmm_prefill_w2, qx_offn_qkv,
-                                           qx_offn_supported)
+from calm_tpu_torch.ops.hopper_qmm import (MAX_ROWS, act, gf4_ffn,
+                                           gf4_ffn_supported, gf4_moe_ffn,
+                                           gf4_offn, gf4_offn_qkv,
+                                           gf4_offn_supported, mm_supported,
+                                           qmm_decode, qmm_moe_dense,
+                                           qmm_prefill, qmm_prefill_w2,
+                                           qx_offn_qkv, qx_offn_supported)
 from calm_tpu_torch.ops.norms import rmsnorm
 from calm_tpu_torch.ops.qmm import (STORAGE, QTensor, dense_matmul,
                                     embed_lookup, qmatmul)
 from calm_tpu_torch.ops.rope import apply_rope, rope_tables
 
 KV_SINKS = 2  # attention sinks kept live in the rolling window
+
+# The rotated epilogue (each layer's fused call projects the next layer's
+# q/k/v); CALM_ROT=0 turns it off, read once at import as
+# calm_tpu/model.py:1164 reads it: gf4 decode then runs gf4_offn (K7) and
+# the layer's own q/k/v, fp8/fp16 decode runs per op.
+ROTATED_DECODE = os.environ.get("CALM_ROT", "1") == "1"
 
 _TAGS = {"fp16": "F16", "fp8": "F8_E5M2", "fp8e4": "F8_E4M3", "gf4": "I32"}
 KV_DTYPES = {"bf16": torch.bfloat16, "fp16": torch.float16,
@@ -114,9 +127,6 @@ class KVCache:
 
 def check_supported(cfg: ModelConfig, device) -> None:
     """Raise NotImplementedError for configurations of later slices."""
-    if cfg.norm_par:
-        raise NotImplementedError(
-            "parallel attn+ffn norm (norm_par) is not ported yet")
     if torch.device(device).type == "cuda" and cfg.dtype == "fp8e4":
         raise NotImplementedError("fp8e4 weights on the GPU wait for the fp8e4 slice")
 
@@ -165,7 +175,11 @@ def load_weights(tf: TensorFile, cfg: ModelConfig, device="cpu") -> Weights:
 
     layers = LayerWeights(
         attn_norm=stack("model.layers.%d.attn.norm.weight", (D,), "F32"),
-        ffn_norm=stack("model.layers.%d.mlp.norm.weight", (D,), "F32"),
+        # parallel-norm archs (Cohere) have no ffn-norm: zeros, as
+        # calm_tpu/model.py:227-228
+        ffn_norm=(torch.zeros((L, D), dtype=torch.float32, device=device)
+                  if cfg.norm_par
+                  else stack("model.layers.%d.mlp.norm.weight", (D,), "F32")),
         wq=qstack("model.layers.%d.attn.wq.weight", (Q, D // gs)),
         wk=qstack("model.layers.%d.attn.wk.weight", (KV, D // gs)),
         wv=qstack("model.layers.%d.attn.wv.weight", (KV, D // gs)),
@@ -198,11 +212,18 @@ def weights_from_numpy(arrays: dict[str, np.ndarray], cfg: ModelConfig,
     under ``<path>.scale``; fp8 as uint8). A missing ``"output"`` ties it to
     the embedding; all-zero biases (the JAX default) are dropped.
 
-    The fused gf4 layouts that ``calm_tpu.engine.Engine`` holds for MoE
-    models (``fuse_gf4_weights``) are taken too and undone: the row-concat
-    ``"layers.wqkv"`` (L, Q + 2 KV, D/8) is split into wq/wk/wv, and the
-    plane-major ``"layers.w1pe"``/``"layers.w3pe"`` (L, E, 8, H/8, D/8),
-    ``[l, e, k, c] = w1[l, e, 8c + k]``, go back to natural (L, E, H, D/8)."""
+    The fused gf4 layouts that ``calm_tpu.engine.Engine`` holds
+    (``fuse_gf4_weights``, ``calm_tpu/model.py:343-397``) are taken too
+    and undone to natural words: the row-concat ``"layers.wqkv"`` (L, Q +
+    2 KV, D/8) is split into wq/wk/wv; the plane-major
+    ``"layers.w1p"``/``"layers.w3p"`` (L, 8, H/8, D/8), ``[l, k, c] =
+    w1[l, 8c + k]``, the MoE ``"layers.w1pe"``/``"layers.w3pe"`` (L, E, 8,
+    H/8, D/8) and the offn tier's ``"layers.wo_p"`` (L, 8, D/8, Q/8) go
+    back to rows in natural order; the word-transposed ``"layers.w2t"``
+    (L, H/8, D) and the offn tier's ``"layers.w2tp"`` (its columns
+    plane-permuted, ``[l, j, k D/8 + c] = w2t[l, j, 8c + k]``) go back to
+    (L, D, H/8). The offn tier's ``an_pl``/``fn_pl`` are permutations of
+    ``attn_norm``/``ffn_norm``, which the tree keeps beside them."""
     check_supported(cfg, device)
     fmt = cfg.dtype
 
@@ -215,14 +236,26 @@ def weights_from_numpy(arrays: dict[str, np.ndarray], cfg: ModelConfig,
     def t(key, dtype=None):
         return tensor(arrays[key], dtype)
 
+    def rows(p):  # plane-major rows (..., 8, d/8, n) -> natural (..., d, n)
+        p = np.asarray(p)
+        return np.swapaxes(p, -3, -2).reshape(*p.shape[:-3], 8 * p.shape[-2], p.shape[-1])
+
+    def natural(key):
+        for suffix in ("p", "pe", "_p"):
+            if key + suffix in arrays:
+                return rows(arrays[key + suffix])
+        if key + "tp" in arrays:  # w2tp: columns un-permuted give w2t
+            tp = np.asarray(arrays[key + "tp"])
+            L, gh, D = tp.shape
+            w2t = np.swapaxes(tp.reshape(L, gh, 8, D // 8), -2, -1).reshape(L, gh, D)
+            return np.swapaxes(w2t, 1, 2)
+        if key + "t" in arrays:
+            return np.swapaxes(np.asarray(arrays[key + "t"]), 1, 2)
+        return arrays[key]
+
     def q(key):
-        if key not in arrays and key + "pe" in arrays:  # plane-major experts
-            pe = np.asarray(arrays[key + "pe"])
-            L, E, _, gh, gd = pe.shape
-            return QTensor(tensor(pe.transpose(0, 1, 3, 2, 4).reshape(L, E, 8 * gh, gd),
-                                  STORAGE[fmt]), fmt)
         scale = t(key + ".scale", torch.float32) if key + ".scale" in arrays else None
-        return QTensor(t(key, STORAGE[fmt]), fmt, scale)
+        return QTensor(tensor(natural(key), STORAGE[fmt]), fmt, scale)
 
     if "layers.wq" not in arrays and "layers.wqkv" in arrays:  # row-concat
         wqkv = np.asarray(arrays["layers.wqkv"])
@@ -298,14 +331,27 @@ def _embed(embed: QTensor, tokens: torch.Tensor):
     return embed_lookup(tokens, embed)  # (B, D) f32
 
 
+def _shapes(cfg: ModelConfig, w: Weights):
+    return (cfg.dim, w.layers.w1.data.shape[1], cfg.q_dim, cfg.kv_dim)
+
+
 def _fused(cfg: ModelConfig, w: Weights, B: int) -> bool:
-    if cfg.n_experts:  # a MoE layer runs per op (calm_tpu/model.py:1228)
+    """The rotated epilogue: q/k/v ride from each layer's fused call into
+    the next. MoE and parallel-norm layers run per op, and none runs it
+    under CALM_ROT=0 (calm_tpu/model.py:1211, :1225-1228)."""
+    if cfg.n_experts or cfg.norm_par or not ROTATED_DECODE:
         return False
-    lw = w.layers
-    shapes = (cfg.dim, lw.w1.data.shape[1], cfg.q_dim, cfg.kv_dim)
-    if lw.wq.fmt == "gf4":
-        return gf4_offn_supported(B, shapes)
-    return qx_offn_supported(lw.wq.fmt, B, shapes)
+    if w.layers.wq.fmt == "gf4":
+        return gf4_offn_supported(B, _shapes(cfg, w))
+    return qx_offn_supported(w.layers.wq.fmt, B, _shapes(cfg, w))
+
+
+def _offn(cfg: ModelConfig, w: Weights, B: int) -> bool:
+    """Dense gf4 decode under CALM_ROT=0: every layer's wo + FFN through
+    gf4_offn (K7) after its own q/k/v (calm_tpu/model.py:1194-1201,
+    :1106-1110); fp8/fp16 run per op."""
+    return (not ROTATED_DECODE and w.layers.wq.fmt == "gf4" and not cfg.n_experts
+            and not cfg.norm_par and gf4_offn_supported(B, _shapes(cfg, w)))
 
 
 @dataclasses.dataclass
@@ -440,25 +486,34 @@ def _moe_ffn(cfg: ModelConfig, lw: LayerWeights, layer: int, xb2):
     return _moe_grouped(cfg, lw, layer, xb2, wts, idx)
 
 
-def _ffn(cfg: ModelConfig, lw: LayerWeights, layer: int, x, att):
-    """wo + residual, ffn-norm, w1/w3 + activation (or the MoE FFN), w2 +
-    residual, per op."""
+def _ffn(cfg: ModelConfig, lw: LayerWeights, layer: int, x, att, xb):
+    """wo + residual, then the FFN and its residual, per op, in the JAX
+    order (``calm_tpu/model.py:1112-1149``): on ffn-norm(x + wo . att), or
+    for parallel-norm archs (Cohere) on the attn-normed input ``xb``. A
+    parallel-norm gf4 FFN of <= 16 rows is one gf4_ffn (K6), as the JAX
+    package's fused layout runs it there (``:1130-1135``)."""
     x = x + _mm(att, lw.wo, layer)
-    xb2 = _norm(cfg, x, lw.ffn_norm[layer])
+    xb2 = xb if cfg.norm_par else _norm(cfg, x, lw.ffn_norm[layer])
     if cfg.n_experts:
         return x + _moe_ffn(cfg, lw, layer, xb2)
+    if (cfg.norm_par and lw.w1.fmt == "gf4"
+            and gf4_ffn_supported(xb2.shape, lw.w1.data, lw.w2.data)):
+        return x + gf4_ffn(xb2, lw.w1.data, lw.w3.data, lw.w2.data, layer,
+                           cfg.act_gelu)
     h = act(_mm(xb2, lw.w1, layer), cfg.act_gelu) * _mm(xb2, lw.w3, layer)
     return x + _mm(h, lw.w2, layer, w2=True)
 
 
 def _layer(cfg: ModelConfig, lw: LayerWeights, layer: int, x, qkv, cache,
-           st: _Step, fused: bool):
+           st: _Step, mode: str | None):
     """One layer on x (B, D). ``qkv`` is this layer's (q, k, v) from the
-    previous fused epilogue (or layer 0's priming); None on the per-op
-    path. Returns (x, next qkv or None, fresh (k, v) rows)."""
+    previous fused epilogue (or layer 0's priming); None otherwise.
+    ``mode``: "qkv" for the rotated epilogue, "offn" for gf4_offn (K7),
+    None per op. Returns (x, next qkv or None, fresh (k, v) rows)."""
     B, D = x.shape
     hd = cfg.head_dim
     H, KVH = cfg.n_heads, cfg.n_kv_heads
+    xb = None
     if qkv is None:
         xb = _norm(cfg, x, lw.attn_norm[layer])
         qkv = (_mm(xb, lw.wq, layer), _mm(xb, lw.wk, layer),
@@ -475,7 +530,7 @@ def _layer(cfg: ModelConfig, lw: LayerWeights, layer: int, x, qkv, cache,
                            st.kv_len, layer, fresh=(kc, vc, st.kv_pos), pt=st.pt)
     att = att.reshape(B, H * hd)
 
-    if fused:
+    if mode == "qkv":
         ws = (att, x, lw.ffn_norm, lw.attn_norm, lw.wo.data, lw.w1.data,
               lw.w3.data, lw.w2.data, lw.wq.data, lw.wk.data, lw.wv.data, layer)
         tail = (cfg.act_gelu, cfg.norm_eps, cfg.norm_ln)
@@ -484,8 +539,11 @@ def _layer(cfg: ModelConfig, lw: LayerWeights, layer: int, x, qkv, cache,
         else:
             x, qn, kn, vn = qx_offn_qkv(*ws, lw.wq.fmt, *tail)
         return x, (qn, kn, vn), (kc, vc)
-
-    return _ffn(cfg, lw, layer, x, att), None, (kc, vc)
+    if mode == "offn":
+        ffn, r1 = gf4_offn(att, x, lw.ffn_norm, lw.wo.data, lw.w1.data, lw.w3.data,
+                           lw.w2.data, layer, cfg.act_gelu, cfg.norm_eps, cfg.norm_ln)
+        return r1 + ffn, None, (kc, vc)
+    return _ffn(cfg, lw, layer, x, att, xb), None, (kc, vc)
 
 
 def _head(cfg: ModelConfig, w: Weights, x):
@@ -552,14 +610,15 @@ def _run_layers(cfg: ModelConfig, w: Weights, x, cache: KVCache, st: _Step):
     (``calm_tpu/model.py:1224-1306``). On the fused path q/k/v ride from one
     layer's epilogue into the next, primed with layer 0's projections."""
     lw = w.layers
-    fused = _fused(cfg, w, x.shape[0])
+    B = x.shape[0]
+    mode = "qkv" if _fused(cfg, w, B) else "offn" if _offn(cfg, w, B) else None
     qkv = None
-    if fused:
+    if mode == "qkv":
         xb0 = _norm(cfg, x, lw.attn_norm[0])
         qkv = (_mv(xb0, lw.wq, 0), _mv(xb0, lw.wk, 0), _mv(xb0, lw.wv, 0))
     fresh_k, fresh_v = [], []
     for layer in range(cfg.n_layers):
-        x, qkv, (fk, fv) = _layer(cfg, lw, layer, x, qkv, cache, st, fused)
+        x, qkv, (fk, fv) = _layer(cfg, lw, layer, x, qkv, cache, st, mode)
         fresh_k.append(fk)
         fresh_v.append(fv)
     _write_rows(cache, st, torch.stack(fresh_k), torch.stack(fresh_v))
@@ -627,7 +686,7 @@ def _prefill_layer(cfg: ModelConfig, lw: LayerWeights, layer: int, x,
         cache.v[layer, batch_off + b, :, p:p + T] = vh[b]
     att = prefill_attention(q.reshape(B, T, KVH, H // KVH, hd).contiguous(),
                             cache.k, cache.v, pos0, kv_len, layer, batch_off)
-    return _ffn(cfg, lw, layer, x, att.reshape(B * T, H * hd))
+    return _ffn(cfg, lw, layer, x, att.reshape(B * T, H * hd), xb)
 
 
 @torch.no_grad()

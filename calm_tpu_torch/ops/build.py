@@ -24,16 +24,18 @@ from calm_tpu_torch.device import nvcc_path
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("qmm", "attn", "gf4", "moe")
+SOURCES = ("qmm", "attn", "gf4", "moe", "stream")
 ARCH = "arch=compute_90a,code=sm_90a"
 
-P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+P, I, F, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 
 # C signatures: function name -> argtypes (all return int)
 SIGNATURES = {
     "qmm": {
         "calm_qmm_decode": [P, P, P, I, I, I, I, P],
         "calm_qx_offn_qkv": [P] * 16 + [I] * 7 + [F, I, P],
+        "calm_gf4_ffn": [P] * 6 + [I] * 4 + [P],
+        "calm_gf4_offn": [P] * 11 + [I] * 5 + [F, I, P],
     },
     "attn": {
         "calm_decode_attention": [P] * 12 + [I] * 10 + [P],
@@ -46,6 +48,9 @@ SIGNATURES = {
     "moe": {
         "calm_moe_dense": [P] * 5 + [I] * 7 + [P],
         "calm_gf4_moe_ffn": [P] * 8 + [I] * 6 + [P],
+    },
+    "stream": {
+        "calm_stream_sum": [P, I64, I64, I, P, P, P, I, P],
     },
 }
 

@@ -17,6 +17,14 @@
 - :func:`gf4_offn_qkv` replaces ``_gf4_offn_qkv_kernel`` (``:737``): the
   same epilogue on natural gf4 words (``csrc/qmm.cu``, fmt 2), where the
   TPU kernel reads plane-permuted layouts.
+- :func:`gf4_ffn` replaces ``_gf4_ffn_kernel`` (``:464``): the gf4 FFN
+  alone, w2 . (act(w1 . x) * (w3 . x)), which parallel-norm (Cohere)
+  decode runs on the attn-normed input (``csrc/qmm.cu``), where the TPU
+  kernel reads plane-major w1/w3 and word-transposed w2.
+- :func:`gf4_offn` replaces ``_gf4_offn_kernel`` (``:601``): wo +
+  residual, ffn-norm and the FFN, returning the FFN and r1 apart (the
+  ``CALM_ROT=0`` decode; ``csrc/qmm.cu``), in natural order where the TPU
+  kernel runs on a plane-permuted residual stream.
 - :func:`qmm_moe_dense` replaces ``_moe_dense_kernel`` and
   ``_moe_dense_gf4_kernel`` (``:1248``, ``:1256``): the MoE expert sweep,
   one matvec per expert slot with the ids on the device (``csrc/moe.cu``).
@@ -218,20 +226,28 @@ def act(h: torch.Tensor, act_gelu: bool) -> torch.Tensor:
     return F.gelu(h, approximate="tanh") if act_gelu else F.silu(h)
 
 
+def _ffn_plain(x, w1, w3, w2, layer, fmt: str, act_gelu: bool):
+    h = (act(qmm_decode_plain(x, w1, fmt, layer), act_gelu)
+         * qmm_decode_plain(x, w3, fmt, layer))
+    return qmm_decode_plain(h, w2, fmt, layer)
+
+
+def _offn_plain(a, r, g, wo, w1, w3, w2, layer, fmt: str, act_gelu: bool,
+                eps: float, sub_mean: bool):
+    """(ffn, r1): r1 = r + a . wo^T, ffn = the FFN of ffn-norm(r1)."""
+    r1 = r.float() + qmm_decode_plain(a, wo, fmt, layer)
+    xn = rmsnorm(r1, g[layer], eps, sub_mean)
+    return _ffn_plain(xn, w1, w3, w2, layer, fmt, act_gelu), r1
+
+
 def qx_offn_qkv_plain(a, r, g, anx, wo, w1, w3, w2, wq, wk, wv, layer,
                       fmt: str, act_gelu: bool, eps: float, sub_mean: bool):
     L = wo.shape[0]
     l, ln = int(layer), min(int(layer) + 1, L - 1)
-
-    def mv(x, w, li):
-        return qmm_decode_plain(x, w, fmt, li)
-
-    r1 = r.float() + mv(a, wo, l)
-    xn = rmsnorm(r1, g[l], eps, sub_mean)
-    h = act(mv(xn, w1, l), act_gelu) * mv(xn, w3, l)
-    x = r1 + mv(h, w2, l)
+    ffn, r1 = _offn_plain(a, r, g, wo, w1, w3, w2, l, fmt, act_gelu, eps, sub_mean)
+    x = r1 + ffn
     xq = rmsnorm(x, anx[ln], eps, sub_mean)
-    return x, mv(xq, wq, ln), mv(xq, wk, ln), mv(xq, wv, ln)
+    return (x, *(qmm_decode_plain(xq, w, fmt, ln) for w in (wq, wk, wv)))
 
 
 def _offn_qkv(a, r, g, anx, wo, w1, w3, w2, wq, wk, wv, layer, fmt: str,
@@ -319,6 +335,108 @@ def gf4_offn_qkv(a, r, g, anx, wo, w1, w3, w2, wq, wk, wv, layer,
 
 
 gf4_offn_qkv.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K6 and K7: the gf4 FFN, and wo + residual + ffn-norm + FFN
+# ---------------------------------------------------------------------------
+
+
+def _check_ffn_words(w1, w3, w2, D: int, x: torch.Tensor) -> int:
+    """Checks of one layer's natural gf4 FFN words against a model width D;
+    returns the hidden width H."""
+    H = w1.shape[0]
+    for w in (w1, w3, w2):
+        _check(w.device == x.device and w.dtype == torch.int32 and w.is_contiguous(),
+               "gf4 weights must be contiguous int32 words on the activations' device")
+    _check(tuple(w1.shape) == (H, D // 8) and tuple(w3.shape) == (H, D // 8)
+           and tuple(w2.shape) == (D, H // 8) and H % 8 == 0,
+           f"FFN words must be w1/w3 (H, D/8), w2 (D, H/8) for D={D}, got "
+           f"{tuple(w1.shape)}, {tuple(w3.shape)}, {tuple(w2.shape)}")
+    return H
+
+
+def gf4_ffn_plain(x, w1, w3, w2, layer, act_gelu: bool):
+    return _ffn_plain(x, w1, w3, w2, layer, "gf4", act_gelu)
+
+
+def gf4_ffn(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor, w2: torch.Tensor,
+            layer, act_gelu: bool) -> torch.Tensor:
+    """x (B <= 16, D) f32; w1/w3 (L, H, D/8), w2 (L, D, H/8) natural gf4
+    words (or one layer's planes) -> (B, D) f32 = w2 . (act(w1 . x) * (w3
+    . x)). Two launches of ``csrc/qmm.cu``, h between them in a buffer
+    allocated here."""
+    if x.device.type == "cpu":
+        return gf4_ffn_plain(x, w1, w3, w2, layer, act_gelu)
+    w1l, w3l, w2l = (_plane(w, layer) for w in (w1, w3, w2))
+    B, _, _ = _check_gf4(x, w1l)
+    D = x.shape[1]
+    H = _check_ffn_words(w1l, w3l, w2l, D, x)
+    _check(1 <= B <= MAX_ROWS, f"the decode kernel takes 1..{MAX_ROWS} rows")
+    h = torch.empty((B, H), dtype=torch.float32, device=x.device)
+    y = torch.empty((B, D), dtype=torch.float32, device=x.device)
+    rc = build.lib("qmm").calm_gf4_ffn(
+        x.data_ptr(), w1l.data_ptr(), w3l.data_ptr(), w2l.data_ptr(), h.data_ptr(),
+        y.data_ptr(), B, D, H, int(act_gelu), _stream(x))
+    build.check("qmm", rc)
+    gf4_ffn.launches += 1
+    return y
+
+
+gf4_ffn.launches = 0
+
+
+def gf4_ffn_supported(x_shape, w1: torch.Tensor, w2: torch.Tensor) -> bool:
+    """:func:`gf4_ffn`'s eligibility, as pallas_qmm.gf4_ffn_supported: a
+    decode-sized batch and FFN words that match x."""
+    return (1 <= x_shape[0] <= MAX_ROWS and x_shape[-1] == 8 * w1.shape[-1]
+            and w1.shape[-2] == 8 * w2.shape[-1])
+
+
+def gf4_offn_plain(a, r, g, wo, w1, w3, w2, layer, act_gelu: bool, eps: float,
+                   sub_mean: bool):
+    return _offn_plain(a, r, g, wo, w1, w3, w2, int(layer), "gf4", act_gelu, eps,
+                       sub_mean)
+
+
+def gf4_offn(a: torch.Tensor, r: torch.Tensor, g: torch.Tensor, wo: torch.Tensor,
+             w1: torch.Tensor, w3: torch.Tensor, w2: torch.Tensor, layer,
+             act_gelu: bool, eps: float, sub_mean: bool):
+    """a (B <= 16, Qd) f32 attention output; r (B, D) f32 residual; g (L,
+    D) f32 ffn-norm weights; wo (L, D, Qd/8), w1/w3 (L, H, D/8), w2 (L, D,
+    H/8) natural gf4 words -> (ffn (B, D), r1 (B, D)) f32 with r1 = r + a
+    . wo^T and ffn the FFN of ffn-norm(r1); the caller's new residual is
+    r1 + ffn. Four launches of ``csrc/qmm.cu``."""
+    if a.device.type == "cpu":
+        return gf4_offn_plain(a, r, g, wo, w1, w3, w2, layer, act_gelu, eps, sub_mean)
+    wol, w1l, w3l, w2l = (_plane(w, layer) for w in (wo, w1, w3, w2))
+    B, D, q8 = _check_gf4(a, wol)
+    H = _check_ffn_words(w1l, w3l, w2l, D, a)
+    _check(1 <= B <= MAX_ROWS, f"the decode kernel takes 1..{MAX_ROWS} rows")
+    _check(D % 4 == 0 and D <= MAX_NORM_DIM,
+           f"the norm launch takes rows of a multiple of 4, <= {MAX_NORM_DIM}")
+    for t in (r, g):
+        _check(t.dtype == torch.float32 and t.is_contiguous() and t.device == a.device
+               and t.data_ptr() % 16 == 0,
+               "residual and norm weights must be contiguous float32 on the card")
+    _check(tuple(r.shape) == (B, D) and g.ndim == 2 and g.shape[1] == D,
+           f"r must be (B, D) and g (L, D) for D={D}")
+    l = int(layer)
+    _check(0 <= l < g.shape[0], f"layer {l} out of range for norm weights of {g.shape[0]}")
+    dev = a.device
+    r1, xn, ffn = (torch.empty((B, D), dtype=torch.float32, device=dev) for _ in range(3))
+    h = torch.empty((B, H), dtype=torch.float32, device=dev)
+    rc = build.lib("qmm").calm_gf4_offn(
+        a.data_ptr(), r.data_ptr(), _plane_ptr(g, l), wol.data_ptr(), w1l.data_ptr(),
+        w3l.data_ptr(), w2l.data_ptr(), r1.data_ptr(), xn.data_ptr(), h.data_ptr(),
+        ffn.data_ptr(), B, D, H, 8 * q8, int(act_gelu), float(eps), int(sub_mean),
+        _stream(a))
+    build.check("qmm", rc)
+    gf4_offn.launches += 1
+    return ffn, r1
+
+
+gf4_offn.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -443,6 +561,7 @@ def qx_offn_supported(fmt: str, B: int, shapes) -> bool:
 
 
 def gf4_offn_supported(B: int, shapes) -> bool:
-    """:func:`gf4_offn_qkv`'s eligibility on gf4 weights: the same shapes
-    as :func:`qx_offn_supported` (128-aligned dims are whole words)."""
+    """:func:`gf4_offn_qkv`'s and :func:`gf4_offn`'s eligibility on gf4
+    weights: the same shapes as :func:`qx_offn_supported` (128-aligned
+    dims are whole words)."""
     return _offn_shapes_ok(B, shapes)

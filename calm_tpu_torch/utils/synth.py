@@ -115,7 +115,8 @@ def weight_bytes(cfg: ModelConfig) -> tuple[int, int]:
     container accounting counts them (src/run.c:523-532): the embedding is
     one row per token, so it is left out of the bandwidth, and a MoE token
     reads the gate and its active experts only
-    (``calm_tpu/utils/synth.py:125-150``)."""
+    (``calm_tpu/utils/synth.py:125-150``). A parallel-norm (Cohere) model
+    has no ffn-norm, so its norms are one vector a layer fewer."""
     bits = {"fp16": 16, "fp8": 8, "fp8e4": 8, "gf4": 4}[cfg.dtype]
     D, Hd, Q, KV, V, E, L = (cfg.dim, cfg.hidden_dim, cfg.q_dim, cfg.kv_dim,
                              cfg.vocab_size, cfg.n_experts, cfg.n_layers)
@@ -130,7 +131,7 @@ def weight_bytes(cfg: ModelConfig) -> tuple[int, int]:
         mlp_total = mlp_all + gate
     else:
         mlp_total = mlp_bw = b(3 * Hd * D)
-    norms = 4 * (2 * L * D + D)
+    norms = 4 * ((1 if cfg.norm_par else 2) * L * D + D)
     head = b(V * D)
     return (2 * head + L * (attn + mlp_total) + norms,
             head + L * (attn + mlp_bw) + norms)
@@ -147,24 +148,30 @@ def byte_vocab(vocab_size: int):
 
 
 def synth_container(path: str, cfg: ModelConfig, seed: int = 0,
-                    device="cpu", random: bool = False) -> ModelConfig:
+                    device="cpu", random: bool = False,
+                    tied: bool = False) -> ModelConfig:
     """Write pattern (or, with ``random``, seeded random) weights for
-    ``cfg`` (with bos 1 / eos 2 and a byte vocab) as a .calm container."""
+    ``cfg`` (with bos 1 / eos 2 and a byte vocab) as a .calm container:
+    with ``tied`` no ``model.output.weight`` (the lm-head is the
+    embedding), and for a parallel-norm (Cohere) model no
+    ``mlp.norm.weight``, as ``tests/modelgen.py`` writes them."""
     w = synth_weights(cfg, seed, device, random)
     lw = w.layers
     t: dict = {"model.embed.weight": w.embed.data}
     per_layer = {"attn.norm": lw.attn_norm, "attn.wq": lw.wq.data,
                  "attn.wk": lw.wk.data, "attn.wv": lw.wv.data,
-                 "attn.wo": lw.wo.data, "mlp.norm": lw.ffn_norm,
-                 "mlp.w1": lw.w1.data, "mlp.w2": lw.w2.data,
+                 "attn.wo": lw.wo.data, "mlp.w1": lw.w1.data, "mlp.w2": lw.w2.data,
                  "mlp.w3": lw.w3.data}
+    if not cfg.norm_par:
+        per_layer["mlp.norm"] = lw.ffn_norm
     if cfg.n_experts:
         per_layer["moegate"] = lw.moegate.data
     for l in range(cfg.n_layers):
         for name, stack in per_layer.items():
             t[f"model.layers.{l}.{name}.weight"] = stack[l]
     t["model.norm.weight"] = w.final_norm
-    t["model.output.weight"] = w.output.data
+    if not tied:
+        t["model.output.weight"] = w.output.data
     tokens, scores = byte_vocab(cfg.vocab_size)
     t["tokenizer.tokens"] = tokens
     t["tokenizer.scores"] = scores

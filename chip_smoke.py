@@ -3,19 +3,24 @@
     python3 chip_smoke.py
 
 Builds the hand-written kernels from ``calm_tpu_torch/csrc``, holds each
-against its plain PyTorch version at Mistral-7B and Mixtral 8x7B shapes
-and ragged ones and times it beside its bound; drives ``Engine.generate``
-(batched prefill, then decode), ``prefill_tokens``, ``perplexity`` and the
-CLI (generate, ``-x``, ``-y``) on 2-layer Mistral-7B-width fp8 and gf4
-containers and 2-layer Mixtral-width (4 experts, top-2) fp8 and gf4 MoE
-containers, each checked against the CPU plain path; runs a 2048-token
-prefill and the ``bench.py`` decode protocol on 32-layer Mistral-7B and
-Mixtral 8x7B, fp8 and gf4; serves the containers through ``Server``
-(dense, paged, prefix cache) against the CPU's server and through
-``python -m calm_tpu_torch.httpd``; serves 16 requests on a 32-layer
-Mistral-7B with 8 slots, dense and paged; and ends with a ``kernels``
-JSON line and ``{"ok": true, "device": ...}``. Any failure exits non-zero
-before the last line; without a GPU it exits 1 at once.
+against its plain PyTorch version at Mistral-7B, Mixtral 8x7B and the
+tools' shapes and ragged ones and times it beside its bound; runs both
+bandwidth tools (``calm_tpu_torch.tools.dma_ceiling``, ``gf4_bound``),
+whose 3 GB rows give the card's attainable HBM read rate; drives
+``Engine.generate`` (batched prefill, then decode), ``prefill_tokens``,
+``perplexity`` and the CLI (generate, ``-x``, ``-y``) on 2-layer
+Mistral-7B-width fp8 and gf4 containers (gf4 also with ROTATED_DECODE
+off, as CALM_ROT=0), 2-layer Aya 23 8B-width parallel-norm (Cohere) gf4
+and fp8 containers and 2-layer Mixtral-width (4 experts, top-2) fp8 and
+gf4 MoE containers, each checked against the CPU plain path; runs a
+2048-token prefill and the ``bench.py`` decode protocol on 32-layer
+Mistral-7B, Aya 23 8B and Mixtral 8x7B, fp8 and gf4; serves the
+containers through ``Server`` (dense, paged, prefix cache) against the
+CPU's server and through ``python -m calm_tpu_torch.httpd``; serves 16
+requests on a 32-layer Mistral-7B with 8 slots, dense and paged; and ends
+with a ``kernels`` JSON line and ``{"ok": true, "device": ...}``. Any
+failure exits non-zero before the last line; without a GPU it exits 1 at
+once.
 """
 
 from __future__ import annotations
@@ -74,13 +79,29 @@ def kernel_rows(run) -> list[tuple[float, int, str]]:
                   reverse=True)
 
 
-def timed(fn, iters: int = 20, warmup: int = 3) -> tuple[float, str]:
+def timed_events(fn, iters: int = 20, warmup: int = 3) -> float:
+    """ms per call by CUDA events around ``iters`` calls, host gaps
+    included."""
+    for i in range(warmup):
+        fn(i)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(iters):
+        fn(i)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def timed(fn, iters: int = 20, warmup: int = 3, floor: float | None = None
+          ) -> tuple[float, str]:
     """(ms per call, how it was timed). "cupti": device time, the summed
     duration of the kernels that ``iters`` calls launch, so that the host's
     own pace (Python and wrapper checks between launches) does not enter.
-    "events": when the profiler sees no device time twice (CUPTI drops a
-    session now and then), CUDA events around the ``iters`` calls, host
-    gaps included."""
+    "events": CUDA events around the ``iters`` calls, host gaps included,
+    when the profiler sees no device time twice (CUPTI drops a profile now
+    and then) or sees less than ``floor`` ms a call, the least time the
+    card can take for the work: then it missed part of the call."""
     for i in range(warmup):
         fn(i)
 
@@ -90,35 +111,38 @@ def timed(fn, iters: int = 20, warmup: int = 3) -> tuple[float, str]:
     for _ in range(2):
         rows = kernel_rows(run)
         if rows:
-            return sum(r[0] for r in rows) / 1e3 / iters, "cupti"
-    log("# timed: the profiler saw no device time; CUDA events instead")
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    run()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters, "events"
+            ms = sum(r[0] for r in rows) / 1e3 / iters
+            if floor is None or ms >= floor:
+                return ms, "cupti"
+            log(f"# timed: the profiler saw {ms:.4f} ms a call, below the bound "
+                f"{floor:.4f} ms; CUDA events instead")
+            break
+    else:
+        log("# timed: the profiler saw no device time; CUDA events instead")
+    return timed_events(fn, iters, 0), "events"
 
 
-def timings(kernel, plain, library=None, plain_iters: int = 5) -> dict:
+def timings(kernel, plain, library=None, plain_iters: int = 5,
+            bound: float | None = None) -> dict:
     """ms of a kernel's wrapper, its plain version and the library call
-    (None without one), and ``timed_by``: "events" if any of them fell
-    back to CUDA events, else "cupti"."""
-    hows = []
+    (None without one); ``timed_by``: "cupti", or which of them fell back
+    to CUDA events (``timed``: any call seen below ``bound``)."""
+    hows = {}
 
-    def t(fn, *a):
-        ms, how = timed(fn, *a)
-        hows.append(how)
+    def t(key, fn, *a):
+        ms, hows[key] = timed(fn, *a, floor=bound)
         return ms
-    out = dict(ms=t(kernel), plain_ms=t(plain, plain_iters, 1),
-               library_ms=None if library is None else t(library))
-    out["timed_by"] = "events" if "events" in hows else "cupti"
+    out = dict(ms=t("kernel", kernel), plain_ms=t("plain", plain, plain_iters, 1),
+               library_ms=None if library is None else t("library", library))
+    ev = [k for k, h in hows.items() if h == "events"]
+    out["timed_by"] = f"events ({', '.join(ev)})" if ev else "cupti"
+    out["kernel_timed_by"] = hows["kernel"]
     return out
 
 
 def share(t: dict, b: float) -> str:
     """The bound's share of the kernel's device time; none for wall time."""
-    if t["timed_by"] != "cupti":
+    if t["kernel_timed_by"] != "cupti":
         return "timed by CUDA events: no share of bound"
     return f"{100 * b / t['ms']:.1f}% of bound"
 
@@ -281,6 +305,9 @@ def kernel_phase(gbps, dev):
     ragged_checks_moe(dev)
     rows.update(paged_kernel_rows(gbps, dev))
     ragged_checks_paged(dev)
+    rows.update(ffn_kernel_rows(gbps, dev))
+    rows.update(stream_kernel_rows(gbps, dev))
+    ragged_checks_ffn_stream(dev)
     log("# max_abs_err / max|out|, worst of each kernel's checks: " + ", ".join(
         f"{k} {v:.3e}" for k, v in WORST_REL.items()))
     return rows
@@ -375,7 +402,9 @@ def paged_kernel_rows(gbps, dev):
                                                False),
                 epilogue_chain(a, r, g, anx, wb, 2))
     n_w = D * Q + 3 * H * D + (Q + 2 * KV) * D
-    b, by = bound_ms(n_w + 4 * B * (3 * D + 2 * Q + 2 * KV), 2 * B * n_w, gbps)
+    # at 8 rows, operations at the bf16 rate: the TPU kernels compute these
+    # products on bf16 operands
+    b, by = bound_ms(n_w + 4 * B * (3 * D + 2 * Q + 2 * KV), 2 * B * n_w, gbps, PEAK_BF16)
     log(f"# K9 qx_offn_qkv fp8 one layer B=8: max_abs_err {e:.3e} (tol {TOL_MV:g} x "
         f"max|out|); {ms_line(t)} (7 bf16 matmuls) bound_ms {b:.4f} ({by}); {share(t, b)}")
     del ws, wb
@@ -387,7 +416,7 @@ def paged_kernel_rows(gbps, dev):
     t = timings(lambda i: hq.qmm_decode(x, w, "fp8", 0),
                 lambda i: hq.qmm_decode_plain(x, w, "fp8", 0),
                 lambda i: torch.matmul(x.bfloat16(), wb[0].T))
-    b, by = bound_ms(V * D + 4 * B * (D + V), 2 * B * V * D, gbps)
+    b, by = bound_ms(V * D + 4 * B * (D + V), 2 * B * V * D, gbps, PEAK_BF16)
     log(f"# K2 qmm_decode fp8 lm-head {V}x{D} B=8: max_abs_err {e:.3e} (tol {TOL_MV:g} x "
         f"max|y|); {ms_line(t)} (bf16 matmul) bound_ms {b:.4f} ({by}); {share(t, b)}")
     del w, wb
@@ -582,6 +611,199 @@ def ragged_checks_moe(dev):
         f"{k} {v:.3e}" for k, v in worst.items()))
 
 
+def ffn_kernel_rows(gbps, dev):
+    """K6 at one Aya 23 8B / Mistral-7B layer's FFN (dim 4096, hidden
+    14336), B=1 and B=8; K7 at one Mistral-7B layer (wo 4096 x 4096), B=1,
+    RMSNorm as Mistral's. Two-layer stacks cycled: one layer's 88 MB of
+    FFN words is past the 50 MB L2."""
+    import torch.nn.functional as F
+
+    from calm_tpu_torch.ops import hopper_qmm as hq
+    from calm_tpu_torch.ops.qmm import QTensor, dequant
+
+    rows, L, eps = {}, 2, 1e-5
+    w1, w3 = (rand_w((L, HID, D // 8), "gf4", dev) for _ in range(2))
+    w2 = rand_w((L, D, HID // 8), "gf4", dev)
+    wo = rand_w((L, D, Q // 8), "gf4", dev)
+    wb = [dequant(QTensor(w, "gf4"), torch.bfloat16) for w in (w1, w3, w2, wo)]
+    n_ffn = 3 * HID * D
+
+    def ffn_lib(xb, l):
+        return torch.matmul(F.silu(torch.matmul(xb, wb[0][l].T))
+                            * torch.matmul(xb, wb[1][l].T), wb[2][l].T)
+    errs, best = [], None
+    for B in (1, 8):
+        x = torch.randn(B, D, device=dev)
+        for layer in range(L):
+            errs.append(check(f"gf4_ffn B={B} layer {layer}",
+                              hq.gf4_ffn(x, w1, w3, w2, layer, False),
+                              hq.gf4_ffn_plain(x, w1, w3, w2, layer, False), TOL_MV))
+        # operations at the bf16 rate: the TPU kernel computes this function
+        # on bf16 operands
+        b, by = bound_ms(n_ffn // 2 + 4 * 2 * B * D, 2 * B * n_ffn, gbps, PEAK_BF16)
+        xb = x.bfloat16()
+        t = timings(lambda i: hq.gf4_ffn(x, w1, w3, w2, i % L, False),
+                    lambda i: hq.gf4_ffn_plain(x, w1, w3, w2, i % L, False),
+                    lambda i: ffn_lib(xb, i % L), bound=b)
+        log(f"# K6 gf4_ffn D={D} H={HID} B={B}: max_abs_err {max(errs):.3e} (tol "
+            f"{TOL_MV:g} x max|y|); {ms_line(t)} (3 bf16 matmuls on pre-dequantized "
+            f"planes) bound_ms {b:.4f} ({by}, {n_ffn / 2e6:.1f} MB); {share(t, b)}")
+        if B == 1:
+            best = dict(t, bound_ms=b, bound_by=by)
+    rows["gf4_ffn"] = dict(best, max_abs_err=max(errs))
+
+    g = 1 + 0.1 * torch.randn(L, D, device=dev)
+    a, r = torch.randn(1, Q, device=dev), torch.randn(1, D, device=dev)
+    errs = []
+    for layer in range(L):
+        args = (a, r, g, wo, w1, w3, w2, layer, False, eps, False)
+        errs += check_offn(f"layer {layer}", hq.gf4_offn(*args), hq.gf4_offn_plain(*args))
+    ab = a.bfloat16()
+
+    def offn_lib(i):
+        l = i % L
+        r1 = r + torch.matmul(ab, wb[3][l].T)
+        return ffn_lib(F.rms_norm(r1, (D,), g[l], eps).bfloat16(), l), r1
+    n_w = n_ffn + D * Q
+    b, by = bound_ms(n_w // 2 + 4 * (Q + 4 * D), 2 * n_w, gbps)
+    t = timings(lambda i: hq.gf4_offn(a, r, g, wo, w1, w3, w2, i % L, False, eps, False),
+                lambda i: hq.gf4_offn_plain(a, r, g, wo, w1, w3, w2, i % L, False, eps,
+                                            False), offn_lib, bound=b)
+    log(f"# K7 gf4_offn D={D} H={HID} Qd={Q} B=1: max_abs_err {max(errs):.3e} (tol "
+        f"{TOL_MV:g} x max|out|, ffn and r1 each); {ms_line(t)} (4 bf16 matmuls + "
+        f"rms_norm) bound_ms {b:.4f} ({by}, {n_w / 2e6:.1f} MB); {share(t, b)}")
+    rows["gf4_offn"] = dict(t, bound_ms=b, bound_by=by, max_abs_err=max(errs))
+    del w1, w3, w2, wo, wb
+    torch.cuda.empty_cache()
+    return rows
+
+
+def check_offn(name, got, want) -> list[float]:
+    """K7's (ffn, r1) against its plain version's, each to its own scale."""
+    return [check(f"gf4_offn {part} {name}", g, w, TOL_MV)
+            for part, g, w in zip(("ffn", "r1"), got, want)]
+
+
+def check_sum(name, got, want, seed, abs_sum, span, terms=1):
+    """A streaming sum against its float64 plain version, within the
+    worst-case bound of its f32 sums (``hopper_stream.error_bound``). The
+    words must make the check able to fail: the bound under a tenth of
+    |sum - seed|, so that a kernel returning the seed alone, or missing a
+    fifth of a sum of like-signed values, is caught."""
+    from calm_tpu_torch.ops import hopper_stream as hs
+
+    g, w = got.item(), want.item()
+    err, tol = abs(g - w), hs.error_bound(abs_sum, span, terms)
+    if not 10 * tol < abs(w - seed):
+        fail(f"{name}: bound {tol:.3e} is not under a tenth of |sum - seed| = "
+             f"{abs(w - seed):.3e}: the check could not tell a wrong sum")
+    if not err <= tol:
+        fail(f"{name}: |{g} - {w}| = {err:.3e} > bound {tol:.3e}")
+    key = name.split()[0]
+    WORST_REL[key] = max(WORST_REL.get(key, 0.0), err / abs_sum)
+    return err, tol
+
+
+def stream_kernel_rows(gbps, dev):
+    """K1 (stream_sum) over a 3 GB buffer, as the tools' largest: word i
+    is i plus a random value below 2^30, so every word is positive (the sum
+    is its own magnitude, far above the error bound) and a word read from
+    the wrong place, past 2^31 bytes included, moves the sum; K15's decode
+    over 8 planes of the tool's 16384 x 4096 gf4 matrix (33.5 MB each),
+    cycled so that a call finds its plane cold."""
+    from calm_tpu_torch.ops import hopper_stream as hs
+
+    rows = {}
+    n = 3 * (1 << 30) // 4
+    w = torch.randint(0, 2**30, (n,), device=dev, dtype=torch.int32)
+    w += torch.arange(n, device=dev, dtype=torch.int32)
+    span = hs.span_for(n, dev)
+    seed = torch.tensor([0.5], device=dev)
+    err, tol = check_sum("stream_sum 3 GB", hs.stream_sum(w, seed),
+                         hs.stream_sum_plain(w, seed), 0.5, hs.abs_sum(w), span)
+    b, by = bound_ms(4 * n + 8, n, gbps)
+    t = timings(lambda i: hs.stream_sum(w, seed), lambda i: hs.stream_sum_plain(w, seed),
+                lambda i: torch.sum(w, dtype=torch.float32), 3, bound=b)
+    log(f"# K1 stream_sum {4 * n / 1e6:.0f} MB, {n} words, span {span}: |err| {err:.3e} "
+        f"(bound {tol:.3e}, worst case of its f32 sums); {ms_line(t)} "
+        f"(torch.sum(dtype=float32)) bound_ms {b:.4f} ({by}); {share(t, b)}, "
+        f"{4 * n / t['ms'] / 1e6:.1f} GB/s")
+    rows["stream_sum"] = dict(t, bound_ms=b, bound_by=by, max_abs_err=err)
+    del w
+    torch.cuda.empty_cache()
+
+    P, d, g = 8, 16384, 512
+    w = rand_w((P, d, g), "gf4", dev)
+    span = hs.span_for(d * g, dev)
+    errs = []
+    for full in (False, True):
+        for p in (0, P - 1):
+            e, tol = check_sum(f"gf4_decode_sum full={full} plane {p}",
+                               hs.gf4_decode_sum(w[p], seed, full),
+                               hs.gf4_decode_sum_plain(w[p], seed, full), 0.5,
+                               hs.abs_sum(w[p], gf4=True), span, 8)
+            errs.append(e)
+    b, by = bound_ms(4 * d * g + 8, 16 * d * g, gbps)
+    t = timings(lambda i: hs.gf4_decode_sum(w[i % P], seed, False),
+                lambda i: hs.gf4_decode_sum_plain(w[i % P], seed, False), None, 3, bound=b)
+    log(f"# K15 gf4_decode_sum {d}x{8 * g} (no bf16 cast): |err| {max(errs):.3e} (bound "
+        f"{tol:.3e}); {ms_line(t)} bound_ms {b:.4f} ({by}); {share(t, b)}, "
+        f"{4 * d * g / t['ms'] / 1e6:.1f} GB/s")
+    rows["gf4_decode_sum"] = dict(t, bound_ms=b, bound_by=by, max_abs_err=max(errs))
+    del w
+    torch.cuda.empty_cache()
+    return rows
+
+
+def ragged_checks_ffn_stream(dev):
+    """K6 and K7 on shapes the 7B rows do not reach: 1, 3 and 16 rows, a
+    model width of 1032 (129 words a row), a hidden width of 11032 (1379
+    words: not a multiple of a warp's 32 lanes), SiLU and GELU, LayerNorm,
+    and K7 with Qd = 512 != D; K1 and K15 on lengths that are not a
+    multiple of a block's span or of 4 words: one block with a tail of 3
+    words, and hundreds of blocks, the last one ragged."""
+    from calm_tpu_torch.ops import hopper_qmm as hq
+    from calm_tpu_torch.ops import hopper_stream as hs
+
+    worst = {"gf4_ffn": 0.0, "gf4_offn": 0.0}
+    Dm, Hm, Qm, L = 1032, 11032, 512, 2
+    w1, w3 = (rand_w((L, Hm, Dm // 8), "gf4", dev) for _ in range(2))
+    w2, wo = rand_w((L, Dm, Hm // 8), "gf4", dev), rand_w((L, Dm, Qm // 8), "gf4", dev)
+    g = 1 + 0.1 * torch.randn(L, Dm, device=dev)
+    for B in (1, 3, 16):
+        for gelu in (False, True):
+            x = torch.randn(B, Dm, device=dev)
+            e = check(f"gf4_ffn D={Dm} H={Hm} B={B} gelu={gelu}",
+                      hq.gf4_ffn(x, w1, w3, w2, 1, gelu),
+                      hq.gf4_ffn_plain(x, w1, w3, w2, 1, gelu), TOL_MV)
+            worst["gf4_ffn"] = max(worst["gf4_ffn"], e)
+            a, r = torch.randn(B, Qm, device=dev), torch.randn(B, Dm, device=dev)
+            args = (a, r, g, wo, w1, w3, w2, 1, gelu, 1e-5, gelu)  # LayerNorm with GELU
+            e = check_offn(f"D={Dm} H={Hm} Qd={Qm} B={B} gelu={gelu}",
+                           hq.gf4_offn(*args), hq.gf4_offn_plain(*args))
+            worst["gf4_offn"] = max(worst["gf4_offn"], *e)
+    n_sum = 0
+    for n in (7, 4099, 1000003, 33554431):
+        # random words with finite positive gf4 scales: codes averaging -0.5
+        # keep the decoded sum far from 0; the sign bit cleared for K1
+        w = rand_w((n,), "gf4", dev)
+        wp = w & 0x7FFFFFFF
+        sp = hs.span_for(n, dev)
+        seed = torch.tensor([-3.25], device=dev)
+        check_sum(f"stream_sum n={n} span={sp}", hs.stream_sum(wp, seed),
+                  hs.stream_sum_plain(wp, seed), -3.25, hs.abs_sum(wp), sp)
+        for full in (False, True):
+            check_sum(f"gf4_decode_sum n={n} span={sp} full={full}",
+                      hs.gf4_decode_sum(w, seed, full),
+                      hs.gf4_decode_sum_plain(w, seed, full), -3.25,
+                      hs.abs_sum(w, gf4=True), sp, 8)
+        n_sum += 3
+    torch.cuda.synchronize()
+    log("# ragged shapes (K6, K7, K1, K15): max_abs_err " + ", ".join(
+        f"{k} {v:.3e}" for k, v in worst.items()) + f"; {n_sum} streaming sums within "
+        "their bounds")
+
+
 # Tolerances, relative to max |out| unless said otherwise.
 TOL_MV = 1e-5  # f32-FMA kernels (K2, K3, K8, K9): f32 sums in another order
 TOL_DA = 1e-4  # K12, absolute (outputs are O(1)): f32, another order
@@ -627,12 +849,14 @@ def prefill_kernel_rows(gbps, dev):
             def lib(i):
                 return F.scaled_dot_product_attention(
                     q4, kb[i % L], vb[i % L], is_causal=True, enable_gqa=True)
-        t = timings(lambda i: ha.prefill_attention(q, kc, vc, p0, kl, i % L),
-                    lambda i: ha.prefill_attention_plain(q, kc, vc, p0, kl, i % L),
-                    lib, 3)
         nb = 2 * B * T * KVH * M * hd * 4 + 2 * B * KVH * kv * hd * kc.element_size()
         flops = 4 * B * KVH * M * hd * causal_pairs(pos0, T, kv)
         b, by = bound_ms(nb, flops, gbps, PEAK_BF16)
+        # a profiled time below the bound missed part of the call (the
+        # library's causal SDPA once read 0.0240 ms against 0.0348)
+        t = timings(lambda i: ha.prefill_attention(q, kc, vc, p0, kl, i % L),
+                    lambda i: ha.prefill_attention_plain(q, kc, vc, p0, kl, i % L),
+                    lib, 3, bound=b)
         log(f"# K13 prefill_attention {kvname} KV T={T} pos0={pos0} (B=1, KVH=8, "
             f"M=4, hd=128): max_abs_err {errs[-1]:.3e} (tol {TOL_ATT:g} x max|out|); "
             f"{ms_line(t)} (bf16 causal SDPA) bound_ms {b:.4f} ({by}, "
@@ -846,12 +1070,15 @@ def counters():
     """kernel name -> (wrapper, the attribute that counts its launches)."""
     from calm_tpu_torch.ops import hopper_attn as ha
     from calm_tpu_torch.ops import hopper_qmm as hq
+    from calm_tpu_torch.ops import hopper_stream as hs
     fns = {"qmm_decode": hq.qmm_decode, "qx_offn_qkv": hq.qx_offn_qkv,
            "decode_attention": ha.decode_attention,
            "prefill_attention": ha.prefill_attention,
            "qmm_decode_gf4": hq.qmm_decode_gf4, "qmm_prefill": hq.qmm_prefill,
            "qmm_prefill_w2": hq.qmm_prefill_w2, "gf4_offn_qkv": hq.gf4_offn_qkv,
-           "qmm_moe_dense": hq.qmm_moe_dense, "gf4_moe_ffn": hq.gf4_moe_ffn}
+           "qmm_moe_dense": hq.qmm_moe_dense, "gf4_moe_ffn": hq.gf4_moe_ffn,
+           "gf4_ffn": hq.gf4_ffn, "gf4_offn": hq.gf4_offn,
+           "stream_sum": hs.stream_sum, "gf4_decode_sum": hs.gf4_decode_sum}
     out = {k: (f, "launches") for k, f in fns.items()}
     out["decode_attention_paged"] = (ha.decode_attention, "paged_launches")
     return out
@@ -910,27 +1137,71 @@ def same_generation(what, cpu, prompt_toks, got, want, tol) -> str:
     return f"ids equal up to {n}, then a near-tie ({got[:n + 1]}...)"
 
 
-def container_phase(fmt, dev, experts: int = 0):
+def unrotated_steps(eng, steps, what):
+    """``steps`` [(token, CPU logits)] decoded again on the card with
+    ROTATED_DECODE off (CALM_ROT=0: each layer's own q/k/v, then gf4_offn,
+    K7), held to the CPU's logits. Returns the launch counts of that run."""
+    from calm_tpu_torch import model as M
+
+    was, M.ROTATED_DECODE = M.ROTATED_DECODE, False
+    try:
+        eng.reset()
+        lgs, counts = drive(lambda: [eng.step(tok, pos) for pos, (tok, _) in enumerate(steps)])
+    finally:
+        M.ROTATED_DECODE = was
+    worst, ties = 0.0, 0
+    for pos, (lg, (_, lc)) in enumerate(zip(lgs, steps)):
+        worst = max(worst, float(np.abs(lg - lc).max() / np.abs(lc).max()))
+        ties += not greedy_agrees(f"{what} CALM_ROT=0 step {pos}", int(lg.argmax()), lc,
+                                  TOL_STEP)
+    n_l = eng.cfg.n_layers * len(steps)
+    if worst > TOL_STEP or counts["gf4_offn"] != n_l or counts["gf4_offn_qkv"]:
+        fail(f"{what} CALM_ROT=0: logits {worst:.3e} from the CPU (tol {TOL_STEP}), "
+             f"launches {counts}")
+    log(f"# {what} CALM_ROT=0 vs cpu: {len(steps)} steps, max logit diff {worst:.3e} of "
+        f"scale (tol {TOL_STEP:g}), {ties} near-ties; gf4_offn {counts['gf4_offn']} "
+        f"launches, gf4_offn_qkv 0")
+    return counts
+
+
+# Aya 23 8B (CohereForAI/aya-23-8B, CohereForCausalLM, its public
+# config.json): Mistral-7B's widths with a vocab of 256000, parallel
+# LayerNorm (layernorm_par, eps 1e-5), SiLU, rope_theta 10000, tied
+# embeddings; logit_scale is folded into model.norm.weight by the converter
+AYA = dict(MISTRAL, vocab_size=256000)
+AYA_VOCAB_CUT = 32000  # the 2-layer container's: the CPU's plain lm-head
+
+
+def container_phase(fmt, dev, experts: int = 0, cohere: bool = False):
     """Engine, prefill, perplexity and CLI on a 2-layer Mistral-7B-width
     container, or with ``experts`` a 2-layer Mixtral-width MoE one (top-2,
-    bench.py's mixtral4x7b proxy at 4), of seeded random bits, held against
-    the CPU plain path. Returns (launch counts of the main path, tokens)."""
+    bench.py's mixtral4x7b proxy at 4), or with ``cohere`` a 2-layer Aya 23
+    8B-width parallel-norm one (tied, its vocab cut to 32000), of seeded
+    random bits, held against the CPU plain path; then served. The fp8
+    Aya-width container runs generate and prefill against the CPU only;
+    the gf4 Mistral-width one also decodes with ROTATED_DECODE off.
+    Returns (launch counts of the main path, tokens, launch counts of the
+    CALM_ROT=0 decode or None)."""
     from calm_tpu_torch import model as M
     from calm_tpu_torch.config import ModelConfig
     from calm_tpu_torch.engine import Engine
     from calm_tpu_torch.utils.synth import synth_container
 
     moe = dict(n_experts=experts, n_experts_ac=2, rope_theta=1e6) if experts else {}
-    cfg = ModelConfig(**{**MISTRAL, "n_layers": 2, "rope_theta": 10000.0, **moe},
-                      seq_len=4096, rotary_dim=128, norm_ln=False,
-                      dtype=fmt, bos_token_id=1, eos_token_id=2)
-    name = f"mixtral{experts}x7b" if experts else "mistral7b"
+    arch = (dict(norm_ln=True, norm_par=True, vocab_size=AYA_VOCAB_CUT) if cohere
+            else dict(norm_ln=False))
+    cfg = ModelConfig(**{**MISTRAL, "n_layers": 2, "rope_theta": 10000.0, **moe, **arch},
+                      seq_len=4096, rotary_dim=128, dtype=fmt, bos_token_id=1,
+                      eos_token_id=2)
+    name = "aya23-8b" if cohere else f"mixtral{experts}x7b" if experts else "mistral7b"
     what = f"{fmt} {name}-width"
+    light = cohere and fmt == "fp8"  # generate and prefill against the CPU only
+    rot0 = None
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, f"{name}-width-2l-{fmt}.calm")
         t0 = time.perf_counter()
         # random bits, not the bit pattern: the pattern's rows are all alike
-        synth_container(path, cfg, seed=1, device=dev, random=True)
+        synth_container(path, cfg, seed=1, device=dev, random=True, tied=cohere)
         log(f"# {what} engine: wrote {os.path.getsize(path) / 1e9:.2f} GB container "
             f"in {time.perf_counter() - t0:.1f} s")
         text_path = os.path.join(tmp, "ppl.txt")
@@ -940,11 +1211,11 @@ def container_phase(fmt, dev, experts: int = 0):
         with open(user_path, "w") as f:
             f.write("hello there\n")
         # the CLI and the HTTP server run on the card beside the checks below
-        procs = [cli(path, ["-t", "0", "-n", "16", "-i", "hello"]),
-                 cli(path, ["-x", text_path]),
-                 cli(path, ["-y", "be brief", "-n", "24", "-s", "7"], user_path)]
+        procs = [] if light else [
+            cli(path, ["-t", "0", "-n", "16", "-i", "hello"]), cli(path, ["-x", text_path]),
+            cli(path, ["-y", "be brief", "-n", "24", "-s", "7"], user_path)]
         http_args = ["--page-rows", "16"] if fmt == "gf4" else []
-        httpd = httpd_proc(path, http_args)
+        httpd = None if light else httpd_proc(path, http_args)
         eng = Engine(path)
         log(eng.banner())
         if experts:  # routing builds the expert slots on the device
@@ -978,15 +1249,18 @@ def container_phase(fmt, dev, experts: int = 0):
         # decode on the card against the plain path on the CPU, each side
         # fed the CPU's greedy id
         cpu = Engine(path, device="cpu")
-        tok, worst, ties = 1, 0.0, 0
+        tok, worst, ties, steps_cpu = 1, 0.0, 0, []
         eng.reset()
         for pos in range(8):
             lg, lc = eng.step(tok, pos), cpu.step(tok, pos)
             worst = max(worst, float(np.abs(lg - lc).max() / np.abs(lc).max()))
             ties += not greedy_agrees(f"{what} step {pos}", int(lg.argmax()), lc, TOL_STEP)
+            steps_cpu.append((tok, lc))
             tok = int(lc.argmax())
         if worst > TOL_STEP:
             fail(f"{what}: logits differ from the CPU by {worst:.3e} > {TOL_STEP}")
+        if fmt == "gf4" and not experts and not cohere:
+            rot0 = unrotated_steps(eng, steps_cpu, what)
         eng.reset()
         cpu.reset()
         p_toks = eng.tokenizer.encode(prompt, bos=True)
@@ -1014,6 +1288,12 @@ def container_phase(fmt, dev, experts: int = 0):
         if not worst <= TOL_PREFILL:
             fail(f"{what}: logits after prefill differ from the CPU by {worst:.3e} "
                  f"> {TOL_PREFILL}")
+        if light:
+            log(f"# {what} prefill vs cpu: {len(toks)} tokens, then 8 steps: logits diff "
+                f"{worst:.3e} of scale (tol {TOL_PREFILL:g}); next 8 greedy ids {ids}, "
+                f"{ties} near-ties; container phase {time.perf_counter() - t0:.1f} s")
+            del eng, cpu
+            return counts, tokens, rot0
         pg, pc = eng.perplexity(PROMPT_LONG * 3), cpu.perplexity(PROMPT_LONG * 3)
         if not abs(pg[0] - pc[0]) <= 1e-2 * pc[0] or pg[2] != pc[2]:
             fail(f"{what}: perplexity {pg} != CPU {pc}")
@@ -1038,12 +1318,12 @@ def container_phase(fmt, dev, experts: int = 0):
             else:
                 log(f"# {what} cli -y: {len(out)} characters, exit 0")
         t_serve = time.perf_counter()
-        serving_checks(path, what, cpu, full=not experts)
+        serving_checks(path, what, cpu, full=not (experts or cohere))
         http_check(httpd, what + (" paged" if http_args else ""))
         log(f"# {what}: container phase {time.perf_counter() - t0:.1f} s, of it serving "
             f"{time.perf_counter() - t_serve:.1f} s")
         del eng, cpu
-    return counts, tokens
+    return counts, tokens, rot0
 
 # Serving: requests of 5-150 tokens, greedy and host-sampled (the
 # per-request xorshift stream makes card and CPU draws comparable); two of
@@ -1248,13 +1528,32 @@ def profile_tokens(run, n_tok: int, ms_tok: float, label: str):
         f"token: {top}")
 
 
-def full_width_phase(fmt, dev, gbps, smi, experts: int = 0):
+def rate_share(gb_s: float) -> str:
+    """A rate's share of the card's nominal HBM rate and, once the tools
+    phase has measured it, of the attainable read rate (K1, 3 GB)."""
+    out = f"{gb_s:.1f} GB/s = {100 * gb_s / RATES['nominal']:.2f}% of nominal " \
+          f"{RATES['nominal']:.0f} GB/s"
+    if RATES["attainable"]:
+        out += (f", {100 * gb_s / RATES['attainable']:.2f}% of attainable "
+                f"{RATES['attainable']:.1f} GB/s")
+    return out
+
+
+RATES = {"nominal": 3350.0, "attainable": None}
+
+
+def full_width_phase(fmt, dev, gbps, smi, experts: int = 0, cohere: bool = False):
     """32-layer Mistral-7B pattern weights, or with ``experts`` Mixtral
     8x7B (rope_theta 1e6) cut to 16 of its 32 layers (the serving phases
     need the script's time) with seeded random weights, so that tokens
     spread over the experts as a real prompt's do (the pattern would send
-    every token to experts 0 and 1): a 2048-token prefill (median of 3),
-    then bench.py's decode protocol (first32 / last32 at ctx 4096)."""
+    every token to experts 0 and 1), or with ``cohere`` Aya 23 8B at all
+    32 layers, vocab 256000, tied, seeded random weights: a 2048-token
+    prefill (median of 3), then bench.py's decode protocol (first32 /
+    last32 at ctx 4096). gf4 Mistral-7B decodes first32 once more with
+    ROTATED_DECODE off (K7 and each layer's own q/k/v), held to the
+    rotated path (K8) on the same weights. Returns the launch counts of
+    that run, or None."""
     from calm_tpu_torch import model as M
     from calm_tpu_torch.config import ModelConfig
     from calm_tpu_torch.engine import kv_cache_bytes
@@ -1263,15 +1562,22 @@ def full_width_phase(fmt, dev, gbps, smi, experts: int = 0):
     ctx, steps, T = 4096, 32, 2048
     moe = (dict(n_experts=experts, n_experts_ac=2, rope_theta=1e6, n_layers=16)
            if experts else {})
-    cfg = ModelConfig(**{**MISTRAL, "rope_theta": 10000.0, **moe}, seq_len=ctx,
-                      rotary_dim=128, norm_ln=False, dtype=fmt)
-    what = f"{fmt} mixtral{experts}x7b" if experts else f"{fmt} mistral7b"
+    arch = dict(norm_ln=True, norm_par=True) if cohere else dict(norm_ln=False)
+    cfg = ModelConfig(**{**(AYA if cohere else MISTRAL), "rope_theta": 10000.0, **moe,
+                         **arch}, seq_len=ctx, rotary_dim=128, dtype=fmt)
+    what = (f"{fmt} aya23-8b" if cohere else f"{fmt} mixtral{experts}x7b" if experts
+            else f"{fmt} mistral7b")
+    random = bool(experts) or cohere
     t0 = time.perf_counter()
-    w = synth_weights(cfg, seed=0, device=dev, random=bool(experts))
-    torch.cuda.synchronize()
+    w = synth_weights(cfg, seed=0, device=dev, random=random)
     total, bw = weight_bytes(cfg)
-    log(f"# {what}: {cfg.n_layers} layers, {total / 2**30:.2f} GiB "
-        f"{'random' if experts else 'pattern'} weights in "
+    if cohere:  # tied: the lm-head is the embedding
+        total -= w.output.data.numel() * w.output.data.element_size()
+        w.output = w.embed
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    log(f"# {what}: {cfg.n_layers} layers, vocab {cfg.vocab_size}, {total / 2**30:.2f} GiB "
+        f"{'random' if random else 'pattern'} weights in "
         f"{time.perf_counter() - t0:.1f} s; bf16 KV, ctx {ctx}")
     cache = M.KVCache.create(cfg, 1, torch.bfloat16, dev)
     gen = torch.Generator(device=dev)
@@ -1322,32 +1628,61 @@ def full_width_phase(fmt, dev, gbps, smi, experts: int = 0):
         log(f"# profile prefill {what}: the profiler saw no device time (not measured)")
 
     token = torch.zeros(1, dtype=torch.int64, device=dev)
-    for name, pos0 in (("first32", 0), ("last32", ctx - 2 * steps)):
-        M.decode_loop(cfg, w, token, pos0, cache, 2)  # warm
-        secs = []
-        for _ in range(3):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            toks, cache, logits = M.decode_loop(cfg, w, token, pos0, cache, steps)
-            torch.cuda.synchronize()
-            secs.append(time.perf_counter() - t)
+    runs = [("first32", 0), ("last32", ctx - 2 * steps)]
+    if fmt == "gf4" and not (experts or cohere):
+        runs.append(("first32 CALM_ROT=0", 0))
+    first, rot0, was = None, None, M.ROTATED_DECODE
+    for name, pos0 in runs:
+        unrotated = name.endswith("CALM_ROT=0")
+        M.ROTATED_DECODE = not unrotated
+        try:
+            M.decode_loop(cfg, w, token, pos0, cache, 2)  # warm
+            secs = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                toks, cache, logits = M.decode_loop(cfg, w, token, pos0, cache, steps)
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t)
+            if unrotated:
+                (toks, _, logits), rot0 = drive(
+                    lambda: M.decode_loop(cfg, w, token, pos0, cache, steps))
+            med = statistics.median(secs)
+            profile_tokens(lambda: M.decode_loop(cfg, w, token, pos0, cache, 4), 4,
+                           1e3 * med / steps, f"{what} {name} (pos {pos0})")
+        finally:
+            M.ROTATED_DECODE = was
         if not torch.isfinite(logits).all():
             fail(f"decode {what} {name}: non-finite logits")
-        med = statistics.median(secs)
+        if name == "first32":
+            first = (toks[0].tolist(), logits[:, 0].float().cpu().numpy())
         spread = 100 * (max(secs) - min(secs)) / med
         read = sum(bw + kv_cache_bytes(cfg, 16, pos0 + i) for i in range(steps))
         gb_s = read / 1e9 / med
         out[name] = dict(tok_s=steps / med, ms_tok=1e3 * med / steps, gb_s=gb_s,
                          pct_hbm=100 * gb_s / gbps, spread_pct=spread)
+        if RATES["attainable"]:
+            out[name]["pct_attainable"] = 100 * gb_s / RATES["attainable"]
         log(f"# decode {what} {name} (pos {pos0}): {steps / med:.2f} tok/s, "
-            f"{1e3 * med / steps:.3f} ms/tok, {gb_s:.1f} GB/s = "
-            f"{100 * gb_s / gbps:.2f}% of nominal {gbps:.0f} GB/s "
+            f"{1e3 * med / steps:.3f} ms/tok, {rate_share(gb_s)} "
             f"(median of 3, spread {spread:.2f}%) on {smi}")
-        profile_tokens(lambda: M.decode_loop(cfg, w, token, pos0, cache, 4), 4,
-                       1e3 * med / steps, f"{what} {name} (pos {pos0})")
+        if unrotated:  # against the rotated first32 on the same inputs
+            ids, lg = toks[0].tolist(), logits[:, 0].float().cpu().numpy()
+            n = next((i for i, (a, b) in enumerate(zip(ids, first[0])) if a != b), steps)
+            worst = max(float(np.abs(lg[i] - first[1][i]).max() / np.abs(first[1][i]).max())
+                        for i in range(min(n + 1, steps)))
+            if worst > TOL_STEP or rot0["gf4_offn"] != cfg.n_layers * steps:
+                fail(f"decode {what} CALM_ROT=0: logits {worst:.3e} from the rotated "
+                     f"path's (tol {TOL_STEP}), launches {rot0}")
+            if n < steps:
+                greedy_agrees(f"{what} CALM_ROT=0 id {n}", ids[n], first[1][n], TOL_STEP)
+            log(f"# decode {what} CALM_ROT=0 vs rotated: ids equal for {n} of {steps} "
+                f"steps, logits within {worst:.3e} of scale (tol {TOL_STEP:g}); "
+                f"gf4_offn {rot0['gf4_offn']} launches")
     log(f"# {what}: " + json.dumps(out))
     del w, cache
     torch.cuda.empty_cache()
+    return rot0
 
 
 def full_width_serving_phase(dev, gbps, smi):
@@ -1447,8 +1782,8 @@ def full_width_serving_phase(dev, gbps, smi):
             f"over {B} slots; decode tick {med:.3f} ms (median of each run's median: "
             f"{', '.join(f'{x:.3f}' for x in tick_ms)}; spread "
             f"{out[mode]['tick_spread_pct']:.2f}%); TTFT p50 {statistics.median(ttft):.1f} ms, "
-            f"max {ttft[-1]:.1f} ms; {gbs:.1f} GB/s per decode tick (weights + live KV) = "
-            f"{100 * gbs / gbps:.2f}% of nominal; {busy} on {smi}")
+            f"max {ttft[-1]:.1f} ms; {rate_share(gbs)} per decode tick (weights + live "
+            f"KV); {busy} on {smi}")
         del srv
         torch.cuda.empty_cache()
 
@@ -1490,6 +1825,21 @@ def full_width_serving_phase(dev, gbps, smi):
     return paged_counts
 
 
+def tools_phase(smi):
+    """``main()`` of both port tools, in-process; returns their launch
+    counts and sets the attainable HBM read rate from dma_ceiling's 3 GB
+    rows."""
+    from calm_tpu_torch.tools import dma_ceiling, gf4_bound
+
+    (dma, g4), counts = drive(lambda: (dma_ceiling.main(), gf4_bound.main()))
+    RATES["attainable"] = max(r["gb_s"] for r in dma if r["mb"] > 1e3)
+    log(f"# attainable HBM read rate: {RATES['attainable']:.1f} GB/s (K1, best 3 GB row "
+        f"of dma_ceiling) = {100 * RATES['attainable'] / RATES['nominal']:.2f}% of "
+        f"nominal {RATES['nominal']:.0f} GB/s on {smi}; gf4_bound: " + ", ".join(
+            f"{r['what']} {r['gb_s']:.0f} GB/s" for r in g4 if r["td"] in (2048, None)))
+    return counts
+
+
 def ptxas_summary(build) -> str:
     """Registers and spills of each library's kernels, from nvcc -Xptxas -v."""
     out = []
@@ -1527,22 +1877,31 @@ def main():
         fail(f"the kernels are built for sm_90a, this card is {info.sm}")
     dev = torch.device("cuda")
 
+    RATES["nominal"] = gbps
     rows = kernel_phase(gbps, dev)
     log(f"# kernel phase done at {time.perf_counter() - t_start:.1f} s")
+    # the tools' chains are K1's and K15's main path; the 3 GB rows give the
+    # attainable read rate every later GB/s is also read against
+    counts_tools = tools_phase(smi)
+    log(f"# tools done at {time.perf_counter() - t_start:.1f} s")
     # each kernel's launches come from the main path that uses it: the fp8
     # decode path (K2, K9, K12), the gf4 prefill + decode path (K3, K4, K5,
-    # K8, K13); each container is then served (Server, httpd)
-    counts8, tok8 = container_phase("fp8", dev)
-    counts4, tok4 = container_phase("gf4", dev)
+    # K8, K13) and its CALM_ROT=0 decode (K7); each container is then served
+    # (Server, httpd)
+    counts8, tok8, _ = container_phase("fp8", dev)
+    counts4, tok4, counts_rot0 = container_phase("gf4", dev)
+    # the parallel-norm (Cohere) paths: gf4 prefill + decode (K6)
+    counts4c, tok4c, _ = container_phase("gf4", dev, cohere=True)
+    container_phase("fp8", dev, cohere=True)
     # and the MoE paths: fp8 decode (K10), gf4 decode (K11)
-    counts8m, tok8m = container_phase("fp8", dev, experts=4)
-    counts4m, tok4m = container_phase("gf4", dev, experts=4)
+    counts8m, tok8m, _ = container_phase("fp8", dev, experts=4)
+    counts4m, tok4m, _ = container_phase("gf4", dev, experts=4)
     log(f"# container phases done at {time.perf_counter() - t_start:.1f} s")
-    for experts in (0, EXPERTS):
+    for experts, cohere in ((0, False), (0, True), (EXPERTS, False)):
         for fmt in ("fp8", "gf4"):
-            full_width_phase(fmt, dev, gbps, smi, experts)
-            log(f"# full-width {fmt} {experts} experts done at "
-                f"{time.perf_counter() - t_start:.1f} s")
+            full_width_phase(fmt, dev, gbps, smi, experts, cohere)
+            log(f"# full-width {fmt} {experts} experts{' aya23-8b' if cohere else ''} "
+                f"done at {time.perf_counter() - t_start:.1f} s")
     # the paged serving path: K12 in paged mode
     counts_pg = full_width_serving_phase(dev, gbps, smi)
     log(f"# full-width serving done at {time.perf_counter() - t_start:.1f} s")
@@ -1568,7 +1927,15 @@ def main():
                "qmm_moe_dense": ("calm_tpu_torch/csrc/moe.cu",
                                  "calm_tpu/ops/pallas_qmm.py:1248", counts8m),
                "gf4_moe_ffn": ("calm_tpu_torch/csrc/moe.cu",
-                               "calm_tpu/ops/pallas_qmm.py:1361", counts4m)}
+                               "calm_tpu/ops/pallas_qmm.py:1361", counts4m),
+               "gf4_ffn": ("calm_tpu_torch/csrc/qmm.cu",
+                           "calm_tpu/ops/pallas_qmm.py:464", counts4c),
+               "gf4_offn": ("calm_tpu_torch/csrc/qmm.cu",
+                            "calm_tpu/ops/pallas_qmm.py:601", counts_rot0),
+               "stream_sum": ("calm_tpu_torch/csrc/stream.cu",
+                              "tools/dma_ceiling.py:26", counts_tools),
+               "gf4_decode_sum": ("calm_tpu_torch/csrc/stream.cu",
+                                  "tools/gf4_bound.py:55", counts_tools)}
     kernels = []
     for name, (src, rep, counts) in sources.items():
         if counts[name] <= 0:
@@ -1579,8 +1946,8 @@ def main():
                             ms=r["ms"], plain_ms=r["plain_ms"],
                             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                             library_ms=r["library_ms"], timed_by=r["timed_by"]))
-    log(f"# main paths: fp8 {tok8} positions, gf4 {tok4}, fp8 MoE {tok8m}, gf4 MoE "
-        f"{tok4m}; total "
+    log(f"# main paths: fp8 {tok8} positions, gf4 {tok4}, gf4 Aya-width {tok4c}, fp8 "
+        f"MoE {tok8m}, gf4 MoE {tok4m}; total "
         f"{time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": kernels}))

@@ -21,7 +21,9 @@ MODULES = ["calm_tpu_torch", "calm_tpu_torch.config", "calm_tpu_torch.container"
            "calm_tpu_torch.ops.hopper_qmm", "calm_tpu_torch.ops.hopper_attn",
            "calm_tpu_torch.model", "calm_tpu_torch.engine",
            "calm_tpu_torch.cli", "calm_tpu_torch.utils.synth",
-           "calm_tpu_torch.paged", "calm_tpu_torch.serve", "calm_tpu_torch.httpd"]
+           "calm_tpu_torch.paged", "calm_tpu_torch.serve", "calm_tpu_torch.httpd",
+           "calm_tpu_torch.ops.hopper_stream", "calm_tpu_torch.tools.dma_ceiling",
+           "calm_tpu_torch.tools.gf4_bound"]
 
 
 def test_import_leaves_jax_out():
