@@ -11,9 +11,10 @@ Env hooks:
   CALM_POSO=N    offset positions by N (late-context decode profiling)
   CALM_CPU=1     run on the CPU (plain PyTorch path); the GPU otherwise
 
--x prints ``# perplexity: P ± E``; -y chats (sampled on the host with the
-reference's xorshift64* stream; -n bounds each reply, -1 leaves it
-unbounded). -r (several sequences) and --draft are not ported yet and
+-x prints ``# perplexity: P ± E``; -y chats (-n bounds each reply, -1
+leaves it unbounded). ``-t > 0`` samples on the device;
+``--reference-sampling`` samples on the host with the reference's
+xorshift64* stream instead, bit for bit as ``calm_tpu.cli``'s flag. -r (several sequences) and --draft are not ported yet and
 exit 2 with a message saying so.
 
     python -m calm_tpu_torch.cli model.calm -t 0 -n 64 -i "..."
@@ -55,6 +56,9 @@ def main(argv=None):
                     help="chat mode with this system prompt")
     ap.add_argument("--kv", dest="kv", type=str, default=None,
                     choices=["bf16", "fp16", "fp8"], help="KV cache dtype")
+    ap.add_argument("--reference-sampling", action="store_true",
+                    help="per-token host sampling with the reference's "
+                    "xorshift64* stream (default: on the device)")
     ap.add_argument("-r", dest="sequences", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--draft", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
@@ -114,11 +118,13 @@ def main(argv=None):
     elif args.system is not None:
         chat_loop(engine, args.system, prompt, temperature=args.temperature,
                   minp=args.minp, seed=seed,
+                  reference_sampling=args.reference_sampling,
                   max_reply=steps if steps > 0 else None)
     else:
         stats = engine.generate(
             prompt or "", steps, temperature=args.temperature, minp=args.minp,
             seed=seed, pos_offset=pos_offset, echo=True,
+            reference_sampling=args.reference_sampling,
             on_piece=lambda s: print(s, end="", flush=True))
         print()
         print(stats.perf_line(), file=sys.stderr)

@@ -35,6 +35,20 @@
 // A second small launch merges the chunks with the max-rescale of
 // calm_tpu/model.py:569-576 and normalises. Chunks past kv_len exit early
 // after writing an empty state, so nothing beyond kv_len is read.
+//
+// Partials mode replaces _attn_kernel_partials (pallas_attn.py:57, outputs
+// :284-287): the merge folds the chunks into one unnormalised state per
+// query row, acc (not divided by l), m (the max of the scaled scores) and
+// l, in JAX's convention: a row with nothing visible gives m = -inf, l = 0,
+// acc = 0. Sequence-parallel decode closes it across shards with one pmax
+// and two psums (calm_tpu/model.py:557-576). Like JAX it takes neither the
+// fresh rows nor a page table.
+//
+// Head dims 64, 96, 128 and 256 (HPL = hd / 32 elements a lane). A block
+// holds at most MM query rows of its kv head in registers (16, or 8 at
+// HPL 8, where 16 rows of q and acc would pass 255 registers); a kv head
+// with more rows than that takes several row tiles, one a grid z index,
+// each reading the same cache rows.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -83,6 +97,7 @@ struct AttnArgs {
   float* pm;              // (B, KVH, NC, M)
   float* pl;
   int B, KVH, M, S, layer, CS, NC, NP, PR;  // S: the logical window
+  int NT;                 // row tiles of MM rows per kv head
   float scale;
 };
 
@@ -117,28 +132,30 @@ __device__ __forceinline__ void attend_row(const void* kb, const void* vb,
   }
 }
 
-// MM: compile-time bound on M (registers hold MM query rows); PAGED: rows
-// addressed through the page table
+// MM: compile-time bound on the rows of one tile (registers hold MM query
+// rows); PAGED: rows addressed through the page table
 template <int HPL, int KVT, int MM, bool PAGED>
 __global__ void __launch_bounds__(AWARPS * 32) attn_chunk_kernel(AttnArgs a) {
   constexpr int HD = HPL * 32;
-  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int c = blockIdx.x, h = blockIdx.y;
+  const int b = blockIdx.z / a.NT, m0 = (blockIdx.z % a.NT) * MM;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int M = a.M;
+  const int M = a.M, Mt = min(MM, M - m0);  // this tile's rows m0 .. m0 + Mt
   const int kv_len = a.kv_len[b];
   const int dead = a.kv_pos ? a.kv_pos[b] : -1;
   const size_t pidx = ((size_t)b * a.KVH + h) * a.NC + c;
+  const size_t prow = pidx * M + m0;  // the tile's first row of pm / pl
 
   const int s0 = c * a.CS;
   const int s1 = min(min(s0 + a.CS, kv_len), a.S);
   const bool seed = a.fk != nullptr && c == 0;
   if (s0 >= s1 && !seed) {  // nothing of this chunk is visible
-    for (int i = threadIdx.x; i < M; i += blockDim.x) {
-      a.pm[pidx * M + i] = -INFINITY;
-      a.pl[pidx * M + i] = 0.f;
+    for (int i = threadIdx.x; i < Mt; i += blockDim.x) {
+      a.pm[prow + i] = -INFINITY;
+      a.pl[prow + i] = 0.f;
     }
-    for (int i = threadIdx.x; i < M * HD; i += blockDim.x)
-      a.pacc[pidx * M * HD + i] = 0.f;
+    for (int i = threadIdx.x; i < Mt * HD; i += blockDim.x)
+      a.pacc[prow * HD + i] = 0.f;
     return;
   }
 
@@ -151,14 +168,15 @@ __global__ void __launch_bounds__(AWARPS * 32) attn_chunk_kernel(AttnArgs a) {
 #pragma unroll
     for (int i = 0; i < HPL; i++) {
       acc[m][i] = 0.f;
-      qr[m][i] = m < M ? a.q[(((size_t)b * a.KVH + h) * M + m) * HD + i * 32 + lane]
-                       : 0.f;
+      qr[m][i] = m < Mt
+          ? a.q[(((size_t)b * a.KVH + h) * M + m0 + m) * HD + i * 32 + lane]
+          : 0.f;
     }
   }
 
   if (seed && warp == 0) {
     const size_t off = ((size_t)b * a.KVH + h) * HD;
-    attend_row<HPL, KVT, MM>(a.fk, a.fv, off, lane, M, qr, mrun, lrun, acc, a.scale);
+    attend_row<HPL, KVT, MM>(a.fk, a.fv, off, lane, Mt, qr, mrun, lrun, acc, a.scale);
   }
   const size_t plane =
       ((((size_t)a.layer * a.NP + b) * a.KVH + h) * (size_t)a.S) * HD;
@@ -172,16 +190,16 @@ __global__ void __launch_bounds__(AWARPS * 32) attn_chunk_kernel(AttnArgs a) {
     } else {
       off = plane + (size_t)s * HD;
     }
-    attend_row<HPL, KVT, MM>(a.k, a.v, off, lane, M, qr, mrun, lrun, acc, a.scale);
+    attend_row<HPL, KVT, MM>(a.k, a.v, off, lane, Mt, qr, mrun, lrun, acc, a.scale);
   }
 
-  // merge the warps' states: sm = [AWARPS][M][HD + 2]
+  // merge the warps' states: sm = [AWARPS][Mt][HD + 2]
   extern __shared__ float sm[];
   const int stride = HD + 2;
 #pragma unroll
   for (int m = 0; m < MM; m++) {
-    if (m < M) {
-      float* row = sm + (warp * M + m) * stride;
+    if (m < Mt) {
+      float* row = sm + (warp * Mt + m) * stride;
 #pragma unroll
       for (int i = 0; i < HPL; i++) row[i * 32 + lane] = acc[m][i];
       if (lane == 0) {
@@ -191,31 +209,33 @@ __global__ void __launch_bounds__(AWARPS * 32) attn_chunk_kernel(AttnArgs a) {
     }
   }
   __syncthreads();
-  for (int t = threadIdx.x; t < M * HD; t += blockDim.x) {
+  for (int t = threadIdx.x; t < Mt * HD; t += blockDim.x) {
     const int m = t / HD, d = t % HD;
     float mx = -INFINITY;
-    for (int w = 0; w < AWARPS; w++) mx = fmaxf(mx, sm[(w * M + m) * stride + HD]);
+    for (int w = 0; w < AWARPS; w++) mx = fmaxf(mx, sm[(w * Mt + m) * stride + HD]);
     float o = 0.f, l = 0.f;
     if (mx != -INFINITY) {
       for (int w = 0; w < AWARPS; w++) {
-        const float* row = sm + (w * M + m) * stride;
+        const float* row = sm + (w * Mt + m) * stride;
         const float f = expf(row[HD] - mx);
         o += row[d] * f;
         l += row[HD + 1] * f;
       }
     }
-    a.pacc[pidx * M * HD + t] = o;
+    a.pacc[prow * HD + t] = o;
     if (d == 0) {
-      a.pm[pidx * M + m] = mx;
-      a.pl[pidx * M + m] = l;
+      a.pm[prow + m] = mx;
+      a.pl[prow + m] = l;
     }
   }
 }
 
-// out (B, KVH * M, hd) = merged, normalised chunks; one block per (b, head)
+// out (B, KVH * M, hd) = merged, normalised chunks; one block per (b, head).
+// Partials mode (mo != null): out = the merged acc, not divided by l, and
+// mo / lo (B, KVH * M) = the merged max and sum.
 __global__ void attn_merge_kernel(const float* pacc, const float* pm,
-                                  const float* pl, float* out, int KVH, int M,
-                                  int NC, int HD) {
+                                  const float* pl, float* out, float* mo,
+                                  float* lo, int KVH, int M, int NC, int HD) {
   const int bh = blockIdx.x;  // b * KVH * M + h * M + m
   const int m = bh % M, h = (bh / M) % KVH, b = bh / (M * KVH);
   const size_t base = ((size_t)b * KVH + h) * NC;
@@ -230,28 +250,40 @@ __global__ void attn_merge_kernel(const float* pacc, const float* pm,
       o += pacc[((base + c) * M + m) * HD + d] * f;
       l += pl[(base + c) * M + m] * f;
     }
-    out[(size_t)bh * HD + d] = o / l;
+    if (mo == nullptr) {
+      out[(size_t)bh * HD + d] = o / l;
+    } else {
+      out[(size_t)bh * HD + d] = o;
+      if (d == 0) {
+        mo[bh] = mx;
+        lo[bh] = l;
+      }
+    }
   }
 }
 
 template <int HPL, int KVT, int MM, bool PAGED>
 cudaError_t launch_chunks(const AttnArgs& a, cudaStream_t st) {
-  const int smem = AWARPS * a.M * (HPL * 32 + 2) * (int)sizeof(float);
+  const int smem = AWARPS * min(a.M, MM) * (HPL * 32 + 2) * (int)sizeof(float);
   cudaError_t e = cudaSuccess;
   if (smem > 48 * 1024)
     e = cudaFuncSetAttribute(attn_chunk_kernel<HPL, KVT, MM, PAGED>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  dim3 grid(a.NC, a.KVH, a.B);
-  attn_chunk_kernel<HPL, KVT, MM, PAGED><<<grid, AWARPS * 32, smem, st>>>(a);
+  AttnArgs t = a;
+  t.NT = (a.M + MM - 1) / MM;
+  dim3 grid(a.NC, a.KVH, a.B * t.NT);
+  attn_chunk_kernel<HPL, KVT, MM, PAGED><<<grid, AWARPS * 32, smem, st>>>(t);
   return cudaGetLastError();
 }
 
+// the rows of a tile: as few as M needs, at most MAXM (8 at HPL 8)
 template <int HPL, int KVT, bool PAGED>
 cudaError_t launch_m(const AttnArgs& a, cudaStream_t st) {
+  constexpr int CAP = HPL >= 8 ? 8 : MAXM;
   if (a.M <= 4) return launch_chunks<HPL, KVT, 4, PAGED>(a, st);
-  if (a.M <= 8) return launch_chunks<HPL, KVT, 8, PAGED>(a, st);
-  return launch_chunks<HPL, KVT, MAXM, PAGED>(a, st);
+  if (a.M <= 8 || CAP == 8) return launch_chunks<HPL, KVT, 8, PAGED>(a, st);
+  return launch_chunks<HPL, KVT, CAP, PAGED>(a, st);
 }
 
 template <int HPL, bool PAGED>
@@ -279,10 +311,11 @@ cudaError_t launch_paged(int kvt, const AttnArgs& a, cudaStream_t st) {
 // it does ~170 flops per byte read from the cache by each of the T / 16
 // query blocks, so device memory is not the limit.
 //
-// Design: a block per (query tile, kv head, b). Its 64 rows pack the
-// M = H / KVH query heads of the kv head (row r = query t0 + r / M, head
-// r % M), as the TPU kernel does (:340-342), so each staged cache tile
-// serves every head that reads it. Four warps own 16 rows each. The block
+// Design: a block per (query tile, kv head, b). The T * M (query, head)
+// rows of a kv head are numbered R = t * M + m and a block takes 64 of
+// them (row R = query R / M, head R % M), so the heads of a query share
+// the staged cache tiles, as the TPU kernel packs them (:340-342), and
+// any M fits: a query's heads may span two blocks. Four warps own 16 rows each. The block
 // walks 64-row cache tiles from 0 to its own causal limit, a pure loop:
 // blocks run in no order and carry nothing between them. Each tile is
 // staged into shared memory as bf16 (bf16 and fp8 e5m2 exactly, fp16
@@ -380,23 +413,23 @@ __global__ void __launch_bounds__(PF_WARPS * 32) prefill_kernel(PfArgs a) {
   auto sV = sK + PF_BC;
 
   const int h = blockIdx.y, b = blockIdx.z;
-  const int M = a.M, bqt = PF_ROWS / M;  // query positions per block
-  const int t0 = blockIdx.x * bqt;
+  const int M = a.M, TM = a.T * M;
+  const int R0 = blockIdx.x * PF_ROWS;  // the block's first (query, head) row
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t4 = lane & 3;
   const int pos0 = a.pos0[b];
   const int kv_len = min(a.kv_len[b], a.S);
-  const int t_last = min(t0 + bqt, a.T) - 1;
+  const int t_last = (min(R0 + PF_ROWS, TM) - 1) / M;
   const int c_end = min(kv_len, pos0 + t_last + 1);  // rows any query here sees
 
   // the block's query rows in bf16 (zeros past the end)
   for (int i = threadIdx.x; i < PF_ROWS * HD / 4; i += PF_WARPS * 32) {
     const int r = i / (HD / 4), c4 = (i % (HD / 4)) * 4;
-    const int t = t0 + r / M;
+    const int R = R0 + r;
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r < bqt * M && t < a.T)
+    if (R < TM)
       v = *reinterpret_cast<const float4*>(
-          a.q + ((((size_t)b * a.T + t) * a.KVH + h) * M + r % M) * HD + c4);
+          a.q + ((((size_t)b * a.T + R / M) * a.KVH + h) * M + R % M) * HD + c4);
     *reinterpret_cast<uint2*>(&sQ[r][c4]) =
         make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
   }
@@ -406,11 +439,10 @@ __global__ void __launch_bounds__(PF_WARPS * 32) prefill_kernel(PfArgs a) {
   float* orow[2];
 #pragma unroll
   for (int i = 0; i < 2; i++) {
-    const int r = warp * 16 + g + 8 * i;
-    const int t = t0 + r / M;
-    const bool ok = r < bqt * M && t < a.T;
-    qpos[i] = ok ? pos0 + t : -1;  // -1 sees nothing
-    orow[i] = ok ? a.out + ((((size_t)b * a.T + t) * a.KVH + h) * M + r % M) * HD
+    const int R = R0 + warp * 16 + g + 8 * i;
+    const bool ok = R < TM;
+    qpos[i] = ok ? pos0 + R / M : -1;  // -1 sees nothing
+    orow[i] = ok ? a.out + ((((size_t)b * a.T + R / M) * a.KVH + h) * M + R % M) * HD
                  : nullptr;
   }
 
@@ -545,8 +577,7 @@ cudaError_t launch_prefill_kvt(const PfArgs& a, dim3 grid, cudaStream_t st) {
 
 template <int HD>
 cudaError_t launch_prefill(int kvt, const PfArgs& a, cudaStream_t st) {
-  const int bqt = PF_ROWS / a.M;
-  dim3 grid((a.T + bqt - 1) / bqt, a.KVH, a.B);
+  dim3 grid((a.T * a.M + PF_ROWS - 1) / PF_ROWS, a.KVH, a.B);
   if (kvt == 0) return launch_prefill_kvt<HD, 0>(a, grid, st);
   if (kvt == 1) return launch_prefill_kvt<HD, 1>(a, grid, st);
   return launch_prefill_kvt<HD, 2>(a, grid, st);
@@ -556,17 +587,18 @@ cudaError_t launch_prefill(int kvt, const PfArgs& a, cudaStream_t st) {
 
 extern "C" {
 
-// kvt: 0 fp16, 1 bf16, 2 fp8 e5m2; hd in {64, 128}; M <= 16.
+// kvt: 0 fp16, 1 bf16, 2 fp8 e5m2; hd in {64, 96, 128, 256}; any M.
 // fk/fv/kv_pos null for plain mode. pt null for a dense cache (NP = B
 // slots of S rows), else the (B, S / PR) page table of a pool of NP pages
 // of PR rows (S: the logical window). Scratch pacc/pm/pl sized by the
-// caller for NC = ceil(S / CS) chunks.
+// caller for NC = ceil(S / CS) chunks. mo/lo null for the normalised
+// output; else partials mode: out = acc, mo/lo (B, KVH * M) = m and l.
 int calm_decode_attention(const void* q, const void* k, const void* v,
                           const void* kv_len, const void* fk, const void* fv,
                           const void* kv_pos, const void* pt, void* pacc,
-                          void* pm, void* pl, void* out, int B, int KVH, int M,
-                          int S, int hd, int layer, int CS, int kvt, int NP,
-                          int PR, void* stream) {
+                          void* pm, void* pl, void* out, void* mo, void* lo,
+                          int B, int KVH, int M, int S, int hd, int layer,
+                          int CS, int kvt, int NP, int PR, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   AttnArgs a;
   a.q = static_cast<const float*>(q);
@@ -589,22 +621,26 @@ int calm_decode_attention(const void* q, const void* k, const void* v,
   a.NC = (S + CS - 1) / CS;
   a.NP = NP;
   a.PR = PR;
+  a.NT = 1;
   a.scale = 1.0f / sqrtf((float)hd);
   cudaError_t e;
-  if (hd == 64)
-    e = launch_paged<2>(kvt, a, st);
-  else
-    e = launch_paged<4>(kvt, a, st);
+  switch (hd) {
+    case 64: e = launch_paged<2>(kvt, a, st); break;
+    case 96: e = launch_paged<3>(kvt, a, st); break;
+    case 128: e = launch_paged<4>(kvt, a, st); break;
+    case 256: e = launch_paged<8>(kvt, a, st); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
   if (e != cudaSuccess) return (int)e;
-  attn_merge_kernel<<<B * KVH * M, 128, 0, st>>>(a.pacc, a.pm, a.pl,
-                                                 static_cast<float*>(out), KVH,
-                                                 M, a.NC, hd);
+  attn_merge_kernel<<<B * KVH * M, 128, 0, st>>>(
+      a.pacc, a.pm, a.pl, static_cast<float*>(out), static_cast<float*>(mo),
+      static_cast<float*>(lo), KVH, M, a.NC, hd);
   return (int)cudaGetLastError();
 }
 
 // q/out (B, T, KVH, M, hd) f32, caches (L, Bc, KVH, S, hd) in kvt (0 fp16,
 // 1 bf16, 2 fp8 e5m2) of which sequence b reads slot boff + b, pos0/kv_len
-// (B,) int32; hd in {64, 128}; M <= 64.
+// (B,) int32; hd in {64, 96, 128, 256}; any M.
 int calm_prefill_attention(const void* q, const void* k, const void* v,
                            const void* pos0, const void* kv_len, void* out,
                            int B, int T, int KVH, int M, int S, int hd,
@@ -626,8 +662,13 @@ int calm_prefill_attention(const void* q, const void* k, const void* v,
   a.boff = boff;
   a.scale_log2 = 1.4426950408889634f / sqrtf((float)hd);
   cudaStream_t st = (cudaStream_t)stream;
-  return (int)(hd == 64 ? launch_prefill<64>(kvt, a, st)
-                        : launch_prefill<128>(kvt, a, st));
+  switch (hd) {
+    case 64: return (int)launch_prefill<64>(kvt, a, st);
+    case 96: return (int)launch_prefill<96>(kvt, a, st);
+    case 128: return (int)launch_prefill<128>(kvt, a, st);
+    case 256: return (int)launch_prefill<256>(kvt, a, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 const char* calm_attn_error_string(int e) {

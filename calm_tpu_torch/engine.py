@@ -10,9 +10,12 @@
 - the prompt goes through batched ``prefill`` in chunks of
   ``PREFILL_CHUNK``; tokens past the window are stepped;
 - greedy decode runs ``decode_loop`` chunks with the argmax on the
-  device; ``temperature > 0`` samples min-p on the host with the
-  reference's xorshift64* stream (the JAX package's
-  ``reference_sampling=True`` path);
+  device; ``temperature > 0`` samples min-p on the device by default
+  (``decode_loop`` with ``sampler.device_sample`` on each step's
+  logits, a ``torch.Generator`` seeded from ``seed``), and with
+  ``reference_sampling=True`` on the host with the reference's xorshift64*
+  stream, as the JAX package's flag of that name (``calm_tpu/engine.py
+  :182-233``);
 - perplexity with a running mean +- standard error (src/run.c:258-316),
   and chat with vocab-sniffed templates (src/run.c:318-419);
 - fp8 KV is chosen for contexts above 4096 (src/run.c:536-540);
@@ -178,12 +181,32 @@ class Engine:
 
     # -- generate -------------------------------------------------------------
 
+    def _sampling(self, seed: int, temperature: float, minp: float):
+        """A device generator seeded from ``seed`` and the (1,) temperature
+        and minp tensors of ``decode_loop``'s sampling."""
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(seed)
+        return (gen, torch.full((1,), temperature, device=self.device),
+                torch.full((1,), minp, device=self.device))
+
+    def _chunk(self, token: int, pos: int, n: int, sampling):
+        """``n`` tokens from ``token`` at ``pos``, greedy or sampled on the
+        device: (ids, per-step logits (n, 1, V) on the device)."""
+        toks, self.cache, logits = M.decode_loop(
+            self.cfg, self.weights, self._token(token), pos, self.cache, n, sampling)
+        return toks[0].tolist(), logits
+
     def generate(self, prompt: str = "", steps: int = 256, *,
                  temperature: float = 1.0, minp: float = 0.1, seed: int = 42,
                  pos_offset: int = 0, echo: bool = False,
+                 reference_sampling: bool = False,
                  on_piece: Callable[[str], None] | None = None) -> GenStats:
         """Decode one sequence (src/run.c:167-256): prompt tokens forced,
-        stop on bos/eos/eot, perf accounting per token."""
+        stop on bos/eos/eot, perf accounting per token. Greedy and, by
+        default, sampled decode run in chunks with the token chosen on the
+        device; ``reference_sampling=True`` samples each token on the host
+        with the xorshift64* stream, bit for bit as the JAX package's
+        flag."""
         tok = self.tokenizer
         cfg = self.cfg
         sampler = Sampler(cfg.vocab_size, seed, temperature, minp)
@@ -222,19 +245,18 @@ class Engine:
         logits_last = None
         stops = (tok.bos_id, tok.eos_id, tok.eot_id)
         greedy = temperature == 0.0 or minp >= 1.0
+        host = reference_sampling and not greedy
+        sampling = None if greedy or host else self._sampling(seed, temperature, minp)
 
         stopped = False
         while not stopped and (pos < steps or steps < 0):
-            if greedy:
-                n = self.CHUNK if steps < 0 else max(1, min(self.CHUNK, steps - pos))
-                toks_d, self.cache, logits_d = M.decode_loop(
-                    cfg, self.weights, self._token(token), pos + pos_offset,
-                    self.cache, n)
-                chunk = toks_d[0].tolist()
-            else:
+            if host:
                 logits_d = None
                 logits_last = self.step(token, pos + pos_offset)
                 chunk = [sampler.sample(logits_last)]
+            else:
+                n = self.CHUNK if steps < 0 else max(1, min(self.CHUNK, steps - pos))
+                chunk, logits_d = self._chunk(token, pos + pos_offset, n, sampling)
             for i, nxt in enumerate(chunk):
                 read_bytes += self.n_bandwidth
                 read_bytes += kv_cache_bytes(cfg, self.kv_bits, pos + pos_offset)
@@ -335,16 +357,23 @@ def chat_template(tokenizer: Tokenizer, has_system: bool) -> str:
 
 def chat_loop(engine: Engine, system_prompt: str = "", cli_prompt: str | None = None,
               *, temperature: float = 1.0, minp: float = 0.1, seed: int = 42,
+              reference_sampling: bool = False,
               read_line: Callable[[], str] = input,
               write: Callable[[str], None] = lambda s: print(s, end="", flush=True),
               max_turns: int | None = None, max_reply: int | None = None):
     """Interactive chat (src/run.c:349-419, ``calm_tpu/engine.py:378-441``)
-    with injected IO. Each reply is sampled token by token on the host with
-    the xorshift64* stream (the JAX package's ``reference_sampling=True``
-    path) and ends at eos/eot, or after ``max_reply`` tokens when given.
-    The session ends at EOF on ``read_line`` or after ``max_turns``."""
+    with injected IO. Each reply decodes in chunks of ``Engine.CHUNK``
+    tokens sampled on the device, as the JAX package's default (tokens
+    past the stop are dropped; the next turn's prefill overwrites their
+    rows), or with ``reference_sampling=True`` token by token on the host
+    with the xorshift64* stream. A reply ends at eos/eot, or after
+    ``max_reply`` tokens when given. The session ends at EOF on
+    ``read_line`` or after ``max_turns``."""
     tok = engine.tokenizer
     sampler = Sampler(engine.cfg.vocab_size, seed, temperature, minp)
+    greedy = temperature == 0.0 or minp >= 1.0
+    sampling = (None if greedy or reference_sampling
+                else engine._sampling(seed, temperature, minp))
     pos = 0
     turns = 0
     while max_turns is None or turns < max_turns:
@@ -367,14 +396,21 @@ def chat_loop(engine: Engine, system_prompt: str = "", cli_prompt: str | None = 
         pos += len(prompt_tokens) - 1
         token = prompt_tokens[-1]
         n = 0
-        while True:
-            nxt = sampler.sample(engine.step(token, pos))
-            pos += 1
-            n += 1
-            if nxt in (tok.eos_id, tok.eot_id) or (max_reply is not None
-                                                   and n >= max_reply):
-                write("\n\n")
-                break
-            write(tok.decode_piece(token, nxt).decode("utf-8", errors="replace"))
-            token = nxt
+        stopped = False
+        while not stopped:
+            if reference_sampling and not greedy:
+                chunk = [sampler.sample(engine.step(token, pos))]
+            else:
+                k = engine.CHUNK if max_reply is None else min(engine.CHUNK, max_reply - n)
+                chunk = engine._chunk(token, pos, k, sampling)[0]
+            for nxt in chunk:
+                pos += 1
+                n += 1
+                if nxt in (tok.eos_id, tok.eot_id) or (max_reply is not None
+                                                       and n >= max_reply):
+                    write("\n\n")
+                    stopped = True
+                    break
+                write(tok.decode_piece(token, nxt).decode("utf-8", errors="replace"))
+                token = nxt
         turns += 1

@@ -46,6 +46,18 @@ through the Hopper kernels (products of more than 16 rows of fp8/fp16, or
 ``qmm_prefill_w2``); on the CPU the wrappers run their plain versions.
 fp8e4 weights on the card belong to a later slice and raise
 NotImplementedError.
+
+Under a ``ShardingPlan`` the same functions are one rank's program on its
+local weights and cache, with the collectives on a
+``parallel.mesh.Mesh`` in place of JAX's axis names (``calm_tpu/model.py
+:452-576``, ``:977-1050``): tp closes wo's and the FFN's partial sums
+(``rs_ag``: a reduce-scatter and an all-gather), the vocab-sharded embed
+with a masked lookup and a psum and the OLMoE qk-norm with a scalar psum;
+ep sweeps the rank's resident experts; sp decode writes a row on the shard
+that owns it, rotates the sinks on shard 0 and merges K12's partials (one
+pmax, two psums); sp prefill attends over the all-gathered K/V. Decode
+under tp, sp or ep runs per op (no fused epilogue). ``parallel.sharding``
+cuts the local tensors and gathers the logits.
 """
 
 from __future__ import annotations
@@ -59,7 +71,8 @@ import torch
 
 from calm_tpu_torch.config import ModelConfig
 from calm_tpu_torch.container import TensorFile, to_torch
-from calm_tpu_torch.ops.hopper_attn import decode_attention, prefill_attention
+from calm_tpu_torch.ops.hopper_attn import (HEAD_DIMS, decode_attention,
+                                            prefill_attention)
 from calm_tpu_torch.ops.hopper_qmm import (MAX_ROWS, act, gf4_ffn,
                                            gf4_ffn_supported, gf4_moe_ffn,
                                            gf4_offn, gf4_offn_qkv,
@@ -71,6 +84,8 @@ from calm_tpu_torch.ops.norms import rmsnorm
 from calm_tpu_torch.ops.qmm import (STORAGE, QTensor, dense_matmul,
                                     embed_lookup, qmatmul)
 from calm_tpu_torch.ops.rope import apply_rope, rope_tables
+from calm_tpu_torch.parallel.plan import NO_SHARDING, ShardingPlan
+from calm_tpu_torch.sampler import device_sample
 
 KV_SINKS = 2  # attention sinks kept live in the rolling window
 
@@ -126,9 +141,21 @@ class KVCache:
 
 
 def check_supported(cfg: ModelConfig, device) -> None:
-    """Raise NotImplementedError for configurations of later slices."""
-    if torch.device(device).type == "cuda" and cfg.dtype == "fp8e4":
+    """Raise NotImplementedError at load for what the card's kernels do
+    not take: fp8e4 weights (a later slice), head dims the attention
+    kernels are not built for, and fp8/fp16 contraction dims the matvec
+    kernel cannot split (``hopper_qmm._check_cuda``)."""
+    if torch.device(device).type != "cuda":
+        return
+    if cfg.dtype == "fp8e4":
         raise NotImplementedError("fp8e4 weights on the GPU wait for the fp8e4 slice")
+    if cfg.head_dim not in HEAD_DIMS:
+        raise NotImplementedError(f"head_dim {cfg.head_dim}: the attention kernels "
+                                  f"take {HEAD_DIMS}")
+    odd = [n for n in (cfg.dim, cfg.q_dim, cfg.hidden_dim) if n % 16]
+    if cfg.dtype in ("fp8", "fp16") and odd:
+        raise NotImplementedError(f"the {cfg.dtype} matvec kernel takes contraction "
+                                  f"dims in multiples of 16, not {odd}")
 
 
 # ---------------------------------------------------------------------------
@@ -138,7 +165,10 @@ def check_supported(cfg: ModelConfig, device) -> None:
 
 def load_weights(tf: TensorFile, cfg: ModelConfig, device="cpu") -> Weights:
     """Container tensors -> device weights, one layer plane at a time (the
-    host never holds a whole stack)."""
+    host never holds a whole stack). Each tensor takes the shape that
+    ``tf.get`` returns, after checking the file's against the config's:
+    ``parallel.sharding.load_weights_sharded`` hands in a file whose
+    matrices come back as one rank's slice."""
     check_supported(cfg, device)
     fmt = cfg.dtype
     tag = _TAGS[fmt]
@@ -151,11 +181,13 @@ def load_weights(tf: TensorFile, cfg: ModelConfig, device="cpu") -> Weights:
     def one(name, shape, t=tag):
         return to_torch(tf.get(name, None, t, shape), t, device)
 
-    def stack(name, shape, t=tag):
-        out = torch.empty((L,) + tuple(shape), dtype=STORAGE[fmt] if t == tag
-                          else torch.float32, device=device)
+    def stack(name, shape, t=tag):  # sized by what tf gives (a shard's slice)
+        out = None
         for l in range(L):
-            out[l].copy_(to_torch(tf.get(name, l, t, shape), t))
+            a = to_torch(tf.get(name, l, t, shape), t)
+            if out is None:
+                out = torch.empty((L,) + tuple(a.shape), dtype=a.dtype, device=device)
+            out[l].copy_(a)
         return out
 
     def qone(name, shape):
@@ -327,31 +359,62 @@ def _mm(x: torch.Tensor, qt: QTensor, layer=None, w2: bool = False) -> torch.Ten
     return dense_matmul(x, qt, layer)
 
 
-def _embed(embed: QTensor, tokens: torch.Tensor):
-    return embed_lookup(tokens, embed)  # (B, D) f32
+def _embed(embed: QTensor, tokens: torch.Tensor, plan: ShardingPlan = NO_SHARDING,
+           mesh=None):
+    """Token embedding (B, D) f32; vocab-sharded under tp, a masked lookup
+    of this rank's rows closed by a psum (``calm_tpu/model.py:511-520``)."""
+    if plan.tp is None:
+        return embed_lookup(tokens, embed)
+    v_local = embed.data.shape[0]
+    lid = tokens - mesh.axis_index(plan.tp) * v_local
+    ok = (lid >= 0) & (lid < v_local)
+    rows = embed_lookup(lid.clamp(0, v_local - 1), embed)
+    return mesh.psum(rows * ok[..., None], plan.tp)
+
+
+def _close_residual(y, plan: ShardingPlan, mesh, with_ep: bool = False):
+    """Close a row-sharded product's partial sum over tp, after ep for the
+    MoE FFN (``calm_tpu/model.py:455-476``); ``plan.rs_ag`` closes tp as a
+    reduce-scatter and an all-gather along the features."""
+    if with_ep and plan.ep is not None:
+        y = mesh.psum(y, plan.ep)
+    if plan.tp is None:
+        return y
+    if plan.rs_ag:
+        return mesh.all_gather(mesh.psum_scatter(y, plan.tp, dim=-1), plan.tp, dim=-1)
+    return mesh.psum(y, plan.tp)
+
+
+def _split(plan: ShardingPlan) -> bool:
+    """A plan that splits a layer's work over ranks (tp, sp or ep)."""
+    return plan.tp is not None or plan.sp is not None or plan.ep is not None
 
 
 def _shapes(cfg: ModelConfig, w: Weights):
     return (cfg.dim, w.layers.w1.data.shape[1], cfg.q_dim, cfg.kv_dim)
 
 
-def _fused(cfg: ModelConfig, w: Weights, B: int) -> bool:
+def _fused(cfg: ModelConfig, w: Weights, B: int, plan: ShardingPlan = NO_SHARDING) -> bool:
     """The rotated epilogue: q/k/v ride from each layer's fused call into
     the next. MoE and parallel-norm layers run per op, and none runs it
-    under CALM_ROT=0 (calm_tpu/model.py:1211, :1225-1228)."""
-    if cfg.n_experts or cfg.norm_par or not ROTATED_DECODE:
+    under CALM_ROT=0 (calm_tpu/model.py:1211, :1225-1228) or under a plan
+    that splits the layer: its residual closes across ranks between wo and
+    the FFN (``:1226-1227``)."""
+    if cfg.n_experts or cfg.norm_par or not ROTATED_DECODE or _split(plan):
         return False
     if w.layers.wq.fmt == "gf4":
         return gf4_offn_supported(B, _shapes(cfg, w))
     return qx_offn_supported(w.layers.wq.fmt, B, _shapes(cfg, w))
 
 
-def _offn(cfg: ModelConfig, w: Weights, B: int) -> bool:
+def _offn(cfg: ModelConfig, w: Weights, B: int, plan: ShardingPlan = NO_SHARDING) -> bool:
     """Dense gf4 decode under CALM_ROT=0: every layer's wo + FFN through
     gf4_offn (K7) after its own q/k/v (calm_tpu/model.py:1194-1201,
-    :1106-1110); fp8/fp16 run per op."""
+    :1106-1110); fp8/fp16 run per op, and so does a plan that splits the
+    layer (``:1194-1195``)."""
     return (not ROTATED_DECODE and w.layers.wq.fmt == "gf4" and not cfg.n_experts
-            and not cfg.norm_par and gf4_offn_supported(B, _shapes(cfg, w)))
+            and not cfg.norm_par and not _split(plan)
+            and gf4_offn_supported(B, _shapes(cfg, w)))
 
 
 @dataclasses.dataclass
@@ -366,6 +429,8 @@ class _Step:
     sink_cos: torch.Tensor | None   # (W, KV_SINKS, hd/2)
     sink_sin: torch.Tensor | None
     pt: torch.Tensor | None         # (B, n_blocks) int32 page table
+    plan: ShardingPlan = NO_SHARDING
+    mesh: object = None             # parallel.mesh.Mesh under a plan
 
 
 def _rotate_sinks(cache: KVCache, layer: int, st: _Step):
@@ -379,16 +444,19 @@ def _rotate_sinks(cache: KVCache, layer: int, st: _Step):
     cache.k[idx] = rot.transpose(1, 2).to(cache.k.dtype)
 
 
-def _qkv_post(cfg: ModelConfig, lw: LayerWeights, layer: int, q, k, v):
+def _qkv_post(cfg: ModelConfig, lw: LayerWeights, layer: int, q, k, v,
+              plan: ShardingPlan = NO_SHARDING, mesh=None):
     """Bias, qk-norm and clip on projected (rows, dim) q/k/v, in the JAX
-    order (``calm_tpu/model.py:930-941``)."""
+    order (``calm_tpu/model.py:930-941``). Under tp the q/k columns are
+    sharded and the qk-norm's mean square closes with a psum (``:499``)."""
     if lw.bq is not None:  # added after the carried projections
         q, k, v = q + lw.bq[layer], k + lw.bk[layer], v + lw.bv[layer]
     if cfg.norm_qk:
-        q = q * torch.rsqrt((q * q).sum(-1, keepdim=True) / cfg.q_dim
-                            + cfg.norm_eps) * lw.q_norm[layer]
-        k = k * torch.rsqrt((k * k).sum(-1, keepdim=True) / cfg.kv_dim
-                            + cfg.norm_eps) * lw.k_norm[layer]
+        def ms(x, dim):
+            ss = (x * x).sum(-1, keepdim=True)
+            return (ss if plan.tp is None else mesh.psum(ss, plan.tp)) / dim
+        q = q * torch.rsqrt(ms(q, cfg.q_dim) + cfg.norm_eps) * lw.q_norm[layer]
+        k = k * torch.rsqrt(ms(k, cfg.kv_dim) + cfg.norm_eps) * lw.k_norm[layer]
     if math.isfinite(cfg.qkv_clip):
         c = cfg.qkv_clip
         q, k, v = q.clamp(-c, c), k.clamp(-c, c), v.clamp(-c, c)
@@ -428,36 +496,57 @@ def expert_slots(idx: torch.Tensor, n_experts: int):
     return torch.where(live, su[:A], pad).to(torch.int32), cnt.to(torch.int32)
 
 
-def _moe_sweep(cfg: ModelConfig, lw: LayerWeights, layer: int, xb2, wts, idx):
+def _local_experts(lw: LayerWeights, plan: ShardingPlan, mesh) -> tuple[int, int]:
+    """(first expert id, count) of the experts this rank holds: all of them
+    without ep."""
+    e_local = lw.w1.data.shape[1]
+    return (0 if plan.ep is None else mesh.axis_index(plan.ep) * e_local), e_local
+
+
+def _moe_sweep(cfg: ModelConfig, lw: LayerWeights, layer: int, xb2, wts, idx,
+               plan: ShardingPlan, mesh):
     """<= 16 rows: every unique expert's weights read once for all rows
     (``calm_tpu/model.py:764-827``), then each row takes the slots it was
-    routed to with its gate weights; dead slots come back as zeros."""
+    routed to with its gate weights; dead slots come back as zeros. Under
+    ep a rank sweeps its resident experts only: a slot of another rank's
+    expert re-reads a local one and weighs 0 (``:800-808``)."""
     uniq, cnt = expert_slots(idx, cfg.n_experts)
+    off, e_local = _local_experts(lw, plan, mesh)
+    live = torch.arange(uniq.shape[0], device=uniq.device) < cnt
+    lid = uniq - off
+    local = live & (lid >= 0) & (lid < e_local)
+    if plan.ep is not None:  # a local id in every slot
+        fill = lid[local.to(torch.int8).argmax()].clamp(0, e_local - 1)
+        lid = torch.where(local, lid.clamp(0, e_local - 1),
+                          torch.where(local.any(), fill, torch.zeros_like(fill)))
+    lid = lid.to(torch.int32)
     if lw.w1.fmt == "gf4":
-        z = gf4_moe_ffn(xb2, lw.w1.data, lw.w3.data, lw.w2.data, uniq, cnt, layer,
+        z = gf4_moe_ffn(xb2, lw.w1.data, lw.w3.data, lw.w2.data, lid, cnt, layer,
                         cfg.act_gelu)
     else:
         xf = xb2[None]
-        h = (act(qmm_moe_dense(xf, lw.w1.data, uniq, cnt, lw.w1.fmt, layer),
+        h = (act(qmm_moe_dense(xf, lw.w1.data, lid, cnt, lw.w1.fmt, layer),
                  cfg.act_gelu)
-             * qmm_moe_dense(xf, lw.w3.data, uniq, cnt, lw.w3.fmt, layer))
-        z = qmm_moe_dense(h, lw.w2.data, uniq, cnt, lw.w2.fmt, layer)  # (A, R, D)
-    live = torch.arange(uniq.shape[0], device=z.device) < cnt
+             * qmm_moe_dense(xf, lw.w3.data, lid, cnt, lw.w3.fmt, layer))
+        z = qmm_moe_dense(h, lw.w2.data, lid, cnt, lw.w2.fmt, layer)  # (A, R, D)
     wmat = ((wts[:, :, None] * (idx[:, :, None] == uniq)).sum(1)
-            * live)                                                 # (R, A)
+            * local)                                                # (R, A)
     return torch.einsum("ra,ard->rd", wmat, z)
 
 
-def _moe_grouped(cfg: ModelConfig, lw: LayerWeights, layer: int, xb2, wts, idx):
+def _moe_grouped(cfg: ModelConfig, lw: LayerWeights, layer: int, xb2, wts, idx,
+                 plan: ShardingPlan, mesh):
     """Any row count: the rows grouped by expert, each group through the
     product kernels (``_mm``), weighted and summed back. The same function
     as the JAX per-token vmap (``calm_tpu/model.py:829-857``) without its
     per-row weight reads. The group sizes cost one host sync per layer,
-    which a prefill's products dwarf; the decode sweep has none."""
+    which a prefill's products dwarf; the decode sweep has none. Under ep a
+    rank runs the groups of its own experts."""
     k = idx.shape[1]
     flat = idx.reshape(-1)
     order = torch.sort(flat, stable=True).indices
     sizes = torch.bincount(flat, minlength=cfg.n_experts).tolist()
+    off, e_local = _local_experts(lw, plan, mesh)
     w_flat = wts.reshape(-1)
     out = torch.zeros_like(xb2)
     start = 0
@@ -466,42 +555,77 @@ def _moe_grouped(cfg: ModelConfig, lw: LayerWeights, layer: int, xb2, wts, idx):
             continue
         sel = order[start:start + c]
         start += c
+        if not off <= e < off + e_local:
+            continue
         rows = sel // k
         xe = xb2.index_select(0, rows)
-        h = (act(_mm(xe, lw.w1[layer, e]), cfg.act_gelu)
-             * _mm(xe, lw.w3[layer, e]))
-        y = _mm(h, lw.w2[layer, e], w2=True)
+        h = (act(_mm(xe, lw.w1[layer, e - off]), cfg.act_gelu)
+             * _mm(xe, lw.w3[layer, e - off]))
+        y = _mm(h, lw.w2[layer, e - off], w2=True)
         out.index_add_(0, rows, y * w_flat[sel, None])
     return out
 
 
-def _moe_ffn(cfg: ModelConfig, lw: LayerWeights, layer: int, xb2):
-    """Top-k routed MoE FFN on xb2 (R, D) (``calm_tpu/model.py:731-857``,
-    without expert parallelism): the gate matvec, routing, then the expert
-    sweep at <= 16 rows or the grouped products above. fp8e4 experts take
-    the grouped path with their per-expert scales (CPU only)."""
+def _moe_ffn(cfg: ModelConfig, lw: LayerWeights, layer: int, xb2,
+             plan: ShardingPlan = NO_SHARDING, mesh=None):
+    """Top-k routed MoE FFN on xb2 (R, D) (``calm_tpu/model.py:731-857``):
+    the gate matvec (replicated), routing, then the expert sweep at <= 16
+    rows or the grouped products above, over this rank's experts. fp8e4
+    experts take the grouped path with their per-expert scales (CPU only).
+    Returns the rank's partial sum; the caller closes it over ep and tp."""
     wts, idx = route(cfg, _mm(xb2, lw.moegate, layer))
     if xb2.shape[0] <= MAX_ROWS and lw.w1.fmt in ("fp8", "fp16", "gf4"):
-        return _moe_sweep(cfg, lw, layer, xb2, wts, idx)
-    return _moe_grouped(cfg, lw, layer, xb2, wts, idx)
+        return _moe_sweep(cfg, lw, layer, xb2, wts, idx, plan, mesh)
+    return _moe_grouped(cfg, lw, layer, xb2, wts, idx, plan, mesh)
 
 
-def _ffn(cfg: ModelConfig, lw: LayerWeights, layer: int, x, att, xb):
+def _ffn(cfg: ModelConfig, lw: LayerWeights, layer: int, x, att, xb,
+         plan: ShardingPlan = NO_SHARDING, mesh=None):
     """wo + residual, then the FFN and its residual, per op, in the JAX
     order (``calm_tpu/model.py:1112-1149``): on ffn-norm(x + wo . att), or
     for parallel-norm archs (Cohere) on the attn-normed input ``xb``. A
     parallel-norm gf4 FFN of <= 16 rows is one gf4_ffn (K6), as the JAX
-    package's fused layout runs it there (``:1130-1135``)."""
-    x = x + _mm(att, lw.wo, layer)
+    package's fused layout runs it there (``:1130-1135``). Under a plan
+    wo's and the FFN's partial sums close across ranks first."""
+    x = x + _close_residual(_mm(att, lw.wo, layer), plan, mesh)
     xb2 = xb if cfg.norm_par else _norm(cfg, x, lw.ffn_norm[layer])
     if cfg.n_experts:
-        return x + _moe_ffn(cfg, lw, layer, xb2)
+        return x + _close_residual(_moe_ffn(cfg, lw, layer, xb2, plan, mesh),
+                                   plan, mesh, with_ep=True)
     if (cfg.norm_par and lw.w1.fmt == "gf4"
             and gf4_ffn_supported(xb2.shape, lw.w1.data, lw.w2.data)):
-        return x + gf4_ffn(xb2, lw.w1.data, lw.w3.data, lw.w2.data, layer,
-                           cfg.act_gelu)
-    h = act(_mm(xb2, lw.w1, layer), cfg.act_gelu) * _mm(xb2, lw.w3, layer)
-    return x + _mm(h, lw.w2, layer, w2=True)
+        ffn = gf4_ffn(xb2, lw.w1.data, lw.w3.data, lw.w2.data, layer, cfg.act_gelu)
+    else:
+        h = act(_mm(xb2, lw.w1, layer), cfg.act_gelu) * _mm(xb2, lw.w3, layer)
+        ffn = _mm(h, lw.w2, layer, w2=True)
+    return x + _close_residual(ffn, plan, mesh)
+
+
+def _sp_write(cache: KVCache, layer: int, st: _Step, kc, vc):
+    """sp decode: the new rows (B, KVH, hd) land in the S-shard that owns
+    global row kv_pos; the other shards rewrite their current row
+    (``calm_tpu/model.py:977-995``)."""
+    S_loc = cache.k.shape[3]
+    wr = st.kv_pos.long() - st.mesh.axis_index(st.plan.sp) * S_loc
+    own = ((wr >= 0) & (wr < S_loc))[:, None, None]
+    wr = wr.clamp(0, S_loc - 1)
+    slots = torch.arange(kc.shape[0], device=wr.device)
+    for buf, new in ((cache.k, kc), (cache.v, vc)):
+        buf[layer, slots, :, wr] = torch.where(own, new, buf[layer, slots, :, wr])
+
+
+def _sp_attention(cache: KVCache, layer: int, st: _Step, q):
+    """sp decode attention (``calm_tpu/model.py:557-576``): K12 in partials
+    mode over this S-shard's rows below the global kv_len, then the exact
+    softmax across shards from one pmax and two psums."""
+    S_loc = cache.k.shape[3]
+    off = st.mesh.axis_index(st.plan.sp) * S_loc
+    kv_loc = (st.kv_len - off).clamp(0, S_loc).to(torch.int32)
+    acc, m, l = decode_attention(q, cache.k, cache.v, kv_loc, layer, partials=True)
+    mg = st.mesh.pmax(m, st.plan.sp)
+    scale = torch.exp(m - mg)  # an empty shard's -inf gives 0
+    num = st.mesh.psum(acc * scale, st.plan.sp)
+    return num / st.mesh.psum(l * scale, st.plan.sp)
 
 
 def _layer(cfg: ModelConfig, lw: LayerWeights, layer: int, x, qkv, cache,
@@ -509,25 +633,34 @@ def _layer(cfg: ModelConfig, lw: LayerWeights, layer: int, x, qkv, cache,
     """One layer on x (B, D). ``qkv`` is this layer's (q, k, v) from the
     previous fused epilogue (or layer 0's priming); None otherwise.
     ``mode``: "qkv" for the rotated epilogue, "offn" for gf4_offn (K7),
-    None per op. Returns (x, next qkv or None, fresh (k, v) rows)."""
+    None per op. Returns (x, next qkv or None, fresh (k, v) rows for the
+    deferred write, or None under sp, whose rows are written here). Head
+    counts are this rank's: tp shards the heads."""
     B, D = x.shape
     hd = cfg.head_dim
-    H, KVH = cfg.n_heads, cfg.n_kv_heads
+    plan, mesh = st.plan, st.mesh
     xb = None
     if qkv is None:
         xb = _norm(cfg, x, lw.attn_norm[layer])
         qkv = (_mm(xb, lw.wq, layer), _mm(xb, lw.wk, layer),
                _mm(xb, lw.wv, layer))
-    q, k, v = _qkv_post(cfg, lw, layer, *qkv)
+    q, k, v = _qkv_post(cfg, lw, layer, *qkv, plan, mesh)
+    H, KVH = q.shape[-1] // hd, k.shape[-1] // hd
     q = apply_rope(q.reshape(B, H, hd), st.cos, st.sin)
     k = apply_rope(k.reshape(B, KVH, hd), st.cos, st.sin)
     kc = k.to(cache.k.dtype).contiguous()
     vc = v.reshape(B, KVH, hd).to(cache.k.dtype).contiguous()
 
+    if plan.sp is not None:  # write, rotate, then read, as JAX under sp
+        _sp_write(cache, layer, st, kc, vc)
     if st.sink_rows is not None:
         _rotate_sinks(cache, layer, st)
-    att = decode_attention(q.float().contiguous(), cache.k, cache.v,
-                           st.kv_len, layer, fresh=(kc, vc, st.kv_pos), pt=st.pt)
+    if plan.sp is not None:
+        att, fresh = _sp_attention(cache, layer, st, q.float().contiguous()), None
+    else:
+        att = decode_attention(q.float().contiguous(), cache.k, cache.v,
+                               st.kv_len, layer, fresh=(kc, vc, st.kv_pos), pt=st.pt)
+        fresh = (kc, vc)
     att = att.reshape(B, H * hd)
 
     if mode == "qkv":
@@ -538,12 +671,12 @@ def _layer(cfg: ModelConfig, lw: LayerWeights, layer: int, x, qkv, cache,
             x, qn, kn, vn = gf4_offn_qkv(*ws, *tail)
         else:
             x, qn, kn, vn = qx_offn_qkv(*ws, lw.wq.fmt, *tail)
-        return x, (qn, kn, vn), (kc, vc)
+        return x, (qn, kn, vn), fresh
     if mode == "offn":
         ffn, r1 = gf4_offn(att, x, lw.ffn_norm, lw.wo.data, lw.w1.data, lw.w3.data,
                            lw.w2.data, layer, cfg.act_gelu, cfg.norm_eps, cfg.norm_ln)
-        return r1 + ffn, None, (kc, vc)
-    return _ffn(cfg, lw, layer, x, att, xb), None, (kc, vc)
+        return r1 + ffn, None, fresh
+    return _ffn(cfg, lw, layer, x, att, xb, plan, mesh), None, fresh
 
 
 def _head(cfg: ModelConfig, w: Weights, x):
@@ -558,17 +691,22 @@ def upload(values, device, dtype=torch.int32) -> torch.Tensor:
     return torch.tensor(list(values), dtype=dtype).to(device, non_blocking=True)
 
 
-def _step_state(cfg: ModelConfig, token, pos, device, pt=None):
+def _step_state(cfg: ModelConfig, token, pos, device, pt=None,
+                plan: ShardingPlan = NO_SHARDING, mesh=None):
     """The step's per-slot state from host ints, as ``decode_indices`` per
     element (``calm_tpu/model.py:1334-1345``), and the tokens on the
     device. ``token`` is a (B,) tensor, or host ints that then join the
-    one upload; ``pos`` an int (every slot) or B host ints."""
+    one upload; ``pos`` an int (every slot) or B host ints. Under sp the
+    sinks (global rows 0 and 1) live in shard 0, which alone rotates them
+    (``:1028-1030``)."""
     B = token.shape[0] if isinstance(token, torch.Tensor) else len(token)
     pos = [int(pos)] * B if isinstance(pos, (int, np.integer)) else [int(p) for p in pos]
     if len(pos) != B:
         raise ValueError(f"{len(pos)} positions for {B} slots")
     rows, lens = zip(*(decode_indices(cfg, p) for p in pos))
     wrapped = [b for b, p in enumerate(pos) if p >= cfg.seq_len]
+    if plan.sp is not None and mesh.axis_index(plan.sp) != 0:
+        wrapped = []
     head = [] if isinstance(token, torch.Tensor) else [int(t) for t in token]
     vals = upload(head + pos + list(rows) + list(lens) + wrapped, device)
     n = len(head)
@@ -585,7 +723,8 @@ def _step_state(cfg: ModelConfig, token, pos, device, pt=None):
             torch.ones((len(wrapped), KV_SINKS), dtype=torch.int64, device=device),
             cfg.head_dim, cfg.rope_theta, cfg.rotary_dim)
     return _Step(kv_pos=kv_pos, kv_len=kv_len, cos=cos, sin=sin, sink_rows=sink_rows,
-                 sink_cos=sink_cos, sink_sin=sink_sin, pt=pt), token
+                 sink_cos=sink_cos, sink_sin=sink_sin, pt=pt, plan=plan,
+                 mesh=mesh), token
 
 
 def _write_rows(cache: KVCache, st: _Step, fk: torch.Tensor, fv: torch.Tensor):
@@ -611,30 +750,56 @@ def _run_layers(cfg: ModelConfig, w: Weights, x, cache: KVCache, st: _Step):
     layer's epilogue into the next, primed with layer 0's projections."""
     lw = w.layers
     B = x.shape[0]
-    mode = "qkv" if _fused(cfg, w, B) else "offn" if _offn(cfg, w, B) else None
+    mode = ("qkv" if _fused(cfg, w, B, st.plan)
+            else "offn" if _offn(cfg, w, B, st.plan) else None)
     qkv = None
     if mode == "qkv":
         xb0 = _norm(cfg, x, lw.attn_norm[0])
         qkv = (_mv(xb0, lw.wq, 0), _mv(xb0, lw.wk, 0), _mv(xb0, lw.wv, 0))
     fresh_k, fresh_v = [], []
     for layer in range(cfg.n_layers):
-        x, qkv, (fk, fv) = _layer(cfg, lw, layer, x, qkv, cache, st, mode)
-        fresh_k.append(fk)
-        fresh_v.append(fv)
-    _write_rows(cache, st, torch.stack(fresh_k), torch.stack(fresh_v))
+        x, qkv, fresh = _layer(cfg, lw, layer, x, qkv, cache, st, mode)
+        if fresh is not None:
+            fresh_k.append(fresh[0])
+            fresh_v.append(fresh[1])
+    if fresh_k:
+        _write_rows(cache, st, torch.stack(fresh_k), torch.stack(fresh_v))
     return x
 
 
 @torch.no_grad()
-def decode_step(cfg: ModelConfig, w: Weights, token, pos, cache: KVCache):
+def decode_step(cfg: ModelConfig, w: Weights, token, pos, cache: KVCache,
+                plan: ShardingPlan = NO_SHARDING, mesh=None):
     """One token for each of the B sequence slots: token (B,) int64 (or B
     host ints), pos an int for every slot or B host ints, one a slot ->
     (logits (B, V) f32, cache). Each slot attends its own window and
     writes its own row; only slots at pos >= seq_len rotate their sinks.
-    The cache is updated in place."""
-    st, token = _step_state(cfg, token, pos, cache.k.device)
-    x = _run_layers(cfg, w, _embed(w.embed, token), cache, st)
+    The cache is updated in place.
+
+    Under a ``plan`` on ``mesh`` (``parallel.mesh.Mesh``) this is one
+    rank's program on its local weights and cache: tp shards heads, FFN
+    columns and the vocab (the logits come back as this rank's vocab
+    slice), ep the experts, sp the cache rows, dp the slots; the
+    wrappers of ``parallel.sharding`` build the local tensors."""
+    st, token = _step_state(cfg, token, pos, cache.k.device, plan=plan, mesh=mesh)
+    x = _run_layers(cfg, w, _embed(w.embed, token, plan, mesh), cache, st)
     return _head(cfg, w, x), cache
+
+
+def greedy_next(logits: torch.Tensor, plan: ShardingPlan = NO_SHARDING,
+                mesh=None) -> torch.Tensor:
+    """The global argmax (B,) int64 of (possibly vocab-sharded) logits (B,
+    V_local): under tp the pmax of the value, then the pmin of the global
+    index among the ranks that hold it, so ties go to the first
+    occurrence, as ``jnp.argmax`` (``calm_tpu/model.py:1483-1497``)."""
+    if plan.tp is None:
+        return logits.argmax(-1)
+    v_local = logits.shape[-1]
+    val, idx = logits.max(-1)  # the first max of the slice
+    g_val = mesh.pmax(val, plan.tp)
+    cand = torch.where(val == g_val, idx + mesh.axis_index(plan.tp) * v_local,
+                       torch.full_like(idx, 2 ** 30))
+    return mesh.pmin(cand, plan.tp)
 
 
 @torch.no_grad()
@@ -653,14 +818,18 @@ def paged_decode_step(cfg: ModelConfig, w: Weights, token, pos,
 
 @torch.no_grad()
 def decode_loop(cfg: ModelConfig, w: Weights, token: torch.Tensor, pos0: int,
-                cache: KVCache, n_steps: int):
-    """Greedy-decode ``n_steps`` tokens, argmax on the device (the
-    counterpart of ``decode_scan_fn``): returns (tokens (B, N) int64,
-    cache, per-step logits (N, B, V))."""
+                cache: KVCache, n_steps: int, sampling=None):
+    """Decode ``n_steps`` tokens with each token chosen on the device: the
+    argmax (the counterpart of ``decode_scan_fn``), or with ``sampling``,
+    a (generator, temperature (B,), minp (B,)) triple, min-p drawn by
+    ``sampler.device_sample`` from each step's logits (``decode_scan_
+    sampled_fn``, ``calm_tpu/model.py:1428-1455``). Returns (tokens (B, N)
+    int64, cache, per-step logits (N, B, V)), all on the device."""
     toks, logits = [], []
     for i in range(n_steps):
         out, cache = decode_step(cfg, w, token, pos0 + i, cache)
-        token = out.argmax(-1)  # first max wins, like jnp.argmax
+        # first max wins, like jnp.argmax
+        token = out.argmax(-1) if sampling is None else device_sample(out, *sampling)
         toks.append(token)
         logits.append(out)
     return torch.stack(toks, 1), cache, torch.stack(logits)
@@ -668,35 +837,55 @@ def decode_loop(cfg: ModelConfig, w: Weights, token: torch.Tensor, pos0: int,
 
 def _prefill_layer(cfg: ModelConfig, lw: LayerWeights, layer: int, x,
                    cache: KVCache, starts: list[int], cos, sin, pos0, kv_len,
-                   batch_off: int):
+                   batch_off: int, plan: ShardingPlan = NO_SHARDING, mesh=None):
     """One layer on x (B*T, D), in the JAX order (``calm_tpu/model.py``
     :915-1059, :1112-1149): the T fresh K/V rows are in the cache (slots
-    from ``batch_off`` on) before the attention reads it."""
+    from ``batch_off`` on, rows from ``starts``) before the attention reads
+    it. Under sp (the all-gather path, ``:1044-1050``) the rows are this
+    rank's chunk of the prompt: they land in its S-shard at rows 0..T, and
+    the attention reads every shard's chunk, gathered at cache precision."""
     B, T = len(starts), x.shape[0] // len(starts)
-    hd, H, KVH = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    hd = cfg.head_dim
     xb = _norm(cfg, x, lw.attn_norm[layer])
     q, k, v = _qkv_post(cfg, lw, layer, _mm(xb, lw.wq, layer),
-                        _mm(xb, lw.wk, layer), _mm(xb, lw.wv, layer))
+                        _mm(xb, lw.wk, layer), _mm(xb, lw.wv, layer), plan, mesh)
+    H, KVH = q.shape[-1] // hd, k.shape[-1] // hd
     q = apply_rope(q.reshape(B, T, H, hd), cos, sin)
     k = apply_rope(k.reshape(B, T, KVH, hd), cos, sin)
     kh = k.to(cache.k.dtype).transpose(1, 2)              # (B, KVH, T, hd)
     vh = v.reshape(B, T, KVH, hd).to(cache.k.dtype).transpose(1, 2)
-    for b, p in enumerate(starts):
+    rows = [0] * B if plan.sp is not None else starts
+    for b, p in enumerate(rows):
         cache.k[layer, batch_off + b, :, p:p + T] = kh[b]
         cache.v[layer, batch_off + b, :, p:p + T] = vh[b]
-    att = prefill_attention(q.reshape(B, T, KVH, H // KVH, hd).contiguous(),
-                            cache.k, cache.v, pos0, kv_len, layer, batch_off)
-    return _ffn(cfg, lw, layer, x, att.reshape(B * T, H * hd), xb)
+    qg = q.reshape(B, T, KVH, H // KVH, hd).contiguous()
+    if plan.sp is not None:  # the whole prompt's K/V as a one-layer cache
+        ka = mesh.all_gather(kh, plan.sp, dim=2)[None].contiguous()
+        va = mesh.all_gather(vh, plan.sp, dim=2)[None].contiguous()
+        att = prefill_attention(qg, ka, va, pos0, kv_len, 0)
+    else:
+        att = prefill_attention(qg, cache.k, cache.v, pos0, kv_len, layer, batch_off)
+    return _ffn(cfg, lw, layer, x, att.reshape(B * T, H * hd), xb, plan, mesh)
 
 
 @torch.no_grad()
 def prefill(cfg: ModelConfig, w: Weights, tokens: torch.Tensor, pos0,
-            cache: KVCache, logits_mode: str = "last", batch_off: int = 0):
+            cache: KVCache, logits_mode: str = "last", batch_off: int = 0,
+            plan: ShardingPlan = NO_SHARDING, mesh=None):
     """Batched prompt processing (``calm_tpu/model.py:1363-1374``): tokens
     (B, T) int64 at positions pos0[b] + t, pos0 (B,) ints, sequence b in
     cache slot batch_off + b. Requires pos0 + T <= seq_len (a prefill never
     rolls). Returns (logits, cache): logits (B, V) for ``"last"``, (B, T, V)
-    for ``"all"``, None for ``"none"``; the cache is updated in place."""
+    for ``"all"``, None for ``"none"``; the cache is updated in place.
+    Under a ``plan`` (without sp: see :func:`prefill_sp`) one rank's
+    program on its local weights and cache, as :func:`decode_step`."""
+    if plan.sp is not None:
+        raise ValueError("an sp plan prefills through prefill_sp")
+    return _prefill(cfg, w, tokens, pos0, cache, logits_mode, batch_off, plan, mesh)
+
+
+def _prefill(cfg, w, tokens, pos0, cache, logits_mode, batch_off, plan, mesh,
+             kv_len=None):
     if logits_mode not in ("last", "all", "none"):
         raise ValueError(f"unknown logits_mode {logits_mode!r}")
     B, T = tokens.shape
@@ -711,15 +900,35 @@ def prefill(cfg: ModelConfig, w: Weights, tokens: torch.Tensor, pos0,
     p0 = torch.tensor(starts, dtype=torch.int32, device=dev)
     pos = p0[:, None].long() + torch.arange(T, device=dev)  # (B, T)
     cos, sin = rope_tables(pos, cfg.head_dim, cfg.rope_theta, cfg.rotary_dim)
-    x = _embed(w.embed, tokens).reshape(B * T, cfg.dim)
+    x = _embed(w.embed, tokens, plan, mesh).reshape(B * T, cfg.dim)
+    kv_len = p0 + T if kv_len is None else kv_len
     for layer in range(cfg.n_layers):
         x = _prefill_layer(cfg, w.layers, layer, x, cache, starts, cos, sin,
-                           p0, p0 + T, batch_off)
+                           p0, kv_len, batch_off, plan, mesh)
     if logits_mode == "none":
         return None, cache
     if logits_mode == "last":
         return _head(cfg, w, x.reshape(B, T, -1)[:, -1]), cache
     return _head(cfg, w, x).reshape(B, T, -1), cache
+
+
+@torch.no_grad()
+def prefill_sp(cfg: ModelConfig, w: Weights, tokens: torch.Tensor, cache: KVCache,
+               plan: ShardingPlan, mesh):
+    """Sequence-parallel full-window prefill, one rank's program
+    (``calm_tpu/model.py:1458``): tokens (B, T_local) are this rank's chunk
+    of a prompt of seq_len tokens split over ``plan.sp`` in rank order, the
+    cache its S-shard of T_local rows. Each layer projects the chunk at its
+    absolute positions, writes it into the shard and attends causally over
+    the K/V of every chunk, all-gathered (K13 over the gathered rows).
+    Returns (logits (B, T_local, V_local), cache)."""
+    B, T = tokens.shape
+    if T * mesh.axis_size(plan.sp) != cfg.seq_len or cache.k.shape[3] != T:
+        raise ValueError(f"sp prefill takes the whole window: {T} tokens a shard of "
+                         f"{cache.k.shape[3]} rows, {cfg.seq_len} in all")
+    start = mesh.axis_index(plan.sp) * T
+    kv_len = torch.full((B,), cfg.seq_len, dtype=torch.int32, device=tokens.device)
+    return _prefill(cfg, w, tokens, [start] * B, cache, "all", 0, plan, mesh, kv_len)
 
 
 def prefill_slot(cfg: ModelConfig, w: Weights, tokens: torch.Tensor,

@@ -5,7 +5,9 @@ arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC`` into
 ``calm_tpu_torch/_build/<name>-<hash>.so`` (git-ignored; the hash is the
 source's, so an edited source rebuilds) and loads with ``ctypes``. The C
 functions take ``c_void_p`` for every pointer and the stream and return
-``cudaGetLastError()``; :func:`check` raises when that is not 0.
+``cudaGetLastError()``; :func:`check` raises when that is not 0. A build
+holds ``_build/.lock`` (``flock``), so processes that start together (the
+ranks of a sharded run) build each library once.
 
 Nothing here runs at import time.
 """
@@ -13,6 +15,7 @@ Nothing here runs at import time.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import subprocess
@@ -24,7 +27,7 @@ from calm_tpu_torch.device import nvcc_path
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("qmm", "attn", "gf4", "moe", "stream")
+SOURCES = ("qmm", "attn", "gf4", "moe", "stream", "ring")
 ARCH = "arch=compute_90a,code=sm_90a"
 
 P, I, F, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
@@ -38,7 +41,7 @@ SIGNATURES = {
         "calm_gf4_offn": [P] * 11 + [I] * 5 + [F, I, P],
     },
     "attn": {
-        "calm_decode_attention": [P] * 12 + [I] * 10 + [P],
+        "calm_decode_attention": [P] * 14 + [I] * 10 + [P],
         "calm_prefill_attention": [P] * 6 + [I] * 10 + [P],
     },
     "gf4": {
@@ -51,6 +54,10 @@ SIGNATURES = {
     },
     "stream": {
         "calm_stream_sum": [P, I64, I64, I, P, P, P, I, P],
+    },
+    "ring": {
+        "calm_ring_all_reduce": [P, P, P, I, I, I, I64, P],
+        "calm_ring_gmax": [],
     },
 }
 
@@ -80,10 +87,17 @@ def _nvcc_cmd(name: str, out: str) -> list[str]:
 
 def build_all(names=SOURCES) -> float:
     """Compile every missing library, one ``nvcc`` per source, all started
-    together. Returns the wall seconds spent; ptxas reports go to
-    ``_build/<name>.log``."""
+    together, under the build lock. Returns the wall seconds spent; ptxas
+    reports go to ``_build/<name>.log``."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     t0 = time.perf_counter()
+    with open(os.path.join(BUILD_DIR, ".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
+        _build_missing(names)
+    return time.perf_counter() - t0
+
+
+def _build_missing(names) -> None:
     procs = []
     for name in names:
         out = _target(name)
@@ -101,13 +115,11 @@ def build_all(names=SOURCES) -> float:
             failed.append(name)
             continue
         os.replace(tmp, out)  # atomic: a concurrent loader sees all or none
-    seconds = time.perf_counter() - t0
     if failed:
         logs = "\n".join(
             open(os.path.join(BUILD_DIR, n + ".log")).read()[-4000:]
             for n in failed)
         raise KernelError(f"nvcc failed for {failed}:\n{logs}")
-    return seconds
 
 
 def lib(name: str) -> ctypes.CDLL:

@@ -3,14 +3,18 @@
 - :func:`decode_attention` replaces ``_attn_body``
   (``calm_tpu/ops/pallas_attn.py:77``) in its plain and fresh modes, over
   a dense cache or, with a page table, over a page pool (paged mode,
-  ``:168-174``, ``:203-211``);
+  ``:168-174``, ``:203-211``), and in partials mode
+  (``_attn_kernel_partials :57``), which returns the unnormalised flash
+  state that sequence-parallel decode merges across shards;
 - :func:`prefill_attention` replaces ``_prefill_kernel`` (``:326``): causal
   attention of T queries against the carried cache, from any slot on.
 
 Both kernels live in ``csrc/attn.cu``. Each wrapper takes its plain PyTorch
 version (``*_plain``, f32) for tensors on the CPU, and launches the kernel
 for CUDA tensors or raises; it counts its launches in ``.launches``
-(:func:`decode_attention` those in paged mode also in ``.paged_launches``).
+(:func:`decode_attention` those in paged mode also in ``.paged_launches``,
+those in partials mode apart, in ``.partials_launches``). Both take head
+dims 64, 96, 128 and 256 and any number of query heads per kv head.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ from calm_tpu_torch.ops import build
 
 _KV_CODE = {torch.float16: 0, torch.bfloat16: 1, torch.float8_e5m2: 2}
 _TARGET_BLOCKS = 264  # two blocks per SM on a 132-SM H100
+HEAD_DIMS = (64, 96, 128, 256)  # what the kernels are built for
 
 
 def paged_view(pool_plane: torch.Tensor, pt: torch.Tensor) -> torch.Tensor:
@@ -62,6 +67,27 @@ def decode_attention_plain(q, k_cache, v_cache, kv_len, layer, fresh=None,
     return torch.einsum("bkms,bksh->bkmh", p, vc).reshape(B, H, hd)
 
 
+def decode_attention_partials_plain(q, k_cache, v_cache, kv_len, layer):
+    """The unnormalised flash state of the rows s < kv_len in f32, in the
+    JAX convention (``pallas_attn.py:154-159``, ``:284-287``): acc (B, H,
+    hd) = sum_s exp(score_s - m) v_s, m (B, H, 1) = the max of the scaled
+    scores, l (B, H, 1) = sum_s exp(score_s - m); a row with nothing
+    visible gives m = -inf, l = 0, acc = 0."""
+    B, H, hd = q.shape
+    KVH = k_cache.shape[2]
+    qg = q.float().reshape(B, KVH, H // KVH, hd)
+    kc, vc = k_cache[int(layer)].float(), v_cache[int(layer)].float()
+    scores = torch.einsum("bkmh,bksh->bkms", qg, kc) / math.sqrt(hd)
+    col = torch.arange(kc.shape[2], device=q.device)
+    live = col[None, :] < kv_len.to(q.device).long()[:, None]   # (B, S)
+    scores = scores.masked_fill(~live[:, None, None, :], float("-inf"))
+    m = scores.amax(-1, keepdim=True)                          # (B, KVH, M, 1)
+    p = torch.exp(scores - torch.where(torch.isfinite(m), m, torch.zeros_like(m)))
+    acc = torch.einsum("bkms,bksh->bkmh", p, vc)
+    return (acc.reshape(B, H, hd), m.reshape(B, H, 1),
+            p.sum(-1, keepdim=True).reshape(B, H, 1))
+
+
 def _chunk_rows(B: int, KVH: int, S: int) -> int:
     """Rows per block: enough blocks to fill the card, at least 64 rows."""
     want = max(1, -(-_TARGET_BLOCKS // (B * KVH)))
@@ -76,7 +102,8 @@ def _check(cond: bool, msg: str) -> None:
         raise ValueError(msg)
 
 
-def decode_attention(q, k_cache, v_cache, kv_len, layer, fresh=None, pt=None):
+def decode_attention(q, k_cache, v_cache, kv_len, layer, fresh=None, pt=None,
+                     partials: bool = False):
     """q (B, H, hd) f32; caches (L, B, KVH, S, hd) in bf16/fp16/fp8-e5m2
     with ``layer`` selecting the plane; kv_len (B,) int32 -> (B, H, hd) f32.
 
@@ -87,8 +114,16 @@ def decode_attention(q, k_cache, v_cache, kv_len, layer, fresh=None, pt=None):
     ``pt`` (B, n_blocks) int32: paged mode. The caches are a page pool
     (L, P, KVH, PR, hd) and logical row s of slot b lives at page
     pt[b, s // PR], row s % PR; kv_len and kv_pos are logical rows. Every
-    entry must lie in [0, P); entries past kv_len are never read."""
+    entry must lie in [0, P); entries past kv_len are never read.
+
+    ``partials``: return the unnormalised state (acc (B, H, hd), m (B, H,
+    1), l (B, H, 1)) of :func:`decode_attention_partials_plain` instead;
+    it takes neither ``fresh`` nor ``pt``, as in JAX (``:230-232``)."""
+    if partials and (fresh is not None or pt is not None):
+        raise ValueError("partials mode composes with neither fresh rows nor paging")
     if q.device.type == "cpu":
+        if partials:
+            return decode_attention_partials_plain(q, k_cache, v_cache, kv_len, layer)
         return decode_attention_plain(q, k_cache, v_cache, kv_len, layer, fresh, pt)
     B, H, hd = q.shape
     L, NP, KVH, PR, hd_c = k_cache.shape
@@ -104,8 +139,8 @@ def decode_attention(q, k_cache, v_cache, kv_len, layer, fresh=None, pt=None):
                "pt must be a contiguous (B, n_blocks) int32 tensor on the card")
         S = pt.shape[1] * PR
     _check(k_cache.is_contiguous() and v_cache.is_contiguous(), "caches must be contiguous")
-    _check(hd in (64, 128), "the attention kernel takes head_dim 64 or 128")
-    _check(H % KVH == 0 and H // KVH <= 16, "the attention kernel takes <= 16 query rows per kv head")
+    _check(hd in HEAD_DIMS, f"the attention kernel takes head_dim {HEAD_DIMS}")
+    _check(H % KVH == 0, "query heads must be a multiple of kv heads")
     _check(0 <= int(layer) < L, f"layer {layer} out of range for {L}")
     _check(kv_len.dtype == torch.int32 and tuple(kv_len.shape) == (B,)
            and kv_len.device == q.device, "kv_len must be (B,) int32 on the card")
@@ -128,6 +163,10 @@ def decode_attention(q, k_cache, v_cache, kv_len, layer, fresh=None, pt=None):
     pm = torch.empty((B, KVH, nc, M), dtype=torch.float32, device=dev)
     pl = torch.empty((B, KVH, nc, M), dtype=torch.float32, device=dev)
     out = torch.empty((B, H, hd), dtype=torch.float32, device=dev)
+    mo = lo = None
+    if partials:
+        mo = torch.empty((B, H, 1), dtype=torch.float32, device=dev)
+        lo = torch.empty((B, H, 1), dtype=torch.float32, device=dev)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -135,9 +174,13 @@ def decode_attention(q, k_cache, v_cache, kv_len, layer, fresh=None, pt=None):
     rc = build.lib("attn").calm_decode_attention(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), kv_len.data_ptr(),
         ptr(fk), ptr(fv), ptr(kv_pos), ptr(pt), pacc.data_ptr(), pm.data_ptr(),
-        pl.data_ptr(), out.data_ptr(), B, KVH, M, S, hd, int(layer), cs,
-        _KV_CODE[k_cache.dtype], NP, PR, torch.cuda.current_stream(dev).cuda_stream)
+        pl.data_ptr(), out.data_ptr(), ptr(mo), ptr(lo), B, KVH, M, S, hd,
+        int(layer), cs, _KV_CODE[k_cache.dtype], NP, PR,
+        torch.cuda.current_stream(dev).cuda_stream)
     build.check("attn", rc)
+    if partials:
+        decode_attention.partials_launches += 1
+        return out, mo, lo
     decode_attention.launches += 1
     decode_attention.paged_launches += pt is not None
     return out
@@ -145,6 +188,7 @@ def decode_attention(q, k_cache, v_cache, kv_len, layer, fresh=None, pt=None):
 
 decode_attention.launches = 0
 decode_attention.paged_launches = 0  # the launches in paged mode
+decode_attention.partials_launches = 0  # the launches in partials mode
 
 
 # ---------------------------------------------------------------------------
@@ -194,8 +238,8 @@ def prefill_attention(q, k_cache, v_cache, pos0, kv_len, layer, batch_off=0):
            and batch_off + B <= Bc and KVHc == KVH and hd_c == hd,
            "cache shape mismatch")
     _check(k_cache.is_contiguous() and v_cache.is_contiguous(), "caches must be contiguous")
-    _check(hd in (64, 128), "the attention kernel takes head_dim 64 or 128")
-    _check(1 <= M <= 64, "the prefill kernel takes 1..64 query heads per kv head")
+    _check(hd in HEAD_DIMS, f"the attention kernel takes head_dim {HEAD_DIMS}")
+    _check(M >= 1, "the prefill kernel needs a query head per kv head")
     _check(0 <= int(layer) < L, f"layer {layer} out of range for {L}")
     for t in (pos0, kv_len):
         _check(t.dtype == torch.int32 and tuple(t.shape) == (B,) and t.device == q.device,

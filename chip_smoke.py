@@ -4,17 +4,27 @@
 
 Builds the hand-written kernels from ``calm_tpu_torch/csrc``, holds each
 against its plain PyTorch version at Mistral-7B, Mixtral 8x7B and the
-tools' shapes and ragged ones and times it beside its bound; runs both
-bandwidth tools (``calm_tpu_torch.tools.dma_ceiling``, ``gf4_bound``),
-whose 3 GB rows give the card's attainable HBM read rate; drives
-``Engine.generate`` (batched prefill, then decode), ``prefill_tokens``,
-``perplexity`` and the CLI (generate, ``-x``, ``-y``) on 2-layer
-Mistral-7B-width fp8 and gf4 containers (gf4 also with ROTATED_DECODE
-off, as CALM_ROT=0), 2-layer Aya 23 8B-width parallel-norm (Cohere) gf4
-and fp8 containers and 2-layer Mixtral-width (4 experts, top-2) fp8 and
-gf4 MoE containers, each checked against the CPU plain path; runs a
-2048-token prefill and the ``bench.py`` decode protocol on 32-layer
-Mistral-7B, Aya 23 8B and Mixtral 8x7B, fp8 and gf4; serves the
+tools' shapes and ragged ones (K12 and K13 also at the head dims of the
+converter's Phi-3-mini and Gemma containers and at 32 query rows a kv
+head) and times it beside its bound; runs both bandwidth tools
+(``calm_tpu_torch.tools.dma_ceiling``, ``gf4_bound``), whose 3 GB rows
+give the card's attainable HBM read rate; holds K12's partials mode
+(Mistral-7B's decode split into 2 and 4 S-shards, their merge against
+plain mode) and the ring all-reduce (K14, 2-8 logical ranks on the card,
+bit-equal to its ring-order plain version) and times them; runs the
+sharded decode in ranks spawned on this one card over gloo (Mistral-7B fp8
+at 8 layers tp=2 x sp=2 through sp prefill and 32 steps; Mixtral 8x7B fp8
+at 4 layers ep=2; 2 layers at ctx 64 sp=2 across the window wrap) against
+the same weights unsharded; drives ``Engine.generate`` (batched prefill,
+then decode; sampled on the device by default, each id checked against
+its step's min-p set), ``prefill_tokens``, ``perplexity`` and the CLI
+(generate, ``-x``, ``-y``) on 2-layer Mistral-7B-width fp8 and gf4
+containers (gf4 also with ROTATED_DECODE off, as CALM_ROT=0), 2-layer Aya
+23 8B-width parallel-norm (Cohere) gf4 and fp8 containers, 2-layer
+Phi-3-mini- and Gemma-2B-width fp8 ones and 2-layer Mixtral-width (4
+experts, top-2) fp8 and gf4 MoE containers, each checked against the CPU
+plain path; runs a 2048-token prefill and the ``bench.py`` decode protocol
+on Mistral-7B, Aya 23 8B and Mixtral 8x7B, fp8 and gf4; serves the
 containers through ``Server`` (dense, paged, prefix cache) against the
 CPU's server and through ``python -m calm_tpu_torch.httpd``; serves 16
 requests on a 32-layer Mistral-7B with 8 slots, dense and paged; and ends
@@ -26,6 +36,7 @@ once.
 from __future__ import annotations
 
 import json
+import math
 import os
 import re
 import signal
@@ -298,6 +309,7 @@ def kernel_phase(gbps, dev):
         del kc, vc
     rows["decode_attention"] = dict(best, max_abs_err=max(errs))
     ragged_checks(dev)
+    ragged_checks_heads(dev)
     rows.update(prefill_kernel_rows(gbps, dev))
     rows.update(gf4_kernel_rows(gbps, dev))
     ragged_checks_prefill_gf4(dev)
@@ -1069,6 +1081,7 @@ TOL_PREFILL = 1e-2  # logits after a prefill, rel. to max |logit|: activations,
 def counters():
     """kernel name -> (wrapper, the attribute that counts its launches)."""
     from calm_tpu_torch.ops import hopper_attn as ha
+    from calm_tpu_torch.ops import hopper_collectives as hc
     from calm_tpu_torch.ops import hopper_qmm as hq
     from calm_tpu_torch.ops import hopper_stream as hs
     fns = {"qmm_decode": hq.qmm_decode, "qx_offn_qkv": hq.qx_offn_qkv,
@@ -1078,9 +1091,11 @@ def counters():
            "qmm_prefill_w2": hq.qmm_prefill_w2, "gf4_offn_qkv": hq.gf4_offn_qkv,
            "qmm_moe_dense": hq.qmm_moe_dense, "gf4_moe_ffn": hq.gf4_moe_ffn,
            "gf4_ffn": hq.gf4_ffn, "gf4_offn": hq.gf4_offn,
-           "stream_sum": hs.stream_sum, "gf4_decode_sum": hs.gf4_decode_sum}
+           "stream_sum": hs.stream_sum, "gf4_decode_sum": hs.gf4_decode_sum,
+           "ring_all_reduce": hc.ring_all_reduce}
     out = {k: (f, "launches") for k, f in fns.items()}
     out["decode_attention_paged"] = (ha.decode_attention, "paged_launches")
+    out["decode_attention_partials"] = (ha.decode_attention, "partials_launches")
     return out
 
 
@@ -1261,6 +1276,8 @@ def container_phase(fmt, dev, experts: int = 0, cohere: bool = False):
             fail(f"{what}: logits differ from the CPU by {worst:.3e} > {TOL_STEP}")
         if fmt == "gf4" and not experts and not cohere:
             rot0 = unrotated_steps(eng, steps_cpu, what)
+        if fmt == "fp8" and not experts and not cohere:
+            device_sampling_check(eng, what)
         eng.reset()
         cpu.reset()
         p_toks = eng.tokenizer.encode(prompt, bos=True)
@@ -1840,6 +1857,511 @@ def tools_phase(smi):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# The parallel slice: K12's other head dims and partials mode, K14, and the
+# sharded phases (ranks spawned on one card over gloo)
+# ---------------------------------------------------------------------------
+
+TOL_PARTIALS = 1e-5  # K12 partials: acc, m and l, each rel. to its max |.|: f32
+# the head shapes the converter writes beside Mistral's: (name, H, KVH, hd)
+HEAD_SHAPES = (("Phi-3-mini", 32, 32, 96), ("Gemma-7B", 16, 16, 256),
+               ("Gemma-2B", 8, 1, 256), ("32 query rows a kv head", 64, 2, 128))
+
+
+def check_partials(name, got, want, tol=TOL_PARTIALS) -> float:
+    """K12 partials (acc, m, l) against the plain version: rows with nothing
+    visible give m = -inf, l = 0, acc = 0 on both sides; the rest within
+    ``tol`` of each output's largest magnitude."""
+    (a, m, l), (wa, wm, wl) = got, want
+    dead = torch.isneginf(wm)
+    if (not torch.equal(torch.isneginf(m), dead) or l[dead].any()
+            or a[dead.expand_as(a)].any()):
+        fail(f"{name}: empty rows are not m = -inf, l = 0, acc = 0")
+    if dead.all():
+        return 0.0
+    return max(check(name, g, w, tol) for g, w in (
+        (a, wa), (m.masked_fill(dead, 0.0), wm.masked_fill(dead, 0.0)), (l, wl)))
+
+
+def merge_partials(parts):
+    """The exact softmax from the S-shards' (acc, m, l): one max and two
+    sums, as sp decode closes it across ranks (calm_tpu/model.py:569-576)."""
+    mg = torch.stack([p[1] for p in parts]).amax(0)
+    num = sum(p[0] * torch.exp(p[1] - mg) for p in parts)
+    return num / sum(p[2] * torch.exp(p[1] - mg) for p in parts)
+
+
+def ragged_checks_heads(dev):
+    """K12 in plain, fresh, paged and partials mode and K13 at the head
+    shapes of the converter's Phi-3-mini and Gemma containers and at 32
+    query rows a kv head, bf16 and e5m2 caches, ragged kv_len, an empty
+    partials slot, against their plain versions."""
+    from calm_tpu_torch.ops import hopper_attn as ha
+
+    worst = {"decode_attention": 0.0, "partials": 0.0, "prefill_attention": 0.0}
+    n = 0
+    gen = torch.Generator().manual_seed(11)
+    B, S, L, PR, T = 2, 640, 2, 64, 37
+    for name, H, KVH, hd in HEAD_SHAPES:
+        M = H // KVH
+        for kvd in (torch.bfloat16, torch.float8_e5m2):
+            kc, vc = kv_rand((L, B, KVH, S, hd), kvd, dev), kv_rand((L, B, KVH, S, hd), kvd, dev)
+            q = torch.randn(B, H, hd, device=dev)
+            kl = torch.tensor([S, 333], dtype=torch.int32, device=dev)
+            fr = (kv_rand((B, KVH, hd), kvd, dev), kv_rand((B, KVH, hd), kvd, dev),
+                  torch.tensor([17, 200], dtype=torch.int32, device=dev))
+            order = torch.randperm(B * (S // PR), generator=gen).reshape(B, -1)
+            pt = order.to(torch.int32).to(dev)
+            kp, vp = to_pages(kc, PR, pt), to_pages(vc, PR, pt)
+            for fresh in (None, fr):
+                for paged in (False, True):
+                    k_, v_, p_ = (kp, vp, pt) if paged else (kc, vc, None)
+                    e = max_err(ha.decode_attention(q, k_, v_, kl, 1, fresh, pt=p_),
+                                ha.decode_attention_plain(q, k_, v_, kl, 1, fresh, pt=p_))
+                    if not e <= TOL_DA:
+                        fail(f"decode_attention {name} hd={hd} {kvd} fresh="
+                             f"{fresh is not None} paged={paged}: {e:.3e} > {TOL_DA}")
+                    worst["decode_attention"] = max(worst["decode_attention"], e)
+                    n += 1
+            kl0 = torch.tensor([S - 7, 0], dtype=torch.int32, device=dev)  # slot 1 empty
+            worst["partials"] = max(worst["partials"], check_partials(
+                f"decode_attention_partials {name} {kvd}",
+                ha.decode_attention(q, kc, vc, kl0, 1, partials=True),
+                ha.decode_attention_partials_plain(q, kc, vc, kl0, 1)))
+            qp = torch.randn(B, T, KVH, M, hd, device=dev)
+            p0 = torch.tensor([0, 100], dtype=torch.int32, device=dev)
+            worst["prefill_attention"] = max(worst["prefill_attention"], check(
+                f"prefill_attention {name} {kvd}",
+                ha.prefill_attention(qp, kc, vc, p0, p0 + T, 1),
+                ha.prefill_attention_plain(qp, kc, vc, p0, p0 + T, 1), TOL_ATT))
+            n += 2
+            del kc, vc, kp, vp
+    torch.cuda.synchronize()
+    log(f"# ragged shapes (head dims 96/256, 32 rows a kv head): {n} checks; "
+        f"max_abs_err K12 {worst['decode_attention']:.3e} (tol {TOL_DA:g}), K12 partials "
+        f"{worst['partials']:.3e} (tol {TOL_PARTIALS:g} x max|.|), K13 "
+        f"{worst['prefill_attention']:.3e} (tol {TOL_ATT:g} x max|out|)")
+
+
+def flash_lse(q4, k, v):
+    """One PyTorch flash-attention call that returns the output and the
+    log-sum-exp, the same state as K12 partials (out = acc / l, lse = m +
+    log l): the yardstick of the partials row, used nowhere in the port."""
+    return torch.ops.aten._scaled_dot_product_flash_attention(q4, k, v)[:2]
+
+
+def partials_kernel_rows(gbps, dev):
+    """K12 partials at Mistral-7B's decode shape (B=1, 8 kv heads, M=4, hd
+    128, bf16 cache), kv_len 4096 split into sp = 2 and 4 S-shards, and at 8
+    slots: each shard against the plain version, the merge of the shards'
+    partials against plain mode over the whole cache; ragged: an empty
+    shard, kv_len ending mid-chunk, e5m2 and fp16 caches. The sp = 2 shard
+    is timed beside its bound: the shard's K/V bytes."""
+    from calm_tpu_torch.ops import hopper_attn as ha
+
+    KVH, M, hd, S, L = 8, 4, 128, 4096, 8
+    errs, row = [], None
+    for B, kvd, kv_len in ((1, torch.bfloat16, 4096), (8, torch.bfloat16, 4096),
+                           (1, torch.bfloat16, 1000), (1, torch.bfloat16, 1500),
+                           (1, torch.float8_e5m2, 2500), (1, torch.float16, 3000)):
+        Lb = L if B == 1 else 2
+        kc = kv_rand((Lb, B, KVH, S, hd), kvd, dev, 0.5)
+        vc = kv_rand((Lb, B, KVH, S, hd), kvd, dev)
+        q = torch.randn(B, KVH * M, hd, device=dev)
+        kl = torch.full((B,), kv_len, dtype=torch.int32, device=dev)
+        whole = ha.decode_attention(q, kc, vc, kl, Lb - 1)
+        e = max_err(whole, ha.decode_attention_plain(q, kc, vc, kl, Lb - 1))
+        if not e <= TOL_DA:
+            fail(f"decode_attention plain mode B={B} kv_len {kv_len}: {e:.3e} > {TOL_DA}")
+        for sp in (2, 4):
+            s_loc = S // sp
+            ks = [kc[:, :, :, i * s_loc:(i + 1) * s_loc].contiguous() for i in range(sp)]
+            vs = [vc[:, :, :, i * s_loc:(i + 1) * s_loc].contiguous() for i in range(sp)]
+            locs = [(kl - i * s_loc).clamp(0, s_loc).to(torch.int32) for i in range(sp)]
+            parts = []
+            for i in range(sp):
+                got = ha.decode_attention(q, ks[i], vs[i], locs[i], Lb - 1, partials=True)
+                errs.append(check_partials(
+                    f"decode_attention_partials B={B} {kvd} kv_len {kv_len} shard {i}/{sp}",
+                    got, ha.decode_attention_partials_plain(q, ks[i], vs[i], locs[i], Lb - 1)))
+                parts.append(got)
+            e = max_err(merge_partials(parts), whole)
+            if not e <= TOL_DA:
+                fail(f"K12 partials merged over {sp} shards B={B} kv_len {kv_len}: "
+                     f"{e:.3e} from plain mode > {TOL_DA}")
+            empty = sum(int(x.max()) == 0 for x in locs)
+            log(f"# K12 partials B={B} {str(kvd)[6:]} kv_len {kv_len}, sp={sp} ({empty} "
+                f"empty shards): each shard within {TOL_PARTIALS:g} of the plain version, "
+                f"the merge {e:.3e} from plain mode over the cache (tol {TOL_DA:g})")
+            if sp == 2 and kvd == torch.bfloat16 and kv_len == S:
+                k0, v0, l0 = ks[0], vs[0], locs[0]
+                q4 = q.reshape(B, KVH, M, hd).bfloat16()
+                t = timings(lambda i: ha.decode_attention(q, k0, v0, l0, i % Lb, partials=True),
+                            lambda i: ha.decode_attention_partials_plain(q, k0, v0, l0, i % Lb),
+                            lambda i: flash_lse(q4, k0[i % Lb], v0[i % Lb]))
+                nb = 2 * B * KVH * s_loc * hd * 2 + 4 * B * KVH * M * (2 * hd + 2)
+                b, by = bound_ms(nb, 4 * B * KVH * M * s_loc * hd, gbps)
+                att = nb / (RATES["attainable"] * 1e6) if RATES["attainable"] else None
+                log(f"# K12 partials bf16 B={B} shard 0 of 2 ({s_loc} rows, KVH=8, M=4, "
+                    f"hd=128): {ms_line(t)} (flash attention with log-sum-exp) bound_ms "
+                    f"{b:.4f} ({by}, {nb / 1e6:.2f} MB at {gbps:.0f} GB/s); at the "
+                    f"attainable {RATES['attainable'] or 0:.1f} GB/s "
+                    f"{att or float('nan'):.4f} ms; {share(t, b)}")
+                if B == 1:
+                    row = dict(t, bound_ms=b, bound_by=by, attainable_bound_ms=att)
+        del kc, vc, ks, vs
+    torch.cuda.empty_cache()
+    return {"decode_attention_partials": dict(row, max_abs_err=max(errs))}
+
+
+RING_SIZES = (4096, 8 * 32 * 128, 1, 127)  # a tp close of Mistral-7B (its residual),
+# the sp merge at 8 slots (B * H * hd), and ragged ones (plus n * 128 + 1)
+
+
+def ring_flags_blocks(dev, n) -> int:
+    """The blocks a rank (G) of K14's last call at n ranks, read from its
+    flags, or 0 when they break the protocol: entry flags of segments < G
+    hold exactly this call's tag (epoch << 32), acks its last step's, the
+    arrive flags its last two steps', and every flag past G (left by a call
+    of more blocks) an earlier epoch's value."""
+    from calm_tpu_torch.ops import hopper_collectives as hc
+
+    flags, epoch, gmax = hc.ring_flags(dev, n)
+    f = flags.cpu()
+    e, steps = epoch << 32, 2 * (n - 1)
+    arrive, ack, entry = f[:, :2 * gmax], f[:, 2 * gmax:3 * gmax], f[:, 3 * gmax:]
+    g = int((entry[0] == e).sum())
+    ok = (g >= 1 and bool((entry[:, :g] == e).all()) and bool((ack[:, :g] == e | steps).all())
+          and bool((arrive[:, :2 * g] >= e | (steps - 1)).all())
+          and bool((arrive[:, :2 * g] <= e | steps).all())
+          and all(bool((x < e).all()) for x in (entry[:, g:], ack[:, g:], arrive[:, 2 * g:])))
+    return g if ok else 0
+
+
+def ring_checks(dev) -> tuple[int, int, int]:
+    """200 calls of K14 at each n in (2, 4, 8) on fresh random data, f32
+    and bf16 in turn, cycling through the sizes (so the blocks a rank
+    change from call to call), each against the ring-order plain version
+    bit for bit and with its flags read back (``ring_flags_blocks``):
+    (calls, mismatches, calls whose flags break the protocol)."""
+    from calm_tpu_torch.ops import hopper_collectives as hc
+
+    calls = bad = bad_flags = 0
+    gen = torch.Generator(device=dev).manual_seed(12)
+    for n in (2, 4, 8):
+        sizes = RING_SIZES + (n * 128 + 1,)
+        blocks = set()
+        for i in range(200):
+            dt = torch.float32 if i % 2 == 0 else torch.bfloat16
+            xs = [(torch.randn(sizes[i % len(sizes)], generator=gen, device=dev)
+                   * 10.0 ** (r - n // 2)).to(dt) for r in range(n)]
+            got, want = hc.ring_all_reduce(xs), hc.ring_all_reduce_plain(xs)
+            bad += sum(not torch.equal(a, b) for a, b in zip(got, want))
+            g = ring_flags_blocks(dev, n)
+            bad_flags += g == 0
+            blocks.add(g)
+            calls += 1
+        if len(blocks - {0}) < 2:
+            fail(f"ring_all_reduce n={n}: the sizes gave blocks a rank {sorted(blocks)}; "
+                 "the check needs calls of different block counts")
+    torch.cuda.synchronize()
+    return calls, bad, bad_flags
+
+
+def ring_kernel_rows(gbps, dev):
+    """K14: the 200-call bit-equality runs (its main path, counted), then
+    64 MB a rank timed at n = 2, 4, 8 beside the plain version and one
+    library call of the same function on one device (``torch.stack(xs)
+    .sum(0)`` copied back into the n buffers). Bound: each rank's input read
+    once and output written once; also the bytes each step reads and
+    writes (9 (n-1) chunks a rank) at the attainable rate."""
+    from calm_tpu_torch.ops import hopper_collectives as hc
+
+    (calls, bad, bad_flags), counts = drive(lambda: ring_checks(dev))
+    if bad:
+        fail(f"ring_all_reduce: {bad} of {calls} x n results differ from the ring-order "
+             "plain version")
+    if bad_flags:
+        fail(f"ring_all_reduce: after {bad_flags} of {calls} calls the flags do not hold "
+             "that call's epoch where its blocks ran (or a later one elsewhere)")
+    log(f"# K14 ring_all_reduce: {calls} calls at n = 2, 4, 8 (f32 and bf16; sizes "
+        f"{RING_SIZES} and n*128+1), every rank's result bit-equal to the ring-order "
+        f"plain version, every call's entry/ack/arrive flags tagged with its own epoch "
+        f"as its block count changed; {counts['ring_all_reduce']} launches")
+    row = None
+    for n in (2, 4, 8):
+        elems = 16 << 20  # 64 MB of f32 a rank
+        xs = [torch.randn(elems, device=dev) for _ in range(n)]
+        outs = [torch.empty_like(x) for x in xs]
+
+        def library(i):
+            s = torch.stack(xs).sum(0)
+            for o in outs:
+                o.copy_(s)
+        got, want = hc.ring_all_reduce(xs), hc.ring_all_reduce_plain(xs)
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            fail(f"ring_all_reduce n={n} 64 MB: not bit-equal to the plain version")
+        del got, want
+        t = timings(lambda i: hc.ring_all_reduce(xs), lambda i: hc.ring_all_reduce_plain(xs),
+                    library, plain_iters=3)
+        b, by = bound_ms(2 * n * elems * 4, (n - 1) * elems, gbps)
+        chunk = -(-(-(-elems // n)) // 128) * 128
+        step_b = 9 * n * (n - 1) * chunk * 4 / (RATES["attainable"] or gbps) / 1e6
+        log(f"# K14 ring_all_reduce n={n} x 64 MB f32 on one card: bit-equal; "
+            f"{ms_line(t)} (stack + sum + n copies) bound_ms {b:.4f} ({by}: n inputs read, "
+            f"n outputs written); the ring's step bytes {9 * n * (n - 1) * chunk * 4 / 1e9:.2f} "
+            f"GB at the attainable rate {step_b:.4f} ms; {share(t, b)}")
+        if n == 4:
+            row = dict(t, bound_ms=b, bound_by=by, step_bound_ms=step_b, max_abs_err=0.0)
+        del xs, outs
+    torch.cuda.empty_cache()
+    return {"ring_all_reduce": row}, counts
+
+
+# Sharded phases: (a) Mistral-7B fp8 at 8 of 32 layers, tp=2 x sp=2; (b)
+# Mixtral 8x7B fp8 at 4 of 32 layers, ep=2; (c) 2 layers of Mistral-7B
+# width, ctx 64, sp=2, across the window wrap
+CTX_A, STEPS_A, LAYERS_A = 1024, 32, 8
+PROMPT_B, STEPS_B, LAYERS_B = 64, 16, 4
+CTX_C, STEPS_C = 64, 96
+
+
+def sharded_cfg(phase):
+    from calm_tpu_torch.config import ModelConfig
+
+    if phase == "a":
+        kw = dict(n_layers=LAYERS_A, rope_theta=10000.0, seq_len=CTX_A)
+    elif phase == "b":
+        kw = dict(n_layers=LAYERS_B, rope_theta=1e6, n_experts=EXPERTS, n_experts_ac=2,
+                  seq_len=1024)
+    else:
+        kw = dict(n_layers=2, rope_theta=10000.0, seq_len=CTX_C)
+    return ModelConfig(**{**MISTRAL, **kw}, rotary_dim=128, dtype="fp8", norm_ln=False)
+
+
+def sharded_rank(rank, dev, prompt_a, toks_a, prompt_b, toks_b, toks_c):
+    """One rank of the sharded phases, on ``dev`` with three other ranks over
+    gloo: (a) on all four, (b) and (c) on ranks 0 and 1. The same seeded
+    random weights as the parent's, cut to this rank's shards; each phase
+    teacher-forces the parent's greedy ids. Returns the logits (rank 0),
+    the launch counts of each decode run, and ms per step."""
+    from calm_tpu_torch import model as M
+    from calm_tpu_torch.parallel import (ShardingPlan, make_mesh, shard_cache,
+                                         shard_weights, sharded_decode_step,
+                                         sharded_prefill, sharded_prefill_sp)
+    from calm_tpu_torch.utils.synth import synth_weights
+
+    out = {}
+
+    def run(phase, mesh, plan, prefill, toks, pos0, sp):
+        cfg = sharded_cfg(phase)
+        w = synth_weights(cfg, seed=0, device=dev, random=True)
+        ws = shard_weights(w, cfg, mesh, plan)
+        del w
+        torch.cuda.empty_cache()
+        cache = shard_cache(M.KVCache.create(cfg, 1, torch.bfloat16, dev), mesh, plan, sp=sp)
+        pf = prefill(cfg, ws, cache) if prefill else None
+        step = sharded_decode_step(cfg, mesh, plan)
+
+        def decode():
+            lg = []
+            for i, tok in enumerate(toks):
+                x, _ = step(ws, torch.tensor([tok]), pos0 + i, cache)
+                lg.append(x[0])
+            return torch.stack(lg)
+        decode_out, counts = drive(decode)  # the counts of this rank's run
+        t0 = time.perf_counter()
+        decode()  # again on the rolled cache: only the pace is kept
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / len(toks)
+        keep = rank == 0
+        out[phase] = dict(counts=counts, ms_step=ms,
+                          prefill=pf.cpu().numpy() if keep and pf is not None else None,
+                          steps=decode_out.cpu().numpy() if keep else None)
+
+    mesh = make_mesh(tp=2, sp=2, device=dev)
+    plan = ShardingPlan(tp="tp", sp="sp")
+    run("a", mesh, plan, lambda cfg, ws, cache: sharded_prefill_sp(cfg, mesh, plan)(
+        ws, torch.tensor([prompt_a]), cache)[0][0, -1], toks_a, CTX_A, sp=True)
+    mesh = make_mesh(ep=2, device=dev)
+    if mesh is not None:
+        plan = ShardingPlan(ep="ep")
+        run("b", mesh, plan, lambda cfg, ws, cache: sharded_prefill(cfg, mesh, plan)(
+            ws, torch.tensor([prompt_b]), [0], cache)[0][0], toks_b, PROMPT_B, sp=False)
+    mesh = make_mesh(sp=2, device=dev)
+    if mesh is not None:
+        run("c", mesh, ShardingPlan(sp="sp"), None, toks_c, 0, sp=True)
+    return out
+
+
+def sharded_reference(phase, dev, prompt, n_steps):
+    """The unsharded run in this process on the same weights: (logits after
+    the prompt or None, per-step logits (N, V) on the host, the greedy ids
+    fed to each step)."""
+    from calm_tpu_torch import model as M
+    from calm_tpu_torch.utils.synth import synth_weights
+
+    cfg = sharded_cfg(phase)
+    w = synth_weights(cfg, seed=0, device=dev, random=True)
+    cache = M.KVCache.create(cfg, 1, torch.bfloat16, dev)
+    pf, tok = None, 1
+    if prompt:
+        pf = M.prefill(cfg, w, torch.tensor([prompt], device=dev), [0], cache, "last")[0][0]
+        tok = int(pf.argmax())
+    toks, lgs = [], []
+    for i in range(n_steps):
+        lg, cache = M.decode_step(cfg, w, torch.tensor([tok], device=dev), len(prompt) + i,
+                                  cache)
+        toks.append(tok)
+        lgs.append(lg[0].float().cpu().numpy())
+        tok = int(lgs[-1].argmax())
+    del w, cache
+    torch.cuda.empty_cache()
+    return (None if pf is None else pf.float().cpu().numpy()), np.stack(lgs), toks
+
+
+def sharded_phases(dev, smi):
+    """(a), (b), (c) in one spawned world of 4 ranks on cuda:0 (gloo: NCCL
+    refuses two ranks on one device), each held to the unsharded run in
+    this process: logits within the tolerance, greedy ids equal except at
+    near-ties; in (a) each rank's K12 partials launches are layers x steps.
+    Returns the launch counts of (a), summed over its ranks."""
+    from calm_tpu_torch.parallel import spawn
+
+    gen = torch.Generator().manual_seed(21)
+    prompt_a = torch.randint(3, MISTRAL["vocab_size"], (CTX_A,), generator=gen).tolist()
+    prompt_b = torch.randint(3, MISTRAL["vocab_size"], (PROMPT_B,), generator=gen).tolist()
+    t0 = time.perf_counter()
+    ref = {"a": sharded_reference("a", dev, prompt_a, STEPS_A),
+           "b": sharded_reference("b", dev, prompt_b, STEPS_B),
+           "c": sharded_reference("c", dev, [], STEPS_C)}
+    t_ref = time.perf_counter() - t0
+    dev = torch.device(dev.type, dev.index or 0)
+    res = spawn(sharded_rank, 4, dev, prompt_a, ref["a"][2], prompt_b, ref["b"][2],
+                ref["c"][2], device=dev, timeout_s=600)
+    log(f"# sharded phases: unsharded references {t_ref:.1f} s, 4 ranks spawned on one "
+        f"card {time.perf_counter() - t0 - t_ref:.1f} s")
+    what = {"a": f"(a) Mistral-7B fp8 {LAYERS_A} layers, tp=2 x sp=2, sp prefill of "
+                 f"{CTX_A} then {STEPS_A} steps",
+            "b": f"(b) Mixtral 8x7B fp8 {LAYERS_B} layers, ep=2, prefill of {PROMPT_B} "
+                 f"then {STEPS_B} steps",
+            "c": f"(c) Mistral-7B width fp8 2 layers, ctx {CTX_C}, sp=2, {STEPS_C} steps "
+                 "across the wrap"}
+    total_a = {}
+    for phase, tol in (("a", TOL_PREFILL), ("b", TOL_PREFILL), ("c", TOL_STEP)):
+        pf_ref, lg_ref, _ = ref[phase]
+        got = res[0][phase]
+        worst, ties = 0.0, 0
+        if pf_ref is not None:
+            worst = float(np.abs(got["prefill"] - pf_ref).max() / np.abs(pf_ref).max())
+        for i, (g, w) in enumerate(zip(got["steps"], lg_ref)):
+            worst = max(worst, float(np.abs(g - w).max() / np.abs(w).max()))
+            ties += not greedy_agrees(f"sharded {what[phase]} step {i}", int(g.argmax()), w, tol)
+        if not worst <= tol:
+            fail(f"sharded {what[phase]}: logits {worst:.3e} of scale from the unsharded "
+                 f"run > {tol}")
+        ranks = [r[phase] for r in res if phase in r]
+        counts = [r["counts"] for r in ranks]
+        cfg = sharded_cfg(phase)
+        n_steps = len(got["steps"])
+        if phase == "a":
+            want = cfg.n_layers * n_steps
+            if any(c["decode_attention_partials"] != want for c in counts):
+                fail(f"sharded (a): K12 partials launches "
+                     f"{[c['decode_attention_partials'] for c in counts]} per rank, not "
+                     f"layers x steps = {want} each")
+            total_a = {k: sum(c[k] for c in counts) for k in counts[0]}
+        if phase == "b" and any(c["qmm_moe_dense"] != 3 * cfg.n_layers * n_steps
+                                for c in counts):
+            fail(f"sharded (b): K10 launches {[c['qmm_moe_dense'] for c in counts]} per "
+                 f"rank, not 3 x layers x steps")
+        if phase == "c" and any(c["decode_attention_partials"] != cfg.n_layers * n_steps
+                                for c in counts):
+            fail(f"sharded (c): K12 partials launches per rank "
+                 f"{[c['decode_attention_partials'] for c in counts]}")
+        launched = {k: v for k, v in counts[0].items() if v}
+        log(f"# sharded {what[phase]}: logits within {worst:.3e} of scale of the unsharded "
+            f"run (tol {tol:g}), {ties} near-ties in {n_steps} greedy ids; rank 0 launches "
+            f"{launched}; wall ms per step by rank (ranks share one card, no speed result): "
+            + ", ".join(f"{r['ms_step']:.1f}" for r in ranks) + f" on {smi}")
+    return total_a
+
+
+def device_sampling_check(eng, what):
+    """Engine.generate at -t 1 on the card samples on the device by
+    default: each id lies in the min-p support set of its step's logits,
+    replayed step by step on the card. min-p is set from the first step's
+    logits so that its set holds the top 1% of the vocab, so the check can
+    fail (random weights give flat logits: -p 0.1 would keep them all)."""
+    prompt = "The quick brown fox"
+    p = eng.tokenizer.encode(prompt, bos=True)
+    eng.reset()
+    eng.prefill_tokens(p[:-1])
+    lg = eng.step(p[-1], len(p) - 1)
+    minp = float(np.exp(-(lg.max() - np.quantile(lg, 0.99))))
+    eng.reset()
+    st = eng.generate(prompt, 40, temperature=1.0, minp=minp, seed=7)
+    eng.reset()
+    eng.prefill_tokens(p[:-1])
+    tok, sizes = p[-1], []
+    for pos, nxt in enumerate(st.ids, start=len(p) - 1):
+        lg = eng.step(tok, pos)
+        keep = np.nonzero(lg >= lg.max() + math.log(minp) * 1.0)[0]
+        sizes.append(len(keep))
+        if nxt not in keep:
+            fail(f"{what}: device-sampled id {nxt} at {pos} outside the min-p set "
+                 f"({len(keep)} ids)")
+        tok = nxt
+    eng.reset()
+    if not 1 < max(sizes) < len(lg):
+        fail(f"{what}: device sampling check cannot discriminate: min-p sets {sizes}")
+    log(f"# {what} device sampling (-t 1 -p {minp:.4f}, the default path): {len(st.ids)} "
+        f"ids, {len(set(st.ids))} distinct, each in its step's min-p set ({min(sizes)}-"
+        f"{max(sizes)} of {len(lg)} ids)")
+
+
+HEAD_CONTAINERS = (  # 2-layer containers of the converter's other head dims
+    ("phi3-mini", dict(dim=3072, hidden_dim=8192, head_dim=96, n_heads=32, n_kv_heads=32,
+                       vocab_size=32064, rotary_dim=96, rope_theta=10000.0)),
+    ("gemma-2b", dict(dim=2048, hidden_dim=16384, head_dim=256, n_heads=8, n_kv_heads=1,
+                      vocab_size=32000, rotary_dim=256, rope_theta=10000.0, act_gelu=True)))
+
+
+def head_dim_containers(dev):
+    """A 2-layer fp8 container of Phi-3-mini's widths (head_dim 96) and one
+    of Gemma-2B's (head_dim 256, 8 query heads on 1 kv head; vocab cut to
+    32000 for the CPU's plain lm-head): generate on the card (prefill, then
+    decode) without raising, and 8 steps held to the CPU plain path."""
+    from calm_tpu_torch.config import ModelConfig
+    from calm_tpu_torch.engine import Engine
+    from calm_tpu_torch.utils.synth import synth_container
+
+    for name, kw in HEAD_CONTAINERS:
+        cfg = ModelConfig(**{**kw, "n_layers": 2}, seq_len=512, dtype="fp8", norm_ln=False,
+                          bos_token_id=1, eos_token_id=2)
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, f"{name}-2l.calm")
+            synth_container(path, cfg, seed=3, device=dev, random=True)
+            eng, cpu = Engine(path), Engine(path, device="cpu")
+            st = eng.generate(PROMPT_LONG, len(eng.tokenizer.encode(PROMPT_LONG, bos=True))
+                              + 16, temperature=0)
+            tok, worst, ties = 1, 0.0, 0
+            eng.reset()
+            for pos in range(8):
+                lg, lc = eng.step(tok, pos), cpu.step(tok, pos)
+                worst = max(worst, float(np.abs(lg - lc).max() / np.abs(lc).max()))
+                ties += not greedy_agrees(f"{name} step {pos}", int(lg.argmax()), lc, TOL_STEP)
+                tok = int(lc.argmax())
+            if worst > TOL_STEP:
+                fail(f"{name}-width: logits {worst:.3e} from the CPU > {TOL_STEP}")
+            log(f"# {name}-width fp8 2 layers (head_dim {cfg.head_dim}, {cfg.n_heads} q / "
+                f"{cfg.n_kv_heads} kv heads): generate {st.tokens} positions on the card "
+                f"(prefill + decode), 8 steps within {worst:.3e} of the CPU (tol "
+                f"{TOL_STEP:g}), {ties} near-ties")
+            del eng, cpu
+    torch.cuda.empty_cache()
+
+
 def ptxas_summary(build) -> str:
     """Registers and spills of each library's kernels, from nvcc -Xptxas -v."""
     out = []
@@ -1884,6 +2406,15 @@ def main():
     # attainable read rate every later GB/s is also read against
     counts_tools = tools_phase(smi)
     log(f"# tools done at {time.perf_counter() - t_start:.1f} s")
+    # the parallel slice: K12 partials and K14 rows (read against the
+    # attainable rate too), the sharded phases (K12 partials' main path),
+    # and the converter's other head dims end to end
+    rows.update(partials_kernel_rows(gbps, dev))
+    ring_rows, counts_ring = ring_kernel_rows(gbps, dev)
+    rows.update(ring_rows)
+    counts_sp = sharded_phases(dev, smi)
+    log(f"# sharded phases done at {time.perf_counter() - t_start:.1f} s")
+    head_dim_containers(dev)
     # each kernel's launches come from the main path that uses it: the fp8
     # decode path (K2, K9, K12), the gf4 prefill + decode path (K3, K4, K5,
     # K8, K13) and its CALM_ROT=0 decode (K7); each container is then served
@@ -1935,7 +2466,11 @@ def main():
                "stream_sum": ("calm_tpu_torch/csrc/stream.cu",
                               "tools/dma_ceiling.py:26", counts_tools),
                "gf4_decode_sum": ("calm_tpu_torch/csrc/stream.cu",
-                                  "tools/gf4_bound.py:55", counts_tools)}
+                                  "tools/gf4_bound.py:55", counts_tools),
+               "decode_attention_partials": ("calm_tpu_torch/csrc/attn.cu",
+                                             "calm_tpu/ops/pallas_attn.py:57", counts_sp),
+               "ring_all_reduce": ("calm_tpu_torch/csrc/ring.cu",
+                                   "calm_tpu/ops/pallas_collectives.py:42", counts_ring)}
     kernels = []
     for name, (src, rep, counts) in sources.items():
         if counts[name] <= 0:
@@ -1945,7 +2480,9 @@ def main():
                             launches=counts[name], max_abs_err=r["max_abs_err"],
                             ms=r["ms"], plain_ms=r["plain_ms"],
                             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-                            library_ms=r["library_ms"], timed_by=r["timed_by"]))
+                            library_ms=r["library_ms"], timed_by=r["timed_by"],
+                            **{k: r[k] for k in ("attainable_bound_ms", "step_bound_ms")
+                               if k in r}))
     log(f"# main paths: fp8 {tok8} positions, gf4 {tok4}, gf4 Aya-width {tok4c}, fp8 "
         f"MoE {tok8m}, gf4 MoE {tok4m}; total "
         f"{time.perf_counter() - t_start:.1f} s")

@@ -83,9 +83,87 @@ def test_sampled_generate_matches_jax_reference_sampling(model_path, monkeypatch
     js = JE.Engine(model_path).generate("hi", 40, temperature=0.9, minp=0.05,
                                         seed=4, reference_sampling=True)
     ts = TE.Engine(model_path, device="cpu").generate(
-        "hi", 40, temperature=0.9, minp=0.05, seed=4)
+        "hi", 40, temperature=0.9, minp=0.05, seed=4, reference_sampling=True)
     assert ts.ids == [t for chunk in ids for t in chunk]
     assert ts.text == js.text and len(set(ts.ids)) > 3
+
+
+def _min_p_support(logits, temperature, minp):
+    """The ids min-p keeps: logit >= max + log(minp) * temperature."""
+    return set(np.nonzero(logits >= logits.max() + np.log(minp) * temperature)[0].tolist())
+
+
+def test_sampled_generate_defaults_to_device_sampling(model_path, monkeypatch):
+    """-t > 0 samples on the device by default (decode_loop's sampling, the host
+    Sampler untouched); every id lies in the min-p support set of its
+    step's logits, replayed by stepping the same ids; one seed gives one
+    generation, and another seed another."""
+    drawn = []
+    real = TE.M.decode_loop
+
+    def spy(*a, **k):
+        out = real(*a, **k)
+        assert a[6] is not None  # every chunk sampled
+        drawn.append(out[0][0].tolist())
+        return out
+    monkeypatch.setattr(TE.M, "decode_loop", spy)
+    monkeypatch.setattr(tsampler.Sampler, "sample", None)  # the host path is unused
+    eng = TE.Engine(model_path, device="cpu")
+    t, mp = 1.3, 0.05
+    st = eng.generate("hi", 40, temperature=t, minp=mp, seed=4)
+    assert st.ids == [i for chunk in drawn for i in chunk][:len(st.ids)]
+    prompt = eng.tokenizer.encode("hi", bos=True)
+    eng.reset()
+    logits = eng.prefill_tokens(prompt)
+    sizes = []
+    for pos, nxt in enumerate(st.ids, start=len(prompt)):
+        keep = _min_p_support(logits, t, mp)
+        sizes.append(len(keep))
+        assert nxt in keep, (pos, nxt, sorted(keep))
+        logits = eng.step(nxt, pos)
+    # the draws had a choice, and the sets leave ids out: the check can fail
+    assert max(sizes) > 1 and min(sizes) < len(logits) and len(set(st.ids)) > 3
+    again = TE.Engine(model_path, device="cpu").generate("hi", 40, temperature=t,
+                                                         minp=mp, seed=4)
+    other = TE.Engine(model_path, device="cpu").generate("hi", 40, temperature=t,
+                                                         minp=mp, seed=5)
+    assert again.ids == st.ids and other.ids != st.ids
+
+
+def test_chat_samples_on_the_device_by_default(model_path, monkeypatch):
+    """chat_loop's default reply decodes in device-sampled chunks (the host
+    Sampler unused), bounded by max_reply; one seed, one transcript."""
+    monkeypatch.setattr(tsampler.Sampler, "sample", None)
+
+    def run(seed):
+        out = io.StringIO()
+        TE.chat_loop(TE.Engine(model_path, device="cpu"), "", "hello", temperature=1.3,
+                     minp=0.05, seed=seed, read_line=lambda: (_ for _ in ()).throw(EOFError),
+                     write=out.write, max_reply=20)
+        return out.getvalue()
+    text = run(2)
+    assert text.count("Assistant: ") == 1 and "\n\n[" in text
+    eng = TE.Engine(model_path, device="cpu")
+    prompt = eng.tokenizer.encode(TE.chat_template(eng.tokenizer, False).format(
+        user="hello"), bos=True)
+    n = int(re.search(r"\[(\d+)/32\] User: $", text).group(1))
+    assert len(prompt) - 1 < n <= len(prompt) - 1 + 20  # stopped by eos or at 20
+    assert run(2) == text
+
+
+def test_cli_reference_sampling_flag(model_path):
+    """--reference-sampling takes the host xorshift path: the CLI decodes
+    what Engine.generate(reference_sampling=True) decodes."""
+    env = dict(os.environ, CALM_CPU="1")
+    args = [sys.executable, "-m", "calm_tpu_torch.cli", model_path, "-t", "0.9",
+            "-p", "0.05", "-s", "4", "-n", "24", "-i", "hi"]
+    r = subprocess.run(args + ["--reference-sampling"], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    want = TE.Engine(model_path, device="cpu").generate(
+        "hi", 24, temperature=0.9, minp=0.05, seed=4, reference_sampling=True)
+    # the fingerprint of the last step's logits: the same ids to the end
+    assert r.stderr.strip().splitlines()[-1].endswith(f"#{want.logits_hash:08x}"), r.stderr
 
 
 def test_stepped_prefill_matches_batched_prefill(model_path):
@@ -130,7 +208,7 @@ def test_chat_transcript_matches_jax(model_path):
         return out.getvalue()
 
     want = run(JE.chat_loop, JE.Engine(model_path), reference_sampling=True)
-    got = run(TE.chat_loop, TE.Engine(model_path, device="cpu"))
+    got = run(TE.chat_loop, TE.Engine(model_path, device="cpu"), reference_sampling=True)
     assert got == want
     assert got.count("Assistant: ") == 2 and "User: " in got
     assert TE.chat_template(TE.Engine(model_path, device="cpu").tokenizer,

@@ -23,7 +23,9 @@ MODULES = ["calm_tpu_torch", "calm_tpu_torch.config", "calm_tpu_torch.container"
            "calm_tpu_torch.cli", "calm_tpu_torch.utils.synth",
            "calm_tpu_torch.paged", "calm_tpu_torch.serve", "calm_tpu_torch.httpd",
            "calm_tpu_torch.ops.hopper_stream", "calm_tpu_torch.tools.dma_ceiling",
-           "calm_tpu_torch.tools.gf4_bound"]
+           "calm_tpu_torch.tools.gf4_bound", "calm_tpu_torch.ops.hopper_collectives",
+           "calm_tpu_torch.parallel", "calm_tpu_torch.parallel.plan",
+           "calm_tpu_torch.parallel.mesh", "calm_tpu_torch.parallel.sharding"]
 
 
 def test_import_leaves_jax_out():
@@ -40,7 +42,9 @@ def test_import_leaves_jax_out():
 
 
 def _py_files():
-    out = [os.path.join(ROOT, "chip_smoke.py")]
+    # the rank bodies of the sharded tests run in spawned ranks: jax-free too
+    out = [os.path.join(ROOT, "chip_smoke.py"),
+           os.path.join(ROOT, "tests", "test_torch_parallel_ranks.py")]
     for d, _, files in os.walk(PKG):
         out += [os.path.join(d, f) for f in files if f.endswith(".py")]
     return out
@@ -61,6 +65,16 @@ def test_ast_scan_finds_no_jax_import():
                     hits.append(f"{path}: {n}")
     assert not hits, hits
     assert len(_py_files()) > 10
+
+
+def test_spawned_rank_imports_no_jax():
+    """A rank of ``parallel.spawn`` (gloo, two processes) runs a jax-free
+    module's function and has imported neither JAX nor the JAX package."""
+    from calm_tpu_torch.parallel import spawn
+    from tests import test_torch_parallel_ranks as R
+
+    out = spawn(R.modules_case, 2, FORBIDDEN, device="cpu", timeout_s=120)
+    assert out == [[], []]
 
 
 def test_triton_only_inside_functions():

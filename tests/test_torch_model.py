@@ -86,6 +86,12 @@ CASES = {
     "fp8e4": (dict(dtype="fp8e4"), {}),
     "gf4": (dict(dtype="gf4", dim=64, hidden_dim=64, head_dim=16,
                  rotary_dim=16), {}),
+    # the head dims of the converter's Phi-3-mini (96) and Gemma (256)
+    # containers, which the card's attention kernels take since they widened
+    "hd96": (dict(dtype="fp16", dim=192, hidden_dim=128, head_dim=96, n_heads=2,
+                  n_kv_heads=2, rotary_dim=96), {}),
+    "hd256": (dict(dtype="fp8", dim=128, hidden_dim=128, head_dim=256, n_heads=2,
+                   n_kv_heads=1, rotary_dim=256, act_gelu=True), {}),
 }
 
 
@@ -159,7 +165,8 @@ def _run_both(path, kv, steps, jax_step, prompt_tok=1):
                                      ("fp16-gelu-ln", "fp16"),
                                      ("fp8-bias", "fp8"), ("fp16-tied", "bf16"),
                                      ("fp8", "fp16"), ("fp8e4", "bf16"),
-                                     ("gf4", "fp16")])
+                                     ("gf4", "fp16"), ("hd96", "bf16"),
+                                     ("hd256", "bf16")])
 def test_decode_steps_match_jax(tmp_path, name, kv):
     """40 steps at seq_len 32: through the sinks and the rolling write."""
     path = _model(tmp_path, name)
@@ -246,6 +253,19 @@ def test_fused_gf4_path_matches_jax_offn_qkv_interpret(tmp_path):
     err = np.abs(got - want).max(axis=-1) / np.abs(want).max(axis=-1)
     assert err.max() < 5e-2, err
     np.testing.assert_array_equal(got.argmax(-1), want.argmax(-1))
+
+
+def test_card_refuses_at_load_what_its_kernels_do_not_take():
+    """A head dim the attention kernels are not built for is refused when
+    the model loads for the card, not at its first step; the CPU takes
+    every head dim."""
+    for hd in (64, 96, 128, 256):
+        TM.check_supported(tiny_config(head_dim=hd, rotary_dim=hd), "cuda")
+    with pytest.raises(NotImplementedError, match="head_dim 12"):
+        TM.check_supported(tiny_config(), "cuda")
+    with pytest.raises(NotImplementedError, match="multiples of 16"):
+        TM.check_supported(tiny_config(head_dim=64, rotary_dim=64, dim=72), "cuda")
+    TM.check_supported(tiny_config(), "cpu")
 
 
 def test_decode_indices():
