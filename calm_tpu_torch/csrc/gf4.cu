@@ -9,7 +9,7 @@
 //   - _layered_gf4_kernel (:100, via qmm_decode :219): y (B <= 16, d) =
 //     x . W[layer]^T -> calm_gf4_matvec below (K3);
 //   - _gf4_mm_kernel (:238, via qmm_prefill :335): the same product for
-//     R >= 32 rows -> calm_gf4_matmul below (K4);
+//     R >= 32 rows, x in bf16 -> calm_gf4_matmul below (K4);
 //   - _gf4_mmt_kernel (:346, via qmm_prefill_t :416): the FFN's w2
 //     product at prefill, which the TPU reads from word-transposed words
 //     so Mosaic needs no in-kernel transpose. On natural words it is the
@@ -25,19 +25,29 @@
 // 4 words of each row (64 bytes) in flight; the code-to-float step is
 // exact and needs no int-to-float conversion (those issue at 1/4 rate).
 //
-// K4, what bounds it: the tensor cores (2 R d n flops; at R = 2048 the
-// weights are read once per 128-row block and are a small share of the
-// time). Design: a 128 x 128 output tile per block of eight warps, 32-deep
-// k tiles. Each k tile's W words (128 rows x 4 words) are decoded ONCE
-// into shared memory as bf16 (exact: (code - 4) * scale has <= 5
-// significant bits) and serve all 128 rows of x in the block, the TPU
-// kernel's decode-once idea at the size of one block. x is rounded once to
-// bf16 as it is staged, as the TPU kernel rounds it (pallas_qmm.py:303).
-// mma.sync m16n8k16 bf16 with f32 sums, two shared buffers, the next
-// tile's global loads in registers while the current one is multiplied.
-// Both edges (rows R, columns d) and a k tail (n/8 not a multiple of 4,
-// e.g. 11008/8 = 1376 words is, 1000/8 = 125 is not) are masked.
+// K4, what bounds it: the tensor cores, 2 R d n flops (at R = 2048 the
+// words are read once per 128-row block of x, a small share of the time).
+// Design, one 128 x 128 output tile a block of two warpgroups, 64-deep k
+// tiles in a ring of MM_STAGES stages:
+// - x arrives as bf16 (the wrapper or the model rounds it once, as JAX
+//   casts x before its pallas_call, pallas_qmm.py:303, :384) and reaches
+//   shared memory by TMA in the 128-byte swizzle, one thread issuing the
+//   load of each stage onto its mbarrier; rows past R and columns past n
+//   arrive as zeros.
+// - Each k tile's W words (128 rows x 8 words) are decoded ONCE, by all
+//   256 threads, into a bf16 tile in the same swizzle (exact: (code - 4) *
+//   scale has <= 5 significant bits; the codes go under the mantissa of
+//   128 and one bf16x2 subtract and multiply finish a pair) and serve the
+//   block's 128 rows of x: the TPU kernel's decode-once idea
+//   (pallas_qmm.py:238-258). Words past d or n8 decode to zeros.
+// - wgmma m64n128k16 (bf16, f32 accumulate) reads both tiles from shared
+//   memory, each warpgroup 64 rows of x. One product stays in flight while
+//   the threads decode the tile MM_STAGES - 1 ahead into the stage the
+//   last product freed; the next words wait in registers.
+// - Row blocks run fastest in the grid, so the blocks that share a W tile
+//   run together and read it from L2.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -158,144 +168,258 @@ __global__ void __launch_bounds__(MV_WARPS * 32)
 }
 
 // ---------------------------------------------------------------------------
-// K4: matmul, R >= 32 rows of x, bf16 tensor cores
+// K4: matmul, R >= 32 rows of x, wgmma on the tensor cores
 // ---------------------------------------------------------------------------
 
-#define MM_BM 128
-#define MM_BN 128
-#define MM_BK 32              // k per tile: four words of each W row
-#define MM_LD (MM_BK + 8)     // bf16 per shared row: 80 bytes, no bank conflicts
+#define MM_BM 128       // rows of x a block: two consumer warpgroups of 64
+#define MM_BN 128       // output columns (rows of W) a block
+#define MM_BK 64        // k a tile: 128 bytes of bf16, eight gf4 words of a W row
+#define MM_STAGES 3     // ring of (x, decoded W) tiles
 #define MM_THREADS 256
-#define MM_TILE (MM_BM * MM_LD)  // bf16 per shared tile (BM == BN)
-#define MM_SMEM (4 * MM_TILE * 2)  // x, W; two buffers each: 40960 B
+#define MM_TILE (MM_BM * MM_BK * 2)  // bytes of one x (or W) tile: 16 KB
+#define MM_STAGE (2 * MM_TILE)
+#define MM_SMEM (MM_STAGES * MM_STAGE + 1024 + 64)  // + alignment, barriers
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
 }
 
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         const uint32_t* b) {
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count));
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try(uint64_t* bar, int parity) {
+  uint32_t ok;
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+      "{\n"
+      ".reg .pred P1;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%1], %2;\n"
+      "selp.b32 %0, 1, 0, P1;\n"
+      "}\n"
+      : "=r"(ok)
+      : "r"(smem_u32(bar)), "r"(parity)
+      : "memory");
+  return ok != 0;
 }
 
-__global__ void __launch_bounds__(MM_THREADS)
-    gf4_mm_kernel(const float* __restrict__ x, const uint32_t* __restrict__ w,
+// waits for the phase of this parity; a load that never lands traps (a
+// launch error) instead of hanging the card
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  for (uint32_t i = 0; !mbar_try(bar, parity); i++)
+    if (i == (1u << 24)) __trap();
+}
+
+// a 2-D TMA load of box (64 k, 128 rows) at (k0, r0) into dst; out-of-bounds
+// elements arrive as zeros
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                         int k0, int r0) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(k0), "r"(r0)
+      : "memory");
+}
+
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// wgmma shared-memory descriptor of a K-major tile of 128-byte rows in the
+// 128-byte swizzle (8-row groups 1024 bytes apart), 1024-byte aligned
+__device__ __forceinline__ uint64_t wgmma_desc(const void* p) {
+  const uint64_t a = smem_u32(p);
+  return ((a & 0x3FFFF) >> 4) | (1ull << 16) | ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keeps the accumulators in their registers across the asynchronous products
+__device__ __forceinline__ void fence_acc(float* d) {
+#pragma unroll
+  for (int i = 0; i < 64; i++) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (64 x 128 f32 across the warpgroup) += A (64 x 16) . B (128 x 16)^T,
+// both bf16 in shared memory, K-major
+__device__ __forceinline__ void wgmma_128(float* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// one gf4 word -> its eight weights in bf16, exactly: the codes go under the
+// mantissa of 128 (bf16 0x4300 | code = 128 + code), 132 comes off (code
+// - 4, exact), and one multiply by the scale (<= 5 significant bits, exact)
+__device__ __forceinline__ uint4 gf4_bf16x8(uint32_t w) {
+  const __nv_bfloat16 s = __float2bfloat16(gf4_scale(w));
+  const __nv_bfloat162 sc2 = __halves2bfloat162(s, s);
+  const uint32_t four = 0x43044304u;  // 132, 132
+  const uint32_t a = w >> 8;
+  uint32_t o[4];
+#pragma unroll
+  for (int k = 0; k < 4; k++) {
+    const uint32_t t = a >> (6 * k);
+    const uint32_t v = (t & 7u) | ((t << 13) & 0x70000u) | 0x43004300u;
+    __nv_bfloat162 x = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&v),
+                               *reinterpret_cast<const __nv_bfloat162*>(&four));
+    x = __hmul2(x, sc2);
+    o[k] = *reinterpret_cast<const uint32_t*>(&x);
+  }
+  return make_uint4(o[0], o[1], o[2], o[3]);
+}
+
+__global__ void __launch_bounds__(MM_THREADS, 2)
+    gf4_mm_kernel(const __grid_constant__ CUtensorMap xmap, const uint32_t* __restrict__ w,
                   float* __restrict__ y, int R, int d, int n8) {
-  extern __shared__ __align__(16) unsigned char mm_raw[];
-  __nv_bfloat16* mm_smem = reinterpret_cast<__nv_bfloat16*>(mm_raw);
-  // [buf][row][MM_LD] tiles: x, decoded W
-  auto sA = reinterpret_cast<__nv_bfloat16(*)[MM_BM][MM_LD]>(mm_smem);
-  auto sB = reinterpret_cast<__nv_bfloat16(*)[MM_BN][MM_LD]>(mm_smem + 2 * MM_TILE);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int n0 = blockIdx.x * MM_BN, m0 = blockIdx.y * MM_BM;
-  const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;  // warp tile 64 x 32
-  const int n = 8 * n8;
-  const int nk = (n8 + 3) / 4;
+  extern __shared__ unsigned char mm_raw[];
+  unsigned char* sm = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(mm_raw) + 1023) & ~(uintptr_t)1023);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(sm + MM_STAGES * MM_STAGE);
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int m0 = blockIdx.x * MM_BM, n0 = blockIdx.y * MM_BN;
+  const int nk = (n8 + 7) / 8;
 
-  float4 xs[4];  // staging: 4 float4 of x and 2 words of W per thread
-  uint32_t ws[2];
-  auto load = [&](int kt) {
+  if (tid == 0) {
 #pragma unroll
-    for (int i = 0; i < 4; i++) {
-      const int idx = tid + i * MM_THREADS, r = idx >> 3, c4 = idx & 7;
-      const int gr = m0 + r, gk = kt * MM_BK + c4 * 4;
-      xs[i] = (gr < R && gk < n)
-                  ? __ldg(reinterpret_cast<const float4*>(x + (size_t)gr * n + gk))
-                  : make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-#pragma unroll
-    for (int j = 0; j < 2; j++) {
-      const int idx = tid + j * MM_THREADS, r = idx >> 2, cw = idx & 3;
-      const int gn = n0 + r, gw = kt * 4 + cw;
-      ws[j] = (gn < d && gw < n8) ? __ldg(w + (size_t)gn * n8 + gw) : 0u;
-    }
-  };
-  auto store = [&](int buf) {
-#pragma unroll
-    for (int i = 0; i < 4; i++) {
-      const int idx = tid + i * MM_THREADS, r = idx >> 3, c4 = idx & 7;
-      *reinterpret_cast<uint2*>(&sA[buf][r][c4 * 4]) =
-          make_uint2(pack_bf16(xs[i].x, xs[i].y), pack_bf16(xs[i].z, xs[i].w));
-    }
-#pragma unroll
-    for (int j = 0; j < 2; j++) {
-      const int idx = tid + j * MM_THREADS, r = idx >> 2, cw = idx & 3;
-      const uint32_t v = ws[j];
-      const float sc = gf4_scale(v);  // a zero word decodes to zeros
-      uint4 o;
-      o.x = pack_bf16(gf4_code(v, 0) * sc, gf4_code(v, 1) * sc);
-      o.y = pack_bf16(gf4_code(v, 2) * sc, gf4_code(v, 3) * sc);
-      o.z = pack_bf16(gf4_code(v, 4) * sc, gf4_code(v, 5) * sc);
-      o.w = pack_bf16(gf4_code(v, 6) * sc, gf4_code(v, 7) * sc);
-      *reinterpret_cast<uint4*>(&sB[buf][r][cw * 8]) = o;
-    }
-  };
-
-  float acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; i++)
-#pragma unroll
-    for (int j = 0; j < 4; j++)
-#pragma unroll
-      for (int k = 0; k < 4; k++) acc[i][j][k] = 0.f;
-
-  load(0);
-  store(0);
+    for (int s = 0; s < MM_STAGES; s++) mbar_init(bar + s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
   __syncthreads();
-  for (int kt = 0; kt < nk; kt++) {
-    const int cur = kt & 1;
-    if (kt + 1 < nk) load(kt + 1);  // in flight while this tile multiplies
+
+  // the W role of every thread: half a k tile (four words) of row wr
+  const int wr = tid >> 1, wh = tid & 1;
+  const bool wrow = n0 + wr < d;
+  const uint32_t* wp = w + (size_t)min(n0 + wr, d - 1) * n8;
+  const bool wvec = (n8 & 3) == 0;
+  uint32_t wv[4];
+  auto wload = [&](int kt) {
+    const int c = kt * 8 + wh * 4;
+    if (wrow && wvec && c + 4 <= n8) {
+      const uint4 u = __ldg(reinterpret_cast<const uint4*>(wp + c));
+      wv[0] = u.x; wv[1] = u.y; wv[2] = u.z; wv[3] = u.w;
+    } else {
 #pragma unroll
-    for (int ks = 0; ks < MM_BK; ks += 16) {
-      uint32_t b[4][2];
-#pragma unroll
-      for (int nt = 0; nt < 4; nt++) {
-        const int c = wn + nt * 8 + g;
-        b[nt][0] = *reinterpret_cast<const uint32_t*>(&sB[cur][c][ks + t4 * 2]);
-        b[nt][1] = *reinterpret_cast<const uint32_t*>(&sB[cur][c][ks + t4 * 2 + 8]);
-      }
-      uint32_t a[4][4];
-#pragma unroll
-      for (int mt = 0; mt < 4; mt++) {
-        const int r = wm + mt * 16 + g;
-        a[mt][0] = *reinterpret_cast<const uint32_t*>(&sA[cur][r][ks + t4 * 2]);
-        a[mt][1] = *reinterpret_cast<const uint32_t*>(&sA[cur][r + 8][ks + t4 * 2]);
-        a[mt][2] = *reinterpret_cast<const uint32_t*>(&sA[cur][r][ks + t4 * 2 + 8]);
-        a[mt][3] = *reinterpret_cast<const uint32_t*>(&sA[cur][r + 8][ks + t4 * 2 + 8]);
-      }
-#pragma unroll
-      for (int mt = 0; mt < 4; mt++)
-#pragma unroll
-        for (int nt = 0; nt < 4; nt++) mma_bf16(acc[mt][nt], a[mt], b[nt]);
+      for (int i = 0; i < 4; i++) wv[i] = (wrow && c + i < n8) ? __ldg(wp + c + i) : 0u;
     }
-    // the other buffer was last read before the previous iteration's sync
-    if (kt + 1 < nk) store(cur ^ 1);
-    __syncthreads();
-  }
+  };
+  auto wstore = [&](int kt) {  // decoded into the 128-byte swizzle TMA gives x
+    unsigned char* row = sm + (kt % MM_STAGES) * MM_STAGE + MM_TILE + wr * 128;
+#pragma unroll
+    for (int i = 0; i < 4; i++) {
+      const int j = wh * 4 + i;
+      *reinterpret_cast<uint4*>(row + ((j ^ (wr & 7)) << 4)) = gf4_bf16x8(wv[i]);
+    }
+  };
+  auto xload = [&](int kt) {
+    if (tid == 0) {
+      uint64_t* b = bar + kt % MM_STAGES;
+      mbar_expect_tx(b, MM_TILE);
+      tma_load(sm + (kt % MM_STAGES) * MM_STAGE, &xmap, b, kt * MM_BK, m0);
+    }
+  };
 
 #pragma unroll
-  for (int mt = 0; mt < 4; mt++) {
-#pragma unroll
-    for (int nt = 0; nt < 4; nt++) {
-      const int r = m0 + wm + mt * 16 + g;
-      const int c = n0 + wn + nt * 8 + t4 * 2;
-#pragma unroll
-      for (int h = 0; h < 2; h++) {
-        const int rr = r + 8 * h;
-        if (rr < R) {
-          float* o = y + (size_t)rr * d;
-          if (c < d) o[c] = acc[mt][nt][2 * h];
-          if (c + 1 < d) o[c + 1] = acc[mt][nt][2 * h + 1];
-        }
-      }
+  for (int i = 0; i < MM_STAGES - 1; i++) {
+    if (i < nk) {
+      xload(i);
+      wload(i);
+      wstore(i);
     }
   }
+  if (MM_STAGES - 1 < nk) wload(MM_STAGES - 1);
+  fence_proxy_async();
+  __syncthreads();
+
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; i++) acc[i] = 0.f;
+  for (int kt = 0; kt < nk; kt++) {
+    const int s = kt % MM_STAGES;
+    mbar_wait(bar + s, (kt / MM_STAGES) & 1);
+    const uint64_t da = wgmma_desc(sm + s * MM_STAGE + wg * (64 * 128));
+    const uint64_t db = wgmma_desc(sm + s * MM_STAGE + MM_TILE);
+    fence_acc(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < MM_BK / 16; k++) wgmma_128(acc, da + 2 * k, db + 2 * k);
+    wgmma_commit();
+    fence_acc(acc);
+    wgmma_wait<1>();  // this warpgroup's product of tile kt - 1 is done
+    __syncthreads();  // both are: its stage takes tile kt + MM_STAGES - 1
+    const int kn = kt + MM_STAGES - 1;
+    if (kn < nk) {
+      xload(kn);
+      wstore(kn);
+      fence_proxy_async();
+      if (kn + 1 < nk) wload(kn + 1);
+    }
+  }
+  wgmma_wait<0>();
+  fence_acc(acc);
+
+  // register i of a thread: row 16 warp + lane / 4 + 8 ((i / 2) % 2), column
+  // 8 (i / 4) + 2 (lane % 4) + i % 2 of the warpgroup's 64 x 128 tile
+  const int warp = (tid >> 5) & 3, lane = tid & 31;
+  const bool vec = (d & 1) == 0;
+#pragma unroll
+  for (int i = 0; i < 64; i += 2) {
+    const int r = m0 + wg * 64 + warp * 16 + (lane >> 2) + 8 * ((i >> 1) & 1);
+    const int c = n0 + 8 * (i >> 2) + 2 * (lane & 3);
+    if (r >= R) continue;
+    float* o = y + (size_t)r * d + c;
+    if (vec && c + 1 < d) {
+      *reinterpret_cast<float2*>(o) = make_float2(acc[i], acc[i + 1]);
+    } else {
+      if (c < d) o[0] = acc[i];
+      if (c + 1 < d) o[1] = acc[i + 1];
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled from the driver, without linking libcuda
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                         &q) != cudaSuccess)
+      p = nullptr;
+#else
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) !=
+        cudaSuccess)
+      p = nullptr;
+#endif
+    return reinterpret_cast<EncodeTiledFn>(p);
+  }();
+  return fn;
 }
 
 }  // namespace
@@ -320,19 +444,34 @@ int calm_gf4_matvec(const void* x, const void* w, void* y, int B, int d, int n8,
   return (int)cudaGetLastError();
 }
 
-// y (R, d) f32 = x (R, n) f32 . W^T, W (d, n/8) gf4 words at the layer's
-// plane; x 16-byte aligned; x rounded to bf16, f32 sums.
+// y (R, d) f32 = x (R, n) bf16 . W^T, W (d, n/8) gf4 words at the layer's
+// plane; x contiguous and 16-byte aligned, n = 8 n8 a multiple of 8; f32
+// sums.
 int calm_gf4_matmul(const void* x, const void* w, void* y, int R, int d, int n8,
                     void* stream) {
-  static cudaError_t attr = cudaFuncSetAttribute(
+  static const cudaError_t attr = cudaFuncSetAttribute(
       gf4_mm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, MM_SMEM);
   if (attr != cudaSuccess) return (int)attr;
-  dim3 grid((d + MM_BN - 1) / MM_BN, (R + MM_BM - 1) / MM_BM);
+  const EncodeTiledFn enc = encode_tiled();
+  if (enc == nullptr) return (int)cudaErrorNotSupported;
+  CUtensorMap map;
+  const cuuint64_t dims[2] = {(cuuint64_t)8 * n8, (cuuint64_t)R};
+  const cuuint64_t strides[1] = {(cuuint64_t)16 * n8};  // bytes a row of x
+  const cuuint32_t box[2] = {MM_BK, MM_BM};
+  const cuuint32_t estr[2] = {1, 1};
+  if (enc(&map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(x), dims, strides, box,
+          estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+          CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return (int)cudaErrorInvalidValue;
+  // row blocks fastest: the blocks that share a W tile run together
+  dim3 grid((R + MM_BM - 1) / MM_BM, (d + MM_BN - 1) / MM_BN);
   gf4_mm_kernel<<<grid, MM_THREADS, MM_SMEM, (cudaStream_t)stream>>>(
-      static_cast<const float*>(x), static_cast<const uint32_t*>(w),
-      static_cast<float*>(y), R, d, n8);
+      map, static_cast<const uint32_t*>(w), static_cast<float*>(y), R, d, n8);
   return (int)cudaGetLastError();
 }
+
+// the dynamic shared memory one matmul block asks for (for reports)
+int calm_gf4_mm_smem() { return MM_SMEM; }
 
 const char* calm_gf4_error_string(int e) {
   return cudaGetErrorString((cudaError_t)e);

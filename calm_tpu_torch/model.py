@@ -77,8 +77,9 @@ from calm_tpu_torch.ops.hopper_qmm import (MAX_ROWS, act, gf4_ffn,
                                            gf4_ffn_supported, gf4_moe_ffn,
                                            gf4_offn, gf4_offn_qkv,
                                            gf4_offn_supported, mm_supported,
-                                           qmm_decode, qmm_moe_dense,
-                                           qmm_prefill, qmm_prefill_w2,
+                                           prefill_operand, qmm_decode,
+                                           qmm_moe_dense, qmm_prefill,
+                                           qmm_prefill_w2,
                                            qx_offn_qkv, qx_offn_supported)
 from calm_tpu_torch.ops.norms import rmsnorm
 from calm_tpu_torch.ops.qmm import (STORAGE, QTensor, dense_matmul,
@@ -359,6 +360,14 @@ def _mm(x: torch.Tensor, qt: QTensor, layer=None, w2: bool = False) -> torch.Ten
     return dense_matmul(x, qt, layer)
 
 
+def _mm_operand(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
+    """x rounded once to bf16 when :func:`_mm` will give it to the gf4
+    matmul kernel, so products that share x (wq/wk/wv, w1/w3) share one
+    cast; else x as it is."""
+    rows = x.shape[0]
+    return prefill_operand(x, rows > MAX_ROWS and mm_supported(rows, qt.data, qt.fmt))
+
+
 def _embed(embed: QTensor, tokens: torch.Tensor, plan: ShardingPlan = NO_SHARDING,
            mesh=None):
     """Token embedding (B, D) f32; vocab-sharded under tp, a masked lookup
@@ -558,7 +567,7 @@ def _moe_grouped(cfg: ModelConfig, lw: LayerWeights, layer: int, xb2, wts, idx,
         if not off <= e < off + e_local:
             continue
         rows = sel // k
-        xe = xb2.index_select(0, rows)
+        xe = _mm_operand(xb2.index_select(0, rows), lw.w1[layer, e - off])
         h = (act(_mm(xe, lw.w1[layer, e - off]), cfg.act_gelu)
              * _mm(xe, lw.w3[layer, e - off]))
         y = _mm(h, lw.w2[layer, e - off], w2=True)
@@ -596,7 +605,8 @@ def _ffn(cfg: ModelConfig, lw: LayerWeights, layer: int, x, att, xb,
             and gf4_ffn_supported(xb2.shape, lw.w1.data, lw.w2.data)):
         ffn = gf4_ffn(xb2, lw.w1.data, lw.w3.data, lw.w2.data, layer, cfg.act_gelu)
     else:
-        h = act(_mm(xb2, lw.w1, layer), cfg.act_gelu) * _mm(xb2, lw.w3, layer)
+        xf = _mm_operand(xb2, lw.w1)
+        h = act(_mm(xf, lw.w1, layer), cfg.act_gelu) * _mm(xf, lw.w3, layer)
         ffn = _mm(h, lw.w2, layer, w2=True)
     return x + _close_residual(ffn, plan, mesh)
 
@@ -642,8 +652,9 @@ def _layer(cfg: ModelConfig, lw: LayerWeights, layer: int, x, qkv, cache,
     xb = None
     if qkv is None:
         xb = _norm(cfg, x, lw.attn_norm[layer])
-        qkv = (_mm(xb, lw.wq, layer), _mm(xb, lw.wk, layer),
-               _mm(xb, lw.wv, layer))
+        xq = _mm_operand(xb, lw.wq)
+        qkv = (_mm(xq, lw.wq, layer), _mm(xq, lw.wk, layer),
+               _mm(xq, lw.wv, layer))
     q, k, v = _qkv_post(cfg, lw, layer, *qkv, plan, mesh)
     H, KVH = q.shape[-1] // hd, k.shape[-1] // hd
     q = apply_rope(q.reshape(B, H, hd), st.cos, st.sin)
@@ -847,8 +858,9 @@ def _prefill_layer(cfg: ModelConfig, lw: LayerWeights, layer: int, x,
     B, T = len(starts), x.shape[0] // len(starts)
     hd = cfg.head_dim
     xb = _norm(cfg, x, lw.attn_norm[layer])
-    q, k, v = _qkv_post(cfg, lw, layer, _mm(xb, lw.wq, layer),
-                        _mm(xb, lw.wk, layer), _mm(xb, lw.wv, layer), plan, mesh)
+    xq = _mm_operand(xb, lw.wq)
+    q, k, v = _qkv_post(cfg, lw, layer, _mm(xq, lw.wq, layer),
+                        _mm(xq, lw.wk, layer), _mm(xq, lw.wv, layer), plan, mesh)
     H, KVH = q.shape[-1] // hd, k.shape[-1] // hd
     q = apply_rope(q.reshape(B, T, H, hd), cos, sin)
     k = apply_rope(k.reshape(B, T, KVH, hd), cos, sin)

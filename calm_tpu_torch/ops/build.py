@@ -41,12 +41,14 @@ SIGNATURES = {
         "calm_gf4_offn": [P] * 11 + [I] * 5 + [F, I, P],
     },
     "attn": {
-        "calm_decode_attention": [P] * 14 + [I] * 10 + [P],
+        "calm_decode_attention": [P] * 15 + [I] * 12 + [P],
         "calm_prefill_attention": [P] * 6 + [I] * 10 + [P],
+        "calm_decode_smem": [I] * 3,
     },
     "gf4": {
         "calm_gf4_matvec": [P, P, P, I, I, I, P],
         "calm_gf4_matmul": [P, P, P, I, I, I, P],
+        "calm_gf4_mm_smem": [],
     },
     "moe": {
         "calm_moe_dense": [P] * 5 + [I] * 7 + [P],

@@ -14,19 +14,28 @@ version (``*_plain``, f32) for tensors on the CPU, and launches the kernel
 for CUDA tensors or raises; it counts its launches in ``.launches``
 (:func:`decode_attention` those in paged mode also in ``.paged_launches``,
 those in partials mode apart, in ``.partials_launches``). Both take head
-dims 64, 96, 128 and 256 and any number of query heads per kv head.
+dims 64, 96, 128 and 256 and any number of query heads per kv head, and
+both read from a slot offset (``batch_off``) of a dense cache.
+
+:func:`decode_plan` is the decode kernel's tiling, a pure function of the
+shapes: the kernel launches one block a (chunk, kv head, slot, row tile)
+and folds the chunks in the same launch (``csrc/attn.cu``'s note).
 """
 
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
 from calm_tpu_torch.ops import build
 
 _KV_CODE = {torch.float16: 0, torch.bfloat16: 1, torch.float8_e5m2: 2}
-_TARGET_BLOCKS = 264  # two blocks per SM on a 132-SM H100
+SMS = 132  # an H100's streaming multiprocessors
+TARGET_BLOCKS = 2 * SMS  # decode: two resident blocks an SM
+MIN_TILES = 4  # decode: the least tiles a chunk, where the card allows
+MAX_CHUNKS = 256  # csrc/attn.cu DA_MAX_CHUNKS: the merge's weights in shared memory
 HEAD_DIMS = (64, 96, 128, 256)  # what the kernels are built for
 
 
@@ -41,7 +50,7 @@ def paged_view(pool_plane: torch.Tensor, pt: torch.Tensor) -> torch.Tensor:
 
 
 def decode_attention_plain(q, k_cache, v_cache, kv_len, layer, fresh=None,
-                           pt=None):
+                           pt=None, batch_off=0):
     B, H, hd = q.shape
     KVH = k_cache.shape[2]
     M = H // KVH
@@ -50,6 +59,9 @@ def decode_attention_plain(q, k_cache, v_cache, kv_len, layer, fresh=None,
     kc, vc = k_cache[int(layer)], v_cache[int(layer)]
     if pt is not None:
         kc, vc = paged_view(kc, pt), paged_view(vc, pt)
+    else:
+        slots = slice(int(batch_off), int(batch_off) + B)
+        kc, vc = kc[slots], vc[slots]
     kc, vc = kc.float(), vc.float()                      # (B, KVH, S, hd)
     S = kc.shape[2]
     scores = torch.einsum("bkmh,bksh->bkms", qg, kc) * scale
@@ -67,16 +79,20 @@ def decode_attention_plain(q, k_cache, v_cache, kv_len, layer, fresh=None,
     return torch.einsum("bkms,bksh->bkmh", p, vc).reshape(B, H, hd)
 
 
-def decode_attention_partials_plain(q, k_cache, v_cache, kv_len, layer):
+def decode_attention_partials_plain(q, k_cache, v_cache, kv_len, layer,
+                                    batch_off=0):
     """The unnormalised flash state of the rows s < kv_len in f32, in the
     JAX convention (``pallas_attn.py:154-159``, ``:284-287``): acc (B, H,
     hd) = sum_s exp(score_s - m) v_s, m (B, H, 1) = the max of the scaled
     scores, l (B, H, 1) = sum_s exp(score_s - m); a row with nothing
-    visible gives m = -inf, l = 0, acc = 0."""
+    visible gives m = -inf, l = 0, acc = 0. Local row b reads cache slot
+    batch_off + b."""
     B, H, hd = q.shape
     KVH = k_cache.shape[2]
     qg = q.float().reshape(B, KVH, H // KVH, hd)
-    kc, vc = k_cache[int(layer)].float(), v_cache[int(layer)].float()
+    slots = slice(int(batch_off), int(batch_off) + B)
+    kc = k_cache[int(layer), slots].float()
+    vc = v_cache[int(layer), slots].float()
     scores = torch.einsum("bkmh,bksh->bkms", qg, kc) / math.sqrt(hd)
     col = torch.arange(kc.shape[2], device=q.device)
     live = col[None, :] < kv_len.to(q.device).long()[:, None]   # (B, S)
@@ -88,13 +104,59 @@ def decode_attention_partials_plain(q, k_cache, v_cache, kv_len, layer):
             p.sum(-1, keepdim=True).reshape(B, H, 1))
 
 
-def _chunk_rows(B: int, KVH: int, S: int) -> int:
-    """Rows per block: enough blocks to fill the card, at least 64 rows."""
-    want = max(1, -(-_TARGET_BLOCKS // (B * KVH)))
-    cs = 64
-    while cs * want < S:
-        cs *= 2
-    return cs
+class DecodePlan(NamedTuple):
+    """The decode kernel's tiling of one call (``csrc/attn.cu``)."""
+    tile_rows: int    # cache rows a shared-memory tile (TR)
+    row_tile: int     # query rows a block (MM): 4, or 8 past 4
+    row_tiles: int    # row tiles a kv head (NT)
+    chunk_rows: int   # cache rows a block (CS), a multiple of tile_rows
+    chunks: int       # chunks of the window (NC)
+    blocks: int       # NC * B * KVH * NT
+    pacc: int         # workspace floats: acc of every block
+    pml: int          # workspace floats: m (and again l) of every block
+    tickets: int      # ints, one a (b, kv head, row tile)
+
+
+def decode_plan(B: int, KVH: int, M: int, S: int, hd: int) -> DecodePlan:
+    """Tiles and chunks of the decode kernel for a window of S rows: about
+    TARGET_BLOCKS blocks (two an SM, one resident wave) while that leaves
+    a block MIN_TILES tiles or more; else about one block an SM, so that a
+    short window is not cut into chunks whose fold costs more than their
+    rows (at B=1 the chunks of one tile or two lose to four, on the card).
+    At most MAX_CHUNKS chunks, a chunk a whole number of tiles. It depends
+    on the logical window alone, never on kv_len or the page size, so paged
+    and dense mode sum the same rows in the same order."""
+    tr = 32 if hd > 128 else 64
+    mm = 4 if M <= 4 else 8
+    nt = -(-M // mm)
+    groups = B * KVH * nt
+    tiles = -(-S // tr)
+
+    def chunk_tiles(target: int) -> int:
+        want = max(1, target // groups)
+        return max(-(-tiles // want), -(-tiles // MAX_CHUNKS))
+
+    ct = chunk_tiles(TARGET_BLOCKS)
+    if ct < MIN_TILES:
+        ct = min(chunk_tiles(SMS), max(ct, MIN_TILES))
+    cs = tr * ct
+    nc = -(-S // cs)
+    return DecodePlan(tr, mm, nt, cs, nc, groups * nc, groups * nc * mm * hd,
+                      groups * nc * mm, groups)
+
+
+_tickets: dict[torch.device, torch.Tensor] = {}
+
+
+def _ticket_buffer(dev: torch.device, n: int) -> torch.Tensor:
+    """The decode kernel's chunk tickets, zeroed once and left zeroed by
+    every launch (the last block of a group resets its own), so a call
+    adds no fill launch. One buffer a device: calls on one stream only."""
+    t = _tickets.get(dev)
+    if t is None or t.numel() < n:
+        t = torch.zeros(max(n, 4096), dtype=torch.int32, device=dev)
+        _tickets[dev] = t
+    return t
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -103,9 +165,11 @@ def _check(cond: bool, msg: str) -> None:
 
 
 def decode_attention(q, k_cache, v_cache, kv_len, layer, fresh=None, pt=None,
-                     partials: bool = False):
-    """q (B, H, hd) f32; caches (L, B, KVH, S, hd) in bf16/fp16/fp8-e5m2
+                     partials: bool = False, batch_off: int = 0):
+    """q (B, H, hd) f32; caches (L, Bc, KVH, S, hd) in bf16/fp16/fp8-e5m2
     with ``layer`` selecting the plane; kv_len (B,) int32 -> (B, H, hd) f32.
+    Local row b reads cache slot ``batch_off`` + b (pipeline microbatches
+    address a slice of the full cache, as JAX's ``batch_off``).
 
     ``fresh`` = (fresh_k (B, KVH, hd) in the cache dtype, fresh_v, kv_pos
     (B,) int32): the current token's rows join the softmax directly and the
@@ -114,24 +178,29 @@ def decode_attention(q, k_cache, v_cache, kv_len, layer, fresh=None, pt=None,
     ``pt`` (B, n_blocks) int32: paged mode. The caches are a page pool
     (L, P, KVH, PR, hd) and logical row s of slot b lives at page
     pt[b, s // PR], row s % PR; kv_len and kv_pos are logical rows. Every
-    entry must lie in [0, P); entries past kv_len are never read.
+    entry must lie in [0, P); entries past kv_len are never read. The page
+    table addresses the slots, so ``batch_off`` must be 0.
 
     ``partials``: return the unnormalised state (acc (B, H, hd), m (B, H,
     1), l (B, H, 1)) of :func:`decode_attention_partials_plain` instead;
     it takes neither ``fresh`` nor ``pt``, as in JAX (``:230-232``)."""
     if partials and (fresh is not None or pt is not None):
         raise ValueError("partials mode composes with neither fresh rows nor paging")
+    if pt is not None and batch_off:
+        raise ValueError("paged mode addresses slots through its page table: batch_off must be 0")
     if q.device.type == "cpu":
         if partials:
-            return decode_attention_partials_plain(q, k_cache, v_cache, kv_len, layer)
-        return decode_attention_plain(q, k_cache, v_cache, kv_len, layer, fresh, pt)
+            return decode_attention_partials_plain(q, k_cache, v_cache, kv_len, layer,
+                                                   batch_off)
+        return decode_attention_plain(q, k_cache, v_cache, kv_len, layer, fresh, pt,
+                                      batch_off)
     B, H, hd = q.shape
     L, NP, KVH, PR, hd_c = k_cache.shape
     _check(q.dtype == torch.float32 and q.is_contiguous(), "q must be contiguous float32")
     _check(k_cache.dtype in _KV_CODE and v_cache.dtype == k_cache.dtype,
            f"no CUDA kernel for a {k_cache.dtype} cache")
     _check(tuple(v_cache.shape) == tuple(k_cache.shape) and hd_c == hd
-           and (pt is not None or NP == B), "cache shape mismatch")
+           and (pt is not None or 0 <= batch_off <= NP - B), "cache shape mismatch")
     S = PR
     if pt is not None:
         _check(pt.dtype == torch.int32 and pt.dim() == 2 and pt.shape[0] == B
@@ -156,12 +225,12 @@ def decode_attention(q, k_cache, v_cache, kv_len, layer, fresh=None, pt=None,
         _check(kv_pos.dtype == torch.int32 and tuple(kv_pos.shape) == (B,)
                and kv_pos.device == q.device, "kv_pos must be (B,) int32 on the card")
     M = H // KVH
-    cs = _chunk_rows(B, KVH, S)
-    nc = -(-S // cs)
+    plan = decode_plan(B, KVH, M, S, hd)
     dev = q.device
-    pacc = torch.empty((B, KVH, nc, M, hd), dtype=torch.float32, device=dev)
-    pm = torch.empty((B, KVH, nc, M), dtype=torch.float32, device=dev)
-    pl = torch.empty((B, KVH, nc, M), dtype=torch.float32, device=dev)
+    pacc = torch.empty(plan.pacc, dtype=torch.float32, device=dev)
+    pm = torch.empty(plan.pml, dtype=torch.float32, device=dev)
+    pl = torch.empty(plan.pml, dtype=torch.float32, device=dev)
+    tickets = _ticket_buffer(dev, plan.tickets)
     out = torch.empty((B, H, hd), dtype=torch.float32, device=dev)
     mo = lo = None
     if partials:
@@ -174,9 +243,9 @@ def decode_attention(q, k_cache, v_cache, kv_len, layer, fresh=None, pt=None,
     rc = build.lib("attn").calm_decode_attention(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), kv_len.data_ptr(),
         ptr(fk), ptr(fv), ptr(kv_pos), ptr(pt), pacc.data_ptr(), pm.data_ptr(),
-        pl.data_ptr(), out.data_ptr(), ptr(mo), ptr(lo), B, KVH, M, S, hd,
-        int(layer), cs, _KV_CODE[k_cache.dtype], NP, PR,
-        torch.cuda.current_stream(dev).cuda_stream)
+        pl.data_ptr(), tickets.data_ptr(), out.data_ptr(), ptr(mo), ptr(lo), B, KVH,
+        M, S, hd, int(layer), plan.chunk_rows, _KV_CODE[k_cache.dtype], NP, PR,
+        plan.row_tile, int(batch_off), torch.cuda.current_stream(dev).cuda_stream)
     build.check("attn", rc)
     if partials:
         decode_attention.partials_launches += 1

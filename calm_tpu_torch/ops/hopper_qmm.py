@@ -7,7 +7,8 @@
   same matvec on natural gf4 words, B <= 16 (``csrc/gf4.cu``).
 - :func:`qmm_prefill` replaces ``_gf4_mm_kernel`` (``:238``): the gf4
   product for R >= 32 rows (``csrc/gf4.cu``), eligibility as
-  ``mm_supported`` (``:275-283``).
+  ``mm_supported`` (``:275-283``); x enters as bf16, rounded once by
+  :func:`prefill_operand` as JAX rounds it before its ``pallas_call``.
 - :func:`qmm_prefill_w2` replaces ``_gf4_mmt_kernel`` (``:346``): the
   FFN's w2 product at prefill. The TPU kernel reads word-transposed w2 for
   Mosaic; on natural words it is K4's product and launches K4's kernel.
@@ -178,21 +179,42 @@ qmm_prefill_plain = qmm_decode_gf4_plain  # the same function, any row count
 qmm_prefill_w2_plain = qmm_decode_gf4_plain
 
 
+def prefill_operand(x: torch.Tensor, rows_ok: bool = True) -> torch.Tensor:
+    """x as the gf4 matmul kernel reads it on the card: bf16, rounded once,
+    as JAX casts x before its ``pallas_call`` (``pallas_qmm.py:303``,
+    ``:384``). A caller that feeds one activation to several products
+    (wq/wk/wv, w1/w3) rounds it once here; on the CPU, or when ``rows_ok``
+    is false (the product will not take the kernel), x stays f32."""
+    if x.is_cuda and rows_ok and x.dtype == torch.float32:
+        return x.to(torch.bfloat16)
+    return x
+
+
 def _gf4_matmul(x: torch.Tensor, w: torch.Tensor, layer) -> torch.Tensor:
     wl = _plane(w, layer)
-    R, d, n8 = _check_gf4(x, wl)
+    xb = prefill_operand(x).contiguous()
+    _check(xb.dtype == torch.bfloat16 and xb.ndim == 2,
+           "activations must be 2-D float32 or bfloat16")
+    _check(xb.data_ptr() % 16 == 0, "activations must be 16-byte aligned")
+    _check(wl.device == x.device, "weights and activations on different devices")
+    _check(wl.dtype == torch.int32 and wl.is_contiguous(),
+           "gf4 weights must be contiguous int32 words")
+    R, n = xb.shape
+    d, n8 = wl.shape
+    _check(n == 8 * n8, f"x has {n} columns, W has {n8} words (x8) per row")
     _check(R >= MIN_MM_ROWS, f"the matmul kernel takes >= {MIN_MM_ROWS} rows")
     y = torch.empty((R, d), dtype=torch.float32, device=x.device)
-    rc = build.lib("gf4").calm_gf4_matmul(x.data_ptr(), wl.data_ptr(),
+    rc = build.lib("gf4").calm_gf4_matmul(xb.data_ptr(), wl.data_ptr(),
                                           y.data_ptr(), R, d, n8, _stream(x))
     build.check("gf4", rc)
     return y
 
 
 def qmm_prefill(x: torch.Tensor, w: torch.Tensor, layer=None) -> torch.Tensor:
-    """x (R >= 32, n) f32 @ W[layer]^T for gf4 words W (L, d, n/8) (or
-    (d, n/8)) -> (R, d) f32. On the card the weights decode exactly to
-    bf16 and x is rounded once to bf16, as the TPU kernel rounds it."""
+    """x (R >= 32, n) f32 (or bf16, from :func:`prefill_operand`) @
+    W[layer]^T for gf4 words W (L, d, n/8) (or (d, n/8)) -> (R, d) f32. On
+    the card the weights decode exactly to bf16 and x is rounded once to
+    bf16, as the TPU kernel rounds it."""
     if x.device.type == "cpu":
         return qmm_prefill_plain(x, w, layer)
     y = _gf4_matmul(x, w, layer)
@@ -204,8 +226,9 @@ qmm_prefill.launches = 0
 
 
 def qmm_prefill_w2(h: torch.Tensor, w2: torch.Tensor, layer=None) -> torch.Tensor:
-    """The FFN's down product at prefill: h (R >= 32, H) f32 @ w2[layer]^T
-    for gf4 words w2 (L, D, H/8) -> (R, D) f32, as :func:`qmm_prefill`."""
+    """The FFN's down product at prefill: h (R >= 32, H) f32 or bf16 @
+    w2[layer]^T for gf4 words w2 (L, D, H/8) -> (R, D) f32, as
+    :func:`qmm_prefill`."""
     if h.device.type == "cpu":
         return qmm_prefill_w2_plain(h, w2, layer)
     y = _gf4_matmul(h, w2, layer)

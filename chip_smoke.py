@@ -6,7 +6,10 @@ Builds the hand-written kernels from ``calm_tpu_torch/csrc``, holds each
 against its plain PyTorch version at Mistral-7B, Mixtral 8x7B and the
 tools' shapes and ragged ones (K12 and K13 also at the head dims of the
 converter's Phi-3-mini and Gemma containers and at 32 query rows a kv
-head) and times it beside its bound; runs both bandwidth tools
+head; K12 at the corners of its tiles and chunks, pages shorter and longer
+than a tile and a slot offset; K4/K5 at 32 rows) and times it beside its
+bound and its library call (kernel/library on each timed row), after the
+redesigned kernels' ptxas report; runs both bandwidth tools
 (``calm_tpu_torch.tools.dma_ceiling``, ``gf4_bound``), whose 3 GB rows
 give the card's attainable HBM read rate; holds K12's partials mode
 (Mistral-7B's decode split into 2 and 4 S-shards, their merge against
@@ -160,8 +163,10 @@ def share(t: dict, b: float) -> str:
 
 def ms_line(t: dict) -> str:
     lib = "n/a" if t["library_ms"] is None else f"{t['library_ms']:.4f}"
-    return (f"kernel_ms {t['ms']:.4f} plain_ms {t['plain_ms']:.4f} library_ms {lib} "
-            f"({t['timed_by']})")
+    ratio = ("" if t["library_ms"] is None
+             else f", kernel/library {t['ms'] / t['library_ms']:.2f}x")
+    return (f"kernel_ms {t['ms']:.4f} plain_ms {t['plain_ms']:.4f} library_ms {lib}"
+            f"{ratio} ({t['timed_by']})")
 
 
 def bound_ms(nbytes: float, ops: float, gbps: float,
@@ -317,6 +322,7 @@ def kernel_phase(gbps, dev):
     ragged_checks_moe(dev)
     rows.update(paged_kernel_rows(gbps, dev))
     ragged_checks_paged(dev)
+    ragged_checks_tilings(dev)
     rows.update(ffn_kernel_rows(gbps, dev))
     rows.update(stream_kernel_rows(gbps, dev))
     ragged_checks_ffn_stream(dev)
@@ -488,6 +494,87 @@ def ragged_checks_paged(dev):
     log(f"# ragged shapes (paged): {n} K12 paged checks, max_abs_err {worst:.3e} "
         f"(tol {TOL_DA:g}); K13 from slot 3 of 5, max_abs_err {e13:.3e} "
         f"(tol {TOL_ATT:g} x max|out|)")
+
+
+def ragged_checks_tilings(dev):
+    """The corners of K12's tiles and chunks and K4's tiles: kv_len below
+    one tile and off a tile edge (64-row tiles; 32 at hd 256), the stale
+    row on a tile edge, pages of 16 and 32 rows (shorter than a tile) and
+    of 1024, each paged run torch.equal to dense mode on the same rows,
+    every cache dtype; ``batch_off`` from slot 3 of 5 in plain, fresh and
+    partials mode, equal to the slots sliced out; K4/K5 at R = 32 with d
+    and the words a row off their tiles."""
+    from calm_tpu_torch.ops import hopper_attn as ha
+    from calm_tpu_torch.ops import hopper_qmm as hq
+
+    worst, n = 0.0, 0
+    gen = torch.Generator().manual_seed(17)
+    L, S, KVH, M = 2, 2048, 2, 4
+    for kvd in (torch.float16, torch.bfloat16, torch.float8_e5m2):
+        for hd in (128, 256):
+            tr = 32 if hd > 128 else 64
+            kl = torch.tensor([1, tr - 1, tr + 1, 3 * tr, S - 1], dtype=torch.int32)
+            kp = torch.tensor([0, tr - 2, tr, 2 * tr - 1, tr], dtype=torch.int32)
+            B = len(kl)
+            kc, vc = kv_rand((L, B, KVH, S, hd), kvd, dev), kv_rand((L, B, KVH, S, hd), kvd, dev)
+            q = torch.randn(B, KVH * M, hd, device=dev)
+            kl, kp = kl.to(dev), kp.to(dev)
+            fr = (kv_rand((B, KVH, hd), kvd, dev), kv_rand((B, KVH, hd), kvd, dev), kp)
+            for fresh in (None, fr):
+                dense = ha.decode_attention(q, kc, vc, kl, 1, fresh)
+                e = max_err(dense, ha.decode_attention_plain(q, kc, vc, kl, 1, fresh))
+                if not e <= TOL_DA:
+                    fail(f"decode_attention tiles {kvd} hd={hd} fresh={fresh is not None}: "
+                         f"{e:.3e} > {TOL_DA}")
+                worst, n = max(worst, e), n + 1
+                for PR in (16, 32, 1024):
+                    order = torch.randperm(B * (S // PR), generator=gen).reshape(B, -1)
+                    pt = order.to(torch.int32).to(dev)
+                    kq, vq = to_pages(kc, PR, pt), to_pages(vc, PR, pt)
+                    got = ha.decode_attention(q, kq, vq, kl, 1, fresh, pt=pt)
+                    e = max_err(got, ha.decode_attention_plain(q, kq, vq, kl, 1, fresh, pt=pt))
+                    if not e <= TOL_DA or not torch.equal(got, dense):
+                        fail(f"decode_attention paged PR={PR} {kvd} hd={hd} fresh="
+                             f"{fresh is not None}: {e:.3e} against the plain version, or "
+                             f"not equal to dense mode")
+                    worst, n = max(worst, e), n + 1
+                    del kq, vq
+    # batch_off: two slots from slot 3 of a 5-slot cache
+    for kvd in (torch.bfloat16, torch.float8_e5m2):
+        B, off, hd = 2, 3, 128
+        kc, vc = kv_rand((L, 5, KVH, S, hd), kvd, dev), kv_rand((L, 5, KVH, S, hd), kvd, dev)
+        q = torch.randn(B, KVH * M, hd, device=dev)
+        kl = torch.tensor([700, S], dtype=torch.int32, device=dev)
+        fr = (kv_rand((B, KVH, hd), kvd, dev), kv_rand((B, KVH, hd), kvd, dev),
+              torch.tensor([64, 5], dtype=torch.int32, device=dev))
+        ks, vs = kc[:, off:off + B].contiguous(), vc[:, off:off + B].contiguous()
+        for fresh in (None, fr):
+            got = ha.decode_attention(q, kc, vc, kl, 1, fresh, batch_off=off)
+            e = max_err(got, ha.decode_attention_plain(q, kc, vc, kl, 1, fresh, batch_off=off))
+            if not e <= TOL_DA or not torch.equal(got, ha.decode_attention(q, ks, vs, kl, 1, fresh)):
+                fail(f"decode_attention batch_off 3 of 5 {kvd} fresh={fresh is not None}: "
+                     f"{e:.3e}, or not equal to the slots sliced out")
+            worst, n = max(worst, e), n + 1
+        kl0 = torch.tensor([0, 1500], dtype=torch.int32, device=dev)
+        got = ha.decode_attention(q, kc, vc, kl0, 1, partials=True, batch_off=off)
+        check_partials(f"decode_attention_partials batch_off 3 of 5 {kvd}", got,
+                       ha.decode_attention_partials_plain(q, kc, vc, kl0, 1, batch_off=off))
+        if not all(torch.equal(g, w) for g, w in zip(
+                got, ha.decode_attention(q, ks, vs, kl0, 1, partials=True))):
+            fail(f"decode_attention_partials batch_off {kvd}: not equal to the slots sliced out")
+        n += 1
+    e4 = 0.0
+    for d, n8 in ((1003, 125), (4096, 1376), (200, 8)):
+        w = rand_w((2, d, n8), "gf4", dev)
+        x = torch.randn(32, 8 * n8, device=dev)
+        for fn in (hq.qmm_prefill, hq.qmm_prefill_w2):
+            e4 = max(e4, check(f"{fn.__name__} {d}x{8 * n8} R=32", fn(x, w, 1),
+                               hq.qmm_prefill_plain(x, w, 1), TOL_MM))
+    torch.cuda.synchronize()
+    log(f"# ragged shapes (tiles): {n} K12 checks (kv_len below and off a tile, the stale "
+        f"row on a tile edge, pages of 16/32/1024 rows equal to dense, batch_off 3 of 5), "
+        f"max_abs_err {worst:.3e} (tol {TOL_DA:g}); K4/K5 at R=32, max_abs_err {e4:.3e} "
+        f"(tol {TOL_MM:g} x max|y|)")
 
 
 def epilogue_chain(a, r, g, anx, wb, L):
@@ -920,11 +1007,17 @@ def gf4_kernel_rows(gbps, dev):
                     lambda i: torch.matmul(xb, wb[i % L].T), 3)
         flops = 2 * R * d * n
         b, by = bound_ms(4 * R * n + d * n // 2 + 4 * R * d, flops, gbps, PEAK_BF16)
+        # the model rounds x once for several products: the kernel alone
+        # (a profiled time below the bound missed part of the call)
+        ms_b, how_b = timed(lambda i: fn(xb, w, i % L), floor=b)
         log(f"# {name} {key} {d}x{n} R={R}: max_abs_err {err:.3e} "
-            f"(tol {TOL_MM:g} x max|y|); {ms_line(t)} (bf16 matmul, pre-dequantized) "
-            f"bound_ms {b:.4f} ({by}, {flops / 1e9:.1f} GFLOP); {share(t, b)}, "
-            f"{flops / t['ms'] / 1e9:.1f} TFLOP/s")
-        rows[key] = dict(t, bound_ms=b, bound_by=by, max_abs_err=err)
+            f"(tol {TOL_MM:g} x max|y|); {ms_line(t)} (bf16 matmul, pre-dequantized; "
+            f"kernel_ms from an f32 x, its cast included) bound_ms {b:.4f} ({by}, "
+            f"{flops / 1e9:.1f} GFLOP); {share(t, b)}, {flops / t['ms'] / 1e9:.1f} "
+            f"TFLOP/s; from a bf16 x {ms_b:.4f} ms ({how_b}), "
+            f"{flops / ms_b / 1e9:.1f} TFLOP/s, kernel/library "
+            f"{ms_b / t['library_ms']:.2f}x")
+        rows[key] = dict(t, bound_ms=b, bound_by=by, max_abs_err=err, bf16_x_ms=ms_b)
         del w, wb, x, xb
 
     # K8 gf4_offn_qkv: one Mistral-7B layer, 2-layer stacks (the clamp)
@@ -2378,6 +2471,27 @@ def ptxas_summary(build) -> str:
     return "; ".join(out) or "no ptxas report"
 
 
+def ptxas_kernels(build, lib: str, kernel: str) -> str:
+    """-Xptxas -v of one kernel's instantiations: registers, spills and
+    static shared memory, from the build log; the dynamic shared memory a
+    launch asks for comes from the library."""
+    path = os.path.join(build.BUILD_DIR, lib + ".log")
+    if not os.path.exists(path):
+        return f"{kernel}: no ptxas report"
+    blocks = open(path).read().split("Compiling entry function '")[1:]
+    regs, spills, smem = [], 0, 0
+    for blk in blocks:
+        if kernel not in blk.split("'")[0]:
+            continue
+        regs += [int(r) for r in re.findall(r"Used (\d+) registers", blk)]
+        spills += sum(int(x) for x in re.findall(r"(\d+) bytes spill stores", blk))
+        smem = max([smem] + [int(x) for x in re.findall(r"(\d+) bytes smem", blk)])
+    if not regs:
+        return f"{kernel}: not in the ptxas report"
+    return (f"{kernel}: {len(regs)} instantiations, {min(regs)}-{max(regs)} registers, "
+            f"{spills} B spill stores, {smem} B static shared memory")
+
+
 def main():
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA GPU available")
@@ -2397,6 +2511,12 @@ def main():
         f"{info.nvcc}; kernel build {build_s:.2f} s; {ptxas_summary(build)}")
     if info.sm != "sm_90":
         fail(f"the kernels are built for sm_90a, this card is {info.sm}")
+    attn_lib, gf4_lib = build.lib("attn"), build.lib("gf4")
+    log(f"# ptxas -v: {ptxas_kernels(build, 'attn', 'attn_decode_kernel')}, dynamic "
+        f"{attn_lib.calm_decode_smem(128, 1, 4)} B at hd 128 bf16 (4 query rows), "
+        f"{attn_lib.calm_decode_smem(256, 1, 8)} B at hd 256 (8 query rows); "
+        f"{ptxas_kernels(build, 'gf4', 'gf4_mm_kernel')}, dynamic "
+        f"{gf4_lib.calm_gf4_mm_smem()} B")
     dev = torch.device("cuda")
 
     RATES["nominal"] = gbps
