@@ -69,6 +69,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 #define DA_THREADS 128
 #define DA_STAGES 2  // double buffer: the next tile's copies fly while one is computed
 #define DA_SMEM_FLOOR (96 * 1024)  // shared memory a block asks for at least: two an SM
@@ -540,76 +542,72 @@ cudaError_t launch_paged(int kvt, int mm, const AttnArgs& a, cudaStream_t st) {
 }
 
 // ---------------------------------------------------------------------------
-// Prefill: causal flash attention of T queries against the carried cache.
+// Prefill (K13): causal flash attention of T queries against the carried
+// cache, on TMA and wgmma.
 //
 // Replaces calm_tpu/ops/pallas_attn.py:_prefill_kernel (:326), reached
 // through prefill_attention (:463). Query t of sequence b sits at absolute
 // position pos0[b] + t and sees cache rows col < kv_len[b] and
 // col <= pos0[b] + t (the T fresh rows are written into the cache first).
 //
-// What bounds it on an H100: the tensor cores, ~4 * H * hd * T * kv / 2
-// flops per (b, layer) against ~2 * KVH * kv * hd cache bytes; at T = 2048
-// it does ~170 flops per byte read from the cache by each of the T / 16
-// query blocks, so device memory is not the limit.
+// What bounds it on an H100: the tensor cores. A call does 4 * hd flops per
+// visible (query head, cache row) pair against 2 * KVH * kv * hd cache
+// elements and q and out in f32, each moved once: at T = 2048 from position
+// 0 with M = 4, ~450 flops per byte, above the card's ~295 bf16 flops per
+// byte. So the design keeps the tensor cores fed:
 //
-// Design: a block per (query tile, kv head, b). The T * M (query, head)
-// rows of a kv head are numbered R = t * M + m and a block takes 64 of
-// them (row R = query R / M, head R % M), so the heads of a query share
-// the staged cache tiles, as the TPU kernel packs them (:340-342), and
-// any M fits: a query's heads may span two blocks. Four warps own 16 rows each. The block
-// walks 64-row cache tiles from 0 to its own causal limit, a pure loop:
-// blocks run in no order and carry nothing between them. Each tile is
-// staged into shared memory as bf16 (bf16 and fp8 e5m2 exactly, fp16
-// rounded); S = Q K^T and O += P V run on mma.sync m16n8k16 with f32 sums,
-// V read with ldmatrix.trans. q and p are rounded once to bf16, as the
-// TPU kernel rounds them (:355-360, 383). Online softmax in registers, in
-// base 2; a row with nothing visible yet keeps m = -inf and its shift is
-// clamped to 0 (:374-378), and the end divides by max(l, 1e-37) (:390).
+// - Work items. An item is 128 (query, head) rows of one (kv head,
+//   sequence), numbered R = t * M + m as the TPU kernel packs them
+//   (:340-342), so a query's M heads share every staged K/V tile and any M
+//   fits. Items run heaviest first (the last query tile has the longest
+//   causal range). One persistent block an SM walks them in a snake over
+//   that order, a heavy item of one band paired with a light one of the
+//   next, so the blocks end together (ops/hopper_attn.prefill_plan is the
+//   same arithmetic in Python).
+// - Roles. Two consumer warpgroups take 64 rows of an item each. A producer
+//   warpgroup stages q (f32 -> bf16, rounded once as the TPU kernel rounds
+//   it, :355-360) into one of two Q tiles, so the next item's q lands while
+//   this one computes, and keeps K/V tiles (BN = 64 cache rows, 32 at hd
+//   256) in flight in a ring of stages, each completing on an mbarrier
+//   ("full") and handed back on another ("empty", all 256 consumer threads
+//   arrive). The ring runs on across items.
+// - bf16 caches arrive by TMA (one producer thread), already in the swizzle
+//   wgmma reads: the 128-byte swizzle in 64-column blocks, or the 64-byte
+//   one in 32-column blocks at hd 96 (192-byte rows take no 128-byte
+//   swizzle in one box). The producer then needs few registers, so
+//   setmaxnreg moves them to the consumers. fp16 and e5m2 caches are read
+//   by all 128 producer threads, 16 bytes a load and a batch of loads in
+//   flight, and converted once into the same swizzled bf16 tile (e5m2
+//   exactly, fp16 rounded), as K4 decodes its gf4 words.
+// - Products. S = Q K^T is wgmma m64nBNk16 with both operands in shared
+//   memory; the online softmax runs in registers in base 2 (a row with
+//   nothing visible keeps m = -inf and its shift clamped to 0, :374-378);
+//   P is rounded to bf16 in registers (:383) and is the register A operand
+//   of O += P V, V's tile the MN-major B operand (the instruction's
+//   transpose bit). The next tile's S goes out right behind P V. Only tiles
+//   that cross the diagonal or kv_len compare; the rest skip the mask. The
+//   end divides by max(l, 1e-37) (:390). Sums in f32.
+// - Cache rows past an item's causal limit are never multiplied: a V row at
+//   or past it is zeroed in shared memory before P V (0 * a stale NaN is
+//   NaN), and its score is masked. The tensor map is 3-D (hd, S, planes),
+//   so a tile past S arrives as zeros.
 
-#define PF_WARPS 4
-#define PF_ROWS (PF_WARPS * 16)  // query rows (t, head) per block
-#define PF_BC 64                 // cache rows per tile
-
-struct PfArgs {
-  const float* q;      // (B, T, KVH, M, hd)
-  const void* k;       // (L, B, KVH, S, hd)
-  const void* v;
-  const int* pos0;     // (B,)
-  const int* kv_len;   // (B,)
-  float* out;          // (B, T, KVH, M, hd)
-  int B, T, KVH, M, S, layer, Bc, boff;  // cache slots, first slot read
-  float scale_log2;    // log2(e) / sqrt(hd)
-};
+#define PF_ROWS 128     // (query, head) rows a block: two consumer warpgroups
+#define PF_THREADS 384  // two consumer warpgroups and one producer warpgroup
+#define PF_SMEM_MAX 232448
+// registers a thread for a bf16 cache, whose producer only stages q and
+// issues TMA: 2 x 128 x 200 + 128 x 104 <= 65536 (setmaxnreg). The fp16 and
+// e5m2 loaders convert, and keep the even share of 168.
+#define PF_REGS_CONSUMER 200
+#define PF_REGS_PRODUCER 104
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const void* p) {
-  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-
-// eight cache values from element i of a cache plane -> eight bf16
-template <int KVT>
-__device__ __forceinline__ uint4 kv_bf16x8(const void* base, size_t i);
-
-template <>
-__device__ __forceinline__ uint4 kv_bf16x8<0>(const void* base, size_t i) {  // fp16
-  const uint4 raw = *reinterpret_cast<const uint4*>(static_cast<const __half*>(base) + i);
+// eight fp16 -> eight bf16 (rounded)
+__device__ __forceinline__ uint4 f16x8_bf16(uint4 raw) {
   const uint32_t* h = reinterpret_cast<const uint32_t*>(&raw);
   uint4 o;
   uint32_t* op = reinterpret_cast<uint32_t*>(&o);
@@ -620,208 +618,458 @@ __device__ __forceinline__ uint4 kv_bf16x8<0>(const void* base, size_t i) {  // 
   }
   return o;
 }
-template <>
-__device__ __forceinline__ uint4 kv_bf16x8<1>(const void* base, size_t i) {  // bf16
-  return *reinterpret_cast<const uint4*>(static_cast<const __nv_bfloat16*>(base) + i);
-}
-template <>
-__device__ __forceinline__ uint4 kv_bf16x8<2>(const void* base, size_t i) {  // e5m2
-  const uint2 raw = *reinterpret_cast<const uint2*>(static_cast<const uint8_t*>(base) + i);
-  const uint8_t* b8 = reinterpret_cast<const uint8_t*>(&raw);
+
+// eight e5m2 -> eight bf16, exactly: each byte becomes the high byte of an
+// f16 (the same value), two at a time by a byte permute; f16 -> f32 -> bf16
+__device__ __forceinline__ uint4 e5m2x8_bf16(uint32_t w0, uint32_t w1) {
+  const uint32_t w[2] = {w0, w1};
   uint4 o;
   uint32_t* op = reinterpret_cast<uint32_t*>(&o);
 #pragma unroll
-  for (int j = 0; j < 4; j++) {  // e5m2 -> f16 (exact) -> bf16 (exact)
-    const float lo = __half2float(__ushort_as_half((unsigned short)(b8[2 * j] << 8)));
-    const float hi = __half2float(__ushort_as_half((unsigned short)(b8[2 * j + 1] << 8)));
-    op[j] = pack_bf16(lo, hi);
+  for (int j = 0; j < 4; j++) {
+    const uint32_t h2 = __byte_perm(w[j >> 1], 0u, (j & 1) ? 0x3424 : 0x1404);
+    const float2 f = __half22float2(*reinterpret_cast<const __half2*>(&h2));
+    op[j] = pack_bf16(f.x, f.y);
   }
   return o;
 }
 
+// the prefill kernel's tiling and shared memory, by head dim and cache type
+template <int HD, int KVT>
+struct Pf {
+  static constexpr int SWB = HD % 64 == 0 ? 128 : 64;  // bytes a row of a column block
+  static constexpr int SWZ = SWB == 128 ? 1 : 2;       // descriptor swizzle code
+  static constexpr int CB = SWB / 2;                   // bf16 columns a column block
+  static constexpr int NCB = HD / CB;
+  // cache rows a tile: 64, or 32 at hd 256 (its O accumulator alone takes
+  // 128 registers a thread, and its two Q tiles 128 KB); 64 rather than 128
+  // leaves the consumers' S and P registers room
+  static constexpr int BN = HD <= 128 ? 64 : 32;
+  static constexpr int ES = KVT == 2 ? 1 : 2;          // cache bytes an element
+  static constexpr int Q = PF_ROWS * HD * 2;           // q in bf16
+  static constexpr int STAGE = 2 * BN * HD * 2;        // a bf16 K and V tile
+  static constexpr int AVAIL = PF_SMEM_MAX - 1024 - 128 - 2 * Q;
+  static constexpr int NS = AVAIL / STAGE > 4 ? 4 : AVAIL / STAGE;  // stages in the ring
+  static constexpr int SMEM = 2 * Q + NS * STAGE + 1024 + 128;
+  static_assert(NS >= 2 && SMEM <= PF_SMEM_MAX, "two stages must fit");
+};
+
+// the byte offset of 16-byte chunk j of row r of a column block, swizzled
+// as TMA writes it and wgmma reads it (CUTLASS's Swizzle<3,4,3>, <2,4,3>)
+template <int SWB>
+__device__ __forceinline__ int swz(int r, int j) {
+  const int off = r * SWB + j * 16;
+  return off ^ (((off >> 7) & (SWB == 128 ? 7 : 3)) << 4);
+}
+
+struct PfArgs {
+  const float* q;      // (B, T, KVH, M, hd)
+  const void* k;       // (L, Bc, KVH, S, hd): read by TMA (bf16) or by loads
+  const void* v;
+  const int* pos0;     // (B,)
+  const int* kv_len;   // (B,)
+  float* out;          // (B, T, KVH, M, hd)
+  int B, T, KVH, M, S, layer, Bc, boff;  // cache slots, first slot read
+  float scale_log2;    // log2(e) / sqrt(hd)
+};
+
 template <int HD>
-constexpr int prefill_smem() {  // q, K, V tiles of bf16
-  return (PF_ROWS + 2 * PF_BC) * (HD + 8) * 2;
+__device__ __forceinline__ void pv(float* d, const uint32_t* a, uint64_t b) {
+  if constexpr (HD == 64)
+    wgmma_rs64(d, a, b);
+  else if constexpr (HD == 96)
+    wgmma_rs96(d, a, b);
+  else if constexpr (HD == 128)
+    wgmma_rs128(d, a, b);
+  else
+    wgmma_rs256(d, a, b);
+}
+
+template <int BN>
+__device__ __forceinline__ void qk(float* d, uint64_t da, uint64_t db, int scale_d) {
+  if constexpr (BN == 64)
+    wgmma_ss64(d, da, db, scale_d);
+  else
+    wgmma_ss32(d, da, db, scale_d);
+}
+
+// one (query tile, kv head, sequence) work item and its causal range
+struct PfItem {
+  int R0, h, b, pos0, kv_len, c_end, c_all, ntiles, plane;
+};
+
+// item k of this block: blocks walk the heaviest-first order in a snake,
+// so every block gets a heavy and a light item of each pair of bands
+// (ops/hopper_attn.prefill_plan is the same in Python); -1 past the end
+__device__ __forceinline__ int item_pos(int k, int items) {
+  const int G = gridDim.x, bid = blockIdx.x;
+  const int pos = k * G + ((k & 1) ? G - 1 - bid : bid);
+  return pos < items ? pos : -1;
+}
+
+template <int BN>
+__device__ __forceinline__ PfItem make_item(const PfArgs& a, int pos, int nq) {
+  PfItem it;
+  const int per = a.KVH * a.B, TM = a.T * a.M;
+  const int qt = nq - 1 - pos / per, rem = pos % per;
+  it.h = rem % a.KVH;
+  it.b = rem / a.KVH;
+  it.R0 = qt * PF_ROWS;
+  it.pos0 = a.pos0[it.b];
+  it.kv_len = min(a.kv_len[it.b], a.S);
+  const int t_first = it.R0 / a.M, t_last = (min(it.R0 + PF_ROWS, TM) - 1) / a.M;
+  it.c_end = max(0, min(it.kv_len, it.pos0 + t_last + 1));  // rows any row here sees
+  it.c_all = min(it.kv_len, it.pos0 + t_first + 1);         // rows every row sees
+  it.ntiles = (it.c_end + BN - 1) / BN;
+  it.plane = (a.layer * a.Bc + a.boff + it.b) * a.KVH + it.h;
+  return it;
 }
 
 template <int HD, int KVT>
-__global__ void __launch_bounds__(PF_WARPS * 32) prefill_kernel(PfArgs a) {
-  constexpr int LD = HD + 8;  // bf16 per shared row: 16-byte aligned, no conflicts
-  constexpr int KS = HD / 16;
-  extern __shared__ __align__(16) unsigned char pf_raw[];
-  auto sQ = reinterpret_cast<__nv_bfloat16(*)[LD]>(pf_raw);
-  auto sK = sQ + PF_ROWS;
-  auto sV = sK + PF_BC;
+__global__ void __launch_bounds__(PF_THREADS, 1)
+    prefill_kernel(const __grid_constant__ CUtensorMap kmap,
+                   const __grid_constant__ CUtensorMap vmap, PfArgs a) {
+  using P = Pf<HD, KVT>;
+  constexpr int BN = P::BN, SWB = P::SWB, CB = P::CB, TILE = P::STAGE / 2;
+  extern __shared__ unsigned char pf_raw[];
+  unsigned char* sm = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(pf_raw) + 1023) & ~(uintptr_t)1023);
+  unsigned char* qbuf = sm;               // two bf16 Q tiles: this item's and the next
+  unsigned char* ring = sm + 2 * P::Q;    // bf16 K, V stages
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + P::NS * P::STAGE);
+  uint64_t* empty = full + P::NS;
+  uint64_t* qfull = empty + P::NS;
+  uint64_t* qempty = qfull + 2;
 
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int M = a.M, TM = a.T * M;
-  const int R0 = blockIdx.x * PF_ROWS;  // the block's first (query, head) row
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int pos0 = a.pos0[b];
-  const int kv_len = min(a.kv_len[b], a.S);
-  const int t_last = (min(R0 + PF_ROWS, TM) - 1) / M;
-  const int c_end = min(kv_len, pos0 + t_last + 1);  // rows any query here sees
+  const int TM = a.T * a.M, nq = (TM + PF_ROWS - 1) / PF_ROWS;
+  const int items = nq * a.KVH * a.B;
+  const int tid = threadIdx.x, wg = tid >> 7;
 
-  // the block's query rows in bf16 (zeros past the end)
-  for (int i = threadIdx.x; i < PF_ROWS * HD / 4; i += PF_WARPS * 32) {
-    const int r = i / (HD / 4), c4 = (i % (HD / 4)) * 4;
-    const int R = R0 + r;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (R < TM)
-      v = *reinterpret_cast<const float4*>(
-          a.q + ((((size_t)b * a.T + R / M) * a.KVH + h) * M + R % M) * HD + c4);
-    *reinterpret_cast<uint2*>(&sQ[r][c4]) =
-        make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
+  if (tid == 0) {
+    for (int s = 0; s < P::NS; s++) {
+      mbar_init(full + s, KVT == 1 ? 1 : 128);  // TMA's arrival, or the loaders'
+      mbar_init(empty + s, 256);
+    }
+    for (int s = 0; s < 2; s++) {
+      mbar_init(qfull + s, KVT == 1 ? 96 : 128);  // the threads that stage q
+      mbar_init(qempty + s, 256);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == 2) {  // the producer warpgroup: q of each item, then its K/V tiles
+    if constexpr (KVT == 1) reg_dealloc<PF_REGS_PRODUCER>();
+    const int pt = tid - 256;
+    int gt = 0;  // tiles of earlier items: the ring's position
+    for (int k = 0;; k++) {
+      const int pos = item_pos(k, items);
+      if (pos < 0) break;
+      const PfItem it = make_item<BN>(a, pos, nq);
+      // the item's 128 rows of q, f32 -> bf16, into the swizzled Q tile of
+      // its buffer (free once the consumers are done with item k - 2), by
+      // warps 1-3 for a bf16 cache (warp 0 keeps issuing TMA) or by all four:
+      // a batch of loads in flight at once, then their stores
+      constexpr int QT = KVT == 1 ? 96 : 128;  // threads that stage q
+      const int qt0 = pt - (128 - QT);
+      if (qt0 >= 0) {
+        unsigned char* sQ = qbuf + (k & 1) * P::Q;
+        if (k >= 2) mbar_wait(qempty + (k & 1), ((k >> 1) - 1) & 1);
+        constexpr int QP = PF_ROWS * HD / 8;  // 8-column pieces of the tile
+        for (int q0 = qt0; q0 < QP; q0 += 8 * QT) {
+          float4 x[8][2];
+#pragma unroll
+          for (int u = 0; u < 8; u++) {
+            const int i = q0 + u * QT;
+            const int R = it.R0 + i / (HD / 8), c8 = (i % (HD / 8)) * 8;
+            x[u][0] = x[u][1] = make_float4(0.f, 0.f, 0.f, 0.f);
+            if (i < QP && R < TM) {
+              const float4* src = reinterpret_cast<const float4*>(
+                  a.q + ((((size_t)it.b * a.T + R / a.M) * a.KVH + it.h) * a.M + R % a.M) *
+                            HD + c8);
+              x[u][0] = __ldg(src);
+              x[u][1] = __ldg(src + 1);
+            }
+          }
+#pragma unroll
+          for (int u = 0; u < 8; u++) {
+            const int i = q0 + u * QT;
+            const int r = i / (HD / 8), c8 = (i % (HD / 8)) * 8;
+            if (i < QP)
+              *reinterpret_cast<uint4*>(sQ + (c8 / CB) * PF_ROWS * SWB +
+                                        swz<SWB>(r, (c8 % CB) / 8)) =
+                  make_uint4(pack_bf16(x[u][0].x, x[u][0].y), pack_bf16(x[u][0].z, x[u][0].w),
+                             pack_bf16(x[u][1].x, x[u][1].y), pack_bf16(x[u][1].z, x[u][1].w));
+          }
+        }
+        fence_proxy_async();
+        mbar_arrive(qfull + (k & 1));
+      }
+
+      if constexpr (KVT == 1) {  // one thread keeps the ring full, by TMA
+        if (pt == 0) {
+          for (int j = 0; j < it.ntiles; j++) {
+            const int g = gt + j, s = g % P::NS;
+            if (g >= P::NS) mbar_wait(empty + s, ((g / P::NS) - 1) & 1);
+            unsigned char* st = ring + s * P::STAGE;
+            mbar_expect_tx(full + s, P::STAGE);
+#pragma unroll
+            for (int cb = 0; cb < P::NCB; cb++) {
+              tma_load_3d(st + cb * BN * SWB, &kmap, full + s, cb * CB, j * BN, it.plane);
+              tma_load_3d(st + TILE + cb * BN * SWB, &vmap, full + s, cb * CB, j * BN,
+                          it.plane);
+            }
+          }
+        }
+      } else {  // all 128 threads load raw rows (16 bytes a load) and convert them
+        constexpr int RC = HD * P::ES / 16;    // raw 16-byte pieces a row
+        constexpr int CN = 2 * BN * RC / 128;  // pieces a thread a tile: K's, then V's
+        constexpr int CBT = KVT == 0 ? 4 : 8;  // pieces a batch: loads in flight at once
+        const size_t row_b = (size_t)HD * P::ES;
+        const unsigned char* kp =
+            static_cast<const unsigned char*>(a.k) + (size_t)it.plane * a.S * row_b;
+        const unsigned char* vp =
+            static_cast<const unsigned char*>(a.v) + (size_t)it.plane * a.S * row_b;
+        for (int j = 0; j < it.ntiles; j++) {
+          const int g = gt + j, s = g % P::NS;
+          if (g >= P::NS) mbar_wait(empty + s, ((g / P::NS) - 1) & 1);
+          unsigned char* st = ring + s * P::STAGE;
+#pragma unroll
+          for (int c0 = 0; c0 < CN; c0 += CBT) {
+            uint4 w[CBT];
+#pragma unroll
+            for (int u = 0; u < CBT; u++) {  // rows at or past the limit: 0
+              const int i = pt + (c0 + u) * 128, r = (i % (BN * RC)) / RC;
+              w[u] = make_uint4(0u, 0u, 0u, 0u);
+              if (c0 + u < CN && j * BN + r < it.c_end)
+                w[u] = __ldg(reinterpret_cast<const uint4*>(
+                    (i < BN * RC ? kp : vp) + (size_t)(j * BN + r) * row_b + (i % RC) * 16));
+            }
+#pragma unroll
+            for (int u = 0; u < CBT && c0 + u < CN; u++) {
+              const int i = pt + (c0 + u) * 128, r = (i % (BN * RC)) / RC;
+              unsigned char* t = st + (i < BN * RC ? 0 : TILE);
+              if constexpr (KVT == 0) {
+                const int c8 = (i % RC) * 8;
+                *reinterpret_cast<uint4*>(t + (c8 / CB) * BN * SWB +
+                                          swz<SWB>(r, (c8 % CB) / 8)) = f16x8_bf16(w[u]);
+              } else {
+                const int c16 = (i % RC) * 16;
+                *reinterpret_cast<uint4*>(t + (c16 / CB) * BN * SWB +
+                                          swz<SWB>(r, (c16 % CB) / 8)) =
+                    e5m2x8_bf16(w[u].x, w[u].y);
+                *reinterpret_cast<uint4*>(t + ((c16 + 8) / CB) * BN * SWB +
+                                          swz<SWB>(r, ((c16 + 8) % CB) / 8)) =
+                    e5m2x8_bf16(w[u].z, w[u].w);
+              }
+            }
+          }
+          fence_proxy_async();
+          mbar_arrive(full + s);
+        }
+      }
+      gt += it.ntiles;
+    }
+    return;
   }
 
-  // this thread's two rows: g and g + 8 of the warp's 16
-  int qpos[2];
-  float* orow[2];
+  // the consumers: this thread's rows are g and g + 8 of its warp's 16
+  if constexpr (KVT == 1) reg_alloc<PF_REGS_CONSUMER>();
+  const int w = (tid >> 5) & 3, lane = tid & 31, g8 = lane >> 2, t4 = lane & 3;
+  float o[HD / 2];
+  float sacc[BN / 2];
 #pragma unroll
-  for (int i = 0; i < 2; i++) {
-    const int R = R0 + warp * 16 + g + 8 * i;
-    const bool ok = R < TM;
-    qpos[i] = ok ? pos0 + R / M : -1;  // -1 sees nothing
-    orow[i] = ok ? a.out + ((((size_t)b * a.T + R / M) * a.KVH + h) * M + R % M) * HD
-                 : nullptr;
-  }
-
-  float o[HD / 8][4];
-#pragma unroll
-  for (int i = 0; i < HD / 8; i++) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
-  float mrow[2] = {-INFINITY, -INFINITY}, lrow[2] = {0.f, 0.f};
-
-  const size_t plane =
-      (((size_t)a.layer * a.Bc + a.boff + b) * a.KVH + h) * (size_t)a.S * HD;
-  const int qr = warp * 16 + g;
-  for (int c0 = 0; c0 < c_end; c0 += PF_BC) {
-    __syncthreads();  // q staged; every warp is done with the previous tile
-    for (int i = threadIdx.x; i < PF_BC * HD / 8; i += PF_WARPS * 32) {
-      const int r = i / (HD / 8), c8 = (i % (HD / 8)) * 8;
-      uint4 kk = make_uint4(0u, 0u, 0u, 0u), vv = kk;
-      if (c0 + r < c_end) {  // rows past the limit stay 0: 0 * garbage is NaN
-        const size_t e = plane + (size_t)(c0 + r) * HD + c8;
-        kk = kv_bf16x8<KVT>(a.k, e);
-        vv = kv_bf16x8<KVT>(a.v, e);
-      }
-      *reinterpret_cast<uint4*>(&sK[r][c8]) = kk;
-      *reinterpret_cast<uint4*>(&sV[r][c8]) = vv;
-    }
-    __syncthreads();
-
-    float s[PF_BC / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < PF_BC / 8; nt++) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < KS; ks++) {
-      uint32_t qa[4];
-#pragma unroll
-      for (int j = 0; j < 4; j++) {
-        const int row = qr + 8 * (j & 1), col = ks * 16 + t4 * 2 + 8 * (j >> 1);
-        qa[j] = *reinterpret_cast<const uint32_t*>(&sQ[row][col]);
-      }
-#pragma unroll
-      for (int nt = 0; nt < PF_BC / 8; nt++) {
-        uint32_t kb[2];
-        kb[0] = *reinterpret_cast<const uint32_t*>(&sK[nt * 8 + g][ks * 16 + t4 * 2]);
-        kb[1] = *reinterpret_cast<const uint32_t*>(&sK[nt * 8 + g][ks * 16 + t4 * 2 + 8]);
-        mma_bf16(s[nt], qa, kb);
-      }
-    }
-
-    // mask, then the online softmax of rows g (i = 0) and g + 8 (i = 1)
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int nt = 0; nt < PF_BC / 8; nt++) {
-#pragma unroll
-      for (int e = 0; e < 4; e++) {
-        const int i = e >> 1;
-        const int col = c0 + nt * 8 + t4 * 2 + (e & 1);
-        const bool ok = col < kv_len && col <= qpos[i];
-        s[nt][e] = ok ? s[nt][e] * a.scale_log2 : -INFINITY;
-        mx[i] = fmaxf(mx[i], s[nt][e]);
-      }
-    }
-    float shift[2], alpha[2];
+  for (int i = 0; i < BN / 2; i++) sacc[i] = 0.f;
+  uint32_t pa[BN / 16][4];
+  int gt = 0;  // tiles of earlier items: the ring's position
+  for (int k = 0;; k++) {
+    const int pos = item_pos(k, items);
+    if (pos < 0) break;
+    const PfItem it = make_item<BN>(a, pos, nq);
+    const unsigned char* sQ = qbuf + (k & 1) * P::Q;
+    int qpos[2];
+    float* orow[2];
 #pragma unroll
     for (int i = 0; i < 2; i++) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      const float mn = fmaxf(mrow[i], mx[i]);
-      shift[i] = mn == -INFINITY ? 0.f : mn;
-      alpha[i] = mrow[i] == -INFINITY ? 0.f : exp2f(mrow[i] - shift[i]);
-      mrow[i] = mn;
+      const int R = it.R0 + wg * 64 + w * 16 + g8 + 8 * i;
+      const bool ok = R < TM;
+      qpos[i] = ok ? it.pos0 + R / a.M : -1;  // -1 sees nothing
+      orow[i] = ok ? a.out + ((((size_t)it.b * a.T + R / a.M) * a.KVH + it.h) * a.M +
+                              R % a.M) * HD
+                   : nullptr;
     }
-    float ls[2] = {0.f, 0.f};
 #pragma unroll
-    for (int nt = 0; nt < PF_BC / 8; nt++) {
+    for (int i = 0; i < HD / 2; i++) o[i] = 0.f;
+    fence_acc<HD / 2>(o);  // zeroed here, not sunk into the first product's stage
+    float mrow[2] = {-INFINITY, -INFINITY}, lrow[2] = {0.f, 0.f};  // m in raw score units
+    mbar_wait(qfull + (k & 1), (k >> 1) & 1);
+
+    // tile j's stage has landed; a bf16 tile that crosses the item's limit
+    // gets its V rows past the limit zeroed (fp16/e5m2: by the loaders)
+    auto ready = [&](int j) {
+      const int gj = gt + j, s = gj % P::NS, live = it.c_end - j * BN;
+      mbar_wait(full + s, (gj / P::NS) & 1);
+      if constexpr (KVT == 1) {
+        if (live < BN) {
+          unsigned char* vt = ring + s * P::STAGE + TILE;
+          constexpr int CPR = SWB / 16;  // 16-byte chunks a row of a column block
+          for (int i = tid; i < (BN - live) * CPR * P::NCB; i += 256) {
+            const int cb = i / ((BN - live) * CPR), q = i % ((BN - live) * CPR);
+            *reinterpret_cast<uint4*>(vt + cb * BN * SWB + (live + q / CPR) * SWB +
+                                      (q % CPR) * 16) = make_uint4(0u, 0u, 0u, 0u);
+          }
+          fence_proxy_async();
+          bar_sync(1, 256);
+        }
+      }
+    };
+    // S = Q K^T of tile j: 64 rows x BN cache rows a warpgroup
+    auto issue_qk = [&](int j) {
+      const unsigned char* kt = ring + ((gt + j) % P::NS) * P::STAGE;
+      wgmma_fence();
 #pragma unroll
-      for (int e = 0; e < 4; e++) {
-        s[nt][e] = exp2f(s[nt][e] - shift[e >> 1]);  // -inf -> 0
-        ls[e >> 1] += s[nt][e];
+      for (int ks = 0; ks < HD / 16; ks++) {
+        const int cb = ks * 16 / CB, wi = (ks * 16 % CB) * 2;
+        const uint64_t da = wgmma_desc_sw(sQ + cb * PF_ROWS * SWB + wg * 64 * SWB + wi, 16,
+                                          8 * SWB, P::SWZ);
+        const uint64_t db = wgmma_desc_sw(kt + cb * BN * SWB + wi, 16, 8 * SWB, P::SWZ);
+        qk<BN>(sacc, da, db, ks > 0);
+      }
+      wgmma_commit();
+    };
+
+    if (it.ntiles > 0) {
+      ready(0);
+      fence_acc<BN / 2>(sacc);
+      issue_qk(0);
+    }
+    for (int j = 0; j < it.ntiles; j++) {
+      const int c0 = j * BN;
+      wgmma_wait<0>();  // S of tile j and P V of tile j - 1 are done
+      fence_acc<BN / 2>(sacc);
+      fence_acc<HD / 2>(o);
+      if (j > 0) mbar_arrive(empty + (gt + j - 1) % P::NS);  // tile j - 1's stage is read
+
+      // mask (only a tile that crosses the diagonal or kv_len), then the
+      // online softmax of rows g8 (i = 0) and g8 + 8 (i = 1) in base 2;
+      // register e holds row (e / 2) % 2, column 8 (e / 4) + 2 t4 + e % 2
+      float mx[2] = {-INFINITY, -INFINITY};
+      if (c0 + BN > it.c_all) {
+#pragma unroll
+        for (int e = 0; e < BN / 2; e++) {
+          const int i = (e >> 1) & 1, col = c0 + 8 * (e >> 2) + 2 * t4 + (e & 1);
+          sacc[e] = (col < it.kv_len && col <= qpos[i]) ? sacc[e] : -INFINITY;
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < BN / 2; e++) mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], sacc[e]);
+      float shift[2], alpha[2];
+#pragma unroll
+      for (int i = 0; i < 2; i++) {
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+        const float mn = fmaxf(mrow[i], mx[i]);
+        shift[i] = mn == -INFINITY ? 0.f : mn * a.scale_log2;  // clamped: nothing seen yet
+        alpha[i] = mrow[i] == -INFINITY ? 0.f : ex2(mrow[i] * a.scale_log2 - shift[i]);
+        mrow[i] = mn;
+      }
+      float ls[2] = {0.f, 0.f};
+#pragma unroll
+      for (int e = 0; e < BN / 2; e++) {
+        const int i = (e >> 1) & 1;
+        sacc[e] = ex2(fmaf(sacc[e], a.scale_log2, -shift[i]));  // -inf -> 0
+        ls[i] += sacc[e];
+      }
+#pragma unroll
+      for (int i = 0; i < 2; i++) lrow[i] = lrow[i] * alpha[i] + ls[i];  // 1/4 of the row
+#pragma unroll
+      for (int e = 0; e < HD / 2; e++) o[e] *= alpha[(e >> 1) & 1];
+
+      // O += P V: P's accumulator layout is the register A operand's (16
+      // columns a k step); V's tile is MN-major. Tile j + 1's S = Q K^T goes
+      // out right behind it, so the tensor cores never wait on this
+      // warpgroup's softmax alone.
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; kk++) {
+#pragma unroll
+        for (int r = 0; r < 4; r++)
+          pa[kk][r] = pack_bf16(sacc[8 * kk + 2 * r], sacc[8 * kk + 2 * r + 1]);
+      }
+      const unsigned char* vt = ring + ((gt + j) % P::NS) * P::STAGE + TILE;
+      // every write of S and O lands before the stage opens
+      fence_acc<BN / 2>(sacc);
+      fence_acc<HD / 2>(o);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; kk++)
+        pv<HD>(o, pa[kk], wgmma_desc_sw(vt + kk * 16 * SWB, BN * SWB, 8 * SWB, P::SWZ));
+      wgmma_commit();
+      if (j + 1 < it.ntiles) {
+        ready(j + 1);
+        issue_qk(j + 1);
       }
     }
-#pragma unroll
-    for (int i = 0; i < 2; i++) lrow[i] = lrow[i] * alpha[i] + ls[i];  // partial: 1/4 of the row
-#pragma unroll
-    for (int nt = 0; nt < HD / 8; nt++) {
-      o[nt][0] *= alpha[0];
-      o[nt][1] *= alpha[0];
-      o[nt][2] *= alpha[1];
-      o[nt][3] *= alpha[1];
-    }
-
-    // O += P V: P's accumulator layout is the A operand's (two n-tiles
-    // make one k16 step); V arrives transposed by ldmatrix
-#pragma unroll
-    for (int kk = 0; kk < PF_BC / 16; kk++) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-      const int mi = lane >> 3;
-      const int vr = kk * 16 + (mi & 1) * 8 + (lane & 7);
-#pragma unroll
-      for (int nt = 0; nt < HD / 8; nt += 2) {
-        uint32_t vb[4];
-        ldsm_x4_trans(vb, &sV[vr][nt * 8 + (mi >> 1) * 8]);
-        mma_bf16(o[nt], pa, vb);
-        mma_bf16(o[nt + 1], pa, vb + 2);
-      }
-    }
-  }
+    wgmma_wait<0>();
+    fence_acc<HD / 2>(o);
+    if (it.ntiles > 0) mbar_arrive(empty + (gt + it.ntiles - 1) % P::NS);
+    mbar_arrive(qempty + (k & 1));  // q is read: the producer may stage item k + 2's
+    gt += it.ntiles;
 
 #pragma unroll
-  for (int i = 0; i < 2; i++) {
-    float l = lrow[i];
-    l += __shfl_xor_sync(0xffffffffu, l, 1);
-    l += __shfl_xor_sync(0xffffffffu, l, 2);
-    const float inv = 1.0f / fmaxf(l, 1e-37f);
-    if (orow[i] == nullptr) continue;
+    for (int i = 0; i < 2; i++) {
+      float l = lrow[i];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      const float inv = 1.0f / fmaxf(l, 1e-37f);
+      if (orow[i] == nullptr) continue;
 #pragma unroll
-    for (int nt = 0; nt < HD / 8; nt++)
-      *reinterpret_cast<float2*>(orow[i] + nt * 8 + t4 * 2) =
-          make_float2(o[nt][2 * i] * inv, o[nt][2 * i + 1] * inv);
+      for (int n = 0; n < HD / 8; n++)
+        *reinterpret_cast<float2*>(orow[i] + 8 * n + 2 * t4) =
+            make_float2(o[4 * n + 2 * i] * inv, o[4 * n + 2 * i + 1] * inv);
+    }
   }
 }
 
 template <int HD, int KVT>
-cudaError_t launch_prefill_kvt(const PfArgs& a, dim3 grid, cudaStream_t st) {
-  constexpr int smem = prefill_smem<HD>();
-  static cudaError_t attr = cudaFuncSetAttribute(
-      prefill_kernel<HD, KVT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+cudaError_t launch_prefill_kvt(const PfArgs& a, const void* k, const void* v, int L,
+                               int grid, cudaStream_t st) {
+  using P = Pf<HD, KVT>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      prefill_kernel<HD, KVT>, cudaFuncAttributeMaxDynamicSharedMemorySize, P::SMEM);
   if (attr != cudaSuccess) return attr;
-  prefill_kernel<HD, KVT><<<grid, PF_WARPS * 32, smem, st>>>(a);
+  CUtensorMap maps[2] = {};
+  if (KVT == 1) {  // 3-D maps (hd, S, planes): a tile past S arrives as zeros
+    const EncodeTiledFn enc = encode_tiled();
+    if (enc == nullptr) return cudaErrorNotSupported;
+    const cuuint64_t dims[3] = {(cuuint64_t)HD, (cuuint64_t)a.S,
+                                (cuuint64_t)L * a.Bc * a.KVH};
+    const cuuint64_t strides[2] = {(cuuint64_t)HD * 2, (cuuint64_t)a.S * HD * 2};
+    const cuuint32_t box[3] = {(cuuint32_t)P::CB, (cuuint32_t)P::BN, 1};
+    const cuuint32_t estr[3] = {1, 1, 1};
+    const void* base[2] = {k, v};
+    for (int i = 0; i < 2; i++)
+      if (enc(&maps[i], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base[i]), dims,
+              strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+              P::SWB == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+              CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+        return cudaErrorInvalidValue;
+  }
+  prefill_kernel<HD, KVT><<<grid, PF_THREADS, P::SMEM, st>>>(maps[0], maps[1], a);
   return cudaGetLastError();
 }
 
 template <int HD>
-cudaError_t launch_prefill(int kvt, const PfArgs& a, cudaStream_t st) {
-  dim3 grid((a.T * a.M + PF_ROWS - 1) / PF_ROWS, a.KVH, a.B);
-  if (kvt == 0) return launch_prefill_kvt<HD, 0>(a, grid, st);
-  if (kvt == 1) return launch_prefill_kvt<HD, 1>(a, grid, st);
-  return launch_prefill_kvt<HD, 2>(a, grid, st);
+cudaError_t launch_prefill(int kvt, const PfArgs& a, const void* k, const void* v, int L,
+                           int grid, cudaStream_t st) {
+  if (kvt == 0) return launch_prefill_kvt<HD, 0>(a, k, v, L, grid, st);
+  if (kvt == 1) return launch_prefill_kvt<HD, 1>(a, k, v, L, grid, st);
+  return launch_prefill_kvt<HD, 2>(a, k, v, L, grid, st);
+}
+
+template <int HD>
+int prefill_smem(int kvt) {
+  return kvt == 0 ? Pf<HD, 0>::SMEM : kvt == 1 ? Pf<HD, 1>::SMEM : Pf<HD, 2>::SMEM;
 }
 
 }  // namespace
@@ -901,11 +1149,15 @@ int calm_decode_smem(int hd, int kvt, int mm) {
 
 // q/out (B, T, KVH, M, hd) f32, caches (L, Bc, KVH, S, hd) in kvt (0 fp16,
 // 1 bf16, 2 fp8 e5m2) of which sequence b reads slot boff + b, pos0/kv_len
-// (B,) int32; hd in {64, 96, 128, 256}; any M.
+// (B,) int32; hd in {64, 96, 128, 256}; any M; q and the caches 16-byte
+// aligned. grid: the persistent blocks (at most one an SM fits), which walk
+// the work items in ops/hopper_attn.prefill_plan's order.
 int calm_prefill_attention(const void* q, const void* k, const void* v,
                            const void* pos0, const void* kv_len, void* out,
                            int B, int T, int KVH, int M, int S, int hd,
-                           int layer, int kvt, int Bc, int boff, void* stream) {
+                           int layer, int kvt, int L, int Bc, int boff, int grid,
+                           void* stream) {
+  if (grid < 1) return (int)cudaErrorInvalidValue;
   PfArgs a;
   a.q = static_cast<const float*>(q);
   a.k = k;
@@ -924,11 +1176,22 @@ int calm_prefill_attention(const void* q, const void* k, const void* v,
   a.scale_log2 = 1.4426950408889634f / sqrtf((float)hd);
   cudaStream_t st = (cudaStream_t)stream;
   switch (hd) {
-    case 64: return (int)launch_prefill<64>(kvt, a, st);
-    case 96: return (int)launch_prefill<96>(kvt, a, st);
-    case 128: return (int)launch_prefill<128>(kvt, a, st);
-    case 256: return (int)launch_prefill<256>(kvt, a, st);
+    case 64: return (int)launch_prefill<64>(kvt, a, k, v, L, grid, st);
+    case 96: return (int)launch_prefill<96>(kvt, a, k, v, L, grid, st);
+    case 128: return (int)launch_prefill<128>(kvt, a, k, v, L, grid, st);
+    case 256: return (int)launch_prefill<256>(kvt, a, k, v, L, grid, st);
     default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// the dynamic shared memory one prefill block asks for (for reports)
+int calm_prefill_smem(int hd, int kvt) {
+  switch (hd) {
+    case 64: return prefill_smem<64>(kvt);
+    case 96: return prefill_smem<96>(kvt);
+    case 128: return prefill_smem<128>(kvt);
+    case 256: return prefill_smem<256>(kvt);
+    default: return -1;
   }
 }
 

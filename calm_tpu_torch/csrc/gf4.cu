@@ -53,6 +53,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
 __device__ __forceinline__ float gf4_scale(uint32_t w) {
@@ -180,95 +182,6 @@ __global__ void __launch_bounds__(MV_WARPS * 32)
 #define MM_STAGE (2 * MM_TILE)
 #define MM_SMEM (MM_STAGES * MM_STAGE + 1024 + 64)  // + alignment, barriers
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count));
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try(uint64_t* bar, int parity) {
-  uint32_t ok;
-  asm volatile(
-      "{\n"
-      ".reg .pred P1;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%1], %2;\n"
-      "selp.b32 %0, 1, 0, P1;\n"
-      "}\n"
-      : "=r"(ok)
-      : "r"(smem_u32(bar)), "r"(parity)
-      : "memory");
-  return ok != 0;
-}
-
-// waits for the phase of this parity; a load that never lands traps (a
-// launch error) instead of hanging the card
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  for (uint32_t i = 0; !mbar_try(bar, parity); i++)
-    if (i == (1u << 24)) __trap();
-}
-
-// a 2-D TMA load of box (64 k, 128 rows) at (k0, r0) into dst; out-of-bounds
-// elements arrive as zeros
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                         int k0, int r0) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(k0), "r"(r0)
-      : "memory");
-}
-
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// wgmma shared-memory descriptor of a K-major tile of 128-byte rows in the
-// 128-byte swizzle (8-row groups 1024 bytes apart), 1024-byte aligned
-__device__ __forceinline__ uint64_t wgmma_desc(const void* p) {
-  const uint64_t a = smem_u32(p);
-  return ((a & 0x3FFFF) >> 4) | (1ull << 16) | ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// keeps the accumulators in their registers across the asynchronous products
-__device__ __forceinline__ void fence_acc(float* d) {
-#pragma unroll
-  for (int i = 0; i < 64; i++) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// d (64 x 128 f32 across the warpgroup) += A (64 x 16) . B (128 x 16)^T,
-// both bf16 in shared memory, K-major
-__device__ __forceinline__ void wgmma_128(float* d, uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
-}
-
 // one gf4 word -> its eight weights in bf16, exactly: the codes go under the
 // mantissa of 128 (bf16 0x4300 | code = 128 + code), 132 comes off (code
 // - 4, exact), and one multiply by the scale (<= 5 significant bits, exact)
@@ -304,7 +217,7 @@ __global__ void __launch_bounds__(MM_THREADS, 2)
   if (tid == 0) {
 #pragma unroll
     for (int s = 0; s < MM_STAGES; s++) mbar_init(bar + s, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
 
@@ -360,12 +273,12 @@ __global__ void __launch_bounds__(MM_THREADS, 2)
     mbar_wait(bar + s, (kt / MM_STAGES) & 1);
     const uint64_t da = wgmma_desc(sm + s * MM_STAGE + wg * (64 * 128));
     const uint64_t db = wgmma_desc(sm + s * MM_STAGE + MM_TILE);
-    fence_acc(acc);
+    fence_acc<64>(acc);
     wgmma_fence();
 #pragma unroll
-    for (int k = 0; k < MM_BK / 16; k++) wgmma_128(acc, da + 2 * k, db + 2 * k);
+    for (int k = 0; k < MM_BK / 16; k++) wgmma_ss128(acc, da + 2 * k, db + 2 * k, 1);
     wgmma_commit();
-    fence_acc(acc);
+    fence_acc<64>(acc);
     wgmma_wait<1>();  // this warpgroup's product of tile kt - 1 is done
     __syncthreads();  // both are: its stage takes tile kt + MM_STAGES - 1
     const int kn = kt + MM_STAGES - 1;
@@ -377,7 +290,7 @@ __global__ void __launch_bounds__(MM_THREADS, 2)
     }
   }
   wgmma_wait<0>();
-  fence_acc(acc);
+  fence_acc<64>(acc);
 
   // register i of a thread: row 16 warp + lane / 4 + 8 ((i / 2) % 2), column
   // 8 (i / 4) + 2 (lane % 4) + i % 2 of the warpgroup's 64 x 128 tile
@@ -396,30 +309,6 @@ __global__ void __launch_bounds__(MM_THREADS, 2)
       if (c + 1 < d) o[1] = acc[i + 1];
     }
   }
-}
-
-// cuTensorMapEncodeTiled from the driver, without linking libcuda
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
-                                         &q) != cudaSuccess)
-      p = nullptr;
-#else
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) !=
-        cudaSuccess)
-      p = nullptr;
-#endif
-    return reinterpret_cast<EncodeTiledFn>(p);
-  }();
-  return fn;
 }
 
 }  // namespace

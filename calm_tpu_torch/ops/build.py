@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc -gencode
 arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC`` into
-``calm_tpu_torch/_build/<name>-<hash>.so`` (git-ignored; the hash is the
-source's, so an edited source rebuilds) and loads with ``ctypes``. The C
+``calm_tpu_torch/_build/<name>-<hash>.so`` (git-ignored; the hash covers
+the source and the shared headers ``csrc/*.cuh``, so an edit to either
+rebuilds) and loads with ``ctypes``. The C
 functions take ``c_void_p`` for every pointer and the stream and return
 ``cudaGetLastError()``; :func:`check` raises when that is not 0. A build
 holds ``_build/.lock`` (``flock``), so processes that start together (the
@@ -42,8 +43,9 @@ SIGNATURES = {
     },
     "attn": {
         "calm_decode_attention": [P] * 15 + [I] * 12 + [P],
-        "calm_prefill_attention": [P] * 6 + [I] * 10 + [P],
+        "calm_prefill_attention": [P] * 6 + [I] * 12 + [P],
         "calm_decode_smem": [I] * 3,
+        "calm_prefill_smem": [I] * 2,
     },
     "gf4": {
         "calm_gf4_matvec": [P, P, P, I, I, I, P],
@@ -58,7 +60,7 @@ SIGNATURES = {
         "calm_stream_sum": [P, I64, I64, I, P, P, P, I, P],
     },
     "ring": {
-        "calm_ring_all_reduce": [P, P, P, I, I, I, I64, P],
+        "calm_ring_all_reduce": [P, P, P, I, I64, I, I64, P],
         "calm_ring_gmax": [],
     },
 }
@@ -72,9 +74,14 @@ class KernelError(RuntimeError):
 
 
 def _target(name: str) -> str:
-    with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"{name}-{digest}.so")
+    """The library's path, named by the hash of ``csrc/<name>.cu`` and
+    every shared header beside it."""
+    h = hashlib.sha256()
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for fname in [name + ".cu"] + headers:
+        with open(os.path.join(CSRC, fname), "rb") as f:
+            h.update(fname.encode() + b"\0" + f.read())
+    return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
 
 
 def _nvcc_cmd(name: str, out: str) -> list[str]:

@@ -20,6 +20,10 @@ both read from a slot offset (``batch_off``) of a dense cache.
 :func:`decode_plan` is the decode kernel's tiling, a pure function of the
 shapes: the kernel launches one block a (chunk, kv head, slot, row tile)
 and folds the chunks in the same launch (``csrc/attn.cu``'s note).
+:func:`prefill_plan` is the prefill kernel's: work items of a (query tile
+of 128 (query, head) rows, kv head, sequence), heaviest query tiles first,
+taken by one persistent block an SM, on TMA and ``wgmma`` at every head
+dim.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ TARGET_BLOCKS = 2 * SMS  # decode: two resident blocks an SM
 MIN_TILES = 4  # decode: the least tiles a chunk, where the card allows
 MAX_CHUNKS = 256  # csrc/attn.cu DA_MAX_CHUNKS: the merge's weights in shared memory
 HEAD_DIMS = (64, 96, 128, 256)  # what the kernels are built for
+PF_ROWS = 128  # csrc/attn.cu PF_ROWS: (query, head) rows a prefill work item
 
 
 def paged_view(pool_plane: torch.Tensor, pt: torch.Tensor) -> torch.Tensor:
@@ -265,6 +270,66 @@ decode_attention.partials_launches = 0  # the launches in partials mode
 # ---------------------------------------------------------------------------
 
 
+class PrefillPlan(NamedTuple):
+    """The prefill kernel's tiling of one call (``csrc/attn.cu``)."""
+    rows: int         # (query, head) rows a work item, R = t * M + m (PF_ROWS)
+    tile_rows: int    # cache rows a K/V tile: 64, or 32 at hd 256
+    swizzle: int      # bytes a row of a swizzled column block: 128, or 64 at hd 96
+    q_tiles: int      # query tiles a (kv head, sequence)
+    items: int        # q_tiles * KVH * B work items
+    order: tuple      # item i -> (query tile, kv head, b, cache rows it reads)
+    grid: int         # persistent blocks: one an SM, at most one an item
+    blocks: tuple     # block -> its items, in the order it takes them
+
+
+def prefill_item(i: int, q_tiles: int, KVH: int, B: int) -> tuple[int, int, int]:
+    """(query tile, kv head, b) of work item i: the heaviest query tiles
+    first, every kv head and sequence of one query tile together (the
+    kernel's own arithmetic)."""
+    per = KVH * B
+    return q_tiles - 1 - i // per, i % per % KVH, i % per // KVH
+
+
+def prefill_block_items(block: int, grid: int, items: int) -> list[int]:
+    """The items a persistent block takes, in order: band k of ``grid``
+    items is walked forwards when k is even and backwards when it is odd,
+    so each block pairs a heavy item with a light one (the kernel's
+    ``item_pos``)."""
+    out = []
+    for k in range(-(-items // grid)):
+        pos = k * grid + (grid - 1 - block if k % 2 else block)
+        if pos < items:
+            out.append(pos)
+    return out
+
+
+def prefill_grid(B: int, T: int, KVH: int, M: int, sms: int = SMS) -> int:
+    """The prefill kernel's persistent blocks: one an SM, at most one an item."""
+    return min(-(-T * M // PF_ROWS) * KVH * B, sms)
+
+
+def prefill_plan(B: int, T: int, KVH: int, M: int, hd: int, pos0_max: int = 0,
+                 sms: int = SMS) -> PrefillPlan:
+    """The prefill kernel's work items in order, each with the cache rows
+    it reads when every sequence starts at ``pos0_max`` with the T fresh rows
+    its last (kv_len = pos0 + T): min(kv_len, pos0 + t_last + 1) for the
+    item's last query t_last. An item's causal range grows with its query
+    tile, so the last query tile comes first; one persistent block an SM
+    takes them in a snake over the order."""
+    tm = T * M
+    nq = -(-tm // PF_ROWS)
+    items = nq * KVH * B
+    order = []
+    for i in range(items):
+        qt, h, b = prefill_item(i, nq, KVH, B)
+        t_last = (min((qt + 1) * PF_ROWS, tm) - 1) // M
+        order.append((qt, h, b, min(pos0_max + T, pos0_max + t_last + 1)))
+    grid = prefill_grid(B, T, KVH, M, sms)
+    return PrefillPlan(PF_ROWS, 64 if hd <= 128 else 32, 128 if hd % 64 == 0 else 64,
+                       nq, items, tuple(order), grid,
+                       tuple(tuple(prefill_block_items(g, grid, items)) for g in range(grid)))
+
+
 def prefill_attention_plain(q, k_cache, v_cache, pos0, kv_len, layer,
                             batch_off=0):
     """Masked softmax in f32 over the cache rows any query can see."""
@@ -294,7 +359,8 @@ def prefill_attention(q, k_cache, v_cache, pos0, kv_len, layer, batch_off=0):
     t of sequence b sits at position pos0[b] + t and sees cache rows col <
     kv_len[b], col <= pos0[b] + t. On the card K/V enter the tensor cores as
     bf16 (exact for bf16 and e5m2 caches, rounded for fp16), and q and p
-    rounded once to bf16, as the TPU kernel rounds them; sums in f32."""
+    rounded once to bf16, as the TPU kernel rounds them; sums in f32. The
+    kernel's blocks follow :func:`prefill_plan`."""
     if q.device.type == "cpu":
         return prefill_attention_plain(q, k_cache, v_cache, pos0, kv_len, layer,
                                        batch_off)
@@ -313,12 +379,15 @@ def prefill_attention(q, k_cache, v_cache, pos0, kv_len, layer, batch_off=0):
     for t in (pos0, kv_len):
         _check(t.dtype == torch.int32 and tuple(t.shape) == (B,) and t.device == q.device,
                "pos0 and kv_len must be (B,) int32 on the card")
-    _check(k_cache.device == q.device, "all inputs must be on one device")
+    _check(k_cache.device == q.device and v_cache.device == q.device,
+           "all inputs must be on one device")
+    _check(all(t.data_ptr() % 16 == 0 for t in (q, k_cache, v_cache)),
+           "q and the caches must be 16-byte aligned (TMA)")
     out = torch.empty_like(q)
     rc = build.lib("attn").calm_prefill_attention(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), pos0.data_ptr(),
         kv_len.data_ptr(), out.data_ptr(), B, T, KVH, M, S, hd, int(layer),
-        _KV_CODE[k_cache.dtype], Bc, int(batch_off),
+        _KV_CODE[k_cache.dtype], L, Bc, int(batch_off), prefill_grid(B, T, KVH, M),
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check("attn", rc)
     prefill_attention.launches += 1

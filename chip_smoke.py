@@ -7,14 +7,16 @@ against its plain PyTorch version at Mistral-7B, Mixtral 8x7B and the
 tools' shapes and ragged ones (K12 and K13 also at the head dims of the
 converter's Phi-3-mini and Gemma containers and at 32 query rows a kv
 head; K12 at the corners of its tiles and chunks, pages shorter and longer
-than a tile and a slot offset; K4/K5 at 32 rows) and times it beside its
-bound and its library call (kernel/library on each timed row), after the
-redesigned kernels' ptxas report; runs both bandwidth tools
+than a tile and a slot offset; K4/K5 at 32 rows; K13 at the corners of
+its TMA + wgmma tiles at every head dim and cache dtype) and times it
+beside its bound and its library call (kernel/library on each timed row),
+after the redesigned kernels' ptxas report; runs both bandwidth tools
 (``calm_tpu_torch.tools.dma_ceiling``, ``gf4_bound``), whose 3 GB rows
 give the card's attainable HBM read rate; holds K12's partials mode
 (Mistral-7B's decode split into 2 and 4 S-shards, their merge against
-plain mode) and the ring all-reduce (K14, 2-8 logical ranks on the card,
-bit-equal to its ring-order plain version) and times them; runs the
+plain mode) and the two-shot all-reduce (K14, 2-8 logical ranks on the
+card, bit-equal to its ring-order plain version, inputs untouched) and
+times them; runs the
 sharded decode in ranks spawned on this one card over gloo (Mistral-7B fp8
 at 8 layers tp=2 x sp=2 through sp prefill and 32 steps; Mixtral 8x7B fp8
 at 4 layers ep=2; 2 layers at ctx 64 sp=2 across the window wrap) against
@@ -316,6 +318,7 @@ def kernel_phase(gbps, dev):
     ragged_checks(dev)
     ragged_checks_heads(dev)
     rows.update(prefill_kernel_rows(gbps, dev))
+    prefill_corner_checks(dev)
     rows.update(gf4_kernel_rows(gbps, dev))
     ragged_checks_prefill_gf4(dev)
     rows.update(moe_kernel_rows(gbps, dev))
@@ -964,6 +967,49 @@ def prefill_kernel_rows(gbps, dev):
             best = dict(t, bound_ms=b, bound_by=by)
         del kc, vc, q
     return {"prefill_attention": dict(best, max_abs_err=max(errs))}
+
+
+def prefill_corner_checks(dev):
+    """K13 at the corners of its TMA + wgmma design, against its plain
+    version within TOL_ATT of max |out|, at every head dim and cache dtype:
+    T * M off the 128-row query tile, starts off a 128-row cache tile,
+    kv_len below the causal end (and a sequence with nothing to see), M =
+    1, 3, 4 and 8, a read from slot 3 of a 5-slot cache, and the sp prefill's
+    one-layer gathered cache (model.py:874-877: S = the whole prompt, this
+    rank's chunk at pos0 = T)."""
+    from calm_tpu_torch.ops import hopper_attn as ha
+
+    worst, n = 0.0, 0
+    # (B, T, KVH, M, starts, kv_len below the causal end, L, S, Bc, batch_off)
+    corners = (
+        (2, 37, 2, 4, (0, 100), (0, 0), 2, 512, 2, 0),       # T * M off the tile
+        (2, 100, 2, 3, (130, 7), (0, 0), 2, 512, 2, 0),      # M = 3, starts off a tile
+        (1, 129, 3, 1, (5,), (0,), 2, 512, 1, 0),            # M = 1
+        (2, 77, 2, 8, (0, 300), (20, 0), 2, 512, 2, 0),      # M = 8, kv_len short
+        (2, 50, 2, 4, (100, 7), (60, 57), 2, 512, 5, 3),     # slot 3 of 5; nothing seen
+        (1, 64, 2, 4, (64,), (0,), 1, 128, 1, 0),            # sp: gathered, pos0 = T
+    )
+    for hd in ha.HEAD_DIMS:
+        for kvd in (torch.bfloat16, torch.float16, torch.float8_e5m2):
+            for B, T, KVH, M, starts, short, L, S, Bc, boff in corners:
+                kc = kv_rand((L, Bc, KVH, S, hd), kvd, dev, 0.5)
+                vc = kv_rand((L, Bc, KVH, S, hd), kvd, dev)
+                q = torch.randn(B, T, KVH, M, hd, device=dev)
+                p0 = torch.tensor(starts, dtype=torch.int32, device=dev)
+                kl = (p0 + T - torch.tensor(short, dtype=torch.int32, device=dev)).clamp_min(0)
+                kl = kl.to(torch.int32)
+                name = (f"prefill_attention hd={hd} {kvd} B={B} T={T} M={M} starts={starts} "
+                        f"kv_len={kl.tolist()} L={L} S={S} batch_off={boff}")
+                got = ha.prefill_attention(q, kc, vc, p0, kl, L - 1, boff)
+                want = ha.prefill_attention_plain(q, kc, vc, p0, kl, L - 1, boff)
+                if not bool(torch.isfinite(got).all()):
+                    fail(f"{name}: non-finite output")
+                worst = max(worst, check(name, got, want, TOL_ATT))
+                n += 1
+    torch.cuda.synchronize()
+    log(f"# K13 corners: {n} checks (hd {ha.HEAD_DIMS} x bf16/fp16/e5m2 x T*M off the "
+        f"query tile, starts off a cache tile, short kv_len, M 1/3/4/8, slot 3 of 5, the "
+        f"sp gathered cache), max_abs_err {worst:.3e} (tol {TOL_ATT:g} x max|out|)")
 
 
 def gf4_kernel_rows(gbps, dev):
@@ -2108,48 +2154,51 @@ def partials_kernel_rows(gbps, dev):
 
 
 RING_SIZES = (4096, 8 * 32 * 128, 1, 127)  # a tp close of Mistral-7B (its residual),
-# the sp merge at 8 slots (B * H * hd), and ragged ones (plus n * 128 + 1)
+# the sp merge at 8 slots (B * H * hd), and ragged ones (plus n * 128 + 1, and
+# n * 128 * 37, a multiple of n * 128 that the kernel reads in place)
 
 
 def ring_flags_blocks(dev, n) -> int:
     """The blocks a rank (G) of K14's last call at n ranks, read from its
     flags, or 0 when they break the protocol: entry flags of segments < G
-    hold exactly this call's tag (epoch << 32), acks its last step's, the
-    arrive flags its last two steps', and every flag past G (left by a call
-    of more blocks) an earlier epoch's value."""
+    hold exactly this call's tag (epoch << 32), done flags the tag | 1, and
+    every flag past G (left by a call of more blocks) an earlier epoch's
+    value."""
     from calm_tpu_torch.ops import hopper_collectives as hc
 
     flags, epoch, gmax = hc.ring_flags(dev, n)
     f = flags.cpu()
-    e, steps = epoch << 32, 2 * (n - 1)
-    arrive, ack, entry = f[:, :2 * gmax], f[:, 2 * gmax:3 * gmax], f[:, 3 * gmax:]
+    e = epoch << 32
+    entry, done = f[:, :gmax], f[:, gmax:]
     g = int((entry[0] == e).sum())
-    ok = (g >= 1 and bool((entry[:, :g] == e).all()) and bool((ack[:, :g] == e | steps).all())
-          and bool((arrive[:, :2 * g] >= e | (steps - 1)).all())
-          and bool((arrive[:, :2 * g] <= e | steps).all())
-          and all(bool((x < e).all()) for x in (entry[:, g:], ack[:, g:], arrive[:, 2 * g:])))
+    ok = (g >= 1 and bool((entry[:, :g] == e).all()) and bool((done[:, :g] == e | 1).all())
+          and all(bool((x < e).all()) for x in (entry[:, g:], done[:, g:])))
     return g if ok else 0
 
 
-def ring_checks(dev) -> tuple[int, int, int]:
-    """200 calls of K14 at each n in (2, 4, 8) on fresh random data, f32
-    and bf16 in turn, cycling through the sizes (so the blocks a rank
-    change from call to call), each against the ring-order plain version
-    bit for bit and with its flags read back (``ring_flags_blocks``):
-    (calls, mismatches, calls whose flags break the protocol)."""
+def ring_checks(dev) -> tuple[int, int, int, int]:
+    """200 calls of K14 at each n in (2, 3, 4, 8) on fresh random data, f32
+    and bf16 in turn, cycling through the sizes (aligned to n * 128, read
+    in place, and ragged, padded; the blocks a rank change from call to
+    call), each against the ring-order plain version bit for bit (torch.
+    equal), with the inputs compared to copies taken before the call and
+    the flags read back (``ring_flags_blocks``): (calls, mismatches,
+    calls that changed an input, calls whose flags break the protocol)."""
     from calm_tpu_torch.ops import hopper_collectives as hc
 
-    calls = bad = bad_flags = 0
+    calls = bad = touched = bad_flags = 0
     gen = torch.Generator(device=dev).manual_seed(12)
-    for n in (2, 4, 8):
-        sizes = RING_SIZES + (n * 128 + 1,)
+    for n in (2, 3, 4, 8):
+        sizes = RING_SIZES + (n * 128 + 1, n * 128 * 37)
         blocks = set()
         for i in range(200):
             dt = torch.float32 if i % 2 == 0 else torch.bfloat16
             xs = [(torch.randn(sizes[i % len(sizes)], generator=gen, device=dev)
                    * 10.0 ** (r - n // 2)).to(dt) for r in range(n)]
+            keep = [x.clone() for x in xs]
             got, want = hc.ring_all_reduce(xs), hc.ring_all_reduce_plain(xs)
             bad += sum(not torch.equal(a, b) for a, b in zip(got, want))
+            touched += not all(torch.equal(a, b) for a, b in zip(xs, keep))
             g = ring_flags_blocks(dev, n)
             bad_flags += g == 0
             blocks.add(g)
@@ -2158,29 +2207,32 @@ def ring_checks(dev) -> tuple[int, int, int]:
             fail(f"ring_all_reduce n={n}: the sizes gave blocks a rank {sorted(blocks)}; "
                  "the check needs calls of different block counts")
     torch.cuda.synchronize()
-    return calls, bad, bad_flags
+    return calls, bad, touched, bad_flags
 
 
 def ring_kernel_rows(gbps, dev):
     """K14: the 200-call bit-equality runs (its main path, counted), then
     64 MB a rank timed at n = 2, 4, 8 beside the plain version and one
     library call of the same function on one device (``torch.stack(xs)
-    .sum(0)`` copied back into the n buffers). Bound: each rank's input read
-    once and output written once; also the bytes each step reads and
-    writes (9 (n-1) chunks a rank) at the attainable rate."""
+    .sum(0)`` copied into n outputs). Bound: each rank's input read once
+    and output written once, at the nominal rate and at the attainable
+    one; the two-shot moves exactly those bytes."""
     from calm_tpu_torch.ops import hopper_collectives as hc
 
-    (calls, bad, bad_flags), counts = drive(lambda: ring_checks(dev))
+    (calls, bad, touched, bad_flags), counts = drive(lambda: ring_checks(dev))
     if bad:
         fail(f"ring_all_reduce: {bad} of {calls} x n results differ from the ring-order "
              "plain version")
+    if touched:
+        fail(f"ring_all_reduce: {touched} of {calls} calls changed an input")
     if bad_flags:
         fail(f"ring_all_reduce: after {bad_flags} of {calls} calls the flags do not hold "
              "that call's epoch where its blocks ran (or a later one elsewhere)")
-    log(f"# K14 ring_all_reduce: {calls} calls at n = 2, 4, 8 (f32 and bf16; sizes "
-        f"{RING_SIZES} and n*128+1), every rank's result bit-equal to the ring-order "
-        f"plain version, every call's entry/ack/arrive flags tagged with its own epoch "
-        f"as its block count changed; {counts['ring_all_reduce']} launches")
+    log(f"# K14 ring_all_reduce: {calls} calls at n = 2, 3, 4, 8 (f32 and bf16; sizes "
+        f"{RING_SIZES}, n*128+1 and n*128*37), every rank's result bit-equal to the "
+        f"ring-order plain version, the inputs unchanged, every call's entry/done flags "
+        f"tagged with its own epoch as its block count changed; "
+        f"{counts['ring_all_reduce']} launches")
     row = None
     for n in (2, 4, 8):
         elems = 16 << 20  # 64 MB of f32 a rank
@@ -2197,15 +2249,14 @@ def ring_kernel_rows(gbps, dev):
         del got, want
         t = timings(lambda i: hc.ring_all_reduce(xs), lambda i: hc.ring_all_reduce_plain(xs),
                     library, plain_iters=3)
-        b, by = bound_ms(2 * n * elems * 4, (n - 1) * elems, gbps)
-        chunk = -(-(-(-elems // n)) // 128) * 128
-        step_b = 9 * n * (n - 1) * chunk * 4 / (RATES["attainable"] or gbps) / 1e6
+        nbytes = 2 * n * elems * 4
+        b, by = bound_ms(nbytes, (n - 1) * elems, gbps)
+        att = nbytes / (RATES["attainable"] or gbps) / 1e6
         log(f"# K14 ring_all_reduce n={n} x 64 MB f32 on one card: bit-equal; "
             f"{ms_line(t)} (stack + sum + n copies) bound_ms {b:.4f} ({by}: n inputs read, "
-            f"n outputs written); the ring's step bytes {9 * n * (n - 1) * chunk * 4 / 1e9:.2f} "
-            f"GB at the attainable rate {step_b:.4f} ms; {share(t, b)}")
+            f"n outputs written; {att:.4f} at the attainable rate); {share(t, b)}")
         if n == 4:
-            row = dict(t, bound_ms=b, bound_by=by, step_bound_ms=step_b, max_abs_err=0.0)
+            row = dict(t, bound_ms=b, bound_by=by, attainable_bound_ms=att, max_abs_err=0.0)
         del xs, outs
     torch.cuda.empty_cache()
     return {"ring_all_reduce": row}, counts
@@ -2516,7 +2567,11 @@ def main():
         f"{attn_lib.calm_decode_smem(128, 1, 4)} B at hd 128 bf16 (4 query rows), "
         f"{attn_lib.calm_decode_smem(256, 1, 8)} B at hd 256 (8 query rows); "
         f"{ptxas_kernels(build, 'gf4', 'gf4_mm_kernel')}, dynamic "
-        f"{gf4_lib.calm_gf4_mm_smem()} B")
+        f"{gf4_lib.calm_gf4_mm_smem()} B; "
+        f"{ptxas_kernels(build, 'attn', 'prefill_kernel')}, dynamic " + ", ".join(
+            f"{attn_lib.calm_prefill_smem(hd, kvt)}" for hd in (64, 96, 128, 256)
+            for kvt in (1, 0, 2)) + " B (hd 64/96/128/256 x bf16/fp16/e5m2); "
+        f"{ptxas_kernels(build, 'ring', 'allreduce_kernel')}")
     dev = torch.device("cuda")
 
     RATES["nominal"] = gbps
@@ -2601,8 +2656,7 @@ def main():
                             ms=r["ms"], plain_ms=r["plain_ms"],
                             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                             library_ms=r["library_ms"], timed_by=r["timed_by"],
-                            **{k: r[k] for k in ("attainable_bound_ms", "step_bound_ms")
-                               if k in r}))
+                            **{k: r[k] for k in ("attainable_bound_ms",) if k in r}))
     log(f"# main paths: fp8 {tok8} positions, gf4 {tok4}, gf4 Aya-width {tok4c}, fp8 "
         f"MoE {tok8m}, gf4 MoE {tok4m}; total "
         f"{time.perf_counter() - t_start:.1f} s")
