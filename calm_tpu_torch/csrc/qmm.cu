@@ -7,7 +7,8 @@
 //   - _qx_offn_qkv_kernel (:942, via qx_offn_qkv :1198): one layer's
 //     epilogue, wo + residual, ffn-norm, w1/w3 + act, w2 + residual, and
 //     the next layer's attn-norm + q/k/v -> calm_qx_offn_qkv below, six
-//     launches from this file with no torch op between them;
+//     launches from this file with no torch op between them (eight on the
+//     multi-row path, which stages a and h before their products);
 //   - _gf4_offn_qkv_kernel (:737, via gf4_offn_qkv :927): the same
 //     epilogue on gf4 weights, which the TPU reads in plane-permuted
 //     layouts for Mosaic -> calm_qx_offn_qkv with fmt 2 on natural words;
@@ -46,10 +47,50 @@
 // weights (a lane step reads one word and two float4 of x) and decodes as
 // in gf4.cu: the 3-bit codes exactly through the mantissa of 2^23, one
 // scale multiply per word. Accumulation is f32 per activation row, sized
-// by B at compile time (1, 4 or 16); a warp-shuffle tree closes each row. The attn- and ffn-norms run as a one-block-per-row
-// launch that writes the normalised rows to scratch, so the w1/w3 and
-// q/k/v matvecs share the plain inner loop instead of each block
-// recomputing row statistics and normalising x per weight.
+// by B at compile time (1; gf4 also 4 or 16); a warp-shuffle tree closes
+// each row.
+// The attn- and ffn-norms run as a one-block-per-row launch that writes
+// the normalised rows to scratch, so the w1/w3 and q/k/v matvecs share the
+// plain inner loop instead of each block recomputing row statistics and
+// normalising x per weight. This loop (qmv_kernel) serves one row (B = 1)
+// in fp16/fp8 and every B in gf4.
+//
+// The multi-row path (2 <= B <= 16 rows, fp16 and fp8; mmv_kernel)
+// replaces the same two TPU kernels, _layered_qmm_kernel (:92) and
+// _qx_offn_qkv_kernel (:942), where the serving tick runs them at B slots.
+// What bounds it: still the weight bytes (one read serves every row), but
+// at B > 1 the loop above is held back by two costs that grow with B: B
+// float4 loads of x per weight word (32 B of L1 reads per weight byte at
+// B = 8), and f32 FMAs, 2 B operations per weight, which at 67 TFLOP/s
+// reach the byte bound near B = 10. The design moves the products to the
+// tensor cores and x out of the inner loop:
+//   - mma.sync m16n8k16, f16 operands, f32 sums. A is 16 output rows x 16
+//     k of weights, decoded in registers (e5m2 -> f16 exactly by byte
+//     placement, fp16 as it is); B is 16 k x 8 rows of x (two n-tiles past
+//     8 rows, zero columns past B).
+//   - k is permuted within each 64-value chunk, alike in the weight
+//     fragment and in x's staging (a dot product ignores k's order): lane
+//     (g, t) holds k = 16 t + 4 s + j at step s, so its weights of a chunk
+//     are 16 contiguous values of its row, one 16-byte streaming load
+//     (two for fp16), a quad of lanes 64 contiguous values.
+//   - x is staged once per launch, before the product (split_kernel, or
+//     the norm launch that produces it): per (row, chunk) a power-of-two
+//     scale 2^e >= max |x|, hi = f16(x 2^-e), lo = f16(x 2^-e - hi), in
+//     the fragments' order, so a warp reads its x fragment of a step as
+//     512 contiguous bytes (2 bytes of x per weight byte and 16-row tile).
+//     Weights are exact in f16, hi + lo carries x to 2^-22 of its chunk's
+//     scale, and the scale keeps hi from overflowing and lo, near the
+//     chunk's max, out of the subnormals: two products per weight into one
+//     f32 accumulator per chunk, then times 2^e into the running sum.
+//   - k is split across the warps of a block (qmv_plan in
+//     ops/hopper_qmm.py picks 16 or 32 rows a warp and the split from the
+//     launch's rows and n), so the narrow launches (wo, w2: 4096 rows)
+//     still keep thousands of warps' loads in flight; the partial C
+//     fragments meet in shared memory, then the epilogue as above. A lane
+//     keeps two chunks' weight loads in flight where they fit in 128
+//     bytes, else one; on an H100 that timed faster than one chunk or 256
+//     bytes, and loading x's fragments with the weights (more registers)
+//     slower (PERF.md).
 
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -160,6 +201,8 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 #define NORM_THREADS 1024
 #define NORM_VEC 4  // float4s per thread: rows of up to 16384 values
+#define CH 64       // multi-row path: k values a chunk, one x scale per (row, chunk)
+#define SPLIT_THREADS 256
 
 __device__ float norm_block_sum(float v, float* red) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -173,17 +216,67 @@ __device__ float norm_block_sum(float v, float* red) {
   return s;
 }
 
+__device__ __forceinline__ uint32_t h2bits(__half a, __half b) {
+  __half2 h = __halves2half2(a, b);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// The multi-row path's staging of x. Thread c holds x[b, 4c .. 4c + 3]
+// (zeros past n4 float4s); the 16 threads of a chunk, an aligned half-warp
+// whose warp is whole, share its max |x|, m < 2^e. Writes hi = f16(x 2^-e) and
+// lo = f16(x 2^-e - hi) of the four values as one 16-byte fragment
+// {hi01, hi23, lo01, lo23} at xs[((chunk * 4 + s) * ns + b) * 4 + t], with
+// chunk = c / 16, t = c % 16 / 4, s = c % 4 (k = 16 t + 4 s + j within the
+// chunk: the order mmv_kernel's lanes read), and by the chunk's first
+// thread sc[chunk * ns + b] = 2^e; a chunk that n cuts is written whole,
+// zeros past n, since every lane of mmv_kernel reads all of its x
+// fragments. ns: row slots a (chunk, step), 8 NT.
+__device__ __forceinline__ void stage4(float4 v, int n4, int b, int c, int ns,
+                                       uint4* xs, float* sc) {
+  float m = fmaxf(fmaxf(fabsf(v.x), fabsf(v.y)), fmaxf(fabsf(v.z), fabsf(v.w)));
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+  // e with m = f 2^e, f in [0.5, 1), as frexpf (e = 0 for m = 0): |x 2^-e| < 1;
+  // from the exponent field for normal m below 2^126, else by frexpf
+  const int E = (__float_as_uint(m) >> 23) & 0xff;
+  int e;
+  float inv;  // 2^-e
+  if (E >= 1 && E <= 252) {
+    e = E - 126;
+    inv = __uint_as_float((uint32_t)(253 - E) << 23);
+  } else {
+    frexpf(m, &e);
+    inv = ldexpf(1.0f, -e);
+  }
+  const float f[4] = {v.x * inv, v.y * inv, v.z * inv, v.w * inv};
+  __half hi[4], lo[4];
+#pragma unroll
+  for (int j = 0; j < 4; j++) {
+    hi[j] = __float2half_rn(f[j]);
+    lo[j] = __float2half_rn(f[j] - __half2float(hi[j]));  // the difference is exact
+  }
+  if ((c & ~15) < n4) {
+    const int chunk = c >> 4, t = (c >> 2) & 3, s = c & 3;
+    xs[((size_t)(chunk * 4 + s) * ns + b) * 4 + t] =
+        make_uint4(h2bits(hi[0], hi[1]), h2bits(hi[2], hi[3]), h2bits(lo[0], lo[1]),
+                   h2bits(lo[2], lo[3]));
+    if ((c & 15) == 0) sc[(size_t)chunk * ns + b] = ldexpf(1.0f, e);
+  }
+}
+
 // out[b] = (x[b] - mu) * rsqrt(mean((x[b] - mu)^2) + eps) * g, with mu the
 // row mean when sub_mean and 0 otherwise; one block per row, the row held
-// in registers between the two reductions. n % 4 == 0, n <= 16384.
+// in registers between the two reductions. n % 4 == 0, n <= 16384. Writes
+// out (f32) when given, and the multi-row path's staging (xs, sc; see
+// stage4) when given.
 __global__ void __launch_bounds__(NORM_THREADS)
-    norm_kernel(const float* x, const float* g, float* out, int n, float eps,
-                int sub_mean) {
+    norm_kernel(const float* x, const float* g, float* out, uint4* xs, float* sc,
+                int ns, int n, float eps, int sub_mean) {
   __shared__ float red[NORM_THREADS / 32];
   const int n4 = n >> 2;
   const float4* xr = reinterpret_cast<const float4*>(x + (size_t)blockIdx.x * n);
   const float4* g4 = reinterpret_cast<const float4*>(g);
-  float4* o4 = reinterpret_cast<float4*>(out + (size_t)blockIdx.x * n);
+  float4* o4 = out ? reinterpret_cast<float4*>(out + (size_t)blockIdx.x * n) : nullptr;
   float4 v[NORM_VEC];
   float s = 0.f;
 #pragma unroll
@@ -205,12 +298,33 @@ __global__ void __launch_bounds__(NORM_THREADS)
 #pragma unroll
   for (int k = 0; k < NORM_VEC; k++) {
     const int c = threadIdx.x + k * NORM_THREADS;
+    float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
     if (c < n4) {
       const float4 gv = g4[c];
-      o4[c] = make_float4((v[k].x - mu) * rs * gv.x, (v[k].y - mu) * rs * gv.y,
-                          (v[k].z - mu) * rs * gv.z, (v[k].w - mu) * rs * gv.w);
+      o = make_float4((v[k].x - mu) * rs * gv.x, (v[k].y - mu) * rs * gv.y,
+                      (v[k].z - mu) * rs * gv.z, (v[k].w - mu) * rs * gv.w);
+      if (o4) o4[c] = o;
     }
+    // warp-uniform: a warp stages while any of its lanes holds a value
+    if (xs && (threadIdx.x & ~31) + k * NORM_THREADS < n4)
+      stage4(o, n4, blockIdx.x, c, ns, xs, sc);
   }
+}
+
+// The staging of x (B, n) f32 alone (see stage4): grid (n / 4 / 256 up,
+// B), one float4 a thread.
+__global__ void __launch_bounds__(SPLIT_THREADS)
+    split_kernel(const float* x, uint4* xs, float* sc, int ns, int n) {
+  const int n4 = n >> 2, c = blockIdx.x * SPLIT_THREADS + threadIdx.x;
+  const float4 v = c < n4 ? reinterpret_cast<const float4*>(x + (size_t)blockIdx.y * n)[c]
+                          : make_float4(0.f, 0.f, 0.f, 0.f);
+  stage4(v, n4, blockIdx.y, c, ns, xs, sc);
+}
+
+__device__ __forceinline__ float act_fn(int act, float y) {
+  if (act == 1) return y * (1.0f / (1.0f + expf(-y)));
+  const float ga = 0.7978845608028654f;  // sqrt(2/pi)
+  return 0.5f * y * (1.0f + tanhf(ga * (y + 0.044715f * y * y * y)));
 }
 
 // ACT: 0 plain matvec, 1 dual SiLU (h = silu(x.w1) * x.w3), 2 dual tanh-GELU.
@@ -284,13 +398,7 @@ __global__ void __launch_bounds__(WARPS * 32, NB == 1 ? 4 : 1) qmv_kernel(Args a
       float y = warp_sum(acc[b]);
       if (ACT) {
         const float h3 = warp_sum(acc3[b]);
-        if (ACT == 1) {
-          y = y * (1.0f / (1.0f + expf(-y)));
-        } else {
-          const float ga = 0.7978845608028654f;  // sqrt(2/pi)
-          y = 0.5f * y * (1.0f + tanhf(ga * (y + 0.044715f * y * y * y)));
-        }
-        y *= h3;
+        y = act_fn(ACT, y) * h3;
       }
       if (lane == 0) {
         const size_t o = (size_t)b * sg.ld + row;
@@ -300,17 +408,305 @@ __global__ void __launch_bounds__(WARPS * 32, NB == 1 ? 4 : 1) qmv_kernel(Args a
   }
 }
 
+// ---------------------------------------------------------------------------
+// The multi-row path: 2 <= B <= 16 rows of x, fp16 (FMT 0) and e5m2 (1)
+// weights, on the tensor cores (see the note at the top).
+// ---------------------------------------------------------------------------
+
+#define MV_INFLIGHT 128  // weight bytes a lane keeps in flight, at most
+
+
+struct MArgs {
+  const uint4* xs;  // x staged by stage4: [chunk][step][slot < ns][t] fragments
+  const float* sc;  // [chunk][slot < ns] 2^e
+  Seg seg[3];
+  int nseg;
+  int B;
+  int n;
+  int ks;  // warps that split k for one row group (qmv_plan)
+};
+
+__device__ __forceinline__ void mma16816(float (&d)[4], uint32_t a0, uint32_t a1,
+                                         uint32_t a2, uint32_t a3, uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// A lane's weights of one row and chunk, k = 16 t .. 16 t + 15: one
+// 16-byte load (e5m2) or two (fp16), as 32-bit words; pair01 / pair23 give
+// the f16x2 of (j0, j1) / (j2, j3) at step s (k = 16 t + 4 s + j).
+template <int FMT>
+struct MW {
+  static constexpr int WORDS = FMT == 1 ? 4 : 8;
+  static constexpr int ESZ = FMT == 1 ? 1 : 2;
+  static __device__ __forceinline__ void load(uint32_t (&w)[WORDS], const uint8_t* p) {
+    const uint4 a = __ldcs(reinterpret_cast<const uint4*>(p));
+    w[0] = a.x, w[1] = a.y, w[2] = a.z, w[3] = a.w;
+    if constexpr (WORDS == 8) {
+      const uint4 b = __ldcs(reinterpret_cast<const uint4*>(p) + 1);
+      w[4] = b.x, w[5] = b.y, w[6] = b.z, w[7] = b.w;
+    }
+  }
+  static __device__ __forceinline__ uint32_t pair01(const uint32_t (&w)[WORDS], int s) {
+    if constexpr (FMT == 1) return __byte_perm(w[s], 0u, 0x1404);  // [0, b0, 0, b1]
+    else return w[2 * s];
+  }
+  static __device__ __forceinline__ uint32_t pair23(const uint32_t (&w)[WORDS], int s) {
+    if constexpr (FMT == 1) return __byte_perm(w[s], 0u, 0x3424);  // [0, b2, 0, b3]
+    else return w[2 * s + 1];
+  }
+};
+
+// A lane's x fragments of chunk cc, steps 0..3 of each n-tile (zero for x
+// rows past B), and the 2^e of its two C columns (x rows 2 t, 2 t + 1).
+template <int NT>
+__device__ __forceinline__ void load_x(uint4 (&xf)[4][NT], float2 (&sv)[NT],
+                                       const MArgs& a, int cc, int g, int t) {
+  constexpr int NS = 8 * NT;
+#pragma unroll
+  for (int nt = 0; nt < NT; nt++) {
+#pragma unroll
+    for (int s = 0; s < 4; s++)
+      xf[s][nt] = nt * 8 + g < a.B
+                      ? __ldg(a.xs + ((size_t)(cc * 4 + s) * NS + nt * 8 + g) * 4 + t)
+                      : make_uint4(0u, 0u, 0u, 0u);
+    const int sl = nt * 8 + 2 * t;
+    sv[nt] = sl < a.B ? __ldg(reinterpret_cast<const float2*>(a.sc + (size_t)cc * NS + sl))
+                      : make_float2(0.f, 0.f);
+    if (sl + 1 >= a.B) sv[nt].y = 0.f;
+  }
+}
+
+// One warp: MT 16-row m-tiles of one row group x chunks [c0, c1) of k, for
+// NT 8-row n-tiles of x. Lane (g, t) = (lane / 4, lane % 4) holds rows g
+// and g + 8 of each m-tile in its A fragments, x row g of each n-tile in
+// its B fragments, and C at rows g, g + 8 and x rows 2 t, 2 t + 1. ks warps
+// of a block share a row group (k split), WARPS / ks groups a block, the
+// groups of segment 0, then 1, then 2, each ceil(rows / 16 MT).
+template <int FMT, int ACT, int MT, int NT>
+__global__ void __launch_bounds__(WARPS * 32, 2) mmv_kernel(MArgs a) {
+  using W = MW<FMT>;
+  constexpr int NW = W::WORDS;
+  constexpr int DUAL = ACT ? 2 : 1;
+  constexpr int PER = DUAL * MT * 2 * NW * 4;  // weight bytes a lane loads a chunk
+  constexpr int U = 2 * PER <= MV_INFLIGHT ? 2 : 1;  // chunks in flight
+  constexpr int GR = 16 * MT;
+  constexpr int NS = 8 * NT;
+  constexpr int NACC = DUAL * MT * NT * 4;
+  __shared__ float red[WARPS][NACC][32];
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int ks = a.ks;
+  const int grp = blockIdx.x * (WARPS / ks) + warp / ks, kw = warp % ks;
+  const int g0 = (a.seg[0].rows + GR - 1) / GR;
+  const int g1 = a.nseg > 1 ? (a.seg[1].rows + GR - 1) / GR : 0;
+  const int g2 = a.nseg > 2 ? (a.seg[2].rows + GR - 1) / GR : 0;
+  const bool live = grp < g0 + g1 + g2;
+  Seg sg = a.seg[0];
+  int r0 = grp * GR;
+  if (live && grp >= g0) {
+    const bool one = grp < g0 + g1;
+    sg = one ? a.seg[1] : a.seg[2];
+    r0 = (one ? grp - g0 : grp - g0 - g1) * GR;
+  }
+
+  const size_t rb = (size_t)a.n * W::ESZ;  // bytes a weight row
+  const uint8_t* wp[DUAL][MT][2];
+#pragma unroll
+  for (int m = 0; m < MT; m++)
+#pragma unroll
+    for (int h = 0; h < 2; h++) {
+      const int row = min(r0 + 16 * m + 8 * h + g, sg.rows - 1);  // past rows: discarded
+      const size_t off = (size_t)row * rb + 16 * t * W::ESZ;
+      wp[0][m][h] = sg.w + off;
+      if (ACT) wp[DUAL - 1][m][h] = sg.w3 + off;
+    }
+  const int nc = (a.n + CH - 1) / CH;
+  const int c0 = live ? kw * nc / ks : 0, c1 = live ? (kw + 1) * nc / ks : 0;
+
+  float acc[DUAL][MT][NT][4];
+#pragma unroll
+  for (int d = 0; d < DUAL; d++)
+#pragma unroll
+    for (int m = 0; m < MT; m++)
+#pragma unroll
+      for (int nt = 0; nt < NT; nt++)
+#pragma unroll
+        for (int i = 0; i < 4; i++) acc[d][m][nt][i] = 0.f;
+
+  for (int c = c0; c < c1; c += U) {
+    uint32_t q[U][DUAL][MT][2][NW];
+#pragma unroll
+    for (int u = 0; u < U; u++) {
+      const int cc = c + u;
+      // n % 16 == 0: a lane's 16 values are all inside the row or all past it
+      const bool ok = cc < c1 && cc * CH + 16 * t < a.n;
+#pragma unroll
+      for (int d = 0; d < DUAL; d++)
+#pragma unroll
+        for (int m = 0; m < MT; m++)
+#pragma unroll
+          for (int h = 0; h < 2; h++) {
+            if (ok) {
+              W::load(q[u][d][m][h], wp[d][m][h] + (size_t)cc * CH * W::ESZ);
+            } else {
+#pragma unroll
+              for (int i = 0; i < NW; i++) q[u][d][m][h][i] = 0u;
+            }
+          }
+    }
+#pragma unroll
+    for (int u = 0; u < U; u++) {
+      const int cc = c + u;
+      if (cc >= c1) break;
+      uint4 xf[4][NT];  // x fragments: {hi, lo} of steps 0..3
+      float2 sv[NT];    // 2^e of this lane's two C columns
+      load_x<NT>(xf, sv, a, cc, g, t);
+      float p[DUAL][MT][NT][4];
+#pragma unroll
+      for (int d = 0; d < DUAL; d++)
+#pragma unroll
+        for (int m = 0; m < MT; m++)
+#pragma unroll
+          for (int nt = 0; nt < NT; nt++)
+#pragma unroll
+            for (int i = 0; i < 4; i++) p[d][m][nt][i] = 0.f;
+#pragma unroll
+      for (int s = 0; s < 4; s++) {
+#pragma unroll
+        for (int nt = 0; nt < NT; nt++) {
+          const uint4 xv = xf[s][nt];
+#pragma unroll
+          for (int d = 0; d < DUAL; d++)
+#pragma unroll
+            for (int m = 0; m < MT; m++) {
+              const uint32_t a0 = W::pair01(q[u][d][m][0], s), a1 = W::pair01(q[u][d][m][1], s);
+              const uint32_t a2 = W::pair23(q[u][d][m][0], s), a3 = W::pair23(q[u][d][m][1], s);
+              mma16816(p[d][m][nt], a0, a1, a2, a3, xv.x, xv.y);  // hi
+              mma16816(p[d][m][nt], a0, a1, a2, a3, xv.z, xv.w);  // lo
+            }
+        }
+      }
+#pragma unroll
+      for (int nt = 0; nt < NT; nt++) {
+        const float2 sc = sv[nt];
+#pragma unroll
+        for (int d = 0; d < DUAL; d++)
+#pragma unroll
+          for (int m = 0; m < MT; m++) {
+            acc[d][m][nt][0] = fmaf(p[d][m][nt][0], sc.x, acc[d][m][nt][0]);
+            acc[d][m][nt][1] = fmaf(p[d][m][nt][1], sc.y, acc[d][m][nt][1]);
+            acc[d][m][nt][2] = fmaf(p[d][m][nt][2], sc.x, acc[d][m][nt][2]);
+            acc[d][m][nt][3] = fmaf(p[d][m][nt][3], sc.y, acc[d][m][nt][3]);
+          }
+      }
+    }
+  }
+
+  if (ks > 1) {  // the k split's partial C fragments meet in shared memory
+#pragma unroll
+    for (int d = 0; d < DUAL; d++)
+#pragma unroll
+      for (int m = 0; m < MT; m++)
+#pragma unroll
+        for (int nt = 0; nt < NT; nt++)
+#pragma unroll
+          for (int i = 0; i < 4; i++)
+            red[warp][((d * MT + m) * NT + nt) * 4 + i][lane] = acc[d][m][nt][i];
+    __syncthreads();
+    if (kw == 0) {
+      for (int j = 1; j < ks; j++)
+#pragma unroll
+        for (int d = 0; d < DUAL; d++)
+#pragma unroll
+          for (int m = 0; m < MT; m++)
+#pragma unroll
+            for (int nt = 0; nt < NT; nt++)
+#pragma unroll
+              for (int i = 0; i < 4; i++)
+                acc[d][m][nt][i] += red[warp + j][((d * MT + m) * NT + nt) * 4 + i][lane];
+    }
+  }
+  if (kw != 0 || !live) return;
+
+#pragma unroll
+  for (int m = 0; m < MT; m++)
+#pragma unroll
+    for (int nt = 0; nt < NT; nt++)
+#pragma unroll
+      for (int i = 0; i < 4; i++) {
+        const int row = r0 + 16 * m + g + 8 * (i >> 1);
+        const int slot = nt * 8 + 2 * t + (i & 1);
+        if (row < sg.rows && slot < a.B) {
+          float y = acc[0][m][nt][i];
+          if (ACT) y = act_fn(ACT, y) * acc[DUAL - 1][m][nt][i];
+          const size_t o = (size_t)slot * sg.ld + row;
+          sg.out[o] = sg.resid ? sg.resid[o] + y : y;
+        }
+      }
+}
+
+template <int FMT, int ACT, int MT>
+cudaError_t launch_mmv_nt(const MArgs& a, int nt, int grid, cudaStream_t st) {
+  if (nt == 1)
+    mmv_kernel<FMT, ACT, MT, 1><<<grid, WARPS * 32, 0, st>>>(a);
+  else
+    mmv_kernel<FMT, ACT, MT, 2><<<grid, WARPS * 32, 0, st>>>(a);
+  return cudaGetLastError();
+}
+
+// plan (from qmv_plan): {mt, nt, ks, grid}
+template <int ACT>
+cudaError_t launch_mmv(int fmt, MArgs a, const int* plan, cudaStream_t st) {
+  const int mt = plan[0], nt = plan[1], ks = plan[2], grid = plan[3];
+  if ((mt != 1 && mt != 2) || (nt != 1 && nt != 2) || a.B < 2 || a.B > 8 * nt ||
+      ks < 1 || ks > WARPS || WARPS % ks != 0 || grid < 1 || a.n % 16 != 0)
+    return cudaErrorInvalidValue;
+  a.ks = ks;
+  if (fmt == 1)
+    return mt == 1 ? launch_mmv_nt<1, ACT, 1>(a, nt, grid, st)
+                   : launch_mmv_nt<1, ACT, 2>(a, nt, grid, st);
+  return mt == 1 ? launch_mmv_nt<0, ACT, 1>(a, nt, grid, st)
+                 : launch_mmv_nt<0, ACT, 2>(a, nt, grid, st);
+}
+
+cudaError_t launch_split(const void* x, uint4* xs, float* sc, int ns, int B, int n,
+                         cudaStream_t st) {
+  const dim3 grid(((n >> 2) + SPLIT_THREADS - 1) / SPLIT_THREADS, B);
+  split_kernel<<<grid, SPLIT_THREADS, 0, st>>>(static_cast<const float*>(x), xs, sc,
+                                               ns, n);
+  return cudaGetLastError();
+}
+
+MArgs margs(const uint4* xs, const float* sc, int B, int n) {
+  MArgs a;
+  a.xs = xs;
+  a.sc = sc;
+  a.nseg = 1;
+  a.B = B;
+  a.n = n;
+  a.ks = 1;
+  return a;
+}
+
 template <int FMT, int ACT>
 cudaError_t launch(const Args& a, cudaStream_t st) {
   int rows = 0;
   for (int s = 0; s < a.nseg; s++) rows += a.seg[s].rows;
   const int grid = (rows + WARPS - 1) / WARPS;
-  if (a.B <= 1)
+  if (a.B <= 1) {
     qmv_kernel<FMT, ACT, 1><<<grid, WARPS * 32, 0, st>>>(a);
-  else if (a.B <= 4)
-    qmv_kernel<FMT, ACT, 4><<<grid, WARPS * 32, 0, st>>>(a);
-  else
-    qmv_kernel<FMT, ACT, MAXB><<<grid, WARPS * 32, 0, st>>>(a);
+  } else if constexpr (FMT == 2) {  // fp16/fp8 past one row: mmv_kernel
+    if (a.B <= 4)
+      qmv_kernel<FMT, ACT, 4><<<grid, WARPS * 32, 0, st>>>(a);
+    else
+      qmv_kernel<FMT, ACT, MAXB><<<grid, WARPS * 32, 0, st>>>(a);
+  } else {
+    return cudaErrorInvalidValue;
+  }
   return cudaGetLastError();
 }
 
@@ -321,10 +717,11 @@ cudaError_t launch_fmt(int fmt, const Args& a, cudaStream_t st) {
 }
 
 cudaError_t launch_norm(const void* x, const void* g, void* out, int B, int n,
-                        float eps, int sub_mean, cudaStream_t st) {
+                        float eps, int sub_mean, cudaStream_t st, uint4* xs = nullptr,
+                        float* sc = nullptr, int ns = 0) {
   norm_kernel<<<B, NORM_THREADS, 0, st>>>(static_cast<const float*>(x),
                                         static_cast<const float*>(g),
-                                        static_cast<float*>(out), n, eps,
+                                        static_cast<float*>(out), xs, sc, ns, n, eps,
                                         sub_mean);
   return cudaGetLastError();
 }
@@ -379,17 +776,69 @@ cudaError_t offn(int fmt, const void* a, const void* r, const void* g,
   return ffn(fmt, xn, w1, w3, w2, h, out, resid, B, D, H, act_gelu, st);
 }
 
+// The epilogue on the multi-row path: the same six stages, each product
+// by mmv_kernel from x staged just before it: a and h by split_kernel,
+// ffn-norm(r1) and attn-norm(x) by their norm launches (no f32 copy).
+// plans: qmv_plan's {mt, nt, ks, grid} of wo, w1/w3, w2 and q/k/v.
+cudaError_t qx_offn_qkv_mr(int fmt, const void* a, const void* r, const void* g,
+                           const void* anx, const void* wo, const void* w1,
+                           const void* w3, const void* w2, const void* wq,
+                           const void* wk, const void* wv, void* r1, void* h, void* x,
+                           void* qkv, int B, int D, int H, int Qd, int KVd,
+                           int act_gelu, float eps, int sub_mean, uint4* xs, float* sc,
+                           const int* plans, cudaStream_t st) {
+  const int ns = 8 * plans[1];
+  cudaError_t e = launch_split(a, xs, sc, ns, B, Qd, st);
+  if (e != cudaSuccess) return e;
+  MArgs m = margs(xs, sc, B, Qd);
+  m.seg[0] = seg(wo, nullptr, r1, r, D, D);  // r1 = r + a . wo^T
+  if ((e = launch_mmv<0>(fmt, m, plans, st)) != cudaSuccess) return e;
+  if ((e = launch_norm(r1, g, nullptr, B, D, eps, sub_mean, st, xs, sc, ns)) != cudaSuccess)
+    return e;
+  m = margs(xs, sc, B, D);
+  m.seg[0] = seg(w1, w3, h, nullptr, H, H);
+  e = act_gelu ? launch_mmv<2>(fmt, m, plans + 4, st) : launch_mmv<1>(fmt, m, plans + 4, st);
+  if (e != cudaSuccess) return e;
+  if ((e = launch_split(h, xs, sc, ns, B, H, st)) != cudaSuccess) return e;
+  m = margs(xs, sc, B, H);
+  m.seg[0] = seg(w2, nullptr, x, r1, D, D);  // x = r1 + h . w2^T
+  if ((e = launch_mmv<0>(fmt, m, plans + 8, st)) != cudaSuccess) return e;
+  if ((e = launch_norm(x, anx, nullptr, B, D, eps, sub_mean, st, xs, sc, ns)) != cudaSuccess)
+    return e;
+  m = margs(xs, sc, B, D);
+  const int ld = Qd + 2 * KVd;
+  float* o = static_cast<float*>(qkv);
+  m.seg[0] = seg(wq, nullptr, o, nullptr, Qd, ld);
+  m.seg[1] = seg(wk, nullptr, o + Qd, nullptr, KVd, ld);
+  m.seg[2] = seg(wv, nullptr, o + Qd + KVd, nullptr, KVd, ld);
+  m.nseg = 3;
+  return launch_mmv<0>(fmt, m, plans + 12, st);
+}
+
 }  // namespace
 
 extern "C" {
 
 // y (B, d) = x (B, n) . W^T for W (d, n) in fp16 (fmt 0) or fp8 e5m2
-// (fmt 1); w points at the layer's plane.
+// (fmt 1); w points at the layer's plane. B >= 2 takes the multi-row path:
+// x staged into xs/sc (caller-allocated, qmv_plan's sizes), then plan's
+// launch; B = 1 the loop of one row (xs, sc and plan unused).
 int calm_qmm_decode(const void* x, const void* w, void* y, int B, int d, int n,
-                    int fmt, void* stream) {
+                    int fmt, void* xs, void* sc, const void* plan, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (B >= 2) {
+    const int* p = static_cast<const int*>(plan);
+    uint4* xs4 = static_cast<uint4*>(xs);
+    float* scf = static_cast<float*>(sc);
+    cudaError_t e = launch_split(x, xs4, scf, 8 * p[1], B, n, st);
+    if (e != cudaSuccess) return (int)e;
+    MArgs m = margs(xs4, scf, B, n);
+    m.seg[0] = seg(w, nullptr, y, nullptr, d, d);
+    return (int)launch_mmv<0>(fmt, m, p, st);
+  }
   Args a = args(x, B, n);
   a.seg[0] = seg(w, nullptr, y, nullptr, d, d);
-  return (int)launch_fmt<0>(fmt, a, (cudaStream_t)stream);
+  return (int)launch_fmt<0>(fmt, a, st);
 }
 
 // One layer's epilogue (see pallas_qmm._qx_offn_qkv_kernel), for fp16
@@ -397,15 +846,22 @@ int calm_qmm_decode(const void* x, const void* w, void* y, int B, int d, int n,
 // layer planes (wq/wk/wv and anx already at
 // min(layer + 1, L - 1)). r1 (B, D), xn (B, D) and h (B, H) are
 // caller-allocated scratch; qkv is (B, Qd + 2 KVd) with q, k and v side by
-// side.
+// side. fp16/fp8 at B >= 2 take the multi-row path with the staging
+// scratch xs/sc and qmv_plan's four plans (xn unused); else xs, sc and
+// plans are unused.
 int calm_qx_offn_qkv(const void* a, const void* r, const void* g,
                      const void* anx, const void* wo, const void* w1,
                      const void* w3, const void* w2, const void* wq,
                      const void* wk, const void* wv, void* r1, void* xn,
                      void* h, void* x, void* qkv, int B, int D, int H, int Qd,
                      int KVd, int fmt, int act_gelu, float eps, int sub_mean,
-                     void* stream) {
+                     void* xs, void* sc, const void* plans, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  if (B >= 2 && fmt != 2)
+    return (int)qx_offn_qkv_mr(fmt, a, r, g, anx, wo, w1, w3, w2, wq, wk, wv, r1, h, x,
+                               qkv, B, D, H, Qd, KVd, act_gelu, eps, sub_mean,
+                               static_cast<uint4*>(xs), static_cast<float*>(sc),
+                               static_cast<const int*>(plans), st);
   // x = r1 + ffn(ffn-norm(r1)), r1 = r + a . wo^T
   cudaError_t e = offn(fmt, a, r, g, wo, w1, w3, w2, r1, xn, h, x, r1, B, D, H,
                        Qd, act_gelu, eps, sub_mean, st);

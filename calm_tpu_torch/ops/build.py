@@ -36,8 +36,8 @@ P, I, F, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 # C signatures: function name -> argtypes (all return int)
 SIGNATURES = {
     "qmm": {
-        "calm_qmm_decode": [P, P, P, I, I, I, I, P],
-        "calm_qx_offn_qkv": [P] * 16 + [I] * 7 + [F, I, P],
+        "calm_qmm_decode": [P, P, P, I, I, I, I, P, P, P, P],
+        "calm_qx_offn_qkv": [P] * 16 + [I] * 7 + [F, I, P, P, P, P],
         "calm_gf4_ffn": [P] * 6 + [I] * 4 + [P],
         "calm_gf4_offn": [P] * 11 + [I] * 5 + [F, I, P],
     },

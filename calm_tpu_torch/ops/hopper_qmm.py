@@ -2,7 +2,10 @@
 
 - :func:`qmm_decode` replaces ``_layered_qmm_kernel``
   (``calm_tpu/ops/pallas_qmm.py:92``): y = x . dequant(W[layer])^T for
-  fp8/fp16 (``csrc/qmm.cu``); gf4 goes to :func:`qmm_decode_gf4`.
+  fp8/fp16 (``csrc/qmm.cu``); gf4 goes to :func:`qmm_decode_gf4`. From 2
+  rows of x it takes the multi-row path on the tensor cores, tiled by
+  :func:`qmv_plan`, x staged as scaled f16 hi + lo (:func:`split_operand`
+  writes the staging out in PyTorch).
 - :func:`qmm_decode_gf4` replaces ``_layered_gf4_kernel`` (``:100``): the
   same matvec on natural gf4 words, B <= 16 (``csrc/gf4.cu``).
 - :func:`qmm_prefill` replaces ``_gf4_mm_kernel`` (``:238``): the gf4
@@ -35,11 +38,16 @@
 
 Each wrapper takes its plain PyTorch version (``*_plain``, f32) for tensors
 on the CPU, and launches the kernel for CUDA tensors or raises; it counts
-its launches in ``.launches``.
+its launches in ``.launches`` (:func:`qmm_decode` and :func:`qx_offn_qkv`
+those of the multi-row path also in ``.multirow_launches``).
 """
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -52,6 +60,13 @@ _OFFN_CODE = dict(_FMT_CODE, gf4=2)  # csrc/qmm.cu's epilogue, csrc/moe.cu
 MAX_ROWS = 16
 MIN_MM_ROWS = 32  # qmm_prefill's least row count (pallas_qmm.mm_supported)
 MAX_NORM_DIM = 16384  # norm_kernel: 1024 threads x 4 float4 in registers
+SMS = 132  # an H100's streaming multiprocessors
+# the multi-row path (csrc/qmm.cu mmv_kernel)
+MV_CHUNK = 64  # CH: k values a chunk, one x scale per (row, chunk)
+MV_WARPS = 8  # WARPS: warps a block
+MV_TARGET_WARPS = 16 * SMS  # about 16 warps' loads in flight an SM
+MV_MIN_CHUNKS = 4  # the least chunks a warp's share of k, where k allows
+MV_MT2_ROWS = 6144  # from this many rows a launch, 32 rows a warp (else 16)
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -90,6 +105,120 @@ def _plane(w: torch.Tensor, layer) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# The multi-row path's tiling and staging (csrc/qmm.cu mmv_kernel)
+# ---------------------------------------------------------------------------
+
+
+class QmvPlan(NamedTuple):
+    """One multi-row launch's tiling: ``ks`` warps split the k of each
+    group of ``16 mt`` output rows (a warp holds ``mt`` 16-row m-tiles),
+    ``MV_WARPS / ks`` groups a block; ``nt`` 8-row n-tiles of x."""
+    mt: int          # 16-row m-tiles a warp (1 or 2)
+    nt: int          # 8-row n-tiles of x (1 for B <= 8, else 2)
+    ks: int          # warps a row group (1, 2, 4 or 8)
+    grid: int        # blocks
+    groups: tuple    # row groups of each segment
+    chunks: int      # MV_CHUNK-value chunks of k (the last one may be short)
+
+    def args(self) -> tuple[int, int, int, int]:
+        """What the kernel's launcher takes: {mt, nt, ks, grid}."""
+        return (self.mt, self.nt, self.ks, self.grid)
+
+    def warp_work(self, block: int, warp: int, seg_rows) -> tuple | None:
+        """(segment, first row, end row, first chunk, end chunk) of warp
+        ``warp`` of block ``block``, as the kernel computes it; None for a
+        warp past the last group. Its rows are clipped to the segment."""
+        gr = 16 * self.mt
+        grp = block * (MV_WARPS // self.ks) + warp // self.ks
+        kw = warp % self.ks
+        for s, (g, rows) in enumerate(zip(self.groups, seg_rows)):
+            if grp < g:
+                r0 = grp * gr
+                return (s, r0, min(r0 + gr, rows), kw * self.chunks // self.ks,
+                        (kw + 1) * self.chunks // self.ks)
+            grp -= g
+        return None
+
+    def staging(self, n: int) -> tuple[int, int]:
+        """(int32 words of xs, floats of sc) the staged x of n values a row
+        takes: a 16-byte fragment and one scale per (chunk, row slot) and
+        step, 8 nt row slots."""
+        nc = -(-n // MV_CHUNK)
+        return nc * 4 * 8 * self.nt * 4 * 4, nc * 8 * self.nt
+
+
+@functools.lru_cache(maxsize=256)
+def _qmv_plan(B: int, seg_rows: tuple, n: int, dual: bool) -> QmvPlan:
+    nt = 1 if B <= 8 else 2
+    mt = 2 if sum(seg_rows) >= MV_MT2_ROWS and not dual else 1
+    groups = tuple(-(-r // (16 * mt)) for r in seg_rows)
+    chunks = -(-n // MV_CHUNK)
+    G = sum(groups)
+    ks = 1
+    while (ks < MV_WARPS and G * ks < MV_TARGET_WARPS
+           and chunks // (2 * ks) >= MV_MIN_CHUNKS):
+        ks *= 2
+    grid = -(-G // (MV_WARPS // ks))
+    return QmvPlan(mt, nt, ks, grid, groups, chunks)
+
+
+def qmv_plan(B: int, seg_rows, n: int, dual: bool = False) -> QmvPlan:
+    """The multi-row kernel's tiling of B rows of x (1..16; the kernels
+    take it from 2, one row keeps the loop of one row) against segments of
+    ``seg_rows`` output rows each (1-3: q/k/v side by side) and k = n (a
+    multiple of 16), ``dual`` for the w1/w3 launch (two weights): 32 rows
+    a warp for one weight's launches of MV_MT2_ROWS rows or more, else 16
+    (more row groups for the narrow wo and w2; the dual launch's lanes
+    already stream two weights, and 32 rows of both timed slower on the
+    card); k split in two until about MV_TARGET_WARPS warps fill the card,
+    while each keeps MV_MIN_CHUNKS chunks or more, up to MV_WARPS."""
+    seg_rows = tuple(int(r) for r in seg_rows)
+    _check(1 <= B <= MAX_ROWS, f"the multi-row path takes 1..{MAX_ROWS} rows, not {B}")
+    _check(1 <= len(seg_rows) <= 3 and all(r >= 1 for r in seg_rows),
+           f"1-3 segments of >= 1 row, not {seg_rows}")
+    _check(n >= 16 and n % 16 == 0, f"k must be a positive multiple of 16, not {n}")
+    return _qmv_plan(int(B), seg_rows, int(n), bool(dual))
+
+
+@functools.lru_cache(maxsize=256)
+def _launch_plans(B: int, launches: tuple) -> tuple[np.ndarray, int, int]:
+    """For the launches ``((seg_rows, n, dual), ...)`` of one call at B
+    rows: their plans' kernel arguments in one int32 array, and the words
+    and floats of the staging scratch they share (sized for the largest
+    n)."""
+    ps = [qmv_plan(B, rows, n, dual) for rows, n, dual in launches]
+    words, floats = ps[0].staging(max(n for _, n, _ in launches))
+    return np.array([v for p in ps for v in p.args()], dtype=np.int32), words, floats
+
+
+def split_operand(x: torch.Tensor, chunk: int = MV_CHUNK):
+    """The multi-row kernel's staging of x (B, n), written out in PyTorch
+    in natural order (the kernel stores the same values permuted within
+    each chunk): per (row, chunk) e with max |x| < 2^e (0 for a chunk of
+    zeros), hi = f16(x 2^-e), lo = f16(x 2^-e - hi). Returns (hi, lo) (B, n)
+    float16 and e (B, n / chunk up) int32; x ~ (hi + lo) 2^e to 2^-22 of
+    2^e. Used by the tests, not on the main path."""
+    B, n = x.shape
+    nc = -(-n // chunk)
+    xp = torch.zeros((B, nc * chunk), dtype=torch.float32, device=x.device)
+    xp[:, :n] = x.float()
+    xc = xp.reshape(B, nc, chunk)
+    _, e = torch.frexp(xc.abs().amax(-1))
+    e = e.to(torch.int32)
+    v = torch.ldexp(xc, -e[..., None].float())
+    hi = v.half()
+    lo = (v - hi.float()).half()
+    return (hi.reshape(B, -1)[:, :n], lo.reshape(B, -1)[:, :n], e)
+
+
+def _staging(words: int, floats: int, dev) -> tuple[torch.Tensor, int, int]:
+    """One scratch buffer for the staged x: (buffer, address of the
+    fragments, address of the scales after them)."""
+    buf = torch.empty(words + floats, dtype=torch.int32, device=dev)
+    return buf, buf.data_ptr(), buf.data_ptr() + 4 * words
+
+
+# ---------------------------------------------------------------------------
 # K2: qmm_decode
 # ---------------------------------------------------------------------------
 
@@ -115,15 +244,22 @@ def qmm_decode(x: torch.Tensor, w: torch.Tensor, fmt: str,
     _check(wl.shape[1] == n, f"x has {n} columns, W has {wl.shape[1]}")
     _check(1 <= B <= MAX_ROWS, f"the decode kernel takes 1..{MAX_ROWS} rows")
     y = torch.empty((B, d), dtype=torch.float32, device=x.device)
+    xs = sc = plan = None
+    if B >= 2:
+        plans, words, floats = _launch_plans(B, (((d,), n, False),))
+        buf, xs, sc = _staging(words, floats, x.device)  # buf: held past the launch
+        plan = plans.ctypes.data
     rc = build.lib("qmm").calm_qmm_decode(
-        x.data_ptr(), wl.data_ptr(), y.data_ptr(), B, d, n, _FMT_CODE[fmt],
+        x.data_ptr(), wl.data_ptr(), y.data_ptr(), B, d, n, _FMT_CODE[fmt], xs, sc, plan,
         _stream(x))
     build.check("qmm", rc)
     qmm_decode.launches += 1
+    qmm_decode.multirow_launches += B >= 2
     return y
 
 
 qmm_decode.launches = 0
+qmm_decode.multirow_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -300,18 +436,25 @@ def _offn_qkv(a, r, g, anx, wo, w1, w3, w2, wq, wk, wv, layer, fmt: str,
            "norm weights must be (L, D)")
     _check(D <= MAX_NORM_DIM, f"the norm launch takes rows of <= {MAX_NORM_DIM}")
     dev = a.device
+    multirow = B >= 2 and fmt in _FMT_CODE
     r1 = torch.empty((B, D), dtype=torch.float32, device=dev)
-    xn = torch.empty((B, D), dtype=torch.float32, device=dev)
+    xn = None if multirow else torch.empty((B, D), dtype=torch.float32, device=dev)
     h = torch.empty((B, H), dtype=torch.float32, device=dev)
     x = torch.empty((B, D), dtype=torch.float32, device=dev)
     qkv = torch.empty((B, Qd + 2 * KVd), dtype=torch.float32, device=dev)
+    xs = sc = plans = None
+    if multirow:  # wo, w1/w3, w2, q/k/v
+        arr, words, floats = _launch_plans(B, (((D,), Qd, False), ((H,), D, True),
+                                               ((D,), H, False), ((Qd, KVd, KVd), D, False)))
+        buf, xs, sc = _staging(words, floats, dev)  # buf: held past the launch
+        plans = arr.ctypes.data
     rc = build.lib("qmm").calm_qx_offn_qkv(
         a.data_ptr(), r.data_ptr(), _plane_ptr(g, l), _plane_ptr(anx, ln),
         _plane_ptr(wo, l), _plane_ptr(w1, l), _plane_ptr(w3, l),
         _plane_ptr(w2, l), _plane_ptr(wq, ln), _plane_ptr(wk, ln),
-        _plane_ptr(wv, ln), r1.data_ptr(), xn.data_ptr(), h.data_ptr(),
-        x.data_ptr(), qkv.data_ptr(), B, D, H, Qd, KVd, _OFFN_CODE[fmt],
-        int(act_gelu), float(eps), int(sub_mean), _stream(a))
+        _plane_ptr(wv, ln), r1.data_ptr(), None if xn is None else xn.data_ptr(),
+        h.data_ptr(), x.data_ptr(), qkv.data_ptr(), B, D, H, Qd, KVd, _OFFN_CODE[fmt],
+        int(act_gelu), float(eps), int(sub_mean), xs, sc, plans, _stream(a))
     build.check("qmm", rc)
     return (x, qkv[:, :Qd], qkv[:, Qd:Qd + KVd], qkv[:, Qd + KVd:])
 
@@ -331,10 +474,12 @@ def qx_offn_qkv(a, r, g, anx, wo, w1, w3, w2, wq, wk, wv, layer, fmt: str,
     out = _offn_qkv(a, r, g, anx, wo, w1, w3, w2, wq, wk, wv, layer, fmt,
                     act_gelu, eps, sub_mean)
     qx_offn_qkv.launches += 1
+    qx_offn_qkv.multirow_launches += a.shape[0] >= 2
     return out
 
 
 qx_offn_qkv.launches = 0
+qx_offn_qkv.multirow_launches = 0
 
 
 def gf4_offn_qkv_plain(a, r, g, anx, wo, w1, w3, w2, wq, wk, wv, layer,

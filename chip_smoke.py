@@ -8,7 +8,10 @@ tools' shapes and ragged ones (K12 and K13 also at the head dims of the
 converter's Phi-3-mini and Gemma containers and at 32 query rows a kv
 head; K12 at the corners of its tiles and chunks, pages shorter and longer
 than a tile and a slot offset; K4/K5 at 32 rows; K13 at the corners of
-its TMA + wgmma tiles at every head dim and cache dtype) and times it
+its TMA + wgmma tiles at every head dim and cache dtype; K2 and K9 on
+their multi-row tensor-core path at B = 2..16, fp8 and fp16, SiLU and
+GELU, with and without the mean subtracted, a ragged 32001 x 4112, and
+slots 2^20 apart in scale, each held to its own) and times it
 beside its bound and its library call (kernel/library on each timed row),
 after the redesigned kernels' ptxas report; runs both bandwidth tools
 (``calm_tpu_torch.tools.dma_ceiling``, ``gf4_bound``), whose 3 GB rows
@@ -324,6 +327,8 @@ def kernel_phase(gbps, dev):
     rows.update(moe_kernel_rows(gbps, dev))
     ragged_checks_moe(dev)
     rows.update(paged_kernel_rows(gbps, dev))
+    rows.update(multirow_kernel_rows(gbps, dev))
+    multirow_checks(dev)
     ragged_checks_paged(dev)
     ragged_checks_tilings(dev)
     rows.update(ffn_kernel_rows(gbps, dev))
@@ -357,12 +362,10 @@ def to_pages(dense, PR, order):
 def paged_kernel_rows(gbps, dev):
     """K12 at the serving tick's shape (8 slots at kv_len 4096, 8 kv heads,
     hd 128, bf16): paged + fresh with scrambled tables of 512- and 64-row
-    pages beside dense fresh mode; K9 and K2 (lm-head) at 8 rows."""
+    pages beside dense fresh mode."""
     import torch.nn.functional as F
 
     from calm_tpu_torch.ops import hopper_attn as ha
-    from calm_tpu_torch.ops import hopper_qmm as hq
-    from calm_tpu_torch.ops.qmm import QTensor, dequant
 
     rows = {}
     B, KVH, M, S, hd, L = 8, 8, 4, 4096, 128, 2
@@ -406,43 +409,156 @@ def paged_kernel_rows(gbps, dev):
             rows["decode_attention_paged"] = dict(t, bound_ms=b, bound_by=by, max_abs_err=e)
         del kp, vp
     del kc, vc
+    torch.cuda.empty_cache()
+    return rows
 
-    # K9 one layer and K2 at the lm-head, fp8, 8 rows
+
+MULTIROW_TIMED = (4, 8, 16)  # B of the multi-row path's timed rows; 8: the serving tick's
+
+
+def multirow_kernel_rows(gbps, dev):
+    """K9 (one Mistral-7B layer) and K2 (the lm-head), fp8, on the
+    multi-row path at B = 4, 8 (the serving tick's 8 slots) and 16, each
+    beside its bound, plain version and library call; the B = 8 rows go to
+    the kernels line."""
+    from calm_tpu_torch.ops import hopper_qmm as hq
+    from calm_tpu_torch.ops.qmm import QTensor, dequant
+
+    rows = {}
     H, V = HID, 32000
     ws = [rand_w(sh, "fp8", dev) for sh in ((2, D, Q), (2, H, D), (2, H, D), (2, D, H),
                                             (2, Q, D), (2, KV, D), (2, KV, D))]
     g = 1 + 0.1 * torch.randn(2, D, device=dev)
     anx = 1 + 0.1 * torch.randn(2, D, device=dev)
-    a, r = torch.randn(B, Q, device=dev), torch.randn(B, D, device=dev)
-    e = check("qx_offn_qkv fp8 B=8", hq.qx_offn_qkv(a, r, g, anx, *ws, 1, "fp8", False,
-                                                    1e-5, False),
-              hq.qx_offn_qkv_plain(a, r, g, anx, *ws, 1, "fp8", False, 1e-5, False), TOL_MV)
     wb = [dequant(QTensor(w, "fp8"), torch.bfloat16) for w in ws]
-    t = timings(lambda i: hq.qx_offn_qkv(a, r, g, anx, *ws, i % 2, "fp8", False, 1e-5, False),
-                lambda i: hq.qx_offn_qkv_plain(a, r, g, anx, *ws, i % 2, "fp8", False, 1e-5,
-                                               False),
-                epilogue_chain(a, r, g, anx, wb, 2))
     n_w = D * Q + 3 * H * D + (Q + 2 * KV) * D
-    # at 8 rows, operations at the bf16 rate: the TPU kernels compute these
-    # products on bf16 operands
-    b, by = bound_ms(n_w + 4 * B * (3 * D + 2 * Q + 2 * KV), 2 * B * n_w, gbps, PEAK_BF16)
-    log(f"# K9 qx_offn_qkv fp8 one layer B=8: max_abs_err {e:.3e} (tol {TOL_MV:g} x "
-        f"max|out|); {ms_line(t)} (7 bf16 matmuls) bound_ms {b:.4f} ({by}); {share(t, b)}")
+    for B in MULTIROW_TIMED:
+        a, r = torch.randn(B, Q, device=dev), torch.randn(B, D, device=dev)
+        e = check(f"qx_offn_qkv fp8 B={B}", hq.qx_offn_qkv(a, r, g, anx, *ws, 1, "fp8", False,
+                                                          1e-5, False),
+                  hq.qx_offn_qkv_plain(a, r, g, anx, *ws, 1, "fp8", False, 1e-5, False),
+                  TOL_MV)
+        # past one row, operations at the bf16 rate: the TPU kernels compute
+        # these products on bf16 operands
+        b, by = bound_ms(n_w + 4 * B * (3 * D + 2 * Q + 2 * KV), 2 * B * n_w, gbps, PEAK_BF16)
+        t = timings(lambda i: hq.qx_offn_qkv(a, r, g, anx, *ws, i % 2, "fp8", False, 1e-5,
+                                             False),
+                    lambda i: hq.qx_offn_qkv_plain(a, r, g, anx, *ws, i % 2, "fp8", False,
+                                                   1e-5, False),
+                    epilogue_chain(a, r, g, anx, wb, 2), bound=b)
+        log(f"# K9 qx_offn_qkv fp8 one layer B={B}: max_abs_err {e:.3e} (tol {TOL_MV:g} x "
+            f"max|out|); {ms_line(t)} (7 bf16 matmuls) bound_ms {b:.4f} ({by}); {share(t, b)}")
+        if B == 8:
+            rows["qx_offn_qkv_multirow"] = dict(t, bound_ms=b, bound_by=by, max_abs_err=e)
+            prof = kernel_rows(lambda: [hq.qx_offn_qkv(a, r, g, anx, *ws, i % 2, "fp8", False,
+                                                       1e-5, False) for i in range(10)])
+            log("# K9 fp8 one layer B=8 by kernel (device ms a call, launches a call): "
+                + "; ".join(f"{name} {us / 1e4:.4f} x{cnt / 10:g}" for us, cnt, name in prof))
     del ws, wb
     w = rand_w((1, V, D), "fp8", dev)
-    x = torch.randn(B, D, device=dev)
-    e = check("qmm_decode fp8 lm-head B=8", hq.qmm_decode(x, w, "fp8", 0),
-              hq.qmm_decode_plain(x, w, "fp8", 0), TOL_MV)
     wb = dequant(QTensor(w, "fp8"), torch.bfloat16)
-    t = timings(lambda i: hq.qmm_decode(x, w, "fp8", 0),
-                lambda i: hq.qmm_decode_plain(x, w, "fp8", 0),
-                lambda i: torch.matmul(x.bfloat16(), wb[0].T))
-    b, by = bound_ms(V * D + 4 * B * (D + V), 2 * B * V * D, gbps, PEAK_BF16)
-    log(f"# K2 qmm_decode fp8 lm-head {V}x{D} B=8: max_abs_err {e:.3e} (tol {TOL_MV:g} x "
-        f"max|y|); {ms_line(t)} (bf16 matmul) bound_ms {b:.4f} ({by}); {share(t, b)}")
+    for B in MULTIROW_TIMED:
+        x = torch.randn(B, D, device=dev)
+        e = check(f"qmm_decode fp8 lm-head B={B}", hq.qmm_decode(x, w, "fp8", 0),
+                  hq.qmm_decode_plain(x, w, "fp8", 0), TOL_MV)
+        b, by = bound_ms(V * D + 4 * B * (D + V), 2 * B * V * D, gbps, PEAK_BF16)
+        t = timings(lambda i: hq.qmm_decode(x, w, "fp8", 0),
+                    lambda i: hq.qmm_decode_plain(x, w, "fp8", 0),
+                    lambda i: torch.matmul(x.bfloat16(), wb[0].T), bound=b)
+        log(f"# K2 qmm_decode fp8 lm-head {V}x{D} B={B}: max_abs_err {e:.3e} (tol "
+            f"{TOL_MV:g} x max|y|); {ms_line(t)} (bf16 matmul) bound_ms {b:.4f} ({by}); "
+            f"{share(t, b)}")
+        if B == 8:
+            rows["qmm_decode_multirow"] = dict(t, bound_ms=b, bound_by=by, max_abs_err=e)
     del w, wb
     torch.cuda.empty_cache()
     return rows
+
+
+def check_rows(name, got, want, rel_tol):
+    """``check`` with each row (slot) of each output held to its own max
+    |out|: slots whose scales differ by 2^20 each keep their digits."""
+    if isinstance(got, (tuple, list)):
+        return max(check_rows(f"{name}[{i}]", g, w, rel_tol)
+                   for i, (g, w) in enumerate(zip(got, want)))
+    err = (got.float() - want.float()).abs().amax(-1)
+    sc = want.float().abs().amax(-1)
+    worst = (err / sc).max().item()
+    if not (err <= rel_tol * sc).all() or not torch.isfinite(got).all():
+        fail(f"{name}: a slot's max_abs_err is {worst:.3e} of its own max|out| > {rel_tol:g}")
+    key = name.split()[0]
+    WORST_REL[key] = max(WORST_REL.get(key, 0.0), worst)
+    return err.max().item()
+
+
+MULTIROW_B = (2, 3, 4, 8, 9, 16)  # one and two n-tiles, each side of 8
+
+
+def multirow_checks(dev):
+    """The multi-row path (2..16 rows, fp8 and fp16) against its plain
+    version at TOL_MV: K9 at Mistral-7B widths with SiLU and GELU, with and
+    without the mean subtracted (LayerNorm), K2 at the lm-head and wq and
+    at a ragged 32001 x 4112 (k off the 64-value chunks), each at B = 2,
+    3, 4, 8, 9, 16; then inputs whose slots differ in scale by 2^20 (1e-3
+    beside 1e3, and chunks 1e4 apart within a row), each slot held to its
+    own scale."""
+    from calm_tpu_torch.ops import hopper_qmm as hq
+
+    from calm_tpu_torch.ops.qmm import QTensor, dequant
+
+    worst = {"qmm_decode": 0.0, "qx_offn_qkv": 0.0}
+    n = 0
+    exact = {}  # the lm-head's distance from the float64 product, kernel and plain
+
+    def rel_to(y, ref):
+        """max over rows of |y - ref| / max |ref|."""
+        return ((y.double() - ref).abs().amax(-1) / ref.abs().amax(-1)).max().item()
+
+    def spread(B, width):
+        x = torch.randn(B, width, device=dev)
+        x[0::2] *= 1e-3
+        x[1::2] *= 1e3
+        x[:, :64] *= 1e-4
+        return x
+    for fmt in ("fp8", "fp16"):
+        L = 2
+        ws = [rand_w(s, fmt, dev) for s in ((L, D, Q), (L, HID, D), (L, HID, D), (L, D, HID),
+                                           (L, Q, D), (L, KV, D), (L, KV, D))]
+        g = 1 + 0.1 * torch.randn(L, D, device=dev)
+        anx = 1 + 0.1 * torch.randn(L, D, device=dev)
+        for B in MULTIROW_B:
+            for gelu, sub_mean in ((False, False), (True, False), (False, True), (True, True)):
+                a, r = torch.randn(B, Q, device=dev), torch.randn(B, D, device=dev)
+                args = (a, r, g, anx, *ws, 1, fmt, gelu, 1e-5, sub_mean)
+                e = check(f"qx_offn_qkv {fmt} B={B} gelu={gelu} sub_mean={sub_mean}",
+                          hq.qx_offn_qkv(*args), hq.qx_offn_qkv_plain(*args), TOL_MV)
+                worst["qx_offn_qkv"], n = max(worst["qx_offn_qkv"], e), n + 1
+            args = (spread(B, Q), spread(B, D), g, anx, *ws, 0, fmt, False, 1e-5, False)
+            e = check_rows(f"qx_offn_qkv {fmt} B={B} slots 2^20 apart",
+                           hq.qx_offn_qkv(*args), hq.qx_offn_qkv_plain(*args), TOL_MV)
+            worst["qx_offn_qkv"], n = max(worst["qx_offn_qkv"], e), n + 1
+        del ws
+        for name, d, k in (("lm-head", 32000, D), ("wq", Q, D), ("ragged", 32001, 4112)):
+            w = rand_w((2, d, k), fmt, dev)
+            for B in MULTIROW_B:
+                for xs, how in ((torch.randn(B, k, device=dev), ""),
+                                (spread(B, k), " slots 2^20 apart")):
+                    got, want = hq.qmm_decode(xs, w, fmt, 1), hq.qmm_decode_plain(xs, w, fmt, 1)
+                    e = (check_rows if how else check)(
+                        f"qmm_decode {fmt} {name} {d}x{k} B={B}{how}", got, want, TOL_MV)
+                    worst["qmm_decode"], n = max(worst["qmm_decode"], e), n + 1
+                    if name == "lm-head" and not how and B in (8, 16):
+                        ref = xs.double() @ dequant(QTensor(w[1], fmt), torch.float32).double().T
+                        exact[f"{fmt} B={B}"] = (rel_to(got, ref), rel_to(want, ref))
+                        del ref
+            del w
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"# multi-row path (B = {', '.join(map(str, MULTIROW_B))}; fp8, fp16): {n} checks "
+        f"within {TOL_MV:g} of max|out| (slots 2^20 apart: of each slot's), max_abs_err "
+        + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()) + "; lm-head 32000x4096 "
+        "against the float64 product, each row to its max (kernel / plain f32): "
+        + ", ".join(f"{k} {a:.2e} / {b:.2e}" for k, (a, b) in exact.items()))
 
 
 def ragged_checks_paged(dev):
@@ -1234,6 +1350,8 @@ def counters():
            "ring_all_reduce": hc.ring_all_reduce}
     out = {k: (f, "launches") for k, f in fns.items()}
     out["decode_attention_paged"] = (ha.decode_attention, "paged_launches")
+    out["qmm_decode_multirow"] = (hq.qmm_decode, "multirow_launches")
+    out["qx_offn_qkv_multirow"] = (hq.qx_offn_qkv, "multirow_launches")
     out["decode_attention_partials"] = (ha.decode_attention, "partials_launches")
     return out
 
@@ -2522,6 +2640,24 @@ def ptxas_summary(build) -> str:
     return "; ".join(out) or "no ptxas report"
 
 
+def ptxas_each(build, lib: str, kernel: str) -> str:
+    """-Xptxas -v of each instantiation of a kernel template: its template
+    arguments, registers and spill stores."""
+    path = os.path.join(build.BUILD_DIR, lib + ".log")
+    if not os.path.exists(path):
+        return f"{kernel}: no ptxas report"
+    out = []
+    for blk in open(path).read().split("Compiling entry function '")[1:]:
+        name = blk.split("'")[0]
+        if kernel not in name:
+            continue
+        targs = ",".join(re.findall(r"Li(\d+)E", name.split(kernel, 1)[1]))
+        regs = re.findall(r"Used (\d+) registers", blk)
+        spill = sum(int(x) for x in re.findall(r"(\d+) bytes spill stores", blk))
+        out.append(f"<{targs}> {regs[0] if regs else '?'}r/{spill}B")
+    return f"{kernel} (registers / spill stores): " + " ".join(out)
+
+
 def ptxas_kernels(build, lib: str, kernel: str) -> str:
     """-Xptxas -v of one kernel's instantiations: registers, spills and
     static shared memory, from the build log; the dynamic shared memory a
@@ -2572,6 +2708,8 @@ def main():
             f"{attn_lib.calm_prefill_smem(hd, kvt)}" for hd in (64, 96, 128, 256)
             for kvt in (1, 0, 2)) + " B (hd 64/96/128/256 x bf16/fp16/e5m2); "
         f"{ptxas_kernels(build, 'ring', 'allreduce_kernel')}")
+    log(f"# ptxas -v, the multi-row path <fmt, act, m-tiles, n-tiles>: "
+        f"{ptxas_each(build, 'qmm', 'mmv_kernel')}")
     dev = torch.device("cuda")
 
     RATES["nominal"] = gbps
@@ -2616,6 +2754,11 @@ def main():
                               "calm_tpu/ops/pallas_qmm.py:92", counts8),
                "qx_offn_qkv": ("calm_tpu_torch/csrc/qmm.cu",
                                "calm_tpu/ops/pallas_qmm.py:942", counts8),
+               # the multi-row path: the serving tick's 8 slots (a paged drain)
+               "qmm_decode_multirow": ("calm_tpu_torch/csrc/qmm.cu",
+                                       "calm_tpu/ops/pallas_qmm.py:92", counts_pg),
+               "qx_offn_qkv_multirow": ("calm_tpu_torch/csrc/qmm.cu",
+                                        "calm_tpu/ops/pallas_qmm.py:942", counts_pg),
                "decode_attention": ("calm_tpu_torch/csrc/attn.cu",
                                     "calm_tpu/ops/pallas_attn.py:77", counts8),
                "decode_attention_paged": ("calm_tpu_torch/csrc/attn.cu",
