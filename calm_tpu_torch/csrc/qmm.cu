@@ -53,11 +53,14 @@
 // the normalised rows to scratch, so the w1/w3 and q/k/v matvecs share the
 // plain inner loop instead of each block recomputing row statistics and
 // normalising x per weight. This loop (qmv_kernel) serves one row (B = 1)
-// in fp16/fp8 and every B in gf4.
+// in every format, and K7 (calm_gf4_offn) at every B: its instantiations
+// for 4 and 16 rows stay for K7 alone.
 //
-// The multi-row path (2 <= B <= 16 rows, fp16 and fp8; mmv_kernel)
-// replaces the same two TPU kernels, _layered_qmm_kernel (:92) and
-// _qx_offn_qkv_kernel (:942), where the serving tick runs them at B slots.
+// The multi-row path (2 <= B <= 16 rows; mmv_kernel) replaces, for fp16
+// and fp8, the same two TPU kernels, _layered_qmm_kernel (:92) and
+// _qx_offn_qkv_kernel (:942), where the serving tick runs them at B slots,
+// and for gf4 _gf4_offn_qkv_kernel (:737) and _gf4_ffn_kernel (:464) (see
+// the gf4 note below).
 // What bounds it: still the weight bytes (one read serves every row), but
 // at B > 1 the loop above is held back by two costs that grow with B: B
 // float4 loads of x per weight word (32 B of L1 reads per weight byte at
@@ -91,6 +94,41 @@
 //     bytes, else one; on an H100 that timed faster than one chunk or 256
 //     bytes, and loading x's fragments with the weights (more registers)
 //     slower (PERF.md).
+//
+// gf4 on the multi-row path (K8 calm_qx_offn_qkv with fmt 2 and K6
+// calm_gf4_ffn, at 2 <= B <= 16; K7 and K3, gf4.cu, keep their loops):
+//   - What bounds it: still the weight bytes, now 0.5 a weight, so a
+//     launch's loads take half of fp8's time for the same rows, and the
+//     product's fixed costs (x's fragments, the decode, the two mma a step)
+//     weigh twice as much per byte.
+//   - The decode is exact in f16: a value is (code - 4) e5m2(scale) / -4;
+//     (code - 4) in [-4, 3] has at most 2 significant bits and the scale 3,
+//     so their product fits f16's 11; f16 has e5m2's exponent range (the
+//     largest value, 57344, is below 65504, the smallest, 2^-18 from a
+//     subnormal scale byte, a multiple of f16's subnormal step 2^-24), and
+//     every intermediate step below is exact too. The scale folds into A:
+//     one product's k spans four lanes, four different words.
+//   - gf4_frag turns half a word into the two f16x2 operands of a step:
+//     two shifts and a byte permute put a pair of codes at bit 0 of each
+//     half and the next pair at bit 6, under the mantissa of 1024 (one
+//     LOP3 a pair); a subtract and a multiply by the scale (/ -4 and /
+//     -256, made once a word) finish each pair: about 20 instructions for 8
+//     weights, each weight decoded once a launch for both x parts and every
+//     n-tile.
+//   - A lane's 16 values of a row and chunk are two words, one 8-byte load
+//     (the chunk permutation and x's staging are fp8's); it keeps 4 chunks
+//     in flight (32 or 64 bytes), which timed faster than 1 or 2 and no
+//     slower than 8. A cp.async ring of whole 128-byte rows in shared
+//     memory and L2 prefetch hints timed no better than loads into
+//     registers; 16-byte loads over a permutation of 128 values, which
+//     would need a staging order of their own, are weighed in PERF.md.
+//   - The weight and x pointers step along k, so a load's address is a
+//     register plus a constant: computing each chunk's 64-bit addresses
+//     would take a third of the loop's instructions (fp16/fp8 share the
+//     loop).
+//   - Rows of n % 16 == 8 (an odd word count, K6 at model widths such as
+//     1032) take the ODD instantiation: word loads, the second zero past the
+//     row, one m-tile a warp.
 
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -413,8 +451,8 @@ __global__ void __launch_bounds__(WARPS * 32, NB == 1 ? 4 : 1) qmv_kernel(Args a
 // weights, on the tensor cores (see the note at the top).
 // ---------------------------------------------------------------------------
 
-#define MV_INFLIGHT 128  // weight bytes a lane keeps in flight, at most
-
+#define MV_INFLIGHT 128  // fp16/fp8: weight bytes a lane keeps in flight, at most
+#define MV_U_GF4 4        // gf4: chunks a lane keeps in flight (32-64 bytes)
 
 struct MArgs {
   const uint4* xs;  // x staged by stage4: [chunk][step][slot < ns][t] fragments
@@ -435,67 +473,100 @@ __device__ __forceinline__ void mma16816(float (&d)[4], uint32_t a0, uint32_t a1
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
-// A lane's weights of one row and chunk, k = 16 t .. 16 t + 15: one
-// 16-byte load (e5m2) or two (fp16), as 32-bit words; pair01 / pair23 give
-// the f16x2 of (j0, j1) / (j2, j3) at step s (k = 16 t + 4 s + j).
+__device__ __forceinline__ uint32_t hmul2u(uint32_t a, uint32_t b) {
+  __half2 r = __hmul2(*reinterpret_cast<const __half2*>(&a), *reinterpret_cast<const __half2*>(&b));
+  return *reinterpret_cast<uint32_t*>(&r);
+}
+
+__device__ __forceinline__ uint32_t hsub2u(uint32_t a, uint32_t b) {
+  __half2 r = __hsub2(*reinterpret_cast<const __half2*>(&a), *reinterpret_cast<const __half2*>(&b));
+  return *reinterpret_cast<uint32_t*>(&r);
+}
+
+// Codes 4 h .. 4 h + 3 of a gf4 word as the f16x2 pairs (4 h, 4 h + 1) and
+// (4 h + 2, 4 h + 3), each (code - 4) e5m2(scale) / -4, exactly: the two
+// codes of a pair go under the mantissa of 1024, the first pair's at bit 0
+// of each half (1024 + c, less 1028: c - 4), the second's at bit 6 (1024 +
+// 64 c, less 1280: 64 (c - 4)), then one multiply by the scale, / -4 or
+// / -256. The scale byte in the high byte of an f16 is the same e5m2 value.
+// k1024: 0x64006400 (1024, 1024) in a register (one LOP3 a pair of codes:
+// with both masks as immediates the compiler spends two).
+__device__ __forceinline__ void gf4_frag(uint32_t w, int h, uint32_t k1024, uint32_t& a01,
+                                         uint32_t& a23) {
+  const uint32_t e2 = __byte_perm(w, 0u, 0x0404);  // [0, b0, 0, b0]
+  const uint32_t lo = h ? w >> 20 : w >> 8;  // codes 4h, 4h + 2 to bits 0, 6
+  const uint32_t hi = h ? w >> 7 : w << 5;   // codes 4h + 1, 4h + 3 to bits 16, 22
+  const uint32_t m = __byte_perm(lo, hi, 0x7610);
+  uint32_t v01, v23;  // (m & mask) | k1024
+  asm("lop3.b32 %0, %1, 0x00070007, %2, 0xEA;" : "=r"(v01) : "r"(m), "r"(k1024));
+  asm("lop3.b32 %0, %1, 0x01C001C0, %2, 0xEA;" : "=r"(v23) : "r"(m), "r"(k1024));
+  a01 = hmul2u(hsub2u(v01, 0x64046404u), hmul2u(e2, 0xB400B400u));  // 1028; -1/4
+  a23 = hmul2u(hsub2u(v23, 0x65006500u), hmul2u(e2, 0x9C009C00u));  // 1280; -1/256
+}
+
+// A lane's weights of one row and chunk, k = 16 t .. 16 t + 15, as 32-bit
+// words: one 16-byte load (e5m2), two (fp16), or two gf4 words, one 8-byte
+// load (ODD: rows of n % 16 == 8 words, 4-byte aligned: word by word, the
+// second zero past the row, where a stray inf or NaN scale times x's zero
+// would be NaN); left: values of the row from the lane's first. frag gives
+// the f16x2 A operands of (j0, j1) and (j2, j3) at step s (k = 16 t + 4 s +
+// j).
 template <int FMT>
 struct MW {
-  static constexpr int WORDS = FMT == 1 ? 4 : 8;
-  static constexpr int ESZ = FMT == 1 ? 1 : 2;
-  static __device__ __forceinline__ void load(uint32_t (&w)[WORDS], const uint8_t* p) {
-    const uint4 a = __ldcs(reinterpret_cast<const uint4*>(p));
-    w[0] = a.x, w[1] = a.y, w[2] = a.z, w[3] = a.w;
-    if constexpr (WORDS == 8) {
-      const uint4 b = __ldcs(reinterpret_cast<const uint4*>(p) + 1);
-      w[4] = b.x, w[5] = b.y, w[6] = b.z, w[7] = b.w;
+  static constexpr int WORDS = FMT == 2 ? 2 : FMT == 1 ? 4 : 8;
+  static constexpr int B16 = 4 * WORDS;  // bytes of 16 values
+  template <bool ODD>
+  static __device__ __forceinline__ void load(uint32_t (&w)[WORDS], const uint8_t* p,
+                                              int left) {
+    if constexpr (ODD) {
+      w[0] = __ldcs(reinterpret_cast<const uint32_t*>(p));
+      w[1] = left > 8 ? __ldcs(reinterpret_cast<const uint32_t*>(p) + 1) : 0u;
+    } else if constexpr (FMT == 2) {
+      const uint2 a = __ldcs(reinterpret_cast<const uint2*>(p));
+      w[0] = a.x, w[1] = a.y;
+    } else {
+      const uint4 a = __ldcs(reinterpret_cast<const uint4*>(p));
+      w[0] = a.x, w[1] = a.y, w[2] = a.z, w[3] = a.w;
+      if constexpr (WORDS == 8) {
+        const uint4 b = __ldcs(reinterpret_cast<const uint4*>(p) + 1);
+        w[4] = b.x, w[5] = b.y, w[6] = b.z, w[7] = b.w;
+      }
     }
   }
-  static __device__ __forceinline__ uint32_t pair01(const uint32_t (&w)[WORDS], int s) {
-    if constexpr (FMT == 1) return __byte_perm(w[s], 0u, 0x1404);  // [0, b0, 0, b1]
-    else return w[2 * s];
-  }
-  static __device__ __forceinline__ uint32_t pair23(const uint32_t (&w)[WORDS], int s) {
-    if constexpr (FMT == 1) return __byte_perm(w[s], 0u, 0x3424);  // [0, b2, 0, b3]
-    else return w[2 * s + 1];
+  static __device__ __forceinline__ void frag(const uint32_t (&w)[WORDS], int s, uint32_t k1024,
+                                              uint32_t& a01, uint32_t& a23) {
+    if constexpr (FMT == 2) {
+      gf4_frag(w[s >> 1], s & 1, k1024, a01, a23);
+    } else if constexpr (FMT == 1) {
+      a01 = __byte_perm(w[s], 0u, 0x1404);  // [0, b0, 0, b1]
+      a23 = __byte_perm(w[s], 0u, 0x3424);  // [0, b2, 0, b3]
+    } else {
+      a01 = w[2 * s], a23 = w[2 * s + 1];
+    }
   }
 };
-
-// A lane's x fragments of chunk cc, steps 0..3 of each n-tile (zero for x
-// rows past B), and the 2^e of its two C columns (x rows 2 t, 2 t + 1).
-template <int NT>
-__device__ __forceinline__ void load_x(uint4 (&xf)[4][NT], float2 (&sv)[NT],
-                                       const MArgs& a, int cc, int g, int t) {
-  constexpr int NS = 8 * NT;
-#pragma unroll
-  for (int nt = 0; nt < NT; nt++) {
-#pragma unroll
-    for (int s = 0; s < 4; s++)
-      xf[s][nt] = nt * 8 + g < a.B
-                      ? __ldg(a.xs + ((size_t)(cc * 4 + s) * NS + nt * 8 + g) * 4 + t)
-                      : make_uint4(0u, 0u, 0u, 0u);
-    const int sl = nt * 8 + 2 * t;
-    sv[nt] = sl < a.B ? __ldg(reinterpret_cast<const float2*>(a.sc + (size_t)cc * NS + sl))
-                      : make_float2(0.f, 0.f);
-    if (sl + 1 >= a.B) sv[nt].y = 0.f;
-  }
-}
 
 // One warp: MT 16-row m-tiles of one row group x chunks [c0, c1) of k, for
 // NT 8-row n-tiles of x. Lane (g, t) = (lane / 4, lane % 4) holds rows g
 // and g + 8 of each m-tile in its A fragments, x row g of each n-tile in
 // its B fragments, and C at rows g, g + 8 and x rows 2 t, 2 t + 1. ks warps
 // of a block share a row group (k split), WARPS / ks groups a block, the
-// groups of segment 0, then 1, then 2, each ceil(rows / 16 MT).
-template <int FMT, int ACT, int MT, int NT>
+// groups of segment 0, then 1, then 2, each ceil(rows / 16 MT). The weight
+// and x pointers step along k with the chunks, so a load's address is a
+// register plus a constant.
+template <int FMT, int ACT, int MT, int NT, bool ODD>
 __global__ void __launch_bounds__(WARPS * 32, 2) mmv_kernel(MArgs a) {
   using W = MW<FMT>;
   constexpr int NW = W::WORDS;
   constexpr int DUAL = ACT ? 2 : 1;
-  constexpr int PER = DUAL * MT * 2 * NW * 4;  // weight bytes a lane loads a chunk
-  constexpr int U = 2 * PER <= MV_INFLIGHT ? 2 : 1;  // chunks in flight
+  constexpr int PER = DUAL * MT * 2 * W::B16;  // weight bytes a lane loads a chunk
+  // chunks in flight: fp16/fp8 two where they fit in MV_INFLIGHT bytes, else
+  // one; gf4 MV_U_GF4
+  constexpr int U = FMT == 2 ? MV_U_GF4 : 2 * PER <= MV_INFLIGHT ? 2 : 1;
   constexpr int GR = 16 * MT;
   constexpr int NS = 8 * NT;
   constexpr int NACC = DUAL * MT * NT * 4;
+  constexpr int XCH = 4 * NS * 4;  // uint4 fragments of x a chunk
   __shared__ float red[WARPS][NACC][32];
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
@@ -512,20 +583,29 @@ __global__ void __launch_bounds__(WARPS * 32, 2) mmv_kernel(MArgs a) {
     sg = one ? a.seg[1] : a.seg[2];
     r0 = (one ? grp - g0 : grp - g0 - g1) * GR;
   }
+  const int nc = (a.n + CH - 1) / CH;
+  const int c0 = live ? kw * nc / ks : 0, c1 = live ? (kw + 1) * nc / ks : 0;
 
-  const size_t rb = (size_t)a.n * W::ESZ;  // bytes a weight row
+  // rows g and g + 8 of each m-tile from chunk c0; bytes a row: n / 16 B16
+  // (+ 4 for gf4 rows of n % 16 == 8)
+  const size_t rb = (size_t)(a.n / 16) * W::B16 + (ODD ? 4 : 0);
   const uint8_t* wp[DUAL][MT][2];
 #pragma unroll
   for (int m = 0; m < MT; m++)
 #pragma unroll
     for (int h = 0; h < 2; h++) {
       const int row = min(r0 + 16 * m + 8 * h + g, sg.rows - 1);  // past rows: discarded
-      const size_t off = (size_t)row * rb + 16 * t * W::ESZ;
+      const size_t off = (size_t)row * rb + (size_t)c0 * 4 * W::B16 + t * W::B16;
       wp[0][m][h] = sg.w + off;
       if (ACT) wp[DUAL - 1][m][h] = sg.w3 + off;
     }
-  const int nc = (a.n + CH - 1) / CH;
-  const int c0 = live ? kw * nc / ks : 0, c1 = live ? (kw + 1) * nc / ks : 0;
+  // x: lane (g, t)'s fragment of step 0 of chunk c0, n-tile 0; scales of its
+  // C columns (x rows 2 t, 2 t + 1)
+  const uint4* xp = a.xs + (size_t)c0 * XCH + g * 4 + t;
+  const float* sp = a.sc + (size_t)c0 * NS + 2 * t;
+  int left = a.n - (c0 * CH + 16 * t);  // values of the row from the lane's first
+  uint32_t k1024;  // gf4_frag's constant, kept in a register
+  asm("mov.b32 %0, 0x64006400;" : "=r"(k1024));
 
   float acc[DUAL][MT][NT][4];
 #pragma unroll
@@ -541,9 +621,8 @@ __global__ void __launch_bounds__(WARPS * 32, 2) mmv_kernel(MArgs a) {
     uint32_t q[U][DUAL][MT][2][NW];
 #pragma unroll
     for (int u = 0; u < U; u++) {
-      const int cc = c + u;
       // n % 16 == 0: a lane's 16 values are all inside the row or all past it
-      const bool ok = cc < c1 && cc * CH + 16 * t < a.n;
+      const bool ok = c + u < c1 && left - u * CH > 0;
 #pragma unroll
       for (int d = 0; d < DUAL; d++)
 #pragma unroll
@@ -551,7 +630,8 @@ __global__ void __launch_bounds__(WARPS * 32, 2) mmv_kernel(MArgs a) {
 #pragma unroll
           for (int h = 0; h < 2; h++) {
             if (ok) {
-              W::load(q[u][d][m][h], wp[d][m][h] + (size_t)cc * CH * W::ESZ);
+              W::template load<ODD>(q[u][d][m][h], wp[d][m][h] + u * 4 * W::B16,
+                                    left - u * CH);
             } else {
 #pragma unroll
               for (int i = 0; i < NW; i++) q[u][d][m][h][i] = 0u;
@@ -560,11 +640,20 @@ __global__ void __launch_bounds__(WARPS * 32, 2) mmv_kernel(MArgs a) {
     }
 #pragma unroll
     for (int u = 0; u < U; u++) {
-      const int cc = c + u;
-      if (cc >= c1) break;
-      uint4 xf[4][NT];  // x fragments: {hi, lo} of steps 0..3
+      if (c + u >= c1) break;
+      uint4 xf[4][NT];  // x fragments: {hi, lo} of steps 0..3, zero for x rows past B
       float2 sv[NT];    // 2^e of this lane's two C columns
-      load_x<NT>(xf, sv, a, cc, g, t);
+#pragma unroll
+      for (int nt = 0; nt < NT; nt++) {
+#pragma unroll
+        for (int s = 0; s < 4; s++)
+          xf[s][nt] = nt * 8 + g < a.B ? __ldg(xp + u * XCH + (s * NS + nt * 8) * 4)
+                                       : make_uint4(0u, 0u, 0u, 0u);
+        const int sl = nt * 8 + 2 * t;
+        sv[nt] = sl < a.B ? __ldg(reinterpret_cast<const float2*>(sp + u * NS + nt * 8))
+                          : make_float2(0.f, 0.f);
+        if (sl + 1 >= a.B) sv[nt].y = 0.f;
+      }
       float p[DUAL][MT][NT][4];
 #pragma unroll
       for (int d = 0; d < DUAL; d++)
@@ -576,6 +665,15 @@ __global__ void __launch_bounds__(WARPS * 32, 2) mmv_kernel(MArgs a) {
             for (int i = 0; i < 4; i++) p[d][m][nt][i] = 0.f;
 #pragma unroll
       for (int s = 0; s < 4; s++) {
+        // A of step s, decoded once for every n-tile and both x parts
+        uint32_t af[DUAL][MT][4];
+#pragma unroll
+        for (int d = 0; d < DUAL; d++)
+#pragma unroll
+          for (int m = 0; m < MT; m++) {
+            W::frag(q[u][d][m][0], s, k1024, af[d][m][0], af[d][m][2]);  // row g
+            W::frag(q[u][d][m][1], s, k1024, af[d][m][1], af[d][m][3]);  // row g + 8
+          }
 #pragma unroll
         for (int nt = 0; nt < NT; nt++) {
           const uint4 xv = xf[s][nt];
@@ -583,10 +681,9 @@ __global__ void __launch_bounds__(WARPS * 32, 2) mmv_kernel(MArgs a) {
           for (int d = 0; d < DUAL; d++)
 #pragma unroll
             for (int m = 0; m < MT; m++) {
-              const uint32_t a0 = W::pair01(q[u][d][m][0], s), a1 = W::pair01(q[u][d][m][1], s);
-              const uint32_t a2 = W::pair23(q[u][d][m][0], s), a3 = W::pair23(q[u][d][m][1], s);
-              mma16816(p[d][m][nt], a0, a1, a2, a3, xv.x, xv.y);  // hi
-              mma16816(p[d][m][nt], a0, a1, a2, a3, xv.z, xv.w);  // lo
+              const uint32_t(&f)[4] = af[d][m];
+              mma16816(p[d][m][nt], f[0], f[1], f[2], f[3], xv.x, xv.y);  // hi
+              mma16816(p[d][m][nt], f[0], f[1], f[2], f[3], xv.z, xv.w);  // lo
             }
         }
       }
@@ -604,6 +701,15 @@ __global__ void __launch_bounds__(WARPS * 32, 2) mmv_kernel(MArgs a) {
           }
       }
     }
+#pragma unroll
+    for (int d = 0; d < DUAL; d++)
+#pragma unroll
+      for (int m = 0; m < MT; m++)
+#pragma unroll
+        for (int h = 0; h < 2; h++) wp[d][m][h] += U * 4 * W::B16;
+    xp += U * XCH;
+    sp += U * NS;
+    left -= U * CH;
   }
 
   if (ks > 1) {  // the k split's partial C fragments meet in shared memory
@@ -649,12 +755,12 @@ __global__ void __launch_bounds__(WARPS * 32, 2) mmv_kernel(MArgs a) {
       }
 }
 
-template <int FMT, int ACT, int MT>
+template <int FMT, int ACT, int MT, bool ODD>
 cudaError_t launch_mmv_nt(const MArgs& a, int nt, int grid, cudaStream_t st) {
   if (nt == 1)
-    mmv_kernel<FMT, ACT, MT, 1><<<grid, WARPS * 32, 0, st>>>(a);
+    mmv_kernel<FMT, ACT, MT, 1, ODD><<<grid, WARPS * 32, 0, st>>>(a);
   else
-    mmv_kernel<FMT, ACT, MT, 2><<<grid, WARPS * 32, 0, st>>>(a);
+    mmv_kernel<FMT, ACT, MT, 2, ODD><<<grid, WARPS * 32, 0, st>>>(a);
   return cudaGetLastError();
 }
 
@@ -662,15 +768,24 @@ cudaError_t launch_mmv_nt(const MArgs& a, int nt, int grid, cudaStream_t st) {
 template <int ACT>
 cudaError_t launch_mmv(int fmt, MArgs a, const int* plan, cudaStream_t st) {
   const int mt = plan[0], nt = plan[1], ks = plan[2], grid = plan[3];
+  // fp16/fp8 rows of whole 16-value steps; a gf4 row may end half-way
+  // (n % 16 == 8, one m-tile a warp)
+  const bool odd = a.n % 16 != 0;
   if ((mt != 1 && mt != 2) || (nt != 1 && nt != 2) || a.B < 2 || a.B > 8 * nt ||
-      ks < 1 || ks > WARPS || WARPS % ks != 0 || grid < 1 || a.n % 16 != 0)
+      ks < 1 || ks > WARPS || WARPS % ks != 0 || grid < 1 || a.n < 1 ||
+      a.n % (fmt == 2 ? 8 : 16) != 0 || (odd && mt != 1))
     return cudaErrorInvalidValue;
   a.ks = ks;
+  if (fmt == 2) {
+    if (odd) return launch_mmv_nt<2, ACT, 1, true>(a, nt, grid, st);
+    return mt == 1 ? launch_mmv_nt<2, ACT, 1, false>(a, nt, grid, st)
+                   : launch_mmv_nt<2, ACT, 2, false>(a, nt, grid, st);
+  }
   if (fmt == 1)
-    return mt == 1 ? launch_mmv_nt<1, ACT, 1>(a, nt, grid, st)
-                   : launch_mmv_nt<1, ACT, 2>(a, nt, grid, st);
-  return mt == 1 ? launch_mmv_nt<0, ACT, 1>(a, nt, grid, st)
-                 : launch_mmv_nt<0, ACT, 2>(a, nt, grid, st);
+    return mt == 1 ? launch_mmv_nt<1, ACT, 1, false>(a, nt, grid, st)
+                   : launch_mmv_nt<1, ACT, 2, false>(a, nt, grid, st);
+  return mt == 1 ? launch_mmv_nt<0, ACT, 1, false>(a, nt, grid, st)
+                 : launch_mmv_nt<0, ACT, 2, false>(a, nt, grid, st);
 }
 
 cudaError_t launch_split(const void* x, uint4* xs, float* sc, int ns, int B, int n,
@@ -699,7 +814,7 @@ cudaError_t launch(const Args& a, cudaStream_t st) {
   const int grid = (rows + WARPS - 1) / WARPS;
   if (a.B <= 1) {
     qmv_kernel<FMT, ACT, 1><<<grid, WARPS * 32, 0, st>>>(a);
-  } else if constexpr (FMT == 2) {  // fp16/fp8 past one row: mmv_kernel
+  } else if constexpr (FMT == 2) {  // K7 past one row; K2, K6, K8 and K9 take mmv_kernel
     if (a.B <= 4)
       qmv_kernel<FMT, ACT, 4><<<grid, WARPS * 32, 0, st>>>(a);
     else
@@ -815,6 +930,25 @@ cudaError_t qx_offn_qkv_mr(int fmt, const void* a, const void* r, const void* g,
   return launch_mmv<0>(fmt, m, plans + 12, st);
 }
 
+// The FFN alone on the multi-row path: x staged by split_kernel, the dual
+// w1/w3 launch into h, h staged, the w2 launch into out (no residual).
+// plans: qmv_plan's {mt, nt, ks, grid} of w1/w3 and w2.
+cudaError_t ffn_mr(int fmt, const void* x, const void* w1, const void* w3, const void* w2,
+                   void* h, void* out, int B, int D, int H, int act_gelu, uint4* xs,
+                   float* sc, const int* plans, cudaStream_t st) {
+  const int ns = 8 * plans[1];
+  cudaError_t e = launch_split(x, xs, sc, ns, B, D, st);
+  if (e != cudaSuccess) return e;
+  MArgs m = margs(xs, sc, B, D);
+  m.seg[0] = seg(w1, w3, h, nullptr, H, H);
+  e = act_gelu ? launch_mmv<2>(fmt, m, plans, st) : launch_mmv<1>(fmt, m, plans, st);
+  if (e != cudaSuccess) return e;
+  if ((e = launch_split(h, xs, sc, ns, B, H, st)) != cudaSuccess) return e;
+  m = margs(xs, sc, B, H);
+  m.seg[0] = seg(w2, nullptr, out, nullptr, D, D);
+  return launch_mmv<0>(fmt, m, plans + 4, st);
+}
+
 }  // namespace
 
 extern "C" {
@@ -846,9 +980,9 @@ int calm_qmm_decode(const void* x, const void* w, void* y, int B, int d, int n,
 // layer planes (wq/wk/wv and anx already at
 // min(layer + 1, L - 1)). r1 (B, D), xn (B, D) and h (B, H) are
 // caller-allocated scratch; qkv is (B, Qd + 2 KVd) with q, k and v side by
-// side. fp16/fp8 at B >= 2 take the multi-row path with the staging
-// scratch xs/sc and qmv_plan's four plans (xn unused); else xs, sc and
-// plans are unused.
+// side. B >= 2 takes the multi-row path with the staging scratch xs/sc and
+// qmv_plan's four plans (xn unused); B = 1 the loop of one row (xs, sc and
+// plans unused).
 int calm_qx_offn_qkv(const void* a, const void* r, const void* g,
                      const void* anx, const void* wo, const void* w1,
                      const void* w3, const void* w2, const void* wq,
@@ -857,7 +991,7 @@ int calm_qx_offn_qkv(const void* a, const void* r, const void* g,
                      int KVd, int fmt, int act_gelu, float eps, int sub_mean,
                      void* xs, void* sc, const void* plans, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (B >= 2 && fmt != 2)
+  if (B >= 2)
     return (int)qx_offn_qkv_mr(fmt, a, r, g, anx, wo, w1, w3, w2, wq, wk, wv, r1, h, x,
                                qkv, B, D, H, Qd, KVd, act_gelu, eps, sub_mean,
                                static_cast<uint4*>(xs), static_cast<float*>(sc),
@@ -881,12 +1015,19 @@ int calm_qx_offn_qkv(const void* a, const void* r, const void* g,
 }
 
 // K6: out (B, D) = w2 . (act(w1 . x) * (w3 . x)) on natural gf4 words at
-// the layer's planes: w1/w3 (H, D/8), w2 (D, H/8); h (B, H) scratch.
+// the layer's planes: w1/w3 (H, D/8), w2 (D, H/8); h (B, H) scratch. B >= 2
+// takes the multi-row path (ffn_mr) with the staging scratch xs/sc and
+// qmv_plan's plans of w1/w3 and w2; B = 1 the loop of one row (xs, sc and
+// plans unused).
 int calm_gf4_ffn(const void* x, const void* w1, const void* w3, const void* w2,
-                 void* h, void* out, int B, int D, int H, int act_gelu,
-                 void* stream) {
-  return (int)ffn(2, x, w1, w3, w2, h, out, nullptr, B, D, H, act_gelu,
-                  (cudaStream_t)stream);
+                 void* h, void* out, int B, int D, int H, int act_gelu, void* xs,
+                 void* sc, const void* plans, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (B >= 2)
+    return (int)ffn_mr(2, x, w1, w3, w2, h, out, B, D, H, act_gelu,
+                       static_cast<uint4*>(xs), static_cast<float*>(sc),
+                       static_cast<const int*>(plans), st);
+  return (int)ffn(2, x, w1, w3, w2, h, out, nullptr, B, D, H, act_gelu, st);
 }
 
 // K7: r1 (B, D) = r + a . wo^T and ffn (B, D) = the FFN of ffn-norm(r1),

@@ -38,7 +38,7 @@ SIGNATURES = {
     "qmm": {
         "calm_qmm_decode": [P, P, P, I, I, I, I, P, P, P, P],
         "calm_qx_offn_qkv": [P] * 16 + [I] * 7 + [F, I, P, P, P, P],
-        "calm_gf4_ffn": [P] * 6 + [I] * 4 + [P],
+        "calm_gf4_ffn": [P] * 6 + [I] * 4 + [P] * 4,
         "calm_gf4_offn": [P] * 11 + [I] * 5 + [F, I, P],
     },
     "attn": {

@@ -20,11 +20,14 @@
   the next layer's attn-norm + q/k/v (``csrc/qmm.cu``).
 - :func:`gf4_offn_qkv` replaces ``_gf4_offn_qkv_kernel`` (``:737``): the
   same epilogue on natural gf4 words (``csrc/qmm.cu``, fmt 2), where the
-  TPU kernel reads plane-permuted layouts.
+  TPU kernel reads plane-permuted layouts; from 2 rows on the multi-row
+  path, the words decoded exactly to f16 (:func:`gf4_f16_operand` writes
+  the decode out).
 - :func:`gf4_ffn` replaces ``_gf4_ffn_kernel`` (``:464``): the gf4 FFN
   alone, w2 . (act(w1 . x) * (w3 . x)), which parallel-norm (Cohere)
-  decode runs on the attn-normed input (``csrc/qmm.cu``), where the TPU
-  kernel reads plane-major w1/w3 and word-transposed w2.
+  decode runs on the attn-normed input (``csrc/qmm.cu``; from 2 rows on
+  the multi-row path), where the TPU kernel reads plane-major w1/w3 and
+  word-transposed w2.
 - :func:`gf4_offn` replaces ``_gf4_offn_kernel`` (``:601``): wo +
   residual, ffn-norm and the FFN, returning the FFN and r1 apart (the
   ``CALM_ROT=0`` decode; ``csrc/qmm.cu``), in natural order where the TPU
@@ -38,8 +41,9 @@
 
 Each wrapper takes its plain PyTorch version (``*_plain``, f32) for tensors
 on the CPU, and launches the kernel for CUDA tensors or raises; it counts
-its launches in ``.launches`` (:func:`qmm_decode` and :func:`qx_offn_qkv`
-those of the multi-row path also in ``.multirow_launches``).
+its launches in ``.launches`` (:func:`qmm_decode`, :func:`qx_offn_qkv`,
+:func:`gf4_offn_qkv` and :func:`gf4_ffn` those of the multi-row path also
+in ``.multirow_launches``).
 """
 
 from __future__ import annotations
@@ -148,9 +152,10 @@ class QmvPlan(NamedTuple):
 
 
 @functools.lru_cache(maxsize=256)
-def _qmv_plan(B: int, seg_rows: tuple, n: int, dual: bool) -> QmvPlan:
+def _qmv_plan(B: int, seg_rows: tuple, n: int, dual: bool, gf4: bool) -> QmvPlan:
     nt = 1 if B <= 8 else 2
-    mt = 2 if sum(seg_rows) >= MV_MT2_ROWS and not dual else 1
+    # gf4 rows that end half-way through a lane's 16 values: one m-tile a warp
+    mt = 2 if sum(seg_rows) >= MV_MT2_ROWS and not dual and n % 16 == 0 else 1
     groups = tuple(-(-r // (16 * mt)) for r in seg_rows)
     chunks = -(-n // MV_CHUNK)
     G = sum(groups)
@@ -162,31 +167,35 @@ def _qmv_plan(B: int, seg_rows: tuple, n: int, dual: bool) -> QmvPlan:
     return QmvPlan(mt, nt, ks, grid, groups, chunks)
 
 
-def qmv_plan(B: int, seg_rows, n: int, dual: bool = False) -> QmvPlan:
+def qmv_plan(B: int, seg_rows, n: int, dual: bool = False, gf4: bool = False) -> QmvPlan:
     """The multi-row kernel's tiling of B rows of x (1..16; the kernels
     take it from 2, one row keeps the loop of one row) against segments of
     ``seg_rows`` output rows each (1-3: q/k/v side by side) and k = n (a
-    multiple of 16), ``dual`` for the w1/w3 launch (two weights): 32 rows
-    a warp for one weight's launches of MV_MT2_ROWS rows or more, else 16
-    (more row groups for the narrow wo and w2; the dual launch's lanes
-    already stream two weights, and 32 rows of both timed slower on the
-    card); k split in two until about MV_TARGET_WARPS warps fill the card,
-    while each keeps MV_MIN_CHUNKS chunks or more, up to MV_WARPS."""
+    multiple of 16; of 8 for ``gf4`` words, whose rows may end half-way
+    through a lane's 16 values), ``dual`` for the w1/w3 launch (two
+    weights): 32 rows a warp for one weight's launches of MV_MT2_ROWS rows
+    or more, else 16 (more row groups for the narrow wo and w2; the dual
+    launch's lanes already stream two weights, and 32 rows of both timed
+    slower on the card; rows that end half-way keep 16); k split in two
+    until about MV_TARGET_WARPS warps fill the card, while each keeps
+    MV_MIN_CHUNKS chunks or more, up to MV_WARPS. gf4 words take the same
+    tiling: a re-sweep of these constants on them timed no better."""
     seg_rows = tuple(int(r) for r in seg_rows)
     _check(1 <= B <= MAX_ROWS, f"the multi-row path takes 1..{MAX_ROWS} rows, not {B}")
     _check(1 <= len(seg_rows) <= 3 and all(r >= 1 for r in seg_rows),
            f"1-3 segments of >= 1 row, not {seg_rows}")
-    _check(n >= 16 and n % 16 == 0, f"k must be a positive multiple of 16, not {n}")
-    return _qmv_plan(int(B), seg_rows, int(n), bool(dual))
+    step = 8 if gf4 else 16
+    _check(n >= step and n % step == 0, f"k must be a positive multiple of {step}, not {n}")
+    return _qmv_plan(int(B), seg_rows, int(n), bool(dual), bool(gf4))
 
 
 @functools.lru_cache(maxsize=256)
-def _launch_plans(B: int, launches: tuple) -> tuple[np.ndarray, int, int]:
+def _launch_plans(B: int, launches: tuple, gf4: bool = False) -> tuple[np.ndarray, int, int]:
     """For the launches ``((seg_rows, n, dual), ...)`` of one call at B
-    rows: their plans' kernel arguments in one int32 array, and the words
-    and floats of the staging scratch they share (sized for the largest
-    n)."""
-    ps = [qmv_plan(B, rows, n, dual) for rows, n, dual in launches]
+    rows (k = n in values, on ``gf4`` words or not): their plans' kernel
+    arguments in one int32 array, and the words and floats of the staging
+    scratch they share (sized for the largest n)."""
+    ps = [qmv_plan(B, rows, n, dual, gf4) for rows, n, dual in launches]
     words, floats = ps[0].staging(max(n for _, n, _ in launches))
     return np.array([v for p in ps for v in p.args()], dtype=np.int32), words, floats
 
@@ -209,6 +218,27 @@ def split_operand(x: torch.Tensor, chunk: int = MV_CHUNK):
     hi = v.half()
     lo = (v - hi.float()).half()
     return (hi.reshape(B, -1)[:, :n], lo.reshape(B, -1)[:, :n], e)
+
+
+def gf4_f16_operand(words: torch.Tensor) -> torch.Tensor:
+    """The multi-row kernel's decode of gf4 words (..., g) int32 to its f16
+    A operand (..., 8 g), written out in PyTorch: the scale byte placed in
+    the high byte of an f16 (the same e5m2 value); codes 4h and 4h + 1 of
+    each half-word h under the mantissa of 1024 at bit 0 (less 1028: c - 4,
+    times e / -4), codes 4h + 2 and 4h + 3 at bit 6 (less 1280: 64 (c - 4),
+    times e / -256), every step in f16 and exact. Used by the tests, not on
+    the main path."""
+    w = words.to(torch.int32)
+    eb = (w & 0xFF) << 8
+    e = torch.where(eb >= 0x8000, eb - 0x10000, eb).to(torch.int16).view(torch.float16)
+    out = []
+    for k in range(8):
+        c = (w >> (8 + 3 * k)) & 7
+        shift, base, mul = (0, 1028.0, -0.25) if k % 4 < 2 else (6, 1280.0, -1 / 256)
+        v = (0x6400 | (c << shift)).to(torch.int16).view(torch.float16)
+        out.append((v - torch.tensor(base, dtype=torch.float16))
+                   * (e * torch.tensor(mul, dtype=torch.float16)))
+    return torch.stack(out, -1).reshape(*w.shape[:-1], w.shape[-1] * 8)
 
 
 def _staging(words: int, floats: int, dev) -> tuple[torch.Tensor, int, int]:
@@ -436,7 +466,7 @@ def _offn_qkv(a, r, g, anx, wo, w1, w3, w2, wq, wk, wv, layer, fmt: str,
            "norm weights must be (L, D)")
     _check(D <= MAX_NORM_DIM, f"the norm launch takes rows of <= {MAX_NORM_DIM}")
     dev = a.device
-    multirow = B >= 2 and fmt in _FMT_CODE
+    multirow = B >= 2
     r1 = torch.empty((B, D), dtype=torch.float32, device=dev)
     xn = None if multirow else torch.empty((B, D), dtype=torch.float32, device=dev)
     h = torch.empty((B, H), dtype=torch.float32, device=dev)
@@ -445,7 +475,8 @@ def _offn_qkv(a, r, g, anx, wo, w1, w3, w2, wq, wk, wv, layer, fmt: str,
     xs = sc = plans = None
     if multirow:  # wo, w1/w3, w2, q/k/v
         arr, words, floats = _launch_plans(B, (((D,), Qd, False), ((H,), D, True),
-                                               ((D,), H, False), ((Qd, KVd, KVd), D, False)))
+                                               ((D,), H, False), ((Qd, KVd, KVd), D, False)),
+                                           fmt == "gf4")
         buf, xs, sc = _staging(words, floats, dev)  # buf: held past the launch
         plans = arr.ctypes.data
     rc = build.lib("qmm").calm_qx_offn_qkv(
@@ -499,10 +530,12 @@ def gf4_offn_qkv(a, r, g, anx, wo, w1, w3, w2, wq, wk, wv, layer,
     out = _offn_qkv(a, r, g, anx, wo, w1, w3, w2, wq, wk, wv, layer, "gf4",
                     act_gelu, eps, sub_mean)
     gf4_offn_qkv.launches += 1
+    gf4_offn_qkv.multirow_launches += a.shape[0] >= 2
     return out
 
 
 gf4_offn_qkv.launches = 0
+gf4_offn_qkv.multirow_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -533,7 +566,8 @@ def gf4_ffn(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor, w2: torch.Tenso
     """x (B <= 16, D) f32; w1/w3 (L, H, D/8), w2 (L, D, H/8) natural gf4
     words (or one layer's planes) -> (B, D) f32 = w2 . (act(w1 . x) * (w3
     . x)). Two launches of ``csrc/qmm.cu``, h between them in a buffer
-    allocated here."""
+    allocated here; from 2 rows four, on the multi-row path (x and h
+    staged before the w1/w3 and w2 products)."""
     if x.device.type == "cpu":
         return gf4_ffn_plain(x, w1, w3, w2, layer, act_gelu)
     w1l, w3l, w2l = (_plane(w, layer) for w in (w1, w3, w2))
@@ -543,15 +577,22 @@ def gf4_ffn(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor, w2: torch.Tenso
     _check(1 <= B <= MAX_ROWS, f"the decode kernel takes 1..{MAX_ROWS} rows")
     h = torch.empty((B, H), dtype=torch.float32, device=x.device)
     y = torch.empty((B, D), dtype=torch.float32, device=x.device)
+    xs = sc = plans = None
+    if B >= 2:  # w1/w3, w2
+        arr, words, floats = _launch_plans(B, (((H,), D, True), ((D,), H, False)), True)
+        buf, xs, sc = _staging(words, floats, x.device)  # buf: held past the launch
+        plans = arr.ctypes.data
     rc = build.lib("qmm").calm_gf4_ffn(
         x.data_ptr(), w1l.data_ptr(), w3l.data_ptr(), w2l.data_ptr(), h.data_ptr(),
-        y.data_ptr(), B, D, H, int(act_gelu), _stream(x))
+        y.data_ptr(), B, D, H, int(act_gelu), xs, sc, plans, _stream(x))
     build.check("qmm", rc)
     gf4_ffn.launches += 1
+    gf4_ffn.multirow_launches += B >= 2
     return y
 
 
 gf4_ffn.launches = 0
+gf4_ffn.multirow_launches = 0
 
 
 def gf4_ffn_supported(x_shape, w1: torch.Tensor, w2: torch.Tensor) -> bool:

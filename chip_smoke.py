@@ -11,7 +11,9 @@ than a tile and a slot offset; K4/K5 at 32 rows; K13 at the corners of
 its TMA + wgmma tiles at every head dim and cache dtype; K2 and K9 on
 their multi-row tensor-core path at B = 2..16, fp8 and fp16, SiLU and
 GELU, with and without the mean subtracted, a ragged 32001 x 4112, and
-slots 2^20 apart in scale, each held to its own) and times it
+slots 2^20 apart in scale, each held to its own; K8 and K6 on the same
+path on gf4 words, slots 2^20 apart and subnormal scale bytes included,
+K6 also at a model width of 1032, an odd word count a row) and times it
 beside its bound and its library call (kernel/library on each timed row),
 after the redesigned kernels' ptxas report; runs both bandwidth tools
 (``calm_tpu_torch.tools.dma_ceiling``, ``gf4_bound``), whose 3 GB rows
@@ -35,8 +37,10 @@ plain path; runs a 2048-token prefill and the ``bench.py`` decode protocol
 on Mistral-7B, Aya 23 8B and Mixtral 8x7B, fp8 and gf4; serves the
 containers through ``Server`` (dense, paged, prefix cache) against the
 CPU's server and through ``python -m calm_tpu_torch.httpd``; serves 16
-requests on a 32-layer Mistral-7B with 8 slots, dense and paged; and ends
-with a ``kernels`` JSON line and ``{"ok": true, "device": ...}``. Any
+requests on a 32-layer Mistral-7B with 8 slots, dense and paged (fp8),
+and on 32-layer Mistral-7B and Aya 23 8B gf4, dense (the gf4 serving
+ticks: K8 and K6 at 8 rows); and ends with a ``kernels`` JSON line and
+``{"ok": true, "device": ...}``. Any
 failure exits non-zero before the last line; without a GPU it exits 1 at
 once.
 """
@@ -471,6 +475,68 @@ def multirow_kernel_rows(gbps, dev):
         if B == 8:
             rows["qmm_decode_multirow"] = dict(t, bound_ms=b, bound_by=by, max_abs_err=e)
     del w, wb
+    rows.update(multirow_kernel_rows_gf4(gbps, dev))
+    torch.cuda.empty_cache()
+    return rows
+
+
+def multirow_kernel_rows_gf4(gbps, dev):
+    """K8 (one Mistral-7B layer) and K6 (one Aya 23 8B / Mistral-7B FFN,
+    D 4096, H 14336) on gf4 words on the multi-row path at B = 4, 8 and 16,
+    each beside its bound, plain version and library call (bf16 matmuls on
+    planes dequantized beforehand); the B = 8 rows go to the kernels line,
+    with K8's split by kernel."""
+    import torch.nn.functional as F
+
+    from calm_tpu_torch.ops import hopper_qmm as hq
+    from calm_tpu_torch.ops.qmm import QTensor, dequant
+
+    rows = {}
+    H = HID
+    ws = [rand_w((2, d, n // 8), "gf4", dev)
+          for d, n in ((D, Q), (H, D), (H, D), (D, H), (Q, D), (KV, D), (KV, D))]
+    g = 1 + 0.1 * torch.randn(2, D, device=dev)
+    anx = 1 + 0.1 * torch.randn(2, D, device=dev)
+    wb = [dequant(QTensor(w, "gf4"), torch.bfloat16) for w in ws]
+    n_w = D * Q + 3 * H * D + (Q + 2 * KV) * D
+    for B in MULTIROW_TIMED:
+        a, r = torch.randn(B, Q, device=dev), torch.randn(B, D, device=dev)
+        args = (a, r, g, anx, *ws, 1, False, 1e-5, False)
+        e = check(f"gf4_offn_qkv B={B}", hq.gf4_offn_qkv(*args), hq.gf4_offn_qkv_plain(*args),
+                  TOL_MV)
+        b, by = bound_ms(n_w // 2 + 4 * B * (3 * D + 2 * Q + 2 * KV), 2 * B * n_w, gbps,
+                         PEAK_BF16)
+        t = timings(lambda i: hq.gf4_offn_qkv(a, r, g, anx, *ws, i % 2, False, 1e-5, False),
+                    lambda i: hq.gf4_offn_qkv_plain(a, r, g, anx, *ws, i % 2, False, 1e-5,
+                                                    False),
+                    epilogue_chain(a, r, g, anx, wb, 2), bound=b)
+        log(f"# K8 gf4_offn_qkv one layer B={B}: max_abs_err {e:.3e} (tol {TOL_MV:g} x "
+            f"max|out|); {ms_line(t)} (7 bf16 matmuls) bound_ms {b:.4f} ({by}, "
+            f"{n_w / 2e6:.1f} MB); {share(t, b)}")
+        if B == 8:
+            rows["gf4_offn_qkv_multirow"] = dict(t, bound_ms=b, bound_by=by, max_abs_err=e)
+            prof = kernel_rows(lambda: [hq.gf4_offn_qkv(a, r, g, anx, *ws, i % 2, False, 1e-5,
+                                                        False) for i in range(10)])
+            log("# K8 gf4 one layer B=8 by kernel (device ms a call, launches a call): "
+                + "; ".join(f"{name} {us / 1e4:.4f} x{cnt / 10:g}" for us, cnt, name in prof))
+    n_f = 3 * H * D
+    for B in MULTIROW_TIMED:
+        x = torch.randn(B, D, device=dev)
+        xb = x.bfloat16()
+        e = check(f"gf4_ffn B={B}", hq.gf4_ffn(x, *ws[1:4], 1, False),
+                  hq.gf4_ffn_plain(x, *ws[1:4], 1, False), TOL_MV)
+        b, by = bound_ms(n_f // 2 + 4 * 2 * B * D, 2 * B * n_f, gbps, PEAK_BF16)
+        t = timings(lambda i: hq.gf4_ffn(x, *ws[1:4], i % 2, False),
+                    lambda i: hq.gf4_ffn_plain(x, *ws[1:4], i % 2, False),
+                    lambda i: torch.matmul(F.silu(torch.matmul(xb, wb[1][i % 2].T))
+                                           * torch.matmul(xb, wb[2][i % 2].T),
+                                           wb[3][i % 2].T), bound=b)
+        log(f"# K6 gf4_ffn D={D} H={H} B={B}: max_abs_err {e:.3e} (tol {TOL_MV:g} x max|y|); "
+            f"{ms_line(t)} (3 bf16 matmuls) bound_ms {b:.4f} ({by}, {n_f / 2e6:.1f} MB); "
+            f"{share(t, b)}")
+        if B == 8:
+            rows["gf4_ffn_multirow"] = dict(t, bound_ms=b, bound_by=by, max_abs_err=e)
+    del ws, wb
     torch.cuda.empty_cache()
     return rows
 
@@ -559,6 +625,78 @@ def multirow_checks(dev):
         + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()) + "; lm-head 32000x4096 "
         "against the float64 product, each row to its max (kernel / plain f32): "
         + ", ".join(f"{k} {a:.2e} / {b:.2e}" for k, (a, b) in exact.items()))
+    multirow_checks_gf4(dev, spread, rel_to)
+
+
+def subnormal_gf4(shape, dev):
+    """gf4 words of random codes whose scale bytes are the subnormal e5m2
+    ones, 0x01-0x03 and 0x81-0x83."""
+    i = torch.randint(-2**31, 2**31 - 1, shape, device=dev, dtype=torch.int32)
+    sb = torch.tensor([0x01, 0x02, 0x03, 0x81, 0x82, 0x83], dtype=torch.int32, device=dev)
+    return (i & ~0xFF) | sb[torch.randint(0, 6, shape, device=dev)]
+
+
+def multirow_checks_gf4(dev, spread, rel_to):
+    """The multi-row path on gf4 words against the plain version at TOL_MV:
+    K8 at Mistral-7B widths and K6 (D 4096, H 14336) at B = 2, 3, 4, 8, 9,
+    16, SiLU and GELU (K8 also with the mean subtracted); then slots 2^20
+    apart, and words whose scale bytes are all subnormal, each slot held to
+    its own scale; K6 at B = 8 and 16 against the float64 product of the
+    dequantized weights, kernel and plain version."""
+    import torch.nn.functional as F
+
+    from calm_tpu_torch.ops import hopper_qmm as hq
+    from calm_tpu_torch.ops.qmm import QTensor, dequant
+
+    worst = {"gf4_offn_qkv": 0.0, "gf4_ffn": 0.0}
+    n, exact, L = 0, {}, 2
+    shapes = ((D, Q), (HID, D), (HID, D), (D, HID), (Q, D), (KV, D), (KV, D))
+    g = 1 + 0.1 * torch.randn(L, D, device=dev)
+    anx = 1 + 0.1 * torch.randn(L, D, device=dev)
+    for words in ("random", "subnormal"):
+        ws = [(rand_w((L, d, k // 8), "gf4", dev) if words == "random"
+               else subnormal_gf4((L, d, k // 8), dev)) for d, k in shapes]
+        w1, w3, w2 = ws[1:4]
+        for B in MULTIROW_B:
+            cases = (((False, False), (True, False), (False, True), (True, True))
+                     if words == "random" else ((False, False),))
+            for gelu, sub_mean in cases:
+                a, r = torch.randn(B, Q, device=dev), torch.randn(B, D, device=dev)
+                args = (a, r, g, anx, *ws, 1, gelu, 1e-5, sub_mean)
+                what = f"gf4_offn_qkv B={B} gelu={gelu} sub_mean={sub_mean} {words} scales"
+                e = (check if words == "random" else check_rows)(
+                    what, hq.gf4_offn_qkv(*args), hq.gf4_offn_qkv_plain(*args), TOL_MV)
+                worst["gf4_offn_qkv"], n = max(worst["gf4_offn_qkv"], e), n + 1
+            for gelu in ((False, True) if words == "random" else (False,)):
+                x = torch.randn(B, D, device=dev)
+                got, want = hq.gf4_ffn(x, w1, w3, w2, 1, gelu), hq.gf4_ffn_plain(x, w1, w3, w2,
+                                                                                 1, gelu)
+                e = (check if words == "random" else check_rows)(
+                    f"gf4_ffn B={B} gelu={gelu} {words} scales", got, want, TOL_MV)
+                worst["gf4_ffn"], n = max(worst["gf4_ffn"], e), n + 1
+                if words == "random" and not gelu and B in (8, 16):
+                    wd = [dequant(QTensor(w[1], "gf4"), torch.float32).double() for w in ws[1:4]]
+                    xd = x.double()
+                    ref = (F.silu(xd @ wd[0].T) * (xd @ wd[1].T)) @ wd[2].T
+                    exact[f"B={B}"] = (rel_to(got, ref), rel_to(want, ref))
+                    del wd, ref
+            if words == "random":  # slots 2^20 apart
+                args = (spread(B, Q), spread(B, D), g, anx, *ws, 0, False, 1e-5, False)
+                e = check_rows(f"gf4_offn_qkv B={B} slots 2^20 apart", hq.gf4_offn_qkv(*args),
+                               hq.gf4_offn_qkv_plain(*args), TOL_MV)
+                worst["gf4_offn_qkv"], n = max(worst["gf4_offn_qkv"], e), n + 1
+                x = spread(B, D)
+                e = check_rows(f"gf4_ffn B={B} slots 2^20 apart", hq.gf4_ffn(x, w1, w3, w2, 0, False),
+                               hq.gf4_ffn_plain(x, w1, w3, w2, 0, False), TOL_MV)
+                worst["gf4_ffn"], n = max(worst["gf4_ffn"], e), n + 1
+        del ws, w1, w3, w2
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"# multi-row path, gf4 (B = {', '.join(map(str, MULTIROW_B))}): {n} checks within "
+        f"{TOL_MV:g} of max|out| (slots 2^20 apart and subnormal scales: of each slot's), "
+        "max_abs_err " + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+        + f"; K6 D={D} H={HID} against the float64 product, each row to its max (kernel / "
+        "plain f32): " + ", ".join(f"{k} {a:.2e} / {b:.2e}" for k, (a, b) in exact.items()))
 
 
 def ragged_checks_paged(dev):
@@ -831,9 +969,9 @@ def ragged_checks_moe(dev):
 
 def ffn_kernel_rows(gbps, dev):
     """K6 at one Aya 23 8B / Mistral-7B layer's FFN (dim 4096, hidden
-    14336), B=1 and B=8; K7 at one Mistral-7B layer (wo 4096 x 4096), B=1,
-    RMSNorm as Mistral's. Two-layer stacks cycled: one layer's 88 MB of
-    FFN words is past the 50 MB L2."""
+    14336), B=1 and B=8; K7 at one Mistral-7B layer (wo 4096 x 4096), B=1
+    and B=8 (its loop of 16 rows), RMSNorm as Mistral's. Two-layer stacks
+    cycled: one layer's 88 MB of FFN words is past the 50 MB L2."""
     import torch.nn.functional as F
 
     from calm_tpu_torch.ops import hopper_qmm as hq
@@ -876,21 +1014,34 @@ def ffn_kernel_rows(gbps, dev):
     for layer in range(L):
         args = (a, r, g, wo, w1, w3, w2, layer, False, eps, False)
         errs += check_offn(f"layer {layer}", hq.gf4_offn(*args), hq.gf4_offn_plain(*args))
-    ab = a.bfloat16()
+    def offn_lib(a, r):
+        ab = a.bfloat16()
 
-    def offn_lib(i):
-        l = i % L
-        r1 = r + torch.matmul(ab, wb[3][l].T)
-        return ffn_lib(F.rms_norm(r1, (D,), g[l], eps).bfloat16(), l), r1
+        def lib(i):
+            l = i % L
+            r1 = r + torch.matmul(ab, wb[3][l].T)
+            return ffn_lib(F.rms_norm(r1, (D,), g[l], eps).bfloat16(), l), r1
+        return lib
     n_w = n_ffn + D * Q
     b, by = bound_ms(n_w // 2 + 4 * (Q + 4 * D), 2 * n_w, gbps)
     t = timings(lambda i: hq.gf4_offn(a, r, g, wo, w1, w3, w2, i % L, False, eps, False),
                 lambda i: hq.gf4_offn_plain(a, r, g, wo, w1, w3, w2, i % L, False, eps,
-                                            False), offn_lib, bound=b)
+                                            False), offn_lib(a, r), bound=b)
     log(f"# K7 gf4_offn D={D} H={HID} Qd={Q} B=1: max_abs_err {max(errs):.3e} (tol "
         f"{TOL_MV:g} x max|out|, ffn and r1 each); {ms_line(t)} (4 bf16 matmuls + "
         f"rms_norm) bound_ms {b:.4f} ({by}, {n_w / 2e6:.1f} MB); {share(t, b)}")
     rows["gf4_offn"] = dict(t, bound_ms=b, bound_by=by, max_abs_err=max(errs))
+    # B = 8 on its loop of 16 rows (K7 is not on the multi-row path)
+    a, r = torch.randn(8, Q, device=dev), torch.randn(8, D, device=dev)
+    args = (a, r, g, wo, w1, w3, w2, 1, False, eps, False)
+    e = max(check_offn("B=8", hq.gf4_offn(*args), hq.gf4_offn_plain(*args)))
+    b, by = bound_ms(n_w // 2 + 4 * 8 * (Q + 4 * D), 2 * 8 * n_w, gbps, PEAK_BF16)
+    t = timings(lambda i: hq.gf4_offn(a, r, g, wo, w1, w3, w2, i % L, False, eps, False),
+                lambda i: hq.gf4_offn_plain(a, r, g, wo, w1, w3, w2, i % L, False, eps,
+                                            False), offn_lib(a, r), bound=b)
+    log(f"# K7 gf4_offn D={D} H={HID} Qd={Q} B=8 (the loop of 16 rows): max_abs_err {e:.3e} "
+        f"(tol {TOL_MV:g} x max|out|, ffn and r1 each); {ms_line(t)} (4 bf16 matmuls + "
+        f"rms_norm) bound_ms {b:.4f} ({by}); {share(t, b)}")
     del w1, w3, w2, wo, wb
     torch.cuda.empty_cache()
     return rows
@@ -1352,6 +1503,8 @@ def counters():
     out["decode_attention_paged"] = (ha.decode_attention, "paged_launches")
     out["qmm_decode_multirow"] = (hq.qmm_decode, "multirow_launches")
     out["qx_offn_qkv_multirow"] = (hq.qx_offn_qkv, "multirow_launches")
+    out["gf4_offn_qkv_multirow"] = (hq.gf4_offn_qkv, "multirow_launches")
+    out["gf4_ffn_multirow"] = (hq.gf4_ffn, "multirow_launches")
     out["decode_attention_partials"] = (ha.decode_attention, "partials_launches")
     return out
 
@@ -1959,13 +2112,14 @@ def full_width_phase(fmt, dev, gbps, smi, experts: int = 0, cohere: bool = False
     return rot0
 
 
-def full_width_serving_phase(dev, gbps, smi):
-    """32-layer Mistral-7B fp8 with seeded random weights built in memory,
-    bf16 KV, ctx 4096, 8 slots: 16 requests of seeded random bytes (one
-    token a byte) of 128-1024 tokens, 64 greedy tokens each, submitted at
-    once and drained, dense and then paged (512-row pages, a pool of half
-    the dense rows); 3 drains each. Returns the launch counts of a paged
-    drain."""
+def full_width_serving_phase(dev, gbps, smi, fmt: str = "fp8", cohere: bool = False):
+    """32-layer Mistral-7B (or with ``cohere`` Aya 23 8B: parallel norm,
+    vocab 256000, tied) in ``fmt`` with seeded random weights built in
+    memory, bf16 KV, ctx 4096, 8 slots: 16 requests of seeded random bytes
+    (one token a byte) of 128-1024 tokens, 64 greedy tokens each, submitted
+    at once and drained, dense and, for fp8, then paged (512-row pages, a
+    pool of half the dense rows); 3 drains each. Returns the launch counts
+    of the last mode's drain (fp8: paged; gf4: dense)."""
     from calm_tpu_torch import model as M
     from calm_tpu_torch.config import ModelConfig
     from calm_tpu_torch.engine import Engine, kv_cache_bytes
@@ -1974,17 +2128,24 @@ def full_width_serving_phase(dev, gbps, smi):
     from calm_tpu_torch.utils.synth import byte_vocab, synth_weights, weight_bytes
 
     ctx, B, n_req, n_gen = 4096, 8, 16, 64
-    cfg = ModelConfig(**MISTRAL, rope_theta=10000.0, seq_len=ctx, rotary_dim=128,
-                      norm_ln=False, dtype="fp8", bos_token_id=1, eos_token_id=2)
+    arch = dict(norm_ln=True, norm_par=True) if cohere else dict(norm_ln=False)
+    cfg = ModelConfig(**{**(AYA if cohere else MISTRAL), **arch}, rope_theta=10000.0,
+                      seq_len=ctx, rotary_dim=128, dtype=fmt, bos_token_id=1,
+                      eos_token_id=2)
+    what = f"{fmt} {'aya23-8b' if cohere else 'mistral7b'}"
     t0 = time.perf_counter()
     w = synth_weights(cfg, seed=0, device=dev, random=True)
     total, bw = weight_bytes(cfg)
+    if cohere:  # tied: the lm-head is the embedding
+        total -= w.output.data.numel() * w.output.data.element_size()
+        w.output = w.embed
+        torch.cuda.empty_cache()
     tokenizer = Tokenizer.from_tensors(*byte_vocab(cfg.vocab_size), 1, 2, cfg.vocab_size)
     rng = np.random.default_rng(0)
     prompts = ["".join(chr(c) for c in rng.integers(97, 123, n))
                for n in rng.integers(128, 1025, n_req)]
-    log(f"# serve fp8 mistral7b: 32 layers, {total / 2**30:.2f} GiB random weights in "
-        f"{time.perf_counter() - t0:.1f} s; bf16 KV, ctx {ctx}, {B} slots, {n_req} "
+    log(f"# serve {what}: 32 layers, vocab {cfg.vocab_size}, {total / 2**30:.2f} GiB random "
+        f"weights in {time.perf_counter() - t0:.1f} s; bf16 KV, ctx {ctx}, {B} slots, {n_req} "
         f"requests of {min(map(len, prompts)) + 1}-{max(map(len, prompts)) + 1} "
         f"tokens, {n_gen} greedy tokens each")
 
@@ -2016,16 +2177,23 @@ def full_width_serving_phase(dev, gbps, smi):
         return reqs, wall, ticks
 
     out, ids, seen = {}, {}, {}
-    paged_counts = None
-    for mode, kw in (("dense", {}), ("paged", dict(page_rows=512, pool_pages=32))):
+    counts = None
+    modes = [("dense", {})]
+    if fmt == "fp8":
+        modes.append(("paged", dict(page_rows=512, pool_pages=32)))
+    for mode, kw in modes:
         srv = Server(batch=B, engine=engine(), **kw)
-        # a first drain, warm, keeps each request's ids and logits
-        reqs, seen[mode] = serve_recorded(srv, [(p, n_gen, 0.0, 1) for p in prompts])
+        # a first drain, warm, keeps each request's ids (and, to hold paged
+        # to dense, their logits)
+        if len(modes) > 1:
+            reqs, seen[mode] = serve_recorded(srv, [(p, n_gen, 0.0, 1) for p in prompts])
+        else:
+            reqs = drain(srv)[0]
         ids[mode] = [r.ids for r in reqs]
         runs = []
         for _ in range(3):
-            if mode == "paged" and paged_counts is None:
-                (reqs, wall, ticks), paged_counts = drive(lambda: drain(srv))
+            if mode == modes[-1][0] and counts is None:
+                (reqs, wall, ticks), counts = drive(lambda: drain(srv))
             else:
                 reqs, wall, ticks = drain(srv)
             runs.append((wall, reqs, ticks))
@@ -2051,7 +2219,7 @@ def full_width_serving_phase(dev, gbps, smi):
                          tick_spread_pct=100 * (max(tick_ms) - min(tick_ms)) / med,
                          ttft_p50_ms=statistics.median(ttft), ttft_max_ms=ttft[-1],
                          gb_s=gbs, busy_pct=None if dev_ms is None else 100 * dev_ms / med)
-        log(f"# serve fp8 mistral7b {mode}: drain {wall:.3f} s (median of 3, "
+        log(f"# serve {what} {mode}: drain {wall:.3f} s (median of 3, "
             f"{min(walls):.3f}-{max(walls):.3f}), {n_tok} tokens, {n_tok / wall:.1f} tok/s "
             f"over {B} slots; decode tick {med:.3f} ms (median of each run's median: "
             f"{', '.join(f'{x:.3f}' for x in tick_ms)}; spread "
@@ -2063,7 +2231,7 @@ def full_width_serving_phase(dev, gbps, smi):
 
     # paged against dense: the same ids, and logits the same kernels give
     split, worst = [], 0.0
-    for i, (a, b) in enumerate(zip(ids["paged"], ids["dense"])):
+    for i, (a, b) in enumerate(zip(ids.get("paged", []), ids["dense"])):
         n = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), len(a))
         for lg, lc in zip(seen["paged"][i][:n], seen["dense"][i][:n]):
             worst = max(worst, float(np.abs(lg - lc).max() / np.abs(lc).max()))
@@ -2071,7 +2239,7 @@ def full_width_serving_phase(dev, gbps, smi):
             split.append(f"{i}: " + same_served(f"serve paged request {i}", a, b, 0.0,
                                                 seen["paged"][i], seen["dense"][i], TOL_STEP))
     if worst > TOL_STEP:
-        fail(f"serve: paged logits differ from dense by {worst:.3e} > {TOL_STEP}")
+        fail(f"serve {what}: paged logits differ from dense by {worst:.3e} > {TOL_STEP}")
     for i in (0, 7):  # and two requests against a single-stream run
         toks = tokenizer.encode(prompts[i], bos=True)
         cache = M.KVCache.create(cfg, 1, torch.bfloat16, dev)
@@ -2082,21 +2250,25 @@ def full_width_serving_phase(dev, gbps, smi):
         got = ids["dense"][i]
         n = next((j for j, (x, y) in enumerate(zip(got, want)) if x != y), None)
         if n is not None:
-            greedy_agrees(f"serve request {i} vs single stream, id {n}", got[n],
+            greedy_agrees(f"serve {what} request {i} vs single stream, id {n}", got[n],
                           lg[n, 0].float().cpu().numpy(), TOL_PREFILL)
-        log(f"# serve request {i} ({len(toks)} tokens) against prefill + decode_loop: "
+        log(f"# serve {what} request {i} ({len(toks)} tokens) against prefill + decode_loop: "
             + ("ids equal" if n is None else f"equal up to {n}, then a near-tie")
             + f" ({len(set(got))} distinct of {len(got)}: {got[:8]}...)")
         del cache
     distinct = len({t for r in ids["dense"] for t in r})
     if distinct < 2:
-        fail("serve: every request generated one id")
-    log(f"# serve fp8 mistral7b paged vs dense: {n_req - len(split)} of {n_req} requests "
-        f"with equal ids ({distinct} distinct ids in all), their logits within {worst:.3e} "
-        f"of scale (tol {TOL_STEP:g}); split: {split or 'none'}; " + json.dumps(out))
+        fail(f"serve {what}: every request generated one id")
+    if "paged" in ids:
+        log(f"# serve {what} paged vs dense: {n_req - len(split)} of {n_req} requests "
+            f"with equal ids ({distinct} distinct ids in all), their logits within "
+            f"{worst:.3e} of scale (tol {TOL_STEP:g}); split: {split or 'none'}; "
+            + json.dumps(out))
+    else:
+        log(f"# serve {what}: {distinct} distinct ids in all; " + json.dumps(out))
     del w
     torch.cuda.empty_cache()
-    return paged_counts
+    return counts
 
 
 def tools_phase(smi):
@@ -2651,7 +2823,7 @@ def ptxas_each(build, lib: str, kernel: str) -> str:
         name = blk.split("'")[0]
         if kernel not in name:
             continue
-        targs = ",".join(re.findall(r"Li(\d+)E", name.split(kernel, 1)[1]))
+        targs = ",".join(re.findall(r"L[ib](\d+)E", name.split(kernel, 1)[1]))
         regs = re.findall(r"Used (\d+) registers", blk)
         spill = sum(int(x) for x in re.findall(r"(\d+) bytes spill stores", blk))
         out.append(f"<{targs}> {regs[0] if regs else '?'}r/{spill}B")
@@ -2708,7 +2880,7 @@ def main():
             f"{attn_lib.calm_prefill_smem(hd, kvt)}" for hd in (64, 96, 128, 256)
             for kvt in (1, 0, 2)) + " B (hd 64/96/128/256 x bf16/fp16/e5m2); "
         f"{ptxas_kernels(build, 'ring', 'allreduce_kernel')}")
-    log(f"# ptxas -v, the multi-row path <fmt, act, m-tiles, n-tiles>: "
+    log(f"# ptxas -v, the multi-row path <fmt, act, m-tiles, n-tiles, odd gf4 rows>: "
         f"{ptxas_each(build, 'qmm', 'mmv_kernel')}")
     dev = torch.device("cuda")
 
@@ -2749,6 +2921,10 @@ def main():
     # the paged serving path: K12 in paged mode
     counts_pg = full_width_serving_phase(dev, gbps, smi)
     log(f"# full-width serving done at {time.perf_counter() - t_start:.1f} s")
+    # the gf4 serving ticks: K8 (Mistral-7B) and K6 (Aya 23 8B) at 8 rows
+    counts_g4 = full_width_serving_phase(dev, gbps, smi, "gf4")
+    counts_g4c = full_width_serving_phase(dev, gbps, smi, "gf4", cohere=True)
+    log(f"# full-width gf4 serving done at {time.perf_counter() - t_start:.1f} s")
 
     sources = {"qmm_decode": ("calm_tpu_torch/csrc/qmm.cu",
                               "calm_tpu/ops/pallas_qmm.py:92", counts8),
@@ -2773,6 +2949,11 @@ def main():
                                   "calm_tpu/ops/pallas_qmm.py:346", counts4),
                "gf4_offn_qkv": ("calm_tpu_torch/csrc/qmm.cu",
                                 "calm_tpu/ops/pallas_qmm.py:737", counts4),
+               # the gf4 multi-row path: the gf4 serving ticks' 8 slots
+               "gf4_offn_qkv_multirow": ("calm_tpu_torch/csrc/qmm.cu",
+                                         "calm_tpu/ops/pallas_qmm.py:737", counts_g4),
+               "gf4_ffn_multirow": ("calm_tpu_torch/csrc/qmm.cu",
+                                    "calm_tpu/ops/pallas_qmm.py:464", counts_g4c),
                "qmm_moe_dense": ("calm_tpu_torch/csrc/moe.cu",
                                  "calm_tpu/ops/pallas_qmm.py:1248", counts8m),
                "gf4_moe_ffn": ("calm_tpu_torch/csrc/moe.cu",
