@@ -7,7 +7,8 @@
 //
 // Replaces three Pallas kernels of calm_tpu/ops/pallas_qmm.py:
 //   - _layered_gf4_kernel (:100, via qmm_decode :219): y (B <= 16, d) =
-//     x . W[layer]^T -> calm_gf4_matvec below (K3);
+//     x . W[layer]^T -> calm_gf4_matvec below (K3) at one row; 2-16 rows
+//     take qmm.cu's multi-row path (calm_qmm_decode with fmt 2);
 //   - _gf4_mm_kernel (:238, via qmm_prefill :335): the same product for
 //     R >= 32 rows, x in bf16 -> calm_gf4_matmul below (K4);
 //   - _gf4_mmt_kernel (:346, via qmm_prefill_t :416): the FFN's w2
@@ -15,11 +16,11 @@
 //     so Mosaic needs no in-kernel transpose. On natural words it is the
 //     K4 product, and calm_gf4_matmul serves it too (K5).
 //
-// K3, what bounds it on an H100: the weight bytes (half a byte per weight,
-// 2 flops each at B=1), and close behind them the decode: four integer and
-// float instructions per weight (shift, or into the mantissa of 2^23, one
-// subtract, one FMA) against 3.35 TB/s of words is ~27 T thread-ops/s, near
-// the card's ~30. Design: a warp owns four output rows and walks their
+// K3 at one row, what bounds it on an H100: the weight bytes (half a byte
+// per weight, 2 flops each), and close behind them the decode: four integer
+// and float instructions per weight (shift, or into the mantissa of 2^23,
+// one subtract, one FMA) against 3.35 TB/s of words is ~27 T thread-ops/s,
+// near the card's ~30. Design: a warp owns four output rows and walks their
 // words together, so each float4 pair of x it loads serves four rows (x
 // traffic twice the weight bytes instead of eight times); each lane keeps
 // 4 words of each row (64 bytes) in flight; the code-to-float step is
@@ -74,32 +75,27 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 // ---------------------------------------------------------------------------
-// K3: matvec, B <= 16 rows of x
+// K3: matvec, one row of x (2-16 rows: calm_qmm_decode in qmm.cu)
 // ---------------------------------------------------------------------------
 
 #define MV_WARPS 4
 #define MV_ROWS 4  // output rows per warp
 #define MV_U 4     // words in flight per lane and row
 
-// NB: compile-time bound on B (accumulator registers)
-template <int NB>
 __global__ void __launch_bounds__(MV_WARPS * 32)
     gf4_mv_kernel(const float* __restrict__ x, const uint32_t* __restrict__ w,
-                  float* __restrict__ y, int B, int d, int n8) {
+                  float* __restrict__ y, int d, int n8) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int row0 = (blockIdx.x * MV_WARPS + warp) * MV_ROWS;
   if (row0 >= d) return;
   const float4* x4 = reinterpret_cast<const float4*>(x);
-  const int n4 = 2 * n8;  // float4s per row of x
   const uint32_t* wr[MV_ROWS];
 #pragma unroll
   for (int r = 0; r < MV_ROWS; r++)  // rows past d re-read row d-1, unused
     wr[r] = w + (size_t)min(row0 + r, d - 1) * n8;
-  float acc[MV_ROWS][NB];
+  float acc[MV_ROWS];
 #pragma unroll
-  for (int r = 0; r < MV_ROWS; r++)
-#pragma unroll
-    for (int b = 0; b < NB; b++) acc[r][b] = 0.f;
+  for (int r = 0; r < MV_ROWS; r++) acc[r] = 0.f;
 
   for (int c0 = lane; c0 < n8; c0 += 32 * MV_U) {
     uint32_t q[MV_U][MV_ROWS];
@@ -113,59 +109,27 @@ __global__ void __launch_bounds__(MV_WARPS * 32)
     for (int u = 0; u < MV_U; u++) {
       const int c = c0 + u * 32;
       if (c >= n8) break;
-      if (NB == 1) {
-        const float4 xa = __ldg(x4 + 2 * c), xb = __ldg(x4 + 2 * c + 1);
+      const float4 xa = __ldg(x4 + 2 * c), xb = __ldg(x4 + 2 * c + 1);
 #pragma unroll
-        for (int r = 0; r < MV_ROWS; r++) {
-          const uint32_t v = q[u][r];
-          float s = gf4_code(v, 0) * xa.x;
-          s = fmaf(gf4_code(v, 1), xa.y, s);
-          s = fmaf(gf4_code(v, 2), xa.z, s);
-          s = fmaf(gf4_code(v, 3), xa.w, s);
-          s = fmaf(gf4_code(v, 4), xb.x, s);
-          s = fmaf(gf4_code(v, 5), xb.y, s);
-          s = fmaf(gf4_code(v, 6), xb.z, s);
-          s = fmaf(gf4_code(v, 7), xb.w, s);
-          acc[r][0] = fmaf(s, gf4_scale(v), acc[r][0]);
-        }
-      } else {
-#pragma unroll
-        for (int r = 0; r < MV_ROWS; r++) {
-          const uint32_t v = q[u][r];
-          float cv[8];
-#pragma unroll
-          for (int k = 0; k < 8; k++) cv[k] = gf4_code(v, k);
-          const float sc = gf4_scale(v);
-#pragma unroll
-          for (int b = 0; b < NB; b++) {
-            if (b < B) {
-              const float4 xa = __ldg(x4 + (size_t)b * n4 + 2 * c);
-              const float4 xb = __ldg(x4 + (size_t)b * n4 + 2 * c + 1);
-              float s = cv[0] * xa.x;
-              s = fmaf(cv[1], xa.y, s);
-              s = fmaf(cv[2], xa.z, s);
-              s = fmaf(cv[3], xa.w, s);
-              s = fmaf(cv[4], xb.x, s);
-              s = fmaf(cv[5], xb.y, s);
-              s = fmaf(cv[6], xb.z, s);
-              s = fmaf(cv[7], xb.w, s);
-              acc[r][b] = fmaf(s, sc, acc[r][b]);
-            }
-          }
-        }
+      for (int r = 0; r < MV_ROWS; r++) {
+        const uint32_t v = q[u][r];
+        float s = gf4_code(v, 0) * xa.x;
+        s = fmaf(gf4_code(v, 1), xa.y, s);
+        s = fmaf(gf4_code(v, 2), xa.z, s);
+        s = fmaf(gf4_code(v, 3), xa.w, s);
+        s = fmaf(gf4_code(v, 4), xb.x, s);
+        s = fmaf(gf4_code(v, 5), xb.y, s);
+        s = fmaf(gf4_code(v, 6), xb.z, s);
+        s = fmaf(gf4_code(v, 7), xb.w, s);
+        acc[r] = fmaf(s, gf4_scale(v), acc[r]);
       }
     }
   }
 
 #pragma unroll
   for (int r = 0; r < MV_ROWS; r++) {
-#pragma unroll
-    for (int b = 0; b < NB; b++) {
-      if (b < B) {
-        const float s = warp_sum(acc[r][b]);
-        if (lane == 0 && row0 + r < d) y[(size_t)b * d + row0 + r] = s;
-      }
-    }
+    const float s = warp_sum(acc[r]);
+    if (lane == 0 && row0 + r < d) y[row0 + r] = s;
   }
 }
 
@@ -315,21 +279,13 @@ __global__ void __launch_bounds__(MM_THREADS, 2)
 
 extern "C" {
 
-// y (B, d) f32 = x (B, n) f32 . W^T, W (d, n/8) gf4 words at the layer's
-// plane; 1 <= B <= 16; x 16-byte aligned.
-int calm_gf4_matvec(const void* x, const void* w, void* y, int B, int d, int n8,
-                    void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
+// y (1, d) f32 = x (1, n) f32 . W^T, W (d, n/8) gf4 words at the layer's
+// plane; x 16-byte aligned.
+int calm_gf4_matvec(const void* x, const void* w, void* y, int d, int n8, void* stream) {
   const int grid = (d + MV_WARPS * MV_ROWS - 1) / (MV_WARPS * MV_ROWS);
-  const float* xf = static_cast<const float*>(x);
-  const uint32_t* wu = static_cast<const uint32_t*>(w);
-  float* yf = static_cast<float*>(y);
-  if (B <= 1)
-    gf4_mv_kernel<1><<<grid, MV_WARPS * 32, 0, st>>>(xf, wu, yf, B, d, n8);
-  else if (B <= 4)
-    gf4_mv_kernel<4><<<grid, MV_WARPS * 32, 0, st>>>(xf, wu, yf, B, d, n8);
-  else
-    gf4_mv_kernel<16><<<grid, MV_WARPS * 32, 0, st>>>(xf, wu, yf, B, d, n8);
+  gf4_mv_kernel<<<grid, MV_WARPS * 32, 0, (cudaStream_t)stream>>>(
+      static_cast<const float*>(x), static_cast<const uint32_t*>(w), static_cast<float*>(y),
+      d, n8);
   return (int)cudaGetLastError();
 }
 

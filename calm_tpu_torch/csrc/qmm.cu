@@ -1,9 +1,12 @@
 // Dequantizing matvecs over layer-stacked fp8-e5m2 / fp16 weights and
 // natural gf4 words, for decode (B <= 16 activation rows).
 //
-// Replaces five Pallas kernels of calm_tpu/ops/pallas_qmm.py:
+// Replaces six Pallas kernels of calm_tpu/ops/pallas_qmm.py:
 //   - _layered_qmm_kernel (:92, via qmm_decode :219): y = x . W[layer]^T
 //     -> calm_qmm_decode below;
+//   - _layered_gf4_kernel (:100, via qmm_decode :219): the same product on
+//     gf4 words, from 2 rows -> calm_qmm_decode with fmt 2 (one row keeps
+//     calm_gf4_matvec in gf4.cu);
 //   - _qx_offn_qkv_kernel (:942, via qx_offn_qkv :1198): one layer's
 //     epilogue, wo + residual, ffn-norm, w1/w3 + act, w2 + residual, and
 //     the next layer's attn-norm + q/k/v -> calm_qx_offn_qkv below, six
@@ -21,8 +24,9 @@
 //   - _gf4_offn_kernel (:601, via gf4_offn :729): wo + residual, ffn-norm
 //     and the FFN, returning ffn and r1 apart (the CALM_ROT=0 decode) ->
 //     calm_gf4_offn below: the epilogue's first four launches with no
-//     residual in the w2 launch. The TPU kernel runs on a plane-permuted
-//     residual stream, Mosaic's layout; the port keeps natural order.
+//     residual in the w2 launch (six on the multi-row path). The TPU kernel
+//     runs on a plane-permuted residual stream, Mosaic's layout; the port
+//     keeps natural order.
 //
 // K6 and K7 are bound like the epilogue: by their weight bytes (3 H D / 2,
 // plus Q D / 2 for K7's wo), and they are made of its launches.
@@ -41,26 +45,25 @@
 // faster than 64 or 128 bytes, with fewer registers (PERF.md). e5m2
 // decodes exactly to f16 by placing the byte in the high half of a 16-bit
 // word (the reference's trick, pallas_qmm.py:12-13), two values per
-// __byte_perm. Activations (up to 16 rows of 14336 f32 = 917 KB for w2)
-// stay in global memory, read through the read-only path, and are
+// __byte_perm. The activation row (up to 14336 f32 = 57 KB for w2) stays
+// in global memory, read through the read-only path, and is
 // L1/L2-resident across the rows of a block. A gf4 word holds eight
 // weights (a lane step reads one word and two float4 of x) and decodes as
 // in gf4.cu: the 3-bit codes exactly through the mantissa of 2^23, one
-// scale multiply per word. Accumulation is f32 per activation row, sized
-// by B at compile time (1; gf4 also 4 or 16); a warp-shuffle tree closes
-// each row.
+// scale multiply per word. Accumulation is f32; a warp-shuffle tree
+// closes each row.
 // The attn- and ffn-norms run as a one-block-per-row launch that writes
 // the normalised rows to scratch, so the w1/w3 and q/k/v matvecs share the
 // plain inner loop instead of each block recomputing row statistics and
 // normalising x per weight. This loop (qmv_kernel) serves one row (B = 1)
-// in every format, and K7 (calm_gf4_offn) at every B: its instantiations
-// for 4 and 16 rows stay for K7 alone.
+// in every format; 2-16 rows take the multi-row path below.
 //
 // The multi-row path (2 <= B <= 16 rows; mmv_kernel) replaces, for fp16
 // and fp8, the same two TPU kernels, _layered_qmm_kernel (:92) and
 // _qx_offn_qkv_kernel (:942), where the serving tick runs them at B slots,
-// and for gf4 _gf4_offn_qkv_kernel (:737) and _gf4_ffn_kernel (:464) (see
-// the gf4 note below).
+// and for gf4 _gf4_offn_qkv_kernel (:737), _gf4_ffn_kernel (:464),
+// _gf4_offn_kernel (:601) and _layered_gf4_kernel (:100) (see the gf4 note
+// below).
 // What bounds it: still the weight bytes (one read serves every row), but
 // at B > 1 the loop above is held back by two costs that grow with B: B
 // float4 loads of x per weight word (32 B of L1 reads per weight byte at
@@ -95,8 +98,9 @@
 //     bytes, and loading x's fragments with the weights (more registers)
 //     slower (PERF.md).
 //
-// gf4 on the multi-row path (K8 calm_qx_offn_qkv with fmt 2 and K6
-// calm_gf4_ffn, at 2 <= B <= 16; K7 and K3, gf4.cu, keep their loops):
+// gf4 on the multi-row path (K8 calm_qx_offn_qkv with fmt 2, K6
+// calm_gf4_ffn, K7 calm_gf4_offn and K3 calm_qmm_decode with fmt 2, at
+// 2 <= B <= 16):
 //   - What bounds it: still the weight bytes, now 0.5 a weight, so a
 //     launch's loads take half of fp8's time for the same rows, and the
 //     product's fixed costs (x's fragments, the decode, the two mma a step)
@@ -127,14 +131,16 @@
 //     would take a third of the loop's instructions (fp16/fp8 share the
 //     loop).
 //   - Rows of n % 16 == 8 (an odd word count, K6 at model widths such as
-//     1032) take the ODD instantiation: word loads, the second zero past the
-//     row, one m-tile a warp.
+//     1032, K3 at n = 1032 or 8) take the ODD instantiation: word loads, the
+//     second zero past the row, one m-tile a warp.
+//   - K3's lm-head (up to 256000 rows of Aya 23 8B's tied vocabulary) takes
+//     qmv_plan's 32 rows a warp, and its thousands of row groups leave k
+//     whole; the output's row stride is d.
 
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#define MAXB 16
 #define WARPS 8
 
 namespace {
@@ -366,9 +372,9 @@ __device__ __forceinline__ float act_fn(int act, float y) {
 }
 
 // ACT: 0 plain matvec, 1 dual SiLU (h = silu(x.w1) * x.w3), 2 dual tanh-GELU.
-// NB: compile-time bound on B (accumulator registers).
-template <int FMT, int ACT, int NB>
-__global__ void __launch_bounds__(WARPS * 32, NB == 1 ? 4 : 1) qmv_kernel(Args a) {
+// One row of x (B = 1); 2-16 rows take mmv_kernel.
+template <int FMT, int ACT>
+__global__ void __launch_bounds__(WARPS * 32, 4) qmv_kernel(Args a) {
   using F = Fmt<FMT>;
   using Word = typename F::Word;
   constexpr int XV = F::PER / 4;              // float4s of x per word
@@ -391,13 +397,10 @@ __global__ void __launch_bounds__(WARPS * 32, NB == 1 ? 4 : 1) qmv_kernel(Args a
   }
 
   const int nw = a.n / F::PER;  // lane steps (words) per row
-  const int n4 = a.n >> 2;      // float4s per row of x
   const Word* wr = reinterpret_cast<const Word*>(sg.w) + (size_t)row * nw;
   const Word* wr3 = ACT ? reinterpret_cast<const Word*>(sg.w3) + (size_t)row * nw : nullptr;
   const float4* x4 = reinterpret_cast<const float4*>(a.x);
-  float acc[NB], acc3[NB];
-#pragma unroll
-  for (int b = 0; b < NB; b++) acc[b] = acc3[b] = 0.f;
+  float acc = 0.f, acc3 = 0.f;
 
   for (int c0 = lane; c0 < nw; c0 += 32 * U) {
     Word q[U], q3[U];
@@ -414,36 +417,18 @@ __global__ void __launch_bounds__(WARPS * 32, NB == 1 ? 4 : 1) qmv_kernel(Args a
       const int c = c0 + u * 32;
       if (c < nw) {
         const typename F::Dec w = F::dec(q[u]);
-        const typename F::Dec w3 = ACT ? F::dec(q3[u]) : w;
+        float4 xv[XV];
 #pragma unroll
-        for (int b = 0; b < NB; b++) {
-          if (b < a.B) {
-            const float4* xp = x4 + (size_t)b * n4 + (size_t)c * XV;
-            float4 xv[XV];
-#pragma unroll
-            for (int i = 0; i < XV; i++) xv[i] = __ldg(xp + i);
-            acc[b] += F::dot(w, xv);
-            if (ACT) acc3[b] += F::dot(w3, xv);
-          }
-        }
+        for (int i = 0; i < XV; i++) xv[i] = __ldg(x4 + (size_t)c * XV + i);
+        acc += F::dot(w, xv);
+        if (ACT) acc3 += F::dot(F::dec(q3[u]), xv);
       }
     }
   }
 
-#pragma unroll
-  for (int b = 0; b < NB; b++) {
-    if (b < a.B) {
-      float y = warp_sum(acc[b]);
-      if (ACT) {
-        const float h3 = warp_sum(acc3[b]);
-        y = act_fn(ACT, y) * h3;
-      }
-      if (lane == 0) {
-        const size_t o = (size_t)b * sg.ld + row;
-        sg.out[o] = sg.resid ? sg.resid[o] + y : y;
-      }
-    }
-  }
+  float y = warp_sum(acc);
+  if (ACT) y = act_fn(ACT, y) * warp_sum(acc3);
+  if (lane == 0) sg.out[row] = sg.resid ? sg.resid[row] + y : y;
 }
 
 // ---------------------------------------------------------------------------
@@ -764,6 +749,17 @@ cudaError_t launch_mmv_nt(const MArgs& a, int nt, int grid, cudaStream_t st) {
   return cudaGetLastError();
 }
 
+// 32 rows a warp (two m-tiles) only for one weight's launches of whole
+// 16-value steps, as qmv_plan gives them: the dual launch and rows of an
+// odd word count keep one
+template <int FMT, int ACT, bool ODD>
+cudaError_t launch_mmv_mt(const MArgs& a, int mt, int nt, int grid, cudaStream_t st) {
+  if constexpr (ACT == 0 && !ODD) {
+    if (mt == 2) return launch_mmv_nt<FMT, ACT, 2, ODD>(a, nt, grid, st);
+  }
+  return launch_mmv_nt<FMT, ACT, 1, ODD>(a, nt, grid, st);
+}
+
 // plan (from qmv_plan): {mt, nt, ks, grid}
 template <int ACT>
 cudaError_t launch_mmv(int fmt, MArgs a, const int* plan, cudaStream_t st) {
@@ -773,19 +769,14 @@ cudaError_t launch_mmv(int fmt, MArgs a, const int* plan, cudaStream_t st) {
   const bool odd = a.n % 16 != 0;
   if ((mt != 1 && mt != 2) || (nt != 1 && nt != 2) || a.B < 2 || a.B > 8 * nt ||
       ks < 1 || ks > WARPS || WARPS % ks != 0 || grid < 1 || a.n < 1 ||
-      a.n % (fmt == 2 ? 8 : 16) != 0 || (odd && mt != 1))
+      a.n % (fmt == 2 ? 8 : 16) != 0 || (mt == 2 && (odd || ACT != 0)))
     return cudaErrorInvalidValue;
   a.ks = ks;
-  if (fmt == 2) {
-    if (odd) return launch_mmv_nt<2, ACT, 1, true>(a, nt, grid, st);
-    return mt == 1 ? launch_mmv_nt<2, ACT, 1, false>(a, nt, grid, st)
-                   : launch_mmv_nt<2, ACT, 2, false>(a, nt, grid, st);
-  }
-  if (fmt == 1)
-    return mt == 1 ? launch_mmv_nt<1, ACT, 1, false>(a, nt, grid, st)
-                   : launch_mmv_nt<1, ACT, 2, false>(a, nt, grid, st);
-  return mt == 1 ? launch_mmv_nt<0, ACT, 1, false>(a, nt, grid, st)
-                 : launch_mmv_nt<0, ACT, 2, false>(a, nt, grid, st);
+  if (fmt == 2)
+    return odd ? launch_mmv_mt<2, ACT, true>(a, mt, nt, grid, st)
+               : launch_mmv_mt<2, ACT, false>(a, mt, nt, grid, st);
+  return fmt == 1 ? launch_mmv_mt<1, ACT, false>(a, mt, nt, grid, st)
+                  : launch_mmv_mt<0, ACT, false>(a, mt, nt, grid, st);
 }
 
 cudaError_t launch_split(const void* x, uint4* xs, float* sc, int ns, int B, int n,
@@ -807,21 +798,13 @@ MArgs margs(const uint4* xs, const float* sc, int B, int n) {
   return a;
 }
 
+// one row (qmv_kernel); 2-16 rows take launch_mmv
 template <int FMT, int ACT>
 cudaError_t launch(const Args& a, cudaStream_t st) {
+  if (a.B != 1) return cudaErrorInvalidValue;
   int rows = 0;
   for (int s = 0; s < a.nseg; s++) rows += a.seg[s].rows;
-  const int grid = (rows + WARPS - 1) / WARPS;
-  if (a.B <= 1) {
-    qmv_kernel<FMT, ACT, 1><<<grid, WARPS * 32, 0, st>>>(a);
-  } else if constexpr (FMT == 2) {  // K7 past one row; K2, K6, K8 and K9 take mmv_kernel
-    if (a.B <= 4)
-      qmv_kernel<FMT, ACT, 4><<<grid, WARPS * 32, 0, st>>>(a);
-    else
-      qmv_kernel<FMT, ACT, MAXB><<<grid, WARPS * 32, 0, st>>>(a);
-  } else {
-    return cudaErrorInvalidValue;
-  }
+  qmv_kernel<FMT, ACT><<<(rows + WARPS - 1) / WARPS, WARPS * 32, 0, st>>>(a);
   return cudaGetLastError();
 }
 
@@ -891,17 +874,31 @@ cudaError_t offn(int fmt, const void* a, const void* r, const void* g,
   return ffn(fmt, xn, w1, w3, w2, h, out, resid, B, D, H, act_gelu, st);
 }
 
-// The epilogue on the multi-row path: the same six stages, each product
-// by mmv_kernel from x staged just before it: a and h by split_kernel,
-// ffn-norm(r1) and attn-norm(x) by their norm launches (no f32 copy).
-// plans: qmv_plan's {mt, nt, ks, grid} of wo, w1/w3, w2 and q/k/v.
-cudaError_t qx_offn_qkv_mr(int fmt, const void* a, const void* r, const void* g,
-                           const void* anx, const void* wo, const void* w1,
-                           const void* w3, const void* w2, const void* wq,
-                           const void* wk, const void* wv, void* r1, void* h, void* x,
-                           void* qkv, int B, int D, int H, int Qd, int KVd,
-                           int act_gelu, float eps, int sub_mean, uint4* xs, float* sc,
-                           const int* plans, cudaStream_t st) {
+// The multi-row path's FFN from x (B, D) already staged in xs/sc: the
+// dual w1/w3 launch into h, h staged, the w2 launch into out [resid +].
+// plans: qmv_plan's {mt, nt, ks, grid} of w1/w3 and w2.
+cudaError_t ffn_staged(int fmt, const void* w1, const void* w3, const void* w2, void* h,
+                       void* out, const void* resid, int B, int D, int H, int act_gelu,
+                       uint4* xs, float* sc, const int* plans, cudaStream_t st) {
+  MArgs m = margs(xs, sc, B, D);
+  m.seg[0] = seg(w1, w3, h, nullptr, H, H);
+  cudaError_t e =
+      act_gelu ? launch_mmv<2>(fmt, m, plans, st) : launch_mmv<1>(fmt, m, plans, st);
+  if (e != cudaSuccess) return e;
+  if ((e = launch_split(h, xs, sc, 8 * plans[1], B, H, st)) != cudaSuccess) return e;
+  m = margs(xs, sc, B, H);
+  m.seg[0] = seg(w2, nullptr, out, resid, D, D);
+  return launch_mmv<0>(fmt, m, plans + 4, st);
+}
+
+// offn() on the multi-row path, each product by mmv_kernel from x staged
+// just before it: a by split_kernel, ffn-norm(r1) by the norm launch (no
+// f32 copy), then ffn_staged. plans: qmv_plan's of wo, w1/w3 and w2.
+cudaError_t offn_mr(int fmt, const void* a, const void* r, const void* g, const void* wo,
+                    const void* w1, const void* w3, const void* w2, void* r1, void* h,
+                    void* out, const void* resid, int B, int D, int H, int Qd, int act_gelu,
+                    float eps, int sub_mean, uint4* xs, float* sc, const int* plans,
+                    cudaStream_t st) {
   const int ns = 8 * plans[1];
   cudaError_t e = launch_split(a, xs, sc, ns, B, Qd, st);
   if (e != cudaSuccess) return e;
@@ -910,17 +907,26 @@ cudaError_t qx_offn_qkv_mr(int fmt, const void* a, const void* r, const void* g,
   if ((e = launch_mmv<0>(fmt, m, plans, st)) != cudaSuccess) return e;
   if ((e = launch_norm(r1, g, nullptr, B, D, eps, sub_mean, st, xs, sc, ns)) != cudaSuccess)
     return e;
-  m = margs(xs, sc, B, D);
-  m.seg[0] = seg(w1, w3, h, nullptr, H, H);
-  e = act_gelu ? launch_mmv<2>(fmt, m, plans + 4, st) : launch_mmv<1>(fmt, m, plans + 4, st);
+  return ffn_staged(fmt, w1, w3, w2, h, out, resid, B, D, H, act_gelu, xs, sc, plans + 4, st);
+}
+
+// The epilogue on the multi-row path: offn_mr into x = r1 + ffn, then
+// attn-norm(x) staged by its norm launch and the q/k/v launch.
+// plans: qmv_plan's {mt, nt, ks, grid} of wo, w1/w3, w2 and q/k/v.
+cudaError_t qx_offn_qkv_mr(int fmt, const void* a, const void* r, const void* g,
+                           const void* anx, const void* wo, const void* w1,
+                           const void* w3, const void* w2, const void* wq,
+                           const void* wk, const void* wv, void* r1, void* h, void* x,
+                           void* qkv, int B, int D, int H, int Qd, int KVd,
+                           int act_gelu, float eps, int sub_mean, uint4* xs, float* sc,
+                           const int* plans, cudaStream_t st) {
+  cudaError_t e = offn_mr(fmt, a, r, g, wo, w1, w3, w2, r1, h, x, r1, B, D, H, Qd, act_gelu,
+                          eps, sub_mean, xs, sc, plans, st);
   if (e != cudaSuccess) return e;
-  if ((e = launch_split(h, xs, sc, ns, B, H, st)) != cudaSuccess) return e;
-  m = margs(xs, sc, B, H);
-  m.seg[0] = seg(w2, nullptr, x, r1, D, D);  // x = r1 + h . w2^T
-  if ((e = launch_mmv<0>(fmt, m, plans + 8, st)) != cudaSuccess) return e;
-  if ((e = launch_norm(x, anx, nullptr, B, D, eps, sub_mean, st, xs, sc, ns)) != cudaSuccess)
+  if ((e = launch_norm(x, anx, nullptr, B, D, eps, sub_mean, st, xs, sc, 8 * plans[1])) !=
+      cudaSuccess)
     return e;
-  m = margs(xs, sc, B, D);
+  MArgs m = margs(xs, sc, B, D);
   const int ld = Qd + 2 * KVd;
   float* o = static_cast<float*>(qkv);
   m.seg[0] = seg(wq, nullptr, o, nullptr, Qd, ld);
@@ -930,33 +936,15 @@ cudaError_t qx_offn_qkv_mr(int fmt, const void* a, const void* r, const void* g,
   return launch_mmv<0>(fmt, m, plans + 12, st);
 }
 
-// The FFN alone on the multi-row path: x staged by split_kernel, the dual
-// w1/w3 launch into h, h staged, the w2 launch into out (no residual).
-// plans: qmv_plan's {mt, nt, ks, grid} of w1/w3 and w2.
-cudaError_t ffn_mr(int fmt, const void* x, const void* w1, const void* w3, const void* w2,
-                   void* h, void* out, int B, int D, int H, int act_gelu, uint4* xs,
-                   float* sc, const int* plans, cudaStream_t st) {
-  const int ns = 8 * plans[1];
-  cudaError_t e = launch_split(x, xs, sc, ns, B, D, st);
-  if (e != cudaSuccess) return e;
-  MArgs m = margs(xs, sc, B, D);
-  m.seg[0] = seg(w1, w3, h, nullptr, H, H);
-  e = act_gelu ? launch_mmv<2>(fmt, m, plans, st) : launch_mmv<1>(fmt, m, plans, st);
-  if (e != cudaSuccess) return e;
-  if ((e = launch_split(h, xs, sc, ns, B, H, st)) != cudaSuccess) return e;
-  m = margs(xs, sc, B, H);
-  m.seg[0] = seg(w2, nullptr, out, nullptr, D, D);
-  return launch_mmv<0>(fmt, m, plans + 4, st);
-}
-
 }  // namespace
 
 extern "C" {
 
 // y (B, d) = x (B, n) . W^T for W (d, n) in fp16 (fmt 0) or fp8 e5m2
-// (fmt 1); w points at the layer's plane. B >= 2 takes the multi-row path:
-// x staged into xs/sc (caller-allocated, qmv_plan's sizes), then plan's
-// launch; B = 1 the loop of one row (xs, sc and plan unused).
+// (fmt 1), or W (d, n/8) gf4 words (fmt 2) from 2 rows (one gf4 row:
+// calm_gf4_matvec, gf4.cu); w points at the layer's plane. B >= 2 takes the
+// multi-row path: x staged into xs/sc (caller-allocated, qmv_plan's sizes),
+// then plan's launch; B = 1 the loop of one row (xs, sc and plan unused).
 int calm_qmm_decode(const void* x, const void* w, void* y, int B, int d, int n,
                     int fmt, void* xs, void* sc, const void* plan, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
@@ -970,6 +958,7 @@ int calm_qmm_decode(const void* x, const void* w, void* y, int B, int d, int n,
     m.seg[0] = seg(w, nullptr, y, nullptr, d, d);
     return (int)launch_mmv<0>(fmt, m, p, st);
   }
+  if (fmt == 2) return (int)cudaErrorInvalidValue;
   Args a = args(x, B, n);
   a.seg[0] = seg(w, nullptr, y, nullptr, d, d);
   return (int)launch_fmt<0>(fmt, a, st);
@@ -1016,29 +1005,43 @@ int calm_qx_offn_qkv(const void* a, const void* r, const void* g,
 
 // K6: out (B, D) = w2 . (act(w1 . x) * (w3 . x)) on natural gf4 words at
 // the layer's planes: w1/w3 (H, D/8), w2 (D, H/8); h (B, H) scratch. B >= 2
-// takes the multi-row path (ffn_mr) with the staging scratch xs/sc and
-// qmv_plan's plans of w1/w3 and w2; B = 1 the loop of one row (xs, sc and
-// plans unused).
+// takes the multi-row path (x staged by split_kernel, then ffn_staged) with
+// the staging scratch xs/sc and qmv_plan's plans of w1/w3 and w2; B = 1 the
+// loop of one row (xs, sc and plans unused).
 int calm_gf4_ffn(const void* x, const void* w1, const void* w3, const void* w2,
                  void* h, void* out, int B, int D, int H, int act_gelu, void* xs,
                  void* sc, const void* plans, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (B >= 2)
-    return (int)ffn_mr(2, x, w1, w3, w2, h, out, B, D, H, act_gelu,
-                       static_cast<uint4*>(xs), static_cast<float*>(sc),
-                       static_cast<const int*>(plans), st);
+  if (B >= 2) {
+    const int* p = static_cast<const int*>(plans);
+    uint4* xs4 = static_cast<uint4*>(xs);
+    float* scf = static_cast<float*>(sc);
+    cudaError_t e = launch_split(x, xs4, scf, 8 * p[1], B, D, st);
+    if (e != cudaSuccess) return (int)e;
+    return (int)ffn_staged(2, w1, w3, w2, h, out, nullptr, B, D, H, act_gelu, xs4, scf, p,
+                           st);
+  }
   return (int)ffn(2, x, w1, w3, w2, h, out, nullptr, B, D, H, act_gelu, st);
 }
 
 // K7: r1 (B, D) = r + a . wo^T and ffn (B, D) = the FFN of ffn-norm(r1),
 // apart, on natural gf4 words at the layer's planes (wo (D, Qd/8)); g is
-// the layer's ffn-norm row; xn (B, D) and h (B, H) scratch.
+// the layer's ffn-norm row; h (B, H) scratch. B >= 2 takes the multi-row
+// path (offn_mr, with no residual in the w2 launch) with the staging
+// scratch xs/sc and qmv_plan's plans of wo, w1/w3 and w2 (xn unused); B = 1
+// the loop of one row with xn (B, D) scratch (xs, sc and plans unused).
 int calm_gf4_offn(const void* a, const void* r, const void* g, const void* wo,
                   const void* w1, const void* w3, const void* w2, void* r1,
                   void* xn, void* h, void* ffn_out, int B, int D, int H, int Qd,
-                  int act_gelu, float eps, int sub_mean, void* stream) {
-  return (int)offn(2, a, r, g, wo, w1, w3, w2, r1, xn, h, ffn_out, nullptr, B,
-                   D, H, Qd, act_gelu, eps, sub_mean, (cudaStream_t)stream);
+                  int act_gelu, float eps, int sub_mean, void* xs, void* sc,
+                  const void* plans, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (B >= 2)
+    return (int)offn_mr(2, a, r, g, wo, w1, w3, w2, r1, h, ffn_out, nullptr, B, D, H, Qd,
+                        act_gelu, eps, sub_mean, static_cast<uint4*>(xs),
+                        static_cast<float*>(sc), static_cast<const int*>(plans), st);
+  return (int)offn(2, a, r, g, wo, w1, w3, w2, r1, xn, h, ffn_out, nullptr, B, D, H, Qd,
+                   act_gelu, eps, sub_mean, st);
 }
 
 const char* calm_qmm_error_string(int e) {

@@ -39,7 +39,7 @@ SIGNATURES = {
         "calm_qmm_decode": [P, P, P, I, I, I, I, P, P, P, P],
         "calm_qx_offn_qkv": [P] * 16 + [I] * 7 + [F, I, P, P, P, P],
         "calm_gf4_ffn": [P] * 6 + [I] * 4 + [P] * 4,
-        "calm_gf4_offn": [P] * 11 + [I] * 5 + [F, I, P],
+        "calm_gf4_offn": [P] * 11 + [I] * 5 + [F, I, P, P, P, P],
     },
     "attn": {
         "calm_decode_attention": [P] * 15 + [I] * 12 + [P],
@@ -48,7 +48,7 @@ SIGNATURES = {
         "calm_prefill_smem": [I] * 2,
     },
     "gf4": {
-        "calm_gf4_matvec": [P, P, P, I, I, I, P],
+        "calm_gf4_matvec": [P, P, P, I, I, P],
         "calm_gf4_matmul": [P, P, P, I, I, I, P],
         "calm_gf4_mm_smem": [],
     },

@@ -7,7 +7,8 @@
   :func:`qmv_plan`, x staged as scaled f16 hi + lo (:func:`split_operand`
   writes the staging out in PyTorch).
 - :func:`qmm_decode_gf4` replaces ``_layered_gf4_kernel`` (``:100``): the
-  same matvec on natural gf4 words, B <= 16 (``csrc/gf4.cu``).
+  same matvec on natural gf4 words, B <= 16: one row in ``csrc/gf4.cu``,
+  from 2 rows on the multi-row path (``csrc/qmm.cu``).
 - :func:`qmm_prefill` replaces ``_gf4_mm_kernel`` (``:238``): the gf4
   product for R >= 32 rows (``csrc/gf4.cu``), eligibility as
   ``mm_supported`` (``:275-283``); x enters as bf16, rounded once by
@@ -30,8 +31,9 @@
   word-transposed w2.
 - :func:`gf4_offn` replaces ``_gf4_offn_kernel`` (``:601``): wo +
   residual, ffn-norm and the FFN, returning the FFN and r1 apart (the
-  ``CALM_ROT=0`` decode; ``csrc/qmm.cu``), in natural order where the TPU
-  kernel runs on a plane-permuted residual stream.
+  ``CALM_ROT=0`` decode; ``csrc/qmm.cu``; from 2 rows on the multi-row
+  path), in natural order where the TPU kernel runs on a plane-permuted
+  residual stream.
 - :func:`qmm_moe_dense` replaces ``_moe_dense_kernel`` and
   ``_moe_dense_gf4_kernel`` (``:1248``, ``:1256``): the MoE expert sweep,
   one matvec per expert slot with the ids on the device (``csrc/moe.cu``).
@@ -41,9 +43,10 @@
 
 Each wrapper takes its plain PyTorch version (``*_plain``, f32) for tensors
 on the CPU, and launches the kernel for CUDA tensors or raises; it counts
-its launches in ``.launches`` (:func:`qmm_decode`, :func:`qx_offn_qkv`,
-:func:`gf4_offn_qkv` and :func:`gf4_ffn` those of the multi-row path also
-in ``.multirow_launches``).
+its launches in ``.launches`` (:func:`qmm_decode`, :func:`qmm_decode_gf4`,
+:func:`qx_offn_qkv`, :func:`gf4_offn_qkv`, :func:`gf4_ffn` and
+:func:`gf4_offn` those of the multi-row path also in
+``.multirow_launches``).
 """
 
 from __future__ import annotations
@@ -317,21 +320,33 @@ def qmm_decode_gf4_plain(x: torch.Tensor, w: torch.Tensor,
 
 def qmm_decode_gf4(x: torch.Tensor, w: torch.Tensor, layer=None) -> torch.Tensor:
     """x (B <= 16, n) f32 @ W[layer]^T for gf4 words W (L, d, n/8) (or
-    (d, n/8)) -> (B, d) f32."""
+    (d, n/8)) -> (B, d) f32. One row takes ``csrc/gf4.cu``'s matvec; from 2
+    rows x is staged and the multi-row kernel of ``csrc/qmm.cu`` (fmt 2)
+    reads each word once for every row."""
     if x.device.type == "cpu":
         return qmm_decode_gf4_plain(x, w, layer)
     wl = _plane(w, layer)
     B, d, n8 = _check_gf4(x, wl)
     _check(1 <= B <= MAX_ROWS, f"the decode kernel takes 1..{MAX_ROWS} rows")
     y = torch.empty((B, d), dtype=torch.float32, device=x.device)
-    rc = build.lib("gf4").calm_gf4_matvec(x.data_ptr(), wl.data_ptr(),
-                                          y.data_ptr(), B, d, n8, _stream(x))
-    build.check("gf4", rc)
+    if B == 1:
+        rc = build.lib("gf4").calm_gf4_matvec(x.data_ptr(), wl.data_ptr(), y.data_ptr(), d,
+                                              n8, _stream(x))
+        build.check("gf4", rc)
+    else:
+        plans, words, floats = _launch_plans(B, (((d,), 8 * n8, False),), True)
+        buf, xs, sc = _staging(words, floats, x.device)  # buf: held past the launch
+        rc = build.lib("qmm").calm_qmm_decode(
+            x.data_ptr(), wl.data_ptr(), y.data_ptr(), B, d, 8 * n8, _OFFN_CODE["gf4"], xs,
+            sc, plans.ctypes.data, _stream(x))
+        build.check("qmm", rc)
     qmm_decode_gf4.launches += 1
+    qmm_decode_gf4.multirow_launches += B >= 2
     return y
 
 
 qmm_decode_gf4.launches = 0
+qmm_decode_gf4.multirow_launches = 0
 
 
 def mm_supported(rows: int, wdata: torch.Tensor, fmt: str) -> bool:
@@ -615,7 +630,8 @@ def gf4_offn(a: torch.Tensor, r: torch.Tensor, g: torch.Tensor, wo: torch.Tensor
     D) f32 ffn-norm weights; wo (L, D, Qd/8), w1/w3 (L, H, D/8), w2 (L, D,
     H/8) natural gf4 words -> (ffn (B, D), r1 (B, D)) f32 with r1 = r + a
     . wo^T and ffn the FFN of ffn-norm(r1); the caller's new residual is
-    r1 + ffn. Four launches of ``csrc/qmm.cu``."""
+    r1 + ffn. Four launches of ``csrc/qmm.cu``; from 2 rows six, on the
+    multi-row path (a, ffn-norm(r1) and h staged before their products)."""
     if a.device.type == "cpu":
         return gf4_offn_plain(a, r, g, wo, w1, w3, w2, layer, act_gelu, eps, sub_mean)
     wol, w1l, w3l, w2l = (_plane(w, layer) for w in (wo, w1, w3, w2))
@@ -633,19 +649,29 @@ def gf4_offn(a: torch.Tensor, r: torch.Tensor, g: torch.Tensor, wo: torch.Tensor
     l = int(layer)
     _check(0 <= l < g.shape[0], f"layer {l} out of range for norm weights of {g.shape[0]}")
     dev = a.device
-    r1, xn, ffn = (torch.empty((B, D), dtype=torch.float32, device=dev) for _ in range(3))
+    multirow = B >= 2
+    r1, ffn = (torch.empty((B, D), dtype=torch.float32, device=dev) for _ in range(2))
+    xn = None if multirow else torch.empty((B, D), dtype=torch.float32, device=dev)
     h = torch.empty((B, H), dtype=torch.float32, device=dev)
+    xs = sc = plans = None
+    if multirow:  # wo, w1/w3, w2
+        arr, words, floats = _launch_plans(B, (((D,), 8 * q8, False), ((H,), D, True),
+                                               ((D,), H, False)), True)
+        buf, xs, sc = _staging(words, floats, dev)  # buf: held past the launch
+        plans = arr.ctypes.data
     rc = build.lib("qmm").calm_gf4_offn(
         a.data_ptr(), r.data_ptr(), _plane_ptr(g, l), wol.data_ptr(), w1l.data_ptr(),
-        w3l.data_ptr(), w2l.data_ptr(), r1.data_ptr(), xn.data_ptr(), h.data_ptr(),
-        ffn.data_ptr(), B, D, H, 8 * q8, int(act_gelu), float(eps), int(sub_mean),
-        _stream(a))
+        w3l.data_ptr(), w2l.data_ptr(), r1.data_ptr(), None if xn is None else xn.data_ptr(),
+        h.data_ptr(), ffn.data_ptr(), B, D, H, 8 * q8, int(act_gelu), float(eps),
+        int(sub_mean), xs, sc, plans, _stream(a))
     build.check("qmm", rc)
     gf4_offn.launches += 1
+    gf4_offn.multirow_launches += multirow
     return ffn, r1
 
 
 gf4_offn.launches = 0
+gf4_offn.multirow_launches = 0
 
 
 # ---------------------------------------------------------------------------

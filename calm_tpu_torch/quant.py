@@ -23,8 +23,13 @@ GF4_SHIFTS = np.array([8 + 3 * k for k in range(8)], dtype=np.uint32)
 
 
 def _to_fp8_bytes(t: np.ndarray, dtype: torch.dtype) -> np.ndarray:
-    f = torch.from_numpy(np.ascontiguousarray(t, dtype=np.float32))
-    return f.to(dtype).view(torch.uint8).numpy()
+    f = np.ascontiguousarray(t, dtype=np.float32)
+    b = torch.from_numpy(f).to(dtype).view(torch.uint8).numpy()
+    if dtype == torch.float8_e5m2:
+        # ml_dtypes (and so calm_tpu) writes NaN as 0x7e, sign kept; torch's
+        # cast writes 0x7f. Both decode to NaN.
+        b = np.where(np.isnan(f), np.where(np.signbit(f), 0xFE, 0x7E), b).astype(np.uint8)
+    return b
 
 
 def _from_fp8_bytes(t: np.ndarray, dtype: torch.dtype) -> np.ndarray:

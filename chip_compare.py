@@ -1,0 +1,45 @@
+"""Times another tree's gf4 multi-row matvecs with this tree's checks.
+
+    python3 chip_compare.py <directory holding another checkout's calm_tpu_torch>
+
+Puts that directory first on ``sys.path``, builds its kernels, and runs
+``chip_smoke.multirow_kernel_rows_gf4_decode`` (K3 on the Aya 23 8B
+lm-head and a q plane, K7 on one Mistral-7B layer, at B = 4, 8, 16, each
+checked against its plain version and timed beside its bound and library
+call) on that tree's wrappers. Run it before and after ``chip_smoke.py``
+in one call on the card to compare two commits there. Needs a GPU.
+"""
+
+import importlib.util
+import json
+import os
+import sys
+
+
+def main():
+    if len(sys.argv) != 2:
+        sys.exit(__doc__)
+    pkg = os.path.abspath(sys.argv[1])
+    sys.path.insert(0, pkg)
+    import torch
+
+    if not torch.cuda.is_available():
+        sys.exit("chip_compare: no CUDA GPU available")
+    here = os.path.dirname(os.path.abspath(__file__))
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(here, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    import calm_tpu_torch
+    from calm_tpu_torch import device
+    from calm_tpu_torch.ops import build
+
+    if not calm_tpu_torch.__file__.startswith(pkg + os.sep):
+        sys.exit(f"chip_compare: calm_tpu_torch came from {calm_tpu_torch.__file__}, not {pkg}")
+    cs.log(f"# {calm_tpu_torch.__file__} on {device.smi_name_power()}; kernel build "
+           f"{build.build_all():.1f} s")
+    rows = cs.multirow_kernel_rows_gf4_decode(3350.0, torch.device("cuda"))
+    cs.log(json.dumps(rows))
+
+
+if __name__ == "__main__":
+    main()

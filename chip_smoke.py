@@ -13,7 +13,9 @@ their multi-row tensor-core path at B = 2..16, fp8 and fp16, SiLU and
 GELU, with and without the mean subtracted, a ragged 32001 x 4112, and
 slots 2^20 apart in scale, each held to its own; K8 and K6 on the same
 path on gf4 words, slots 2^20 apart and subnormal scale bytes included,
-K6 also at a model width of 1032, an odd word count a row) and times it
+K6 also at a model width of 1032, an odd word count a row; K3 and K7 on
+it too, K3 at the Aya 23 8B and Mistral-7B lm-heads and at d = 1000, n =
+1032 and n = 8, K7 with Qd = 512 != D) and times it
 beside its bound and its library call (kernel/library on each timed row),
 after the redesigned kernels' ptxas report; runs both bandwidth tools
 (``calm_tpu_torch.tools.dma_ceiling``, ``gf4_bound``), whose 3 GB rows
@@ -39,7 +41,9 @@ containers through ``Server`` (dense, paged, prefix cache) against the
 CPU's server and through ``python -m calm_tpu_torch.httpd``; serves 16
 requests on a 32-layer Mistral-7B with 8 slots, dense and paged (fp8),
 and on 32-layer Mistral-7B and Aya 23 8B gf4, dense (the gf4 serving
-ticks: K8 and K6 at 8 rows); and ends with a ``kernels`` JSON line and
+ticks: K8, and K6 and K3, at 8 rows), and on the gf4 Mistral-7B again
+with ROTATED_DECODE off (K3 and K7 at 8 rows); and ends with a
+``kernels`` JSON line and
 ``{"ok": true, "device": ...}``. Any
 failure exits non-zero before the last line; without a GPU it exits 1 at
 once.
@@ -80,26 +84,88 @@ def fail(msg: str):
 
 
 def _short(kernel: str) -> str:
-    """'void (anonymous namespace)::qmv_kernel<1, 0, 1>(Args)' ->
-    'qmv_kernel<1, 0, 1>'."""
+    """'void (anonymous namespace)::qmv_kernel<1, 0>(Args)' ->
+    'qmv_kernel<1, 0>'."""
     k = kernel.replace("(anonymous namespace)::", "").removeprefix("void ")
     return k.split("(")[0][:60]
 
 
-def kernel_rows(run) -> list[tuple[float, int, str]]:
-    """(device us, launches, short name) of every kernel ``run`` launches,
-    by torch.profiler (CUPTI), largest first."""
-    from torch.autograd import DeviceType
+def _profile(run):
+    """torch.profiler (CPU and CUPTI) over ``run()``, the card synchronised
+    on both sides."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
+    return prof
+
+
+def _rows(prof) -> list[tuple[float, int, str]]:
+    from torch.autograd import DeviceType
+
     return sorted(((e.self_device_time_total, e.count, _short(e.key))
                    for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
-                  reverse=True)
+                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+                   and not e.key.startswith("wrapper:")), reverse=True)
+
+
+def kernel_rows(run) -> list[tuple[float, int, str]]:
+    """(device us, launches, short name) of every kernel ``run`` launches,
+    by torch.profiler (CUPTI), largest first."""
+    return _rows(_profile(run))
+
+
+def profile_wrappers(run, names) -> tuple[list, dict]:
+    """``kernel_rows`` of ``run()``, and for each kernel wrapper in
+    ``names`` (attributes of ``hopper_qmm``, none calling another) the
+    device us of the kernels it launched in the run, by kernel. A
+    torch.profiler range around each wrapper, in place for this run only
+    (in ``hopper_qmm`` and in ``model``, which imports some by name), gives
+    each call a span on the device's timeline; one stream runs in order, so
+    the kernels inside a span are that call's."""
+    import bisect
+
+    from torch.autograd import DeviceType
+    from torch.profiler import record_function
+
+    from calm_tpu_torch import model as M
+    from calm_tpu_torch.ops import hopper_qmm as hq
+
+    def ranged(name, f):
+        def g(*a, **k):
+            with record_function(f"wrapper:{name}"):
+                return f(*a, **k)
+        g.__dict__ = f.__dict__  # the launch counters the wrapper bumps by its name
+        return g
+    saved = []
+    for name in names:
+        f = getattr(hq, name)
+        for mod in (hq, M):
+            if getattr(mod, name, None) is f:
+                saved.append((mod, name, f))
+                setattr(mod, name, ranged(name, f))
+    try:
+        prof = _profile(run)
+    finally:
+        for mod, name, f in saved:
+            setattr(mod, name, f)
+    dev_evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    ks = sorted((e.time_range.start, e.time_range.end, _short(e.name)) for e in dev_evs
+                if not e.name.startswith("wrapper:"))
+    starts = [k[0] for k in ks]
+    per = {}
+    for e in dev_evs:
+        if e.name.startswith("wrapper:"):
+            into = per.setdefault(e.name[len("wrapper:"):], {})
+            s0, s1 = e.time_range.start, e.time_range.end
+            for k0, k1, kname in ks[bisect.bisect_left(starts, s0):]:
+                if k0 >= s1:
+                    break
+                if k1 <= s1:
+                    into[kname] = into.get(kname, 0.0) + (k1 - k0)
+    return _rows(prof), per
 
 
 def timed_events(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -454,10 +520,8 @@ def multirow_kernel_rows(gbps, dev):
             f"max|out|); {ms_line(t)} (7 bf16 matmuls) bound_ms {b:.4f} ({by}); {share(t, b)}")
         if B == 8:
             rows["qx_offn_qkv_multirow"] = dict(t, bound_ms=b, bound_by=by, max_abs_err=e)
-            prof = kernel_rows(lambda: [hq.qx_offn_qkv(a, r, g, anx, *ws, i % 2, "fp8", False,
-                                                       1e-5, False) for i in range(10)])
-            log("# K9 fp8 one layer B=8 by kernel (device ms a call, launches a call): "
-                + "; ".join(f"{name} {us / 1e4:.4f} x{cnt / 10:g}" for us, cnt, name in prof))
+            by_kernel(lambda i: hq.qx_offn_qkv(a, r, g, anx, *ws, i % 2, "fp8", False, 1e-5,
+                                               False), "K9 fp8 one layer B=8")
     del ws, wb
     w = rand_w((1, V, D), "fp8", dev)
     wb = dequant(QTensor(w, "fp8"), torch.bfloat16)
@@ -476,6 +540,8 @@ def multirow_kernel_rows(gbps, dev):
             rows["qmm_decode_multirow"] = dict(t, bound_ms=b, bound_by=by, max_abs_err=e)
     del w, wb
     rows.update(multirow_kernel_rows_gf4(gbps, dev))
+    rows.update(multirow_kernel_rows_gf4_decode(gbps, dev))
+    k3_split_sweep(gbps, dev)
     torch.cuda.empty_cache()
     return rows
 
@@ -515,10 +581,8 @@ def multirow_kernel_rows_gf4(gbps, dev):
             f"{n_w / 2e6:.1f} MB); {share(t, b)}")
         if B == 8:
             rows["gf4_offn_qkv_multirow"] = dict(t, bound_ms=b, bound_by=by, max_abs_err=e)
-            prof = kernel_rows(lambda: [hq.gf4_offn_qkv(a, r, g, anx, *ws, i % 2, False, 1e-5,
-                                                        False) for i in range(10)])
-            log("# K8 gf4 one layer B=8 by kernel (device ms a call, launches a call): "
-                + "; ".join(f"{name} {us / 1e4:.4f} x{cnt / 10:g}" for us, cnt, name in prof))
+            by_kernel(lambda i: hq.gf4_offn_qkv(a, r, g, anx, *ws, i % 2, False, 1e-5, False),
+                      "K8 gf4 one layer B=8")
     n_f = 3 * H * D
     for B in MULTIROW_TIMED:
         x = torch.randn(B, D, device=dev)
@@ -539,6 +603,132 @@ def multirow_kernel_rows_gf4(gbps, dev):
     del ws, wb
     torch.cuda.empty_cache()
     return rows
+
+
+def by_kernel(fn, what: str, calls: int = 10):
+    """Logs the device ms a call and launches a call of each kernel that
+    ``fn(i)`` launches, over ``calls`` calls."""
+    prof = kernel_rows(lambda: [fn(i) for i in range(calls)])
+    log(f"# {what} by kernel (device ms a call, launches a call): " + "; ".join(
+        f"{name} {us / 1e3 / calls:.4f} x{cnt / calls:g}" for us, cnt, name in prof))
+
+
+def offn_library(wb, g, eps):
+    """K7's library yardstick on bf16 planes dequantized beforehand (wo,
+    w1, w3, w2; L layers): for (a, r), lib(i) on layer i % L = four bf16
+    matmuls and an rms_norm."""
+    import torch.nn.functional as F
+
+    wo, w1, w3, w2 = wb
+    L, D_ = wo.shape[:2]
+
+    def for_inputs(a, r):
+        ab = a.bfloat16()
+
+        def lib(i):
+            l = i % L
+            r1 = r + torch.matmul(ab, wo[l].T)
+            xb = F.rms_norm(r1, (D_,), g[l], eps).bfloat16()
+            return torch.matmul(F.silu(torch.matmul(xb, w1[l].T)) * torch.matmul(xb, w3[l].T),
+                                w2[l].T), r1
+        return lib
+    return for_inputs
+
+
+def multirow_kernel_rows_gf4_decode(gbps, dev):
+    """K3 on the Aya 23 8B lm-head (256000 x 4096, 524 MB of words) and on
+    one Aya 23 8B q plane (4096 x 4096, 8 planes cycled past the 50 MB
+    L2), and K7 at one Mistral-7B layer (2-layer stacks cycled), on the gf4
+    multi-row path at B = 4, 8 and 16, each beside its bound, plain version
+    and library call (bf16 matmuls on planes dequantized beforehand); the
+    B = 8 rows of the lm-head and of K7 go to the kernels line, and each
+    B = 8 row is split by kernel. Calls the wrappers only, so it also times
+    an older tree's package in the same run."""
+    from calm_tpu_torch.ops import hopper_qmm as hq
+    from calm_tpu_torch.ops.qmm import QTensor, dequant
+
+    rows = {}
+    for name, d, L in (("aya lm-head", 256000, 1), ("aya q", Q, 8)):
+        w = rand_w((L, d, D // 8), "gf4", dev)
+        wb = dequant(QTensor(w, "gf4"), torch.bfloat16)
+        for B in MULTIROW_TIMED:
+            x = torch.randn(B, D, device=dev)
+            xb = x.bfloat16()
+            e = check(f"qmm_decode_gf4 {name} B={B}", hq.qmm_decode_gf4(x, w, L - 1),
+                      hq.qmm_decode_gf4_plain(x, w, L - 1), TOL_MV)
+            b, by = bound_ms(d * D // 2 + 4 * B * (D + d), 2 * B * d * D, gbps, PEAK_BF16)
+            t = timings(lambda i: hq.qmm_decode_gf4(x, w, i % L),
+                        lambda i: hq.qmm_decode_gf4_plain(x, w, i % L),
+                        lambda i: torch.matmul(xb, wb[i % L].T), bound=b)
+            log(f"# K3 qmm_decode_gf4 {name} {d}x{D} B={B}: max_abs_err {e:.3e} (tol "
+                f"{TOL_MV:g} x max|y|); {ms_line(t)} (bf16 matmul, pre-dequantized) bound_ms "
+                f"{b:.4f} ({by}, {d * D / 2e6:.1f} MB); {share(t, b)}")
+            if B == 8:
+                by_kernel(lambda i: hq.qmm_decode_gf4(x, w, i % L), f"K3 {name} B=8")
+                if d == 256000:
+                    rows["qmm_decode_gf4_multirow"] = dict(t, bound_ms=b, bound_by=by,
+                                                           max_abs_err=e)
+        del w, wb
+        torch.cuda.empty_cache()
+
+    L, eps = 2, 1e-5
+    ws = [rand_w((L, d, n // 8), "gf4", dev) for d, n in ((D, Q), (HID, D), (HID, D), (D, HID))]
+    g = 1 + 0.1 * torch.randn(L, D, device=dev)
+    lib = offn_library([dequant(QTensor(w, "gf4"), torch.bfloat16) for w in ws], g, eps)
+    n_w = 3 * HID * D + D * Q
+    for B in MULTIROW_TIMED:
+        a, r = torch.randn(B, Q, device=dev), torch.randn(B, D, device=dev)
+        args = (a, r, g, *ws, 1, False, eps, False)
+        e = max(check_offn(f"B={B}", hq.gf4_offn(*args), hq.gf4_offn_plain(*args)))
+        b, by = bound_ms(n_w // 2 + 4 * B * (Q + 4 * D), 2 * B * n_w, gbps, PEAK_BF16)
+        t = timings(lambda i: hq.gf4_offn(a, r, g, *ws, i % L, False, eps, False),
+                    lambda i: hq.gf4_offn_plain(a, r, g, *ws, i % L, False, eps, False),
+                    lib(a, r), bound=b)
+        log(f"# K7 gf4_offn D={D} H={HID} Qd={Q} B={B}: max_abs_err {e:.3e} (tol {TOL_MV:g} "
+            f"x max|out|, ffn and r1 each); {ms_line(t)} (4 bf16 matmuls + rms_norm) bound_ms "
+            f"{b:.4f} ({by}, {n_w / 2e6:.1f} MB); {share(t, b)}")
+        if B == 8:
+            rows["gf4_offn_multirow"] = dict(t, bound_ms=b, bound_by=by, max_abs_err=e)
+            by_kernel(lambda i: hq.gf4_offn(a, r, g, *ws, i % L, False, eps, False),
+                      "K7 gf4 one layer B=8")
+    del ws, lib
+    torch.cuda.empty_cache()
+    return rows
+
+
+def k3_split_sweep(gbps, dev):
+    """The lm-head's tiling: K3 at 256000 x 4096, B = 8, on qmv_plan's
+    tiling (32 rows a warp, 8000 row groups, k whole: the groups alone pass
+    MV_TARGET_WARPS) against k split over 2 and 4 warps (the warp target
+    raised 4x and 8x) and 16 rows a warp; each checked, then timed."""
+    from calm_tpu_torch.ops import hopper_qmm as hq
+
+    d, B = 256000, 8
+    w = rand_w((1, d, D // 8), "gf4", dev)
+    x = torch.randn(B, D, device=dev)
+    want = hq.qmm_decode_gf4_plain(x, w, 0)
+    b, _ = bound_ms(d * D // 2 + 4 * B * (D + d), 2 * B * d * D, gbps, PEAK_BF16)
+    base = (hq.MV_TARGET_WARPS, hq.MV_MT2_ROWS)
+    out = []
+    try:
+        for target, mt2 in ((1, base[1]), (4, base[1]), (8, base[1]), (1, 1 << 30)):
+            hq.MV_TARGET_WARPS, hq.MV_MT2_ROWS = base[0] * target, mt2
+            hq._qmv_plan.cache_clear()
+            hq._launch_plans.cache_clear()
+            p = hq.qmv_plan(B, (d,), D, gf4=True)
+            check(f"qmm_decode_gf4 lm-head B={B} mt={p.mt} ks={p.ks}",
+                  hq.qmm_decode_gf4(x, w, 0), want, TOL_MV)
+            ms, how = timed(lambda i: hq.qmm_decode_gf4(x, w, 0), floor=b)
+            out.append(f"mt {p.mt} ks {p.ks} grid {p.grid}"
+                       + (" (the plan)" if (target, mt2) == (1, base[1]) else "")
+                       + f" {ms:.4f} ms ({how}, {100 * b / ms:.1f}% of bound)")
+    finally:
+        hq.MV_TARGET_WARPS, hq.MV_MT2_ROWS = base
+        hq._qmv_plan.cache_clear()
+        hq._launch_plans.cache_clear()
+    log(f"# K3 lm-head {d}x{D} B={B} by tiling (bound_ms {b:.4f}): " + "; ".join(out))
+    del w
+    torch.cuda.empty_cache()
 
 
 def check_rows(name, got, want, rel_tol):
@@ -626,6 +816,7 @@ def multirow_checks(dev):
         "against the float64 product, each row to its max (kernel / plain f32): "
         + ", ".join(f"{k} {a:.2e} / {b:.2e}" for k, (a, b) in exact.items()))
     multirow_checks_gf4(dev, spread, rel_to)
+    multirow_checks_gf4_decode(dev, spread)
 
 
 def subnormal_gf4(shape, dev):
@@ -697,6 +888,82 @@ def multirow_checks_gf4(dev, spread, rel_to):
         "max_abs_err " + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
         + f"; K6 D={D} H={HID} against the float64 product, each row to its max (kernel / "
         "plain f32): " + ", ".join(f"{k} {a:.2e} / {b:.2e}" for k, (a, b) in exact.items()))
+
+
+def multirow_checks_gf4_decode(dev, spread):
+    """K3 and K7 on the gf4 multi-row path against their plain versions at
+    TOL_MV, B = 2, 3, 4, 8, 9, 16. K3 at Aya 23 8B's q (4096 x 4096) and k
+    (1024 x 4096), the Mistral-7B (32000 rows) and Aya 23 8B (256000)
+    lm-heads, and ragged shapes: d = 1000, n = 1032 (an odd word count a
+    row) and n = 8; each with random x and slots 2^20 apart, and but for
+    the lm-heads with all-subnormal scale bytes. K7 at one Mistral-7B layer
+    with SiLU and GELU, RMSNorm and LayerNorm, slots 2^20 apart and
+    subnormal scale bytes, and at Qd = 512 != D. Slots 2^20 apart and
+    subnormal scales are held each slot to its own max|out|; K7's ffn and
+    r1 each to its own."""
+    from calm_tpu_torch.ops import hopper_qmm as hq
+
+    worst = {"qmm_decode_gf4": 0.0, "gf4_offn": 0.0}
+    n_k3 = n_k7 = 0
+
+    def words(kind, shape):
+        return rand_w(shape, "gf4", dev) if kind == "random" else subnormal_gf4(shape, dev)
+    for name, d, n in (("aya q", Q, D), ("aya k", KV, D), ("mistral lm-head", 32000, D),
+                       ("aya lm-head", 256000, D), ("ragged", 1000, D),
+                       ("odd words", Q, 1032), ("ragged", 1000, 8)):
+        L = 1 if "lm-head" in name else 2
+        for kind in ("random",) if L == 1 else ("random", "subnormal"):
+            w = words(kind, (L, d, n // 8))
+            for B in MULTIROW_B:
+                cases = [("", torch.randn(B, n, device=dev))]
+                if kind == "random":
+                    cases.append((" slots 2^20 apart", spread(B, n)))
+                for how, x in cases:
+                    e = (check_rows if how or kind != "random" else check)(
+                        f"qmm_decode_gf4 {name} {d}x{n} B={B} {kind} scales{how}",
+                        hq.qmm_decode_gf4(x, w, L - 1), hq.qmm_decode_gf4_plain(x, w, L - 1),
+                        TOL_MV)
+                    worst["qmm_decode_gf4"], n_k3 = max(worst["qmm_decode_gf4"], e), n_k3 + 1
+            del w
+            torch.cuda.empty_cache()
+
+    L, eps = 2, 1e-5
+    g = 1 + 0.1 * torch.randn(L, D, device=dev)
+    for kind in ("random", "subnormal"):
+        ws = [words(kind, (L, d, k // 8)) for d, k in ((D, Q), (HID, D), (HID, D), (D, HID))]
+        for B in MULTIROW_B:
+            cases = (((False, False), (True, False), (False, True), (True, True))
+                     if kind == "random" else ((False, False),))
+            for gelu, sub_mean in cases:
+                args = (torch.randn(B, Q, device=dev), torch.randn(B, D, device=dev), g, *ws,
+                        1, gelu, eps, sub_mean)
+                what = f"B={B} gelu={gelu} sub_mean={sub_mean} {kind} scales"
+                got, want = hq.gf4_offn(*args), hq.gf4_offn_plain(*args)
+                e = (max(check_offn(what, got, want)) if kind == "random"
+                     else check_rows(f"gf4_offn {what}", got, want, TOL_MV))
+                worst["gf4_offn"], n_k7 = max(worst["gf4_offn"], e), n_k7 + 1
+            if kind == "random":
+                args = (spread(B, Q), spread(B, D), g, *ws, 0, False, eps, False)
+                e = check_rows(f"gf4_offn B={B} slots 2^20 apart", hq.gf4_offn(*args),
+                               hq.gf4_offn_plain(*args), TOL_MV)
+                worst["gf4_offn"], n_k7 = max(worst["gf4_offn"], e), n_k7 + 1
+        if kind == "random":  # Qd = 512 != D, the same FFN
+            wo = rand_w((L, D, 512 // 8), "gf4", dev)
+            for B in MULTIROW_B:
+                for gelu in (False, True):  # LayerNorm with GELU
+                    args = (torch.randn(B, 512, device=dev), torch.randn(B, D, device=dev), g,
+                            wo, *ws[1:], 1, gelu, eps, gelu)
+                    e = max(check_offn(f"Qd=512 B={B} gelu={gelu}", hq.gf4_offn(*args),
+                                       hq.gf4_offn_plain(*args)))
+                    worst["gf4_offn"], n_k7 = max(worst["gf4_offn"], e), n_k7 + 1
+            del wo
+        del ws
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    log(f"# multi-row path, gf4 K3 and K7 (B = {', '.join(map(str, MULTIROW_B))}): {n_k3} K3 "
+        f"and {n_k7} K7 checks within {TOL_MV:g} of max|out| (slots 2^20 apart and subnormal "
+        "scales: of each slot's; K7's ffn and r1 each to its own), max_abs_err "
+        + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()))
 
 
 def ragged_checks_paged(dev):
@@ -970,8 +1237,9 @@ def ragged_checks_moe(dev):
 def ffn_kernel_rows(gbps, dev):
     """K6 at one Aya 23 8B / Mistral-7B layer's FFN (dim 4096, hidden
     14336), B=1 and B=8; K7 at one Mistral-7B layer (wo 4096 x 4096), B=1
-    and B=8 (its loop of 16 rows), RMSNorm as Mistral's. Two-layer stacks
-    cycled: one layer's 88 MB of FFN words is past the 50 MB L2."""
+    (its B = 4, 8, 16 rows: multirow_kernel_rows_gf4_decode), RMSNorm as
+    Mistral's. Two-layer stacks cycled: one layer's 88 MB of FFN words is
+    past the 50 MB L2."""
     import torch.nn.functional as F
 
     from calm_tpu_torch.ops import hopper_qmm as hq
@@ -1014,34 +1282,16 @@ def ffn_kernel_rows(gbps, dev):
     for layer in range(L):
         args = (a, r, g, wo, w1, w3, w2, layer, False, eps, False)
         errs += check_offn(f"layer {layer}", hq.gf4_offn(*args), hq.gf4_offn_plain(*args))
-    def offn_lib(a, r):
-        ab = a.bfloat16()
-
-        def lib(i):
-            l = i % L
-            r1 = r + torch.matmul(ab, wb[3][l].T)
-            return ffn_lib(F.rms_norm(r1, (D,), g[l], eps).bfloat16(), l), r1
-        return lib
     n_w = n_ffn + D * Q
     b, by = bound_ms(n_w // 2 + 4 * (Q + 4 * D), 2 * n_w, gbps)
     t = timings(lambda i: hq.gf4_offn(a, r, g, wo, w1, w3, w2, i % L, False, eps, False),
                 lambda i: hq.gf4_offn_plain(a, r, g, wo, w1, w3, w2, i % L, False, eps,
-                                            False), offn_lib(a, r), bound=b)
+                                            False), offn_library([wb[3], *wb[:3]], g, eps)(a, r),
+                bound=b)
     log(f"# K7 gf4_offn D={D} H={HID} Qd={Q} B=1: max_abs_err {max(errs):.3e} (tol "
         f"{TOL_MV:g} x max|out|, ffn and r1 each); {ms_line(t)} (4 bf16 matmuls + "
         f"rms_norm) bound_ms {b:.4f} ({by}, {n_w / 2e6:.1f} MB); {share(t, b)}")
     rows["gf4_offn"] = dict(t, bound_ms=b, bound_by=by, max_abs_err=max(errs))
-    # B = 8 on its loop of 16 rows (K7 is not on the multi-row path)
-    a, r = torch.randn(8, Q, device=dev), torch.randn(8, D, device=dev)
-    args = (a, r, g, wo, w1, w3, w2, 1, False, eps, False)
-    e = max(check_offn("B=8", hq.gf4_offn(*args), hq.gf4_offn_plain(*args)))
-    b, by = bound_ms(n_w // 2 + 4 * 8 * (Q + 4 * D), 2 * 8 * n_w, gbps, PEAK_BF16)
-    t = timings(lambda i: hq.gf4_offn(a, r, g, wo, w1, w3, w2, i % L, False, eps, False),
-                lambda i: hq.gf4_offn_plain(a, r, g, wo, w1, w3, w2, i % L, False, eps,
-                                            False), offn_lib(a, r), bound=b)
-    log(f"# K7 gf4_offn D={D} H={HID} Qd={Q} B=8 (the loop of 16 rows): max_abs_err {e:.3e} "
-        f"(tol {TOL_MV:g} x max|out|, ffn and r1 each); {ms_line(t)} (4 bf16 matmuls + "
-        f"rms_norm) bound_ms {b:.4f} ({by}); {share(t, b)}")
     del w1, w3, w2, wo, wb
     torch.cuda.empty_cache()
     return rows
@@ -1505,6 +1755,8 @@ def counters():
     out["qx_offn_qkv_multirow"] = (hq.qx_offn_qkv, "multirow_launches")
     out["gf4_offn_qkv_multirow"] = (hq.gf4_offn_qkv, "multirow_launches")
     out["gf4_ffn_multirow"] = (hq.gf4_ffn, "multirow_launches")
+    out["qmm_decode_gf4_multirow"] = (hq.qmm_decode_gf4, "multirow_launches")
+    out["gf4_offn_multirow"] = (hq.gf4_offn, "multirow_launches")
     out["decode_attention_partials"] = (ha.decode_attention, "partials_launches")
     return out
 
@@ -2118,8 +2370,11 @@ def full_width_serving_phase(dev, gbps, smi, fmt: str = "fp8", cohere: bool = Fa
     memory, bf16 KV, ctx 4096, 8 slots: 16 requests of seeded random bytes
     (one token a byte) of 128-1024 tokens, 64 greedy tokens each, submitted
     at once and drained, dense and, for fp8, then paged (512-row pages, a
-    pool of half the dense rows); 3 drains each. Returns the launch counts
-    of the last mode's drain (fp8: paged; gf4: dense)."""
+    pool of half the dense rows), for gf4 Mistral-7B then dense with
+    ROTATED_DECODE off (CALM_ROT=0: each layer's own q/k/v on K3, then K7,
+    every tick at 8 rows); 3 drains each. The device time of 10 ticks is
+    split by kernel and by wrapper (K3, K6, K7, K8; K2, K9). Returns each
+    mode's launch counts of its first timed drain."""
     from calm_tpu_torch import model as M
     from calm_tpu_torch.config import ModelConfig
     from calm_tpu_torch.engine import Engine, kv_cache_bytes
@@ -2161,9 +2416,10 @@ def full_width_serving_phase(dev, gbps, smi, fmt: str = "fp8", cohere: bool = Fa
             free = sum(not s.active for s in srv.slots)
             admits = min(free, len(srv.pending))
             kv = sum(kv_cache_bytes(cfg, 16, s.pos) for s in srv.slots if s.active)
+            stepped = free < B or admits > 0  # a slot is live: the tick decodes
             t = time.perf_counter()
             real()
-            ticks.append((time.perf_counter() - t, admits, kv))
+            ticks.append((time.perf_counter() - t, admits, kv, stepped))
         srv.tick = tick
         reqs = [srv.submit(p, max_tokens=n_gen, temperature=0.0) for p in prompts]
         torch.cuda.synchronize()
@@ -2176,44 +2432,60 @@ def full_width_serving_phase(dev, gbps, smi, fmt: str = "fp8", cohere: bool = Fa
             fail("serve: a request did not finish")
         return reqs, wall, ticks
 
-    out, ids, seen = {}, {}, {}
-    counts = None
-    modes = [("dense", {})]
+    out, ids, seen, counts = {}, {}, {}, {}
+    modes = [("dense", {}, True)]
     if fmt == "fp8":
-        modes.append(("paged", dict(page_rows=512, pool_pages=32)))
-    for mode, kw in modes:
-        srv = Server(batch=B, engine=engine(), **kw)
-        # a first drain, warm, keeps each request's ids (and, to hold paged
-        # to dense, their logits)
-        if len(modes) > 1:
-            reqs, seen[mode] = serve_recorded(srv, [(p, n_gen, 0.0, 1) for p in prompts])
-        else:
-            reqs = drain(srv)[0]
-        ids[mode] = [r.ids for r in reqs]
-        runs = []
-        for _ in range(3):
-            if mode == modes[-1][0] and counts is None:
-                (reqs, wall, ticks), counts = drive(lambda: drain(srv))
+        modes.append(("paged", dict(page_rows=512, pool_pages=32), True))
+    elif not cohere:
+        modes.append(("dense CALM_ROT=0", {}, False))
+    wrappers = (("qmm_decode", "qx_offn_qkv") if fmt == "fp8"
+                else ("qmm_decode_gf4", "gf4_offn_qkv", "gf4_ffn", "gf4_offn"))
+    was = M.ROTATED_DECODE
+    for mode, kw, rotated in modes:
+        M.ROTATED_DECODE = rotated
+        try:
+            srv = Server(batch=B, engine=engine(), **kw)
+            # a first drain, warm, keeps each request's ids (and, to hold
+            # paged to dense, their logits)
+            if fmt == "fp8":
+                reqs, seen[mode] = serve_recorded(srv, [(p, n_gen, 0.0, 1) for p in prompts])
             else:
-                reqs, wall, ticks = drain(srv)
-            runs.append((wall, reqs, ticks))
-        walls = [r[0] for r in runs]
-        n_tok = sum(r.n_generated for r in runs[0][1])
-        dec = [t for r in runs for t in r[2] if t[1] == 0]  # decode-only ticks
-        tick_ms = [1e3 * statistics.median(t[0] for t in r[2] if t[1] == 0) for r in runs]
-        med = statistics.median(tick_ms)
-        gbs = statistics.median((bw + kv) / dt / 1e9 for dt, _, kv in dec)
-        ttft = sorted(1e3 * (r.first_token_at - r.submitted_at) for r in runs[0][1])
-        # busy share: device time of 10 decode ticks against their unprofiled time
-        for p in prompts[:B]:
-            srv.submit(p, max_tokens=n_gen, temperature=0.0)
-        srv.tick()  # admits all eight
-        rows = kernel_rows(lambda: [srv.tick() for _ in range(10)])
-        srv.run_until_drained()
+                reqs = drain(srv)[0]
+            ids[mode] = [r.ids for r in reqs]
+            runs = []
+            for k in range(3):
+                if k == 0:
+                    (reqs, wall, ticks), counts[mode] = drive(lambda: drain(srv))
+                    stepped = sum(t[3] for t in ticks)
+                else:
+                    reqs, wall, ticks = drain(srv)
+                runs.append((wall, reqs, ticks))
+            walls = [r[0] for r in runs]
+            n_tok = sum(r.n_generated for r in runs[0][1])
+            dec = [t for r in runs for t in r[2] if t[1] == 0]  # decode-only ticks
+            tick_ms = [1e3 * statistics.median(t[0] for t in r[2] if t[1] == 0) for r in runs]
+            med = statistics.median(tick_ms)
+            gbs = statistics.median((bw + kv) / dt / 1e9 for dt, _, kv, _ in dec)
+            ttft = sorted(1e3 * (r.first_token_at - r.submitted_at) for r in runs[0][1])
+            # busy share: device time of 10 decode ticks against their
+            # unprofiled time, split by kernel and by kernel wrapper
+            for p in prompts[:B]:
+                srv.submit(p, max_tokens=n_gen, temperature=0.0)
+            srv.tick()  # admits all eight
+            rows, per = profile_wrappers(lambda: [srv.tick() for _ in range(10)], wrappers)
+            srv.run_until_drained()
+        finally:
+            M.ROTATED_DECODE = was
         dev_ms = sum(r[0] for r in rows) / 1e3 / 10 if rows else None
         busy = "not measured" if dev_ms is None else (
             f"device {dev_ms:.3f} ms/tick = busy {100 * dev_ms / med:.1f}%; " + "; ".join(
                 f"{name} {us / 1e4:.3f} ms x{cnt / 10:g}" for us, cnt, name in rows[:6]))
+        if dev_ms is not None:
+            busy += "; by wrapper (device ms a tick, share of the tick's device time): " + (
+                "; ".join(f"{w} {sum(k.values()) / 1e4:.3f} ({sum(k.values()) / 1e4 / dev_ms:.1%}"
+                          ": " + ", ".join(f"{n} {us / 1e4:.3f}" for n, us in
+                                           sorted(k.items(), key=lambda kv: -kv[1])) + ")"
+                          for w, k in per.items()) or "not measured")
         wall = statistics.median(walls)
         out[mode] = dict(wall_s=wall, tok_s=n_tok / wall, tick_ms=med,
                          tick_spread_pct=100 * (max(tick_ms) - min(tick_ms)) / med,
@@ -2226,6 +2498,16 @@ def full_width_serving_phase(dev, gbps, smi, fmt: str = "fp8", cohere: bool = Fa
             f"{out[mode]['tick_spread_pct']:.2f}%); TTFT p50 {statistics.median(ttft):.1f} ms, "
             f"max {ttft[-1]:.1f} ms; {rate_share(gbs)} per decode tick (weights + live "
             f"KV); {busy} on {smi}")
+        if not rotated:  # every tick's layers on K7 at 8 rows, none on K8
+            c = counts[mode]
+            if (c["gf4_offn_multirow"] != cfg.n_layers * stepped
+                    or c["gf4_offn"] != c["gf4_offn_multirow"] or c["gf4_offn_qkv"]
+                    or c["qmm_decode_gf4_multirow"] != (3 * cfg.n_layers + 1) * stepped):
+                fail(f"serve {what} {mode}: {stepped} decode ticks, launches {c}")
+            log(f"# serve {what} {mode}: {stepped} decode ticks, gf4_offn "
+                f"{c['gf4_offn_multirow']} launches at 8 rows ({cfg.n_layers} a tick), "
+                f"gf4_offn_qkv 0, qmm_decode_gf4 {c['qmm_decode_gf4_multirow']} at 8 rows "
+                f"(q, k, v of each layer and the lm-head)")
         del srv
         torch.cuda.empty_cache()
 
@@ -2240,21 +2522,24 @@ def full_width_serving_phase(dev, gbps, smi, fmt: str = "fp8", cohere: bool = Fa
                                                 seen["paged"][i], seen["dense"][i], TOL_STEP))
     if worst > TOL_STEP:
         fail(f"serve {what}: paged logits differ from dense by {worst:.3e} > {TOL_STEP}")
-    for i in (0, 7):  # and two requests against a single-stream run
+    for i in (0, 7):  # and two requests of each dense drain against a single stream
         toks = tokenizer.encode(prompts[i], bos=True)
         cache = M.KVCache.create(cfg, 1, torch.bfloat16, dev)
         M.prefill(cfg, w, torch.tensor([toks[:-1]], device=dev), [0], cache, "none")
+        dense = [m for m in ids if m != "paged"]
         st, _, lg = M.decode_loop(cfg, w, torch.tensor([toks[-1]], device=dev),
-                                  len(toks) - 1, cache, len(ids["dense"][i]))
+                                  len(toks) - 1, cache, max(len(ids[m][i]) for m in dense))
         want = st[0].tolist()
-        got = ids["dense"][i]
-        n = next((j for j, (x, y) in enumerate(zip(got, want)) if x != y), None)
-        if n is not None:
-            greedy_agrees(f"serve {what} request {i} vs single stream, id {n}", got[n],
-                          lg[n, 0].float().cpu().numpy(), TOL_PREFILL)
-        log(f"# serve {what} request {i} ({len(toks)} tokens) against prefill + decode_loop: "
-            + ("ids equal" if n is None else f"equal up to {n}, then a near-tie")
-            + f" ({len(set(got))} distinct of {len(got)}: {got[:8]}...)")
+        for mode in dense:
+            got = ids[mode][i]
+            n = next((j for j, (x, y) in enumerate(zip(got, want)) if x != y), None)
+            if n is not None:
+                greedy_agrees(f"serve {what} {mode} request {i} vs single stream, id {n}",
+                              got[n], lg[n, 0].float().cpu().numpy(), TOL_PREFILL)
+            log(f"# serve {what} {mode} request {i} ({len(toks)} tokens) against prefill + "
+                "decode_loop: " + ("ids equal" if n is None else f"equal up to {n}, then a "
+                                   "near-tie") + f" ({len(set(got))} distinct of {len(got)}: "
+                f"{got[:8]}...)")
         del cache
     distinct = len({t for r in ids["dense"] for t in r})
     if distinct < 2:
@@ -2881,7 +3166,8 @@ def main():
             for kvt in (1, 0, 2)) + " B (hd 64/96/128/256 x bf16/fp16/e5m2); "
         f"{ptxas_kernels(build, 'ring', 'allreduce_kernel')}")
     log(f"# ptxas -v, the multi-row path <fmt, act, m-tiles, n-tiles, odd gf4 rows>: "
-        f"{ptxas_each(build, 'qmm', 'mmv_kernel')}")
+        f"{ptxas_each(build, 'qmm', 'mmv_kernel')}; the one-row loops <fmt, act>: "
+        f"{ptxas_each(build, 'qmm', 'qmv_kernel')}; {ptxas_each(build, 'gf4', 'gf4_mv_kernel')}")
     dev = torch.device("cuda")
 
     RATES["nominal"] = gbps
@@ -2919,11 +3205,13 @@ def main():
             log(f"# full-width {fmt} {experts} experts{' aya23-8b' if cohere else ''} "
                 f"done at {time.perf_counter() - t_start:.1f} s")
     # the paged serving path: K12 in paged mode
-    counts_pg = full_width_serving_phase(dev, gbps, smi)
+    counts_pg = full_width_serving_phase(dev, gbps, smi)["paged"]
     log(f"# full-width serving done at {time.perf_counter() - t_start:.1f} s")
-    # the gf4 serving ticks: K8 (Mistral-7B) and K6 (Aya 23 8B) at 8 rows
-    counts_g4 = full_width_serving_phase(dev, gbps, smi, "gf4")
-    counts_g4c = full_width_serving_phase(dev, gbps, smi, "gf4", cohere=True)
+    # the gf4 serving ticks at 8 rows: K8 (Mistral-7B), K7 (Mistral-7B under
+    # CALM_ROT=0), K6 and K3 (Aya 23 8B)
+    g4 = full_width_serving_phase(dev, gbps, smi, "gf4")
+    counts_g4, counts_g4r0 = g4["dense"], g4["dense CALM_ROT=0"]
+    counts_g4c = full_width_serving_phase(dev, gbps, smi, "gf4", cohere=True)["dense"]
     log(f"# full-width gf4 serving done at {time.perf_counter() - t_start:.1f} s")
 
     sources = {"qmm_decode": ("calm_tpu_torch/csrc/qmm.cu",
@@ -2954,6 +3242,10 @@ def main():
                                          "calm_tpu/ops/pallas_qmm.py:737", counts_g4),
                "gf4_ffn_multirow": ("calm_tpu_torch/csrc/qmm.cu",
                                     "calm_tpu/ops/pallas_qmm.py:464", counts_g4c),
+               "qmm_decode_gf4_multirow": ("calm_tpu_torch/csrc/qmm.cu",
+                                           "calm_tpu/ops/pallas_qmm.py:100", counts_g4c),
+               "gf4_offn_multirow": ("calm_tpu_torch/csrc/qmm.cu",
+                                     "calm_tpu/ops/pallas_qmm.py:601", counts_g4r0),
                "qmm_moe_dense": ("calm_tpu_torch/csrc/moe.cu",
                                  "calm_tpu/ops/pallas_qmm.py:1248", counts8m),
                "gf4_moe_ffn": ("calm_tpu_torch/csrc/moe.cu",
