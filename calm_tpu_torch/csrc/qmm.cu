@@ -47,16 +47,44 @@
 // word (the reference's trick, pallas_qmm.py:12-13), two values per
 // __byte_perm. The activation row (up to 14336 f32 = 57 KB for w2) stays
 // in global memory, read through the read-only path, and is
-// L1/L2-resident across the rows of a block. A gf4 word holds eight
-// weights (a lane step reads one word and two float4 of x) and decodes as
-// in gf4.cu: the 3-bit codes exactly through the mantissa of 2^23, one
-// scale multiply per word. Accumulation is f32; a warp-shuffle tree
-// closes each row.
+// L1/L2-resident across the rows of a block. Accumulation is f32; a
+// warp-shuffle tree closes each row.
 // The attn- and ffn-norms run as a one-block-per-row launch that writes
 // the normalised rows to scratch, so the w1/w3 and q/k/v matvecs share the
 // plain inner loop instead of each block recomputing row statistics and
 // normalising x per weight. This loop (qmv_kernel) serves one row (B = 1)
-// in every format; 2-16 rows take the multi-row path below.
+// of fp16 and fp8; gf4 takes the one-row gf4 path, 2-16 rows the
+// multi-row path (both below).
+//
+// The one-row gf4 path (B = 1 on gf4 words; gf4_row_kernel): K8's, K7's
+// and K6's products, the same launches and norm launches as above.
+//   - What bounds it: the weight bytes, half a byte a weight. A gf4 word of
+//     eight weights reads two float4 of x, so one row a warp reads 8 bytes
+//     of x through L1 for each weight byte, and a decode of ~4.5
+//     instructions a weight (shift, mask under 2^23's mantissa, subtract,
+//     FMA) comes close to the card's issue rate at the byte bound.
+//   - R rows a warp (a constant of the kernel: 4, and 2 for the dual
+//     w1/w3 launch, whose rows carry two weights): each lane's two
+//     float4 of x serve all of its R (x 2) words, x traffic 2x the weight
+//     bytes. A lane keeps 16 words in flight over its rows (64 bytes).
+//   - The decode, exact and ~3.5 instructions a weight: codes 0-4 are
+//     masked where they lie (bits 8 + 3k) and ORed under an exponent that
+//     puts the field's lowest bit at 1, one LOP3 a code (the exponents live
+//     in registers), so the float is 2^p + code; one subtract of 2^p + 4
+//     leaves code - 4 exactly. One shift of the word brings codes 5-7 to
+//     bits 8, 11, 14, under the first three exponents. Neither x nor the
+//     products are scaled, so nothing underflows that the plain decode
+//     keeps. The scale byte is read as the high byte of an f16 and
+//     multiplies the word's eight-product sum; its / -4 multiplies the
+//     row's sum.
+//   - The narrow launches (wo and w2: 4096 rows, a few µs of bytes) split
+//     k into contiguous word ranges over ks warps of a block until about
+//     two thousand warps fill the card; the partial sums meet in shared
+//     memory in warp order (the result does not depend on the timing).
+//   - On an H100 more words in flight (32, at more registers a thread),
+//     8 rows a warp, loads that bypass L1 or fetch 256 bytes into L2, and
+//     loading the next words while the present ones compute timed no faster
+//     (PERF.md).
 //
 // The multi-row path (2 <= B <= 16 rows; mmv_kernel) replaces, for fp16
 // and fp8, the same two TPU kernels, _layered_qmm_kernel (:92) and
@@ -172,9 +200,9 @@ __device__ __forceinline__ float dot4(float4 w, float4 x) {
   return w.x * x.x + w.y * x.y + w.z * x.z + w.w * x.w;
 }
 
-// FMT 0: fp16, 1: fp8 e5m2, 2: gf4. Word: the load that holds PER weights;
-// dec() turns it into Dec, dot() multiplies Dec by the PER values of x held
-// in PER / 4 float4 registers.
+// FMT 0: fp16, 1: fp8 e5m2 (gf4 at one row: gf4_row_kernel). Word: the
+// load that holds PER weights; dec() turns it into Dec, dot() multiplies Dec
+// by the PER values of x held in PER / 4 float4 registers.
 template <int FMT>
 struct Fmt;
 template <>
@@ -205,38 +233,6 @@ struct Fmt<1> {
     return dot4(w, x[0]);
   }
 };
-struct Gf4Dec {
-  float c[8];  // code_k - 4
-  float s;     // e5m2 scale / -4
-};
-template <>
-struct Fmt<2> {
-  using Word = uint32_t;
-  using Dec = Gf4Dec;
-  static constexpr int PER = 8;
-  static __device__ __forceinline__ Dec dec(uint32_t q) {
-    Dec d;
-#pragma unroll
-    for (int k = 0; k < 8; k++)  // the 3-bit field under the mantissa of 2^23
-      d.c[k] = __uint_as_float(0x4B000000u | ((q >> (8 + 3 * k)) & 7u)) - 8388612.0f;
-    // the e5m2 byte in the high half of an f16 is the same value, exactly
-    d.s = __half2float(__ushort_as_half((unsigned short)((q & 0xffu) << 8))) * -0.25f;
-    return d;
-  }
-  static __device__ __forceinline__ float dot(const Dec& w, const float4* x) {
-    const float4 xa = x[0], xb = x[1];
-    float s = w.c[0] * xa.x;
-    s = fmaf(w.c[1], xa.y, s);
-    s = fmaf(w.c[2], xa.z, s);
-    s = fmaf(w.c[3], xa.w, s);
-    s = fmaf(w.c[4], xb.x, s);
-    s = fmaf(w.c[5], xb.y, s);
-    s = fmaf(w.c[6], xb.z, s);
-    s = fmaf(w.c[7], xb.w, s);
-    return s * w.s;
-  }
-};
-
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -429,6 +425,173 @@ __global__ void __launch_bounds__(WARPS * 32, 4) qmv_kernel(Args a) {
   float y = warp_sum(acc);
   if (ACT) y = act_fn(ACT, y) * warp_sum(acc3);
   if (lane == 0) sg.out[row] = sg.resid ? sg.resid[row] + y : y;
+}
+
+// ---------------------------------------------------------------------------
+// The one-row gf4 path: B = 1 on gf4 words (K8, K7 and K6's launches), see
+// the note at the top.
+// ---------------------------------------------------------------------------
+
+#define G1_WORDS 16  // gf4 words a lane keeps in flight over its rows and weights
+#define G1_ROWS 4       // output rows a warp: one load of x serves them
+#define G1_ROWS_DUAL 2  // the same for the dual w1/w3 launch (two weights a row)
+#define G1_PLAN 2    // ints of one launch's plan: {ks, grid}
+
+// (w & MASK) | e as a float: MASK selects one 3-bit field of a gf4 word and
+// e is the exponent that puts the field's lowest bit at 1, so the float is
+// 2^p + code for the power 2^p just above the field.
+template <uint32_t MASK>
+__device__ __forceinline__ float gf4_field(uint32_t w, uint32_t e) {
+  uint32_t v;
+  asm("lop3.b32 %0, %1, %2, %3, 0xEA;" : "=r"(v) : "r"(w), "n"(MASK), "r"(e));
+  return __uint_as_float(v);
+}
+
+// sum_k (code_k - 4) x_k of one gf4 word, exactly as the plain decode's
+// values times x: codes 0-4 decode where they lie (bits 8 + 3k) under the
+// exponents e[k] (2^(15 - 3k) + code_k), codes 5-7 after one shift of the
+// word to bits 8, 11, 14 under e[0..2]; one subtract of 2^p + 4 each.
+__device__ __forceinline__ float gf4_dot8(uint32_t w, float4 xa, float4 xb,
+                                          const uint32_t (&e)[5]) {
+  const uint32_t h = w >> 15;
+  float s = (gf4_field<0x700u>(w, e[0]) - 32772.0f) * xa.x;
+  s = fmaf(gf4_field<0x3800u>(w, e[1]) - 4100.0f, xa.y, s);
+  s = fmaf(gf4_field<0x1C000u>(w, e[2]) - 516.0f, xa.z, s);
+  s = fmaf(gf4_field<0xE0000u>(w, e[3]) - 68.0f, xa.w, s);
+  s = fmaf(gf4_field<0x700000u>(w, e[4]) - 12.0f, xb.x, s);
+  s = fmaf(gf4_field<0x700u>(h, e[0]) - 32772.0f, xb.y, s);
+  s = fmaf(gf4_field<0x3800u>(h, e[1]) - 4100.0f, xb.z, s);
+  return fmaf(gf4_field<0x1C000u>(h, e[2]) - 516.0f, xb.w, s);
+}
+
+// One row of x against R rows a warp of gf4 words (4; both w1 and w3 for
+// ACT 1, 2 rows), k split into ks contiguous word ranges over ks warps of a block
+// (gf4_row_plan; WARPS / ks row groups a block, the groups of segment 0,
+// then 1, then 2).
+// Lane l reads words l, l + 32, ... of its range in each row, and the two
+// float4 of x beside each word once for all R (x DUAL) rows. Rows past a
+// segment's end re-read its last row and are not written. Sums: f32, a
+// word's eight products by FMA, times its scale into the lane's sum, a
+// warp-shuffle tree, then the ks partials in warp order through shared
+// memory; the scale's / -4 is applied to the row's sum.
+template <int ACT>
+__global__ void __launch_bounds__(WARPS * 32) gf4_row_kernel(Args a, int ks) {
+  constexpr int DUAL = ACT ? 2 : 1;
+  constexpr int R = ACT ? G1_ROWS_DUAL : G1_ROWS;
+  constexpr int U = G1_WORDS / (R * DUAL);  // word steps in flight
+  __shared__ float red[WARPS][DUAL * R];
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nw = a.n >> 3;  // words a row
+  const int grp = blockIdx.x * (WARPS / ks) + warp / ks, kw = warp % ks;
+  const int g0 = (a.seg[0].rows + R - 1) / R;
+  const int g1 = a.nseg > 1 ? (a.seg[1].rows + R - 1) / R : 0;
+  const int g2 = a.nseg > 2 ? (a.seg[2].rows + R - 1) / R : 0;
+  const bool live = grp < g0 + g1 + g2;
+  Seg sg = a.seg[0];
+  int r0 = grp * R;
+  if (live && grp >= g0) {
+    const bool one = grp < g0 + g1;
+    sg = one ? a.seg[1] : a.seg[2];
+    r0 = (one ? grp - g0 : grp - g0 - g1) * R;
+  }
+  const int c0 = live ? kw * nw / ks : 0;
+  const int len = live ? (kw + 1) * nw / ks - c0 : 0;  // words of the warp's range
+
+  const uint32_t* wp[DUAL][R];
+#pragma unroll
+  for (int r = 0; r < R; r++) {
+    const size_t off = (size_t)min(r0 + r, sg.rows - 1) * nw + c0 + lane;
+    wp[0][r] = reinterpret_cast<const uint32_t*>(sg.w) + off;
+    if (ACT) wp[DUAL - 1][r] = reinterpret_cast<const uint32_t*>(sg.w3) + off;
+  }
+  const float4* xp = reinterpret_cast<const float4*>(a.x) + 2 * (c0 + lane);
+  uint32_t e[5];  // in registers: one LOP3 a field
+  asm("mov.b32 %0, 0x47000000;" : "=r"(e[0]));
+  asm("mov.b32 %0, 0x45800000;" : "=r"(e[1]));
+  asm("mov.b32 %0, 0x44000000;" : "=r"(e[2]));
+  asm("mov.b32 %0, 0x42800000;" : "=r"(e[3]));
+  asm("mov.b32 %0, 0x41000000;" : "=r"(e[4]));
+
+  float acc[DUAL][R];
+#pragma unroll
+  for (int d = 0; d < DUAL; d++)
+#pragma unroll
+    for (int r = 0; r < R; r++) acc[d][r] = 0.f;
+
+  for (int c = lane; c < len; c += 32 * U) {
+    uint32_t q[U][DUAL][R];
+#pragma unroll
+    for (int u = 0; u < U; u++)
+#pragma unroll
+      for (int d = 0; d < DUAL; d++)
+#pragma unroll
+        for (int r = 0; r < R; r++) q[u][d][r] = c + 32 * u < len ? __ldcs(wp[d][r] + 32 * u) : 0u;
+#pragma unroll
+    for (int u = 0; u < U; u++) {
+      if (c + 32 * u >= len) break;
+      const float4 xa = __ldg(xp + 64 * u), xb = __ldg(xp + 64 * u + 1);
+#pragma unroll
+      for (int d = 0; d < DUAL; d++)
+#pragma unroll
+        for (int r = 0; r < R; r++) {
+          const uint32_t w = q[u][d][r];
+          // the e5m2 byte in the high half of an f16 is the same value, exactly
+          const float sc = __half2float(__ushort_as_half((unsigned short)(w << 8)));
+          acc[d][r] = fmaf(gf4_dot8(w, xa, xb, e), sc, acc[d][r]);
+        }
+    }
+#pragma unroll
+    for (int d = 0; d < DUAL; d++)
+#pragma unroll
+      for (int r = 0; r < R; r++) wp[d][r] += 32 * U;
+    xp += 64 * U;
+  }
+
+#pragma unroll
+  for (int d = 0; d < DUAL; d++)
+#pragma unroll
+    for (int r = 0; r < R; r++) acc[d][r] = warp_sum(acc[d][r]);
+  if (ks > 1) {  // the k split's partial sums meet in shared memory
+    if (lane == 0)
+#pragma unroll
+      for (int d = 0; d < DUAL; d++)
+#pragma unroll
+        for (int r = 0; r < R; r++) red[warp][d * R + r] = acc[d][r];
+    __syncthreads();
+    if (kw == 0)
+      for (int j = 1; j < ks; j++)
+#pragma unroll
+        for (int d = 0; d < DUAL; d++)
+#pragma unroll
+          for (int r = 0; r < R; r++) acc[d][r] += red[warp + j][d * R + r];
+  }
+  if (kw != 0 || !live) return;
+#pragma unroll
+  for (int r = 0; r < R; r++) {
+    const int row = r0 + r;
+    if (lane == r && row < sg.rows) {
+      float y = acc[0][r] * -0.25f;
+      if (ACT) y = act_fn(ACT, y) * (acc[DUAL - 1][r] * -0.25f);
+      sg.out[row] = sg.resid ? sg.resid[row] + y : y;
+    }
+  }
+}
+
+// plan (from gf4_row_plan): {ks, grid}
+template <int ACT>
+cudaError_t launch_g1(const Args& a, const int* plan, cudaStream_t st) {
+  if (!plan) return cudaErrorInvalidValue;
+  constexpr int R = ACT ? G1_ROWS_DUAL : G1_ROWS;
+  const int ks = plan[0], grid = plan[1];
+  if (a.B != 1 || a.n < 8 || a.n % 8 != 0 || ks < 1 || ks > WARPS || WARPS % ks != 0 ||
+      grid < 1)
+    return cudaErrorInvalidValue;
+  long long groups = 0;  // every row group needs a warp group of the grid
+  for (int s = 0; s < a.nseg; s++) groups += (a.seg[s].rows + R - 1) / R;
+  if ((long long)grid * (WARPS / ks) < groups) return cudaErrorInvalidValue;
+  gf4_row_kernel<ACT><<<grid, WARPS * 32, 0, st>>>(a, ks);
+  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -808,9 +971,11 @@ cudaError_t launch(const Args& a, cudaStream_t st) {
   return cudaGetLastError();
 }
 
+// one row in any format: gf4 takes gf4_row_kernel with its plan (unused
+// for fp16/fp8)
 template <int ACT>
-cudaError_t launch_fmt(int fmt, const Args& a, cudaStream_t st) {
-  if (fmt == 2) return launch<2, ACT>(a, st);
+cudaError_t launch_fmt(int fmt, const Args& a, const int* plan, cudaStream_t st) {
+  if (fmt == 2) return launch_g1<ACT>(a, plan, st);
   return fmt == 1 ? launch<1, ACT>(a, st) : launch<0, ACT>(a, st);
 }
 
@@ -846,32 +1011,36 @@ Args args(const void* x, int B, int n) {
 }
 
 // h = act(x . w1^T) * (x . w3^T), then out = [resid +] h . w2^T: two
-// launches; x (B, D), h (B, H) scratch, out and resid (B, D).
+// launches; x (B, D), h (B, H) scratch, out and resid (B, D). plans: for gf4,
+// gf4_row_plan's {ks, grid} of w1/w3 and w2 (else unused).
 cudaError_t ffn(int fmt, const void* x, const void* w1, const void* w3,
                 const void* w2, void* h, void* out, const void* resid, int B,
-                int D, int H, int act_gelu, cudaStream_t st) {
+                int D, int H, int act_gelu, const int* plans, cudaStream_t st) {
   Args s2 = args(x, B, D);
   s2.seg[0] = seg(w1, w3, h, nullptr, H, H);
-  cudaError_t e = act_gelu ? launch_fmt<2>(fmt, s2, st) : launch_fmt<1>(fmt, s2, st);
+  cudaError_t e =
+      act_gelu ? launch_fmt<2>(fmt, s2, plans, st) : launch_fmt<1>(fmt, s2, plans, st);
   if (e != cudaSuccess) return e;
   Args s3 = args(h, B, H);
   s3.seg[0] = seg(w2, nullptr, out, resid, D, D);
-  return launch_fmt<0>(fmt, s3, st);
+  return launch_fmt<0>(fmt, s3, plans ? plans + G1_PLAN : nullptr, st);
 }
 
 // r1 = r + a . wo^T, xn = ffn-norm(r1), then ffn() of xn into out with
-// [resid +]: the epilogue's stages before the next layer's q/k/v.
+// [resid +]: the epilogue's stages before the next layer's q/k/v. plans:
+// for gf4, gf4_row_plan's of wo, w1/w3 and w2.
 cudaError_t offn(int fmt, const void* a, const void* r, const void* g,
                  const void* wo, const void* w1, const void* w3, const void* w2,
                  void* r1, void* xn, void* h, void* out, const void* resid,
                  int B, int D, int H, int Qd, int act_gelu, float eps,
-                 int sub_mean, cudaStream_t st) {
+                 int sub_mean, const int* plans, cudaStream_t st) {
   Args s1 = args(a, B, Qd);
   s1.seg[0] = seg(wo, nullptr, r1, r, D, D);
-  cudaError_t e = launch_fmt<0>(fmt, s1, st);
+  cudaError_t e = launch_fmt<0>(fmt, s1, plans, st);
   if (e != cudaSuccess) return e;
   if ((e = launch_norm(r1, g, xn, B, D, eps, sub_mean, st)) != cudaSuccess) return e;
-  return ffn(fmt, xn, w1, w3, w2, h, out, resid, B, D, H, act_gelu, st);
+  return ffn(fmt, xn, w1, w3, w2, h, out, resid, B, D, H, act_gelu,
+             plans ? plans + G1_PLAN : nullptr, st);
 }
 
 // The multi-row path's FFN from x (B, D) already staged in xs/sc: the
@@ -961,7 +1130,7 @@ int calm_qmm_decode(const void* x, const void* w, void* y, int B, int d, int n,
   if (fmt == 2) return (int)cudaErrorInvalidValue;
   Args a = args(x, B, n);
   a.seg[0] = seg(w, nullptr, y, nullptr, d, d);
-  return (int)launch_fmt<0>(fmt, a, st);
+  return (int)launch_fmt<0>(fmt, a, nullptr, st);
 }
 
 // One layer's epilogue (see pallas_qmm._qx_offn_qkv_kernel), for fp16
@@ -970,7 +1139,8 @@ int calm_qmm_decode(const void* x, const void* w, void* y, int B, int d, int n,
 // min(layer + 1, L - 1)). r1 (B, D), xn (B, D) and h (B, H) are
 // caller-allocated scratch; qkv is (B, Qd + 2 KVd) with q, k and v side by
 // side. B >= 2 takes the multi-row path with the staging scratch xs/sc and
-// qmv_plan's four plans (xn unused); B = 1 the loop of one row (xs, sc and
+// qmv_plan's four plans (xn unused); B = 1 the loop of one row (xs and sc
+// unused), gf4 on gf4_row_kernel with gf4_row_plan's four plans (fp16/fp8:
 // plans unused).
 int calm_qx_offn_qkv(const void* a, const void* r, const void* g,
                      const void* anx, const void* wo, const void* w1,
@@ -986,8 +1156,9 @@ int calm_qx_offn_qkv(const void* a, const void* r, const void* g,
                                static_cast<uint4*>(xs), static_cast<float*>(sc),
                                static_cast<const int*>(plans), st);
   // x = r1 + ffn(ffn-norm(r1)), r1 = r + a . wo^T
+  const int* p = static_cast<const int*>(plans);
   cudaError_t e = offn(fmt, a, r, g, wo, w1, w3, w2, r1, xn, h, x, r1, B, D, H,
-                       Qd, act_gelu, eps, sub_mean, st);
+                       Qd, act_gelu, eps, sub_mean, p, st);
   if (e != cudaSuccess) return (int)e;
 
   // q/k/v of the next layer from xn = attn-norm(x)
@@ -1000,14 +1171,14 @@ int calm_qx_offn_qkv(const void* a, const void* r, const void* g,
   s4.seg[1] = seg(wk, nullptr, o + Qd, nullptr, KVd, ld);
   s4.seg[2] = seg(wv, nullptr, o + Qd + KVd, nullptr, KVd, ld);
   s4.nseg = 3;
-  return (int)launch_fmt<0>(fmt, s4, st);
+  return (int)launch_fmt<0>(fmt, s4, p ? p + 3 * G1_PLAN : nullptr, st);
 }
 
 // K6: out (B, D) = w2 . (act(w1 . x) * (w3 . x)) on natural gf4 words at
 // the layer's planes: w1/w3 (H, D/8), w2 (D, H/8); h (B, H) scratch. B >= 2
 // takes the multi-row path (x staged by split_kernel, then ffn_staged) with
-// the staging scratch xs/sc and qmv_plan's plans of w1/w3 and w2; B = 1 the
-// loop of one row (xs, sc and plans unused).
+// the staging scratch xs/sc and qmv_plan's plans of w1/w3 and w2; B = 1
+// gf4_row_kernel with gf4_row_plan's plans of w1/w3 and w2 (xs, sc unused).
 int calm_gf4_ffn(const void* x, const void* w1, const void* w3, const void* w2,
                  void* h, void* out, int B, int D, int H, int act_gelu, void* xs,
                  void* sc, const void* plans, void* stream) {
@@ -1021,7 +1192,8 @@ int calm_gf4_ffn(const void* x, const void* w1, const void* w3, const void* w2,
     return (int)ffn_staged(2, w1, w3, w2, h, out, nullptr, B, D, H, act_gelu, xs4, scf, p,
                            st);
   }
-  return (int)ffn(2, x, w1, w3, w2, h, out, nullptr, B, D, H, act_gelu, st);
+  return (int)ffn(2, x, w1, w3, w2, h, out, nullptr, B, D, H, act_gelu,
+                  static_cast<const int*>(plans), st);
 }
 
 // K7: r1 (B, D) = r + a . wo^T and ffn (B, D) = the FFN of ffn-norm(r1),
@@ -1029,7 +1201,8 @@ int calm_gf4_ffn(const void* x, const void* w1, const void* w3, const void* w2,
 // the layer's ffn-norm row; h (B, H) scratch. B >= 2 takes the multi-row
 // path (offn_mr, with no residual in the w2 launch) with the staging
 // scratch xs/sc and qmv_plan's plans of wo, w1/w3 and w2 (xn unused); B = 1
-// the loop of one row with xn (B, D) scratch (xs, sc and plans unused).
+// gf4_row_kernel with xn (B, D) scratch and gf4_row_plan's plans of wo,
+// w1/w3 and w2 (xs, sc unused).
 int calm_gf4_offn(const void* a, const void* r, const void* g, const void* wo,
                   const void* w1, const void* w3, const void* w2, void* r1,
                   void* xn, void* h, void* ffn_out, int B, int D, int H, int Qd,
@@ -1041,7 +1214,7 @@ int calm_gf4_offn(const void* a, const void* r, const void* g, const void* wo,
                         act_gelu, eps, sub_mean, static_cast<uint4*>(xs),
                         static_cast<float*>(sc), static_cast<const int*>(plans), st);
   return (int)offn(2, a, r, g, wo, w1, w3, w2, r1, xn, h, ffn_out, nullptr, B, D, H, Qd,
-                   act_gelu, eps, sub_mean, st);
+                   act_gelu, eps, sub_mean, static_cast<const int*>(plans), st);
 }
 
 const char* calm_qmm_error_string(int e) {

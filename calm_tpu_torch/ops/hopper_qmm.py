@@ -21,9 +21,11 @@
   the next layer's attn-norm + q/k/v (``csrc/qmm.cu``).
 - :func:`gf4_offn_qkv` replaces ``_gf4_offn_qkv_kernel`` (``:737``): the
   same epilogue on natural gf4 words (``csrc/qmm.cu``, fmt 2), where the
-  TPU kernel reads plane-permuted layouts; from 2 rows on the multi-row
-  path, the words decoded exactly to f16 (:func:`gf4_f16_operand` writes
-  the decode out).
+  TPU kernel reads plane-permuted layouts; one row on the one-row gf4
+  kernel, several rows a warp and k split on the narrow launches as
+  :func:`gf4_row_plan` tiles them; from 2 rows on the multi-row path, the
+  words decoded exactly to f16 (:func:`gf4_f16_operand` writes the decode
+  out). :func:`gf4_ffn` and :func:`gf4_offn` take the same two paths.
 - :func:`gf4_ffn` replaces ``_gf4_ffn_kernel`` (``:464``): the gf4 FFN
   alone, w2 . (act(w1 . x) * (w3 . x)), which parallel-norm (Cohere)
   decode runs on the attn-normed input (``csrc/qmm.cu``; from 2 rows on
@@ -74,6 +76,11 @@ MV_WARPS = 8  # WARPS: warps a block
 MV_TARGET_WARPS = 16 * SMS  # about 16 warps' loads in flight an SM
 MV_MIN_CHUNKS = 4  # the least chunks a warp's share of k, where k allows
 MV_MT2_ROWS = 6144  # from this many rows a launch, 32 rows a warp (else 16)
+# the one-row gf4 path (csrc/qmm.cu gf4_row_kernel)
+G1_ROWS = 4  # output rows a warp, fixed in the kernel (csrc/qmm.cu G1_ROWS)
+G1_ROWS_DUAL = 2  # the same for the dual w1/w3 launch (two weights a row)
+G1_TARGET_WARPS = MV_TARGET_WARPS  # split k until about this many warps
+G1_MIN_WORDS = 128  # the least words of a warp's share of k: 4 a lane
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -135,16 +142,8 @@ class QmvPlan(NamedTuple):
         """(segment, first row, end row, first chunk, end chunk) of warp
         ``warp`` of block ``block``, as the kernel computes it; None for a
         warp past the last group. Its rows are clipped to the segment."""
-        gr = 16 * self.mt
-        grp = block * (MV_WARPS // self.ks) + warp // self.ks
-        kw = warp % self.ks
-        for s, (g, rows) in enumerate(zip(self.groups, seg_rows)):
-            if grp < g:
-                r0 = grp * gr
-                return (s, r0, min(r0 + gr, rows), kw * self.chunks // self.ks,
-                        (kw + 1) * self.chunks // self.ks)
-            grp -= g
-        return None
+        return _warp_work(block, warp, self.ks, 16 * self.mt, self.groups, seg_rows,
+                          self.chunks)
 
     def staging(self, n: int) -> tuple[int, int]:
         """(int32 words of xs, floats of sc) the staged x of n values a row
@@ -152,6 +151,31 @@ class QmvPlan(NamedTuple):
         step, 8 nt row slots."""
         nc = -(-n // MV_CHUNK)
         return nc * 4 * 8 * self.nt * 4 * 4, nc * 8 * self.nt
+
+
+def _warp_work(block: int, warp: int, ks: int, gr: int, groups, seg_rows, units: int):
+    """The kernels' split of work: ``ks`` warps a group of ``gr`` rows,
+    ``MV_WARPS / ks`` groups a block, the groups of segment 0, then 1, then
+    2; warp kw of a group takes units [kw units / ks, (kw + 1) units / ks)
+    of k."""
+    grp = block * (MV_WARPS // ks) + warp // ks
+    kw = warp % ks
+    for s, (g, rows) in enumerate(zip(groups, seg_rows)):
+        if grp < g:
+            r0 = grp * gr
+            return (s, r0, min(r0 + gr, rows), kw * units // ks, (kw + 1) * units // ks)
+        grp -= g
+    return None
+
+
+def _k_split(groups: int, units: int, target: int, least: int) -> int:
+    """Warps a row group splits k over: doubled while the launch has
+    fewer than ``target`` warps and each share keeps ``least`` units of k,
+    up to MV_WARPS."""
+    ks = 1
+    while ks < MV_WARPS and groups * ks < target and units // (2 * ks) >= least:
+        ks *= 2
+    return ks
 
 
 @functools.lru_cache(maxsize=256)
@@ -162,10 +186,7 @@ def _qmv_plan(B: int, seg_rows: tuple, n: int, dual: bool, gf4: bool) -> QmvPlan
     groups = tuple(-(-r // (16 * mt)) for r in seg_rows)
     chunks = -(-n // MV_CHUNK)
     G = sum(groups)
-    ks = 1
-    while (ks < MV_WARPS and G * ks < MV_TARGET_WARPS
-           and chunks // (2 * ks) >= MV_MIN_CHUNKS):
-        ks *= 2
+    ks = _k_split(G, chunks, MV_TARGET_WARPS, MV_MIN_CHUNKS)
     grid = -(-G // (MV_WARPS // ks))
     return QmvPlan(mt, nt, ks, grid, groups, chunks)
 
@@ -201,6 +222,66 @@ def _launch_plans(B: int, launches: tuple, gf4: bool = False) -> tuple[np.ndarra
     ps = [qmv_plan(B, rows, n, dual, gf4) for rows, n, dual in launches]
     words, floats = ps[0].staging(max(n for _, n, _ in launches))
     return np.array([v for p in ps for v in p.args()], dtype=np.int32), words, floats
+
+
+# ---------------------------------------------------------------------------
+# The one-row gf4 path's tiling (csrc/qmm.cu gf4_row_kernel)
+# ---------------------------------------------------------------------------
+
+
+class RowPlan(NamedTuple):
+    """One launch of the one-row gf4 kernel: ``rows`` output rows a warp
+    (the kernel's own), ``ks`` warps split the words of each row group into
+    contiguous ranges, ``MV_WARPS / ks`` groups a block."""
+    rows: int        # output rows a warp (G1_ROWS, G1_ROWS_DUAL for the dual launch)
+    ks: int          # warps a row group (1, 2, 4 or 8)
+    grid: int        # blocks
+    groups: tuple    # row groups of each segment
+    words: int       # gf4 words of k (n / 8)
+
+    def args(self) -> tuple[int, int]:
+        """What the kernel's launcher takes: {ks, grid}."""
+        return (self.ks, self.grid)
+
+    def warp_work(self, block: int, warp: int, seg_rows) -> tuple | None:
+        """(segment, first row, end row, first word, end word) of warp
+        ``warp`` of block ``block``, as the kernel computes it; None for a
+        warp past the last group. Its rows are clipped to the segment."""
+        return _warp_work(block, warp, self.ks, self.rows, self.groups, seg_rows, self.words)
+
+
+@functools.lru_cache(maxsize=256)
+def _gf4_row_plan(seg_rows: tuple, n: int, dual: bool) -> RowPlan:
+    R = G1_ROWS_DUAL if dual else G1_ROWS
+    groups = tuple(-(-r // R) for r in seg_rows)
+    words = n // 8
+    G = sum(groups)
+    ks = _k_split(G, words, G1_TARGET_WARPS, G1_MIN_WORDS)
+    return RowPlan(R, ks, -(-G // (MV_WARPS // ks)), groups, words)
+
+
+def gf4_row_plan(seg_rows, n: int, dual: bool = False) -> RowPlan:
+    """The one-row gf4 kernel's tiling of one row of x against segments of
+    ``seg_rows`` output rows each (1-3: q/k/v side by side) and k = n (a
+    positive multiple of 8: whole words), ``dual`` for the w1/w3 launch:
+    the kernel's G1_ROWS rows a warp (G1_ROWS_DUAL for the dual launch), so
+    one load of x serves them all; the words of k split in two until about
+    G1_TARGET_WARPS warps fill the card, while each keeps G1_MIN_WORDS
+    words or more, up to MV_WARPS."""
+    seg_rows = tuple(int(r) for r in seg_rows)
+    _check(1 <= len(seg_rows) <= 3 and all(r >= 1 for r in seg_rows),
+           f"1-3 segments of >= 1 row, not {seg_rows}")
+    _check(n >= 8 and n % 8 == 0, f"k must be a positive multiple of 8, not {n}")
+    return _gf4_row_plan(seg_rows, int(n), bool(dual))
+
+
+@functools.lru_cache(maxsize=256)
+def _row_plans(launches: tuple) -> np.ndarray:
+    """The one-row gf4 plans of the launches ``((seg_rows, n, dual), ...)``
+    of one call, in one int32 array (the kernel's launcher reads two ints
+    a launch)."""
+    return np.array([v for rows, n, dual in launches for v in gf4_row_plan(rows, n, dual).args()],
+                    dtype=np.int32)
 
 
 def split_operand(x: torch.Tensor, chunk: int = MV_CHUNK):
@@ -488,11 +569,13 @@ def _offn_qkv(a, r, g, anx, wo, w1, w3, w2, wq, wk, wv, layer, fmt: str,
     x = torch.empty((B, D), dtype=torch.float32, device=dev)
     qkv = torch.empty((B, Qd + 2 * KVd), dtype=torch.float32, device=dev)
     xs = sc = plans = None
+    launches = (((D,), Qd, False), ((H,), D, True), ((D,), H, False), ((Qd, KVd, KVd), D, False))
     if multirow:  # wo, w1/w3, w2, q/k/v
-        arr, words, floats = _launch_plans(B, (((D,), Qd, False), ((H,), D, True),
-                                               ((D,), H, False), ((Qd, KVd, KVd), D, False)),
-                                           fmt == "gf4")
+        arr, words, floats = _launch_plans(B, launches, fmt == "gf4")
         buf, xs, sc = _staging(words, floats, dev)  # buf: held past the launch
+        plans = arr.ctypes.data
+    elif fmt == "gf4":
+        arr = _row_plans(launches)  # held past the launch
         plans = arr.ctypes.data
     rc = build.lib("qmm").calm_qx_offn_qkv(
         a.data_ptr(), r.data_ptr(), _plane_ptr(g, l), _plane_ptr(anx, ln),
@@ -592,10 +675,14 @@ def gf4_ffn(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor, w2: torch.Tenso
     _check(1 <= B <= MAX_ROWS, f"the decode kernel takes 1..{MAX_ROWS} rows")
     h = torch.empty((B, H), dtype=torch.float32, device=x.device)
     y = torch.empty((B, D), dtype=torch.float32, device=x.device)
-    xs = sc = plans = None
-    if B >= 2:  # w1/w3, w2
-        arr, words, floats = _launch_plans(B, (((H,), D, True), ((D,), H, False)), True)
+    xs = sc = None
+    launches = (((H,), D, True), ((D,), H, False))  # w1/w3, w2
+    if B >= 2:
+        arr, words, floats = _launch_plans(B, launches, True)
         buf, xs, sc = _staging(words, floats, x.device)  # buf: held past the launch
+        plans = arr.ctypes.data
+    else:
+        arr = _row_plans(launches)  # held past the launch
         plans = arr.ctypes.data
     rc = build.lib("qmm").calm_gf4_ffn(
         x.data_ptr(), w1l.data_ptr(), w3l.data_ptr(), w2l.data_ptr(), h.data_ptr(),
@@ -653,11 +740,14 @@ def gf4_offn(a: torch.Tensor, r: torch.Tensor, g: torch.Tensor, wo: torch.Tensor
     r1, ffn = (torch.empty((B, D), dtype=torch.float32, device=dev) for _ in range(2))
     xn = None if multirow else torch.empty((B, D), dtype=torch.float32, device=dev)
     h = torch.empty((B, H), dtype=torch.float32, device=dev)
-    xs = sc = plans = None
-    if multirow:  # wo, w1/w3, w2
-        arr, words, floats = _launch_plans(B, (((D,), 8 * q8, False), ((H,), D, True),
-                                               ((D,), H, False)), True)
+    xs = sc = None
+    launches = (((D,), 8 * q8, False), ((H,), D, True), ((D,), H, False))  # wo, w1/w3, w2
+    if multirow:
+        arr, words, floats = _launch_plans(B, launches, True)
         buf, xs, sc = _staging(words, floats, dev)  # buf: held past the launch
+        plans = arr.ctypes.data
+    else:
+        arr = _row_plans(launches)  # held past the launch
         plans = arr.ctypes.data
     rc = build.lib("qmm").calm_gf4_offn(
         a.data_ptr(), r.data_ptr(), _plane_ptr(g, l), wol.data_ptr(), w1l.data_ptr(),

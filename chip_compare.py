@@ -1,12 +1,14 @@
-"""Times another tree's gf4 multi-row matvecs with this tree's checks.
+"""Times another tree's gf4 matvecs with this tree's checks.
 
     python3 chip_compare.py <directory holding another checkout's calm_tpu_torch>
 
 Puts that directory first on ``sys.path``, builds its kernels, and runs
 ``chip_smoke.multirow_kernel_rows_gf4_decode`` (K3 on the Aya 23 8B
-lm-head and a q plane, K7 on one Mistral-7B layer, at B = 4, 8, 16, each
+lm-head and a q plane, K7 on one Mistral-7B layer, at B = 4, 8, 16) and
+``chip_smoke.onerow_kernel_rows_gf4`` (K8, K7 and K6 at one row on
+Mistral-7B widths, K6 also at B = 8, each split by launch), every row
 checked against its plain version and timed beside its bound and library
-call) on that tree's wrappers. Run it before and after ``chip_smoke.py``
+call, on that tree's wrappers. Run it before and after ``chip_smoke.py``
 in one call on the card to compare two commits there. Needs a GPU.
 """
 
@@ -37,7 +39,9 @@ def main():
         sys.exit(f"chip_compare: calm_tpu_torch came from {calm_tpu_torch.__file__}, not {pkg}")
     cs.log(f"# {calm_tpu_torch.__file__} on {device.smi_name_power()}; kernel build "
            f"{build.build_all():.1f} s")
-    rows = cs.multirow_kernel_rows_gf4_decode(3350.0, torch.device("cuda"))
+    dev = torch.device("cuda")
+    rows = cs.multirow_kernel_rows_gf4_decode(3350.0, dev)
+    rows.update(cs.onerow_kernel_rows_gf4(3350.0, dev))
     cs.log(json.dumps(rows))
 
 

@@ -15,7 +15,9 @@ slots 2^20 apart in scale, each held to its own; K8 and K6 on the same
 path on gf4 words, slots 2^20 apart and subnormal scale bytes included,
 K6 also at a model width of 1032, an odd word count a row; K3 and K7 on
 it too, K3 at the Aya 23 8B and Mistral-7B lm-heads and at d = 1000, n =
-1032 and n = 8, K7 with Qd = 512 != D) and times it
+1032 and n = 8, K7 with Qd = 512 != D; K8, K7 and K6 at one row on the
+one-row gf4 kernel, split by launch, its tiling swept, and at odd word
+counts, n = 8 and 14336 and all-subnormal scale bytes) and times it
 beside its bound and its library call (kernel/library on each timed row),
 after the redesigned kernels' ptxas report; runs both bandwidth tools
 (``calm_tpu_torch.tools.dma_ceiling``, ``gf4_bound``), whose 3 GB rows
@@ -401,7 +403,9 @@ def kernel_phase(gbps, dev):
     multirow_checks(dev)
     ragged_checks_paged(dev)
     ragged_checks_tilings(dev)
-    rows.update(ffn_kernel_rows(gbps, dev))
+    rows.update(onerow_kernel_rows_gf4(gbps, dev))
+    ragged_checks_onerow(dev)
+    onerow_sweep(gbps, dev)
     rows.update(stream_kernel_rows(gbps, dev))
     ragged_checks_ffn_stream(dev)
     log("# max_abs_err / max|out|, worst of each kernel's checks: " + ", ".join(
@@ -1234,67 +1238,243 @@ def ragged_checks_moe(dev):
         f"{k} {v:.3e}" for k, v in worst.items()))
 
 
-def ffn_kernel_rows(gbps, dev):
-    """K6 at one Aya 23 8B / Mistral-7B layer's FFN (dim 4096, hidden
-    14336), B=1 and B=8; K7 at one Mistral-7B layer (wo 4096 x 4096), B=1
-    (its B = 4, 8, 16 rows: multirow_kernel_rows_gf4_decode), RMSNorm as
-    Mistral's. Two-layer stacks cycled: one layer's 88 MB of FFN words is
-    past the 50 MB L2."""
+def by_launch(fn, what: str, products, norm_bytes: float, gbps: float, calls: int = 10):
+    """The device ms of each launch of one call of ``fn(i)``, in launch
+    order, over ``calls`` calls, each beside its byte bound: ``products``
+    ((label, bytes), ...) are the chain's products in order, and any
+    launch of ``norm_kernel`` between them moves ``norm_bytes``. Logs them
+    with the chain's span on the device (its first launch's start to its
+    last's end) and the gaps in it; returns [(label, kernel, ms, bound
+    ms), ...] and the span in ms."""
+    from torch.autograd import DeviceType
+
+    for i in range(3):
+        fn(i)
+    prof = _profile(lambda: [fn(i) for i in range(calls)])
+    evs = sorted((e.time_range.start, e.time_range.end, _short(e.name)) for e in prof.events()
+                 if e.device_type == DeviceType.CUDA)
+    if not evs or len(evs) % calls:
+        log(f"# {what} by launch: the profiler saw {len(evs)} launches in {calls} calls")
+        return [], None
+    n = len(evs) // calls
+    out, prods = [], iter(products)
+    for j in range(n):
+        name = evs[j][2]
+        label, nb = ("norm", norm_bytes) if "norm" in name else next(prods, ("?", 0.0))
+        ms = statistics.mean(evs[c * n + j][1] - evs[c * n + j][0] for c in range(calls)) / 1e3
+        out.append((label, name, ms, nb / (gbps * 1e9) * 1e3))
+    span = statistics.mean(evs[c * n + n - 1][1] - evs[c * n][0] for c in range(calls)) / 1e3
+    busy = sum(o[2] for o in out)
+    log(f"# {what} by launch (device ms / bound ms, % of bound): " + "; ".join(
+        f"{lab} {name} {ms:.4f} / {b:.4f} ({100 * b / ms:.1f}%)" for lab, name, ms, b in out)
+        + f"; launches {busy:.4f}, span {span:.4f}, gaps {span - busy:.4f} ms a call")
+    return out, span
+
+
+def onerow_kernel_rows_gf4(gbps, dev):
+    """The one-row gf4 epilogue (B = 1) at Mistral-7B widths (D 4096, H
+    14336, Qd 4096, KVd 1024; RMSNorm as Mistral's): K8 (one layer), K7
+    (one layer) and K6 (one Aya 23 8B / Mistral-7B FFN), each checked on
+    both layers of 2-layer stacks (cycled when timed: one layer's 88 MB of
+    FFN words is past the 50 MB L2), timed beside its bound, plain version
+    and library call (bf16 matmuls on planes dequantized beforehand), and
+    split by launch (``by_launch``); K6 also checked and timed at B = 8.
+    Calls the wrappers only, so it also times an older tree's package in
+    the same run (``chip_compare.py``)."""
     import torch.nn.functional as F
 
     from calm_tpu_torch.ops import hopper_qmm as hq
     from calm_tpu_torch.ops.qmm import QTensor, dequant
 
     rows, L, eps = {}, 2, 1e-5
-    w1, w3 = (rand_w((L, HID, D // 8), "gf4", dev) for _ in range(2))
-    w2 = rand_w((L, D, HID // 8), "gf4", dev)
-    wo = rand_w((L, D, Q // 8), "gf4", dev)
-    wb = [dequant(QTensor(w, "gf4"), torch.bfloat16) for w in (w1, w3, w2, wo)]
-    n_ffn = 3 * HID * D
-
-    def ffn_lib(xb, l):
-        return torch.matmul(F.silu(torch.matmul(xb, wb[0][l].T))
-                            * torch.matmul(xb, wb[1][l].T), wb[2][l].T)
-    errs, best = [], None
-    for B in (1, 8):
-        x = torch.randn(B, D, device=dev)
-        for layer in range(L):
-            errs.append(check(f"gf4_ffn B={B} layer {layer}",
-                              hq.gf4_ffn(x, w1, w3, w2, layer, False),
-                              hq.gf4_ffn_plain(x, w1, w3, w2, layer, False), TOL_MV))
-        # operations at the bf16 rate: the TPU kernel computes this function
-        # on bf16 operands
-        b, by = bound_ms(n_ffn // 2 + 4 * 2 * B * D, 2 * B * n_ffn, gbps, PEAK_BF16)
-        xb = x.bfloat16()
-        t = timings(lambda i: hq.gf4_ffn(x, w1, w3, w2, i % L, False),
-                    lambda i: hq.gf4_ffn_plain(x, w1, w3, w2, i % L, False),
-                    lambda i: ffn_lib(xb, i % L), bound=b)
-        log(f"# K6 gf4_ffn D={D} H={HID} B={B}: max_abs_err {max(errs):.3e} (tol "
-            f"{TOL_MV:g} x max|y|); {ms_line(t)} (3 bf16 matmuls on pre-dequantized "
-            f"planes) bound_ms {b:.4f} ({by}, {n_ffn / 2e6:.1f} MB); {share(t, b)}")
-        if B == 1:
-            best = dict(t, bound_ms=b, bound_by=by)
-    rows["gf4_ffn"] = dict(best, max_abs_err=max(errs))
-
+    ws = [rand_w((L, d, n // 8), "gf4", dev)
+          for d, n in ((D, Q), (HID, D), (HID, D), (D, HID), (Q, D), (KV, D), (KV, D))]
+    wo, w1, w3, w2 = ws[:4]
     g = 1 + 0.1 * torch.randn(L, D, device=dev)
+    anx = 1 + 0.1 * torch.randn(L, D, device=dev)
+    wb = [dequant(QTensor(w, "gf4"), torch.bfloat16) for w in ws]
     a, r = torch.randn(1, Q, device=dev), torch.randn(1, D, device=dev)
+    # each product's bytes at one row: words, x, out (and resid)
+    p_wo = ("wo", D * Q / 2 + 4 * (Q + 2 * D))
+    p_dual = ("w1/w3", HID * D + 4 * (D + HID))
+    p_w2 = ("w2", D * HID / 2 + 4 * (HID + 2 * D))
+    p_qkv = ("q/k/v", (Q + 2 * KV) * D / 2 + 4 * (D + Q + 2 * KV))
+    norm_b = 4 * 3 * D
+
+    # K8 gf4_offn_qkv
+    errs = [check(f"gf4_offn_qkv B=1 layer {layer}",
+                  hq.gf4_offn_qkv(a, r, g, anx, *ws, layer, False, eps, False),
+                  hq.gf4_offn_qkv_plain(a, r, g, anx, *ws, layer, False, eps, False), TOL_MV)
+            for layer in range(L)]
+    n_w = D * Q + 3 * HID * D + (Q + 2 * KV) * D
+    b, by = bound_ms(n_w // 2 + 4 * (3 * D + 2 * Q + 2 * KV), 2 * n_w, gbps)
+    t = timings(lambda i: hq.gf4_offn_qkv(a, r, g, anx, *ws, i % L, False, eps, False),
+                lambda i: hq.gf4_offn_qkv_plain(a, r, g, anx, *ws, i % L, False, eps, False),
+                epilogue_chain(a, r, g, anx, wb, L), bound=b)
+    log(f"# K8 gf4_offn_qkv one layer D={D} H={HID} Qd={Q} KVd={KV} B=1: "
+        f"max_abs_err {max(errs):.3e} (tol {TOL_MV:g} x max|out|); {ms_line(t)} "
+        f"(7 bf16 matmuls on pre-dequantized planes) bound_ms {b:.4f} ({by}, "
+        f"{n_w / 2e6:.1f} MB); {share(t, b)}")
+    rows["gf4_offn_qkv"] = dict(t, bound_ms=b, bound_by=by, max_abs_err=max(errs))
+    by_launch(lambda i: hq.gf4_offn_qkv(a, r, g, anx, *ws, i % L, False, eps, False),
+              "K8 gf4 one layer B=1", (p_wo, p_dual, p_w2, p_qkv), norm_b, gbps)
+
+    # K7 gf4_offn
     errs = []
     for layer in range(L):
         args = (a, r, g, wo, w1, w3, w2, layer, False, eps, False)
-        errs += check_offn(f"layer {layer}", hq.gf4_offn(*args), hq.gf4_offn_plain(*args))
-    n_w = n_ffn + D * Q
+        errs += check_offn(f"B=1 layer {layer}", hq.gf4_offn(*args), hq.gf4_offn_plain(*args))
+    n_w = 3 * HID * D + D * Q
     b, by = bound_ms(n_w // 2 + 4 * (Q + 4 * D), 2 * n_w, gbps)
     t = timings(lambda i: hq.gf4_offn(a, r, g, wo, w1, w3, w2, i % L, False, eps, False),
-                lambda i: hq.gf4_offn_plain(a, r, g, wo, w1, w3, w2, i % L, False, eps,
-                                            False), offn_library([wb[3], *wb[:3]], g, eps)(a, r),
-                bound=b)
+                lambda i: hq.gf4_offn_plain(a, r, g, wo, w1, w3, w2, i % L, False, eps, False),
+                offn_library(wb[:4], g, eps)(a, r), bound=b)
     log(f"# K7 gf4_offn D={D} H={HID} Qd={Q} B=1: max_abs_err {max(errs):.3e} (tol "
         f"{TOL_MV:g} x max|out|, ffn and r1 each); {ms_line(t)} (4 bf16 matmuls + "
         f"rms_norm) bound_ms {b:.4f} ({by}, {n_w / 2e6:.1f} MB); {share(t, b)}")
     rows["gf4_offn"] = dict(t, bound_ms=b, bound_by=by, max_abs_err=max(errs))
-    del w1, w3, w2, wo, wb
+    by_launch(lambda i: hq.gf4_offn(a, r, g, wo, w1, w3, w2, i % L, False, eps, False),
+              "K7 gf4 one layer B=1", (p_wo, p_dual, (p_w2[0], p_w2[1] - 4 * D)), norm_b, gbps)
+
+    # K6 gf4_ffn; operations at the bf16 rate: the TPU kernel computes this
+    # function on bf16 operands
+    n_f = 3 * HID * D
+    for B in (1, 8):
+        x = torch.randn(B, D, device=dev)
+        errs = [check(f"gf4_ffn B={B} layer {layer}", hq.gf4_ffn(x, w1, w3, w2, layer, False),
+                      hq.gf4_ffn_plain(x, w1, w3, w2, layer, False), TOL_MV)
+                for layer in range(L)]
+        b, by = bound_ms(n_f // 2 + 4 * 2 * B * D, 2 * B * n_f, gbps, PEAK_BF16)
+        xb = x.bfloat16()
+        t = timings(lambda i: hq.gf4_ffn(x, w1, w3, w2, i % L, False),
+                    lambda i: hq.gf4_ffn_plain(x, w1, w3, w2, i % L, False),
+                    lambda i: torch.matmul(F.silu(torch.matmul(xb, wb[1][i % L].T))
+                                           * torch.matmul(xb, wb[2][i % L].T), wb[3][i % L].T),
+                    bound=b)
+        log(f"# K6 gf4_ffn D={D} H={HID} B={B}: max_abs_err {max(errs):.3e} (tol "
+            f"{TOL_MV:g} x max|y|); {ms_line(t)} (3 bf16 matmuls on pre-dequantized "
+            f"planes) bound_ms {b:.4f} ({by}, {n_f / 2e6:.1f} MB); {share(t, b)}")
+        if B == 1:
+            rows["gf4_ffn"] = dict(t, bound_ms=b, bound_by=by, max_abs_err=max(errs))
+            by_launch(lambda i: hq.gf4_ffn(x, w1, w3, w2, i % L, False), "K6 gf4 FFN B=1",
+                      (p_dual, (p_w2[0], p_w2[1] - 4 * D)), norm_b, gbps)
+    del ws, wo, w1, w3, w2, wb
     torch.cuda.empty_cache()
     return rows
+
+
+def onerow_sweep(gbps, dev):
+    """The one-row gf4 kernel's k split on K8 at B = 1 (one Mistral-7B
+    layer, 2-layer stacks cycled): gf4_row_plan's (k split towards
+    G1_TARGET_WARPS warps while a warp keeps G1_MIN_WORDS words) against k
+    whole and k split 4x further; each checked against the plain version,
+    timed, and split by launch. The rows a warp are the kernel's own."""
+    from calm_tpu_torch.ops import hopper_qmm as hq
+
+    L, eps = 2, 1e-5
+    ws = [rand_w((L, d, n // 8), "gf4", dev)
+          for d, n in ((D, Q), (HID, D), (HID, D), (D, HID), (Q, D), (KV, D), (KV, D))]
+    g = 1 + 0.1 * torch.randn(L, D, device=dev)
+    anx = 1 + 0.1 * torch.randn(L, D, device=dev)
+    a, r = torch.randn(1, Q, device=dev), torch.randn(1, D, device=dev)
+    want = hq.gf4_offn_qkv_plain(a, r, g, anx, *ws, 1, False, eps, False)
+    n_w = D * Q + 3 * HID * D + (Q + 2 * KV) * D
+    b, _ = bound_ms(n_w // 2 + 4 * (3 * D + 2 * Q + 2 * KV), 2 * n_w, gbps)
+    names = ("G1_TARGET_WARPS", "G1_MIN_WORDS")
+    base = tuple(getattr(hq, k) for k in names)
+    T, M = base
+    prods = (("wo", D * Q / 2 + 4 * (Q + 2 * D)), ("w1/w3", HID * D + 4 * (D + HID)),
+             ("w2", D * HID / 2 + 4 * (HID + 2 * D)),
+             ("q/k/v", (Q + 2 * KV) * D / 2 + 4 * (D + Q + 2 * KV)))
+    out = []
+    try:
+        for cfg in (base, (0, M), (4 * T, M // 4)):
+            for k, v in zip(names, cfg):
+                setattr(hq, k, v)
+            hq._gf4_row_plan.cache_clear()
+            hq._row_plans.cache_clear()
+            plans = [hq.gf4_row_plan(rows, n, dual) for rows, n, dual in
+                     (((D,), Q, False), ((HID,), D, True), ((D,), HID, False),
+                      ((Q, KV, KV), D, False))]
+            what = ("ks " + "/".join(str(p.ks) for p in plans)
+                    + (" (the plan)" if cfg == base else ""))
+            check(f"gf4_offn_qkv B=1 {what}",
+                  hq.gf4_offn_qkv(a, r, g, anx, *ws, 1, False, eps, False), want, TOL_MV)
+            ms, how = timed(lambda i: hq.gf4_offn_qkv(a, r, g, anx, *ws, i % L, False, eps,
+                                                      False), floor=b)
+            out.append(f"{what} {ms:.4f} ms ({how}, {100 * b / ms:.1f}% of bound)")
+            by_launch(lambda i: hq.gf4_offn_qkv(a, r, g, anx, *ws, i % L, False, eps, False),
+                      f"K8 B=1 {what}", prods, 4 * 3 * D, gbps)
+    finally:
+        for k, v in zip(names, base):
+            setattr(hq, k, v)
+        hq._gf4_row_plan.cache_clear()
+        hq._row_plans.cache_clear()
+    log(f"# K8 one layer B=1 by k split (bound_ms {b:.4f}): " + "; ".join(out))
+    del ws
+    torch.cuda.empty_cache()
+
+
+def ragged_checks_onerow(dev):
+    """The one-row gf4 kernel (K6, K7 and K8 at B = 1) on shapes the
+    Mistral-7B rows do not reach, SiLU and GELU, random and all-subnormal
+    scale bytes: K6 at D 1032 / H 11032 (129 and 1379 words a row: odd
+    word counts), D 8 / H 1000 (one word a row of w1 and w3, 8 rows of w2)
+    and D 1000 / H 14336 (125 words a row of w1 and w3, w2 at n = 14336);
+    K7 at D 1032 / H 11032 / Qd 512 and D 1000 / H 14336 / Qd 8 (one
+    word a row of wo), LayerNorm with GELU; K8 at D 384 / H 640 / Qd 256
+    with KVd 128 and KVd 6, whose k and v segments end inside a 4-row
+    group (every other row count is whole words', a multiple of 8).
+    Subnormal scales are held each output to its own max|out|."""
+    from calm_tpu_torch.ops import hopper_qmm as hq
+
+    L, eps, n = 2, 1e-5, 0
+    worst = {"gf4_ffn": 0.0, "gf4_offn": 0.0, "gf4_offn_qkv": 0.0}
+
+    def words(kind, shape):
+        return rand_w(shape, "gf4", dev) if kind == "random" else subnormal_gf4(shape, dev)
+    for kind in ("random", "subnormal"):
+        chk = check if kind == "random" else check_rows
+        for Dm, Hm, Qm in ((1032, 11032, 512), (8, 1000, 0), (1000, 14336, 8)):
+            w1, w3 = (words(kind, (L, Hm, Dm // 8)) for _ in range(2))
+            w2 = words(kind, (L, Dm, Hm // 8))
+            g = 1 + 0.1 * torch.randn(L, Dm, device=dev)
+            for gelu in (False, True):
+                x = torch.randn(1, Dm, device=dev)
+                e = chk(f"gf4_ffn D={Dm} H={Hm} B=1 gelu={gelu} {kind} scales",
+                        hq.gf4_ffn(x, w1, w3, w2, 1, gelu),
+                        hq.gf4_ffn_plain(x, w1, w3, w2, 1, gelu), TOL_MV)
+                worst["gf4_ffn"], n = max(worst["gf4_ffn"], e), n + 1
+                if Qm:
+                    wo = words(kind, (L, Dm, Qm // 8))
+                    args = (torch.randn(1, Qm, device=dev), torch.randn(1, Dm, device=dev), g,
+                            wo, w1, w3, w2, 1, gelu, eps, gelu)  # LayerNorm with GELU
+                    what = f"D={Dm} H={Hm} Qd={Qm} B=1 gelu={gelu} {kind} scales"
+                    got, want = hq.gf4_offn(*args), hq.gf4_offn_plain(*args)
+                    e = (max(check_offn(what, got, want)) if kind == "random"
+                         else check_rows(f"gf4_offn {what}", got, want, TOL_MV))
+                    worst["gf4_offn"], n = max(worst["gf4_offn"], e), n + 1
+            del w1, w3, w2
+        Dm, Hm, Qm = 384, 640, 256
+        for KVm in (128, 6):
+            ws = [words(kind, (L, d, k // 8)) for d, k in ((Dm, Qm), (Hm, Dm), (Hm, Dm),
+                                                           (Dm, Hm), (Qm, Dm), (KVm, Dm),
+                                                           (KVm, Dm))]
+            g = 1 + 0.1 * torch.randn(L, Dm, device=dev)
+            anx = 1 + 0.1 * torch.randn(L, Dm, device=dev)
+            for gelu in (False, True):
+                for layer in range(L):
+                    args = (torch.randn(1, Qm, device=dev), torch.randn(1, Dm, device=dev), g,
+                            anx, *ws, layer, gelu, eps, gelu)
+                    e = chk(f"gf4_offn_qkv D={Dm} H={Hm} Qd={Qm} KVd={KVm} B=1 gelu={gelu} "
+                            f"layer {layer} {kind} scales", hq.gf4_offn_qkv(*args),
+                            hq.gf4_offn_qkv_plain(*args), TOL_MV)
+                    worst["gf4_offn_qkv"], n = max(worst["gf4_offn_qkv"], e), n + 1
+            del ws
+    torch.cuda.synchronize()
+    log(f"# one-row gf4 kernel, ragged shapes: {n} checks within {TOL_MV:g} of max|out| "
+        "(subnormal scales: of each output's), max_abs_err " + ", ".join(
+            f"{k} {v:.3e}" for k, v in worst.items()))
 
 
 def check_offn(name, got, want) -> list[float]:
@@ -1531,8 +1711,7 @@ def prefill_corner_checks(dev):
 
 def gf4_kernel_rows(gbps, dev):
     """K3 at the gf4 lm-head (32000 x 4096) and w2 (4096 x 14336), B=1; K4
-    at T=2048 for w1 (14336 x 4096) and K5 for w2 (4096 x 14336); K8 one
-    Mistral-7B layer."""
+    at T=2048 for w1 (14336 x 4096) and K5 for w2 (4096 x 14336)."""
     from calm_tpu_torch.ops import hopper_qmm as hq
     from calm_tpu_torch.ops.qmm import QTensor, dequant
 
@@ -1582,32 +1761,6 @@ def gf4_kernel_rows(gbps, dev):
             f"{ms_b / t['library_ms']:.2f}x")
         rows[key] = dict(t, bound_ms=b, bound_by=by, max_abs_err=err, bf16_x_ms=ms_b)
         del w, wb, x, xb
-
-    # K8 gf4_offn_qkv: one Mistral-7B layer, 2-layer stacks (the clamp)
-    errs = []
-    ws = [rand_w((L, d, n // 8), "gf4", dev)
-          for d, n in ((D, Q), (HID, D), (HID, D), (D, HID), (Q, D), (KV, D), (KV, D))]
-    g = 1 + 0.1 * torch.randn(L, D, device=dev)
-    anx = 1 + 0.1 * torch.randn(L, D, device=dev)
-    a, r = torch.randn(1, Q, device=dev), torch.randn(1, D, device=dev)
-    for layer in range(L):
-        errs.append(check(
-            f"gf4_offn_qkv layer {layer}",
-            hq.gf4_offn_qkv(a, r, g, anx, *ws, layer, False, 1e-5, False),
-            hq.gf4_offn_qkv_plain(a, r, g, anx, *ws, layer, False, 1e-5, False), TOL_MV))
-    wb = [dequant(QTensor(w, "gf4"), torch.bfloat16) for w in ws]
-    t = timings(lambda i: hq.gf4_offn_qkv(a, r, g, anx, *ws, i % L, False, 1e-5, False),
-                lambda i: hq.gf4_offn_qkv_plain(a, r, g, anx, *ws, i % L, False, 1e-5,
-                                                False),
-                epilogue_chain(a, r, g, anx, wb, L))
-    n_w = D * Q + 3 * HID * D + (Q + 2 * KV) * D
-    b, by = bound_ms(n_w // 2 + 4 * (3 * D + 2 * Q + 2 * KV), 2 * n_w, gbps)
-    log(f"# K8 gf4_offn_qkv one layer D={D} H={HID} Qd={Q} KVd={KV} B=1: "
-        f"max_abs_err {max(errs):.3e} (tol {TOL_MV:g} x max|out|); {ms_line(t)} "
-        f"(7 bf16 matmuls on pre-dequantized planes) bound_ms {b:.4f} ({by}, "
-        f"{n_w / 2e6:.1f} MB); {share(t, b)}")
-    rows["gf4_offn_qkv"] = dict(t, bound_ms=b, bound_by=by, max_abs_err=max(errs))
-    del ws, wb
     return rows
 
 
@@ -3167,7 +3320,8 @@ def main():
         f"{ptxas_kernels(build, 'ring', 'allreduce_kernel')}")
     log(f"# ptxas -v, the multi-row path <fmt, act, m-tiles, n-tiles, odd gf4 rows>: "
         f"{ptxas_each(build, 'qmm', 'mmv_kernel')}; the one-row loops <fmt, act>: "
-        f"{ptxas_each(build, 'qmm', 'qmv_kernel')}; {ptxas_each(build, 'gf4', 'gf4_mv_kernel')}")
+        f"{ptxas_each(build, 'qmm', 'qmv_kernel')}; <act>: "
+        f"{ptxas_each(build, 'qmm', 'gf4_row_kernel')}; {ptxas_each(build, 'gf4', 'gf4_mv_kernel')}")
     dev = torch.device("cuda")
 
     RATES["nominal"] = gbps
