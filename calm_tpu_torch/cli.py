@@ -2,8 +2,8 @@
 ``calm_tpu.cli``).
 
 Flag-compatible with the reference CLI (src/run.c:421-490):
-  -t temperature   -p min-p   -s seed   -n steps   -c context
-  -i prompt (- reads stdin)   -x ppl-file   -y system-prompt
+  -t temperature   -p min-p   -s seed   -n steps   -r sequences
+  -c context   -i prompt (- reads stdin)   -x ppl-file   -y system-prompt
   --kv KV cache dtype
 
 Env hooks:
@@ -14,8 +14,11 @@ Env hooks:
 -x prints ``# perplexity: P ± E``; -y chats (-n bounds each reply, -1
 leaves it unbounded). ``-t > 0`` samples on the device;
 ``--reference-sampling`` samples on the host with the reference's
-xorshift64* stream instead, bit for bit as ``calm_tpu.cli``'s flag. -r (several sequences) and --draft are not ported yet and
-exit 2 with a message saying so.
+xorshift64* stream instead, bit for bit as ``calm_tpu.cli``'s flag. -r N
+resets and generates N times, a perf line each (on the card the later
+sequences replay the steps the first one captured: their lines are the
+steady state). --draft is not ported yet and exits 2 with a message
+saying so.
 
     python -m calm_tpu_torch.cli model.calm -t 0 -n 64 -i "..."
 """
@@ -31,7 +34,7 @@ from calm_tpu_torch.container import ContainerError
 from calm_tpu_torch.device import NoGPUError
 from calm_tpu_torch.engine import Engine, chat_loop
 
-_NOT_PORTED = {"sequences": "-r", "draft": "--draft"}
+_NOT_PORTED = {"draft": "--draft"}
 
 
 def main(argv=None):
@@ -46,6 +49,8 @@ def main(argv=None):
                     help="random seed, default time-based")
     ap.add_argument("-n", dest="steps", type=int, default=256,
                     help="steps to run, 0 = max_seq_len, -1 = infinite")
+    ap.add_argument("-r", dest="sequences", type=int, default=1,
+                    help="number of sequences to decode")
     ap.add_argument("-c", dest="context", type=int, default=0,
                     help="context length override")
     ap.add_argument("-i", dest="prompt", type=str, default=None,
@@ -59,7 +64,6 @@ def main(argv=None):
     ap.add_argument("--reference-sampling", action="store_true",
                     help="per-token host sampling with the reference's "
                     "xorshift64* stream (default: on the device)")
-    ap.add_argument("-r", dest="sequences", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--draft", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
@@ -121,13 +125,15 @@ def main(argv=None):
                   reference_sampling=args.reference_sampling,
                   max_reply=steps if steps > 0 else None)
     else:
-        stats = engine.generate(
-            prompt or "", steps, temperature=args.temperature, minp=args.minp,
-            seed=seed, pos_offset=pos_offset, echo=True,
-            reference_sampling=args.reference_sampling,
-            on_piece=lambda s: print(s, end="", flush=True))
-        print()
-        print(stats.perf_line(), file=sys.stderr)
+        for _ in range(args.sequences):
+            engine.reset()
+            stats = engine.generate(
+                prompt or "", steps, temperature=args.temperature, minp=args.minp,
+                seed=seed, pos_offset=pos_offset, echo=True,
+                reference_sampling=args.reference_sampling,
+                on_piece=lambda s: print(s, end="", flush=True))
+            print()
+            print(stats.perf_line(), file=sys.stderr)
 
 
 if __name__ == "__main__":

@@ -15,7 +15,8 @@
   logits, a ``torch.Generator`` seeded from ``seed``), and with
   ``reference_sampling=True`` on the host with the reference's xorshift64*
   stream, as the JAX package's flag of that name (``calm_tpu/engine.py
-  :182-233``);
+  :182-233``); on the card both replay the cache's captured step, a chunk
+  with one host sync, a host-sampled token with one logits copy;
 - perplexity with a running mean +- standard error (src/run.c:258-316),
   and chat with vocab-sniffed templates (src/run.c:318-419);
 - fp8 KV is chosen for contexts above 4096 (src/run.c:536-540);
@@ -151,9 +152,10 @@ class Engine:
         return torch.tensor([token], dtype=torch.int64, device=self.device)
 
     def step(self, token: int, pos: int) -> np.ndarray:
-        """One decode step; returns f32 logits on the host."""
-        out, self.cache = M.decode_step(self.cfg, self.weights,
-                                        self._token(token), pos, self.cache)
+        """One decode step; returns f32 logits on the host. It keeps the
+        sink rotation only at the window's edge (``pos + 1 >= seq_len``)."""
+        out, _ = M.decode_once(self.cfg, self.weights, [token], [pos], self.cache,
+                               pos + 1 >= self.cfg.seq_len)
         return out[0].float().cpu().numpy()
 
     def _prefill(self, tokens: list[int], pos0: int, logits_mode: str):

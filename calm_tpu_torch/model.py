@@ -21,9 +21,18 @@ its own position:
    (``model.py:1289-1306``);
 5. final norm and the lm-head through ``qmm_decode``.
 
-The step's host ints (tokens, positions, window rows) reach the card in
-one non-blocking copy, so a step makes no host sync before its logits are
-read.
+The step runs on device state (``_decode``): tokens (B,) int64 and
+positions (B,) int32 on the card, the window rows computed from them as
+JAX computes them (:func:`decode_indices`), and a static ``rolling`` flag
+that the host picks, as ``decode_step_fn``'s (``calm_tpu/model.py
+:1348-1360``). Nothing in it reads a device value on the host or sizes a
+tensor by one, so it can be captured: on the card :func:`decode_loop` and
+:func:`decode_once` replay it as a CUDA graph (``graphs.StepGraph``, kept
+on the cache), which is the counterpart of ``decode_step``,
+``decode_scan`` and ``decode_scan_sampled``. Host-int callers of
+:func:`decode_step` upload their ints in one non-blocking copy and run
+the same function eagerly. The CPU path and a sharded plan (whose
+collectives go through ``torch.distributed``) run eagerly.
 
 Models whose dims are not 128-aligned, MoE and parallel-norm (Cohere)
 models (as ``model.py:1228``), and fp8/fp16 models under ``CALM_ROT=0``
@@ -71,6 +80,7 @@ import torch
 
 from calm_tpu_torch.config import ModelConfig
 from calm_tpu_torch.container import TensorFile, to_torch
+from calm_tpu_torch.graphs import StepGraph
 from calm_tpu_torch.ops.hopper_attn import (HEAD_DIMS, decode_attention,
                                             prefill_attention)
 from calm_tpu_torch.ops.hopper_qmm import (MAX_ROWS, act, gf4_ffn,
@@ -132,6 +142,8 @@ class Weights:
 class KVCache:
     k: torch.Tensor  # (L, B, KVH, S, hd)
     v: torch.Tensor
+    # the captured decode steps on this cache (step_graph); they go with it
+    graphs: dict = dataclasses.field(default_factory=dict, repr=False, compare=False)
 
     @classmethod
     def create(cls, cfg: ModelConfig, batch: int = 1,
@@ -325,11 +337,16 @@ def weights_from_numpy(arrays: dict[str, np.ndarray], cfg: ModelConfig,
 # ---------------------------------------------------------------------------
 
 
-def decode_indices(cfg: ModelConfig, pos: int) -> tuple[int, int]:
+def decode_indices(cfg: ModelConfig, pos):
     """Attention-sink + rolling-window indices (``calm_tpu/model.py:1334``):
     kv_pos = sink + (pos - sink) % (S - sink) with sink = KV_SINKS once
-    pos >= S; kv_len = min(pos + 1, S)."""
+    pos >= S; kv_len = min(pos + 1, S). On a (B,) int32 tensor as JAX
+    computes them on the device; on a host int as ints, for the host's
+    page bookkeeping."""
     S = cfg.seq_len
+    if isinstance(pos, torch.Tensor):
+        sink = torch.where(pos >= S, KV_SINKS, 0).to(pos.dtype)
+        return sink + (pos - sink) % (S - sink), (pos + 1).clamp(max=S)
     sink = KV_SINKS if pos >= S else 0
     return sink + (pos - sink) % (S - sink), min(pos + 1, S)
 
@@ -428,29 +445,37 @@ def _offn(cfg: ModelConfig, w: Weights, B: int, plan: ShardingPlan = NO_SHARDING
 
 @dataclasses.dataclass
 class _Step:
-    """Per-step state shared by every layer."""
+    """Per-step state shared by every layer, all on the device."""
+    pos: torch.Tensor       # (B,) int32
     kv_pos: torch.Tensor    # (B,) int32 logical row each slot writes
     kv_len: torch.Tensor    # (B,) int32
     cos: torch.Tensor       # (B, hd/2)
     sin: torch.Tensor
-    sink_rows: torch.Tensor | None  # (W,) cache axis-1 index of the sinks of
-                                    # the W slots past the window; None if none
-    sink_cos: torch.Tensor | None   # (W, KV_SINKS, hd/2)
-    sink_sin: torch.Tensor | None
+    sink_cos: torch.Tensor | None   # (B, KV_SINKS, hd/2), one position
+    sink_sin: torch.Tensor | None   # forward; None when not rolling
     pt: torch.Tensor | None         # (B, n_blocks) int32 page table
     plan: ShardingPlan = NO_SHARDING
     mesh: object = None             # parallel.mesh.Mesh under a plan
 
 
-def _rotate_sinks(cache: KVCache, layer: int, st: _Step):
-    """Rotate the wrapped slots' sink keys forward one position so their
-    relative RoPE phase tracks the sliding window
-    (``calm_tpu/model.py:1007-1033``); a paged slot's sinks live in its
-    own page 0."""
-    idx = (layer, st.sink_rows, slice(None), slice(0, KV_SINKS))
-    sink = cache.k[idx]                                   # (W, KVH, 2, hd)
+def _sink_slots(cache: KVCache, B: int, pt):
+    """The cache axis-1 index of each slot's sinks: slot b, or a paged
+    slot's own page pt[b, 0]."""
+    return slice(0, B) if pt is None else pt[:, 0].long()
+
+
+def _rotate_sinks(cache: KVCache, layer: int, st: _Step, S: int):
+    """Under ``rolling``: every slot's sink keys rotated forward one
+    position where its window has wrapped (pos >= seq_len) and written
+    back unchanged elsewhere, so that their relative RoPE phase tracks the
+    sliding window (``calm_tpu/model.py:1007-1033``); a paged slot's sinks
+    live in its own page pt[b, 0]."""
+    idx = (layer, _sink_slots(cache, st.pos.shape[0], st.pt), slice(None),
+           slice(0, KV_SINKS))
+    sink = cache.k[idx]                                   # (B, KVH, 2, hd)
     rot = apply_rope(sink.float().transpose(1, 2), st.sink_cos, st.sink_sin)
-    cache.k[idx] = rot.transpose(1, 2).to(cache.k.dtype)
+    wrapped = (st.pos >= S)[:, None, None, None]
+    cache.k[idx] = torch.where(wrapped, rot.transpose(1, 2).to(cache.k.dtype), sink)
 
 
 def _qkv_post(cfg: ModelConfig, lw: LayerWeights, layer: int, q, k, v,
@@ -664,8 +689,8 @@ def _layer(cfg: ModelConfig, lw: LayerWeights, layer: int, x, qkv, cache,
 
     if plan.sp is not None:  # write, rotate, then read, as JAX under sp
         _sp_write(cache, layer, st, kc, vc)
-    if st.sink_rows is not None:
-        _rotate_sinks(cache, layer, st)
+    if st.sink_cos is not None:
+        _rotate_sinks(cache, layer, st, cfg.seq_len)
     if plan.sp is not None:
         att, fresh = _sp_attention(cache, layer, st, q.float().contiguous()), None
     else:
@@ -702,40 +727,49 @@ def upload(values, device, dtype=torch.int32) -> torch.Tensor:
     return torch.tensor(list(values), dtype=dtype).to(device, non_blocking=True)
 
 
-def _step_state(cfg: ModelConfig, token, pos, device, pt=None,
-                plan: ShardingPlan = NO_SHARDING, mesh=None):
-    """The step's per-slot state from host ints, as ``decode_indices`` per
-    element (``calm_tpu/model.py:1334-1345``), and the tokens on the
-    device. ``token`` is a (B,) tensor, or host ints that then join the
-    one upload; ``pos`` an int (every slot) or B host ints. Under sp the
-    sinks (global rows 0 and 1) live in shard 0, which alone rotates them
-    (``:1028-1030``)."""
-    B = token.shape[0] if isinstance(token, torch.Tensor) else len(token)
+def _on_device(token, pos, device):
+    """token (B,) int64 and pos (B,) int32 on ``device``: tensors as they
+    are, host ints (pos an int for every slot, or B of them) in one
+    upload."""
+    if isinstance(token, torch.Tensor) and isinstance(pos, torch.Tensor):
+        return token.to(device), pos.to(device, torch.int32)
+    head = [] if isinstance(token, torch.Tensor) else [int(t) for t in token]
+    B = token.shape[0] if isinstance(token, torch.Tensor) else len(head)
+    if isinstance(pos, torch.Tensor):
+        pos = pos.tolist()
     pos = [int(pos)] * B if isinstance(pos, (int, np.integer)) else [int(p) for p in pos]
     if len(pos) != B:
         raise ValueError(f"{len(pos)} positions for {B} slots")
-    rows, lens = zip(*(decode_indices(cfg, p) for p in pos))
-    wrapped = [b for b, p in enumerate(pos) if p >= cfg.seq_len]
-    if plan.sp is not None and mesh.axis_index(plan.sp) != 0:
-        wrapped = []
-    head = [] if isinstance(token, torch.Tensor) else [int(t) for t in token]
-    vals = upload(head + pos + list(rows) + list(lens) + wrapped, device)
-    n = len(head)
-    if n:
-        token = vals[:n].long()
-    p_d, kv_pos, kv_len = (vals[n + i * B:n + (i + 1) * B] for i in range(3))
-    cos, sin = rope_tables(p_d, cfg.head_dim, cfg.rope_theta, cfg.rotary_dim)
-    sink_rows = sink_cos = sink_sin = None
-    if wrapped:
-        sink_rows = vals[n + 3 * B:].long()
-        if pt is not None:  # each wrapped slot's own page 0
-            sink_rows = pt[sink_rows, 0].long()
+    vals = upload(head + pos, device)
+    return (token if not head else vals[:B].long()), vals[len(head):]
+
+
+def _step_state(cfg: ModelConfig, pos: torch.Tensor, rolling: bool, pt=None,
+                plan: ShardingPlan = NO_SHARDING, mesh=None) -> _Step:
+    """The step's per-slot state from pos (B,) int32 on the device
+    (``calm_tpu/model.py:1334-1345``), and the one-position tables of the
+    sink rotation under ``rolling``. Under sp the sinks (global rows 0 and
+    1) live in shard 0, which alone rotates them (``:1028-1030``)."""
+    kv_pos, kv_len = decode_indices(cfg, pos)
+    cos, sin = rope_tables(pos, cfg.head_dim, cfg.rope_theta, cfg.rotary_dim)
+    sink_cos = sink_sin = None
+    if rolling and (plan.sp is None or mesh.axis_index(plan.sp) == 0):
         sink_cos, sink_sin = rope_tables(
-            torch.ones((len(wrapped), KV_SINKS), dtype=torch.int64, device=device),
+            torch.ones((pos.shape[0], KV_SINKS), dtype=torch.int32, device=pos.device),
             cfg.head_dim, cfg.rope_theta, cfg.rotary_dim)
-    return _Step(kv_pos=kv_pos, kv_len=kv_len, cos=cos, sin=sin, sink_rows=sink_rows,
-                 sink_cos=sink_cos, sink_sin=sink_sin, pt=pt, plan=plan,
-                 mesh=mesh), token
+    return _Step(pos=pos, kv_pos=kv_pos, kv_len=kv_len, cos=cos, sin=sin,
+                 sink_cos=sink_cos, sink_sin=sink_sin, pt=pt, plan=plan, mesh=mesh)
+
+
+def _row_index(cache: KVCache, kv_pos: torch.Tensor, pt):
+    """(cache axis-1 index, row) of each slot's row kv_pos[b]: slot b, or a
+    paged slot's page pt[b, kv_pos // PR] at row kv_pos % PR."""
+    rows = kv_pos.long()
+    slots = torch.arange(rows.shape[0], device=rows.device)
+    if pt is None:
+        return slots, rows
+    PR = cache.k.shape[3]
+    return pt[slots, rows // PR].long(), rows % PR
 
 
 def _write_rows(cache: KVCache, st: _Step, fk: torch.Tensor, fv: torch.Tensor):
@@ -743,14 +777,7 @@ def _write_rows(cache: KVCache, st: _Step, fk: torch.Tensor, fv: torch.Tensor):
     slot at its own row kv_pos[b], in one copy per cache; a paged slot's
     row lives at page pt[b, kv_pos // PR], row kv_pos % PR. Two advanced
     indices apart put the slot axis first: (B, L, KVH, hd)."""
-    B = fk.shape[1]
-    rows = st.kv_pos.long()
-    if st.pt is None:
-        slots = torch.arange(B, device=rows.device)
-    else:
-        PR = cache.k.shape[3]
-        slots = st.pt[torch.arange(B, device=rows.device), rows // PR].long()
-        rows = rows % PR
+    slots, rows = _row_index(cache, st.kv_pos, st.pt)
     cache.k[:, slots, :, rows, :] = fk.transpose(0, 1)
     cache.v[:, slots, :, rows, :] = fv.transpose(0, 1)
 
@@ -778,23 +805,116 @@ def _run_layers(cfg: ModelConfig, w: Weights, x, cache: KVCache, st: _Step):
     return x
 
 
+def _decode(cfg: ModelConfig, w: Weights, token: torch.Tensor, pos: torch.Tensor,
+            cache: KVCache, rolling: bool, pt=None, plan: ShardingPlan = NO_SHARDING,
+            mesh=None) -> torch.Tensor:
+    """The step on device state (``decode_step_fn``, ``calm_tpu/model.py
+    :1348-1360``): token (B,) int64, pos (B,) int32 -> logits (B, V); the
+    cache is updated in place. It reads no device value on the host, makes
+    no upload and sizes no tensor by a value: what a graph captures."""
+    st = _step_state(cfg, pos, rolling, pt, plan, mesh)
+    x = _run_layers(cfg, w, _embed(w.embed, token, plan, mesh), cache, st)
+    return _head(cfg, w, x)
+
+
 @torch.no_grad()
 def decode_step(cfg: ModelConfig, w: Weights, token, pos, cache: KVCache,
-                plan: ShardingPlan = NO_SHARDING, mesh=None):
-    """One token for each of the B sequence slots: token (B,) int64 (or B
-    host ints), pos an int for every slot or B host ints, one a slot ->
-    (logits (B, V) f32, cache). Each slot attends its own window and
-    writes its own row; only slots at pos >= seq_len rotate their sinks.
+                plan: ShardingPlan = NO_SHARDING, mesh=None, rolling: bool = True):
+    """One token for each of the B sequence slots, eagerly: token (B,)
+    int64 (or B host ints), pos (B,) int32 on the device, an int for
+    every slot or B host ints -> (logits (B, V) f32, cache). Each slot
+    attends its own window and writes its own row. ``rolling`` (static,
+    as JAX's) keeps the sink rotation: under it a slot at pos >= seq_len
+    rotates its sinks; ``rolling=False`` leaves it out, which a caller may
+    pick when no slot is past the window (the results are then equal).
     The cache is updated in place.
 
     Under a ``plan`` on ``mesh`` (``parallel.mesh.Mesh``) this is one
     rank's program on its local weights and cache: tp shards heads, FFN
     columns and the vocab (the logits come back as this rank's vocab
     slice), ep the experts, sp the cache rows, dp the slots; the
-    wrappers of ``parallel.sharding`` build the local tensors."""
-    st, token = _step_state(cfg, token, pos, cache.k.device, plan=plan, mesh=mesh)
-    x = _run_layers(cfg, w, _embed(w.embed, token, plan, mesh), cache, st)
-    return _head(cfg, w, x), cache
+    wrappers of ``parallel.sharding`` build the local tensors. A sharded
+    step always runs eagerly: its collectives go through
+    ``torch.distributed``."""
+    token, pos = _on_device(token, pos, cache.k.device)
+    return _decode(cfg, w, token, pos, cache, rolling, None, plan, mesh), cache
+
+
+def _snapshot(cfg: ModelConfig, cache: KVCache, rolling: bool):
+    """``snapshot(pos, pt)`` for a StepGraph on ``cache``: saves the rows a
+    step at pos writes (each slot's row kv_pos in every layer, and its
+    sinks under ``rolling``) and returns the function that writes them
+    back."""
+    def snapshot(pos, pt):
+        slots, rows = _row_index(cache, decode_indices(cfg, pos)[0], pt)
+        sinks = _sink_slots(cache, pos.shape[0], pt)
+        saved = [(buf, buf[:, slots, :, rows].clone(),
+                  buf[:, sinks, :, :KV_SINKS].clone() if rolling else None)
+                 for buf in (cache.k, cache.v)]
+
+        def restore():
+            for buf, row, sink in saved:
+                buf[:, slots, :, rows] = row
+                if sink is not None:
+                    buf[:, sinks, :, :KV_SINKS] = sink
+        return restore
+    return snapshot
+
+
+def step_graph(cfg: ModelConfig, w: Weights, cache: KVCache, B: int, rolling: bool,
+               sampled: bool = False, pt: torch.Tensor | None = None) -> StepGraph:
+    """The captured step of B slots on ``cache`` (a dense cache, or a page
+    pool with the table ``pt``, a buffer the caller updates in place),
+    captured at first use and kept on the cache, keyed by the weights
+    (held by the graph), B, ``rolling``, ROTATED_DECODE, sampled or greedy
+    and dense or paged. Call :meth:`StepGraph.load` before the first
+    replay: the capture starts from the static inputs."""
+    key = (id(w), B, rolling, ROTATED_DECODE, sampled, pt is not None)
+    g = cache.graphs.get(key)
+    if g is not None:
+        if any(a is not b for a, b in zip(g.keep, (w, cache.k, cache.v))) or g.pt is not pt:
+            raise RuntimeError("a captured decode step met other cache buffers or "
+                               "another page table than it was captured on")
+        return g
+    kv = KVCache(cache.k, cache.v)  # the buffers only: no cycle through the cache
+
+    def step(token, pos, pt_):
+        return _decode(cfg, w, token, pos, kv, rolling, pt_)
+    g = StepGraph(step, _snapshot(cfg, kv, rolling), B, w.output.data.shape[0],
+                  cache.k.device, sampled, pt, keep=(w, cache.k, cache.v))
+    cache.graphs[key] = g
+    return g
+
+
+def _replayed(cfg, w, cache, token, pos, rolling, pt=None, sampling=None) -> StepGraph:
+    """The cache's graph for this step, loaded with token and pos (and
+    the sampling's temperature and min-p), captured if new."""
+    B = token.shape[0] if isinstance(token, torch.Tensor) else len(token)
+    g = step_graph(cfg, w, cache, B, rolling, sampling is not None, pt)
+    g.load(token, pos, sampling)
+    if g.graph is None:
+        g.capture()
+    return g
+
+
+@torch.no_grad()
+def decode_once(cfg: ModelConfig, w: Weights, token, pos, cache: KVCache,
+                rolling: bool, pt: torch.Tensor | None = None, sampling=None):
+    """One step for every slot, the next token chosen on the device: the
+    argmax, or with ``sampling`` = (generator, temperature (B,), minp (B,))
+    a min-p draw (``sampler.device_sample``). token and pos as
+    :func:`decode_step` takes them; ``pt`` pages the cache as
+    :func:`paged_decode_step`. Returns (logits (B, V), next ids (B,)) on
+    the device. On the card the cache's captured step is replayed (its
+    outputs are the graph's own buffers, overwritten by its next replay);
+    on the CPU the step runs eagerly."""
+    if cache.k.is_cuda:
+        g = _replayed(cfg, w, cache, token, pos, rolling, pt, sampling)
+        g.replay(None if sampling is None else sampling[0])
+        return g.logits, g.token
+    token, pos = _on_device(token, pos, cache.k.device)
+    out = _decode(cfg, w, token, pos, cache, rolling, pt)
+    return out, out.argmax(-1) if sampling is None else device_sample(out, *sampling)
 
 
 def greedy_next(logits: torch.Tensor, plan: ShardingPlan = NO_SHARDING,
@@ -815,16 +935,15 @@ def greedy_next(logits: torch.Tensor, plan: ShardingPlan = NO_SHARDING,
 
 @torch.no_grad()
 def paged_decode_step(cfg: ModelConfig, w: Weights, token, pos,
-                      pool: KVCache, pt: torch.Tensor):
+                      pool: KVCache, pt: torch.Tensor, rolling: bool = True):
     """:func:`decode_step` on a page pool (``calm_tpu/paged.py:36-48``):
     pool (L, P, KVH, PR, hd), pt (B, seq_len // PR) int32 on the pool's
     device. Attention reads each slot's pages through the table (K12 paged
     and fresh mode); the deferred write lands at page pt[b, kv_pos // PR],
-    row kv_pos % PR; a wrapped slot rotates the sinks in its own page
-    pt[b, 0]. The pool is updated in place."""
-    st, token = _step_state(cfg, token, pos, pool.k.device, pt)
-    x = _run_layers(cfg, w, _embed(w.embed, token), pool, st)
-    return _head(cfg, w, x), pool
+    row kv_pos % PR; under ``rolling`` a wrapped slot rotates the sinks in
+    its own page pt[b, 0]. The pool is updated in place."""
+    token, pos = _on_device(token, pos, pool.k.device)
+    return _decode(cfg, w, token, pos, pool, rolling, pt), pool
 
 
 @torch.no_grad()
@@ -834,13 +953,31 @@ def decode_loop(cfg: ModelConfig, w: Weights, token: torch.Tensor, pos0: int,
     argmax (the counterpart of ``decode_scan_fn``), or with ``sampling``,
     a (generator, temperature (B,), minp (B,)) triple, min-p drawn by
     ``sampler.device_sample`` from each step's logits (``decode_scan_
-    sampled_fn``, ``calm_tpu/model.py:1428-1455``). Returns (tokens (B, N)
+    sampled_fn``, ``calm_tpu/model.py:1428-1455``). The chunk keeps the
+    sink rotation only when it can reach the window's edge, as
+    ``calm_tpu/engine.py:251-252`` picks ``rolling``. On the card each step
+    is a replay of the cache's captured step, its token and logits copied
+    out after it; on the CPU the step runs eagerly. Returns (tokens (B, N)
     int64, cache, per-step logits (N, B, V)), all on the device."""
+    B = token.shape[0]
+    rolling = pos0 + n_steps >= cfg.seq_len
+    if cache.k.is_cuda:
+        g = _replayed(cfg, w, cache, token, pos0, rolling, sampling=sampling)
+        toks = torch.empty((B, n_steps), dtype=torch.int64, device=token.device)
+        logits = torch.empty((n_steps,) + tuple(g.logits.shape), dtype=g.logits.dtype,
+                             device=token.device)
+        for i in range(n_steps):
+            g.replay(None if sampling is None else sampling[0])
+            toks[:, i].copy_(g.token)
+            logits[i].copy_(g.logits)
+        return toks, cache, logits
+    pos = torch.full((B,), pos0, dtype=torch.int32, device=token.device)
     toks, logits = [], []
-    for i in range(n_steps):
-        out, cache = decode_step(cfg, w, token, pos0 + i, cache)
+    for _ in range(n_steps):
+        out = _decode(cfg, w, token, pos, cache, rolling)
         # first max wins, like jnp.argmax
         token = out.argmax(-1) if sampling is None else device_sample(out, *sampling)
+        pos = pos + 1
         toks.append(token)
         logits.append(out)
     return torch.stack(toks, 1), cache, torch.stack(logits)

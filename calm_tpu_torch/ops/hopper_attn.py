@@ -150,18 +150,19 @@ def decode_plan(B: int, KVH: int, M: int, S: int, hd: int) -> DecodePlan:
                       groups * nc * mm, groups)
 
 
-_tickets: dict[torch.device, torch.Tensor] = {}
+_tickets: dict[torch.device, list[torch.Tensor]] = {}
 
 
 def _ticket_buffer(dev: torch.device, n: int) -> torch.Tensor:
     """The decode kernel's chunk tickets, zeroed once and left zeroed by
     every launch (the last block of a group resets its own), so a call
-    adds no fill launch. One buffer a device: calls on one stream only."""
-    t = _tickets.get(dev)
-    if t is None or t.numel() < n:
-        t = torch.zeros(max(n, 4096), dtype=torch.int32, device=dev)
-        _tickets[dev] = t
-    return t
+    adds no fill launch. One buffer a device in use: calls on one stream
+    only. A call that needs more adds a larger buffer and keeps the
+    smaller ones, which a captured decode step may still address."""
+    bufs = _tickets.setdefault(dev, [])
+    if not bufs or bufs[-1].numel() < n:
+        bufs.append(torch.zeros(max(n, 4096), dtype=torch.int32, device=dev))
+    return bufs[-1]
 
 
 def _check(cond: bool, msg: str) -> None:

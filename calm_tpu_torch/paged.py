@@ -15,9 +15,11 @@ through the table. The TPU package's >= 512-row pages
 (``calm_tpu/paged.py:8-14``) are a Mosaic DMA size.
 
 Against the JAX decoder: the admission scratch (L, 1, KVH, S, hd) is
-allocated once per decoder, not per admission; the page table lives on
-the device and is uploaded again only when a row of it changes; row and
-page copies are tensor slice copies. ``mesh``/``plan`` sharding and
+allocated once per decoder, not per admission; the page table lives in
+one device buffer, written again in place only when a row of it changes
+(the captured step reads it there); row and page copies are tensor slice
+copies. On the card every step replays the pool's captured step
+(``model.decode_once``). ``mesh``/``plan`` sharding and
 ``PagedGroup`` (one decoder per device) wait for the parallel slice.
 """
 
@@ -30,7 +32,6 @@ import torch
 
 from calm_tpu_torch import model as M
 from calm_tpu_torch.config import ModelConfig
-from calm_tpu_torch.sampler import device_sample
 
 
 def create_pool(cfg: ModelConfig, n_pages: int, page_rows: int,
@@ -90,7 +91,9 @@ class PagedDecoder:
         # kv_len; writes never land past the slot's blocks), or at the
         # parking page when the slot holds nothing
         self.pt = np.full((batch, self.n_blocks), self.parking, np.int32)
-        self._pt_dev = None  # the device copy; None when it is stale
+        # the device copy, one buffer for the decoder's life
+        self._pt_dev = torch.tensor(self.pt, device=self.device)
+        self._pt_stale = False
 
     # -- page bookkeeping ---------------------------------------------------
 
@@ -106,14 +109,15 @@ class PagedDecoder:
                for j in range(self.n_blocks)]
         if list(self.pt[b]) != row:
             self.pt[b] = row
-            self._pt_dev = None
+            self._pt_stale = True
 
     def page_table(self) -> torch.Tensor:
-        """The (B, n_blocks) int32 table on the device, uploaded again only
-        after a row changed."""
-        if self._pt_dev is None:
-            self._pt_dev = M.upload(self.pt.reshape(-1).tolist(),
-                                    self.device).reshape(self.pt.shape)
+        """The (B, n_blocks) int32 table on the device: always the same
+        buffer, written again in place (one copy, no sync) only after a row
+        changed."""
+        if self._pt_stale:
+            self._pt_dev.copy_(torch.from_numpy(self.pt), non_blocking=True)
+            self._pt_stale = False
         return self._pt_dev
 
     def pages_in_use(self) -> int:
@@ -249,23 +253,30 @@ class PagedDecoder:
             return False
         return True
 
-    def step(self, host: bool = True):
-        """One decode step for every slot; logits (B, V) as f32 numpy when
-        ``host``, else the device tensor (the device-sampling path samples
-        it where it lies). Inactive slots decode garbage at their parked
-        position; their table rows point at the parking page. Raises
-        RuntimeError when an active slot needs a page and the pool is dry
-        (call ensure_capacity first for a gentler policy)."""
+    def _step(self, sampling=None):
+        """One decode step for every slot: (logits (B, V), next ids (B,))
+        on the device, the ids argmax or drawn by ``sampling``."""
         for b in range(self.batch):
             if not self.ensure_capacity(b):
                 raise RuntimeError("page pool exhausted mid-decode")
-        logits, self.pool = M.paged_decode_step(
-            self.cfg, self.weights, [s.token for s in self.slots],
-            [s.pos for s in self.slots], self.pool, self.page_table())
+        S = self.cfg.seq_len
+        out = M.decode_once(self.cfg, self.weights, [s.token for s in self.slots],
+                            [s.pos for s in self.slots], self.pool,
+                            any(s.pos + 1 >= S for s in self.slots), self.page_table(),
+                            sampling)
         for s in self.slots:
             if s.active:
                 s.pos += 1
-        return logits.float().cpu().numpy() if host else logits
+        return out
+
+    def step(self, host: bool = True):
+        """One decode step for every slot; logits (B, V) as f32 numpy when
+        ``host``, else on the device (a copy). Inactive slots decode garbage
+        at their parked position; their table rows point at the parking
+        page. Raises RuntimeError when an active slot needs a page and the
+        pool is dry (call ensure_capacity first for a gentler policy)."""
+        logits = self._step()[0]
+        return logits.float().cpu().numpy() if host else logits.clone()
 
     def set_token(self, b: int, tok: int):
         self.slots[b].token = tok
@@ -274,8 +285,7 @@ class PagedDecoder:
                      minps: torch.Tensor) -> list[int]:
         """One decode step and min-p sampling on the device: only the (B,)
         ids reach the host."""
-        return device_sample(self.step(host=False), generator, temps,
-                             minps).tolist()
+        return self._step((generator, temps, minps))[1].tolist()
 
 
 class PagedGroup:

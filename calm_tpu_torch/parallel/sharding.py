@@ -194,7 +194,9 @@ def sharded_decode_step(cfg: ModelConfig, mesh: Mesh, plan: ShardingPlan):
     dp each rank steps its B/dp slots, with no collective; the logits are
     gathered. Under sp the cache is S-sharded (as sp prefill leaves it),
     and sp needs an axis of its own (``calm_tpu/parallel/sharding.py
-    :646-650``)."""
+    :646-650``). It runs eagerly, never as a captured graph: its
+    collectives go through ``torch.distributed`` (a replayed sharded step
+    is ROADMAP §1.4.3)."""
     if plan.sp is not None and plan.sp == plan.dp:
         raise ValueError("sp decode needs its own mesh axis")
 

@@ -53,8 +53,9 @@ def softmax_prob(idx: int, logits: np.ndarray) -> float:
     return float(e[idx]) / float(e.sum(dtype=np.float32))
 
 
-def device_sample(logits: torch.Tensor, generator: torch.Generator,
-                  temperature: torch.Tensor, minp: torch.Tensor) -> torch.Tensor:
+def device_sample(logits: torch.Tensor, generator: torch.Generator | None,
+                  temperature: torch.Tensor, minp: torch.Tensor,
+                  u: torch.Tensor | None = None) -> torch.Tensor:
     """Batched min-p sampling on the logits' device: logits (B, V), per-row
     temperature and minp (B,) on the same device -> token ids (B,) int64,
     with no host sync.
@@ -66,7 +67,12 @@ def device_sample(logits: torch.Tensor, generator: torch.Generator,
     ``torch.Generator`` on the logits' device): a draw from softmax(logits
     / T) restricted to the kept set. These are not JAX's PRNG bits, so the
     draws differ from ``calm_tpu``'s, as its own remark says of the
-    reference's xorshift stream."""
+    reference's xorshift stream.
+
+    ``u`` (B, V) hands in the uniforms instead: a captured step reads them
+    from a buffer that ``torch.rand(..., generator=generator, out=u)``
+    fills before each replay, which yields the numbers this function would
+    draw itself from the same generator."""
     logits = logits.float()
     t = temperature.float().reshape(-1, 1)
     mp = minp.float().reshape(-1, 1)
@@ -75,7 +81,8 @@ def device_sample(logits: torch.Tensor, generator: torch.Generator,
     cutoff = top + torch.log(mp.clamp(1e-9, 1.0)) * safe_t
     masked = torch.where(logits >= cutoff, logits / safe_t,
                          torch.full_like(logits, float("-inf")))
-    u = torch.rand(logits.shape, generator=generator, device=logits.device)
+    if u is None:
+        u = torch.rand(logits.shape, generator=generator, device=logits.device)
     drawn = (masked - torch.log(-torch.log(u))).argmax(dim=-1)
     greedy = logits.argmax(dim=-1)
     pick = (t[:, 0] == 0.0) | (mp[:, 0] >= 1.0)

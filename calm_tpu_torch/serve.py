@@ -15,7 +15,12 @@ device).
 - sampling runs on the host per slot (greedy, or min-p with the
   reference's xorshift64* stream per request, bit-compatible with the JAX
   server's) or, with ``device_sampling``, on the device, so that only the
-  (B,) ids reach the host each tick.
+  (B,) ids reach the host each tick;
+- on the card a tick replays the cache's captured step of B slots
+  (``model.decode_once``): the host copies the tokens and positions in
+  and reads the logits or ids out. It keeps the sink rotation only when a
+  slot reaches the window's edge, as ``calm_tpu/serve.py:890`` picks
+  ``rolling``.
 
 Prompts are prefilled at their exact length: the JAX server pads them to
 buckets so that XLA compiles once per bucket, which eager PyTorch does not
@@ -38,7 +43,7 @@ import torch
 from calm_tpu_torch import model as M
 from calm_tpu_torch.engine import Engine
 from calm_tpu_torch.paged import PagedDecoder
-from calm_tpu_torch.sampler import Sampler, device_sample
+from calm_tpu_torch.sampler import Sampler
 
 
 class QueueFull(Exception):
@@ -438,10 +443,13 @@ class Server:
             else:
                 logits = self._paged.step()
         else:
-            out, eng.cache = M.decode_step(eng.cfg, eng.weights, self._tokens.tolist(),
-                                           self._pos.tolist(), eng.cache)
+            out, nxt = M.decode_once(
+                eng.cfg, eng.weights, self._tokens, self._pos, eng.cache,
+                bool(np.any(self._pos + 1 >= eng.cfg.seq_len)),
+                sampling=((self._gen,) + self._sampling_tensors()
+                          if self.device_sampling else None))
             if self.device_sampling:
-                sampled = device_sample(out, self._gen, *self._sampling_tensors()).tolist()
+                sampled = nxt.tolist()
             else:
                 logits = out.float().cpu().numpy()
 

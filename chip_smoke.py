@@ -53,6 +53,7 @@ once.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -1911,6 +1912,8 @@ def counters():
     out["qmm_decode_gf4_multirow"] = (hq.qmm_decode_gf4, "multirow_launches")
     out["gf4_offn_multirow"] = (hq.gf4_offn, "multirow_launches")
     out["decode_attention_partials"] = (ha.decode_attention, "partials_launches")
+    from calm_tpu_torch.graphs import StepGraph
+    out["graph_replays"] = (StepGraph, "replays")  # replays of captured steps
     return out
 
 
@@ -1975,6 +1978,7 @@ def unrotated_steps(eng, steps, what):
 
     was, M.ROTATED_DECODE = M.ROTATED_DECODE, False
     try:
+        eng.step(steps[0][0], 0)  # captures this step's graph, its warm-up outside the count
         eng.reset()
         lgs, counts = drive(lambda: [eng.step(tok, pos) for pos, (tok, _) in enumerate(steps)])
     finally:
@@ -2042,7 +2046,8 @@ def container_phase(fmt, dev, experts: int = 0, cohere: bool = False):
             f.write("hello there\n")
         # the CLI and the HTTP server run on the card beside the checks below
         procs = [] if light else [
-            cli(path, ["-t", "0", "-n", "16", "-i", "hello"]), cli(path, ["-x", text_path]),
+            cli(path, ["-t", "0", "-n", "16", "-r", "2", "-i", "hello"]),
+            cli(path, ["-x", text_path]),
             cli(path, ["-y", "be brief", "-n", "24", "-s", "7"], user_path)]
         http_args = ["--page-rows", "16"] if fmt == "gf4" else []
         httpd = None if light else httpd_proc(path, http_args)
@@ -2138,8 +2143,11 @@ def container_phase(fmt, dev, experts: int = 0, cohere: bool = False):
             out, errs = p.communicate(timeout=600)
             if p.returncode != 0:
                 fail(f"{what} cli {mode} exited {p.returncode}: {errs[-2000:]}")
-            if mode == "generate":
-                log(f"# {what} cli: {out.splitlines()[0]} | {errs.strip().splitlines()[-1]}")
+            if mode == "generate":  # -r 2: the second sequence replays what the first captured
+                perf = errs.strip().splitlines()[-2:]
+                if len(perf) != 2 or perf[0].split("#")[-1] != perf[1].split("#")[-1]:
+                    fail(f"{what} cli -r 2: perf lines {perf}")
+                log(f"# {what} cli -r 2: {out.splitlines()[0]} | {perf[0]} | {perf[1]}")
             elif mode == "-x":
                 line = [l for l in out.splitlines() if l.startswith("# perplexity:")]
                 if not line:
@@ -2248,8 +2256,9 @@ def serving_checks(path, what, cpu, full=True):
         modes["prefix"] = dict(prefix_cache_tokens=4096)
     for mode, kw in modes.items():
         srv = Server(path, batch=4, **kw)
-        if mode == "paged":  # one tick: K12 in paged mode on every layer
-            srv.submit("Hi", max_tokens=1)
+        if mode == "paged":  # one replayed tick: K12 in paged mode on every layer
+            srv.submit("Hi", max_tokens=2)
+            srv.tick()  # admits and captures the step, its warm-up outside the count
             _, one = drive(srv.tick)
             if one["decode_attention_paged"] != srv.engine.cfg.n_layers:
                 fail(f"{what}: a paged tick launched K12 paged "
@@ -2344,12 +2353,188 @@ def http_check(proc, what):
         f"{json.dumps(stats)}; SIGTERM drained, exit 0")
 
 
+# -- the compiled decode step: CUDA graphs against the eager step -----------
+
+
+def eager_decode_once(cfg, w, token, pos, cache, rolling, pt=None, sampling=None):
+    """``model.decode_once``'s work without its graph: the eager step and
+    the next token, for the eager drains and the by-wrapper profiles (a
+    replay calls no wrapper)."""
+    from calm_tpu_torch import model as M
+    from calm_tpu_torch.sampler import device_sample
+
+    if pt is None:
+        out, _ = M.decode_step(cfg, w, token, pos, cache, rolling=rolling)
+    else:
+        out, _ = M.paged_decode_step(cfg, w, token, pos, cache, pt, rolling)
+    return out, out.argmax(-1) if sampling is None else device_sample(out, *sampling)
+
+
+@contextlib.contextmanager
+def eager_steps():
+    """Within the block the serving tick and ``Engine.step`` run the eager
+    step, as the port did before its steps were captured."""
+    from calm_tpu_torch import model as M
+
+    real, M.decode_once = M.decode_once, eager_decode_once
+    try:
+        yield
+    finally:
+        M.decode_once = real
+
+
+def eager_loop(cfg, w, token, pos0, cache, n, sampling=None):
+    """``model.decode_loop``'s chunk eagerly: ``decode_step`` n times with
+    the chunk's ``rolling``, each token the argmax or ``device_sample``'s
+    draw. Returns (tokens (B, n), cache, logits (n, B, V))."""
+    from calm_tpu_torch import model as M
+    from calm_tpu_torch.sampler import device_sample
+
+    rolling = pos0 + n >= cfg.seq_len
+    toks, lgs = [], []
+    for i in range(n):
+        out, cache = M.decode_step(cfg, w, token, pos0 + i, cache, rolling=rolling)
+        token = out.argmax(-1) if sampling is None else device_sample(out, *sampling)
+        toks.append(token)
+        lgs.append(out)
+    return torch.stack(toks, 1), cache, torch.stack(lgs)
+
+
+def log_captures():
+    """Log every capture of a decode step with its time."""
+    from calm_tpu_torch.graphs import StepGraph
+
+    real = StepGraph.capture
+
+    def capture(self):
+        real(self)
+        log(f"# graph capture: B={self.token.shape[0]}, "
+            f"{'sampled' if self.sampled else 'greedy'}, "
+            f"{'paged' if self.pt is not None else 'dense'}, "
+            f"{sum(n for _, _, n in self.launches)} wrapper launches a replay: "
+            f"{1e3 * self.capture_s:.1f} ms (eager warm-up included)")
+    StepGraph.capture = capture
+
+
+def same_bits(what, got, want):
+    """Replayed ids or logits against the eager step's: bit for bit (the
+    same kernels in the same order, no float atomics)."""
+    if got.shape != want.shape or not torch.equal(got, want):
+        diff = (got.float() - want.float()).abs().max().item() if got.shape == want.shape else None
+        fail(f"{what}: replayed and eager differ (shapes {tuple(got.shape)} / "
+             f"{tuple(want.shape)}, max diff {diff})")
+
+
+GRAPH_SEQ, GRAPH_STEPS = 64, 80  # the wrap check: a window of 64, 80 steps
+
+
+def graph_wrap_check(dev):
+    """The captured step across the sink wrap, on 2-layer Mistral-7B-width
+    fp8 and gf4 weights (seeded random) at seq_len 64. Dense: 80 greedy
+    steps of ``decode_loop`` (replayed) against 80 eager ``decode_step``
+    calls: ids, logits and the caches after, bit for bit, and the two runs'
+    launch counts equal. A sampled step captured at a wrapped position
+    leaves the cache's bytes as they were, and its 40 replays at -t 0.8
+    draw the eager run's ids for the same seed. Paged: 2 slots at
+    positions 0 and 30 on scrambled 16-row pages, 80 replayed
+    ``decode_once`` ticks against 80 eager ``paged_decode_step`` calls,
+    logits and pools bit for bit. Returns the launch counts of the first
+    dense run replayed."""
+    from calm_tpu_torch import model as M
+    from calm_tpu_torch.config import ModelConfig
+    from calm_tpu_torch.paged import create_pool
+    from calm_tpu_torch.utils.synth import synth_weights
+
+    S, n = GRAPH_SEQ, GRAPH_STEPS
+    out = None
+    for fmt in ("fp8", "gf4"):
+        t0 = time.perf_counter()
+        cfg = ModelConfig(**{**MISTRAL, "n_layers": 2}, rope_theta=10000.0, seq_len=S,
+                          rotary_dim=128, dtype=fmt, norm_ln=False)
+        w = synth_weights(cfg, seed=3, device=dev, random=True)
+        what = f"graphs {fmt} 2-layer mistral7b-width, seq_len {S}"
+        tok0 = torch.tensor([5], device=dev)
+        ce_, cr_ = (M.KVCache.create(cfg, 1, torch.bfloat16, dev) for _ in range(2))
+        (te, _, le), ce = drive(lambda: eager_loop(cfg, w, tok0, 0, ce_, n))
+        tr, _, lr = M.decode_loop(cfg, w, tok0, 0, cr_, n)  # captures, then replays
+        same_bits(f"{what} dense ids", tr, te)
+        same_bits(f"{what} dense logits", lr, le)
+        same_bits(f"{what} dense cache k", cr_.k, ce_.k)
+        same_bits(f"{what} dense cache v", cr_.v, ce_.v)
+        cr_.k.zero_()
+        cr_.v.zero_()
+        (tr2, _, lr2), cr = drive(lambda: M.decode_loop(cfg, w, tok0, 0, cr_, n))
+        same_bits(f"{what} dense ids, second run", tr2, te)
+        same_bits(f"{what} dense logits, second run", lr2, le)
+        replays = cr.pop("graph_replays")
+        ce.pop("graph_replays")
+        if cr != ce or replays != n:
+            fail(f"{what}: launches replayed {cr} ({replays} replays) != eager {ce}")
+        out = out or dict(cr, graph_replays=replays)
+
+        # a sampled step captured past the wrap: the cache unchanged by the
+        # capture, the replayed draws the eager draws
+        def sampling():
+            g = torch.Generator(device=dev)
+            g.manual_seed(7)
+            return (g, torch.full((1,), 0.8, device=dev), torch.full((1,), 0.1, device=dev))
+        tok, k = te[:, -1], 40
+        xe = M.KVCache(ce_.k.clone(), ce_.v.clone())
+        xr = M.KVCache(ce_.k.clone(), ce_.v.clone())
+        ts, _, ls = eager_loop(cfg, w, tok, n, xe, k, sampling())
+        smp = sampling()
+        g = M.step_graph(cfg, w, xr, 1, True, sampled=True)
+        g.load(tok, n, smp)
+        before = (xr.k.clone(), xr.v.clone())
+        g.capture()
+        same_bits(f"{what}: cache k across the capture of a rolling step", xr.k, before[0])
+        same_bits(f"{what}: cache v across the capture of a rolling step", xr.v, before[1])
+        trs, _, lrs = M.decode_loop(cfg, w, tok, n, xr, k, smp)
+        same_bits(f"{what} sampled ids (seed 7, -t 0.8)", trs, ts)
+        same_bits(f"{what} sampled logits", lrs, ls)
+        if len(set(ts[0].tolist())) < 2:
+            fail(f"{what}: the sampled run drew one id: {ts[0].tolist()}")
+        del xe, xr, before, g
+
+        # paged: two slots, one wrapping 30 steps before the other
+        PR, P = 16, 12
+        pt = torch.tensor([[3, 7, 1, 9], [10, 2, 5, 0]], dtype=torch.int32, device=dev)
+        pe, pr = (create_pool(cfg, P, PR, torch.bfloat16, dev) for _ in range(2))
+        pos0 = [0, 30]
+        ke = kr = torch.tensor([5, 9], device=dev)
+        ids_e, ids_r = [], []
+        for i in range(n):
+            pos = [p + i for p in pos0]
+            le_, _ = M.paged_decode_step(cfg, w, ke, pos, pe, pt, True)
+            lr_, nxt = M.decode_once(cfg, w, kr, pos, pr, max(pos) + 1 >= S, pt)
+            same_bits(f"{what} paged logits, step {i}", lr_, le_)
+            ke, kr = le_.argmax(-1), nxt.clone()
+            ids_e.append(ke)
+            ids_r.append(kr)
+        same_bits(f"{what} paged ids", torch.stack(ids_r), torch.stack(ids_e))
+        same_bits(f"{what} paged pool k", pr.k, pe.k)
+        same_bits(f"{what} paged pool v", pr.v, pe.v)
+        log(f"# {what}: dense {n} greedy steps replayed = eager bit for bit (ids "
+            f"{te[0, :6].tolist()}... {te[0, -4:].tolist()}, logits, cache), launches equal "
+            f"({sum(ce.values())} either way, {replays} replays); a sampled step captured "
+            f"at pos {n}: cache bytes unchanged, {k} replayed draws at -t 0.8 = eager "
+            f"({len(set(ts[0].tolist()))} distinct ids); paged 2 slots from pos {pos0}, "
+            f"{n} ticks: logits, ids and pool bit for bit; {time.perf_counter() - t0:.1f} s")
+        del w, ce_, cr_, pe, pr
+        torch.cuda.empty_cache()
+    return out
+
+
 def profile_tokens(run, n_tok: int, ms_tok: float, label: str):
     """Device time per token by kernel, and the busy share against the
-    unprofiled ms/tok."""
+    unprofiled ms/tok. Where the profiler sees no kernel (inside a graph's
+    replay, CUPTI may not), it says so and gives the tokens' time by CUDA
+    events instead: no busy share then."""
     rows = kernel_rows(run)
     if not rows:
-        log(f"# profile {label}: the profiler saw no device time (not measured)")
+        log(f"# profile {label}: the profiler saw no device time (busy share not "
+            f"measured); CUDA events: {timed_events(lambda i: run(), 3, 1) / n_tok:.3f} "
+            f"ms/tok")
         return
     dev_ms = sum(r[0] for r in rows) / 1e3 / n_tok
     top = "; ".join(f"{name} {us / 1e3 / n_tok:.3f} ms x{cnt / n_tok:g}"
@@ -2467,8 +2652,9 @@ def full_width_phase(fmt, dev, gbps, smi, experts: int = 0, cohere: bool = False
     for name, pos0 in runs:
         unrotated = name.endswith("CALM_ROT=0")
         M.ROTATED_DECODE = not unrotated
+        eager_timed = name == "first32" and not (experts or cohere)
         try:
-            M.decode_loop(cfg, w, token, pos0, cache, 2)  # warm
+            M.decode_loop(cfg, w, token, pos0, cache, 2)  # warm: captures the step
             secs = []
             for _ in range(3):
                 torch.cuda.synchronize()
@@ -2476,12 +2662,27 @@ def full_width_phase(fmt, dev, gbps, smi, experts: int = 0, cohere: bool = False
                 toks, cache, logits = M.decode_loop(cfg, w, token, pos0, cache, steps)
                 torch.cuda.synchronize()
                 secs.append(time.perf_counter() - t)
+            # the eager step on the same inputs: the same ids and logits, bit
+            # for bit, and on Mistral-7B first32 its time beside the replay's
+            e_secs = []
+            for _ in range(3 if eager_timed else 1):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                te, cache, le = eager_loop(cfg, w, token, pos0, cache, steps)
+                torch.cuda.synchronize()
+                e_secs.append(time.perf_counter() - t)
+            same_bits(f"decode {what} {name} ids", toks, te)
+            same_bits(f"decode {what} {name} logits", logits, le)
             if unrotated:
                 (toks, _, logits), rot0 = drive(
                     lambda: M.decode_loop(cfg, w, token, pos0, cache, steps))
             med = statistics.median(secs)
             profile_tokens(lambda: M.decode_loop(cfg, w, token, pos0, cache, 4), 4,
-                           1e3 * med / steps, f"{what} {name} (pos {pos0})")
+                           1e3 * med / steps, f"{what} {name} (pos {pos0}), replayed")
+            if eager_timed:
+                e_med = statistics.median(e_secs)
+                profile_tokens(lambda: eager_loop(cfg, w, token, pos0, cache, 4), 4,
+                               1e3 * e_med / steps, f"{what} {name} (pos {pos0}), eager")
         finally:
             M.ROTATED_DECODE = was
         if not torch.isfinite(logits).all():
@@ -2495,9 +2696,21 @@ def full_width_phase(fmt, dev, gbps, smi, experts: int = 0, cohere: bool = False
                          pct_hbm=100 * gb_s / gbps, spread_pct=spread)
         if RATES["attainable"]:
             out[name]["pct_attainable"] = 100 * gb_s / RATES["attainable"]
-        log(f"# decode {what} {name} (pos {pos0}): {steps / med:.2f} tok/s, "
+        log(f"# decode {what} {name} (pos {pos0}), replayed: {steps / med:.2f} tok/s, "
             f"{1e3 * med / steps:.3f} ms/tok, {rate_share(gb_s)} "
-            f"(median of 3, spread {spread:.2f}%) on {smi}")
+            f"(median of 3, spread {spread:.2f}%); ids and logits = the eager step's "
+            f"bit for bit, on {smi}")
+        if eager_timed:
+            e_med = statistics.median(e_secs)
+            e_gb = read / 1e9 / e_med
+            out[name + " eager"] = dict(tok_s=steps / e_med, ms_tok=1e3 * e_med / steps,
+                                        gb_s=e_gb, pct_hbm=100 * e_gb / gbps,
+                                        spread_pct=100 * (max(e_secs) - min(e_secs)) / e_med)
+            log(f"# decode {what} {name} (pos {pos0}), eager in the same run: "
+                f"{steps / e_med:.2f} tok/s, {1e3 * e_med / steps:.3f} ms/tok, "
+                f"{rate_share(e_gb)} (median of 3, spread "
+                f"{out[name + ' eager']['spread_pct']:.2f}%); replayed / eager "
+                f"{med / e_med:.3f}")
         if unrotated:  # against the rotated first32 on the same inputs
             ids, lg = toks[0].tolist(), logits[:, 0].float().cpu().numpy()
             n = next((i for i, (a, b) in enumerate(zip(ids, first[0])) if a != b), steps)
@@ -2620,12 +2833,33 @@ def full_width_serving_phase(dev, gbps, smi, fmt: str = "fp8", cohere: bool = Fa
             med = statistics.median(tick_ms)
             gbs = statistics.median((bw + kv) / dt / 1e9 for dt, _, kv, _ in dec)
             ttft = sorted(1e3 * (r.first_token_at - r.submitted_at) for r in runs[0][1])
-            # busy share: device time of 10 decode ticks against their
-            # unprofiled time, split by kernel and by kernel wrapper
+            eager = None
+            if mode == "dense" and rotated and not cohere:  # the eager tick, same run
+                with eager_steps():
+                    (e_reqs, e_wall, e_ticks), e_counts = drive(lambda: drain(srv))
+                if [r.ids for r in e_reqs] != ids[mode]:
+                    fail(f"serve {what} {mode}: the eager drain's ids differ from the "
+                         "replayed drains'")
+                # the same requests, so the same ticks: every wrapper's launches
+                # equal, and one replay a decode tick
+                replays = counts[mode]["graph_replays"]
+                if ({k: v for k, v in e_counts.items() if k != "graph_replays"}
+                        != {k: v for k, v in counts[mode].items() if k != "graph_replays"}
+                        or replays != stepped or e_counts["graph_replays"]):
+                    fail(f"serve {what} {mode}: launches replayed {counts[mode]} ({stepped} "
+                         f"decode ticks) != eager {e_counts}")
+                eager = (e_wall, 1e3 * statistics.median(t[0] for t in e_ticks if t[1] == 0),
+                         sorted(1e3 * (r.first_token_at - r.submitted_at) for r in e_reqs))
+            # busy share: device time of 10 replayed decode ticks against
+            # their unprofiled time, split by kernel; then 10 eager ticks
+            # split by kernel wrapper (a replay calls no wrapper)
             for p in prompts[:B]:
                 srv.submit(p, max_tokens=n_gen, temperature=0.0)
             srv.tick()  # admits all eight
-            rows, per = profile_wrappers(lambda: [srv.tick() for _ in range(10)], wrappers)
+            rows = kernel_rows(lambda: [srv.tick() for _ in range(10)])
+            with eager_steps():
+                e_rows, per = profile_wrappers(lambda: [srv.tick() for _ in range(10)],
+                                               wrappers)
             srv.run_until_drained()
         finally:
             M.ROTATED_DECODE = was
@@ -2633,17 +2867,31 @@ def full_width_serving_phase(dev, gbps, smi, fmt: str = "fp8", cohere: bool = Fa
         busy = "not measured" if dev_ms is None else (
             f"device {dev_ms:.3f} ms/tick = busy {100 * dev_ms / med:.1f}%; " + "; ".join(
                 f"{name} {us / 1e4:.3f} ms x{cnt / 10:g}" for us, cnt, name in rows[:6]))
-        if dev_ms is not None:
-            busy += "; by wrapper (device ms a tick, share of the tick's device time): " + (
-                "; ".join(f"{w} {sum(k.values()) / 1e4:.3f} ({sum(k.values()) / 1e4 / dev_ms:.1%}"
-                          ": " + ", ".join(f"{n} {us / 1e4:.3f}" for n, us in
-                                           sorted(k.items(), key=lambda kv: -kv[1])) + ")"
-                          for w, k in per.items()) or "not measured")
+        e_dev = sum(r[0] for r in e_rows) / 1e3 / 10 if e_rows else None
+        if e_dev is not None:
+            busy += (f"; eager ticks (the by-wrapper split): device {e_dev:.3f} ms/tick; by "
+                     "wrapper (device ms a tick, share of the eager tick's device time): " + (
+                         "; ".join(f"{w} {sum(k.values()) / 1e4:.3f} "
+                                   f"({sum(k.values()) / 1e4 / e_dev:.1%}: " + ", ".join(
+                                       f"{n} {us / 1e4:.3f}" for n, us in
+                                       sorted(k.items(), key=lambda kv: -kv[1])) + ")"
+                                   for w, k in per.items()) or "not measured"))
         wall = statistics.median(walls)
         out[mode] = dict(wall_s=wall, tok_s=n_tok / wall, tick_ms=med,
                          tick_spread_pct=100 * (max(tick_ms) - min(tick_ms)) / med,
                          ttft_p50_ms=statistics.median(ttft), ttft_max_ms=ttft[-1],
                          gb_s=gbs, busy_pct=None if dev_ms is None else 100 * dev_ms / med)
+        if eager is not None:
+            out[mode + " eager"] = dict(wall_s=eager[0], tok_s=n_tok / eager[0],
+                                        tick_ms=eager[1], ttft_p50_ms=statistics.median(eager[2]),
+                                        ttft_max_ms=eager[2][-1])
+            log(f"# serve {what} {mode}, one eager drain in the same run: {eager[0]:.3f} s, "
+                f"{n_tok / eager[0]:.1f} tok/s, decode tick {eager[1]:.3f} ms (replayed "
+                f"{med:.3f}: {med / eager[1]:.3f} of eager), TTFT p50 "
+                f"{statistics.median(eager[2]):.1f} ms, max {eager[2][-1]:.1f} ms; the same ids, "
+                f"and the same launches as the replayed drain "
+                f"({sum(v for k, v in counts[mode].items() if k != 'graph_replays')}, "
+                f"{counts[mode]['graph_replays']} replays for {stepped} decode ticks)")
         log(f"# serve {what} {mode}: drain {wall:.3f} s (median of 3, "
             f"{min(walls):.3f}-{max(walls):.3f}), {n_tok} tokens, {n_tok / wall:.1f} tok/s "
             f"over {B} slots; decode tick {med:.3f} ms (median of each run's median: "
@@ -3323,6 +3571,7 @@ def main():
         f"{ptxas_each(build, 'qmm', 'qmv_kernel')}; <act>: "
         f"{ptxas_each(build, 'qmm', 'gf4_row_kernel')}; {ptxas_each(build, 'gf4', 'gf4_mv_kernel')}")
     dev = torch.device("cuda")
+    log_captures()
 
     RATES["nominal"] = gbps
     rows = kernel_phase(gbps, dev)
@@ -3353,6 +3602,9 @@ def main():
     counts8m, tok8m, _ = container_phase("fp8", dev, experts=4)
     counts4m, tok4m, _ = container_phase("gf4", dev, experts=4)
     log(f"# container phases done at {time.perf_counter() - t_start:.1f} s")
+    # the captured step against the eager one across the sink wrap
+    graph_wrap_check(dev)
+    log(f"# graph wrap check done at {time.perf_counter() - t_start:.1f} s")
     for experts, cohere in ((0, False), (0, True), (EXPERTS, False)):
         for fmt in ("fp8", "gf4"):
             full_width_phase(fmt, dev, gbps, smi, experts, cohere)

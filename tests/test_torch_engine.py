@@ -273,7 +273,29 @@ def test_cli_chat_on_cpu(model_path):
     assert r.stdout.count("Assistant: ") == 1 and "] User: " in r.stdout
 
 
-@pytest.mark.parametrize("flag", [["-r", "2"], ["--draft", "d.calm"]])
+def test_cli_sequences_match_jax(model_path, capsys, monkeypatch):
+    """-r 2 greedy: the JAX CLI's generated text twice, and two perf lines
+    with one fingerprint (the second sequence starts from a reset cache)."""
+    from calm_tpu import cli as jcli
+    from calm_tpu_torch import cli as tcli
+
+    args = [model_path, "-t", "0", "-n", "12", "-r", "2", "-i", "hello"]
+    jcli.main(args)
+    want = capsys.readouterr()
+    monkeypatch.setenv("CALM_CPU", "1")
+    tcli.main(args)
+    got = capsys.readouterr()
+
+    def text(out):
+        return [line for line in out.splitlines() if not line.startswith("# ")]
+    assert text(got.out) == text(want.out) and len(text(got.out)) >= 2
+    assert text(got.out)[0] == text(got.out)[1]
+    perf = got.err.strip().splitlines()[-2:]
+    assert all(PERF.match(p) for p in perf), got.err
+    assert perf[0].split("#")[-1] == perf[1].split("#")[-1]
+
+
+@pytest.mark.parametrize("flag", [["--draft", "d.calm"]])
 def test_cli_unported_flags_exit_2(model_path, flag):
     env = dict(os.environ, CALM_CPU="1")
     r = subprocess.run([sys.executable, "-m", "calm_tpu_torch.cli", model_path]
