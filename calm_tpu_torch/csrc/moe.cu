@@ -1,4 +1,5 @@
-// Expert-indexed matvecs for MoE decode (B <= 16 activation rows) over
+// Expert-indexed matvecs for MoE decode (one activation row; fp16/fp8 up
+// to 16 rows where qmm.cu's multi-row sweep declines the shape) over
 // layer-stacked expert weights: (L, E, d, n) fp16 or fp8-e5m2, or natural
 // gf4 words (L, E, d, n/8) int32.
 //
@@ -42,6 +43,18 @@
 // its ordered grid steps. h ((A, B, H) f32, 115 KB at Mixtral width, B=1)
 // is allocated by the wrapper. A single persistent launch is later work.
 //
+// Since the multi-row path took the sweep, these loops serve one row (B =
+// 1, at 77.6% and 53.8% of their byte bound on Mixtral 8x7B shapes, PERF.md)
+// and, for fp16/fp8, the 2-16-row shapes that path declines (rows of n %
+// 16 != 0): hopper_qmm.moe_multirow_supported decides by shape, on the
+// host; the gf4 loop takes one row only. At 2-16 rows the fp16/fp8 loop
+// reads B float4 of x from L1 per weight word and does 2 B f32 FMAs a
+// weight; qmm.cu's calm_moe_mmv and calm_moe_ffn run the same contract
+// (ids and cnt on the device, dead slots zero) on the tensor cores
+// (mmv_kernel with an expert-slot axis), and the fp16/fp8 FFN there is two
+// products (the dual w1/w3 launch, then w2) where three launches of this
+// file and PyTorch's activation were.
+//
 // Each .cu file is its own library (ops/build.py), so the few decode
 // helpers below repeat those of qmm.cu and gf4.cu, which stay untouched.
 
@@ -52,7 +65,7 @@
 #define WARPS 8   // fp8/fp16: warps per block, one output row each
 #define GWARPS 4  // gf4: warps per block
 #define GSTREAMS 4  // gf4: weight rows a warp walks together
-#define GU 4      // gf4: words in flight per lane and stream (B <= 4)
+#define GU 4      // gf4: words in flight per lane and stream
 
 namespace {
 
@@ -178,31 +191,29 @@ __global__ void __launch_bounds__(WARPS * 32)
 }
 
 // ---------------------------------------------------------------------------
-// gf4 (K10's gf4 body, both launches of K11): grid
+// gf4 (K10's gf4 body, both launches of K11) at one row: grid
 // (ceil(d / (GWARPS * rows per warp)), A), a warp walks GSTREAMS word rows
 // ---------------------------------------------------------------------------
 
 // MODE 0: y = x . w^T, four rows of w per warp. MODE 1 (SiLU) / 2
 // (tanh-GELU): y = act(x . w^T) * (x . w3^T), two rows each of w and w3.
-// w/w3 are the layer's planes (E, d, n8); x is (Ax, B, 8 n8); y (A, B, d).
-template <int NB, int MODE>
+// w/w3 are the layer's planes (E, d, n8); x is (Ax, 1, 8 n8); y (A, 1, d).
+template <int MODE>
 __global__ void __launch_bounds__(GWARPS * 32)
     moe_gf4_kernel(const float* __restrict__ x, const uint32_t* __restrict__ w,
                    const uint32_t* __restrict__ w3, float* __restrict__ y,
                    const int* __restrict__ eidx, const int* __restrict__ cnt,
-                   int Ax, int B, int d, int n8, int E) {
+                   int Ax, int d, int n8, int E) {
   constexpr int ROWS = MODE ? GSTREAMS / 2 : GSTREAMS;  // output rows per warp
-  constexpr int U = NB > 4 ? GU / 2 : GU;  // 16 rows of x: fewer words in flight, no spill
+  constexpr int U = GU;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int a = blockIdx.y;
   const int row0 = (blockIdx.x * GWARPS + warp) * ROWS;
   if (row0 >= d) return;
-  float* ya = y + (size_t)a * B * d;
+  float* ya = y + (size_t)a * d;
   const int e = slot_expert(eidx, cnt, E, a);
   if (e < 0) {
-#pragma unroll
-    for (int r = 0; r < ROWS; r++)
-      if (row0 + r < d && lane < B) ya[(size_t)lane * d + row0 + r] = 0.f;
+    if (lane < ROWS && row0 + lane < d) ya[row0 + lane] = 0.f;
     return;
   }
   const size_t plane = (size_t)e * d * n8;
@@ -213,13 +224,10 @@ __global__ void __launch_bounds__(GWARPS * 32)
     ws[s] = (MODE && s >= ROWS ? w3 : w) + plane + (size_t)r * n8;
   }
   const float4* x4 =
-      reinterpret_cast<const float4*>(x + (size_t)min(a, Ax - 1) * B * 8 * n8);
-  const int n4 = 2 * n8;  // float4s per row of x
-  float acc[GSTREAMS][NB];
+      reinterpret_cast<const float4*>(x + (size_t)min(a, Ax - 1) * 8 * n8);
+  float acc[GSTREAMS];
 #pragma unroll
-  for (int s = 0; s < GSTREAMS; s++)
-#pragma unroll
-    for (int b = 0; b < NB; b++) acc[s][b] = 0.f;
+  for (int s = 0; s < GSTREAMS; s++) acc[s] = 0.f;
 
   for (int c0 = lane; c0 < n8; c0 += 32 * U) {
     uint32_t q[U][GSTREAMS];
@@ -233,60 +241,28 @@ __global__ void __launch_bounds__(GWARPS * 32)
     for (int u = 0; u < U; u++) {
       const int c = c0 + u * 32;
       if (c >= n8) break;
-      if (NB == 1) {
-        const float4 xa = __ldg(x4 + 2 * c), xb = __ldg(x4 + 2 * c + 1);
+      const float4 xa = __ldg(x4 + 2 * c), xb = __ldg(x4 + 2 * c + 1);
 #pragma unroll
-        for (int s = 0; s < GSTREAMS; s++) {
-          const uint32_t v = q[u][s];
-          float t = gf4_code(v, 0) * xa.x;
-          t = fmaf(gf4_code(v, 1), xa.y, t);
-          t = fmaf(gf4_code(v, 2), xa.z, t);
-          t = fmaf(gf4_code(v, 3), xa.w, t);
-          t = fmaf(gf4_code(v, 4), xb.x, t);
-          t = fmaf(gf4_code(v, 5), xb.y, t);
-          t = fmaf(gf4_code(v, 6), xb.z, t);
-          t = fmaf(gf4_code(v, 7), xb.w, t);
-          acc[s][0] = fmaf(t, gf4_scale(v), acc[s][0]);
-        }
-      } else {
-#pragma unroll
-        for (int s = 0; s < GSTREAMS; s++) {  // decode a word once for all rows of x
-          const uint32_t v = q[u][s];
-          float cv[8];
-#pragma unroll
-          for (int k = 0; k < 8; k++) cv[k] = gf4_code(v, k);
-          const float sc = gf4_scale(v);
-#pragma unroll
-          for (int b = 0; b < NB; b++) {
-            if (b < B) {
-              const float4 xa = __ldg(x4 + (size_t)b * n4 + 2 * c);
-              const float4 xb = __ldg(x4 + (size_t)b * n4 + 2 * c + 1);
-              float t = cv[0] * xa.x;
-              t = fmaf(cv[1], xa.y, t);
-              t = fmaf(cv[2], xa.z, t);
-              t = fmaf(cv[3], xa.w, t);
-              t = fmaf(cv[4], xb.x, t);
-              t = fmaf(cv[5], xb.y, t);
-              t = fmaf(cv[6], xb.z, t);
-              t = fmaf(cv[7], xb.w, t);
-              acc[s][b] = fmaf(t, sc, acc[s][b]);
-            }
-          }
-        }
+      for (int s = 0; s < GSTREAMS; s++) {
+        const uint32_t v = q[u][s];
+        float t = gf4_code(v, 0) * xa.x;
+        t = fmaf(gf4_code(v, 1), xa.y, t);
+        t = fmaf(gf4_code(v, 2), xa.z, t);
+        t = fmaf(gf4_code(v, 3), xa.w, t);
+        t = fmaf(gf4_code(v, 4), xb.x, t);
+        t = fmaf(gf4_code(v, 5), xb.y, t);
+        t = fmaf(gf4_code(v, 6), xb.z, t);
+        t = fmaf(gf4_code(v, 7), xb.w, t);
+        acc[s] = fmaf(t, gf4_scale(v), acc[s]);
       }
     }
   }
 
 #pragma unroll
-  for (int b = 0; b < NB; b++) {
-    if (b < B) {
-#pragma unroll
-      for (int r = 0; r < ROWS; r++) {
-        float v = warp_sum(acc[r][b]);
-        if (MODE) v = act<MODE>(v) * warp_sum(acc[(ROWS + r) % GSTREAMS][b]);
-        if (lane == 0 && row0 + r < d) ya[(size_t)b * d + row0 + r] = v;
-      }
-    }
+  for (int r = 0; r < ROWS; r++) {
+    float v = warp_sum(acc[r]);
+    if (MODE) v = act<MODE>(v) * warp_sum(acc[(ROWS + r) % GSTREAMS]);
+    if (lane == 0 && row0 + r < d) ya[row0 + r] = v;
   }
 }
 
@@ -299,27 +275,15 @@ void launch_qmv(const float* x, const void* w, float* y, const int* eidx,
       x, static_cast<const uint8_t*>(w), y, eidx, cnt, Ax, B, d, n, E);
 }
 
-template <int NB, int MODE>
+template <int MODE>
 void launch_gf4(const float* x, const void* w, const void* w3, float* y,
-                const int* eidx, const int* cnt, int Ax, int A, int B, int d, int n8,
-                int E, cudaStream_t st) {
+                const int* eidx, const int* cnt, int Ax, int A, int d, int n8, int E,
+                cudaStream_t st) {
   constexpr int rows = GWARPS * (MODE ? GSTREAMS / 2 : GSTREAMS);
   dim3 grid((d + rows - 1) / rows, A);
-  moe_gf4_kernel<NB, MODE><<<grid, GWARPS * 32, 0, st>>>(
+  moe_gf4_kernel<MODE><<<grid, GWARPS * 32, 0, st>>>(
       x, static_cast<const uint32_t*>(w), static_cast<const uint32_t*>(w3), y,
-      eidx, cnt, Ax, B, d, n8, E);
-}
-
-template <int MODE>
-void launch_gf4_b(const float* x, const void* w, const void* w3, float* y,
-                  const int* eidx, const int* cnt, int Ax, int A, int B, int d,
-                  int n8, int E, cudaStream_t st) {
-  if (B <= 1)
-    launch_gf4<1, MODE>(x, w, w3, y, eidx, cnt, Ax, A, B, d, n8, E, st);
-  else if (B <= 4)
-    launch_gf4<4, MODE>(x, w, w3, y, eidx, cnt, Ax, A, B, d, n8, E, st);
-  else
-    launch_gf4<16, MODE>(x, w, w3, y, eidx, cnt, Ax, A, B, d, n8, E, st);
+      eidx, cnt, Ax, d, n8, E);
 }
 
 template <int FMT>
@@ -340,8 +304,9 @@ extern "C" {
 
 // K10: y (A, B, d) f32 = x[min(a, Ax-1)] (B, n) . W[eidx[a]]^T for the A
 // slots; w points at the layer's plane (E, d, n) fp16 (fmt 0) or fp8 e5m2
-// (fmt 1), or (E, d, n/8) gf4 words (fmt 2); eidx (A,) and cnt (1,) int32
-// on the device; 1 <= B <= 16, n % 4 == 0, x 16-byte aligned.
+// (fmt 1), or (E, d, n/8) gf4 words (fmt 2, one row only: 2-16 rows of
+// gf4 take qmm.cu's calm_moe_mmv); eidx (A,) and cnt (1,) int32 on the
+// device; 1 <= B <= 16, n % 4 == 0, x 16-byte aligned.
 int calm_moe_dense(const void* x, const void* w, void* y, const void* eidx,
                    const void* cnt, int Ax, int A, int B, int d, int n, int E,
                    int fmt, void* stream) {
@@ -350,34 +315,36 @@ int calm_moe_dense(const void* x, const void* w, void* y, const void* eidx,
   float* yf = static_cast<float*>(y);
   const int* ei = static_cast<const int*>(eidx);
   const int* cn = static_cast<const int*>(cnt);
-  if (fmt == 2)
-    launch_gf4_b<0>(xf, w, nullptr, yf, ei, cn, Ax, A, B, d, n / 8, E, st);
-  else if (fmt == 1)
+  if (fmt == 2) {
+    if (B != 1) return (int)cudaErrorInvalidValue;
+    launch_gf4<0>(xf, w, nullptr, yf, ei, cn, Ax, A, d, n / 8, E, st);
+  } else if (fmt == 1)
     launch_qmv_b<1>(xf, w, yf, ei, cn, Ax, A, B, d, n, E, st);
   else
     launch_qmv_b<0>(xf, w, yf, ei, cn, Ax, A, B, d, n, E, st);
   return (int)cudaGetLastError();
 }
 
-// K11: z (A, B, D) f32, the expert FFN of each slot on x (B, D) f32: w1/w3
-// point at the layer's planes (E, H, D/8), w2 at (E, D, H/8), natural gf4
-// words; h (A, B, H) f32 is caller-allocated scratch.
+// K11 at one row: z (A, 1, D) f32, the expert FFN of each slot on x (1, D)
+// f32 (2-16 rows take qmm.cu's calm_moe_ffn): w1/w3 point at the layer's
+// planes (E, H, D/8), w2 at (E, D, H/8), natural gf4 words; h (A, 1, H)
+// f32 is caller-allocated scratch.
 int calm_gf4_moe_ffn(const void* x, const void* w1, const void* w3, const void* w2,
                      const void* eidx, const void* cnt, void* h, void* z, int A,
                      int B, int D, int H, int E, int act_gelu, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  if (B != 1) return (int)cudaErrorInvalidValue;
   const int* ei = static_cast<const int*>(eidx);
   const int* cn = static_cast<const int*>(cnt);
   float* hf = static_cast<float*>(h);
   const float* xf = static_cast<const float*>(x);
   if (act_gelu)
-    launch_gf4_b<2>(xf, w1, w3, hf, ei, cn, 1, A, B, H, D / 8, E, st);
+    launch_gf4<2>(xf, w1, w3, hf, ei, cn, 1, A, H, D / 8, E, st);
   else
-    launch_gf4_b<1>(xf, w1, w3, hf, ei, cn, 1, A, B, H, D / 8, E, st);
+    launch_gf4<1>(xf, w1, w3, hf, ei, cn, 1, A, H, D / 8, E, st);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  launch_gf4_b<0>(hf, w2, nullptr, static_cast<float*>(z), ei, cn, A, A, B, D,
-                  H / 8, E, st);
+  launch_gf4<0>(hf, w2, nullptr, static_cast<float*>(z), ei, cn, A, A, D, H / 8, E, st);
   return (int)cudaGetLastError();
 }
 

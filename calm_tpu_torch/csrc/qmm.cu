@@ -27,6 +27,13 @@
 //     residual in the w2 launch (six on the multi-row path). The TPU kernel
 //     runs on a plane-permuted residual stream, Mosaic's layout; the port
 //     keeps natural order.
+//   - at 2-16 rows, the MoE expert sweep of moe.cu: _moe_dense_kernel and
+//     _moe_dense_gf4_kernel (:1248, :1256, via _qmm_moe_dense :1273), Y[a] =
+//     x[min(a, Ax-1)] . W[layer, eidx[a]]^T -> calm_moe_mmv below (K10), and
+//     the expert FFN, _gf4_moe_ffn_kernel (:1361, K11) on gf4 words and the
+//     three _qmm_moe_dense calls with their activation (calm_tpu/model.py
+//     :810-816) on fp16/fp8 -> calm_moe_ffn below. One row stays on
+//     moe.cu's loops (see the MoE note below).
 //
 // K6 and K7 are bound like the epilogue: by their weight bytes (3 H D / 2,
 // plus Q D / 2 for K7's wo), and they are made of its launches.
@@ -164,6 +171,34 @@
 //   - K3's lm-head (up to 256000 rows of Aya 23 8B's tied vocabulary) takes
 //     qmv_plan's 32 rows a warp, and its thousands of row groups leave k
 //     whole; the output's row stride is d.
+//
+// The MoE sweep on the multi-row path (K10 calm_moe_mmv, the expert FFN
+// calm_moe_ffn, 2 <= B <= 16):
+//   - What bounds it: the live experts' weight bytes, each read once for
+//     all B rows. Mixtral 8x7B's serving tick (8 rows, top-2 of 8 experts)
+//     fills up to 8 slots (~7.2 for routing uniform over experts): one
+//     layer's FFN is then up to 8 x 3 x 58.7 M weights,
+//     470 MB a product in fp8 (0.140 ms at 3.35 TB/s). moe.cu's f32 loop
+//     reads B float4 of x per weight word from L1 and does 2 B FMAs a
+//     weight, as the loop above did before this path (~10% of its bound at
+//     B = 8 on K9).
+//   - mmv_kernel's MOE instantiations add a slot axis, blockIdx.y: a block
+//     reads its slot's expert id on the device (eidx[a], clamped to [0, E))
+//     and offsets its weight, staged-x and output pointers; a dead slot (a
+//     >= cnt) writes zeros and reads no weight, as moe.cu's contract. No id
+//     passes through the host, so the step stays capturable.
+//   - x is staged once a launch by split_kernel: one staging that every
+//     slot shares for w1/w3 (Ax = 1), one a slot for w2 (Ax = A: h of
+//     slot a staged by a third grid axis of split_kernel).
+//   - The FFN is two products, as ffn_staged's: the dual w1/w3 launch
+//     writes h = act(x w1^T) (x w3^T) (A, B, H), h is staged slot by slot,
+//     the w2 launch writes z (A, B, D). fp16/fp8 ran three K10 launches and
+//     PyTorch's activation; gf4 (K11) ran moe.cu's two f32 launches.
+//   - qmv_plan tiles a launch over slots x row groups: with 8 slots the
+//     wide launches need no k split, the narrow w2 (4096 rows a slot) keeps
+//     one.
+//   - The MOE flag is a template argument, so the instantiations that the
+//     dense paths launch are compiled as before.
 
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -352,13 +387,17 @@ __global__ void __launch_bounds__(NORM_THREADS)
 }
 
 // The staging of x (B, n) f32 alone (see stage4): grid (n / 4 / 256 up,
-// B), one float4 a thread.
+// B, slots), one float4 a thread; slot z stages rows z B .. z B + B - 1 of
+// x into xs + z xslot and sc + z scslot (the MoE sweep's h, one staging a
+// slot).
 __global__ void __launch_bounds__(SPLIT_THREADS)
-    split_kernel(const float* x, uint4* xs, float* sc, int ns, int n) {
+    split_kernel(const float* x, uint4* xs, float* sc, int ns, int n, size_t xslot,
+                 size_t scslot) {
   const int n4 = n >> 2, c = blockIdx.x * SPLIT_THREADS + threadIdx.x;
-  const float4 v = c < n4 ? reinterpret_cast<const float4*>(x + (size_t)blockIdx.y * n)[c]
+  const size_t row = (size_t)blockIdx.z * gridDim.y + blockIdx.y;
+  const float4 v = c < n4 ? reinterpret_cast<const float4*>(x + row * n)[c]
                           : make_float4(0.f, 0.f, 0.f, 0.f);
-  stage4(v, n4, blockIdx.y, c, ns, xs, sc);
+  stage4(v, n4, blockIdx.y, c, ns, xs + blockIdx.z * xslot, sc + blockIdx.z * scslot);
 }
 
 __device__ __forceinline__ float act_fn(int act, float y) {
@@ -610,6 +649,15 @@ struct MArgs {
   int B;
   int n;
   int ks;  // warps that split k for one row group (qmv_plan)
+  // the expert-slot axis of the MOE instantiations (slot a = blockIdx.y;
+  // one segment)
+  const int* eidx;  // (A,) expert ids, clamped to [0, E)
+  const int* cnt;   // live slots: a >= cnt writes zeros and reads no weight
+  int E;
+  size_t wslot;   // bytes from one expert's plane to the next
+  size_t xslot;   // uint4 fragments from one slot's staged x to the next (0: shared)
+  size_t scslot;  // floats from one slot's scales to the next (0: shared)
+  size_t oslot;   // floats from one slot's output to the next
 };
 
 __device__ __forceinline__ void mma16816(float (&d)[4], uint32_t a0, uint32_t a1,
@@ -701,8 +749,8 @@ struct MW {
 // of a block share a row group (k split), WARPS / ks groups a block, the
 // groups of segment 0, then 1, then 2, each ceil(rows / 16 MT). The weight
 // and x pointers step along k with the chunks, so a load's address is a
-// register plus a constant.
-template <int FMT, int ACT, int MT, int NT, bool ODD>
+// register plus a constant. MOE: the MoE sweep's slot axis (see MArgs).
+template <int FMT, int ACT, int MT, int NT, bool ODD, bool MOE = false>
 __global__ void __launch_bounds__(WARPS * 32, 2) mmv_kernel(MArgs a) {
   using W = MW<FMT>;
   constexpr int NW = W::WORDS;
@@ -733,6 +781,25 @@ __global__ void __launch_bounds__(WARPS * 32, 2) mmv_kernel(MArgs a) {
   }
   const int nc = (a.n + CH - 1) / CH;
   const int c0 = live ? kw * nc / ks : 0, c1 = live ? (kw + 1) * nc / ks : 0;
+  const uint4* xs = a.xs;
+  const float* scs = a.sc;
+  if constexpr (MOE) {  // the block's slot: every warp of it returns here, or none
+    const int slot = blockIdx.y;
+    sg.out += (size_t)slot * a.oslot;
+    const int e = slot < __ldg(a.cnt) ? min(max(__ldg(a.eidx + slot), 0), a.E - 1) : -1;
+    if (e < 0) {  // a dead slot: zeros, and no weight read
+      if (kw == 0 && live)
+        for (int i = lane; i < GR * a.B; i += 32) {
+          const int row = r0 + i % GR;
+          if (row < sg.rows) sg.out[(size_t)(i / GR) * sg.ld + row] = 0.f;
+        }
+      return;
+    }
+    sg.w += (size_t)e * a.wslot;
+    if (ACT) sg.w3 += (size_t)e * a.wslot;
+    xs += (size_t)slot * a.xslot;
+    scs += (size_t)slot * a.scslot;
+  }
 
   // rows g and g + 8 of each m-tile from chunk c0; bytes a row: n / 16 B16
   // (+ 4 for gf4 rows of n % 16 == 8)
@@ -749,8 +816,8 @@ __global__ void __launch_bounds__(WARPS * 32, 2) mmv_kernel(MArgs a) {
     }
   // x: lane (g, t)'s fragment of step 0 of chunk c0, n-tile 0; scales of its
   // C columns (x rows 2 t, 2 t + 1)
-  const uint4* xp = a.xs + (size_t)c0 * XCH + g * 4 + t;
-  const float* sp = a.sc + (size_t)c0 * NS + 2 * t;
+  const uint4* xp = xs + (size_t)c0 * XCH + g * 4 + t;
+  const float* sp = scs + (size_t)c0 * NS + 2 * t;
   int left = a.n - (c0 * CH + 16 * t);  // values of the row from the lane's first
   uint32_t k1024;  // gf4_frag's constant, kept in a register
   asm("mov.b32 %0, 0x64006400;" : "=r"(k1024));
@@ -903,50 +970,56 @@ __global__ void __launch_bounds__(WARPS * 32, 2) mmv_kernel(MArgs a) {
       }
 }
 
-template <int FMT, int ACT, int MT, bool ODD>
-cudaError_t launch_mmv_nt(const MArgs& a, int nt, int grid, cudaStream_t st) {
+template <int FMT, int ACT, int MT, bool ODD, bool MOE>
+cudaError_t launch_mmv_nt(const MArgs& a, int nt, dim3 grid, cudaStream_t st) {
   if (nt == 1)
-    mmv_kernel<FMT, ACT, MT, 1, ODD><<<grid, WARPS * 32, 0, st>>>(a);
+    mmv_kernel<FMT, ACT, MT, 1, ODD, MOE><<<grid, WARPS * 32, 0, st>>>(a);
   else
-    mmv_kernel<FMT, ACT, MT, 2, ODD><<<grid, WARPS * 32, 0, st>>>(a);
+    mmv_kernel<FMT, ACT, MT, 2, ODD, MOE><<<grid, WARPS * 32, 0, st>>>(a);
   return cudaGetLastError();
 }
 
 // 32 rows a warp (two m-tiles) only for one weight's launches of whole
 // 16-value steps, as qmv_plan gives them: the dual launch and rows of an
 // odd word count keep one
-template <int FMT, int ACT, bool ODD>
-cudaError_t launch_mmv_mt(const MArgs& a, int mt, int nt, int grid, cudaStream_t st) {
+template <int FMT, int ACT, bool ODD, bool MOE>
+cudaError_t launch_mmv_mt(const MArgs& a, int mt, int nt, dim3 grid, cudaStream_t st) {
   if constexpr (ACT == 0 && !ODD) {
-    if (mt == 2) return launch_mmv_nt<FMT, ACT, 2, ODD>(a, nt, grid, st);
+    if (mt == 2) return launch_mmv_nt<FMT, ACT, 2, ODD, MOE>(a, nt, grid, st);
   }
-  return launch_mmv_nt<FMT, ACT, 1, ODD>(a, nt, grid, st);
+  return launch_mmv_nt<FMT, ACT, 1, ODD, MOE>(a, nt, grid, st);
 }
 
-// plan (from qmv_plan): {mt, nt, ks, grid}
-template <int ACT>
-cudaError_t launch_mmv(int fmt, MArgs a, const int* plan, cudaStream_t st) {
+// plan (from qmv_plan): {mt, nt, ks, grid}; MOE: grid x slots blocks, the
+// slot axis of a.eidx / a.cnt
+template <int ACT, bool MOE = false>
+cudaError_t launch_mmv(int fmt, MArgs a, const int* plan, cudaStream_t st, int slots = 1) {
   const int mt = plan[0], nt = plan[1], ks = plan[2], grid = plan[3];
   // fp16/fp8 rows of whole 16-value steps; a gf4 row may end half-way
   // (n % 16 == 8, one m-tile a warp)
   const bool odd = a.n % 16 != 0;
   if ((mt != 1 && mt != 2) || (nt != 1 && nt != 2) || a.B < 2 || a.B > 8 * nt ||
       ks < 1 || ks > WARPS || WARPS % ks != 0 || grid < 1 || a.n < 1 ||
-      a.n % (fmt == 2 ? 8 : 16) != 0 || (mt == 2 && (odd || ACT != 0)))
+      a.n % (fmt == 2 ? 8 : 16) != 0 || (mt == 2 && (odd || ACT != 0)) || slots < 1 ||
+      slots > 65535 || (MOE && (!a.eidx || !a.cnt || a.E < 1 || a.nseg != 1)))
     return cudaErrorInvalidValue;
   a.ks = ks;
+  const dim3 g(grid, slots);
   if (fmt == 2)
-    return odd ? launch_mmv_mt<2, ACT, true>(a, mt, nt, grid, st)
-               : launch_mmv_mt<2, ACT, false>(a, mt, nt, grid, st);
-  return fmt == 1 ? launch_mmv_mt<1, ACT, false>(a, mt, nt, grid, st)
-                  : launch_mmv_mt<0, ACT, false>(a, mt, nt, grid, st);
+    return odd ? launch_mmv_mt<2, ACT, true, MOE>(a, mt, nt, g, st)
+               : launch_mmv_mt<2, ACT, false, MOE>(a, mt, nt, g, st);
+  return fmt == 1 ? launch_mmv_mt<1, ACT, false, MOE>(a, mt, nt, g, st)
+                  : launch_mmv_mt<0, ACT, false, MOE>(a, mt, nt, g, st);
 }
 
+// slots > 1: x holds slots x B rows, staged slot by slot xslot fragments
+// and scslot scales apart
 cudaError_t launch_split(const void* x, uint4* xs, float* sc, int ns, int B, int n,
-                         cudaStream_t st) {
-  const dim3 grid(((n >> 2) + SPLIT_THREADS - 1) / SPLIT_THREADS, B);
+                         cudaStream_t st, int slots = 1, size_t xslot = 0,
+                         size_t scslot = 0) {
+  const dim3 grid(((n >> 2) + SPLIT_THREADS - 1) / SPLIT_THREADS, B, slots);
   split_kernel<<<grid, SPLIT_THREADS, 0, st>>>(static_cast<const float*>(x), xs, sc,
-                                               ns, n);
+                                               ns, n, xslot, scslot);
   return cudaGetLastError();
 }
 
@@ -958,8 +1031,35 @@ MArgs margs(const uint4* xs, const float* sc, int B, int n) {
   a.B = B;
   a.n = n;
   a.ks = 1;
+  a.eidx = a.cnt = nullptr;
+  a.E = 0;
+  a.wslot = a.xslot = a.scslot = a.oslot = 0;
   return a;
 }
+
+// The MoE sweep's slot axis on m: experts' planes wslot bytes apart, each
+// slot's staged x xslot fragments and scslot scales apart (0: shared), its
+// output oslot floats apart.
+void moe_slots(MArgs& m, const void* eidx, const void* cnt, int E, size_t wslot,
+               size_t xslot, size_t scslot, size_t oslot) {
+  m.eidx = static_cast<const int*>(eidx);
+  m.cnt = static_cast<const int*>(cnt);
+  m.E = E;
+  m.wslot = wslot;
+  m.xslot = xslot;
+  m.scslot = scslot;
+  m.oslot = oslot;
+}
+
+// bytes of a weight row of n values: fp16 2 n, e5m2 n, gf4 n / 2
+size_t row_bytes(int fmt, int n) {
+  return fmt == 2 ? (size_t)n / 2 : fmt == 1 ? (size_t)n : 2 * (size_t)n;
+}
+
+// uint4 fragments and scales of one row slot set's staging of n values
+// (ns row slots a chunk): what stage4 writes
+size_t staged_frags(int n, int ns) { return (size_t)((n + CH - 1) / CH) * 16 * ns; }
+size_t staged_scales(int n, int ns) { return (size_t)((n + CH - 1) / CH) * ns; }
 
 // one row (qmv_kernel); 2-16 rows take launch_mmv
 template <int FMT, int ACT>
@@ -1215,6 +1315,66 @@ int calm_gf4_offn(const void* a, const void* r, const void* g, const void* wo,
                         static_cast<float*>(sc), static_cast<const int*>(plans), st);
   return (int)offn(2, a, r, g, wo, w1, w3, w2, r1, xn, h, ffn_out, nullptr, B, D, H, Qd,
                    act_gelu, eps, sub_mean, static_cast<const int*>(plans), st);
+}
+
+// K10 at 2-16 rows: y (A, B, d) f32 = x[min(a, Ax-1)] (B, n) . W[eidx[a]]^T
+// for the A expert slots, on the multi-row path; w points at the layer's
+// plane (E, d, n) fp16 (fmt 0) or fp8 e5m2 (1), or (E, d, n/8) gf4 words
+// (2); eidx (A,) and cnt (1,) int32 on the device, Ax 1 (x shared) or A;
+// n a multiple of 16 (gf4: of 8). x staged into xs/sc (caller-allocated,
+// Ax stagings of qmv_plan's size), then plan's launch (qmv_plan with
+// slots = A) of A slots; slots a >= cnt write zeros and read no weight.
+// One row takes moe.cu's calm_moe_dense.
+int calm_moe_mmv(const void* x, const void* w, void* y, const void* eidx, const void* cnt,
+                 int Ax, int A, int B, int d, int n, int E, int fmt, void* xs, void* sc,
+                 const void* plan, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const int* p = static_cast<const int*>(plan);
+  const int ns = 8 * p[1];
+  uint4* xs4 = static_cast<uint4*>(xs);
+  float* scf = static_cast<float*>(sc);
+  if (Ax != 1 && Ax != A) return (int)cudaErrorInvalidValue;
+  const size_t xslot = staged_frags(n, ns), scslot = staged_scales(n, ns);
+  cudaError_t e = launch_split(x, xs4, scf, ns, B, n, st, Ax, xslot, scslot);
+  if (e != cudaSuccess) return (int)e;
+  MArgs m = margs(xs4, scf, B, n);
+  m.seg[0] = seg(w, nullptr, y, nullptr, d, d);
+  moe_slots(m, eidx, cnt, E, (size_t)d * row_bytes(fmt, n), Ax > 1 ? xslot : 0,
+            Ax > 1 ? scslot : 0, (size_t)B * d);
+  return (int)launch_mmv<0, true>(fmt, m, p, st, A);
+}
+
+// The expert FFN at 2-16 rows: z (A, B, D) f32, z[a] = (act(x W1[e]^T) *
+// (x W3[e]^T)) W2[e]^T with e = eidx[a], for x (B, D) f32; w1/w3 point at
+// the layer's planes (E, H, D) and w2 at (E, D, H), fp16 (fmt 0), fp8 e5m2
+// (1) or gf4 words (2, n/8 words a row); h (A, B, H) f32 scratch. Four
+// launches: x staged once, the dual w1/w3 launch of every slot into h, h
+// staged slot by slot, the w2 launch into z; slots a >= cnt give zeros.
+// plans: qmv_plan's (slots = A) of w1/w3 and w2; xs/sc hold A stagings of
+// H values.
+int calm_moe_ffn(const void* x, const void* w1, const void* w3, const void* w2,
+                 const void* eidx, const void* cnt, void* h, void* z, int A, int B, int D,
+                 int H, int E, int fmt, int act_gelu, void* xs, void* sc, const void* plans,
+                 void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const int* p = static_cast<const int*>(plans);
+  const int ns = 8 * p[1];
+  uint4* xs4 = static_cast<uint4*>(xs);
+  float* scf = static_cast<float*>(sc);
+  cudaError_t e = launch_split(x, xs4, scf, ns, B, D, st);
+  if (e != cudaSuccess) return (int)e;
+  MArgs m = margs(xs4, scf, B, D);
+  m.seg[0] = seg(w1, w3, h, nullptr, H, H);
+  moe_slots(m, eidx, cnt, E, (size_t)H * row_bytes(fmt, D), 0, 0, (size_t)B * H);
+  e = act_gelu ? launch_mmv<2, true>(fmt, m, p, st, A) : launch_mmv<1, true>(fmt, m, p, st, A);
+  if (e != cudaSuccess) return (int)e;
+  const size_t xslot = staged_frags(H, ns), scslot = staged_scales(H, ns);
+  if ((e = launch_split(h, xs4, scf, ns, B, H, st, A, xslot, scslot)) != cudaSuccess)
+    return (int)e;
+  m = margs(xs4, scf, B, H);
+  m.seg[0] = seg(w2, nullptr, z, nullptr, D, D);
+  moe_slots(m, eidx, cnt, E, (size_t)D * row_bytes(fmt, H), xslot, scslot, (size_t)B * D);
+  return (int)launch_mmv<0, true>(fmt, m, p + 4, st, A);
 }
 
 const char* calm_qmm_error_string(int e) {

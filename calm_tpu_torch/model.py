@@ -43,9 +43,9 @@ FFN the attn-normed input (``gf4_ffn`` for gf4 at <= 16 rows) and adds wo
 and the FFN to the residual, as ``model.py:1119-1149``. A MoE layer's
 FFN is :func:`_moe_ffn`: the gate
 matvec, top-k routing, then at <= 16 rows the expert sweep over the
-layer's unique experts (``qmm_moe_dense`` three times, or ``gf4_moe_ffn``
-once for gf4), above it the rows grouped by expert through the product
-kernels. :func:`prefill` runs T
+layer's unique experts (``qmm_moe_ffn`` once, at one row ``qmm_moe_dense``
+three times, or ``gf4_moe_ffn`` once for gf4), above it the rows grouped
+by expert through the product kernels. :func:`prefill` runs T
 tokens per sequence at once (``model.py:1363-1374``): per layer the
 projections, bias/qk-norm/clip, RoPE over T positions, the write of the T
 rows into the cache, then ``prefill_attention`` reading them back, then wo
@@ -87,9 +87,10 @@ from calm_tpu_torch.ops.hopper_qmm import (MAX_ROWS, act, gf4_ffn,
                                            gf4_ffn_supported, gf4_moe_ffn,
                                            gf4_offn, gf4_offn_qkv,
                                            gf4_offn_supported, mm_supported,
+                                           moe_multirow_supported,
                                            prefill_operand, qmm_decode,
-                                           qmm_moe_dense, qmm_prefill,
-                                           qmm_prefill_w2,
+                                           qmm_moe_dense, qmm_moe_ffn,
+                                           qmm_prefill, qmm_prefill_w2,
                                            qx_offn_qkv, qx_offn_supported)
 from calm_tpu_torch.ops.norms import rmsnorm
 from calm_tpu_torch.ops.qmm import (STORAGE, QTensor, dense_matmul,
@@ -543,7 +544,10 @@ def _moe_sweep(cfg: ModelConfig, lw: LayerWeights, layer: int, xb2, wts, idx,
     (``calm_tpu/model.py:764-827``), then each row takes the slots it was
     routed to with its gate weights; dead slots come back as zeros. Under
     ep a rank sweeps its resident experts only: a slot of another rank's
-    expert re-reads a local one and weighs 0 (``:800-808``)."""
+    expert re-reads a local one and weighs 0 (``:800-808``). The FFN of
+    the slots is one ``gf4_moe_ffn`` (gf4), one ``qmm_moe_ffn`` (fp16/fp8
+    at 2-16 rows of whole steps: the multi-row path), or three
+    ``qmm_moe_dense`` and the activation (one row, other shapes)."""
     uniq, cnt = expert_slots(idx, cfg.n_experts)
     off, e_local = _local_experts(lw, plan, mesh)
     live = torch.arange(uniq.shape[0], device=uniq.device) < cnt
@@ -554,8 +558,13 @@ def _moe_sweep(cfg: ModelConfig, lw: LayerWeights, layer: int, xb2, wts, idx,
         lid = torch.where(local, lid.clamp(0, e_local - 1),
                           torch.where(local.any(), fill, torch.zeros_like(fill)))
     lid = lid.to(torch.int32)
-    if lw.w1.fmt == "gf4":
+    fmt = lw.w1.fmt
+    if fmt == "gf4":
         z = gf4_moe_ffn(xb2, lw.w1.data, lw.w3.data, lw.w2.data, lid, cnt, layer,
+                        cfg.act_gelu)
+    elif moe_multirow_supported(fmt, xb2.shape[0], lw.w1.data.shape[-1],
+                                lw.w2.data.shape[-1]):
+        z = qmm_moe_ffn(xb2, lw.w1.data, lw.w3.data, lw.w2.data, lid, cnt, fmt, layer,
                         cfg.act_gelu)
     else:
         xf = xb2[None]

@@ -40,6 +40,8 @@ SIGNATURES = {
         "calm_qx_offn_qkv": [P] * 16 + [I] * 7 + [F, I, P, P, P, P],
         "calm_gf4_ffn": [P] * 6 + [I] * 4 + [P] * 4,
         "calm_gf4_offn": [P] * 11 + [I] * 5 + [F, I, P, P, P, P],
+        "calm_moe_mmv": [P] * 5 + [I] * 7 + [P] * 4,
+        "calm_moe_ffn": [P] * 8 + [I] * 7 + [P] * 4,
     },
     "attn": {
         "calm_decode_attention": [P] * 15 + [I] * 12 + [P],

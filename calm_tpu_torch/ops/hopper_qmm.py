@@ -38,16 +38,25 @@
   residual stream.
 - :func:`qmm_moe_dense` replaces ``_moe_dense_kernel`` and
   ``_moe_dense_gf4_kernel`` (``:1248``, ``:1256``): the MoE expert sweep,
-  one matvec per expert slot with the ids on the device (``csrc/moe.cu``).
+  one matvec per expert slot with the ids on the device: one row in
+  ``csrc/moe.cu``, from 2 rows on the multi-row path (``csrc/qmm.cu``,
+  an expert-slot axis, tiled by :func:`qmv_plan` with ``slots``), where
+  :func:`moe_multirow_supported` takes the shape, else ``csrc/moe.cu``.
+- :func:`qmm_moe_ffn`: the same kernels' three fp16/fp8 products of the
+  expert FFN and their activation (``calm_tpu/model.py:810-816``) at
+  2-16 rows, as two products on the multi-row path (``csrc/qmm.cu``: x
+  staged, the dual w1/w3 launch, h staged a slot at a time, w2).
 - :func:`gf4_moe_ffn` replaces ``_gf4_moe_ffn_kernel`` (``:1361``): each
-  slot's whole expert FFN on natural gf4 words (``csrc/moe.cu``), where
-  the TPU kernel reads plane-major w1/w3.
+  slot's whole expert FFN on natural gf4 words, where the TPU kernel
+  reads plane-major w1/w3: one row in ``csrc/moe.cu``, from 2 rows the
+  chain of :func:`qmm_moe_ffn` (``csrc/qmm.cu``).
 
 Each wrapper takes its plain PyTorch version (``*_plain``, f32) for tensors
 on the CPU, and launches the kernel for CUDA tensors or raises; it counts
 its launches in ``.launches`` (:func:`qmm_decode`, :func:`qmm_decode_gf4`,
-:func:`qx_offn_qkv`, :func:`gf4_offn_qkv`, :func:`gf4_ffn` and
-:func:`gf4_offn` those of the multi-row path also in
+:func:`qx_offn_qkv`, :func:`gf4_offn_qkv`, :func:`gf4_ffn`,
+:func:`gf4_offn`, :func:`qmm_moe_dense`, :func:`qmm_moe_ffn` and
+:func:`gf4_moe_ffn` those of the multi-row path also in
 ``.multirow_launches``).
 """
 
@@ -133,9 +142,12 @@ class QmvPlan(NamedTuple):
     grid: int        # blocks
     groups: tuple    # row groups of each segment
     chunks: int      # MV_CHUNK-value chunks of k (the last one may be short)
+    slots: int = 1   # MoE expert slots: the grid's second axis, each slot's rows
+                     # and k tiled alike
 
     def args(self) -> tuple[int, int, int, int]:
-        """What the kernel's launcher takes: {mt, nt, ks, grid}."""
+        """What the kernel's launcher takes: {mt, nt, ks, grid}; ``grid``
+        blocks a slot."""
         return (self.mt, self.nt, self.ks, self.grid)
 
     def warp_work(self, block: int, warp: int, seg_rows) -> tuple | None:
@@ -179,19 +191,20 @@ def _k_split(groups: int, units: int, target: int, least: int) -> int:
 
 
 @functools.lru_cache(maxsize=256)
-def _qmv_plan(B: int, seg_rows: tuple, n: int, dual: bool, gf4: bool) -> QmvPlan:
+def _qmv_plan(B: int, seg_rows: tuple, n: int, dual: bool, gf4: bool, slots: int) -> QmvPlan:
     nt = 1 if B <= 8 else 2
     # gf4 rows that end half-way through a lane's 16 values: one m-tile a warp
     mt = 2 if sum(seg_rows) >= MV_MT2_ROWS and not dual and n % 16 == 0 else 1
     groups = tuple(-(-r // (16 * mt)) for r in seg_rows)
     chunks = -(-n // MV_CHUNK)
     G = sum(groups)
-    ks = _k_split(G, chunks, MV_TARGET_WARPS, MV_MIN_CHUNKS)
+    ks = _k_split(G * slots, chunks, MV_TARGET_WARPS, MV_MIN_CHUNKS)
     grid = -(-G // (MV_WARPS // ks))
-    return QmvPlan(mt, nt, ks, grid, groups, chunks)
+    return QmvPlan(mt, nt, ks, grid, groups, chunks, slots)
 
 
-def qmv_plan(B: int, seg_rows, n: int, dual: bool = False, gf4: bool = False) -> QmvPlan:
+def qmv_plan(B: int, seg_rows, n: int, dual: bool = False, gf4: bool = False,
+             slots: int = 1) -> QmvPlan:
     """The multi-row kernel's tiling of B rows of x (1..16; the kernels
     take it from 2, one row keeps the loop of one row) against segments of
     ``seg_rows`` output rows each (1-3: q/k/v side by side) and k = n (a
@@ -203,14 +216,18 @@ def qmv_plan(B: int, seg_rows, n: int, dual: bool = False, gf4: bool = False) ->
     slower on the card; rows that end half-way keep 16); k split in two
     until about MV_TARGET_WARPS warps fill the card, while each keeps
     MV_MIN_CHUNKS chunks or more, up to MV_WARPS. gf4 words take the same
-    tiling: a re-sweep of these constants on them timed no better."""
+    tiling: a re-sweep of these constants on them timed no better. The MoE
+    sweep's ``slots`` expert slots (one segment) repeat the tiling a slot:
+    the warps that fill the card are counted over slots x row groups."""
     seg_rows = tuple(int(r) for r in seg_rows)
     _check(1 <= B <= MAX_ROWS, f"the multi-row path takes 1..{MAX_ROWS} rows, not {B}")
     _check(1 <= len(seg_rows) <= 3 and all(r >= 1 for r in seg_rows),
            f"1-3 segments of >= 1 row, not {seg_rows}")
     step = 8 if gf4 else 16
     _check(n >= step and n % step == 0, f"k must be a positive multiple of {step}, not {n}")
-    return _qmv_plan(int(B), seg_rows, int(n), bool(dual), bool(gf4))
+    _check(1 <= slots <= 65535 and (slots == 1 or len(seg_rows) == 1),
+           f"1..65535 slots of one segment, not {slots} of {len(seg_rows)}")
+    return _qmv_plan(int(B), seg_rows, int(n), bool(dual), bool(gf4), int(slots))
 
 
 @functools.lru_cache(maxsize=256)
@@ -803,12 +820,36 @@ def _check_stack(x: torch.Tensor, w: torch.Tensor, fmt: str, layer) -> int:
     return int(layer)
 
 
+def moe_multirow_supported(fmt: str, B: int, *ns: int) -> bool:
+    """Whether the multi-row path takes the MoE sweep of B rows whose
+    products contract ``ns``: 2..16 rows and whole 16-value steps (gf4:
+    whole words, a row may end half-way through a lane's 16 values). Other
+    shapes take ``csrc/moe.cu``'s loops, as one row does."""
+    step = 8 if fmt == "gf4" else 16
+    return (fmt in _OFFN_CODE and 2 <= B <= MAX_ROWS
+            and all(n >= step and n % step == 0 for n in ns))
+
+
+@functools.lru_cache(maxsize=256)
+def _moe_plans(B: int, A: int, launches: tuple, gf4: bool) -> tuple[np.ndarray, int, int]:
+    """For the launches ``((rows, n, dual, staged), ...)`` of one call at B
+    rows over A expert slots, each staging ``staged`` copies of its x (1
+    shared, A one a slot): their plans' kernel arguments in one int32
+    array, and the words and floats of the staging scratch they share."""
+    ps = [qmv_plan(B, (rows,), n, dual, gf4, slots=A) for rows, n, dual, _ in launches]
+    staged = [[k * v for v in p.staging(n)] for p, (_, n, _, k) in zip(ps, launches)]
+    return (np.array([v for p in ps for v in p.args()], dtype=np.int32),
+            max(w for w, _ in staged), max(f for _, f in staged))
+
+
 def qmm_moe_dense(x: torch.Tensor, wstack: torch.Tensor, eidx: torch.Tensor,
                   cnt: torch.Tensor, fmt: str, layer=None) -> torch.Tensor:
     """The expert sweep: Y[a] = x[min(a, Ax - 1)] @ W[layer, eidx[a]]^T for
     x (Ax, B <= 16, n) f32 with Ax in {1, A}, W (L, E, d, n) fp16/fp8 or
     (L, E, d, n/8) gf4 words, eidx (A,) int32 and cnt (1,) int32 on the
-    device -> (A, B, d) f32; slots a >= cnt give zeros."""
+    device -> (A, B, d) f32; slots a >= cnt give zeros. One row, or a shape
+    :func:`moe_multirow_supported` declines, takes ``csrc/moe.cu``; 2-16
+    rows the multi-row path (x staged once, or once a slot for Ax = A)."""
     if x.device.type == "cpu":
         return qmm_moe_dense_plain(x, wstack, eidx, cnt, fmt, layer)
     _check(fmt in _OFFN_CODE, f"no CUDA kernel for weight format {fmt!r}")
@@ -818,24 +859,110 @@ def qmm_moe_dense(x: torch.Tensor, wstack: torch.Tensor, eidx: torch.Tensor,
     A = eidx.shape[0]
     _check(Ax in (1, A) and 1 <= B <= MAX_ROWS,
            f"x must be (1 or {A}, 1..{MAX_ROWS}, n), got {tuple(x.shape)}")
-    d = wstack.shape[2]
+    d, E = wstack.shape[2], wstack.shape[1]
     y = torch.empty((A, B, d), dtype=torch.float32, device=x.device)
-    rc = build.lib("moe").calm_moe_dense(
-        x.data_ptr(), _plane_ptr(wstack, l), y.data_ptr(), eidx.data_ptr(),
-        cnt.data_ptr(), Ax, A, B, d, n, wstack.shape[1], _OFFN_CODE[fmt], _stream(x))
-    build.check("moe", rc)
+    multirow = moe_multirow_supported(fmt, B, n)
+    if multirow:
+        plans, words, floats = _moe_plans(B, A, ((d, n, False, Ax),), fmt == "gf4")
+        buf, xs, sc = _staging(words, floats, x.device)  # buf: held past the launch
+        rc = build.lib("qmm").calm_moe_mmv(
+            x.data_ptr(), _plane_ptr(wstack, l), y.data_ptr(), eidx.data_ptr(),
+            cnt.data_ptr(), Ax, A, B, d, n, E, _OFFN_CODE[fmt], xs, sc, plans.ctypes.data,
+            _stream(x))
+        build.check("qmm", rc)
+    else:
+        rc = build.lib("moe").calm_moe_dense(
+            x.data_ptr(), _plane_ptr(wstack, l), y.data_ptr(), eidx.data_ptr(),
+            cnt.data_ptr(), Ax, A, B, d, n, E, _OFFN_CODE[fmt], _stream(x))
+        build.check("moe", rc)
     qmm_moe_dense.launches += 1
+    qmm_moe_dense.multirow_launches += multirow
     return y
 
 
 qmm_moe_dense.launches = 0
+qmm_moe_dense.multirow_launches = 0
+
+
+def _check_moe_ffn(x, w1, w3, w2, eidx, cnt, fmt: str, layer) -> tuple[int, int, int, int, int]:
+    """Checks of one call's expert FFN stacks w1/w3 (L, E, H, D), w2 (L, E,
+    D, H) (gf4: the last dim in words) against x (B, D); returns (layer, B,
+    D, H, E)."""
+    l = _check_stack(x, w1, fmt, layer)
+    _check_slots(x, eidx, cnt)
+    _check(x.ndim == 2, f"x must be (B, D), got {tuple(x.shape)}")
+    B, D = x.shape
+    L, E, H, _ = w1.shape
+    gs = 8 if fmt == "gf4" else 1
+    _check(1 <= B <= MAX_ROWS, f"the decode kernel takes 1..{MAX_ROWS} rows")
+    _check(w3.shape == w1.shape and w3.dtype == w1.dtype and w3.is_contiguous()
+           and w3.device == x.device, "w3 must match w1")
+    _check(tuple(w2.shape) == (L, E, D, H // gs) and H % gs == 0 and w2.dtype == w1.dtype
+           and w2.is_contiguous() and w2.device == x.device,
+           f"w2 must be (L, E, D, H/{gs}) = {(L, E, D, H // gs)}, got {tuple(w2.shape)}")
+    return l, B, D, H, E
+
+
+def _moe_ffn_mr(x, w1, w3, w2, eidx, cnt, fmt: str, act_gelu: bool, dims) -> torch.Tensor:
+    """The expert FFN on the multi-row path (``calm_moe_ffn``): x staged
+    once, the dual w1/w3 launch of every slot into h (A, B, H), h staged a
+    slot at a time, the w2 launch into z (A, B, D). dims: what
+    :func:`_check_moe_ffn` returns."""
+    l, B, D, H, E = dims
+    A = eidx.shape[0]
+    _check(moe_multirow_supported(fmt, B, D, H),
+           f"the multi-row expert FFN takes 2..{MAX_ROWS} rows of whole steps, not "
+           f"B={B}, D={D}, H={H}")
+    h = torch.empty((A, B, H), dtype=torch.float32, device=x.device)
+    z = torch.empty((A, B, D), dtype=torch.float32, device=x.device)
+    plans, words, floats = _moe_plans(B, A, ((H, D, True, 1), (D, H, False, A)), fmt == "gf4")
+    buf, xs, sc = _staging(words, floats, x.device)  # buf: held past the launch
+    rc = build.lib("qmm").calm_moe_ffn(
+        x.data_ptr(), _plane_ptr(w1, l), _plane_ptr(w3, l), _plane_ptr(w2, l),
+        eidx.data_ptr(), cnt.data_ptr(), h.data_ptr(), z.data_ptr(), A, B, D, H, E,
+        _OFFN_CODE[fmt], int(act_gelu), xs, sc, plans.ctypes.data, _stream(x))
+    build.check("qmm", rc)
+    return z
+
+
+def qmm_moe_ffn_plain(x, w1, w3, w2, eidx, cnt, fmt: str, layer, act_gelu: bool):
+    """Three plain sweeps and the activation, as ``_moe_sweep`` composed
+    them (``calm_tpu/model.py:810-816``)."""
+    x1 = x.float()[None]
+    h = (act(qmm_moe_dense_plain(x1, w1, eidx, cnt, fmt, layer), act_gelu)
+         * qmm_moe_dense_plain(x1, w3, eidx, cnt, fmt, layer))
+    return qmm_moe_dense_plain(h, w2, eidx, cnt, fmt, layer)
+
+
+def qmm_moe_ffn(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor, w2: torch.Tensor,
+                eidx: torch.Tensor, cnt: torch.Tensor, fmt: str, layer,
+                act_gelu: bool) -> torch.Tensor:
+    """The whole fp16/fp8 expert FFN of each slot at 2-16 rows: x (B, D)
+    f32, w1/w3 (L, E, H, D), w2 (L, E, D, H) in storage dtype -> z (A, B, D)
+    f32 with z[a] = (act(x W1[l,e]^T) * (x W3[l,e]^T)) W2[l,e]^T, e =
+    eidx[a]; slots a >= cnt give zeros. Four launches of ``csrc/qmm.cu``
+    (x staged, the dual w1/w3 product, h staged, w2), h and the staging in
+    buffers allocated here. One row, and shapes that
+    :func:`moe_multirow_supported` declines, take three
+    :func:`qmm_moe_dense` calls instead (the caller's choice); on the card
+    this wrapper raises for them. Counts one launch a call in
+    ``.launches`` and ``.multirow_launches``."""
+    if x.device.type == "cpu":
+        return qmm_moe_ffn_plain(x, w1, w3, w2, eidx, cnt, fmt, layer, act_gelu)
+    _check(fmt in _FMT_CODE, f"qmm_moe_ffn takes fp16/fp8 weights, not {fmt!r}")
+    z = _moe_ffn_mr(x, w1, w3, w2, eidx, cnt, fmt, act_gelu,
+                    _check_moe_ffn(x, w1, w3, w2, eidx, cnt, fmt, layer))
+    qmm_moe_ffn.launches += 1
+    qmm_moe_ffn.multirow_launches += 1
+    return z
+
+
+qmm_moe_ffn.launches = 0
+qmm_moe_ffn.multirow_launches = 0
 
 
 def gf4_moe_ffn_plain(x, w1, w3, w2, eidx, cnt, layer, act_gelu: bool):
-    x1 = x.float()[None]
-    h = (act(qmm_moe_dense_plain(x1, w1, eidx, cnt, "gf4", layer), act_gelu)
-         * qmm_moe_dense_plain(x1, w3, eidx, cnt, "gf4", layer))
-    return qmm_moe_dense_plain(h, w2, eidx, cnt, "gf4", layer)
+    return qmm_moe_ffn_plain(x, w1, w3, w2, eidx, cnt, "gf4", layer, act_gelu)
 
 
 def gf4_moe_ffn(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
@@ -844,33 +971,32 @@ def gf4_moe_ffn(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
     """The whole expert FFN of each slot on natural gf4 words: x (B <= 16,
     D) f32, w1/w3 (L, E, H, D/8), w2 (L, E, D, H/8) int32 -> z (A, B, D)
     f32 with z[a] = (act(x W1[l,e]^T) * (x W3[l,e]^T)) W2[l,e]^T, e =
-    eidx[a]; slots a >= cnt give zeros. Two launches of ``csrc/moe.cu``,
-    the h between them in a buffer allocated here."""
+    eidx[a]; slots a >= cnt give zeros. One row: two launches of
+    ``csrc/moe.cu``, the h between them in a buffer allocated here; 2-16
+    rows: :func:`qmm_moe_ffn`'s four launches of ``csrc/qmm.cu`` on gf4
+    words (counted in ``.multirow_launches`` too)."""
     if x.device.type == "cpu":
         return gf4_moe_ffn_plain(x, w1, w3, w2, eidx, cnt, layer, act_gelu)
-    l = _check_stack(x, w1, "gf4", layer)
-    _check_slots(x, eidx, cnt)
-    B, D = x.shape
-    L, E, H, _ = w1.shape
-    _check(1 <= B <= MAX_ROWS, f"the decode kernel takes 1..{MAX_ROWS} rows")
-    _check(w3.shape == w1.shape and w3.dtype == w1.dtype and w3.is_contiguous()
-           and w3.device == x.device, "w3 must match w1")
-    _check(tuple(w2.shape) == (L, E, D, H // 8) and H % 8 == 0 and w2.dtype == w1.dtype
-           and w2.is_contiguous() and w2.device == x.device,
-           f"w2 must be (L, E, D, H/8) = {(L, E, D, H // 8)} int32, got {tuple(w2.shape)}")
+    dims = l, B, D, H, E = _check_moe_ffn(x, w1, w3, w2, eidx, cnt, "gf4", layer)
     A = eidx.shape[0]
-    h = torch.empty((A, B, H), dtype=torch.float32, device=x.device)
-    z = torch.empty((A, B, D), dtype=torch.float32, device=x.device)
-    rc = build.lib("moe").calm_gf4_moe_ffn(
-        x.data_ptr(), _plane_ptr(w1, l), _plane_ptr(w3, l), _plane_ptr(w2, l),
-        eidx.data_ptr(), cnt.data_ptr(), h.data_ptr(), z.data_ptr(), A, B, D, H, E,
-        int(act_gelu), _stream(x))
-    build.check("moe", rc)
+    multirow = B >= 2
+    if multirow:
+        z = _moe_ffn_mr(x, w1, w3, w2, eidx, cnt, "gf4", act_gelu, dims)
+    else:
+        h = torch.empty((A, B, H), dtype=torch.float32, device=x.device)
+        z = torch.empty((A, B, D), dtype=torch.float32, device=x.device)
+        rc = build.lib("moe").calm_gf4_moe_ffn(
+            x.data_ptr(), _plane_ptr(w1, l), _plane_ptr(w3, l), _plane_ptr(w2, l),
+            eidx.data_ptr(), cnt.data_ptr(), h.data_ptr(), z.data_ptr(), A, B, D, H, E,
+            int(act_gelu), _stream(x))
+        build.check("moe", rc)
     gf4_moe_ffn.launches += 1
+    gf4_moe_ffn.multirow_launches += multirow
     return z
 
 
 gf4_moe_ffn.launches = 0
+gf4_moe_ffn.multirow_launches = 0
 
 
 def _offn_shapes_ok(B: int, shapes) -> bool:

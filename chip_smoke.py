@@ -17,7 +17,10 @@ K6 also at a model width of 1032, an odd word count a row; K3 and K7 on
 it too, K3 at the Aya 23 8B and Mistral-7B lm-heads and at d = 1000, n =
 1032 and n = 8, K7 with Qd = 512 != D; K8, K7 and K6 at one row on the
 one-row gf4 kernel, split by launch, its tiling swept, and at odd word
-counts, n = 8 and 14336 and all-subnormal scale bytes) and times it
+counts, n = 8 and 14336 and all-subnormal scale bytes; K10 and K11 on
+the multi-row path at B = 2..16 in 8 expert slots at Mixtral 8x7B shapes
+and ragged ones, a dead slot, ids repeated as under ep, odd word counts,
+fp8 rows off the 16-value steps on moe.cu's loop) and times it
 beside its bound and its library call (kernel/library on each timed row),
 after the redesigned kernels' ptxas report; runs both bandwidth tools
 (``calm_tpu_torch.tools.dma_ceiling``, ``gf4_bound``), whose 3 GB rows
@@ -44,8 +47,10 @@ CPU's server and through ``python -m calm_tpu_torch.httpd``; serves 16
 requests on a 32-layer Mistral-7B with 8 slots, dense and paged (fp8),
 and on 32-layer Mistral-7B and Aya 23 8B gf4, dense (the gf4 serving
 ticks: K8, and K6 and K3, at 8 rows), and on the gf4 Mistral-7B again
-with ROTATED_DECODE off (K3 and K7 at 8 rows); and ends with a
-``kernels`` JSON line and
+with ROTATED_DECODE off (K3 and K7 at 8 rows), and on the 16-layer
+Mixtral 8x7B fp8 and gf4 of the decode phase (the expert sweep at 8
+rows: K10's and K11's multi-row FFN; each sweep's live experts counted);
+and ends with a ``kernels`` JSON line and
 ``{"ok": true, "device": ...}``. Any
 failure exits non-zero before the last line; without a GPU it exits 1 at
 once.
@@ -398,6 +403,7 @@ def kernel_phase(gbps, dev):
     rows.update(gf4_kernel_rows(gbps, dev))
     ragged_checks_prefill_gf4(dev)
     rows.update(moe_kernel_rows(gbps, dev))
+    rows.update(moe_multirow_kernel_rows(gbps, dev))
     ragged_checks_moe(dev)
     rows.update(paged_kernel_rows(gbps, dev))
     rows.update(multirow_kernel_rows(gbps, dev))
@@ -1198,45 +1204,218 @@ def moe_kernel_rows(gbps, dev):
 
 
 def ragged_checks_moe(dev):
-    """K10 and K11 on shapes the Mixtral rows do not reach: B = 1, 3, 5
-    and 16, eight experts in four slots of which the last is dead (cnt 3,
-    padded by repeating an id: its output must be exactly 0), d = 1003, a
-    hidden width of 11008 (1376 words), a model width of 1040 (130 words),
-    x shared and per slot, SiLU and GELU."""
+    """K10 and K11 on shapes the Mixtral rows do not reach: one row on
+    ``csrc/moe.cu``'s loops, 2-16 rows on the multi-row path; B = 1, 2, 3,
+    5 and 16; eight experts in four slots, the last one dead (ids [0, 3, 6,
+    6], cnt 3: its output must be exactly 0), or all live with ids
+    repeated as ep's fill repeats a local one ([5, 5, 2, 2], cnt 4); d =
+    1003, a hidden width of 11008 (1376 words), model widths of 1040 (130
+    words) and, for gf4, 1032 (129: an odd word count a row); x shared and
+    per slot; SiLU and GELU. fp8 rows of 1044 values (not whole 16-value
+    steps) stay on moe.cu's loop at every B, and the multi-row counters
+    show which path each call took."""
     from calm_tpu_torch.ops import hopper_qmm as hq
 
-    ids = torch.tensor([0, 3, 6, 6], dtype=torch.int32, device=dev)
-    cnt = torch.tensor([3], dtype=torch.int32, device=dev)
-    worst = {"qmm_moe_dense": 0.0, "gf4_moe_ffn": 0.0}
+    slot_sets = [(torch.tensor([0, 3, 6, 6], dtype=torch.int32, device=dev), 3),
+                 (torch.tensor([5, 5, 2, 2], dtype=torch.int32, device=dev), 4)]
+    worst = {"qmm_moe_dense": 0.0, "qmm_moe_ffn": 0.0, "gf4_moe_ffn": 0.0}
+    n_checks = 0
 
-    def dead_zero(what, out):
-        if out[3].abs().max().item() != 0:
+    def dead_zero(what, out, live):
+        if live < out.shape[0] and out[live:].abs().max().item() != 0:
             fail(f"{what}: the dead slot is not zero")
 
-    for fmt, d, n in (("fp8", 1003, 1040), ("fp16", 1003, 1040), ("gf4", 1003, 11008)):
+    def took(fn, before, want, what):  # the path the wrapper's counters show
+        if fn.multirow_launches - before != want:
+            fail(f"{what}: {fn.multirow_launches - before} multi-row launches, not {want}")
+
+    for fmt, d, n in (("fp8", 1003, 1040), ("fp16", 1003, 1040), ("gf4", 1003, 11008),
+                      ("gf4", 1003, 1032), ("fp8", 1003, 1044)):
         w = rand_w((2, EXPERTS, d, n // (8 if fmt == "gf4" else 1)), fmt, dev)
-        for B in (1, 3, 5, 16):
+        for B in (1, 2, 3, 5, 16):
+            multirow = hq.moe_multirow_supported(fmt, B, n)
+            if multirow != (B > 1 and n != 1044):
+                fail(f"qmm_moe_dense {fmt} n={n} B={B}: the path's choice is {multirow}")
             for Ax in (1, 4):
-                x = torch.randn(Ax, B, n, device=dev)
-                got = hq.qmm_moe_dense(x, w, ids, cnt, fmt, 1)
-                dead_zero(f"qmm_moe_dense {fmt} B={B}", got)
-                e = check(f"qmm_moe_dense {fmt} {d}x{n} B={B} Ax={Ax}", got,
-                          hq.qmm_moe_dense_plain(x, w, ids, cnt, fmt, 1), TOL_MV)
-                worst["qmm_moe_dense"] = max(worst["qmm_moe_dense"], e)
-    Dm, Hm = 1040, 11008
-    w1, w3 = (rand_w((2, EXPERTS, Hm, Dm // 8), "gf4", dev) for _ in range(2))
-    w2 = rand_w((2, EXPERTS, Dm, Hm // 8), "gf4", dev)
-    for B in (1, 5, 16):
-        for gelu in (False, True):
-            x = torch.randn(B, Dm, device=dev)
-            got = hq.gf4_moe_ffn(x, w1, w3, w2, ids, cnt, 1, gelu)
-            dead_zero(f"gf4_moe_ffn B={B}", got)
-            e = check(f"gf4_moe_ffn D={Dm} H={Hm} B={B} gelu={gelu}", got,
-                      hq.gf4_moe_ffn_plain(x, w1, w3, w2, ids, cnt, 1, gelu), TOL_MV)
-            worst["gf4_moe_ffn"] = max(worst["gf4_moe_ffn"], e)
+                for ids, cnt_n in slot_sets:
+                    cnt = torch.tensor([cnt_n], dtype=torch.int32, device=dev)
+                    x = torch.randn(Ax, B, n, device=dev)
+                    before = hq.qmm_moe_dense.multirow_launches
+                    got = hq.qmm_moe_dense(x, w, ids, cnt, fmt, 1)
+                    took(hq.qmm_moe_dense, before, int(multirow), f"qmm_moe_dense {fmt} n={n}")
+                    dead_zero(f"qmm_moe_dense {fmt} B={B}", got, cnt_n)
+                    e = check(f"qmm_moe_dense {fmt} {d}x{n} B={B} Ax={Ax} cnt={cnt_n}", got,
+                              hq.qmm_moe_dense_plain(x, w, ids, cnt, fmt, 1), TOL_MV)
+                    worst["qmm_moe_dense"] = max(worst["qmm_moe_dense"], e)
+                    n_checks += 1
+        del w
+    for fmt, Dm, Hm in (("fp8", 1040, 11008), ("fp16", 1040, 11008), ("gf4", 1040, 11008),
+                        ("gf4", 1032, 11008)):
+        gs = 8 if fmt == "gf4" else 1
+        w1, w3 = (rand_w((2, EXPERTS, Hm, Dm // gs), fmt, dev) for _ in range(2))
+        w2 = rand_w((2, EXPERTS, Dm, Hm // gs), fmt, dev)
+        for B in ((1, 2, 3, 5, 16) if fmt == "gf4" else (2, 3, 5, 16)):
+            for gelu in (False, True):
+                for ids, cnt_n in slot_sets:
+                    cnt = torch.tensor([cnt_n], dtype=torch.int32, device=dev)
+                    x = torch.randn(B, Dm, device=dev)
+                    if fmt == "gf4":
+                        key, fn = "gf4_moe_ffn", hq.gf4_moe_ffn
+                        before = fn.multirow_launches
+                        got = fn(x, w1, w3, w2, ids, cnt, 1, gelu)
+                        want = hq.gf4_moe_ffn_plain(x, w1, w3, w2, ids, cnt, 1, gelu)
+                    else:
+                        key, fn = "qmm_moe_ffn", hq.qmm_moe_ffn
+                        before = fn.multirow_launches
+                        got = fn(x, w1, w3, w2, ids, cnt, fmt, 1, gelu)
+                        want = hq.qmm_moe_ffn_plain(x, w1, w3, w2, ids, cnt, fmt, 1, gelu)
+                    took(fn, before, int(B > 1), f"{key} {fmt} B={B}")
+                    dead_zero(f"{key} {fmt} B={B}", got, cnt_n)
+                    e = check(f"{key} {fmt} D={Dm} H={Hm} B={B} gelu={gelu} cnt={cnt_n}", got,
+                              want, TOL_MV)
+                    worst[key] = max(worst[key], e)
+                    n_checks += 1
+        del w1, w3, w2
     torch.cuda.synchronize()
-    log("# ragged shapes (MoE): max_abs_err " + ", ".join(
-        f"{k} {v:.3e}" for k, v in worst.items()))
+    torch.cuda.empty_cache()
+    log(f"# ragged shapes (MoE): {n_checks} checks, max_abs_err " + ", ".join(
+        f"{k} {v:.3e}" for k, v in worst.items()) + f" (tol {TOL_MV:g} x max|out|)")
+
+
+MOE_SLOTS = 8  # the Mixtral serving tick's expert slots: min(8 experts, 8 rows x top-2)
+
+
+def moe_ffn_wrapper(hq):
+    """The fp8/fp16 expert FFN at 2-16 rows as ``model._moe_sweep`` calls
+    it: ``qmm_moe_ffn``, or on a tree without it the three
+    ``qmm_moe_dense`` launches and the activation it ran before."""
+    f = getattr(hq, "qmm_moe_ffn", None)
+    if f is not None:
+        return f
+
+    def three(x, w1, w3, w2, eidx, cnt, fmt, layer, act_gelu):
+        x1 = x[None]
+        h = (hq.act(hq.qmm_moe_dense(x1, w1, eidx, cnt, fmt, layer), act_gelu)
+             * hq.qmm_moe_dense(x1, w3, eidx, cnt, fmt, layer))
+        return hq.qmm_moe_dense(h, w2, eidx, cnt, fmt, layer)
+    return three
+
+
+def moe_ffn_plain(hq, x, w1, w3, w2, eidx, cnt, fmt, layer, act_gelu):
+    """The expert FFN's plain version: three ``qmm_moe_dense_plain`` calls
+    and the activation."""
+    x1 = x[None]
+    h = (hq.act(hq.qmm_moe_dense_plain(x1, w1, eidx, cnt, fmt, layer), act_gelu)
+         * hq.qmm_moe_dense_plain(x1, w3, eidx, cnt, fmt, layer))
+    return hq.qmm_moe_dense_plain(h, w2, eidx, cnt, fmt, layer)
+
+
+def moe_multirow_kernel_rows(gbps, dev):
+    """K10 and K11 at 2-16 rows on Mixtral 8x7B shapes (dim 4096, hidden
+    14336, 8 experts) in MOE_SLOTS expert slots, all live (cnt 8) and one
+    dead (cnt 7: its output must be exactly 0): K10 fp8 and fp16 at w1 (x
+    shared, Ax = 1) and w2 (x per slot, Ax = A), its gf4 body at w1, the
+    fp8 expert FFN as ``model._moe_sweep`` calls it (``moe_ffn_wrapper``),
+    and K11 (one layer's gf4 expert FFN). B = 8 (the serving tick's rows)
+    timed beside its bound (the live slots' weight bytes), plain version
+    and library call (``torch.bmm`` on the live planes dequantized
+    beforehand), B = 4 and 16 checked; two layer stacks cycled past the 50
+    MB L2. Calls the wrappers only, so it also times an older tree's
+    package (``chip_compare.py``). The B = 8, cnt = 8 FFN rows go to the
+    kernels line."""
+    import torch.nn.functional as F
+
+    from calm_tpu_torch.ops import hopper_qmm as hq
+    from calm_tpu_torch.ops.qmm import QTensor, dequant
+
+    rows = {}
+    L, E, A = 2, EXPERTS, MOE_SLOTS
+    ids = torch.tensor([0, 1, 2, 3, 4, 5, 6, 7], dtype=torch.int32, device=dev)
+    cnts = {n: torch.tensor([n], dtype=torch.int32, device=dev) for n in (A, A - 1)}
+    esz = {"fp8": 1, "fp16": 2, "gf4": 0.5}
+
+    def dead_zero(what, out, live):
+        if live < A and out[live:].abs().max().item() != 0:
+            fail(f"{what}: a dead slot is not zero")
+
+    def lib_planes(w, fmt, live):  # (L, live, n, d) bf16
+        return dequant(QTensor(w[:, ids[:live].long()], fmt), torch.bfloat16).transpose(2, 3)
+
+    for fmt, name, d, n in (("fp8", "w1", HID, D), ("fp8", "w2", D, HID),
+                            ("fp16", "w1", HID, D), ("fp16", "w2", D, HID),
+                            ("gf4", "w1", HID, D)):
+        gs = 8 if fmt == "gf4" else 1
+        w = rand_w((L, E, d, n // gs), fmt, dev)
+        Ax = A if name == "w2" else 1
+        for live, cnt in cnts.items():
+            wb = lib_planes(w, fmt, live)
+            for B in (4, 8, 16):
+                x = torch.randn(Ax, B, n, device=dev)
+                got = hq.qmm_moe_dense(x, w, ids, cnt, fmt, L - 1)
+                dead_zero(f"qmm_moe_dense {fmt} {name} B={B}", got, live)
+                e = check(f"qmm_moe_dense {fmt} {name} B={B} cnt={live}", got,
+                          hq.qmm_moe_dense_plain(x, w, ids, cnt, fmt, L - 1), TOL_MV)
+                if B != 8:
+                    continue
+                xb = x.bfloat16()[:live] if Ax > 1 else x.bfloat16().expand(live, -1, -1)
+                nb = live * d * n * esz[fmt]
+                b, by = bound_ms(nb + 4 * (x.numel() + A * B * d), 2 * live * B * d * n,
+                                 gbps, PEAK_BF16)
+                t = timings(lambda i: hq.qmm_moe_dense(x, w, ids, cnt, fmt, i % L),
+                            lambda i: hq.qmm_moe_dense_plain(x, w, ids, cnt, fmt, i % L),
+                            lambda i: torch.bmm(xb, wb[i % L]), bound=b)
+                log(f"# K10 qmm_moe_dense {fmt} {name} {d}x{n}, {live} live of {A} slots, "
+                    f"B={B}, Ax={Ax}: max_abs_err {e:.3e} (tol {TOL_MV:g} x max|y|); "
+                    f"{ms_line(t)} (bf16 bmm, pre-dequantized live planes) bound_ms {b:.4f} "
+                    f"({by}, {nb / 1e6:.1f} MB); {share(t, b)}")
+            del wb
+        del w
+        torch.cuda.empty_cache()
+
+    # the expert FFN of one layer: fp8 as _moe_sweep calls it, and K11 (gf4)
+    for fmt in ("fp8", "gf4"):
+        gs = 8 if fmt == "gf4" else 1
+        w1, w3 = (rand_w((L, E, HID, D // gs), fmt, dev) for _ in range(2))
+        w2 = rand_w((L, E, D, HID // gs), fmt, dev)
+        if fmt == "gf4":
+            key, what, fn = "gf4_moe_ffn", "K11 gf4_moe_ffn", (
+                lambda x, cnt, l: hq.gf4_moe_ffn(x, w1, w3, w2, ids, cnt, l, False))
+            plain = lambda x, cnt, l: hq.gf4_moe_ffn_plain(x, w1, w3, w2, ids, cnt, l, False)
+        else:
+            key, what, ffn = "qmm_moe_ffn", "K10 fp8 expert FFN", moe_ffn_wrapper(hq)
+            fn = lambda x, cnt, l: ffn(x, w1, w3, w2, ids, cnt, fmt, l, False)
+            plain = lambda x, cnt, l: moe_ffn_plain(hq, x, w1, w3, w2, ids, cnt, fmt, l, False)
+        for live, cnt in cnts.items():
+            wb = [lib_planes(w, fmt, live) for w in (w1, w3, w2)]
+            for B in (4, 8, 16):
+                x = torch.randn(B, D, device=dev)
+                got = fn(x, cnt, L - 1)
+                dead_zero(f"{key} B={B}", got, live)
+                e = check(f"{key} Mixtral B={B} cnt={live}", got, plain(x, cnt, L - 1), TOL_MV)
+                if B != 8:
+                    continue
+                xb = x.bfloat16().expand(live, -1, -1)
+
+                def bmm_chain(i, xb=xb, wb=wb):
+                    l = i % L
+                    h = F.silu(torch.bmm(xb, wb[0][l])) * torch.bmm(xb, wb[1][l])
+                    return torch.bmm(h, wb[2][l])
+                nb = live * 3 * HID * D * esz[fmt]
+                b, by = bound_ms(nb + 4 * (B * D + A * B * D), 2 * B * live * 3 * HID * D,
+                                 gbps, PEAK_BF16)
+                t = timings(lambda i: fn(x, cnt, i % L), lambda i: plain(x, cnt, i % L),
+                            bmm_chain, bound=b)
+                log(f"# {what} D={D} H={HID}, {live} live of {A} slots, B={B}: max_abs_err "
+                    f"{e:.3e} (tol {TOL_MV:g} x max|z|); {ms_line(t)} (3 bf16 bmm, "
+                    f"pre-dequantized live planes) bound_ms {b:.4f} ({by}, {nb / 1e6:.1f} MB); "
+                    f"{share(t, b)}")
+                if live == A:
+                    rows[key + "_multirow"] = dict(t, bound_ms=b, bound_by=by, max_abs_err=e)
+                    by_kernel(lambda i: fn(x, cnt, i % L), f"{what} B=8 cnt={live}")
+            del wb
+        del w1, w3, w2
+        torch.cuda.empty_cache()
+    return rows
 
 
 def by_launch(fn, what: str, products, norm_bytes: float, gbps: float, calls: int = 10):
@@ -1889,7 +2068,9 @@ TOL_PREFILL = 1e-2  # logits after a prefill, rel. to max |logit|: activations,
 
 
 def counters():
-    """kernel name -> (wrapper, the attribute that counts its launches)."""
+    """kernel name -> (wrapper, the attribute that counts its launches);
+    a wrapper or counter that an older tree lacks (``chip_compare.py``
+    drives one) is left out."""
     from calm_tpu_torch.ops import hopper_attn as ha
     from calm_tpu_torch.ops import hopper_collectives as hc
     from calm_tpu_torch.ops import hopper_qmm as hq
@@ -1900,6 +2081,7 @@ def counters():
            "qmm_decode_gf4": hq.qmm_decode_gf4, "qmm_prefill": hq.qmm_prefill,
            "qmm_prefill_w2": hq.qmm_prefill_w2, "gf4_offn_qkv": hq.gf4_offn_qkv,
            "qmm_moe_dense": hq.qmm_moe_dense, "gf4_moe_ffn": hq.gf4_moe_ffn,
+           "qmm_moe_ffn": getattr(hq, "qmm_moe_ffn", None),
            "gf4_ffn": hq.gf4_ffn, "gf4_offn": hq.gf4_offn,
            "stream_sum": hs.stream_sum, "gf4_decode_sum": hs.gf4_decode_sum,
            "ring_all_reduce": hc.ring_all_reduce}
@@ -1911,10 +2093,13 @@ def counters():
     out["gf4_ffn_multirow"] = (hq.gf4_ffn, "multirow_launches")
     out["qmm_decode_gf4_multirow"] = (hq.qmm_decode_gf4, "multirow_launches")
     out["gf4_offn_multirow"] = (hq.gf4_offn, "multirow_launches")
+    out["qmm_moe_dense_multirow"] = (hq.qmm_moe_dense, "multirow_launches")
+    out["qmm_moe_ffn_multirow"] = (fns["qmm_moe_ffn"], "multirow_launches")
+    out["gf4_moe_ffn_multirow"] = (hq.gf4_moe_ffn, "multirow_launches")
     out["decode_attention_partials"] = (ha.decode_attention, "partials_launches")
     from calm_tpu_torch.graphs import StepGraph
     out["graph_replays"] = (StepGraph, "replays")  # replays of captured steps
-    return out
+    return {k: (f, a) for k, (f, a) in out.items() if hasattr(f, a)}
 
 
 def drive(run):
@@ -2569,8 +2754,9 @@ def full_width_phase(fmt, dev, gbps, smi, experts: int = 0, cohere: bool = False
     prefill (median of 3), then bench.py's decode protocol (first32 /
     last32 at ctx 4096). gf4 Mistral-7B decodes first32 once more with
     ROTATED_DECODE off (K7 and each layer's own q/k/v), held to the
-    rotated path (K8) on the same weights. Returns the launch counts of
-    that run, or None."""
+    rotated path (K8) on the same weights. Mixtral is then served on the
+    same weights (``full_width_serving_phase`` with ``built``): returns
+    that phase's launch counts by mode, or None for the other models."""
     from calm_tpu_torch import model as M
     from calm_tpu_torch.config import ModelConfig
     from calm_tpu_torch.engine import kv_cache_bytes
@@ -2725,50 +2911,69 @@ def full_width_phase(fmt, dev, gbps, smi, experts: int = 0, cohere: bool = False
                 f"steps, logits within {worst:.3e} of scale (tol {TOL_STEP:g}); "
                 f"gf4_offn {rot0['gf4_offn']} launches")
     log(f"# {what}: " + json.dumps(out))
-    del w, cache
+    del cache
     torch.cuda.empty_cache()
-    return rot0
+    served = None
+    if experts:  # the serving tick on these weights: the expert sweep at 8 rows
+        served = full_width_serving_phase(dev, gbps, smi, fmt, built=(cfg, w, total, bw))
+    del w
+    torch.cuda.empty_cache()
+    return served
 
 
-def full_width_serving_phase(dev, gbps, smi, fmt: str = "fp8", cohere: bool = False):
+def full_width_serving_phase(dev, gbps, smi, fmt: str = "fp8", cohere: bool = False,
+                             built=None):
     """32-layer Mistral-7B (or with ``cohere`` Aya 23 8B: parallel norm,
     vocab 256000, tied) in ``fmt`` with seeded random weights built in
-    memory, bf16 KV, ctx 4096, 8 slots: 16 requests of seeded random bytes
+    memory, or the model ``built`` = (cfg, weights, total bytes, bandwidth
+    bytes) that ``full_width_phase`` built (Mixtral 8x7B at 16 layers),
+    bf16 KV, ctx 4096, 8 slots: 16 requests of seeded random bytes
     (one token a byte) of 128-1024 tokens, 64 greedy tokens each, submitted
-    at once and drained, dense and, for fp8, then paged (512-row pages, a
-    pool of half the dense rows), for gf4 Mistral-7B then dense with
+    at once and drained, dense and, for fp8 Mistral-7B, then paged (512-row
+    pages, a pool of half the dense rows), for gf4 Mistral-7B then dense with
     ROTATED_DECODE off (CALM_ROT=0: each layer's own q/k/v on K3, then K7,
     every tick at 8 rows); 3 drains each. The device time of 10 ticks is
-    split by kernel and by wrapper (K3, K6, K7, K8; K2, K9). Returns each
+    split by kernel and by wrapper (K3, K6, K7, K8; K2, K9; K10, K11). On a
+    MoE model the eager drain also counts the live experts of each layer's
+    sweep, and a tick's GB/s counts those experts' bytes. Returns each
     mode's launch counts of its first timed drain."""
+    import dataclasses
+
     from calm_tpu_torch import model as M
     from calm_tpu_torch.config import ModelConfig
     from calm_tpu_torch.engine import Engine, kv_cache_bytes
+    from calm_tpu_torch.ops import hopper_qmm as hq
     from calm_tpu_torch.serve import Server
     from calm_tpu_torch.tokenizer import Tokenizer
     from calm_tpu_torch.utils.synth import byte_vocab, synth_weights, weight_bytes
 
     ctx, B, n_req, n_gen = 4096, 8, 16, 64
-    arch = dict(norm_ln=True, norm_par=True) if cohere else dict(norm_ln=False)
-    cfg = ModelConfig(**{**(AYA if cohere else MISTRAL), **arch}, rope_theta=10000.0,
-                      seq_len=ctx, rotary_dim=128, dtype=fmt, bos_token_id=1,
-                      eos_token_id=2)
-    what = f"{fmt} {'aya23-8b' if cohere else 'mistral7b'}"
     t0 = time.perf_counter()
-    w = synth_weights(cfg, seed=0, device=dev, random=True)
-    total, bw = weight_bytes(cfg)
-    if cohere:  # tied: the lm-head is the embedding
-        total -= w.output.data.numel() * w.output.data.element_size()
-        w.output = w.embed
-        torch.cuda.empty_cache()
+    if built is None:
+        arch = dict(norm_ln=True, norm_par=True) if cohere else dict(norm_ln=False)
+        cfg = ModelConfig(**{**(AYA if cohere else MISTRAL), **arch}, rope_theta=10000.0,
+                          seq_len=ctx, rotary_dim=128, dtype=fmt, bos_token_id=1,
+                          eos_token_id=2)
+        what = f"{fmt} {'aya23-8b' if cohere else 'mistral7b'}"
+        w = synth_weights(cfg, seed=0, device=dev, random=True)
+        total, bw = weight_bytes(cfg)
+        if cohere:  # tied: the lm-head is the embedding
+            total -= w.output.data.numel() * w.output.data.element_size()
+            w.output = w.embed
+            torch.cuda.empty_cache()
+    else:
+        cfg, w, total, bw = built
+        cfg = dataclasses.replace(cfg, bos_token_id=1, eos_token_id=2)
+        what = f"{fmt} mixtral{cfg.n_experts}x7b"
     tokenizer = Tokenizer.from_tensors(*byte_vocab(cfg.vocab_size), 1, 2, cfg.vocab_size)
     rng = np.random.default_rng(0)
     prompts = ["".join(chr(c) for c in rng.integers(97, 123, n))
                for n in rng.integers(128, 1025, n_req)]
-    log(f"# serve {what}: 32 layers, vocab {cfg.vocab_size}, {total / 2**30:.2f} GiB random "
-        f"weights in {time.perf_counter() - t0:.1f} s; bf16 KV, ctx {ctx}, {B} slots, {n_req} "
-        f"requests of {min(map(len, prompts)) + 1}-{max(map(len, prompts)) + 1} "
-        f"tokens, {n_gen} greedy tokens each")
+    log(f"# serve {what}: {cfg.n_layers} layers, vocab {cfg.vocab_size}, "
+        f"{total / 2**30:.2f} GiB random weights "
+        f"{'reused' if built else f'in {time.perf_counter() - t0:.1f} s'}; bf16 KV, ctx "
+        f"{ctx}, {B} slots, {n_req} requests of {min(map(len, prompts)) + 1}-"
+        f"{max(map(len, prompts)) + 1} tokens, {n_gen} greedy tokens each")
 
     def engine():
         return Engine.from_weights(cfg, w, tokenizer, n_bytes=total, n_params=0,
@@ -2800,12 +3005,18 @@ def full_width_serving_phase(dev, gbps, smi, fmt: str = "fp8", cohere: bool = Fa
 
     out, ids, seen, counts = {}, {}, {}, {}
     modes = [("dense", {}, True)]
-    if fmt == "fp8":
+    if fmt == "fp8" and not cfg.n_experts:
         modes.append(("paged", dict(page_rows=512, pool_pages=32), True))
-    elif not cohere:
+    elif not (cohere or cfg.n_experts):
         modes.append(("dense CALM_ROT=0", {}, False))
-    wrappers = (("qmm_decode", "qx_offn_qkv") if fmt == "fp8"
-                else ("qmm_decode_gf4", "gf4_offn_qkv", "gf4_ffn", "gf4_offn"))
+    if cfg.n_experts:
+        wrappers = (("qmm_decode", "qmm_moe_dense", "qmm_moe_ffn") if fmt != "gf4"
+                    else ("qmm_decode_gf4", "gf4_moe_ffn"))
+    else:
+        wrappers = (("qmm_decode", "qx_offn_qkv") if fmt == "fp8"
+                    else ("qmm_decode_gf4", "gf4_offn_qkv", "gf4_ffn", "gf4_offn"))
+    wrappers = tuple(n for n in wrappers if hasattr(hq, n))  # an older tree may lack one
+    expert_bytes = 3 * cfg.hidden_dim * cfg.dim * {"fp8": 1, "fp16": 2, "gf4": 0.5}[fmt]
     was = M.ROTATED_DECODE
     for mode, kw, rotated in modes:
         M.ROTATED_DECODE = rotated
@@ -2813,7 +3024,7 @@ def full_width_serving_phase(dev, gbps, smi, fmt: str = "fp8", cohere: bool = Fa
             srv = Server(batch=B, engine=engine(), **kw)
             # a first drain, warm, keeps each request's ids (and, to hold
             # paged to dense, their logits)
-            if fmt == "fp8":
+            if any(m == "paged" for m, _, _ in modes):
                 reqs, seen[mode] = serve_recorded(srv, [(p, n_gen, 0.0, 1) for p in prompts])
             else:
                 reqs = drain(srv)[0]
@@ -2831,12 +3042,21 @@ def full_width_serving_phase(dev, gbps, smi, fmt: str = "fp8", cohere: bool = Fa
             dec = [t for r in runs for t in r[2] if t[1] == 0]  # decode-only ticks
             tick_ms = [1e3 * statistics.median(t[0] for t in r[2] if t[1] == 0) for r in runs]
             med = statistics.median(tick_ms)
-            gbs = statistics.median((bw + kv) / dt / 1e9 for dt, _, kv, _ in dec)
             ttft = sorted(1e3 * (r.first_token_at - r.submitted_at) for r in runs[0][1])
-            eager = None
+            eager, live = None, []
             if mode == "dense" and rotated and not cohere:  # the eager tick, same run
-                with eager_steps():
-                    (e_reqs, e_wall, e_ticks), e_counts = drive(lambda: drain(srv))
+                real_slots = M.expert_slots
+
+                def slots_seen(idx, n):  # each sweep's live experts, kept on the card
+                    u, c = real_slots(idx, n)
+                    live.append(c)
+                    return u, c
+                M.expert_slots = slots_seen
+                try:
+                    with eager_steps():
+                        (e_reqs, e_wall, e_ticks), e_counts = drive(lambda: drain(srv))
+                finally:
+                    M.expert_slots = real_slots
                 if [r.ids for r in e_reqs] != ids[mode]:
                     fail(f"serve {what} {mode}: the eager drain's ids differ from the "
                          "replayed drains'")
@@ -2850,6 +3070,12 @@ def full_width_serving_phase(dev, gbps, smi, fmt: str = "fp8", cohere: bool = Fa
                          f"decode ticks) != eager {e_counts}")
                 eager = (e_wall, 1e3 * statistics.median(t[0] for t in e_ticks if t[1] == 0),
                          sorted(1e3 * (r.first_token_at - r.submitted_at) for r in e_reqs))
+            # a tick reads its live experts' weights: on a MoE model the mean
+            # live count a sweep (the eager drain's) in place of top-k
+            live_mean = torch.cat(live).float().mean().item() if live else None
+            bw_tick = bw + (cfg.n_layers * (live_mean - cfg.n_experts_ac) * expert_bytes
+                            if live_mean is not None else 0)
+            gbs = statistics.median((bw_tick + kv) / dt / 1e9 for dt, _, kv, _ in dec)
             # busy share: device time of 10 replayed decode ticks against
             # their unprofiled time, split by kernel; then 10 eager ticks
             # split by kernel wrapper (a replay calls no wrapper)
@@ -2880,7 +3106,13 @@ def full_width_serving_phase(dev, gbps, smi, fmt: str = "fp8", cohere: bool = Fa
         out[mode] = dict(wall_s=wall, tok_s=n_tok / wall, tick_ms=med,
                          tick_spread_pct=100 * (max(tick_ms) - min(tick_ms)) / med,
                          ttft_p50_ms=statistics.median(ttft), ttft_max_ms=ttft[-1],
-                         gb_s=gbs, busy_pct=None if dev_ms is None else 100 * dev_ms / med)
+                         gb_s=gbs, busy_pct=None if dev_ms is None else 100 * dev_ms / med,
+                         device_ms_tick=dev_ms)
+        if live_mean is not None:
+            out[mode]["live_experts_per_layer"] = live_mean
+            log(f"# serve {what} {mode}: {live_mean:.3f} live experts a layer's sweep (mean "
+                f"of {len(live)} sweeps of the eager drain; {cfg.n_experts_ac} of "
+                f"{cfg.n_experts} a row), {bw_tick / 1e9:.3f} GB of weights a tick")
         if eager is not None:
             out[mode + " eager"] = dict(wall_s=eager[0], tok_s=n_tok / eager[0],
                                         tick_ms=eager[1], ttft_p50_ms=statistics.median(eager[2]),
@@ -2899,6 +3131,16 @@ def full_width_serving_phase(dev, gbps, smi, fmt: str = "fp8", cohere: bool = Fa
             f"{out[mode]['tick_spread_pct']:.2f}%); TTFT p50 {statistics.median(ttft):.1f} ms, "
             f"max {ttft[-1]:.1f} ms; {rate_share(gbs)} per decode tick (weights + live "
             f"KV); {busy} on {smi}")
+        key = "gf4_moe_ffn" if fmt == "gf4" else "qmm_moe_ffn"
+        if cfg.n_experts and key + "_multirow" in counts[mode]:
+            # every decode tick's sweep: one multi-row FFN a layer
+            c = counts[mode]
+            if (c[key + "_multirow"] != cfg.n_layers * stepped or c[key] != c[key + "_multirow"]
+                    or c["qmm_moe_dense"]):
+                fail(f"serve {what} {mode}: {stepped} decode ticks, launches {c}")
+            log(f"# serve {what} {mode}: {stepped} decode ticks, {key} {c[key + '_multirow']} "
+                f"launches at 8 rows ({cfg.n_layers} a tick, four kernels each), "
+                f"qmm_moe_dense 0")
         if not rotated:  # every tick's layers on K7 at 8 rows, none on K8
             c = counts[mode]
             if (c["gf4_offn_multirow"] != cfg.n_layers * stepped
@@ -2952,7 +3194,8 @@ def full_width_serving_phase(dev, gbps, smi, fmt: str = "fp8", cohere: bool = Fa
             + json.dumps(out))
     else:
         log(f"# serve {what}: {distinct} distinct ids in all; " + json.dumps(out))
-    del w
+    if built is None:
+        del w
     torch.cuda.empty_cache()
     return counts
 
@@ -3605,9 +3848,14 @@ def main():
     # the captured step against the eager one across the sink wrap
     graph_wrap_check(dev)
     log(f"# graph wrap check done at {time.perf_counter() - t_start:.1f} s")
+    # Mixtral 8x7B is also served on its full-width weights: the sweep at 8
+    # rows, K10's multi-row FFN (fp8) and K11's (gf4)
+    served = {}
     for experts, cohere in ((0, False), (0, True), (EXPERTS, False)):
         for fmt in ("fp8", "gf4"):
-            full_width_phase(fmt, dev, gbps, smi, experts, cohere)
+            counts = full_width_phase(fmt, dev, gbps, smi, experts, cohere)
+            if counts:
+                served[fmt] = counts["dense"]
             log(f"# full-width {fmt} {experts} experts{' aya23-8b' if cohere else ''} "
                 f"done at {time.perf_counter() - t_start:.1f} s")
     # the paged serving path: K12 in paged mode
@@ -3656,6 +3904,11 @@ def main():
                                  "calm_tpu/ops/pallas_qmm.py:1248", counts8m),
                "gf4_moe_ffn": ("calm_tpu_torch/csrc/moe.cu",
                                "calm_tpu/ops/pallas_qmm.py:1361", counts4m),
+               # the MoE sweep at 8 rows: the Mixtral 8x7B serving drains
+               "qmm_moe_ffn_multirow": ("calm_tpu_torch/csrc/qmm.cu",
+                                        "calm_tpu/ops/pallas_qmm.py:1248", served["fp8"]),
+               "gf4_moe_ffn_multirow": ("calm_tpu_torch/csrc/qmm.cu",
+                                        "calm_tpu/ops/pallas_qmm.py:1361", served["gf4"]),
                "gf4_ffn": ("calm_tpu_torch/csrc/qmm.cu",
                            "calm_tpu/ops/pallas_qmm.py:464", counts4c),
                "gf4_offn": ("calm_tpu_torch/csrc/qmm.cu",
