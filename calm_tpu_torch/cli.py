@@ -10,6 +10,9 @@ Env hooks:
   CALM_TOKENS=1  dump prompt token ids
   CALM_POSO=N    offset positions by N (late-context decode profiling)
   CALM_CPU=1     run on the CPU (plain PyTorch path); the GPU otherwise
+  CALM_PRECISE=1 as --precise: f32 operands and sums in every product
+                 (the card's 2-16-row matvecs on their one-row loops, the
+                 prefill's products in f32 instead of bf16)
 
 -x prints ``# perplexity: P ± E``; -y chats (-n bounds each reply, -1
 leaves it unbounded). ``-t > 0`` samples on the device;
@@ -61,6 +64,9 @@ def main(argv=None):
                     help="chat mode with this system prompt")
     ap.add_argument("--kv", dest="kv", type=str, default=None,
                     choices=["bf16", "fp16", "fp8"], help="KV cache dtype")
+    ap.add_argument("--precise", action="store_true",
+                    help="f32 operands and sums in every product (the prefill's "
+                    "and the 2-16-row matvecs' too); also CALM_PRECISE=1")
     ap.add_argument("--reference-sampling", action="store_true",
                     help="per-token host sampling with the reference's "
                     "xorshift64* stream (default: on the device)")
@@ -80,8 +86,9 @@ def main(argv=None):
 
     device = "cpu" if os.environ.get("CALM_CPU", "0") == "1" else "cuda"
     try:
+        precise = args.precise or os.environ.get("CALM_PRECISE", "0") == "1"
         engine = Engine(args.checkpoint, context=args.context,
-                        kv_dtype=args.kv, device=device)
+                        kv_dtype=args.kv, device=device, precise=precise)
     except (FileNotFoundError, IsADirectoryError) as e:
         print(f"failed to open {args.checkpoint}: {e}", file=sys.stderr)
         raise SystemExit(1)

@@ -1,7 +1,8 @@
 // Expert-indexed matvecs for MoE decode (one activation row; fp16/fp8 up
 // to 16 rows where qmm.cu's multi-row sweep declines the shape) over
-// layer-stacked expert weights: (L, E, d, n) fp16 or fp8-e5m2, or natural
-// gf4 words (L, E, d, n/8) int32.
+// layer-stacked expert weights: (L, E, d, n) fp16, fp8-e5m2 or fp8-e4m3
+// (one row; a scale per (layer, expert)), or natural gf4 words (L, E, d,
+// n/8) int32.
 //
 // Replaces two Pallas kernels of calm_tpu/ops/pallas_qmm.py:
 //   - _moe_dense_kernel (:1248) and _moe_dense_gf4_kernel (:1256), via
@@ -55,8 +56,14 @@
 // products (the dual w1/w3 launch, then w2) where three launches of this
 // file and PyTorch's activation were.
 //
+// fp8e4 (FMT 3) at one row: e4m3 decodes exactly to f16 by Hopper's
+// conversion (qmm.cu's e4m3x2_f16x2), and a live slot reads its expert's
+// scale beside its id and multiplies the row's sum by it; a dead slot reads
+// neither. The reference runs fp8e4 through XLA (calm_tpu/ops/qmm.py
+// :179-205, no Pallas kernel); 2-16 rows take qmm.cu's sweep.
+//
 // Each .cu file is its own library (ops/build.py), so the few decode
-// helpers below repeat those of qmm.cu and gf4.cu, which stay untouched.
+// helpers below repeat those of qmm.cu and gf4.cu.
 
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -110,7 +117,15 @@ __device__ __forceinline__ int slot_expert(const int* eidx, const int* cnt, int 
   return min(max(__ldg(eidx + a), 0), E - 1);
 }
 
-// FMT 0: fp16 (one uint2 holds four weights), 1: fp8 e5m2 (one uint32).
+// two e4m3 bytes (b0 low) -> f16x2 {b0, b1}, exactly (see qmm.cu)
+__device__ __forceinline__ uint32_t e4m3x2_f16x2(unsigned short v) {
+  uint32_t r;
+  asm("cvt.rn.f16x2.e4m3x2 %0, %1;" : "=r"(r) : "h"(v));
+  return r;
+}
+
+// FMT 0: fp16 (one uint2 holds four weights), 1: fp8 e5m2 (one uint32), 3:
+// fp8 e4m3 (one uint32).
 template <int FMT>
 struct Fmt;
 template <>
@@ -131,18 +146,29 @@ struct Fmt<1> {
     return make_float4(lo.x, lo.y, hi.x, hi.y);
   }
 };
+template <>
+struct Fmt<3> {
+  using Word = uint32_t;
+  static __device__ __forceinline__ float4 dec(uint32_t q) {
+    const float2 lo = h2f2(e4m3x2_f16x2((unsigned short)(q & 0xffffu)));
+    const float2 hi = h2f2(e4m3x2_f16x2((unsigned short)(q >> 16)));
+    return make_float4(lo.x, lo.y, hi.x, hi.y);
+  }
+};
 
 // ---------------------------------------------------------------------------
 // K10, fp8/fp16: grid (ceil(d / WARPS), A), one warp per output row
 // ---------------------------------------------------------------------------
 
 // NB: compile-time bound on B (accumulator registers). w is the layer's
-// plane (E, d, n); x is (Ax, B, n); y is (A, B, d).
+// plane (E, d, n); x is (Ax, B, n); y is (A, B, d); scale: FMT 3's (E,)
+// scales of the layer.
 template <int FMT, int NB>
 __global__ void __launch_bounds__(WARPS * 32)
     moe_qmv_kernel(const float* __restrict__ x, const uint8_t* __restrict__ w,
                    float* __restrict__ y, const int* __restrict__ eidx,
-                   const int* __restrict__ cnt, int Ax, int B, int d, int n, int E) {
+                   const int* __restrict__ cnt, const float* __restrict__ scale, int Ax,
+                   int B, int d, int n, int E) {
   using Word = typename Fmt<FMT>::Word;
   constexpr int U = 32 / (int)sizeof(Word);  // loads in flight per lane: 32 bytes
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -181,10 +207,13 @@ __global__ void __launch_bounds__(WARPS * 32)
       }
     }
   }
+  float es = 1.f;  // e4m3: the expert's scale
+  if constexpr (FMT == 3) es = __ldg(scale + e);
 #pragma unroll
   for (int b = 0; b < NB; b++) {
     if (b < B) {
-      const float s = warp_sum(acc[b]);
+      float s = warp_sum(acc[b]);
+      if constexpr (FMT == 3) s *= es;
       if (lane == 0) ya[(size_t)b * d + row] = s;
     }
   }
@@ -269,10 +298,10 @@ __global__ void __launch_bounds__(GWARPS * 32)
 template <int FMT, int NB>
 void launch_qmv(const float* x, const void* w, float* y, const int* eidx,
                 const int* cnt, int Ax, int A, int B, int d, int n, int E,
-                cudaStream_t st) {
+                cudaStream_t st, const float* scale = nullptr) {
   dim3 grid((d + WARPS - 1) / WARPS, A);
   moe_qmv_kernel<FMT, NB><<<grid, WARPS * 32, 0, st>>>(
-      x, static_cast<const uint8_t*>(w), y, eidx, cnt, Ax, B, d, n, E);
+      x, static_cast<const uint8_t*>(w), y, eidx, cnt, scale, Ax, B, d, n, E);
 }
 
 template <int MODE>
@@ -304,18 +333,25 @@ extern "C" {
 
 // K10: y (A, B, d) f32 = x[min(a, Ax-1)] (B, n) . W[eidx[a]]^T for the A
 // slots; w points at the layer's plane (E, d, n) fp16 (fmt 0) or fp8 e5m2
-// (fmt 1), or (E, d, n/8) gf4 words (fmt 2, one row only: 2-16 rows of
-// gf4 take qmm.cu's calm_moe_mmv); eidx (A,) and cnt (1,) int32 on the
-// device; 1 <= B <= 16, n % 4 == 0, x 16-byte aligned.
+// (fmt 1), fp8 e4m3 (fmt 3, one row only, times scale[eidx[a]]: scale points
+// at the layer's (E,) scales on the device; null for the other formats), or
+// (E, d, n/8) gf4 words (fmt 2, one row only: 2-16 rows of gf4 and e4m3
+// take qmm.cu's calm_moe_mmv); eidx (A,) and cnt (1,) int32 on the device;
+// 1 <= B <= 16, n % 4 == 0, x 16-byte aligned.
 int calm_moe_dense(const void* x, const void* w, void* y, const void* eidx,
                    const void* cnt, int Ax, int A, int B, int d, int n, int E,
-                   int fmt, void* stream) {
+                   int fmt, const void* scale, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const float* xf = static_cast<const float*>(x);
   float* yf = static_cast<float*>(y);
   const int* ei = static_cast<const int*>(eidx);
   const int* cn = static_cast<const int*>(cnt);
-  if (fmt == 2) {
+  if ((fmt == 3) != (scale != nullptr)) return (int)cudaErrorInvalidValue;
+  if (fmt == 3) {
+    if (B != 1) return (int)cudaErrorInvalidValue;
+    launch_qmv<3, 1>(xf, w, yf, ei, cn, Ax, A, B, d, n, E, st,
+                     static_cast<const float*>(scale));
+  } else if (fmt == 2) {
     if (B != 1) return (int)cudaErrorInvalidValue;
     launch_gf4<0>(xf, w, nullptr, yf, ei, cn, Ax, A, d, n / 8, E, st);
   } else if (fmt == 1)

@@ -199,6 +199,36 @@
 //     one.
 //   - The MOE flag is a template argument, so the instantiations that the
 //     dense paths launch are compiled as before.
+//
+// fp8e4 (FMT 3: e4m3 codes and a power-of-two scale per tensor, per
+// (layer, expert) in MoE stacks), K2 calm_qmm_decode and the MoE sweep's
+// calm_moe_mmv / calm_moe_ffn (moe.cu's loop at one row). The reference
+// has no Pallas kernel for it: calm_tpu/ops/qmm.py:179-205 runs it through
+// XLA, the scale on the output. A decode matvec that widened the plane to
+// bf16 first would move 5 bytes a weight where one suffices, so the e4m3
+// body sits in the same loops as e5m2, at the same bytes:
+//   - The decode is exact: Hopper's cvt.rn.f16x2.e4m3x2 turns a pair of
+//     bytes into f16x2 in one instruction (f16 holds every finite e4m3
+//     value), as e5m2's byte placement takes one byte_perm a pair. A bit
+//     placement (e5m2's, then the sign kept and the seven other bits moved
+//     down one: f16 of e4m3(b) / 256, one shift and one LOP3 more a pair)
+//     timed 17% slower than e5m2 on the expert FFN at 3 live slots of 8
+//     (B = 8, PERF.md), where the conversion timed even. chip_smoke.py holds
+//     the kernels on planes of all 254 finite bytes.
+//   - The scale stays on the device: a kernel reads it at the pointer the
+//     wrapper gives (the layer's entry), plus the slot's expert id where it
+//     reads that id, and multiplies each product's sum before the
+//     activation (SiLU and GELU are not linear) and before any residual. A
+//     dead slot reads neither. The captured step replays it as it is.
+//   - Only the launches that the paths make are built: FMT 3 at ACT 0 in
+//     qmv_kernel and the dense mmv_kernel (per-op decode: JAX's fused
+//     epilogue takes fp8/fp16 only, calm_tpu/model.py:1231), and the MOE
+//     dual and w2 instantiations.
+//
+// The quality mode (--precise, calm_tpu/ops/qmm.py:190-197) keeps f32
+// operands at 2-16 rows too: calm_qmm_decode without a plan runs
+// qmv_kernel on a grid axis over rows (blockIdx.y, x and y row-strided),
+// each row reading the weights again, where mmv_kernel stages x in f16.
 
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -213,6 +243,8 @@ struct Seg {
   const uint8_t* w3;   // dual mode: the w3 weight (same shape), else null
   float* out;          // out[b * ld + r]
   const float* resid;  // optional: out = resid + y, resid[b * ld + r]
+  const float* s;      // e4m3 (FMT 3): w's scale on the device (MOE: + expert id)
+  const float* s3;     // e4m3 dual mode: w3's scale
   int rows;
   int ld;
 };
@@ -235,7 +267,17 @@ __device__ __forceinline__ float dot4(float4 w, float4 x) {
   return w.x * x.x + w.y * x.y + w.z * x.z + w.w * x.w;
 }
 
-// FMT 0: fp16, 1: fp8 e5m2 (gf4 at one row: gf4_row_kernel). Word: the
+// Two e4m3 bytes (b0 low) -> f16x2 {b0, b1}, by Hopper's conversion: one
+// instruction a pair, as e5m2's byte placement. f16 holds every finite e4m3
+// value exactly (its exponent range covers e4m3's, subnormals included;
+// 0x7f / 0xff, NaN, are not weights).
+__device__ __forceinline__ uint32_t e4m3x2_f16x2(unsigned short v) {
+  uint32_t r;
+  asm("cvt.rn.f16x2.e4m3x2 %0, %1;" : "=r"(r) : "h"(v));
+  return r;
+}
+
+// FMT 0: fp16, 1: fp8 e5m2, 3: fp8 e4m3 (gf4 at one row: gf4_row_kernel). Word: the
 // load that holds PER weights; dec() turns it into Dec, dot() multiplies Dec
 // by the PER values of x held in PER / 4 float4 registers.
 template <int FMT>
@@ -262,6 +304,20 @@ struct Fmt<1> {
     // bytes [0, b0, 0, b1] and [0, b2, 0, b3]: e5m2 in the high byte
     const float2 lo = h2f2(__byte_perm(q, 0u, 0x1404));
     const float2 hi = h2f2(__byte_perm(q, 0u, 0x3424));
+    return make_float4(lo.x, lo.y, hi.x, hi.y);
+  }
+  static __device__ __forceinline__ float dot(const Dec& w, const float4* x) {
+    return dot4(w, x[0]);
+  }
+};
+template <>
+struct Fmt<3> {
+  using Word = uint32_t;
+  using Dec = float4;
+  static constexpr int PER = 4;
+  static __device__ __forceinline__ Dec dec(uint32_t q) {
+    const float2 lo = h2f2(e4m3x2_f16x2((unsigned short)(q & 0xffffu)));
+    const float2 hi = h2f2(e4m3x2_f16x2((unsigned short)(q >> 16)));
     return make_float4(lo.x, lo.y, hi.x, hi.y);
   }
   static __device__ __forceinline__ float dot(const Dec& w, const float4* x) {
@@ -407,7 +463,10 @@ __device__ __forceinline__ float act_fn(int act, float y) {
 }
 
 // ACT: 0 plain matvec, 1 dual SiLU (h = silu(x.w1) * x.w3), 2 dual tanh-GELU.
-// One row of x (B = 1); 2-16 rows take mmv_kernel.
+// One row of x (B = 1), or, for the quality mode (--precise), row
+// blockIdx.y of 2-16 rows, each reading the weights again: f32 operands
+// and sums where mmv_kernel stages x in f16. FMT 3 (e4m3, ACT 0): the sum
+// times s, read on the device, before any residual.
 template <int FMT, int ACT>
 __global__ void __launch_bounds__(WARPS * 32, 4) qmv_kernel(Args a) {
   using F = Fmt<FMT>;
@@ -434,7 +493,8 @@ __global__ void __launch_bounds__(WARPS * 32, 4) qmv_kernel(Args a) {
   const int nw = a.n / F::PER;  // lane steps (words) per row
   const Word* wr = reinterpret_cast<const Word*>(sg.w) + (size_t)row * nw;
   const Word* wr3 = ACT ? reinterpret_cast<const Word*>(sg.w3) + (size_t)row * nw : nullptr;
-  const float4* x4 = reinterpret_cast<const float4*>(a.x);
+  const int b = blockIdx.y;  // the row of x
+  const float4* x4 = reinterpret_cast<const float4*>(a.x + (size_t)b * a.n);
   float acc = 0.f, acc3 = 0.f;
 
   for (int c0 = lane; c0 < nw; c0 += 32 * U) {
@@ -462,8 +522,14 @@ __global__ void __launch_bounds__(WARPS * 32, 4) qmv_kernel(Args a) {
   }
 
   float y = warp_sum(acc);
-  if (ACT) y = act_fn(ACT, y) * warp_sum(acc3);
-  if (lane == 0) sg.out[row] = sg.resid ? sg.resid[row] + y : y;
+  if constexpr (FMT == 3) y *= __ldg(sg.s);
+  if (ACT) {
+    float y3 = warp_sum(acc3);
+    if constexpr (FMT == 3) y3 *= __ldg(sg.s3);
+    y = act_fn(ACT, y) * y3;
+  }
+  const size_t o = (size_t)b * sg.ld + row;
+  if (lane == 0) sg.out[o] = sg.resid ? sg.resid[o] + y : y;
 }
 
 // ---------------------------------------------------------------------------
@@ -701,7 +767,7 @@ __device__ __forceinline__ void gf4_frag(uint32_t w, int h, uint32_t k1024, uint
 }
 
 // A lane's weights of one row and chunk, k = 16 t .. 16 t + 15, as 32-bit
-// words: one 16-byte load (e5m2), two (fp16), or two gf4 words, one 8-byte
+// words: one 16-byte load (e5m2, e4m3), two (fp16), or two gf4 words, one 8-byte
 // load (ODD: rows of n % 16 == 8 words, 4-byte aligned: word by word, the
 // second zero past the row, where a stray inf or NaN scale times x's zero
 // would be NaN); left: values of the row from the lane's first. frag gives
@@ -709,7 +775,7 @@ __device__ __forceinline__ void gf4_frag(uint32_t w, int h, uint32_t k1024, uint
 // j).
 template <int FMT>
 struct MW {
-  static constexpr int WORDS = FMT == 2 ? 2 : FMT == 1 ? 4 : 8;
+  static constexpr int WORDS = FMT == 2 ? 2 : FMT == 0 ? 8 : 4;
   static constexpr int B16 = 4 * WORDS;  // bytes of 16 values
   template <bool ODD>
   static __device__ __forceinline__ void load(uint32_t (&w)[WORDS], const uint8_t* p,
@@ -736,6 +802,9 @@ struct MW {
     } else if constexpr (FMT == 1) {
       a01 = __byte_perm(w[s], 0u, 0x1404);  // [0, b0, 0, b1]
       a23 = __byte_perm(w[s], 0u, 0x3424);  // [0, b2, 0, b3]
+    } else if constexpr (FMT == 3) {  // e4m3, exactly
+      a01 = e4m3x2_f16x2((unsigned short)(w[s] & 0xffffu));
+      a23 = e4m3x2_f16x2((unsigned short)(w[s] >> 16));
     } else {
       a01 = w[2 * s], a23 = w[2 * s + 1];
     }
@@ -750,6 +819,9 @@ struct MW {
 // groups of segment 0, then 1, then 2, each ceil(rows / 16 MT). The weight
 // and x pointers step along k with the chunks, so a load's address is a
 // register plus a constant. MOE: the MoE sweep's slot axis (see MArgs).
+// FMT 3 (e4m3): each weight's sum times its scale s (w1's and w3's apart,
+// before the activation), read on the device at the segment's scale, plus
+// the slot's expert id under MOE, before any residual.
 template <int FMT, int ACT, int MT, int NT, bool ODD, bool MOE = false>
 __global__ void __launch_bounds__(WARPS * 32, 2) mmv_kernel(MArgs a) {
   using W = MW<FMT>;
@@ -797,6 +869,10 @@ __global__ void __launch_bounds__(WARPS * 32, 2) mmv_kernel(MArgs a) {
     }
     sg.w += (size_t)e * a.wslot;
     if (ACT) sg.w3 += (size_t)e * a.wslot;
+    if constexpr (FMT == 3) {  // the expert's scale, beside its id
+      sg.s += e;
+      if (ACT) sg.s3 += e;
+    }
     xs += (size_t)slot * a.xslot;
     scs += (size_t)slot * a.scslot;
   }
@@ -953,6 +1029,11 @@ __global__ void __launch_bounds__(WARPS * 32, 2) mmv_kernel(MArgs a) {
   }
   if (kw != 0 || !live) return;
 
+  float s1 = 1.f, s3 = 1.f;  // e4m3: the scales of w and w3
+  if constexpr (FMT == 3) {
+    s1 = __ldg(sg.s);
+    if (ACT) s3 = __ldg(sg.s3);
+  }
 #pragma unroll
   for (int m = 0; m < MT; m++)
 #pragma unroll
@@ -963,7 +1044,12 @@ __global__ void __launch_bounds__(WARPS * 32, 2) mmv_kernel(MArgs a) {
         const int slot = nt * 8 + 2 * t + (i & 1);
         if (row < sg.rows && slot < a.B) {
           float y = acc[0][m][nt][i];
-          if (ACT) y = act_fn(ACT, y) * acc[DUAL - 1][m][nt][i];
+          if constexpr (FMT == 3) y *= s1;
+          if (ACT) {
+            float y3 = acc[DUAL - 1][m][nt][i];
+            if constexpr (FMT == 3) y3 *= s3;
+            y = act_fn(ACT, y) * y3;
+          }
           const size_t o = (size_t)slot * sg.ld + row;
           sg.out[o] = sg.resid ? sg.resid[o] + y : y;
         }
@@ -1008,6 +1094,11 @@ cudaError_t launch_mmv(int fmt, MArgs a, const int* plan, cudaStream_t st, int s
   if (fmt == 2)
     return odd ? launch_mmv_mt<2, ACT, true, MOE>(a, mt, nt, g, st)
                : launch_mmv_mt<2, ACT, false, MOE>(a, mt, nt, g, st);
+  if (fmt == 3) {  // e4m3: the dense products and the MoE sweep (no fused epilogue)
+    if (!a.seg[0].s || (ACT && !a.seg[0].s3)) return cudaErrorInvalidValue;
+    if constexpr (ACT == 0 || MOE) return launch_mmv_mt<3, ACT, false, MOE>(a, mt, nt, g, st);
+    return cudaErrorInvalidValue;
+  }
   return fmt == 1 ? launch_mmv_mt<1, ACT, false, MOE>(a, mt, nt, g, st)
                   : launch_mmv_mt<0, ACT, false, MOE>(a, mt, nt, g, st);
 }
@@ -1051,9 +1142,9 @@ void moe_slots(MArgs& m, const void* eidx, const void* cnt, int E, size_t wslot,
   m.oslot = oslot;
 }
 
-// bytes of a weight row of n values: fp16 2 n, e5m2 n, gf4 n / 2
+// bytes of a weight row of n values: fp16 2 n, e5m2 and e4m3 n, gf4 n / 2
 size_t row_bytes(int fmt, int n) {
-  return fmt == 2 ? (size_t)n / 2 : fmt == 1 ? (size_t)n : 2 * (size_t)n;
+  return fmt == 2 ? (size_t)n / 2 : fmt == 0 ? 2 * (size_t)n : (size_t)n;
 }
 
 // uint4 fragments and scales of one row slot set's staging of n values
@@ -1061,13 +1152,14 @@ size_t row_bytes(int fmt, int n) {
 size_t staged_frags(int n, int ns) { return (size_t)((n + CH - 1) / CH) * 16 * ns; }
 size_t staged_scales(int n, int ns) { return (size_t)((n + CH - 1) / CH) * ns; }
 
-// one row (qmv_kernel); 2-16 rows take launch_mmv
+// one row (qmv_kernel), or 2-16 on its grid axis over rows (the quality
+// mode); 2-16 rows otherwise take launch_mmv
 template <int FMT, int ACT>
 cudaError_t launch(const Args& a, cudaStream_t st) {
-  if (a.B != 1) return cudaErrorInvalidValue;
+  if (a.B < 1 || a.B > 16) return cudaErrorInvalidValue;
   int rows = 0;
   for (int s = 0; s < a.nseg; s++) rows += a.seg[s].rows;
-  qmv_kernel<FMT, ACT><<<(rows + WARPS - 1) / WARPS, WARPS * 32, 0, st>>>(a);
+  qmv_kernel<FMT, ACT><<<dim3((rows + WARPS - 1) / WARPS, a.B), WARPS * 32, 0, st>>>(a);
   return cudaGetLastError();
 }
 
@@ -1090,12 +1182,14 @@ cudaError_t launch_norm(const void* x, const void* g, void* out, int B, int n,
 }
 
 Seg seg(const void* w, const void* w3, void* out, const void* resid, int rows,
-        int ld) {
+        int ld, const void* sc = nullptr, const void* sc3 = nullptr) {
   Seg s;
   s.w = static_cast<const uint8_t*>(w);
   s.w3 = static_cast<const uint8_t*>(w3);
   s.out = static_cast<float*>(out);
   s.resid = static_cast<const float*>(resid);
+  s.s = static_cast<const float*>(sc);
+  s.s3 = static_cast<const float*>(sc3);
   s.rows = rows;
   s.ld = ld;
   return s;
@@ -1209,27 +1303,33 @@ cudaError_t qx_offn_qkv_mr(int fmt, const void* a, const void* r, const void* g,
 
 extern "C" {
 
-// y (B, d) = x (B, n) . W^T for W (d, n) in fp16 (fmt 0) or fp8 e5m2
-// (fmt 1), or W (d, n/8) gf4 words (fmt 2) from 2 rows (one gf4 row:
-// calm_gf4_matvec, gf4.cu); w points at the layer's plane. B >= 2 takes the
-// multi-row path: x staged into xs/sc (caller-allocated, qmv_plan's sizes),
-// then plan's launch; B = 1 the loop of one row (xs, sc and plan unused).
+// y (B, d) = x (B, n) . W^T for W (d, n) in fp16 (fmt 0), fp8 e5m2 (fmt
+// 1) or fp8 e4m3 (fmt 3, times its scale: a device pointer, at the layer's
+// entry; null for the other formats), or W (d, n/8) gf4 words (fmt 2) from
+// 2 rows (one gf4 row: calm_gf4_matvec, gf4.cu); w points at the layer's
+// plane. B >= 2 with a plan takes the multi-row path: x staged into xs/sc
+// (caller-allocated, qmv_plan's sizes), then plan's launch; B = 1, and B >=
+// 2 without a plan (the quality mode, not gf4), the loop of one row, on a
+// grid axis over rows (xs, sc and plan unused).
 int calm_qmm_decode(const void* x, const void* w, void* y, int B, int d, int n,
-                    int fmt, void* xs, void* sc, const void* plan, void* stream) {
+                    int fmt, const void* scale, void* xs, void* sc, const void* plan,
+                    void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (B >= 2) {
+  if ((fmt == 3) != (scale != nullptr)) return (int)cudaErrorInvalidValue;
+  if (B >= 2 && plan) {
     const int* p = static_cast<const int*>(plan);
     uint4* xs4 = static_cast<uint4*>(xs);
     float* scf = static_cast<float*>(sc);
     cudaError_t e = launch_split(x, xs4, scf, 8 * p[1], B, n, st);
     if (e != cudaSuccess) return (int)e;
     MArgs m = margs(xs4, scf, B, n);
-    m.seg[0] = seg(w, nullptr, y, nullptr, d, d);
+    m.seg[0] = seg(w, nullptr, y, nullptr, d, d, scale);
     return (int)launch_mmv<0>(fmt, m, p, st);
   }
   if (fmt == 2) return (int)cudaErrorInvalidValue;
   Args a = args(x, B, n);
-  a.seg[0] = seg(w, nullptr, y, nullptr, d, d);
+  a.seg[0] = seg(w, nullptr, y, nullptr, d, d, scale);
+  if (fmt == 3) return (int)launch<3, 0>(a, st);
   return (int)launch_fmt<0>(fmt, a, nullptr, st);
 }
 
@@ -1319,16 +1419,19 @@ int calm_gf4_offn(const void* a, const void* r, const void* g, const void* wo,
 
 // K10 at 2-16 rows: y (A, B, d) f32 = x[min(a, Ax-1)] (B, n) . W[eidx[a]]^T
 // for the A expert slots, on the multi-row path; w points at the layer's
-// plane (E, d, n) fp16 (fmt 0) or fp8 e5m2 (1), or (E, d, n/8) gf4 words
+// plane (E, d, n) fp16 (fmt 0), fp8 e5m2 (1) or e4m3 (3, times scale[eidx[a]]:
+// scale points at the layer's (E,) scales on the device; null for the
+// other formats), or (E, d, n/8) gf4 words
 // (2); eidx (A,) and cnt (1,) int32 on the device, Ax 1 (x shared) or A;
 // n a multiple of 16 (gf4: of 8). x staged into xs/sc (caller-allocated,
 // Ax stagings of qmv_plan's size), then plan's launch (qmv_plan with
 // slots = A) of A slots; slots a >= cnt write zeros and read no weight.
 // One row takes moe.cu's calm_moe_dense.
 int calm_moe_mmv(const void* x, const void* w, void* y, const void* eidx, const void* cnt,
-                 int Ax, int A, int B, int d, int n, int E, int fmt, void* xs, void* sc,
-                 const void* plan, void* stream) {
+                 int Ax, int A, int B, int d, int n, int E, int fmt, const void* scale,
+                 void* xs, void* sc, const void* plan, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  if ((fmt == 3) != (scale != nullptr)) return (int)cudaErrorInvalidValue;
   const int* p = static_cast<const int*>(plan);
   const int ns = 8 * p[1];
   uint4* xs4 = static_cast<uint4*>(xs);
@@ -1338,7 +1441,7 @@ int calm_moe_mmv(const void* x, const void* w, void* y, const void* eidx, const 
   cudaError_t e = launch_split(x, xs4, scf, ns, B, n, st, Ax, xslot, scslot);
   if (e != cudaSuccess) return (int)e;
   MArgs m = margs(xs4, scf, B, n);
-  m.seg[0] = seg(w, nullptr, y, nullptr, d, d);
+  m.seg[0] = seg(w, nullptr, y, nullptr, d, d, scale);
   moe_slots(m, eidx, cnt, E, (size_t)d * row_bytes(fmt, n), Ax > 1 ? xslot : 0,
             Ax > 1 ? scslot : 0, (size_t)B * d);
   return (int)launch_mmv<0, true>(fmt, m, p, st, A);
@@ -1347,16 +1450,21 @@ int calm_moe_mmv(const void* x, const void* w, void* y, const void* eidx, const 
 // The expert FFN at 2-16 rows: z (A, B, D) f32, z[a] = (act(x W1[e]^T) *
 // (x W3[e]^T)) W2[e]^T with e = eidx[a], for x (B, D) f32; w1/w3 point at
 // the layer's planes (E, H, D) and w2 at (E, D, H), fp16 (fmt 0), fp8 e5m2
-// (1) or gf4 words (2, n/8 words a row); h (A, B, H) f32 scratch. Four
+// (1), fp8 e4m3 (3) or gf4 words (2, n/8 words a row); s1, s3, s2: for e4m3
+// the layer's (E,) scales of w1, w3 and w2 on the device (w1's and w3's
+// applied before the activation), else null; h (A, B, H) f32 scratch. Four
 // launches: x staged once, the dual w1/w3 launch of every slot into h, h
 // staged slot by slot, the w2 launch into z; slots a >= cnt give zeros.
 // plans: qmv_plan's (slots = A) of w1/w3 and w2; xs/sc hold A stagings of
 // H values.
 int calm_moe_ffn(const void* x, const void* w1, const void* w3, const void* w2,
                  const void* eidx, const void* cnt, void* h, void* z, int A, int B, int D,
-                 int H, int E, int fmt, int act_gelu, void* xs, void* sc, const void* plans,
-                 void* stream) {
+                 int H, int E, int fmt, int act_gelu, const void* s1, const void* s3,
+                 const void* s2, void* xs, void* sc, const void* plans, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  const bool e4 = fmt == 3;
+  if (e4 != (s1 != nullptr) || e4 != (s3 != nullptr) || e4 != (s2 != nullptr))
+    return (int)cudaErrorInvalidValue;
   const int* p = static_cast<const int*>(plans);
   const int ns = 8 * p[1];
   uint4* xs4 = static_cast<uint4*>(xs);
@@ -1364,7 +1472,7 @@ int calm_moe_ffn(const void* x, const void* w1, const void* w3, const void* w2,
   cudaError_t e = launch_split(x, xs4, scf, ns, B, D, st);
   if (e != cudaSuccess) return (int)e;
   MArgs m = margs(xs4, scf, B, D);
-  m.seg[0] = seg(w1, w3, h, nullptr, H, H);
+  m.seg[0] = seg(w1, w3, h, nullptr, H, H, s1, s3);
   moe_slots(m, eidx, cnt, E, (size_t)H * row_bytes(fmt, D), 0, 0, (size_t)B * H);
   e = act_gelu ? launch_mmv<2, true>(fmt, m, p, st, A) : launch_mmv<1, true>(fmt, m, p, st, A);
   if (e != cudaSuccess) return (int)e;
@@ -1372,7 +1480,7 @@ int calm_moe_ffn(const void* x, const void* w1, const void* w3, const void* w2,
   if ((e = launch_split(h, xs4, scf, ns, B, H, st, A, xslot, scslot)) != cudaSuccess)
     return (int)e;
   m = margs(xs4, scf, B, H);
-  m.seg[0] = seg(w2, nullptr, z, nullptr, D, D);
+  m.seg[0] = seg(w2, nullptr, z, nullptr, D, D, s2);
   moe_slots(m, eidx, cnt, E, (size_t)D * row_bytes(fmt, H), xslot, scslot, (size_t)B * D);
   return (int)launch_mmv<0, true>(fmt, m, p + 4, st, A);
 }

@@ -22,7 +22,11 @@
 - fp8 KV is chosen for contexts above 4096 (src/run.c:536-540);
 - ``batch`` sizes the cache's slot axis for the continuous-batching
   server (``calm_tpu/engine.py:130``); the single-stream methods use an
-  Engine of one slot.
+  Engine of one slot;
+- ``precise`` sets the process-wide quality mode of ``ops.qmm`` every
+  time an Engine is made, so a later ``Engine(precise=False)`` turns it
+  off (``calm_tpu/engine.py:82-84``): f32 operands in every routed
+  product (``model.mm_route``, ``hopper_qmm.decode_path``).
 
 Runs on the GPU unless ``device="cpu"`` is asked for.
 """
@@ -41,6 +45,7 @@ from calm_tpu_torch import model as M
 from calm_tpu_torch.config import ModelConfig
 from calm_tpu_torch.container import TensorFile
 from calm_tpu_torch.device import pick
+from calm_tpu_torch.ops import qmm as _qmm
 from calm_tpu_torch.sampler import Sampler, softmax_prob
 from calm_tpu_torch.tokenizer import Tokenizer
 
@@ -82,7 +87,10 @@ class Engine:
     PREFILL_CHUNK = 8192
 
     def __init__(self, path: str, context: int = 0,
-                 kv_dtype: str | None = None, device=None, batch: int = 1):
+                 kv_dtype: str | None = None, device=None, batch: int = 1,
+                 precise: bool = False):
+        # set every time: a later Engine(precise=False) turns the flag off
+        _qmm.enable_precise(precise)
         self.device = pick(device)
         self.tf = TensorFile(path)
         self.path = path
@@ -110,10 +118,12 @@ class Engine:
     def from_weights(cls, cfg: ModelConfig, weights: M.Weights,
                      tokenizer: Tokenizer, *, n_bytes: int, n_params: int,
                      n_bandwidth: int, kv_dtype: str | None = None,
-                     device=None, batch: int = 1) -> "Engine":
+                     device=None, batch: int = 1, precise: bool = False) -> "Engine":
         """An Engine around weights already built on the device, with no
         container (a model made in memory, e.g. by ``utils.synth``); the
-        byte counts feed the banner and the perf line."""
+        byte counts feed the banner and the perf line. ``precise`` as
+        ``Engine``'s."""
+        _qmm.enable_precise(precise)
         self = cls.__new__(cls)
         self.device = pick(device)
         self.tf, self.path = None, "<memory>"

@@ -1,5 +1,5 @@
 """The decoder-only transformer in PyTorch: decode and batched prefill of
-fp8/fp16/gf4 Llama/Mistral-family models, dense or Mixtral-style MoE (the
+fp8/fp16/fp8e4/gf4 Llama/Mistral-family models, dense or Mixtral-style MoE (the
 port of ``calm_tpu.model``'s decode and prefill paths, and of
 ``calm_tpu.paged``'s paged decode step).
 
@@ -35,8 +35,9 @@ the same function eagerly. The CPU path and a sharded plan (whose
 collectives go through ``torch.distributed``) run eagerly.
 
 Models whose dims are not 128-aligned, MoE and parallel-norm (Cohere)
-models (as ``model.py:1228``), and fp8/fp16 models under ``CALM_ROT=0``
-take the same step with per-op matvecs in place of the fused epilogue;
+models (as ``model.py:1228``), fp8e4 models (``:1231``), and fp8/fp16
+models under ``CALM_ROT=0`` or ``--precise`` (``:1237-1238``) take the
+same step with per-op matvecs in place of the fused epilogue;
 gf4 under ``CALM_ROT=0`` runs each layer's own q/k/v, then ``gf4_offn``
 (wo + residual, ffn-norm and the FFN). A parallel-norm layer feeds its
 FFN the attn-normed input (``gf4_ffn`` for gf4 at <= 16 rows) and adds wo
@@ -50,11 +51,13 @@ tokens per sequence at once (``model.py:1363-1374``): per layer the
 projections, bias/qk-norm/clip, RoPE over T positions, the write of the T
 rows into the cache, then ``prefill_attention`` reading them back, then wo
 and the FFN per op. On the card every product and the attention go
-through the Hopper kernels (products of more than 16 rows of fp8/fp16, or
-17..31 of gf4, through ``dense_matmul``; gf4's w2 product through
-``qmm_prefill_w2``); on the CPU the wrappers run their plain versions.
-fp8e4 weights on the card belong to a later slice and raise
-NotImplementedError.
+through the Hopper kernels (products of more than 16 rows of fp8/fp16/
+fp8e4, or 17..31 of gf4, through ``dense_matmul``; gf4's w2 product
+through ``qmm_prefill_w2``); on the CPU the wrappers run their plain
+versions. fp8e4 weights carry a power-of-two scale per tensor (per
+(layer, expert) in MoE stacks) that the kernels read on the device.
+Under ``ops.qmm._PRECISE`` (``Engine(precise=True)``) :func:`mm_route`
+keeps f32 operands in every routed product.
 
 Under a ``ShardingPlan`` the same functions are one rank's program on its
 local weights and cache, with the collectives on a
@@ -92,9 +95,9 @@ from calm_tpu_torch.ops.hopper_qmm import (MAX_ROWS, act, gf4_ffn,
                                            qmm_moe_dense, qmm_moe_ffn,
                                            qmm_prefill, qmm_prefill_w2,
                                            qx_offn_qkv, qx_offn_supported)
+from calm_tpu_torch.ops import qmm as _qmm
 from calm_tpu_torch.ops.norms import rmsnorm
-from calm_tpu_torch.ops.qmm import (STORAGE, QTensor, dense_matmul,
-                                    embed_lookup, qmatmul)
+from calm_tpu_torch.ops.qmm import STORAGE, QTensor, dense_matmul, embed_lookup
 from calm_tpu_torch.ops.rope import apply_rope, rope_tables
 from calm_tpu_torch.parallel.plan import NO_SHARDING, ShardingPlan
 from calm_tpu_torch.sampler import device_sample
@@ -156,18 +159,16 @@ class KVCache:
 
 def check_supported(cfg: ModelConfig, device) -> None:
     """Raise NotImplementedError at load for what the card's kernels do
-    not take: fp8e4 weights (a later slice), head dims the attention
-    kernels are not built for, and fp8/fp16 contraction dims the matvec
-    kernel cannot split (``hopper_qmm._check_cuda``)."""
+    not take: head dims the attention kernels are not built for, and
+    fp8/fp16/fp8e4 contraction dims the matvec kernels cannot split
+    (``hopper_qmm._check_cuda``)."""
     if torch.device(device).type != "cuda":
         return
-    if cfg.dtype == "fp8e4":
-        raise NotImplementedError("fp8e4 weights on the GPU wait for the fp8e4 slice")
     if cfg.head_dim not in HEAD_DIMS:
         raise NotImplementedError(f"head_dim {cfg.head_dim}: the attention kernels "
                                   f"take {HEAD_DIMS}")
     odd = [n for n in (cfg.dim, cfg.q_dim, cfg.hidden_dim) if n % 16]
-    if cfg.dtype in ("fp8", "fp16") and odd:
+    if cfg.dtype in ("fp8", "fp16", "fp8e4") and odd:
         raise NotImplementedError(f"the {cfg.dtype} matvec kernel takes contraction "
                                   f"dims in multiples of 16, not {odd}")
 
@@ -357,23 +358,34 @@ def _norm(cfg: ModelConfig, x, weight):
 
 
 def _mv(x: torch.Tensor, qt: QTensor, layer=None) -> torch.Tensor:
-    """Decode matvec: the Hopper kernels' wrapper for fp8/fp16/gf4 (plain
-    on the CPU); the plain f32 path for fp8e4 on the CPU only."""
-    if qt.fmt in ("fp8", "fp16", "gf4"):
-        return qmm_decode(x, qt.data, qt.fmt, layer)
-    if x.is_cuda:
-        raise NotImplementedError(f"no CUDA matvec for {qt.fmt} yet")
-    return qmatmul(x, qt, layer)
+    """Decode matvec of <= 16 rows: the Hopper kernels' wrapper for every
+    format, fp8e4 with its scale (plain on the CPU); under ``--precise``
+    2-16 rows take the one-row loops' rows axis."""
+    return qmm_decode(x, qt.data, qt.fmt, layer, qt.scale, _qmm._PRECISE)
+
+
+def mm_route(rows: int, qt: QTensor, precise: bool = False) -> str:
+    """Where :func:`_mm` sends a product of ``rows`` rows: "mv" (<= 16
+    rows, the matvec kernels), "mm" (gf4 from 32 rows, the gf4 matmul
+    kernel; not under ``precise``, whose JAX counterpart runs these in XLA
+    at f32, ``calm_tpu/ops/qmm.py:158``) or "dense" (``dense_matmul``)."""
+    if rows <= MAX_ROWS:
+        return "mv"
+    if not precise and mm_supported(rows, qt.data, qt.fmt):
+        return "mm"
+    return "dense"
 
 
 def _mm(x: torch.Tensor, qt: QTensor, layer=None, w2: bool = False) -> torch.Tensor:
     """x (R, n) @ W[layer]^T for any row count, routed as
-    ``calm_tpu.ops.qmm.qmatmul``: <= 16 rows to the matvec kernels, gf4
-    from 32 rows to the gf4 matmul kernel (``qmm_prefill_w2`` for the FFN's
-    w2, as ``qmatmul_w2t``), the rest to ``dense_matmul``."""
-    if x.shape[0] <= MAX_ROWS:
+    ``calm_tpu.ops.qmm.qmatmul`` (:func:`mm_route`): <= 16 rows to the
+    matvec kernels, gf4 from 32 rows to the gf4 matmul kernel
+    (``qmm_prefill_w2`` for the FFN's w2, as ``qmatmul_w2t``), the rest to
+    ``dense_matmul``."""
+    route = mm_route(x.shape[0], qt, _qmm._PRECISE)
+    if route == "mv":
         return _mv(x, qt, layer)
-    if mm_supported(x.shape[0], qt.data, qt.fmt):
+    if route == "mm":
         return (qmm_prefill_w2 if w2 else qmm_prefill)(x, qt.data, layer)
     return dense_matmul(x, qt, layer)
 
@@ -382,8 +394,7 @@ def _mm_operand(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
     """x rounded once to bf16 when :func:`_mm` will give it to the gf4
     matmul kernel, so products that share x (wq/wk/wv, w1/w3) share one
     cast; else x as it is."""
-    rows = x.shape[0]
-    return prefill_operand(x, rows > MAX_ROWS and mm_supported(rows, qt.data, qt.fmt))
+    return prefill_operand(x, mm_route(x.shape[0], qt, _qmm._PRECISE) == "mm")
 
 
 def _embed(embed: QTensor, tokens: torch.Tensor, plan: ShardingPlan = NO_SHARDING,
@@ -421,17 +432,20 @@ def _shapes(cfg: ModelConfig, w: Weights):
     return (cfg.dim, w.layers.w1.data.shape[1], cfg.q_dim, cfg.kv_dim)
 
 
-def _fused(cfg: ModelConfig, w: Weights, B: int, plan: ShardingPlan = NO_SHARDING) -> bool:
+def _fused(cfg: ModelConfig, w: Weights, B: int, plan: ShardingPlan = NO_SHARDING,
+           precise: bool = False) -> bool:
     """The rotated epilogue: q/k/v ride from each layer's fused call into
     the next. MoE and parallel-norm layers run per op, and none runs it
     under CALM_ROT=0 (calm_tpu/model.py:1211, :1225-1228) or under a plan
     that splits the layer: its residual closes across ranks between wo and
-    the FFN (``:1226-1227``)."""
+    the FFN (``:1226-1227``). fp8e4 has no fused epilogue (``:1231``), and
+    fp8/fp16 decline it under ``precise`` (its products stage x in f16;
+    ``:1237-1238``); gf4's runs as it does."""
     if cfg.n_experts or cfg.norm_par or not ROTATED_DECODE or _split(plan):
         return False
     if w.layers.wq.fmt == "gf4":
         return gf4_offn_supported(B, _shapes(cfg, w))
-    return qx_offn_supported(w.layers.wq.fmt, B, _shapes(cfg, w))
+    return not precise and qx_offn_supported(w.layers.wq.fmt, B, _shapes(cfg, w))
 
 
 def _offn(cfg: ModelConfig, w: Weights, B: int, plan: ShardingPlan = NO_SHARDING) -> bool:
@@ -545,9 +559,11 @@ def _moe_sweep(cfg: ModelConfig, lw: LayerWeights, layer: int, xb2, wts, idx,
     routed to with its gate weights; dead slots come back as zeros. Under
     ep a rank sweeps its resident experts only: a slot of another rank's
     expert re-reads a local one and weighs 0 (``:800-808``). The FFN of
-    the slots is one ``gf4_moe_ffn`` (gf4), one ``qmm_moe_ffn`` (fp16/fp8
-    at 2-16 rows of whole steps: the multi-row path), or three
-    ``qmm_moe_dense`` and the activation (one row, other shapes)."""
+    the slots is one ``gf4_moe_ffn`` (gf4), one ``qmm_moe_ffn`` (fp16/fp8/
+    fp8e4 at 2-16 rows of whole steps: the multi-row path), or three
+    ``qmm_moe_dense`` and the activation (one row, other shapes); fp8e4
+    hands each product its (E, 1) scales of the layer, which the kernels
+    index by the slot's expert id on the device."""
     uniq, cnt = expert_slots(idx, cfg.n_experts)
     off, e_local = _local_experts(lw, plan, mesh)
     live = torch.arange(uniq.shape[0], device=uniq.device) < cnt
@@ -565,13 +581,13 @@ def _moe_sweep(cfg: ModelConfig, lw: LayerWeights, layer: int, xb2, wts, idx,
     elif moe_multirow_supported(fmt, xb2.shape[0], lw.w1.data.shape[-1],
                                 lw.w2.data.shape[-1]):
         z = qmm_moe_ffn(xb2, lw.w1.data, lw.w3.data, lw.w2.data, lid, cnt, fmt, layer,
-                        cfg.act_gelu)
+                        cfg.act_gelu, (lw.w1.scale, lw.w3.scale, lw.w2.scale))
     else:
         xf = xb2[None]
-        h = (act(qmm_moe_dense(xf, lw.w1.data, lid, cnt, lw.w1.fmt, layer),
+        h = (act(qmm_moe_dense(xf, lw.w1.data, lid, cnt, fmt, layer, lw.w1.scale),
                  cfg.act_gelu)
-             * qmm_moe_dense(xf, lw.w3.data, lid, cnt, lw.w3.fmt, layer))
-        z = qmm_moe_dense(h, lw.w2.data, lid, cnt, lw.w2.fmt, layer)  # (A, R, D)
+             * qmm_moe_dense(xf, lw.w3.data, lid, cnt, fmt, layer, lw.w3.scale))
+        z = qmm_moe_dense(h, lw.w2.data, lid, cnt, fmt, layer, lw.w2.scale)  # (A, R, D)
     wmat = ((wts[:, :, None] * (idx[:, :, None] == uniq)).sum(1)
             * local)                                                # (R, A)
     return torch.einsum("ra,ard->rd", wmat, z)
@@ -613,11 +629,11 @@ def _moe_ffn(cfg: ModelConfig, lw: LayerWeights, layer: int, xb2,
              plan: ShardingPlan = NO_SHARDING, mesh=None):
     """Top-k routed MoE FFN on xb2 (R, D) (``calm_tpu/model.py:731-857``):
     the gate matvec (replicated), routing, then the expert sweep at <= 16
-    rows or the grouped products above, over this rank's experts. fp8e4
-    experts take the grouped path with their per-expert scales (CPU only).
-    Returns the rank's partial sum; the caller closes it over ep and tp."""
+    rows or the grouped products above, over this rank's experts, fp8e4
+    experts with their per-expert scales. Returns the rank's partial sum;
+    the caller closes it over ep and tp."""
     wts, idx = route(cfg, _mm(xb2, lw.moegate, layer))
-    if xb2.shape[0] <= MAX_ROWS and lw.w1.fmt in ("fp8", "fp16", "gf4"):
+    if xb2.shape[0] <= MAX_ROWS:
         return _moe_sweep(cfg, lw, layer, xb2, wts, idx, plan, mesh)
     return _moe_grouped(cfg, lw, layer, xb2, wts, idx, plan, mesh)
 
@@ -797,7 +813,7 @@ def _run_layers(cfg: ModelConfig, w: Weights, x, cache: KVCache, st: _Step):
     layer's epilogue into the next, primed with layer 0's projections."""
     lw = w.layers
     B = x.shape[0]
-    mode = ("qkv" if _fused(cfg, w, B, st.plan)
+    mode = ("qkv" if _fused(cfg, w, B, st.plan, _qmm._PRECISE)
             else "offn" if _offn(cfg, w, B, st.plan) else None)
     qkv = None
     if mode == "qkv":
@@ -875,10 +891,10 @@ def step_graph(cfg: ModelConfig, w: Weights, cache: KVCache, B: int, rolling: bo
     """The captured step of B slots on ``cache`` (a dense cache, or a page
     pool with the table ``pt``, a buffer the caller updates in place),
     captured at first use and kept on the cache, keyed by the weights
-    (held by the graph), B, ``rolling``, ROTATED_DECODE, sampled or greedy
-    and dense or paged. Call :meth:`StepGraph.load` before the first
-    replay: the capture starts from the static inputs."""
-    key = (id(w), B, rolling, ROTATED_DECODE, sampled, pt is not None)
+    (held by the graph), B, ``rolling``, ROTATED_DECODE, the precise mode,
+    sampled or greedy and dense or paged. Call :meth:`StepGraph.load`
+    before the first replay: the capture starts from the static inputs."""
+    key = (id(w), B, rolling, ROTATED_DECODE, _qmm._PRECISE, sampled, pt is not None)
     g = cache.graphs.get(key)
     if g is not None:
         if any(a is not b for a, b in zip(g.keep, (w, cache.k, cache.v))) or g.pt is not pt:

@@ -2,13 +2,17 @@
 
 - :func:`qmm_decode` replaces ``_layered_qmm_kernel``
   (``calm_tpu/ops/pallas_qmm.py:92``): y = x . dequant(W[layer])^T for
-  fp8/fp16 (``csrc/qmm.cu``); gf4 goes to :func:`qmm_decode_gf4`. From 2
-  rows of x it takes the multi-row path on the tensor cores, tiled by
-  :func:`qmv_plan`, x staged as scaled f16 hi + lo (:func:`split_operand`
-  writes the staging out in PyTorch).
+  fp8/fp16 (``csrc/qmm.cu``), and for fp8e4, which JAX runs through XLA
+  (``calm_tpu/ops/qmm.py:179-205``), times its scale; gf4 goes to
+  :func:`qmm_decode_gf4`. From 2 rows of x it takes the multi-row path on
+  the tensor cores, tiled by :func:`qmv_plan`, x staged as scaled f16 hi +
+  lo (:func:`split_operand` writes the staging out in PyTorch); under the
+  quality mode the one-row loop on a grid axis over rows
+  (:func:`decode_path`).
 - :func:`qmm_decode_gf4` replaces ``_layered_gf4_kernel`` (``:100``): the
   same matvec on natural gf4 words, B <= 16: one row in ``csrc/gf4.cu``,
-  from 2 rows on the multi-row path (``csrc/qmm.cu``).
+  from 2 rows on the multi-row path (``csrc/qmm.cu``), or in the quality
+  mode ``csrc/gf4.cu``'s loop on a grid axis over rows.
 - :func:`qmm_prefill` replaces ``_gf4_mm_kernel`` (``:238``): the gf4
   product for R >= 32 rows (``csrc/gf4.cu``), eligibility as
   ``mm_supported`` (``:275-283``); x enters as bf16, rounded once by
@@ -42,10 +46,16 @@
   ``csrc/moe.cu``, from 2 rows on the multi-row path (``csrc/qmm.cu``,
   an expert-slot axis, tiled by :func:`qmv_plan` with ``slots``), where
   :func:`moe_multirow_supported` takes the shape, else ``csrc/moe.cu``.
-- :func:`qmm_moe_ffn`: the same kernels' three fp16/fp8 products of the
-  expert FFN and their activation (``calm_tpu/model.py:810-816``) at
+- :func:`qmm_moe_ffn`: the same kernels' three fp16/fp8/fp8e4 products of
+  the expert FFN and their activation (``calm_tpu/model.py:810-816``) at
   2-16 rows, as two products on the multi-row path (``csrc/qmm.cu``: x
   staged, the dual w1/w3 launch, h staged a slot at a time, w2).
+
+fp8e4 weights carry their scale as a device tensor, (L, 1) beside a
+stack, (L, E, 1) beside an expert stack: the wrappers pass the address
+of the layer's entry (:func:`_scale_ptr`) and the kernels read it there,
+plus the slot's expert id, so no scale comes to the host and a captured
+step replays them; each product's sum is scaled before any activation.
 - :func:`gf4_moe_ffn` replaces ``_gf4_moe_ffn_kernel`` (``:1361``): each
   slot's whole expert FFN on natural gf4 words, where the TPU kernel
   reads plane-major w1/w3: one row in ``csrc/moe.cu``, from 2 rows the
@@ -57,7 +67,8 @@ its launches in ``.launches`` (:func:`qmm_decode`, :func:`qmm_decode_gf4`,
 :func:`qx_offn_qkv`, :func:`gf4_offn_qkv`, :func:`gf4_ffn`,
 :func:`gf4_offn`, :func:`qmm_moe_dense`, :func:`qmm_moe_ffn` and
 :func:`gf4_moe_ffn` those of the multi-row path also in
-``.multirow_launches``).
+``.multirow_launches``; :func:`qmm_decode` and :func:`qmm_decode_gf4`
+those of the quality mode's rows axis in ``.rows_launches``).
 """
 
 from __future__ import annotations
@@ -73,8 +84,9 @@ from calm_tpu_torch.ops import build
 from calm_tpu_torch.ops.norms import rmsnorm
 from calm_tpu_torch.ops.qmm import STORAGE, QTensor, dequant
 
-_FMT_CODE = {"fp16": 0, "fp8": 1}  # qmm_decode, qx_offn_qkv
-_OFFN_CODE = dict(_FMT_CODE, gf4=2)  # csrc/qmm.cu's epilogue, csrc/moe.cu
+_FMT_CODE = {"fp16": 0, "fp8": 1, "fp8e4": 3}  # qmm_decode, qmm_moe_ffn
+_OFFN_CODE = dict(_FMT_CODE, gf4=2)  # csrc/qmm.cu's products, csrc/moe.cu
+_EPILOGUE_FMTS = ("fp16", "fp8")  # qx_offn_qkv: fp8e4 decodes per op, as in JAX
 MAX_ROWS = 16
 MIN_MM_ROWS = 32  # qmm_prefill's least row count (pallas_qmm.mm_supported)
 MAX_NORM_DIM = 16384  # norm_kernel: 1024 threads x 4 float4 in registers
@@ -125,6 +137,38 @@ def _plane(w: torch.Tensor, layer) -> torch.Tensor:
     _check(layer is not None and 0 <= int(layer) < w.shape[0],
            f"layer {layer} out of range for a stack of {w.shape[0]}")
     return w[int(layer)]
+
+
+def _scale_ptr(fmt: str, scale, w: torch.Tensor, layer, x: torch.Tensor,
+               experts: bool = False) -> int | None:
+    """The device address of the fp8e4 scale of plane ``layer`` of w:
+    scale (L, 1) beside a stack w (L, d, n), (1,) beside one plane (d, n),
+    (L, E, 1) beside an expert stack (L, E, d, n), where the kernel adds
+    the expert id of its slot. The value stays on the device (the kernel
+    reads it; a captured step replays it); other formats take none."""
+    if fmt != "fp8e4":
+        _check(scale is None, f"{fmt} weights take no scale")
+        return None
+    _check(scale is not None, "fp8e4 weights need their scale")
+    _check(scale.dtype == torch.float32 and scale.is_contiguous()
+           and scale.device == x.device, "the fp8e4 scale must be contiguous float32 "
+           "on the activations' device")
+    lead = tuple(w.shape[:-2])
+    _check(tuple(scale.shape) == (lead + (1,) if lead else (1,)),
+           f"the fp8e4 scale of a weight {tuple(w.shape)} must be "
+           f"{lead + (1,) if lead else (1,)}, got {tuple(scale.shape)}")
+    if w.ndim == (3 if experts else 2):
+        return scale.data_ptr()
+    return scale.data_ptr() + int(layer) * scale.stride(0) * 4
+
+
+def _scaled(y: torch.Tensor, scale, layer) -> torch.Tensor:
+    """A plain product times plane ``layer``'s fp8e4 scale (a stack's (L,
+    1) or one plane's (1,)), as ``calm_tpu/ops/qmm.py:185-205`` scales the
+    output; y as it is without one."""
+    if scale is None:
+        return y
+    return y * (scale if scale.ndim == 1 else scale[int(layer)]).to(y.device)
 
 
 # ---------------------------------------------------------------------------
@@ -354,43 +398,60 @@ def _staging(words: int, floats: int, dev) -> tuple[torch.Tensor, int, int]:
 # ---------------------------------------------------------------------------
 
 
+def decode_path(B: int, precise: bool = False) -> str:
+    """Which kernel loop a decode product of B rows takes on the card:
+    "one-row" (``qmv_kernel``, ``gf4_mv_kernel``: f32 operands and sums)
+    at B = 1; from 2 rows "multi-row" (``mmv_kernel`` on the tensor cores,
+    x staged as f16 hi + lo), or under ``precise`` "rows": the one-row
+    loop on a grid axis over rows, f32 throughout, each row rereading the
+    weights (the quality mode's price)."""
+    _check(1 <= B <= MAX_ROWS, f"the decode kernels take 1..{MAX_ROWS} rows, not {B}")
+    return "one-row" if B == 1 else "rows" if precise else "multi-row"
+
+
 def qmm_decode_plain(x: torch.Tensor, w: torch.Tensor, fmt: str,
-                     layer=None) -> torch.Tensor:
+                     layer=None, scale=None) -> torch.Tensor:
     wf = dequant(QTensor(_plane(w, layer), fmt), torch.float32)
-    return x.float() @ wf.T
+    return _scaled(x.float() @ wf.T, scale, layer)
 
 
 def qmm_decode(x: torch.Tensor, w: torch.Tensor, fmt: str,
-               layer=None) -> torch.Tensor:
+               layer=None, scale=None, precise: bool = False) -> torch.Tensor:
     """x (B, n) f32 @ W[layer]^T for W (L, d, n) (or (d, n)) in storage
-    dtype, (L, d, n/8) int32 words for gf4 -> (B, d) f32."""
+    dtype, (L, d, n/8) int32 words for gf4 -> (B, d) f32; fp8e4 times its
+    scale (L, 1) (or (1,)), read by the kernel on the device. The path by
+    :func:`decode_path`; the rows path counts in ``.rows_launches``."""
     if fmt == "gf4":
-        return qmm_decode_gf4(x, w, layer)
+        return qmm_decode_gf4(x, w, layer, precise)
     if x.device.type == "cpu":
-        return qmm_decode_plain(x, w, fmt, layer)
+        return qmm_decode_plain(x, w, fmt, layer, scale)
     wl = _plane(w, layer)
     _check_cuda(fmt, x, [wl])
+    _check(fmt in _FMT_CODE, f"qmm_decode takes fp16/fp8/fp8e4 weights, not {fmt!r}")
+    sp = _scale_ptr(fmt, scale, w, layer, x)
     B, n = x.shape
     d = wl.shape[0]
     _check(wl.shape[1] == n, f"x has {n} columns, W has {wl.shape[1]}")
-    _check(1 <= B <= MAX_ROWS, f"the decode kernel takes 1..{MAX_ROWS} rows")
+    path = decode_path(B, precise)
     y = torch.empty((B, d), dtype=torch.float32, device=x.device)
     xs = sc = plan = None
-    if B >= 2:
+    if path == "multi-row":
         plans, words, floats = _launch_plans(B, (((d,), n, False),))
         buf, xs, sc = _staging(words, floats, x.device)  # buf: held past the launch
         plan = plans.ctypes.data
     rc = build.lib("qmm").calm_qmm_decode(
-        x.data_ptr(), wl.data_ptr(), y.data_ptr(), B, d, n, _FMT_CODE[fmt], xs, sc, plan,
+        x.data_ptr(), wl.data_ptr(), y.data_ptr(), B, d, n, _FMT_CODE[fmt], sp, xs, sc, plan,
         _stream(x))
     build.check("qmm", rc)
     qmm_decode.launches += 1
-    qmm_decode.multirow_launches += B >= 2
+    qmm_decode.multirow_launches += path == "multi-row"
+    qmm_decode.rows_launches += path == "rows"
     return y
 
 
 qmm_decode.launches = 0
 qmm_decode.multirow_launches = 0
+qmm_decode.rows_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -416,35 +477,39 @@ def qmm_decode_gf4_plain(x: torch.Tensor, w: torch.Tensor,
     return qmm_decode_plain(x, w, "gf4", layer)
 
 
-def qmm_decode_gf4(x: torch.Tensor, w: torch.Tensor, layer=None) -> torch.Tensor:
+def qmm_decode_gf4(x: torch.Tensor, w: torch.Tensor, layer=None,
+                   precise: bool = False) -> torch.Tensor:
     """x (B <= 16, n) f32 @ W[layer]^T for gf4 words W (L, d, n/8) (or
     (d, n/8)) -> (B, d) f32. One row takes ``csrc/gf4.cu``'s matvec; from 2
     rows x is staged and the multi-row kernel of ``csrc/qmm.cu`` (fmt 2)
-    reads each word once for every row."""
+    reads each word once for every row; under ``precise`` the matvec of
+    ``csrc/gf4.cu`` runs on a grid axis over rows (:func:`decode_path`)."""
     if x.device.type == "cpu":
         return qmm_decode_gf4_plain(x, w, layer)
     wl = _plane(w, layer)
     B, d, n8 = _check_gf4(x, wl)
-    _check(1 <= B <= MAX_ROWS, f"the decode kernel takes 1..{MAX_ROWS} rows")
+    path = decode_path(B, precise)
     y = torch.empty((B, d), dtype=torch.float32, device=x.device)
-    if B == 1:
-        rc = build.lib("gf4").calm_gf4_matvec(x.data_ptr(), wl.data_ptr(), y.data_ptr(), d,
-                                              n8, _stream(x))
-        build.check("gf4", rc)
-    else:
+    if path == "multi-row":
         plans, words, floats = _launch_plans(B, (((d,), 8 * n8, False),), True)
         buf, xs, sc = _staging(words, floats, x.device)  # buf: held past the launch
         rc = build.lib("qmm").calm_qmm_decode(
-            x.data_ptr(), wl.data_ptr(), y.data_ptr(), B, d, 8 * n8, _OFFN_CODE["gf4"], xs,
-            sc, plans.ctypes.data, _stream(x))
+            x.data_ptr(), wl.data_ptr(), y.data_ptr(), B, d, 8 * n8, _OFFN_CODE["gf4"], None,
+            xs, sc, plans.ctypes.data, _stream(x))
         build.check("qmm", rc)
+    else:
+        rc = build.lib("gf4").calm_gf4_matvec(x.data_ptr(), wl.data_ptr(), y.data_ptr(), B,
+                                              d, n8, _stream(x))
+        build.check("gf4", rc)
     qmm_decode_gf4.launches += 1
-    qmm_decode_gf4.multirow_launches += B >= 2
+    qmm_decode_gf4.multirow_launches += path == "multi-row"
+    qmm_decode_gf4.rows_launches += path == "rows"
     return y
 
 
 qmm_decode_gf4.launches = 0
 qmm_decode_gf4.multirow_launches = 0
+qmm_decode_gf4.rows_launches = 0
 
 
 def mm_supported(rows: int, wdata: torch.Tensor, fmt: str) -> bool:
@@ -616,7 +681,7 @@ def qx_offn_qkv(a, r, g, anx, wo, w1, w3, w2, wq, wk, wv, layer, fmt: str,
     if a.device.type == "cpu":
         return qx_offn_qkv_plain(a, r, g, anx, wo, w1, w3, w2, wq, wk, wv,
                                  layer, fmt, act_gelu, eps, sub_mean)
-    _check(fmt in _FMT_CODE, f"qx_offn_qkv takes fp8/fp16 weights, not {fmt!r}")
+    _check(fmt in _EPILOGUE_FMTS, f"qx_offn_qkv takes fp8/fp16 weights, not {fmt!r}")
     out = _offn_qkv(a, r, g, anx, wo, w1, w3, w2, wq, wk, wv, layer, fmt,
                     act_gelu, eps, sub_mean)
     qx_offn_qkv.launches += 1
@@ -787,11 +852,14 @@ gf4_offn.multirow_launches = 0
 
 
 def qmm_moe_dense_plain(x: torch.Tensor, wstack: torch.Tensor, eidx: torch.Tensor,
-                        cnt: torch.Tensor, fmt: str, layer=None) -> torch.Tensor:
+                        cnt: torch.Tensor, fmt: str, layer=None, scale=None) -> torch.Tensor:
     A = eidx.shape[0]
-    planes = _plane(wstack, layer).index_select(0, eidx.to(wstack.device).long())
+    ids = eidx.to(wstack.device).long()
+    planes = _plane(wstack, layer).index_select(0, ids)
     wf = dequant(QTensor(planes, fmt), torch.float32)  # (A, d, n)
     y = torch.einsum("abn,adn->abd", x.float().expand(A, -1, -1), wf)
+    if scale is not None:  # each slot's expert's scale, (E, 1) of the layer
+        y = y * _plane(scale, layer).index_select(0, ids)[:, None, :].to(y.device)
     live = torch.arange(A, device=y.device) < cnt.to(y.device).reshape(())
     return torch.where(live[:, None, None], y, 0.0)
 
@@ -822,9 +890,10 @@ def _check_stack(x: torch.Tensor, w: torch.Tensor, fmt: str, layer) -> int:
 
 def moe_multirow_supported(fmt: str, B: int, *ns: int) -> bool:
     """Whether the multi-row path takes the MoE sweep of B rows whose
-    products contract ``ns``: 2..16 rows and whole 16-value steps (gf4:
-    whole words, a row may end half-way through a lane's 16 values). Other
-    shapes take ``csrc/moe.cu``'s loops, as one row does."""
+    products contract ``ns``: 2..16 rows and whole 16-value steps (fp16,
+    fp8, fp8e4; gf4: whole words, a row may end half-way through a lane's
+    16 values). Other shapes take ``csrc/moe.cu``'s loops, as one row does
+    (fp8e4 there at one row only)."""
     step = 8 if fmt == "gf4" else 16
     return (fmt in _OFFN_CODE and 2 <= B <= MAX_ROWS
             and all(n >= step and n % step == 0 for n in ns))
@@ -843,18 +912,21 @@ def _moe_plans(B: int, A: int, launches: tuple, gf4: bool) -> tuple[np.ndarray, 
 
 
 def qmm_moe_dense(x: torch.Tensor, wstack: torch.Tensor, eidx: torch.Tensor,
-                  cnt: torch.Tensor, fmt: str, layer=None) -> torch.Tensor:
+                  cnt: torch.Tensor, fmt: str, layer=None, scale=None) -> torch.Tensor:
     """The expert sweep: Y[a] = x[min(a, Ax - 1)] @ W[layer, eidx[a]]^T for
-    x (Ax, B <= 16, n) f32 with Ax in {1, A}, W (L, E, d, n) fp16/fp8 or
-    (L, E, d, n/8) gf4 words, eidx (A,) int32 and cnt (1,) int32 on the
-    device -> (A, B, d) f32; slots a >= cnt give zeros. One row, or a shape
-    :func:`moe_multirow_supported` declines, takes ``csrc/moe.cu``; 2-16
-    rows the multi-row path (x staged once, or once a slot for Ax = A)."""
+    x (Ax, B <= 16, n) f32 with Ax in {1, A}, W (L, E, d, n) fp16/fp8/fp8e4
+    or (L, E, d, n/8) gf4 words, eidx (A,) int32 and cnt (1,) int32 on the
+    device -> (A, B, d) f32; fp8e4 times scale[layer, eidx[a]] of its
+    (L, E, 1) scale, which the kernel reads beside the id; slots a >= cnt
+    give zeros. One row, or a shape :func:`moe_multirow_supported` declines,
+    takes ``csrc/moe.cu`` (fp8e4 at one row only); 2-16 rows the multi-row
+    path (x staged once, or once a slot for Ax = A)."""
     if x.device.type == "cpu":
-        return qmm_moe_dense_plain(x, wstack, eidx, cnt, fmt, layer)
+        return qmm_moe_dense_plain(x, wstack, eidx, cnt, fmt, layer, scale)
     _check(fmt in _OFFN_CODE, f"no CUDA kernel for weight format {fmt!r}")
     l = _check_stack(x, wstack, fmt, layer)
     _check_slots(x, eidx, cnt)
+    sp = _scale_ptr(fmt, scale, wstack, l, x, experts=True)
     Ax, B, n = x.shape
     A = eidx.shape[0]
     _check(Ax in (1, A) and 1 <= B <= MAX_ROWS,
@@ -862,18 +934,21 @@ def qmm_moe_dense(x: torch.Tensor, wstack: torch.Tensor, eidx: torch.Tensor,
     d, E = wstack.shape[2], wstack.shape[1]
     y = torch.empty((A, B, d), dtype=torch.float32, device=x.device)
     multirow = moe_multirow_supported(fmt, B, n)
+    _check(multirow or B == 1 or fmt != "fp8e4",
+           f"fp8e4 expert rows of {n} values take one row, or 2..{MAX_ROWS} of whole "
+           "16-value steps")
     if multirow:
         plans, words, floats = _moe_plans(B, A, ((d, n, False, Ax),), fmt == "gf4")
         buf, xs, sc = _staging(words, floats, x.device)  # buf: held past the launch
         rc = build.lib("qmm").calm_moe_mmv(
             x.data_ptr(), _plane_ptr(wstack, l), y.data_ptr(), eidx.data_ptr(),
-            cnt.data_ptr(), Ax, A, B, d, n, E, _OFFN_CODE[fmt], xs, sc, plans.ctypes.data,
-            _stream(x))
+            cnt.data_ptr(), Ax, A, B, d, n, E, _OFFN_CODE[fmt], sp, xs, sc,
+            plans.ctypes.data, _stream(x))
         build.check("qmm", rc)
     else:
         rc = build.lib("moe").calm_moe_dense(
             x.data_ptr(), _plane_ptr(wstack, l), y.data_ptr(), eidx.data_ptr(),
-            cnt.data_ptr(), Ax, A, B, d, n, E, _OFFN_CODE[fmt], _stream(x))
+            cnt.data_ptr(), Ax, A, B, d, n, E, _OFFN_CODE[fmt], sp, _stream(x))
         build.check("moe", rc)
     qmm_moe_dense.launches += 1
     qmm_moe_dense.multirow_launches += multirow
@@ -903,16 +978,19 @@ def _check_moe_ffn(x, w1, w3, w2, eidx, cnt, fmt: str, layer) -> tuple[int, int,
     return l, B, D, H, E
 
 
-def _moe_ffn_mr(x, w1, w3, w2, eidx, cnt, fmt: str, act_gelu: bool, dims) -> torch.Tensor:
+def _moe_ffn_mr(x, w1, w3, w2, eidx, cnt, fmt: str, act_gelu: bool, dims,
+                scales=(None, None, None)) -> torch.Tensor:
     """The expert FFN on the multi-row path (``calm_moe_ffn``): x staged
     once, the dual w1/w3 launch of every slot into h (A, B, H), h staged a
     slot at a time, the w2 launch into z (A, B, D). dims: what
-    :func:`_check_moe_ffn` returns."""
+    :func:`_check_moe_ffn` returns; scales: the fp8e4 (L, E, 1) scales of
+    w1, w3 and w2 (the dual launch scales each sum before the activation)."""
     l, B, D, H, E = dims
     A = eidx.shape[0]
     _check(moe_multirow_supported(fmt, B, D, H),
            f"the multi-row expert FFN takes 2..{MAX_ROWS} rows of whole steps, not "
            f"B={B}, D={D}, H={H}")
+    sp = [_scale_ptr(fmt, s, w, l, x, experts=True) for s, w in zip(scales, (w1, w3, w2))]
     h = torch.empty((A, B, H), dtype=torch.float32, device=x.device)
     z = torch.empty((A, B, D), dtype=torch.float32, device=x.device)
     plans, words, floats = _moe_plans(B, A, ((H, D, True, 1), (D, H, False, A)), fmt == "gf4")
@@ -920,38 +998,43 @@ def _moe_ffn_mr(x, w1, w3, w2, eidx, cnt, fmt: str, act_gelu: bool, dims) -> tor
     rc = build.lib("qmm").calm_moe_ffn(
         x.data_ptr(), _plane_ptr(w1, l), _plane_ptr(w3, l), _plane_ptr(w2, l),
         eidx.data_ptr(), cnt.data_ptr(), h.data_ptr(), z.data_ptr(), A, B, D, H, E,
-        _OFFN_CODE[fmt], int(act_gelu), xs, sc, plans.ctypes.data, _stream(x))
+        _OFFN_CODE[fmt], int(act_gelu), *sp, xs, sc, plans.ctypes.data, _stream(x))
     build.check("qmm", rc)
     return z
 
 
-def qmm_moe_ffn_plain(x, w1, w3, w2, eidx, cnt, fmt: str, layer, act_gelu: bool):
+def qmm_moe_ffn_plain(x, w1, w3, w2, eidx, cnt, fmt: str, layer, act_gelu: bool,
+                      scales=(None, None, None)):
     """Three plain sweeps and the activation, as ``_moe_sweep`` composed
-    them (``calm_tpu/model.py:810-816``)."""
+    them (``calm_tpu/model.py:810-816``): each product scaled before the
+    activation sees it."""
     x1 = x.float()[None]
-    h = (act(qmm_moe_dense_plain(x1, w1, eidx, cnt, fmt, layer), act_gelu)
-         * qmm_moe_dense_plain(x1, w3, eidx, cnt, fmt, layer))
-    return qmm_moe_dense_plain(h, w2, eidx, cnt, fmt, layer)
+    s1, s3, s2 = scales
+    h = (act(qmm_moe_dense_plain(x1, w1, eidx, cnt, fmt, layer, s1), act_gelu)
+         * qmm_moe_dense_plain(x1, w3, eidx, cnt, fmt, layer, s3))
+    return qmm_moe_dense_plain(h, w2, eidx, cnt, fmt, layer, s2)
 
 
 def qmm_moe_ffn(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor, w2: torch.Tensor,
                 eidx: torch.Tensor, cnt: torch.Tensor, fmt: str, layer,
-                act_gelu: bool) -> torch.Tensor:
-    """The whole fp16/fp8 expert FFN of each slot at 2-16 rows: x (B, D)
-    f32, w1/w3 (L, E, H, D), w2 (L, E, D, H) in storage dtype -> z (A, B, D)
-    f32 with z[a] = (act(x W1[l,e]^T) * (x W3[l,e]^T)) W2[l,e]^T, e =
-    eidx[a]; slots a >= cnt give zeros. Four launches of ``csrc/qmm.cu``
-    (x staged, the dual w1/w3 product, h staged, w2), h and the staging in
+                act_gelu: bool, scales=(None, None, None)) -> torch.Tensor:
+    """The whole fp16/fp8/fp8e4 expert FFN of each slot at 2-16 rows: x (B,
+    D) f32, w1/w3 (L, E, H, D), w2 (L, E, D, H) in storage dtype -> z (A, B,
+    D) f32 with z[a] = (act(s1 x W1[l,e]^T) * (s3 x W3[l,e]^T)) s2 W2[l,e]^T,
+    e = eidx[a], the s the fp8e4 scales[l, e] of w1, w3 and w2 (``scales``,
+    each (L, E, 1); None for other formats), read by the kernels on the
+    device; slots a >= cnt give zeros. Four launches of ``csrc/qmm.cu`` (x
+    staged, the dual w1/w3 product, h staged, w2), h and the staging in
     buffers allocated here. One row, and shapes that
     :func:`moe_multirow_supported` declines, take three
     :func:`qmm_moe_dense` calls instead (the caller's choice); on the card
     this wrapper raises for them. Counts one launch a call in
     ``.launches`` and ``.multirow_launches``."""
     if x.device.type == "cpu":
-        return qmm_moe_ffn_plain(x, w1, w3, w2, eidx, cnt, fmt, layer, act_gelu)
-    _check(fmt in _FMT_CODE, f"qmm_moe_ffn takes fp16/fp8 weights, not {fmt!r}")
+        return qmm_moe_ffn_plain(x, w1, w3, w2, eidx, cnt, fmt, layer, act_gelu, scales)
+    _check(fmt in _FMT_CODE, f"qmm_moe_ffn takes fp16/fp8/fp8e4 weights, not {fmt!r}")
     z = _moe_ffn_mr(x, w1, w3, w2, eidx, cnt, fmt, act_gelu,
-                    _check_moe_ffn(x, w1, w3, w2, eidx, cnt, fmt, layer))
+                    _check_moe_ffn(x, w1, w3, w2, eidx, cnt, fmt, layer), scales)
     qmm_moe_ffn.launches += 1
     qmm_moe_ffn.multirow_launches += 1
     return z
@@ -1006,9 +1089,10 @@ def _offn_shapes_ok(B: int, shapes) -> bool:
 
 def qx_offn_supported(fmt: str, B: int, shapes) -> bool:
     """The fused epilogue's eligibility, as pallas_qmm.qx_offn_supported:
-    fp8/fp16, decode-sized batch, 128-aligned (D, H, Qd, KVd), and D
-    within the norm launch's row limit."""
-    return fmt in _FMT_CODE and _offn_shapes_ok(B, shapes)
+    fp8/fp16 (fp8e4 decodes per op, as JAX's ``calm_tpu/model.py:1231``),
+    decode-sized batch, 128-aligned (D, H, Qd, KVd), and D within the norm
+    launch's row limit."""
+    return fmt in _EPILOGUE_FMTS and _offn_shapes_ok(B, shapes)
 
 
 def gf4_offn_supported(B: int, shapes) -> bool:

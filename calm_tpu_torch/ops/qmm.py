@@ -12,6 +12,11 @@ Layer-stacked weights are (L, d, n_packed), as in ``calm_tpu.ops.qmm``.
 The functions here are the plain f32 reference path: the CPU runs them,
 and the Hopper kernels in ``hopper_qmm`` are held against them. One more,
 :func:`dense_matmul`, is the product of many rows outside any kernel.
+
+``_PRECISE`` is the process-wide quality mode of ``calm_tpu.ops.qmm``
+(``:110-129``): ``Engine(precise=)`` sets it, the CLI's ``--precise`` or
+``CALM_PRECISE=1`` asks for it. Under it every product that
+``model._mm`` routes takes f32 operands and f32 sums on the card too.
 """
 
 from __future__ import annotations
@@ -22,6 +27,19 @@ import torch
 
 STORAGE = {"fp16": torch.float16, "fp8": torch.float8_e5m2,
            "fp8e4": torch.float8_e4m3fn, "gf4": torch.int32}
+
+_PRECISE = False
+
+
+def enable_precise(on: bool = True) -> None:
+    """f32 operands and sums for every routed product on the card: the
+    2-16-row matvecs take the one-row loops on a grid axis over rows, and
+    products of more rows dequantize to f32 for a TF32-free ``torch.mm``,
+    where the default rounds x to bf16 or f16. Sticky for the process, as
+    JAX's flag; ``Engine`` sets it every time, so a later
+    ``Engine(precise=False)`` turns it off."""
+    global _PRECISE
+    _PRECISE = bool(on)
 
 
 @dataclasses.dataclass
@@ -90,18 +108,32 @@ def qmatmul(x: torch.Tensor, qt: QTensor, layer: int | None = None) -> torch.Ten
 
 def dense_matmul(x: torch.Tensor, qt: QTensor, layer: int | None = None) -> torch.Tensor:
     """x (R, n) f32 @ W[layer]^T -> (R, d) f32 for the products no kernel
-    takes (fp8/fp16 past 16 rows, gf4 at 17..31). On the card, the JAX fast
+    takes (fp8/fp16/fp8e4 past 16 rows, gf4 at 17..31, and under
+    ``_PRECISE`` every product past 16 rows). On the card, the JAX fast
     path (``calm_tpu/ops/qmm.py:189-205``): the plane dequantized to bf16
-    (exact for e5m2 and gf4, rounded for fp16), x rounded to bf16, one
-    library product with an f32 result. On the CPU: :func:`qmatmul`'s f32
-    product."""
+    (exact for e5m2, e4m3 and gf4, rounded for fp16), x rounded to bf16,
+    one library product with an f32 result; under ``_PRECISE`` the plane
+    in f32 and an f32 product with TF32 off (``:190-197``). The fp8e4
+    scale multiplies the product on the device. On the CPU:
+    :func:`qmatmul`'s f32 product."""
     if x.device.type == "cpu":
         return qmatmul(x, qt, layer)
-    if qt.scale is not None:
-        raise NotImplementedError(f"no CUDA path for {qt.fmt} weights yet")
-    w = QTensor(qt.data if layer is None else qt.data[layer], qt.fmt)
-    return torch.mm(x.to(torch.bfloat16), dequant(w, torch.bfloat16).T,
-                    out_dtype=torch.float32)
+    data, scale = qt.data, qt.scale
+    if layer is not None:
+        data = data[layer]
+        scale = None if scale is None else scale[layer]
+    w = QTensor(data, qt.fmt)
+    if _PRECISE:
+        was = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            out = torch.mm(x.float(), dequant(w, torch.float32).T)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = was
+    else:
+        out = torch.mm(x.to(torch.bfloat16), dequant(w, torch.bfloat16).T,
+                       out_dtype=torch.float32)
+    return out if scale is None else out * scale
 
 
 def embed_lookup(tokens: torch.Tensor, qt: QTensor,

@@ -3,7 +3,12 @@
 The container-level quantization math of ``calm_tpu.quant`` without
 ``ml_dtypes``: fp8 rounding goes through torch's own ``float8_e5m2`` /
 ``float8_e4m3fn`` casts (round-to-nearest-even from float32, like
-ml_dtypes), and fp8 codes travel as ``uint8`` numpy arrays.
+ml_dtypes), and fp8 codes travel as ``uint8`` numpy arrays. Where the two
+casts part (NaN for e5m2, overflow for e4m3fn) the bytes are pinned to
+ml_dtypes'.
+
+fp8e4 is e4m3fn with a power-of-two per-tensor scale (one per (layer,
+expert) for MoE stacks in the container): :func:`fp8e4_quantize`.
 
 gf4 ("group float 4"): 8 consecutive values share one u32 word:
 
@@ -46,6 +51,35 @@ def fp8_dequantize(t: np.ndarray) -> np.ndarray:
     return _from_fp8_bytes(t, torch.float8_e5m2)
 
 
+def fp8e4_quantize_tensor(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`fp8e4_quantize` on a tensor where it lies (the card, for
+    weights made there): codes as ``float8_e4m3fn`` and the scale as a
+    (1,) float32 tensor on t's device. The scale is 2^ceil(log2(amax /
+    448)), or 1 when amax is 0 (or NaN), computed on the host from amax as
+    ``calm_tpu/quant.py:51-54`` computes it, so max |t / s| <= 448 for
+    finite t. torch's cast saturates to +-448 where ml_dtypes writes NaN
+    (|t / s| > 464, inf): those bytes are pinned to NaN, sign kept."""
+    t = t.float()
+    amax = t.abs().max().item() if t.numel() else 0.0
+    s = float(2.0 ** np.ceil(np.log2(amax / 448.0))) if amax > 0 else 1.0
+    v = t / s
+    codes = v.to(torch.float8_e4m3fn).view(torch.uint8)
+    nan = torch.where(torch.signbit(v), 0xFF, 0x7F).to(torch.uint8)
+    codes = torch.where(v.abs() > 464.0, nan, codes)
+    return (codes.view(torch.float8_e4m3fn),
+            torch.full((1,), s, dtype=torch.float32, device=t.device))
+
+
+def fp8e4_quantize(t: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Round to fp8 e4m3fn with a power-of-two per-tensor scale: returns
+    (code bytes (uint8), scale (1,) float32), bit for bit as
+    ``calm_tpu.quant.fp8e4_quantize`` (the scale makes the dequantization
+    codes x scale exact)."""
+    codes, scale = fp8e4_quantize_tensor(
+        torch.from_numpy(np.ascontiguousarray(t, dtype=np.float32)))
+    return codes.view(torch.uint8).numpy(), scale.numpy()
+
+
 def fp8e4_dequantize(t: np.ndarray, scale: np.ndarray) -> np.ndarray:
     return _from_fp8_bytes(t, torch.float8_e4m3fn) * np.float32(scale.reshape(()))
 
@@ -83,7 +117,8 @@ def gf4_dequantize(words: np.ndarray) -> np.ndarray:
 
 
 def quantize(t: np.ndarray, dtype: str) -> np.ndarray:
-    """Quantize a float tensor for the container; dtype in {fp16, fp8, gf4}."""
+    """Quantize a float tensor for the container; dtype in {fp16, fp8, gf4}
+    (fp8e4 carries a side scale: :func:`quantize_scaled`)."""
     if dtype == "fp16":
         return np.asarray(t, dtype=np.float32).astype(np.float16)
     if dtype == "fp8":
@@ -91,6 +126,14 @@ def quantize(t: np.ndarray, dtype: str) -> np.ndarray:
     if dtype == "gf4":
         return gf4_quantize(t)
     raise ValueError(f"unknown weight dtype {dtype!r}")
+
+
+def quantize_scaled(t: np.ndarray, dtype: str):
+    """(codes, scale or None) in any of the four container formats; the
+    scale is (1,) float32 for fp8e4."""
+    if dtype == "fp8e4":
+        return fp8e4_quantize(t)
+    return quantize(t, dtype), None
 
 
 def dequantize(t: np.ndarray, dtype: str, scale=None) -> np.ndarray:
@@ -103,3 +146,7 @@ def dequantize(t: np.ndarray, dtype: str, scale=None) -> np.ndarray:
     if dtype == "gf4":
         return gf4_dequantize(t)
     raise ValueError(f"unknown weight dtype {dtype!r}")
+
+
+def dtype_bits(dtype: str) -> int:
+    return {"fp16": 16, "fp8": 8, "fp8e4": 8, "gf4": 4}[dtype]

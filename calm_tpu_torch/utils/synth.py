@@ -13,7 +13,12 @@ The pattern repeats every 256 values in its low byte, so in an fp8 matrix
 whose rows are a multiple of 256 wide every row holds the same bytes and
 every logit comes out equal. Checks of correctness therefore ask for
 ``random=True``: the same masks over bits drawn from a seeded
-``torch.Generator`` on the device.
+``torch.Generator`` on the device. fp8e4 under ``random=True`` is what
+the converter writes instead: each plane (each (layer, expert) of a MoE
+stack) seeded normal floats of a spread that differs from plane to plane,
+quantized by ``quant.fp8e4_quantize_tensor``, so its power-of-two scales
+are real and differ by layer and expert (the pattern keeps unit scales,
+as ``calm_tpu.utils.synth``'s).
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ from calm_tpu_torch.config import ModelConfig
 from calm_tpu_torch.container import write_tensors
 from calm_tpu_torch.model import LayerWeights, Weights
 from calm_tpu_torch.ops.qmm import QTensor
+from calm_tpu_torch.quant import fp8e4_quantize_tensor
 
 _SLAB = 1 << 26  # elements generated per pass (bounds the int64 temporaries)
 
@@ -65,6 +71,20 @@ def _fill(shape, fmt: str, seed: int, device,
     return out.reshape(shape)
 
 
+def _fp8e4_planes(shape, k: int, device, gen: torch.Generator) -> QTensor:
+    """An fp8e4 stack of ``shape`` (lead dims, then one plane): plane i
+    normal floats of spread 0.02 x 2^((k + i) % 6 - 3), quantized plane by
+    plane, its scale (lead..., 1)."""
+    lead = tuple(shape[:-2])
+    data = torch.empty(shape, dtype=torch.float8_e4m3fn, device=device)
+    scale = torch.empty(lead + (1,), dtype=torch.float32, device=device)
+    planes, scales = data.reshape(-1, *shape[-2:]), scale.reshape(-1, 1)
+    for i in range(planes.shape[0]):
+        f = torch.randn(tuple(shape[-2:]), generator=gen, device=device)
+        planes[i], scales[i] = fp8e4_quantize_tensor(f * (0.02 * 2.0 ** ((k + i) % 6 - 3)))
+    return QTensor(data, "fp8e4", scale if lead else scale.reshape(1))
+
+
 def synth_weights(cfg: ModelConfig, seed: int = 0, device="cpu",
                   random: bool = False) -> Weights:
     """Device-resident pattern weights in the container layouts (untied
@@ -86,6 +106,8 @@ def synth_weights(cfg: ModelConfig, seed: int = 0, device="cpu",
         return k[0]
 
     def qt(*shape):
+        if fmt == "fp8e4" and random:
+            return _fp8e4_planes(shape, nxt(), device, gen)
         scale = (torch.ones(tuple(shape[:-2]) + (1,), device=device)
                  if fmt == "fp8e4" else None)
         return QTensor(_fill(shape, fmt, nxt(), device, gen), fmt, scale)
@@ -154,24 +176,32 @@ def synth_container(path: str, cfg: ModelConfig, seed: int = 0,
     ``cfg`` (with bos 1 / eos 2 and a byte vocab) as a .calm container:
     with ``tied`` no ``model.output.weight`` (the lm-head is the
     embedding), and for a parallel-norm (Cohere) model no
-    ``mlp.norm.weight``, as ``tests/modelgen.py`` writes them."""
+    ``mlp.norm.weight``, as ``tests/modelgen.py`` writes them; fp8e4 with
+    each tensor's ``.scale`` beside it ((1,), or (E, 1) for an expert
+    stack), as the converter writes them."""
     w = synth_weights(cfg, seed, device, random)
     lw = w.layers
-    t: dict = {"model.embed.weight": w.embed.data}
-    per_layer = {"attn.norm": lw.attn_norm, "attn.wq": lw.wq.data,
-                 "attn.wk": lw.wk.data, "attn.wv": lw.wv.data,
-                 "attn.wo": lw.wo.data, "mlp.w1": lw.w1.data, "mlp.w2": lw.w2.data,
-                 "mlp.w3": lw.w3.data}
+    t: dict = {}
+
+    def put(name, v):
+        t[name] = v.data if isinstance(v, QTensor) else v
+        if isinstance(v, QTensor) and v.scale is not None:
+            t[name + ".scale"] = v.scale
+
+    put("model.embed.weight", w.embed)
+    per_layer = {"attn.norm": lw.attn_norm, "attn.wq": lw.wq, "attn.wk": lw.wk,
+                 "attn.wv": lw.wv, "attn.wo": lw.wo, "mlp.w1": lw.w1, "mlp.w2": lw.w2,
+                 "mlp.w3": lw.w3}
     if not cfg.norm_par:
         per_layer["mlp.norm"] = lw.ffn_norm
     if cfg.n_experts:
-        per_layer["moegate"] = lw.moegate.data
+        per_layer["moegate"] = lw.moegate
     for l in range(cfg.n_layers):
         for name, stack in per_layer.items():
-            t[f"model.layers.{l}.{name}.weight"] = stack[l]
+            put(f"model.layers.{l}.{name}.weight", stack[l])
     t["model.norm.weight"] = w.final_norm
     if not tied:
-        t["model.output.weight"] = w.output.data
+        put("model.output.weight", w.output)
     tokens, scores = byte_vocab(cfg.vocab_size)
     t["tokenizer.tokens"] = tokens
     t["tokenizer.scores"] = scores

@@ -20,7 +20,11 @@ one-row gf4 kernel, split by launch, its tiling swept, and at odd word
 counts, n = 8 and 14336 and all-subnormal scale bytes; K10 and K11 on
 the multi-row path at B = 2..16 in 8 expert slots at Mixtral 8x7B shapes
 and ragged ones, a dead slot, ids repeated as under ep, odd word counts,
-fp8 rows off the 16-value steps on moe.cu's loop) and times it
+fp8 rows off the 16-value steps on moe.cu's loop; the fp8e4 routes, K2
+at one row and 2-16, K10 at one row and the expert FFN at 8 rows, with
+power-of-two scales that differ by layer and expert, planes of all 254
+finite e4m3 bytes, each timed beside the e5m2 row of the same shape; the
+``--precise`` rows axis of K2 and K3 at 2-16 rows against f32) and times it
 beside its bound and its library call (kernel/library on each timed row),
 after the redesigned kernels' ptxas report; runs both bandwidth tools
 (``calm_tpu_torch.tools.dma_ceiling``, ``gf4_bound``), whose 3 GB rows
@@ -36,20 +40,25 @@ the same weights unsharded; drives ``Engine.generate`` (batched prefill,
 then decode; sampled on the device by default, each id checked against
 its step's min-p set), ``prefill_tokens``, ``perplexity`` and the CLI
 (generate, ``-x``, ``-y``) on 2-layer Mistral-7B-width fp8 and gf4
-containers (gf4 also with ROTATED_DECODE off, as CALM_ROT=0), 2-layer Aya
-23 8B-width parallel-norm (Cohere) gf4 and fp8 containers, 2-layer
-Phi-3-mini- and Gemma-2B-width fp8 ones and 2-layer Mixtral-width (4
-experts, top-2) fp8 and gf4 MoE containers, each checked against the CPU
-plain path; runs a 2048-token prefill and the ``bench.py`` decode protocol
-on Mistral-7B, Aya 23 8B and Mixtral 8x7B, fp8 and gf4; serves the
+containers (gf4 also with ROTATED_DECODE off, as CALM_ROT=0; both also
+under ``--precise``, its logits' error against the CPU beside the
+default's) and an fp8e4 one, 2-layer Aya 23 8B-width parallel-norm
+(Cohere) gf4 and fp8 containers, 2-layer Phi-3-mini- and Gemma-2B-width
+fp8 ones and 2-layer Mixtral-width (4 experts, top-2) fp8, gf4 and fp8e4
+MoE containers, each checked against the CPU plain path (gf4's on the
+exact fp16 decode of its words); runs a 2048-token prefill and the
+``bench.py`` decode protocol on Mistral-7B (fp8, gf4, fp8e4; fp8 also
+under ``--precise``), Aya 23 8B (fp8, gf4) and Mixtral 8x7B (fp8, gf4,
+fp8e4); serves the
 containers through ``Server`` (dense, paged, prefix cache) against the
 CPU's server and through ``python -m calm_tpu_torch.httpd``; serves 16
 requests on a 32-layer Mistral-7B with 8 slots, dense and paged (fp8),
 and on 32-layer Mistral-7B and Aya 23 8B gf4, dense (the gf4 serving
 ticks: K8, and K6 and K3, at 8 rows), and on the gf4 Mistral-7B again
-with ROTATED_DECODE off (K3 and K7 at 8 rows), and on the 16-layer
-Mixtral 8x7B fp8 and gf4 of the decode phase (the expert sweep at 8
-rows: K10's and K11's multi-row FFN; each sweep's live experts counted);
+with ROTATED_DECODE off (K3 and K7 at 8 rows), on the 32-layer
+Mistral-7B fp8e4 (K2's e4m3 body at 8 rows), and on the 16-layer
+Mixtral 8x7B fp8, gf4 and fp8e4 of the decode phase (the expert sweep at
+8 rows: K10's and K11's multi-row FFN; each sweep's live experts counted);
 and ends with a ``kernels`` JSON line and
 ``{"ok": true, "device": ...}``. Any
 failure exits non-zero before the last line; without a GPU it exits 1 at
@@ -405,6 +414,9 @@ def kernel_phase(gbps, dev):
     rows.update(moe_kernel_rows(gbps, dev))
     rows.update(moe_multirow_kernel_rows(gbps, dev))
     ragged_checks_moe(dev)
+    rows.update(fp8e4_kernel_rows(gbps, dev))
+    rows.update(precise_kernel_rows(gbps, dev))
+    ragged_checks_fp8e4(dev)
     rows.update(paged_kernel_rows(gbps, dev))
     rows.update(multirow_kernel_rows(gbps, dev))
     multirow_checks(dev)
@@ -1418,6 +1430,288 @@ def moe_multirow_kernel_rows(gbps, dev):
     return rows
 
 
+# -- fp8e4 (e4m3 codes, a power-of-two scale per tensor / (layer, expert)) --
+
+E4M3_FINITE = [b for b in range(256) if b not in (0x7F, 0xFF)]  # 0x7f / 0xff: NaN
+
+
+def e4m3_rand(shape, dev, every: bool = False):
+    """Random e4m3 codes of exponent 0-3 (|v| < 0.12, subnormals included),
+    random sign; with ``every`` random finite codes of any exponent, and
+    each plane's first 254 values all the finite bytes in order."""
+    table = torch.tensor(E4M3_FINITE, dtype=torch.uint8, device=dev)
+    if not every:
+        b = torch.randint(0, 256, shape, device=dev, dtype=torch.int32) & 0x9F
+        return b.to(torch.uint8).view(torch.float8_e4m3fn)
+    b = table[torch.randint(0, len(E4M3_FINITE), shape, device=dev)]
+    if every:
+        flat = b.reshape(-1, shape[-2] * shape[-1])
+        flat[:, :len(E4M3_FINITE)] = table
+    return b.view(torch.float8_e4m3fn)
+
+
+def pow2_scales(shape, dev, k0: int = 0):
+    """fp8e4 scales 2^-3 .. 2^2, different from one plane (layer, expert) to
+    the next and never 1, so a dropped or misindexed scale fails a check."""
+    k = (torch.arange(math.prod(shape), device=dev) + k0) % 5
+    return torch.pow(2.0, torch.where(k >= 3, k - 2, k - 3).float()).reshape(shape)
+
+
+def fp8e4_kernel_rows(gbps, dev):
+    """The fp8e4 routes, each checked against its plain version (scales
+    2^-3 .. 2^2 that differ by layer and expert) and timed beside the e5m2
+    row of the same shape in the same call, with that row's bound and
+    library call: K2 at B=1 (Mistral-7B wq, 8 layers cycled, and the
+    lm-head) and at B=8 (the lm-head, the multi-row path); K10 at one row
+    (Mixtral 8x7B w1, 2 live of 8 experts, 2 layers cycled); the expert
+    FFN (``qmm_moe_ffn``) at B=8 on Mixtral shapes, 8 of 8 slots live and
+    3 of 8 (dead slots exactly zero). The kernels line takes the
+    lm-head rows, K10 and the FFN with 8 live."""
+    import torch.nn.functional as F
+
+    from calm_tpu_torch.ops import hopper_qmm as hq
+    from calm_tpu_torch.ops.qmm import QTensor, dequant
+
+    rows, ratios = {}, []
+    V, E = 32000, EXPERTS
+
+    def both(what, key, make, run, plain, library, b, by, dead_zero=None):
+        """The e5m2 row in full, then the fp8e4 row on the same shapes (its
+        library call is the e5m2 row's: the same bf16 product)."""
+        out = {}
+        for fmt in ("fp8", "fp8e4"):
+            args = make(fmt)
+            got = run(args, 0)
+            if dead_zero and fmt == "fp8e4":
+                dead_zero(got)
+            e = check(f"{key} {fmt} {what}", got, plain(args, 0), TOL_MV)
+            t = timings(lambda i: run(args, i), lambda i: plain(args, i),
+                        library if fmt == "fp8" else None, bound=b)
+            if fmt == "fp8e4":
+                t["library_ms"] = out["fp8"]["library_ms"]
+                t["timed_by"] += "; library_ms: the e5m2 row's call"
+            out[fmt] = dict(t, bound_ms=b, bound_by=by, max_abs_err=e)
+            log(f"# {key} {fmt} {what}: max_abs_err {e:.3e} (tol {TOL_MV:g} x max|out|); "
+                f"{ms_line(t)} bound_ms {b:.4f} ({by}); {share(t, b)}")
+            del args
+        r = out["fp8e4"]["ms"] / out["fp8"]["ms"]
+        ratios.append(f"{key} {what} {r:.3f}")
+        log(f"# {key} {what}: fp8e4 / e5m2 kernel ms {r:.3f} in the same call")
+        return out["fp8e4"]
+
+    # K2 at one row
+    for name, d, L in (("wq", Q, 8), ("lm-head", V, 1)):
+        x = torch.randn(1, D, device=dev)
+        wb = dequant(QTensor(rand_w((1, d, D), "fp8", dev), "fp8"), torch.bfloat16)[0]
+
+        def make(fmt, d=d, L=L):
+            if fmt == "fp8":
+                return rand_w((L, d, D), fmt, dev), None
+            return e4m3_rand((L, d, D), dev), pow2_scales((L, 1), dev)
+        fmt_of = lambda a: "fp8" if a[1] is None else "fp8e4"
+        b, by = bound_ms(d * D + 4 * (D + d), 2 * d * D, gbps)
+        r = both(f"{name} {d}x{D} B=1", "qmm_decode", make,
+                 lambda a, i, L=L, x=x: hq.qmm_decode(x, a[0], fmt_of(a), i % L, a[1]),
+                 lambda a, i, L=L, x=x: hq.qmm_decode_plain(x, a[0], fmt_of(a), i % L, a[1]),
+                 lambda i, x=x, wb=wb: torch.matmul(x.bfloat16(), wb.T), b, by)
+        if name == "lm-head":
+            rows["qmm_decode_fp8e4"] = r
+        del wb
+    # K2 at 8 rows, the multi-row path: the lm-head
+    x = torch.randn(8, D, device=dev)
+    wb = dequant(QTensor(rand_w((1, V, D), "fp8", dev), "fp8"), torch.bfloat16)[0]
+    b, by = bound_ms(V * D + 4 * 8 * (D + V), 2 * 8 * V * D, gbps, PEAK_BF16)
+    rows["qmm_decode_fp8e4_multirow"] = both(
+        f"lm-head {V}x{D} B=8", "qmm_decode",
+        lambda fmt: ((rand_w((1, V, D), fmt, dev), None) if fmt == "fp8"
+                     else (e4m3_rand((1, V, D), dev), pow2_scales((1, 1), dev, 4))),
+        lambda a, i: hq.qmm_decode(x, a[0], "fp8" if a[1] is None else "fp8e4", 0, a[1]),
+        lambda a, i: hq.qmm_decode_plain(x, a[0], "fp8" if a[1] is None else "fp8e4", 0, a[1]),
+        lambda i: torch.matmul(x.bfloat16(), wb.T), b, by)
+    del wb
+
+    # K10 at one row: Mixtral w1, 2 live slots of 8 experts
+    L = 2
+    ids = torch.tensor([1, 5], dtype=torch.int32, device=dev)
+    cnt = torch.tensor([2], dtype=torch.int32, device=dev)
+    x = torch.randn(1, 1, D, device=dev)
+    wb = dequant(QTensor(rand_w((L, 2, HID, D), "fp8", dev), "fp8"),
+                 torch.bfloat16).transpose(2, 3)
+    xb = x.bfloat16().expand(2, -1, -1)
+    b, by = bound_ms(2 * HID * D + 4 * (D + 2 * HID), 2 * 2 * HID * D, gbps)
+
+    def moe_args(fmt, shape):
+        if fmt == "fp8":
+            return rand_w(shape, fmt, dev), None
+        return e4m3_rand(shape, dev), pow2_scales(shape[:2] + (1,), dev, 1)
+    mfmt = lambda a: "fp8" if a[1] is None else "fp8e4"
+    rows["qmm_moe_dense_fp8e4"] = both(
+        f"w1 {HID}x{D}, 2 of {E} experts, B=1", "qmm_moe_dense",
+        lambda fmt: moe_args(fmt, (L, E, HID, D)),
+        lambda a, i: hq.qmm_moe_dense(x, a[0], ids, cnt, mfmt(a), i % L, a[1]),
+        lambda a, i: hq.qmm_moe_dense_plain(x, a[0], ids, cnt, mfmt(a), i % L, a[1]),
+        lambda i: torch.bmm(xb, wb[i % L]), b, by)
+    del wb, xb
+    torch.cuda.empty_cache()
+
+    # the expert FFN at B=8, 8 slots: all live and 3 live
+    ids = torch.arange(MOE_SLOTS, dtype=torch.int32, device=dev)
+    x = torch.randn(8, D, device=dev)
+    for live in (MOE_SLOTS, 3):
+        cnt = torch.tensor([live], dtype=torch.int32, device=dev)
+        wb = [dequant(QTensor(rand_w((L, live, *sh), "fp8", dev), "fp8"),
+                      torch.bfloat16).transpose(2, 3) for sh in ((HID, D), (HID, D), (D, HID))]
+        xb = x.bfloat16().expand(live, -1, -1)
+
+        def bmm_chain(i, xb=xb, wb=wb):
+            l = i % L
+            h = F.silu(torch.bmm(xb, wb[0][l])) * torch.bmm(xb, wb[1][l])
+            return torch.bmm(h, wb[2][l])
+
+        def make(fmt):
+            ws = [moe_args(fmt, (L, E) + sh) for sh in ((HID, D), (HID, D), (D, HID))]
+            return [w for w, _ in ws], tuple(s for _, s in ws)
+
+        def dead_zero(got, live=live):
+            if live < MOE_SLOTS and got[live:].abs().max().item() != 0:
+                fail(f"qmm_moe_ffn fp8e4 cnt={live}: a dead slot is not zero")
+        ffmt = lambda a: "fp8" if a[1][0] is None else "fp8e4"
+        nb = live * 3 * HID * D
+        b, by = bound_ms(nb + 4 * (8 * D + MOE_SLOTS * 8 * D), 2 * 8 * nb, gbps, PEAK_BF16)
+        r = both(f"D={D} H={HID}, {live} live of {MOE_SLOTS} slots, B=8", "qmm_moe_ffn",
+                 make,
+                 lambda a, i, cnt=cnt: hq.qmm_moe_ffn(x, *a[0], ids, cnt, ffmt(a), i % L, False,
+                                                      a[1]),
+                 lambda a, i, cnt=cnt: hq.qmm_moe_ffn_plain(x, *a[0], ids, cnt, ffmt(a), i % L,
+                                                            False, a[1]),
+                 bmm_chain, b, by, dead_zero)
+        if live == MOE_SLOTS:
+            rows["qmm_moe_ffn_fp8e4_multirow"] = r
+        del wb, xb
+        torch.cuda.empty_cache()
+    log("# fp8e4 / e5m2 kernel ms, same shapes, same call: " + "; ".join(ratios))
+    return rows
+
+
+def precise_kernel_rows(gbps, dev):
+    """The quality mode's 2-16-row products (``--precise``): the one-row
+    loops on their grid axis over rows, ``qmv_kernel`` (fp8 and fp8e4) and
+    ``gf4_mv_kernel`` (gf4), at B=8 on the lm-head, against their f32 plain
+    versions (TOL_MV) and timed beside the multi-row path of the same call
+    (what the mode costs) and an f32 matmul on the plane dequantized
+    beforehand (the library call: JAX's precise XLA product)."""
+    from calm_tpu_torch.ops import hopper_qmm as hq
+    from calm_tpu_torch.ops.qmm import QTensor, dequant
+
+    rows = {}
+    V, B = 32000, 8
+    x = torch.randn(B, D, device=dev)
+    for fmt, key in (("fp8", "qmm_decode_rows"), ("fp8e4", None), ("gf4", "qmm_decode_gf4_rows")):
+        gs, esz = (8, 0.5) if fmt == "gf4" else (1, 1)
+        w = e4m3_rand((1, V, D), dev) if fmt == "fp8e4" else rand_w((1, V, D // gs), fmt, dev)
+        sc = pow2_scales((1, 1), dev, 2) if fmt == "fp8e4" else None
+        wf = dequant(QTensor(w[0], fmt), torch.float32)
+        before = hq.qmm_decode.rows_launches + hq.qmm_decode_gf4.rows_launches
+        got = hq.qmm_decode(x, w, fmt, 0, sc, precise=True)
+        if hq.qmm_decode.rows_launches + hq.qmm_decode_gf4.rows_launches != before + 1:
+            fail(f"qmm_decode {fmt} precise B={B}: not on the rows path")
+        e = check(f"qmm_decode {fmt} lm-head B={B} precise (rows)", got,
+                  hq.qmm_decode_plain(x, w, fmt, 0, sc), TOL_MV)
+        b, by = bound_ms(V * D * esz + 4 * B * (D + V), 2 * B * V * D, gbps)
+        t = timings(lambda i: hq.qmm_decode(x, w, fmt, 0, sc, precise=True),
+                    lambda i: hq.qmm_decode_plain(x, w, fmt, 0, sc),
+                    lambda i: torch.matmul(x, wf.T), bound=b)
+        mr = timed(lambda i: hq.qmm_decode(x, w, fmt, 0, sc), floor=b)[0]
+        log(f"# {'K3 qmm_decode_gf4' if fmt == 'gf4' else 'K2 qmm_decode'} {fmt} lm-head "
+            f"{V}x{D} B={B} --precise (the one-row loop, a grid axis over rows): max_abs_err "
+            f"{e:.3e} (tol {TOL_MV:g} x max|y|, against the f32 plain version); {ms_line(t)} "
+            f"(f32 matmul, TF32 off) bound_ms {b:.4f} ({by}); {share(t, b)}; the multi-row "
+            f"path in the same call {mr:.4f} ms: the mode costs {t['ms'] / mr:.2f}x")
+        if key:
+            rows[key] = dict(t, bound_ms=b, bound_by=by, max_abs_err=e)
+        del w, wf
+    torch.cuda.empty_cache()
+    return rows
+
+
+def ragged_checks_fp8e4(dev):
+    """fp8e4 on shapes the timed rows do not reach, scales 2^-3 .. 2^2 by
+    layer and expert: K2 at d = 1003 (not a multiple of a warp's rows) and
+    n = 1040 (16 x 65: whole 16-value steps, not whole 64-value chunks), B =
+    1, 2, 3, 8, 9 and 16 (one and two n-tiles), on the multi-row path and,
+    with the quality mode, on the rows axis; every plane holds all 254
+    finite e4m3 bytes. K10 at B = 1 (``csrc/moe.cu``) and 2, 5, 16 (the
+    multi-row sweep), x shared and per slot, four slots of eight experts
+    with the last dead (exactly zero) or ids repeated; the FFN at B = 2, 3,
+    5, 16, SiLU and GELU. The quality mode's rows axis for fp8/fp16 at the
+    same ragged shape and for gf4 at n = 1032 (an odd word count)."""
+    from calm_tpu_torch.ops import hopper_qmm as hq
+
+    worst, n_checks = {}, 0
+
+    def note(key, e):
+        nonlocal n_checks
+        worst[key] = max(worst.get(key, 0.0), e)
+        n_checks += 1
+
+    d, n = 1003, 1040
+    w = e4m3_rand((3, d, n), dev, every=True)
+    sc = pow2_scales((3, 1), dev)
+    for B in (1, 2, 3, 8, 9, 16):
+        x = torch.randn(B, n, device=dev)
+        for precise in ((False, True) if B > 1 else (False,)):
+            for layer in (0, 2):
+                note("qmm_decode", check_rows(
+                    f"qmm_decode fp8e4 {d}x{n} B={B} layer {layer} precise={precise}",
+                    hq.qmm_decode(x, w, "fp8e4", layer, sc, precise),
+                    hq.qmm_decode_plain(x, w, "fp8e4", layer, sc), TOL_MV))
+    for fmt in ("fp8", "fp16", "gf4"):
+        nn = 1032 if fmt == "gf4" else n
+        wg = rand_w((2, d, nn // (8 if fmt == "gf4" else 1)), fmt, dev)
+        for B in (2, 9, 16):
+            x = torch.randn(B, nn, device=dev)
+            note("qmm_decode rows", check_rows(
+                f"qmm_decode {fmt} {d}x{nn} B={B} precise", hq.qmm_decode(x, wg, fmt, 1, None, True),
+                hq.qmm_decode_plain(x, wg, fmt, 1), TOL_MV))
+    slot_sets = [(torch.tensor([0, 3, 6, 6], dtype=torch.int32, device=dev), 3),
+                 (torch.tensor([5, 5, 2, 2], dtype=torch.int32, device=dev), 4)]
+
+    def dead_zero(what, out, live):
+        if live < out.shape[0] and out[live:].abs().max().item() != 0:
+            fail(f"{what}: the dead slot is not zero")
+    w = e4m3_rand((2, EXPERTS, d, n), dev, every=True)
+    sc = pow2_scales((2, EXPERTS, 1), dev)
+    for B in (1, 2, 5, 16):
+        for Ax in (1, 4):
+            for ids, live in slot_sets:
+                cnt = torch.tensor([live], dtype=torch.int32, device=dev)
+                x = torch.randn(Ax, B, n, device=dev)
+                got = hq.qmm_moe_dense(x, w, ids, cnt, "fp8e4", 1, sc)
+                dead_zero(f"qmm_moe_dense fp8e4 B={B}", got, live)
+                note("qmm_moe_dense", check(
+                    f"qmm_moe_dense fp8e4 {d}x{n} B={B} Ax={Ax} cnt={live}", got,
+                    hq.qmm_moe_dense_plain(x, w, ids, cnt, "fp8e4", 1, sc), TOL_MV))
+    Dm, Hm = 1040, 2064
+    ws = [e4m3_rand((2, EXPERTS) + sh, dev, every=True) for sh in ((Hm, Dm), (Hm, Dm), (Dm, Hm))]
+    scs = tuple(pow2_scales((2, EXPERTS, 1), dev, k) for k in (0, 1, 2))
+    for B in (2, 3, 5, 16):
+        for gelu in (False, True):
+            for ids, live in slot_sets:
+                cnt = torch.tensor([live], dtype=torch.int32, device=dev)
+                x = torch.randn(B, Dm, device=dev)
+                got = hq.qmm_moe_ffn(x, *ws, ids, cnt, "fp8e4", 0, gelu, scs)
+                dead_zero(f"qmm_moe_ffn fp8e4 B={B}", got, live)
+                note("qmm_moe_ffn", check(
+                    f"qmm_moe_ffn fp8e4 D={Dm} H={Hm} B={B} gelu={gelu} cnt={live}", got,
+                    hq.qmm_moe_ffn_plain(x, *ws, ids, cnt, "fp8e4", 0, gelu, scs), TOL_MV))
+    del w, ws
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"# ragged shapes (fp8e4, and the --precise rows axis): {n_checks} checks, all 254 "
+        "finite e4m3 bytes in every plane, max_abs_err " + ", ".join(
+            f"{k} {v:.3e}" for k, v in worst.items()) + f" (tol {TOL_MV:g} x max|out|)")
+
+
 def by_launch(fn, what: str, products, norm_bytes: float, gbps: float, calls: int = 10):
     """The device ms of each launch of one call of ``fn(i)``, in launch
     order, over ``calls`` calls, each beside its byte bound: ``products``
@@ -2096,6 +2390,9 @@ def counters():
     out["qmm_moe_dense_multirow"] = (hq.qmm_moe_dense, "multirow_launches")
     out["qmm_moe_ffn_multirow"] = (fns["qmm_moe_ffn"], "multirow_launches")
     out["gf4_moe_ffn_multirow"] = (hq.gf4_moe_ffn, "multirow_launches")
+    # the quality mode's 2-16-row products: the one-row loops' rows axis
+    out["qmm_decode_rows"] = (hq.qmm_decode, "rows_launches")
+    out["qmm_decode_gf4_rows"] = (hq.qmm_decode_gf4, "rows_launches")
     out["decode_attention_partials"] = (ha.decode_attention, "partials_launches")
     from calm_tpu_torch.graphs import StepGraph
     out["graph_replays"] = (StepGraph, "replays")  # replays of captured steps
@@ -2191,16 +2488,113 @@ AYA = dict(MISTRAL, vocab_size=256000)
 AYA_VOCAB_CUT = 32000  # the 2-layer container's: the CPU's plain lm-head
 
 
+def fp16_twin(w):
+    """The weights with every gf4 tensor decoded once to fp16: exact (a
+    gf4 value is a 3-bit code less 4 times an e5m2 scale / 4, at most 5
+    significant bits, and e5m2's exponent range lies inside f16's), so the
+    CPU's plain products see the same f32 values."""
+    import dataclasses
+
+    from calm_tpu_torch import model as M
+    from calm_tpu_torch.ops.qmm import QTensor, gf4_decode_words
+
+    def twin(v):
+        if isinstance(v, QTensor) and v.fmt == "gf4":
+            return QTensor(gf4_decode_words(v.data, torch.float16), "fp16")
+        return v
+    lw = w.layers
+    layers = dataclasses.replace(lw, **{f.name: twin(getattr(lw, f.name))
+                                        for f in dataclasses.fields(lw)})
+    embed = twin(w.embed)
+    return M.Weights(embed=embed, layers=layers, final_norm=w.final_norm,
+                     output=embed if w.output is w.embed else twin(w.output))
+
+
+def cpu_reference(path, what):
+    """The CPU plain path on a container, the reference of the card's
+    checks. A gf4 container's CPU engine runs on ``fp16_twin`` weights: its
+    products widen fp16 instead of decoding words, the same f32 values
+    into the same f32 products, several times faster (held bit for bit to
+    the gf4 engine on one step here)."""
+    from calm_tpu_torch.engine import Engine
+
+    cpu = Engine(path, device="cpu")
+    if cpu.cfg.dtype != "gf4":
+        return cpu
+    t0 = time.perf_counter()
+    twin = Engine.from_weights(cpu.cfg, fp16_twin(cpu.weights), cpu.tokenizer,
+                               n_bytes=cpu.n_bytes, n_params=cpu.n_params,
+                               n_bandwidth=cpu.n_bandwidth, device="cpu")
+    a, b = cpu.step(3, 0), twin.step(3, 0)
+    if not np.array_equal(a, b):
+        fail(f"{what}: the fp16 twin's CPU logits differ from the gf4 CPU path's by "
+             f"{np.abs(a - b).max():.3e}")
+    twin.reset()
+    log(f"# {what}: CPU reference on the exact fp16 decode of the gf4 words, its first "
+        f"step bit-equal to the gf4 CPU path's ({time.perf_counter() - t0:.1f} s)")
+    return twin
+
+
+PRECISE_COUNTS = {}  # fmt -> the launch counts of the container phase's --precise generate
+
+
+def precise_checks(path, what, cpu, toks, lc_prefill, err_prefill, steps_cpu, err_steps):
+    """``Engine(path, precise=True)`` on the card against the same CPU
+    logits as the default engine's checks: the prefill of ``toks`` (f32
+    products in place of bf16), 8 decode steps (per op, no fused
+    epilogue), and a greedy generate whose 9-token prefill takes the rows
+    axis (its launches go to ``PRECISE_COUNTS``). Logs both errors."""
+    from calm_tpu_torch.engine import Engine
+    from calm_tpu_torch.ops import qmm as tqmm
+
+    eng = Engine(path, precise=True)
+    try:
+        lg = eng.prefill_tokens(toks)
+        e_pre = float(np.abs(lg - lc_prefill).max() / np.abs(lc_prefill).max())
+        eng.reset()
+        e_steps = 0.0
+        for pos, (tok, lc) in enumerate(steps_cpu):
+            lg = eng.step(tok, pos)
+            e_steps = max(e_steps, float(np.abs(lg - lc).max() / np.abs(lc).max()))
+        eng.reset()
+        prompt = "Hi there"  # 9 tokens of the byte vocabulary: a 2-16-row prefill
+        n = len(eng.tokenizer.encode(prompt, bos=True))
+        eng.generate(prompt, n + 2, temperature=0)  # captures the step
+        eng.reset()
+        st, counts = drive(lambda: eng.generate(prompt, n + 8, temperature=0))
+        cpu.reset()
+        gen = same_generation(f"{what} --precise generate", cpu,
+                              eng.tokenizer.encode(prompt, bos=True), st.ids,
+                              cpu.generate(prompt, n + 8, temperature=0).ids, TOL_PREFILL)
+    finally:
+        tqmm.enable_precise(False)
+    rows = counts["qmm_decode_rows"] + counts["qmm_decode_gf4_rows"]
+    if e_pre > TOL_PREFILL or e_steps > TOL_STEP or rows == 0 or counts["qx_offn_qkv"]:
+        fail(f"{what} --precise: prefill logits {e_pre:.3e}, steps {e_steps:.3e} from the "
+             f"CPU, launches {counts}")
+    PRECISE_COUNTS[cpu.cfg.dtype] = counts
+    log(f"# {what} --precise vs cpu: logits after the {len(toks)}-token prefill {e_pre:.3e} "
+        f"of scale (default {err_prefill:.3e}), 8 steps {e_steps:.3e} (default "
+        f"{err_steps:.3e}); generate {gen}, its {n}-token prefill on the rows axis "
+        f"({rows} launches), qx_offn_qkv 0")
+    del eng
+
+
 def container_phase(fmt, dev, experts: int = 0, cohere: bool = False):
     """Engine, prefill, perplexity and CLI on a 2-layer Mistral-7B-width
     container, or with ``experts`` a 2-layer Mixtral-width MoE one (top-2,
     bench.py's mixtral4x7b proxy at 4), or with ``cohere`` a 2-layer Aya 23
     8B-width parallel-norm one (tied, its vocab cut to 32000), of seeded
-    random bits, held against the CPU plain path; then served. The fp8
-    Aya-width container runs generate and prefill against the CPU only;
-    the gf4 Mistral-width one also decodes with ROTATED_DECODE off.
-    Returns (launch counts of the main path, tokens, launch counts of the
-    CALM_ROT=0 decode or None)."""
+    random bits (fp8e4: seeded floats quantized tensor by tensor, as the
+    converter does, so the scales are real and differ by layer and
+    expert), held against the CPU plain path (``cpu_reference``); then
+    served. The fp8 Aya-width and the fp8e4 MoE containers run generate
+    and prefill against the CPU only; the fp8e4 Mistral-width one is not
+    served; the gf4 Mistral-width one also decodes with ROTATED_DECODE
+    off; the fp8 and gf4 Mistral-width ones run under ``--precise`` too
+    (``precise_checks``, and the CLI's ``-x``). Returns (launch counts of
+    the main path, tokens, launch counts of the CALM_ROT=0 decode or
+    None)."""
     from calm_tpu_torch import model as M
     from calm_tpu_torch.config import ModelConfig
     from calm_tpu_torch.engine import Engine
@@ -2214,7 +2608,10 @@ def container_phase(fmt, dev, experts: int = 0, cohere: bool = False):
                       eos_token_id=2)
     name = "aya23-8b" if cohere else f"mixtral{experts}x7b" if experts else "mistral7b"
     what = f"{fmt} {name}-width"
-    light = cohere and fmt == "fp8"  # generate and prefill against the CPU only
+    # generate and prefill against the CPU only
+    light = (cohere and fmt == "fp8") or (fmt == "fp8e4" and experts > 0)
+    served = fmt != "fp8e4"
+    precise = fmt in ("fp8", "gf4") and not (experts or cohere)
     rot0 = None
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, f"{name}-width-2l-{fmt}.calm")
@@ -2234,8 +2631,11 @@ def container_phase(fmt, dev, experts: int = 0, cohere: bool = False):
             cli(path, ["-t", "0", "-n", "16", "-r", "2", "-i", "hello"]),
             cli(path, ["-x", text_path]),
             cli(path, ["-y", "be brief", "-n", "24", "-s", "7"], user_path)]
+        if precise:
+            # the whole text in one window, as the engines' perplexity below
+            procs.append(cli(path, ["--precise", "-x", text_path, "-n", "0"]))
         http_args = ["--page-rows", "16"] if fmt == "gf4" else []
-        httpd = None if light else httpd_proc(path, http_args)
+        httpd = httpd_proc(path, http_args) if served and not light else None
         eng = Engine(path)
         log(eng.banner())
         if experts:  # routing builds the expert slots on the device
@@ -2251,7 +2651,7 @@ def container_phase(fmt, dev, experts: int = 0, cohere: bool = False):
 
         # the main path: fp8 with a short prompt (decode kernels), gf4 with
         # a long one (its prefill takes the gf4 matmul), counts from 0
-        prompt = "The quick brown fox" if fmt == "fp8" else PROMPT_LONG
+        prompt = "The quick brown fox" if fmt != "gf4" else PROMPT_LONG
         steps = len(eng.tokenizer.encode(prompt, bos=True)) + 8
         s1, counts = drive(lambda: eng.generate(prompt, steps, temperature=0))
         tokens = s1.tokens
@@ -2268,7 +2668,7 @@ def container_phase(fmt, dev, experts: int = 0, cohere: bool = False):
 
         # decode on the card against the plain path on the CPU, each side
         # fed the CPU's greedy id
-        cpu = Engine(path, device="cpu")
+        cpu = cpu_reference(path, what)
         tok, worst, ties, steps_cpu = 1, 0.0, 0, []
         eng.reset()
         for pos in range(8):
@@ -2279,6 +2679,7 @@ def container_phase(fmt, dev, experts: int = 0, cohere: bool = False):
             tok = int(lc.argmax())
         if worst > TOL_STEP:
             fail(f"{what}: logits differ from the CPU by {worst:.3e} > {TOL_STEP}")
+        worst_steps = worst
         if fmt == "gf4" and not experts and not cohere:
             rot0 = unrotated_steps(eng, steps_cpu, what)
         if fmt == "fp8" and not experts and not cohere:
@@ -2297,6 +2698,8 @@ def container_phase(fmt, dev, experts: int = 0, cohere: bool = False):
         eng.reset()
         cpu.reset()
         lg, lc = eng.prefill_tokens(toks), cpu.prefill_tokens(toks)
+        lc_prefill = lc
+        err_prefill = float(np.abs(lg - lc).max() / np.abs(lc).max())
         ids, worst, ties = [], 0.0, 0
         for i in range(9):
             worst = max(worst, float(np.abs(lg - lc).max() / np.abs(lc).max()))
@@ -2323,8 +2726,11 @@ def container_phase(fmt, dev, experts: int = 0, cohere: bool = False):
             f"{worst:.3e} of scale (tol {TOL_PREFILL:g}); next 8 greedy ids {ids}, "
             f"{ties} near-ties; perplexity {pg[0]:.4f} ± {pg[1]:.4f} vs CPU "
             f"{pc[0]:.4f} ± {pc[1]:.4f} over {pg[2]} tokens (tol 1e-2 rel.)")
+        if precise:
+            precise_checks(path, what, cpu, toks, lc_prefill, err_prefill, steps_cpu,
+                           worst_steps)
 
-        for p, mode in zip(procs, ("generate", "-x", "-y")):
+        for p, mode in zip(procs, ("generate", "-x", "-y", "--precise -x -n 0")):
             out, errs = p.communicate(timeout=600)
             if p.returncode != 0:
                 fail(f"{what} cli {mode} exited {p.returncode}: {errs[-2000:]}")
@@ -2333,18 +2739,27 @@ def container_phase(fmt, dev, experts: int = 0, cohere: bool = False):
                 if len(perf) != 2 or perf[0].split("#")[-1] != perf[1].split("#")[-1]:
                     fail(f"{what} cli -r 2: perf lines {perf}")
                 log(f"# {what} cli -r 2: {out.splitlines()[0]} | {perf[0]} | {perf[1]}")
-            elif mode == "-x":
+            elif "-x" in mode.split():
                 line = [l for l in out.splitlines() if l.startswith("# perplexity:")]
                 if not line:
-                    fail(f"{what} cli -x printed no perplexity line: {out[-1000:]}")
-                log(f"# {what} cli -x: {line[0]}")
+                    fail(f"{what} cli {mode} printed no perplexity line: {out[-1000:]}")
+                extra = ""
+                if mode.startswith("--precise"):  # the same window as pg and pc
+                    ppl = float(line[0].split()[2])
+                    if not abs(ppl - pc[0]) <= 1e-2 * pc[0]:
+                        fail(f"{what} cli {mode}: perplexity {ppl} != CPU {pc[0]}")
+                    extra = (f" (relative to the CPU engine's {pc[0]:.4f}: "
+                             f"{abs(ppl - pc[0]) / pc[0]:.2e}; the card's default engine "
+                             f"{abs(pg[0] - pc[0]) / pc[0]:.2e})")
+                log(f"# {what} cli {mode}: {line[0]}{extra}")
             elif "Assistant: " not in out:
                 fail(f"{what} cli -y printed no reply: {out[-1000:]}")
             else:
                 log(f"# {what} cli -y: {len(out)} characters, exit 0")
         t_serve = time.perf_counter()
-        serving_checks(path, what, cpu, full=not (experts or cohere))
-        http_check(httpd, what + (" paged" if http_args else ""))
+        if served:
+            serving_checks(path, what, cpu, full=not (experts or cohere))
+            http_check(httpd, what + (" paged" if http_args else ""))
         log(f"# {what}: container phase {time.perf_counter() - t0:.1f} s, of it serving "
             f"{time.perf_counter() - t_serve:.1f} s")
         del eng, cpu
@@ -2770,7 +3185,8 @@ def full_width_phase(fmt, dev, gbps, smi, experts: int = 0, cohere: bool = False
                          **arch}, seq_len=ctx, rotary_dim=128, dtype=fmt)
     what = (f"{fmt} aya23-8b" if cohere else f"{fmt} mixtral{experts}x7b" if experts
             else f"{fmt} mistral7b")
-    random = bool(experts) or cohere
+    # fp8e4: seeded floats quantized plane by plane, real scales by layer and expert
+    random = bool(experts) or cohere or fmt == "fp8e4"
     t0 = time.perf_counter()
     w = synth_weights(cfg, seed=0, device=dev, random=random)
     total, bw = weight_bytes(cfg)
@@ -2910,6 +3326,9 @@ def full_width_phase(fmt, dev, gbps, smi, experts: int = 0, cohere: bool = False
             log(f"# decode {what} CALM_ROT=0 vs rotated: ids equal for {n} of {steps} "
                 f"steps, logits within {worst:.3e} of scale (tol {TOL_STEP:g}); "
                 f"gf4_offn {rot0['gf4_offn']} launches")
+    if fmt == "fp8" and not (experts or cohere):
+        out.update(precise_full_width(cfg, w, cache, prompt, token, steps, bw, gbps, smi,
+                                      first, out))
     log(f"# {what}: " + json.dumps(out))
     del cache
     torch.cuda.empty_cache()
@@ -2919,6 +3338,73 @@ def full_width_phase(fmt, dev, gbps, smi, experts: int = 0, cohere: bool = False
     del w
     torch.cuda.empty_cache()
     return served
+
+
+def precise_full_width(cfg, w, cache, prompt, token, steps, bw, gbps, smi, first, default):
+    """What ``--precise`` costs on the full-width model (``full_width_phase``'s
+    fp8 Mistral-7B weights, cache and prompt): the 2048-token prefill
+    (every product an f32 ``torch.mm`` on planes dequantized to f32, TF32
+    off, in place of the bf16 product) and first32 replayed (per op: the
+    fused epilogue declines, one row keeps the f32 loop), each timed in the
+    same way as the default rows beside it, and the logits' distance from
+    the default run's. Returns the rows for the phase's JSON."""
+    from calm_tpu_torch import model as M
+    from calm_tpu_torch.engine import kv_cache_bytes
+    from calm_tpu_torch.ops import qmm as tqmm
+
+    out = {}
+    tqmm.enable_precise(True)
+    try:
+        M.prefill(cfg, w, prompt, [0], cache, "last")  # warm
+        secs = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            lg = M.prefill(cfg, w, prompt, [0], cache, "last")[0]
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t)
+        med = statistics.median(secs)
+        if not torch.isfinite(lg).all():
+            fail("prefill --precise: non-finite logits")
+        out["prefill --precise"] = dict(ms=1e3 * med, tok_s=prompt.shape[1] / med,
+                                        spread_pct=100 * (max(secs) - min(secs)) / med)
+        log(f"# prefill {cfg.dtype} mistral7b T={prompt.shape[1]} --precise: {1e3 * med:.3f} ms "
+            f"(default {default['prefill']['ms']:.3f} ms in this run: "
+            f"{1e3 * med / default['prefill']['ms']:.2f}x; median of 3, spread "
+            f"{out['prefill --precise']['spread_pct']:.2f}%) on {smi}")
+        M.decode_loop(cfg, w, token, 0, cache, 2)  # warm: captures the precise step
+        secs = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            toks, cache, logits = M.decode_loop(cfg, w, token, 0, cache, steps)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t)
+        med = statistics.median(secs)
+        _, counts = drive(lambda: M.decode_loop(cfg, w, token, 0, cache, 2))
+        profile_tokens(lambda: M.decode_loop(cfg, w, token, 0, cache, 4), 4,
+                       1e3 * med / steps, f"{cfg.dtype} mistral7b first32 --precise, replayed")
+    finally:
+        tqmm.enable_precise(False)
+    if not torch.isfinite(logits).all() or counts["qx_offn_qkv"]:
+        fail(f"decode --precise: non-finite logits or the fused epilogue ran ({counts})")
+    lg = logits[:, 0].float().cpu().numpy()
+    ids = toks[0].tolist()
+    n = next((i for i, (a, b) in enumerate(zip(ids, first[0])) if a != b), steps)
+    diff = max(float(np.abs(lg[i] - first[1][i]).max() / np.abs(first[1][i]).max())
+               for i in range(min(n + 1, steps)))
+    read = sum(bw + kv_cache_bytes(cfg, 16, i) for i in range(steps))
+    gb_s = read / 1e9 / med
+    out["first32 --precise"] = dict(tok_s=steps / med, ms_tok=1e3 * med / steps, gb_s=gb_s,
+                                    pct_hbm=100 * gb_s / gbps,
+                                    spread_pct=100 * (max(secs) - min(secs)) / med)
+    log(f"# decode {cfg.dtype} mistral7b first32 --precise, replayed: {steps / med:.2f} tok/s, "
+        f"{1e3 * med / steps:.3f} ms/tok (default {default['first32']['ms_tok']:.3f} in this "
+        f"run: {1e3 * med / steps / default['first32']['ms_tok']:.3f}x), {rate_share(gb_s)}; "
+        f"ids equal to the default run's for {n} of {steps} steps, logits within {diff:.3e} "
+        f"of scale; per op: qmm_decode {counts['qmm_decode']} launches a 2-step loop, "
+        f"qx_offn_qkv 0, on {smi}")
+    return out
 
 
 def full_width_serving_phase(dev, gbps, smi, fmt: str = "fp8", cohere: bool = False,
@@ -3007,16 +3493,18 @@ def full_width_serving_phase(dev, gbps, smi, fmt: str = "fp8", cohere: bool = Fa
     modes = [("dense", {}, True)]
     if fmt == "fp8" and not cfg.n_experts:
         modes.append(("paged", dict(page_rows=512, pool_pages=32), True))
-    elif not (cohere or cfg.n_experts):
+    elif fmt == "gf4" and not (cohere or cfg.n_experts):
         modes.append(("dense CALM_ROT=0", {}, False))
     if cfg.n_experts:
         wrappers = (("qmm_decode", "qmm_moe_dense", "qmm_moe_ffn") if fmt != "gf4"
                     else ("qmm_decode_gf4", "gf4_moe_ffn"))
     else:
-        wrappers = (("qmm_decode", "qx_offn_qkv") if fmt == "fp8"
+        wrappers = (("qmm_decode", "qx_offn_qkv") if fmt == "fp8" else ("qmm_decode",)
+                    if fmt == "fp8e4"
                     else ("qmm_decode_gf4", "gf4_offn_qkv", "gf4_ffn", "gf4_offn"))
     wrappers = tuple(n for n in wrappers if hasattr(hq, n))  # an older tree may lack one
-    expert_bytes = 3 * cfg.hidden_dim * cfg.dim * {"fp8": 1, "fp16": 2, "gf4": 0.5}[fmt]
+    expert_bytes = 3 * cfg.hidden_dim * cfg.dim * {"fp8": 1, "fp8e4": 1, "fp16": 2,
+                                                   "gf4": 0.5}[fmt]
     was = M.ROTATED_DECODE
     for mode, kw, rotated in modes:
         M.ROTATED_DECODE = rotated
@@ -3812,7 +4300,8 @@ def main():
     log(f"# ptxas -v, the multi-row path <fmt, act, m-tiles, n-tiles, odd gf4 rows>: "
         f"{ptxas_each(build, 'qmm', 'mmv_kernel')}; the one-row loops <fmt, act>: "
         f"{ptxas_each(build, 'qmm', 'qmv_kernel')}; <act>: "
-        f"{ptxas_each(build, 'qmm', 'gf4_row_kernel')}; {ptxas_each(build, 'gf4', 'gf4_mv_kernel')}")
+        f"{ptxas_each(build, 'qmm', 'gf4_row_kernel')}; {ptxas_each(build, 'gf4', 'gf4_mv_kernel')}; "
+        f"<fmt, rows> (fmt 3: e4m3): {ptxas_each(build, 'moe', 'moe_qmv_kernel')}")
     dev = torch.device("cuda")
     log_captures()
 
@@ -3844,6 +4333,10 @@ def main():
     # and the MoE paths: fp8 decode (K10), gf4 decode (K11)
     counts8m, tok8m, _ = container_phase("fp8", dev, experts=4)
     counts4m, tok4m, _ = container_phase("gf4", dev, experts=4)
+    # fp8e4: the dense decode path (K2's e4m3 body, per op) and the MoE
+    # one (K10's e4m3 body at one row)
+    counts8e4, tok8e4, _ = container_phase("fp8e4", dev)
+    counts8e4m, tok8e4m, _ = container_phase("fp8e4", dev, experts=4)
     log(f"# container phases done at {time.perf_counter() - t_start:.1f} s")
     # the captured step against the eager one across the sink wrap
     graph_wrap_check(dev)
@@ -3852,7 +4345,7 @@ def main():
     # rows, K10's multi-row FFN (fp8) and K11's (gf4)
     served = {}
     for experts, cohere in ((0, False), (0, True), (EXPERTS, False)):
-        for fmt in ("fp8", "gf4"):
+        for fmt in ("fp8", "gf4") if cohere else ("fp8", "gf4", "fp8e4"):
             counts = full_width_phase(fmt, dev, gbps, smi, experts, cohere)
             if counts:
                 served[fmt] = counts["dense"]
@@ -3867,6 +4360,9 @@ def main():
     counts_g4, counts_g4r0 = g4["dense"], g4["dense CALM_ROT=0"]
     counts_g4c = full_width_serving_phase(dev, gbps, smi, "gf4", cohere=True)["dense"]
     log(f"# full-width gf4 serving done at {time.perf_counter() - t_start:.1f} s")
+    # the fp8e4 serving tick at 8 rows: K2's e4m3 body on the multi-row path
+    counts_e4 = full_width_serving_phase(dev, gbps, smi, "fp8e4")["dense"]
+    log(f"# full-width fp8e4 serving done at {time.perf_counter() - t_start:.1f} s")
 
     sources = {"qmm_decode": ("calm_tpu_torch/csrc/qmm.cu",
                               "calm_tpu/ops/pallas_qmm.py:92", counts8),
@@ -3920,20 +4416,41 @@ def main():
                "decode_attention_partials": ("calm_tpu_torch/csrc/attn.cu",
                                              "calm_tpu/ops/pallas_attn.py:57", counts_sp),
                "ring_all_reduce": ("calm_tpu_torch/csrc/ring.cu",
-                                   "calm_tpu/ops/pallas_collectives.py:42", counts_ring)}
+                                   "calm_tpu/ops/pallas_collectives.py:42", counts_ring),
+               # fp8e4: no Pallas kernel; JAX runs it through XLA with the scale
+               # on the output. Launches from the fp8e4 paths: the Mistral-width
+               # container (one row), its 8-slot serving drain, the MoE
+               # container (one row) and the Mixtral drain (8 rows)
+               "qmm_decode_fp8e4": ("calm_tpu_torch/csrc/qmm.cu", "calm_tpu/ops/qmm.py:179",
+                                    counts8e4, "qmm_decode"),
+               "qmm_decode_fp8e4_multirow": ("calm_tpu_torch/csrc/qmm.cu",
+                                             "calm_tpu/ops/qmm.py:179", counts_e4,
+                                             "qmm_decode_multirow"),
+               "qmm_moe_dense_fp8e4": ("calm_tpu_torch/csrc/moe.cu", "calm_tpu/ops/qmm.py:179",
+                                       counts8e4m, "qmm_moe_dense"),
+               "qmm_moe_ffn_fp8e4_multirow": ("calm_tpu_torch/csrc/qmm.cu",
+                                              "calm_tpu/ops/qmm.py:179", served["fp8e4"],
+                                              "qmm_moe_ffn_multirow"),
+               # --precise at 2-16 rows: JAX's precise XLA product; launches from
+               # the fp8 and gf4 containers' precise generate
+               "qmm_decode_rows": ("calm_tpu_torch/csrc/qmm.cu", "calm_tpu/ops/qmm.py:190",
+                                   PRECISE_COUNTS["fp8"]),
+               "qmm_decode_gf4_rows": ("calm_tpu_torch/csrc/gf4.cu", "calm_tpu/ops/qmm.py:190",
+                                       PRECISE_COUNTS["gf4"])}
     kernels = []
-    for name, (src, rep, counts) in sources.items():
-        if counts[name] <= 0:
+    for name, (src, rep, counts, *key) in sources.items():
+        n = counts[key[0] if key else name]
+        if n <= 0:
             fail(f"{name} was not launched on its main path")
         r = rows[name]
         kernels.append(dict(name=name, route="cuda", source=src, replaces=rep,
-                            launches=counts[name], max_abs_err=r["max_abs_err"],
+                            launches=n, max_abs_err=r["max_abs_err"],
                             ms=r["ms"], plain_ms=r["plain_ms"],
                             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                             library_ms=r["library_ms"], timed_by=r["timed_by"],
                             **{k: r[k] for k in ("attainable_bound_ms",) if k in r}))
     log(f"# main paths: fp8 {tok8} positions, gf4 {tok4}, gf4 Aya-width {tok4c}, fp8 "
-        f"MoE {tok8m}, gf4 MoE {tok4m}; total "
+        f"MoE {tok8m}, gf4 MoE {tok4m}, fp8e4 {tok8e4}, fp8e4 MoE {tok8e4m}; total "
         f"{time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": kernels}))

@@ -261,6 +261,7 @@ def test_card_refuses_at_load_what_its_kernels_do_not_take():
     every head dim."""
     for hd in (64, 96, 128, 256):
         TM.check_supported(tiny_config(head_dim=hd, rotary_dim=hd), "cuda")
+    TM.check_supported(tiny_config(dtype="fp8e4", head_dim=64, rotary_dim=64), "cuda")
     with pytest.raises(NotImplementedError, match="head_dim 12"):
         TM.check_supported(tiny_config(), "cuda")
     with pytest.raises(NotImplementedError, match="multiples of 16"):

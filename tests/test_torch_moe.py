@@ -243,8 +243,8 @@ def test_moe_synth_weights_and_bytes_match_jax(fmt):
 @pytest.mark.parametrize("name", sorted(MOE_CASES))
 def test_moe_decode_steps_match_jax(tmp_path, name):
     """40 steps at seq_len 32, through the sinks and the rolling write: the
-    port's expert sweep (K10 x3, or K11 for gf4; fp8e4 takes the grouped
-    path) against JAX's per-token vmap, f32 on both sides."""
+    port's expert sweep (K10 x3, or K11 for gf4; fp8e4's with its
+    scales) against JAX's per-token vmap, f32 on both sides."""
     got, want = _run_both(_moe_model(tmp_path, name), "bf16", 40, JM.decode_step)
     err = np.abs(got - want).max(axis=-1) / np.abs(want).max(axis=-1)
     assert err.max() < 1e-4, err
