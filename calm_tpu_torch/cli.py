@@ -20,10 +20,16 @@ leaves it unbounded). ``-t > 0`` samples on the device;
 xorshift64* stream instead, bit for bit as ``calm_tpu.cli``'s flag. -r N
 resets and generates N times, a perf line each (on the card the later
 sequences replay the steps the first one captured: their lines are the
-steady state). --draft is not ported yet and exits 2 with a message
-saying so.
+steady state). ``--draft d.calm`` decodes speculatively with that draft
+model, ``--gamma`` tokens drafted a round (``speculative.
+speculative_generate``: greedy at -t 0, rejection sampling above), and
+prints the draft's banner and ``# speculative: acceptance A over R rounds
+(gamma G)`` on stderr. The draft Engine is made as ``calm_tpu.cli`` makes
+it, without ``precise``: so under ``--precise --draft`` it switches the
+process-wide quality mode off again, as JAX's does.
 
     python -m calm_tpu_torch.cli model.calm -t 0 -n 64 -i "..."
+    python -m calm_tpu_torch.cli model.calm --draft small.calm --gamma 4 -t 0 -i "..."
 """
 
 from __future__ import annotations
@@ -36,8 +42,6 @@ import time
 from calm_tpu_torch.container import ContainerError
 from calm_tpu_torch.device import NoGPUError
 from calm_tpu_torch.engine import Engine, chat_loop
-
-_NOT_PORTED = {"draft": "--draft"}
 
 
 def main(argv=None):
@@ -70,14 +74,12 @@ def main(argv=None):
     ap.add_argument("--reference-sampling", action="store_true",
                     help="per-token host sampling with the reference's "
                     "xorshift64* stream (default: on the device)")
-    ap.add_argument("--draft", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--draft", type=str, default=None,
+                    help="draft model (.calm) for speculative decoding (at -t 0 "
+                    "the output of -t 0, faster)")
+    ap.add_argument("--gamma", type=int, default=4,
+                    help="speculation depth (tokens drafted a round)")
     args = ap.parse_args(argv)
-
-    for dest, flag in _NOT_PORTED.items():
-        if getattr(args, dest) is not None:
-            print(f"{flag} is not yet ported to calm_tpu_torch; use "
-                  "python -m calm_tpu.cli for it", file=sys.stderr)
-            raise SystemExit(2)
 
     seed = args.seed if args.seed > 0 else int(time.time())
     prompt = args.prompt
@@ -131,6 +133,28 @@ def main(argv=None):
                   minp=args.minp, seed=seed,
                   reference_sampling=args.reference_sampling,
                   max_reply=steps if steps > 0 else None)
+    elif args.draft:
+        from calm_tpu_torch.speculative import speculative_generate
+        try:  # no precise=: as calm_tpu/cli.py:119, it turns the mode off
+            draft = Engine(args.draft, context=args.context, kv_dtype=args.kv,
+                           device=device)
+        except (FileNotFoundError, IsADirectoryError, ContainerError,
+                NotImplementedError) as e:
+            print(f"failed to load draft {args.draft}: {e}", file=sys.stderr)
+            raise SystemExit(1)
+        print(draft.banner())
+        for _ in range(args.sequences):
+            engine.reset()
+            draft.reset()
+            stats = speculative_generate(
+                engine, draft, prompt or "", steps, gamma=args.gamma,
+                temperature=args.temperature, minp=args.minp, seed=seed,
+                pos_offset=pos_offset, echo=True,
+                on_piece=lambda s: print(s, end="", flush=True))
+            print()
+            print(stats.perf_line(), file=sys.stderr)
+            print(f"# speculative: acceptance {stats.acceptance:.2f} over "
+                  f"{stats.rounds} rounds (gamma {args.gamma})", file=sys.stderr)
     else:
         for _ in range(args.sequences):
             engine.reset()

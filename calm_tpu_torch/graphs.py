@@ -1,7 +1,9 @@
-"""The compiled decode step: one decode step captured as a CUDA graph and
-replayed (the port of ``calm_tpu``'s jitted ``decode_step``,
+"""The compiled decode step and verify forward: each captured as a CUDA
+graph and replayed (the port of ``calm_tpu``'s jitted ``decode_step``,
 ``decode_scan`` and ``decode_scan_sampled``, ``calm_tpu/model.py
-:1428-1455``, ``:1500-1522``, ``:1573-1575``).
+:1428-1455``, ``:1500-1522``, ``:1573-1575``, and of its jitted
+``prefill`` with ``logits_mode="all"`` and ``tree_verify``, ``:1576-1583``,
+as speculative decoding runs them).
 
 An eager step issues a few hundred launches from Python a token; the
 card then waits on the host (PERF.md §5). A :class:`StepGraph` captures
@@ -27,9 +29,17 @@ replays.
   never runs. The counts a capture added are taken back and added again
   on every replay; :attr:`StepGraph.replays` counts replays.
 
+A :class:`VerifyGraph` captures a static-shape (B, T) forward that
+returns every row's logits: the speculative verify (``model.verify_once``).
+Its static inputs are tokens (B, T) int64 and pos0 (B,) int32, and for a
+tree the nodes' depth (T,) int32 and the mask (T, T) bool; the RoPE
+positions and the cache rows are computed from them inside the graph. Its
+warm-up's rows (pos0 + [0, T) of every slot and layer) are restored the
+same way.
+
 A failed capture or replay raises: nothing falls back to eager on the
-card. The graphs of a cache live on its ``KVCache`` (``model.step_graph``)
-and go with it.
+card. The graphs of a cache live on its ``KVCache`` (``model.step_graph``,
+``model.verify_graph``) and go with it.
 """
 
 from __future__ import annotations
@@ -67,6 +77,40 @@ def uncounted(fn):
     for f, a, n in before:
         setattr(f, a, n)
     return out, moved
+
+
+def capture(body, device):
+    """Warm ``body`` up eagerly on a side stream (it builds the kernels, sets
+    their attributes and sizes their buffers, which may not happen under
+    capture), then capture it: (graph, its output, [(wrapper, attribute,
+    launches)] a replay makes, seconds)."""
+    t0 = time.perf_counter()
+    side = torch.cuda.Stream(device=device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        body()
+    torch.cuda.current_stream(device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        out, launches = uncounted(body)
+    return graph, out, launches, t0
+
+
+def _count(launches) -> None:
+    """Add a replay's launches to the wrappers' counters."""
+    for f, a, n in launches:
+        setattr(f, a, getattr(f, a) + n)
+
+
+def _fill(dst: torch.Tensor, src) -> None:
+    """A static input from a tensor, an int for every element, or host
+    numbers (one copy, no sync)."""
+    if isinstance(src, torch.Tensor):
+        dst.copy_(src)
+    elif isinstance(src, numbers.Integral):
+        dst.fill_(int(src))
+    else:
+        dst.copy_(torch.as_tensor(src, dtype=dst.dtype), non_blocking=True)
 
 
 class StepGraph:
@@ -113,13 +157,8 @@ class StepGraph:
     def load(self, token, pos, sampling=None) -> None:
         """Set the static inputs: token and pos as host ints or tensors,
         ``sampling`` = (generator, temperature (B,), minp (B,))."""
-        for dst, src in ((self.token, token), (self.pos, pos)):
-            if isinstance(src, torch.Tensor):
-                dst.copy_(src)
-            elif isinstance(src, numbers.Integral):
-                dst.fill_(int(src))
-            else:  # host ints: one copy, no sync
-                dst.copy_(torch.as_tensor(src, dtype=dst.dtype), non_blocking=True)
+        _fill(self.token, token)
+        _fill(self.pos, pos)
         if sampling is not None:
             self.temperature.copy_(sampling[1])
             self.minp.copy_(sampling[2])
@@ -129,19 +168,10 @@ class StepGraph:
         and the inputs the warm-up changed."""
         restore = self.snapshot(self.pos, self.pt)
         token, pos = self.token.clone(), self.pos.clone()
-        t0 = time.perf_counter()
-        side = torch.cuda.Stream(device=self.token.device)
-        side.wait_stream(torch.cuda.current_stream(self.token.device))
-        with torch.cuda.stream(side):
-            self.body()
-        torch.cuda.current_stream(self.token.device).wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-            self.logits, self.launches = uncounted(self.body)
+        self.graph, self.logits, self.launches, t0 = capture(self.body, self.token.device)
         restore()
         self.token.copy_(token)
         self.pos.copy_(pos)
-        self.graph = graph
         torch.cuda.synchronize(self.token.device)
         self.capture_s = time.perf_counter() - t0
 
@@ -152,6 +182,60 @@ class StepGraph:
             torch.rand(self.noise.shape, generator=generator, device=self.noise.device,
                        out=self.noise)
         self.graph.replay()
-        for f, a, n in self.launches:
-            setattr(f, a, getattr(f, a) + n)
+        _count(self.launches)
         StepGraph.replays += 1
+
+
+class VerifyGraph:
+    """One (B, T) forward with every row's logits, captured on first use
+    and replayed: the speculative verify.
+
+    ``forward(tokens, pos0, depth, tree) -> logits (B, T, V)`` is the
+    forward on device state (``model._forward`` with its weights and cache
+    bound; depth and tree None for a linear verify); ``snapshot(pos0)``
+    saves the rows it writes and returns the function that puts them
+    back."""
+
+    replays = 0  # replays of every verify graph since the count was last set
+
+    def __init__(self, forward, snapshot, B: int, T: int, device, tree: bool = False,
+                 keep=()):
+        self.forward, self.snapshot = forward, snapshot
+        self.keep = keep  # what the captured addresses belong to: held
+        self.tokens = torch.zeros((B, T), dtype=torch.int64, device=device)
+        self.pos0 = torch.zeros(B, dtype=torch.int32, device=device)
+        self.depth = torch.zeros(T, dtype=torch.int32, device=device) if tree else None
+        self.tree = torch.zeros((T, T), dtype=torch.bool, device=device) if tree else None
+        self.logits = None  # the captured forward's output, (B, T, V) f32
+        self.graph = None
+        self.launches: list = []
+        self.capture_s = 0.0
+
+    def body(self) -> torch.Tensor:
+        return self.forward(self.tokens, self.pos0, self.depth, self.tree)
+
+    def load(self, tokens, pos0, depth=None, tree=None) -> None:
+        """Set the static inputs (tensors or host numbers); a tree graph
+        takes its depth and mask too."""
+        _fill(self.tokens, tokens)
+        _fill(self.pos0, pos0)
+        if (depth is None) != (self.depth is None) or (tree is None) != (self.tree is None):
+            raise ValueError("a tree verify graph takes depth and tree, a linear one neither")
+        if depth is not None:
+            _fill(self.depth, depth)
+            self.tree.copy_(torch.as_tensor(tree, dtype=torch.bool), non_blocking=True)
+
+    def capture(self) -> None:
+        """Warm up eagerly, capture the forward, then put back the cache
+        rows the warm-up wrote."""
+        restore = self.snapshot(self.pos0)
+        self.graph, self.logits, self.launches, t0 = capture(self.body, self.tokens.device)
+        restore()
+        torch.cuda.synchronize(self.tokens.device)
+        self.capture_s = time.perf_counter() - t0
+
+    def replay(self) -> None:
+        """One forward, and the launches it made counted."""
+        self.graph.replay()
+        _count(self.launches)
+        VerifyGraph.replays += 1

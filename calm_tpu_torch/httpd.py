@@ -18,8 +18,11 @@ One scheduler thread owns the card: it makes every CUDA call (the kernel
 wrappers launch on the calling thread's current stream). Handler threads
 only enqueue requests and wait on per-request queues. SIGTERM drains:
 new requests get 503, the live batch finishes, then the process exits.
-``--dp``, ``--draft``, ``--gamma`` and ``--spec-sampled`` are not ported
-yet and exit 2.
+``--draft d.calm`` serves speculatively (``--gamma`` tokens drafted a
+round at most; ``--spec-sampled`` rejection-samples sampled requests
+inside rounds), and ``/v1/stats`` then carries a ``speculative`` block of
+rounds, emitted and acceptance, as ``calm_tpu.httpd``'s. ``--dp`` is not
+ported yet and exits 2.
 """
 
 from __future__ import annotations
@@ -35,8 +38,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 from calm_tpu_torch.serve import QueueFull, Server
 
-_NOT_PORTED = {"dp": "--dp", "draft": "--draft", "gamma": "--gamma",
-               "spec_sampled": "--spec-sampled"}
+_NOT_PORTED = {"dp": "--dp"}
 
 
 class _Scheduler(threading.Thread):
@@ -149,7 +151,11 @@ def make_handler(sched: _Scheduler):
                                       "hit_tokens": pc.hit_tokens}),
                     "pages_in_use": (None if srv._paged is None
                                      else srv._paged.pages_in_use()),
-                    "speculative": None,
+                    "speculative": (None if srv._draft is None else {
+                        "rounds": srv.spec_rounds,
+                        "emitted": srv.spec_emitted,
+                        "acceptance": srv.spec_accepted / max(srv.spec_emitted, 1),
+                    }),
                 })
             else:
                 self._json(404, {"error": "not found"})
@@ -262,9 +268,16 @@ def main(argv=None):
                     help="graceful-shutdown drain window (SIGTERM)")
     ap.add_argument("--access-log", action="store_true",
                     help="JSONL per-request record on stderr at completion")
+    ap.add_argument("--draft", default=None,
+                    help="draft checkpoint for speculative serving (greedy-exact; "
+                    "engages while every active request is greedy)")
+    ap.add_argument("--gamma", type=int, default=4,
+                    help="speculative draft length per round")
+    ap.add_argument("--spec-sampled", action="store_true",
+                    help="rejection-sample sampled requests inside speculative "
+                    "rounds (distributionally exact)")
     for dest, flag in _NOT_PORTED.items():
-        kw = dict(action="store_const", const=True) if dest == "spec_sampled" else {}
-        ap.add_argument(flag, dest=dest, default=None, help=argparse.SUPPRESS, **kw)
+        ap.add_argument(flag, dest=dest, default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
     for dest, flag in _NOT_PORTED.items():
@@ -278,7 +291,8 @@ def main(argv=None):
                     kv_dtype=args.kv, device_sampling=args.device_sampling,
                     prefix_cache_tokens=args.prefix_cache_tokens,
                     page_rows=args.page_rows, pool_pages=args.pool_pages,
-                    max_pending=args.max_pending, device=device)
+                    max_pending=args.max_pending, draft_path=args.draft,
+                    gamma=args.gamma, spec_sampled=args.spec_sampled, device=device)
     print(server.engine.banner(), flush=True)
     log = None
     if args.access_log:

@@ -83,9 +83,10 @@ import torch
 
 from calm_tpu_torch.config import ModelConfig
 from calm_tpu_torch.container import TensorFile, to_torch
-from calm_tpu_torch.graphs import StepGraph
+from calm_tpu_torch.graphs import StepGraph, VerifyGraph
 from calm_tpu_torch.ops.hopper_attn import (HEAD_DIMS, decode_attention,
-                                            prefill_attention)
+                                            prefill_attention,
+                                            prefill_attention_plain)
 from calm_tpu_torch.ops.hopper_qmm import (MAX_ROWS, act, gf4_ffn,
                                            gf4_ffn_supported, gf4_moe_ffn,
                                            gf4_offn, gf4_offn_qkv,
@@ -972,22 +973,27 @@ def paged_decode_step(cfg: ModelConfig, w: Weights, token, pos,
 
 
 @torch.no_grad()
-def decode_loop(cfg: ModelConfig, w: Weights, token: torch.Tensor, pos0: int,
-                cache: KVCache, n_steps: int, sampling=None):
+def decode_loop(cfg: ModelConfig, w: Weights, token: torch.Tensor, pos0,
+                cache: KVCache, n_steps: int, sampling=None, rolling: bool | None = None):
     """Decode ``n_steps`` tokens with each token chosen on the device: the
     argmax (the counterpart of ``decode_scan_fn``), or with ``sampling``,
     a (generator, temperature (B,), minp (B,)) triple, min-p drawn by
     ``sampler.device_sample`` from each step's logits (``decode_scan_
-    sampled_fn``, ``calm_tpu/model.py:1428-1455``). The chunk keeps the
-    sink rotation only when it can reach the window's edge, as
-    ``calm_tpu/engine.py:251-252`` picks ``rolling``. On the card each step
-    is a replay of the cache's captured step, its token and logits copied
-    out after it; on the CPU the step runs eagerly. Returns (tokens (B, N)
-    int64, cache, per-step logits (N, B, V)), all on the device."""
+    sampled_fn``, ``calm_tpu/model.py:1428-1455``). ``pos0`` is an int for
+    every slot or B host ints, each slot's first position. The chunk keeps
+    the sink rotation only when it can reach the window's edge, as
+    ``calm_tpu/engine.py:251-252`` picks ``rolling``, unless the caller
+    gives ``rolling`` (static, as JAX's). On the card each step is a replay
+    of the cache's captured step, its token and logits copied out after it;
+    on the CPU the step runs eagerly. Returns (tokens (B, N) int64, cache,
+    per-step logits (N, B, V)), all on the device."""
     B = token.shape[0]
-    rolling = pos0 + n_steps >= cfg.seq_len
+    starts = [int(pos0)] * B if isinstance(pos0, (int, np.integer)) else [int(p) for p in pos0]
+    if rolling is None:
+        rolling = max(starts) + n_steps >= cfg.seq_len
     if cache.k.is_cuda:
-        g = _replayed(cfg, w, cache, token, pos0, rolling, sampling=sampling)
+        g = _replayed(cfg, w, cache, token, pos0 if isinstance(pos0, int) else starts,
+                      rolling, sampling=sampling)
         toks = torch.empty((B, n_steps), dtype=torch.int64, device=token.device)
         logits = torch.empty((n_steps,) + tuple(g.logits.shape), dtype=g.logits.dtype,
                              device=token.device)
@@ -996,7 +1002,7 @@ def decode_loop(cfg: ModelConfig, w: Weights, token: torch.Tensor, pos0: int,
             toks[:, i].copy_(g.token)
             logits[i].copy_(g.logits)
         return toks, cache, logits
-    pos = torch.full((B,), pos0, dtype=torch.int32, device=token.device)
+    pos = upload(starts, token.device)
     toks, logits = [], []
     for _ in range(n_steps):
         out = _decode(cfg, w, token, pos, cache, rolling)
@@ -1009,15 +1015,20 @@ def decode_loop(cfg: ModelConfig, w: Weights, token: torch.Tensor, pos0: int,
 
 
 def _prefill_layer(cfg: ModelConfig, lw: LayerWeights, layer: int, x,
-                   cache: KVCache, starts: list[int], cos, sin, pos0, kv_len,
-                   batch_off: int, plan: ShardingPlan = NO_SHARDING, mesh=None):
+                   cache: KVCache, rows: torch.Tensor, cos, sin, pos0, kv_len,
+                   batch_off: int, plan: ShardingPlan = NO_SHARDING, mesh=None,
+                   tree: torch.Tensor | None = None):
     """One layer on x (B*T, D), in the JAX order (``calm_tpu/model.py``
     :915-1059, :1112-1149): the T fresh K/V rows are in the cache (slots
-    from ``batch_off`` on, rows from ``starts``) before the attention reads
-    it. Under sp (the all-gather path, ``:1044-1050``) the rows are this
-    rank's chunk of the prompt: they land in its S-shard at rows 0..T, and
-    the attention reads every shard's chunk, gathered at cache precision."""
-    B, T = len(starts), x.shape[0] // len(starts)
+    from ``batch_off`` on, row rows[b, t] of slot b, one indexed write on
+    the device) before the attention reads it. Under sp (the all-gather
+    path, ``:1044-1050``) the rows are this rank's chunk of the prompt:
+    they land in its S-shard at rows 0..T, and the attention reads every
+    shard's chunk, gathered at cache precision. With ``tree`` the queries
+    are a speculation tree's nodes: the masked attention of
+    :func:`hopper_attn.prefill_attention_plain` over every row of the
+    window (a static count, so that eager and replayed runs sum alike)."""
+    B, T = rows.shape
     hd = cfg.head_dim
     xb = _norm(cfg, x, lw.attn_norm[layer])
     xq = _mm_operand(xb, lw.wq)
@@ -1026,20 +1037,70 @@ def _prefill_layer(cfg: ModelConfig, lw: LayerWeights, layer: int, x,
     H, KVH = q.shape[-1] // hd, k.shape[-1] // hd
     q = apply_rope(q.reshape(B, T, H, hd), cos, sin)
     k = apply_rope(k.reshape(B, T, KVH, hd), cos, sin)
-    kh = k.to(cache.k.dtype).transpose(1, 2)              # (B, KVH, T, hd)
-    vh = v.reshape(B, T, KVH, hd).to(cache.k.dtype).transpose(1, 2)
-    rows = [0] * B if plan.sp is not None else starts
-    for b, p in enumerate(rows):
-        cache.k[layer, batch_off + b, :, p:p + T] = kh[b]
-        cache.v[layer, batch_off + b, :, p:p + T] = vh[b]
+    kt = k.to(cache.k.dtype)                               # (B, T, KVH, hd)
+    vt = v.reshape(B, T, KVH, hd).to(cache.k.dtype)
+    slots = torch.arange(batch_off, batch_off + B, device=rows.device)[:, None]
+    cache.k[layer][slots, :, rows] = kt
+    cache.v[layer][slots, :, rows] = vt
     qg = q.reshape(B, T, KVH, H // KVH, hd).contiguous()
     if plan.sp is not None:  # the whole prompt's K/V as a one-layer cache
-        ka = mesh.all_gather(kh, plan.sp, dim=2)[None].contiguous()
-        va = mesh.all_gather(vh, plan.sp, dim=2)[None].contiguous()
+        ka = mesh.all_gather(kt.transpose(1, 2), plan.sp, dim=2)[None].contiguous()
+        va = mesh.all_gather(vt.transpose(1, 2), plan.sp, dim=2)[None].contiguous()
         att = prefill_attention(qg, ka, va, pos0, kv_len, 0)
+    elif tree is not None:
+        att = prefill_attention_plain(qg, cache.k, cache.v, pos0, kv_len, layer,
+                                      batch_off, tree=tree, rows=cache.k.shape[3])
     else:
         att = prefill_attention(qg, cache.k, cache.v, pos0, kv_len, layer, batch_off)
     return _ffn(cfg, lw, layer, x, att.reshape(B * T, H * hd), xb, plan, mesh)
+
+
+def check_rows(cfg: ModelConfig, cache: KVCache, B: int, T: int, starts,
+               batch_off: int = 0) -> list[int]:
+    """The host's bounds check of a forward of T rows a sequence from
+    ``starts`` (B host ints, or a tensor the caller holds on the host):
+    start + T <= seq_len and the slots inside the cache. Returns the
+    starts as ints."""
+    starts = [int(p) for p in (starts.reshape(-1).tolist() if isinstance(starts, torch.Tensor)
+                               else starts)]
+    if len(starts) != B or min(starts) < 0 or max(starts) + T > cfg.seq_len:
+        raise ValueError(f"prefill needs B={B} starts with start + {T} <= "
+                         f"{cfg.seq_len}, got {starts}")
+    if not 0 <= batch_off <= cache.k.shape[1] - B:
+        raise ValueError(f"slots {batch_off}..{batch_off + B - 1} out of range "
+                         f"for a cache of {cache.k.shape[1]}")
+    return starts
+
+
+def _forward(cfg, w, tokens, p0, cache, logits_mode, batch_off=0,
+             plan: ShardingPlan = NO_SHARDING, mesh=None, kv_len=None, depth=None,
+             tree=None):
+    """The prefill forward on device state (``_forward``, ``calm_tpu/model.py
+    :1323-1331``): tokens (B, T) int64 and p0 (B,) int32 on the device,
+    rows bounds-checked by the caller (:func:`check_rows`). RoPE positions
+    are p0 + t, or p0 + depth[t] for a tree (``depth`` (T,) int32; sibling
+    lanes share positions); KV rows land at p0 + t either way (under sp at
+    t, in the rank's S-shard); kv_len defaults to p0 + T. It reads no device
+    value on the host and sizes no tensor by one: what a graph captures
+    (``graphs.VerifyGraph``). Returns logits per ``logits_mode``."""
+    if logits_mode not in ("last", "all", "none"):
+        raise ValueError(f"unknown logits_mode {logits_mode!r}")
+    B, T = tokens.shape
+    dev = tokens.device
+    t_idx = torch.arange(T, device=dev)
+    rows = (torch.zeros_like(p0) if plan.sp is not None else p0)[:, None].long() + t_idx
+    pos = p0[:, None].long() + (t_idx if depth is None else depth.long())[None, :]
+    cos, sin = rope_tables(pos, cfg.head_dim, cfg.rope_theta, cfg.rotary_dim)
+    x = _embed(w.embed, tokens, plan, mesh).reshape(B * T, cfg.dim)
+    kv_len = p0 + T if kv_len is None else kv_len
+    for layer in range(cfg.n_layers):
+        x = _prefill_layer(cfg, w.layers, layer, x, cache, rows, cos, sin, p0, kv_len,
+                           batch_off, plan, mesh, tree)
+    if logits_mode == "none":
+        return None
+    if logits_mode == "last":
+        return _head(cfg, w, x.reshape(B, T, -1)[:, -1])
+    return _head(cfg, w, x).reshape(B, T, -1)
 
 
 @torch.no_grad()
@@ -1060,30 +1121,71 @@ def prefill(cfg: ModelConfig, w: Weights, tokens: torch.Tensor, pos0,
 
 def _prefill(cfg, w, tokens, pos0, cache, logits_mode, batch_off, plan, mesh,
              kv_len=None):
-    if logits_mode not in ("last", "all", "none"):
-        raise ValueError(f"unknown logits_mode {logits_mode!r}")
     B, T = tokens.shape
+    starts = check_rows(cfg, cache, B, T, pos0, batch_off)
+    p0 = upload(starts, tokens.device)
+    return _forward(cfg, w, tokens, p0, cache, logits_mode, batch_off, plan, mesh,
+                    kv_len), cache
+
+
+@torch.no_grad()
+def tree_verify(cfg: ModelConfig, w: Weights, tokens: torch.Tensor, pos0,
+                depth: torch.Tensor, tree: torch.Tensor, cache: KVCache,
+                plan: ShardingPlan = NO_SHARDING, mesh=None):
+    """Verify a static-shape speculation tree in one forward, eagerly
+    (``tree_verify_fn``, ``calm_tpu/model.py:1377-1400``): tokens (1, N)
+    the tree's nodes in flat order (node 0 the root), pos0 (1,) host
+    ints, depth (N,) int32 each node's depth below the root, tree (N, N)
+    bool ancestor-or-self reachability. RoPE positions are pos0 + depth
+    (sibling lanes share positions); KV rows land flat at pos0 + [0, N);
+    kv_len = pos0 + N. A node attends the context below the tree and its
+    ancestors-or-self inside it (:func:`hopper_attn.prefill_attention_plain`
+    with ``tree``, on both devices: the tree has no TPU kernel, JAX runs it
+    in jnp, ``:1051-1064``). Requires pos0 + N <= seq_len. Returns (logits
+    (1, N, V), cache); ``verify_once`` replays it on the card. Under a
+    ``plan`` one rank's program, as :func:`prefill`."""
+    B, N = tokens.shape
+    starts = check_rows(cfg, cache, B, N, pos0)
+    p0 = upload(starts, tokens.device)
     dev = tokens.device
-    starts = [int(p) for p in torch.as_tensor(pos0).reshape(-1).tolist()]
-    if len(starts) != B or min(starts) < 0 or max(starts) + T > cfg.seq_len:
-        raise ValueError(f"prefill needs B={B} starts with start + {T} <= "
-                         f"{cfg.seq_len}, got {starts}")
-    if not 0 <= batch_off <= cache.k.shape[1] - B:
-        raise ValueError(f"slots {batch_off}..{batch_off + B - 1} out of range "
-                         f"for a cache of {cache.k.shape[1]}")
-    p0 = torch.tensor(starts, dtype=torch.int32, device=dev)
-    pos = p0[:, None].long() + torch.arange(T, device=dev)  # (B, T)
-    cos, sin = rope_tables(pos, cfg.head_dim, cfg.rope_theta, cfg.rotary_dim)
-    x = _embed(w.embed, tokens, plan, mesh).reshape(B * T, cfg.dim)
-    kv_len = p0 + T if kv_len is None else kv_len
-    for layer in range(cfg.n_layers):
-        x = _prefill_layer(cfg, w.layers, layer, x, cache, starts, cos, sin,
-                           p0, kv_len, batch_off, plan, mesh)
-    if logits_mode == "none":
-        return None, cache
-    if logits_mode == "last":
-        return _head(cfg, w, x.reshape(B, T, -1)[:, -1]), cache
-    return _head(cfg, w, x).reshape(B, T, -1), cache
+    return _forward(cfg, w, tokens, p0, cache, "all", 0, plan, mesh,
+                    depth=depth.to(dev), tree=tree.to(dev)), cache
+
+
+def _clamp_rows(r0: int, n: int, S: int) -> int:
+    """A row offset clamped as ``lax.dynamic_slice`` clamps it: the n rows
+    stay inside [0, S)."""
+    return min(max(int(r0), 0), S - n)
+
+
+@torch.no_grad()
+def cache_move_rows(cache: KVCache, src0: int, dst0: int, n: int) -> KVCache:
+    """Relocate ``n`` rows [src0, src0 + n) to [dst0, dst0 + n) in every
+    layer and slot, in place (``cache_move_rows_fn``, ``calm_tpu/model.py
+    :1403-1411``): the tree verify's accepted path lands on contiguous
+    rows. The rows are read into a temporary first, so overlapping ranges
+    are safe, as JAX's slice-then-update; offsets clamp as its dynamic
+    slices do. A graph captured on the cache's buffers sees the moved rows:
+    no buffer is replaced."""
+    S = cache.k.shape[3]
+    src0, dst0 = _clamp_rows(src0, n, S), _clamp_rows(dst0, n, S)
+    for buf in (cache.k, cache.v):
+        buf[:, :, :, dst0:dst0 + n] = buf[:, :, :, src0:src0 + n].clone()
+    return cache
+
+
+@torch.no_grad()
+def cache_bcast_rows(cache: KVCache, lane: int, row0: int, n: int) -> KVCache:
+    """Broadcast one slot's rows [row0, row0 + n) to every slot, in place
+    (``cache_bcast_rows_fn``, ``calm_tpu/model.py:1414-1425``): after a tree
+    round the winning draft lane's chain becomes every lane's history.
+    Read into a temporary first, offsets clamped, as
+    :func:`cache_move_rows`."""
+    B, S = cache.k.shape[1], cache.k.shape[3]
+    lane, row0 = min(max(int(lane), 0), B - 1), _clamp_rows(row0, n, S)
+    for buf in (cache.k, cache.v):
+        buf[:, :, :, row0:row0 + n] = buf[:, lane:lane + 1, :, row0:row0 + n].clone()
+    return cache
 
 
 @torch.no_grad()
@@ -1103,6 +1205,77 @@ def prefill_sp(cfg: ModelConfig, w: Weights, tokens: torch.Tensor, cache: KVCach
     start = mesh.axis_index(plan.sp) * T
     kv_len = torch.full((B,), cfg.seq_len, dtype=torch.int32, device=tokens.device)
     return _prefill(cfg, w, tokens, [start] * B, cache, "all", 0, plan, mesh, kv_len)
+
+
+def _verify_snapshot(cache: KVCache, T: int):
+    """``snapshot(pos0)`` for a VerifyGraph on ``cache``: saves the rows
+    pos0[b] + [0, T) of every slot and layer, which a (B, T) forward writes,
+    and returns the function that writes them back."""
+    def snapshot(pos0):
+        rows = pos0[:, None].long() + torch.arange(T, device=pos0.device)
+        slots = torch.arange(pos0.shape[0], device=pos0.device)[:, None]
+        saved = [(buf, buf[:, slots, :, rows].clone()) for buf in (cache.k, cache.v)]
+
+        def restore():
+            for buf, old in saved:
+                buf[:, slots, :, rows] = old
+        return restore
+    return snapshot
+
+
+def verify_graph(cfg: ModelConfig, w: Weights, cache: KVCache, B: int, T: int,
+                 tree: bool = False) -> VerifyGraph:
+    """The captured (B, T) verify forward on ``cache`` (every row's logits;
+    with ``tree`` the tree-masked forward of :func:`tree_verify`), captured
+    at first use and kept on the cache, keyed as :func:`step_graph` keys the
+    step: by the weights (held by the graph), B, T, the tree's shape or
+    none, ROTATED_DECODE, the precise mode and the KV dtype."""
+    key = ("verify", id(w), B, T, (T, T) if tree else None, ROTATED_DECODE,
+           _qmm._PRECISE, cache.k.dtype)
+    g = cache.graphs.get(key)
+    if g is not None:
+        if any(a is not b for a, b in zip(g.keep, (w, cache.k, cache.v))):
+            raise RuntimeError("a captured verify met other cache buffers than it was "
+                               "captured on")
+        return g
+    kv = KVCache(cache.k, cache.v)  # the buffers only: no cycle through the cache
+
+    def forward(tokens, p0, depth, tr):
+        return _forward(cfg, w, tokens, p0, kv, "all", depth=depth, tree=tr)
+    g = VerifyGraph(forward, _verify_snapshot(kv, T), B, T, cache.k.device, tree,
+                    keep=(w, cache.k, cache.v))
+    cache.graphs[key] = g
+    return g
+
+
+@torch.no_grad()
+def verify_once(cfg: ModelConfig, w: Weights, tokens, pos0, cache: KVCache,
+                depth=None, tree=None) -> torch.Tensor:
+    """Score (B, T) tokens from pos0 (B host ints) in one forward that
+    returns every row's logits (B, T, V): the speculative verify, JAX's
+    ``prefill(..., logits_mode="all")`` over every slot, or with ``depth``
+    and ``tree`` its ``tree_verify``. On the card a dense model's forward
+    is the cache's captured :class:`graphs.VerifyGraph`, replayed (its
+    output is the graph's own buffer, overwritten by its next replay; the
+    same bits as the eager forward on the same inputs). A MoE model's
+    forward stays eager: its grouped products above 16 rows read the group
+    sizes on the host (``_moe_grouped``). On the CPU every forward runs
+    eagerly. The cache is updated in place."""
+    tokens = torch.as_tensor(tokens, dtype=torch.int64)
+    B, T = tokens.shape
+    starts = check_rows(cfg, cache, B, T, pos0)
+    if cache.k.is_cuda and not cfg.n_experts:
+        g = verify_graph(cfg, w, cache, B, T, tree is not None)
+        g.load(tokens, starts, depth, tree)
+        if g.graph is None:
+            g.capture()
+        g.replay()
+        return g.logits
+    tokens = tokens.to(cache.k.device)
+    if tree is not None:
+        return tree_verify(cfg, w, tokens, starts, torch.as_tensor(depth),
+                           torch.as_tensor(tree), cache)[0]
+    return _prefill(cfg, w, tokens, starts, cache, "all", 0, NO_SHARDING, None)[0]
 
 
 def prefill_slot(cfg: ModelConfig, w: Weights, tokens: torch.Tensor,

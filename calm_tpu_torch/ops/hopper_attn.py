@@ -332,19 +332,40 @@ def prefill_plan(B: int, T: int, KVH: int, M: int, hd: int, pos0_max: int = 0,
 
 
 def prefill_attention_plain(q, k_cache, v_cache, pos0, kv_len, layer,
-                            batch_off=0):
-    """Masked softmax in f32 over the cache rows any query can see."""
+                            batch_off=0, tree=None, rows=None):
+    """Masked softmax in f32 over the cache rows any query can see: the
+    first ``rows`` (a host int; from kv_len on the host when None, which
+    reads a device value).
+
+    With ``tree`` (T, T) bool, the queries are a speculation tree's nodes
+    in cache rows [kv_len - T, kv_len): a node sees the context below the
+    tree and, inside it, the nodes ``tree`` marks (its ancestors and
+    itself), as ``calm_tpu/model.py:613-630`` masks them. That attention
+    has no TPU kernel (JAX runs it in jnp, ``:1051-1064``: the flash
+    kernel takes one contiguous causal run, as K13 does), so this function
+    is its designed route on both devices, not a fallback of a kernel. It
+    reads no device value on the host when ``rows`` is given, so a graph
+    can capture it."""
     B, T, KVH, M, hd = q.shape
-    n = max(1, min(k_cache.shape[3], int(kv_len.max())))
+    n = max(1, min(k_cache.shape[3], int(kv_len.max()) if rows is None else int(rows)))
     dev = q.device
     slots = slice(batch_off, batch_off + B)
     kc = k_cache[int(layer), slots, :, :n].float()        # (B, KVH, n, hd)
     vc = v_cache[int(layer), slots, :, :n].float()
     scores = torch.einsum("btkmh,bksh->bkmts", q.float(), kc) / math.sqrt(hd)
-    col = torch.arange(n, device=dev)
-    qpos = pos0.to(dev).long()[:, None] + torch.arange(T, device=dev)  # (B, T)
-    ok = ((col[None, None, :] < kv_len.to(dev).long()[:, None, None])
-          & (col[None, None, :] <= qpos[:, :, None]))     # (B, T, n)
+    col = torch.arange(n, device=dev)[None, None, :]
+    end = kv_len.to(dev).long()[:, None, None]
+    if tree is None:
+        qpos = pos0.to(dev).long()[:, None] + torch.arange(T, device=dev)  # (B, T)
+        ok = (col < end) & (col <= qpos[:, :, None])       # (B, T, n)
+    else:
+        if tree.shape != (T, T):
+            raise ValueError(f"tree verify needs one query per node (T={T}, "
+                             f"tree {tuple(tree.shape)})")
+        p0 = end - T                                       # (B, 1, 1)
+        node = (col - p0).clamp(0, T - 1).expand(B, T, n)
+        seen = torch.gather(tree.to(dev)[None].expand(B, T, T), 2, node)
+        ok = (col < end) & torch.where(col >= p0, seen, col < p0)
     scores = scores.masked_fill(~ok[:, None, None], float("-inf"))
     m = scores.amax(-1, keepdim=True)
     p = torch.exp(scores - torch.where(torch.isfinite(m), m, torch.zeros_like(m)))

@@ -14,7 +14,7 @@ from calm_tpu_torch.parallel.plan import NO_SHARDING, ShardingPlan  # noqa: F401
 
 _LAZY = ("weight_pspecs", "cache_pspecs", "shard_weights", "shard_cache",
          "load_weights_sharded", "sharded_decode_step", "sharded_prefill",
-         "sharded_prefill_slot", "sharded_prefill_sp")
+         "sharded_prefill_slot", "sharded_prefill_sp", "sharded_tree_verify")
 
 
 def __getattr__(name):

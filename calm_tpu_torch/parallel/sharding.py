@@ -225,6 +225,21 @@ def sharded_prefill(cfg: ModelConfig, mesh: Mesh, plan: ShardingPlan,
     return run
 
 
+def sharded_tree_verify(cfg: ModelConfig, mesh: Mesh, plan: ShardingPlan):
+    """The sharded tree-verify forward (``calm_tpu/parallel/sharding.py
+    :223-238``): (local w, tokens (1, N), pos0 (1,) host ints, depth (N,),
+    tree (N, N) bool, local cache) -> (logits (1, N, V) on every rank,
+    cache). The tree's nodes ride the T axis, tp shards the heads as in
+    decode, the mask is replicated and the logits are gathered. It runs
+    eagerly on the local weights, as the sharded step does."""
+    def run(w, tokens, pos0, depth, tree, cache):
+        logits, cache = M.tree_verify(cfg, w, tokens.to(cache.k.device), pos0,
+                                      torch.as_tensor(depth), torch.as_tensor(tree),
+                                      cache, plan, mesh)
+        return _gather_logits(logits, mesh, plan), cache
+    return run
+
+
 def sharded_prefill_slot(cfg: ModelConfig, mesh: Mesh, plan: ShardingPlan):
     """Continuous-batching admission on a sharded model: (local w, tokens
     (1, T), n_valid, slot, local cache) -> (logits after token n_valid - 1

@@ -20,12 +20,20 @@ device).
   (``model.decode_once``): the host copies the tokens and positions in
   and reads the logits or ids out. It keeps the sink rotation only when a
   slot reaches the window's edge, as ``calm_tpu/serve.py:890`` picks
-  ``rolling``.
+  ``rolling``;
+- with a draft model (``draft_path``, or ``draft_engine`` built in
+  memory) a tick is a speculative round while every active request is
+  greedy (or sampled, with ``spec_sampled``) and away from the window's
+  edge (``calm_tpu/serve.py:514-664``): one (B, g) draft loop, one (B,
+  g+1) verify of every slot (on the card the target cache's captured
+  verify, replayed), acceptance per slot and an adaptive depth g in [1,
+  gamma]; plain ticks step the draft's cache beside the target's. Dense
+  only, as JAX's.
 
 Prompts are prefilled at their exact length: the JAX server pads them to
 buckets so that XLA compiles once per bucket, which eager PyTorch does not
-need. Sharded serving (``mesh``/``plan``/``dp_devices``) and speculative
-serving (``draft_path``) belong to later slices and raise.
+need. Sharded serving (``mesh``/``plan``/``dp_devices``) belongs to a
+later slice and raises.
 """
 
 from __future__ import annotations
@@ -151,21 +159,30 @@ class Server:
     ``seed`` then seeds the server's generator instead of a per-request
     xorshift stream; leave it off for draws bit-compatible with the JAX
     server's host sampling. ``engine`` hands the server an Engine built
-    already (one made in memory); ``device`` selects the CPU for tests."""
+    already (one made in memory); ``device`` selects the CPU for tests.
+
+    ``draft_path`` serves speculatively with that draft model (made as
+    JAX's: the target's context, ``kv_dtype`` and slot count), proposing
+    up to ``gamma`` tokens a round; ``spec_sampled`` rejection-samples the
+    sampled requests inside rounds (distributionally exact; texts differ
+    from the plain server's by design). ``draft_engine`` hands in a draft
+    Engine built already, as ``engine`` does for the target."""
 
     def __init__(self, path: str | None = None, batch: int = 4, context: int = 0,
                  kv_dtype: str | None = None, device_sampling: bool = False,
                  seed: int = 42, mesh=None, plan=None,
                  prefix_cache_tokens: int = 0, page_rows: int = 0,
                  pool_pages: int = 0, max_pending: int = 0, dp_devices=None,
-                 draft_path: str | None = None, spec_sampled: bool = False,
-                 device=None,
-                 engine: Engine | None = None):
+                 draft_path: str | None = None, gamma: int = 4,
+                 spec_sampled: bool = False, device=None,
+                 engine: Engine | None = None, draft_engine: Engine | None = None):
         if mesh is not None or plan is not None or dp_devices is not None:
             raise NotImplementedError(
                 "sharded serving (mesh/plan/dp_devices) is not ported yet")
-        if draft_path is not None or spec_sampled:
-            raise NotImplementedError("speculative serving is not ported yet")
+        speculative = draft_path is not None or draft_engine is not None
+        if speculative and page_rows:
+            raise ValueError("speculative serving is dense single-device, as "
+                             "calm_tpu's (calm_tpu/serve.py:328-329)")
         if engine is None:
             # a paged server keeps no dense cache: a one-slot engine
             engine = Engine(path, context=context, kv_dtype=kv_dtype,
@@ -189,6 +206,25 @@ class Server:
             self.prefix_cache = PrefixCache(
                 prefix_cache_tokens,
                 on_evict=None if self._paged is None else self._paged.unpin_pages)
+        # speculative continuous batching (calm_tpu/serve.py:306-336): the
+        # draft proposes g tokens a slot in one batched loop, the target
+        # verifies every slot's chain in one (B, g+1) forward, each slot
+        # emits its longest matching prefix and the target's correction
+        self._draft = None
+        self.spec_sampled = spec_sampled
+        self.gamma = gamma          # the most tokens a round drafts
+        self._gamma_now = gamma     # adaptive: shrinks at low acceptance
+        self.spec_rounds = self.spec_accepted = self.spec_emitted = 0
+        if speculative:
+            self._draft = draft_engine or Engine(draft_path, context=eng.cfg.seq_len,
+                                                 kv_dtype=kv_dtype, batch=batch,
+                                                 device=eng.device)
+            if self._draft.batch != batch:
+                raise ValueError(f"the draft has {self._draft.batch} slots, not {batch}")
+            if self._draft.cfg.vocab_size != eng.cfg.vocab_size:
+                raise ValueError("draft and target must share the vocabulary")
+            self._spec_gen = torch.Generator(device=eng.device)
+            self._spec_gen.manual_seed(seed ^ 0x5BD1)
         self.slots = [_Slot() for _ in range(batch)]
         self.pending: deque[Request] = deque()
         self.max_pending = max_pending  # 0: unbounded
@@ -336,6 +372,7 @@ class Server:
         eng = self.engine
         S = eng.cfg.seq_len
         admissions: list[tuple[int, list[int], int]] = []
+        draft_pre: list[tuple[int, list[int]]] = []
         for b, slot in enumerate(self.slots):
             if slot.active or not self.pending:
                 continue
@@ -377,6 +414,10 @@ class Server:
                 req.cached_prefix = hit
                 if pre[hit:]:
                     admissions.append((b, pre[hit:], hit))
+                if self._draft is not None:
+                    # the draft has no prefix cache: it prefills the whole
+                    # prompt into its own slot
+                    draft_pre.append((b, pre))
 
             slot.active = True
             slot.req = req
@@ -393,6 +434,11 @@ class Server:
             M.prefill_slot(eng.cfg, eng.weights,
                            torch.tensor([suffix], dtype=torch.int64, device=eng.device),
                            b, eng.cache, pos0=hit)
+        for b, pre in draft_pre:
+            d = self._draft
+            M.prefill_slot(d.cfg, d.weights,
+                           torch.tensor([pre], dtype=torch.int64, device=d.device),
+                           b, d.cache)
 
         if self.prefix_cache is not None and self._paged is None:
             for b, slot in enumerate(self.slots):
@@ -442,12 +488,22 @@ class Server:
                 sampled = self._paged.step_sampled(self._gen, *self._sampling_tensors())
             else:
                 logits = self._paged.step()
+        elif self._draft is not None and self._spec_ready():
+            self._tick_speculative()
+            return
         else:
+            rolling = bool(np.any(self._pos + 1 >= eng.cfg.seq_len))
             out, nxt = M.decode_once(
-                eng.cfg, eng.weights, self._tokens, self._pos, eng.cache,
-                bool(np.any(self._pos + 1 >= eng.cfg.seq_len)),
+                eng.cfg, eng.weights, self._tokens, self._pos, eng.cache, rolling,
                 sampling=((self._gen,) + self._sampling_tensors()
                           if self.device_sampling else None))
+            if self._draft is not None:
+                # the draft's cache steps beside the target's through plain
+                # ticks (a sampled request or the window's edge stops the
+                # rounds, not the draft); the rolling mechanics follow pos,
+                # so both caches stay consistent
+                d = self._draft
+                M.decode_once(d.cfg, d.weights, self._tokens, self._pos, d.cache, rolling)
             if self.device_sampling:
                 sampled = nxt.tolist()
             else:
@@ -477,3 +533,137 @@ class Server:
             slot.token = nxt
             self._tokens[b] = nxt
             self._pos[b] = slot.pos
+
+    # -- speculative rounds ---------------------------------------------------
+
+    def _spec_ready(self) -> bool:
+        """Speculate this tick? Every active request must be greedy, or
+        sampled with ``spec_sampled`` on, and far enough from the window's
+        edge for a full round and the bonus row (``calm_tpu/serve.py
+        :514-528``)."""
+        S = self.engine.cfg.seq_len
+        act = [s for s in self.slots if s.active]
+        if not act:
+            return False
+        for s in act:
+            if s.req.temperature != 0.0 and not self.spec_sampled:
+                return False
+            if s.pos + self._gamma_now + 2 >= S:
+                return False
+        return True
+
+    def _tick_speculative(self):
+        """One speculative round for the whole batch (``calm_tpu/serve.py
+        :530-664``): a (B, g) draft loop, ONE (B, g+1) target verify,
+        acceptance per slot on the host.
+
+        Per slot the rule is greedy (the longest argmax-matching prefix and
+        the target's correction: only target argmaxes are emitted) or, for
+        sampled requests under ``spec_sampled``, rejection sampling with the
+        slot's own xorshift stream. A fully accepting slot takes a bonus
+        token from verify row g, and the draft writes the row its loop never
+        wrote. Every slot is verified, parked ones too: a parked slot's
+        start is clamped so that its g+1 rows stay in the window, as JAX's
+        ``dynamic_update_slice`` clamps its write (its rows and logits are
+        never read). Cache rows past a slot's stop are masked and written
+        again later."""
+        from calm_tpu_torch.speculative import _draw, _minp_probs
+
+        eng, draft, g = self.engine, self._draft, self._gamma_now
+        tok = eng.tokenizer
+        S = eng.cfg.seq_len
+        pos_before = self._pos.copy()
+        tokens = M.upload(self._tokens, draft.device, torch.int64)
+        sampled_round = any(s.active and s.req.temperature > 0.0 for s in self.slots)
+        # 1) the draft proposes g tokens a slot (replays of its step):
+        #    argmaxes, or per-slot min-p draws (parked and greedy slots have
+        #    temperature 0: the argmax) with each step's logits kept for q
+        d_toks, draft.cache, d_logits = M.decode_loop(
+            draft.cfg, draft.weights, tokens, self._pos.tolist(), draft.cache, g,
+            ((self._spec_gen,) + self._sampling_tensors()) if sampled_round else None,
+            rolling=False)
+        d_logits = d_logits.float().cpu().numpy() if sampled_round else None  # (g, B, V)
+        proposal = d_toks.cpu().numpy()                                     # (B, g)
+        # 2) the target scores every slot's chain in one forward: row i
+        #    judges proposal[i]; row g is the bonus distribution
+        verify = np.concatenate([self._tokens[:, None], proposal], axis=1)
+        starts = np.minimum(self._pos, S - (g + 1)).tolist()
+        t_np = M.verify_once(eng.cfg, eng.weights, verify, starts,
+                             eng.cache).float().cpu().numpy()              # (B, g+1, V)
+        t_args = t_np.argmax(-1)
+        # 3) acceptance per slot
+        now = time.perf_counter()
+        self.spec_rounds += 1
+        round_match = round_seen = 0
+        full_accept = np.zeros(self.batch, bool)
+        for b, slot in enumerate(self.slots):
+            if not slot.active:
+                continue
+            req = slot.req
+            emitted: list[int] = []
+            n_match = 0
+            if req.temperature == 0.0:
+                for i in range(g):
+                    nxt = int(t_args[b, i])
+                    emitted.append(nxt)
+                    if nxt != int(proposal[b, i]):
+                        break
+                    n_match += 1
+                else:
+                    emitted.append(int(t_args[b, g]))  # bonus
+            else:
+                rng = slot.sampler.rng
+                for i in range(g):
+                    p = _minp_probs(t_np[b, i], req.temperature, req.minp)
+                    q = _minp_probs(d_logits[i, b], req.temperature, req.minp)
+                    x = int(proposal[b, i])
+                    if q[x] > 0 and rng.next_f32() < min(1.0, float(p[x] / q[x])):
+                        emitted.append(x)
+                        n_match += 1
+                        continue
+                    resid = np.maximum(p - q, 0.0)
+                    s = resid.sum(dtype=np.float32)
+                    if s <= 0:
+                        resid, s = p, p.sum(dtype=np.float32)
+                    emitted.append(_draw(resid, rng.next_f32() * s))
+                    break
+                else:
+                    p = _minp_probs(t_np[b, g], req.temperature, req.minp)
+                    emitted.append(_draw(p, rng.next_f32() * p.sum()))
+            full_accept[b] = n_match == g
+            self.spec_accepted += n_match
+            self.spec_emitted += min(len(emitted), g)
+            round_match += n_match
+            round_seen += min(len(emitted), g)
+            for nxt in emitted:
+                if req.n_generated == 0:
+                    req.first_token_at = now
+                slot.pos += 1
+                req.n_generated += 1
+                req.ids.append(nxt)
+                if (nxt in (tok.bos_id, tok.eos_id, tok.eot_id)
+                        or req.n_generated >= req.max_tokens):
+                    self._finish(req, b, now)
+                    break
+                piece = tok.decode_piece(slot.token, nxt)
+                slot.out += piece
+                if req.on_piece:
+                    req.on_piece(piece.decode("utf-8", errors="replace"))
+                slot.token = nxt
+                self._tokens[b] = nxt
+                self._pos[b] = slot.pos
+        # 4) the draft rows the loop never wrote: a fully accepting slot's
+        #    proposal[-1] row at p0+g would stay a hole; the other slots
+        #    write their current token at its own position again, which the
+        #    next round writes the same
+        if full_accept.any():
+            bf_tok = np.where(full_accept, proposal[:, -1], self._tokens)
+            bf_pos = np.where(full_accept, pos_before + g, self._pos)
+            M.decode_once(draft.cfg, draft.weights, bf_tok.tolist(), bf_pos.tolist(),
+                          draft.cache, False)
+        # the draft's depth follows the round's acceptance, within [1, gamma]
+        rate = round_match / max(round_seen, 1)
+        if rate >= 0.8:
+            self._gamma_now = min(self.gamma, self._gamma_now + 1)
+        elif rate < 0.4:
+            self._gamma_now = max(1, self._gamma_now - 1)

@@ -179,7 +179,13 @@ def synth_container(path: str, cfg: ModelConfig, seed: int = 0,
     ``mlp.norm.weight``, as ``tests/modelgen.py`` writes them; fp8e4 with
     each tensor's ``.scale`` beside it ((1,), or (E, 1) for an expert
     stack), as the converter writes them."""
-    w = synth_weights(cfg, seed, device, random)
+    write_weights(path, cfg, synth_weights(cfg, seed, device, random), tied)
+    return cfg
+
+
+def write_weights(path: str, cfg: ModelConfig, w: Weights, tied: bool = False) -> None:
+    """Write the weights ``w`` of ``cfg`` as :func:`synth_container` writes
+    its own (a byte vocab; ``w.output`` left out when ``tied``)."""
     lw = w.layers
     t: dict = {}
 
@@ -206,4 +212,3 @@ def synth_container(path: str, cfg: ModelConfig, seed: int = 0,
     t["tokenizer.tokens"] = tokens
     t["tokenizer.scores"] = scores
     write_tensors(path, t, cfg.to_metadata())
-    return cfg

@@ -1,6 +1,6 @@
 """Times another tree's gf4 matvecs with this tree's checks.
 
-    python3 chip_compare.py <directory holding another checkout's calm_tpu_torch> [--mixtral]
+    python3 chip_compare.py <directory holding another checkout's calm_tpu_torch> [--mixtral | --prefill]
 
 Puts that directory first on ``sys.path``, builds its kernels, and runs
 ``chip_smoke.multirow_kernel_rows_gf4_decode`` (K3 on the Aya 23 8B
@@ -13,9 +13,12 @@ Mistral-7B widths, K6 also at B = 8, each split by launch) and
 every row checked against its plain version and timed beside its bound
 and library call, on that tree's wrappers. With ``--mixtral`` it also runs
 ``chip_smoke.full_width_phase`` on the 16-layer Mixtral 8x7B, fp8 and gf4
-(prefill, decode and the 8-slot serving drains) on that tree. Run it
-before and after ``chip_smoke.py`` in one call on the card to compare two
-commits there. Needs a GPU.
+(prefill, decode and the 8-slot serving drains) on that tree. With
+``--prefill`` it times only the 2048-token prefill of the 32-layer fp8
+Mistral-7B (the bit-pattern weights, bf16 KV; median of 10 by the host
+clock, the card synchronised around each). Run it before and after
+``chip_smoke.py`` in one call on the card to compare two commits there, or
+on two trees in turns (A, B, B, A). Needs a GPU.
 """
 
 import importlib.util
@@ -25,7 +28,7 @@ import sys
 
 
 def main():
-    if len(sys.argv) not in (2, 3) or sys.argv[2:] not in ([], ["--mixtral"]):
+    if len(sys.argv) not in (2, 3) or sys.argv[2:] not in ([], ["--mixtral"], ["--prefill"]):
         sys.exit(__doc__)
     pkg = os.path.abspath(sys.argv[1])
     sys.path.insert(0, pkg)
@@ -46,6 +49,9 @@ def main():
     cs.log(f"# {calm_tpu_torch.__file__} on {device.smi_name_power()}; kernel build "
            f"{build.build_all():.1f} s")
     dev = torch.device("cuda")
+    if sys.argv[2:] == ["--prefill"]:
+        cs.log(json.dumps(prefill_ms(cs, dev)))
+        return
     rows = cs.multirow_kernel_rows_gf4_decode(3350.0, dev)
     rows.update(cs.onerow_kernel_rows_gf4(3350.0, dev))
     rows.update(cs.moe_multirow_kernel_rows(3350.0, dev))
@@ -54,6 +60,38 @@ def main():
         smi = device.smi_name_power()
         for fmt in ("fp8", "gf4"):
             cs.full_width_phase(fmt, dev, 3350.0, smi, cs.EXPERTS)
+
+
+def prefill_ms(cs, dev) -> dict:
+    """The 2048-token prefill of the 32-layer fp8 Mistral-7B on this tree:
+    ms by the host clock (median, min, max of 10 after 3 warm)."""
+    import statistics
+    import time
+
+    import torch
+
+    from calm_tpu_torch import model as M
+    from calm_tpu_torch.config import ModelConfig
+    from calm_tpu_torch.utils.synth import synth_weights
+
+    cfg = ModelConfig(**cs.MISTRAL, rope_theta=10000.0, seq_len=4096, rotary_dim=128,
+                      dtype="fp8", norm_ln=False)
+    w = synth_weights(cfg, seed=0, device=dev)
+    cache = M.KVCache.create(cfg, 1, torch.bfloat16, dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    prompt = torch.randint(3, cfg.vocab_size, (1, 2048), generator=gen, device=dev)
+    for _ in range(3):
+        M.prefill(cfg, w, prompt, [0], cache, "last")
+    ts = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        M.prefill(cfg, w, prompt, [0], cache, "last")
+        torch.cuda.synchronize()
+        ts.append(1e3 * (time.perf_counter() - t))
+    return {"prefill_fp8_mistral7b_T2048_ms": statistics.median(ts), "min": min(ts),
+            "max": max(ts)}
 
 
 if __name__ == "__main__":

@@ -59,6 +59,17 @@ with ROTATED_DECODE off (K3 and K7 at 8 rows), on the 32-layer
 Mistral-7B fp8e4 (K2's e4m3 body at 8 rows), and on the 16-layer
 Mixtral 8x7B fp8, gf4 and fp8e4 of the decode phase (the expert sweep at
 8 rows: K10's and K11's multi-row FFN; each sweep's live experts counted);
+checks speculative decoding: K13 at a verify's T (4 and 5 query rows at
+the window's end, B = 1 and 8) against its plain version, timed beside
+SDPA and T launches of K12; the captured verify replayed bit for bit
+against the eager forward (2-layer fp8 and gf4: linear B = 1 and 3, the
+k=3, m=4 tree; every full-width verify); the CLI's ``--draft`` on the
+2-layer Mistral-width fp8 container with itself and its gf4 twin, a
+``Server`` and ``httpd`` with a draft, held to the CPU path; and on the
+32-layer fp8 Mistral-7B the linear loop at gamma 4 (the target as draft,
+and a TinyLlama-1.1B-shaped draft), the tree (k=3, m=4) and an 8-slot
+drain of 8 greedy requests with the target as draft, ids held to plain
+replayed greedy up to near-ties, each self-draft rejection at a near-tie;
 and ends with a ``kernels`` JSON line and
 ``{"ok": true, "device": ...}``. Any
 failure exits non-zero before the last line; without a GPU it exits 1 at
@@ -2394,8 +2405,9 @@ def counters():
     out["qmm_decode_rows"] = (hq.qmm_decode, "rows_launches")
     out["qmm_decode_gf4_rows"] = (hq.qmm_decode_gf4, "rows_launches")
     out["decode_attention_partials"] = (ha.decode_attention, "partials_launches")
-    from calm_tpu_torch.graphs import StepGraph
+    from calm_tpu_torch.graphs import StepGraph, VerifyGraph
     out["graph_replays"] = (StepGraph, "replays")  # replays of captured steps
+    out["verify_replays"] = (VerifyGraph, "replays")  # replays of captured verifies
     return {k: (f, a) for k, (f, a) in out.items() if hasattr(f, a)}
 
 
@@ -2612,6 +2624,7 @@ def container_phase(fmt, dev, experts: int = 0, cohere: bool = False):
     light = (cohere and fmt == "fp8") or (fmt == "fp8e4" and experts > 0)
     served = fmt != "fp8e4"
     precise = fmt in ("fp8", "gf4") and not (experts or cohere)
+    speculative = fmt == "fp8" and not (experts or cohere)
     rot0 = None
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, f"{name}-width-2l-{fmt}.calm")
@@ -2620,6 +2633,12 @@ def container_phase(fmt, dev, experts: int = 0, cohere: bool = False):
         synth_container(path, cfg, seed=1, device=dev, random=True, tied=cohere)
         log(f"# {what} engine: wrote {os.path.getsize(path) / 1e9:.2f} GB container "
             f"in {time.perf_counter() - t0:.1f} s")
+        twin, spec_procs = None, None
+        if speculative:  # the draft of the same weights in gf4; the CLI's --draft runs
+            twin = os.path.join(tmp, f"{name}-width-2l-gf4-twin.calm")
+            gf4_twin(twin, cfg, 1, dev)
+            spec_procs = {kind: cli(path, SPEC_CLI + ["--draft", d])
+                          for kind, d in (("self", path), ("gf4 twin", twin))}
         text_path = os.path.join(tmp, "ppl.txt")
         with open(text_path, "w") as f:
             f.write(PROMPT_LONG * 3)
@@ -2634,7 +2653,8 @@ def container_phase(fmt, dev, experts: int = 0, cohere: bool = False):
         if precise:
             # the whole text in one window, as the engines' perplexity below
             procs.append(cli(path, ["--precise", "-x", text_path, "-n", "0"]))
-        http_args = ["--page-rows", "16"] if fmt == "gf4" else []
+        http_args = (["--page-rows", "16"] if fmt == "gf4"
+                     else ["--draft", path, "--gamma", "3"] if speculative else [])
         httpd = httpd_proc(path, http_args) if served and not light else None
         eng = Engine(path)
         log(eng.banner())
@@ -2758,8 +2778,12 @@ def container_phase(fmt, dev, experts: int = 0, cohere: bool = False):
                 log(f"# {what} cli -y: {len(out)} characters, exit 0")
         t_serve = time.perf_counter()
         if served:
-            serving_checks(path, what, cpu, full=not (experts or cohere))
-            http_check(httpd, what + (" paged" if http_args else ""))
+            want_srv, lcs_srv = serving_checks(path, what, cpu, full=not (experts or cohere))
+            if speculative:
+                speculative_container_checks(path, twin, what, eng, cpu, dev, want_srv,
+                                             lcs_srv, spec_procs)
+            http_check(httpd, what + (" paged" if fmt == "gf4" else " --draft --gamma 3"
+                                      if speculative else ""), speculative)
         log(f"# {what}: container phase {time.perf_counter() - t0:.1f} s, of it serving "
             f"{time.perf_counter() - t_serve:.1f} s")
         del eng, cpu
@@ -2832,7 +2856,7 @@ def same_served(what, got, want, temperature, lg, lc, tol) -> str:
 def serving_checks(path, what, cpu, full=True):
     """``Server`` on the card, dense, paged (16-row pages, a pool of half
     the dense rows) and dense with the prefix cache (``full``; else dense
-    and paged on the first two requests, greedy, 8 tokens each), each held
+    and paged on the first two requests, greedy, 5 tokens each), each held
     to a CPU server on the same requests. The CPU server runs on ``cpu``'s
     weights with a slot for each request: a request's ids do not depend on
     the slot count, and the CPU's ticks, each a pass over all weights, are
@@ -2841,7 +2865,9 @@ def serving_checks(path, what, cpu, full=True):
     from calm_tpu_torch.engine import Engine
     from calm_tpu_torch.serve import Server
 
-    reqs = SERVE_REQUESTS if full else [(p, 8, 0.0, s) for p, _, _, s in SERVE_REQUESTS[:2]]
+    # 5 tokens a light request: each CPU tick of a MoE model decodes every
+    # expert's planes, the script's slowest CPU work
+    reqs = SERVE_REQUESTS if full else [(p, 5, 0.0, s) for p, _, _, s in SERVE_REQUESTS[:2]]
     t0 = time.perf_counter()
     ref = Engine.from_weights(cpu.cfg, cpu.weights, cpu.tokenizer, n_bytes=cpu.n_bytes,
                               n_params=cpu.n_params, n_bandwidth=cpu.n_bandwidth,
@@ -2895,6 +2921,7 @@ def serving_checks(path, what, cpu, full=True):
             log(f"# {what}: a paged decode step of 4 slots at positions {pos} ran "
                 "with no host sync")
         del srv
+    return want, lcs
 
 
 def httpd_proc(path, args):
@@ -2913,9 +2940,10 @@ def same_stream(streamed: str, text: str) -> bool:
     return bool(streamed) and all(c in it for c in streamed if c != "\ufffd")
 
 
-def http_check(proc, what):
+def http_check(proc, what, speculative: bool = False):
     """Health, a streamed and a plain greedy generate (the same text),
-    stats, then SIGTERM: the server drains and exits 0."""
+    stats (with ``speculative``, a ``speculative`` block of JAX's keys
+    that counts rounds), then SIGTERM: the server drains and exits 0."""
     banner = proc.stdout.readline()
     line = proc.stdout.readline()
     m = re.search(r"http://[\d.]+:(\d+)", line)
@@ -2943,6 +2971,10 @@ def http_check(proc, what):
     except subprocess.TimeoutExpired:
         proc.kill()
         fail(f"{what} httpd did not drain on SIGTERM")
+    spec = stats.get("speculative")
+    if speculative and (not spec or set(spec) != {"rounds", "emitted", "acceptance"}
+                        or spec["rounds"] < 1):
+        fail(f"{what} httpd --draft: stats {stats}")
     if (health.get("status") != "ok" or not same_stream(streamed, plain["text"])
             or proc.returncode != 0
             or "# drained" not in errs or plain["tokens"] < 1):
@@ -3001,19 +3033,29 @@ def eager_loop(cfg, w, token, pos0, cache, n, sampling=None):
 
 
 def log_captures():
-    """Log every capture of a decode step with its time."""
-    from calm_tpu_torch.graphs import StepGraph
+    """Log every capture of a decode step or a verify with its time, and
+    keep it in CAPTURES."""
+    from calm_tpu_torch.graphs import StepGraph, VerifyGraph
 
-    real = StepGraph.capture
+    real, real_v = StepGraph.capture, VerifyGraph.capture
 
     def capture(self):
         real(self)
+        CAPTURES.append(("step", self.token.shape[0], None, self.capture_s))
         log(f"# graph capture: B={self.token.shape[0]}, "
             f"{'sampled' if self.sampled else 'greedy'}, "
             f"{'paged' if self.pt is not None else 'dense'}, "
             f"{sum(n for _, _, n in self.launches)} wrapper launches a replay: "
             f"{1e3 * self.capture_s:.1f} ms (eager warm-up included)")
-    StepGraph.capture = capture
+
+    def capture_v(self):
+        real_v(self)
+        B, T = self.tokens.shape
+        CAPTURES.append(("verify", B, T, self.capture_s))
+        log(f"# graph capture: verify B={B} T={T}{' tree' if self.tree is not None else ''}, "
+            f"{sum(n for _, _, n in self.launches)} wrapper launches a replay: "
+            f"{1e3 * self.capture_s:.1f} ms (eager warm-up included)")
+    StepGraph.capture, VerifyGraph.capture = capture, capture_v
 
 
 def same_bits(what, got, want):
@@ -3123,6 +3165,570 @@ def graph_wrap_check(dev):
         del w, ce_, cr_, pe, pr
         torch.cuda.empty_cache()
     return out
+
+
+# -- speculative decoding: the replayed verify, K13 at a verify's T ----------
+
+GAMMA = 4          # the speculative depth of every speculative path here
+VERIFY_T = (4, 5)  # a verify's query rows at GAMMA: the linear chain (g), a served round (g+1)
+CAPTURES = []      # (kind, B, T or None, seconds) of every capture, in order
+SPEC_COUNTS = {}   # the launch counts of the full-width speculative drain
+
+
+def verify_kernel_rows(gbps, dev):
+    """K13 at a speculative verify's shapes: Mistral-7B's heads (32 query,
+    8 kv, hd 128), bf16 KV, T = 4 and 5 query rows from pos0 = 4091 (the
+    window's last rows), B = 1 and 8, against its plain version; timed
+    beside causal SDPA on the same rows (the library row) and beside T
+    launches of K12, one a query row at its own kv_len (the same function,
+    also checked against K13's output). Returns the kernels line's row: T=5,
+    B=8, the served round's verify."""
+    import torch.nn.functional as F
+
+    from calm_tpu_torch.ops import hopper_attn as ha
+
+    KVH, M, S, hd, L, pos0 = 8, 4, 4096, 128, 2, 4091
+    row = None
+    for B in (1, 8):
+        kc = (torch.randn(L, B, KVH, S, hd, device=dev) * 0.5).bfloat16()
+        vc = torch.randn(L, B, KVH, S, hd, device=dev).bfloat16()
+        for T in VERIFY_T:
+            q = torch.randn(B, T, KVH, M, hd, device=dev)
+            p0 = torch.full((B,), pos0, dtype=torch.int32, device=dev)
+            kl, kv = p0 + T, pos0 + T
+            got = ha.prefill_attention(q, kc, vc, p0, kl, L - 1)
+            err = check(f"prefill_attention verify T={T} B={B}", got,
+                        ha.prefill_attention_plain(q, kc, vc, p0, kl, L - 1), TOL_ATT)
+            qs = [q[:, t].reshape(B, KVH * M, hd).contiguous() for t in range(T)]
+            kls = [p0 + t + 1 for t in range(T)]
+            k12_out = torch.stack([ha.decode_attention(qs[t], kc, vc, kls[t], L - 1)
+                                   for t in range(T)], 1).reshape(got.shape)
+            check(f"decode_attention as a verify T={T} B={B}", k12_out, got, TOL_ATT)
+
+            def k12(i):
+                for t in range(T):
+                    ha.decode_attention(qs[t], kc, vc, kls[t], i % L)
+            q4 = q.reshape(B, T, KVH * M, hd).transpose(1, 2).bfloat16()
+            kb, vb = kc[:, :, :, :kv], vc[:, :, :, :kv]
+            mask = (torch.arange(kv, device=dev)[None, :]
+                    <= pos0 + torch.arange(T, device=dev)[:, None])
+
+            def lib(i):
+                return F.scaled_dot_product_attention(q4, kb[i % L], vb[i % L],
+                                                      attn_mask=mask, enable_gqa=True)
+            nb = 2 * B * T * KVH * M * hd * 4 + 2 * B * KVH * kv * hd * kc.element_size()
+            flops = 4 * B * KVH * M * hd * causal_pairs(pos0, T, kv)
+            b, by = bound_ms(nb, flops, gbps, PEAK_BF16)
+            t = timings(lambda i: ha.prefill_attention(q, kc, vc, p0, kl, i % L),
+                        lambda i: ha.prefill_attention_plain(q, kc, vc, p0, kl, i % L),
+                        lib, 3, bound=b)
+            k12_ms, k12_by = timed(k12, floor=b)
+            log(f"# K13 prefill_attention at a verify's T={T}, B={B}, pos0={pos0}, bf16 KV "
+                f"(KVH=8, M=4, hd=128; {ha.prefill_grid(B, T, KVH, M)} persistent blocks of "
+                f"{ha.SMS} SMs): max_abs_err {err:.3e} (tol {TOL_ATT:g} x max|out|); "
+                f"{ms_line(t)} (bf16 SDPA, bottom-right causal mask) bound_ms {b:.4f} ({by}); "
+                f"{share(t, b)}; {T} launches of K12 {k12_ms:.4f} ms ({k12_by}), K13/K12 "
+                f"{t['ms'] / k12_ms:.2f}x")
+            if (B, T) == (8, 5):
+                row = dict(t, bound_ms=b, bound_by=by, max_abs_err=err)
+        if B == 1:  # the tree's attention: no TPU kernel, plain PyTorch by design
+            from calm_tpu_torch.speculative import _tree_mask
+
+            mask = torch.from_numpy(_tree_mask(3, 4)).to(dev)
+            N = mask.shape[0]
+            q = torch.randn(1, N, KVH, M, hd, device=dev)
+            p0 = torch.full((1,), S - N, dtype=torch.int32, device=dev)
+            kl = p0 + N
+
+            def tree(i):
+                return ha.prefill_attention_plain(q, kc, vc, p0, kl, i % L, tree=mask, rows=S)
+            seen = torch.cat([torch.ones(N, S - N, dtype=torch.bool, device=dev), mask], 1)
+            q4 = q.reshape(1, N, KVH * M, hd).transpose(1, 2).bfloat16()
+
+            def lib(i):
+                return F.scaled_dot_product_attention(q4, kc[i % L], vc[i % L],
+                                                      attn_mask=seen, enable_gqa=True)
+            sd = lib(L - 1).transpose(1, 2).reshape(tree(L - 1).shape)
+            t_err = check("tree attention against SDPA with its mask", tree(L - 1), sd, TOL_ATT)
+            nb = 2 * N * KVH * M * hd * 4 + 2 * KVH * S * hd * kc.element_size()
+            pairs = N * (S - N) + int(mask.sum())
+            b, by = bound_ms(nb, 4 * KVH * M * hd * pairs, gbps, PEAK_F32)
+            ms, how = timed(tree, floor=b)
+            lib_ms, _ = timed(lib)
+            log(f"# the tree's attention (not a TPU kernel: jnp in JAX, plain PyTorch here), "
+                f"k=3 m=4 ({N} nodes) at the window's last rows, B=1, bf16 KV, the whole "
+                f"window of {S} rows read in f32: {ms:.4f} ms ({how}), bound {b:.4f} ms ({by}, "
+                f"f32), {100 * b / ms:.1f}% of bound; SDPA with the tree's mask {lib_ms:.4f} ms, "
+                f"the same output within {t_err:.3e} (bf16 operands; tol {TOL_ATT:g} x max|out|)")
+        del kc, vc
+        torch.cuda.empty_cache()
+    return {"prefill_attention_verify": row}
+
+
+def wall_ms(fn, reps: int = 5) -> tuple[float, float]:
+    """(median ms, spread %) of ``fn()`` by the host's clock, the card
+    synchronised around each call."""
+    ts = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append(1e3 * (time.perf_counter() - t))
+    med = statistics.median(ts)
+    return med, 100 * (max(ts) - min(ts)) / med
+
+
+def verify_bits(what, cfg, w, cache, tokens, starts, depth=None, tree=None):
+    """The cache's replayed verify (``model.verify_once``) against the eager
+    forward on the same inputs (``prefill`` with every row's logits, or
+    ``tree_verify``): logits and written rows bit for bit. Returns
+    (replayed ms, eager ms), medians of 5 and 3."""
+    from calm_tpu_torch import model as M
+
+    tok = torch.as_tensor(np.asarray(tokens), dtype=torch.int64).to(cache.k.device)
+    B, T = tok.shape
+
+    def replayed():
+        return M.verify_once(cfg, w, tok, starts, cache, depth, tree)
+
+    def eager():
+        if tree is None:
+            return M.prefill(cfg, w, tok, starts, cache, "all")[0]
+        return M.tree_verify(cfg, w, tok, starts, torch.as_tensor(depth),
+                             torch.as_tensor(tree), cache)[0]
+
+    def rows():
+        return [buf[:, b, :, s:s + T].clone() for b, s in enumerate(starts)
+                for buf in (cache.k, cache.v)]
+    r = replayed().clone()  # captures at first use
+    r_rows = rows()
+    e = eager()
+    same_bits(f"{what}: verify logits", r, e)
+    for a, b in zip(r_rows, rows()):
+        same_bits(f"{what}: verify cache rows", a, b)
+    return wall_ms(replayed)[0], wall_ms(eager, 3)[0]
+
+
+@contextlib.contextmanager
+def spec_rounds():
+    """Record every speculative round of the block: (the draft's tokens
+    (B, n), the target's verify logits (B, T, V)) on the host."""
+    from calm_tpu_torch import model as M
+
+    seen, last = [], {}
+    real_loop, real_verify = M.decode_loop, M.verify_once
+
+    def loop(*a, **k):
+        out = real_loop(*a, **k)
+        last["toks"] = out[0].cpu()
+        return out
+
+    def verify(*a, **k):
+        out = real_verify(*a, **k)
+        seen.append((last.get("toks"), out.float().cpu()))
+        return out
+    M.decode_loop, M.verify_once = loop, verify
+    try:
+        yield seen
+    finally:
+        M.decode_loop, M.verify_once = real_loop, real_verify
+
+
+def self_draft_rejections(what, rounds, tol) -> tuple[int, float]:
+    """A linear round of a draft that is the target: each rejection must sit
+    at a near-tie, the proposed token's verify logit within ``tol`` of the
+    row's maximum (relative to max |logit|): the draft's one-row step and
+    the verify's multi-row forward round differently, nothing else.
+    Returns (rejections, the largest such gap)."""
+    n, worst = 0, 0.0
+    for toks, lg in rounds:
+        lg, prop = lg[0].numpy(), toks[0].tolist()
+        for i, x in enumerate(prop[:lg.shape[0]]):
+            top = int(lg[i].argmax())
+            if top == x:
+                continue
+            gap = float((lg[i, top] - lg[i, x]) / np.abs(lg[i]).max())
+            if gap > tol:
+                fail(f"{what}: the self draft's token {x} was rejected for {top}, "
+                     f"{gap:.3e} of scale apart (> {tol}): not a near-tie")
+            n, worst = n + 1, max(worst, gap)
+            break
+    return n, worst
+
+
+def same_ids_near_ties(what, got, want, logits, tol) -> str:
+    """Ids against the plain replayed greedy run's: equal, or equal up to a
+    step where the plain run's top two logits lie within ``tol`` of scale."""
+    n = next((i for i, (g, c) in enumerate(zip(got, want)) if g != c), None)
+    if n is None:
+        if len(got) != len(want):
+            fail(f"{what}: ids {got} != plain greedy {want}")
+        return "ids equal"
+    if margin(logits[n]) > tol:
+        fail(f"{what}: id {n} is {got[n]}, plain greedy {want[n]}, top-2 margin "
+             f"{margin(logits[n]):.3e} of scale > {tol}")
+    return f"ids equal up to {n}, then a near-tie"
+
+
+def gf4_words(t: torch.Tensor) -> torch.Tensor:
+    """f32 (..., n) -> gf4 words (..., n/8) int32 on the card, by
+    ``quant.gf4_quantize``'s rule: each group of 8 scaled by its largest
+    magnitude rounded to e5m2, codes round(x / max * -4 + 4) in [0, 7]."""
+    g = t.float().reshape(*t.shape[:-1], -1, 8)
+    gmax = g.gather(-1, g.abs().argmax(-1, keepdim=True))
+    gb = gmax.to(torch.float8_e5m2)
+    gn = torch.nan_to_num(g / gb.float(), nan=0.0, posinf=0.0, neginf=0.0)
+    q = torch.clamp(torch.round(gn.half() * -4 + 4), 0, 7).to(torch.int64)
+    shifts = 8 + 3 * torch.arange(8, device=t.device)
+    words = (q << shifts).sum(-1) + gb.view(torch.uint8).squeeze(-1).to(torch.int64)
+    return (words - (words >= 2**31).to(torch.int64) * 2**32).to(torch.int32)
+
+
+def gf4_twin(path, cfg, seed, dev):
+    """The gf4 twin of ``synth_container(..., cfg, seed, random=True)``'s fp8
+    container: the same weights, every matrix decoded and quantized to gf4
+    on the card, written to ``path``; a correlated draft by construction."""
+    import dataclasses
+
+    from calm_tpu_torch import model as M
+    from calm_tpu_torch.ops.qmm import QTensor, dequant
+    from calm_tpu_torch.utils.synth import synth_weights, write_weights
+
+    w = synth_weights(cfg, seed, dev, random=True)
+
+    def twin(v):
+        if not isinstance(v, QTensor):
+            return v
+        f = dequant(v, torch.float32)
+        step = max(1, (1 << 26) // f[0].numel())  # slabs of at most 64M values
+        return QTensor(torch.cat([gf4_words(f[i:i + step])
+                                  for i in range(0, f.shape[0], step)]), "gf4")
+    lw = w.layers
+    layers = dataclasses.replace(lw, **{f.name: twin(getattr(lw, f.name))
+                                        for f in dataclasses.fields(lw)})
+    gcfg = dataclasses.replace(cfg, dtype="gf4")
+    write_weights(path, gcfg, M.Weights(embed=twin(w.embed), layers=layers,
+                                        final_norm=w.final_norm, output=twin(w.output)))
+    del w, layers
+    torch.cuda.empty_cache()
+
+
+def cli_text(out: str, banners: int = 3) -> str:
+    """The CLI's generated text: its stdout past the banner lines (the
+    model's, the device's and the draft's), less the closing newline."""
+    parts = out.split("\n", banners)
+    if len(parts) <= banners or not all(p.startswith("# ") for p in parts[:banners]):
+        fail(f"cli: no banners before the text: {out[:500]!r}")
+    return parts[banners][:-1]
+
+
+SPEC_CLI = ["-t", "0", "-n", "16", "-i", "hello", "--gamma", str(GAMMA)]
+
+
+def speculative_container_checks(path, twin, what, eng, cpu, dev, want_srv, lcs_srv, procs):
+    """Speculation on the 2-layer Mistral-7B-width fp8 container: the CLI's
+    ``--draft`` with the target itself and with its gf4 twin (``gf4_twin``),
+    its text that of ``speculative_generate`` in this process, whose ids
+    are the CPU's plain greedy ids (near-ties aside) and whose self draft
+    is rejected at near-ties only; then ``Server`` with the target as
+    draft against the CPU server's requests (``serving_checks``): the
+    greedy ids the CPU's, a sampled request served by plain ticks as the
+    CPU's. ``procs``: the CLI's runs (``SPEC_CLI`` with ``--draft``), by
+    draft, started with the container phase's other CLI runs."""
+    from calm_tpu_torch.engine import Engine
+    from calm_tpu_torch.serve import Server
+    from calm_tpu_torch.speculative import speculative_generate
+
+    t0 = time.perf_counter()
+    drafts = {"self": path, "gf4 twin": twin}
+    p_toks = eng.tokenizer.encode("hello", bos=True)
+    cpu.reset()
+    want = cpu.generate("hello", 16, temperature=0).ids
+    texts = {}
+    for name, d in drafts.items():
+        draft = Engine(d)
+        eng.reset()
+        with spec_rounds() as rounds:
+            st, counts = drive(lambda: speculative_generate(eng, draft, "hello", 16,
+                                                            gamma=GAMMA, echo=True))
+        gen = same_generation(f"{what} speculative, {name} draft", cpu, p_toks, st.ids,
+                              want, TOL_PREFILL)
+        rej = ""
+        if name == "self":
+            n, gap = self_draft_rejections(f"{what} speculative", rounds, TOL_PREFILL)
+            rej = f"; {n} rejections, each at a near-tie (largest gap {gap:.2e} of scale)"
+        texts[name] = st.text
+        log(f"# {what} speculative_generate, {name} draft, gamma {GAMMA}: {gen}; acceptance "
+            f"{st.acceptance:.3f} over {st.rounds} rounds{rej}; verify replays "
+            f"{counts['verify_replays']}, K13 launches {counts['prefill_attention']}")
+        del draft
+    for name, p in procs.items():
+        out, errs = p.communicate(timeout=600)
+        spec = [l for l in errs.splitlines() if l.startswith("# speculative:")]
+        if p.returncode != 0 or not spec:
+            fail(f"{what} cli --draft ({name}) exited {p.returncode}: {errs[-2000:]}")
+        if cli_text(out) != texts[name]:
+            fail(f"{what} cli --draft ({name}): text {cli_text(out)!r} != "
+                 f"speculative_generate's {texts[name]!r}")
+        log(f"# {what} cli --draft ({name}) --gamma {GAMMA}: the text of speculative_generate "
+            f"in this process; {spec[0]}")
+
+    # the server: the sampled request first, so that rounds start after it
+    order = [1, 0, 2, 3, 4]
+    reqs = [SERVE_REQUESTS[i] for i in order]
+    srv = Server(path, batch=4, draft_path=path, gamma=GAMMA)
+    (got, lgs), counts = drive(lambda: serve_recorded(srv, reqs))
+    res = []
+    for r, i, lg in zip(got, order, lgs):
+        w = want_srv[i]
+        if w.temperature > 0:
+            res.append(f"{i} {same_served(f'{what} spec serve request {i}', r.ids, w.ids, w.temperature, lg, lcs_srv[i], TOL_PREFILL)}")
+            continue
+        n = next((j for j, (a, b) in enumerate(zip(r.ids, w.ids)) if a != b), None)
+        if n is None and len(r.ids) != len(w.ids):
+            fail(f"{what} spec serve request {i}: ids {r.ids} != CPU {w.ids}")
+        if n is not None and margin(lcs_srv[i][n]) > TOL_PREFILL:
+            fail(f"{what} spec serve request {i}: id {n} {r.ids[n]} != CPU {w.ids[n]}, "
+                 f"top-2 margin {margin(lcs_srv[i][n]):.3e} of scale")
+        res.append(f"{i} " + ("equal" if n is None else f"equal up to {n}, then a near-tie"))
+    if srv.spec_rounds == 0 or counts["verify_replays"] != srv.spec_rounds:
+        fail(f"{what} spec serve: {srv.spec_rounds} rounds, {counts['verify_replays']} "
+             "verify replays")
+    log(f"# {what} spec serve (4 slots, the target as draft, gamma {GAMMA}) vs the CPU server: "
+        + "; ".join(res) + f"; {srv.spec_rounds} rounds, acceptance "
+        f"{srv.spec_accepted / max(srv.spec_emitted, 1):.3f}, depth now {srv._gamma_now}; "
+        f"speculative checks {time.perf_counter() - t0:.1f} s")
+    del srv
+
+
+TINYLLAMA = dict(dim=2048, hidden_dim=5632, head_dim=64, n_layers=22, n_heads=32,
+                 n_kv_heads=4, vocab_size=32000)  # TinyLlama-1.1B's published shape
+
+
+def speculative_full_width(cfg, dev, gbps, smi, default):
+    """Speculation on ``full_width_phase``'s 32-layer fp8 Mistral-7B with
+    seeded random weights (the phase's bit pattern gives every logit one
+    value, a tie that no draft can match), bf16 KV, ctx 4096, 32 tokens
+    from position 0 as first32: the linear
+    loop at gamma 4 with the target as its own draft and with a draft of
+    TinyLlama-1.1B's published shape (seeded random fp8 weights: its
+    acceptance measures nothing of real text), and the tree at k=3, m=4
+    with the target as draft. Each path: ids against plain replayed
+    greedy's (near-ties aside), the self draft's rejections at near-ties
+    only, the draft's ms a step, the verify's ms replayed and eager (bit
+    for bit the same), ms a round, tok/s beside plain first32 in this run,
+    acceptance and the device's busy share. Then 8 greedy requests of 32
+    tokens served with the target as draft against the plain server on
+    the same requests. Returns the numbers."""
+    import dataclasses
+
+    from calm_tpu_torch import model as M
+    from calm_tpu_torch.config import ModelConfig
+    from calm_tpu_torch.engine import Engine
+    from calm_tpu_torch.serve import Server
+    from calm_tpu_torch.speculative import (_tree_mask, speculative_generate,
+                                            tree_speculative_generate)
+    from calm_tpu_torch.tokenizer import Tokenizer
+    from calm_tpu_torch.utils.synth import byte_vocab, synth_weights, weight_bytes
+
+    t_phase = time.perf_counter()
+    N, V = 32, cfg.vocab_size
+    cfg = dataclasses.replace(cfg, bos_token_id=1, eos_token_id=2)
+    w = synth_weights(cfg, seed=0, device=dev, random=True)
+    total, bw = weight_bytes(cfg)
+    tok = Tokenizer.from_tensors(*byte_vocab(V), 1, 2, V)
+
+    def engine(c, weights, nbytes, B=1):
+        return Engine.from_weights(c, weights, tok, n_bytes=nbytes[0], n_params=0,
+                                   n_bandwidth=nbytes[1], batch=B, device=dev)
+    target, selfd = engine(cfg, w, (total, bw)), engine(cfg, w, (total, bw))
+    tcfg = ModelConfig(**TINYLLAMA, rope_theta=10000.0, seq_len=cfg.seq_len, rotary_dim=64,
+                       dtype="fp8", norm_ln=False, bos_token_id=1, eos_token_id=2)
+    tiny = engine(tcfg, synth_weights(tcfg, seed=5, device=dev, random=True),
+                  weight_bytes(tcfg))
+    out = {}
+
+    # plain replayed greedy from position 0: the reference ids and logits, and
+    # Engine.generate's time in this run
+    bos = torch.tensor([1], device=dev)
+    ref_t, _, ref_l = M.decode_loop(cfg, w, bos, 0, target.cache, N)
+    ref_ids, ref_l = ref_t[0].tolist(), ref_l[:, 0].float().cpu().numpy()
+
+    def plain():
+        target.reset()
+        return target.generate("", N, temperature=0)
+    plain()
+    p_ms, p_spread = wall_ms(plain, 3)
+    out["plain"] = dict(ms_tok=p_ms / N, tok_s=1e3 * N / p_ms, spread_pct=p_spread)
+    log(f"# speculative fp8 mistral7b: plain replayed greedy Engine.generate, {N} tokens "
+        f"from pos 0: {p_ms / N:.3f} ms/tok, {1e3 * N / p_ms:.2f} tok/s (median of 3, spread "
+        f"{p_spread:.2f}%; first32 by decode_loop in this run "
+        f"{default['first32']['ms_tok']:.3f} ms/tok) on {smi}")
+
+    k, m = 3, 4
+    n_tree = 1 + k * (m - 1)
+    tree = _tree_mask(k, m)
+    depth = np.asarray([0] + [d for _ in range(k) for d in range(1, m)], np.int32)
+    rng = np.random.default_rng(3)
+    paths = (("linear, self draft", selfd, dict(gamma=GAMMA)),
+             ("linear, TinyLlama-1.1B-shaped draft", tiny, dict(gamma=GAMMA)),
+             (f"tree k={k} m={m}, self draft", selfd, dict(k=k, m=m)))
+    for name, draft, kw in paths:
+        t_path = time.perf_counter()
+        fn = tree_speculative_generate if "k" in kw else speculative_generate
+
+        def run(n=N):
+            target.reset()
+            draft.reset()
+            return fn(target, draft, "", n, **kw)
+        n_cap = len(CAPTURES)
+        with spec_rounds() as rounds:
+            st = run()  # captures the graphs of the path
+        ids = same_ids_near_ties(f"speculative {name}", st.ids, ref_ids[:len(st.ids)], ref_l,
+                                 TOL_PREFILL)
+        rej = ""
+        if draft is selfd and "gamma" in kw:
+            n, gap = self_draft_rejections(f"speculative {name}", rounds, TOL_PREFILL)
+            rej = f", {n} rejections, each at a near-tie (largest gap {gap:.2e} of scale)"
+        cap_s = sum(c[3] for c in CAPTURES[n_cap:])
+        ms, spread = wall_ms(run, 3)
+        # the busy share over a run of 8 tokens (a profile of 32 costs seconds)
+        short_ms = wall_ms(lambda: run(8), 3)[0]
+        rows = kernel_rows(lambda: run(8))
+        dev_ms = sum(r[0] for r in rows) / 1e3 if rows else None
+        # the pieces: the draft's step (its batch: k lanes for the tree)
+        lanes = kw.get("k", 1)
+        dcache = M.KVCache.create(draft.cfg, lanes, torch.bfloat16, dev)
+        t1 = torch.ones(lanes, dtype=torch.int64, device=dev)
+        M.decode_loop(draft.cfg, draft.weights, t1, 0, dcache, 2, rolling=False)
+        d_ms = wall_ms(lambda: M.decode_loop(draft.cfg, draft.weights, t1, 0, dcache, 8,
+                                             rolling=False))[0] / 8
+        del dcache
+        T = n_tree if "k" in kw else GAMMA
+        toks = rng.integers(3, V, (1, T))
+        v_ms, e_ms = verify_bits(f"speculative {name}", cfg, w, target.cache, toks, [16],
+                                 depth if "k" in kw else None, tree if "k" in kw else None)
+        busy = ("not measured" if dev_ms is None
+                else f"{100 * dev_ms / short_ms:.1f}% (an 8-token run)")
+        out[name] = dict(ms_tok=ms / st.tokens, tok_s=1e3 * st.tokens / ms, spread_pct=spread,
+                         round_ms=ms / max(st.rounds, 1), rounds=st.rounds,
+                         acceptance=st.acceptance, draft_step_ms=d_ms, verify_ms=v_ms,
+                         verify_eager_ms=e_ms, busy_pct=None if dev_ms is None
+                         else 100 * dev_ms / short_ms, capture_s=cap_s)
+        log(f"# speculative fp8 mistral7b, {name}: {N} tokens from pos 0 in {st.rounds} rounds, "
+            f"acceptance {st.acceptance:.3f}{rej}; {ids}; {ms / st.tokens:.3f} ms/tok, "
+            f"{1e3 * st.tokens / ms:.2f} tok/s (median of 3, spread {spread:.2f}%; plain "
+            f"{p_ms / N:.3f} ms/tok: {p_ms / N / (ms / st.tokens):.3f}x); round "
+            f"{ms / max(st.rounds, 1):.3f} ms; draft step {d_ms:.3f} ms (B={lanes}, "
+            f"replayed); verify T={T} replayed {v_ms:.3f} ms, eager {e_ms:.3f} ms, bit-equal; "
+            f"device busy {busy}; first run's captures {cap_s:.3f} s; "
+            f"{time.perf_counter() - t_path:.1f} s on {smi}")
+
+    # serving: 8 greedy requests of 32 tokens, plain and with the target as draft
+    t_path = time.perf_counter()
+    B = 8
+    prng = np.random.default_rng(1)
+    prompts = ["".join(chr(c) for c in prng.integers(97, 123, n))
+               for n in prng.integers(128, 1025, B)]
+    reqs = [(p, N, 0.0, 1) for p in prompts]
+    plain_srv = Server(batch=B, engine=engine(cfg, w, (total, bw), B))
+    want, lgs = serve_recorded(plain_srv, reqs)
+    pw, _ = wall_ms(lambda: serve_recorded(plain_srv, reqs), 2)
+    del plain_srv
+    spec = Server(batch=B, engine=engine(cfg, w, (total, bw), B),
+                  draft_engine=engine(cfg, w, (total, bw), B), gamma=GAMMA)
+    serve_recorded(spec, reqs)  # captures
+    r0 = (spec.spec_rounds, spec.spec_accepted, spec.spec_emitted)
+    (got, _), counts = drive(lambda: serve_recorded(spec, reqs))
+    n_rounds = spec.spec_rounds - r0[0]
+    acc = (spec.spec_accepted - r0[1]) / max(spec.spec_emitted - r0[2], 1)
+    sw, _ = wall_ms(lambda: serve_recorded(spec, reqs), 2)
+
+    def rounds(profiled: bool, n: int = 2):
+        """n rounds of all eight slots, past their admission: (ms a round,
+        profiler rows or None)."""
+        for p in prompts:
+            spec.submit(p, max_tokens=N, temperature=0.0)
+        spec.tick()  # admits all eight and runs a round
+        out_rows = None
+        if profiled:
+            out_rows = kernel_rows(lambda: [spec.tick() for _ in range(n)])
+            t = None
+        else:
+            t = wall_ms(lambda: [spec.tick() for _ in range(n)], 1)[0] / n
+        spec.run_until_drained()
+        return t, out_rows
+    tick_ms = rounds(False)[0]
+    rows = rounds(True)[1]
+    dev_ms = sum(r[0] for r in rows) / 1e3 / 2 if rows else None
+    res = [same_ids_near_ties(f"spec serve request {i}", g.ids, r.ids, np.stack(lg),
+                              TOL_PREFILL) for i, (g, r, lg) in enumerate(zip(got, want, lgs))]
+    if counts["prefill_attention"] <= 0 or counts["verify_replays"] != n_rounds:
+        fail(f"spec serve: {n_rounds} rounds, launches {counts}")
+    SPEC_COUNTS.update(counts)
+    toks = rng.integers(3, V, (B, GAMMA + 1))
+    v_ms, e_ms = verify_bits("spec serve", cfg, w, spec.engine.cache, toks,
+                             [300 + 400 * b for b in range(B)])
+    n_tok = sum(r.n_generated for r in got)
+    busy = "not measured" if dev_ms is None else f"{100 * dev_ms / tick_ms:.1f}%"
+    out["serve"] = dict(plain_drain_ms=pw, spec_drain_ms=sw, plain_tok_s=1e3 * n_tok / pw,
+                        spec_tok_s=1e3 * n_tok / sw, rounds=n_rounds, acceptance=acc,
+                        round_ms=tick_ms, verify_ms=v_ms, verify_eager_ms=e_ms,
+                        busy_pct=None if dev_ms is None else 100 * dev_ms / tick_ms)
+    log(f"# spec serve fp8 mistral7b, {B} slots, {B} greedy requests of {N} tokens "
+        f"({min(map(len, prompts)) + 1}-{max(map(len, prompts)) + 1}-token prompts), the target "
+        f"as draft, gamma {GAMMA}: drain {sw:.1f} ms ({1e3 * n_tok / sw:.1f} tok/s) against the "
+        f"plain drain's {pw:.1f} ms ({1e3 * n_tok / pw:.1f} tok/s), medians of 2; {n_rounds} "
+        f"rounds; a round of all eight slots past admission {tick_ms:.3f} ms, acceptance "
+        f"{acc:.3f}; verify B={B} T={GAMMA + 1} replayed {v_ms:.3f} ms, eager {e_ms:.3f} ms, "
+        f"bit-equal; K13 {counts['prefill_attention']} launches, {counts['verify_replays']} "
+        f"verify replays; device busy {busy} (2 rounds); ids against the plain drain: "
+        + "; ".join(f"{i} {r}" for i, r in enumerate(res))
+        + f"; {time.perf_counter() - t_path:.1f} s on {smi}")
+    del spec, target, selfd, tiny, w
+    torch.cuda.empty_cache()
+    log(f"# speculative fp8 mistral7b: {time.perf_counter() - t_phase:.1f} s; "
+        + json.dumps(out))
+    return out
+
+
+def verify_graph_check(dev):
+    """The captured verify on 2-layer Mistral-7B-width fp8 and gf4 weights
+    at seq_len 64: B=1 at T=4, B=3 at T=5 from ragged starts, and the k=3,
+    m=4 tree, each replayed against the eager forward bit for bit (logits
+    and written rows), the cache across the capture unchanged."""
+    from calm_tpu_torch import model as M
+    from calm_tpu_torch.config import ModelConfig
+    from calm_tpu_torch.speculative import _tree_mask
+    from calm_tpu_torch.utils.synth import synth_weights
+
+    rng = np.random.default_rng(4)
+    tree = _tree_mask(3, 4)
+    depth = np.asarray([0] + [d for _ in range(3) for d in range(1, 4)], np.int32)
+    for fmt in ("fp8", "gf4"):
+        cfg = ModelConfig(**{**MISTRAL, "n_layers": 2}, rope_theta=10000.0, seq_len=64,
+                          rotary_dim=128, dtype=fmt, norm_ln=False)
+        w = synth_weights(cfg, seed=3, device=dev, random=True)
+        for B, T, starts, tr in ((1, 4, [9], None), (3, 5, [0, 30, 59], None),
+                                 (1, 10, [20], tree)):
+            cache = M.KVCache(*(torch.randn(cfg.n_layers, B, cfg.n_kv_heads, 64, cfg.head_dim,
+                                            device=dev).bfloat16() for _ in range(2)))
+            before = (cache.k.clone(), cache.v.clone())
+            g = M.verify_graph(cfg, w, cache, B, T, tr is not None)
+            g.load(rng.integers(3, cfg.vocab_size, (B, T)), starts,
+                   None if tr is None else depth, tr)
+            g.capture()
+            same_bits(f"verify {fmt} B={B} T={T}: cache k across the capture", cache.k, before[0])
+            same_bits(f"verify {fmt} B={B} T={T}: cache v across the capture", cache.v, before[1])
+            verify_bits(f"verify {fmt} 2-layer B={B} T={T}{' tree' if tr is not None else ''}",
+                        cfg, w, cache, rng.integers(3, cfg.vocab_size, (B, T)), starts,
+                        None if tr is None else depth, tr)
+        del w
+        torch.cuda.empty_cache()
+    log("# verify graphs, 2-layer mistral7b-width fp8 and gf4 at seq_len 64: B=1 T=4, B=3 "
+        "T=5 from starts 0/30/59, the k=3 m=4 tree: cache unchanged across each capture, "
+        "replayed logits and rows = eager bit for bit")
 
 
 def profile_tokens(run, n_tok: int, ms_tok: float, label: str):
@@ -3329,6 +3935,10 @@ def full_width_phase(fmt, dev, gbps, smi, experts: int = 0, cohere: bool = False
     if fmt == "fp8" and not (experts or cohere):
         out.update(precise_full_width(cfg, w, cache, prompt, token, steps, bw, gbps, smi,
                                       first, out))
+        del cache
+        torch.cuda.empty_cache()
+        cache = None
+        out["speculative"] = speculative_full_width(cfg, dev, gbps, smi, out)
     log(f"# {what}: " + json.dumps(out))
     del cache
     torch.cuda.empty_cache()
@@ -4307,6 +4917,8 @@ def main():
 
     RATES["nominal"] = gbps
     rows = kernel_phase(gbps, dev)
+    # K13 at a speculative verify's T, beside SDPA and T launches of K12
+    rows.update(verify_kernel_rows(gbps, dev))
     log(f"# kernel phase done at {time.perf_counter() - t_start:.1f} s")
     # the tools' chains are K1's and K15's main path; the 3 GB rows give the
     # attainable read rate every later GB/s is also read against
@@ -4340,7 +4952,8 @@ def main():
     log(f"# container phases done at {time.perf_counter() - t_start:.1f} s")
     # the captured step against the eager one across the sink wrap
     graph_wrap_check(dev)
-    log(f"# graph wrap check done at {time.perf_counter() - t_start:.1f} s")
+    verify_graph_check(dev)
+    log(f"# graph wrap and verify checks done at {time.perf_counter() - t_start:.1f} s")
     # Mixtral 8x7B is also served on its full-width weights: the sweep at 8
     # rows, K10's multi-row FFN (fp8) and K11's (gf4)
     served = {}
@@ -4379,6 +4992,11 @@ def main():
                                           "calm_tpu/ops/pallas_attn.py:77", counts_pg),
                "prefill_attention": ("calm_tpu_torch/csrc/attn.cu",
                                      "calm_tpu/ops/pallas_attn.py:326", counts4),
+               # K13 at a served speculative round's T=5 (B=8, the window's
+               # last rows): launches from the full-width speculative drain
+               "prefill_attention_verify": ("calm_tpu_torch/csrc/attn.cu",
+                                            "calm_tpu/ops/pallas_attn.py:326", SPEC_COUNTS,
+                                            "prefill_attention"),
                "qmm_decode_gf4": ("calm_tpu_torch/csrc/gf4.cu",
                                   "calm_tpu/ops/pallas_qmm.py:100", counts4),
                "qmm_prefill": ("calm_tpu_torch/csrc/gf4.cu",

@@ -295,10 +295,71 @@ def test_cli_sequences_match_jax(model_path, capsys, monkeypatch):
     assert perf[0].split("#")[-1] == perf[1].split("#")[-1]
 
 
-@pytest.mark.parametrize("flag", [["--draft", "d.calm"]])
-def test_cli_unported_flags_exit_2(model_path, flag):
-    env = dict(os.environ, CALM_CPU="1")
-    r = subprocess.run([sys.executable, "-m", "calm_tpu_torch.cli", model_path]
-                       + flag, cwd=ROOT, env=env, capture_output=True, text=True,
-                       timeout=300)
-    assert r.returncode == 2 and "not yet ported" in r.stderr
+@pytest.fixture(scope="module")
+def draft_path(tmp_path_factory):
+    """A draft of other random weights beside ``model_path``'s target."""
+    path = str(tmp_path_factory.mktemp("draft") / "d.calm")
+    write_tiny_model(path, tiny_config(dtype="fp8", seq_len=32), seed=9)
+    return path
+
+
+SPEC = re.compile(r"^# speculative: acceptance [\d.]+ over \d+ rounds \(gamma \d+\)$")
+
+
+@pytest.mark.parametrize("draft", ["self", "other"])
+def test_cli_draft_gamma_matches_jax(model_path, draft_path, capsys, monkeypatch, draft):
+    """--draft --gamma 3 -t 0 -r 2: the JAX CLI's text and its draft banner
+    and speculative lines, the text of a run without a draft, and two perf
+    lines with one fingerprint."""
+    from calm_tpu import cli as jcli
+    from calm_tpu_torch import cli as tcli
+
+    d = model_path if draft == "self" else draft_path
+    args = [model_path, "-t", "0", "-n", "16", "-r", "2", "-i", "hello"]
+    jcli.main(args + ["--draft", d, "--gamma", "3"])
+    want = capsys.readouterr()
+    monkeypatch.setenv("CALM_CPU", "1")
+    tcli.main(args)
+    plain = capsys.readouterr()
+    tcli.main(args + ["--draft", d, "--gamma", "3"])
+    got = capsys.readouterr()
+
+    def text(out):
+        return [line for line in out.splitlines() if not line.startswith("# ")]
+    assert text(got.out) == text(want.out) == text(plain.out)
+    banners = [line for line in got.out.splitlines() if line.startswith(f"# {d}:")]
+    assert len(banners) == 1 + (d == model_path)  # the target's, then the draft's
+    spec = [line for line in got.err.splitlines() if line.startswith("# speculative")]
+    assert spec == [line for line in want.err.splitlines() if line.startswith("# speculative")]
+    assert len(spec) == 2 and all(SPEC.match(s) for s in spec)
+    if draft == "self":
+        assert spec[0].startswith("# speculative: acceptance 1.00")
+    perf = [line for line in got.err.splitlines() if line.startswith("# ") and "tokens:" in line]
+    assert len(perf) == 2 and all(PERF.match(p) for p in perf)
+    assert perf[0].split("#")[-1] == perf[1].split("#")[-1]
+
+
+def test_cli_precise_draft_leaves_the_flag_as_jax(model_path, draft_path, capsys,
+                                                  monkeypatch):
+    """--precise --draft: the draft Engine is made as calm_tpu/cli.py:119
+    makes it, without precise, so it switches the process-wide flag off
+    again, in both packages (a quirk of the reference, kept); --precise
+    alone leaves it on."""
+    from calm_tpu import cli as jcli
+    from calm_tpu.ops import qmm as jqmm
+    from calm_tpu_torch import cli as tcli
+    from calm_tpu_torch.ops import qmm as tqmm
+
+    args = [model_path, "-t", "0", "-n", "14", "-i", "hello", "--precise"]
+    monkeypatch.setenv("CALM_CPU", "1")
+    try:
+        states = []
+        for extra in ([], ["--draft", draft_path]):
+            jcli.main(args + extra)
+            tcli.main(args + extra)
+            states.append((jqmm._PRECISE, tqmm._PRECISE))
+        capsys.readouterr()
+    finally:
+        jqmm.enable_precise(False)
+        tqmm.enable_precise(False)
+    assert states == [(True, True), (False, False)]

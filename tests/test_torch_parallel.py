@@ -19,6 +19,8 @@ import torch
 
 from calm_tpu import container
 from calm_tpu import model as JM
+from calm_tpu_torch import model as TM
+from calm_tpu_torch.container import TensorFile
 from calm_tpu_torch.parallel import ShardingPlan, spawn
 from tests import test_torch_parallel_ranks as R
 from tests.modelgen import tiny_config, write_tiny_model
@@ -37,8 +39,25 @@ CONFIGS = {
     "moe": tiny_config(dtype="fp16", moe=True),
     "moe_fp8e4": tiny_config(dtype="fp8e4", moe=True),
     "sp": tiny_config(dtype="fp16", seq_len=16),
+    "kv4": tiny_config(dtype="fp16", n_kv_heads=4),  # tp=4 shards 4 kv heads
 }
 SP_TOKS = list(range(1, 25))  # 24 steps > seq_len 16: wraps the window
+
+
+def _tree(k=3, m=3):
+    """The nodes, depths and mask of a k-lane, depth-m draft tree."""
+    n = 1 + k * (m - 1)
+    mask = np.zeros((n, n), bool)
+    mask[:, 0] = True
+    for i in range(k):
+        b = 1 + i * (m - 1)
+        for d in range(m - 1):
+            mask[b + d, b:b + d + 1] = True
+    depth = [0] + [d for _ in range(k) for d in range(1, m)]
+    return [3 + 11 * i for i in range(n)], depth, mask
+
+
+TREE = _tree()
 
 
 def tie_logits():
@@ -73,6 +92,8 @@ def _cases(paths):
         ("sp_prefill_decode", "sp_prefill_case", (p["sp"], PROMPT, 1, 4, "sp",
                                                   [12, 3, 77, 5])),
         ("greedy_tie", "greedy_case", (tie_logits(),)),
+        *[(f"tree_tp{tp}", "tree_verify_case", (p[name], TOKENS, *TREE, tp))
+          for tp, name in ((2, "fp16"), (4, "kv4"))],
         ("health", "health_case", ()),
     ]
 
@@ -174,6 +195,29 @@ def test_dp2_prefill_slot(ranks):
     logits, others_zero, slot_written = result(ranks, "dp2_prefill_slot")
     np.testing.assert_allclose(logits, want, rtol=1e-4, atol=1e-4)
     assert others_zero and slot_written
+
+
+@pytest.mark.parametrize("tp,model", [(2, "fp16"), (4, "kv4")])
+def test_sharded_tree_verify(ranks, tp, model):
+    """sharded_tree_verify under tp: the unsharded port's tree_verify
+    after the same prefill, and JAX's, within the sharded tests'
+    tolerance (psum closes wo's and the FFN's partial sums)."""
+    nodes, depth, mask = TREE
+    cfg_t = TM.ModelConfig.from_metadata(TensorFile(ranks[0][model]).metadata)
+    w = TM.load_weights(TensorFile(ranks[0][model]), cfg_t)
+    cache = TM.KVCache.create(cfg_t, 1, torch.float16)
+    TM.prefill(cfg_t, w, torch.tensor([TOKENS]), [0], cache, "none")
+    want, _ = TM.tree_verify(cfg_t, w, torch.tensor([nodes]), [len(TOKENS)],
+                             torch.tensor(depth, dtype=torch.int32), torch.from_numpy(mask),
+                             cache)
+    got = result(ranks, f"tree_tp{tp}")
+    np.testing.assert_allclose(got, want[0].numpy(), rtol=1e-4, atol=1e-4)
+    cfg, wj = jax_weights(ranks, model)
+    jc = JM.KVCache.create(cfg, 1, jnp.float16)
+    _, jc = JM.prefill(cfg, wj, jnp.array([TOKENS]), jnp.array([0]), jc, logits_mode="none")
+    jl, _ = JM.tree_verify(cfg, wj, jnp.array([nodes]), jnp.array([len(TOKENS)]),
+                           jnp.array(depth, jnp.int32), jnp.asarray(mask), jc)
+    np.testing.assert_allclose(got, np.asarray(jl[0], np.float32), rtol=1e-4, atol=1e-4)
 
 
 def test_plan_validation():

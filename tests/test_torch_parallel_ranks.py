@@ -20,7 +20,8 @@ from calm_tpu_torch.parallel import (ShardingPlan, detect_topology, health_check
                                      make_mesh, make_multihost_mesh,
                                      shard_cache, shard_weights,
                                      sharded_decode_step, sharded_prefill,
-                                     sharded_prefill_slot, sharded_prefill_sp)
+                                     sharded_prefill_slot, sharded_prefill_sp,
+                                     sharded_tree_verify)
 from calm_tpu_torch.parallel.sharding import load_weights_sharded
 
 KV = torch.float16  # the JAX tests' cache dtype
@@ -149,6 +150,25 @@ def sp_prefill_case(rank, path, prompt, tp, sp, sp_axis, decode_tokens=()):
             lg, cache = step(ws, torch.tensor([tok]), len(prompt) + i, cache)
             steps.append(lg[0].numpy())
     return logits[0].numpy(), k.float().numpy(), np.array(steps)
+
+
+def tree_verify_case(rank, path, prompt, nodes, depth, tree, tp):
+    """A tp prefill of ``prompt``, then one speculation tree of ``nodes``
+    (depth (N,), tree (N, N)) verified from the prompt's end on a tp mesh:
+    the gathered logits (N, V)."""
+    _, cfg, w = _load(path)
+    mesh = make_mesh(tp=tp, device=CPU)
+    if mesh is None:
+        return None
+    plan = _plan(tp=tp)
+    ws = shard_weights(w, cfg, mesh, plan)
+    cache = shard_cache(M.KVCache.create(cfg, 1, KV), mesh, plan)
+    _, cache = sharded_prefill(cfg, mesh, plan, "none")(ws, torch.tensor([prompt]), [0],
+                                                        cache)
+    logits, _ = sharded_tree_verify(cfg, mesh, plan)(
+        ws, torch.tensor([nodes]), [len(prompt)], torch.tensor(depth, dtype=torch.int32),
+        torch.tensor(tree), cache)
+    return logits[0].numpy()
 
 
 def greedy_case(rank, logits):

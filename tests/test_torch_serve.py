@@ -208,8 +208,7 @@ def test_watchdog_fires_while_starved(model_path):
         srv.watchdog_stop()
 
 
-@pytest.mark.parametrize("kw", [dict(mesh=object()), dict(dp_devices=["cuda:0"]),
-                                dict(draft_path="d.calm")])
+@pytest.mark.parametrize("kw", [dict(mesh=object()), dict(dp_devices=["cuda:0"])])
 def test_unported_server_options_raise(kw):
     with pytest.raises(NotImplementedError):
         TS.Server("unused.calm", **kw)
@@ -217,8 +216,7 @@ def test_unported_server_options_raise(kw):
         PagedGroup()
 
 
-@pytest.mark.parametrize("flag", [["--dp", "2"], ["--draft", "d.calm"],
-                                  ["--gamma", "3"], ["--spec-sampled"]])
+@pytest.mark.parametrize("flag", [["--dp", "2"]])
 def test_httpd_unported_flags_exit_2(model_path, flag, capsys):
     with pytest.raises(SystemExit) as e:
         TH.main([model_path] + flag)
