@@ -7,8 +7,9 @@
 //
 // Replaces three Pallas kernels of calm_tpu/ops/pallas_qmm.py:
 //   - _layered_gf4_kernel (:100, via qmm_decode :219): y (B <= 16, d) =
-//     x . W[layer]^T -> calm_gf4_matvec below (K3) at one row; 2-16 rows
-//     take qmm.cu's multi-row path (calm_qmm_decode with fmt 2);
+//     x . W[layer]^T -> calm_gf4_matvec below (K3) at one row; 2-16 rows,
+//     the quality mode's too, take qmm.cu's multi-row path (calm_qmm_decode
+//     with fmt 2);
 //   - _gf4_mm_kernel (:238, via qmm_prefill :335): the same product for
 //     R >= 32 rows, x in bf16 -> calm_gf4_matmul below (K4);
 //   - _gf4_mmt_kernel (:346, via qmm_prefill_t :416): the FFN's w2
@@ -82,17 +83,14 @@ __device__ __forceinline__ float warp_sum(float v) {
 #define MV_ROWS 4  // output rows per warp
 #define MV_U 4     // words in flight per lane and row
 
-// Row blockIdx.y of x (B = 1; 2-16 in the quality mode, --precise, each row
-// reading the words again with f32 operands and sums) into row blockIdx.y
-// of y.
+// One row of x (B = 1; 2-16 rows, --precise too, take qmm.cu's mmv_kernel).
 __global__ void __launch_bounds__(MV_WARPS * 32)
     gf4_mv_kernel(const float* __restrict__ x, const uint32_t* __restrict__ w,
                   float* __restrict__ y, int d, int n8) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int row0 = (blockIdx.x * MV_WARPS + warp) * MV_ROWS;
   if (row0 >= d) return;
-  const float4* x4 = reinterpret_cast<const float4*>(x + (size_t)blockIdx.y * 8 * n8);
-  y += (size_t)blockIdx.y * d;
+  const float4* x4 = reinterpret_cast<const float4*>(x);
   const uint32_t* wr[MV_ROWS];
 #pragma unroll
   for (int r = 0; r < MV_ROWS; r++)  // rows past d re-read row d-1, unused
@@ -283,13 +281,14 @@ __global__ void __launch_bounds__(MM_THREADS, 2)
 
 extern "C" {
 
-// y (B, d) f32 = x (B, n) f32 . W^T, W (d, n/8) gf4 words at the layer's
-// plane; x 16-byte aligned; B = 1, or 2-16 rows in the quality mode (a grid
-// axis over rows; the multi-row path is qmm.cu's).
+// y (1, d) f32 = x (1, n) f32 . W^T, W (d, n/8) gf4 words at the layer's
+// plane; x 16-byte aligned. B must be 1: 2-16 rows, the quality mode's
+// too, take qmm.cu's multi-row path (calm_qmm_decode); B >= 2 returns
+// cudaErrorInvalidValue.
 int calm_gf4_matvec(const void* x, const void* w, void* y, int B, int d, int n8,
                     void* stream) {
-  if (B < 1 || B > 16) return (int)cudaErrorInvalidValue;
-  const dim3 grid((d + MV_WARPS * MV_ROWS - 1) / (MV_WARPS * MV_ROWS), B);
+  if (B != 1) return (int)cudaErrorInvalidValue;
+  const int grid = (d + MV_WARPS * MV_ROWS - 1) / (MV_WARPS * MV_ROWS);
   gf4_mv_kernel<<<grid, MV_WARPS * 32, 0, (cudaStream_t)stream>>>(
       static_cast<const float*>(x), static_cast<const uint32_t*>(w), static_cast<float*>(y),
       d, n8);

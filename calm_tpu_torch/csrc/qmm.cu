@@ -225,10 +225,16 @@
 //     epilogue takes fp8/fp16 only, calm_tpu/model.py:1231), and the MOE
 //     dual and w2 instantiations.
 //
-// The quality mode (--precise, calm_tpu/ops/qmm.py:190-197) keeps f32
-// operands at 2-16 rows too: calm_qmm_decode without a plan runs
-// qmv_kernel on a grid axis over rows (blockIdx.y, x and y row-strided),
-// each row reading the weights again, where mmv_kernel stages x in f16.
+// The quality mode (--precise, calm_tpu/ops/qmm.py:190-197: JAX's f32
+// product at Precision.HIGHEST) takes the same multi-row path at 2-16 rows,
+// x in hi + lo as above: each weight read once for every row, where the
+// one-row loops on a grid axis over rows read the plane once a row. Against
+// the float64 product (each row to its max |y|) it reads ~2.2-3.4e-7 on
+// the lm-head, about half an f32 matmul's distance (chip_smoke.py holds it
+// below 5e-7); the f32 loops' rows axis read ~1.3-1.9e-7. A third f16
+// term of x gained little on the card: mma's f32 sums, not x's 22 bits,
+// set that distance. qmv_kernel and gf4_mv_kernel (gf4.cu) take one row;
+// calm_qmm_decode without a plan, and calm_gf4_matvec, refuse B >= 2.
 
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -463,10 +469,9 @@ __device__ __forceinline__ float act_fn(int act, float y) {
 }
 
 // ACT: 0 plain matvec, 1 dual SiLU (h = silu(x.w1) * x.w3), 2 dual tanh-GELU.
-// One row of x (B = 1), or, for the quality mode (--precise), row
-// blockIdx.y of 2-16 rows, each reading the weights again: f32 operands
-// and sums where mmv_kernel stages x in f16. FMT 3 (e4m3, ACT 0): the sum
-// times s, read on the device, before any residual.
+// One row of x (B = 1; 2-16 rows take mmv_kernel, in the quality mode
+// too). FMT 3 (e4m3, ACT 0): the sum times s, read on the device, before
+// any residual.
 template <int FMT, int ACT>
 __global__ void __launch_bounds__(WARPS * 32, 4) qmv_kernel(Args a) {
   using F = Fmt<FMT>;
@@ -493,8 +498,7 @@ __global__ void __launch_bounds__(WARPS * 32, 4) qmv_kernel(Args a) {
   const int nw = a.n / F::PER;  // lane steps (words) per row
   const Word* wr = reinterpret_cast<const Word*>(sg.w) + (size_t)row * nw;
   const Word* wr3 = ACT ? reinterpret_cast<const Word*>(sg.w3) + (size_t)row * nw : nullptr;
-  const int b = blockIdx.y;  // the row of x
-  const float4* x4 = reinterpret_cast<const float4*>(a.x + (size_t)b * a.n);
+  const float4* x4 = reinterpret_cast<const float4*>(a.x);
   float acc = 0.f, acc3 = 0.f;
 
   for (int c0 = lane; c0 < nw; c0 += 32 * U) {
@@ -528,8 +532,7 @@ __global__ void __launch_bounds__(WARPS * 32, 4) qmv_kernel(Args a) {
     if constexpr (FMT == 3) y3 *= __ldg(sg.s3);
     y = act_fn(ACT, y) * y3;
   }
-  const size_t o = (size_t)b * sg.ld + row;
-  if (lane == 0) sg.out[o] = sg.resid ? sg.resid[o] + y : y;
+  if (lane == 0) sg.out[row] = sg.resid ? sg.resid[row] + y : y;
 }
 
 // ---------------------------------------------------------------------------
@@ -1152,14 +1155,13 @@ size_t row_bytes(int fmt, int n) {
 size_t staged_frags(int n, int ns) { return (size_t)((n + CH - 1) / CH) * 16 * ns; }
 size_t staged_scales(int n, int ns) { return (size_t)((n + CH - 1) / CH) * ns; }
 
-// one row (qmv_kernel), or 2-16 on its grid axis over rows (the quality
-// mode); 2-16 rows otherwise take launch_mmv
+// one row (qmv_kernel); 2-16 rows take launch_mmv
 template <int FMT, int ACT>
 cudaError_t launch(const Args& a, cudaStream_t st) {
-  if (a.B < 1 || a.B > 16) return cudaErrorInvalidValue;
+  if (a.B != 1) return cudaErrorInvalidValue;
   int rows = 0;
   for (int s = 0; s < a.nseg; s++) rows += a.seg[s].rows;
-  qmv_kernel<FMT, ACT><<<dim3((rows + WARPS - 1) / WARPS, a.B), WARPS * 32, 0, st>>>(a);
+  qmv_kernel<FMT, ACT><<<(rows + WARPS - 1) / WARPS, WARPS * 32, 0, st>>>(a);
   return cudaGetLastError();
 }
 
@@ -1307,16 +1309,17 @@ extern "C" {
 // 1) or fp8 e4m3 (fmt 3, times its scale: a device pointer, at the layer's
 // entry; null for the other formats), or W (d, n/8) gf4 words (fmt 2) from
 // 2 rows (one gf4 row: calm_gf4_matvec, gf4.cu); w points at the layer's
-// plane. B >= 2 with a plan takes the multi-row path: x staged into xs/sc
-// (caller-allocated, qmv_plan's sizes), then plan's launch; B = 1, and B >=
-// 2 without a plan (the quality mode, not gf4), the loop of one row, on a
-// grid axis over rows (xs, sc and plan unused).
+// plane. B >= 2 takes the multi-row path and needs a plan: x staged into
+// xs/sc (caller-allocated, qmv_plan's sizes), then plan's launch; B = 1 the
+// loop of one row (xs, sc and plan unused). B >= 2 without a plan returns
+// cudaErrorInvalidValue.
 int calm_qmm_decode(const void* x, const void* w, void* y, int B, int d, int n,
                     int fmt, const void* scale, void* xs, void* sc, const void* plan,
                     void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if ((fmt == 3) != (scale != nullptr)) return (int)cudaErrorInvalidValue;
-  if (B >= 2 && plan) {
+  if (B >= 2) {
+    if (!plan) return (int)cudaErrorInvalidValue;
     const int* p = static_cast<const int*>(plan);
     uint4* xs4 = static_cast<uint4*>(xs);
     float* scf = static_cast<float*>(sc);

@@ -26,7 +26,7 @@
 - ``precise`` sets the process-wide quality mode of ``ops.qmm`` every
   time an Engine is made, so a later ``Engine(precise=False)`` turns it
   off (``calm_tpu/engine.py:82-84``): f32 operands in every routed
-  product (``model.mm_route``, ``hopper_qmm.decode_path``).
+  product past 16 rows (``model.mm_route``, ``model._fused``).
 
 Runs on the GPU unless ``device="cpu"`` is asked for.
 """

@@ -57,7 +57,10 @@ through ``qmm_prefill_w2``); on the CPU the wrappers run their plain
 versions. fp8e4 weights carry a power-of-two scale per tensor (per
 (layer, expert) in MoE stacks) that the kernels read on the device.
 Under ``ops.qmm._PRECISE`` (``Engine(precise=True)``) :func:`mm_route`
-keeps f32 operands in every routed product.
+sends products past 16 rows to an f32 ``dense_matmul`` and :func:`_fused`
+declines the fp8/fp16 epilogue; the matvecs of 2-16 rows take the
+multi-row path as by default, x in two f16 terms
+(``hopper_qmm.decode_path``).
 
 Under a ``ShardingPlan`` the same functions are one rank's program on its
 local weights and cache, with the collectives on a
@@ -360,9 +363,9 @@ def _norm(cfg: ModelConfig, x, weight):
 
 def _mv(x: torch.Tensor, qt: QTensor, layer=None) -> torch.Tensor:
     """Decode matvec of <= 16 rows: the Hopper kernels' wrapper for every
-    format, fp8e4 with its scale (plain on the CPU); under ``--precise``
-    2-16 rows take the one-row loops' rows axis."""
-    return qmm_decode(x, qt.data, qt.fmt, layer, qt.scale, _qmm._PRECISE)
+    format, fp8e4 with its scale (plain on the CPU), the same launches
+    under ``--precise``."""
+    return qmm_decode(x, qt.data, qt.fmt, layer, qt.scale)
 
 
 def mm_route(rows: int, qt: QTensor, precise: bool = False) -> str:
@@ -440,8 +443,8 @@ def _fused(cfg: ModelConfig, w: Weights, B: int, plan: ShardingPlan = NO_SHARDIN
     under CALM_ROT=0 (calm_tpu/model.py:1211, :1225-1228) or under a plan
     that splits the layer: its residual closes across ranks between wo and
     the FFN (``:1226-1227``). fp8e4 has no fused epilogue (``:1231``), and
-    fp8/fp16 decline it under ``precise`` (its products stage x in f16;
-    ``:1237-1238``); gf4's runs as it does."""
+    fp8/fp16 decline it under ``precise``, as JAX's (``:1237-1238``; its
+    products stage x in f16); gf4's runs as it does."""
     if cfg.n_experts or cfg.norm_par or not ROTATED_DECODE or _split(plan):
         return False
     if w.layers.wq.fmt == "gf4":

@@ -6,13 +6,12 @@
   (``calm_tpu/ops/qmm.py:179-205``), times its scale; gf4 goes to
   :func:`qmm_decode_gf4`. From 2 rows of x it takes the multi-row path on
   the tensor cores, tiled by :func:`qmv_plan`, x staged as scaled f16 hi +
-  lo (:func:`split_operand` writes the staging out in PyTorch); under the
-  quality mode the one-row loop on a grid axis over rows
-  (:func:`decode_path`).
+  lo (:func:`split_operand` writes the staging out in PyTorch), in the
+  quality mode too (:func:`decode_path`).
 - :func:`qmm_decode_gf4` replaces ``_layered_gf4_kernel`` (``:100``): the
   same matvec on natural gf4 words, B <= 16: one row in ``csrc/gf4.cu``,
-  from 2 rows on the multi-row path (``csrc/qmm.cu``), or in the quality
-  mode ``csrc/gf4.cu``'s loop on a grid axis over rows.
+  from 2 rows on the multi-row path (``csrc/qmm.cu``), in the quality mode
+  too.
 - :func:`qmm_prefill` replaces ``_gf4_mm_kernel`` (``:238``): the gf4
   product for R >= 32 rows (``csrc/gf4.cu``), eligibility as
   ``mm_supported`` (``:275-283``); x enters as bf16, rounded once by
@@ -67,8 +66,7 @@ its launches in ``.launches`` (:func:`qmm_decode`, :func:`qmm_decode_gf4`,
 :func:`qx_offn_qkv`, :func:`gf4_offn_qkv`, :func:`gf4_ffn`,
 :func:`gf4_offn`, :func:`qmm_moe_dense`, :func:`qmm_moe_ffn` and
 :func:`gf4_moe_ffn` those of the multi-row path also in
-``.multirow_launches``; :func:`qmm_decode` and :func:`qmm_decode_gf4`
-those of the quality mode's rows axis in ``.rows_launches``).
+``.multirow_launches``).
 """
 
 from __future__ import annotations
@@ -398,15 +396,16 @@ def _staging(words: int, floats: int, dev) -> tuple[torch.Tensor, int, int]:
 # ---------------------------------------------------------------------------
 
 
-def decode_path(B: int, precise: bool = False) -> str:
-    """Which kernel loop a decode product of B rows takes on the card:
-    "one-row" (``qmv_kernel``, ``gf4_mv_kernel``: f32 operands and sums)
-    at B = 1; from 2 rows "multi-row" (``mmv_kernel`` on the tensor cores,
-    x staged as f16 hi + lo), or under ``precise`` "rows": the one-row
-    loop on a grid axis over rows, f32 throughout, each row rereading the
-    weights (the quality mode's price)."""
+def decode_path(B: int) -> str:
+    """Which kernel loop a decode product of B rows takes on the card, in
+    either mode: "one-row" (``qmv_kernel``, ``gf4_mv_kernel``: f32
+    operands and sums) at B = 1; from 2 rows "multi-row" (``mmv_kernel``
+    on the tensor cores, x staged as f16 hi + lo, each weight read once for
+    every row). The quality mode takes the same launches: from the float64
+    product they read about half an f32 matmul's distance, about twice the
+    f32 loops' (``csrc/qmm.cu``, the quality mode's note)."""
     _check(1 <= B <= MAX_ROWS, f"the decode kernels take 1..{MAX_ROWS} rows, not {B}")
-    return "one-row" if B == 1 else "rows" if precise else "multi-row"
+    return "one-row" if B == 1 else "multi-row"
 
 
 def qmm_decode_plain(x: torch.Tensor, w: torch.Tensor, fmt: str,
@@ -416,13 +415,13 @@ def qmm_decode_plain(x: torch.Tensor, w: torch.Tensor, fmt: str,
 
 
 def qmm_decode(x: torch.Tensor, w: torch.Tensor, fmt: str,
-               layer=None, scale=None, precise: bool = False) -> torch.Tensor:
+               layer=None, scale=None) -> torch.Tensor:
     """x (B, n) f32 @ W[layer]^T for W (L, d, n) (or (d, n)) in storage
     dtype, (L, d, n/8) int32 words for gf4 -> (B, d) f32; fp8e4 times its
     scale (L, 1) (or (1,)), read by the kernel on the device. The path by
-    :func:`decode_path`; the rows path counts in ``.rows_launches``."""
+    :func:`decode_path`."""
     if fmt == "gf4":
-        return qmm_decode_gf4(x, w, layer, precise)
+        return qmm_decode_gf4(x, w, layer)
     if x.device.type == "cpu":
         return qmm_decode_plain(x, w, fmt, layer, scale)
     wl = _plane(w, layer)
@@ -432,7 +431,7 @@ def qmm_decode(x: torch.Tensor, w: torch.Tensor, fmt: str,
     B, n = x.shape
     d = wl.shape[0]
     _check(wl.shape[1] == n, f"x has {n} columns, W has {wl.shape[1]}")
-    path = decode_path(B, precise)
+    path = decode_path(B)
     y = torch.empty((B, d), dtype=torch.float32, device=x.device)
     xs = sc = plan = None
     if path == "multi-row":
@@ -445,13 +444,11 @@ def qmm_decode(x: torch.Tensor, w: torch.Tensor, fmt: str,
     build.check("qmm", rc)
     qmm_decode.launches += 1
     qmm_decode.multirow_launches += path == "multi-row"
-    qmm_decode.rows_launches += path == "rows"
     return y
 
 
 qmm_decode.launches = 0
 qmm_decode.multirow_launches = 0
-qmm_decode.rows_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -477,18 +474,16 @@ def qmm_decode_gf4_plain(x: torch.Tensor, w: torch.Tensor,
     return qmm_decode_plain(x, w, "gf4", layer)
 
 
-def qmm_decode_gf4(x: torch.Tensor, w: torch.Tensor, layer=None,
-                   precise: bool = False) -> torch.Tensor:
+def qmm_decode_gf4(x: torch.Tensor, w: torch.Tensor, layer=None) -> torch.Tensor:
     """x (B <= 16, n) f32 @ W[layer]^T for gf4 words W (L, d, n/8) (or
     (d, n/8)) -> (B, d) f32. One row takes ``csrc/gf4.cu``'s matvec; from 2
     rows x is staged and the multi-row kernel of ``csrc/qmm.cu`` (fmt 2)
-    reads each word once for every row; under ``precise`` the matvec of
-    ``csrc/gf4.cu`` runs on a grid axis over rows (:func:`decode_path`)."""
+    reads each word once for every row (:func:`decode_path`)."""
     if x.device.type == "cpu":
         return qmm_decode_gf4_plain(x, w, layer)
     wl = _plane(w, layer)
     B, d, n8 = _check_gf4(x, wl)
-    path = decode_path(B, precise)
+    path = decode_path(B)
     y = torch.empty((B, d), dtype=torch.float32, device=x.device)
     if path == "multi-row":
         plans, words, floats = _launch_plans(B, (((d,), 8 * n8, False),), True)
@@ -503,13 +498,11 @@ def qmm_decode_gf4(x: torch.Tensor, w: torch.Tensor, layer=None,
         build.check("gf4", rc)
     qmm_decode_gf4.launches += 1
     qmm_decode_gf4.multirow_launches += path == "multi-row"
-    qmm_decode_gf4.rows_launches += path == "rows"
     return y
 
 
 qmm_decode_gf4.launches = 0
 qmm_decode_gf4.multirow_launches = 0
-qmm_decode_gf4.rows_launches = 0
 
 
 def mm_supported(rows: int, wdata: torch.Tensor, fmt: str) -> bool:

@@ -16,7 +16,9 @@ and the Hopper kernels in ``hopper_qmm`` are held against them. One more,
 ``_PRECISE`` is the process-wide quality mode of ``calm_tpu.ops.qmm``
 (``:110-129``): ``Engine(precise=)`` sets it, the CLI's ``--precise`` or
 ``CALM_PRECISE=1`` asks for it. Under it every product that
-``model._mm`` routes takes f32 operands and f32 sums on the card too.
+``model._mm`` routes past 16 rows takes f32 operands and f32 sums on the
+card too; 2-16 rows take the default's multi-row path (x in two f16
+terms, f32 sums).
 """
 
 from __future__ import annotations
@@ -32,10 +34,12 @@ _PRECISE = False
 
 
 def enable_precise(on: bool = True) -> None:
-    """f32 operands and sums for every routed product on the card: the
-    2-16-row matvecs take the one-row loops on a grid axis over rows, and
-    products of more rows dequantize to f32 for a TF32-free ``torch.mm``,
-    where the default rounds x to bf16 or f16. Sticky for the process, as
+    """f32 operands and sums for routed products of more than 16 rows on
+    the card: they dequantize to f32 for a TF32-free ``torch.mm``, where
+    the default rounds x to bf16; fp8/fp16 decode runs per op. One row
+    keeps the f32 loops; 2-16 rows take the default's multi-row path, x in
+    two f16 terms with f32 sums: from the float64 product about half an
+    f32 matmul's distance, twice the f32 loops'. Sticky for the process, as
     JAX's flag; ``Engine`` sets it every time, so a later
     ``Engine(precise=False)`` turns it off."""
     global _PRECISE

@@ -1,6 +1,6 @@
 """Times another tree's gf4 matvecs with this tree's checks.
 
-    python3 chip_compare.py <directory holding another checkout's calm_tpu_torch> [--mixtral | --prefill]
+    python3 chip_compare.py <directory holding another checkout's calm_tpu_torch> [--mixtral | --prefill | --precise]
 
 Puts that directory first on ``sys.path``, builds its kernels, and runs
 ``chip_smoke.multirow_kernel_rows_gf4_decode`` (K3 on the Aya 23 8B
@@ -16,7 +16,13 @@ and library call, on that tree's wrappers. With ``--mixtral`` it also runs
 (prefill, decode and the 8-slot serving drains) on that tree. With
 ``--prefill`` it times only the 2048-token prefill of the 32-layer fp8
 Mistral-7B (the bit-pattern weights, bf16 KV; median of 10 by the host
-clock, the card synchronised around each). Run it before and after
+clock, the card synchronised around each). With ``--precise`` it runs
+only ``chip_smoke.precise_kernel_rows`` (K2 fp8/fp8e4 and K3 gf4 at B = 8
+on the lm-head under the quality mode, beside the default call and the
+f32 matmul) and ``chip_smoke.precise_short_prefill`` (a 17-token prompt's
+prefill of that Mistral-7B under ``--precise`` beside the default's): on
+an older tree they time whatever its quality mode takes at 2-16 rows.
+Run it before and after
 ``chip_smoke.py`` in one call on the card to compare two commits there, or
 on two trees in turns (A, B, B, A). Needs a GPU.
 """
@@ -28,7 +34,8 @@ import sys
 
 
 def main():
-    if len(sys.argv) not in (2, 3) or sys.argv[2:] not in ([], ["--mixtral"], ["--prefill"]):
+    if len(sys.argv) not in (2, 3) or sys.argv[2:] not in ([], ["--mixtral"], ["--prefill"],
+                                                            ["--precise"]):
         sys.exit(__doc__)
     pkg = os.path.abspath(sys.argv[1])
     sys.path.insert(0, pkg)
@@ -52,6 +59,13 @@ def main():
     if sys.argv[2:] == ["--prefill"]:
         cs.log(json.dumps(prefill_ms(cs, dev)))
         return
+    if sys.argv[2:] == ["--precise"]:
+        rows = cs.precise_kernel_rows(3350.0, dev)
+        cfg, w, cache, prompt = mistral_fp8(cs, dev)
+        rows["prefill 17-token --precise"] = cs.precise_short_prefill(
+            cfg, w, cache, prompt, device.smi_name_power())
+        cs.log(json.dumps(rows))
+        return
     rows = cs.multirow_kernel_rows_gf4_decode(3350.0, dev)
     rows.update(cs.onerow_kernel_rows_gf4(3350.0, dev))
     rows.update(cs.moe_multirow_kernel_rows(3350.0, dev))
@@ -62,12 +76,10 @@ def main():
             cs.full_width_phase(fmt, dev, 3350.0, smi, cs.EXPERTS)
 
 
-def prefill_ms(cs, dev) -> dict:
-    """The 2048-token prefill of the 32-layer fp8 Mistral-7B on this tree:
-    ms by the host clock (median, min, max of 10 after 3 warm)."""
-    import statistics
-    import time
-
+def mistral_fp8(cs, dev):
+    """The 32-layer fp8 Mistral-7B of ``chip_smoke.full_width_phase`` on
+    this tree (the bit-pattern weights, bf16 KV, ctx 4096) and its
+    2048-token prompt: (cfg, weights, cache, prompt)."""
     import torch
 
     from calm_tpu_torch import model as M
@@ -81,6 +93,20 @@ def prefill_ms(cs, dev) -> dict:
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     prompt = torch.randint(3, cfg.vocab_size, (1, 2048), generator=gen, device=dev)
+    return cfg, w, cache, prompt
+
+
+def prefill_ms(cs, dev) -> dict:
+    """The 2048-token prefill of the 32-layer fp8 Mistral-7B on this tree:
+    ms by the host clock (median, min, max of 10 after 3 warm)."""
+    import statistics
+    import time
+
+    import torch
+
+    from calm_tpu_torch import model as M
+
+    cfg, w, cache, prompt = mistral_fp8(cs, dev)
     for _ in range(3):
         M.prefill(cfg, w, prompt, [0], cache, "last")
     ts = []

@@ -24,7 +24,9 @@ fp8 rows off the 16-value steps on moe.cu's loop; the fp8e4 routes, K2
 at one row and 2-16, K10 at one row and the expert FFN at 8 rows, with
 power-of-two scales that differ by layer and expert, planes of all 254
 finite e4m3 bytes, each timed beside the e5m2 row of the same shape; the
-``--precise`` rows axis of K2 and K3 at 2-16 rows against f32) and times it
+``--precise`` path of K2 and K3 at 2-16 rows, the multi-row kernel as by
+default, against f32 and the float64 product, and the entry points that
+refuse 2-16 rows without a plan) and times it
 beside its bound and its library call (kernel/library on each timed row),
 after the redesigned kernels' ptxas report; runs both bandwidth tools
 (``calm_tpu_torch.tools.dma_ceiling``, ``gf4_bound``), whose 3 GB rows
@@ -48,7 +50,8 @@ fp8 ones and 2-layer Mixtral-width (4 experts, top-2) fp8, gf4 and fp8e4
 MoE containers, each checked against the CPU plain path (gf4's on the
 exact fp16 decode of its words); runs a 2048-token prefill and the
 ``bench.py`` decode protocol on Mistral-7B (fp8, gf4, fp8e4; fp8 also
-under ``--precise``), Aya 23 8B (fp8, gf4) and Mixtral 8x7B (fp8, gf4,
+under ``--precise``, and a 17-token prompt's prefill under ``--precise``
+for fp8 and gf4), Aya 23 8B (fp8, gf4) and Mixtral 8x7B (fp8, gf4,
 fp8e4); serves the
 containers through ``Server`` (dense, paged, prefix cache) against the
 CPU's server and through ``python -m calm_tpu_torch.httpd``; serves 16
@@ -335,10 +338,10 @@ def kernel_phase(gbps, dev):
                               hq.qmm_decode(x, w, fmt, L - 1),
                               hq.qmm_decode_plain(x, w, fmt, L - 1), TOL_MV))
             wb = dequant(QTensor(w, fmt), torch.bfloat16)
+            b, by = bound_ms(d * D * esz + 4 * (D + d), 2 * d * D, gbps)
             t = timings(lambda i: hq.qmm_decode(x, w, fmt, i % L),
                         lambda i: hq.qmm_decode_plain(x, w, fmt, i % L),
-                        lambda i: torch.matmul(x.bfloat16(), wb[i % L].T))
-            b, by = bound_ms(d * D * esz + 4 * (D + d), 2 * d * D, gbps)
+                        lambda i: torch.matmul(x.bfloat16(), wb[i % L].T), bound=b)
             log(f"# K2 qmm_decode {fmt} {name} {d}x{D} B=1: max_abs_err "
                 f"{errs[-1]:.3e} (tol {TOL_MV:g} x max|y|); {ms_line(t)} (bf16 "
                 f"matmul) bound_ms {b:.4f} ({by}); {share(t, b)}")
@@ -364,13 +367,13 @@ def kernel_phase(gbps, dev):
                 hq.qx_offn_qkv_plain(a, r, g, anx, *ws, layer, fmt, False, 1e-5,
                                      False), TOL_MV))
         wb = [dequant(QTensor(w, fmt), torch.bfloat16) for w in ws]
+        n_w = D * Qd + 3 * H * D + (Qd + 2 * KVd) * D
+        b, by = bound_ms(n_w * esz + 4 * (3 * D + 2 * Qd + 2 * KVd), 2 * n_w, gbps)
         t = timings(lambda i: hq.qx_offn_qkv(a, r, g, anx, *ws, i % L, fmt,
                                              False, 1e-5, False),
                     lambda i: hq.qx_offn_qkv_plain(a, r, g, anx, *ws, i % L, fmt,
                                                    False, 1e-5, False),
-                    epilogue_chain(a, r, g, anx, wb, L))
-        n_w = D * Qd + 3 * H * D + (Qd + 2 * KVd) * D
-        b, by = bound_ms(n_w * esz + 4 * (3 * D + 2 * Qd + 2 * KVd), 2 * n_w, gbps)
+                    epilogue_chain(a, r, g, anx, wb, L), bound=b)
         log(f"# K9 qx_offn_qkv {fmt} one layer D={D} H={H} Qd={Qd} KVd={KVd} "
             f"B=1: max_abs_err {max(errs):.3e} (tol {TOL_MV:g} x max|out|); "
             f"{ms_line(t)} (7 bf16 matmuls on pre-dequantized planes) bound_ms "
@@ -401,13 +404,13 @@ def kernel_phase(gbps, dev):
             errs.append(e)
             kb, vb = kc.bfloat16(), vc.bfloat16()
             q4 = q.reshape(B, KVH * M, 1, hd).bfloat16()
+            nb = 2 * KVH * kv_len * hd * esz + 2 * KVH * hd * esz + 8 * B * KVH * M * hd
+            b, by = bound_ms(nb, 4 * KVH * M * kv_len * hd, gbps)
             t = timings(lambda i: ha.decode_attention(q, kc, vc, kl, i % L, fr),
                         lambda i: ha.decode_attention_plain(q, kc, vc, kl, i % L, fr),
                         lambda i: F.scaled_dot_product_attention(
                             q4, kb[i % L, :, :, :kv_len], vb[i % L, :, :, :kv_len],
-                            enable_gqa=True))
-            nb = 2 * KVH * kv_len * hd * esz + 2 * KVH * hd * esz + 8 * B * KVH * M * hd
-            b, by = bound_ms(nb, 4 * KVH * M * kv_len * hd, gbps)
+                            enable_gqa=True), bound=b)
             log(f"# K12 decode_attention fresh {kvname} KV kv_len {kv_len} "
                 f"(B=1, KVH=8, M=4, hd=128, S=4096): max_abs_err {e:.3e} "
                 f"(tol {TOL_DA:g}); {ms_line(t)} (bf16 SDPA) bound_ms {b:.4f} "
@@ -428,6 +431,7 @@ def kernel_phase(gbps, dev):
     rows.update(fp8e4_kernel_rows(gbps, dev))
     rows.update(precise_kernel_rows(gbps, dev))
     ragged_checks_fp8e4(dev)
+    refused_without_a_plan(dev)
     rows.update(paged_kernel_rows(gbps, dev))
     rows.update(multirow_kernel_rows(gbps, dev))
     multirow_checks(dev)
@@ -488,7 +492,7 @@ def paged_kernel_rows(gbps, dev):
     want = ha.decode_attention(q, kc, vc, kl, L - 1, fr)
     e = max_err(want, ha.decode_attention_plain(q, kc, vc, kl, L - 1, fr))
     t = timings(lambda i: ha.decode_attention(q, kc, vc, kl, i % L, fr),
-                lambda i: ha.decode_attention_plain(q, kc, vc, kl, i % L, fr), sdpa)
+                lambda i: ha.decode_attention_plain(q, kc, vc, kl, i % L, fr), sdpa, bound=b)
     log(f"# K12 decode_attention fresh bf16 KV B=8 kv_len {S} (KVH=8, M=4, hd=128): "
         f"max_abs_err {e:.3e} (tol {TOL_DA:g}); {ms_line(t)} (bf16 SDPA) bound_ms "
         f"{b:.4f} ({by}, {nbytes / 1e6:.1f} MB); {share(t, b)}")
@@ -504,7 +508,7 @@ def paged_kernel_rows(gbps, dev):
                  f"or not equal to dense mode on the same rows")
         t = timings(lambda i: ha.decode_attention(q, kp, vp, kl, i % L, fr, pt=order),
                     lambda i: ha.decode_attention_plain(q, kp, vp, kl, i % L, fr, pt=order),
-                    sdpa)
+                    sdpa, bound=b)
         log(f"# K12 decode_attention paged+fresh bf16 KV B=8 kv_len {S} PR={PR} "
             f"(scrambled table): max_abs_err {e:.3e} (tol {TOL_DA:g}), equal to dense "
             f"mode; {ms_line(t)} (bf16 SDPA on the rows held densely, gather excluded) "
@@ -1183,11 +1187,11 @@ def moe_kernel_rows(gbps, dev):
                           hq.qmm_moe_dense_plain(x, w, ids, cnt, fmt, L - 1), TOL_MV))
         wb = dequant(QTensor(w[:, ids.long()], fmt), torch.bfloat16).transpose(2, 3)
         xb = x.bfloat16().expand(A, -1, -1)
-        t = timings(lambda i: hq.qmm_moe_dense(x, w, ids, cnt, fmt, i % L),
-                    lambda i: hq.qmm_moe_dense_plain(x, w, ids, cnt, fmt, i % L),
-                    lambda i: torch.bmm(xb, wb[i % L]))
         b, by = bound_ms(A * d * n * esz + 4 * (x.numel() + A * B * d),
                          2 * A * B * d * n, gbps)
+        t = timings(lambda i: hq.qmm_moe_dense(x, w, ids, cnt, fmt, i % L),
+                    lambda i: hq.qmm_moe_dense_plain(x, w, ids, cnt, fmt, i % L),
+                    lambda i: torch.bmm(xb, wb[i % L]), bound=b)
         log(f"# K10 qmm_moe_dense {fmt} {name} {d}x{n}, 2 of {E} experts, B=1, "
             f"Ax={x.shape[0]}: max_abs_err {errs[-1]:.3e} (tol {TOL_MV:g} x max|y|); "
             f"{ms_line(t)} (bf16 bmm, pre-dequantized live planes) bound_ms {b:.4f} "
@@ -1211,11 +1215,11 @@ def moe_kernel_rows(gbps, dev):
         l = i % L
         h = F.silu(torch.bmm(xb, wb[0][l])) * torch.bmm(xb, wb[1][l])
         return torch.bmm(h, wb[2][l])
-    t = timings(lambda i: hq.gf4_moe_ffn(x, w1, w3, w2, ids, cnt, i % L, False),
-                lambda i: hq.gf4_moe_ffn_plain(x, w1, w3, w2, ids, cnt, i % L, False),
-                bmm_chain)
     n_w = A * 3 * HID * D
     b, by = bound_ms(n_w // 2 + 4 * (B * D + A * B * D), 2 * B * n_w, gbps)
+    t = timings(lambda i: hq.gf4_moe_ffn(x, w1, w3, w2, ids, cnt, i % L, False),
+                lambda i: hq.gf4_moe_ffn_plain(x, w1, w3, w2, ids, cnt, i % L, False),
+                bmm_chain, bound=b)
     log(f"# K11 gf4_moe_ffn D={D} H={HID}, 2 of {E} experts, B=1: max_abs_err "
         f"{err:.3e} (tol {TOL_MV:g} x max|z|); {ms_line(t)} (3 bf16 bmm, "
         f"pre-dequantized live planes) bound_ms {b:.4f} ({by}, {n_w / 2e6:.1f} MB); "
@@ -1604,58 +1608,156 @@ def fp8e4_kernel_rows(gbps, dev):
     return rows
 
 
+def precise_count(hq) -> int:
+    """The launches so far of the path that the quality mode takes at 2-16
+    rows in K2 and K3: the multi-row path's (``multirow_launches``), or an
+    older tree's rows axis (``rows_launches``) when ``chip_compare.py
+    --precise`` drives one."""
+    attr = "rows_launches" if hasattr(hq.qmm_decode, "rows_launches") else "multirow_launches"
+    return getattr(hq.qmm_decode, attr) + getattr(hq.qmm_decode_gf4, attr)
+
+
+def precise_decode(x, w, fmt, layer, sc):
+    """K2/K3 as the model calls them under ``--precise``: ``model._mv``
+    with the quality mode on (on an older tree, whatever its quality mode
+    takes)."""
+    from calm_tpu_torch import model as M
+    from calm_tpu_torch.ops import qmm as tqmm
+
+    tqmm.enable_precise(True)
+    try:
+        return M._mv(x, tqmm.QTensor(w, fmt, sc), layer)
+    finally:
+        tqmm.enable_precise(False)
+
+
+# --precise at 2-16 rows, its distance from the float64 product (each row to
+# its max |y|) on the lm-head: ~1.5x the largest reading of the multi-row
+# path on an H100 (3.4e-7, PERF.md §6), under the f32 matmul's; a lost lo
+# term of x reads ~2.7e-4 (tests/test_torch_precise_multirow.py)
+PRECISE_F64_LIMIT = 5e-7
+
+
 def precise_kernel_rows(gbps, dev):
-    """The quality mode's 2-16-row products (``--precise``): the one-row
-    loops on their grid axis over rows, ``qmv_kernel`` (fp8 and fp8e4) and
-    ``gf4_mv_kernel`` (gf4), at B=8 on the lm-head, against their f32 plain
-    versions (TOL_MV) and timed beside the multi-row path of the same call
-    (what the mode costs) and an f32 matmul on the plane dequantized
-    beforehand (the library call: JAX's precise XLA product)."""
+    """The quality mode's 2-16-row products (``--precise``): K2 (fp8,
+    fp8e4) and K3 (gf4) at B=8 on the lm-head, as the model calls them
+    under the mode (:func:`precise_decode`: the multi-row path, x in hi +
+    lo), against their f32 plain versions (TOL_MV), and their distance
+    from the float64 product (each row to its max |y|) held to
+    PRECISE_F64_LIMIT, the plain f32 version's beside it; timed beside the
+    default call (``qmm_decode`` without the mode) and an f32 matmul on
+    the plane dequantized beforehand (the library call: JAX's precise XLA
+    product); the bound is the bytes' (each input read and output written
+    once), the f32-FMA bound that the one-row loops' rows axis had beside
+    it; B = 2, 9 and 16 checked and held to the limit too. On an older
+    tree (``chip_compare.py --precise``) the same calls time its quality
+    mode."""
     from calm_tpu_torch.ops import hopper_qmm as hq
     from calm_tpu_torch.ops.qmm import QTensor, dequant
 
     rows = {}
     V, B = 32000, 8
     x = torch.randn(B, D, device=dev)
-    for fmt, key in (("fp8", "qmm_decode_rows"), ("fp8e4", None), ("gf4", "qmm_decode_gf4_rows")):
+
+    def f64_dist(y, exact):
+        return ((y.double() - exact).abs().amax(-1) / exact.abs().amax(-1)).max().item()
+
+    for fmt, key in (("fp8", "qmm_decode_precise"), ("fp8e4", "qmm_decode_fp8e4_precise"),
+                     ("gf4", "qmm_decode_gf4_precise")):
         gs, esz = (8, 0.5) if fmt == "gf4" else (1, 1)
         w = e4m3_rand((1, V, D), dev) if fmt == "fp8e4" else rand_w((1, V, D // gs), fmt, dev)
         sc = pow2_scales((1, 1), dev, 2) if fmt == "fp8e4" else None
         wf = dequant(QTensor(w[0], fmt), torch.float32)
-        before = hq.qmm_decode.rows_launches + hq.qmm_decode_gf4.rows_launches
-        got = hq.qmm_decode(x, w, fmt, 0, sc, precise=True)
-        if hq.qmm_decode.rows_launches + hq.qmm_decode_gf4.rows_launches != before + 1:
-            fail(f"qmm_decode {fmt} precise B={B}: not on the rows path")
-        e = check(f"qmm_decode {fmt} lm-head B={B} precise (rows)", got,
-                  hq.qmm_decode_plain(x, w, fmt, 0, sc), TOL_MV)
-        b, by = bound_ms(V * D * esz + 4 * B * (D + V), 2 * B * V * D, gbps)
-        t = timings(lambda i: hq.qmm_decode(x, w, fmt, 0, sc, precise=True),
+        w64 = (wf.double() * (1.0 if sc is None else sc.double()[0])).T
+        before = precise_count(hq)
+        got = precise_decode(x, w, fmt, 0, sc)
+        if precise_count(hq) != before + 1:
+            fail(f"qmm_decode {fmt} precise B={B}: not on the quality mode's path")
+        want = hq.qmm_decode_plain(x, w, fmt, 0, sc)
+        default_y = hq.qmm_decode(x, w, fmt, 0, sc)
+        e = check(f"qmm_decode {fmt} lm-head B={B} precise", got, want, TOL_MV)
+        e2 = check(f"qmm_decode {fmt} lm-head B={B} default", default_y, want, TOL_MV)
+        exact = x.double() @ w64
+        f64 = [f64_dist(y, exact) for y in (got, default_y, want)]
+        f64_more = []
+        for Bc in (2, 9, 16):
+            xc = torch.randn(Bc, D, device=dev)
+            yc = precise_decode(xc, w, fmt, 0, sc)
+            check_rows(f"qmm_decode {fmt} lm-head B={Bc} precise", yc,
+                       hq.qmm_decode_plain(xc, w, fmt, 0, sc), TOL_MV)
+            f64_more.append(f64_dist(yc, xc.double() @ w64))
+        if max([f64[0]] + f64_more) > PRECISE_F64_LIMIT:
+            fail(f"qmm_decode {fmt} lm-head precise: {f64[0]:.3e} at B={B}, {f64_more} at "
+                 f"B = 2, 9, 16 from the float64 product > {PRECISE_F64_LIMIT:g}")
+        nbytes, ops = V * D * esz + 4 * B * (D + V), 2 * B * V * D
+        b, by = bound_ms(nbytes, ops, gbps, PEAK_BF16)
+        b32, by32 = bound_ms(nbytes, ops, gbps)
+        t = timings(lambda i: precise_decode(x, w, fmt, 0, sc),
                     lambda i: hq.qmm_decode_plain(x, w, fmt, 0, sc),
                     lambda i: torch.matmul(x, wf.T), bound=b)
-        mr = timed(lambda i: hq.qmm_decode(x, w, fmt, 0, sc), floor=b)[0]
+        two = timed(lambda i: hq.qmm_decode(x, w, fmt, 0, sc), floor=b)[0]
         log(f"# {'K3 qmm_decode_gf4' if fmt == 'gf4' else 'K2 qmm_decode'} {fmt} lm-head "
-            f"{V}x{D} B={B} --precise (the one-row loop, a grid axis over rows): max_abs_err "
-            f"{e:.3e} (tol {TOL_MV:g} x max|y|, against the f32 plain version); {ms_line(t)} "
-            f"(f32 matmul, TF32 off) bound_ms {b:.4f} ({by}); {share(t, b)}; the multi-row "
-            f"path in the same call {mr:.4f} ms: the mode costs {t['ms'] / mr:.2f}x")
-        if key:
-            rows[key] = dict(t, bound_ms=b, bound_by=by, max_abs_err=e)
-        del w, wf
+            f"{V}x{D} B={B} --precise: max_abs_err {e:.3e} (default call {e2:.3e}; tol "
+            f"{TOL_MV:g} x max|y| {scale_of(want):.3e}, against the f32 plain version); "
+            f"from the float64 product, each row to its max: --precise {f64[0]:.3e} (B = 2, "
+            f"9, 16: " + ", ".join(f"{v:.3e}" for v in f64_more) + f"; limit "
+            f"{PRECISE_F64_LIMIT:g}), default call {f64[1]:.3e}, the plain f32 version "
+            f"{f64[2]:.3e}; {ms_line(t)} (f32 matmul, TF32 off) bound_ms {b:.4f} ({by}; the "
+            f"f32-FMA bound {b32:.4f}, {by32}); {share(t, b)}; the default call in the same "
+            f"call {two:.4f} ms: the mode costs {t['ms'] / two:.2f}x, "
+            f"{t['ms'] / t['library_ms']:.2f}x the f32 matmul")
+        rows[key] = dict(t, bound_ms=b, bound_by=by, max_abs_err=e, default_ms=two,
+                         default_err=e2, f32_fma_bound_ms=b32, f64_rel_err=f64,
+                         f64_rel_err_b2_9_16=f64_more)
+        del w, wf, w64, exact
     torch.cuda.empty_cache()
     return rows
+
+
+def refused_without_a_plan(dev):
+    """The entry points that ran 2-16 rows on the one-row loops (a grid
+    axis over rows) refuse them: ``calm_qmm_decode`` at B >= 2 without a
+    plan, every format, and ``calm_gf4_matvec`` at B >= 2 return
+    cudaErrorInvalidValue (1) and write nothing."""
+    from calm_tpu_torch.ops import build
+
+    d, n, st = 64, 256, torch.cuda.current_stream().cuda_stream
+    scale = torch.ones(1, device=dev)
+    planes = {fmt: e4m3_rand((d, n), dev) if fmt == "fp8e4"
+              else rand_w((d, n // (8 if fmt == "gf4" else 1)), fmt, dev)
+              for fmt in ("fp16", "fp8", "gf4", "fp8e4")}
+    for B in (2, 9, 16):
+        x = torch.randn(B, n, device=dev)
+        y = torch.full((B, d), float("nan"), device=dev)
+        for code, (fmt, w) in zip((0, 1, 2, 3), planes.items()):
+            rc = build.lib("qmm").calm_qmm_decode(
+                x.data_ptr(), w.data_ptr(), y.data_ptr(), B, d, n, code,
+                scale.data_ptr() if fmt == "fp8e4" else None, None, None, None, st)
+            if rc != 1:
+                fail(f"calm_qmm_decode {fmt} B={B} without a plan returned {rc}, not 1")
+        rc = build.lib("gf4").calm_gf4_matvec(x.data_ptr(), planes["gf4"].data_ptr(),
+                                              y.data_ptr(), B, d, n // 8, st)
+        if rc != 1:
+            fail(f"calm_gf4_matvec B={B} returned {rc}, not 1")
+        torch.cuda.synchronize()
+        if not torch.isnan(y).all():
+            fail(f"a refused call at B={B} wrote its output")
+    log("# refused without a plan: calm_qmm_decode (fp16, fp8, gf4, fp8e4) and "
+        "calm_gf4_matvec at B = 2, 9, 16 return cudaErrorInvalidValue, the output untouched")
 
 
 def ragged_checks_fp8e4(dev):
     """fp8e4 on shapes the timed rows do not reach, scales 2^-3 .. 2^2 by
     layer and expert: K2 at d = 1003 (not a multiple of a warp's rows) and
     n = 1040 (16 x 65: whole 16-value steps, not whole 64-value chunks), B =
-    1, 2, 3, 8, 9 and 16 (one and two n-tiles), on the multi-row path and,
-    with the quality mode, on the rows axis; every plane holds all 254
+    1, 2, 3, 8, 9 and 16 (one and two n-tiles), on the multi-row path and
+    as the model calls it under the quality mode; every plane holds all 254
     finite e4m3 bytes. K10 at B = 1 (``csrc/moe.cu``) and 2, 5, 16 (the
     multi-row sweep), x shared and per slot, four slots of eight experts
     with the last dead (exactly zero) or ids repeated; the FFN at B = 2, 3,
-    5, 16, SiLU and GELU. The quality mode's rows axis for fp8/fp16 at the
-    same ragged shape and for gf4 at n = 1032 (an odd word count)."""
+    5, 16, SiLU and GELU. The quality mode for fp8/fp16 at the same ragged
+    shape and for gf4 at n = 1032 (an odd word count), B = 2, 3, 8, 9, 16;
+    each of its calls counted on the multi-row path."""
     from calm_tpu_torch.ops import hopper_qmm as hq
 
     worst, n_checks = {}, 0
@@ -1665,6 +1767,13 @@ def ragged_checks_fp8e4(dev):
         worst[key] = max(worst.get(key, 0.0), e)
         n_checks += 1
 
+    def counted(what, B, run):
+        before = precise_count(hq)
+        out = run()
+        if precise_count(hq) - before != (B > 1):
+            fail(f"{what}: not on the multi-row path")
+        return out
+
     d, n = 1003, 1040
     w = e4m3_rand((3, d, n), dev, every=True)
     sc = pow2_scales((3, 1), dev)
@@ -1672,17 +1781,20 @@ def ragged_checks_fp8e4(dev):
         x = torch.randn(B, n, device=dev)
         for precise in ((False, True) if B > 1 else (False,)):
             for layer in (0, 2):
-                note("qmm_decode", check_rows(
-                    f"qmm_decode fp8e4 {d}x{n} B={B} layer {layer} precise={precise}",
-                    hq.qmm_decode(x, w, "fp8e4", layer, sc, precise),
+                what = f"qmm_decode fp8e4 {d}x{n} B={B} layer {layer} precise={precise}"
+                note("qmm_decode precise" if precise else "qmm_decode", check_rows(
+                    what, counted(what, B, lambda: precise_decode(
+                        x, w, "fp8e4", layer, sc) if precise else hq.qmm_decode(
+                        x, w, "fp8e4", layer, sc)),
                     hq.qmm_decode_plain(x, w, "fp8e4", layer, sc), TOL_MV))
     for fmt in ("fp8", "fp16", "gf4"):
         nn = 1032 if fmt == "gf4" else n
         wg = rand_w((2, d, nn // (8 if fmt == "gf4" else 1)), fmt, dev)
-        for B in (2, 9, 16):
+        for B in (2, 3, 8, 9, 16):
             x = torch.randn(B, nn, device=dev)
-            note("qmm_decode rows", check_rows(
-                f"qmm_decode {fmt} {d}x{nn} B={B} precise", hq.qmm_decode(x, wg, fmt, 1, None, True),
+            what = f"qmm_decode {fmt} {d}x{nn} B={B} precise"
+            note("qmm_decode precise", check_rows(
+                what, counted(what, B, lambda: precise_decode(x, wg, fmt, 1, None)),
                 hq.qmm_decode_plain(x, wg, fmt, 1), TOL_MV))
     slot_sets = [(torch.tensor([0, 3, 6, 6], dtype=torch.int32, device=dev), 3),
                  (torch.tensor([5, 5, 2, 2], dtype=torch.int32, device=dev), 4)]
@@ -1718,7 +1830,7 @@ def ragged_checks_fp8e4(dev):
     del w, ws
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    log(f"# ragged shapes (fp8e4, and the --precise rows axis): {n_checks} checks, all 254 "
+    log(f"# ragged shapes (fp8e4, and --precise): {n_checks} checks, all 254 "
         "finite e4m3 bytes in every plane, max_abs_err " + ", ".join(
             f"{k} {v:.3e}" for k, v in worst.items()) + f" (tol {TOL_MV:g} x max|out|)")
 
@@ -2208,10 +2320,10 @@ def gf4_kernel_rows(gbps, dev):
         errs.append(check(f"qmm_decode_gf4 {name}", hq.qmm_decode_gf4(x, w, L - 1),
                           hq.qmm_decode_gf4_plain(x, w, L - 1), TOL_MV))
         wb = dequant(QTensor(w, "gf4"), torch.bfloat16)
+        b, by = bound_ms(d * n // 2 + 4 * (n + d), 2 * d * n, gbps)
         t = timings(lambda i: hq.qmm_decode_gf4(x, w, i % L),
                     lambda i: hq.qmm_decode_gf4_plain(x, w, i % L),
-                    lambda i: torch.matmul(x.bfloat16(), wb[i % L].T))
-        b, by = bound_ms(d * n // 2 + 4 * (n + d), 2 * d * n, gbps)
+                    lambda i: torch.matmul(x.bfloat16(), wb[i % L].T), bound=b)
         log(f"# K3 qmm_decode_gf4 {name} {d}x{n} B=1: max_abs_err {errs[-1]:.3e} "
             f"(tol {TOL_MV:g} x max|y|); {ms_line(t)} (bf16 matmul, pre-dequantized) "
             f"bound_ms {b:.4f} ({by}, {d * n / 2e6:.1f} MB); {share(t, b)}")
@@ -2229,11 +2341,11 @@ def gf4_kernel_rows(gbps, dev):
                     TOL_MM)
         wb = dequant(QTensor(w, "gf4"), torch.bfloat16)
         xb = x.bfloat16()
-        t = timings(lambda i: fn(x, w, i % L),
-                    lambda i: hq.qmm_prefill_plain(x, w, i % L),
-                    lambda i: torch.matmul(xb, wb[i % L].T), 3)
         flops = 2 * R * d * n
         b, by = bound_ms(4 * R * n + d * n // 2 + 4 * R * d, flops, gbps, PEAK_BF16)
+        t = timings(lambda i: fn(x, w, i % L),
+                    lambda i: hq.qmm_prefill_plain(x, w, i % L),
+                    lambda i: torch.matmul(xb, wb[i % L].T), 3, bound=b)
         # the model rounds x once for several products: the kernel alone
         # (a profiled time below the bound missed part of the call)
         ms_b, how_b = timed(lambda i: fn(xb, w, i % L), floor=b)
@@ -2401,9 +2513,6 @@ def counters():
     out["qmm_moe_dense_multirow"] = (hq.qmm_moe_dense, "multirow_launches")
     out["qmm_moe_ffn_multirow"] = (fns["qmm_moe_ffn"], "multirow_launches")
     out["gf4_moe_ffn_multirow"] = (hq.gf4_moe_ffn, "multirow_launches")
-    # the quality mode's 2-16-row products: the one-row loops' rows axis
-    out["qmm_decode_rows"] = (hq.qmm_decode, "rows_launches")
-    out["qmm_decode_gf4_rows"] = (hq.qmm_decode_gf4, "rows_launches")
     out["decode_attention_partials"] = (ha.decode_attention, "partials_launches")
     from calm_tpu_torch.graphs import StepGraph, VerifyGraph
     out["graph_replays"] = (StepGraph, "replays")  # replays of captured steps
@@ -2547,15 +2656,16 @@ def cpu_reference(path, what):
     return twin
 
 
-PRECISE_COUNTS = {}  # fmt -> the launch counts of the container phase's --precise generate
+PRECISE_COUNTS = {}  # fmt -> the launch counts of a full-width 17-token --precise prefill
 
 
 def precise_checks(path, what, cpu, toks, lc_prefill, err_prefill, steps_cpu, err_steps):
     """``Engine(path, precise=True)`` on the card against the same CPU
     logits as the default engine's checks: the prefill of ``toks`` (f32
     products in place of bf16), 8 decode steps (per op, no fused
-    epilogue), and a greedy generate whose 9-token prefill takes the rows
-    axis (its launches go to ``PRECISE_COUNTS``). Logs both errors."""
+    epilogue), and a greedy generate whose 9-token prompt's 8-row prefill
+    takes the multi-row path as by default. Logs both
+    errors."""
     from calm_tpu_torch.engine import Engine
     from calm_tpu_torch.ops import qmm as tqmm
 
@@ -2580,14 +2690,13 @@ def precise_checks(path, what, cpu, toks, lc_prefill, err_prefill, steps_cpu, er
                               cpu.generate(prompt, n + 8, temperature=0).ids, TOL_PREFILL)
     finally:
         tqmm.enable_precise(False)
-    rows = counts["qmm_decode_rows"] + counts["qmm_decode_gf4_rows"]
+    rows = counts["qmm_decode_multirow"] + counts["qmm_decode_gf4_multirow"]
     if e_pre > TOL_PREFILL or e_steps > TOL_STEP or rows == 0 or counts["qx_offn_qkv"]:
         fail(f"{what} --precise: prefill logits {e_pre:.3e}, steps {e_steps:.3e} from the "
              f"CPU, launches {counts}")
-    PRECISE_COUNTS[cpu.cfg.dtype] = counts
     log(f"# {what} --precise vs cpu: logits after the {len(toks)}-token prefill {e_pre:.3e} "
         f"of scale (default {err_prefill:.3e}), 8 steps {e_steps:.3e} (default "
-        f"{err_steps:.3e}); generate {gen}, its {n}-token prefill on the rows axis "
+        f"{err_steps:.3e}); generate {gen}, its {n - 1}-row prefill on the multi-row path "
         f"({rows} launches), qx_offn_qkv 0")
     del eng
 
@@ -3852,6 +3961,10 @@ def full_width_phase(fmt, dev, gbps, smi, experts: int = 0, cohere: bool = False
     else:
         log(f"# profile prefill {what}: the profiler saw no device time (not measured)")
 
+    if fmt == "gf4" and not (experts or cohere):  # fp8's: in precise_full_width
+        out["prefill 17-token --precise"] = precise_short_prefill(cfg, w, cache, prompt, smi)
+        PRECISE_COUNTS[fmt] = {"qmm_decode_gf4_precise": out[
+            "prefill 17-token --precise"]["precise"]["launches"]}
     token = torch.zeros(1, dtype=torch.int64, device=dev)
     runs = [("first32", 0), ("last32", ctx - 2 * steps)]
     if fmt == "gf4" and not (experts or cohere):
@@ -3935,6 +4048,8 @@ def full_width_phase(fmt, dev, gbps, smi, experts: int = 0, cohere: bool = False
     if fmt == "fp8" and not (experts or cohere):
         out.update(precise_full_width(cfg, w, cache, prompt, token, steps, bw, gbps, smi,
                                       first, out))
+        PRECISE_COUNTS[fmt] = {"qmm_decode_precise": out[
+            "prefill 17-token --precise"]["precise"]["launches"]}
         del cache
         torch.cuda.empty_cache()
         cache = None
@@ -3957,12 +4072,14 @@ def precise_full_width(cfg, w, cache, prompt, token, steps, bw, gbps, smi, first
     off, in place of the bf16 product) and first32 replayed (per op: the
     fused epilogue declines, one row keeps the f32 loop), each timed in the
     same way as the default rows beside it, and the logits' distance from
-    the default run's. Returns the rows for the phase's JSON."""
+    the default run's; then a 17-token prompt's prefill
+    (:func:`precise_short_prefill`). Returns the rows for the phase's
+    JSON."""
     from calm_tpu_torch import model as M
     from calm_tpu_torch.engine import kv_cache_bytes
     from calm_tpu_torch.ops import qmm as tqmm
 
-    out = {}
+    out = {"prefill 17-token --precise": precise_short_prefill(cfg, w, cache, prompt, smi)}
     tqmm.enable_precise(True)
     try:
         M.prefill(cfg, w, prompt, [0], cache, "last")  # warm
@@ -4014,6 +4131,66 @@ def precise_full_width(cfg, w, cache, prompt, token, steps, bw, gbps, smi, first
         f"ids equal to the default run's for {n} of {steps} steps, logits within {diff:.3e} "
         f"of scale; per op: qmm_decode {counts['qmm_decode']} launches a 2-step loop, "
         f"qx_offn_qkv 0, on {smi}")
+    return out
+
+
+SHORT_ROWS = 16  # a 17-token prompt: the Engine prefills all but its last token
+
+
+def precise_short_prefill(cfg, w, cache, prompt, smi, reps: int = 10) -> dict:
+    """A 17-token prompt's prefill under ``--precise`` on the full-width
+    model: its first SHORT_ROWS tokens through ``M.prefill`` (the Engine
+    prefills all but the last; logits of the last row), so every product
+    takes the quality mode's 2-16-row path, 7 a layer (q, k, v, wo, w1, w3,
+    w2), beside the default mode's prefill of the same rows in the same
+    call: device ms (CUPTI, the sum of a call's kernels, mean of 5), wall
+    ms by the host clock (median of ``reps``, the card synchronised around
+    each), the launches, and the logits' distance from the default's. On
+    an older tree (``chip_compare.py --precise``) the launches are those
+    of its quality mode. Returns the phase's row and logs it."""
+    from calm_tpu_torch import model as M
+    from calm_tpu_torch.ops import hopper_qmm as hq
+    from calm_tpu_torch.ops import qmm as tqmm
+
+    toks = prompt[:, :SHORT_ROWS]
+
+    def run():
+        return M.prefill(cfg, w, toks, [0], cache, "last")[0]
+
+    out, logits = {}, {}
+    for mode, precise in (("default", False), ("precise", True)):
+        tqmm.enable_precise(precise)
+        try:
+            run()  # warm
+            before = precise_count(hq)
+            logits[mode] = run().float()
+            torch.cuda.synchronize()
+            n = precise_count(hq) - before
+            dev_ms, how = timed(lambda i: run(), iters=5, warmup=1)
+            secs = []
+            for _ in range(reps):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                run()
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t)
+        finally:
+            tqmm.enable_precise(False)
+        if not torch.isfinite(logits[mode]).all() or (precise and n != 7 * cfg.n_layers):
+            fail(f"prefill {cfg.dtype} {SHORT_ROWS} rows {mode}: non-finite logits or "
+                 f"{n} launches on the quality mode's path")
+        med = statistics.median(secs)
+        out[mode] = dict(device_ms=dev_ms, timed_by=how, ms=1e3 * med,
+                         spread_pct=100 * (max(secs) - min(secs)) / med, launches=n)
+    ref = logits["default"]
+    out["distance"] = float((logits["precise"] - ref).abs().max() / ref.abs().max())
+    p, d = out["precise"], out["default"]
+    log(f"# prefill {cfg.dtype} {cfg.n_layers} layers, a 17-token prompt ({SHORT_ROWS} rows) "
+        f"--precise: device {p['device_ms']:.3f} ms ({p['timed_by']}), wall {p['ms']:.3f} ms "
+        f"(median of {reps}, spread {p['spread_pct']:.2f}%), {p['launches']} launches on the "
+        f"quality mode's path; default in the same call: device {d['device_ms']:.3f} ms, wall "
+        f"{d['ms']:.3f} ms: the mode costs {p['device_ms'] / d['device_ms']:.2f}x device; "
+        f"logits {out['distance']:.3e} of scale from the default's, on {smi}")
     return out
 
 
@@ -4452,11 +4629,11 @@ def partials_kernel_rows(gbps, dev):
             if sp == 2 and kvd == torch.bfloat16 and kv_len == S:
                 k0, v0, l0 = ks[0], vs[0], locs[0]
                 q4 = q.reshape(B, KVH, M, hd).bfloat16()
-                t = timings(lambda i: ha.decode_attention(q, k0, v0, l0, i % Lb, partials=True),
-                            lambda i: ha.decode_attention_partials_plain(q, k0, v0, l0, i % Lb),
-                            lambda i: flash_lse(q4, k0[i % Lb], v0[i % Lb]))
                 nb = 2 * B * KVH * s_loc * hd * 2 + 4 * B * KVH * M * (2 * hd + 2)
                 b, by = bound_ms(nb, 4 * B * KVH * M * s_loc * hd, gbps)
+                t = timings(lambda i: ha.decode_attention(q, k0, v0, l0, i % Lb, partials=True),
+                            lambda i: ha.decode_attention_partials_plain(q, k0, v0, l0, i % Lb),
+                            lambda i: flash_lse(q4, k0[i % Lb], v0[i % Lb]), bound=b)
                 att = nb / (RATES["attainable"] * 1e6) if RATES["attainable"] else None
                 log(f"# K12 partials bf16 B={B} shard 0 of 2 ({s_loc} rows, KVH=8, M=4, "
                     f"hd=128): {ms_line(t)} (flash attention with log-sum-exp) bound_ms "
@@ -4564,10 +4741,10 @@ def ring_kernel_rows(gbps, dev):
         if not all(torch.equal(a, b) for a, b in zip(got, want)):
             fail(f"ring_all_reduce n={n} 64 MB: not bit-equal to the plain version")
         del got, want
-        t = timings(lambda i: hc.ring_all_reduce(xs), lambda i: hc.ring_all_reduce_plain(xs),
-                    library, plain_iters=3)
         nbytes = 2 * n * elems * 4
         b, by = bound_ms(nbytes, (n - 1) * elems, gbps)
+        t = timings(lambda i: hc.ring_all_reduce(xs), lambda i: hc.ring_all_reduce_plain(xs),
+                    library, plain_iters=3, bound=b)
         att = nbytes / (RATES["attainable"] or gbps) / 1e6
         log(f"# K14 ring_all_reduce n={n} x 64 MB f32 on one card: bit-equal; "
             f"{ms_line(t)} (stack + sum + n copies) bound_ms {b:.4f} ({by}: n inputs read, "
@@ -5049,12 +5226,13 @@ def main():
                "qmm_moe_ffn_fp8e4_multirow": ("calm_tpu_torch/csrc/qmm.cu",
                                               "calm_tpu/ops/qmm.py:179", served["fp8e4"],
                                               "qmm_moe_ffn_multirow"),
-               # --precise at 2-16 rows: JAX's precise XLA product; launches from
-               # the fp8 and gf4 containers' precise generate
-               "qmm_decode_rows": ("calm_tpu_torch/csrc/qmm.cu", "calm_tpu/ops/qmm.py:190",
-                                   PRECISE_COUNTS["fp8"]),
-               "qmm_decode_gf4_rows": ("calm_tpu_torch/csrc/gf4.cu", "calm_tpu/ops/qmm.py:190",
-                                       PRECISE_COUNTS["gf4"])}
+               # --precise at 2-16 rows (JAX's precise XLA product), the
+               # multi-row path: launches from the full-width fp8 and gf4
+               # Mistral-7B 17-token prompts' prefills
+               "qmm_decode_precise": ("calm_tpu_torch/csrc/qmm.cu", "calm_tpu/ops/qmm.py:190",
+                                      PRECISE_COUNTS["fp8"]),
+               "qmm_decode_gf4_precise": ("calm_tpu_torch/csrc/qmm.cu",
+                                          "calm_tpu/ops/qmm.py:190", PRECISE_COUNTS["gf4"])}
     kernels = []
     for name, (src, rep, counts, *key) in sources.items():
         n = counts[key[0] if key else name]

@@ -428,14 +428,14 @@ def _weights_of(fmt: str, **kw):
 @pytest.mark.parametrize("fmt", ["fp16", "fp8", "fp8e4", "gf4"])
 def test_routing_under_precise(fmt):
     """The decisions as pure functions: ``decode_path`` keeps one row on
-    its loop and sends 2-16 rows to the rows axis under precise;
-    ``mm_route`` keeps <= 16 rows on the matvecs and sends gf4 from 32 rows
-    to its matmul kernel only without precise; ``_fused`` declines the
-    fp8/fp16 epilogue under precise (gf4's stays, fp8e4 has none)."""
-    assert hopper_qmm.decode_path(1) == hopper_qmm.decode_path(1, True) == "one-row"
+    its loop and sends 2-16 rows to the multi-row path, in either mode
+    (it takes no mode); ``mm_route`` keeps <= 16 rows on the matvecs and
+    sends gf4 from 32 rows to its matmul kernel only without precise;
+    ``_fused`` declines the fp8/fp16 epilogue under precise (gf4's stays,
+    fp8e4 has none)."""
+    assert hopper_qmm.decode_path(1) == "one-row"
     for B in (2, 8, 16):
         assert hopper_qmm.decode_path(B) == "multi-row"
-        assert hopper_qmm.decode_path(B, True) == "rows"
     with pytest.raises(ValueError):
         hopper_qmm.decode_path(17)
     cfg, w = _weights_of(fmt, dim=128, hidden_dim=256, head_dim=64, n_heads=2, n_kv_heads=2,

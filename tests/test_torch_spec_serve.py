@@ -16,6 +16,7 @@ import subprocess
 import sys
 import urllib.request
 
+import numpy as np
 import pytest
 import torch
 
@@ -26,6 +27,38 @@ from tests.modelgen import tiny_config, write_tiny_model
 torch.set_num_threads(1)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PROMPTS = ["hello world", "the quick", "pack my box"]
+
+
+class _CopyingJnp:
+    """``jax.numpy`` as ``calm_tpu.serve`` sees it in these tests, with
+    ``asarray`` of a numpy array taken from a copy. On the CPU
+    ``jnp.asarray`` can share the numpy buffer, and the JAX server writes
+    ``_tokens``/``_pos`` in place (``calm_tpu/serve.py:645-646``,
+    ``:722-723``, ``:938-939``) while a step dispatched asynchronously
+    before (the draft's ``decode_step`` on a plain tick, ``:900-903``, whose
+    result nothing waits for) may still read them: its counters then
+    changed from run to run under load. Every other attribute is jnp's."""
+
+    def __init__(self, jnp):
+        self._jnp = jnp
+
+    def __getattr__(self, name):
+        return getattr(self._jnp, name)
+
+    def asarray(self, a, *args, **kw):
+        return self._jnp.asarray(a.copy() if isinstance(a, np.ndarray) else a, *args, **kw)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_server_reads_copies():
+    """The reference gives one answer a run: its host arrays reach JAX as
+    copies (the flag that turns off the CPU's asynchronous dispatch is read
+    only when JAX's CPU client is made, which another test file in the same
+    worker may already have done)."""
+    real = JS.jnp
+    JS.jnp = _CopyingJnp(real)
+    yield
+    JS.jnp = real
 
 
 @pytest.fixture(scope="module")
