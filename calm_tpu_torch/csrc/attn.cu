@@ -1072,6 +1072,493 @@ int prefill_smem(int kvt) {
   return kvt == 0 ? Pf<HD, 0>::SMEM : kvt == 1 ? Pf<HD, 1>::SMEM : Pf<HD, 2>::SMEM;
 }
 
+// ---------------------------------------------------------------------------
+// K13's split-S route: the few query rows of a speculative verify, and the
+// draft tree's nodes, against a long cache, on mma.sync.
+//
+// Replaces calm_tpu/ops/pallas_attn.py:_prefill_kernel (:326) at a verify's
+// shapes, reached through prefill_attention (:463): the same function as the
+// persistent kernel above (query t of sequence b at position pos0[b] + t sees
+// cache rows col < kv_len[b] and col <= pos0[b] + t; K/V enter the products
+// as bf16, q and p rounded once to bf16, sums in f32). With a tree mask (T, T)
+// bool it is also the draft tree's attention, which has no TPU kernel (jnp in
+// JAX, calm_tpu/model.py:613-630): node t sees the context below the tree,
+// col < kv_len - T, and inside it the nodes tree[t] marks.
+//
+// What bounds it on an H100: the cache bytes. At T = 5 and M = 4 a kv head's
+// 20 query rows do ~20 flops a cache byte in bf16, far below the tensor
+// cores' ~295; in f32 FMA (K12's arithmetic) it would be at the f32/HBM
+// balance, and the tree's 40 rows past it. The persistent kernel gives such
+// a call ceil(T M / 128) KVH B blocks (8 of 132 SMs at B = 1), each reading
+// one kv head's whole window alone. So:
+//
+// - Split S, as K12 does. A block owns one (chunk of CS cache rows, kv head,
+//   sequence, row group) with all the group's query rows: up to 64 (query,
+//   head) rows R = t M + m, padded to 16, 32, 48 or 64, so each K/V tile is
+//   read once for all of them; more rows take more groups. The plan
+//   (ops/hopper_attn.verify_plan) is a pure function of the shapes that
+//   aims at one resident wave and never depends on kv_len, so eager and
+//   replayed runs sum in the same order. Chunks past the rows any query of
+//   the group sees read nothing.
+// - Tiles of TR cache rows (64, or 32 at hd 256) of K and V copied in the
+//   cache dtype with 16-byte cp.async into a ring of VA_STAGES stages (rows
+//   padded 16 bytes: the fragment reads are free of bank conflicts); V rows
+//   past the chunk are zeroed (p = 0 there, and 0 * NaN = NaN).
+// - Warps: RT row tiles x WS splits of a tile's 16-row sub-tiles. Each warp
+//   runs S = Q K^T and O += P V for its 16 rows on mma.sync m16n8k16 (bf16,
+//   f32 accumulators), K and V widened to bf16 as the fragments are read
+//   (e5m2 exactly, fp16 rounded), an online softmax in base 2 in registers
+//   (a row with nothing visible keeps m = -inf, its shift clamped to 0). The
+//   WS warps of a row tile merge in shared memory at the end of the chunk.
+// - The chunks fold in the same launch, as K12's: each block writes its
+//   state (acc, m, l) to the workspace, and the last block of its group (an
+//   acquire-release ticket it resets) folds the live chunks in chunk order
+//   and writes out = acc / max(l, 1e-37).
+
+#define VA_STAGES 3       // tiles in flight: two ahead of the one computed
+#define VA_ROWS 64        // (query, head) rows a block at most: four row tiles of 16
+#define VA_MAX_CHUNKS 64  // the fold keeps one weight a (row, chunk) in shared memory
+#define VA_THREADS 256    // at most: RT x WS warps
+
+template <int HD, int KVT>
+struct Va {
+  static constexpr int ES = KVT == 2 ? 1 : 2;     // cache bytes a value
+  static constexpr int TR = HD > 128 ? 32 : 64;   // cache rows a tile
+  static constexpr int SUB = TR / 16;             // 16-row sub-tiles a tile
+  static constexpr int RS = HD * ES + 16;         // bytes a staged row: the pad spreads banks
+  static constexpr int RB = HD * 2 + 16;          // bytes a bf16 row (q, converted K/V)
+  static constexpr int CPR = HD * ES / 16;        // 16-byte pieces a row
+  static constexpr int TILE = TR * RS;
+  static constexpr int RING = VA_STAGES * 2 * TILE;
+  static constexpr int CONV = KVT == 1 ? 0 : 2 * TR * RB;  // fp16/e5m2: the tile in bf16
+  // the warps' merge ((WS - 1) * RT row tiles of o, m and l) and the fold's
+  // (row, chunk) m, l and weights reuse the ring
+  static constexpr int SLOTS = HD > 128 ? 4 : 6;
+  static constexpr int MERGE = SLOTS * 16 * HD * 4 + SLOTS * 128 * 4;
+  static constexpr int FOLD = 2 * VA_ROWS * VA_MAX_CHUNKS * 4 + VA_ROWS * 4;
+  static constexpr int R1 = RING > MERGE ? RING : MERGE;
+  static constexpr int REGION0 = R1 > FOLD ? R1 : FOLD;
+  static constexpr int SMEM = REGION0 + CONV + VA_ROWS * RB;
+  static constexpr bool QREG = HD <= 128;  // q's fragments held in registers
+};
+
+struct VaArgs {
+  const float* q;               // (B, T, KVH, M, hd)
+  const void* k;                // (L, Bc, KVH, S, hd)
+  const void* v;
+  const int* pos0;              // (B,)
+  const int* kv_len;            // (B,)
+  const unsigned char* tree;    // (T, T) bool, or null: causal
+  float* pacc;                  // workspace (B, KVH, NG, NC, RT * 16, hd)
+  float* pm;                    // (B, KVH, NG, NC, RT * 16)
+  float* pl;
+  int* ticket;                  // (B, KVH, NG), zero between launches
+  float* out;                   // (B, T, KVH, M, hd)
+  int B, T, KVH, M, S, layer, Bc, boff, CS, NC, RT, NG;
+  float scale_log2;             // log2(e) / sqrt(hd)
+};
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0, uint32_t a1,
+                                         uint32_t a2, uint32_t a3, uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// four 8x8 b16 matrices of shared memory, one row address a lane
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+template <int HD, int KVT>
+__global__ void __launch_bounds__(VA_THREADS) verify_kernel(VaArgs a) {
+  using P = Va<HD, KVT>;
+  constexpr int TR = P::TR, RS = P::RS, RB = P::RB, TILE = P::TILE, ES = P::ES;
+  static_assert(KVT != 1 || RS == RB, "a bf16 tile is read where it lands");
+  extern __shared__ __align__(16) unsigned char va_smem[];
+  unsigned char* ring = va_smem;                        // [stage][K, V][TR][RS]
+  unsigned char* conv = va_smem + P::REGION0;           // [K, V][TR][RB] (fp16, e5m2)
+  unsigned char* sQ = conv + P::CONV;                   // [RT * 16][RB] bf16
+  __shared__ int sFlag;
+
+  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z / a.NG, grow = blockIdx.z % a.NG;
+  const int tid = threadIdx.x, nthr = blockDim.x, warp = tid >> 5, lane = tid & 31;
+  const int WS = nthr / 32 / a.RT, rt = warp % a.RT, ws = warp / a.RT;
+  const int g8 = lane >> 2, t4 = lane & 3;
+  const int GR = a.RT * 16, TM = a.T * a.M, R0 = grow * GR, Rn = min(GR, TM - R0);
+  const int kv_len = min(a.kv_len[b], a.S);
+  const bool tree = a.tree != nullptr;
+  const int p0 = a.pos0[b], base = kv_len - a.T;  // base: the tree's first row
+  // rows any query of the group sees (lim), and rows every one sees (c_all)
+  const int lim = tree ? kv_len : max(0, min(kv_len, p0 + (R0 + Rn - 1) / a.M + 1));
+  const int c_all = tree ? max(0, base) : max(0, min(kv_len, p0 + R0 / a.M + 1));
+  const int ncl = (lim + a.CS - 1) / a.CS;  // chunks that hold a visible row
+  const int s0 = c * a.CS, s1 = min(s0 + a.CS, lim);
+  const size_t grp = ((size_t)b * a.KVH + h) * a.NG + grow;
+  const size_t pidx = grp * a.NC + c;
+  auto row_off = [&](int r) -> size_t {  // q's and out's offset of the group's row r
+    const int R = R0 + r;
+    return ((((size_t)b * a.T + R / a.M) * a.KVH + h) * a.M + R % a.M) * HD;
+  };
+  auto out_row = [&](int r) { return a.out + row_off(r); };
+
+  if (ncl <= 1 && c > 0) return;  // one live chunk (or none): no fold, no ticket
+  if (ncl == 0) {  // nothing visible: 0, as the plain version's sum over no row
+    for (int i = tid; i < Rn * HD / 4; i += nthr)
+      reinterpret_cast<float4*>(out_row(4 * i / HD))[4 * i % HD / 4] =
+          make_float4(0.f, 0.f, 0.f, 0.f);
+    return;
+  }
+
+  if (s0 < s1) {
+    const size_t plane = (((size_t)a.layer * a.Bc + a.boff + b) * a.KVH + h) * (size_t)a.S;
+    const unsigned char* gk = static_cast<const unsigned char*>(a.k) + plane * HD * ES;
+    const unsigned char* gv = static_cast<const unsigned char*>(a.v) + plane * HD * ES;
+    const int nt = (s1 - s0 + TR - 1) / TR;
+    auto issue = [&](int kt) {  // tile kt into stage kt % VA_STAGES
+      const int t0 = s0 + kt * TR, nr = min(TR, s1 - t0);
+      unsigned char* dk = ring + (kt % VA_STAGES) * 2 * TILE;
+      for (int i = tid; i < TR * P::CPR; i += nthr) {
+        const int r = i / P::CPR, p = i % P::CPR;
+        if (r < nr) {
+          const size_t off = (size_t)(t0 + r) * HD * ES + p * 16;
+          cp_async16(dk + r * RS + p * 16, gk + off);
+          cp_async16(dk + TILE + r * RS + p * 16, gv + off);
+        } else {  // past the chunk: V zeroed (p = 0 there, and 0 * NaN = NaN)
+          *reinterpret_cast<uint4*>(dk + TILE + r * RS + p * 16) = make_uint4(0u, 0u, 0u, 0u);
+        }
+      }
+    };
+#pragma unroll
+    for (int kt = 0; kt < VA_STAGES - 1; kt++) {  // the first tiles go out first
+      if (kt < nt) issue(kt);
+      cp_async_commit();
+    }
+    // the group's q rows, f32 -> bf16 once (padding rows 0)
+    for (int i = tid; i < GR * (HD / 4); i += nthr) {
+      const int r = i / (HD / 4), c4 = (i % (HD / 4)) * 4;
+      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (r < Rn) x = __ldg(reinterpret_cast<const float4*>(a.q + row_off(r) + c4));
+      *reinterpret_cast<uint2*>(sQ + r * RB + c4 * 2) =
+          make_uint2(pack_bf16(x.x, x.y), pack_bf16(x.z, x.w));
+    }
+
+    // this thread's rows g8 (i = 0) and g8 + 8 (i = 1) of its row tile: the
+    // query index t, or -1 for a padding row
+    int tq[2];
+#pragma unroll
+    for (int i = 0; i < 2; i++) {
+      const int r = rt * 16 + g8 + 8 * i;
+      tq[i] = r < Rn ? (R0 + r) / a.M : -1;
+    }
+    auto seen = [&](int col, int i) -> bool {
+      if (tq[i] < 0 || col >= lim) return false;
+      if (!tree) return col <= p0 + tq[i];
+      return col < base || a.tree[tq[i] * a.T + (col - base)] != 0;
+    };
+    // ldmatrix row addresses: A (q) rows lane % 16, columns + 8 (lane / 16);
+    // K's B fragments of two n-tiles: rows lane % 8 + 8 (lane / 16), columns
+    // + 8 (lane / 8 % 2); V's (transposed): rows lane % 16, columns + 8 (lane / 16)
+    const unsigned char* qa = sQ + (rt * 16 + (lane & 15)) * RB + (lane >> 4) * 16;
+    const int k_off = ((lane & 7) + ((lane >> 4) << 3)) * RB + ((lane >> 3) & 1) * 16;
+    const int v_off = (lane & 15) * RB + (lane >> 4) * 16;
+    uint32_t qf[P::QREG ? HD / 16 : 1][4];
+    if constexpr (P::QREG) {
+      __syncthreads();  // q is staged
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; kk++) ldsm4(qf[kk], qa + kk * 32);
+    }
+
+    float o[HD / 8][4];
+#pragma unroll
+    for (int n = 0; n < HD / 8; n++) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+    float mrow[2] = {-INFINITY, -INFINITY}, lrow[2] = {0.f, 0.f};  // m in raw score units
+
+    for (int kt = 0; kt < nt; kt++) {
+      cp_async_wait<VA_STAGES - 2>();
+      __syncthreads();  // tile kt landed; every warp is done with tile kt - 1
+      if (kt + VA_STAGES - 1 < nt) issue(kt + VA_STAGES - 1);  // into tile kt - 1's stage
+      cp_async_commit();
+      const unsigned char* tk = ring + (kt % VA_STAGES) * 2 * TILE;
+      const unsigned char* tv = tk + TILE;
+      if constexpr (KVT != 1) {  // fp16 / e5m2: the tile to bf16 once (e5m2 exact)
+        for (int i = tid; i < 2 * TR * P::CPR; i += nthr) {
+          const int kv = i / (TR * P::CPR), r = i % (TR * P::CPR) / P::CPR, p = i % P::CPR;
+          const uint4 w = *reinterpret_cast<const uint4*>(tk + kv * TILE + r * RS + p * 16);
+          unsigned char* d = conv + kv * TR * RB + r * RB + p * 16 * (2 / ES);
+          if constexpr (KVT == 0) {
+            *reinterpret_cast<uint4*>(d) = f16x8_bf16(w);
+          } else {
+            *reinterpret_cast<uint4*>(d) = e5m2x8_bf16(w.x, w.y);
+            *reinterpret_cast<uint4*>(d + 16) = e5m2x8_bf16(w.z, w.w);
+          }
+        }
+        __syncthreads();
+        tk = conv;
+        tv = conv + TR * RB;
+      }
+      const int t0 = s0 + kt * TR;
+      for (int sub = ws; sub < P::SUB; sub += WS) {
+        const int c0 = t0 + sub * 16;
+        if (c0 >= s1) break;
+        // S = Q K^T: 16 rows x 16 cache rows (two n-tiles of 8), k = hd
+        float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+        const unsigned char* kb = tk + sub * 16 * RB + k_off;
+#pragma unroll
+        for (int kk = 0; kk < HD / 16; kk++) {
+          uint32_t kf[4];
+          ldsm4(kf, kb + kk * 32);
+          if constexpr (P::QREG) {
+            mma_bf16(s[0], qf[kk][0], qf[kk][1], qf[kk][2], qf[kk][3], kf[0], kf[1]);
+            mma_bf16(s[1], qf[kk][0], qf[kk][1], qf[kk][2], qf[kk][3], kf[2], kf[3]);
+          } else {
+            uint32_t q4[4];
+            ldsm4(q4, qa + kk * 32);
+            mma_bf16(s[0], q4[0], q4[1], q4[2], q4[3], kf[0], kf[1]);
+            mma_bf16(s[1], q4[0], q4[1], q4[2], q4[3], kf[2], kf[3]);
+          }
+        }
+        // register e of n-tile nf: row g8 + 8 (e / 2), column c0 + 8 nf + 2 t4 + e % 2
+        if (c0 + 16 > c_all) {
+#pragma unroll
+          for (int nf = 0; nf < 2; nf++)
+#pragma unroll
+            for (int e = 0; e < 4; e++)
+              if (!seen(c0 + 8 * nf + 2 * t4 + (e & 1), e >> 1)) s[nf][e] = -INFINITY;
+        }
+        float shift[2], alpha[2];
+#pragma unroll
+        for (int i = 0; i < 2; i++) {
+          float mx = fmaxf(fmaxf(s[0][2 * i], s[0][2 * i + 1]), fmaxf(s[1][2 * i], s[1][2 * i + 1]));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+          const float mn = fmaxf(mrow[i], mx);
+          shift[i] = mn == -INFINITY ? 0.f : mn * a.scale_log2;  // clamped: nothing seen yet
+          alpha[i] = mrow[i] == -INFINITY ? 0.f : ex2(mrow[i] * a.scale_log2 - shift[i]);
+          mrow[i] = mn;
+        }
+        float ls[2] = {0.f, 0.f};
+#pragma unroll
+        for (int nf = 0; nf < 2; nf++)
+#pragma unroll
+          for (int e = 0; e < 4; e++) {
+            s[nf][e] = ex2(fmaf(s[nf][e], a.scale_log2, -shift[e >> 1]));  // -inf -> 0
+            ls[e >> 1] += s[nf][e];
+          }
+#pragma unroll
+        for (int i = 0; i < 2; i++) lrow[i] = lrow[i] * alpha[i] + ls[i];  // a quarter of the row
+        if (alpha[0] != 1.f || alpha[1] != 1.f) {  // the max moved: rescale
+#pragma unroll
+          for (int n = 0; n < HD / 8; n++) {
+            o[n][0] *= alpha[0];
+            o[n][1] *= alpha[0];
+            o[n][2] *= alpha[1];
+            o[n][3] *= alpha[1];
+          }
+        }
+        // O += P V: P's accumulator layout is the A operand's (k = the 16
+        // cache rows); V's fragments by transposing loads, two n-tiles each
+        const uint32_t pa0 = pack_bf16(s[0][0], s[0][1]), pa1 = pack_bf16(s[0][2], s[0][3]),
+                       pa2 = pack_bf16(s[1][0], s[1][1]), pa3 = pack_bf16(s[1][2], s[1][3]);
+        const unsigned char* vb = tv + sub * 16 * RB + v_off;
+#pragma unroll
+        for (int n = 0; n < HD / 8; n += 2) {
+          uint32_t vf[4];
+          ldsm4_t(vf, vb + n * 16);
+          mma_bf16(o[n], pa0, pa1, pa2, pa3, vf[0], vf[1]);
+          mma_bf16(o[n + 1], pa0, pa1, pa2, pa3, vf[2], vf[3]);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; i++) {  // l over the quad
+      lrow[i] += __shfl_xor_sync(0xffffffffu, lrow[i], 1);
+      lrow[i] += __shfl_xor_sync(0xffffffffu, lrow[i], 2);
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // the ring is free for the merge
+
+    // the WS warps of a row tile merge: warps ws > 0 leave (o, m, l) in
+    // shared memory, fragment by fragment; warp ws = 0 folds them in
+    float* mo = reinterpret_cast<float*>(ring);            // [(WS - 1) * RT][HD / 2][32]
+    float* mml = mo + (WS - 1) * a.RT * (HD / 2) * 32;     // [(WS - 1) * RT][4][32]
+    if (ws > 0) {
+      const int slot = (ws - 1) * a.RT + rt;
+      float* dst = mo + (size_t)slot * (HD / 2) * 32 + lane;
+#pragma unroll
+      for (int n = 0; n < HD / 8; n++)
+#pragma unroll
+        for (int e = 0; e < 4; e++) dst[(4 * n + e) * 32] = o[n][e];
+      float* d2 = mml + slot * 128 + lane;
+      d2[0] = mrow[0];
+      d2[32] = mrow[1];
+      d2[64] = lrow[0];
+      d2[96] = lrow[1];
+    }
+    __syncthreads();
+    if (ws == 0) {
+      for (int w = 1; w < WS; w++) {
+        const int slot = (w - 1) * a.RT + rt;
+        const float* src = mo + (size_t)slot * (HD / 2) * 32 + lane;
+        const float* s2 = mml + slot * 128 + lane;
+        float f0[2], f1[2];
+#pragma unroll
+        for (int i = 0; i < 2; i++) {
+          const float mw = s2[32 * i], mn = fmaxf(mrow[i], mw);
+          f0[i] = mrow[i] == -INFINITY ? 0.f : ex2((mrow[i] - mn) * a.scale_log2);
+          f1[i] = mw == -INFINITY ? 0.f : ex2((mw - mn) * a.scale_log2);
+          lrow[i] = lrow[i] * f0[i] + s2[64 + 32 * i] * f1[i];
+          mrow[i] = mn;
+        }
+#pragma unroll
+        for (int n = 0; n < HD / 8; n++)
+#pragma unroll
+          for (int e = 0; e < 4; e++)
+            o[n][e] = o[n][e] * f0[e >> 1] + src[(4 * n + e) * 32] * f1[e >> 1];
+      }
+      // the chunk's state, live rows only; the output itself when the
+      // chunk is the only live one
+#pragma unroll
+      for (int i = 0; i < 2; i++) {
+        const int r = rt * 16 + g8 + 8 * i;
+        if (r >= Rn) continue;
+        if (ncl == 1) {
+          const float inv = 1.0f / fmaxf(lrow[i], 1e-37f);
+          float* dst = out_row(r) + 2 * t4;
+#pragma unroll
+          for (int n = 0; n < HD / 8; n++)
+            *reinterpret_cast<float2*>(dst + 8 * n) =
+                make_float2(o[n][2 * i] * inv, o[n][2 * i + 1] * inv);
+          continue;
+        }
+        float* dst = a.pacc + (pidx * GR + r) * HD + 2 * t4;
+#pragma unroll
+        for (int n = 0; n < HD / 8; n++)
+          *reinterpret_cast<float2*>(dst + 8 * n) = make_float2(o[n][2 * i], o[n][2 * i + 1]);
+        if (t4 == 0) {
+          a.pm[pidx * GR + r] = mrow[i];
+          a.pl[pidx * GR + r] = lrow[i];
+        }
+      }
+    }
+  }
+  if (ncl == 1) return;
+
+  // the last block of the group folds the live chunks (K12's ticket)
+  __syncthreads();
+  if (tid == 0) {
+    int t;
+    asm volatile("atom.add.acq_rel.gpu.global.s32 %0, [%1], 1;\n"
+                 : "=r"(t)
+                 : "l"(a.ticket + grp)
+                 : "memory");
+    const bool last = t == a.NC - 1;
+    if (last) a.ticket[grp] = 0;  // ready for the next launch
+    sFlag = last;
+  }
+  __syncthreads();
+  if (!sFlag) return;
+
+  // every chunk's (m, l) of every row at once; then a thread a row takes
+  // its max, the weights exp(m_c - m) and 1 / max(l, 1e-37) in shared
+  // memory; then two (row, four columns) items a thread, every chunk's
+  // loads in flight
+  float* sM = reinterpret_cast<float*>(va_smem);  // [VA_ROWS][VA_MAX_CHUNKS]: m, then weights
+  float* sL = sM + VA_ROWS * VA_MAX_CHUNKS;
+  float* sInv = sL + VA_ROWS * VA_MAX_CHUNKS;
+  const float* gm = a.pm + grp * a.NC * GR;
+  const float* gl = a.pl + grp * a.NC * GR;
+#pragma unroll 4
+  for (int i = tid; i < Rn * ncl; i += nthr) {
+    const int r = i / ncl, cc = i % ncl;
+    sM[r * VA_MAX_CHUNKS + cc] = __ldcg(gm + cc * GR + r);
+    sL[r * VA_MAX_CHUNKS + cc] = __ldcg(gl + cc * GR + r);
+  }
+  __syncthreads();
+  if (tid < Rn) {
+    float* wm = sM + tid * VA_MAX_CHUNKS;
+    const float* wl = sL + tid * VA_MAX_CHUNKS;
+    float mx = -INFINITY, l = 0.f;
+    for (int cc = 0; cc < ncl; cc++) mx = fmaxf(mx, wm[cc]);
+    for (int cc = 0; cc < ncl; cc++) {
+      const float f = wm[cc] == -INFINITY ? 0.f : ex2((wm[cc] - mx) * a.scale_log2);
+      wm[cc] = f;
+      l += wl[cc] * f;
+    }
+    sInv[tid] = 1.0f / fmaxf(l, 1e-37f);
+  }
+  __syncthreads();
+  const float* ga = a.pacc + grp * a.NC * GR * HD;
+  const int items = Rn * HD / 4;
+  for (int i0 = tid; i0 < items; i0 += 2 * nthr) {
+    const int i1 = min(i0 + nthr, items - 1);  // a second item, or the first again
+    const int r0 = 4 * i0 / HD, d0 = 4 * i0 % HD, r1 = 4 * i1 / HD, d1 = 4 * i1 % HD;
+    const float* w0 = sM + r0 * VA_MAX_CHUNKS;
+    const float* w1 = sM + r1 * VA_MAX_CHUNKS;
+    const float4* src0 = reinterpret_cast<const float4*>(ga + (size_t)r0 * HD + d0);
+    const float4* src1 = reinterpret_cast<const float4*>(ga + (size_t)r1 * HD + d1);
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f), y = x;
+#pragma unroll 16
+    for (int cc = 0; cc < ncl; cc++) {
+      const float4 u = __ldcg(src0 + (size_t)cc * (GR * HD / 4));
+      const float4 v = __ldcg(src1 + (size_t)cc * (GR * HD / 4));
+      const float f = w0[cc], g = w1[cc];
+      x.x = fmaf(u.x, f, x.x);
+      x.y = fmaf(u.y, f, x.y);
+      x.z = fmaf(u.z, f, x.z);
+      x.w = fmaf(u.w, f, x.w);
+      y.x = fmaf(v.x, g, y.x);
+      y.y = fmaf(v.y, g, y.y);
+      y.z = fmaf(v.z, g, y.z);
+      y.w = fmaf(v.w, g, y.w);
+    }
+    const float i0v = sInv[r0], i1v = sInv[r1];
+    *reinterpret_cast<float4*>(out_row(r0) + d0) =
+        make_float4(x.x * i0v, x.y * i0v, x.z * i0v, x.w * i0v);
+    if (i0 + nthr < items)
+      *reinterpret_cast<float4*>(out_row(r1) + d1) =
+          make_float4(y.x * i1v, y.y * i1v, y.z * i1v, y.w * i1v);
+  }
+}
+
+template <int HD, int KVT>
+cudaError_t launch_verify_kvt(const VaArgs& a, int threads, cudaStream_t st) {
+  using P = Va<HD, KVT>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      verify_kernel<HD, KVT>, cudaFuncAttributeMaxDynamicSharedMemorySize, P::SMEM);
+  if (attr != cudaSuccess) return attr;
+  if (a.CS % P::TR != 0 || a.NC < 1 || a.NC > VA_MAX_CHUNKS || a.RT < 1 || a.RT * 16 > VA_ROWS ||
+      threads > VA_THREADS || threads % (32 * a.RT) != 0 || P::SUB % (threads / 32 / a.RT) != 0 ||
+      (threads / 32 / a.RT - 1) * a.RT > P::SLOTS)
+    return cudaErrorInvalidValue;
+  dim3 grid(a.NC, a.KVH, a.B * a.NG);
+  verify_kernel<HD, KVT><<<grid, threads, P::SMEM, st>>>(a);
+  return cudaGetLastError();
+}
+
+template <int HD>
+cudaError_t launch_verify(int kvt, const VaArgs& a, int threads, cudaStream_t st) {
+  if (kvt == 0) return launch_verify_kvt<HD, 0>(a, threads, st);
+  if (kvt == 1) return launch_verify_kvt<HD, 1>(a, threads, st);
+  return launch_verify_kvt<HD, 2>(a, threads, st);
+}
+
+template <int HD>
+int verify_smem(int kvt) {
+  return kvt == 0 ? Va<HD, 0>::SMEM : kvt == 1 ? Va<HD, 1>::SMEM : Va<HD, 2>::SMEM;
+}
+
+
 }  // namespace
 
 extern "C" {
@@ -1191,6 +1678,66 @@ int calm_prefill_smem(int hd, int kvt) {
     case 96: return prefill_smem<96>(kvt);
     case 128: return prefill_smem<128>(kvt);
     case 256: return prefill_smem<256>(kvt);
+    default: return -1;
+  }
+}
+
+// q/out (B, T, KVH, M, hd) f32, caches (L, Bc, KVH, S, hd) in kvt (0 fp16,
+// 1 bf16, 2 fp8 e5m2) of which sequence b reads slot boff + b, pos0/kv_len
+// (B,) int32; tree null (causal) or a (T, T) bool mask (node t sees the
+// rows below kv_len - T and the tree rows tree[t] marks). CS, RT, NG and
+// threads come from ops/hopper_attn.verify_plan; the workspace pacc/pm/pl
+// holds NC = ceil(S / CS) chunks of each (b, kv head, row group) and ticket
+// one zeroed int of each, left zeroed.
+int calm_verify_attention(const void* q, const void* k, const void* v,
+                          const void* pos0, const void* kv_len, const void* tree,
+                          void* pacc, void* pm, void* pl, void* ticket, void* out,
+                          int B, int T, int KVH, int M, int S, int hd, int layer,
+                          int kvt, int Bc, int boff, int CS, int RT, int NG,
+                          int threads, void* stream) {
+  if (CS < 1) return (int)cudaErrorInvalidValue;
+  VaArgs a;
+  a.q = static_cast<const float*>(q);
+  a.k = k;
+  a.v = v;
+  a.pos0 = static_cast<const int*>(pos0);
+  a.kv_len = static_cast<const int*>(kv_len);
+  a.tree = static_cast<const unsigned char*>(tree);
+  a.pacc = static_cast<float*>(pacc);
+  a.pm = static_cast<float*>(pm);
+  a.pl = static_cast<float*>(pl);
+  a.ticket = static_cast<int*>(ticket);
+  a.out = static_cast<float*>(out);
+  a.B = B;
+  a.T = T;
+  a.KVH = KVH;
+  a.M = M;
+  a.S = S;
+  a.layer = layer;
+  a.Bc = Bc;
+  a.boff = boff;
+  a.CS = CS;
+  a.NC = (S + CS - 1) / CS;
+  a.RT = RT;
+  a.NG = NG;
+  a.scale_log2 = 1.4426950408889634f / sqrtf((float)hd);
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (hd) {
+    case 64: return (int)launch_verify<64>(kvt, a, threads, st);
+    case 96: return (int)launch_verify<96>(kvt, a, threads, st);
+    case 128: return (int)launch_verify<128>(kvt, a, threads, st);
+    case 256: return (int)launch_verify<256>(kvt, a, threads, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// the dynamic shared memory one split-S block asks for (for reports)
+int calm_verify_smem(int hd, int kvt) {
+  switch (hd) {
+    case 64: return verify_smem<64>(kvt);
+    case 96: return verify_smem<96>(kvt);
+    case 128: return verify_smem<128>(kvt);
+    case 256: return verify_smem<256>(kvt);
     default: return -1;
   }
 }

@@ -88,8 +88,7 @@ from calm_tpu_torch.config import ModelConfig
 from calm_tpu_torch.container import TensorFile, to_torch
 from calm_tpu_torch.graphs import StepGraph, VerifyGraph
 from calm_tpu_torch.ops.hopper_attn import (HEAD_DIMS, decode_attention,
-                                            prefill_attention,
-                                            prefill_attention_plain)
+                                            prefill_attention, tree_attention)
 from calm_tpu_torch.ops.hopper_qmm import (MAX_ROWS, act, gf4_ffn,
                                            gf4_ffn_supported, gf4_moe_ffn,
                                            gf4_offn, gf4_offn_qkv,
@@ -1028,9 +1027,11 @@ def _prefill_layer(cfg: ModelConfig, lw: LayerWeights, layer: int, x,
     path, ``:1044-1050``) the rows are this rank's chunk of the prompt:
     they land in its S-shard at rows 0..T, and the attention reads every
     shard's chunk, gathered at cache precision. With ``tree`` the queries
-    are a speculation tree's nodes: the masked attention of
-    :func:`hopper_attn.prefill_attention_plain` over every row of the
-    window (a static count, so that eager and replayed runs sum alike)."""
+    are a speculation tree's nodes: :func:`hopper_attn.tree_attention`,
+    the split-S route of the prefill kernel with the tree's mask on the
+    card (its plan a function of the shapes, so eager and replayed runs
+    sum alike), its plain version over every row of the window on the
+    CPU."""
     B, T = rows.shape
     hd = cfg.head_dim
     xb = _norm(cfg, x, lw.attn_norm[layer])
@@ -1051,8 +1052,7 @@ def _prefill_layer(cfg: ModelConfig, lw: LayerWeights, layer: int, x,
         va = mesh.all_gather(vt.transpose(1, 2), plan.sp, dim=2)[None].contiguous()
         att = prefill_attention(qg, ka, va, pos0, kv_len, 0)
     elif tree is not None:
-        att = prefill_attention_plain(qg, cache.k, cache.v, pos0, kv_len, layer,
-                                      batch_off, tree=tree, rows=cache.k.shape[3])
+        att = tree_attention(qg, cache.k, cache.v, pos0, kv_len, layer, tree, batch_off)
     else:
         att = prefill_attention(qg, cache.k, cache.v, pos0, kv_len, layer, batch_off)
     return _ffn(cfg, lw, layer, x, att.reshape(B * T, H * hd), xb, plan, mesh)
@@ -1142,9 +1142,10 @@ def tree_verify(cfg: ModelConfig, w: Weights, tokens: torch.Tensor, pos0,
     bool ancestor-or-self reachability. RoPE positions are pos0 + depth
     (sibling lanes share positions); KV rows land flat at pos0 + [0, N);
     kv_len = pos0 + N. A node attends the context below the tree and its
-    ancestors-or-self inside it (:func:`hopper_attn.prefill_attention_plain`
-    with ``tree``, on both devices: the tree has no TPU kernel, JAX runs it
-    in jnp, ``:1051-1064``). Requires pos0 + N <= seq_len. Returns (logits
+    ancestors-or-self inside it (:func:`hopper_attn.tree_attention`: a
+    kernel on the card, its plain version on the CPU; the tree has no TPU
+    kernel, JAX runs it in jnp, ``:1051-1064``). Requires pos0 + N <=
+    seq_len. Returns (logits
     (1, N, V), cache); ``verify_once`` replays it on the card. Under a
     ``plan`` one rank's program, as :func:`prefill`."""
     B, N = tokens.shape

@@ -46,8 +46,10 @@ SIGNATURES = {
     "attn": {
         "calm_decode_attention": [P] * 15 + [I] * 12 + [P],
         "calm_prefill_attention": [P] * 6 + [I] * 12 + [P],
+        "calm_verify_attention": [P] * 11 + [I] * 14 + [P],
         "calm_decode_smem": [I] * 3,
         "calm_prefill_smem": [I] * 2,
+        "calm_verify_smem": [I] * 2,
     },
     "gf4": {
         "calm_gf4_matvec": [P, P, P, I, I, I, P],

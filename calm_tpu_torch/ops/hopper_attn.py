@@ -23,7 +23,12 @@ and folds the chunks in the same launch (``csrc/attn.cu``'s note).
 :func:`prefill_plan` is the prefill kernel's: work items of a (query tile
 of 128 (query, head) rows, kv head, sequence), heaviest query tiles first,
 taken by one persistent block an SM, on TMA and ``wgmma`` at every head
-dim.
+dim. :func:`verify_plan` is the tiling of the prefill kernel's split-S
+route, which takes a call of few (query, head) rows a kv head (a
+speculative verify: :func:`split_route`) and, through
+:func:`tree_attention`, the draft tree's nodes: blocks of a (chunk of the
+window, kv head, sequence, row group of up to 64 rows) on ``mma.sync``,
+their chunks folded in the same launch.
 """
 
 from __future__ import annotations
@@ -42,6 +47,17 @@ MIN_TILES = 4  # decode: the least tiles a chunk, where the card allows
 MAX_CHUNKS = 256  # csrc/attn.cu DA_MAX_CHUNKS: the merge's weights in shared memory
 HEAD_DIMS = (64, 96, 128, 256)  # what the kernels are built for
 PF_ROWS = 128  # csrc/attn.cu PF_ROWS: (query, head) rows a prefill work item
+VA_ROWS = 64  # csrc/attn.cu VA_ROWS: (query, head) rows a split-S block at most
+VA_MAX_CHUNKS = 64  # csrc/attn.cu VA_MAX_CHUNKS: the fold's weights in shared memory
+# The split-S route takes a call of at most SPLIT_MAX_ROWS (query, head) rows
+# a kv head (T * M), one row group; past it the persistent kernel reads each
+# tile once for 128 rows. Set from the crossover timed on the card
+# (chip_smoke.split_route_sweep; H100 80GB HBM3 at 700 W, Mistral-7B heads,
+# bf16 KV, ms split-S / persistent): at the window's end B=8 64 rows
+# 0.0640 / 0.0692 but 96 rows 0.1093 / 0.0697 (two row groups read every
+# tile twice), B=1 128 rows 0.0268 / 0.0676; from position 0 the split-S
+# route is the faster at 16-128 rows (0.0060-0.0078 / 0.0066-0.0101).
+SPLIT_MAX_ROWS = 64
 
 
 def paged_view(pool_plane: torch.Tensor, pt: torch.Tensor) -> torch.Tensor:
@@ -340,12 +356,11 @@ def prefill_attention_plain(q, k_cache, v_cache, pos0, kv_len, layer,
     With ``tree`` (T, T) bool, the queries are a speculation tree's nodes
     in cache rows [kv_len - T, kv_len): a node sees the context below the
     tree and, inside it, the nodes ``tree`` marks (its ancestors and
-    itself), as ``calm_tpu/model.py:613-630`` masks them. That attention
-    has no TPU kernel (JAX runs it in jnp, ``:1051-1064``: the flash
-    kernel takes one contiguous causal run, as K13 does), so this function
-    is its designed route on both devices, not a fallback of a kernel. It
-    reads no device value on the host when ``rows`` is given, so a graph
-    can capture it."""
+    itself), as ``calm_tpu/model.py:613-630`` masks them (JAX runs that
+    in jnp, ``:1051-1064``). This is the plain version of both routes of
+    the prefill kernel, the split-S route's tree mode included
+    (:func:`tree_attention`); it reads no device value on the host when
+    ``rows`` is given."""
     B, T, KVH, M, hd = q.shape
     n = max(1, min(k_cache.shape[3], int(kv_len.max()) if rows is None else int(rows)))
     dev = q.device
@@ -381,11 +396,44 @@ def prefill_attention(q, k_cache, v_cache, pos0, kv_len, layer, batch_off=0):
     t of sequence b sits at position pos0[b] + t and sees cache rows col <
     kv_len[b], col <= pos0[b] + t. On the card K/V enter the tensor cores as
     bf16 (exact for bf16 and e5m2 caches, rounded for fp16), and q and p
-    rounded once to bf16, as the TPU kernel rounds them; sums in f32. The
-    kernel's blocks follow :func:`prefill_plan`."""
+    rounded once to bf16, as the TPU kernel rounds them; sums in f32. A call
+    of at most SPLIT_MAX_ROWS rows a kv head (:func:`split_route`) takes the
+    split-S route (:func:`verify_plan`, counted in ``.split_launches``); the
+    rest the persistent kernel (:func:`prefill_plan`, ``.launches``)."""
     if q.device.type == "cpu":
         return prefill_attention_plain(q, k_cache, v_cache, pos0, kv_len, layer,
                                        batch_off)
+    _check_prefill(q, k_cache, v_cache, pos0, kv_len, layer, batch_off)
+    if split_route(q.shape[1], q.shape[3]):
+        out = _split_launch(q, k_cache, v_cache, pos0, kv_len, layer, batch_off, None)
+        prefill_attention.split_launches += 1
+        return out
+    out = _persistent_launch(q, k_cache, v_cache, pos0, kv_len, layer, batch_off)
+    prefill_attention.launches += 1
+    return out
+
+
+prefill_attention.launches = 0  # the persistent kernel's launches
+prefill_attention.split_launches = 0  # the split-S route's
+
+
+def _persistent_launch(q, k_cache, v_cache, pos0, kv_len, layer, batch_off):
+    """One launch of the persistent kernel on checked inputs."""
+    B, T, KVH, M, hd = q.shape
+    L, Bc, _, S, _ = k_cache.shape
+    out = torch.empty_like(q)
+    rc = build.lib("attn").calm_prefill_attention(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), pos0.data_ptr(),
+        kv_len.data_ptr(), out.data_ptr(), B, T, KVH, M, S, hd, int(layer),
+        _KV_CODE[k_cache.dtype], L, Bc, int(batch_off), prefill_grid(B, T, KVH, M),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    build.check("attn", rc)
+    return out
+
+
+def _check_prefill(q, k_cache, v_cache, pos0, kv_len, layer, batch_off):
+    """What both routes of the prefill kernel take on the card; raises
+    ValueError on the rest."""
     B, T, KVH, M, hd = q.shape
     L, Bc, KVHc, S, hd_c = k_cache.shape
     _check(q.dtype == torch.float32 and q.is_contiguous(), "q must be contiguous float32")
@@ -404,16 +452,105 @@ def prefill_attention(q, k_cache, v_cache, pos0, kv_len, layer, batch_off=0):
     _check(k_cache.device == q.device and v_cache.device == q.device,
            "all inputs must be on one device")
     _check(all(t.data_ptr() % 16 == 0 for t in (q, k_cache, v_cache)),
-           "q and the caches must be 16-byte aligned (TMA)")
+           "q and the caches must be 16-byte aligned (TMA, cp.async)")
+
+
+# ---------------------------------------------------------------------------
+# K13's split-S route: a speculative verify's few rows, and the draft tree
+# ---------------------------------------------------------------------------
+
+
+class VerifyPlan(NamedTuple):
+    """The split-S route's tiling of one call (``csrc/attn.cu``
+    ``verify_kernel``)."""
+    tile_rows: int    # cache rows a K/V tile (TR): 64, or 32 at hd 256
+    row_tiles: int    # 16-row tiles of (query, head) rows a block (RT)
+    row_groups: int   # blocks a (chunk, kv head, sequence) (NG): RT * 16 rows each
+    threads: int      # RT x WS warps: WS split a tile's 16-row sub-tiles
+    chunk_rows: int   # cache rows a block (CS), a multiple of tile_rows
+    chunks: int       # chunks of the window (NC)
+    blocks: int       # NC * KVH * B * NG
+    pacc: int         # workspace floats: acc of every block's rows
+    pml: int          # workspace floats: m (and again l) of every block's rows
+    tickets: int      # ints, one a (b, kv head, row group)
+
+
+def split_route(T: int, M: int) -> bool:
+    """Whether :func:`prefill_attention` takes the split-S route: T * M
+    (query, head) rows a kv head, at most SPLIT_MAX_ROWS (one row group)."""
+    return T * M <= SPLIT_MAX_ROWS
+
+
+def verify_plan(B: int, T: int, KVH: int, M: int, S: int, hd: int) -> VerifyPlan:
+    """Tiles, row groups and chunks of the split-S route for a window of S
+    rows. A kv head's T * M rows go in row groups of up to VA_ROWS, as few
+    as hold them, split evenly into 16-row tiles; a block's warps are its
+    row tiles times the splits of a tile's 16-row sub-tiles (four for one
+    or two row tiles, else two; at most the sub-tiles). Chunks aim at one
+    resident wave of about SMS blocks while a chunk keeps MIN_TILES tiles
+    (a short chunk's fold costs more than its rows), at most VA_MAX_CHUNKS,
+    a whole number of tiles. A pure function of the shapes: never of kv_len
+    or pos0, so every call of a shape sums the same rows in the same
+    order."""
+    tr = 32 if hd > 128 else 64
+    tiles16 = -(-(T * M) // 16)
+    ng = -(-tiles16 // (VA_ROWS // 16))
+    rt = -(-tiles16 // ng)
+    ws = min(4 if rt <= 2 else 2, tr // 16)
+    groups = B * KVH * ng
+    tiles = -(-S // tr)
+    want = max(1, SMS // groups)
+    ct = max(-(-tiles // want), -(-tiles // VA_MAX_CHUNKS), min(MIN_TILES, tiles))
+    cs = tr * ct
+    nc = -(-S // cs)
+    rows = rt * 16
+    return VerifyPlan(tr, rt, ng, 32 * rt * ws, cs, nc, groups * nc, groups * nc * rows * hd,
+                      groups * nc * rows, groups)
+
+
+def _split_launch(q, k_cache, v_cache, pos0, kv_len, layer, batch_off, tree):
+    """One launch of the split-S route on checked inputs."""
+    B, T, KVH, M, hd = q.shape
+    _, Bc, _, S, _ = k_cache.shape
+    plan = verify_plan(B, T, KVH, M, S, hd)
+    dev = q.device
+    pacc = torch.empty(plan.pacc, dtype=torch.float32, device=dev)
+    pm = torch.empty(plan.pml, dtype=torch.float32, device=dev)
+    pl = torch.empty(plan.pml, dtype=torch.float32, device=dev)
+    tickets = _ticket_buffer(dev, plan.tickets)
     out = torch.empty_like(q)
-    rc = build.lib("attn").calm_prefill_attention(
+    rc = build.lib("attn").calm_verify_attention(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), pos0.data_ptr(),
-        kv_len.data_ptr(), out.data_ptr(), B, T, KVH, M, S, hd, int(layer),
-        _KV_CODE[k_cache.dtype], L, Bc, int(batch_off), prefill_grid(B, T, KVH, M),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        kv_len.data_ptr(), None if tree is None else tree.data_ptr(), pacc.data_ptr(),
+        pm.data_ptr(), pl.data_ptr(), tickets.data_ptr(), out.data_ptr(), B, T, KVH, M, S,
+        hd, int(layer), _KV_CODE[k_cache.dtype], Bc, int(batch_off), plan.chunk_rows,
+        plan.row_tiles, plan.row_groups, plan.threads,
+        torch.cuda.current_stream(dev).cuda_stream)
     build.check("attn", rc)
-    prefill_attention.launches += 1
     return out
 
 
-prefill_attention.launches = 0
+def tree_attention(q, k_cache, v_cache, pos0, kv_len, layer, tree, batch_off=0):
+    """The draft tree's attention: q (B, T, KVH, M, hd) f32, one query a
+    node; caches as :func:`prefill_attention`'s, holding the T nodes' rows
+    at [kv_len - T, kv_len); tree (T, T) bool, node t's ancestors-or-self.
+    Node t sees the context below the tree and, inside it, the nodes
+    ``tree[t]`` marks (``calm_tpu/model.py:613-630``). JAX runs this in jnp:
+    no TPU kernel. On the card it is the split-S route of the prefill kernel
+    with the tree's mask read on the device, at any node count (row groups),
+    reading only the rows below kv_len; counted in ``.launches``. On the
+    CPU its plain version over every row of the window."""
+    if q.device.type == "cpu":
+        return prefill_attention_plain(q, k_cache, v_cache, pos0, kv_len, layer, batch_off,
+                                       tree=tree, rows=k_cache.shape[3])
+    _check_prefill(q, k_cache, v_cache, pos0, kv_len, layer, batch_off)
+    T = q.shape[1]
+    _check(tree.dtype == torch.bool and tuple(tree.shape) == (T, T) and tree.is_contiguous()
+           and tree.device == q.device,
+           f"the tree mask must be a contiguous ({T}, {T}) bool tensor on the card")
+    out = _split_launch(q, k_cache, v_cache, pos0, kv_len, layer, batch_off, tree)
+    tree_attention.launches += 1
+    return out
+
+
+tree_attention.launches = 0

@@ -1,6 +1,6 @@
 """Times another tree's gf4 matvecs with this tree's checks.
 
-    python3 chip_compare.py <directory holding another checkout's calm_tpu_torch> [--mixtral | --prefill | --precise]
+    python3 chip_compare.py <directory holding another checkout's calm_tpu_torch> [--mixtral | --prefill | --precise | --verify]
 
 Puts that directory first on ``sys.path``, builds its kernels, and runs
 ``chip_smoke.multirow_kernel_rows_gf4_decode`` (K3 on the Aya 23 8B
@@ -22,6 +22,11 @@ on the lm-head under the quality mode, beside the default call and the
 f32 matmul) and ``chip_smoke.precise_short_prefill`` (a 17-token prompt's
 prefill of that Mistral-7B under ``--precise`` beside the default's): on
 an older tree they time whatever its quality mode takes at 2-16 rows.
+With ``--verify`` it runs only ``chip_smoke.verify_kernel_rows`` (K13 at a
+speculative verify's T = 1-5, B = 1, 2 and 8, and the draft tree's
+attention at 10 and 13 nodes, each beside its plain version, SDPA and T
+launches of K12): on a tree without the split-S route it times the
+persistent kernel and the tree's plain attention.
 Run it before and after
 ``chip_smoke.py`` in one call on the card to compare two commits there, or
 on two trees in turns (A, B, B, A). Needs a GPU.
@@ -35,7 +40,7 @@ import sys
 
 def main():
     if len(sys.argv) not in (2, 3) or sys.argv[2:] not in ([], ["--mixtral"], ["--prefill"],
-                                                            ["--precise"]):
+                                                            ["--precise"], ["--verify"]):
         sys.exit(__doc__)
     pkg = os.path.abspath(sys.argv[1])
     sys.path.insert(0, pkg)
@@ -58,6 +63,11 @@ def main():
     dev = torch.device("cuda")
     if sys.argv[2:] == ["--prefill"]:
         cs.log(json.dumps(prefill_ms(cs, dev)))
+        return
+    if sys.argv[2:] == ["--verify"]:
+        rows = cs.verify_kernel_rows(3350.0, dev)["verify_rows"]
+        cs.log(json.dumps({k: {f: v[f] for f in ("ms", "plain_ms", "library_ms", "bound_ms")}
+                           for k, v in rows.items()}))
         return
     if sys.argv[2:] == ["--precise"]:
         rows = cs.precise_kernel_rows(3350.0, dev)

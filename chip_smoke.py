@@ -62,9 +62,12 @@ with ROTATED_DECODE off (K3 and K7 at 8 rows), on the 32-layer
 Mistral-7B fp8e4 (K2's e4m3 body at 8 rows), and on the 16-layer
 Mixtral 8x7B fp8, gf4 and fp8e4 of the decode phase (the expert sweep at
 8 rows: K10's and K11's multi-row FFN; each sweep's live experts counted);
-checks speculative decoding: K13 at a verify's T (4 and 5 query rows at
-the window's end, B = 1 and 8) against its plain version, timed beside
-SDPA and T launches of K12; the captured verify replayed bit for bit
+checks speculative decoding: K13's split-S route at a verify's T (1-5
+query rows at the window's end, B = 1, 2 and 8) and the draft tree's
+attention on it (10 and 13 nodes) against their plain version, timed
+beside SDPA, T launches of K12 and the persistent kernel, the route's
+corners at every head dim and cache dtype and its crossover; the
+captured verify replayed bit for bit
 against the eager forward (2-layer fp8 and gf4: linear B = 1 and 3, the
 k=3, m=4 tree; every full-width verify); the CLI's ``--draft`` on the
 2-layer Mistral-width fp8 container with itself and its gf4 twin, a
@@ -74,9 +77,9 @@ and a TinyLlama-1.1B-shaped draft), the tree (k=3, m=4) and an 8-slot
 drain of 8 greedy requests with the target as draft, ids held to plain
 replayed greedy up to near-ties, each self-draft rejection at a near-tie;
 and ends with a ``kernels`` JSON line and
-``{"ok": true, "device": ...}``. Any
-failure exits non-zero before the last line; without a GPU it exits 1 at
-once.
+``{"ok": true, "device": ...}``. The containers' CPU side runs in a worker
+process from the start. Any failure exits non-zero before the last line;
+without a GPU it exits 1 at once.
 """
 
 from __future__ import annotations
@@ -93,6 +96,7 @@ import sys
 import tempfile
 import time
 import urllib.request
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -109,8 +113,13 @@ def log(*a):
     print(*a, flush=True)
 
 
+WORKERS = []  # the process pools this run started: ended at a failure
+
+
 def fail(msg: str):
     log(f"FAIL: {msg}")
+    for pool in WORKERS:
+        pool.terminate()
     sys.exit(1)
 
 
@@ -2217,7 +2226,7 @@ def causal_pairs(pos0: int, T: int, kv_len: int) -> int:
 
 def prefill_kernel_rows(gbps, dev):
     """K13 at Mistral-7B shapes (32 heads, 8 kv heads, hd 128): T=2048 from
-    position 0 with bf16 and fp8 KV, and T=512 at position 1024."""
+    position 0 with bf16, fp8 and fp16 KV, and T=512 at position 1024."""
     import torch.nn.functional as F
 
     from calm_tpu_torch.ops import hopper_attn as ha
@@ -2226,6 +2235,7 @@ def prefill_kernel_rows(gbps, dev):
     errs, best = [], None
     for kvd, kvname, T, pos0 in ((torch.bfloat16, "bf16", 2048, 0),
                                  (torch.float8_e5m2, "fp8", 2048, 0),
+                                 (torch.float16, "fp16", 2048, 0),
                                  (torch.bfloat16, "bf16", 512, 1024)):
         kc = (torch.randn(L, B, KVH, S, hd, device=dev) * 0.5).to(kvd)
         vc = torch.randn(L, B, KVH, S, hd, device=dev).to(kvd)
@@ -2514,6 +2524,8 @@ def counters():
     out["qmm_moe_ffn_multirow"] = (fns["qmm_moe_ffn"], "multirow_launches")
     out["gf4_moe_ffn_multirow"] = (hq.gf4_moe_ffn, "multirow_launches")
     out["decode_attention_partials"] = (ha.decode_attention, "partials_launches")
+    out["prefill_attention_split"] = (ha.prefill_attention, "split_launches")
+    out["tree_attention"] = (getattr(ha, "tree_attention", None), "launches")
     from calm_tpu_torch.graphs import StepGraph, VerifyGraph
     out["graph_replays"] = (StepGraph, "replays")  # replays of captured steps
     out["verify_replays"] = (VerifyGraph, "replays")  # replays of captured verifies
@@ -2633,15 +2645,16 @@ def fp16_twin(w):
 
 def cpu_reference(path, what):
     """The CPU plain path on a container, the reference of the card's
-    checks. A gf4 container's CPU engine runs on ``fp16_twin`` weights: its
-    products widen fp16 instead of decoding words, the same f32 values
-    into the same f32 products, several times faster (held bit for bit to
-    the gf4 engine on one step here)."""
+    checks: (engine, a note for the log or None). A gf4 container's CPU
+    engine runs on ``fp16_twin`` weights: its products widen fp16 instead
+    of decoding words, the same f32 values into the same f32 products,
+    several times faster (held bit for bit to the gf4 engine on one step
+    here)."""
     from calm_tpu_torch.engine import Engine
 
     cpu = Engine(path, device="cpu")
     if cpu.cfg.dtype != "gf4":
-        return cpu
+        return cpu, None
     t0 = time.perf_counter()
     twin = Engine.from_weights(cpu.cfg, fp16_twin(cpu.weights), cpu.tokenizer,
                                n_bytes=cpu.n_bytes, n_params=cpu.n_params,
@@ -2651,21 +2664,191 @@ def cpu_reference(path, what):
         fail(f"{what}: the fp16 twin's CPU logits differ from the gf4 CPU path's by "
              f"{np.abs(a - b).max():.3e}")
     twin.reset()
-    log(f"# {what}: CPU reference on the exact fp16 decode of the gf4 words, its first "
-        f"step bit-equal to the gf4 CPU path's ({time.perf_counter() - t0:.1f} s)")
-    return twin
+    return twin, (f"# {what}: CPU reference on the exact fp16 decode of the gf4 words, its "
+                  f"first step bit-equal to the gf4 CPU path's "
+                  f"({time.perf_counter() - t0:.1f} s)")
+
+
+class LazyCPU:
+    """A container's CPU reference engine, built at first use: the rare
+    near-tie checks (``same_generation``) that ask the CPU for one more
+    prefill than the worker computed (``cpu_side``)."""
+
+    def __init__(self, path, what):
+        self._args, self._eng = (path, what), None
+
+    def __getattr__(self, name):
+        if self._eng is None:
+            self._eng, note = cpu_reference(*self._args)
+            if note:
+                log(note)
+        return getattr(self._eng, name)
+
+
+# The container phases' CPU side runs in a worker process while the card runs
+# the phases before them (``cpu_side``): the CPU plain path is most of those
+# phases' time, and the card's checks need its results only at the end.
+CPU_THREADS = 6  # the worker's threads: two of the host's cores stay the card's
+# (fmt, experts, cohere) of the 2-layer containers, in the order of their phases
+CONTAINERS = (("fp8", 0, False), ("gf4", 0, False), ("gf4", 0, True), ("fp8", 0, True),
+              ("fp8", 4, False), ("gf4", 4, False), ("fp8e4", 0, False),
+              ("fp8e4", 4, False))
+
+
+def container_kind(fmt, experts: int = 0, cohere: bool = False) -> dict:
+    """A 2-layer container's config, names and the checks its phase runs
+    (``container_phase``'s docstring)."""
+    from calm_tpu_torch.config import ModelConfig
+
+    moe = dict(n_experts=experts, n_experts_ac=2, rope_theta=1e6) if experts else {}
+    arch = (dict(norm_ln=True, norm_par=True, vocab_size=AYA_VOCAB_CUT) if cohere
+            else dict(norm_ln=False))
+    cfg = ModelConfig(**{**MISTRAL, "n_layers": 2, "rope_theta": 10000.0, **moe, **arch},
+                      seq_len=4096, rotary_dim=128, dtype=fmt, bos_token_id=1,
+                      eos_token_id=2)
+    name = "aya23-8b" if cohere else f"mixtral{experts}x7b" if experts else "mistral7b"
+    return dict(cfg=cfg, name=name, what=f"{fmt} {name}-width",
+                # generate and prefill against the CPU only
+                light=(cohere and fmt == "fp8") or (fmt == "fp8e4" and experts > 0),
+                served=fmt != "fp8e4",
+                precise=fmt in ("fp8", "gf4") and not (experts or cohere),
+                speculative=fmt == "fp8" and not (experts or cohere),
+                full=not (experts or cohere),  # the whole serving check
+                # fp8 with a short prompt (decode kernels), gf4 with a long
+                # one (its prefill takes the gf4 matmul)
+                prompt="The quick brown fox" if fmt != "gf4" else PROMPT_LONG)
+
+
+def write_containers(tmp, dev) -> dict:
+    """Every container of ``CONTAINERS`` written into ``tmp`` on the card,
+    from seeded random bits (not the bit pattern: its rows are all alike;
+    fp8e4: seeded floats quantized tensor by tensor, as the converter
+    does). Returns {(fmt, experts, cohere): path}."""
+    from calm_tpu_torch.utils.synth import synth_container
+
+    out = {}
+    for key in CONTAINERS:
+        k = container_kind(*key)
+        path = os.path.join(tmp, f"{k['name']}-width-2l-{key[0]}.calm")
+        t0 = time.perf_counter()
+        synth_container(path, k["cfg"], seed=1, device=dev, random=True, tied=key[2])
+        log(f"# {k['what']} engine: wrote {os.path.getsize(path) / 1e9:.2f} GB container "
+            f"in {time.perf_counter() - t0:.1f} s")
+        out[key] = path
+    return out
+
+
+def cpu_side(path, fmt, experts, cohere) -> dict:
+    """The CPU plain path's side of ``container_phase``'s checks on one
+    container, for a worker process (CPU only, ``CPU_THREADS`` threads):
+    the same calls in the same order as the phase made them on its CPU
+    engine. Returns their results: 8 greedy steps from token 1 (each fed
+    the CPU's id), the greedy generate of the phase's prompt, a prefill of
+    ``PROMPT_LONG`` and 8 steps after it, and where the phase runs them
+    the perplexity, the ``--precise`` generate's and the speculative
+    generate's reference ids, and the CPU server's requests and logits;
+    ``notes``: lines for the log."""
+    try:
+        torch.set_num_threads(CPU_THREADS)
+        k = container_kind(fmt, experts, cohere)
+        t0 = time.perf_counter()
+        cpu, note = cpu_reference(path, k["what"])
+        with dequant_once(cpu.weights):
+            return _cpu_checks(cpu, k, note, t0)
+    except SystemExit:  # fail() logged why; a pool's worker passes on exceptions only
+        raise RuntimeError(f"the CPU side of {fmt} experts={experts} cohere={cohere} failed")
+
+
+@contextlib.contextmanager
+def dequant_once(weights):
+    """The CPU plain path with each plane of ``weights`` dequantized once:
+    ``dequant`` of a view of those weights' own storage keeps its result
+    (the same values; every caller only reads them), so a CPU step reads
+    f32 planes instead of decoding every plane again. Anything else (a
+    gathered expert stack) is decoded as before. For the worker process
+    that runs nothing but the CPU side."""
+    import dataclasses
+
+    from calm_tpu_torch.ops import hopper_qmm, qmm
+    from calm_tpu_torch.ops.qmm import QTensor
+
+    stores = set()
+
+    def collect(v):
+        if isinstance(v, QTensor):
+            v = v.data
+        if isinstance(v, torch.Tensor):
+            stores.add(v.untyped_storage().data_ptr())
+        elif dataclasses.is_dataclass(v):
+            for f in dataclasses.fields(v):
+                collect(getattr(v, f.name))
+    collect(weights)
+    real, kept = qmm.dequant, {}
+
+    def dequant(qt, dtype=torch.float32):
+        d = qt.data
+        if qt.scale is not None or d.untyped_storage().data_ptr() not in stores:
+            return real(qt, dtype)
+        key = (d.untyped_storage().data_ptr(), d.storage_offset(), tuple(d.shape),
+               tuple(d.stride()), qt.fmt, dtype)
+        if key not in kept:
+            kept[key] = real(qt, dtype)
+        return kept[key]
+    qmm.dequant = hopper_qmm.dequant = dequant
+    try:
+        yield
+    finally:
+        qmm.dequant = hopper_qmm.dequant = real
+
+
+def _cpu_checks(cpu, k, note, t0) -> dict:
+    out = dict(notes=[note] if note else [])
+    tok, steps = 1, []
+    for pos in range(8):
+        lc = cpu.step(tok, pos)
+        steps.append((tok, lc))
+        tok = int(lc.argmax())
+    out["steps"] = steps
+    cpu.reset()
+    n = len(cpu.tokenizer.encode(k["prompt"], bos=True)) + 8
+    out["gen_ids"] = cpu.generate(k["prompt"], n, temperature=0).ids
+    toks = cpu.tokenizer.encode(PROMPT_LONG, bos=True)
+    cpu.reset()
+    lcs, ids = [cpu.prefill_tokens(toks)], []
+    for i in range(8):
+        ids.append(int(lcs[-1].argmax()))
+        lcs.append(cpu.step(ids[-1], len(toks) + i))
+    out["prefill"] = (lcs, ids)
+    if not k["light"]:
+        out["ppl"] = cpu.perplexity(PROMPT_LONG * 3)
+    if k["precise"]:
+        cpu.reset()
+        n = len(cpu.tokenizer.encode(PRECISE_PROMPT, bos=True)) + 8
+        out["precise_ids"] = cpu.generate(PRECISE_PROMPT, n, temperature=0).ids
+    if k["served"]:
+        out["serve"] = cpu_server(cpu, k["what"], k["full"], out["notes"])
+    if k["speculative"]:
+        cpu.reset()
+        out["hello_ids"] = cpu.generate("hello", 16, temperature=0).ids
+    out["notes"].append(f"# {k['what']}: the CPU side in a worker process, "
+                        f"{time.perf_counter() - t0:.1f} s on {CPU_THREADS} threads")
+    return out
 
 
 PRECISE_COUNTS = {}  # fmt -> the launch counts of a full-width 17-token --precise prefill
 
 
-def precise_checks(path, what, cpu, toks, lc_prefill, err_prefill, steps_cpu, err_steps):
+PRECISE_PROMPT = "Hi there"  # 9 tokens of the byte vocabulary: a 2-16-row prefill
+
+
+def precise_checks(path, what, cpu, toks, lc_prefill, err_prefill, steps_cpu, err_steps,
+                   want_ids):
     """``Engine(path, precise=True)`` on the card against the same CPU
     logits as the default engine's checks: the prefill of ``toks`` (f32
     products in place of bf16), 8 decode steps (per op, no fused
     epilogue), and a greedy generate whose 9-token prompt's 8-row prefill
-    takes the multi-row path as by default. Logs both
-    errors."""
+    takes the multi-row path as by default, against the CPU's ids
+    ``want_ids`` (``cpu`` answers a near-tie). Logs both errors."""
     from calm_tpu_torch.engine import Engine
     from calm_tpu_torch.ops import qmm as tqmm
 
@@ -2679,15 +2862,14 @@ def precise_checks(path, what, cpu, toks, lc_prefill, err_prefill, steps_cpu, er
             lg = eng.step(tok, pos)
             e_steps = max(e_steps, float(np.abs(lg - lc).max() / np.abs(lc).max()))
         eng.reset()
-        prompt = "Hi there"  # 9 tokens of the byte vocabulary: a 2-16-row prefill
+        prompt = PRECISE_PROMPT
         n = len(eng.tokenizer.encode(prompt, bos=True))
         eng.generate(prompt, n + 2, temperature=0)  # captures the step
         eng.reset()
         st, counts = drive(lambda: eng.generate(prompt, n + 8, temperature=0))
-        cpu.reset()
         gen = same_generation(f"{what} --precise generate", cpu,
-                              eng.tokenizer.encode(prompt, bos=True), st.ids,
-                              cpu.generate(prompt, n + 8, temperature=0).ids, TOL_PREFILL)
+                              eng.tokenizer.encode(prompt, bos=True), st.ids, want_ids,
+                              TOL_PREFILL)
     finally:
         tqmm.enable_precise(False)
     rows = counts["qmm_decode_multirow"] + counts["qmm_decode_gf4_multirow"]
@@ -2701,15 +2883,16 @@ def precise_checks(path, what, cpu, toks, lc_prefill, err_prefill, steps_cpu, er
     del eng
 
 
-def container_phase(fmt, dev, experts: int = 0, cohere: bool = False):
+def container_phase(path, ref, fmt, dev, experts: int = 0, cohere: bool = False):
     """Engine, prefill, perplexity and CLI on a 2-layer Mistral-7B-width
     container, or with ``experts`` a 2-layer Mixtral-width MoE one (top-2,
     bench.py's mixtral4x7b proxy at 4), or with ``cohere`` a 2-layer Aya 23
     8B-width parallel-norm one (tied, its vocab cut to 32000), of seeded
     random bits (fp8e4: seeded floats quantized tensor by tensor, as the
     converter does, so the scales are real and differ by layer and
-    expert), held against the CPU plain path (``cpu_reference``); then
-    served. The fp8 Aya-width and the fp8e4 MoE containers run generate
+    expert), written by ``write_containers`` to ``path``, held against
+    the CPU plain path (``cpu_reference``), whose side ``ref`` (the
+    worker process's pending ``cpu_side``) computes; then served. The fp8 Aya-width and the fp8e4 MoE containers run generate
     and prefill against the CPU only; the fp8e4 Mistral-width one is not
     served; the gf4 Mistral-width one also decodes with ROTATED_DECODE
     off; the fp8 and gf4 Mistral-width ones run under ``--precise`` too
@@ -2717,31 +2900,15 @@ def container_phase(fmt, dev, experts: int = 0, cohere: bool = False):
     the main path, tokens, launch counts of the CALM_ROT=0 decode or
     None)."""
     from calm_tpu_torch import model as M
-    from calm_tpu_torch.config import ModelConfig
     from calm_tpu_torch.engine import Engine
-    from calm_tpu_torch.utils.synth import synth_container
 
-    moe = dict(n_experts=experts, n_experts_ac=2, rope_theta=1e6) if experts else {}
-    arch = (dict(norm_ln=True, norm_par=True, vocab_size=AYA_VOCAB_CUT) if cohere
-            else dict(norm_ln=False))
-    cfg = ModelConfig(**{**MISTRAL, "n_layers": 2, "rope_theta": 10000.0, **moe, **arch},
-                      seq_len=4096, rotary_dim=128, dtype=fmt, bos_token_id=1,
-                      eos_token_id=2)
-    name = "aya23-8b" if cohere else f"mixtral{experts}x7b" if experts else "mistral7b"
-    what = f"{fmt} {name}-width"
-    # generate and prefill against the CPU only
-    light = (cohere and fmt == "fp8") or (fmt == "fp8e4" and experts > 0)
-    served = fmt != "fp8e4"
-    precise = fmt in ("fp8", "gf4") and not (experts or cohere)
-    speculative = fmt == "fp8" and not (experts or cohere)
+    k = container_kind(fmt, experts, cohere)
+    cfg, name, what = k["cfg"], k["name"], k["what"]
+    light, served, precise, speculative = (k["light"], k["served"], k["precise"],
+                                           k["speculative"])
     rot0 = None
+    t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, f"{name}-width-2l-{fmt}.calm")
-        t0 = time.perf_counter()
-        # random bits, not the bit pattern: the pattern's rows are all alike
-        synth_container(path, cfg, seed=1, device=dev, random=True, tied=cohere)
-        log(f"# {what} engine: wrote {os.path.getsize(path) / 1e9:.2f} GB container "
-            f"in {time.perf_counter() - t0:.1f} s")
         twin, spec_procs = None, None
         if speculative:  # the draft of the same weights in gf4; the CLI's --draft runs
             twin = os.path.join(tmp, f"{name}-width-2l-gf4-twin.calm")
@@ -2780,7 +2947,7 @@ def container_phase(fmt, dev, experts: int = 0, cohere: bool = False):
 
         # the main path: fp8 with a short prompt (decode kernels), gf4 with
         # a long one (its prefill takes the gf4 matmul), counts from 0
-        prompt = "The quick brown fox" if fmt != "gf4" else PROMPT_LONG
+        prompt = k["prompt"]
         steps = len(eng.tokenizer.encode(prompt, bos=True)) + 8
         s1, counts = drive(lambda: eng.generate(prompt, steps, temperature=0))
         tokens = s1.tokens
@@ -2797,15 +2964,18 @@ def container_phase(fmt, dev, experts: int = 0, cohere: bool = False):
 
         # decode on the card against the plain path on the CPU, each side
         # fed the CPU's greedy id
-        cpu = cpu_reference(path, what)
-        tok, worst, ties, steps_cpu = 1, 0.0, 0, []
+        t_wait = time.perf_counter()
+        ref = ref.get()
+        log(f"# {what}: waited {time.perf_counter() - t_wait:.1f} s for the CPU side")
+        for note in ref["notes"]:
+            log(note)
+        cpu = LazyCPU(path, what)  # a near-tie's one more prefill
+        worst, ties, steps_cpu = 0.0, 0, ref["steps"]
         eng.reset()
-        for pos in range(8):
-            lg, lc = eng.step(tok, pos), cpu.step(tok, pos)
+        for pos, (tok, lc) in enumerate(steps_cpu):
+            lg = eng.step(tok, pos)
             worst = max(worst, float(np.abs(lg - lc).max() / np.abs(lc).max()))
             ties += not greedy_agrees(f"{what} step {pos}", int(lg.argmax()), lc, TOL_STEP)
-            steps_cpu.append((tok, lc))
-            tok = int(lc.argmax())
         if worst > TOL_STEP:
             fail(f"{what}: logits differ from the CPU by {worst:.3e} > {TOL_STEP}")
         worst_steps = worst
@@ -2814,31 +2984,28 @@ def container_phase(fmt, dev, experts: int = 0, cohere: bool = False):
         if fmt == "fp8" and not experts and not cohere:
             device_sampling_check(eng, what)
         eng.reset()
-        cpu.reset()
         p_toks = eng.tokenizer.encode(prompt, bos=True)
         gen = same_generation(f"{what} generate", cpu, p_toks,
                               eng.generate(prompt, steps, temperature=0).ids,
-                              cpu.generate(prompt, steps, temperature=0).ids, TOL_PREFILL)
+                              ref["gen_ids"], TOL_PREFILL)
         log(f"# {what} engine vs cpu: 8 steps, max logit diff {worst:.3e} of scale "
             f"(tol {TOL_STEP:g}), {ties} near-ties; generate {gen}")
 
         # batched prefill of > 100 tokens, then 8 greedy steps on each side
         toks = eng.tokenizer.encode(PROMPT_LONG, bos=True)
         eng.reset()
-        cpu.reset()
-        lg, lc = eng.prefill_tokens(toks), cpu.prefill_tokens(toks)
+        lcs, ids = ref["prefill"]
+        lg, lc = eng.prefill_tokens(toks), lcs[0]
         lc_prefill = lc
         err_prefill = float(np.abs(lg - lc).max() / np.abs(lc).max())
-        ids, worst, ties = [], 0.0, 0
+        worst, ties = 0.0, 0
         for i in range(9):
             worst = max(worst, float(np.abs(lg - lc).max() / np.abs(lc).max()))
             if i == 8:
                 break
             ties += not greedy_agrees(f"{what} greedy id {i} after prefill",
                                       int(lg.argmax()), lc, TOL_PREFILL)
-            ids.append(int(lc.argmax()))
-            pos = len(toks) + i
-            lg, lc = eng.step(ids[-1], pos), cpu.step(ids[-1], pos)
+            lg, lc = eng.step(ids[i], len(toks) + i), lcs[i + 1]
         if not worst <= TOL_PREFILL:
             fail(f"{what}: logits after prefill differ from the CPU by {worst:.3e} "
                  f"> {TOL_PREFILL}")
@@ -2848,7 +3015,7 @@ def container_phase(fmt, dev, experts: int = 0, cohere: bool = False):
                 f"{ties} near-ties; container phase {time.perf_counter() - t0:.1f} s")
             del eng, cpu
             return counts, tokens, rot0
-        pg, pc = eng.perplexity(PROMPT_LONG * 3), cpu.perplexity(PROMPT_LONG * 3)
+        pg, pc = eng.perplexity(PROMPT_LONG * 3), ref["ppl"]
         if not abs(pg[0] - pc[0]) <= 1e-2 * pc[0] or pg[2] != pc[2]:
             fail(f"{what}: perplexity {pg} != CPU {pc}")
         log(f"# {what} prefill vs cpu: {len(toks)} tokens, then 8 steps: logits diff "
@@ -2857,7 +3024,7 @@ def container_phase(fmt, dev, experts: int = 0, cohere: bool = False):
             f"{pc[0]:.4f} ± {pc[1]:.4f} over {pg[2]} tokens (tol 1e-2 rel.)")
         if precise:
             precise_checks(path, what, cpu, toks, lc_prefill, err_prefill, steps_cpu,
-                           worst_steps)
+                           worst_steps, ref["precise_ids"])
 
         for p, mode in zip(procs, ("generate", "-x", "-y", "--precise -x -n 0")):
             out, errs = p.communicate(timeout=600)
@@ -2887,10 +3054,12 @@ def container_phase(fmt, dev, experts: int = 0, cohere: bool = False):
                 log(f"# {what} cli -y: {len(out)} characters, exit 0")
         t_serve = time.perf_counter()
         if served:
-            want_srv, lcs_srv = serving_checks(path, what, cpu, full=not (experts or cohere))
+            want_srv, lcs_srv = ref["serve"]
+            want_srv = [Served(*w) for w in want_srv]
+            serving_checks(path, what, (want_srv, lcs_srv), full=k["full"])
             if speculative:
-                speculative_container_checks(path, twin, what, eng, cpu, dev, want_srv,
-                                             lcs_srv, spec_procs)
+                speculative_container_checks(path, twin, what, eng, cpu, dev, ref["hello_ids"],
+                                             want_srv, lcs_srv, spec_procs)
             http_check(httpd, what + (" paged" if fmt == "gf4" else " --draft --gamma 3"
                                       if speculative else ""), speculative)
         log(f"# {what}: container phase {time.perf_counter() - t0:.1f} s, of it serving "
@@ -2962,29 +3131,52 @@ def same_served(what, got, want, temperature, lg, lc, tol) -> str:
     return f"differ from id {n} (logits {err:.1e} apart: a near-tie)"
 
 
-def serving_checks(path, what, cpu, full=True):
-    """``Server`` on the card, dense, paged (16-row pages, a pool of half
-    the dense rows) and dense with the prefix cache (``full``; else dense
-    and paged on the first two requests, greedy, 5 tokens each), each held
-    to a CPU server on the same requests. The CPU server runs on ``cpu``'s
-    weights with a slot for each request: a request's ids do not depend on
-    the slot count, and the CPU's ticks, each a pass over all weights, are
-    fewest so."""
-    from calm_tpu_torch import model as M
+def serve_requests(full: bool):
+    """The requests a container is served: ``SERVE_REQUESTS``, or with
+    ``full`` False the first two, greedy, 5 tokens each (each CPU tick of a
+    MoE model decodes every expert's planes, the script's slowest CPU
+    work)."""
+    return SERVE_REQUESTS if full else [(p, 5, 0.0, s) for p, _, _, s in SERVE_REQUESTS[:2]]
+
+
+def cpu_server(cpu, what, full, notes):
+    """The CPU server on ``cpu``'s weights with a slot for each request of
+    ``serve_requests(full)`` (a request's ids do not depend on the slot
+    count, and the CPU's ticks, each a pass over all weights, are fewest
+    so). Returns (each request's (ids, temperature, tokens), the logits
+    each sampled from); a line for ``notes``."""
     from calm_tpu_torch.engine import Engine
     from calm_tpu_torch.serve import Server
 
-    # 5 tokens a light request: each CPU tick of a MoE model decodes every
-    # expert's planes, the script's slowest CPU work
-    reqs = SERVE_REQUESTS if full else [(p, 5, 0.0, s) for p, _, _, s in SERVE_REQUESTS[:2]]
+    reqs = serve_requests(full)
     t0 = time.perf_counter()
     ref = Engine.from_weights(cpu.cfg, cpu.weights, cpu.tokenizer, n_bytes=cpu.n_bytes,
                               n_params=cpu.n_params, n_bandwidth=cpu.n_bandwidth,
                               batch=len(reqs), device="cpu")
     want, lcs = serve_recorded(Server(batch=len(reqs), engine=ref), reqs)
-    log(f"# {what} serve: CPU server ({len(reqs)} slots) "
-        f"{time.perf_counter() - t0:.1f} s, {sum(r.n_generated for r in want)} tokens")
-    del ref
+    notes.append(f"# {what} serve: CPU server ({len(reqs)} slots) "
+                 f"{time.perf_counter() - t0:.1f} s, {sum(r.n_generated for r in want)} tokens")
+    # plain tuples: a class of this script does not unpickle in the parent
+    return [(list(r.ids), r.temperature, r.n_generated) for r in want], lcs
+
+
+class Served(NamedTuple):
+    """A request the CPU server served."""
+    ids: list
+    temperature: float
+    n_generated: int
+
+
+def serving_checks(path, what, served, full=True):
+    """``Server`` on the card, dense, paged (16-row pages, a pool of half
+    the dense rows) and dense with the prefix cache (``full``; else dense
+    and paged on ``serve_requests(False)``), each held to the CPU server's
+    ``served`` (``cpu_server``: requests, logits) on the same requests."""
+    from calm_tpu_torch import model as M
+    from calm_tpu_torch.serve import Server
+
+    reqs = serve_requests(full)
+    want, lcs = served
     rows = 4 * 4096 // 2 // 16
     modes = {"dense": {}, "paged": dict(page_rows=16, pool_pages=rows)}
     if full:
@@ -3030,7 +3222,6 @@ def serving_checks(path, what, cpu, full=True):
             log(f"# {what}: a paged decode step of 4 slots at positions {pos} ran "
                 "with no host sync")
         del srv
-    return want, lcs
 
 
 def httpd_proc(path, args):
@@ -3282,32 +3473,64 @@ GAMMA = 4          # the speculative depth of every speculative path here
 VERIFY_T = (4, 5)  # a verify's query rows at GAMMA: the linear chain (g), a served round (g+1)
 CAPTURES = []      # (kind, B, T or None, seconds) of every capture, in order
 SPEC_COUNTS = {}   # the launch counts of the full-width speculative drain
+TREE_COUNTS = {}   # the launch counts of the full-width tree rounds
+
+
+VERIFY_B = (1, 2, 8)  # the split-S route's checked sequences: one stream, two, a tick's 8
+VERIFY_CHECK_T = (1, 2, 3, 4, 5)  # a verify's query rows at gamma 0-4
+TREES = ((3, 4), (3, 5))  # (k, m): 10 nodes (the tree timed at full width), 13 (the CLI's)
+# (hd, KVH, M) of the split-S corner checks: Mistral-7B, Phi-3-mini, Gemma-7B,
+# Gemma-2B, and 8 query rows a kv head at hd 64
+SPLIT_HEADS = ((128, 8, 4), (96, 32, 1), (256, 16, 1), (256, 1, 8), (64, 4, 8))
+SPLIT_CORNER_S = 1000  # not a whole number of tiles
+SWEEP_T = (4, 8, 12, 16, 24, 32)  # the route crossover's T at M = 4: 16-128 rows a kv head
+# every (B, T, KVH, M, S, hd) chip_smoke.py gives the split-S route's plan
+# (tests/test_torch_verify_attention.py holds the plan over them)
+SPLIT_SHAPES = sorted(
+    {(B, T, 8, 4, 4096, 128) for B in VERIFY_B for T in VERIFY_CHECK_T}
+    | {(1, 1 + k * (m - 1), 8, 4, 4096, 128) for k, m in TREES}
+    | {(B, T, KVH, M, SPLIT_CORNER_S, hd) for hd, KVH, M in SPLIT_HEADS
+       for B, T in ((2, 1), (2, 3), (2, 5), (1, 10), (2, 13))}
+    | {(B, T, 8, 4, 4096, 128) for B in (1, 8) for T in SWEEP_T})
 
 
 def verify_kernel_rows(gbps, dev):
     """K13 at a speculative verify's shapes: Mistral-7B's heads (32 query,
-    8 kv, hd 128), bf16 KV, T = 4 and 5 query rows from pos0 = 4091 (the
-    window's last rows), B = 1 and 8, against its plain version; timed
-    beside causal SDPA on the same rows (the library row) and beside T
-    launches of K12, one a query row at its own kv_len (the same function,
-    also checked against K13's output). Returns the kernels line's row: T=5,
-    B=8, the served round's verify."""
+    8 kv, hd 128), bf16 KV, T = 1-5 query rows from the window's last rows
+    (pos0 = 4096 - T... 4091), B = 1, 2 and 8, against its plain version;
+    T = 4 and 5 at B = 1 and 8 timed beside causal SDPA on the same rows
+    (the library row), T launches of K12 (one a query row at its own
+    kv_len, the same function, also checked against K13's output) and, on
+    a tree that has it, the persistent kernel on the same inputs (the
+    parent commit's route). Then the draft tree's attention (k=3, m=4 and
+    k=3, m=5) at the window's end and near position 16: ``tree_attention``
+    against its plain version, timed beside that plain version over the
+    whole window (the parent's route) and SDPA with the tree's mask. On a
+    tree without the split-S route (``chip_compare.py``) the same calls
+    time its routes. Returns the kernels line's rows: T=5, B=8 (a served
+    round's verify) and the tree at the window's end."""
     import torch.nn.functional as F
 
     from calm_tpu_torch.ops import hopper_attn as ha
+    from calm_tpu_torch.speculative import _tree_mask
 
-    KVH, M, S, hd, L, pos0 = 8, 4, 4096, 128, 2, 4091
-    row = None
-    for B in (1, 8):
+    persistent = getattr(ha, "_persistent_launch", None)
+    tree_fn = getattr(ha, "tree_attention", None)
+    KVH, M, S, hd, L = 8, 4, 4096, 128, 2
+    rows = {}
+    for B in VERIFY_B:
         kc = (torch.randn(L, B, KVH, S, hd, device=dev) * 0.5).bfloat16()
         vc = torch.randn(L, B, KVH, S, hd, device=dev).bfloat16()
-        for T in VERIFY_T:
+        for T in VERIFY_CHECK_T:
+            pos0 = S - 5  # a verify of T rows at the window's end: 4091
             q = torch.randn(B, T, KVH, M, hd, device=dev)
             p0 = torch.full((B,), pos0, dtype=torch.int32, device=dev)
             kl, kv = p0 + T, pos0 + T
             got = ha.prefill_attention(q, kc, vc, p0, kl, L - 1)
             err = check(f"prefill_attention verify T={T} B={B}", got,
                         ha.prefill_attention_plain(q, kc, vc, p0, kl, L - 1), TOL_ATT)
+            if T not in VERIFY_T or B == 2:
+                continue
             qs = [q[:, t].reshape(B, KVH * M, hd).contiguous() for t in range(T)]
             kls = [p0 + t + 1 for t in range(T)]
             k12_out = torch.stack([ha.decode_attention(qs[t], kc, vc, kls[t], L - 1)
@@ -3332,46 +3555,162 @@ def verify_kernel_rows(gbps, dev):
                         lambda i: ha.prefill_attention_plain(q, kc, vc, p0, kl, i % L),
                         lib, 3, bound=b)
             k12_ms, k12_by = timed(k12, floor=b)
+            route = "persistent"
+            if hasattr(ha, "verify_plan") and ha.split_route(T, M):
+                p = ha.verify_plan(B, T, KVH, M, S, hd)
+                route = (f"split-S, {p.blocks} blocks of {p.threads} threads, chunks of "
+                         f"{p.chunk_rows} rows")
+            else:
+                route += f", {ha.prefill_grid(B, T, KVH, M)} blocks"
+            old = ""
+            if persistent is not None:
+                o_ms, o_by = timed(lambda i: persistent(q, kc, vc, p0, kl, i % L, 0), floor=b)
+                check(f"prefill_attention persistent as a verify T={T} B={B}",
+                      persistent(q, kc, vc, p0, kl, L - 1, 0), got, TOL_ATT)
+                old = (f"; the persistent kernel (the parent's route) {o_ms:.4f} ms ({o_by}), "
+                       f"{o_ms / t['ms']:.2f}x the route's")
+                t["persistent_ms"] = o_ms
             log(f"# K13 prefill_attention at a verify's T={T}, B={B}, pos0={pos0}, bf16 KV "
-                f"(KVH=8, M=4, hd=128; {ha.prefill_grid(B, T, KVH, M)} persistent blocks of "
-                f"{ha.SMS} SMs): max_abs_err {err:.3e} (tol {TOL_ATT:g} x max|out|); "
-                f"{ms_line(t)} (bf16 SDPA, bottom-right causal mask) bound_ms {b:.4f} ({by}); "
-                f"{share(t, b)}; {T} launches of K12 {k12_ms:.4f} ms ({k12_by}), K13/K12 "
-                f"{t['ms'] / k12_ms:.2f}x")
-            if (B, T) == (8, 5):
-                row = dict(t, bound_ms=b, bound_by=by, max_abs_err=err)
-        if B == 1:  # the tree's attention: no TPU kernel, plain PyTorch by design
-            from calm_tpu_torch.speculative import _tree_mask
+                f"(KVH=8, M=4, hd=128; {route}): max_abs_err {err:.3e} (tol {TOL_ATT:g} x "
+                f"max|out|); {ms_line(t)} (bf16 SDPA, bottom-right causal mask) bound_ms "
+                f"{b:.4f} ({by}); {share(t, b)}; {T} launches of K12 {k12_ms:.4f} ms "
+                f"({k12_by}), K13/K12 {t['ms'] / k12_ms:.2f}x{old}")
+            rows[f"verify T={T} B={B}"] = dict(t, bound_ms=b, bound_by=by, max_abs_err=err,
+                                                k12_ms=k12_ms)
+        if B == 1:
+            for k, m in TREES:
+                mask = torch.from_numpy(_tree_mask(k, m)).to(dev)
+                N = mask.shape[0]
+                q = torch.randn(1, N, KVH, M, hd, device=dev)
+                for where, kv in (("the window's end", S), ("position 16", 16 + N)):
+                    p0 = torch.full((1,), kv - N, dtype=torch.int32, device=dev)
+                    kl = p0 + N
 
-            mask = torch.from_numpy(_tree_mask(3, 4)).to(dev)
-            N = mask.shape[0]
-            q = torch.randn(1, N, KVH, M, hd, device=dev)
-            p0 = torch.full((1,), S - N, dtype=torch.int32, device=dev)
-            kl = p0 + N
+                    def plain(i):
+                        return ha.prefill_attention_plain(q, kc, vc, p0, kl, i % L, tree=mask,
+                                                          rows=S)
+                    fn = plain if tree_fn is None else (
+                        lambda i: tree_fn(q, kc, vc, p0, kl, i % L, mask))
+                    got = fn(L - 1)
+                    err = check(f"tree_attention k={k} m={m} at {where}", got, plain(L - 1),
+                                TOL_ATT)
+                    seen = torch.cat([torch.ones(N, kv - N, dtype=torch.bool, device=dev),
+                                      mask], 1)
+                    q4 = q.reshape(1, N, KVH * M, hd).transpose(1, 2).bfloat16()
 
-            def tree(i):
-                return ha.prefill_attention_plain(q, kc, vc, p0, kl, i % L, tree=mask, rows=S)
-            seen = torch.cat([torch.ones(N, S - N, dtype=torch.bool, device=dev), mask], 1)
-            q4 = q.reshape(1, N, KVH * M, hd).transpose(1, 2).bfloat16()
-
-            def lib(i):
-                return F.scaled_dot_product_attention(q4, kc[i % L], vc[i % L],
-                                                      attn_mask=seen, enable_gqa=True)
-            sd = lib(L - 1).transpose(1, 2).reshape(tree(L - 1).shape)
-            t_err = check("tree attention against SDPA with its mask", tree(L - 1), sd, TOL_ATT)
-            nb = 2 * N * KVH * M * hd * 4 + 2 * KVH * S * hd * kc.element_size()
-            pairs = N * (S - N) + int(mask.sum())
-            b, by = bound_ms(nb, 4 * KVH * M * hd * pairs, gbps, PEAK_F32)
-            ms, how = timed(tree, floor=b)
-            lib_ms, _ = timed(lib)
-            log(f"# the tree's attention (not a TPU kernel: jnp in JAX, plain PyTorch here), "
-                f"k=3 m=4 ({N} nodes) at the window's last rows, B=1, bf16 KV, the whole "
-                f"window of {S} rows read in f32: {ms:.4f} ms ({how}), bound {b:.4f} ms ({by}, "
-                f"f32), {100 * b / ms:.1f}% of bound; SDPA with the tree's mask {lib_ms:.4f} ms, "
-                f"the same output within {t_err:.3e} (bf16 operands; tol {TOL_ATT:g} x max|out|)")
+                    def lib(i):
+                        return F.scaled_dot_product_attention(
+                            q4, kc[i % L][:, :, :kv], vc[i % L][:, :, :kv], attn_mask=seen,
+                            enable_gqa=True)
+                    sd = lib(L - 1).transpose(1, 2).reshape(got.shape)
+                    check(f"tree_attention k={k} m={m} at {where} against SDPA with its mask",
+                          got, sd, TOL_ATT)
+                    nb = 2 * N * KVH * M * hd * 4 + 2 * KVH * kv * hd * kc.element_size()
+                    pairs = N * (kv - N) + int(mask.sum())
+                    b, by = bound_ms(nb, 4 * KVH * M * hd * pairs, gbps, PEAK_BF16)
+                    t = timings(fn, plain, lib, 3, bound=b)
+                    log(f"# the tree's attention, k={k} m={m} ({N} nodes) at {where} (kv_len "
+                        f"{kv}), B=1, bf16 KV "
+                        + ("(the split-S route with the tree's mask)" if tree_fn else
+                           "(plain PyTorch over the whole window: no kernel on this tree)")
+                        + f": max_abs_err {err:.3e} (tol {TOL_ATT:g} x max|out|); {ms_line(t)}"
+                        f" (SDPA with the tree's mask over kv_len rows); the plain version "
+                        f"reads all {S} rows in f32; bound_ms {b:.4f} ({by}); {share(t, b)}")
+                    rows[f"tree k={k} m={m} at {where}"] = dict(t, bound_ms=b, bound_by=by,
+                                                                max_abs_err=err)
         del kc, vc
         torch.cuda.empty_cache()
-    return {"prefill_attention_verify": row}
+    return {"prefill_attention_verify": rows["verify T=5 B=8"],
+            "tree_attention": rows["tree k=3 m=4 at the window's end"], "verify_rows": rows}
+
+
+def nan_rows(t: torch.Tensor) -> None:
+    """Fill a view of a cache with NaN (e5m2: its NaN byte 0x7f)."""
+    if t.dtype == torch.float8_e5m2:
+        t.view(torch.uint8).fill_(0x7F)
+    else:
+        t.fill_(float("nan"))
+
+
+def split_corner_checks(dev):
+    """The split-S route against its plain version at every head dim and
+    cache dtype (``SPLIT_HEADS`` x bf16, fp16, e5m2) on a window of
+    ``SPLIT_CORNER_S`` rows (not whole tiles), two sequences from cache
+    slot 1 of 4: T = 1, 3 and 5 with kv_len under one tile, ragged, and at
+    the window's end; the tree at 10 nodes (one sequence) and 13 (two,
+    ragged; 104 rows a kv head at M = 8: two row groups); cache rows at and
+    past kv_len set to NaN in one sequence (nothing of them may reach the
+    output)."""
+    from calm_tpu_torch.ops import hopper_attn as ha
+    from calm_tpu_torch.speculative import _tree_mask
+
+    S, L, Bc, boff = SPLIT_CORNER_S, 2, 4, 1
+    worst, n = 0.0, 0
+    for hd, KVH, M in SPLIT_HEADS:
+        for kvd in (torch.bfloat16, torch.float16, torch.float8_e5m2):
+            kc = kv_rand((L, Bc, KVH, S, hd), kvd, dev, 0.5)
+            vc = kv_rand((L, Bc, KVH, S, hd), kvd, dev)
+            for B, T, starts, tree in ((2, 1, [0, S - 1], None), (2, 3, [2, 517], None),
+                                       (2, 5, [S - 5, 61], None),
+                                       (1, 10, [S - 10], (3, 4)), (2, 13, [40, 700], (3, 5))):
+                q = torch.randn(B, T, KVH, M, hd, device=dev)
+                p0 = torch.tensor(starts, dtype=torch.int32, device=dev)
+                kl = p0 + T
+                k2, v2 = kc.clone(), vc.clone()
+                if B == 2:  # sequence 1: NaN at and past its kv_len
+                    for t in (k2, v2):
+                        nan_rows(t[:, boff + 1, :, starts[1] + T:])
+                if tree is None:
+                    got = ha.prefill_attention(q, k2, v2, p0, kl, 1, boff)
+                    want = ha.prefill_attention_plain(q, kc, vc, p0, kl, 1, boff)
+                else:
+                    mask = torch.from_numpy(_tree_mask(*tree)).to(dev)
+                    got = ha.tree_attention(q, k2, v2, p0, kl, 1, mask, boff)
+                    want = ha.prefill_attention_plain(q, kc, vc, p0, kl, 1, boff, tree=mask,
+                                                      rows=S)
+                name = (f"split-S hd={hd} KVH={KVH} M={M} {str(kvd)[6:]} B={B} T={T} "
+                        f"starts={starts}{' tree ' + str(tree) if tree else ''}")
+                e = check(name, got, want, TOL_ATT)
+                worst = max(worst, e / max(scale_of(want), 1e-30))
+                n += 1
+            del kc, vc
+    torch.cuda.synchronize()
+    log(f"# split-S route corners (head dims {sorted({h[0] for h in SPLIT_HEADS})} x bf16/fp16/"
+        f"e5m2, S={S}, slots from {boff}, kv_len under a tile, ragged and at the window's end, "
+        f"trees of 10 and 13 nodes, NaN past kv_len): {n} checks, worst max_abs_err "
+        f"{worst:.3e} of max|out| (tol {TOL_ATT:g})")
+
+
+def split_route_sweep(gbps, dev):
+    """The route crossover: the split-S route and the persistent kernel on
+    the same inputs, Mistral-7B heads, bf16 KV, T in ``SWEEP_T`` (16-128
+    rows a kv head) at the window's end and from position 0, B = 1 and 8;
+    ``hopper_attn.SPLIT_MAX_ROWS`` is set from it. Returns {(B, T, pos0):
+    (split ms, persistent ms)}."""
+    from calm_tpu_torch.ops import hopper_attn as ha
+
+    KVH, M, S, hd, L = 8, 4, 4096, 128, 2
+    out = {}
+    for B in (1, 8):
+        kc = (torch.randn(L, B, KVH, S, hd, device=dev) * 0.5).bfloat16()
+        vc = torch.randn(L, B, KVH, S, hd, device=dev).bfloat16()
+        for T in SWEEP_T:
+            for pos0 in (S - T, 0):
+                q = torch.randn(B, T, KVH, M, hd, device=dev)
+                p0 = torch.full((B,), pos0, dtype=torch.int32, device=dev)
+                kl = p0 + T
+                sp = ha._split_launch(q, kc, vc, p0, kl, L - 1, 0, None)
+                check(f"split-S sweep B={B} T={T} pos0={pos0}", sp,
+                      ha._persistent_launch(q, kc, vc, p0, kl, L - 1, 0), TOL_ATT)
+                s_ms, _ = timed(lambda i: ha._split_launch(q, kc, vc, p0, kl, i % L, 0, None))
+                p_ms, _ = timed(lambda i: ha._persistent_launch(q, kc, vc, p0, kl, i % L, 0))
+                out[(B, T, pos0)] = (s_ms, p_ms)
+        del kc, vc
+    log("# route crossover (Mistral-7B heads, bf16 KV; ms split-S / persistent, cupti): "
+        + "; ".join(f"B={B} T={T} ({T * M} rows) pos0={p}: {a:.4f} / {b:.4f}"
+                    for (B, T, p), (a, b) in out.items())
+        + f"; SPLIT_MAX_ROWS {ha.SPLIT_MAX_ROWS}")
+    return out
 
 
 def wall_ms(fn, reps: int = 5) -> tuple[float, float]:
@@ -3535,7 +3874,8 @@ def cli_text(out: str, banners: int = 3) -> str:
 SPEC_CLI = ["-t", "0", "-n", "16", "-i", "hello", "--gamma", str(GAMMA)]
 
 
-def speculative_container_checks(path, twin, what, eng, cpu, dev, want_srv, lcs_srv, procs):
+def speculative_container_checks(path, twin, what, eng, cpu, dev, want, want_srv, lcs_srv,
+                                 procs):
     """Speculation on the 2-layer Mistral-7B-width fp8 container: the CLI's
     ``--draft`` with the target itself and with its gf4 twin (``gf4_twin``),
     its text that of ``speculative_generate`` in this process, whose ids
@@ -3543,8 +3883,9 @@ def speculative_container_checks(path, twin, what, eng, cpu, dev, want_srv, lcs_
     is rejected at near-ties only; then ``Server`` with the target as
     draft against the CPU server's requests (``serving_checks``): the
     greedy ids the CPU's, a sampled request served by plain ticks as the
-    CPU's. ``procs``: the CLI's runs (``SPEC_CLI`` with ``--draft``), by
-    draft, started with the container phase's other CLI runs."""
+    CPU's. ``want``: the CPU's greedy ids of "hello" (``cpu`` answers a
+    near-tie); ``procs``: the CLI's runs (``SPEC_CLI`` with ``--draft``),
+    by draft, started with the container phase's other CLI runs."""
     from calm_tpu_torch.engine import Engine
     from calm_tpu_torch.serve import Server
     from calm_tpu_torch.speculative import speculative_generate
@@ -3552,8 +3893,6 @@ def speculative_container_checks(path, twin, what, eng, cpu, dev, want_srv, lcs_
     t0 = time.perf_counter()
     drafts = {"self": path, "gf4 twin": twin}
     p_toks = eng.tokenizer.encode("hello", bos=True)
-    cpu.reset()
-    want = cpu.generate("hello", 16, temperature=0).ids
     texts = {}
     for name, d in drafts.items():
         draft = Engine(d)
@@ -3570,7 +3909,8 @@ def speculative_container_checks(path, twin, what, eng, cpu, dev, want_srv, lcs_
         texts[name] = st.text
         log(f"# {what} speculative_generate, {name} draft, gamma {GAMMA}: {gen}; acceptance "
             f"{st.acceptance:.3f} over {st.rounds} rounds{rej}; verify replays "
-            f"{counts['verify_replays']}, K13 launches {counts['prefill_attention']}")
+            f"{counts['verify_replays']}, K13 launches {counts['prefill_attention']} "
+            f"persistent, {counts['prefill_attention_split']} split-S")
         del draft
     for name, p in procs.items():
         out, errs = p.communicate(timeout=600)
@@ -3701,6 +4041,12 @@ def speculative_full_width(cfg, dev, gbps, smi, default):
             n, gap = self_draft_rejections(f"speculative {name}", rounds, TOL_PREFILL)
             rej = f", {n} rejections, each at a near-tie (largest gap {gap:.2e} of scale)"
         cap_s = sum(c[3] for c in CAPTURES[n_cap:])
+        if "k" in kw:  # the tree rounds' launches: the kernels line's tree_attention
+            st2, tc = drive(run)
+            if tc["tree_attention"] != cfg.n_layers * st2.rounds:
+                fail(f"speculative {name}: {st2.rounds} rounds launched tree_attention "
+                     f"{tc['tree_attention']} times")
+            TREE_COUNTS.update(tc)
         ms, spread = wall_ms(run, 3)
         # the busy share over a run of 8 tokens (a profile of 32 costs seconds)
         short_ms = wall_ms(lambda: run(8), 3)[0]
@@ -3733,6 +4079,30 @@ def speculative_full_width(cfg, dev, gbps, smi, default):
             f"replayed); verify T={T} replayed {v_ms:.3f} ms, eager {e_ms:.3f} ms, bit-equal; "
             f"device busy {busy}; first run's captures {cap_s:.3f} s; "
             f"{time.perf_counter() - t_path:.1f} s on {smi}")
+
+    # the verify's attention against the parent commit's routes in this call:
+    # a B=1 linear verify at the window's end, the tree near position 16 and
+    # at the window's end, each replayed (bit-equal to eager on both routes)
+    t_path = time.perf_counter()
+    cmp = {}
+    for label, start, T, dep, tr in (
+            ("linear B=1 T=4 at the window's end", cfg.seq_len - GAMMA, GAMMA, None, None),
+            (f"tree k={k} m={m} near position 16", 16, n_tree, depth, tree),
+            (f"tree k={k} m={m} at the window's end", cfg.seq_len - n_tree, n_tree, depth,
+             tree)):
+        toks = rng.integers(3, V, (1, T))
+        new = verify_bits(f"verify {label}", cfg, w, target.cache, toks, [start], dep, tr)[0]
+        with parent_verify_routes(target.cache):
+            old = verify_bits(f"verify {label}, the parent's route", cfg, w, target.cache,
+                              toks, [start], dep, tr)[0]
+        cmp[label] = dict(replayed_ms=new, parent_route_ms=old)
+    out["verify_routes"] = cmp
+    log("# verify attention routes, fp8 mistral7b replayed (ms: this route / the parent's "
+        "route, K13 persistent for a linear verify, plain PyTorch over the window for the "
+        "tree): " + "; ".join(f"{k} {v['replayed_ms']:.3f} / {v['parent_route_ms']:.3f} "
+                               f"({v['parent_route_ms'] - v['replayed_ms']:+.3f})"
+                               for k, v in cmp.items())
+        + f"; {time.perf_counter() - t_path:.1f} s on {smi}")
 
     # serving: 8 greedy requests of 32 tokens, plain and with the target as draft
     t_path = time.perf_counter()
@@ -3773,7 +4143,7 @@ def speculative_full_width(cfg, dev, gbps, smi, default):
     dev_ms = sum(r[0] for r in rows) / 1e3 / 2 if rows else None
     res = [same_ids_near_ties(f"spec serve request {i}", g.ids, r.ids, np.stack(lg),
                               TOL_PREFILL) for i, (g, r, lg) in enumerate(zip(got, want, lgs))]
-    if counts["prefill_attention"] <= 0 or counts["verify_replays"] != n_rounds:
+    if counts["prefill_attention_split"] <= 0 or counts["verify_replays"] != n_rounds:
         fail(f"spec serve: {n_rounds} rounds, launches {counts}")
     SPEC_COUNTS.update(counts)
     toks = rng.integers(3, V, (B, GAMMA + 1))
@@ -3791,7 +4161,8 @@ def speculative_full_width(cfg, dev, gbps, smi, default):
         f"plain drain's {pw:.1f} ms ({1e3 * n_tok / pw:.1f} tok/s), medians of 2; {n_rounds} "
         f"rounds; a round of all eight slots past admission {tick_ms:.3f} ms, acceptance "
         f"{acc:.3f}; verify B={B} T={GAMMA + 1} replayed {v_ms:.3f} ms, eager {e_ms:.3f} ms, "
-        f"bit-equal; K13 {counts['prefill_attention']} launches, {counts['verify_replays']} "
+        f"bit-equal; K13 {counts['prefill_attention_split']} split-S launches (verifies), "
+        f"{counts['prefill_attention']} persistent (admissions), {counts['verify_replays']} "
         f"verify replays; device busy {busy} (2 rounds); ids against the plain drain: "
         + "; ".join(f"{i} {r}" for i, r in enumerate(res))
         + f"; {time.perf_counter() - t_path:.1f} s on {smi}")
@@ -3800,6 +4171,33 @@ def speculative_full_width(cfg, dev, gbps, smi, default):
     log(f"# speculative fp8 mistral7b: {time.perf_counter() - t_phase:.1f} s; "
         + json.dumps(out))
     return out
+
+
+@contextlib.contextmanager
+def parent_verify_routes(cache):
+    """The verify's attention as the parent commit ran it: the persistent
+    K13 at every T (``SPLIT_MAX_ROWS`` 0) and the tree's plain version over
+    the whole window in place of ``tree_attention``. The cache's captured
+    verifies are dropped on entry and on exit, so each route captures its
+    own."""
+    from calm_tpu_torch import model as M
+    from calm_tpu_torch.ops import hopper_attn as ha
+
+    def drop():
+        for key in [key for key in cache.graphs if key[0] == "verify"]:
+            del cache.graphs[key]
+
+    def plain_tree(q, kc, vc, p0, kl, layer, tree, batch_off=0):
+        return ha.prefill_attention_plain(q, kc, vc, p0, kl, layer, batch_off, tree=tree,
+                                          rows=kc.shape[3])
+    saved = ha.SPLIT_MAX_ROWS, M.tree_attention
+    drop()
+    ha.SPLIT_MAX_ROWS, M.tree_attention = 0, plain_tree
+    try:
+        yield
+    finally:
+        ha.SPLIT_MAX_ROWS, M.tree_attention = saved
+        drop()
 
 
 def verify_graph_check(dev):
@@ -5067,6 +5465,22 @@ def main():
     t_start = time.perf_counter()
     smi = device.smi_name_power()
     info = device.probe()
+    dev = torch.device("cuda")
+    # the 2-layer containers first: the CPU side of their checks runs in a
+    # worker process (CPU_THREADS threads) from here on, beside the build
+    # and the card's phases up to theirs
+    import multiprocessing
+
+    ctmp = tempfile.TemporaryDirectory()
+    paths = write_containers(ctmp.name, dev)
+    pool = multiprocessing.get_context("spawn").Pool(1)
+    WORKERS.append(pool)
+    refs = {key: pool.apply_async(cpu_side, (paths[key],) + key) for key in CONTAINERS}
+
+    def container(fmt, experts=0, cohere=False):
+        key = (fmt, experts, cohere)
+        return container_phase(paths[key], refs[key], fmt, dev, experts, cohere)
+    log(f"# containers written, their CPU side started at {time.perf_counter() - t_start:.1f} s")
     build_s = build.build_all()
     gbps = info.hbm_gbps or 3350.0
     log(f"# probe: {smi}; torch {info.torch_version} cuda {info.cuda_version} "
@@ -5083,19 +5497,25 @@ def main():
         f"{ptxas_kernels(build, 'attn', 'prefill_kernel')}, dynamic " + ", ".join(
             f"{attn_lib.calm_prefill_smem(hd, kvt)}" for hd in (64, 96, 128, 256)
             for kvt in (1, 0, 2)) + " B (hd 64/96/128/256 x bf16/fp16/e5m2); "
-        f"{ptxas_kernels(build, 'ring', 'allreduce_kernel')}")
+        f"{ptxas_kernels(build, 'ring', 'allreduce_kernel')}; "
+        f"{ptxas_each(build, 'attn', 'verify_kernel')} <hd, kvt>, dynamic " + ", ".join(
+            f"{attn_lib.calm_verify_smem(hd, kvt)}" for hd in (64, 96, 128, 256)
+            for kvt in (1, 0, 2)) + " B")
     log(f"# ptxas -v, the multi-row path <fmt, act, m-tiles, n-tiles, odd gf4 rows>: "
         f"{ptxas_each(build, 'qmm', 'mmv_kernel')}; the one-row loops <fmt, act>: "
         f"{ptxas_each(build, 'qmm', 'qmv_kernel')}; <act>: "
         f"{ptxas_each(build, 'qmm', 'gf4_row_kernel')}; {ptxas_each(build, 'gf4', 'gf4_mv_kernel')}; "
         f"<fmt, rows> (fmt 3: e4m3): {ptxas_each(build, 'moe', 'moe_qmv_kernel')}")
-    dev = torch.device("cuda")
     log_captures()
 
     RATES["nominal"] = gbps
     rows = kernel_phase(gbps, dev)
-    # K13 at a speculative verify's T, beside SDPA and T launches of K12
+    # K13 at a speculative verify's T (the split-S route) and the draft
+    # tree's attention, beside SDPA, T launches of K12 and the parent's
+    # routes; its corners; the crossover that sets the route
     rows.update(verify_kernel_rows(gbps, dev))
+    split_corner_checks(dev)
+    split_route_sweep(gbps, dev)
     log(f"# kernel phase done at {time.perf_counter() - t_start:.1f} s")
     # the tools' chains are K1's and K15's main path; the 3 GB rows give the
     # attainable read rate every later GB/s is also read against
@@ -5114,18 +5534,22 @@ def main():
     # decode path (K2, K9, K12), the gf4 prefill + decode path (K3, K4, K5,
     # K8, K13) and its CALM_ROT=0 decode (K7); each container is then served
     # (Server, httpd)
-    counts8, tok8, _ = container_phase("fp8", dev)
-    counts4, tok4, counts_rot0 = container_phase("gf4", dev)
+    counts8, tok8, _ = container("fp8")
+    counts4, tok4, counts_rot0 = container("gf4")
     # the parallel-norm (Cohere) paths: gf4 prefill + decode (K6)
-    counts4c, tok4c, _ = container_phase("gf4", dev, cohere=True)
-    container_phase("fp8", dev, cohere=True)
+    counts4c, tok4c, _ = container("gf4", cohere=True)
+    container("fp8", cohere=True)
     # and the MoE paths: fp8 decode (K10), gf4 decode (K11)
-    counts8m, tok8m, _ = container_phase("fp8", dev, experts=4)
-    counts4m, tok4m, _ = container_phase("gf4", dev, experts=4)
+    counts8m, tok8m, _ = container("fp8", experts=4)
+    counts4m, tok4m, _ = container("gf4", experts=4)
     # fp8e4: the dense decode path (K2's e4m3 body, per op) and the MoE
     # one (K10's e4m3 body at one row)
-    counts8e4, tok8e4, _ = container_phase("fp8e4", dev)
-    counts8e4m, tok8e4m, _ = container_phase("fp8e4", dev, experts=4)
+    counts8e4, tok8e4, _ = container("fp8e4")
+    counts8e4m, tok8e4m, _ = container("fp8e4", experts=4)
+    pool.close()
+    pool.join()
+    WORKERS.remove(pool)
+    ctmp.cleanup()
     log(f"# container phases done at {time.perf_counter() - t_start:.1f} s")
     # the captured step against the eager one across the sink wrap
     graph_wrap_check(dev)
@@ -5169,11 +5593,16 @@ def main():
                                           "calm_tpu/ops/pallas_attn.py:77", counts_pg),
                "prefill_attention": ("calm_tpu_torch/csrc/attn.cu",
                                      "calm_tpu/ops/pallas_attn.py:326", counts4),
-               # K13 at a served speculative round's T=5 (B=8, the window's
-               # last rows): launches from the full-width speculative drain
+               # K13's split-S route at a served speculative round's T=5 (B=8,
+               # the window's last rows): launches from the full-width
+               # speculative drain's verifies
                "prefill_attention_verify": ("calm_tpu_torch/csrc/attn.cu",
                                             "calm_tpu/ops/pallas_attn.py:326", SPEC_COUNTS,
-                                            "prefill_attention"),
+                                            "prefill_attention_split"),
+               # the same kernel with the draft tree's mask (jnp in JAX, no
+               # Pallas kernel): launches from the full-width tree rounds
+               "tree_attention": ("calm_tpu_torch/csrc/attn.cu", "calm_tpu/model.py:613",
+                                  TREE_COUNTS),
                "qmm_decode_gf4": ("calm_tpu_torch/csrc/gf4.cu",
                                   "calm_tpu/ops/pallas_qmm.py:100", counts4),
                "qmm_prefill": ("calm_tpu_torch/csrc/gf4.cu",
