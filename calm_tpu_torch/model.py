@@ -70,9 +70,12 @@ local weights and cache, with the collectives on a
 with a masked lookup and a psum and the OLMoE qk-norm with a scalar psum;
 ep sweeps the rank's resident experts; sp decode writes a row on the shard
 that owns it, rotates the sinks on shard 0 and merges K12's partials (one
-pmax, two psums); sp prefill attends over the all-gathered K/V. Decode
+pmax, two psums); sp prefill attends over the all-gathered K/V, or under
+``plan.ring`` folds the chunks in as they come round the ring. Decode
 under tp, sp or ep runs per op (no fused epilogue). ``parallel.sharding``
-cuts the local tensors and gathers the logits.
+cuts the local tensors and gathers the logits; ``parallel.pipeline`` runs
+each pipeline stage's layers through the same step on its layer shard, a
+microbatch's slots from a slot offset (``_Step.batch_off``).
 """
 
 from __future__ import annotations
@@ -474,12 +477,13 @@ class _Step:
     pt: torch.Tensor | None         # (B, n_blocks) int32 page table
     plan: ShardingPlan = NO_SHARDING
     mesh: object = None             # parallel.mesh.Mesh under a plan
+    batch_off: int = 0              # the cache slot of row 0 (a pipeline's microbatch)
 
 
-def _sink_slots(cache: KVCache, B: int, pt):
-    """The cache axis-1 index of each slot's sinks: slot b, or a paged
-    slot's own page pt[b, 0]."""
-    return slice(0, B) if pt is None else pt[:, 0].long()
+def _sink_slots(cache: KVCache, B: int, pt, off: int = 0):
+    """The cache axis-1 index of each slot's sinks: slot off + b, or a
+    paged slot's own page pt[b, 0]."""
+    return slice(off, off + B) if pt is None else pt[:, 0].long()
 
 
 def _rotate_sinks(cache: KVCache, layer: int, st: _Step, S: int):
@@ -488,7 +492,7 @@ def _rotate_sinks(cache: KVCache, layer: int, st: _Step, S: int):
     back unchanged elsewhere, so that their relative RoPE phase tracks the
     sliding window (``calm_tpu/model.py:1007-1033``); a paged slot's sinks
     live in its own page pt[b, 0]."""
-    idx = (layer, _sink_slots(cache, st.pos.shape[0], st.pt), slice(None),
+    idx = (layer, _sink_slots(cache, st.pos.shape[0], st.pt, st.batch_off), slice(None),
            slice(0, KV_SINKS))
     sink = cache.k[idx]                                   # (B, KVH, 2, hd)
     rot = apply_rope(sink.float().transpose(1, 2), st.sink_cos, st.sink_sin)
@@ -723,7 +727,8 @@ def _layer(cfg: ModelConfig, lw: LayerWeights, layer: int, x, qkv, cache,
         att, fresh = _sp_attention(cache, layer, st, q.float().contiguous()), None
     else:
         att = decode_attention(q.float().contiguous(), cache.k, cache.v,
-                               st.kv_len, layer, fresh=(kc, vc, st.kv_pos), pt=st.pt)
+                               st.kv_len, layer, fresh=(kc, vc, st.kv_pos), pt=st.pt,
+                               batch_off=st.batch_off)
         fresh = (kc, vc)
     att = att.reshape(B, H * hd)
 
@@ -773,11 +778,12 @@ def _on_device(token, pos, device):
 
 
 def _step_state(cfg: ModelConfig, pos: torch.Tensor, rolling: bool, pt=None,
-                plan: ShardingPlan = NO_SHARDING, mesh=None) -> _Step:
+                plan: ShardingPlan = NO_SHARDING, mesh=None, batch_off: int = 0) -> _Step:
     """The step's per-slot state from pos (B,) int32 on the device
     (``calm_tpu/model.py:1334-1345``), and the one-position tables of the
     sink rotation under ``rolling``. Under sp the sinks (global rows 0 and
-    1) live in shard 0, which alone rotates them (``:1028-1030``)."""
+    1) live in shard 0, which alone rotates them (``:1028-1030``). Row b
+    is cache slot batch_off + b (a pipeline's microbatch, ``:1282``)."""
     kv_pos, kv_len = decode_indices(cfg, pos)
     cos, sin = rope_tables(pos, cfg.head_dim, cfg.rope_theta, cfg.rotary_dim)
     sink_cos = sink_sin = None
@@ -786,14 +792,15 @@ def _step_state(cfg: ModelConfig, pos: torch.Tensor, rolling: bool, pt=None,
             torch.ones((pos.shape[0], KV_SINKS), dtype=torch.int32, device=pos.device),
             cfg.head_dim, cfg.rope_theta, cfg.rotary_dim)
     return _Step(pos=pos, kv_pos=kv_pos, kv_len=kv_len, cos=cos, sin=sin,
-                 sink_cos=sink_cos, sink_sin=sink_sin, pt=pt, plan=plan, mesh=mesh)
+                 sink_cos=sink_cos, sink_sin=sink_sin, pt=pt, plan=plan, mesh=mesh,
+                 batch_off=batch_off)
 
 
-def _row_index(cache: KVCache, kv_pos: torch.Tensor, pt):
-    """(cache axis-1 index, row) of each slot's row kv_pos[b]: slot b, or a
-    paged slot's page pt[b, kv_pos // PR] at row kv_pos % PR."""
+def _row_index(cache: KVCache, kv_pos: torch.Tensor, pt, off: int = 0):
+    """(cache axis-1 index, row) of each slot's row kv_pos[b]: slot off +
+    b, or a paged slot's page pt[b, kv_pos // PR] at row kv_pos % PR."""
     rows = kv_pos.long()
-    slots = torch.arange(rows.shape[0], device=rows.device)
+    slots = torch.arange(rows.shape[0], device=rows.device) + off
     if pt is None:
         return slots, rows
     PR = cache.k.shape[3]
@@ -805,7 +812,7 @@ def _write_rows(cache: KVCache, st: _Step, fk: torch.Tensor, fv: torch.Tensor):
     slot at its own row kv_pos[b], in one copy per cache; a paged slot's
     row lives at page pt[b, kv_pos // PR], row kv_pos % PR. Two advanced
     indices apart put the slot axis first: (B, L, KVH, hd)."""
-    slots, rows = _row_index(cache, st.kv_pos, st.pt)
+    slots, rows = _row_index(cache, st.kv_pos, st.pt, st.batch_off)
     cache.k[:, slots, :, rows, :] = fk.transpose(0, 1)
     cache.v[:, slots, :, rows, :] = fv.transpose(0, 1)
 
@@ -1026,12 +1033,13 @@ def _prefill_layer(cfg: ModelConfig, lw: LayerWeights, layer: int, x,
     the device) before the attention reads it. Under sp (the all-gather
     path, ``:1044-1050``) the rows are this rank's chunk of the prompt:
     they land in its S-shard at rows 0..T, and the attention reads every
-    shard's chunk, gathered at cache precision. With ``tree`` the queries
-    are a speculation tree's nodes: :func:`hopper_attn.tree_attention`,
-    the split-S route of the prefill kernel with the tree's mask on the
-    card (its plan a function of the shapes, so eager and replayed runs
-    sum alike), its plain version over every row of the window on the
-    CPU."""
+    shard's chunk, gathered at cache precision, or under ``plan.ring``
+    folds them in as they come round the ring (:func:`_attention_ring`).
+    With ``tree`` the queries are a speculation tree's nodes:
+    :func:`hopper_attn.tree_attention`, the split-S route of the prefill
+    kernel with the tree's mask on the card (its plan a function of the
+    shapes, so eager and replayed runs sum alike), its plain version over
+    every row of the window on the CPU."""
     B, T = rows.shape
     hd = cfg.head_dim
     xb = _norm(cfg, x, lw.attn_norm[layer])
@@ -1047,7 +1055,9 @@ def _prefill_layer(cfg: ModelConfig, lw: LayerWeights, layer: int, x,
     cache.k[layer][slots, :, rows] = kt
     cache.v[layer][slots, :, rows] = vt
     qg = q.reshape(B, T, KVH, H // KVH, hd).contiguous()
-    if plan.sp is not None:  # the whole prompt's K/V as a one-layer cache
+    if plan.sp is not None and plan.ring:
+        att = _attention_ring(qg, kt, vt, pos0, plan, mesh)
+    elif plan.sp is not None:  # the whole prompt's K/V as a one-layer cache
         ka = mesh.all_gather(kt.transpose(1, 2), plan.sp, dim=2)[None].contiguous()
         va = mesh.all_gather(vt.transpose(1, 2), plan.sp, dim=2)[None].contiguous()
         att = prefill_attention(qg, ka, va, pos0, kv_len, 0)
@@ -1056,6 +1066,50 @@ def _prefill_layer(cfg: ModelConfig, lw: LayerWeights, layer: int, x,
     else:
         att = prefill_attention(qg, cache.k, cache.v, pos0, kv_len, layer, batch_off)
     return _ffn(cfg, lw, layer, x, att.reshape(B * T, H * hd), xb, plan, mesh)
+
+
+def _attention_ring(q, k, v, pos0, plan: ShardingPlan, mesh):
+    """Blockwise ring attention of sp prefill under ``plan.ring``
+    (``_attention_ring``, ``calm_tpu/model.py:678-728``): q (B, T, KVH, M,
+    hd) f32 this rank's chunk of queries at positions pos0 + t, k/v (B, T,
+    KVH, hd) its chunk's fresh rows at cache precision. n hops: hop r holds
+    shard (i - r) mod n's chunk, the local one first (its causal diagonal
+    keeps the running max finite from the start), folded into a running
+    (m, l, acc) online softmax; between hops the chunks move one rank on
+    the sp ring (``Mesh.ppermute``). So a rank holds two chunks at a time,
+    never the whole prompt's K/V. The same softmax as the all-gather path
+    with another association. JAX computes it in jnp (no Pallas kernel),
+    and so does the port, on both devices: operands rounded to bf16 on the
+    card and kept f32 on the CPU, as JAX's ``cdt``, products summed in f32.
+    Returns (B, T, KVH, M, hd) f32."""
+    B, T, KVH, M, hd = q.shape
+    n, i = mesh.axis_size(plan.sp), mesh.axis_index(plan.sp)
+    cdt = torch.bfloat16 if q.is_cuda else torch.float32
+    qf = q.to(cdt).float()
+    q_pos = pos0.long()[:, None] + torch.arange(T, device=q.device)   # (B, T)
+    m = torch.full((B, KVH, M, T), -math.inf, device=q.device)
+    l = torch.zeros((B, KVH, M, T), device=q.device)
+    acc = torch.zeros((B, T, KVH, M, hd), device=q.device)
+    perm = [(j, (j + 1) % n) for j in range(n)]
+    kc, vc = k, v
+    for r in range(n):
+        base = ((i - r) % n) * T
+        kf = kc.transpose(1, 2).to(cdt).float()                       # (B, KVH, T, hd)
+        vf = vc.transpose(1, 2).to(cdt).float()
+        s = torch.einsum("btkmh,bksh->bkmts", qf, kf) / math.sqrt(hd)
+        causal = (base + torch.arange(T, device=q.device))[None, None, :] <= q_pos[:, :, None]
+        s = s.masked_fill(~causal[:, None, None], -math.inf)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.where(torch.isfinite(s), torch.exp(s - m_new[..., None]), 0.0)
+        alpha = torch.where(torch.isfinite(m), torch.exp(m - m_new), 0.0)
+        l = l * alpha + p.sum(-1)
+        hop = torch.einsum("bkmts,bksh->btkmh", p.to(cdt).float(), vf)
+        acc = acc * alpha.permute(0, 3, 1, 2)[..., None] + hop
+        m = m_new
+        if r != n - 1:
+            kc = mesh.ppermute(kc, plan.sp, perm)
+            vc = mesh.ppermute(vc, plan.sp, perm)
+    return acc / l.permute(0, 3, 1, 2)[..., None].clamp_min(1e-37)
 
 
 def check_rows(cfg: ModelConfig, cache: KVCache, B: int, T: int, starts,
@@ -1200,8 +1254,10 @@ def prefill_sp(cfg: ModelConfig, w: Weights, tokens: torch.Tensor, cache: KVCach
     of a prompt of seq_len tokens split over ``plan.sp`` in rank order, the
     cache its S-shard of T_local rows. Each layer projects the chunk at its
     absolute positions, writes it into the shard and attends causally over
-    the K/V of every chunk, all-gathered (K13 over the gathered rows).
-    Returns (logits (B, T_local, V_local), cache)."""
+    the K/V of every chunk: all-gathered (K13 over the gathered rows), or
+    under ``plan.ring`` brought round the sp ring a chunk a hop
+    (:func:`_attention_ring`). Returns (logits (B, T_local, V_local),
+    cache)."""
     B, T = tokens.shape
     if T * mesh.axis_size(plan.sp) != cfg.seq_len or cache.k.shape[3] != T:
         raise ValueError(f"sp prefill takes the whole window: {T} tokens a shard of "

@@ -15,7 +15,9 @@ for CUDA tensors or raises; it counts its launches in ``.launches``
 (:func:`decode_attention` those in paged mode also in ``.paged_launches``,
 those in partials mode apart, in ``.partials_launches``). Both take head
 dims 64, 96, 128 and 256 and any number of query heads per kv head, and
-both read from a slot offset (``batch_off``) of a dense cache.
+both read from a slot offset (``batch_off``) of a dense cache. While a
+profiler trace is open each launch's bytes and operations are recorded
+(``ops/cost.py``).
 
 :func:`decode_plan` is the decode kernel's tiling, a pure function of the
 shapes: the kernel launches one block a (chunk, kv head, slot, row tile)
@@ -38,7 +40,7 @@ from typing import NamedTuple
 
 import torch
 
-from calm_tpu_torch.ops import build
+from calm_tpu_torch.ops import build, cost
 
 _KV_CODE = {torch.float16: 0, torch.bfloat16: 1, torch.float8_e5m2: 2}
 SMS = 132  # an H100's streaming multiprocessors
@@ -58,6 +60,33 @@ VA_MAX_CHUNKS = 64  # csrc/attn.cu VA_MAX_CHUNKS: the fold's weights in shared m
 # tile twice), B=1 128 rows 0.0268 / 0.0676; from position 0 the split-S
 # route is the faster at 16-128 rows (0.0060-0.0078 / 0.0066-0.0101).
 SPLIT_MAX_ROWS = 64
+
+
+def _cost_attention(kernel: str, q, k_cache, kv_len, pos0=None, tree=None) -> None:
+    """A launch's bytes and operations while a profiler trace is open
+    (``ops/cost.py``): q read and the output written in f32, each
+    sequence's K and V rows below kv_len read once; 4 operations a (query,
+    key) pair a head dim, the pairs causal from pos0 (a tree's: the rows
+    below it and its mask's). kv_len, pos0 and the mask are read when the
+    trace ends."""
+    if not cost.active():
+        return
+    KVH, hd = k_cache.shape[2], k_cache.shape[4]
+    qh = q.numel() // (q.shape[0] * hd)  # (query, head) rows a sequence
+    H = qh if pos0 is None else q.shape[2] * q.shape[3]
+    T = qh // H
+    row = 2 * KVH * hd * k_cache.element_size()
+
+    def pairs():
+        kl = kv_len.long()
+        if pos0 is None:
+            return int(kl.sum())
+        if tree is not None:
+            return int((kl - T).clamp_min(0).sum()) * T + kl.shape[0] * int(tree.sum())
+        t = torch.arange(T, device=kl.device)
+        return int(torch.minimum(pos0.long()[:, None] + t + 1, kl[:, None]).sum())
+    cost.record(kernel, lambda: 8 * q.numel() + row * int(kv_len.long().sum()),
+                lambda: 4 * hd * H * pairs())
 
 
 def paged_view(pool_plane: torch.Tensor, pt: torch.Tensor) -> torch.Tensor:
@@ -186,6 +215,7 @@ def _check(cond: bool, msg: str) -> None:
         raise ValueError(msg)
 
 
+@cost.ranged
 def decode_attention(q, k_cache, v_cache, kv_len, layer, fresh=None, pt=None,
                      partials: bool = False, batch_off: int = 0):
     """q (B, H, hd) f32; caches (L, Bc, KVH, S, hd) in bf16/fp16/fp8-e5m2
@@ -269,6 +299,7 @@ def decode_attention(q, k_cache, v_cache, kv_len, layer, fresh=None, pt=None,
         M, S, hd, int(layer), plan.chunk_rows, _KV_CODE[k_cache.dtype], NP, PR,
         plan.row_tile, int(batch_off), torch.cuda.current_stream(dev).cuda_stream)
     build.check("attn", rc)
+    _cost_attention("attn_decode_kernel", q, k_cache, kv_len)
     if partials:
         decode_attention.partials_launches += 1
         return out, mo, lo
@@ -389,6 +420,7 @@ def prefill_attention_plain(q, k_cache, v_cache, pos0, kv_len, layer,
     return out / l.clamp_min(1e-37)
 
 
+@cost.ranged
 def prefill_attention(q, k_cache, v_cache, pos0, kv_len, layer, batch_off=0):
     """q (B, T, KVH, M, hd) f32; caches (L, Bc, KVH, S, hd) in
     bf16/fp16/fp8-e5m2 holding the T fresh rows already, sequence b in slot
@@ -428,6 +460,7 @@ def _persistent_launch(q, k_cache, v_cache, pos0, kv_len, layer, batch_off):
         _KV_CODE[k_cache.dtype], L, Bc, int(batch_off), prefill_grid(B, T, KVH, M),
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check("attn", rc)
+    _cost_attention("prefill_kernel", q, k_cache, kv_len, pos0)
     return out
 
 
@@ -527,9 +560,11 @@ def _split_launch(q, k_cache, v_cache, pos0, kv_len, layer, batch_off, tree):
         plan.row_tiles, plan.row_groups, plan.threads,
         torch.cuda.current_stream(dev).cuda_stream)
     build.check("attn", rc)
+    _cost_attention("verify_kernel", q, k_cache, kv_len, pos0, tree)
     return out
 
 
+@cost.ranged
 def tree_attention(q, k_cache, v_cache, pos0, kv_len, layer, tree, batch_off=0):
     """The draft tree's attention: q (B, T, KVH, M, hd) f32, one query a
     node; caches as :func:`prefill_attention`'s, holding the T nodes' rows

@@ -26,7 +26,8 @@ collective (``parallel.mesh.Mesh.psum``); this all-reduce stands alone.
 :func:`ring_all_reduce_plain` sums each chunk in the ring's own order, so
 kernel and plain version agree bit for bit in f32 and bf16. The wrapper
 takes the plain version for tensors on the CPU, launches the kernel for
-CUDA tensors or raises, and counts its launches in ``.launches``.
+CUDA tensors or raises, and counts its launches in ``.launches`` (and,
+while a profiler trace is open, records their bytes, ``ops/cost.py``).
 """
 
 from __future__ import annotations
@@ -35,7 +36,7 @@ import ctypes
 
 import torch
 
-from calm_tpu_torch.ops import build
+from calm_tpu_torch.ops import build, cost
 
 LANES = 128  # chunks pad to a multiple of this, as pallas_collectives.py:134
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -94,6 +95,7 @@ def kernel_layout(xs) -> tuple[list[torch.Tensor], int, bool]:
     return list(_padded(xs, chunk)), chunk, True
 
 
+@cost.ranged
 def ring_all_reduce(xs: list[torch.Tensor]) -> list[torch.Tensor]:
     """The sum of ``xs`` (n tensors of one shape and dtype, f32 or bf16),
     as n new tensors, rank r's result at index r; the inputs stay as they
@@ -134,6 +136,9 @@ def ring_all_reduce(xs: list[torch.Tensor]) -> list[torch.Tensor]:
         ctypes.addressof(pi), ctypes.addressof(po), ctypes.addressof(pf), n, chunk,
         _DTYPE_CODE[x0.dtype], epoch, torch.cuda.current_stream(dev).cuda_stream)
     build.check("ring", rc)
+    if cost.active():  # each rank's input read, its output written, once
+        cost.record("allreduce_kernel", 2 * n * x0.numel() * x0.element_size(),
+                    n * x0.numel())
     ring_all_reduce.launches += 1
     if padded:
         total = x0.numel()

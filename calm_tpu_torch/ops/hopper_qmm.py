@@ -66,7 +66,9 @@ its launches in ``.launches`` (:func:`qmm_decode`, :func:`qmm_decode_gf4`,
 :func:`qx_offn_qkv`, :func:`gf4_offn_qkv`, :func:`gf4_ffn`,
 :func:`gf4_offn`, :func:`qmm_moe_dense`, :func:`qmm_moe_ffn` and
 :func:`gf4_moe_ffn` those of the multi-row path also in
-``.multirow_launches``).
+``.multirow_launches``). While a profiler trace is open each launch's
+bytes and operations are recorded, in the order the C entry points launch
+their kernels (``ops/cost.py``).
 """
 
 from __future__ import annotations
@@ -78,7 +80,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from calm_tpu_torch.ops import build
+from calm_tpu_torch.ops import build, cost
 from calm_tpu_torch.ops.norms import rmsnorm
 from calm_tpu_torch.ops.qmm import STORAGE, QTensor, dequant
 
@@ -392,6 +394,62 @@ def _staging(words: int, floats: int, dev) -> tuple[torch.Tensor, int, int]:
 
 
 # ---------------------------------------------------------------------------
+# launch costs, recorded while a profiler trace is open (ops/cost.py), in
+# the order csrc/qmm.cu, gf4.cu and moe.cu launch their kernels
+# ---------------------------------------------------------------------------
+
+_WBYTES = {"fp16": 2.0, "fp8": 1.0, "fp8e4": 1.0, "gf4": 0.5}  # bytes a weight
+
+
+def _cost_mv(kernel: str, fmt: str, B: int, rows: int, n: int, dual: bool = False,
+             resid: bool = False, slots=1) -> None:
+    """A product's launch: rows x n weights (two planes for the dual w1/w3
+    launch), x (B, n) f32 read, y (B, rows) f32 written and the residual
+    read, for each of ``slots`` expert slots (an int, or a function giving
+    the live ones once the trace ends)."""
+    k = 2 if dual else 1
+    nbytes = rows * n * _WBYTES[fmt] * k + 4 * B * (n + rows * (2 if resid else 1))
+    ops = 2 * B * rows * n * k
+    if callable(slots):
+        cost.record(kernel, lambda: slots() * nbytes, lambda: slots() * ops)
+    else:
+        cost.record(kernel, slots * nbytes, slots * ops)
+
+
+def _cost_pass(kernel: str, values: int, extra: int = 0) -> None:
+    """An elementwise launch over f32 values (the norm, x staged): each
+    read and written once, ``extra`` bytes besides (the norm's weights)."""
+    cost.record(kernel, 8 * values + extra, values)
+
+
+def _cost_epilogue(fmt: str, B: int, D: int, H: int, Qd: int = 0, qkv: int = 0,
+                   resid2: bool = False) -> None:
+    """The launches of the epilogue chains (K6-K9): with ``Qd``, wo +
+    residual and the ffn-norm; the FFN (w2 with the residual under
+    ``resid2``); with ``qkv`` rows, the attn-norm and the next layer's
+    q/k/v. From 2 rows each product's x is staged first (by a split
+    launch, or by the norm launch before it)."""
+    if not cost.active():
+        return
+    mr = B >= 2
+    k = "mmv_kernel" if mr else "gf4_row_kernel" if fmt == "gf4" else "qmv_kernel"
+    if Qd:
+        if mr:
+            _cost_pass("split_kernel", B * Qd)
+        _cost_mv(k, fmt, B, D, Qd, resid=True)
+        _cost_pass("norm_kernel", B * D, 4 * D)
+    elif mr:
+        _cost_pass("split_kernel", B * D)
+    _cost_mv(k, fmt, B, H, D, dual=True)
+    if mr:
+        _cost_pass("split_kernel", B * H)
+    _cost_mv(k, fmt, B, D, H, resid=resid2)
+    if qkv:
+        _cost_pass("norm_kernel", B * D, 4 * D)
+        _cost_mv(k, fmt, B, qkv, D)
+
+
+# ---------------------------------------------------------------------------
 # K2: qmm_decode
 # ---------------------------------------------------------------------------
 
@@ -414,6 +472,7 @@ def qmm_decode_plain(x: torch.Tensor, w: torch.Tensor, fmt: str,
     return _scaled(x.float() @ wf.T, scale, layer)
 
 
+@cost.ranged
 def qmm_decode(x: torch.Tensor, w: torch.Tensor, fmt: str,
                layer=None, scale=None) -> torch.Tensor:
     """x (B, n) f32 @ W[layer]^T for W (L, d, n) (or (d, n)) in storage
@@ -442,6 +501,10 @@ def qmm_decode(x: torch.Tensor, w: torch.Tensor, fmt: str,
         x.data_ptr(), wl.data_ptr(), y.data_ptr(), B, d, n, _FMT_CODE[fmt], sp, xs, sc, plan,
         _stream(x))
     build.check("qmm", rc)
+    if cost.active():
+        if path == "multi-row":
+            _cost_pass("split_kernel", B * n)
+        _cost_mv("mmv_kernel" if path == "multi-row" else "qmv_kernel", fmt, B, d, n)
     qmm_decode.launches += 1
     qmm_decode.multirow_launches += path == "multi-row"
     return y
@@ -474,6 +537,7 @@ def qmm_decode_gf4_plain(x: torch.Tensor, w: torch.Tensor,
     return qmm_decode_plain(x, w, "gf4", layer)
 
 
+@cost.ranged
 def qmm_decode_gf4(x: torch.Tensor, w: torch.Tensor, layer=None) -> torch.Tensor:
     """x (B <= 16, n) f32 @ W[layer]^T for gf4 words W (L, d, n/8) (or
     (d, n/8)) -> (B, d) f32. One row takes ``csrc/gf4.cu``'s matvec; from 2
@@ -496,6 +560,10 @@ def qmm_decode_gf4(x: torch.Tensor, w: torch.Tensor, layer=None) -> torch.Tensor
         rc = build.lib("gf4").calm_gf4_matvec(x.data_ptr(), wl.data_ptr(), y.data_ptr(), B,
                                               d, n8, _stream(x))
         build.check("gf4", rc)
+    if cost.active():
+        if path == "multi-row":
+            _cost_pass("split_kernel", B * 8 * n8)
+        _cost_mv("mmv_kernel" if path == "multi-row" else "gf4_mv_kernel", "gf4", B, d, 8 * n8)
     qmm_decode_gf4.launches += 1
     qmm_decode_gf4.multirow_launches += path == "multi-row"
     return y
@@ -544,9 +612,12 @@ def _gf4_matmul(x: torch.Tensor, w: torch.Tensor, layer) -> torch.Tensor:
     rc = build.lib("gf4").calm_gf4_matmul(xb.data_ptr(), wl.data_ptr(),
                                           y.data_ptr(), R, d, n8, _stream(x))
     build.check("gf4", rc)
+    if cost.active():  # x in bf16, the words once, y in f32
+        cost.record("gf4_mm_kernel", 2 * R * n + d * n // 2 + 4 * R * d, 2 * R * d * n)
     return y
 
 
+@cost.ranged
 def qmm_prefill(x: torch.Tensor, w: torch.Tensor, layer=None) -> torch.Tensor:
     """x (R >= 32, n) f32 (or bf16, from :func:`prefill_operand`) @
     W[layer]^T for gf4 words W (L, d, n/8) (or (d, n/8)) -> (R, d) f32. On
@@ -562,6 +633,7 @@ def qmm_prefill(x: torch.Tensor, w: torch.Tensor, layer=None) -> torch.Tensor:
 qmm_prefill.launches = 0
 
 
+@cost.ranged
 def qmm_prefill_w2(h: torch.Tensor, w2: torch.Tensor, layer=None) -> torch.Tensor:
     """The FFN's down product at prefill: h (R >= 32, H) f32 or bf16 @
     w2[layer]^T for gf4 words w2 (L, D, H/8) -> (R, D) f32, as
@@ -660,9 +732,11 @@ def _offn_qkv(a, r, g, anx, wo, w1, w3, w2, wq, wk, wv, layer, fmt: str,
         h.data_ptr(), x.data_ptr(), qkv.data_ptr(), B, D, H, Qd, KVd, _OFFN_CODE[fmt],
         int(act_gelu), float(eps), int(sub_mean), xs, sc, plans, _stream(a))
     build.check("qmm", rc)
+    _cost_epilogue(fmt, B, D, H, Qd, Qd + 2 * KVd, resid2=True)
     return (x, qkv[:, :Qd], qkv[:, Qd:Qd + KVd], qkv[:, Qd + KVd:])
 
 
+@cost.ranged
 def qx_offn_qkv(a, r, g, anx, wo, w1, w3, w2, wq, wk, wv, layer, fmt: str,
                 act_gelu: bool, eps: float, sub_mean: bool):
     """a (B, Qd) f32 attention output; r (B, D) f32 residual; g/anx (L, D)
@@ -692,6 +766,7 @@ def gf4_offn_qkv_plain(a, r, g, anx, wo, w1, w3, w2, wq, wk, wv, layer,
                              "gf4", act_gelu, eps, sub_mean)
 
 
+@cost.ranged
 def gf4_offn_qkv(a, r, g, anx, wo, w1, w3, w2, wq, wk, wv, layer,
                  act_gelu: bool, eps: float, sub_mean: bool):
     """:func:`qx_offn_qkv` on natural gf4 words: wo (L, D, Qd/8), w1/w3
@@ -734,6 +809,7 @@ def gf4_ffn_plain(x, w1, w3, w2, layer, act_gelu: bool):
     return _ffn_plain(x, w1, w3, w2, layer, "gf4", act_gelu)
 
 
+@cost.ranged
 def gf4_ffn(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor, w2: torch.Tensor,
             layer, act_gelu: bool) -> torch.Tensor:
     """x (B <= 16, D) f32; w1/w3 (L, H, D/8), w2 (L, D, H/8) natural gf4
@@ -763,6 +839,7 @@ def gf4_ffn(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor, w2: torch.Tenso
         x.data_ptr(), w1l.data_ptr(), w3l.data_ptr(), w2l.data_ptr(), h.data_ptr(),
         y.data_ptr(), B, D, H, int(act_gelu), xs, sc, plans, _stream(x))
     build.check("qmm", rc)
+    _cost_epilogue("gf4", B, D, H)
     gf4_ffn.launches += 1
     gf4_ffn.multirow_launches += B >= 2
     return y
@@ -785,6 +862,7 @@ def gf4_offn_plain(a, r, g, wo, w1, w3, w2, layer, act_gelu: bool, eps: float,
                        sub_mean)
 
 
+@cost.ranged
 def gf4_offn(a: torch.Tensor, r: torch.Tensor, g: torch.Tensor, wo: torch.Tensor,
              w1: torch.Tensor, w3: torch.Tensor, w2: torch.Tensor, layer,
              act_gelu: bool, eps: float, sub_mean: bool):
@@ -830,6 +908,7 @@ def gf4_offn(a: torch.Tensor, r: torch.Tensor, g: torch.Tensor, wo: torch.Tensor
         h.data_ptr(), ffn.data_ptr(), B, D, H, 8 * q8, int(act_gelu), float(eps),
         int(sub_mean), xs, sc, plans, _stream(a))
     build.check("qmm", rc)
+    _cost_epilogue("gf4", B, D, H, 8 * q8)
     gf4_offn.launches += 1
     gf4_offn.multirow_launches += multirow
     return ffn, r1
@@ -893,6 +972,12 @@ def moe_multirow_supported(fmt: str, B: int, *ns: int) -> bool:
 
 
 @functools.lru_cache(maxsize=256)
+def _live(cnt: torch.Tensor, A: int):
+    """The live slots of a sweep, read once a trace ends: slots past
+    ``cnt`` read no weights."""
+    return lambda: min(int(cnt.reshape(-1)[0]), A)
+
+
 def _moe_plans(B: int, A: int, launches: tuple, gf4: bool) -> tuple[np.ndarray, int, int]:
     """For the launches ``((rows, n, dual, staged), ...)`` of one call at B
     rows over A expert slots, each staging ``staged`` copies of its x (1
@@ -904,6 +989,7 @@ def _moe_plans(B: int, A: int, launches: tuple, gf4: bool) -> tuple[np.ndarray, 
             max(w for w, _ in staged), max(f for _, f in staged))
 
 
+@cost.ranged
 def qmm_moe_dense(x: torch.Tensor, wstack: torch.Tensor, eidx: torch.Tensor,
                   cnt: torch.Tensor, fmt: str, layer=None, scale=None) -> torch.Tensor:
     """The expert sweep: Y[a] = x[min(a, Ax - 1)] @ W[layer, eidx[a]]^T for
@@ -943,6 +1029,12 @@ def qmm_moe_dense(x: torch.Tensor, wstack: torch.Tensor, eidx: torch.Tensor,
             x.data_ptr(), _plane_ptr(wstack, l), y.data_ptr(), eidx.data_ptr(),
             cnt.data_ptr(), Ax, A, B, d, n, E, _OFFN_CODE[fmt], sp, _stream(x))
         build.check("moe", rc)
+    if cost.active():
+        live = _live(cnt, A)
+        if multirow:
+            _cost_pass("split_kernel", Ax * B * n)
+        _cost_mv("mmv_kernel" if multirow else "moe_gf4_kernel" if fmt == "gf4"
+                 else "moe_qmv_kernel", fmt, B, d, n, slots=live)
     qmm_moe_dense.launches += 1
     qmm_moe_dense.multirow_launches += multirow
     return y
@@ -993,6 +1085,12 @@ def _moe_ffn_mr(x, w1, w3, w2, eidx, cnt, fmt: str, act_gelu: bool, dims,
         eidx.data_ptr(), cnt.data_ptr(), h.data_ptr(), z.data_ptr(), A, B, D, H, E,
         _OFFN_CODE[fmt], int(act_gelu), *sp, xs, sc, plans.ctypes.data, _stream(x))
     build.check("qmm", rc)
+    if cost.active():
+        live = _live(cnt, A)
+        _cost_pass("split_kernel", B * D)
+        _cost_mv("mmv_kernel", fmt, B, H, D, dual=True, slots=live)
+        _cost_pass("split_kernel", A * B * H)
+        _cost_mv("mmv_kernel", fmt, B, D, H, slots=live)
     return z
 
 
@@ -1008,6 +1106,7 @@ def qmm_moe_ffn_plain(x, w1, w3, w2, eidx, cnt, fmt: str, layer, act_gelu: bool,
     return qmm_moe_dense_plain(h, w2, eidx, cnt, fmt, layer, s2)
 
 
+@cost.ranged
 def qmm_moe_ffn(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor, w2: torch.Tensor,
                 eidx: torch.Tensor, cnt: torch.Tensor, fmt: str, layer,
                 act_gelu: bool, scales=(None, None, None)) -> torch.Tensor:
@@ -1041,6 +1140,7 @@ def gf4_moe_ffn_plain(x, w1, w3, w2, eidx, cnt, layer, act_gelu: bool):
     return qmm_moe_ffn_plain(x, w1, w3, w2, eidx, cnt, "gf4", layer, act_gelu)
 
 
+@cost.ranged
 def gf4_moe_ffn(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
                 w2: torch.Tensor, eidx: torch.Tensor, cnt: torch.Tensor, layer,
                 act_gelu: bool) -> torch.Tensor:
@@ -1066,6 +1166,10 @@ def gf4_moe_ffn(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
             eidx.data_ptr(), cnt.data_ptr(), h.data_ptr(), z.data_ptr(), A, B, D, H, E,
             int(act_gelu), _stream(x))
         build.check("moe", rc)
+        if cost.active():
+            live = _live(cnt, A)
+            _cost_mv("moe_gf4_kernel", "gf4", B, H, D, dual=True, slots=live)
+            _cost_mv("moe_gf4_kernel", "gf4", B, D, H, slots=live)
     gf4_moe_ffn.launches += 1
     gf4_moe_ffn.multirow_launches += multirow
     return z

@@ -14,7 +14,8 @@ The seed and the result are (1,) f32 tensors on the words' device, so a
 timed chain feeds each call's result to the next with no host sync. The
 plain versions (``*_plain``) sum in float64 and return f32; each wrapper
 takes its plain version for tensors on the CPU, launches the kernel for
-CUDA tensors or raises, and counts its launches in ``.launches``.
+CUDA tensors or raises, and counts its launches in ``.launches`` (and,
+while a profiler trace is open, records their bytes, ``ops/cost.py``).
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ import math
 
 import torch
 
-from calm_tpu_torch.ops import build
+from calm_tpu_torch.ops import build, cost
 
 THREADS = 256   # csrc/stream.cu's block
 CHUNK = 4 * 4 * THREADS  # words one block takes in one loop step (4 int4 a thread)
@@ -72,6 +73,9 @@ def _launch(w: torch.Tensor, seed, mode: int) -> torch.Tensor:
         w.data_ptr(), n, span, nblocks, s.data_ptr(), partials.data_ptr(), out.data_ptr(),
         mode, torch.cuda.current_stream(w.device).cuda_stream)
     build.check("stream", rc)
+    if cost.active():  # the words once; the decode's eight planes a word
+        cost.record("sum_kernel", 4 * n + 4 * nblocks, n * (16 if mode else 1))
+        cost.record("fold_kernel", 4 * nblocks + 8, nblocks)
     return out
 
 
@@ -85,6 +89,7 @@ def stream_sum_plain(w: torch.Tensor, seed) -> torch.Tensor:
     return s.float()
 
 
+@cost.ranged
 def stream_sum(w: torch.Tensor, seed) -> torch.Tensor:
     """(1,) f32: ``seed`` plus the sum of every int32 word of ``w`` (any
     shape) as a float value; each block reduces ``span_for`` words."""
@@ -121,6 +126,7 @@ def gf4_decode_sum_plain(w: torch.Tensor, seed, full: bool) -> torch.Tensor:
     return total.float()
 
 
+@cost.ranged
 def gf4_decode_sum(w: torch.Tensor, seed, full: bool) -> torch.Tensor:
     """(1,) f32: ``seed`` plus the sum of all eight decoded values of every
     gf4 word of ``w`` (int32, any shape), each value rounded through bf16

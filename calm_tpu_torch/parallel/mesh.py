@@ -1,13 +1,15 @@
 """Meshes over ``torch.distributed``: the port of ``calm_tpu.parallel.mesh``.
 
 A sharded run is one process a rank, all running the same program (the
-counterpart of the JAX package's ``shard_map`` body). :func:`make_mesh`
-lays the ranks out on JAX's grid, ``reshape(dp, sp, ep, tp)``
-(``calm_tpu/parallel/mesh.py:43-49``), and makes one process group per
-axis; the :class:`Mesh` it returns knows each axis's size and this rank's
-index on it (the counterpart of ``lax.axis_index``) and has the collectives
-the model calls: :meth:`Mesh.psum`, :meth:`Mesh.pmax`, :meth:`Mesh.pmin`,
-:meth:`Mesh.all_gather` and :meth:`Mesh.psum_scatter`.
+counterpart of the JAX package's ``shard_map`` body). :func:`make_grid`
+lays the ranks out on a grid of named axes, slowest first, and makes one
+process group per axis: :func:`make_mesh` on JAX's grid, ``reshape(dp, sp,
+ep, tp)`` (``calm_tpu/parallel/mesh.py:43-49``), ``pipeline.make_pp_mesh``
+on ``(pp, tp)``. The :class:`Mesh` it returns knows each axis's size and
+this rank's index on it (the counterpart of ``lax.axis_index``) and has
+the collectives the model calls: :meth:`Mesh.psum`, :meth:`Mesh.pmax`,
+:meth:`Mesh.pmin`, :meth:`Mesh.all_gather`, :meth:`Mesh.psum_scatter` and
+:meth:`Mesh.ppermute`.
 
 The backend is the caller's (:func:`init_multihost`): NCCL across GPUs, or
 gloo where NCCL cannot run, on CPU tensors and for several ranks that share
@@ -87,16 +89,20 @@ def rank_device(device=None) -> torch.device:
 
 
 class Mesh:
-    """This rank's place on a (dp, sp, ep, tp) grid of ranks and a process
+    """This rank's place on a grid of ranks over named axes and a process
     group per axis. Axes of size 1 have no group and their collectives
-    return the input. Every collective runs on the tensor where it lies:
-    gloo takes CUDA tensors for all five (and NCCL does)."""
+    return the input. The reductions and gathers run on the tensor where
+    it lies: gloo takes CUDA tensors for them (and NCCL does); gloo's
+    point-to-point sends move host memory, so :meth:`ppermute` stages a
+    CUDA tensor through the host on a gloo group."""
 
     def __init__(self, shape: dict[str, int], coords: dict[str, int],
-                 groups: dict, world_group, ranks: list[int], device):
+                 groups: dict, world_group, ranks: list[int], device,
+                 axis_ranks: dict | None = None):
         self.shape = shape            # axis name -> size
         self.coords = coords          # axis name -> this rank's index
         self._groups = groups         # axis name -> process group (size > 1)
+        self._axis_ranks = axis_ranks or {}  # axis name -> its group's global ranks
         self.world_group = world_group  # every rank of the mesh
         self.ranks = ranks            # global ranks in grid order
         self.device = torch.device(device)
@@ -158,26 +164,52 @@ class Mesh:
         dist.reduce_scatter_tensor(out, h, group=g)
         return out.movedim(0, dim)
 
+    def ppermute(self, x: torch.Tensor, axis: str | None, perm) -> torch.Tensor:
+        """``lax.ppermute``: for each (src, dst) of ``perm`` (indices on
+        the axis) the rank at src sends ``x`` to the rank at dst; returns
+        what this rank received, zeros where no one sends to it. One
+        ``batch_isend_irecv`` over the axis's group."""
+        g = self._group(axis)
+        if g is None:
+            return x if (0, 0) in perm else torch.zeros_like(x)
+        me, ranks = self.coords[axis], self._axis_ranks[axis]
+        host = x.is_cuda and dist.get_backend(g) == "gloo"
+        src = x.detach().contiguous()
+        src = src.cpu() if host else src
+        out = torch.zeros_like(src)
+        ops = []
+        for s, d in perm:
+            if s == me and d == me:
+                out.copy_(src)
+            elif s == me:
+                ops.append(dist.P2POp(dist.isend, src, ranks[d], g))
+            elif d == me:
+                ops.append(dist.P2POp(dist.irecv, out, ranks[s], g))
+        if ops:
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
+        return out.to(x.device) if host else out
 
-def make_mesh(tp: int = 1, ep: int = 1, dp: int = 1, sp: int = 1,
-              device=None) -> Mesh | None:
-    """The first dp * sp * ep * tp ranks of the world on JAX's grid
-    ``arange(n).reshape(dp, sp, ep, tp)``. Every rank of the world must
-    call it, in the same order as its other groups (``new_group`` is
+
+def make_grid(axes: dict[str, int], device=None) -> Mesh | None:
+    """The first prod(sizes) ranks of the world on the grid
+    ``arange(n).reshape(*sizes)`` of the named ``axes`` (slowest first),
+    with one process group per axis of size > 1. Every rank of the world
+    must call it, in the same order as its other groups (``new_group`` is
     collective); the ranks past the grid get None. ``device``: where this
     rank computes, by :func:`rank_device` (this rank's GPU unless given;
     NoGPUError without one)."""
     device = rank_device(device)
-    sizes = dict(dp=dp, sp=sp, ep=ep, tp=tp)
-    n = dp * sp * ep * tp
+    names, sizes = list(axes), [int(v) for v in axes.values()]
+    n = int(np.prod(sizes))
     world = dist.get_world_size()
     if n > world:
         raise ValueError(f"need {n} ranks, have {world}")
-    grid = np.arange(n).reshape(dp, sp, ep, tp)
+    grid = np.arange(n).reshape(sizes)
     me = dist.get_rank()
-    groups = {}
-    for i, axis in enumerate(AXES):
-        if sizes[axis] == 1:
+    groups, axis_ranks = {}, {}
+    for i, axis in enumerate(names):
+        if sizes[i] == 1:
             continue
         others = [range(s) for j, s in enumerate(grid.shape) if j != i]
         for rest in itertools.product(*others):
@@ -186,13 +218,20 @@ def make_mesh(tp: int = 1, ep: int = 1, dp: int = 1, sp: int = 1,
             ranks = [int(r) for r in grid[tuple(idx)]]
             g = dist.new_group(ranks)
             if me in ranks:
-                groups[axis] = g
+                groups[axis], axis_ranks[axis] = g, ranks
     world_group = None if n == world else dist.new_group(list(range(n)))
     if me >= n:
         return None
-    coords = dict(zip(AXES, (int(c) for c in np.argwhere(grid == me)[0])))
-    return Mesh({a: sizes[a] for a in AXES}, coords, groups, world_group,
-                list(range(n)), device)
+    coords = dict(zip(names, (int(c) for c in np.argwhere(grid == me)[0])))
+    return Mesh(dict(zip(names, sizes)), coords, groups, world_group, list(range(n)),
+                device, axis_ranks)
+
+
+def make_mesh(tp: int = 1, ep: int = 1, dp: int = 1, sp: int = 1,
+              device=None) -> Mesh | None:
+    """The first dp * sp * ep * tp ranks of the world on JAX's grid
+    ``arange(n).reshape(dp, sp, ep, tp)`` (:func:`make_grid`)."""
+    return make_grid(dict(zip(AXES, (dp, sp, ep, tp))), device)
 
 
 def make_multihost_mesh(tp: int = 1, ep: int = 1, dp_dcn: int = 1,

@@ -11,15 +11,17 @@ result. The layout (``calm_tpu/parallel/plan.py``):
 - wo, w2: row-sharded over tp (the contraction axis; a psum closes);
 - experts: sharded over ep;
 - embed/output: vocab-sharded over tp;
-- the KV cache: kv heads over tp, slots over dp, rows over sp (sp decode).
+- the KV cache: kv heads over tp, slots over dp, rows over sp (sp decode);
+- every layer-stacked tensor and the cache: layers over pp (pipeline
+  stages, ``parallel.pipeline``; the steps here refuse a pp axis).
 
 A spec is a tuple of mesh axis names (or None) per tensor dim, the
 counterpart of a PartitionSpec; :func:`weight_pspecs` gives the natural
-layouts' (the port holds no fused gf4 layout). Not in this module yet:
-``sharded_decode_scan`` (it needs the on-device decode loop),
-``sharded_tree_verify`` (speculative decoding) and the pipeline stages.
-``fuse_weights_sharded`` has no counterpart: the port's kernels read the
-container's natural gf4 words, so there is nothing to fuse per shard.
+layouts' (the port holds no fused gf4 layout). ``fuse_weights_sharded``
+has no counterpart: the port's kernels read the container's natural gf4
+words, so there is nothing to fuse per shard. Every step here runs
+eagerly: its collectives go through ``torch.distributed``, which a CUDA
+graph on one card cannot hold (that needs NCCL across two or more cards).
 """
 
 from __future__ import annotations
@@ -40,23 +42,23 @@ _MATRICES = {"attn.wq": "wq", "attn.wk": "wk", "attn.wv": "wv", "attn.wo": "wo",
 
 def weight_pspecs(cfg: ModelConfig, plan: ShardingPlan) -> dict[str, tuple]:
     """Field path -> spec of the tensor's dims (layer-stacked fields lead
-    with the layer axis; a QTensor's fp8e4 scale takes the leading dims of
-    its data's spec and None for its trailing 1)."""
-    tp, ep = plan.tp, plan.ep
+    with the layer axis, sharded over pp; a QTensor's fp8e4 scale takes the
+    leading dims of its data's spec and None for its trailing 1)."""
+    tp, ep, pp = plan.tp, plan.ep, plan.pp
     if cfg.n_experts:
-        w13, w2 = (None, ep, tp, None), (None, ep, None, tp)
+        w13, w2 = (pp, ep, tp, None), (pp, ep, None, tp)
     else:
-        w13, w2 = (None, tp, None), (None, None, tp)
+        w13, w2 = (pp, tp, None), (pp, None, tp)
     specs = {"embed": (tp, None), "output": (tp, None), "final_norm": (None,),
-             "layers.attn_norm": (None, None), "layers.ffn_norm": (None, None),
-             "layers.wq": (None, tp, None), "layers.wk": (None, tp, None),
-             "layers.wv": (None, tp, None), "layers.wo": (None, None, tp),
+             "layers.attn_norm": (pp, None), "layers.ffn_norm": (pp, None),
+             "layers.wq": (pp, tp, None), "layers.wk": (pp, tp, None),
+             "layers.wv": (pp, tp, None), "layers.wo": (pp, None, tp),
              "layers.w1": w13, "layers.w3": w13, "layers.w2": w2,
-             "layers.bq": (None, tp), "layers.bk": (None, tp), "layers.bv": (None, tp)}
+             "layers.bq": (pp, tp), "layers.bk": (pp, tp), "layers.bv": (pp, tp)}
     if cfg.norm_qk:
-        specs.update({"layers.q_norm": (None, tp), "layers.k_norm": (None, tp)})
+        specs.update({"layers.q_norm": (pp, tp), "layers.k_norm": (pp, tp)})
     if cfg.n_experts:
-        specs["layers.moegate"] = (None, None, None)  # routing is replicated
+        specs["layers.moegate"] = (pp, None, None)  # routing is replicated
     return specs
 
 
@@ -82,6 +84,16 @@ def _take(t: torch.Tensor, spec: tuple, mesh: Mesh):
 
 def _validate(cfg: ModelConfig, mesh: Mesh, plan: ShardingPlan) -> None:
     plan.validate(cfg, mesh.axis_size(plan.tp), mesh.axis_size(plan.ep))
+    plan.validate_pp(cfg, mesh.axis_size(plan.pp))
+
+
+def _no_stages(mesh: Mesh, plan: ShardingPlan, what: str) -> None:
+    """Refuse a plan whose pp axis splits the layers: these steps run every
+    layer on every rank."""
+    if mesh.axis_size(plan.pp) > 1:
+        raise ValueError(f"{what} runs every layer on each rank; a plan with pp="
+                         f"{mesh.axis_size(plan.pp)} stages decodes through "
+                         "parallel.pipeline.sharded_decode_step_pp (or _gpipe)")
 
 
 def shard_weights(w: M.Weights, cfg: ModelConfig, mesh: Mesh,
@@ -144,8 +156,9 @@ def load_weights_sharded(tf: TensorFile, cfg: ModelConfig, mesh: Mesh,
     container's memmap (gf4 rows of words split on group boundaries, as
     ``plan.validate`` asserts), then cuts the small replicated-in-file
     vectors (biases, qk-norms). Equal to ``shard_weights`` of the whole
-    load."""
+    load. It takes no pp axis: ``shard_weights`` cuts a stage's layers."""
     _validate(cfg, mesh, plan)
+    _no_stages(mesh, plan, "load_weights_sharded")
     w = M.load_weights(_RankFile(tf, cfg, mesh, plan), cfg, mesh.device)
     specs = weight_pspecs(cfg, plan)
     for f in ("bq", "bk", "bv", "q_norm", "k_norm"):
@@ -156,9 +169,10 @@ def load_weights_sharded(tf: TensorFile, cfg: ModelConfig, mesh: Mesh,
 
 
 def cache_pspecs(plan: ShardingPlan, sp: bool = False) -> tuple:
-    """The spec of the (L, B, KVH, S, hd) cache planes: slots over dp, kv
-    heads over tp and, for sequence parallelism, rows over sp."""
-    return (None, plan.dp, plan.tp, plan.sp if sp else None, None)
+    """The spec of the (L, B, KVH, S, hd) cache planes: layers over pp,
+    slots over dp, kv heads over tp and, for sequence parallelism, rows
+    over sp."""
+    return (plan.pp, plan.dp, plan.tp, plan.sp if sp else None, None)
 
 
 def shard_cache(cache: M.KVCache, mesh: Mesh, plan: ShardingPlan,
@@ -195,10 +209,11 @@ def sharded_decode_step(cfg: ModelConfig, mesh: Mesh, plan: ShardingPlan):
     gathered. Under sp the cache is S-sharded (as sp prefill leaves it),
     and sp needs an axis of its own (``calm_tpu/parallel/sharding.py
     :646-650``). It runs eagerly, never as a captured graph: its
-    collectives go through ``torch.distributed`` (a replayed sharded step
-    is ROADMAP §1.4.3)."""
+    collectives go through ``torch.distributed``. A pp axis is refused:
+    pipeline stages decode through ``parallel.pipeline``."""
     if plan.sp is not None and plan.sp == plan.dp:
         raise ValueError("sp decode needs its own mesh axis")
+    _no_stages(mesh, plan, "sharded_decode_step")
 
     def step(w, token, pos, cache):
         tok = _dp_slice(torch.as_tensor(token).reshape(-1), mesh, plan)
@@ -213,7 +228,9 @@ def sharded_decode_step(cfg: ModelConfig, mesh: Mesh, plan: ShardingPlan):
 def sharded_prefill(cfg: ModelConfig, mesh: Mesh, plan: ShardingPlan,
                     logits_mode: str = "last"):
     """The sharded prefill: (local w, tokens (B, T), pos0 (B,), local
-    cache) -> (global logits per ``logits_mode``, cache)."""
+    cache) -> (global logits per ``logits_mode``, cache). No pp axis."""
+    _no_stages(mesh, plan, "sharded_prefill")
+
     def run(w, tokens, pos0, cache):
         tok = _dp_slice(tokens, mesh, plan)
         p0 = _dp_slice(torch.as_tensor(pos0).reshape(-1), mesh, plan)
@@ -231,7 +248,9 @@ def sharded_tree_verify(cfg: ModelConfig, mesh: Mesh, plan: ShardingPlan):
     tree (N, N) bool, local cache) -> (logits (1, N, V) on every rank,
     cache). The tree's nodes ride the T axis, tp shards the heads as in
     decode, the mask is replicated and the logits are gathered. It runs
-    eagerly on the local weights, as the sharded step does."""
+    eagerly on the local weights, as the sharded step does. No pp axis."""
+    _no_stages(mesh, plan, "sharded_tree_verify")
+
     def run(w, tokens, pos0, depth, tree, cache):
         logits, cache = M.tree_verify(cfg, w, tokens.to(cache.k.device), pos0,
                                       torch.as_tensor(depth), torch.as_tensor(tree),
@@ -245,7 +264,9 @@ def sharded_prefill_slot(cfg: ModelConfig, mesh: Mesh, plan: ShardingPlan):
     (1, T), n_valid, slot, local cache) -> (logits after token n_valid - 1
     (V,), cache). ``slot`` is the global slot; under dp the ranks that own
     it run the prefill and a psum over dp hands every rank the logits
-    (``calm_tpu/model.py:1525-1570``)."""
+    (``calm_tpu/model.py:1525-1570``). No pp axis."""
+    _no_stages(mesh, plan, "sharded_prefill_slot")
+
     def run(w, tokens, n_valid, slot, cache):
         b_local = cache.k.shape[1]
         local = slot - mesh.axis_index(plan.dp) * b_local
@@ -262,6 +283,42 @@ def sharded_prefill_slot(cfg: ModelConfig, mesh: Mesh, plan: ShardingPlan):
     return run
 
 
+def sharded_decode_scan(cfg: ModelConfig, mesh: Mesh, plan: ShardingPlan, n_steps: int):
+    """The sharded greedy decode of ``n_steps`` tokens
+    (``calm_tpu/parallel/sharding.py:241-262``): (local w, token (B,),
+    pos0 (an int, or B host ints), local cache) -> (tokens (B, n_steps),
+    cache, the last step's logits (B, V)), tokens and logits global on
+    every rank. Each step's id is ``model.greedy_next`` of its logits
+    across the tp shards, fed to the next step on the device: no token
+    comes to the host between steps. Under dp each rank steps its slots;
+    under sp the cache is S-sharded (``cache_pspecs(plan, sp=True)``, as
+    sp prefill leaves it) and sp needs an axis of its own. It runs
+    eagerly: a captured step with its collectives inside needs NCCL
+    across two or more cards."""
+    if plan.sp is not None and plan.sp == plan.dp:
+        raise ValueError("sp decode needs its own mesh axis")
+    _no_stages(mesh, plan, "sharded_decode_scan")
+
+    @torch.no_grad()
+    def run(w, token, pos0, cache):
+        dev = cache.k.device
+        tok = _dp_slice(torch.as_tensor(token).reshape(-1), mesh, plan).to(dev)
+        starts = ([int(pos0)] * tok.shape[0] if isinstance(pos0, int) else
+                  [int(p) for p in _dp_slice(torch.as_tensor(pos0).reshape(-1), mesh, plan)])
+        pos = M.upload(starts, dev)
+        toks = []
+        for _ in range(n_steps):
+            logits = M._decode(cfg, w, tok, pos, cache, True, None, plan, mesh)
+            tok = M.greedy_next(logits, plan, mesh)
+            pos = pos + 1
+            toks.append(tok)
+        ids = torch.stack(toks, 1)
+        if plan.dp is not None:
+            ids = mesh.all_gather(ids, plan.dp, dim=0)
+        return ids, cache, _gather_logits(logits, mesh, plan)
+    return run
+
+
 def sharded_prefill_sp(cfg: ModelConfig, mesh: Mesh, plan: ShardingPlan):
     """Sequence-parallel full-window prefill: (local w, tokens (B,
     seq_len), local S-shard of the cache) -> (logits (B, seq_len, V) on
@@ -269,6 +326,7 @@ def sharded_prefill_sp(cfg: ModelConfig, mesh: Mesh, plan: ShardingPlan):
     (``model.prefill_sp``); the cache rows stay S-sharded over sp."""
     if plan.sp is None:
         raise ValueError("sharded_prefill_sp needs plan.sp")
+    _no_stages(mesh, plan, "sharded_prefill_sp")
 
     def run(w, tokens, cache):
         tok = _take(tokens, (None, plan.sp), mesh).to(cache.k.device)

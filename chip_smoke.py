@@ -35,10 +35,13 @@ give the card's attainable HBM read rate; holds K12's partials mode
 plain mode) and the two-shot all-reduce (K14, 2-8 logical ranks on the
 card, bit-equal to its ring-order plain version, inputs untouched) and
 times them; runs the
-sharded decode in ranks spawned on this one card over gloo (Mistral-7B fp8
-at 8 layers tp=2 x sp=2 through sp prefill and 32 steps; Mixtral 8x7B fp8
-at 4 layers ep=2; 2 layers at ctx 64 sp=2 across the window wrap) against
-the same weights unsharded; drives ``Engine.generate`` (batched prefill,
+sharded model paths in ranks spawned on this one card over gloo (Mistral-7B
+fp8 at 8 layers tp=2 x sp=2 through sp prefill and 32 steps, then
+``sharded_decode_scan`` after the same prefill; Mixtral 8x7B fp8 at 4
+layers ep=2; 2 layers at ctx 64 sp=2 across the window wrap; the pipeline
+stages: pp=4, GPipe pp=2 x tp=2 over 4 slots in 2 microbatches, Mixtral pp=2
+x ep=2; the ring sp prefill over sp=4 of a 2048-token window, then sp
+decode, beside the all-gather path) against the same weights unsharded; drives ``Engine.generate`` (batched prefill,
 then decode; sampled on the device by default, each id checked against
 its step's min-p set), ``prefill_tokens``, ``perplexity`` and the CLI
 (generate, ``-x``, ``-y``) on 2-layer Mistral-7B-width fp8 and gf4
@@ -76,6 +79,11 @@ k=3, m=4 tree; every full-width verify); the CLI's ``--draft`` on the
 and a TinyLlama-1.1B-shaped draft), the tree (k=3, m=4) and an 8-slot
 drain of 8 greedy requests with the target as draft, ids held to plain
 replayed greedy up to near-ties, each self-draft rejection at a near-tie;
+runs ``python -m calm_tpu_torch.tools.perf`` on the full-width fp8
+Mistral-7B (its roofline report against this run's attainable rate and the
+trace table of one eager run, held to ``profiler.step_bytes``, the phase's
+first32 and the HBM rate) and on the 2-layer container's 2048-token
+prefill, and ``tools.sol`` beside the measured first32;
 and ends with a ``kernels`` JSON line and
 ``{"ok": true, "device": ...}``. The containers' CPU side runs in a worker
 process from the start. Any failure exits non-zero before the last line;
@@ -85,6 +93,7 @@ without a GPU it exits 1 at once.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -4270,6 +4279,7 @@ def rate_share(gb_s: float) -> str:
 
 
 RATES = {"nominal": 3350.0, "attainable": None}
+FIRST32 = {}  # full-width model -> its replayed first32 ms/tok in this run
 
 
 def full_width_phase(fmt, dev, gbps, smi, experts: int = 0, cohere: bool = False):
@@ -4408,6 +4418,7 @@ def full_width_phase(fmt, dev, gbps, smi, experts: int = 0, cohere: bool = False
             fail(f"decode {what} {name}: non-finite logits")
         if name == "first32":
             first = (toks[0].tolist(), logits[:, 0].float().cpu().numpy())
+            FIRST32[what] = 1e3 * med / steps
         spread = 100 * (max(secs) - min(secs)) / med
         read = sum(bw + kv_cache_bytes(cfg, 16, pos0 + i) for i in range(steps))
         gb_s = read / 1e9 / med
@@ -4889,6 +4900,140 @@ def tools_phase(smi):
 
 
 # ---------------------------------------------------------------------------
+# The profiler and its tools (calm_tpu_torch.profiler, tools.perf, tools.sol)
+# ---------------------------------------------------------------------------
+
+PERF_TOL = 0.05       # perf's ms/tok against the full-width phase's first32
+PERF_MAX_HBM = 105.0  # the most % of the nominal HBM rate a table row may read
+PERF_COVER = 70.0     # the least % of the traced device time in rows with bytes
+
+
+def tool(name, *args, timeout=600) -> str:
+    """``python -m calm_tpu_torch.tools.<name>`` on the card; its standard
+    output (fails on a non-zero exit)."""
+    r = subprocess.run([sys.executable, "-m", f"calm_tpu_torch.tools.{name}", *args],
+                       cwd=ROOT, capture_output=True, text=True, timeout=timeout)
+    if r.returncode:
+        fail(f"tools.{name} {' '.join(args)} exited {r.returncode}: {r.stderr[-2000:]}")
+    return r.stdout
+
+
+def in_process(main, argv) -> str:
+    """A tool's ``main(argv)`` in this process (no interpreter to start);
+    its standard output."""
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        main(argv)
+    return buf.getvalue()
+
+
+def table_rows(out: str) -> tuple[list[dict], float]:
+    """The rows of a printed trace_table with their columns, and its share
+    of the device time in rows with recorded bytes."""
+    rows, cover, inside = [], None, False
+    for line in out.splitlines():
+        m = re.match(r"# rows with recorded bytes: ([\d.]+)% of the device time", line)
+        if m:
+            cover, inside = float(m.group(1)), False
+        inside = inside or line.startswith("# op ")
+        parts = line[2:].split()
+        share = next((i for i, p in enumerate(parts) if re.fullmatch(r"[\d.]+%", p)), None)
+        if not inside or share is None or share < 5:
+            continue
+        row = dict(name=" ".join(parts[:share - 4]), calls=int(parts[share - 4]),
+                   mean_us=float(parts[share - 3]), total_ms=float(parts[share - 1]),
+                   share=float(parts[share][:-1]))
+        if len(parts) > share + 4:
+            row.update(gb_s=float(parts[share + 1]), hbm=float(parts[share + 2]),
+                       tc=float(parts[share + 3]), alu=float(parts[share + 4]),
+                       bound=" ".join(parts[share + 5:]))
+        rows.append(row)
+    if cover is None:
+        fail("tools.perf printed no trace table")
+    return rows, cover
+
+
+def profiler_phase(smi, container: str) -> dict:
+    """``tools.perf`` at full width in its own process: fp8 Mistral-7B
+    (pattern weights, bf16 KV, ctx 4096) first32 replayed, min of 3, with
+    the roofline report against this run's attainable rate, and the trace
+    table of one eager run; held to ``profiler.step_bytes``, the full-width
+    phase's first32 (within PERF_TOL), the nominal HBM rate (no row over
+    PERF_MAX_HBM %) and the recorded bytes' cover of the traced device time
+    (at least PERF_COVER %). Then, in this process, a 2048-token prefill of
+    the 2-layer Mistral-width fp8 container with its table, and
+    ``tools.sol`` beside the measured first32. Returns the numbers it
+    read."""
+    from calm_tpu_torch import profiler
+    from calm_tpu_torch.config import ModelConfig
+    from calm_tpu_torch.tools import perf, sol
+
+    t0 = time.perf_counter()
+    cfg = ModelConfig(**perf.SHAPES["mistral7b"], seq_len=4096, rope_theta=10000.0,
+                      norm_ln=False, dtype="fp8", rotary_dim=128)
+    with tempfile.TemporaryDirectory(prefix="calm_perf_") as tr:
+        out = tool("perf", "--synthetic", "mistral7b", "--dtype", "fp8", "-n", "32",
+                   "--pos", "0", "--trace", tr, "--attainable", f"{RATES['attainable']:.1f}")
+    t_perf = time.perf_counter() - t0
+    lines = out.splitlines()
+    roof = [l for l in lines if l.startswith("# roofline:")]
+    ach = [l for l in lines if l.startswith("# achieved:")]
+    if not (roof and ach and "# measured per-op table" in out):
+        fail(f"tools.perf: no roofline report or table in\n{out[-3000:]}")
+    want_gb = profiler.step_bytes(cfg, 16, 0)
+    ms_tok = float(re.search(r"# achieved: ([\d.]+) ms/tok", ach[0]).group(1))
+    gb_s = float(re.search(r", (\d+) GB/s = ", ach[0]).group(1))
+    if f"({want_gb / 1e9:.2f} GB/tok" not in roof[0] or abs(
+            gb_s - want_gb / 1e9 / (ms_tok / 1e3)) > 0.01 * gb_s + 1:
+        fail(f"tools.perf: the roofline's bytes a token are not step_bytes = {want_gb}: "
+             f"{roof[0]} / {ach[0]}")
+    first = FIRST32["fp8 mistral7b"]
+    if abs(ms_tok - first) > PERF_TOL * first:
+        fail(f"tools.perf: {ms_tok:.3f} ms/tok, more than {100 * PERF_TOL:.0f}% from the "
+             f"full-width phase's first32 {first:.3f}")
+    rows, cover = table_rows(out)
+    over = [r for r in rows if r.get("hbm", 0.0) > PERF_MAX_HBM]
+    if over or cover < PERF_COVER:
+        fail(f"tools.perf table: rows over {PERF_MAX_HBM}% of nominal HBM {over}, "
+             f"recorded bytes cover {cover}% of the device time (least {PERF_COVER})")
+    log(f"# tools.perf fp8 mistral7b first32 in {t_perf:.1f} s: {ms_tok} ms/tok against the "
+        f"phase's {first:.3f} ({100 * (ms_tok / first - 1):+.2f}%) on {smi}")
+    for l in roof + ach + [l for l in lines if l.startswith(("# measured", "# rows with",
+                                                             "# recorded"))]:
+        log(l)
+    for r in rows[:12]:
+        log(f"#   table: {r}")
+    res = dict(ms_tok=ms_tok, gb_s=gb_s, cover=cover, top=rows[:12], perf_s=t_perf)
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="calm_perf_") as tr:
+        out = in_process(perf.main, [container, "--prefill", "2048", "--ctx", "4096",
+                                     "--trace", tr])
+    pf = [l for l in out.splitlines() if l.startswith("# prefill T=2048")]
+    rows, cover = table_rows(out)
+    if not pf or any(r.get("hbm", 0.0) > PERF_MAX_HBM for r in rows):
+        fail(f"tools.perf --prefill 2048: {out[-3000:]}")
+    log(f"# tools.perf --prefill 2048, 2-layer Mistral-width fp8 container, in "
+        f"{time.perf_counter() - t0:.1f} s: {pf[0]}; recorded bytes cover {cover}% of the "
+        f"traced device time on {smi}")
+    for r in rows[:6]:
+        log(f"#   table: {r}")
+    res["prefill"] = dict(line=pf[0], cover=cover, top=rows[:6])
+
+    card = max((k for k in sol.CARDS if k in torch.cuda.get_device_name(0)), key=len)
+    out = in_process(sol.main, ["--model", "mistral7b", "--dtype", "fp8", "--ctx", "4096",
+                                "--pos", "0", "--chip", card, "-v"])
+    sol_tok = float(re.search(r"SoL +([\d.]+) tok/s", out).group(1))
+    log(f"# tools.sol mistral7b fp8 pos 0 on the {card} entry: {out.splitlines()[0].strip()}; "
+        f"measured first32 {1e3 / first:.1f} tok/s = {100 * 1e3 / first / sol_tok:.1f}% of "
+        f"its SoL on {smi}")
+    res["sol_tok_s"] = sol_tok
+    return res
+
+
+# ---------------------------------------------------------------------------
 # The parallel slice: K12's other head dims and partials mode, K14, and the
 # sharded phases (ranks spawned on one card over gloo)
 # ---------------------------------------------------------------------------
@@ -5160,121 +5305,220 @@ def ring_kernel_rows(gbps, dev):
 CTX_A, STEPS_A, LAYERS_A = 1024, 32, 8
 PROMPT_B, STEPS_B, LAYERS_B = 64, 16, 4
 CTX_C, STEPS_C = 64, 96
+STEPS_D = 32                    # (d) pp=4 decode steps
+B_E, MICRO_E, STEPS_E = 4, 2, 8  # (e) GPipe slots, microbatches, steps
+STEPS_F = 8                     # (f) pp=2 x ep=2 Mixtral steps
+CTX_G, STEPS_G = 2048, 8        # (g) the ring's window (= prompt) and decode steps
+STEPS_H = 32                    # (h) sharded_decode_scan steps after (a)'s prefill
+PHASES = "abcdefgh"
 
 
 def sharded_cfg(phase):
+    """(a), (d), (e), (h): Mistral-7B fp8 at 8 layers, ctx 1024; (b), (f):
+    Mixtral 8x7B fp8 at 4 layers; (c): 2 layers at ctx 64; (g): 8 layers at
+    ctx 2048, the ring prefill's whole window."""
     from calm_tpu_torch.config import ModelConfig
 
-    if phase == "a":
+    if phase in "adeh":
         kw = dict(n_layers=LAYERS_A, rope_theta=10000.0, seq_len=CTX_A)
-    elif phase == "b":
+    elif phase in "bf":
         kw = dict(n_layers=LAYERS_B, rope_theta=1e6, n_experts=EXPERTS, n_experts_ac=2,
                   seq_len=1024)
+    elif phase == "g":
+        kw = dict(n_layers=LAYERS_A, rope_theta=10000.0, seq_len=CTX_G)
     else:
         kw = dict(n_layers=2, rope_theta=10000.0, seq_len=CTX_C)
     return ModelConfig(**{**MISTRAL, **kw}, rotary_dim=128, dtype="fp8", norm_ln=False)
 
 
-def sharded_rank(rank, dev, prompt_a, toks_a, prompt_b, toks_b, toks_c):
-    """One rank of the sharded phases, on ``dev`` with three other ranks over
-    gloo: (a) on all four, (b) and (c) on ranks 0 and 1. The same seeded
-    random weights as the parent's, cut to this rank's shards; each phase
-    teacher-forces the parent's greedy ids. Returns the logits (rank 0),
-    the launch counts of each decode run, and ms per step."""
+def sharded_rank(rank, dev, prompts, toks):
+    """One rank of the sharded phases, on ``dev`` with three other ranks
+    over gloo: (a), (d)-(h) on all four, (b) and (c) on ranks 0 and 1. The
+    same seeded random weights as the parent's, cut to this rank's shards
+    (a pipeline stage's layers under pp); each phase teacher-forces the
+    parent's greedy ids (``toks[phase]``, (N, B) for (e)). Returns the
+    logits (rank 0; (g)'s ring prefill row from the rank that holds it),
+    the launch counts of each run, seconds, and ms per step."""
     from calm_tpu_torch import model as M
-    from calm_tpu_torch.parallel import (ShardingPlan, make_mesh, shard_cache,
-                                         shard_weights, sharded_decode_step,
-                                         sharded_prefill, sharded_prefill_sp)
+    from calm_tpu_torch.parallel import (ShardingPlan, make_grid, make_mesh, make_pp_mesh,
+                                         shard_cache, shard_weights, sharded_decode_scan,
+                                         sharded_decode_step, sharded_decode_step_gpipe,
+                                         sharded_decode_step_pp, sharded_prefill,
+                                         sharded_prefill_sp)
     from calm_tpu_torch.utils.synth import synth_weights
 
     out = {}
 
-    def run(phase, mesh, plan, prefill, toks, pos0, sp):
+    def weights(phase, mesh, plan, batch=1, sp=False):
         cfg = sharded_cfg(phase)
         w = synth_weights(cfg, seed=0, device=dev, random=True)
         ws = shard_weights(w, cfg, mesh, plan)
         del w
         torch.cuda.empty_cache()
-        cache = shard_cache(M.KVCache.create(cfg, 1, torch.bfloat16, dev), mesh, plan, sp=sp)
+        return cfg, ws, shard_cache(M.KVCache.create(cfg, batch, torch.bfloat16, dev), mesh,
+                                    plan, sp=sp)
+
+    def run(phase, mesh, plan, prefill, pos0, sp, step=None, batch=1):
+        t0 = time.perf_counter()
+        cfg, ws, cache = weights(phase, mesh, plan, batch, sp)
         pf = prefill(cfg, ws, cache) if prefill else None
-        step = sharded_decode_step(cfg, mesh, plan)
+        step = (step or sharded_decode_step)(cfg, mesh, plan)
+        ids = np.asarray(toks[phase]).reshape(len(toks[phase]), batch)
 
         def decode():
             lg = []
-            for i, tok in enumerate(toks):
-                x, _ = step(ws, torch.tensor([tok]), pos0 + i, cache)
-                lg.append(x[0])
+            for i in range(len(ids)):
+                x, _ = step(ws, torch.tensor(ids[i]), pos0 + i, cache)
+                lg.append(x)
             return torch.stack(lg)
         decode_out, counts = drive(decode)  # the counts of this rank's run
-        t0 = time.perf_counter()
+        t1 = time.perf_counter()
         decode()  # again on the rolled cache: only the pace is kept
         torch.cuda.synchronize()
-        ms = 1e3 * (time.perf_counter() - t0) / len(toks)
+        ms = 1e3 * (time.perf_counter() - t1) / len(ids)
         keep = rank == 0
-        out[phase] = dict(counts=counts, ms_step=ms,
+        out[phase] = dict(counts=counts, ms_step=ms, secs=time.perf_counter() - t0,
                           prefill=pf.cpu().numpy() if keep and pf is not None else None,
-                          steps=decode_out.cpu().numpy() if keep else None)
+                          steps=decode_out[:, 0].cpu().numpy() if keep and batch == 1
+                          else decode_out.cpu().numpy() if keep else None)
+        return cfg, ws, cache
 
+    prompt_a = prompts["a"]
     mesh = make_mesh(tp=2, sp=2, device=dev)
     plan = ShardingPlan(tp="tp", sp="sp")
     run("a", mesh, plan, lambda cfg, ws, cache: sharded_prefill_sp(cfg, mesh, plan)(
-        ws, torch.tensor([prompt_a]), cache)[0][0, -1], toks_a, CTX_A, sp=True)
-    mesh = make_mesh(ep=2, device=dev)
-    if mesh is not None:
-        plan = ShardingPlan(ep="ep")
-        run("b", mesh, plan, lambda cfg, ws, cache: sharded_prefill(cfg, mesh, plan)(
-            ws, torch.tensor([prompt_b]), [0], cache)[0][0], toks_b, PROMPT_B, sp=False)
-    mesh = make_mesh(sp=2, device=dev)
-    if mesh is not None:
-        run("c", mesh, ShardingPlan(sp="sp"), None, toks_c, 0, sp=True)
+        ws, torch.tensor([prompt_a]), cache)[0][0, -1], CTX_A, sp=True)
+    mesh_b = make_mesh(ep=2, device=dev)
+    if mesh_b is not None:
+        plan_b = ShardingPlan(ep="ep")
+        run("b", mesh_b, plan_b, lambda cfg, ws, cache: sharded_prefill(cfg, mesh_b, plan_b)(
+            ws, torch.tensor([prompts["b"]]), [0], cache)[0][0], PROMPT_B, sp=False)
+    mesh_c = make_mesh(sp=2, device=dev)
+    if mesh_c is not None:
+        run("c", mesh_c, ShardingPlan(sp="sp"), None, 0, sp=True)
+    # (d) four pipeline stages of two layers; (e) GPipe, 2 stages x tp=2,
+    # B_E slots in MICRO_E microbatches; (f) two stages x ep=2 of Mixtral
+    run("d", make_pp_mesh(4, 1, device=dev), ShardingPlan(pp="pp"), None, 0, sp=False,
+        step=sharded_decode_step_pp)
+    run("e", make_pp_mesh(2, 2, device=dev), ShardingPlan(tp="tp", pp="pp"), None, 0,
+        sp=False, batch=B_E,
+        step=lambda cfg, mesh, plan: sharded_decode_step_gpipe(cfg, mesh, plan, MICRO_E))
+    run("f", make_grid(dict(pp=2, ep=2, tp=1), device=dev), ShardingPlan(ep="ep", pp="pp"),
+        None, 0, sp=False, step=sharded_decode_step_pp)
+    # (g) the ring sp prefill over sp=4 of a CTX_G-token window, then sp
+    # decode; the all-gather path on the same weights and prompt beside it
+    t0 = time.perf_counter()
+    mesh = make_mesh(sp=4, device=dev)
+    plan = ShardingPlan(sp="sp", ring=True)
+    T = CTX_G // 4
+    i = mesh.axis_index("sp")
+    chunk = torch.tensor([prompts["g"][i * T:(i + 1) * T]], device=dev)
+    last = {}
+    cfg, ws, cache = weights("g", mesh, plan, sp=True)
+    for ring in (True, False):
+        pl = dataclasses.replace(plan, ring=ring)
+        if not ring:
+            cache = shard_cache(M.KVCache.create(cfg, 1, torch.bfloat16, dev), mesh, pl,
+                                sp=True)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        (lg, cache), counts = drive(lambda: M.prefill_sp(cfg, ws, chunk, cache, pl, mesh))
+        last["ring" if ring else "gather"] = dict(
+            row=lg[0, -1].float().cpu().numpy() if i == 3 else None, counts=counts,
+            ms=1e3 * (time.perf_counter() - t1))
+        if ring:
+            step = sharded_decode_step(cfg, mesh, pl)
+            steps = []
+            for j, tok in enumerate(toks["g"]):
+                x, cache = step(ws, torch.tensor([tok]), CTX_G + j, cache)
+                steps.append(x[0].float().cpu().numpy())
+    del ws, cache
+    torch.cuda.empty_cache()
+    out["g"] = dict(last, steps=np.stack(steps) if rank == 0 else None,
+                    secs=time.perf_counter() - t0)
+    # (h) sharded_decode_scan on (a)'s mesh after (a)'s prefill
+    t0 = time.perf_counter()
+    mesh = make_mesh(tp=2, sp=2, device=dev)
+    plan = ShardingPlan(tp="tp", sp="sp")
+    cfg, ws, cache = weights("h", mesh, plan, sp=True)
+    lg, cache = sharded_prefill_sp(cfg, mesh, plan)(ws, torch.tensor([prompt_a]), cache)
+    first = int(lg[0, -1].argmax())
+    (ids, cache, lg), counts = drive(lambda: sharded_decode_scan(cfg, mesh, plan, STEPS_H)(
+        ws, [first], CTX_A, cache))
+    out["h"] = dict(ids=[first] + ids[0].tolist(), counts=counts,
+                    secs=time.perf_counter() - t0)
     return out
 
 
-def sharded_reference(phase, dev, prompt, n_steps):
+def sharded_reference(phase, dev, prompt, n_steps, first=(1,)):
     """The unsharded run in this process on the same weights: (logits after
-    the prompt or None, per-step logits (N, V) on the host, the greedy ids
-    fed to each step)."""
+    the prompt or None, per-step logits (N, V), or (N, B, V) for several
+    first tokens, on the host, the greedy ids fed to each step)."""
     from calm_tpu_torch import model as M
     from calm_tpu_torch.utils.synth import synth_weights
 
     cfg = sharded_cfg(phase)
     w = synth_weights(cfg, seed=0, device=dev, random=True)
-    cache = M.KVCache.create(cfg, 1, torch.bfloat16, dev)
-    pf, tok = None, 1
+    B = len(first)
+    cache = M.KVCache.create(cfg, B, torch.bfloat16, dev)
+    pf, tok = None, torch.tensor(first, device=dev)
     if prompt:
         pf = M.prefill(cfg, w, torch.tensor([prompt], device=dev), [0], cache, "last")[0][0]
-        tok = int(pf.argmax())
+        tok = pf.argmax()[None]
     toks, lgs = [], []
     for i in range(n_steps):
-        lg, cache = M.decode_step(cfg, w, torch.tensor([tok], device=dev), len(prompt) + i,
-                                  cache)
-        toks.append(tok)
-        lgs.append(lg[0].float().cpu().numpy())
-        tok = int(lgs[-1].argmax())
+        lg, cache = M.decode_step(cfg, w, tok, len(prompt) + i, cache)
+        toks.append(tok.tolist())
+        lgs.append(lg.float().cpu().numpy())
+        tok = lg.argmax(-1)
     del w, cache
     torch.cuda.empty_cache()
-    return (None if pf is None else pf.float().cpu().numpy()), np.stack(lgs), toks
+    lgs = np.stack(lgs)
+    return ((None if pf is None else pf.float().cpu().numpy()),
+            lgs[:, 0] if B == 1 else lgs, [t[0] for t in toks] if B == 1 else toks)
+
+
+def near_ties(what, got, want, tol) -> tuple[float, int]:
+    """Per-step logits (N, V) against the reference's: the largest error
+    relative to each step's max |logit|, and the near-ties among the
+    greedy ids (a clear disagreement fails)."""
+    worst, ties = 0.0, 0
+    for i, (g, w) in enumerate(zip(got, want)):
+        worst = max(worst, float(np.abs(g - w).max() / np.abs(w).max()))
+        ties += not greedy_agrees(f"{what} step {i}", int(g.argmax()), w, tol)
+    return worst, ties
 
 
 def sharded_phases(dev, smi):
-    """(a), (b), (c) in one spawned world of 4 ranks on cuda:0 (gloo: NCCL
-    refuses two ranks on one device), each held to the unsharded run in
-    this process: logits within the tolerance, greedy ids equal except at
-    near-ties; in (a) each rank's K12 partials launches are layers x steps.
+    """(a)-(h) in one spawned world of 4 ranks on cuda:0 (gloo: NCCL refuses
+    two ranks on one device), each held to the unsharded run in this
+    process: logits within the tolerance, greedy ids equal except at
+    near-ties. In (a) each rank's K12 partials launches are layers x steps;
+    in (d) each stage launches its layers' K9 chain and K12, stage 0 the K2
+    lm-head; in (e) K12 runs once a (local layer, microbatch, step) from its
+    slot offset; in (g) the ring prefill launches no K13 (the all-gather
+    path one a layer) and its last row and decode match the unsharded run
+    and the all-gather path; (h)'s scan ids equal (a)'s step loop's.
     Returns the launch counts of (a), summed over its ranks."""
     from calm_tpu_torch.parallel import spawn
 
     gen = torch.Generator().manual_seed(21)
-    prompt_a = torch.randint(3, MISTRAL["vocab_size"], (CTX_A,), generator=gen).tolist()
-    prompt_b = torch.randint(3, MISTRAL["vocab_size"], (PROMPT_B,), generator=gen).tolist()
+    prompts = {"a": torch.randint(3, MISTRAL["vocab_size"], (CTX_A,), generator=gen).tolist(),
+               "b": torch.randint(3, MISTRAL["vocab_size"], (PROMPT_B,), generator=gen).tolist()}
+    prompts["g"] = torch.randint(3, MISTRAL["vocab_size"], (CTX_G,), generator=gen).tolist()
+    first_e = torch.randint(3, MISTRAL["vocab_size"], (B_E,), generator=gen).tolist()
     t0 = time.perf_counter()
-    ref = {"a": sharded_reference("a", dev, prompt_a, STEPS_A),
-           "b": sharded_reference("b", dev, prompt_b, STEPS_B),
-           "c": sharded_reference("c", dev, [], STEPS_C)}
+    ref = {"a": sharded_reference("a", dev, prompts["a"], STEPS_A),
+           "b": sharded_reference("b", dev, prompts["b"], STEPS_B),
+           "c": sharded_reference("c", dev, [], STEPS_C),
+           "d": sharded_reference("d", dev, [], STEPS_D),
+           "e": sharded_reference("e", dev, [], STEPS_E, first_e),
+           "f": sharded_reference("f", dev, [], STEPS_F),
+           "g": sharded_reference("g", dev, prompts["g"], STEPS_G)}
     t_ref = time.perf_counter() - t0
     dev = torch.device(dev.type, dev.index or 0)
-    res = spawn(sharded_rank, 4, dev, prompt_a, ref["a"][2], prompt_b, ref["b"][2],
-                ref["c"][2], device=dev, timeout_s=600)
+    res = spawn(sharded_rank, 4, dev, prompts, {k: v[2] for k, v in ref.items()},
+                device=dev, timeout_s=900)
     log(f"# sharded phases: unsharded references {t_ref:.1f} s, 4 ranks spawned on one "
         f"card {time.perf_counter() - t0 - t_ref:.1f} s")
     what = {"a": f"(a) Mistral-7B fp8 {LAYERS_A} layers, tp=2 x sp=2, sp prefill of "
@@ -5282,24 +5526,36 @@ def sharded_phases(dev, smi):
             "b": f"(b) Mixtral 8x7B fp8 {LAYERS_B} layers, ep=2, prefill of {PROMPT_B} "
                  f"then {STEPS_B} steps",
             "c": f"(c) Mistral-7B width fp8 2 layers, ctx {CTX_C}, sp=2, {STEPS_C} steps "
-                 "across the wrap"}
+                 "across the wrap",
+            "d": f"(d) Mistral-7B fp8 {LAYERS_A} layers, pp=4 (2 a stage), {STEPS_D} greedy "
+                 "steps",
+            "e": f"(e) Mistral-7B fp8 {LAYERS_A} layers, GPipe pp=2 x tp=2, B={B_E} in "
+                 f"{MICRO_E} microbatches, {STEPS_E} steps",
+            "f": f"(f) Mixtral 8x7B fp8 {LAYERS_B} layers, pp=2 x ep=2, {STEPS_F} steps"}
     total_a = {}
-    for phase, tol in (("a", TOL_PREFILL), ("b", TOL_PREFILL), ("c", TOL_STEP)):
+    for phase, tol in (("a", TOL_PREFILL), ("b", TOL_PREFILL), ("c", TOL_STEP),
+                       ("d", TOL_STEP), ("e", TOL_STEP), ("f", TOL_STEP)):
         pf_ref, lg_ref, _ = ref[phase]
         got = res[0][phase]
         worst, ties = 0.0, 0
         if pf_ref is not None:
             worst = float(np.abs(got["prefill"] - pf_ref).max() / np.abs(pf_ref).max())
-        for i, (g, w) in enumerate(zip(got["steps"], lg_ref)):
-            worst = max(worst, float(np.abs(g - w).max() / np.abs(w).max()))
-            ties += not greedy_agrees(f"sharded {what[phase]} step {i}", int(g.argmax()), w, tol)
+        if phase == "e":  # (N, B, V): slot for slot
+            for b in range(B_E):
+                w_b, t_b = near_ties(f"sharded {what[phase]} slot {b}", got["steps"][:, b],
+                                     lg_ref[:, b], tol)
+                worst, ties = max(worst, w_b), ties + t_b
+        else:
+            w_s, ties = near_ties(f"sharded {what[phase]}", got["steps"], lg_ref, tol)
+            worst = max(worst, w_s)
         if not worst <= tol:
             fail(f"sharded {what[phase]}: logits {worst:.3e} of scale from the unsharded "
                  f"run > {tol}")
         ranks = [r[phase] for r in res if phase in r]
         counts = [r["counts"] for r in ranks]
         cfg = sharded_cfg(phase)
-        n_steps = len(got["steps"])
+        n_steps = len(ref[phase][2])
+        local = cfg.n_layers // {"d": 4, "e": 2, "f": 2}.get(phase, 1)
         if phase == "a":
             want = cfg.n_layers * n_steps
             if any(c["decode_attention_partials"] != want for c in counts):
@@ -5307,19 +5563,80 @@ def sharded_phases(dev, smi):
                      f"{[c['decode_attention_partials'] for c in counts]} per rank, not "
                      f"layers x steps = {want} each")
             total_a = {k: sum(c[k] for c in counts) for k in counts[0]}
-        if phase == "b" and any(c["qmm_moe_dense"] != 3 * cfg.n_layers * n_steps
-                                for c in counts):
-            fail(f"sharded (b): K10 launches {[c['qmm_moe_dense'] for c in counts]} per "
-                 f"rank, not 3 x layers x steps")
+        if phase in "bf" and any(c["qmm_moe_dense"] != 3 * local * n_steps for c in counts):
+            fail(f"sharded ({phase}): K10 launches {[c['qmm_moe_dense'] for c in counts]} per "
+                 f"rank, not 3 x local layers x steps")
         if phase == "c" and any(c["decode_attention_partials"] != cfg.n_layers * n_steps
                                 for c in counts):
             fail(f"sharded (c): K12 partials launches per rank "
                  f"{[c['decode_attention_partials'] for c in counts]}")
+        if phase == "d" and any(
+                c["qx_offn_qkv"] != local * n_steps or c["decode_attention"] != local * n_steps
+                or c["qmm_decode"] != (3 + (r == 0)) * n_steps for r, c in enumerate(counts)):
+            fail(f"sharded (d): each stage's K9 and K12 launches are not its layers x steps, "
+                 f"or K2 not its q/k/v priming (+ the lm-head on stage 0): {counts}")
+        if phase == "e" and any(c["decode_attention"] != local * MICRO_E * n_steps
+                                for c in counts):
+            fail(f"sharded (e): K12 launches {[c['decode_attention'] for c in counts]} per "
+                 f"rank, not local layers x microbatches x steps")
         launched = {k: v for k, v in counts[0].items() if v}
         log(f"# sharded {what[phase]}: logits within {worst:.3e} of scale of the unsharded "
             f"run (tol {tol:g}), {ties} near-ties in {n_steps} greedy ids; rank 0 launches "
             f"{launched}; wall ms per step by rank (ranks share one card, no speed result): "
-            + ", ".join(f"{r['ms_step']:.1f}" for r in ranks) + f" on {smi}")
+            + ", ".join(f"{r['ms_step']:.1f}" for r in ranks)
+            + (f"; {max(r['secs'] for r in ranks):.1f} s" if phase in "def" else "")
+            + f" on {smi}")
+
+    g = [r["g"] for r in res]
+    pf_ref, lg_ref, _ = ref["g"]
+    ring = next(x["ring"]["row"] for x in g if x["ring"]["row"] is not None)
+    gather = next(x["gather"]["row"] for x in g if x["gather"]["row"] is not None)
+    scale = np.abs(pf_ref).max()
+    errs = [float(np.abs(ring - pf_ref).max() / scale),
+            float(np.abs(gather - pf_ref).max() / scale),
+            float(np.abs(ring - gather).max() / scale)]
+    worst, ties = near_ties("sharded (g) sp=4 decode after the ring prefill", g[0]["steps"],
+                            lg_ref, TOL_PREFILL)
+    k13 = [(x["ring"]["counts"]["prefill_attention"], x["gather"]["counts"][
+        "prefill_attention"]) for x in g]
+    if max(errs + [worst]) > TOL_PREFILL or any(r != 0 or a != LAYERS_A for r, a in k13):
+        fail(f"sharded (g): the ring prefill's last row {errs[0]:.3e} of scale from the "
+             f"unsharded run, the all-gather's {errs[1]:.3e}, ring to all-gather "
+             f"{errs[2]:.3e}, decode {worst:.3e} (tol {TOL_PREFILL}); K13 launches (ring, "
+             f"all-gather) per rank {k13}, want (0, {LAYERS_A})")
+    log(f"# sharded (g) Mistral-7B fp8 {LAYERS_A} layers, sp=4 ring prefill of {CTX_G} "
+        f"then {STEPS_G} sp decode steps: last row within {errs[0]:.3e} of scale of the "
+        f"unsharded prefill (all-gather path {errs[1]:.3e}, ring to all-gather "
+        f"{errs[2]:.3e}; tol {TOL_PREFILL:g}), decode {worst:.3e}, {ties} near-ties; K13 "
+        f"launches per rank (ring, all-gather) {k13}; prefill wall ms by rank, ring / "
+        f"all-gather (ranks share one card, no speed result): " + ", ".join(
+            f"{x['ring']['ms']:.0f}/{x['gather']['ms']:.0f}" for x in g)
+        + f"; {max(x['secs'] for x in g):.1f} s on {smi}")
+
+    h = res[0]["h"]
+    a_ids = [int(res[0]["a"]["prefill"].argmax())] + [int(x.argmax())
+                                                       for x in res[0]["a"]["steps"]]
+    # (a) is fed the reference's ids, the scan its own: their histories are
+    # one up to the first id where (a) and the reference part (a near-tie)
+    fed = ref["a"][2]
+    m = next((i for i, (x, y) in enumerate(zip(a_ids, fed)) if x != y), len(fed))
+    n = next((i for i, (x, y) in enumerate(zip(h["ids"][:m + 1], a_ids)) if x != y), None)
+    if n is not None:
+        # the histories part at a near-tie of (a)'s step: (a) is fed the
+        # reference's ids, the scan its own
+        greedy_agrees(f"sharded (h) scan id {n}", h["ids"][n],
+                      res[0]["a"]["steps"][n - 1] if n else res[0]["a"]["prefill"],
+                      TOL_PREFILL)
+    if len(h["ids"]) != STEPS_H + 1 or any(
+            c["decode_attention_partials"] != LAYERS_A * STEPS_H for c in
+            (r["h"]["counts"] for r in res)):
+        fail(f"sharded (h): {len(h['ids'])} ids, K12 partials launches "
+             f"{[r['h']['counts']['decode_attention_partials'] for r in res]}")
+    log(f"# sharded (h) sharded_decode_scan, tp=2 x sp=2 after (a)'s sp prefill, {STEPS_H} "
+        f"steps: ids equal to (a)'s step loop for the {min(m + 1, len(a_ids))} steps of one "
+        f"history" + ("" if n is None else f" up to {n}, then a near-tie")
+        + f" ({h['ids'][:8]}...); "
+        f"{max(r['h']['secs'] for r in res):.1f} s on {smi}")
     return total_a
 
 
@@ -5527,8 +5844,10 @@ def main():
     rows.update(partials_kernel_rows(gbps, dev))
     ring_rows, counts_ring = ring_kernel_rows(gbps, dev)
     rows.update(ring_rows)
+    t0 = time.perf_counter()
     counts_sp = sharded_phases(dev, smi)
-    log(f"# sharded phases done at {time.perf_counter() - t_start:.1f} s")
+    log(f"# sharded phases {time.perf_counter() - t0:.1f} s, done at "
+        f"{time.perf_counter() - t_start:.1f} s")
     head_dim_containers(dev)
     # each kernel's launches come from the main path that uses it: the fp8
     # decode path (K2, K9, K12), the gf4 prefill + decode path (K3, K4, K5,
@@ -5549,7 +5868,6 @@ def main():
     pool.close()
     pool.join()
     WORKERS.remove(pool)
-    ctmp.cleanup()
     log(f"# container phases done at {time.perf_counter() - t_start:.1f} s")
     # the captured step against the eager one across the sink wrap
     graph_wrap_check(dev)
@@ -5565,6 +5883,13 @@ def main():
                 served[fmt] = counts["dense"]
             log(f"# full-width {fmt} {experts} experts{' aya23-8b' if cohere else ''} "
                 f"done at {time.perf_counter() - t_start:.1f} s")
+    # the profiler and its tools: tools.perf at full width against fp8
+    # Mistral-7B's first32 above, its prefill on the 2-layer container, sol
+    t0 = time.perf_counter()
+    profiler_phase(smi, paths[("fp8", 0, False)])
+    ctmp.cleanup()
+    log(f"# profiler phase {time.perf_counter() - t0:.1f} s, done at "
+        f"{time.perf_counter() - t_start:.1f} s")
     # the paged serving path: K12 in paged mode
     counts_pg = full_width_serving_phase(dev, gbps, smi)["paged"]
     log(f"# full-width serving done at {time.perf_counter() - t_start:.1f} s")

@@ -26,7 +26,10 @@ MODULES = ["calm_tpu_torch", "calm_tpu_torch.config", "calm_tpu_torch.container"
            "calm_tpu_torch.ops.hopper_stream", "calm_tpu_torch.tools.dma_ceiling",
            "calm_tpu_torch.tools.gf4_bound", "calm_tpu_torch.ops.hopper_collectives",
            "calm_tpu_torch.parallel", "calm_tpu_torch.parallel.plan",
-           "calm_tpu_torch.parallel.mesh", "calm_tpu_torch.parallel.sharding"]
+           "calm_tpu_torch.parallel.mesh", "calm_tpu_torch.parallel.sharding",
+           "calm_tpu_torch.parallel.pipeline", "calm_tpu_torch.profiler",
+           "calm_tpu_torch.ops.cost", "calm_tpu_torch.tools.sol",
+           "calm_tpu_torch.tools.perf"]
 
 
 def test_import_leaves_jax_out():

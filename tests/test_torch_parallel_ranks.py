@@ -1,4 +1,5 @@
-"""Rank bodies of the port's sharded tests (``test_torch_parallel.py``).
+"""Rank bodies of the port's sharded tests (``test_torch_parallel.py``,
+``test_torch_pipeline.py``).
 
 Every rank of a spawned gloo world imports this module, so it imports
 neither JAX nor the JAX package: a rank reads the containers the test
@@ -17,11 +18,12 @@ from calm_tpu_torch.config import ModelConfig
 from calm_tpu_torch.container import TensorFile
 from calm_tpu_torch.ops.qmm import QTensor
 from calm_tpu_torch.parallel import (ShardingPlan, detect_topology, health_check,
-                                     make_mesh, make_multihost_mesh,
-                                     shard_cache, shard_weights,
-                                     sharded_decode_step, sharded_prefill,
-                                     sharded_prefill_slot, sharded_prefill_sp,
-                                     sharded_tree_verify)
+                                     make_grid, make_mesh, make_multihost_mesh,
+                                     make_pp_mesh, shard_cache, shard_weights,
+                                     sharded_decode_scan, sharded_decode_step,
+                                     sharded_decode_step_gpipe, sharded_decode_step_pp,
+                                     sharded_prefill, sharded_prefill_slot,
+                                     sharded_prefill_sp, sharded_tree_verify)
 from calm_tpu_torch.parallel.sharding import load_weights_sharded
 
 KV = torch.float16  # the JAX tests' cache dtype
@@ -169,6 +171,123 @@ def tree_verify_case(rank, path, prompt, nodes, depth, tree, tp):
         ws, torch.tensor([nodes]), [len(prompt)], torch.tensor(depth, dtype=torch.int32),
         torch.tensor(tree), cache)
     return logits[0].numpy()
+
+
+def pp_case(rank, path, tokens, pp, tp=1, ep=1):
+    """Pipeline-parallel decode of ``tokens`` on a (pp, ep, tp) grid: the
+    logits (T, V) on each rank of the mesh, None past it."""
+    _, cfg, w = _load(path)
+    mesh = make_grid(dict(pp=pp, ep=ep, tp=tp), device=CPU)
+    if mesh is None:
+        return None
+    plan = ShardingPlan(tp="tp" if tp > 1 else None, ep="ep" if ep > 1 else None, pp="pp")
+    ws = shard_weights(w, cfg, mesh, plan)
+    cache = shard_cache(M.KVCache.create(cfg, 1, KV), mesh, plan)
+    step = sharded_decode_step_pp(cfg, mesh, plan)
+    out = []
+    for pos, tok in enumerate(tokens):
+        logits, cache = step(ws, torch.tensor([tok]), pos, cache)
+        out.append(logits[0].numpy())
+    return dict(logits=np.stack(out), layers=ws.layers.wq.data.shape[0],
+                cache_layers=cache.k.shape[0])
+
+
+def gpipe_case(rank, path, seqs, pp, tp, n_micro):
+    """GPipe decode of B sequences ``seqs`` (B lists of equal length) on a
+    (pp, tp) grid, all slots a step: logits (T, B, V)."""
+    _, cfg, w = _load(path)
+    mesh = make_pp_mesh(pp, tp, device=CPU)
+    if mesh is None:
+        return None
+    plan = ShardingPlan(tp="tp" if tp > 1 else None, pp="pp")
+    ws = shard_weights(w, cfg, mesh, plan)
+    B = len(seqs)
+    cache = shard_cache(M.KVCache.create(cfg, B, KV), mesh, plan)
+    step = sharded_decode_step_gpipe(cfg, mesh, plan, n_micro)
+    out = []
+    for pos in range(len(seqs[0])):
+        logits, cache = step(ws, torch.tensor([s[pos] for s in seqs]), pos, cache)
+        out.append(logits.numpy())
+    return np.stack(out)
+
+
+def scan_case(rank, path, token, n_steps, tp=1, sp=1):
+    """``sharded_decode_scan`` of n_steps greedy ids from ``token`` at
+    position 0 on a (sp, tp) mesh, beside the sharded step loop teacher-fed
+    its ids: (ids (n,), last logits (V,), the loop's ids, its last logits)."""
+    _, cfg, w = _load(path)
+    mesh = make_mesh(tp=tp, sp=sp, device=CPU)
+    if mesh is None:
+        return None
+    plan = _plan(tp=tp, sp=sp)
+    ws = shard_weights(w, cfg, mesh, plan)
+    cache = shard_cache(M.KVCache.create(cfg, 1, KV), mesh, plan, sp=sp > 1)
+    ids, _, last = sharded_decode_scan(cfg, mesh, plan, n_steps)(ws, [token], 0, cache)
+    cache = shard_cache(M.KVCache.create(cfg, 1, KV), mesh, plan, sp=sp > 1)
+    step = sharded_decode_step(cfg, mesh, plan)
+    loop, tok = [], token
+    for pos in range(n_steps):
+        lg, cache = step(ws, torch.tensor([tok]), pos, cache)
+        tok = int(lg[0].argmax())
+        loop.append(tok)
+    return ids[0].tolist(), last[0].numpy(), loop, lg[0].numpy()
+
+
+def ring_case(rank, path, prompt, tp, sp, sp_axis, decode_tokens=()):
+    """sp prefill of the whole window under ``plan.ring``, then sp decode of
+    ``decode_tokens`` on the S-sharded cache it leaves: (prefill logits
+    (T, V), the gathered cache's K (L, 1, KVH, S, hd) as f32, decode
+    logits (N, V), the mesh's ppermute and all_gather calls inside
+    ``model.prefill_sp``)."""
+    _, cfg, w = _load(path)
+    kw = dict(tp=tp, sp=sp) if sp_axis == "sp" else dict(tp=tp, dp=sp)
+    mesh = make_mesh(**kw, device=CPU)
+    if mesh is None:
+        return None
+    plan = ShardingPlan(tp="tp" if tp > 1 else None, sp=sp_axis, ring=True)
+    ws = shard_weights(w, cfg, mesh, plan)
+    cache = shard_cache(M.KVCache.create(cfg, 1, KV), mesh, plan, sp=True)
+    calls = dict(ppermute=0, all_gather=0)
+    for name in calls:
+        def counted(*a, _f=getattr(mesh, name), _n=name, **k):
+            calls[_n] += 1
+            return _f(*a, **k)
+        setattr(mesh, name, counted)
+    T = len(prompt) // sp
+    i = mesh.axis_index(plan.sp)
+    logits, cache = M.prefill_sp(cfg, ws, torch.tensor([prompt[i * T:(i + 1) * T]]), cache,
+                                 plan, mesh)
+    for name in calls:
+        delattr(mesh, name)
+    logits = mesh.all_gather(mesh.all_gather(logits, plan.tp, dim=-1), plan.sp, dim=1)
+    k = mesh.all_gather(mesh.all_gather(cache.k, plan.sp, dim=3), plan.tp, dim=2)
+    steps = []
+    if decode_tokens:
+        step = sharded_decode_step(cfg, mesh, plan)
+        for j, tok in enumerate(decode_tokens):
+            lg, cache = step(ws, torch.tensor([tok]), len(prompt) + j, cache)
+            steps.append(lg[0].numpy())
+    return logits[0].numpy(), k.float().numpy(), np.array(steps), calls
+
+
+def no_stages_case(rank, path):
+    """The steps that run every layer on each rank, given a plan with two
+    pp stages: the message of the ValueError each raises (None if one
+    runs)."""
+    _, cfg, w = _load(path)
+    mesh = make_pp_mesh(2, 2, device=CPU)
+    plan = ShardingPlan(tp="tp", pp="pp")
+    out = {}
+    for name, build in (("sharded_decode_step", sharded_decode_step),
+                        ("sharded_prefill", sharded_prefill),
+                        ("sharded_prefill_slot", sharded_prefill_slot),
+                        ("sharded_decode_scan", lambda c, m, p: sharded_decode_scan(c, m, p, 2))):
+        try:
+            build(cfg, mesh, plan)
+            out[name] = None
+        except ValueError as e:
+            out[name] = str(e)
+    return out
 
 
 def greedy_case(rank, logits):
