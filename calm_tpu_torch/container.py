@@ -118,6 +118,9 @@ class TensorFile:
     def _key(self, name: str, layer: int | None) -> str:
         return name % layer if layer is not None and "%d" in name else name
 
+    def names(self) -> list[str]:
+        return list(self._tensors)
+
     def find(self, name: str, layer: int | None = None):
         """(tag, shape) of a tensor, or None."""
         t = self._tensors.get(self._key(name, layer))

@@ -26,7 +26,13 @@
 - ``precise`` sets the process-wide quality mode of ``ops.qmm`` every
   time an Engine is made, so a later ``Engine(precise=False)`` turns it
   off (``calm_tpu/engine.py:82-84``): f32 operands in every routed
-  product past 16 rows (``model.mm_route``, ``model._fused``).
+  product past 16 rows (``model.mm_route``, ``model._fused``);
+- ``lazy_weights`` reads the container, config and tokenizer and leaves
+  ``weights`` None for the caller to install (``calm_tpu/engine.py
+  :74-78``, ``:101-102``): the sharded server loads each rank's shard
+  through ``parallel.sharding.load_weights_sharded``, so no rank holds the
+  whole model. The banner, the byte counts and the perf line come from
+  the container and do not read the weights.
 
 Runs on the GPU unless ``device="cpu"`` is asked for.
 """
@@ -88,7 +94,7 @@ class Engine:
 
     def __init__(self, path: str, context: int = 0,
                  kv_dtype: str | None = None, device=None, batch: int = 1,
-                 precise: bool = False):
+                 precise: bool = False, lazy_weights: bool = False):
         # set every time: a later Engine(precise=False) turns the flag off
         _qmm.enable_precise(precise)
         self.device = pick(device)
@@ -99,7 +105,8 @@ class Engine:
         self.tokenizer = Tokenizer.from_container(self.tf)
         self._set_kv(kv_dtype, batch)
 
-        self.weights = M.load_weights(self.tf, self.cfg, self.device)
+        self.weights = (None if lazy_weights
+                        else M.load_weights(self.tf, self.cfg, self.device))
 
         # weight bytes/params accounting (src/run.c:523-532)
         self.n_bytes, self.n_params = self.tf.count_bytes("model.")

@@ -2,6 +2,7 @@
 ``calm_tpu.httpd``; stdlib ``http.server``, no dependencies).
 
     python -m calm_tpu_torch.httpd model.calm --port 8000 --batch 8 [--page-rows 64]
+    python -m calm_tpu_torch.httpd model.calm --batch 8 --page-rows 64 --dp 2
     CALM_CPU=1 python -m calm_tpu_torch.httpd model.calm --port 0   # on the CPU
 
 Endpoints:
@@ -21,8 +22,11 @@ new requests get 503, the live batch finishes, then the process exits.
 ``--draft d.calm`` serves speculatively (``--gamma`` tokens drafted a
 round at most; ``--spec-sampled`` rejection-samples sampled requests
 inside rounds), and ``/v1/stats`` then carries a ``speculative`` block of
-rounds, emitted and acceptance, as ``calm_tpu.httpd``'s. ``--dp`` is not
-ported yet and exits 2.
+rounds, emitted and acceptance, as ``calm_tpu.httpd``'s. ``--dp N`` with
+``--page-rows`` spreads the slots over the first N devices, one paged
+decoder each (``serve.PagedGroup``; the GPUs in order, or N times the CPU
+under ``CALM_CPU=1``), and ``/v1/stats`` adds up the decoders' prefix
+caches (``calm_tpu/httpd.py:129-140``, ``:273-301``).
 """
 
 from __future__ import annotations
@@ -36,9 +40,9 @@ import sys
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
-from calm_tpu_torch.serve import QueueFull, Server
+import torch
 
-_NOT_PORTED = {"dp": "--dp"}
+from calm_tpu_torch.serve import QueueFull, Server
 
 
 class _Scheduler(threading.Thread):
@@ -139,16 +143,20 @@ def make_handler(sched: _Scheduler):
             if self.path == "/v1/health":
                 self._json(200, {"status": "ok", "model": srv.engine.banner()})
             elif self.path == "/v1/stats":
-                pc = srv.prefix_cache
+                # a group of decoders keeps one prefix cache each: their
+                # sums, in the single cache's keys
+                pcs = ([srv.prefix_cache] if srv.prefix_cache is not None
+                       else list(srv._prefix_caches or ()))
                 self._json(200, {
                     "slots": srv.batch,
                     "active": sum(s.active for s in srv.slots),
                     "pending": len(srv.pending),
                     "rejected": srv.rejected,
-                    "prefix_cache": (None if pc is None else
-                                     {"entries": len(pc._entries),
-                                      "tokens": pc.tokens, "hits": pc.hits,
-                                      "hit_tokens": pc.hit_tokens}),
+                    "prefix_cache": (None if not pcs else
+                                     {"entries": sum(len(p._entries) for p in pcs),
+                                      "tokens": sum(p.tokens for p in pcs),
+                                      "hits": sum(p.hits for p in pcs),
+                                      "hit_tokens": sum(p.hit_tokens for p in pcs)}),
                     "pages_in_use": (None if srv._paged is None
                                      else srv._paged.pages_in_use()),
                     "speculative": (None if srv._draft is None else {
@@ -276,23 +284,29 @@ def main(argv=None):
     ap.add_argument("--spec-sampled", action="store_true",
                     help="rejection-sample sampled requests inside speculative "
                     "rounds (distributionally exact)")
-    for dest, flag in _NOT_PORTED.items():
-        ap.add_argument(flag, dest=dest, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--dp", type=int, default=0,
+                    help="paged mode: spread the slots over this many devices "
+                    "(one independent pool and decoder each; needs --page-rows, "
+                    "batch %% dp == 0)")
     args = ap.parse_args(argv)
 
-    for dest, flag in _NOT_PORTED.items():
-        if getattr(args, dest) is not None:
-            print(f"{flag} is not yet ported to calm_tpu_torch; use "
-                  "python -m calm_tpu.httpd for it", file=sys.stderr)
-            raise SystemExit(2)
-
-    device = "cpu" if os.environ.get("CALM_CPU", "0") == "1" else "cuda"
+    cpu = os.environ.get("CALM_CPU", "0") == "1"
+    device = "cpu" if cpu else "cuda"
+    dp_devices = None
+    if args.dp:
+        if not args.page_rows:
+            ap.error("--dp needs --page-rows (paged serving)")
+        # the first dp devices, as jax.devices()[:dp]
+        dp_devices = (["cpu"] * args.dp if cpu else
+                      [f"cuda:{i}" for i in range(min(args.dp, torch.cuda.device_count()))])
+        device = dp_devices[0] if dp_devices else device
     server = Server(args.checkpoint, batch=args.batch, context=args.context,
                     kv_dtype=args.kv, device_sampling=args.device_sampling,
                     prefix_cache_tokens=args.prefix_cache_tokens,
                     page_rows=args.page_rows, pool_pages=args.pool_pages,
-                    max_pending=args.max_pending, draft_path=args.draft,
-                    gamma=args.gamma, spec_sampled=args.spec_sampled, device=device)
+                    max_pending=args.max_pending, dp_devices=dp_devices,
+                    draft_path=args.draft, gamma=args.gamma,
+                    spec_sampled=args.spec_sampled, device=device)
     print(server.engine.banner(), flush=True)
     log = None
     if args.access_log:

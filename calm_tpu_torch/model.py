@@ -970,15 +970,44 @@ def greedy_next(logits: torch.Tensor, plan: ShardingPlan = NO_SHARDING,
 
 @torch.no_grad()
 def paged_decode_step(cfg: ModelConfig, w: Weights, token, pos,
-                      pool: KVCache, pt: torch.Tensor, rolling: bool = True):
+                      pool: KVCache, pt: torch.Tensor, rolling: bool = True,
+                      plan: ShardingPlan = NO_SHARDING, mesh=None):
     """:func:`decode_step` on a page pool (``calm_tpu/paged.py:36-48``):
     pool (L, P, KVH, PR, hd), pt (B, seq_len // PR) int32 on the pool's
     device. Attention reads each slot's pages through the table (K12 paged
     and fresh mode); the deferred write lands at page pt[b, kv_pos // PR],
     row kv_pos % PR; under ``rolling`` a wrapped slot rotates the sinks in
-    its own page pt[b, 0]. The pool is updated in place."""
+    its own page pt[b, 0]. The pool is updated in place.
+
+    Under a tp/ep ``plan`` on ``mesh`` this is one rank's program on its
+    local weights and its pool's local kv heads, with the table the same
+    on every rank: every write lands on the page and row axes, so each
+    rank updates its own heads with no collective beyond the step's own.
+    The logits come back as this rank's vocab slice."""
     token, pos = _on_device(token, pos, pool.k.device)
-    return _decode(cfg, w, token, pos, pool, rolling, pt), pool
+    return _decode(cfg, w, token, pos, pool, rolling, pt, plan, mesh), pool
+
+
+def weights_to(w: Weights, device) -> Weights:
+    """``w`` on ``device``: ``w`` itself when it lies there already (so
+    decoders that share a device share one copy), else a copy of every
+    tensor (a tied lm-head stays the embedding)."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    if w.embed.data.device == device:
+        return w
+
+    def move(x):
+        if isinstance(x, QTensor):
+            return QTensor(x.data.to(device), x.fmt,
+                           None if x.scale is None else x.scale.to(device))
+        return None if x is None else x.to(device)
+    lw = w.layers
+    layers = LayerWeights(**{f: move(getattr(lw, f)) for f in lw.__dataclass_fields__})
+    embed = move(w.embed)
+    return Weights(embed=embed, layers=layers, final_norm=move(w.final_norm),
+                   output=embed if w.output is w.embed else move(w.output))
 
 
 @torch.no_grad()

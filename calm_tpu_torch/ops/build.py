@@ -10,6 +10,11 @@ functions take ``c_void_p`` for every pointer and the stream and return
 holds ``_build/.lock`` (``flock``), so processes that start together (the
 ranks of a sharded run) build each library once.
 
+The host library (``native/*.cc``: the container reader, the BPE encoder,
+the sampler) builds the same way with ``g++`` (:func:`build_host`) into
+``_build/libcalm_native-<hash>.so``, never into the JAX package's
+``calm_tpu/_native/``.
+
 Nothing here runs at import time.
 """
 
@@ -19,6 +24,7 @@ import ctypes
 import fcntl
 import hashlib
 import os
+import shutil
 import subprocess
 import threading
 import time
@@ -28,6 +34,11 @@ from calm_tpu_torch.device import nvcc_path
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
+NATIVE = os.path.join(os.path.dirname(_PKG), "native")  # the host library's sources
+NATIVE_SOURCES = ("tensors.cc", "tokenizer.cc", "sampler.cc")
+NATIVE_HEADERS = ("calm_native.h",)
+# the flags of native/Makefile
+CXXFLAGS = ["-O2", "-std=c++17", "-fPIC", "-Wall", "-Wextra", "-fno-exceptions"]
 SOURCES = ("qmm", "attn", "gf4", "moe", "stream", "ring")
 ARCH = "arch=compute_90a,code=sm_90a"
 
@@ -133,6 +144,44 @@ def _build_missing(names) -> None:
             open(os.path.join(BUILD_DIR, n + ".log")).read()[-4000:]
             for n in failed)
         raise KernelError(f"nvcc failed for {failed}:\n{logs}")
+
+
+def host_target() -> str:
+    """The host library's path, named by the hash of its sources, headers
+    and flags."""
+    h = hashlib.sha256(" ".join(CXXFLAGS).encode())
+    for fname in NATIVE_SOURCES + NATIVE_HEADERS:
+        with open(os.path.join(NATIVE, fname), "rb") as f:
+            h.update(fname.encode() + b"\0" + f.read())
+    return os.path.join(BUILD_DIR, f"libcalm_native-{h.hexdigest()[:16]}.so")
+
+
+def build_host() -> str:
+    """The host library (``native/*.cc``), compiled with ``g++`` under the
+    build lock if missing; returns its path. Raises KernelError when the
+    sources or ``g++`` are missing or the compile fails (its output goes
+    to ``_build/native.log``)."""
+    out = host_target()
+    if os.path.exists(out):
+        return out
+    cxx = shutil.which("g++")
+    if cxx is None:
+        raise KernelError("g++ not found: the host library cannot be built")
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(os.path.join(BUILD_DIR, ".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
+        if not os.path.exists(out):
+            tmp = f"{out}.{os.getpid()}.tmp"
+            logf = os.path.join(BUILD_DIR, "native.log")
+            with open(logf, "w") as log:
+                rc = subprocess.run([cxx, *CXXFLAGS, "-shared", "-o", tmp] +
+                                    [os.path.join(NATIVE, f) for f in NATIVE_SOURCES],
+                                    stdout=log, stderr=subprocess.STDOUT).returncode
+            if rc != 0:
+                raise KernelError(f"g++ failed for the host library:\n"
+                                  f"{open(logf).read()[-4000:]}")
+            os.replace(tmp, out)  # atomic: a concurrent loader sees all or none
+    return out
 
 
 def lib(name: str) -> ctypes.CDLL:

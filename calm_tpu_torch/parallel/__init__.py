@@ -8,12 +8,13 @@ other names load on first access.
 """
 
 from calm_tpu_torch.parallel.mesh import (Mesh, Topology, detect_topology,  # noqa: F401
-                                          health_check, init_multihost, make_grid,
+                                          health_check, host_layout, init_multihost,
+                                          make_grid,
                                           make_mesh, make_multihost_mesh, rank_device,
                                           spawn)
 from calm_tpu_torch.parallel.plan import NO_SHARDING, ShardingPlan  # noqa: F401
 
-_LAZY = ("weight_pspecs", "cache_pspecs", "shard_weights", "shard_cache",
+_LAZY = ("weight_pspecs", "cache_pspecs", "shard_weights", "shard_cache", "local_cache",
          "load_weights_sharded", "sharded_decode_step", "sharded_decode_scan",
          "sharded_prefill", "sharded_prefill_slot", "sharded_prefill_sp",
          "sharded_tree_verify")

@@ -242,6 +242,22 @@ def make_multihost_mesh(tp: int = 1, ep: int = 1, dp_dcn: int = 1,
     return make_mesh(tp=tp, ep=ep, dp=dp_dcn, device=device)
 
 
+def host_layout(group=None) -> tuple[int, int]:
+    """(hosts, this rank's host) of the ranks of ``group`` (the world when
+    None): the counterpart of JAX's ``process_count()`` and
+    ``process_index()`` for a run of one process a rank. The launcher says
+    how many ranks a host runs (``LOCAL_WORLD_SIZE``, as ``torchrun`` sets
+    it); without it, or without a process group, every rank is on one
+    host. Ranks are numbered host by host, as ``torchrun`` numbers them."""
+    if not dist.is_initialized():
+        return 1, 0
+    world, rank = dist.get_world_size(group), dist.get_rank(group)
+    local = int(os.environ.get("LOCAL_WORLD_SIZE", world))
+    if local < 1 or world % local:
+        raise ValueError(f"LOCAL_WORLD_SIZE={local} does not divide the {world} ranks")
+    return world // local, rank // local
+
+
 def health_check(mesh: Mesh | None = None, timeout_s: float = 60.0,
                  device=None) -> dict:
     """Fail fast on a sick run before loading weights (``calm_tpu/parallel/

@@ -183,6 +183,21 @@ def shard_cache(cache: M.KVCache, mesh: Mesh, plan: ShardingPlan,
                      _take(cache.v, spec, mesh).to(mesh.device).contiguous())
 
 
+def local_cache(cfg: ModelConfig, batch: int, dtype, mesh: Mesh,
+                plan: ShardingPlan) -> M.KVCache:
+    """This rank's block of a zero cache of ``batch`` slots, made at its
+    local shape on the mesh's device (``shard_cache`` of a whole zero
+    cache, with no whole cache made)."""
+    shape = (cfg.n_layers, batch, cfg.n_kv_heads, cfg.seq_len, cfg.head_dim)
+    local = []
+    for n, axis in zip(shape, cache_pspecs(plan)):
+        if n % mesh.axis_size(axis):
+            raise ValueError(f"{n} does not split over {axis}={mesh.axis_size(axis)}")
+        local.append(n // mesh.axis_size(axis))
+    return M.KVCache(torch.zeros(local, dtype=dtype, device=mesh.device),
+                     torch.zeros(local, dtype=dtype, device=mesh.device))
+
+
 def _gather_logits(logits: torch.Tensor, mesh: Mesh, plan: ShardingPlan,
                    batch_dim: int | None = 0, seq_dim: int | None = None):
     """The global logits from every rank's block: vocab over tp, slots

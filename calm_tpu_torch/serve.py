@@ -1,5 +1,4 @@
-"""Continuous-batching serving loop (the port of ``calm_tpu.serve`` on one
-device).
+"""Continuous-batching serving loop (the port of ``calm_tpu.serve``).
 
 - B decode slots share one decode step a tick; finished slots take new
   requests mid-flight;
@@ -32,8 +31,44 @@ device).
 
 Prompts are prefilled at their exact length: the JAX server pads them to
 buckets so that XLA compiles once per bucket, which eager PyTorch does not
-need. Sharded serving (``mesh``/``plan``/``dp_devices``) belongs to a
-later slice and raises.
+need.
+
+Several devices (``calm_tpu/serve.py:196-306``):
+
+- ``dp_devices`` with ``page_rows``: one independent paged decoder a
+  listed device (:class:`~calm_tpu_torch.paged.PagedGroup`), the slots
+  split contiguously over them; one process drives them all. The list may
+  repeat a device.
+- ``mesh`` and ``plan``: a sharded model, dense (tp/ep/dp: slots over
+  dp) or paged (tp/ep). JAX drives a mesh from one controller; here a
+  mesh is one process a rank (``parallel.mesh``), so this Server is SPMD.
+  **Every rank of the mesh constructs it with the same arguments, gets
+  the same ``submit()`` and ``cancel()`` calls between the same ticks,
+  and calls ``tick()`` (or ``run_until_drained()``) in lockstep**: each
+  tick issues the same collectives on every rank. Each rank loads only
+  its shard of the weights (``Engine(lazy_weights=True)`` and
+  ``parallel.sharding.load_weights_sharded``). The ranks hold the same
+  host state and own every slot: the step's logits are gathered to every
+  rank, so each samples every slot with the same streams (on the device,
+  with generators seeded alike) and emits the same ids. Deadlines are
+  agreed: a request that one rank finds past its ``timeout_s`` ends on
+  every rank at the same tick.
+- Several hosts (JAX's multi-process mode): when the launcher says a
+  host runs ``LOCAL_WORLD_SIZE`` of the ``WORLD_SIZE`` ranks
+  (``parallel.mesh.host_layout``), each host admits its own requests into
+  its own contiguous slot range (batch / hosts slots) and reads only its
+  own slots' results. The ranks of one host are replicas as above; what
+  differs across hosts is gathered each tick: the admissions, which every
+  rank prefills in the same order (``sharded_prefill_slot`` reduces its
+  logits over dp), the tokens and positions, and whether any slot is
+  live. ``parallel.mesh.make_multihost_mesh`` puts dp across hosts. Paged
+  serving across hosts takes ``dp_devices`` (each host its own group of
+  decoders) and no mesh.
+
+Refused, as JAX refuses them: a batch that does not split over dp,
+paged serving across hosts without ``dp_devices``, ``dp_devices`` or
+device sampling beside a mesh-paged pool, and speculative serving with a
+mesh or pages.
 """
 
 from __future__ import annotations
@@ -47,11 +82,15 @@ from typing import Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from calm_tpu_torch import model as M
 from calm_tpu_torch.engine import Engine
-from calm_tpu_torch.paged import PagedDecoder
-from calm_tpu_torch.sampler import Sampler
+from calm_tpu_torch.paged import PagedDecoder, PagedGroup
+from calm_tpu_torch.parallel.mesh import host_layout
+from calm_tpu_torch.sampler import Sampler, device_sample
+
+DEAD_PER_TICK = 64  # the most ended requests the ranks agree on in one tick
 
 
 class QueueFull(Exception):
@@ -166,7 +205,11 @@ class Server:
     up to ``gamma`` tokens a round; ``spec_sampled`` rejection-samples the
     sampled requests inside rounds (distributionally exact; texts differ
     from the plain server's by design). ``draft_engine`` hands in a draft
-    Engine built already, as ``engine`` does for the target."""
+    Engine built already, as ``engine`` does for the target.
+
+    ``mesh``/``plan`` shard the model, ``dp_devices`` spreads paged slots
+    over devices: the module's docstring says what each rank's caller
+    must do."""
 
     def __init__(self, path: str | None = None, batch: int = 4, context: int = 0,
                  kv_dtype: str | None = None, device_sampling: bool = False,
@@ -176,36 +219,98 @@ class Server:
                  draft_path: str | None = None, gamma: int = 4,
                  spec_sampled: bool = False, device=None,
                  engine: Engine | None = None, draft_engine: Engine | None = None):
-        if mesh is not None or plan is not None or dp_devices is not None:
-            raise NotImplementedError(
-                "sharded serving (mesh/plan/dp_devices) is not ported yet")
         speculative = draft_path is not None or draft_engine is not None
-        if speculative and page_rows:
+        self._sharded = mesh is not None
+        if speculative and (page_rows or self._sharded):
             raise ValueError("speculative serving is dense single-device, as "
                              "calm_tpu's (calm_tpu/serve.py:328-329)")
+        if self._sharded and (plan is None or engine is not None):
+            raise ValueError("a sharded server takes a plan and a container path: "
+                             "each rank loads only its shard")
+        if self._sharded and plan.dp is not None and batch % mesh.axis_size(plan.dp):
+            raise ValueError(f"batch {batch} does not split over dp="
+                             f"{mesh.axis_size(plan.dp)} (calm_tpu/serve.py:214-216)")
+        self._mesh, self._plan = mesh, plan
+        self._world = mesh.world_group if self._sharded else None
+        # hosts: each admits into and reads its own slot range; the ranks
+        # of one host are replicas
+        self._nproc, self._pid = host_layout(self._world)
+        self._spmd = self._sharded or self._nproc > 1
+        if self._nproc > 1 and page_rows and not dp_devices:
+            raise ValueError("paged serving across hosts needs dp_devices "
+                             "(calm_tpu/serve.py:249-250)")
+        if self._sharded and page_rows and (dp_devices is not None or self._nproc > 1
+                                            or device_sampling):
+            raise ValueError("a mesh-paged pool is tp/ep-sharded on one host and samples "
+                             "on the host (calm_tpu/serve.py:254-256)")
+        if dp_devices is not None and device is None and engine is None:
+            device = dp_devices[0]
         if engine is None:
-            # a paged server keeps no dense cache: a one-slot engine
+            # a paged or sharded server keeps no dense cache of its own
+            # size here: a one-slot engine, its cache replaced below
             engine = Engine(path, context=context, kv_dtype=kv_dtype,
-                            device=device, batch=1 if page_rows else batch)
+                            device=mesh.device if self._sharded else device,
+                            batch=1 if page_rows or self._sharded else batch,
+                            lazy_weights=self._sharded)
         elif not page_rows and engine.batch != batch:
             raise ValueError(f"the engine has {engine.batch} slots, not {batch}")
         self.engine = engine
         self.batch = batch
         eng = engine
+        # the own slot range: every slot on one host, batch / hosts each
+        per = batch // self._nproc
+        if per * self._nproc != batch:
+            raise ValueError(f"batch {batch} does not split over {self._nproc} hosts")
+        self._own_lo, self._own_hi = self._pid * per, (self._pid + 1) * per
+        if self._sharded:
+            from calm_tpu_torch.parallel.sharding import (load_weights_sharded, local_cache,
+                                                          sharded_decode_step,
+                                                          sharded_prefill_slot)
+            eng.weights = load_weights_sharded(eng.tf, eng.cfg, mesh, plan)
+            if not page_rows:
+                eng.cache = local_cache(eng.cfg, batch, eng._kv_torch, mesh, plan)
+                self._decode_fn = sharded_decode_step(eng.cfg, mesh, plan)
+                self._prefill_slot_fn = sharded_prefill_slot(eng.cfg, mesh, plan)
         self._paged = None
+        self._paged_group = False
         if page_rows:
-            if not pool_pages:
-                pool_pages = batch * (eng.cfg.seq_len // page_rows)
+            own = self._own_hi - self._own_lo
+            if self._sharded:
+                if not pool_pages:
+                    pool_pages = batch * (eng.cfg.seq_len // page_rows)
+                self._paged = PagedDecoder(eng.cfg, eng.weights, pool_pages, page_rows,
+                                           eng._kv_torch, batch, mesh=mesh, plan=plan)
+            elif dp_devices is not None and (len(dp_devices) > 1 or self._nproc > 1):
+                if own % len(dp_devices):
+                    raise ValueError(f"{own} slots do not split over {len(dp_devices)} "
+                                     "dp devices")
+                per = own // len(dp_devices)
+                if not pool_pages:  # a pool a decoder
+                    pool_pages = per * (eng.cfg.seq_len // page_rows)
+                self._paged = PagedGroup(eng.cfg, eng.weights, pool_pages, page_rows,
+                                         eng._kv_torch, per, dp_devices, own_lo=self._own_lo)
+                self._paged_group = True
+            else:
+                if not pool_pages:
+                    pool_pages = batch * (eng.cfg.seq_len // page_rows)
+                self._paged = PagedDecoder(eng.cfg, eng.weights, pool_pages, page_rows,
+                                           eng._kv_torch, batch,
+                                           device=dp_devices[0] if dp_devices else None)
             eng.cache = None  # the pool replaces the dense cache
-            self._paged = PagedDecoder(eng.cfg, eng.weights, pool_pages,
-                                       page_rows, eng._kv_torch, batch)
         # paged mode shares pages: a hit maps pinned pool pages, a save pins
-        # the slot's prompt pages in place, an eviction unpins them
+        # the slot's prompt pages in place, an eviction unpins them. A
+        # group keeps one cache a decoder (page ids are pool-local); a
+        # dense sharded cache keeps none (calm_tpu/serve.py:282-306)
         self.prefix_cache = None
-        if prefix_cache_tokens:
-            self.prefix_cache = PrefixCache(
-                prefix_cache_tokens,
-                on_evict=None if self._paged is None else self._paged.unpin_pages)
+        self._prefix_caches = None
+        if prefix_cache_tokens and (not self._sharded or self._paged is not None):
+            if self._paged_group:
+                self._prefix_caches = [PrefixCache(prefix_cache_tokens, on_evict=d.unpin_pages)
+                                       for d in self._paged.decs]
+            else:
+                self.prefix_cache = PrefixCache(
+                    prefix_cache_tokens,
+                    on_evict=None if self._paged is None else self._paged.unpin_pages)
         # speculative continuous batching (calm_tpu/serve.py:306-336): the
         # draft proposes g tokens a slot in one batched loop, the target
         # verifies every slot's chain in one (B, g+1) forward, each slot
@@ -238,6 +343,7 @@ class Server:
         self._minps = np.ones(batch, np.float32)
         self._sampling_dev = None  # device copies of temps/minps; None: stale
         if device_sampling:
+            # seeded alike on every rank: the ranks draw the same ids
             self._gen = torch.Generator(device=eng.device)
             self._gen.manual_seed(seed)
         self._last_tick_at = time.monotonic()  # watchdog liveness stamp
@@ -268,6 +374,13 @@ class Server:
         self._minps[b] = minp
         self._sampling_dev = None
 
+    def _own(self):
+        """The own slots: (index, slot) of the host's range."""
+        return ((b, self.slots[b]) for b in range(self._own_lo, self._own_hi))
+
+    def _busy(self) -> bool:
+        return bool(self.pending) or any(s.active for _, s in self._own())
+
     def _finish(self, req: Request, b: int | None, now: float, *,
                 timed_out: bool = False, out_of_pages: bool = False):
         """The one terminal path: park the slot, flag the request, fire the
@@ -290,27 +403,93 @@ class Server:
 
     def _sweep(self):
         """Free slots whose request was cancelled or passed its deadline,
-        and drop dead pending requests, before admission."""
+        and drop dead pending requests, before admission. Under SPMD the
+        ranks agree first: a request ends on every rank of its host when
+        one of them finds it dead (by its id, which the replicas share)."""
         now = time.perf_counter()
 
-        def dead(req):
-            to = req.timeout_s > 0 and now - req.submitted_at >= req.timeout_s
-            return req.cancelled or to, to
+        def late(req):
+            return req.timeout_s > 0 and now - req.submitted_at >= req.timeout_s
+        live_reqs = list(self.pending) + [s.req for _, s in self._own() if s.active]
+        ended = {r.rid for r in live_reqs if r.cancelled or late(r)}
+        if self._spmd:
+            ended = self._agree_ended(sorted(ended)[:DEAD_PER_TICK])
 
+        def finish(req, b):  # ended and not cancelled: late on some rank
+            self._finish(req, b, now, timed_out=late(req) or not req.cancelled)
         live = deque()
         for req in self.pending:
-            is_dead, to = dead(req)
-            if is_dead:
-                self._finish(req, None, now, timed_out=to)
+            if req.rid in ended:
+                finish(req, None)
             else:
                 live.append(req)
         self.pending = live
-        for b, slot in enumerate(self.slots):
-            if not slot.active:
-                continue
-            is_dead, to = dead(slot.req)
-            if is_dead:
-                self._finish(slot.req, b, now, timed_out=to)
+        for b, slot in self._own():
+            if slot.active and slot.req.rid in ended:
+                finish(slot.req, b)
+
+    # -- SPMD exchanges ---------------------------------------------------------
+
+    def _gather(self, row: np.ndarray) -> np.ndarray:
+        """Every rank's ``row`` (int64, the same length on every rank) over
+        the server's ranks: (ranks, n). One all-gather, on the rank's
+        device (gloo and NCCL both take it there)."""
+        t = torch.as_tensor(np.ascontiguousarray(row, np.int64)).to(self.engine.device)
+        n = dist.get_world_size(self._world)
+        out = t.new_empty(n * t.numel())
+        dist.all_gather_into_tensor(out, t, group=self._world)
+        return out.cpu().numpy().reshape(n, -1)
+
+    def _hosts(self, rows: np.ndarray) -> np.ndarray:
+        """One row a host from a gather: its first rank's (its replicas
+        hold the same)."""
+        return rows[::rows.shape[0] // self._nproc]
+
+    def _agree_ended(self, rids: list[int]) -> set[int]:
+        """The ids some rank of this host found dead this tick."""
+        row = np.full(1 + DEAD_PER_TICK, -1, np.int64)
+        row[0] = self._pid
+        row[1:1 + len(rids)] = rids
+        rows = self._gather(row)
+        mine = rows[rows[:, 0] == self._pid, 1:]
+        return {int(r) for r in mine.reshape(-1) if r >= 0}
+
+    def _any_host(self, flag: bool) -> bool:
+        """``flag`` of any host (multi-host), else this host's own."""
+        if self._nproc == 1:
+            return flag
+        return bool(self._gather(np.array([flag], np.int64))[:, 0].any())
+
+    def _merge_admissions(self, local):
+        """One host: its own admissions. Several hosts: every host's, in
+        host then slot order, so every rank runs the same prefills
+        (``calm_tpu/serve.py:779-804``)."""
+        if self._nproc == 1:
+            return local
+        S = self.engine.cfg.seq_len
+        cap = self._own_hi - self._own_lo
+        buf = np.full((cap, 3 + S), -1, np.int64)
+        for i, (b, suffix, hit) in enumerate(local):
+            buf[i, :3] = (b, len(suffix), hit)
+            buf[i, 3:3 + len(suffix)] = suffix
+        merged = []
+        for host in self._hosts(self._gather(buf.reshape(-1))).reshape(self._nproc, cap, -1):
+            merged += [(int(e[0]), [int(t) for t in e[3:3 + e[1]]], int(e[2]))
+                       for e in host if e[0] >= 0]
+        return merged
+
+    def _global_state(self, active: bool):
+        """(any slot live on any host, tokens (B,), positions (B,)): this
+        host's own, or with several hosts each host's own rows assembled
+        (``calm_tpu/serve.py:806-814``, ``:847-852``)."""
+        if self._nproc == 1:
+            return active, self._tokens, self._pos
+        lo, hi = self._own_lo, self._own_hi
+        rows = self._hosts(self._gather(np.concatenate(
+            [[active], self._tokens[lo:hi], self._pos[lo:hi]])))
+        per = hi - lo
+        return (bool(rows[:, 0].any()), rows[:, 1:1 + per].reshape(-1),
+                rows[:, 1 + per:].reshape(-1))
 
     # -- liveness watchdog ----------------------------------------------------
 
@@ -336,7 +515,7 @@ class Server:
 
         def _loop():
             while not self._wd_stop.wait(poll):
-                if not (self.pending or any(s.active for s in self.slots)):
+                if not self._busy():
                     continue
                 age = time.monotonic() - self._last_tick_at
                 if age >= stall_s:
@@ -359,8 +538,10 @@ class Server:
             self._wd_thread = None
 
     def run_until_drained(self, max_ticks: int | None = None):
+        """Tick until no host has a pending request or a live slot (every
+        rank calls it, in lockstep)."""
         ticks = 0
-        while self.pending or any(s.active for s in self.slots):
+        while self._any_host(self._busy()):
             self.tick()
             ticks += 1
             if max_ticks is not None and ticks >= max_ticks:
@@ -368,12 +549,19 @@ class Server:
 
     # -- scheduler ----------------------------------------------------------
 
+    def _slot_prefix_cache(self, b: int):
+        """The prefix cache that can serve slot b: a group keeps one a
+        decoder."""
+        if self._prefix_caches is not None:
+            return self._prefix_caches[self._paged.shard_of(b)]
+        return self.prefix_cache
+
     def _admit(self):
         eng = self.engine
         S = eng.cfg.seq_len
         admissions: list[tuple[int, list[int], int]] = []
         draft_pre: list[tuple[int, list[int]]] = []
-        for b, slot in enumerate(self.slots):
+        for b, slot in self._own():
             if slot.active or not self.pending:
                 continue
             req = self.pending.popleft()
@@ -387,7 +575,7 @@ class Server:
             pre = toks[:-1]
 
             if self._paged is not None:
-                pc = self.prefix_cache
+                pc = self._slot_prefix_cache(b)
                 hit, pages = pc.match(pre) if pc is not None else (0, ())
                 if not self._paged.admit(b, toks, shared_pages=pages or (),
                                          hit_rows=hit):
@@ -430,10 +618,17 @@ class Server:
             self._tokens[b] = slot.token
             self._pos[b] = slot.pos
 
-        for b, suffix, hit in admissions:
-            M.prefill_slot(eng.cfg, eng.weights,
-                           torch.tensor([suffix], dtype=torch.int64, device=eng.device),
-                           b, eng.cache, pos0=hit)
+        if self._sharded:
+            # every rank prefills every admission of every host, in order
+            # (a mesh-paged pool admitted its own above: none here)
+            for b, suffix, _ in self._merge_admissions(admissions):
+                self._prefill_slot_fn(eng.weights, torch.tensor([suffix]), len(suffix), b,
+                                      eng.cache)
+        else:
+            for b, suffix, hit in admissions:
+                M.prefill_slot(eng.cfg, eng.weights,
+                               torch.tensor([suffix], dtype=torch.int64, device=eng.device),
+                               b, eng.cache, pos0=hit)
         for b, pre in draft_pre:
             d = self._draft
             M.prefill_slot(d.cfg, d.weights,
@@ -441,7 +636,7 @@ class Server:
                            b, d.cache)
 
         if self.prefix_cache is not None and self._paged is None:
-            for b, slot in enumerate(self.slots):
+            for b, slot in self._own():
                 pre, slot._save_prefix = slot._save_prefix, None
                 if pre is None:
                     continue
@@ -452,7 +647,8 @@ class Server:
                                           eng.cache.v[:, b:b + 1, :, :n].clone())
 
     def tick(self):
-        """One scheduler tick: sweep, admit, one decode step for all."""
+        """One scheduler tick: sweep, admit, one decode step for all. Under
+        a mesh or several hosts every rank calls it in lockstep."""
         self._tick()
         # stamped after a tick that returned only: a loop that retries a
         # raising tick must look stalled to the watchdog
@@ -468,13 +664,15 @@ class Server:
     def _tick(self):
         self._sweep()
         self._admit()
-        if not any(s.active for s in self.slots):
+        lo, hi = self._own_lo, self._own_hi
+        active, tokens, pos = self._global_state(any(s.active for _, s in self._own()))
+        if not active:
             return
         eng = self.engine
         sampled = logits = None
         if self._paged is not None:
             now0 = time.perf_counter()
-            for b, slot in enumerate(self.slots):
+            for b, slot in self._own():
                 if not slot.active:
                     continue
                 self._paged.set_token(b, slot.token)
@@ -482,12 +680,29 @@ class Server:
                     # pool pressure: finish this request with what it has
                     # (flagged) instead of stalling the whole batch
                     self._finish(slot.req, b, now0, out_of_pages=True)
-            if not any(s.active for s in self.slots):
+            # a mesh-paged pool's ranks hold the same slots: they return
+            # here together
+            if not any(s.active for _, s in self._own()):
                 return
+            # the own slots' rows: a group returns its own decoders', a
+            # single decoder's batch is the own range
             if self.device_sampling:
-                sampled = self._paged.step_sampled(self._gen, *self._sampling_tensors())
+                sampled = (self._paged.step_sampled(self._gen, self._temps[lo:hi],
+                                                    self._minps[lo:hi])
+                           if self._paged_group else
+                           self._paged.step_sampled(self._gen, *self._sampling_tensors()))
             else:
                 logits = self._paged.step()
+        elif self._sharded:
+            # eager: the step's collectives go through torch.distributed;
+            # its logits are gathered to every rank
+            out, _ = self._decode_fn(eng.weights, torch.as_tensor(tokens),
+                                     torch.as_tensor(pos), eng.cache)
+            if self.device_sampling:
+                sampled = device_sample(out, self._gen, *self._sampling_tensors()
+                                        ).tolist()[lo:hi]
+            else:
+                logits = out.float().cpu().numpy()[lo:hi]
         elif self._draft is not None and self._spec_ready():
             self._tick_speculative()
             return
@@ -511,12 +726,12 @@ class Server:
 
         tok = eng.tokenizer
         now = time.perf_counter()
-        for b, slot in enumerate(self.slots):
+        for b, slot in self._own():
             if not slot.active:
                 continue
             req = slot.req
-            nxt = (int(sampled[b]) if sampled is not None
-                   else slot.sampler.sample(logits[b]))
+            nxt = (int(sampled[b - lo]) if sampled is not None
+                   else slot.sampler.sample(logits[b - lo]))
             if req.n_generated == 0:
                 req.first_token_at = now
             slot.pos += 1

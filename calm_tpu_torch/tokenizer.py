@@ -13,12 +13,16 @@ Functional contract mirrors the reference tokenizer (src/tokenizer.c):
   sentencepiece-compatible "strip one leading space after BOS" rule
   (src/tokenizer.c:77-88)
 
-Pure-Python copy of ``calm_tpu.tokenizer`` without the native encoder.
+The port of ``calm_tpu.tokenizer``: it encodes through the native
+heap-merge encoder (``calm_tpu_torch.native``, the same ids) when that
+library is available, as the JAX package's does, unless
+``CALM_TPU_NO_NATIVE`` is set; otherwise through the Python loops below.
 """
 
 from __future__ import annotations
 
 import heapq
+import os
 
 import numpy as np
 
@@ -53,6 +57,14 @@ class Tokenizer:
             if tid >= 0:
                 self.eot_id = tid
                 break
+
+        # the C++ heap-merge encoder (native/tokenizer.cc) gives the same
+        # ids; used when it builds, unless CALM_TPU_NO_NATIVE is set
+        self._native = None
+        if not os.environ.get("CALM_TPU_NO_NATIVE"):
+            from calm_tpu_torch import native
+            if native.available():
+                self._native = native.NativeTokenizer(pieces, self.scores, bos_id)
 
     # -- construction -------------------------------------------------------
 
@@ -91,6 +103,11 @@ class Tokenizer:
 
     def encode(self, text: str | bytes, bos: bool = False, eos: bool = False) -> list[int]:
         data = text.encode("utf-8") if isinstance(text, str) else bytes(text)
+        if self._native is not None:
+            tokens = self._native.encode(data, bos=bos)
+            if eos and self.eos_id >= 0:
+                tokens.append(self.eos_id)
+            return tokens
         tokens: list[int] = []
         if bos and self.bos_id >= 0:
             tokens.append(self.bos_id)

@@ -41,7 +41,14 @@ fp8 at 8 layers tp=2 x sp=2 through sp prefill and 32 steps, then
 layers ep=2; 2 layers at ctx 64 sp=2 across the window wrap; the pipeline
 stages: pp=4, GPipe pp=2 x tp=2 over 4 slots in 2 microbatches, Mixtral pp=2
 x ep=2; the ring sp prefill over sp=4 of a 2048-token window, then sp
-decode, beside the all-gather path) against the same weights unsharded; drives ``Engine.generate`` (batched prefill,
+decode, beside the all-gather path) against the same weights unsharded,
+and in the same ranks the SPMD ``Server(mesh, plan)`` on an 8-layer
+Mistral-7B-width fp8 container (tp=2 x dp=2 with a mid-flight admission;
+the mesh-paged pool at tp=4 with a prefix-cache hit; two hosts of tp=2,
+each submitting its own requests), each rank holding about 1/tp of the
+weights (``Engine(lazy_weights=True)``), held to the unsharded ``Server``;
+builds the native host library (native/*.cc, g++) and holds its parser
+and tokenizer to the Python ones on every container written; drives ``Engine.generate`` (batched prefill,
 then decode; sampled on the device by default, each id checked against
 its step's min-p set), ``prefill_tokens``, ``perplexity`` and the CLI
 (generate, ``-x``, ``-y``) on 2-layer Mistral-7B-width fp8 and gf4
@@ -57,8 +64,11 @@ under ``--precise``, and a 17-token prompt's prefill under ``--precise``
 for fp8 and gf4), Aya 23 8B (fp8, gf4) and Mixtral 8x7B (fp8, gf4,
 fp8e4); serves the
 containers through ``Server`` (dense, paged, prefix cache) against the
-CPU's server and through ``python -m calm_tpu_torch.httpd``; serves 16
+CPU's server and through ``python -m calm_tpu_torch.httpd`` (also with
+``--dp``, the card count, and ``--page-rows``); serves 16
 requests on a 32-layer Mistral-7B with 8 slots, dense and paged (fp8),
+then on two paged decoders of 4 slots sharing the weights on this card
+(``dp_devices=[cuda, cuda]``, host and device sampling),
 and on 32-layer Mistral-7B and Aya 23 8B gf4, dense (the gf4 serving
 ticks: K8, and K6 and K3, at 8 rows), and on the gf4 Mistral-7B again
 with ROTATED_DECODE off (K3 and K7 at 8 rows), on the 32-layer
@@ -2747,6 +2757,49 @@ def write_containers(tmp, dev) -> dict:
     return out
 
 
+def native_checks(paths, what: str) -> None:
+    """The native host library (``calm_tpu_torch.native``, built from
+    native/*.cc with g++): it builds here, its parser accepts each
+    container of ``paths``, and each one's tokenizer encodes through it,
+    with the Python encoder's ids on the container phases' prompts. No
+    fallback: a missing library fails the run."""
+    from calm_tpu_torch import native
+    from calm_tpu_torch.container import TensorFile
+    from calm_tpu_torch.tokenizer import Tokenizer
+
+    t0 = time.perf_counter()
+    if not native.available():
+        fail(f"the native host library did not build: {native.last_error()}")
+    texts = ([PROMPT_LONG, "The quick brown fox", "hello", "hello there\n", PRECISE_PROMPT,
+              "Hi", PROMPT_LONG * 3] + [r[0] for r in SERVE_REQUESTS])
+    n_bytes = 0
+    for p in paths:
+        data = bytearray(os.path.getsize(p))
+        with open(p, "rb") as f:
+            f.readinto(data)
+        n_bytes += len(data)
+        if not native.parse_bytes(data):
+            fail(f"native: the parser refused {p}: {native.last_error()}")
+        del data
+        tf = TensorFile(p)
+        tok = Tokenizer.from_container(tf)
+        os.environ["CALM_TPU_NO_NATIVE"] = "1"
+        try:
+            py = Tokenizer.from_container(tf)
+        finally:
+            del os.environ["CALM_TPU_NO_NATIVE"]
+        if tok._native is None or py._native is not None:
+            fail(f"native: the tokenizer of {p} does not encode through the library")
+        for text in texts:
+            for bos in (True, False):
+                if tok.encode(text, bos=bos) != py.encode(text, bos=bos):
+                    fail(f"native: ids of {text[:40]!r} differ from the Python encoder's")
+    log(f"# native host library {os.path.basename(native.library_path())}: built, parsed "
+        f"{len(paths)} {what} containers ({n_bytes / 1e9:.2f} GB) from memory, each "
+        f"tokenizer encodes natively with the Python encoder's ids on {len(texts)} "
+        f"prompts; {time.perf_counter() - t0:.1f} s")
+
+
 def cpu_side(path, fmt, experts, cohere) -> dict:
     """The CPU plain path's side of ``container_phase``'s checks on one
     container, for a worker process (CPU only, ``CPU_THREADS`` threads):
@@ -2941,6 +2994,10 @@ def container_phase(path, ref, fmt, dev, experts: int = 0, cohere: bool = False)
         http_args = (["--page-rows", "16"] if fmt == "gf4"
                      else ["--draft", path, "--gamma", "3"] if speculative else [])
         httpd = httpd_proc(path, http_args) if served and not light else None
+        # the front end over a group of paged decoders: as many as cards
+        httpd_dp = (httpd_proc(path, ["--dp", str(torch.cuda.device_count()),
+                                      "--page-rows", "16", "--prefix-cache-tokens", "4096"])
+                    if speculative else None)
         eng = Engine(path)
         log(eng.banner())
         if experts:  # routing builds the expert slots on the device
@@ -3065,12 +3122,18 @@ def container_phase(path, ref, fmt, dev, experts: int = 0, cohere: bool = False)
         if served:
             want_srv, lcs_srv = ref["serve"]
             want_srv = [Served(*w) for w in want_srv]
-            serving_checks(path, what, (want_srv, lcs_srv), full=k["full"])
+            card_ids = serving_checks(path, what, (want_srv, lcs_srv), full=k["full"])
             if speculative:
                 speculative_container_checks(path, twin, what, eng, cpu, dev, ref["hello_ids"],
                                              want_srv, lcs_srv, spec_procs)
             http_check(httpd, what + (" paged" if fmt == "gf4" else " --draft --gamma 3"
                                       if speculative else ""), speculative)
+            if httpd_dp is not None:
+                # "The quick brown fox" is SERVE_REQUESTS[3]: the CPU server's
+                # ids, and the card's paged Server's (held to them at near-ties)
+                http_check(httpd_dp, what + f" --dp {torch.cuda.device_count()} --page-rows 16",
+                           dp=(served_text(eng.tokenizer, want_srv[3].ids),
+                               served_text(eng.tokenizer, card_ids["paged"][3])))
         log(f"# {what}: container phase {time.perf_counter() - t0:.1f} s, of it serving "
             f"{time.perf_counter() - t_serve:.1f} s")
         del eng, cpu
@@ -3180,12 +3243,14 @@ def serving_checks(path, what, served, full=True):
     """``Server`` on the card, dense, paged (16-row pages, a pool of half
     the dense rows) and dense with the prefix cache (``full``; else dense
     and paged on ``serve_requests(False)``), each held to the CPU server's
-    ``served`` (``cpu_server``: requests, logits) on the same requests."""
+    ``served`` (``cpu_server``: requests, logits) on the same requests.
+    Returns each mode's ids of the requests."""
     from calm_tpu_torch import model as M
     from calm_tpu_torch.serve import Server
 
     reqs = serve_requests(full)
     want, lcs = served
+    card_ids = {}
     rows = 4 * 4096 // 2 // 16
     modes = {"dense": {}, "paged": dict(page_rows=16, pool_pages=rows)}
     if full:
@@ -3215,6 +3280,7 @@ def serving_checks(path, what, served, full=True):
         if mode == "paged":
             extra = (f", pages in use after {srv._paged.pages_in_use()}, "
                      f"K12 paged launches {counts['decode_attention_paged']}")
+        card_ids[mode] = [list(g.ids) for g in got]
         log(f"# {what} serve {mode} vs CPU: " + "; ".join(
             f"{i} {r}" for i, r in enumerate(res)) + extra)
         if mode == "paged":  # a step makes no host sync before its logits
@@ -3231,6 +3297,7 @@ def serving_checks(path, what, served, full=True):
             log(f"# {what}: a paged decode step of 4 slots at positions {pos} ran "
                 "with no host sync")
         del srv
+    return card_ids
 
 
 def httpd_proc(path, args):
@@ -3249,10 +3316,27 @@ def same_stream(streamed: str, text: str) -> bool:
     return bool(streamed) and all(c in it for c in streamed if c != "\ufffd")
 
 
-def http_check(proc, what, speculative: bool = False):
+def served_text(tok, ids, prompt="The quick brown fox", max_tokens=8) -> str:
+    """The text a Server returns for greedy ``ids`` of ``prompt`` at
+    ``max_tokens``: the pieces up to a stop id or the last token, which
+    ends the request unprinted."""
+    prev, out = tok.encode(prompt, bos=True)[-1], bytearray()
+    for n, t in enumerate(ids[:max_tokens], 1):
+        if t in (tok.bos_id, tok.eos_id, tok.eot_id) or n >= max_tokens:
+            break
+        out += tok.decode_piece(prev, t)
+        prev = t
+    return out.decode("utf-8", errors="replace")
+
+
+def http_check(proc, what, speculative: bool = False, dp=None):
     """Health, a streamed and a plain greedy generate (the same text),
     stats (with ``speculative``, a ``speculative`` block of JAX's keys
-    that counts rounds), then SIGTERM: the server drains and exits 0."""
+    that counts rounds), then SIGTERM: the server drains and exits 0.
+    With ``dp`` = (the CPU server's text, the card's paged Server's) the
+    plain generate's text equals the CPU's, or the card's where that one
+    parts from the CPU at a near-tie, and the stats show the group's pool
+    empty and its prefix caches' pinned prompt."""
     banner = proc.stdout.readline()
     line = proc.stdout.readline()
     m = re.search(r"http://[\d.]+:(\d+)", line)
@@ -3284,6 +3368,15 @@ def http_check(proc, what, speculative: bool = False):
     if speculative and (not spec or set(spec) != {"rounds", "emitted", "acceptance"}
                         or spec["rounds"] < 1):
         fail(f"{what} httpd --draft: stats {stats}")
+    if dp is not None:
+        pc = stats.get("prefix_cache") or {}
+        if (plain["text"] not in dp or stats.get("pages_in_use") != 0
+                or pc.get("entries", 0) < 1 or stats.get("slots") != 4):
+            fail(f"{what} httpd: text {plain['text']!r}, the CPU server's {dp[0]!r}, the "
+                 f"card's paged Server's {dp[1]!r}; stats {stats}")
+        log(f"# {what} httpd: the generate's text equals the "
+            + ("CPU server's" if plain["text"] == dp[0] else
+               "card's paged Server's (which parts from the CPU at a near-tie)"))
     if (health.get("status") != "ok" or not same_stream(streamed, plain["text"])
             or proc.returncode != 0
             or "# drained" not in errs or plain["tokens"] < 1):
@@ -4838,6 +4931,10 @@ def full_width_serving_phase(dev, gbps, smi, fmt: str = "fp8", cohere: bool = Fa
         del srv
         torch.cuda.empty_cache()
 
+    if "paged" in ids:
+        out.update(group_drains(Server, engine, drain, prompts, n_gen, ids["paged"],
+                                seen["paged"], out["paged"], w, dev, smi))
+
     # paged against dense: the same ids, and logits the same kernels give
     split, worst = [], 0.0
     for i, (a, b) in enumerate(zip(ids.get("paged", []), ids["dense"])):
@@ -4882,6 +4979,68 @@ def full_width_serving_phase(dev, gbps, smi, fmt: str = "fp8", cohere: bool = Fa
         del w
     torch.cuda.empty_cache()
     return counts
+
+
+GROUP_PAGES = 16  # a group decoder's pool: 4 slots x 4 pages of 512 rows (half dense)
+
+
+def group_drains(Server, engine, drain, prompts, n_gen, want, lcs, single, w, dev, smi):
+    """The 16 requests on ``Server(page_rows=512, dp_devices=[dev, dev])``:
+    two paged decoders of 4 slots on this one card sharing one copy of the
+    weights, each with its own pool and captured step; drained with host
+    sampling, then with ``device_sampling`` (each decoder its own
+    generator seeded from the server's). Each mode: a warm drain whose ids
+    are held to the single pool's (``want``, ``lcs``: its ids and logits;
+    equal but at near-ties), 3 timed drains, 10 profiled ticks, the pool
+    empty at the end. Returns each mode's drain, tick and busy figures,
+    logged beside the single pool's (``single``), a finding, not a target."""
+    out = {}
+    for mode, kw in (("paged group", {}), ("paged group device sampling",
+                                            dict(device_sampling=True))):
+        srv = Server(batch=8, engine=engine(), page_rows=512, pool_pages=GROUP_PAGES,
+                     dp_devices=[dev, dev], **kw)
+        decs = srv._paged.decs
+        if len(decs) != 2 or not decs[0].weights is decs[1].weights is w:
+            fail(f"serve {mode}: the two decoders do not share the one copy of the weights")
+        if kw:
+            reqs = drain(srv)[0]  # warm: captures each decoder's sampled step
+            seen = [lc for lc in lcs]  # no logits reach the host: the single pool's
+        else:
+            reqs, seen = serve_recorded(srv, [(p, n_gen, 0.0, 1) for p in prompts])
+        split = [f"{i}: " + same_served(f"serve {mode} request {i}", r.ids, want[i], 0.0,
+                                        seen[i], lcs[i], TOL_STEP)
+                 for i, r in enumerate(reqs) if r.ids != want[i]]
+        runs = [drain(srv) for _ in range(3)]
+        walls = [r[1] for r in runs]
+        tick_ms = [1e3 * statistics.median(t[0] for t in r[2] if t[1] == 0) for r in runs]
+        med = statistics.median(tick_ms)
+        n_tok = sum(r.n_generated for r in runs[0][0])
+        for p in prompts[:8]:
+            srv.submit(p, max_tokens=n_gen, temperature=0.0)
+        srv.tick()  # admits all eight
+        rows = kernel_rows(lambda: [srv.tick() for _ in range(10)])
+        srv.run_until_drained()
+        if srv._paged.pages_in_use() != 0:
+            fail(f"serve {mode}: {srv._paged.pages_in_use()} pages in use after the drains")
+        dev_ms = sum(r[0] for r in rows) / 1e3 / 10 if rows else None
+        wall = statistics.median(walls)
+        out[mode] = dict(wall_s=wall, tok_s=n_tok / wall, tick_ms=med,
+                         tick_spread_pct=100 * (max(tick_ms) - min(tick_ms)) / med,
+                         device_ms_tick=dev_ms,
+                         busy_pct=None if dev_ms is None else 100 * dev_ms / med)
+        log(f"# serve fp8 mistral7b {mode}, 2 decoders x 4 slots on one card, one copy of "
+            f"the weights: ids of the 16 requests " + (
+                "equal to the single pool's" if not split else f"split: {split}")
+            + f"; drain {wall:.3f} s (median of 3, {min(walls):.3f}-{max(walls):.3f}), "
+            f"{n_tok / wall:.1f} tok/s; decode tick {med:.3f} ms ({', '.join(f'{x:.3f}' for x in tick_ms)}) "
+            f"against the single pool's {single['tick_ms']:.3f} ms in this run; "
+            + ("device not measured" if dev_ms is None else
+               f"device {dev_ms:.3f} ms/tick = busy {100 * dev_ms / med:.1f}% (the single "
+               f"pool's {single['busy_pct'] or float('nan'):.1f}%)")
+            + f"; pages in use after 0 on {smi}")
+        del srv
+        torch.cuda.empty_cache()
+    return out
 
 
 def tools_phase(smi):
@@ -5447,6 +5606,9 @@ def sharded_rank(rank, dev, prompts, toks):
         ws, [first], CTX_A, cache))
     out["h"] = dict(ids=[first] + ids[0].tolist(), counts=counts,
                     secs=time.perf_counter() - t0)
+    del ws, cache
+    torch.cuda.empty_cache()
+    out.update(serving_rank(rank, dev, prompts["serve"]))
     return out
 
 
@@ -5478,6 +5640,233 @@ def sharded_reference(phase, dev, prompt, n_steps, first=(1,)):
             lgs[:, 0] if B == 1 else lgs, [t[0] for t in toks] if B == 1 else toks)
 
 
+# Sharded serving, in the same world of 4 ranks: (i) Server(mesh, plan)
+# tp=2 x dp=2 dense, (j) the mesh-paged pool at tp=4 with a prefix cache,
+# (k) two hosts of tp=2, each host submitting its own requests; all on an
+# 8-layer Mistral-7B-width fp8 container, each held to the unsharded
+# Server in the parent on the same container
+CTX_SERVE, SERVE_TOKENS, SERVE_MID = 1024, 16, 4  # window, greedy tokens, ticks
+                                                  # before (i)'s last admission
+
+
+def serve_cfg():
+    from calm_tpu_torch.config import ModelConfig
+
+    return ModelConfig(**{**MISTRAL, "n_layers": LAYERS_A, "rope_theta": 10000.0},
+                       seq_len=CTX_SERVE, rotary_dim=128, dtype="fp8", bos_token_id=1,
+                       eos_token_id=2, norm_ln=False)
+
+
+def serve_plan(tmp) -> dict:
+    """The serving cases' container (written here) and requests: (i) 4
+    prompts of 64-256 tokens, the last admitted after SERVE_MID ticks; (j)
+    two prompts that share the 64-token page-aligned ``SHARED``; (k) two
+    prompts a host."""
+    from calm_tpu_torch.utils.synth import synth_container
+
+    path = os.path.join(tmp, "mistral7b-width-8l-fp8.calm")
+    t0 = time.perf_counter()
+    synth_container(path, serve_cfg(), seed=3, device="cuda", random=True)
+    log(f"# sharded serving: wrote the {LAYERS_A}-layer Mistral-7B-width fp8 container "
+        f"({os.path.getsize(path) / 1e9:.2f} GB) in {time.perf_counter() - t0:.1f} s")
+    native_checks([path], f"{LAYERS_A}-layer")
+    rng = np.random.default_rng(20)
+    words = ["".join(chr(c) for c in rng.integers(97, 123, n)) for n in
+             rng.integers(63, 256, 8)]
+    return {"path": path, "i": words[:4], "k": {0: words[4:6], 1: words[6:8]},
+            "j": [SHARED + " Q1", SHARED + " And a second question"]}
+
+
+def param_bytes(w) -> int:
+    """The bytes of every tensor of Weights ``w`` (a tied lm-head once)."""
+    seen, n = set(), 0
+    lw = w.layers
+    for x in [w.embed, w.output, w.final_norm] + [getattr(lw, f) for f in
+                                                   lw.__dataclass_fields__]:
+        for t in (getattr(x, "data", x), getattr(x, "scale", None)):
+            if isinstance(t, torch.Tensor) and t.data_ptr() not in seen:
+                seen.add(t.data_ptr())
+                n += t.numel() * t.element_size()
+    return n
+
+
+def kv_bytes(srv) -> int:
+    """The bytes of a Server's KV: its dense cache, or its pool(s) with
+    their scratch and page table."""
+    if srv._paged is None:
+        return 2 * srv.engine.cache.k.numel() * srv.engine.cache.k.element_size()
+    decs = getattr(srv._paged, "decs", [srv._paged])
+    return sum(2 * (d.pool.k.numel() * d.pool.k.element_size() + d.scratch.k.numel()
+                    * d.scratch.k.element_size()) + d._pt_dev.numel() * 4 for d in decs)
+
+
+def served_case(make, reqs, dev, keep: bool, mid: int = 0, one_by_one: bool = False):
+    """A Server built by ``make()`` on ``dev`` serving greedy ``reqs``: all
+    submitted at once (with ``mid``: the last one after ``mid`` ticks; with
+    ``one_by_one``: each drained before the next). Returns its ids, the
+    logits each request sampled from (when ``keep``), its ticks, wall
+    seconds, the weight bytes allocated by the load (memory_allocated
+    across the build less the KV) and counted, the cached prefixes and the
+    prefix cache's hits."""
+    import gc
+
+    from calm_tpu_torch import serve as S
+
+    gc.collect()  # what an earlier case left in cycles is freed before, not during
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    srv = make()
+    torch.cuda.synchronize()
+    alloc = torch.cuda.memory_allocated(dev) - base - kv_bytes(srv)
+    made, ticks, real = [], [0], srv.tick
+
+    class Recording(S.Sampler):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            self.seen = []
+            made.append(self)
+
+        def sample(self, logits):
+            if keep:
+                self.seen.append(np.array(logits, np.float32))
+            return super().sample(logits)
+
+    def tick():
+        ticks[0] += 1
+        real()
+    srv.tick = tick
+    sampler, S.Sampler = S.Sampler, Recording
+    t0 = time.perf_counter()
+    try:
+        out = []
+        for i, p in enumerate(reqs):
+            if mid and i == len(reqs) - 1:
+                for _ in range(mid):
+                    srv.tick()
+            out.append(srv.submit(p, max_tokens=SERVE_TOKENS, temperature=0.0))
+            if one_by_one:
+                srv.run_until_drained(max_ticks=500)
+        srv.run_until_drained(max_ticks=500)
+        torch.cuda.synchronize()
+    finally:
+        S.Sampler = sampler
+        del srv.tick  # the wrapper holds the server: no cycle outlives the case
+    wall = time.perf_counter() - t0
+    if not all(r.done for r in out) or len(made) != len(out):
+        fail(f"a served request did not finish ({[r.done for r in out]})")
+    res = dict(ids=[list(r.ids) for r in out], seen=[m.seen for m in made] if keep else None,
+               ticks=ticks[0], wall=wall, alloc=alloc, counted=param_bytes(srv.engine.weights),
+               cached=[r.cached_prefix for r in out],
+               hits=None if srv.prefix_cache is None else srv.prefix_cache.hits,
+               pages=None if srv._paged is None else srv._paged.pages_in_use())
+    del srv
+    torch.cuda.empty_cache()
+    return res
+
+
+def serving_rank(rank, dev, sv) -> dict:
+    """One rank of the sharded serving cases (i)-(k) (``serve_plan``):
+    every rank of a case's mesh constructs the Server and makes the same
+    submit() calls, ticking in lockstep. Returns {case: served_case's
+    result} (the logits from the first rank of each mesh or host)."""
+    from calm_tpu_torch.parallel import ShardingPlan, make_mesh, make_multihost_mesh
+    from calm_tpu_torch.serve import Server
+
+    out = {}
+    mesh = make_mesh(tp=2, dp=2, device=dev)
+    out["i"] = served_case(lambda: Server(sv["path"], batch=4, mesh=mesh,
+                                          plan=ShardingPlan(tp="tp", dp="dp")),
+                           sv["i"], dev, rank == 0, mid=SERVE_MID)
+    mesh = make_mesh(tp=4, device=dev)
+    out["j"] = served_case(lambda: Server(sv["path"], batch=2, mesh=mesh,
+                                          plan=ShardingPlan(tp="tp"), page_rows=16,
+                                          prefix_cache_tokens=4096),
+                           sv["j"], dev, rank == 0, one_by_one=True)
+    os.environ["LOCAL_WORLD_SIZE"] = "2"  # two hosts of two ranks
+    try:
+        mesh = make_multihost_mesh(tp=2, dp_dcn=2, device=dev)
+        host = rank // 2
+        out["k"] = dict(served_case(lambda: Server(sv["path"], batch=4, mesh=mesh,
+                                                   plan=ShardingPlan(tp="tp", dp="dp")),
+                                    sv["k"][host], dev, rank % 2 == 0), host=host)
+    finally:
+        del os.environ["LOCAL_WORLD_SIZE"]
+    return out
+
+
+def sharded_serving_checks(res, sv, dev, smi):
+    """(i)-(k) against the unsharded Server on the same container in this
+    process: greedy ids equal but at near-ties (``same_served``), every
+    request done, (j)'s second request served from the cache, the ranks of
+    a mesh (or a host) with the same ids, and each rank's weight bytes
+    about 1/tp of the unsharded model's."""
+    import gc
+
+    from calm_tpu_torch.engine import Engine
+    from calm_tpu_torch.serve import Server
+
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    eng = Engine(sv["path"], batch=4, device=dev)
+    torch.cuda.synchronize()
+    whole = torch.cuda.memory_allocated(dev) - base - 2 * eng.cache.k.numel() * \
+        eng.cache.k.element_size()
+    ref = {"i": served_case(lambda: Server(batch=4, engine=eng), sv["i"], dev, True,
+                            mid=SERVE_MID),
+           "k": served_case(lambda: Server(batch=4, engine=eng),
+                            sv["k"][0] + sv["k"][1], dev, True)}
+    del eng
+    torch.cuda.empty_cache()
+    ref["j"] = served_case(lambda: Server(sv["path"], batch=2, page_rows=16,
+                                          prefix_cache_tokens=4096, device=dev),
+                           sv["j"], dev, True, one_by_one=True)
+    what = {"i": "(i) Server(mesh, plan) tp=2 x dp=2, 4 requests of 64-256 tokens (the "
+                 f"last admitted after {SERVE_MID} ticks)",
+            "j": "(j) mesh-paged tp=4, 16-row pages, a prefix cache, two requests sharing "
+                 "a 64-token prompt",
+            "k": "(k) two hosts of tp=2 (dp across hosts), two requests a host"}
+    tp = {"i": 2, "j": 4, "k": 2}
+    for case in "ijk":
+        got = [r[case] for r in res]
+        if case == "k":
+            want = {h: [ids for ids in ref["k"]["ids"][2 * h:2 * h + 2]] for h in (0, 1)}
+            lcs = {h: ref["k"]["seen"][2 * h:2 * h + 2] for h in (0, 1)}
+            keep = {g["host"]: g for g, r in zip(got, range(4)) if r % 2 == 0}
+            pairs = [(f"host {h} request {n}", keep[h]["ids"][n], want[h][n],
+                      keep[h]["seen"][n], lcs[h][n]) for h in (0, 1) for n in range(2)]
+            if any(g["ids"] != keep[g["host"]]["ids"] for g in got):
+                fail(f"sharded serving {what[case]}: the ranks of a host disagree")
+        else:
+            if any(g["ids"] != got[0]["ids"] for g in got):
+                fail(f"sharded serving {what[case]}: the ranks disagree")
+            pairs = [(f"request {n}", got[0]["ids"][n], ref[case]["ids"][n],
+                      got[0]["seen"][n], ref[case]["seen"][n])
+                     for n in range(len(ref[case]["ids"]))]
+        res_ = [f"{name} " + same_served(f"sharded serving {what[case]} {name}", g, w, 0.0,
+                                         lg, lc, TOL_PREFILL)
+                for name, g, w, lg, lc in pairs]
+        extra = ""
+        if case == "j":
+            if (got[0]["cached"] != ref["j"]["cached"] or got[0]["cached"][1] != 64
+                    or got[0]["hits"] != 1 or got[0]["pages"] != 0):
+                fail(f"sharded serving {what[case]}: cached prefixes {got[0]['cached']} "
+                     f"(unsharded {ref['j']['cached']}), hits {got[0]['hits']}, pages in "
+                     f"use {got[0]['pages']}")
+            extra = (f"; the second request took {got[0]['cached'][1]} prefix rows from the "
+                     f"cache (1 hit), pages in use after 0")
+        share = [g["alloc"] / whole for g in got]
+        if any(not 0.9 / tp[case] <= x <= 1.1 / tp[case] for x in share):
+            fail(f"sharded serving {what[case]}: weight bytes a rank {[g['alloc'] for g in got]}"
+                 f" against {whole} unsharded, not about 1/{tp[case]}")
+        log(f"# sharded serving {what[case]}: " + "; ".join(res_) + extra
+            + f"; {got[0]['ticks']} ticks, {max(g['wall'] for g in got):.2f} s (unsharded "
+            f"{ref[case]['ticks']} ticks, {ref[case]['wall']:.2f} s; ranks share one card, no "
+            f"speed result); weight bytes a rank by torch.cuda.memory_allocated after the "
+            f"load {[g['alloc'] for g in got]} ({', '.join(f'{x:.4f}' for x in share)} of "
+            f"the unsharded {whole}; counted {[g['counted'] for g in got]}) on {smi}")
+
+
 def near_ties(what, got, want, tol) -> tuple[float, int]:
     """Per-step logits (N, V) against the reference's: the largest error
     relative to each step's max |logit|, and the near-ties among the
@@ -5507,6 +5896,8 @@ def sharded_phases(dev, smi):
                "b": torch.randint(3, MISTRAL["vocab_size"], (PROMPT_B,), generator=gen).tolist()}
     prompts["g"] = torch.randint(3, MISTRAL["vocab_size"], (CTX_G,), generator=gen).tolist()
     first_e = torch.randint(3, MISTRAL["vocab_size"], (B_E,), generator=gen).tolist()
+    stmp = tempfile.TemporaryDirectory()
+    prompts["serve"] = serve_plan(stmp.name)
     t0 = time.perf_counter()
     ref = {"a": sharded_reference("a", dev, prompts["a"], STEPS_A),
            "b": sharded_reference("b", dev, prompts["b"], STEPS_B),
@@ -5521,6 +5912,11 @@ def sharded_phases(dev, smi):
                 device=dev, timeout_s=900)
     log(f"# sharded phases: unsharded references {t_ref:.1f} s, 4 ranks spawned on one "
         f"card {time.perf_counter() - t0 - t_ref:.1f} s")
+    t1 = time.perf_counter()
+    sharded_serving_checks(res, prompts["serve"], dev, smi)
+    stmp.cleanup()
+    log(f"# sharded serving (i)-(k): the unsharded references and checks "
+        f"{time.perf_counter() - t1:.1f} s")
     what = {"a": f"(a) Mistral-7B fp8 {LAYERS_A} layers, tp=2 x sp=2, sp prefill of "
                  f"{CTX_A} then {STEPS_A} steps",
             "b": f"(b) Mixtral 8x7B fp8 {LAYERS_B} layers, ep=2, prefill of {PROMPT_B} "
@@ -5798,6 +6194,7 @@ def main():
         key = (fmt, experts, cohere)
         return container_phase(paths[key], refs[key], fmt, dev, experts, cohere)
     log(f"# containers written, their CPU side started at {time.perf_counter() - t_start:.1f} s")
+    native_checks(list(paths.values()), "2-layer")
     build_s = build.build_all()
     gbps = info.hbm_gbps or 3350.0
     log(f"# probe: {smi}; torch {info.torch_version} cuda {info.cuda_version} "

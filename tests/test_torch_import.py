@@ -29,7 +29,7 @@ MODULES = ["calm_tpu_torch", "calm_tpu_torch.config", "calm_tpu_torch.container"
            "calm_tpu_torch.parallel.mesh", "calm_tpu_torch.parallel.sharding",
            "calm_tpu_torch.parallel.pipeline", "calm_tpu_torch.profiler",
            "calm_tpu_torch.ops.cost", "calm_tpu_torch.tools.sol",
-           "calm_tpu_torch.tools.perf"]
+           "calm_tpu_torch.tools.perf", "calm_tpu_torch.native"]
 
 
 def test_import_leaves_jax_out():
@@ -48,7 +48,8 @@ def test_import_leaves_jax_out():
 def _py_files():
     # the rank bodies of the sharded tests run in spawned ranks: jax-free too
     out = [os.path.join(ROOT, "chip_smoke.py"),
-           os.path.join(ROOT, "tests", "test_torch_parallel_ranks.py")]
+           os.path.join(ROOT, "tests", "test_torch_parallel_ranks.py"),
+           os.path.join(ROOT, "tests", "test_torch_serve_ranks.py")]
     for d, _, files in os.walk(PKG):
         out += [os.path.join(d, f) for f in files if f.endswith(".py")]
     return out
@@ -79,6 +80,31 @@ def test_spawned_rank_imports_no_jax():
 
     out = spawn(R.modules_case, 2, FORBIDDEN, device="cpu", timeout_s=120)
     assert out == [[], []]
+
+
+def test_serving_paths_import_no_jax(tmp_path):
+    """A process that serves through the sharded, mesh-paged and group
+    paths of ``serve``, ``paged`` and ``httpd`` and tokenizes through
+    ``native`` has imported neither JAX nor the JAX package."""
+    from tests.modelgen import tiny_config, write_tiny_model
+
+    p = str(tmp_path / "m.calm")
+    write_tiny_model(p, tiny_config(dtype="fp16", seq_len=64), seed=1)
+    code = ("import sys\n"
+            "from calm_tpu_torch import httpd, native, paged\n"
+            "from calm_tpu_torch.serve import Server\n"
+            f"srv = Server({p!r}, batch=2, page_rows=16, dp_devices=['cpu', 'cpu'])\n"
+            "r = srv.submit('hello', max_tokens=3, temperature=0.0)\n"
+            "srv.run_until_drained()\n"
+            "assert r.done and native.available() and srv.engine.tokenizer._native\n"
+            f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
+            "sys.exit(f'imported {bad}' if bad else 0)\n")
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    env.pop("CALM_TPU_NO_NATIVE", None)
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
 
 
 def test_triton_only_inside_functions():

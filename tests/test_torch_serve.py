@@ -20,7 +20,6 @@ import torch
 from calm_tpu import serve as JS
 from calm_tpu_torch import httpd as TH
 from calm_tpu_torch import serve as TS
-from calm_tpu_torch.paged import PagedGroup
 from calm_tpu_torch.sampler import device_sample
 from tests.modelgen import tiny_config, write_tiny_model
 
@@ -209,18 +208,22 @@ def test_watchdog_fires_while_starved(model_path):
 
 
 @pytest.mark.parametrize("kw", [dict(mesh=object()), dict(dp_devices=["cuda:0"])])
-def test_unported_server_options_raise(kw):
-    with pytest.raises(NotImplementedError):
-        TS.Server("unused.calm", **kw)
-    with pytest.raises(NotImplementedError):
-        PagedGroup()
+def test_unported_server_options_raise(model_path, kw):
+    """Sharded and dp-paged serving run now (test_torch_shard_serve.py,
+    test_torch_paged_group.py); beside a mesh or pages what stays refused
+    is what JAX refuses, as a ValueError before anything loads: here
+    speculative serving (calm_tpu/serve.py:328-329)."""
+    with pytest.raises(ValueError, match="speculative"):
+        TS.Server(model_path, page_rows=16, draft_path=model_path, device="cpu", **kw)
 
 
 @pytest.mark.parametrize("flag", [["--dp", "2"]])
 def test_httpd_unported_flags_exit_2(model_path, flag, capsys):
+    """``--dp`` runs now; without ``--page-rows`` it exits 2, as JAX's
+    asserts (calm_tpu/httpd.py:296-297)."""
     with pytest.raises(SystemExit) as e:
         TH.main([model_path] + flag)
-    assert e.value.code == 2 and "not yet ported" in capsys.readouterr().err
+    assert e.value.code == 2 and "--dp needs --page-rows" in capsys.readouterr().err
 
 
 def test_scheduler_threads_stress(model_path):

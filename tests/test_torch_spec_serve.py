@@ -198,7 +198,7 @@ def test_paged_server_with_a_draft_is_refused(paths):
     with pytest.raises(ValueError):
         TS.Server(paths["target"], batch=2, page_rows=16, draft_path=paths["self"],
                   device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="speculative"):
         TS.Server(paths["target"], batch=2, mesh=object(), draft_path=paths["self"])
 
 
