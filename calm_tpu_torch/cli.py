@@ -10,9 +10,9 @@ Env hooks:
   CALM_TOKENS=1  dump prompt token ids
   CALM_POSO=N    offset positions by N (late-context decode profiling)
   CALM_CPU=1     run on the CPU (plain PyTorch path); the GPU otherwise
-  CALM_PRECISE=1 as --precise: the prefill's products past 16 rows in
-                 f32 instead of bf16, decode per op (the card's 2-16-row
-                 matvecs as by default: x in two f16 terms, f32 sums)
+  CALM_PRECISE=1 as --precise: the prefill's products past 64 rows in
+                 f32 instead of bf16, decode per op (the card's 2-64-row
+                 matvecs: x in two f16 terms, f32 sums)
 
 -x prints ``# perplexity: P ± E``; -y chats (-n bounds each reply, -1
 leaves it unbounded). ``-t > 0`` samples on the device;
@@ -69,8 +69,8 @@ def main(argv=None):
     ap.add_argument("--kv", dest="kv", type=str, default=None,
                     choices=["bf16", "fp16", "fp8"], help="KV cache dtype")
     ap.add_argument("--precise", action="store_true",
-                    help="f32 products past 16 rows (2-16 rows as by default: x in "
-                    "two f16 terms, f32 sums); also CALM_PRECISE=1")
+                    help="f32 products past 64 rows (2-64 rows: x in two f16 terms, "
+                    "f32 sums); also CALM_PRECISE=1")
     ap.add_argument("--reference-sampling", action="store_true",
                     help="per-token host sampling with the reference's "
                     "xorshift64* stream (default: on the device)")

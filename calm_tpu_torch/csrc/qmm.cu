@@ -1,5 +1,6 @@
-// Dequantizing matvecs over layer-stacked fp8-e5m2 / fp16 weights and
-// natural gf4 words, for decode (B <= 16 activation rows).
+// Dequantizing matvecs over layer-stacked fp8-e5m2 / fp16 / e4m3 weights
+// and natural gf4 words, for decode and a verify's rows (B <= 64 activation
+// rows; the fused epilogues B <= 16).
 //
 // Replaces six Pallas kernels of calm_tpu/ops/pallas_qmm.py:
 //   - _layered_qmm_kernel (:92, via qmm_decode :219): y = x . W[layer]^T
@@ -224,6 +225,47 @@
 //     qmv_kernel and the dense mmv_kernel (per-op decode: JAX's fused
 //     epilogue takes fp8/fp16 only, calm_tpu/model.py:1231), and the MOE
 //     dual and w2 instantiations.
+//
+// The wide multi-row path (17 <= B <= 64 rows; mmw_kernel): K2
+// calm_qmm_decode (fp16, e5m2, e4m3, gf4: K3), and the MoE sweep's K10
+// calm_moe_mmv and expert FFN calm_moe_ffn (K11 on gf4 words), where JAX
+// runs these products in XLA (calm_tpu/ops/qmm.py:189-205, bf16 operands
+// and f32 sums; the MoE per-token vmap, calm_tpu/model.py:829-857): a
+// speculative verify's 8 x 5 rows, a tick of 17-64 slots.
+//   - What bounds it: still the weight bytes, read once for every row; at
+//     64 rows a weight byte (fp8) carries 128 operations, under the card's
+//     ~295 for bf16 tensor cores, but near what mma.sync sustains, so x
+//     takes one f16 term by default (one mma a tile and step, half of
+//     mmv_kernel's) and the tiles past B are skipped at run time.
+//   - The 2-16-row design reads x's fragments per warp from global
+//     memory, 2 bytes of x per weight byte and 16-row tile (hi + lo); at
+//     64 rows that is 8 bytes per weight byte, and its per-chunk scales
+//     keep a second set of accumulators live (2 x 64 registers a lane at
+//     64 rows). Here x is staged once a launch with one scale a row
+//     (split_rows_kernel: 2^e >= the row's max |x|, hi = f16(x 2^-e), lo =
+//     f16(x 2^-e - hi) only under --precise), so the mma sums go straight
+//     into the accumulators and the row's scale multiplies them once at
+//     the end; a warp holds 32 output rows (two m-tiles) of one weight, so
+//     each x fragment serves two m-tiles: B / 16 bytes of x per weight
+//     byte (fp8), read through L1.
+//   - f16 with a row's scale is exact for e5m2, e4m3 and fp16 weights and
+//     carries x to 2^-11 of each value down to 2^-14 of the row's max,
+//     finer than JAX's bf16 operand (2^-8); --precise adds lo, x to 2^-22,
+//     and sums each chunk apart (a run of 64 mma sums read 1.4e-6 of a
+//     row's max from the float64 product on an H100; PERF.md).
+//   - Latency, not bytes, set the pace of the first design on an H100
+//     (17-24% of the byte bound, the time linear in B: each step waited on
+//     its x fragments from L2). Now a lane's weights of a chunk come
+//     through a ring of chunks in shared memory by cp.async (its own bytes
+//     only, no barrier; WIDE_RING bytes a warp), and x's fragments are
+//     loaded WIDE_XAHEAD steps ahead of the step that multiplies, in
+//     registers budgeted for one block an SM (WIDE_BLOCKS): PERF.md has
+//     the timings of each variant.
+//   - The dual w1/w3 launch keeps one m-tile of both weights; rows of an
+//     odd gf4 word count keep one m-tile (4-byte copies); k is split by
+//     qmv_plan as at 2-16 rows, to about 8 warps an SM, and the partial
+//     accumulators meet in shared memory (the ring's) in rounds of 16 a
+//     lane.
 //
 // The quality mode (--precise, calm_tpu/ops/qmm.py:190-197: JAX's f32
 // product at Precision.HIGHEST) takes the same multi-row path at 2-16 rows,
@@ -727,6 +769,12 @@ struct MArgs {
   size_t xslot;   // uint4 fragments from one slot's staged x to the next (0: shared)
   size_t scslot;  // floats from one slot's scales to the next (0: shared)
   size_t oslot;   // floats from one slot's output to the next
+  // the wide path (mmw_kernel): x's terms (1, or 2 under --precise), the
+  // uint2 fragments from a staging's hi to its lo, and the launch's first
+  // row of x (under --precise a launch takes WIDE_PREC_ROWS of them)
+  int terms;
+  size_t lo;
+  int b0;
 };
 
 __device__ __forceinline__ void mma16816(float (&d)[4], uint32_t a0, uint32_t a1,
@@ -1106,6 +1154,483 @@ cudaError_t launch_mmv(int fmt, MArgs a, const int* plan, cudaStream_t st, int s
                   : launch_mmv_mt<0, ACT, false, MOE>(a, mt, nt, g, st);
 }
 
+// ---------------------------------------------------------------------------
+// The wide multi-row path: 17 <= B <= 64 rows of x (see the note at the
+// top), every format, with or without the MoE slot axis.
+// ---------------------------------------------------------------------------
+
+#define WIDE_ROWS 64       // rows of x the wide path takes, at most
+#define WIDE_NT 8          // 8-row n-tiles a warp holds (those past B are skipped)
+#define WIDE_PREC_ROWS 32  // --precise: rows of x a launch (4 n-tiles, one m-tile)
+#define WIDE_RING 8192     // bytes of a warp's ring of weight chunks in shared memory
+#define WIDE_BLOCKS 1      // blocks an SM the registers are budgeted for
+#define WIDE_XAHEAD 2      // steps of x loaded ahead of the one that multiplies (< 4)
+#define WIDE_RED 16        // accumulators a lane a round of the k split's sums
+
+// One row of the wide staging, block b = blockIdx.x of slot blockIdx.y
+// (rows z B .. z B + B - 1 of x, the MoE sweep's h): m = max |x| of the row,
+// 2^e > m (e = 0 for a row of zeros, as stage4), hi = f16(x 2^-e) as uint2
+// {hi01, hi23} at xs[((chunk * 4 + s) * WIDE_ROWS + b) * 4 + t] for the
+// float4 c = 16 chunk + 4 t + s of the row (the order mmw_kernel's lanes
+// read), and under terms 2 lo = f16(x 2^-e - hi) at xs + lo in the same
+// order; sc[b] = 2^e. Chunks that n cuts are written whole, zeros past n.
+__global__ void __launch_bounds__(SPLIT_THREADS)
+    split_rows_kernel(const float* x, uint2* xs, float* sc, int n, int terms, size_t lo,
+                      size_t xslot, size_t scslot) {
+  __shared__ float red[SPLIT_THREADS / 32];
+  const int b = blockIdx.x, n4 = n >> 2, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const float4* xr =
+      reinterpret_cast<const float4*>(x + ((size_t)blockIdx.y * gridDim.x + b) * n);
+  xs += blockIdx.y * xslot;
+  sc += blockIdx.y * scslot;
+  float m = 0.f;
+  for (int c = threadIdx.x; c < n4; c += SPLIT_THREADS) {
+    const float4 v = xr[c];
+    m = fmaxf(m, fmaxf(fmaxf(fabsf(v.x), fabsf(v.y)), fmaxf(fabsf(v.z), fabsf(v.w))));
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+  if (lane == 0) red[warp] = m;
+  __syncthreads();
+  m = 0.f;
+#pragma unroll
+  for (int i = 0; i < SPLIT_THREADS / 32; i++) m = fmaxf(m, red[i]);
+  int e;
+  frexpf(m, &e);  // m = f 2^e, f in [0.5, 1): |x 2^-e| < 1 (e = 0 for m = 0)
+  const float inv = ldexpf(1.0f, -e);
+  const int c_end = ((n4 + 15) >> 4) << 4;  // whole chunks
+  for (int c = threadIdx.x; c < c_end; c += SPLIT_THREADS) {
+    const float4 v = c < n4 ? xr[c] : make_float4(0.f, 0.f, 0.f, 0.f);
+    const float f[4] = {v.x * inv, v.y * inv, v.z * inv, v.w * inv};
+    __half hi[4], lw[4];
+#pragma unroll
+    for (int j = 0; j < 4; j++) {
+      hi[j] = __float2half_rn(f[j]);
+      lw[j] = __float2half_rn(f[j] - __half2float(hi[j]));  // the difference is exact
+    }
+    const int chunk = c >> 4, t = (c >> 2) & 3, s = c & 3;
+    const size_t o = ((size_t)(chunk * 4 + s) * WIDE_ROWS + b) * 4 + t;
+    xs[o] = make_uint2(h2bits(hi[0], hi[1]), h2bits(hi[2], hi[3]));
+    if (terms == 2) xs[lo + o] = make_uint2(h2bits(lw[0], lw[1]), h2bits(lw[2], lw[3]));
+  }
+  if (threadIdx.x == 0) sc[b] = ldexpf(1.0f, e);
+}
+
+template <int FMT, int ACT, int MT, bool PREC>
+struct Wide {
+  using W = MW<FMT>;
+  static constexpr int DUAL = ACT ? 2 : 1;
+  static constexpr int NT = PREC ? WIDE_PREC_ROWS / 8 : WIDE_NT;
+  static constexpr int PIECES = DUAL * MT * 2;     // (weight, m-tile, half) a lane loads
+  static constexpr int LANE = PIECES * W::B16;     // weight bytes a lane a chunk
+  // chunks in the ring: WIDE_RING bytes a warp, at most 8
+  static constexpr int S = WIDE_RING / (32 * LANE) < 8 ? WIDE_RING / (32 * LANE) : 8;
+  static constexpr size_t SMEM = (size_t)WARPS * S * 32 * LANE;  // dynamic shared memory
+  static_assert(S >= 2, "two chunks in the ring at least");
+  static_assert(SMEM >= (size_t)WARPS * WIDE_RED * 32 * 4, "the k split's sums reuse the ring");
+};
+
+// 16 bytes (8 for gf4, 4 + 4 for ODD gf4) of global memory to shared
+// memory by cp.async, bypassing registers; src_size 0 writes zeros (a
+// lane's values past the row)
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst), "l"(src),
+               "r"(ok ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async8(uint32_t dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;" ::"r"(dst), "l"(src),
+               "r"(ok ? 8 : 0));
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(dst), "l"(src),
+               "r"(ok ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;"); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N));
+}
+
+// One warp: MT 16-row m-tiles of one row group x chunks [c0, c1) of k, for
+// the ceil(B / 8) 8-row n-tiles of x that B fills (of NT), rows b0 .. b0 +
+// B - 1 of the staging. Lanes, fragments, the k split, the segments and
+// the MOE slot axis as mmv_kernel's. A lane's weights of a chunk go
+// through a ring of S chunks in shared memory by cp.async, its own bytes
+// only (no barrier), S - 1 chunks in flight while one computes; x's
+// fragments are the wide staging's (split_rows_kernel), loaded
+// WIDE_XAHEAD steps ahead in registers, one scale a row applied to the
+// sums at the end. Default: one term, the mma sums straight
+// into the accumulators (WIDE_NT n-tiles). PREC (--precise): hi and lo,
+// each chunk's sums into a second set of accumulators and then added, as
+// mmv_kernel's (a run of 64 mma sums on the tensor cores read ~1.4e-6 of a
+// row's max from the float64 product on an H100, against ~2.8e-7 so);
+// the registers of both sets hold WIDE_PREC_ROWS rows of x, so a call of
+// more rows launches once for each 32. FMT 3: each weight's sum times its
+// scale, as mmv_kernel.
+template <int FMT, int ACT, int MT, bool ODD, bool MOE = false, bool PREC = false>
+__global__ void __launch_bounds__(WARPS * 32, WIDE_BLOCKS) mmw_kernel(MArgs a) {
+  using K = Wide<FMT, ACT, MT, PREC>;
+  using W = MW<FMT>;
+  constexpr int NW = W::WORDS;
+  constexpr int DUAL = K::DUAL, NT = K::NT, S = K::S, LANE = K::LANE;
+  constexpr int GR = 16 * MT;
+  constexpr int NACC = DUAL * MT * NT * 4;
+  constexpr int XCH = 4 * WIDE_ROWS * 4;  // uint2 fragments of one term a chunk
+  static_assert(NACC % WIDE_RED == 0, "the k split's rounds");
+  extern __shared__ __align__(16) uint8_t ring[];
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int ks = a.ks;
+  const int grp = blockIdx.x * (WARPS / ks) + warp / ks, kw = warp % ks;
+  const int g0 = (a.seg[0].rows + GR - 1) / GR;
+  const int g1 = a.nseg > 1 ? (a.seg[1].rows + GR - 1) / GR : 0;
+  const int g2 = a.nseg > 2 ? (a.seg[2].rows + GR - 1) / GR : 0;
+  const bool live = grp < g0 + g1 + g2;
+  Seg sg = a.seg[0];
+  int r0 = grp * GR;
+  if (live && grp >= g0) {
+    const bool one = grp < g0 + g1;
+    sg = one ? a.seg[1] : a.seg[2];
+    r0 = (one ? grp - g0 : grp - g0 - g1) * GR;
+  }
+  const int nc = (a.n + CH - 1) / CH;
+  const int c0 = live ? kw * nc / ks : 0, c1 = live ? (kw + 1) * nc / ks : 0;
+  const uint2* xs = reinterpret_cast<const uint2*>(a.xs);
+  const float* scs = a.sc;
+  if constexpr (MOE) {  // the block's slot: every warp of it returns here, or none
+    const int slot = blockIdx.y;
+    sg.out += (size_t)slot * a.oslot;
+    const int e = slot < __ldg(a.cnt) ? min(max(__ldg(a.eidx + slot), 0), a.E - 1) : -1;
+    if (e < 0) {  // a dead slot: zeros, and no weight read
+      if (kw == 0 && live)
+        for (int i = lane; i < GR * a.B; i += 32) {
+          const int row = r0 + i % GR;
+          if (row < sg.rows) sg.out[(size_t)(a.b0 + i / GR) * sg.ld + row] = 0.f;
+        }
+      return;
+    }
+    sg.w += (size_t)e * a.wslot;
+    if (ACT) sg.w3 += (size_t)e * a.wslot;
+    if constexpr (FMT == 3) {
+      sg.s += e;
+      if (ACT) sg.s3 += e;
+    }
+    xs += (size_t)slot * a.xslot;
+    scs += (size_t)slot * a.scslot;
+  }
+  const int ntl = (a.B + 7) >> 3;  // n-tiles that B fills
+
+  const size_t rb = (size_t)(a.n / 16) * W::B16 + (ODD ? 4 : 0);
+  const uint8_t* wp[DUAL][MT][2];
+#pragma unroll
+  for (int m = 0; m < MT; m++)
+#pragma unroll
+    for (int h = 0; h < 2; h++) {
+      const int row = min(r0 + 16 * m + 8 * h + g, sg.rows - 1);  // past rows: discarded
+      const size_t off = (size_t)row * rb + (size_t)c0 * 4 * W::B16 + t * W::B16;
+      wp[0][m][h] = sg.w + off;
+      if (ACT) wp[DUAL - 1][m][h] = sg.w3 + off;
+    }
+  // this lane's bytes of stage st, piece p: lane-major, so that a warp's
+  // copy and read of a piece are whole contiguous rows of banks
+  const uint32_t mine = (uint32_t)__cvta_generic_to_shared(ring) +
+                        (uint32_t)(warp * S * 32 * LANE + lane * W::B16);
+  // chunk c (c0 + i) of the weights into stage i % S; chunks past c1 or
+  // values past the row (the row's last chunk) as zeros
+  auto fill = [&](int i) {
+    const int c = c0 + i;
+    const int left = a.n - (c * CH + 16 * t);  // values of the row from the lane's first
+    const bool ok = c < c1 && left > 0;
+    const uint32_t st = mine + (uint32_t)((i % S) * K::PIECES * 32 * W::B16);
+#pragma unroll
+    for (int d = 0; d < DUAL; d++)
+#pragma unroll
+      for (int m = 0; m < MT; m++)
+#pragma unroll
+        for (int h = 0; h < 2; h++) {
+          const int p = (d * MT + m) * 2 + h;
+          const uint8_t* src = wp[d][m][h] + (size_t)i * 4 * W::B16;
+          const uint32_t dst = st + (uint32_t)(p * 32 * W::B16);
+          if constexpr (ODD) {  // 4-byte aligned words; the second zero past the row
+            cp_async4(dst, src, ok);
+            cp_async4(dst + 4, src + 4, ok && left > 8);
+          } else if constexpr (W::B16 == 8) {
+            cp_async8(dst, src, ok);
+          } else {
+#pragma unroll
+            for (int j = 0; j < W::B16; j += 16) cp_async16(dst + j, src + j, ok);
+          }
+        }
+  };
+  // lane (g, t)'s fragment of step 0 of chunk c0, n-tile 0 (row b0 + g)
+  const uint2* xp = xs + (size_t)c0 * XCH + (a.b0 + g) * 4 + t;
+  uint32_t k1024;
+  asm("mov.b32 %0, 0x64006400;" : "=r"(k1024));
+
+  float acc[DUAL][MT][NT][4];
+#pragma unroll
+  for (int d = 0; d < DUAL; d++)
+#pragma unroll
+    for (int m = 0; m < MT; m++)
+#pragma unroll
+      for (int nt = 0; nt < NT; nt++)
+#pragma unroll
+        for (int i = 0; i < 4; i++) acc[d][m][nt][i] = 0.f;
+
+#pragma unroll
+  for (int i = 0; i < S - 1; i++) {
+    fill(i);
+    cp_async_commit();
+  }
+  // x's fragments of (chunk i, step s) into dst (lo into dl under PREC),
+  // zeros for x rows past B and when !ok; WIDE_XAHEAD steps ahead, in
+  // four buffers indexed by the step (the indices stay constants)
+  uint2 xf[4][NT], xl[4][PREC ? NT : 1];
+  auto loadx = [&](int i, int s, uint2 (&dst)[NT], uint2 (&dl)[PREC ? NT : 1], bool ok) {
+    const uint2* xq = xp + (size_t)i * XCH + s * WIDE_ROWS * 4;
+#pragma unroll
+    for (int nt = 0; nt < NT; nt++) {
+      const bool in = ok && nt * 8 + g < a.B;
+      dst[nt] = in ? __ldg(xq + nt * 32) : make_uint2(0u, 0u);
+      if constexpr (PREC) dl[nt] = in ? __ldg(xq + a.lo + nt * 32) : make_uint2(0u, 0u);
+    }
+  };
+#pragma unroll
+  for (int s = 0; s < WIDE_XAHEAD; s++)
+    loadx(0, s, xf[s], xl[s], c0 < c1);
+  for (int i = 0; c0 + i < c1; i++) {
+    fill(i + S - 1);  // into the stage read last round
+    cp_async_commit();
+    cp_async_wait<S - 1>();  // chunk i has landed
+    uint32_t q[DUAL][MT][2][NW];
+    const uint32_t st = mine + (uint32_t)((i % S) * K::PIECES * 32 * W::B16);
+#pragma unroll
+    for (int d = 0; d < DUAL; d++)
+#pragma unroll
+      for (int m = 0; m < MT; m++)
+#pragma unroll
+        for (int h = 0; h < 2; h++) {
+          const uint32_t src = st + (uint32_t)(((d * MT + m) * 2 + h) * 32 * W::B16);
+          if constexpr (NW == 2) {
+            asm volatile("ld.shared.v2.u32 {%0, %1}, [%2];"
+                         : "=r"(q[d][m][h][0]), "=r"(q[d][m][h][1]) : "r"(src));
+          } else {
+#pragma unroll
+            for (int j = 0; j < NW; j += 4)
+              asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];"
+                           : "=r"(q[d][m][h][j]), "=r"(q[d][m][h][j + 1]),
+                             "=r"(q[d][m][h][j + 2]), "=r"(q[d][m][h][j + 3])
+                           : "r"(src + 4 * j));
+          }
+        }
+    // PREC: this chunk's sums, added to acc after it; else acc itself
+    float p[PREC ? DUAL : 1][PREC ? MT : 1][PREC ? NT : 1][4];
+    if constexpr (PREC) {
+#pragma unroll
+      for (int d = 0; d < DUAL; d++)
+#pragma unroll
+        for (int m = 0; m < MT; m++)
+#pragma unroll
+          for (int nt = 0; nt < NT; nt++)
+#pragma unroll
+            for (int j = 0; j < 4; j++) p[d][m][nt][j] = 0.f;
+    }
+#pragma unroll
+    for (int s = 0; s < 4; s++) {
+      // x of step s + WIDE_XAHEAD (of the next chunk past step 3) in
+      // flight while this one multiplies
+      loadx(i + (s + WIDE_XAHEAD) / 4, (s + WIDE_XAHEAD) & 3, xf[(s + WIDE_XAHEAD) & 3],
+            xl[(s + WIDE_XAHEAD) & 3], s + WIDE_XAHEAD < 4 || c0 + i + 1 < c1);
+      uint32_t af[DUAL][MT][4];
+#pragma unroll
+      for (int d = 0; d < DUAL; d++)
+#pragma unroll
+        for (int m = 0; m < MT; m++) {
+          W::frag(q[d][m][0], s, k1024, af[d][m][0], af[d][m][2]);  // row g
+          W::frag(q[d][m][1], s, k1024, af[d][m][1], af[d][m][3]);  // row g + 8
+        }
+#pragma unroll
+      for (int nt = 0; nt < NT; nt++) {
+        if (nt < ntl) {  // warp-uniform: tiles past B are skipped
+          const uint2 xv = xf[s][nt], xw = xl[s][PREC ? nt : 0];
+#pragma unroll
+          for (int d = 0; d < DUAL; d++)
+#pragma unroll
+            for (int m = 0; m < MT; m++) {
+              const uint32_t(&f)[4] = af[d][m];
+              if constexpr (PREC) {
+                mma16816(p[d][m][nt], f[0], f[1], f[2], f[3], xv.x, xv.y);
+                mma16816(p[d][m][nt], f[0], f[1], f[2], f[3], xw.x, xw.y);
+              } else {
+                mma16816(acc[d][m][nt], f[0], f[1], f[2], f[3], xv.x, xv.y);
+              }
+            }
+        }
+      }
+    }
+    if constexpr (PREC) {
+#pragma unroll
+      for (int d = 0; d < DUAL; d++)
+#pragma unroll
+        for (int m = 0; m < MT; m++)
+#pragma unroll
+          for (int nt = 0; nt < NT; nt++)
+#pragma unroll
+            for (int j = 0; j < 4; j++) acc[d][m][nt][j] += p[d][m][nt][j];
+    }
+  }
+  cp_async_wait<0>();  // the ring's last (empty) groups, before it is reused
+
+  if (ks > 1) {  // the k split's partial sums meet in the ring, WIDE_RED a round
+    // (acc indexed by constants only: an address of it would put it in
+    // local memory for the whole kernel)
+    float* red = reinterpret_cast<float*>(ring);  // [WARPS][WIDE_RED][32]
+    __syncthreads();  // every warp is past its ring
+#pragma unroll
+    for (int r = 0; r < NACC / WIDE_RED; r++) {
+#pragma unroll
+      for (int d = 0; d < DUAL; d++)
+#pragma unroll
+        for (int m = 0; m < MT; m++)
+#pragma unroll
+          for (int nt = 0; nt < NT; nt++)
+#pragma unroll
+            for (int i = 0; i < 4; i++) {
+              const int f = ((d * MT + m) * NT + nt) * 4 + i;
+              if (f / WIDE_RED == r)
+                red[(warp * WIDE_RED + f % WIDE_RED) * 32 + lane] = acc[d][m][nt][i];
+            }
+      __syncthreads();
+      if (kw == 0)
+        for (int j = 1; j < ks; j++)
+#pragma unroll
+          for (int d = 0; d < DUAL; d++)
+#pragma unroll
+            for (int m = 0; m < MT; m++)
+#pragma unroll
+              for (int nt = 0; nt < NT; nt++)
+#pragma unroll
+                for (int i = 0; i < 4; i++) {
+                  const int f = ((d * MT + m) * NT + nt) * 4 + i;
+                  if (f / WIDE_RED == r)
+                    acc[d][m][nt][i] += red[((warp + j) * WIDE_RED + f % WIDE_RED) * 32 + lane];
+                }
+      __syncthreads();
+    }
+  }
+  if (kw != 0 || !live) return;
+
+  float s1 = 1.f, s3 = 1.f;  // e4m3: the scales of w and w3
+  if constexpr (FMT == 3) {
+    s1 = __ldg(sg.s);
+    if (ACT) s3 = __ldg(sg.s3);
+  }
+#pragma unroll
+  for (int nt = 0; nt < NT; nt++) {
+    if (nt >= ntl) break;
+    const int sl = nt * 8 + 2 * t;  // this lane's x rows b0 + sl, b0 + sl + 1
+    const float x0 = sl < a.B ? __ldg(scs + a.b0 + sl) : 0.f;
+    const float x1 = sl + 1 < a.B ? __ldg(scs + a.b0 + sl + 1) : 0.f;
+#pragma unroll
+    for (int m = 0; m < MT; m++)
+#pragma unroll
+      for (int i = 0; i < 4; i++) {
+        const int row = r0 + 16 * m + g + 8 * (i >> 1);
+        const int slot = a.b0 + sl + (i & 1);
+        if (row < sg.rows && sl + (i & 1) < a.B) {
+          const float xsc = i & 1 ? x1 : x0;
+          float y = acc[0][m][nt][i] * xsc;
+          if constexpr (FMT == 3) y *= s1;
+          if (ACT) {
+            float y3 = acc[DUAL - 1][m][nt][i] * xsc;
+            if constexpr (FMT == 3) y3 *= s3;
+            y = act_fn(ACT, y) * y3;
+          }
+          const size_t o = (size_t)slot * sg.ld + row;
+          sg.out[o] = sg.resid ? sg.resid[o] + y : y;
+        }
+      }
+  }
+}
+
+// one instantiation's launch, its dynamic shared memory allowed at first use
+template <int FMT, int ACT, int MT, bool ODD, bool MOE, bool PREC>
+void launch_mmw_one(const MArgs& a, dim3 g, cudaStream_t st) {
+  using K = Wide<FMT, ACT, MT, PREC>;
+  static const cudaError_t set = cudaFuncSetAttribute(
+      mmw_kernel<FMT, ACT, MT, ODD, MOE, PREC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)K::SMEM);
+  (void)set;  // a refusal shows as the launch's error
+  mmw_kernel<FMT, ACT, MT, ODD, MOE, PREC><<<g, WARPS * 32, K::SMEM, st>>>(a);
+}
+
+template <int ACT, bool MOE, bool PREC>
+void launch_mmw_fmt(int fmt, bool odd, const MArgs& a, dim3 g, cudaStream_t st) {
+  constexpr int MT = ACT == 0 && !PREC ? 2 : 1;
+  if (fmt == 2) {
+    if (odd)
+      launch_mmw_one<2, ACT, 1, true, MOE, PREC>(a, g, st);
+    else
+      launch_mmw_one<2, ACT, MT, false, MOE, PREC>(a, g, st);
+  } else if (fmt == 3) {
+    launch_mmw_one<3, ACT, MT, false, MOE, PREC>(a, g, st);
+  } else if (fmt == 1) {
+    launch_mmw_one<1, ACT, MT, false, MOE, PREC>(a, g, st);
+  } else {
+    launch_mmw_one<0, ACT, MT, false, MOE, PREC>(a, g, st);
+  }
+}
+
+// plan (from qmv_plan, 17-64 rows): {mt, nt, ks, grid}; by default nt =
+// WIDE_NT and mt 2 for one weight's launches of whole 16-value steps, else
+// 1 (the dual launch, gf4 rows of an odd word count); under --precise
+// (a.terms 2) nt = WIDE_PREC_ROWS / 8 and mt 1, one launch for each
+// WIDE_PREC_ROWS rows of x. MOE: grid x slots blocks.
+template <int ACT, bool MOE = false>
+cudaError_t launch_mmw(int fmt, MArgs a, const int* plan, cudaStream_t st, int slots = 1) {
+  const int mt = plan[0], nt = plan[1], ks = plan[2], grid = plan[3];
+  const bool odd = a.n % 16 != 0, prec = a.terms == 2;
+  if (mt != (ACT == 0 && !odd && !prec ? 2 : 1) ||
+      nt != (prec ? WIDE_PREC_ROWS / 8 : WIDE_NT) || a.B <= 16 || a.B > WIDE_ROWS ||
+      ks < 1 || ks > WARPS || WARPS % ks != 0 || grid < 1 || a.n < 1 ||
+      a.n % (fmt == 2 ? 8 : 16) != 0 || (a.terms != 1 && a.terms != 2) || fmt < 0 ||
+      fmt > 3 || slots < 1 || slots > 65535 ||
+      (MOE && (!a.eidx || !a.cnt || a.E < 1 || a.nseg != 1)))
+    return cudaErrorInvalidValue;
+  if (fmt == 3 && (!a.seg[0].s || (ACT && !a.seg[0].s3))) return cudaErrorInvalidValue;
+  if (ACT != 0 && !MOE) return cudaErrorInvalidValue;  // the fused epilogues stop at 16 rows
+  a.ks = ks;
+  const dim3 g(grid, slots);
+  if constexpr (ACT == 0 || MOE) {
+    if (!prec) {
+      launch_mmw_fmt<ACT, MOE, false>(fmt, odd, a, g, st);
+    } else {
+      const int B = a.B;
+      for (int b0 = 0; b0 < B; b0 += WIDE_PREC_ROWS) {
+        a.b0 = b0;
+        a.B = min(WIDE_PREC_ROWS, B - b0);
+        launch_mmw_fmt<ACT, MOE, true>(fmt, odd, a, g, st);
+      }
+    }
+  }
+  return cudaGetLastError();
+}
+
+// uint2 fragments of one term of the wide staging of n values, and the
+// floats of its scales (one a row)
+size_t wide_frags(int n) { return (size_t)((n + CH - 1) / CH) * 4 * WIDE_ROWS * 4; }
+#define WIDE_SCALES WIDE_ROWS
+
+// x (slots x B rows of n) staged for the wide path, slot z's staging
+// xslot uint2 and scslot floats after slot z - 1's
+cudaError_t launch_split_rows(const void* x, uint2* xs, float* sc, int B, int n, int terms,
+                              cudaStream_t st, int slots = 1, size_t xslot = 0,
+                              size_t scslot = 0) {
+  split_rows_kernel<<<dim3(B, slots), SPLIT_THREADS, 0, st>>>(
+      static_cast<const float*>(x), xs, sc, n, terms, wide_frags(n), xslot, scslot);
+  return cudaGetLastError();
+}
+
 // slots > 1: x holds slots x B rows, staged slot by slot xslot fragments
 // and scslot scales apart
 cudaError_t launch_split(const void* x, uint4* xs, float* sc, int ns, int B, int n,
@@ -1128,6 +1653,9 @@ MArgs margs(const uint4* xs, const float* sc, int B, int n) {
   a.eidx = a.cnt = nullptr;
   a.E = 0;
   a.wslot = a.xslot = a.scslot = a.oslot = 0;
+  a.terms = 1;
+  a.lo = 0;
+  a.b0 = 0;
   return a;
 }
 
@@ -1310,14 +1838,28 @@ extern "C" {
 // entry; null for the other formats), or W (d, n/8) gf4 words (fmt 2) from
 // 2 rows (one gf4 row: calm_gf4_matvec, gf4.cu); w points at the layer's
 // plane. B >= 2 takes the multi-row path and needs a plan: x staged into
-// xs/sc (caller-allocated, qmv_plan's sizes), then plan's launch; B = 1 the
-// loop of one row (xs, sc and plan unused). B >= 2 without a plan returns
+// xs/sc (caller-allocated, qmv_plan's sizes), then plan's launch (2-16
+// rows mmv_kernel, 17-64 the wide path's mmw_kernel with x in `terms` f16
+// terms: 1, or 2 under --precise; unused below 17 rows); B = 1 the loop of
+// one row (xs, sc and plan unused). B >= 2 without a plan returns
 // cudaErrorInvalidValue.
 int calm_qmm_decode(const void* x, const void* w, void* y, int B, int d, int n,
                     int fmt, const void* scale, void* xs, void* sc, const void* plan,
-                    void* stream) {
+                    int terms, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if ((fmt == 3) != (scale != nullptr)) return (int)cudaErrorInvalidValue;
+  if (B > 16) {  // the wide path
+    if (!plan) return (int)cudaErrorInvalidValue;
+    uint2* xs2 = static_cast<uint2*>(xs);
+    float* scf = static_cast<float*>(sc);
+    cudaError_t e = launch_split_rows(x, xs2, scf, B, n, terms, st);
+    if (e != cudaSuccess) return (int)e;
+    MArgs m = margs(static_cast<const uint4*>(xs), scf, B, n);
+    m.terms = terms;
+    m.lo = wide_frags(n);
+    m.seg[0] = seg(w, nullptr, y, nullptr, d, d, scale);
+    return (int)launch_mmw<0>(fmt, m, static_cast<const int*>(plan), st);
+  }
   if (B >= 2) {
     if (!plan) return (int)cudaErrorInvalidValue;
     const int* p = static_cast<const int*>(plan);
@@ -1420,7 +1962,7 @@ int calm_gf4_offn(const void* a, const void* r, const void* g, const void* wo,
                    act_gelu, eps, sub_mean, static_cast<const int*>(plans), st);
 }
 
-// K10 at 2-16 rows: y (A, B, d) f32 = x[min(a, Ax-1)] (B, n) . W[eidx[a]]^T
+// K10 at 2-64 rows: y (A, B, d) f32 = x[min(a, Ax-1)] (B, n) . W[eidx[a]]^T
 // for the A expert slots, on the multi-row path; w points at the layer's
 // plane (E, d, n) fp16 (fmt 0), fp8 e5m2 (1) or e4m3 (3, times scale[eidx[a]]:
 // scale points at the layer's (E,) scales on the device; null for the
@@ -1429,17 +1971,32 @@ int calm_gf4_offn(const void* a, const void* r, const void* g, const void* wo,
 // n a multiple of 16 (gf4: of 8). x staged into xs/sc (caller-allocated,
 // Ax stagings of qmv_plan's size), then plan's launch (qmv_plan with
 // slots = A) of A slots; slots a >= cnt write zeros and read no weight.
-// One row takes moe.cu's calm_moe_dense.
+// 17-64 rows take the wide path (x staged with one scale a row, `terms`
+// f16 terms: 1, or 2 under --precise; unused below 17 rows). One row takes
+// moe.cu's calm_moe_dense.
 int calm_moe_mmv(const void* x, const void* w, void* y, const void* eidx, const void* cnt,
                  int Ax, int A, int B, int d, int n, int E, int fmt, const void* scale,
-                 void* xs, void* sc, const void* plan, void* stream) {
+                 void* xs, void* sc, const void* plan, int terms, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if ((fmt == 3) != (scale != nullptr)) return (int)cudaErrorInvalidValue;
   const int* p = static_cast<const int*>(plan);
+  if (Ax != 1 && Ax != A) return (int)cudaErrorInvalidValue;
+  if (B > 16) {  // the wide path
+    const size_t xslot = terms * wide_frags(n);
+    cudaError_t e = launch_split_rows(x, static_cast<uint2*>(xs), static_cast<float*>(sc),
+                                      B, n, terms, st, Ax, xslot, WIDE_SCALES);
+    if (e != cudaSuccess) return (int)e;
+    MArgs m = margs(static_cast<const uint4*>(xs), static_cast<float*>(sc), B, n);
+    m.terms = terms;
+    m.lo = wide_frags(n);
+    m.seg[0] = seg(w, nullptr, y, nullptr, d, d, scale);
+    moe_slots(m, eidx, cnt, E, (size_t)d * row_bytes(fmt, n), Ax > 1 ? xslot : 0,
+              Ax > 1 ? WIDE_SCALES : 0, (size_t)B * d);
+    return (int)launch_mmw<0, true>(fmt, m, p, st, A);
+  }
   const int ns = 8 * p[1];
   uint4* xs4 = static_cast<uint4*>(xs);
   float* scf = static_cast<float*>(sc);
-  if (Ax != 1 && Ax != A) return (int)cudaErrorInvalidValue;
   const size_t xslot = staged_frags(n, ns), scslot = staged_scales(n, ns);
   cudaError_t e = launch_split(x, xs4, scf, ns, B, n, st, Ax, xslot, scslot);
   if (e != cudaSuccess) return (int)e;
@@ -1450,7 +2007,7 @@ int calm_moe_mmv(const void* x, const void* w, void* y, const void* eidx, const 
   return (int)launch_mmv<0, true>(fmt, m, p, st, A);
 }
 
-// The expert FFN at 2-16 rows: z (A, B, D) f32, z[a] = (act(x W1[e]^T) *
+// The expert FFN at 2-64 rows: z (A, B, D) f32, z[a] = (act(x W1[e]^T) *
 // (x W3[e]^T)) W2[e]^T with e = eidx[a], for x (B, D) f32; w1/w3 point at
 // the layer's planes (E, H, D) and w2 at (E, D, H), fp16 (fmt 0), fp8 e5m2
 // (1), fp8 e4m3 (3) or gf4 words (2, n/8 words a row); s1, s3, s2: for e4m3
@@ -1459,16 +2016,43 @@ int calm_moe_mmv(const void* x, const void* w, void* y, const void* eidx, const 
 // launches: x staged once, the dual w1/w3 launch of every slot into h, h
 // staged slot by slot, the w2 launch into z; slots a >= cnt give zeros.
 // plans: qmv_plan's (slots = A) of w1/w3 and w2; xs/sc hold A stagings of
-// H values.
+// H values. 17-64 rows take the same four launches on the wide path
+// (split_rows_kernel, mmw_kernel; x in `terms` f16 terms, 1 or 2 under
+// --precise; unused below 17 rows).
 int calm_moe_ffn(const void* x, const void* w1, const void* w3, const void* w2,
                  const void* eidx, const void* cnt, void* h, void* z, int A, int B, int D,
                  int H, int E, int fmt, int act_gelu, const void* s1, const void* s3,
-                 const void* s2, void* xs, void* sc, const void* plans, void* stream) {
+                 const void* s2, void* xs, void* sc, const void* plans, int terms,
+                 void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const bool e4 = fmt == 3;
   if (e4 != (s1 != nullptr) || e4 != (s3 != nullptr) || e4 != (s2 != nullptr))
     return (int)cudaErrorInvalidValue;
   const int* p = static_cast<const int*>(plans);
+  if (B > 16) {  // the wide path: x staged once, h a slot at a time
+    uint2* xs2 = static_cast<uint2*>(xs);
+    float* scf = static_cast<float*>(sc);
+    cudaError_t e = launch_split_rows(x, xs2, scf, B, D, terms, st);
+    if (e != cudaSuccess) return (int)e;
+    MArgs m = margs(static_cast<const uint4*>(xs), scf, B, D);
+    m.terms = terms;
+    m.lo = wide_frags(D);
+    m.seg[0] = seg(w1, w3, h, nullptr, H, H, s1, s3);
+    moe_slots(m, eidx, cnt, E, (size_t)H * row_bytes(fmt, D), 0, 0, (size_t)B * H);
+    e = act_gelu ? launch_mmw<2, true>(fmt, m, p, st, A) : launch_mmw<1, true>(fmt, m, p, st, A);
+    if (e != cudaSuccess) return (int)e;
+    const size_t xslot = terms * wide_frags(H);
+    if ((e = launch_split_rows(h, xs2, scf, B, H, terms, st, A, xslot, WIDE_SCALES)) !=
+        cudaSuccess)
+      return (int)e;
+    m = margs(static_cast<const uint4*>(xs), scf, B, H);
+    m.terms = terms;
+    m.lo = wide_frags(H);
+    m.seg[0] = seg(w2, nullptr, z, nullptr, D, D, s2);
+    moe_slots(m, eidx, cnt, E, (size_t)D * row_bytes(fmt, H), xslot, WIDE_SCALES,
+              (size_t)B * D);
+    return (int)launch_mmw<0, true>(fmt, m, p + 4, st, A);
+  }
   const int ns = 8 * p[1];
   uint4* xs4 = static_cast<uint4*>(xs);
   float* scf = static_cast<float*>(sc);

@@ -26,7 +26,8 @@
 - ``precise`` sets the process-wide quality mode of ``ops.qmm`` every
   time an Engine is made, so a later ``Engine(precise=False)`` turns it
   off (``calm_tpu/engine.py:82-84``): f32 operands in every routed
-  product past 16 rows (``model.mm_route``, ``model._fused``);
+  product past 64 rows, x in two f16 terms at 2-64 (``model.mm_route``,
+  ``model._fused``);
 - ``lazy_weights`` reads the container, config and tokenizer and leaves
   ``weights`` None for the caller to install (``calm_tpu/engine.py
   :74-78``, ``:101-102``): the sharded server loads each rank's shard

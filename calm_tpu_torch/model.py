@@ -43,23 +43,24 @@ gf4 under ``CALM_ROT=0`` runs each layer's own q/k/v, then ``gf4_offn``
 FFN the attn-normed input (``gf4_ffn`` for gf4 at <= 16 rows) and adds wo
 and the FFN to the residual, as ``model.py:1119-1149``. A MoE layer's
 FFN is :func:`_moe_ffn`: the gate
-matvec, top-k routing, then at <= 16 rows the expert sweep over the
-layer's unique experts (``qmm_moe_ffn`` once, at one row ``qmm_moe_dense``
-three times, or ``gf4_moe_ffn`` once for gf4), above it the rows grouped
-by expert through the product kernels. :func:`prefill` runs T
+matvec, top-k routing, then at <= 64 rows (:func:`moe_sweeps`) the expert
+sweep over the layer's unique experts (``qmm_moe_ffn`` once, at one row
+``qmm_moe_dense`` three times, or ``gf4_moe_ffn`` once for gf4), above it
+the rows grouped by expert through the product kernels. :func:`prefill` runs T
 tokens per sequence at once (``model.py:1363-1374``): per layer the
 projections, bias/qk-norm/clip, RoPE over T positions, the write of the T
 rows into the cache, then ``prefill_attention`` reading them back, then wo
 and the FFN per op. On the card every product and the attention go
-through the Hopper kernels (products of more than 16 rows of fp8/fp16/
-fp8e4, or 17..31 of gf4, through ``dense_matmul``; gf4's w2 product
-through ``qmm_prefill_w2``); on the CPU the wrappers run their plain
+through the Hopper kernels (2-64 rows on the multi-row and wide
+matvec paths; past 64 rows gf4 on its matmul kernel, gf4's w2 product
+through ``qmm_prefill_w2``, fp8/fp16/fp8e4 through ``dense_matmul``); on
+the CPU the wrappers run their plain
 versions. fp8e4 weights carry a power-of-two scale per tensor (per
 (layer, expert) in MoE stacks) that the kernels read on the device.
 Under ``ops.qmm._PRECISE`` (``Engine(precise=True)``) :func:`mm_route`
-sends products past 16 rows to an f32 ``dense_matmul`` and :func:`_fused`
-declines the fp8/fp16 epilogue; the matvecs of 2-16 rows take the
-multi-row path as by default, x in two f16 terms
+sends products past 64 rows to an f32 ``dense_matmul`` and :func:`_fused`
+declines the fp8/fp16 epilogue; the matvecs of 2-64 rows take the
+multi-row and wide paths as by default, x in two f16 terms
 (``hopper_qmm.decode_path``).
 
 Under a ``ShardingPlan`` the same functions are one rank's program on its
@@ -92,7 +93,7 @@ from calm_tpu_torch.container import TensorFile, to_torch
 from calm_tpu_torch.graphs import StepGraph, VerifyGraph
 from calm_tpu_torch.ops.hopper_attn import (HEAD_DIMS, decode_attention,
                                             prefill_attention, tree_attention)
-from calm_tpu_torch.ops.hopper_qmm import (MAX_ROWS, act, gf4_ffn,
+from calm_tpu_torch.ops.hopper_qmm import (MAX_MV_ROWS, MAX_ROWS, act, gf4_ffn,
                                            gf4_ffn_supported, gf4_moe_ffn,
                                            gf4_offn, gf4_offn_qkv,
                                            gf4_offn_supported, mm_supported,
@@ -364,18 +365,22 @@ def _norm(cfg: ModelConfig, x, weight):
 
 
 def _mv(x: torch.Tensor, qt: QTensor, layer=None) -> torch.Tensor:
-    """Decode matvec of <= 16 rows: the Hopper kernels' wrapper for every
+    """Decode matvec of <= 64 rows: the Hopper kernels' wrapper for every
     format, fp8e4 with its scale (plain on the CPU), the same launches
-    under ``--precise``."""
+    under ``--precise`` (x in two f16 terms)."""
     return qmm_decode(x, qt.data, qt.fmt, layer, qt.scale)
 
 
 def mm_route(rows: int, qt: QTensor, precise: bool = False) -> str:
-    """Where :func:`_mm` sends a product of ``rows`` rows: "mv" (<= 16
-    rows, the matvec kernels), "mm" (gf4 from 32 rows, the gf4 matmul
-    kernel; not under ``precise``, whose JAX counterpart runs these in XLA
-    at f32, ``calm_tpu/ops/qmm.py:158``) or "dense" (``dense_matmul``)."""
-    if rows <= MAX_ROWS:
+    """Where :func:`_mm` sends a product of ``rows`` rows: "mv" (<= 64
+    rows, the matvec kernels: 2-16 rows the multi-row path, 17-64 the wide
+    one), "mm" (gf4 past 64 rows, the gf4 matmul kernel; not under
+    ``precise``, whose JAX counterpart runs these in XLA at f32,
+    ``calm_tpu/ops/qmm.py:158``) or "dense" (``dense_matmul``). gf4 at
+    32-64 rows, which K4 could take, keeps the wide path: on an H100 it
+    timed faster than K4 on a Mistral-7B w2 (4x) and w1 and on the
+    lm-head to 48 rows, slower only on the lm-head at 64 (PERF.md §6)."""
+    if rows <= MAX_MV_ROWS:
         return "mv"
     if not precise and mm_supported(rows, qt.data, qt.fmt):
         return "mm"
@@ -383,11 +388,10 @@ def mm_route(rows: int, qt: QTensor, precise: bool = False) -> str:
 
 
 def _mm(x: torch.Tensor, qt: QTensor, layer=None, w2: bool = False) -> torch.Tensor:
-    """x (R, n) @ W[layer]^T for any row count, routed as
-    ``calm_tpu.ops.qmm.qmatmul`` (:func:`mm_route`): <= 16 rows to the
-    matvec kernels, gf4 from 32 rows to the gf4 matmul kernel
-    (``qmm_prefill_w2`` for the FFN's w2, as ``qmatmul_w2t``), the rest to
-    ``dense_matmul``."""
+    """x (R, n) @ W[layer]^T for any row count, routed by
+    :func:`mm_route`: <= 64 rows to the matvec kernels (JAX runs 17-64 in
+    XLA), gf4 past them to the gf4 matmul kernel (``qmm_prefill_w2`` for
+    the FFN's w2, as ``qmatmul_w2t``), the rest to ``dense_matmul``."""
     route = mm_route(x.shape[0], qt, _qmm._PRECISE)
     if route == "mv":
         return _mv(x, qt, layer)
@@ -561,13 +565,14 @@ def _local_experts(lw: LayerWeights, plan: ShardingPlan, mesh) -> tuple[int, int
 
 def _moe_sweep(cfg: ModelConfig, lw: LayerWeights, layer: int, xb2, wts, idx,
                plan: ShardingPlan, mesh):
-    """<= 16 rows: every unique expert's weights read once for all rows
-    (``calm_tpu/model.py:764-827``), then each row takes the slots it was
-    routed to with its gate weights; dead slots come back as zeros. Under
-    ep a rank sweeps its resident experts only: a slot of another rank's
-    expert re-reads a local one and weighs 0 (``:800-808``). The FFN of
-    the slots is one ``gf4_moe_ffn`` (gf4), one ``qmm_moe_ffn`` (fp16/fp8/
-    fp8e4 at 2-16 rows of whole steps: the multi-row path), or three
+    """<= 64 rows: every unique expert's weights read once for all rows
+    (``calm_tpu/model.py:764-827``, there to 16 rows), then each row takes
+    the slots it was routed to with its gate weights; dead slots come back
+    as zeros. Under ep a rank sweeps its resident experts only: a slot of
+    another rank's expert re-reads a local one and weighs 0
+    (``:800-808``). The FFN of the slots is one ``gf4_moe_ffn`` (gf4), one
+    ``qmm_moe_ffn`` (fp16/fp8/fp8e4 at 2-64 rows of whole steps: the
+    multi-row path, past 16 rows the wide one), or three
     ``qmm_moe_dense`` and the activation (one row, other shapes); fp8e4
     hands each product its (E, 1) scales of the layer, which the kernels
     index by the slot's expert id on the device."""
@@ -632,15 +637,25 @@ def _moe_grouped(cfg: ModelConfig, lw: LayerWeights, layer: int, xb2, wts, idx,
     return out
 
 
+def moe_sweeps(lw: LayerWeights, R: int) -> bool:
+    """Whether a MoE layer's FFN of R rows takes the expert sweep (no host
+    sync: what a captured verify replays): up to 16 rows, and 17-64 rows
+    whose products the multi-row path takes (whole steps); else the
+    grouped products."""
+    return R <= MAX_ROWS or moe_multirow_supported(lw.w1.fmt, R, lw.w1.shape[-1],
+                                                   lw.w2.shape[-1])
+
+
 def _moe_ffn(cfg: ModelConfig, lw: LayerWeights, layer: int, xb2,
              plan: ShardingPlan = NO_SHARDING, mesh=None):
     """Top-k routed MoE FFN on xb2 (R, D) (``calm_tpu/model.py:731-857``):
-    the gate matvec (replicated), routing, then the expert sweep at <= 16
-    rows or the grouped products above, over this rank's experts, fp8e4
-    experts with their per-expert scales. Returns the rank's partial sum;
-    the caller closes it over ep and tp."""
+    the gate matvec (replicated), routing, then the expert sweep
+    (:func:`moe_sweeps`: up to 64 rows, where JAX runs 17-64 as its
+    per-token vmap in XLA) or the grouped products above, over this rank's
+    experts, fp8e4 experts with their per-expert scales. Returns the rank's
+    partial sum; the caller closes it over ep and tp."""
     wts, idx = route(cfg, _mm(xb2, lw.moegate, layer))
-    if xb2.shape[0] <= MAX_ROWS:
+    if moe_sweeps(lw, xb2.shape[0]):
         return _moe_sweep(cfg, lw, layer, xb2, wts, idx, plan, mesh)
     return _moe_grouped(cfg, lw, layer, xb2, wts, idx, plan, mesh)
 
@@ -1343,17 +1358,18 @@ def verify_once(cfg: ModelConfig, w: Weights, tokens, pos0, cache: KVCache,
     """Score (B, T) tokens from pos0 (B host ints) in one forward that
     returns every row's logits (B, T, V): the speculative verify, JAX's
     ``prefill(..., logits_mode="all")`` over every slot, or with ``depth``
-    and ``tree`` its ``tree_verify``. On the card a dense model's forward
-    is the cache's captured :class:`graphs.VerifyGraph`, replayed (its
-    output is the graph's own buffer, overwritten by its next replay; the
-    same bits as the eager forward on the same inputs). A MoE model's
-    forward stays eager: its grouped products above 16 rows read the group
-    sizes on the host (``_moe_grouped``). On the CPU every forward runs
-    eagerly. The cache is updated in place."""
+    and ``tree`` its ``tree_verify``. On the card the forward is the
+    cache's captured :class:`graphs.VerifyGraph`, replayed (its output is
+    the graph's own buffer, overwritten by its next replay; the same bits
+    as the eager forward on the same inputs): a dense model's at any B x T,
+    a MoE model's where its FFN sweeps the experts (:func:`moe_sweeps`: B x
+    T <= 64 rows of whole steps). Past that a MoE forward stays eager: its
+    grouped products read the group sizes on the host (``_moe_grouped``).
+    On the CPU every forward runs eagerly. The cache is updated in place."""
     tokens = torch.as_tensor(tokens, dtype=torch.int64)
     B, T = tokens.shape
     starts = check_rows(cfg, cache, B, T, pos0)
-    if cache.k.is_cuda and not cfg.n_experts:
+    if cache.k.is_cuda and (not cfg.n_experts or moe_sweeps(w.layers, B * T)):
         g = verify_graph(cfg, w, cache, B, T, tree is not None)
         g.load(tokens, starts, depth, tree)
         if g.graph is None:

@@ -47,12 +47,12 @@ P, I, F, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 # C signatures: function name -> argtypes (all return int)
 SIGNATURES = {
     "qmm": {
-        "calm_qmm_decode": [P, P, P, I, I, I, I, P, P, P, P, P],
+        "calm_qmm_decode": [P, P, P, I, I, I, I, P, P, P, P, I, P],
         "calm_qx_offn_qkv": [P] * 16 + [I] * 7 + [F, I, P, P, P, P],
         "calm_gf4_ffn": [P] * 6 + [I] * 4 + [P] * 4,
         "calm_gf4_offn": [P] * 11 + [I] * 5 + [F, I, P, P, P, P],
-        "calm_moe_mmv": [P] * 5 + [I] * 7 + [P] * 5,
-        "calm_moe_ffn": [P] * 8 + [I] * 7 + [P] * 7,
+        "calm_moe_mmv": [P] * 5 + [I] * 7 + [P] * 4 + [I, P],
+        "calm_moe_ffn": [P] * 8 + [I] * 7 + [P] * 6 + [I, P],
     },
     "attn": {
         "calm_decode_attention": [P] * 15 + [I] * 12 + [P],

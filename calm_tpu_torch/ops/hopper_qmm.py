@@ -7,11 +7,14 @@
   :func:`qmm_decode_gf4`. From 2 rows of x it takes the multi-row path on
   the tensor cores, tiled by :func:`qmv_plan`, x staged as scaled f16 hi +
   lo (:func:`split_operand` writes the staging out in PyTorch), in the
-  quality mode too (:func:`decode_path`).
+  quality mode too (:func:`decode_path`); 17-64 rows, where JAX's XLA
+  product runs (``calm_tpu/ops/qmm.py:189-205``), the wide path
+  (``mmw_kernel``: x staged with one scale a row, one f16 term, hi + lo
+  under --precise; :func:`wide_operand` writes it out in PyTorch).
 - :func:`qmm_decode_gf4` replaces ``_layered_gf4_kernel`` (``:100``): the
-  same matvec on natural gf4 words, B <= 16: one row in ``csrc/gf4.cu``,
-  from 2 rows on the multi-row path (``csrc/qmm.cu``), in the quality mode
-  too.
+  same matvec on natural gf4 words, B <= 64: one row in ``csrc/gf4.cu``,
+  from 2 rows on the multi-row path (``csrc/qmm.cu``), past 16 the wide
+  one, in the quality mode too.
 - :func:`qmm_prefill` replaces ``_gf4_mm_kernel`` (``:238``): the gf4
   product for R >= 32 rows (``csrc/gf4.cu``), eligibility as
   ``mm_supported`` (``:275-283``); x enters as bf16, rounded once by
@@ -43,12 +46,15 @@
   ``_moe_dense_gf4_kernel`` (``:1248``, ``:1256``): the MoE expert sweep,
   one matvec per expert slot with the ids on the device: one row in
   ``csrc/moe.cu``, from 2 rows on the multi-row path (``csrc/qmm.cu``,
-  an expert-slot axis, tiled by :func:`qmv_plan` with ``slots``), where
-  :func:`moe_multirow_supported` takes the shape, else ``csrc/moe.cu``.
+  an expert-slot axis, tiled by :func:`qmv_plan` with ``slots``; 17-64
+  rows the wide path), where :func:`moe_multirow_supported` takes the
+  shape, else ``csrc/moe.cu``.
 - :func:`qmm_moe_ffn`: the same kernels' three fp16/fp8/fp8e4 products of
   the expert FFN and their activation (``calm_tpu/model.py:810-816``) at
-  2-16 rows, as two products on the multi-row path (``csrc/qmm.cu``: x
-  staged, the dual w1/w3 launch, h staged a slot at a time, w2).
+  2-64 rows, as two products on the multi-row path (``csrc/qmm.cu``: x
+  staged, the dual w1/w3 launch, h staged a slot at a time, w2; past 16
+  rows on the wide path, where JAX runs its per-token vmap,
+  ``calm_tpu/model.py:829-857``).
 
 fp8e4 weights carry their scale as a device tensor, (L, 1) beside a
 stack, (L, E, 1) beside an expert stack: the wrappers pass the address
@@ -57,8 +63,8 @@ plus the slot's expert id, so no scale comes to the host and a captured
 step replays them; each product's sum is scaled before any activation.
 - :func:`gf4_moe_ffn` replaces ``_gf4_moe_ffn_kernel`` (``:1361``): each
   slot's whole expert FFN on natural gf4 words, where the TPU kernel
-  reads plane-major w1/w3: one row in ``csrc/moe.cu``, from 2 rows the
-  chain of :func:`qmm_moe_ffn` (``csrc/qmm.cu``).
+  reads plane-major w1/w3: one row in ``csrc/moe.cu``, from 2 rows (to
+  64) the chain of :func:`qmm_moe_ffn` (``csrc/qmm.cu``).
 
 Each wrapper takes its plain PyTorch version (``*_plain``, f32) for tensors
 on the CPU, and launches the kernel for CUDA tensors or raises; it counts
@@ -66,9 +72,13 @@ its launches in ``.launches`` (:func:`qmm_decode`, :func:`qmm_decode_gf4`,
 :func:`qx_offn_qkv`, :func:`gf4_offn_qkv`, :func:`gf4_ffn`,
 :func:`gf4_offn`, :func:`qmm_moe_dense`, :func:`qmm_moe_ffn` and
 :func:`gf4_moe_ffn` those of the multi-row path also in
-``.multirow_launches``). While a profiler trace is open each launch's
-bytes and operations are recorded, in the order the C entry points launch
-their kernels (``ops/cost.py``).
+``.multirow_launches``; :func:`qmm_decode`, :func:`qmm_decode_gf4` and
+the MoE sweep's those of the wide path, 17-64 rows, in
+``.wide_launches``). ``MAX_ROWS`` (16) stays the limit of the fused
+epilogues K6-K9, as their JAX domain (``pallas_qmm.py:1236``);
+``MAX_MV_ROWS`` (64) is that of the products and the expert sweep. While
+a profiler trace is open each launch's bytes and operations are recorded,
+in the order the C entry points launch their kernels (``ops/cost.py``).
 """
 
 from __future__ import annotations
@@ -81,13 +91,15 @@ import torch
 import torch.nn.functional as F
 
 from calm_tpu_torch.ops import build, cost
+from calm_tpu_torch.ops import qmm as _qmm
 from calm_tpu_torch.ops.norms import rmsnorm
 from calm_tpu_torch.ops.qmm import STORAGE, QTensor, dequant
 
 _FMT_CODE = {"fp16": 0, "fp8": 1, "fp8e4": 3}  # qmm_decode, qmm_moe_ffn
 _OFFN_CODE = dict(_FMT_CODE, gf4=2)  # csrc/qmm.cu's products, csrc/moe.cu
 _EPILOGUE_FMTS = ("fp16", "fp8")  # qx_offn_qkv: fp8e4 decodes per op, as in JAX
-MAX_ROWS = 16
+MAX_ROWS = 16  # the fused epilogues (K6-K9), as pallas_qmm.py:1236, and mmv_kernel
+MAX_MV_ROWS = 64  # the products and the MoE sweep: 17-64 rows on the wide path
 MIN_MM_ROWS = 32  # qmm_prefill's least row count (pallas_qmm.mm_supported)
 MAX_NORM_DIM = 16384  # norm_kernel: 1024 threads x 4 float4 in registers
 SMS = 132  # an H100's streaming multiprocessors
@@ -97,6 +109,12 @@ MV_WARPS = 8  # WARPS: warps a block
 MV_TARGET_WARPS = 16 * SMS  # about 16 warps' loads in flight an SM
 MV_MIN_CHUNKS = 4  # the least chunks a warp's share of k, where k allows
 MV_MT2_ROWS = 6144  # from this many rows a launch, 32 rows a warp (else 16)
+# the wide multi-row path (csrc/qmm.cu mmw_kernel, 17-64 rows)
+WIDE_NT = 8  # 8-row n-tiles a warp holds (csrc/qmm.cu WIDE_NT); those past B skipped
+WIDE_PREC_ROWS = 32  # --precise: rows of x a launch (csrc/qmm.cu WIDE_PREC_ROWS)
+# the wide path's k split: about 8 warps an SM, the one block of mmw_kernel
+# that its registers allow (2112 and 4224 timed slower on an H100, PERF.md)
+WIDE_TARGET_WARPS = 8 * SMS
 # the one-row gf4 path (csrc/qmm.cu gf4_row_kernel)
 G1_ROWS = 4  # output rows a warp, fixed in the kernel (csrc/qmm.cu G1_ROWS)
 G1_ROWS_DUAL = 2  # the same for the dual w1/w3 launch (two weights a row)
@@ -181,7 +199,8 @@ class QmvPlan(NamedTuple):
     group of ``16 mt`` output rows (a warp holds ``mt`` 16-row m-tiles),
     ``MV_WARPS / ks`` groups a block; ``nt`` 8-row n-tiles of x."""
     mt: int          # 16-row m-tiles a warp (1 or 2)
-    nt: int          # 8-row n-tiles of x (1 for B <= 8, else 2)
+    nt: int          # 8-row n-tiles of x (1 for B <= 8, 2 to 16 rows; past 16 WIDE_NT,
+                     # under --precise WIDE_PREC_ROWS / 8)
     ks: int          # warps a row group (1, 2, 4 or 8)
     grid: int        # blocks
     groups: tuple    # row groups of each segment
@@ -201,11 +220,15 @@ class QmvPlan(NamedTuple):
         return _warp_work(block, warp, self.ks, 16 * self.mt, self.groups, seg_rows,
                           self.chunks)
 
-    def staging(self, n: int) -> tuple[int, int]:
+    def staging(self, n: int, terms: int = 1) -> tuple[int, int]:
         """(int32 words of xs, floats of sc) the staged x of n values a row
-        takes: a 16-byte fragment and one scale per (chunk, row slot) and
-        step, 8 nt row slots."""
+        takes: at 2-16 rows a 16-byte fragment (hi + lo) and one scale per
+        (chunk, row slot) and step, 8 nt row slots; on the wide path an
+        8-byte fragment a term (``terms``: 1, or 2 under --precise) per
+        (chunk, step, row slot), 8 WIDE_NT row slots, one scale a row."""
         nc = -(-n // MV_CHUNK)
+        if self.nt > 2:  # the wide path
+            return nc * 4 * 8 * WIDE_NT * 4 * 2 * terms, 8 * WIDE_NT
         return nc * 4 * 8 * self.nt * 4 * 4, nc * 8 * self.nt
 
 
@@ -235,22 +258,33 @@ def _k_split(groups: int, units: int, target: int, least: int) -> int:
 
 
 @functools.lru_cache(maxsize=256)
-def _qmv_plan(B: int, seg_rows: tuple, n: int, dual: bool, gf4: bool, slots: int) -> QmvPlan:
-    nt = 1 if B <= 8 else 2
-    # gf4 rows that end half-way through a lane's 16 values: one m-tile a warp
-    mt = 2 if sum(seg_rows) >= MV_MT2_ROWS and not dual and n % 16 == 0 else 1
+def _qmv_plan(B: int, seg_rows: tuple, n: int, dual: bool, gf4: bool, slots: int,
+              terms: int) -> QmvPlan:
+    wide = B > MAX_ROWS
+    if wide:
+        nt = WIDE_NT if terms == 1 else WIDE_PREC_ROWS // 8
+    else:
+        nt = 1 if B <= 8 else 2
+    # gf4 rows that end half-way through a lane's 16 values: one m-tile a
+    # warp; the wide path two for one weight's launches (x's reads halve),
+    # one under --precise (its second set of sums)
+    mt = (2 if (wide and terms == 1 or not wide and sum(seg_rows) >= MV_MT2_ROWS)
+          and not dual and n % 16 == 0 else 1)
     groups = tuple(-(-r // (16 * mt)) for r in seg_rows)
     chunks = -(-n // MV_CHUNK)
     G = sum(groups)
-    ks = _k_split(G * slots, chunks, MV_TARGET_WARPS, MV_MIN_CHUNKS)
+    ks = _k_split(G * slots, chunks, WIDE_TARGET_WARPS if wide else MV_TARGET_WARPS,
+                  MV_MIN_CHUNKS)
     grid = -(-G // (MV_WARPS // ks))
     return QmvPlan(mt, nt, ks, grid, groups, chunks, slots)
 
 
 def qmv_plan(B: int, seg_rows, n: int, dual: bool = False, gf4: bool = False,
-             slots: int = 1) -> QmvPlan:
-    """The multi-row kernel's tiling of B rows of x (1..16; the kernels
-    take it from 2, one row keeps the loop of one row) against segments of
+             slots: int = 1, terms: int = 1) -> QmvPlan:
+    """The multi-row kernels' tiling of B rows of x (1..64; the kernels
+    take it from 2, one row keeps the loop of one row; past 16 rows the
+    wide path, WIDE_NT n-tiles, 32 rows a warp for one weight's launches of
+    whole 16-value steps, else 16) against segments of
     ``seg_rows`` output rows each (1-3: q/k/v side by side) and k = n (a
     multiple of 16; of 8 for ``gf4`` words, whose rows may end half-way
     through a lane's 16 values), ``dual`` for the w1/w3 launch (two
@@ -262,26 +296,32 @@ def qmv_plan(B: int, seg_rows, n: int, dual: bool = False, gf4: bool = False,
     MV_MIN_CHUNKS chunks or more, up to MV_WARPS. gf4 words take the same
     tiling: a re-sweep of these constants on them timed no better. The MoE
     sweep's ``slots`` expert slots (one segment) repeat the tiling a slot:
-    the warps that fill the card are counted over slots x row groups."""
+    the warps that fill the card are counted over slots x row groups.
+    ``terms`` 2 (--precise) past 16 rows: WIDE_PREC_ROWS / 8 n-tiles and
+    one m-tile, the kernel launched once for each WIDE_PREC_ROWS rows."""
     seg_rows = tuple(int(r) for r in seg_rows)
-    _check(1 <= B <= MAX_ROWS, f"the multi-row path takes 1..{MAX_ROWS} rows, not {B}")
+    _check(1 <= B <= MAX_MV_ROWS, f"the multi-row path takes 1..{MAX_MV_ROWS} rows, not {B}")
     _check(1 <= len(seg_rows) <= 3 and all(r >= 1 for r in seg_rows),
            f"1-3 segments of >= 1 row, not {seg_rows}")
     step = 8 if gf4 else 16
     _check(n >= step and n % step == 0, f"k must be a positive multiple of {step}, not {n}")
     _check(1 <= slots <= 65535 and (slots == 1 or len(seg_rows) == 1),
            f"1..65535 slots of one segment, not {slots} of {len(seg_rows)}")
-    return _qmv_plan(int(B), seg_rows, int(n), bool(dual), bool(gf4), int(slots))
+    _check(terms in (1, 2), f"x takes 1 or 2 f16 terms, not {terms}")
+    return _qmv_plan(int(B), seg_rows, int(n), bool(dual), bool(gf4), int(slots),
+                     int(terms) if B > MAX_ROWS else 1)
 
 
 @functools.lru_cache(maxsize=256)
-def _launch_plans(B: int, launches: tuple, gf4: bool = False) -> tuple[np.ndarray, int, int]:
+def _launch_plans(B: int, launches: tuple, gf4: bool = False,
+                  terms: int = 1) -> tuple[np.ndarray, int, int]:
     """For the launches ``((seg_rows, n, dual), ...)`` of one call at B
-    rows (k = n in values, on ``gf4`` words or not): their plans' kernel
-    arguments in one int32 array, and the words and floats of the staging
-    scratch they share (sized for the largest n)."""
-    ps = [qmv_plan(B, rows, n, dual, gf4) for rows, n, dual in launches]
-    words, floats = ps[0].staging(max(n for _, n, _ in launches))
+    rows (k = n in values, on ``gf4`` words or not; x in ``terms`` f16
+    terms on the wide path): their plans' kernel arguments in one int32
+    array, and the words and floats of the staging scratch they share
+    (sized for the largest n)."""
+    ps = [qmv_plan(B, rows, n, dual, gf4, terms=terms) for rows, n, dual in launches]
+    words, floats = ps[0].staging(max(n for _, n, _ in launches), terms)
     return np.array([v for p in ps for v in p.args()], dtype=np.int32), words, floats
 
 
@@ -386,6 +426,28 @@ def gf4_f16_operand(words: torch.Tensor) -> torch.Tensor:
     return torch.stack(out, -1).reshape(*w.shape[:-1], w.shape[-1] * 8)
 
 
+def wide_operand(x: torch.Tensor, terms: int = 1):
+    """The wide path's staging of x (B, n), written out in PyTorch in
+    natural order: per row e with max |x| < 2^e (0 for a row of zeros), hi
+    = f16(x 2^-e), and under ``terms`` 2 lo = f16(x 2^-e - hi). Returns (hi,
+    lo or None) (B, n) float16 and e (B,) int32; the kernel's product is
+    sum_k w_k (hi + lo)_k 2^e with f32 sums. Used by the tests, not on the
+    main path."""
+    xf = x.float()
+    _, e = torch.frexp(xf.abs().amax(-1))
+    e = e.to(torch.int32)
+    v = torch.ldexp(xf, -e[:, None].float())
+    hi = v.half()
+    lo = (v - hi.float()).half() if terms == 2 else None
+    return hi, lo, e
+
+
+def x_terms() -> int:
+    """x's f16 terms on the wide path: 2 under --precise (hi + lo, as
+    every 2-16-row product), else 1."""
+    return 2 if _qmm._PRECISE else 1
+
+
 def _staging(words: int, floats: int, dev) -> tuple[torch.Tensor, int, int]:
     """One scratch buffer for the staged x: (buffer, address of the
     fragments, address of the scales after them)."""
@@ -420,6 +482,31 @@ def _cost_pass(kernel: str, values: int, extra: int = 0) -> None:
     """An elementwise launch over f32 values (the norm, x staged): each
     read and written once, ``extra`` bytes besides (the norm's weights)."""
     cost.record(kernel, 8 * values + extra, values)
+
+
+def _wide_launches(B: int) -> list[int]:
+    """The rows of x of each launch of the wide kernel at B rows: one, or
+    under --precise one for each WIDE_PREC_ROWS (each reads the weights)."""
+    step = WIDE_PREC_ROWS if x_terms() == 2 else B
+    return [min(step, B - b0) for b0 in range(0, B, step)]
+
+
+def _cost_wide(fmt: str, B: int, d: int, n: int, dual: bool = False, slots=1) -> None:
+    for b in _wide_launches(B):
+        _cost_mv("mmw_kernel", fmt, b, d, n, dual=dual, slots=slots)
+
+
+def _cost_path(path: str, fmt: str, B: int, d: int, n: int, one_row: str) -> None:
+    """A product's launches by :func:`decode_path`: x staged, then the
+    multi-row or wide kernel; one row ``one_row`` alone."""
+    if path == "one-row":
+        _cost_mv(one_row, fmt, B, d, n)
+    elif path == "wide":
+        _cost_pass("split_rows_kernel", B * n)
+        _cost_wide(fmt, B, d, n)
+    else:
+        _cost_pass("split_kernel", B * n)
+        _cost_mv("mmv_kernel", fmt, B, d, n)
 
 
 def _cost_epilogue(fmt: str, B: int, D: int, H: int, Qd: int = 0, qkv: int = 0,
@@ -457,13 +544,15 @@ def _cost_epilogue(fmt: str, B: int, D: int, H: int, Qd: int = 0, qkv: int = 0,
 def decode_path(B: int) -> str:
     """Which kernel loop a decode product of B rows takes on the card, in
     either mode: "one-row" (``qmv_kernel``, ``gf4_mv_kernel``: f32
-    operands and sums) at B = 1; from 2 rows "multi-row" (``mmv_kernel``
+    operands and sums) at B = 1; 2-16 rows "multi-row" (``mmv_kernel``
     on the tensor cores, x staged as f16 hi + lo, each weight read once for
+    every row); 17-64 rows "wide" (``mmw_kernel``: x staged with one scale
+    a row, one f16 term, hi + lo under --precise, each weight read once for
     every row). The quality mode takes the same launches: from the float64
     product they read about half an f32 matmul's distance, about twice the
     f32 loops' (``csrc/qmm.cu``, the quality mode's note)."""
-    _check(1 <= B <= MAX_ROWS, f"the decode kernels take 1..{MAX_ROWS} rows, not {B}")
-    return "one-row" if B == 1 else "multi-row"
+    _check(1 <= B <= MAX_MV_ROWS, f"the decode kernels take 1..{MAX_MV_ROWS} rows, not {B}")
+    return "one-row" if B == 1 else "multi-row" if B <= MAX_ROWS else "wide"
 
 
 def qmm_decode_plain(x: torch.Tensor, w: torch.Tensor, fmt: str,
@@ -477,8 +566,8 @@ def qmm_decode(x: torch.Tensor, w: torch.Tensor, fmt: str,
                layer=None, scale=None) -> torch.Tensor:
     """x (B, n) f32 @ W[layer]^T for W (L, d, n) (or (d, n)) in storage
     dtype, (L, d, n/8) int32 words for gf4 -> (B, d) f32; fp8e4 times its
-    scale (L, 1) (or (1,)), read by the kernel on the device. The path by
-    :func:`decode_path`."""
+    scale (L, 1) (or (1,)), read by the kernel on the device; B <= 64. The
+    path by :func:`decode_path`."""
     if fmt == "gf4":
         return qmm_decode_gf4(x, w, layer)
     if x.device.type == "cpu":
@@ -493,25 +582,26 @@ def qmm_decode(x: torch.Tensor, w: torch.Tensor, fmt: str,
     path = decode_path(B)
     y = torch.empty((B, d), dtype=torch.float32, device=x.device)
     xs = sc = plan = None
-    if path == "multi-row":
-        plans, words, floats = _launch_plans(B, (((d,), n, False),))
+    nterms = x_terms()
+    if path != "one-row":
+        plans, words, floats = _launch_plans(B, (((d,), n, False),), False, nterms)
         buf, xs, sc = _staging(words, floats, x.device)  # buf: held past the launch
         plan = plans.ctypes.data
     rc = build.lib("qmm").calm_qmm_decode(
         x.data_ptr(), wl.data_ptr(), y.data_ptr(), B, d, n, _FMT_CODE[fmt], sp, xs, sc, plan,
-        _stream(x))
+        nterms, _stream(x))
     build.check("qmm", rc)
     if cost.active():
-        if path == "multi-row":
-            _cost_pass("split_kernel", B * n)
-        _cost_mv("mmv_kernel" if path == "multi-row" else "qmv_kernel", fmt, B, d, n)
+        _cost_path(path, fmt, B, d, n, "qmv_kernel")
     qmm_decode.launches += 1
     qmm_decode.multirow_launches += path == "multi-row"
+    qmm_decode.wide_launches += path == "wide"
     return y
 
 
 qmm_decode.launches = 0
 qmm_decode.multirow_launches = 0
+qmm_decode.wide_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -539,38 +629,40 @@ def qmm_decode_gf4_plain(x: torch.Tensor, w: torch.Tensor,
 
 @cost.ranged
 def qmm_decode_gf4(x: torch.Tensor, w: torch.Tensor, layer=None) -> torch.Tensor:
-    """x (B <= 16, n) f32 @ W[layer]^T for gf4 words W (L, d, n/8) (or
+    """x (B <= 64, n) f32 @ W[layer]^T for gf4 words W (L, d, n/8) (or
     (d, n/8)) -> (B, d) f32. One row takes ``csrc/gf4.cu``'s matvec; from 2
-    rows x is staged and the multi-row kernel of ``csrc/qmm.cu`` (fmt 2)
-    reads each word once for every row (:func:`decode_path`)."""
+    rows x is staged and the multi-row kernels of ``csrc/qmm.cu`` (fmt 2;
+    past 16 rows the wide path) read each word once for every row
+    (:func:`decode_path`)."""
     if x.device.type == "cpu":
         return qmm_decode_gf4_plain(x, w, layer)
     wl = _plane(w, layer)
     B, d, n8 = _check_gf4(x, wl)
     path = decode_path(B)
     y = torch.empty((B, d), dtype=torch.float32, device=x.device)
-    if path == "multi-row":
-        plans, words, floats = _launch_plans(B, (((d,), 8 * n8, False),), True)
+    if path != "one-row":
+        nterms = x_terms()
+        plans, words, floats = _launch_plans(B, (((d,), 8 * n8, False),), True, nterms)
         buf, xs, sc = _staging(words, floats, x.device)  # buf: held past the launch
         rc = build.lib("qmm").calm_qmm_decode(
             x.data_ptr(), wl.data_ptr(), y.data_ptr(), B, d, 8 * n8, _OFFN_CODE["gf4"], None,
-            xs, sc, plans.ctypes.data, _stream(x))
+            xs, sc, plans.ctypes.data, nterms, _stream(x))
         build.check("qmm", rc)
     else:
         rc = build.lib("gf4").calm_gf4_matvec(x.data_ptr(), wl.data_ptr(), y.data_ptr(), B,
                                               d, n8, _stream(x))
         build.check("gf4", rc)
     if cost.active():
-        if path == "multi-row":
-            _cost_pass("split_kernel", B * 8 * n8)
-        _cost_mv("mmv_kernel" if path == "multi-row" else "gf4_mv_kernel", "gf4", B, d, 8 * n8)
+        _cost_path(path, "gf4", B, d, 8 * n8, "gf4_mv_kernel")
     qmm_decode_gf4.launches += 1
     qmm_decode_gf4.multirow_launches += path == "multi-row"
+    qmm_decode_gf4.wide_launches += path == "wide"
     return y
 
 
 qmm_decode_gf4.launches = 0
 qmm_decode_gf4.multirow_launches = 0
+qmm_decode_gf4.wide_launches = 0
 
 
 def mm_supported(rows: int, wdata: torch.Tensor, fmt: str) -> bool:
@@ -962,12 +1054,13 @@ def _check_stack(x: torch.Tensor, w: torch.Tensor, fmt: str, layer) -> int:
 
 def moe_multirow_supported(fmt: str, B: int, *ns: int) -> bool:
     """Whether the multi-row path takes the MoE sweep of B rows whose
-    products contract ``ns``: 2..16 rows and whole 16-value steps (fp16,
-    fp8, fp8e4; gf4: whole words, a row may end half-way through a lane's
-    16 values). Other shapes take ``csrc/moe.cu``'s loops, as one row does
-    (fp8e4 there at one row only)."""
+    products contract ``ns``: 2..64 rows (past 16 the wide path) and whole
+    16-value steps (fp16, fp8, fp8e4; gf4: whole words, a row may end
+    half-way through a lane's 16 values). Other shapes take ``csrc/moe.cu``'s
+    loops at up to 16 rows, as one row does (fp8e4 there at one row
+    only)."""
     step = 8 if fmt == "gf4" else 16
-    return (fmt in _OFFN_CODE and 2 <= B <= MAX_ROWS
+    return (fmt in _OFFN_CODE and 2 <= B <= MAX_MV_ROWS
             and all(n >= step and n % step == 0 for n in ns))
 
 
@@ -978,13 +1071,16 @@ def _live(cnt: torch.Tensor, A: int):
     return lambda: min(int(cnt.reshape(-1)[0]), A)
 
 
-def _moe_plans(B: int, A: int, launches: tuple, gf4: bool) -> tuple[np.ndarray, int, int]:
+def _moe_plans(B: int, A: int, launches: tuple, gf4: bool,
+               terms: int = 1) -> tuple[np.ndarray, int, int]:
     """For the launches ``((rows, n, dual, staged), ...)`` of one call at B
     rows over A expert slots, each staging ``staged`` copies of its x (1
-    shared, A one a slot): their plans' kernel arguments in one int32
-    array, and the words and floats of the staging scratch they share."""
-    ps = [qmv_plan(B, (rows,), n, dual, gf4, slots=A) for rows, n, dual, _ in launches]
-    staged = [[k * v for v in p.staging(n)] for p, (_, n, _, k) in zip(ps, launches)]
+    shared, A one a slot; ``terms`` f16 terms on the wide path): their
+    plans' kernel arguments in one int32 array, and the words and floats of
+    the staging scratch they share."""
+    ps = [qmv_plan(B, (rows,), n, dual, gf4, slots=A, terms=terms)
+          for rows, n, dual, _ in launches]
+    staged = [[k * v for v in p.staging(n, terms)] for p, (_, n, _, k) in zip(ps, launches)]
     return (np.array([v for p in ps for v in p.args()], dtype=np.int32),
             max(w for w, _ in staged), max(f for _, f in staged))
 
@@ -993,13 +1089,14 @@ def _moe_plans(B: int, A: int, launches: tuple, gf4: bool) -> tuple[np.ndarray, 
 def qmm_moe_dense(x: torch.Tensor, wstack: torch.Tensor, eidx: torch.Tensor,
                   cnt: torch.Tensor, fmt: str, layer=None, scale=None) -> torch.Tensor:
     """The expert sweep: Y[a] = x[min(a, Ax - 1)] @ W[layer, eidx[a]]^T for
-    x (Ax, B <= 16, n) f32 with Ax in {1, A}, W (L, E, d, n) fp16/fp8/fp8e4
+    x (Ax, B <= 64, n) f32 with Ax in {1, A}, W (L, E, d, n) fp16/fp8/fp8e4
     or (L, E, d, n/8) gf4 words, eidx (A,) int32 and cnt (1,) int32 on the
     device -> (A, B, d) f32; fp8e4 times scale[layer, eidx[a]] of its
     (L, E, 1) scale, which the kernel reads beside the id; slots a >= cnt
-    give zeros. One row, or a shape :func:`moe_multirow_supported` declines,
-    takes ``csrc/moe.cu`` (fp8e4 at one row only); 2-16 rows the multi-row
-    path (x staged once, or once a slot for Ax = A)."""
+    give zeros. One row, or a shape :func:`moe_multirow_supported` declines
+    (up to 16 rows), takes ``csrc/moe.cu`` (fp8e4 at one row only); 2-16
+    rows the multi-row path, 17-64 the wide path (x staged once, or once a
+    slot for Ax = A)."""
     if x.device.type == "cpu":
         return qmm_moe_dense_plain(x, wstack, eidx, cnt, fmt, layer, scale)
     _check(fmt in _OFFN_CODE, f"no CUDA kernel for weight format {fmt!r}")
@@ -1008,21 +1105,23 @@ def qmm_moe_dense(x: torch.Tensor, wstack: torch.Tensor, eidx: torch.Tensor,
     sp = _scale_ptr(fmt, scale, wstack, l, x, experts=True)
     Ax, B, n = x.shape
     A = eidx.shape[0]
-    _check(Ax in (1, A) and 1 <= B <= MAX_ROWS,
-           f"x must be (1 or {A}, 1..{MAX_ROWS}, n), got {tuple(x.shape)}")
+    _check(Ax in (1, A) and 1 <= B <= MAX_MV_ROWS,
+           f"x must be (1 or {A}, 1..{MAX_MV_ROWS}, n), got {tuple(x.shape)}")
     d, E = wstack.shape[2], wstack.shape[1]
     y = torch.empty((A, B, d), dtype=torch.float32, device=x.device)
     multirow = moe_multirow_supported(fmt, B, n)
-    _check(multirow or B == 1 or fmt != "fp8e4",
-           f"fp8e4 expert rows of {n} values take one row, or 2..{MAX_ROWS} of whole "
-           "16-value steps")
+    _check(multirow or B == 1 or (fmt != "fp8e4" and B <= MAX_ROWS),
+           f"fp8e4 expert rows of {n} values take one row, or 2..{MAX_MV_ROWS} of whole "
+           f"16-value steps; other formats' rows off the steps at most {MAX_ROWS}")
+    wide = multirow and B > MAX_ROWS
     if multirow:
-        plans, words, floats = _moe_plans(B, A, ((d, n, False, Ax),), fmt == "gf4")
+        nterms = x_terms()
+        plans, words, floats = _moe_plans(B, A, ((d, n, False, Ax),), fmt == "gf4", nterms)
         buf, xs, sc = _staging(words, floats, x.device)  # buf: held past the launch
         rc = build.lib("qmm").calm_moe_mmv(
             x.data_ptr(), _plane_ptr(wstack, l), y.data_ptr(), eidx.data_ptr(),
             cnt.data_ptr(), Ax, A, B, d, n, E, _OFFN_CODE[fmt], sp, xs, sc,
-            plans.ctypes.data, _stream(x))
+            plans.ctypes.data, nterms, _stream(x))
         build.check("qmm", rc)
     else:
         rc = build.lib("moe").calm_moe_dense(
@@ -1032,16 +1131,21 @@ def qmm_moe_dense(x: torch.Tensor, wstack: torch.Tensor, eidx: torch.Tensor,
     if cost.active():
         live = _live(cnt, A)
         if multirow:
-            _cost_pass("split_kernel", Ax * B * n)
-        _cost_mv("mmv_kernel" if multirow else "moe_gf4_kernel" if fmt == "gf4"
-                 else "moe_qmv_kernel", fmt, B, d, n, slots=live)
+            _cost_pass("split_rows_kernel" if wide else "split_kernel", Ax * B * n)
+        if wide:
+            _cost_wide(fmt, B, d, n, slots=live)
+        else:
+            _cost_mv("mmv_kernel" if multirow else "moe_gf4_kernel" if fmt == "gf4"
+                     else "moe_qmv_kernel", fmt, B, d, n, slots=live)
     qmm_moe_dense.launches += 1
-    qmm_moe_dense.multirow_launches += multirow
+    qmm_moe_dense.multirow_launches += multirow and not wide
+    qmm_moe_dense.wide_launches += wide
     return y
 
 
 qmm_moe_dense.launches = 0
 qmm_moe_dense.multirow_launches = 0
+qmm_moe_dense.wide_launches = 0
 
 
 def _check_moe_ffn(x, w1, w3, w2, eidx, cnt, fmt: str, layer) -> tuple[int, int, int, int, int]:
@@ -1054,7 +1158,7 @@ def _check_moe_ffn(x, w1, w3, w2, eidx, cnt, fmt: str, layer) -> tuple[int, int,
     B, D = x.shape
     L, E, H, _ = w1.shape
     gs = 8 if fmt == "gf4" else 1
-    _check(1 <= B <= MAX_ROWS, f"the decode kernel takes 1..{MAX_ROWS} rows")
+    _check(1 <= B <= MAX_MV_ROWS, f"the expert sweep takes 1..{MAX_MV_ROWS} rows")
     _check(w3.shape == w1.shape and w3.dtype == w1.dtype and w3.is_contiguous()
            and w3.device == x.device, "w3 must match w1")
     _check(tuple(w2.shape) == (L, E, D, H // gs) and H % gs == 0 and w2.dtype == w1.dtype
@@ -1065,32 +1169,41 @@ def _check_moe_ffn(x, w1, w3, w2, eidx, cnt, fmt: str, layer) -> tuple[int, int,
 
 def _moe_ffn_mr(x, w1, w3, w2, eidx, cnt, fmt: str, act_gelu: bool, dims,
                 scales=(None, None, None)) -> torch.Tensor:
-    """The expert FFN on the multi-row path (``calm_moe_ffn``): x staged
-    once, the dual w1/w3 launch of every slot into h (A, B, H), h staged a
-    slot at a time, the w2 launch into z (A, B, D). dims: what
+    """The expert FFN on the multi-row path (``calm_moe_ffn``; past 16
+    rows the wide path): x staged once, the dual w1/w3 launch of every slot
+    into h (A, B, H), h staged a slot at a time, the w2 launch into z (A,
+    B, D). dims: what
     :func:`_check_moe_ffn` returns; scales: the fp8e4 (L, E, 1) scales of
     w1, w3 and w2 (the dual launch scales each sum before the activation)."""
     l, B, D, H, E = dims
     A = eidx.shape[0]
     _check(moe_multirow_supported(fmt, B, D, H),
-           f"the multi-row expert FFN takes 2..{MAX_ROWS} rows of whole steps, not "
+           f"the multi-row expert FFN takes 2..{MAX_MV_ROWS} rows of whole steps, not "
            f"B={B}, D={D}, H={H}")
     sp = [_scale_ptr(fmt, s, w, l, x, experts=True) for s, w in zip(scales, (w1, w3, w2))]
     h = torch.empty((A, B, H), dtype=torch.float32, device=x.device)
     z = torch.empty((A, B, D), dtype=torch.float32, device=x.device)
-    plans, words, floats = _moe_plans(B, A, ((H, D, True, 1), (D, H, False, A)), fmt == "gf4")
+    nterms = x_terms()
+    plans, words, floats = _moe_plans(B, A, ((H, D, True, 1), (D, H, False, A)), fmt == "gf4",
+                                      nterms)
     buf, xs, sc = _staging(words, floats, x.device)  # buf: held past the launch
     rc = build.lib("qmm").calm_moe_ffn(
         x.data_ptr(), _plane_ptr(w1, l), _plane_ptr(w3, l), _plane_ptr(w2, l),
         eidx.data_ptr(), cnt.data_ptr(), h.data_ptr(), z.data_ptr(), A, B, D, H, E,
-        _OFFN_CODE[fmt], int(act_gelu), *sp, xs, sc, plans.ctypes.data, _stream(x))
+        _OFFN_CODE[fmt], int(act_gelu), *sp, xs, sc, plans.ctypes.data, nterms, _stream(x))
     build.check("qmm", rc)
     if cost.active():
         live = _live(cnt, A)
-        _cost_pass("split_kernel", B * D)
-        _cost_mv("mmv_kernel", fmt, B, H, D, dual=True, slots=live)
-        _cost_pass("split_kernel", A * B * H)
-        _cost_mv("mmv_kernel", fmt, B, D, H, slots=live)
+        if B > MAX_ROWS:
+            _cost_pass("split_rows_kernel", B * D)
+            _cost_wide(fmt, B, H, D, dual=True, slots=live)
+            _cost_pass("split_rows_kernel", A * B * H)
+            _cost_wide(fmt, B, D, H, slots=live)
+        else:
+            _cost_pass("split_kernel", B * D)
+            _cost_mv("mmv_kernel", fmt, B, H, D, dual=True, slots=live)
+            _cost_pass("split_kernel", A * B * H)
+            _cost_mv("mmv_kernel", fmt, B, D, H, slots=live)
     return z
 
 
@@ -1110,7 +1223,7 @@ def qmm_moe_ffn_plain(x, w1, w3, w2, eidx, cnt, fmt: str, layer, act_gelu: bool,
 def qmm_moe_ffn(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor, w2: torch.Tensor,
                 eidx: torch.Tensor, cnt: torch.Tensor, fmt: str, layer,
                 act_gelu: bool, scales=(None, None, None)) -> torch.Tensor:
-    """The whole fp16/fp8/fp8e4 expert FFN of each slot at 2-16 rows: x (B,
+    """The whole fp16/fp8/fp8e4 expert FFN of each slot at 2-64 rows: x (B,
     D) f32, w1/w3 (L, E, H, D), w2 (L, E, D, H) in storage dtype -> z (A, B,
     D) f32 with z[a] = (act(s1 x W1[l,e]^T) * (s3 x W3[l,e]^T)) s2 W2[l,e]^T,
     e = eidx[a], the s the fp8e4 scales[l, e] of w1, w3 and w2 (``scales``,
@@ -1121,19 +1234,22 @@ def qmm_moe_ffn(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor, w2: torch.T
     :func:`moe_multirow_supported` declines, take three
     :func:`qmm_moe_dense` calls instead (the caller's choice); on the card
     this wrapper raises for them. Counts one launch a call in
-    ``.launches`` and ``.multirow_launches``."""
+    ``.launches``, and in ``.multirow_launches`` (2-16 rows) or
+    ``.wide_launches`` (17-64 rows, the wide path)."""
     if x.device.type == "cpu":
         return qmm_moe_ffn_plain(x, w1, w3, w2, eidx, cnt, fmt, layer, act_gelu, scales)
     _check(fmt in _FMT_CODE, f"qmm_moe_ffn takes fp16/fp8/fp8e4 weights, not {fmt!r}")
     z = _moe_ffn_mr(x, w1, w3, w2, eidx, cnt, fmt, act_gelu,
                     _check_moe_ffn(x, w1, w3, w2, eidx, cnt, fmt, layer), scales)
     qmm_moe_ffn.launches += 1
-    qmm_moe_ffn.multirow_launches += 1
+    qmm_moe_ffn.multirow_launches += x.shape[0] <= MAX_ROWS
+    qmm_moe_ffn.wide_launches += x.shape[0] > MAX_ROWS
     return z
 
 
 qmm_moe_ffn.launches = 0
 qmm_moe_ffn.multirow_launches = 0
+qmm_moe_ffn.wide_launches = 0
 
 
 def gf4_moe_ffn_plain(x, w1, w3, w2, eidx, cnt, layer, act_gelu: bool):
@@ -1144,13 +1260,14 @@ def gf4_moe_ffn_plain(x, w1, w3, w2, eidx, cnt, layer, act_gelu: bool):
 def gf4_moe_ffn(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
                 w2: torch.Tensor, eidx: torch.Tensor, cnt: torch.Tensor, layer,
                 act_gelu: bool) -> torch.Tensor:
-    """The whole expert FFN of each slot on natural gf4 words: x (B <= 16,
+    """The whole expert FFN of each slot on natural gf4 words: x (B <= 64,
     D) f32, w1/w3 (L, E, H, D/8), w2 (L, E, D, H/8) int32 -> z (A, B, D)
     f32 with z[a] = (act(x W1[l,e]^T) * (x W3[l,e]^T)) W2[l,e]^T, e =
     eidx[a]; slots a >= cnt give zeros. One row: two launches of
-    ``csrc/moe.cu``, the h between them in a buffer allocated here; 2-16
+    ``csrc/moe.cu``, the h between them in a buffer allocated here; 2-64
     rows: :func:`qmm_moe_ffn`'s four launches of ``csrc/qmm.cu`` on gf4
-    words (counted in ``.multirow_launches`` too)."""
+    words (counted in ``.multirow_launches`` too, or past 16 rows in
+    ``.wide_launches``)."""
     if x.device.type == "cpu":
         return gf4_moe_ffn_plain(x, w1, w3, w2, eidx, cnt, layer, act_gelu)
     dims = l, B, D, H, E = _check_moe_ffn(x, w1, w3, w2, eidx, cnt, "gf4", layer)
@@ -1171,12 +1288,14 @@ def gf4_moe_ffn(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
             _cost_mv("moe_gf4_kernel", "gf4", B, H, D, dual=True, slots=live)
             _cost_mv("moe_gf4_kernel", "gf4", B, D, H, slots=live)
     gf4_moe_ffn.launches += 1
-    gf4_moe_ffn.multirow_launches += multirow
+    gf4_moe_ffn.multirow_launches += multirow and B <= MAX_ROWS
+    gf4_moe_ffn.wide_launches += B > MAX_ROWS
     return z
 
 
 gf4_moe_ffn.launches = 0
 gf4_moe_ffn.multirow_launches = 0
+gf4_moe_ffn.wide_launches = 0
 
 
 def _offn_shapes_ok(B: int, shapes) -> bool:

@@ -16,9 +16,9 @@ and the Hopper kernels in ``hopper_qmm`` are held against them. One more,
 ``_PRECISE`` is the process-wide quality mode of ``calm_tpu.ops.qmm``
 (``:110-129``): ``Engine(precise=)`` sets it, the CLI's ``--precise`` or
 ``CALM_PRECISE=1`` asks for it. Under it every product that
-``model._mm`` routes past 16 rows takes f32 operands and f32 sums on the
-card too; 2-16 rows take the default's multi-row path (x in two f16
-terms, f32 sums).
+``model._mm`` routes past 64 rows takes f32 operands and f32 sums on the
+card too; 2-64 rows take the default's multi-row and wide paths with x in
+two f16 terms and f32 sums.
 """
 
 from __future__ import annotations
@@ -34,12 +34,13 @@ _PRECISE = False
 
 
 def enable_precise(on: bool = True) -> None:
-    """f32 operands and sums for routed products of more than 16 rows on
+    """f32 operands and sums for routed products of more than 64 rows on
     the card: they dequantize to f32 for a TF32-free ``torch.mm``, where
     the default rounds x to bf16; fp8/fp16 decode runs per op. One row
-    keeps the f32 loops; 2-16 rows take the default's multi-row path, x in
-    two f16 terms with f32 sums: from the float64 product about half an
-    f32 matmul's distance, twice the f32 loops'. Sticky for the process, as
+    keeps the f32 loops; 2-64 rows take the default's multi-row and wide
+    paths, x in two f16 terms (the wide path's default takes one) with f32
+    sums: from the float64 product about half an f32 matmul's distance,
+    twice the f32 loops'. Sticky for the process, as
     JAX's flag; ``Engine`` sets it every time, so a later
     ``Engine(precise=False)`` turns it off."""
     global _PRECISE
@@ -112,8 +113,8 @@ def qmatmul(x: torch.Tensor, qt: QTensor, layer: int | None = None) -> torch.Ten
 
 def dense_matmul(x: torch.Tensor, qt: QTensor, layer: int | None = None) -> torch.Tensor:
     """x (R, n) f32 @ W[layer]^T -> (R, d) f32 for the products no kernel
-    takes (fp8/fp16/fp8e4 past 16 rows, gf4 at 17..31, and under
-    ``_PRECISE`` every product past 16 rows). On the card, the JAX fast
+    takes (fp8/fp16/fp8e4 past 64 rows, and under ``_PRECISE`` every
+    product past 64 rows). On the card, the JAX fast
     path (``calm_tpu/ops/qmm.py:189-205``): the plane dequantized to bf16
     (exact for e5m2, e4m3 and gf4, rounded for fp16), x rounded to bf16,
     one library product with an f32 result; under ``_PRECISE`` the plane

@@ -1473,6 +1473,295 @@ def moe_multirow_kernel_rows(gbps, dev):
     return rows
 
 
+# -- the wide multi-row path: 17-64 rows (a verify's 8 x 5, ticks of 17-64) --
+
+WIDE_B = (24, 40, 64)              # the wide path's timed rows; 40: a served verify's 8 x 5
+WIDE_CHECK_B = (17, 24, 33, 40, 64)  # one n-tile past 16, each side of 32, the verify, the most
+# the wide path's default: x in one f16 term with one scale a row (2^-12 of
+# each value, rounded), f32 sums; a dropped row scale or term reads ~1
+TOL_WIDE = 2e-3
+OLMOE = dict(dim=2048, hidden_dim=1024, experts=64, topk=8)  # OLMoE-1B-7B (HF config)
+
+
+def wide_count(hq) -> int:
+    """The wide path's launches so far, over its wrappers."""
+    return sum(getattr(f, "wide_launches", 0) for f in (
+        hq.qmm_decode, hq.qmm_decode_gf4, hq.qmm_moe_dense, hq.qmm_moe_ffn, hq.gf4_moe_ffn))
+
+
+def wide_took(hq, what, run, n: int = 1):
+    """run() on the wide path: its wrappers' wide launches grow by n."""
+    before = wide_count(hq)
+    out = run()
+    if wide_count(hq) != before + n:
+        fail(f"{what}: {wide_count(hq) - before} wide launches, not {n}")
+    return out
+
+
+def wide_checks(dev):
+    """The wide path (17-64 rows) against the plain versions on ragged
+    shapes: K2 fp16/fp8/fp8e4 and K3 gf4 (rows of an odd word count too)
+    at WIDE_CHECK_B rows, every third row 2^20 larger (each row to its own
+    max, TOL_WIDE), each launch seen on ``.wide_launches``; under
+    --precise at 40 rows against the plain f32 version (TOL_MV) and the
+    float64 product (PRECISE_F64_LIMIT); the expert sweep (K10 with x
+    shared and a slot's own, the fp8/fp8e4 expert FFN, K11) at 17, 40 and
+    64 rows over 8 slots with one dead (exactly zero)."""
+    from calm_tpu_torch.ops import hopper_qmm as hq
+    from calm_tpu_torch.ops import qmm as tqmm
+
+    def spread(B, n):
+        x = torch.randn(B, n, device=dev)
+        x[::3] *= 2.0 ** 20
+        return x
+
+    for fmt in ("fp16", "fp8", "fp8e4", "gf4"):
+        gs = 8 if fmt == "gf4" else 1
+        for d, n in ((1000, 1040), (4096, 4096)) + (((24, 1032), (200, 8)) if fmt == "gf4"
+                                                     else ()):
+            w = (e4m3_rand((2, d, n), dev, True) if fmt == "fp8e4"
+                 else rand_w((2, d, n // gs), fmt, dev))
+            sc = pow2_scales((2, 1), dev, 1) if fmt == "fp8e4" else None
+            for B in WIDE_CHECK_B:
+                x = spread(B, n)
+                got = wide_took(hq, f"qmm_decode {fmt} {d}x{n} B={B}",
+                                lambda: hq.qmm_decode(x, w, fmt, 1, sc))
+                check_rows(f"qmm_decode_wide {fmt} {d}x{n} B={B}", got,
+                           hq.qmm_decode_plain(x, w, fmt, 1, sc), TOL_WIDE)
+    log(f"# wide path (17-64 rows) K2/K3 checks: fp16/fp8/fp8e4/gf4, B in {WIDE_CHECK_B}, "
+        f"rows 2^20 apart, ragged and odd-word shapes within TOL_WIDE {TOL_WIDE:g} of each "
+        f"row's max; worst {WORST_REL.get('qmm_decode_wide', 0):.3e}")
+
+    # --precise: x in hi + lo on the same launches
+    B, d, n = 40, 4096, 4096
+    for fmt in ("fp8", "gf4"):
+        gs = 8 if fmt == "gf4" else 1
+        w = rand_w((1, d, n // gs), fmt, dev)
+        w64 = tqmm.dequant(tqmm.QTensor(w[0], fmt), torch.float32).double().T
+        x = torch.randn(B, n, device=dev)
+        tqmm.enable_precise(True)
+        try:
+            got = wide_took(hq, f"qmm_decode {fmt} precise B={B}",
+                            lambda: hq.qmm_decode(x, w, fmt, 0))
+        finally:
+            tqmm.enable_precise(False)
+        e = check(f"qmm_decode_wide_precise {fmt} B={B}", got,
+                  hq.qmm_decode_plain(x, w, fmt, 0), TOL_MV)
+        exact = x.double() @ w64
+        f64 = ((got.double() - exact).abs().amax(-1) / exact.abs().amax(-1)).max().item()
+        one = hq.qmm_decode(x, w, fmt, 0)
+        f64_one = ((one.double() - exact).abs().amax(-1) / exact.abs().amax(-1)).max().item()
+        if f64 > PRECISE_F64_LIMIT:
+            fail(f"qmm_decode {fmt} wide --precise B={B}: {f64:.3e} from the float64 "
+                 f"product > {PRECISE_F64_LIMIT:g}")
+        log(f"# wide path --precise {fmt} {d}x{n} B={B}: max_abs_err {e:.3e} against the "
+            f"f32 plain version (tol {TOL_MV:g} x max|y|); from the float64 product, each "
+            f"row to its max: {f64:.3e} (limit {PRECISE_F64_LIMIT:g}), the default's one "
+            f"term {f64_one:.3e}")
+
+    # the expert sweep: 8 slots, 7 live
+    A = 8
+    ids = torch.tensor([3, 0, 5, 1, 7, 2, 6, 4], dtype=torch.int32, device=dev)
+    cnt = torch.tensor([7], dtype=torch.int32, device=dev)
+    for fmt in ("fp8", "fp8e4", "gf4", "fp16"):
+        gs = 8 if fmt == "gf4" else 1
+        Dm, Hm = (1032, 1040) if fmt == "gf4" else (1024, 1040)
+        mk = (lambda sh: e4m3_rand(sh, dev)) if fmt == "fp8e4" else (
+            lambda sh: rand_w(sh, fmt, dev))
+        w1, w3 = (mk((2, A, Hm, Dm // gs)) for _ in range(2))
+        w2 = mk((2, A, Dm, Hm // gs))
+        scs = tuple(pow2_scales((2, A, 1), dev, k) for k in range(3)) if fmt == "fp8e4" \
+            else (None, None, None)
+        for B in (17, 40, 64):
+            for Ax in (1, A):
+                x = torch.randn(Ax, B, Dm, device=dev)
+                got = wide_took(hq, f"qmm_moe_dense {fmt} B={B} Ax={Ax}",
+                                lambda: hq.qmm_moe_dense(x, w1, ids, cnt, fmt, 1, scs[0]))
+                if got[7:].abs().max().item() != 0:
+                    fail(f"qmm_moe_dense {fmt} wide B={B}: a dead slot is not zero")
+                check_rows(f"qmm_moe_dense_wide {fmt} B={B} Ax={Ax}", got[:7],
+                           hq.qmm_moe_dense_plain(x, w1, ids, cnt, fmt, 1, scs[0])[:7],
+                           TOL_WIDE)
+            if fmt == "fp16":
+                continue
+            x = torch.randn(B, Dm, device=dev)
+            if fmt == "gf4":
+                got = wide_took(hq, f"gf4_moe_ffn B={B}",
+                                lambda: hq.gf4_moe_ffn(x, w1, w3, w2, ids, cnt, 1, False))
+                want = hq.gf4_moe_ffn_plain(x, w1, w3, w2, ids, cnt, 1, False)
+            else:
+                got = wide_took(hq, f"qmm_moe_ffn {fmt} B={B}",
+                                lambda: hq.qmm_moe_ffn(x, w1, w3, w2, ids, cnt, fmt, 1,
+                                                       True, scs))
+                want = hq.qmm_moe_ffn_plain(x, w1, w3, w2, ids, cnt, fmt, 1, True, scs)
+            if got[7:].abs().max().item() != 0:
+                fail(f"{fmt} expert FFN wide B={B}: a dead slot is not zero")
+            # the FFN's h passes through a second staging: twice the one-term error
+            check_rows(f"moe_ffn_wide {fmt} B={B}", got[:7], want[:7], 2 * TOL_WIDE)
+        del w1, w3, w2
+    log(f"# wide path expert sweep checks: K10 fp16/fp8/fp8e4/gf4 (x shared and a slot's "
+        f"own), the fp8/fp8e4 FFN (GELU), K11, B = 17, 40, 64, 7 live of 8 slots, the dead "
+        f"slot zero; worst rel. to a row's max: K10 {WORST_REL.get('qmm_moe_dense_wide', 0):.3e}, "
+        f"FFN {WORST_REL.get('moe_ffn_wide', 0):.3e}")
+    torch.cuda.empty_cache()
+
+
+def grouped_library(w1, w3, w2, fmt, scales, E: int, B: int, topk: int, act_gelu=False):
+    """The parent's route for an expert FFN of B rows (``model._moe_grouped``
+    through ``dense_matmul``: each live expert's routed rows, a bf16 copy of
+    each plane and ``torch.mm``), for routing that gives each of the E
+    experts B topk / E rows: lib(i, x) over layer i % L."""
+    from calm_tpu_torch.ops.hopper_qmm import act
+    from calm_tpu_torch.ops.qmm import QTensor, dense_matmul
+
+    L = w1.shape[0]
+    per = -(-B * topk // E)
+    s1, s3, s2 = scales
+
+    def lib(i, x):
+        l = i % L
+        out = torch.zeros_like(x)
+        for e in range(E):
+            rows = torch.arange(e * per, (e + 1) * per, device=x.device) % B
+            xe = x.index_select(0, rows)
+            q = [QTensor(w[l, e], fmt, None if s is None else s[l, e])
+                 for w, s in ((w1, s1), (w3, s3), (w2, s2))]
+            h = act(dense_matmul(xe, q[0]), act_gelu) * dense_matmul(xe, q[1])
+            out.index_add_(0, rows, dense_matmul(h, q[2]))
+        return out
+    return lib
+
+
+def wide_kernel_rows(gbps, dev):
+    """The wide path's rows at WIDE_B (24, 40, 64) rows, each against its
+    plain version (TOL_WIDE) and timed beside its bound and the parent's
+    route (the library column: ``dense_matmul``, a bf16 copy of the plane
+    and ``torch.mm``; for the expert FFN ``model._moe_grouped``'s products
+    through it): K2 fp8/fp16/fp8e4 on the Mistral-7B lm-head (32000 x
+    4096), K3 gf4 there beside K4 (``qmm_prefill``) from 32 rows on the
+    lm-head, a w1 and a w2 plane (``model.mm_route``'s choice), the fp8
+    expert FFN (``qmm_moe_ffn``) and K11 on Mixtral 8x7B widths in 8 live
+    slots, and the OLMoE-width sweep (D 2048, H 1024, 64 experts, top-8)
+    at 40 rows, its slots from random routing. Two planes or layers
+    cycled. The 40-row rows go to the kernels line. Calls the wrappers
+    only (``chip_compare.py`` times the parent's tree beside)."""
+    import torch.nn.functional as F
+
+    from calm_tpu_torch import model as M
+    from calm_tpu_torch.ops import hopper_qmm as hq
+    from calm_tpu_torch.ops.qmm import QTensor, dense_matmul
+
+    rows = {}
+    V = 32000
+    for fmt, key in (("fp8", "qmm_decode_wide"), ("fp16", "qmm_decode_fp16_wide"),
+                     ("fp8e4", "qmm_decode_fp8e4_wide"), ("gf4", "qmm_decode_gf4_wide")):
+        gs, esz = (8, 0.5) if fmt == "gf4" else (1, 2 if fmt == "fp16" else 1)
+        w = e4m3_rand((2, V, D), dev) if fmt == "fp8e4" else rand_w((2, V, D // gs), fmt, dev)
+        sc = pow2_scales((2, 1), dev, 2) if fmt == "fp8e4" else None
+        per_b = {}
+        for B in WIDE_B:
+            x = torch.randn(B, D, device=dev)
+            e = check(f"qmm_decode_wide {fmt} lm-head B={B}",
+                      wide_took(hq, f"qmm_decode {fmt} B={B}",
+                                lambda: hq.qmm_decode(x, w, fmt, 0, sc)),
+                      hq.qmm_decode_plain(x, w, fmt, 0, sc), TOL_WIDE)
+            b, by = bound_ms(V * D * esz + 4 * B * (D + V), 2 * B * V * D, gbps, PEAK_BF16)
+            qs = [QTensor(w[l], fmt, None if sc is None else sc[l]) for l in range(2)]
+            t = timings(lambda i: hq.qmm_decode(x, w, fmt, i % 2, sc),
+                        lambda i: hq.qmm_decode_plain(x, w, fmt, i % 2, sc),
+                        lambda i: dense_matmul(x, qs[i % 2]), bound=b)
+            log(f"# K{3 if fmt == 'gf4' else 2} wide {fmt} lm-head {V}x{D} B={B}: max_abs_err "
+                f"{e:.3e} (tol {TOL_WIDE:g} x max|y|); {ms_line(t)} (the parent's route: "
+                f"dense_matmul) bound_ms {b:.4f} ({by}); {share(t, b)}")
+            per_b[B] = dict(t, bound_ms=b, bound_by=by, max_abs_err=e)
+        rows[key] = dict(per_b[40], by_rows={B: {k: v[k] for k in (
+            "ms", "plain_ms", "library_ms", "bound_ms")} for B, v in per_b.items()})
+        del w
+    # gf4 from 32 rows: the wide path against K4 (model.mm_route's choice)
+    for name, d, n in (("lm-head", V, D), ("w1", HID, D), ("w2", D, HID)):
+        w = rand_w((2, d, n // 8), "gf4", dev)
+        line = []
+        for B in (32, 40, 48, 64):
+            x = torch.randn(B, n, device=dev)
+            b, _ = bound_ms(d * n / 2 + 4 * B * (n + d), 2 * B * d * n, gbps, PEAK_BF16)
+            mv = timed(lambda i: hq.qmm_decode_gf4(x, w, i % 2), floor=b)[0]
+            mm = timed(lambda i: hq.qmm_prefill(x, w, i % 2), floor=b)[0]
+            line.append(f"B={B} wide {mv:.4f} K4 {mm:.4f}")
+            rows.setdefault("gf4_boundary", {})[f"{name} B={B}"] = dict(wide=mv, k4=mm,
+                                                                         bound=b)
+        log(f"# gf4 {name} {d}x{n}, the wide path against K4 (ms, bound-checked CUPTI; "
+            f"model.mm_route keeps 17-64 rows on the wide path): " + "; ".join(line))
+        del w
+
+    # the expert FFN on Mixtral 8x7B widths, 8 live slots of 8 experts, top-2
+    L, E, A = 2, EXPERTS, MOE_SLOTS
+    ids = torch.arange(A, dtype=torch.int32, device=dev)
+    cnt = torch.tensor([A], dtype=torch.int32, device=dev)
+    for fmt, key in (("fp8", "qmm_moe_ffn_wide"), ("gf4", "gf4_moe_ffn_wide")):
+        gs, esz = (8, 0.5) if fmt == "gf4" else (1, 1)
+        w1, w3 = (rand_w((L, E, HID, D // gs), fmt, dev) for _ in range(2))
+        w2 = rand_w((L, E, D, HID // gs), fmt, dev)
+        if fmt == "gf4":
+            fn = lambda x, l: hq.gf4_moe_ffn(x, w1, w3, w2, ids, cnt, l, False)
+            plain = lambda x, l: hq.gf4_moe_ffn_plain(x, w1, w3, w2, ids, cnt, l, False)
+        else:
+            fn = lambda x, l: hq.qmm_moe_ffn(x, w1, w3, w2, ids, cnt, fmt, l, False)
+            plain = lambda x, l: hq.qmm_moe_ffn_plain(x, w1, w3, w2, ids, cnt, fmt, l, False)
+        per_b = {}
+        for B in WIDE_B:
+            x = torch.randn(B, D, device=dev)
+            e = check(f"moe_ffn_wide {fmt} Mixtral B={B}",
+                      wide_took(hq, f"{fmt} expert FFN B={B}", lambda: fn(x, 1)),
+                      plain(x, 1), 2 * TOL_WIDE)
+            lib = grouped_library(w1, w3, w2, fmt, (None,) * 3, E, B, 2)
+            nb = A * 3 * HID * D * esz
+            b, by = bound_ms(nb + 4 * (B * D + A * B * D), 2 * B * A * 3 * HID * D, gbps,
+                             PEAK_BF16)
+            t = timings(lambda i: fn(x, i % L), lambda i: plain(x, i % L),
+                        lambda i: lib(i, x), bound=b)
+            log(f"# {'K11 gf4_moe_ffn' if fmt == 'gf4' else 'K10 fp8 qmm_moe_ffn'} wide "
+                f"D={D} H={HID}, {A} live slots, B={B}: max_abs_err {e:.3e} (tol "
+                f"{2 * TOL_WIDE:g} x max|z|); {ms_line(t)} (the parent's route: the grouped "
+                f"products through dense_matmul, {-(-B * 2 // E)} rows an expert) bound_ms "
+                f"{b:.4f} ({by}, {nb / 1e6:.1f} MB); {share(t, b)}")
+            per_b[B] = dict(t, bound_ms=b, bound_by=by, max_abs_err=e)
+            if B == 40:
+                by_kernel(lambda i: fn(x, i % L), f"{fmt} expert FFN wide B=40")
+        rows[key] = dict(per_b[40], by_rows={B: {k: v[k] for k in (
+            "ms", "plain_ms", "library_ms", "bound_ms")} for B, v in per_b.items()})
+        del w1, w3, w2
+        torch.cuda.empty_cache()
+
+    # OLMoE widths: 64 experts, top-8 of random routing at 40 rows
+    Do, Ho, Eo, k = OLMOE["dim"], OLMOE["hidden_dim"], OLMOE["experts"], OLMOE["topk"]
+    B = 40
+    w1, w3 = (rand_w((L, Eo, Ho, Do), "fp8", dev) for _ in range(2))
+    w2 = rand_w((L, Eo, Do, Ho), "fp8", dev)
+    x = torch.randn(B, Do, device=dev)
+    idx = torch.randn(B, Eo, device=dev).topk(k, dim=-1).indices
+    uniq, cnt_o = M.expert_slots(idx, Eo)
+    live = int(cnt_o.item())
+    fn = lambda l: hq.qmm_moe_ffn(x, w1, w3, w2, uniq, cnt_o, "fp8", l, False)
+    plain = lambda l: hq.qmm_moe_ffn_plain(x, w1, w3, w2, uniq, cnt_o, "fp8", l, False)
+    e = check(f"moe_ffn_wide fp8 OLMoE B={B}", wide_took(hq, "OLMoE sweep", lambda: fn(1)),
+              plain(1), 2 * TOL_WIDE)
+    lib = grouped_library(w1, w3, w2, "fp8", (None,) * 3, Eo, B, k)
+    nb = live * 3 * Ho * Do
+    b, by = bound_ms(nb + 4 * (B * Do + uniq.shape[0] * B * Do), 2 * B * live * 3 * Ho * Do,
+                     gbps, PEAK_BF16)
+    t = timings(lambda i: fn(i % L), lambda i: plain(i % L), lambda i: lib(i, x), bound=b)
+    log(f"# K10 fp8 qmm_moe_ffn wide, OLMoE widths D={Do} H={Ho}, {Eo} experts top-{k}, "
+        f"B={B}: {live} live of {uniq.shape[0]} slots; max_abs_err {e:.3e} (tol "
+        f"{2 * TOL_WIDE:g} x max|z|); {ms_line(t)} (the parent's route: the grouped "
+        f"products through dense_matmul) bound_ms {b:.4f} ({by}, {nb / 1e6:.1f} MB, "
+        f"{2 * B} operations a weight byte); {share(t, b)}")
+    by_kernel(lambda i: fn(i % L), "OLMoE sweep wide B=40")
+    rows["qmm_moe_ffn_olmoe_wide"] = dict(t, bound_ms=b, bound_by=by, max_abs_err=e)
+    del w1, w3, w2
+    torch.cuda.empty_cache()
+    return rows
+
+
 # -- fp8e4 (e4m3 codes, a power-of-two scale per tensor / (layer, expert)) --
 
 E4M3_FINITE = [b for b in range(256) if b not in (0x7F, 0xFF)]  # 0x7f / 0xff: NaN
@@ -1745,7 +2034,8 @@ def precise_kernel_rows(gbps, dev):
 def refused_without_a_plan(dev):
     """The entry points that ran 2-16 rows on the one-row loops (a grid
     axis over rows) refuse them: ``calm_qmm_decode`` at B >= 2 without a
-    plan, every format, and ``calm_gf4_matvec`` at B >= 2 return
+    plan (the wide path's 40 rows too), every format, and
+    ``calm_gf4_matvec`` at B >= 2 return
     cudaErrorInvalidValue (1) and write nothing."""
     from calm_tpu_torch.ops import build
 
@@ -1754,13 +2044,13 @@ def refused_without_a_plan(dev):
     planes = {fmt: e4m3_rand((d, n), dev) if fmt == "fp8e4"
               else rand_w((d, n // (8 if fmt == "gf4" else 1)), fmt, dev)
               for fmt in ("fp16", "fp8", "gf4", "fp8e4")}
-    for B in (2, 9, 16):
+    for B in (2, 9, 16, 40):
         x = torch.randn(B, n, device=dev)
         y = torch.full((B, d), float("nan"), device=dev)
         for code, (fmt, w) in zip((0, 1, 2, 3), planes.items()):
             rc = build.lib("qmm").calm_qmm_decode(
                 x.data_ptr(), w.data_ptr(), y.data_ptr(), B, d, n, code,
-                scale.data_ptr() if fmt == "fp8e4" else None, None, None, None, st)
+                scale.data_ptr() if fmt == "fp8e4" else None, None, None, None, 1, st)
             if rc != 1:
                 fail(f"calm_qmm_decode {fmt} B={B} without a plan returned {rc}, not 1")
         rc = build.lib("gf4").calm_gf4_matvec(x.data_ptr(), planes["gf4"].data_ptr(),
@@ -1771,7 +2061,8 @@ def refused_without_a_plan(dev):
         if not torch.isnan(y).all():
             fail(f"a refused call at B={B} wrote its output")
     log("# refused without a plan: calm_qmm_decode (fp16, fp8, gf4, fp8e4) and "
-        "calm_gf4_matvec at B = 2, 9, 16 return cudaErrorInvalidValue, the output untouched")
+        "calm_gf4_matvec at B = 2, 9, 16, 40 return cudaErrorInvalidValue, the output "
+        "untouched")
 
 
 def ragged_checks_fp8e4(dev):
@@ -2542,6 +2833,12 @@ def counters():
     out["qmm_moe_dense_multirow"] = (hq.qmm_moe_dense, "multirow_launches")
     out["qmm_moe_ffn_multirow"] = (fns["qmm_moe_ffn"], "multirow_launches")
     out["gf4_moe_ffn_multirow"] = (hq.gf4_moe_ffn, "multirow_launches")
+    # the wide path: 17-64 rows (a verify's 8 x 5, ticks of 17-64 slots)
+    out["qmm_decode_wide"] = (hq.qmm_decode, "wide_launches")
+    out["qmm_decode_gf4_wide"] = (hq.qmm_decode_gf4, "wide_launches")
+    out["qmm_moe_dense_wide"] = (hq.qmm_moe_dense, "wide_launches")
+    out["qmm_moe_ffn_wide"] = (fns["qmm_moe_ffn"], "wide_launches")
+    out["gf4_moe_ffn_wide"] = (hq.gf4_moe_ffn, "wide_launches")
     out["decode_attention_partials"] = (ha.decode_attention, "partials_launches")
     out["prefill_attention_split"] = (ha.prefill_attention, "split_launches")
     out["tree_attention"] = (getattr(ha, "tree_attention", None), "launches")
@@ -3576,6 +3873,8 @@ VERIFY_T = (4, 5)  # a verify's query rows at GAMMA: the linear chain (g), a ser
 CAPTURES = []      # (kind, B, T or None, seconds) of every capture, in order
 SPEC_COUNTS = {}   # the launch counts of the full-width speculative drain
 TREE_COUNTS = {}   # the launch counts of the full-width tree rounds
+SPEC_MOE_COUNTS = {}    # the launch counts of the full-width Mixtral speculative drain
+VERIFY_MOE_COUNTS = {}  # fmt -> the launch counts of the MoE verify graph check
 
 
 VERIFY_B = (1, 2, 8)  # the split-S route's checked sequences: one stream, two, a tick's 8
@@ -4249,13 +4548,20 @@ def speculative_full_width(cfg, dev, gbps, smi, default):
         fail(f"spec serve: {n_rounds} rounds, launches {counts}")
     SPEC_COUNTS.update(counts)
     toks = rng.integers(3, V, (B, GAMMA + 1))
-    v_ms, e_ms = verify_bits("spec serve", cfg, w, spec.engine.cache, toks,
-                             [300 + 400 * b for b in range(B)])
+    starts = [300 + 400 * b for b in range(B)]
+    v_ms, e_ms = verify_bits("spec serve", cfg, w, spec.engine.cache, toks, starts)
+    vt = torch.as_tensor(toks, device=dev)
+    by_kernel(lambda i: M.verify_once(cfg, w, vt, starts, spec.engine.cache),
+              f"spec serve verify B={B} T={GAMMA + 1}, replayed,", calls=5)
+    with parent_product_routes(spec.engine.cache):  # the products through dense_matmul
+        old_ms = verify_bits("spec serve, the parent's route", cfg, w, spec.engine.cache,
+                             toks, starts)[0]
     n_tok = sum(r.n_generated for r in got)
     busy = "not measured" if dev_ms is None else f"{100 * dev_ms / tick_ms:.1f}%"
     out["serve"] = dict(plain_drain_ms=pw, spec_drain_ms=sw, plain_tok_s=1e3 * n_tok / pw,
                         spec_tok_s=1e3 * n_tok / sw, rounds=n_rounds, acceptance=acc,
                         round_ms=tick_ms, verify_ms=v_ms, verify_eager_ms=e_ms,
+                        verify_parent_route_ms=old_ms,
                         busy_pct=None if dev_ms is None else 100 * dev_ms / tick_ms)
     log(f"# spec serve fp8 mistral7b, {B} slots, {B} greedy requests of {N} tokens "
         f"({min(map(len, prompts)) + 1}-{max(map(len, prompts)) + 1}-token prompts), the target "
@@ -4263,12 +4569,17 @@ def speculative_full_width(cfg, dev, gbps, smi, default):
         f"plain drain's {pw:.1f} ms ({1e3 * n_tok / pw:.1f} tok/s), medians of 2; {n_rounds} "
         f"rounds; a round of all eight slots past admission {tick_ms:.3f} ms, acceptance "
         f"{acc:.3f}; verify B={B} T={GAMMA + 1} replayed {v_ms:.3f} ms, eager {e_ms:.3f} ms, "
-        f"bit-equal; K13 {counts['prefill_attention_split']} split-S launches (verifies), "
+        f"bit-equal, the parent's route (dense_matmul) replayed {old_ms:.3f} ms; "
+        f"{counts['qmm_decode_wide']} wide products; "
+        f"K13 {counts['prefill_attention_split']} split-S launches (verifies), "
         f"{counts['prefill_attention']} persistent (admissions), {counts['verify_replays']} "
         f"verify replays; device busy {busy} (2 rounds); ids against the plain drain: "
         + "; ".join(f"{i} {r}" for i, r in enumerate(res))
         + f"; {time.perf_counter() - t_path:.1f} s on {smi}")
-    del spec, target, selfd, tiny, w
+    del spec, target, selfd, tiny
+    torch.cuda.empty_cache()
+    out["tick32"] = tick_wide(cfg, w, dev, smi)
+    del w
     torch.cuda.empty_cache()
     log(f"# speculative fp8 mistral7b: {time.perf_counter() - t_phase:.1f} s; "
         + json.dumps(out))
@@ -4300,6 +4611,209 @@ def parent_verify_routes(cache):
     finally:
         ha.SPLIT_MAX_ROWS, M.tree_attention = saved
         drop()
+
+
+@contextlib.contextmanager
+def parent_product_routes(cache):
+    """The products of 17-64 rows as the parent commit ran them: fp8/fp16/
+    fp8e4 (and gf4 at 17-31) through ``dense_matmul``, the MoE FFN past 16
+    rows through the grouped products (so a MoE verify runs eagerly), by
+    the 16-row limit in place of 64. The cache's captured graphs are
+    dropped on entry and on exit, so each route captures its own."""
+    from calm_tpu_torch import model as M
+    from calm_tpu_torch.ops import hopper_qmm as hq
+
+    def drop():
+        cache.graphs.clear()
+    saved = M.MAX_MV_ROWS, hq.MAX_MV_ROWS
+    drop()
+    M.MAX_MV_ROWS = hq.MAX_MV_ROWS = hq.MAX_ROWS
+    try:
+        yield
+    finally:
+        M.MAX_MV_ROWS, hq.MAX_MV_ROWS = saved
+        drop()
+
+
+def tick_wide(cfg, w, dev, smi, slots: int = 32, steps: int = 8, pos: int = 512) -> dict:
+    """One tick of ``slots`` slots on full-width weights: the captured
+    decode step of a batch of 32 (``decode_loop``, replayed) from position
+    ``pos``, its ms a step against the parent's route (``dense_matmul``
+    per op) in this call, each route's ids the other's but at near-ties;
+    the wide path's launches a step counted (7 products a layer and the
+    lm-head)."""
+    from calm_tpu_torch import model as M
+
+    V = cfg.vocab_size
+    cache = M.KVCache.create(cfg, slots, torch.bfloat16, dev)
+    tok = torch.randint(3, V, (slots,), device=dev)
+
+    def run(n=steps):
+        return M.decode_loop(cfg, w, tok, pos, cache, n)
+    out = {}
+    ids = {}
+    for route in ("wide", "parent"):
+        ctx = parent_product_routes(cache) if route == "parent" else contextlib.nullcontext()
+        with ctx:
+            t, _, lg = run()  # captures
+            ids[route] = (t.cpu().numpy(), lg.float().cpu().numpy())
+            _, counts = drive(run)
+            ms, spread = wall_ms(run, 5)
+        out[route] = dict(ms_step=ms / steps, spread_pct=spread)
+        if route == "wide":
+            want = steps * (7 * cfg.n_layers + 1)
+            if counts["qmm_decode_wide"] != want:
+                fail(f"tick of {slots} slots: {counts['qmm_decode_wide']} wide launches, "
+                     f"not {want}")
+            out["wide_launches"] = counts["qmm_decode_wide"]
+    # the routes' ids agree but at near-ties (their x operands differ: f16
+    # with a row's scale, bf16); a slot's first mismatch decides, its later
+    # steps read other tokens
+    tw, lw = ids["wide"]  # (B, N), (N, B, V)
+    tp = ids["parent"][0]
+    ties = 0
+    for b in range(slots):
+        diff = np.nonzero(tw[b] != tp[b])[0]
+        if diff.size:
+            s0 = diff[0]
+            top = np.sort(lw[s0, b])[-2:]
+            if top[1] - top[0] > TOL_PREFILL * np.abs(lw[s0, b]).max():
+                fail(f"tick of {slots} slots: step {s0} slot {b} ids {tw[b, s0]} / "
+                     f"{tp[b, s0]} apart by more than a near-tie")
+            ties += 1
+    del cache
+    torch.cuda.empty_cache()
+    log(f"# a tick of {slots} slots, fp8 mistral7b from position {pos}, replayed: "
+        f"{out['wide']['ms_step']:.3f} ms a step (spread {out['wide']['spread_pct']:.2f}%) on "
+        f"the wide path ({out['wide_launches'] // steps} launches a step) against the parent's "
+        f"route {out['parent']['ms_step']:.3f} ms (spread {out['parent']['spread_pct']:.2f}%) "
+        f"in this call; the routes' ids equal in {slots - ties} slots, a near-tie first in "
+        f"{ties} on {smi}")
+    return out
+
+
+def spec_serve_moe(cfg, w, total, bw, dev, smi) -> dict:
+    """8 greedy requests of 32 tokens served on the 16-layer Mixtral 8x7B
+    with the target as its own draft, gamma 4, against the plain server on
+    the same requests (ids equal but at near-ties): drain times, rounds,
+    the verify of 8 x 5 rows replayed (the expert sweep on the wide path)
+    against the eager forward bit for bit and against the parent's route
+    (eager grouped products through ``dense_matmul``) in this call, and the
+    launches of the drain's verifies."""
+    from calm_tpu_torch.engine import Engine
+    from calm_tpu_torch.serve import Server
+    from calm_tpu_torch.tokenizer import Tokenizer
+    from calm_tpu_torch.utils.synth import byte_vocab
+
+    import dataclasses
+
+    t0 = time.perf_counter()
+    N, B, V = 32, 8, cfg.vocab_size
+    cfg = dataclasses.replace(cfg, bos_token_id=1, eos_token_id=2)
+    tok = Tokenizer.from_tensors(*byte_vocab(V), 1, 2, V)
+
+    def engine():
+        return Engine.from_weights(cfg, w, tok, n_bytes=total, n_params=0, n_bandwidth=bw,
+                                   batch=B, device=dev)
+    prng = np.random.default_rng(1)
+    prompts = ["".join(chr(c) for c in prng.integers(97, 123, n))
+               for n in prng.integers(128, 1025, B)]
+    reqs = [(p, N, 0.0, 1) for p in prompts]
+    plain_srv = Server(batch=B, engine=engine())
+    want, lgs = serve_recorded(plain_srv, reqs)
+    pw, _ = wall_ms(lambda: serve_recorded(plain_srv, reqs), 2)
+    del plain_srv
+    spec = Server(batch=B, engine=engine(), draft_engine=engine(), gamma=GAMMA)
+    serve_recorded(spec, reqs)  # captures
+    r0 = spec.spec_rounds
+    (got, _), counts = drive(lambda: serve_recorded(spec, reqs))
+    n_rounds = spec.spec_rounds - r0
+    sw, _ = wall_ms(lambda: serve_recorded(spec, reqs), 2)
+    res = [same_ids_near_ties(f"mixtral spec serve request {i}", g.ids, r.ids, np.stack(lg),
+                              TOL_PREFILL) for i, (g, r, lg) in enumerate(zip(got, want, lgs))]
+    if counts["verify_replays"] != n_rounds or counts["qmm_moe_ffn_wide"] <= 0:
+        fail(f"mixtral spec serve: {n_rounds} rounds, launches {counts}")
+    SPEC_MOE_COUNTS.update(counts)
+    rng = np.random.default_rng(7)
+    toks = rng.integers(3, V, (B, GAMMA + 1))
+    starts = [300 + 400 * b for b in range(B)]
+    v_ms, e_ms = verify_bits("mixtral spec serve", cfg, w, spec.engine.cache, toks, starts)
+    with parent_product_routes(spec.engine.cache):
+        from calm_tpu_torch import model as M
+        tk = torch.as_tensor(toks, device=dev)
+        M.verify_once(cfg, w, tk, starts, spec.engine.cache)
+        old_ms = wall_ms(lambda: M.verify_once(cfg, w, tk, starts, spec.engine.cache), 3)[0]
+    n_tok = sum(r.n_generated for r in got)
+    out = dict(plain_drain_ms=pw, spec_drain_ms=sw, rounds=n_rounds, verify_ms=v_ms,
+               verify_eager_ms=e_ms, verify_parent_route_ms=old_ms,
+               plain_tok_s=1e3 * n_tok / pw, spec_tok_s=1e3 * n_tok / sw)
+    log(f"# spec serve fp8 mixtral8x7b (16 layers), {B} slots, {B} greedy requests of {N} "
+        f"tokens, the target as draft, gamma {GAMMA}: drain {sw:.1f} ms ({1e3 * n_tok / sw:.1f} "
+        f"tok/s) against the plain drain's {pw:.1f} ms ({1e3 * n_tok / pw:.1f} tok/s), medians "
+        f"of 2; {n_rounds} rounds, {counts['verify_replays']} verify replays, "
+        f"{counts['qmm_moe_ffn_wide']} expert FFNs and {counts['qmm_decode_wide']} products on "
+        f"the wide path; verify B={B} T={GAMMA + 1} replayed {v_ms:.3f} ms, eager {e_ms:.3f} ms, "
+        f"bit-equal; the parent's route (eager, grouped products through dense_matmul) "
+        f"{old_ms:.3f} ms; ids against the plain drain: "
+        + "; ".join(f"{i} {r}" for i, r in enumerate(res))
+        + f"; {time.perf_counter() - t0:.1f} s on {smi}")
+    del spec
+    torch.cuda.empty_cache()
+    return out
+
+
+def verify_graph_check_moe(dev):
+    """The captured verify of a MoE target (2-layer Mixtral 8x7B widths, 8
+    experts, top-2, fp8, fp8e4 and gf4, seq_len 64): B=8 at T=5 (40 rows:
+    the expert sweep on the wide path; gf4's products on K4), gf4 also B=4
+    at T=5 (20 rows: K3 on the wide path), and the k=3, m=4 tree, each replayed
+    against the eager forward bit for bit (logits and written rows), the
+    cache across the capture unchanged, the replays seen on
+    verify replays and the wide launches counted."""
+    from calm_tpu_torch import model as M
+    from calm_tpu_torch.config import ModelConfig
+    from calm_tpu_torch.speculative import _tree_mask
+    from calm_tpu_torch.utils.synth import synth_weights
+
+    rng = np.random.default_rng(5)
+    tree = _tree_mask(3, 4)
+    depth = np.asarray([0] + [d for _ in range(3) for d in range(1, 4)], np.int32)
+    for fmt in ("fp8", "fp8e4", "gf4"):
+        cfg = ModelConfig(**{**MISTRAL, "n_layers": 2}, rope_theta=1e6, seq_len=64,
+                          rotary_dim=128, dtype=fmt, norm_ln=False, n_experts=EXPERTS,
+                          n_experts_ac=2)
+        w = synth_weights(cfg, seed=3, device=dev, random=True)
+        cases = ((8, 5, [0, 7, 14, 21, 30, 38, 50, 59], None), (1, 10, [20], tree))
+        for B, T, starts, tr in cases + (((4, 5, [3, 17, 40, 59], None),) if fmt == "gf4"
+                                         else ()):
+            cache = M.KVCache(*(torch.randn(cfg.n_layers, B, cfg.n_kv_heads, 64, cfg.head_dim,
+                                            device=dev).bfloat16() for _ in range(2)))
+            if not M.moe_sweeps(w.layers, B * T):
+                fail(f"verify moe {fmt} B={B} T={T}: not on the expert sweep")
+            before = (cache.k.clone(), cache.v.clone())
+            g = M.verify_graph(cfg, w, cache, B, T, tr is not None)
+            g.load(rng.integers(3, cfg.vocab_size, (B, T)), starts,
+                   None if tr is None else depth, tr)
+            g.capture()
+            what = f"verify moe {fmt} B={B} T={T}"
+            same_bits(f"{what}: cache k across the capture", cache.k, before[0])
+            same_bits(f"{what}: cache v across the capture", cache.v, before[1])
+            (_, counts) = drive(lambda: verify_bits(
+                f"{what}{' tree' if tr is not None else ''}", cfg, w, cache,
+                rng.integers(3, cfg.vocab_size, (B, T)), starts,
+                None if tr is None else depth, tr))
+            if counts["verify_replays"] <= 0 or (B * T > 16 and counts[
+                    "gf4_moe_ffn_wide" if fmt == "gf4" else "qmm_moe_ffn_wide"] <= 0):
+                fail(f"{what}: not replayed on the wide sweep ({counts})")
+            VERIFY_MOE_COUNTS.setdefault(fmt, {k: 0 for k in counts})
+            for k, v in counts.items():
+                VERIFY_MOE_COUNTS[fmt][k] += v
+        del w
+        torch.cuda.empty_cache()
+    log("# verify graphs of a MoE target, 2-layer mixtral8x7b-width fp8, fp8e4 and gf4 at "
+        "seq_len 64: B=8 T=5 (the expert sweep on the wide path), gf4 B=4 T=5, the k=3 m=4 "
+        "tree: cache unchanged across each capture, replayed logits and rows = eager bit for "
+        "bit; launches " + json.dumps(VERIFY_MOE_COUNTS))
 
 
 def verify_graph_check(dev):
@@ -4556,9 +5070,11 @@ def full_width_phase(fmt, dev, gbps, smi, experts: int = 0, cohere: bool = False
         torch.cuda.empty_cache()
         cache = None
         out["speculative"] = speculative_full_width(cfg, dev, gbps, smi, out)
-    log(f"# {what}: " + json.dumps(out))
     del cache
     torch.cuda.empty_cache()
+    if experts and fmt == "fp8":  # served speculatively: the verify's sweep of 40 rows
+        out["speculative serve"] = spec_serve_moe(cfg, w, total, bw, dev, smi)
+    log(f"# {what}: " + json.dumps(out))
     served = None
     if experts:  # the serving tick on these weights: the expert sweep at 8 rows
         served = full_width_serving_phase(dev, gbps, smi, fmt, built=(cfg, w, total, bw))
@@ -6230,6 +6746,9 @@ def main():
     rows.update(verify_kernel_rows(gbps, dev))
     split_corner_checks(dev)
     split_route_sweep(gbps, dev)
+    # the wide path: products and the expert sweep of 17-64 rows
+    wide_checks(dev)
+    rows.update(wide_kernel_rows(gbps, dev))
     log(f"# kernel phase done at {time.perf_counter() - t_start:.1f} s")
     # the tools' chains are K1's and K15's main path; the 3 GB rows give the
     # attainable read rate every later GB/s is also read against
@@ -6269,6 +6788,7 @@ def main():
     # the captured step against the eager one across the sink wrap
     graph_wrap_check(dev)
     verify_graph_check(dev)
+    verify_graph_check_moe(dev)
     log(f"# graph wrap and verify checks done at {time.perf_counter() - t_start:.1f} s")
     # Mixtral 8x7B is also served on its full-width weights: the sweep at 8
     # rows, K10's multi-row FFN (fp8) and K11's (gf4)
@@ -6383,7 +6903,22 @@ def main():
                "qmm_decode_precise": ("calm_tpu_torch/csrc/qmm.cu", "calm_tpu/ops/qmm.py:190",
                                       PRECISE_COUNTS["fp8"]),
                "qmm_decode_gf4_precise": ("calm_tpu_torch/csrc/qmm.cu",
-                                          "calm_tpu/ops/qmm.py:190", PRECISE_COUNTS["gf4"])}
+                                          "calm_tpu/ops/qmm.py:190", PRECISE_COUNTS["gf4"]),
+               # the wide path (17-64 rows; JAX runs these in XLA): the served
+               # speculative drains' verifies of 8 x 5 rows (fp8 Mistral-7B,
+               # Mixtral 8x7B) and the MoE verify graphs (fp8e4, gf4)
+               "qmm_decode_wide": ("calm_tpu_torch/csrc/qmm.cu",
+                                   "calm_tpu/ops/pallas_qmm.py:92", SPEC_COUNTS),
+               "qmm_decode_fp8e4_wide": ("calm_tpu_torch/csrc/qmm.cu",
+                                         "calm_tpu/ops/qmm.py:179", VERIFY_MOE_COUNTS["fp8e4"],
+                                         "qmm_decode_wide"),
+               "qmm_decode_gf4_wide": ("calm_tpu_torch/csrc/qmm.cu",
+                                       "calm_tpu/ops/pallas_qmm.py:100",
+                                       VERIFY_MOE_COUNTS["gf4"]),
+               "qmm_moe_ffn_wide": ("calm_tpu_torch/csrc/qmm.cu",
+                                    "calm_tpu/ops/pallas_qmm.py:1248", SPEC_MOE_COUNTS),
+               "gf4_moe_ffn_wide": ("calm_tpu_torch/csrc/qmm.cu",
+                                    "calm_tpu/ops/pallas_qmm.py:1361", VERIFY_MOE_COUNTS["gf4"])}
     kernels = []
     for name, (src, rep, counts, *key) in sources.items():
         n = counts[key[0] if key else name]

@@ -428,24 +428,27 @@ def _weights_of(fmt: str, **kw):
 @pytest.mark.parametrize("fmt", ["fp16", "fp8", "fp8e4", "gf4"])
 def test_routing_under_precise(fmt):
     """The decisions as pure functions: ``decode_path`` keeps one row on
-    its loop and sends 2-16 rows to the multi-row path, in either mode
-    (it takes no mode); ``mm_route`` keeps <= 16 rows on the matvecs and
-    sends gf4 from 32 rows to its matmul kernel only without precise;
+    its loop, sends 2-16 rows to the multi-row path and 17-64 to the wide
+    one, in either mode (it takes no mode); ``mm_route`` keeps <= 64 rows
+    on the matvecs and sends gf4 past them to its matmul kernel only
+    without precise;
     ``_fused`` declines the fp8/fp16 epilogue under precise (gf4's stays,
     fp8e4 has none)."""
     assert hopper_qmm.decode_path(1) == "one-row"
     for B in (2, 8, 16):
         assert hopper_qmm.decode_path(B) == "multi-row"
+    for B in (17, 40, 64):
+        assert hopper_qmm.decode_path(B) == "wide"
     with pytest.raises(ValueError):
-        hopper_qmm.decode_path(17)
+        hopper_qmm.decode_path(65)
     cfg, w = _weights_of(fmt, dim=128, hidden_dim=256, head_dim=64, n_heads=2, n_kv_heads=2,
                          rotary_dim=64)
     qt = w.layers.w1
-    for rows, want in ((1, "mv"), (16, "mv"), (17, "dense"), (31, "dense"),
-                       (32, "mm" if fmt == "gf4" else "dense"), (2048, "mm" if fmt == "gf4"
-                                                                 else "dense")):
+    for rows, want in ((1, "mv"), (16, "mv"), (17, "mv"), (31, "mv"), (32, "mv"), (64, "mv"),
+                       (65, "mm" if fmt == "gf4" else "dense"),
+                       (2048, "mm" if fmt == "gf4" else "dense")):
         assert TM.mm_route(rows, qt) == want
-        assert TM.mm_route(rows, qt, precise=True) == ("mv" if rows <= 16 else "dense")
+        assert TM.mm_route(rows, qt, precise=True) == ("mv" if rows <= 64 else "dense")
     for B in (1, 8):
         fused = TM._fused(cfg, w, B)
         assert fused == (fmt != "fp8e4")

@@ -286,7 +286,7 @@ def test_gf4_lanes_cover_k_once(n):
 
 
 def test_gf4_plan_refuses_and_fp_refusals_stay():
-    for bad in ((2, (16,), 12), (2, (16,), 0), (2, (16,), 4), (17, (16,), 16)):
+    for bad in ((2, (16,), 12), (2, (16,), 0), (2, (16,), 4), (65, (16,), 16)):
         with pytest.raises(ValueError):
             qmv_plan(*bad, gf4=True)
     for bad in ((2, (16,), 24), (2, (16,), 8), (2, (16,), 1032)):

@@ -163,7 +163,7 @@ def test_plan_refuses_slots(bad):
 def test_multirow_supported_by_shape():
     ok = hopper_qmm.moe_multirow_supported
     assert ok("fp8", 2, 4096, 14336) and ok("fp16", 16, 1040) and ok("gf4", 8, 1032)
-    assert not ok("fp8", 1, 4096) and not ok("gf4", 1, 4096) and not ok("fp8", 17, 4096)
+    assert not ok("fp8", 1, 4096) and not ok("gf4", 1, 4096) and not ok("fp8", 65, 4096)
     assert not ok("fp8", 8, 1044) and not ok("fp16", 8, 8) and not ok("gf4", 8, 1036)
     assert ok("fp8e4", 8, 4096)
 
