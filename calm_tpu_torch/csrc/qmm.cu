@@ -226,46 +226,64 @@
 //     epilogue takes fp8/fp16 only, calm_tpu/model.py:1231), and the MOE
 //     dual and w2 instantiations.
 //
-// The wide multi-row path (17 <= B <= 64 rows; mmw_kernel): K2
-// calm_qmm_decode (fp16, e5m2, e4m3, gf4: K3), and the MoE sweep's K10
-// calm_moe_mmv and expert FFN calm_moe_ffn (K11 on gf4 words), where JAX
-// runs these products in XLA (calm_tpu/ops/qmm.py:189-205, bf16 operands
-// and f32 sums; the MoE per-token vmap, calm_tpu/model.py:829-857): a
-// speculative verify's 8 x 5 rows, a tick of 17-64 slots.
+// The wide path (17 <= B <= 64 rows; wide_kernel): K2 calm_qmm_decode
+// (fp16, e5m2, e4m3, gf4: K3), and the MoE sweep's K10 calm_moe_mmv and
+// expert FFN calm_moe_ffn (K11 on gf4 words), where JAX runs these products
+// in XLA (calm_tpu/ops/qmm.py:189-205, bf16 operands and f32 sums; the MoE
+// per-token vmap, calm_tpu/model.py:829-857): a speculative verify's 8 x 5
+// rows, a tick of 17-64 slots.
 //   - What bounds it: still the weight bytes, read once for every row; at
 //     64 rows a weight byte (fp8) carries 128 operations, under the card's
-//     ~295 for bf16 tensor cores, but near what mma.sync sustains, so x
-//     takes one f16 term by default (one mma a tile and step, half of
-//     mmv_kernel's) and the tiles past B are skipped at run time.
-//   - The 2-16-row design reads x's fragments per warp from global
-//     memory, 2 bytes of x per weight byte and 16-row tile (hi + lo); at
-//     64 rows that is 8 bytes per weight byte, and its per-chunk scales
-//     keep a second set of accumulators live (2 x 64 registers a lane at
-//     64 rows). Here x is staged once a launch with one scale a row
-//     (split_rows_kernel: 2^e >= the row's max |x|, hi = f16(x 2^-e), lo =
-//     f16(x 2^-e - hi) only under --precise), so the mma sums go straight
-//     into the accumulators and the row's scale multiplies them once at
-//     the end; a warp holds 32 output rows (two m-tiles) of one weight, so
-//     each x fragment serves two m-tiles: B / 16 bytes of x per weight
-//     byte (fp8), read through L1.
-//   - f16 with a row's scale is exact for e5m2, e4m3 and fp16 weights and
-//     carries x to 2^-11 of each value down to 2^-14 of the row's max,
-//     finer than JAX's bf16 operand (2^-8); --precise adds lo, x to 2^-22,
-//     and sums each chunk apart (a run of 64 mma sums read 1.4e-6 of a
-//     row's max from the float64 product on an H100; PERF.md).
-//   - Latency, not bytes, set the pace of the first design on an H100
-//     (17-24% of the byte bound, the time linear in B: each step waited on
-//     its x fragments from L2). Now a lane's weights of a chunk come
-//     through a ring of chunks in shared memory by cp.async (its own bytes
-//     only, no barrier; WIDE_RING bytes a warp), and x's fragments are
-//     loaded WIDE_XAHEAD steps ahead of the step that multiplies, in
-//     registers budgeted for one block an SM (WIDE_BLOCKS): PERF.md has
-//     the timings of each variant.
-//   - The dual w1/w3 launch keeps one m-tile of both weights; rows of an
-//     odd gf4 word count keep one m-tile (4-byte copies); k is split by
-//     qmv_plan as at 2-16 rows, to about 8 warps an SM, and the partial
-//     accumulators meet in shared memory (the ring's) in rounds of 16 a
-//     lane.
+//     ~295 for f16 tensor cores. The first design (mmw_kernel, mma.sync, a
+//     warp's own x fragments from L2) reached 24-65% of bound: each warp
+//     re-read x, B / 16 bytes of x per weight byte, and waited on it.
+//   - A block (two consumer warpgroups and a producer warp) owns T output
+//     rows, 64 a warpgroup (the dual w1/w3 launch: 64 rows, warpgroup 0 of
+//     w1, 1 of w3), and a k part. The producer keeps TMA loads of 128-value
+//     stages in a ring of shared memory (a full and an empty barrier a
+//     stage): each warpgroup's 64 rows of weights in their natural bytes
+//     (e5m2/e4m3 and fp16 in the 128-byte swizzle, gf4 64 bytes a row), and
+//     x's two 64-value boxes, staged once a launch and loaded once a stage
+//     for the whole block. Rows of x past B arrive as zeros (TMA's bounds),
+//     up to the compiled width N (32, 40, 64).
+//   - The consumers decode their rows exactly to f16 A fragments in
+//     registers (e5m2 by byte placement, e4m3 by cvt.rn.f16x2.e4m3x2, gf4
+//     by gf4_frag, fp16 as it is) and issue eight wgmma m64nNk16 a stage
+//     against x in shared memory, f32 sums. A lane reads k = 32 t .. 32 t +
+//     31 of its row, 16-byte loads over the swizzle (every bank once a
+//     quarter-warp; fp16 twice); stage_wide_kernel writes x in the order
+//     this gives wgmma's k slots (hopper_qmm.wide_perm), so no lane shuffles.
+//   - x: one power-of-two scale a row, one f16 term (x to 2^-11 of each
+//     value down to 2^-14 of the row's max, finer than JAX's bf16 operand),
+//     (B, n rounded up to 128) f16 a TMA box reads; the row's scale
+//     multiplies the sums once they are whole.
+//   - k split: a tile's k parts are the blocks of one cluster (hopper_qmm.
+//     wide_plan: split while the launch has fewer than a block an SM, to 8
+//     parts of 4 stages or more: Mistral-7B's k/v planes have 8 tiles of 128
+//     rows). Each block's sums go through shared memory; each then adds
+//     every part's sums for its share of x's rows, in rank order, through
+//     distributed shared memory: no atomics, two identical calls give the
+//     same bits (chip_smoke.py holds them so).
+//   - The epilogue stores four rows a thread (float4), row-fastest; the
+//     rows' scales, the e4m3 scales and the dual launch's activation apply
+//     there. MoE: blockIdx.y is the slot, its expert the 3-D maps' third
+//     coordinate, read on the device; a dead slot writes zeros and reads no
+//     weight; no id reaches the host, so the verify's capture holds.
+//   - On an H100 two blocks an SM (a ring of ~104 KB) timed faster than one
+//     with twice the ring, and a block an SM faster as the split's target
+//     than two; what is left of a small launch is its fixed cost (the first
+//     stage's latency, the epilogue's stores: ~7 us of k/v's 7.3). A
+//     programmatic dependent launch after the staging gained 1-2 us on some
+//     launches and lost 3-13 on others (its early blocks pack two an SM).
+//     PERF.md has the timings.
+//   - mmw_kernel (below) keeps --precise, a route of the mode (hi + lo,
+//     each 64-value chunk summed apart: a run of 64 mma.sync sums read
+//     ~1.4e-6 of a row's max from the float64 product on an H100, past the
+//     mode's 5e-7; wgmma's long sums, not measured so, are not taken for
+//     it), and gf4 rows of n % 32 != 0 (TMA reads rows of 16-byte
+//     multiples): a warp's weights through a cp.async ring, x's fragments
+//     two steps ahead, mma.sync m16n8k16; 32 rows of x a launch under
+//     --precise.
 //
 // The quality mode (--precise, calm_tpu/ops/qmm.py:190-197: JAX's f32
 // product at Precision.HIGHEST) takes the same multi-row path at 2-16 rows,
@@ -278,9 +296,12 @@
 // set that distance. qmv_kernel and gf4_mv_kernel (gf4.cu) take one row;
 // calm_qmm_decode without a plan, and calm_gf4_matvec, refuse B >= 2.
 
+#include <cuda.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 #define WARPS 8
 
@@ -1155,8 +1176,9 @@ cudaError_t launch_mmv(int fmt, MArgs a, const int* plan, cudaStream_t st, int s
 }
 
 // ---------------------------------------------------------------------------
-// The wide multi-row path: 17 <= B <= 64 rows of x (see the note at the
-// top), every format, with or without the MoE slot axis.
+// The wide path's mma.sync kernel (mmw_kernel): 17 <= B <= 64 rows of x under
+// --precise, and gf4 rows of n % 32 != 0 (see the note at the top), with or
+// without the MoE slot axis; wide_kernel below takes the rest.
 // ---------------------------------------------------------------------------
 
 #define WIDE_ROWS 64       // rows of x the wide path takes, at most
@@ -1166,6 +1188,10 @@ cudaError_t launch_mmv(int fmt, MArgs a, const int* plan, cudaStream_t st, int s
 #define WIDE_BLOCKS 1      // blocks an SM the registers are budgeted for
 #define WIDE_XAHEAD 2      // steps of x loaded ahead of the one that multiplies (< 4)
 #define WIDE_RED 16        // accumulators a lane a round of the k split's sums
+
+// the wide path on TMA (wide_kernel, below) takes x in one f16 term and
+// weight rows of 16-byte multiples (gf4: n % 32 == 0); mmw_kernel the rest
+bool wide_tma(int fmt, int n, int terms) { return terms == 1 && (fmt != 2 || n % 32 == 0); }
 
 // One row of the wide staging, block b = blockIdx.x of slot blockIdx.y
 // (rows z B .. z B + B - 1 of x, the MoE sweep's h): m = max |x| of the row,
@@ -1564,6 +1590,8 @@ void launch_mmw_one(const MArgs& a, dim3 g, cudaStream_t st) {
   mmw_kernel<FMT, ACT, MT, ODD, MOE, PREC><<<g, WARPS * 32, K::SMEM, st>>>(a);
 }
 
+// the default's one term takes gf4 only here (rows TMA cannot read; the
+// other formats take wide_kernel), --precise every format
 template <int ACT, bool MOE, bool PREC>
 void launch_mmw_fmt(int fmt, bool odd, const MArgs& a, dim3 g, cudaStream_t st) {
   constexpr int MT = ACT == 0 && !PREC ? 2 : 1;
@@ -1572,12 +1600,13 @@ void launch_mmw_fmt(int fmt, bool odd, const MArgs& a, dim3 g, cudaStream_t st) 
       launch_mmw_one<2, ACT, 1, true, MOE, PREC>(a, g, st);
     else
       launch_mmw_one<2, ACT, MT, false, MOE, PREC>(a, g, st);
-  } else if (fmt == 3) {
-    launch_mmw_one<3, ACT, MT, false, MOE, PREC>(a, g, st);
-  } else if (fmt == 1) {
-    launch_mmw_one<1, ACT, MT, false, MOE, PREC>(a, g, st);
-  } else {
-    launch_mmw_one<0, ACT, MT, false, MOE, PREC>(a, g, st);
+  } else if constexpr (PREC) {
+    if (fmt == 3)
+      launch_mmw_one<3, ACT, MT, false, MOE, PREC>(a, g, st);
+    else if (fmt == 1)
+      launch_mmw_one<1, ACT, MT, false, MOE, PREC>(a, g, st);
+    else
+      launch_mmw_one<0, ACT, MT, false, MOE, PREC>(a, g, st);
   }
 }
 
@@ -1599,6 +1628,7 @@ cudaError_t launch_mmw(int fmt, MArgs a, const int* plan, cudaStream_t st, int s
     return cudaErrorInvalidValue;
   if (fmt == 3 && (!a.seg[0].s || (ACT && !a.seg[0].s3))) return cudaErrorInvalidValue;
   if (ACT != 0 && !MOE) return cudaErrorInvalidValue;  // the fused epilogues stop at 16 rows
+  if (wide_tma(fmt, a.n, a.terms)) return cudaErrorInvalidValue;  // wide_kernel's launches
   a.ks = ks;
   const dim3 g(grid, slots);
   if constexpr (ACT == 0 || MOE) {
@@ -1620,6 +1650,485 @@ cudaError_t launch_mmw(int fmt, MArgs a, const int* plan, cudaStream_t st, int s
 // floats of its scales (one a row)
 size_t wide_frags(int n) { return (size_t)((n + CH - 1) / CH) * 4 * WIDE_ROWS * 4; }
 #define WIDE_SCALES WIDE_ROWS
+
+// ---------------------------------------------------------------------------
+// The wide path on TMA and wgmma (wide_kernel): 17 <= B <= 64 rows of x in
+// one f16 term, every format whose weight rows TMA reads (16-byte multiples:
+// all but gf4 rows of n % 32 != 0), with or without the MoE slot axis (see
+// the note at the top). --precise and those gf4 rows take mmw_kernel above.
+// ---------------------------------------------------------------------------
+
+#define WT_K 128        // k values a stage; the staging permutes k within each 128
+#define WT_ROWS 64      // weight rows a consumer warpgroup
+#define WT_THREADS 288  // two consumer warpgroups (warps 0-7) and the producer warp (8)
+#define WT_RING 106496  // bytes of a block's ring at most: two blocks an SM
+#define WT_EP 68        // floats a row of the epilogue's sums (64 + 4: no bank conflicts)
+#define WT_KS 8         // k parts a tile at most: the blocks of a portable cluster
+#define STAGE_THREADS 1024
+#define STAGE_VEC 4     // float4s of x a staging thread holds: rows of 16384 values read once
+
+// n rounded up to whole stages; halfs of one row slot set of its staging
+__host__ __device__ size_t wt_npad(int n) { return (size_t)(n + WT_K - 1) / WT_K * WT_K; }
+size_t wt_halfs(int n) { return WIDE_ROWS * wt_npad(n); }
+
+template <int FMT, int N>
+struct WT {
+  static constexpr int WB = FMT == 0 ? 256 : FMT == 2 ? 64 : 128;  // weight bytes a row a stage
+  static constexpr int BOX = WB < 128 ? WB : 128;  // bytes a row of one TMA box
+  static constexpr int WTILE = WT_ROWS * WB;       // one warpgroup's weights a stage
+  static constexpr int XBOX = N * 128;             // one of x's two 64-value boxes
+  static constexpr int STAGE = 2 * WTILE + 2 * XBOX;
+  static constexpr int S = WT_RING / STAGE < 8 ? WT_RING / STAGE : 8;  // stages in the ring
+  static constexpr int SMEM = S * STAGE + 1024;    // + the 1024-byte alignment
+  static constexpr int NW = WB / 16;               // words of a row a lane holds a stage
+  static_assert(S >= 2, "two stages at least");
+  static_assert(2 * N * WT_EP * 4 <= S * STAGE, "the sums reuse the ring");
+};
+
+struct WArgs {
+  float* out;       // out[b * ld + row] (+ slot * oslot under the MoE slot axis)
+  const float* s0;  // e4m3: the scale of map 0's weight on the device (MoE: + expert id)
+  const float* s1;  // e4m3 dual launch: map 1's (w3)
+  const float* sc;  // x's row scales 2^e (+ slot * WIDE_SCALES where x is a slot's own)
+  const int* eidx;  // MoE: (A,) expert ids, clamped to [0, E); null for a dense launch
+  const int* cnt;   // MoE: live slots; a >= cnt writes zeros and reads no weight
+  size_t oslot;
+  int E;
+  int xslots;  // x's stagings: 1 (shared) or one a slot
+  int rows;    // output rows (of each weight)
+  int ld;
+  int B;
+  int stages;  // WT_K-value stages of k
+  int ks;      // k parts: the blocks of a cluster
+  int dual;    // the w1/w3 launch: map 0 w1, map 1 w3, the same 64 rows
+  int act;     // its activation: 1 SiLU, 2 GELU
+};
+
+__device__ __forceinline__ void ld_shared_v4(uint32_t* q, uint32_t addr) {
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];"
+               : "=r"(q[0]), "=r"(q[1]), "=r"(q[2]), "=r"(q[3])
+               : "r"(addr));
+}
+
+// A lane's words of weight row r (of its warpgroup's 64) in one stage: k =
+// 32 t .. 32 t + 31 of the stage's 128, in order. e5m2/e4m3: 16-byte chunks
+// 2 t and 2 t + 1 of the row's 128 bytes, which TMA's 128-byte swizzle puts
+// at chunk ^ (r % 8); fp16: chunks 4 (t % 2) .. + 3 of box t / 2 (k 0-63,
+// 64-127, 128 bytes a row each), swizzled alike; gf4: chunk t of the row's 64
+// bytes (no swizzle). A quarter-warp (rows 2 i, 2 i + 1) reads eight
+// different chunks, every bank once (fp16: twice).
+template <int FMT>
+__device__ __forceinline__ void wt_load(uint32_t* q, const uint8_t* tile, int r, int t) {
+  const uint32_t base = smem_u32(tile);
+  if constexpr (FMT == 2) {
+    ld_shared_v4(q, base + r * 64 + 16 * t);
+  } else if constexpr (FMT == 0) {
+    const uint32_t row = base + (t >> 1) * (WT_ROWS * 128) + r * 128;
+#pragma unroll
+    for (int h = 0; h < 4; h++) ld_shared_v4(q + 4 * h, row + 16 * ((4 * (t & 1) + h) ^ (r & 7)));
+  } else {
+#pragma unroll
+    for (int h = 0; h < 2; h++) ld_shared_v4(q + 4 * h, base + r * 128 + 16 * ((2 * t + h) ^ (r & 7)));
+  }
+}
+
+// step k (of 8, 16 values each) of a lane's words: the f16x2 A operands of
+// the stage's values 32 t + 4 k + (0, 1) and (2, 3), decoded as mmv_kernel's
+// (MW::frag)
+template <int FMT>
+__device__ __forceinline__ void wt_frag(const uint32_t* q, int k, uint32_t k1024, uint32_t& a01,
+                                        uint32_t& a23) {
+  if constexpr (FMT == 2) {
+    gf4_frag(q[k >> 1], k & 1, k1024, a01, a23);
+  } else if constexpr (FMT == 1) {
+    a01 = __byte_perm(q[k], 0u, 0x1404);
+    a23 = __byte_perm(q[k], 0u, 0x3424);
+  } else if constexpr (FMT == 3) {
+    a01 = e4m3x2_f16x2((unsigned short)(q[k] & 0xffffu));
+    a23 = e4m3x2_f16x2((unsigned short)(q[k] >> 16));
+  } else {
+    a01 = q[2 * k];
+    a23 = q[2 * k + 1];
+  }
+}
+
+// The wide staging for wide_kernel, row b = blockIdx.x of slot blockIdx.y
+// (rows z B .. z B + B - 1 of x: the MoE sweep's h): one scale a row as
+// split_rows_kernel (2^e > max |x|, e = 0 for a row of zeros) and hi = f16(x
+// 2^-e) at xs[b * npad + p] (npad = n rounded up to WT_K, zeros past n): the
+// stage's value k = 32 t + 4 s + j goes to p = 16 s + 2 t + j (j < 2) or 16 s
+// + 8 + 2 t + j - 2, the slot of step s that wgmma's A fragment gives lane t's
+// weights (wt_load, wt_frag); sc[b] = 2^e. Slot z's staging is xslot halfs
+// and scslot floats after slot z - 1's. A thread holds STAGE_VEC float4s of
+// the row in registers between the max and the writes (rows past 16384
+// values read the rest twice).
+__device__ __forceinline__ void stage_wide4(float4 v, float inv, int c, __half* xo) {
+  const int k = 4 * c, t = (k >> 5) & 3, s = (k >> 2) & 7;
+  uint32_t* o = reinterpret_cast<uint32_t*>(xo + (k & ~(WT_K - 1)) + 16 * s + 2 * t);
+  o[0] = h2bits(__float2half_rn(v.x * inv), __float2half_rn(v.y * inv));
+  o[4] = h2bits(__float2half_rn(v.z * inv), __float2half_rn(v.w * inv));  // 8 halfs on
+}
+
+__device__ __forceinline__ float abs_max4(float4 v) {
+  return fmaxf(fmaxf(fabsf(v.x), fabsf(v.y)), fmaxf(fabsf(v.z), fabsf(v.w)));
+}
+
+__global__ void __launch_bounds__(STAGE_THREADS)
+    stage_wide_kernel(const float* x, __half* xs, float* sc, int n, size_t xslot, size_t scslot) {
+  __shared__ float red[STAGE_THREADS / 32];
+  const int b = blockIdx.x, n4 = n >> 2, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int np4 = (int)(wt_npad(n) >> 2);
+  const float4* xr =
+      reinterpret_cast<const float4*>(x + ((size_t)blockIdx.y * gridDim.x + b) * n);
+  __half* xo = xs + blockIdx.y * xslot + (size_t)b * (4 * np4);
+  float4 v[STAGE_VEC];
+  float m = 0.f;
+#pragma unroll
+  for (int k = 0; k < STAGE_VEC; k++) {
+    const int c = threadIdx.x + k * STAGE_THREADS;
+    v[k] = c < n4 ? xr[c] : make_float4(0.f, 0.f, 0.f, 0.f);
+    m = fmaxf(m, abs_max4(v[k]));
+  }
+  for (int c = threadIdx.x + STAGE_VEC * STAGE_THREADS; c < n4; c += STAGE_THREADS)
+    m = fmaxf(m, abs_max4(xr[c]));
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+  if (lane == 0) red[warp] = m;
+  __syncthreads();
+  m = 0.f;
+#pragma unroll
+  for (int i = 0; i < STAGE_THREADS / 32; i++) m = fmaxf(m, red[i]);
+  int e;
+  frexpf(m, &e);  // m = f 2^e, f in [0.5, 1): |x 2^-e| < 1 (e = 0 for m = 0)
+  const float inv = ldexpf(1.0f, -e);
+#pragma unroll
+  for (int k = 0; k < STAGE_VEC; k++) {
+    const int c = threadIdx.x + k * STAGE_THREADS;
+    if (c < np4) stage_wide4(v[k], inv, c, xo);
+  }
+  for (int c = threadIdx.x + STAGE_VEC * STAGE_THREADS; c < np4; c += STAGE_THREADS)
+    stage_wide4(c < n4 ? xr[c] : make_float4(0.f, 0.f, 0.f, 0.f), inv, c, xo);
+  if (threadIdx.x == 0) sc[blockIdx.y * scslot + b] = ldexpf(1.0f, e);
+}
+
+// One block: output rows r0 .. r0 + T - 1 (T = 128: two warpgroups of 64 rows
+// of one weight; the dual launch T = 64, warpgroup 0 w1's rows and 1 w3's)
+// against k part blockIdx.x % ks of the stages, all B rows of x (N, the
+// compiled width, >= B: rows past B arrive as zeros). The producer warp keeps
+// TMA loads of the weights (in their natural bytes) and x's two 64-value
+// boxes in an S-stage ring, a full and an empty barrier a stage; each
+// consumer warpgroup decodes its 64 rows of a stage to f16 A fragments in
+// registers (exactly) and issues eight wgmma m64nNk16 against x in shared
+// memory, f32 sums. The epilogue: the sums through shared memory; the ks
+// blocks of a cluster (the k parts of one tile) then each add every part's
+// sums, in rank order, for their share of x's rows through distributed
+// shared memory (no atomics: the order is fixed), times x's row scale (and
+// the e4m3 scales), the activation for the dual launch, stored row-fastest.
+// MoE: blockIdx.y is the slot, its expert the 3-D maps' third coordinate, a
+// dead slot writes zeros and reads no weight.
+template <int FMT, int N>
+__global__ void __launch_bounds__(WT_THREADS, 2)
+    wide_kernel(const __grid_constant__ CUtensorMap wmap0,
+                const __grid_constant__ CUtensorMap wmap1,
+                const __grid_constant__ CUtensorMap xmap, WArgs a) {
+  using P = WT<FMT, N>;
+  extern __shared__ uint8_t wt_raw[];
+  uint8_t* ring = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(wt_raw) + 1023) & ~(uintptr_t)1023);
+  __shared__ __align__(8) uint64_t full[P::S], empty[P::S];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int ks = a.ks, kp = blockIdx.x % ks;
+  const int T = a.dual ? WT_ROWS : 2 * WT_ROWS;
+  const int r0 = (blockIdx.x / ks) * T;
+  const int slot = blockIdx.y;
+  const int b_lo = kp * a.B / ks, b_hi = (kp + 1) * a.B / ks;  // rows of x this block stores
+  float* out = a.out;
+  int e = 0;
+  if (a.eidx) {  // every block of the cluster returns here, or none
+    out += (size_t)slot * a.oslot;
+    e = slot < __ldg(a.cnt) ? min(max(__ldg(a.eidx + slot), 0), a.E - 1) : -1;
+    if (e < 0) {
+      for (int i = tid; i < (b_hi - b_lo) * T; i += WT_THREADS) {
+        const int row = r0 + i % T;
+        if (row < a.rows) out[(size_t)(b_lo + i / T) * a.ld + row] = 0.f;
+      }
+      return;
+    }
+  }
+  const int st0 = kp * a.stages / ks, nst = (kp + 1) * a.stages / ks - st0;
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < P::S; s++) {
+      mbar_init(full + s, 1);   // the producer's arrival and the bytes
+      mbar_init(empty + s, 8);  // one arrival a consumer warp
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  float acc[N / 2];
+#pragma unroll
+  for (int i = 0; i < N / 2; i++) acc[i] = 0.f;
+  if (warp == 8) {
+    if (lane == 0) {
+      const int xz = a.xslots > 1 ? slot : 0, r1 = a.dual ? r0 : r0 + WT_ROWS;
+      auto weights = [&](int i) {  // stage i's weights, and the bytes of the whole stage
+        const int s = i % P::S, kb = (st0 + i) * P::WB;
+        uint8_t* st = ring + s * P::STAGE;
+        mbar_expect_tx(full + s, P::STAGE);
+#pragma unroll
+        for (int h = 0; h < P::WB / P::BOX; h++) {
+          tma_load_3d(st + h * WT_ROWS * P::BOX, &wmap0, full + s, kb + h * P::BOX, r0, e);
+          tma_load_3d(st + P::WTILE + h * WT_ROWS * P::BOX, &wmap1, full + s, kb + h * P::BOX,
+                      r1, e);
+        }
+      };
+      auto xtile = [&](int i) {
+        const int s = i % P::S, kx = (st0 + i) * WT_K;
+        uint8_t* st = ring + s * P::STAGE;
+        tma_load_3d(st + 2 * P::WTILE, &xmap, full + s, kx, 0, xz);
+        tma_load_3d(st + 2 * P::WTILE + P::XBOX, &xmap, full + s, kx + 64, 0, xz);
+      };
+      for (int i = 0; i < nst; i++) {
+        if (i >= P::S) mbar_wait(empty + i % P::S, ((i / P::S) - 1) & 1);
+        weights(i);
+        xtile(i);
+      }
+    }
+  } else {
+    const int wg = warp >> 2, g = lane >> 2, t = lane & 3;
+    const int ra = 16 * (warp & 3) + g;  // this lane's rows ra, ra + 8 of its warpgroup's 64
+    uint32_t k1024;
+    asm("mov.b32 %0, 0x64006400;" : "=r"(k1024));
+    uint32_t af[8][4];  // A of the stage's eight steps: rows ra, ra + 8 x values (0, 1), (2, 3)
+#pragma unroll
+    for (int k = 0; k < 8; k++)
+#pragma unroll
+      for (int j = 0; j < 4; j++) af[k][j] = 0u;
+    for (int i = 0; i < nst; i++) {
+      const int s = i % P::S;
+      mbar_wait(full + s, (i / P::S) & 1);
+      wgmma_wait<0>();  // the last stage's products are done: its x and the A registers are free
+      fence_acc<N / 2>(acc);
+      fence_regs<32>(&af[0][0]);
+      if (i > 0 && lane == 0) mbar_arrive(empty + (i - 1) % P::S);
+      const uint8_t* st = ring + s * P::STAGE;
+      uint32_t q[2][P::NW];
+      wt_load<FMT>(q[0], st + wg * P::WTILE, ra, t);
+      wt_load<FMT>(q[1], st + wg * P::WTILE, ra + 8, t);
+#pragma unroll
+      for (int k = 0; k < 8; k++) {
+        wt_frag<FMT>(q[0], k, k1024, af[k][0], af[k][2]);
+        wt_frag<FMT>(q[1], k, k1024, af[k][1], af[k][3]);
+      }
+      const uint64_t xd = wgmma_desc(st + 2 * P::WTILE);
+      fence_acc<N / 2>(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < 8; k++)
+        wgmma_rs_f16<N>(acc, af[k], xd + (k >> 2) * (P::XBOX >> 4) + 2 * (k & 3));
+      wgmma_commit();
+    }
+    wgmma_wait<0>();
+    fence_acc<N / 2>(acc);
+  }
+
+  __syncthreads();  // every stage is consumed: the ring takes the sums
+  float* ep = reinterpret_cast<float*>(ring);  // [warpgroup][row of x][row], WT_EP a row
+  __shared__ float xsc[WIDE_ROWS];             // x's row scales
+  if (tid < a.B) xsc[tid] = a.sc[(a.xslots > 1 ? (size_t)slot * WIDE_SCALES : 0) + tid];
+  if (warp < 8) {
+    const int wg = warp >> 2, g = lane >> 2, t = lane & 3, ra = 16 * (warp & 3) + g;
+    // register i: row ra + 8 ((i / 2) % 2), x row 8 (i / 4) + 2 t + i % 2
+#pragma unroll
+    for (int i = 0; i < N / 2; i++)
+      ep[(wg * N + 8 * (i >> 2) + 2 * t + (i & 1)) * WT_EP + ra + 8 * ((i >> 1) & 1)] = acc[i];
+  }
+  float s0 = 1.f, s1 = 1.f;  // e4m3: the scales of the two weights
+  if constexpr (FMT == 3) {
+    s0 = __ldg(a.s0 + e);
+    if (a.dual) s1 = __ldg(a.s1 + e);
+  }
+  __syncwarp();
+  cluster_sync();
+  // four rows a thread: float4 loads of the sums and stores of the outputs
+  const int qsh = a.dual ? 4 : 5;  // T / 4 = 2^qsh
+  const bool vec = (a.ld & 3) == 0 && (reinterpret_cast<uintptr_t>(out) & 15) == 0;
+  for (int i = tid; i < (b_hi - b_lo) << qsh; i += WT_THREADS) {
+    const int b = b_lo + (i >> qsh), r = (i << 2) & (T - 1), row = r0 + r;
+    const float* p0 = ep + ((r >> 6) * N + b) * WT_EP + (r & 63);
+    float4 y = make_float4(0.f, 0.f, 0.f, 0.f), y3 = y;
+    if (ks == 1) {
+      y = *reinterpret_cast<const float4*>(p0);
+      if (a.dual) y3 = *reinterpret_cast<const float4*>(p0 + N * WT_EP);
+    } else {  // every part's sums loaded at once, then added in rank order
+      float4 v[WT_KS], v3[WT_KS];
+#pragma unroll
+      for (int p = 0; p < WT_KS; p++) {
+        v[p] = v3[p] = y;
+        if (p < ks) {
+          v[p] = ld_cluster4(p0, p);
+          if (a.dual) v3[p] = ld_cluster4(p0 + N * WT_EP, p);
+        }
+      }
+#pragma unroll
+      for (int p = 0; p < WT_KS; p++) {
+        if (p < ks) {
+          y = make_float4(y.x + v[p].x, y.y + v[p].y, y.z + v[p].z, y.w + v[p].w);
+          y3 = make_float4(y3.x + v3[p].x, y3.y + v3[p].y, y3.z + v3[p].z, y3.w + v3[p].w);
+        }
+      }
+    }
+    const float xs = xsc[b];
+    float o[4] = {y.x, y.y, y.z, y.w};
+    const float o3[4] = {y3.x, y3.y, y3.z, y3.w};
+#pragma unroll
+    for (int j = 0; j < 4; j++) {
+      o[j] *= xs;
+      if constexpr (FMT == 3) o[j] *= s0;
+      if (a.dual) {
+        float z = o3[j] * xs;
+        if constexpr (FMT == 3) z *= s1;
+        o[j] = act_fn(a.act, o[j]) * z;
+      }
+    }
+    float* dst = out + (size_t)b * a.ld + row;
+    if (vec && row + 3 < a.rows) {
+      *reinterpret_cast<float4*>(dst) = make_float4(o[0], o[1], o[2], o[3]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; j++)
+        if (row + j < a.rows) dst[j] = o[j];
+    }
+  }
+  if (ks > 1) {  // no block leaves while another reads its sums
+    __syncwarp();
+    cluster_sync_relaxed();
+  }
+}
+
+template <int FMT, int N>
+cudaError_t launch_wide_one(const CUtensorMap& m0, const CUtensorMap& m1, const CUtensorMap& mx,
+                            const WArgs& a, dim3 grid, cudaStream_t st) {
+  using P = WT<FMT, N>;
+  static const cudaError_t set = cudaFuncSetAttribute(
+      wide_kernel<FMT, N>, cudaFuncAttributeMaxDynamicSharedMemorySize, P::SMEM);
+  if (set != cudaSuccess) return set;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(WT_THREADS);
+  cfg.dynamicSmemBytes = P::SMEM;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = a.ks;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = a.ks > 1;  // a whole k: each block its own cluster
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, wide_kernel<FMT, N>, m0, m1, mx, a);
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
+
+template <int FMT>
+cudaError_t launch_wide_n(int N, const CUtensorMap& m0, const CUtensorMap& m1,
+                          const CUtensorMap& mx, const WArgs& a, dim3 grid, cudaStream_t st) {
+  if (N == 32) return launch_wide_one<FMT, 32>(m0, m1, mx, a, grid, st);
+  if (N == 40) return launch_wide_one<FMT, 40>(m0, m1, mx, a, grid, st);
+  return launch_wide_one<FMT, 64>(m0, m1, mx, a, grid, st);
+}
+
+// a 3-D tensor map (d0 inner, d1, d2; strides of d1 and d2 in bytes) with a
+// box (b0, b1, 1); out-of-bounds elements arrive as zeros
+cudaError_t wt_map(CUtensorMap* m, CUtensorMapDataType dt, const void* p, size_t d0, size_t d1,
+                   size_t d2, size_t st1, size_t st2, int b0, int b1, bool sw128) {
+  const EncodeTiledFn enc = encode_tiled();
+  if (enc == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {d0, d1, d2};
+  const cuuint64_t strides[2] = {st1, st2};
+  const cuuint32_t box[3] = {(cuuint32_t)b0, (cuuint32_t)b1, 1};
+  const cuuint32_t estr[3] = {1, 1, 1};
+  return enc(m, dt, 3, const_cast<void*>(p), dims, strides, box, estr,
+             CU_TENSOR_MAP_INTERLEAVE_NONE,
+             sw128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
+             ? cudaSuccess
+             : cudaErrorInvalidValue;
+}
+
+size_t row_bytes(int fmt, int n);
+
+// One launch of the TMA wide path: out (B, rows) = x . W^T, x staged at
+// xs/sc by stage_wide_kernel, W (rows, n) in fmt (0 fp16, 1 e5m2, 2 gf4
+// words, 3 e4m3 times s0); w3 (not null): the dual launch, out = act(x .
+// W^T s0) (x . W3^T s1) with act 1 SiLU or 2 GELU. MoE (eidx, cnt): w the
+// layer's (E, rows, n) stack, `slots` slots of grid x slots blocks, x shared
+// (xslots 1) or a slot's own (xslots = slots), outputs oslot floats apart.
+// plan (qmv_plan): {mt, nt, ks, grid}, mt = T / 16 (8, or 4 dual), nt = N /
+// 8 for a compiled width N in {32, 40, 64}, grid = tiles x ks.
+cudaError_t launch_wide(int fmt, const void* w, const void* w3, const void* s0, const void* s1,
+                        void* out, int rows, int ld, const __half* xs, const float* sc, int B,
+                        int n, int act, const int* plan, cudaStream_t st,
+                        const void* eidx = nullptr, const void* cnt = nullptr, int E = 1,
+                        int slots = 1, int xslots = 1, size_t oslot = 0) {
+  const bool dual = w3 != nullptr;
+  const int mt = plan[0], N = 8 * plan[1], ks = plan[2], grid = plan[3];
+  const int T = dual ? WT_ROWS : 2 * WT_ROWS;
+  const int stages = (n + WT_K - 1) / WT_K, tiles = (rows + T - 1) / T;
+  const size_t rb = row_bytes(fmt, n);
+  if (mt != T / 16 || (N != 32 && N != 40 && N != 64) || B <= 16 || B > N ||
+      (ks != 1 && ks != 2 && ks != 4 && ks != WT_KS) || stages < ks || grid != tiles * ks ||
+      rows < 1 || n < 1 || fmt < 0 || fmt > 3 || !wide_tma(fmt, n, 1) || rb % 16 != 0 ||
+      (fmt == 3) != (s0 != nullptr) || (fmt == 3 && dual && !s1) ||
+      (dual ? act != 1 && act != 2 : act != 0) || (eidx == nullptr) != (cnt == nullptr) ||
+      slots < 1 || slots > 65535 || (!eidx && (slots != 1 || xslots != 1)) ||
+      (xslots != 1 && xslots != slots) || E < 1)
+    return cudaErrorInvalidValue;
+  const int planes = eidx ? E : 1, box = fmt == 2 ? 64 : 128;
+  const size_t plane = (size_t)rows * rb;
+  CUtensorMap m0, m1, mx;
+  cudaError_t e = wt_map(&m0, CU_TENSOR_MAP_DATA_TYPE_UINT8, w, rb, rows, planes, rb, plane, box,
+                         WT_ROWS, fmt != 2);
+  if (e == cudaSuccess && dual)
+    e = wt_map(&m1, CU_TENSOR_MAP_DATA_TYPE_UINT8, w3, rb, rows, planes, rb, plane, box, WT_ROWS,
+               fmt != 2);
+  if (e == cudaSuccess)
+    e = wt_map(&mx, CU_TENSOR_MAP_DATA_TYPE_FLOAT16, xs, wt_npad(n), B, xslots, 2 * wt_npad(n),
+               2 * wt_halfs(n), 64, N, true);
+  if (e != cudaSuccess) return e;
+  WArgs a;
+  a.out = static_cast<float*>(out);
+  a.s0 = static_cast<const float*>(s0);
+  a.s1 = static_cast<const float*>(s1);
+  a.sc = sc;
+  a.eidx = static_cast<const int*>(eidx);
+  a.cnt = static_cast<const int*>(cnt);
+  a.oslot = oslot;
+  a.E = E;
+  a.xslots = xslots;
+  a.rows = rows;
+  a.ld = ld;
+  a.B = B;
+  a.stages = stages;
+  a.ks = ks;
+  a.dual = dual;
+  a.act = act;
+  const CUtensorMap& m1r = dual ? m1 : m0;
+  const dim3 g(grid, slots);
+  if (fmt == 0) return launch_wide_n<0>(N, m0, m1r, mx, a, g, st);
+  if (fmt == 1) return launch_wide_n<1>(N, m0, m1r, mx, a, g, st);
+  if (fmt == 2) return launch_wide_n<2>(N, m0, m1r, mx, a, g, st);
+  return launch_wide_n<3>(N, m0, m1r, mx, a, g, st);
+}
+
+// x (slots x B rows of n) staged for wide_kernel, slot z's staging wt_halfs(n)
+// halfs and WIDE_SCALES scales after slot z - 1's
+cudaError_t launch_stage_wide(const void* x, void* xs, float* sc, int B, int n, cudaStream_t st,
+                              int slots = 1) {
+  stage_wide_kernel<<<dim3(B, slots), STAGE_THREADS, 0, st>>>(
+      static_cast<const float*>(x), static_cast<__half*>(xs), sc, n, wt_halfs(n), WIDE_SCALES);
+  return cudaGetLastError();
+}
 
 // x (slots x B rows of n) staged for the wide path, slot z's staging
 // xslot uint2 and scslot floats after slot z - 1's
@@ -1839,8 +2348,9 @@ extern "C" {
 // 2 rows (one gf4 row: calm_gf4_matvec, gf4.cu); w points at the layer's
 // plane. B >= 2 takes the multi-row path and needs a plan: x staged into
 // xs/sc (caller-allocated, qmv_plan's sizes), then plan's launch (2-16
-// rows mmv_kernel, 17-64 the wide path's mmw_kernel with x in `terms` f16
-// terms: 1, or 2 under --precise; unused below 17 rows); B = 1 the loop of
+// rows mmv_kernel, 17-64 the wide path: wide_kernel with x in one f16
+// term, or under --precise (`terms` 2; 1 otherwise, unused below 17 rows)
+// and for gf4 rows of n % 32 != 0 mmw_kernel); B = 1 the loop of
 // one row (xs, sc and plan unused). B >= 2 without a plan returns
 // cudaErrorInvalidValue.
 int calm_qmm_decode(const void* x, const void* w, void* y, int B, int d, int n,
@@ -1850,8 +2360,15 @@ int calm_qmm_decode(const void* x, const void* w, void* y, int B, int d, int n,
   if ((fmt == 3) != (scale != nullptr)) return (int)cudaErrorInvalidValue;
   if (B > 16) {  // the wide path
     if (!plan) return (int)cudaErrorInvalidValue;
-    uint2* xs2 = static_cast<uint2*>(xs);
     float* scf = static_cast<float*>(sc);
+    if (wide_tma(fmt, n, terms)) {
+      cudaError_t e = launch_stage_wide(x, xs, scf, B, n, st);
+      if (e != cudaSuccess) return (int)e;
+      return (int)launch_wide(fmt, w, nullptr, scale, nullptr, y, d, d,
+                              static_cast<const __half*>(xs), scf, B, n, 0,
+                              static_cast<const int*>(plan), st);
+    }
+    uint2* xs2 = static_cast<uint2*>(xs);
     cudaError_t e = launch_split_rows(x, xs2, scf, B, n, terms, st);
     if (e != cudaSuccess) return (int)e;
     MArgs m = margs(static_cast<const uint4*>(xs), scf, B, n);
@@ -1981,7 +2498,15 @@ int calm_moe_mmv(const void* x, const void* w, void* y, const void* eidx, const 
   if ((fmt == 3) != (scale != nullptr)) return (int)cudaErrorInvalidValue;
   const int* p = static_cast<const int*>(plan);
   if (Ax != 1 && Ax != A) return (int)cudaErrorInvalidValue;
-  if (B > 16) {  // the wide path
+  if (B > 16 && wide_tma(fmt, n, terms)) {  // the wide path on TMA
+    float* scf = static_cast<float*>(sc);
+    cudaError_t e = launch_stage_wide(x, xs, scf, B, n, st, Ax);
+    if (e != cudaSuccess) return (int)e;
+    return (int)launch_wide(fmt, w, nullptr, scale, nullptr, y, d, d,
+                            static_cast<const __half*>(xs), scf, B, n, 0, p, st, eidx, cnt, E,
+                            A, Ax, (size_t)B * d);
+  }
+  if (B > 16) {  // the wide path of --precise, and of gf4 rows TMA cannot read
     const size_t xslot = terms * wide_frags(n);
     cudaError_t e = launch_split_rows(x, static_cast<uint2*>(xs), static_cast<float*>(sc),
                                       B, n, terms, st, Ax, xslot, WIDE_SCALES);
@@ -2017,8 +2542,9 @@ int calm_moe_mmv(const void* x, const void* w, void* y, const void* eidx, const 
 // staged slot by slot, the w2 launch into z; slots a >= cnt give zeros.
 // plans: qmv_plan's (slots = A) of w1/w3 and w2; xs/sc hold A stagings of
 // H values. 17-64 rows take the same four launches on the wide path
-// (split_rows_kernel, mmw_kernel; x in `terms` f16 terms, 1 or 2 under
-// --precise; unused below 17 rows).
+// (stage_wide_kernel and wide_kernel; under --precise, `terms` 2, and for
+// gf4 rows of n % 32 != 0 split_rows_kernel and mmw_kernel: each product by
+// its own k; `terms` unused below 17 rows).
 int calm_moe_ffn(const void* x, const void* w1, const void* w3, const void* w2,
                  const void* eidx, const void* cnt, void* h, void* z, int A, int B, int D,
                  int H, int E, int fmt, int act_gelu, const void* s1, const void* s3,
@@ -2029,23 +2555,37 @@ int calm_moe_ffn(const void* x, const void* w1, const void* w3, const void* w2,
   if (e4 != (s1 != nullptr) || e4 != (s3 != nullptr) || e4 != (s2 != nullptr))
     return (int)cudaErrorInvalidValue;
   const int* p = static_cast<const int*>(plans);
-  if (B > 16) {  // the wide path: x staged once, h a slot at a time
-    uint2* xs2 = static_cast<uint2*>(xs);
+  if (B > 16) {  // the wide path: x staged once, h a slot at a time; each product on
+                 // wide_kernel where its k allows, else mmw_kernel
     float* scf = static_cast<float*>(sc);
-    cudaError_t e = launch_split_rows(x, xs2, scf, B, D, terms, st);
+    cudaError_t e;
+    if (wide_tma(fmt, D, terms)) {
+      if ((e = launch_stage_wide(x, xs, scf, B, D, st)) != cudaSuccess) return (int)e;
+      e = launch_wide(fmt, w1, w3, s1, s3, h, H, H, static_cast<const __half*>(xs), scf, B, D,
+                      act_gelu ? 2 : 1, p, st, eidx, cnt, E, A, 1, (size_t)B * H);
+    } else {
+      uint2* xs2 = static_cast<uint2*>(xs);
+      if ((e = launch_split_rows(x, xs2, scf, B, D, terms, st)) != cudaSuccess) return (int)e;
+      MArgs m = margs(static_cast<const uint4*>(xs), scf, B, D);
+      m.terms = terms;
+      m.lo = wide_frags(D);
+      m.seg[0] = seg(w1, w3, h, nullptr, H, H, s1, s3);
+      moe_slots(m, eidx, cnt, E, (size_t)H * row_bytes(fmt, D), 0, 0, (size_t)B * H);
+      e = act_gelu ? launch_mmw<2, true>(fmt, m, p, st, A) : launch_mmw<1, true>(fmt, m, p, st, A);
+    }
     if (e != cudaSuccess) return (int)e;
-    MArgs m = margs(static_cast<const uint4*>(xs), scf, B, D);
-    m.terms = terms;
-    m.lo = wide_frags(D);
-    m.seg[0] = seg(w1, w3, h, nullptr, H, H, s1, s3);
-    moe_slots(m, eidx, cnt, E, (size_t)H * row_bytes(fmt, D), 0, 0, (size_t)B * H);
-    e = act_gelu ? launch_mmw<2, true>(fmt, m, p, st, A) : launch_mmw<1, true>(fmt, m, p, st, A);
-    if (e != cudaSuccess) return (int)e;
+    if (wide_tma(fmt, H, terms)) {
+      if ((e = launch_stage_wide(h, xs, scf, B, H, st, A)) != cudaSuccess) return (int)e;
+      return (int)launch_wide(fmt, w2, nullptr, s2, nullptr, z, D, D,
+                              static_cast<const __half*>(xs), scf, B, H, 0, p + 4, st, eidx, cnt,
+                              E, A, A, (size_t)B * D);
+    }
+    uint2* xs2 = static_cast<uint2*>(xs);
     const size_t xslot = terms * wide_frags(H);
     if ((e = launch_split_rows(h, xs2, scf, B, H, terms, st, A, xslot, WIDE_SCALES)) !=
         cudaSuccess)
       return (int)e;
-    m = margs(static_cast<const uint4*>(xs), scf, B, H);
+    MArgs m = margs(static_cast<const uint4*>(xs), scf, B, H);
     m.terms = terms;
     m.lo = wide_frags(H);
     m.seg[0] = seg(w2, nullptr, z, nullptr, D, D, s2);
@@ -2070,6 +2610,18 @@ int calm_moe_ffn(const void* x, const void* w1, const void* w3, const void* w2,
   m.seg[0] = seg(w2, nullptr, z, nullptr, D, D, s2);
   moe_slots(m, eidx, cnt, E, (size_t)D * row_bytes(fmt, H), xslot, scslot, (size_t)B * D);
   return (int)launch_mmv<0, true>(fmt, m, p + 4, st, A);
+}
+
+// the dynamic shared memory one wide_kernel block of format fmt and width
+// (32, 40 or 64 rows of x) asks for (for reports); -1 for none
+int calm_wide_smem(int fmt, int width) {
+  const int i = width == 32 ? 0 : width == 40 ? 1 : width == 64 ? 2 : -1;
+  if (i < 0 || fmt < 0 || fmt > 3) return -1;
+  const int smem[4][3] = {{WT<0, 32>::SMEM, WT<0, 40>::SMEM, WT<0, 64>::SMEM},
+                          {WT<1, 32>::SMEM, WT<1, 40>::SMEM, WT<1, 64>::SMEM},
+                          {WT<2, 32>::SMEM, WT<2, 40>::SMEM, WT<2, 64>::SMEM},
+                          {WT<3, 32>::SMEM, WT<3, 40>::SMEM, WT<3, 64>::SMEM}};
+  return smem[fmt][i];
 }
 
 const char* calm_qmm_error_string(int e) {

@@ -53,6 +53,7 @@ SIGNATURES = {
         "calm_gf4_offn": [P] * 11 + [I] * 5 + [F, I, P, P, P, P],
         "calm_moe_mmv": [P] * 5 + [I] * 7 + [P] * 4 + [I, P],
         "calm_moe_ffn": [P] * 8 + [I] * 7 + [P] * 6 + [I, P],
+        "calm_wide_smem": [I, I],
     },
     "attn": {
         "calm_decode_attention": [P] * 15 + [I] * 12 + [P],

@@ -9,8 +9,11 @@
   lo (:func:`split_operand` writes the staging out in PyTorch), in the
   quality mode too (:func:`decode_path`); 17-64 rows, where JAX's XLA
   product runs (``calm_tpu/ops/qmm.py:189-205``), the wide path
-  (``mmw_kernel``: x staged with one scale a row, one f16 term, hi + lo
-  under --precise; :func:`wide_operand` writes it out in PyTorch).
+  (``wide_kernel``: TMA and ``wgmma``, x staged once a launch with one
+  scale a row in one f16 term and loaded once a stage for a whole block,
+  tiled by :func:`wide_plan`; :func:`wide_operand` writes the staging out in
+  PyTorch, :func:`wide_staged` its byte order; ``mmw_kernel`` under
+  --precise, hi + lo, and for gf4 rows TMA cannot read, :func:`wide_tma`).
 - :func:`qmm_decode_gf4` replaces ``_layered_gf4_kernel`` (``:100``): the
   same matvec on natural gf4 words, B <= 64: one row in ``csrc/gf4.cu``,
   from 2 rows on the multi-row path (``csrc/qmm.cu``), past 16 the wide
@@ -109,11 +112,23 @@ MV_WARPS = 8  # WARPS: warps a block
 MV_TARGET_WARPS = 16 * SMS  # about 16 warps' loads in flight an SM
 MV_MIN_CHUNKS = 4  # the least chunks a warp's share of k, where k allows
 MV_MT2_ROWS = 6144  # from this many rows a launch, 32 rows a warp (else 16)
-# the wide multi-row path (csrc/qmm.cu mmw_kernel, 17-64 rows)
+# the wide path (17-64 rows) on TMA and wgmma (csrc/qmm.cu wide_kernel): x in
+# one f16 term, every format whose weight rows TMA reads
+WIDE_K = 128  # k values a stage (WT_K); the staging permutes k within each 128
+WIDE_WIDTHS = (32, 40, 64)  # the compiled widths N a launch rounds its rows of x up to
+WIDE_TILE = 128  # output rows a block: two warpgroups of 64 (the dual launch: 64 of both)
+WIDE_ROWS = 64  # row slots of a staging, one scale each
+WIDE_MAX_KS = 8  # k parts a tile at most: the blocks of one cluster
+# the k split until a launch has a block an SM: more blocks (two fit an SM)
+# timed slower at every shape of a Mistral-7B verify on an H100 (PERF.md)
+WIDE_TARGET_BLOCKS = SMS
+WIDE_MIN_STAGES = 4  # the least stages a k part keeps, where k allows
+# the wide path of --precise (x in hi + lo) and of gf4 rows TMA cannot read
+# (n % 32 != 0): mmw_kernel, mma.sync
 WIDE_NT = 8  # 8-row n-tiles a warp holds (csrc/qmm.cu WIDE_NT); those past B skipped
 WIDE_PREC_ROWS = 32  # --precise: rows of x a launch (csrc/qmm.cu WIDE_PREC_ROWS)
-# the wide path's k split: about 8 warps an SM, the one block of mmw_kernel
-# that its registers allow (2112 and 4224 timed slower on an H100, PERF.md)
+# its k split: about 8 warps an SM, the one block of mmw_kernel that its
+# registers allow (2112 and 4224 timed slower on an H100, PERF.md)
 WIDE_TARGET_WARPS = 8 * SMS
 # the one-row gf4 path (csrc/qmm.cu gf4_row_kernel)
 G1_ROWS = 4  # output rows a warp, fixed in the kernel (csrc/qmm.cu G1_ROWS)
@@ -232,6 +247,86 @@ class QmvPlan(NamedTuple):
         return nc * 4 * 8 * self.nt * 4 * 4, nc * 8 * self.nt
 
 
+def wide_tma(n: int, gf4: bool, terms: int = 1) -> bool:
+    """Whether a wide launch (17-64 rows) of k = n takes ``wide_kernel``
+    (TMA + wgmma): x in one f16 term and weight rows of 16-byte multiples
+    (gf4 words: n % 32 == 0); else ``mmw_kernel`` (``csrc/qmm.cu``
+    ``wide_tma``)."""
+    return terms == 1 and (not gf4 or n % 32 == 0)
+
+
+def _npad(n: int) -> int:
+    return -(-n // WIDE_K) * WIDE_K
+
+
+class WidePlan(NamedTuple):
+    """One launch of ``wide_kernel``: blocks of ``tile`` output rows (128
+    of one weight, two warpgroups of 64; the dual w1/w3 launch 64 rows of
+    both), every row of x at the compiled ``width``, the k of a tile split
+    into ``ks`` parts, the ``ks`` consecutive blocks of one cluster, which
+    add their partial sums in rank order (part 0 first) through distributed
+    shared memory, each for its share of x's rows."""
+    width: int     # N, the compiled width (WIDE_WIDTHS) >= B
+    ks: int        # k parts a tile (1, 2, 4 or 8)
+    tiles: int     # row tiles (a slot)
+    stages: int    # WIDE_K-value stages of k
+    tile: int      # output rows a block (WIDE_TILE, 64 for the dual launch)
+    B: int         # rows of x
+    slots: int = 1
+
+    @property
+    def grid(self) -> int:
+        """Blocks a slot: tiles x k parts, the parts of a tile adjacent."""
+        return self.tiles * self.ks
+
+    def args(self) -> tuple[int, int, int, int]:
+        """What the kernel's launcher takes: {tile / 16, width / 8, ks,
+        grid}."""
+        return (self.tile // 16, self.width // 8, self.ks, self.grid)
+
+    def block_work(self, block: int, rows: int) -> tuple[int, int, int, int, int, int]:
+        """(first row, end row, first stage, end stage, first x row, end x
+        row) of block ``block`` as the kernel computes it: tile block // ks
+        (its rows clipped to ``rows``), k part block % ks, which stores the
+        tile's outputs of x rows [part B / ks, (part + 1) B / ks)."""
+        t, kp = divmod(block, self.ks)
+        return (t * self.tile, min((t + 1) * self.tile, rows), kp * self.stages // self.ks,
+                (kp + 1) * self.stages // self.ks, kp * self.B // self.ks,
+                (kp + 1) * self.B // self.ks)
+
+    def staging(self, n: int, terms: int = 1) -> tuple[int, int]:
+        """(int32 words, floats) of the staged x of n values a row: WIDE_ROWS
+        rows of f16 (n rounded up to WIDE_K), one scale a row."""
+        return WIDE_ROWS * _npad(n) // 2, WIDE_ROWS
+
+
+def wide_plan(B: int, rows: int, n: int, dual: bool = False, slots: int = 1) -> WidePlan:
+    """``wide_kernel``'s tiling of one launch: B rows of x (17..64, the
+    wide path's), ``rows`` output rows of each weight, k = n (a positive
+    multiple of 16), ``dual`` for the w1/w3 launch, ``slots`` expert slots
+    (each tiled alike): the narrowest compiled width >= B, tiles of
+    WIDE_TILE rows (64 for the dual launch), the k of a tile split in two
+    while the launch keeps to WIDE_TARGET_BLOCKS blocks and each part
+    WIDE_MIN_STAGES stages, up to WIDE_MAX_KS."""
+    _check(MAX_ROWS < B <= MAX_MV_ROWS,
+           f"the wide kernel takes {MAX_ROWS + 1}..{MAX_MV_ROWS} rows, not {B}")
+    _check(rows >= 1 and n >= 16 and n % 16 == 0 and 1 <= slots <= 65535,
+           f"rows >= 1, k a positive multiple of 16 and 1..65535 slots, not {rows}, {n}, "
+           f"{slots}")
+    return _wide_plan(int(B), int(rows), int(n), bool(dual), int(slots))
+
+
+def _wide_plan(B: int, rows: int, n: int, dual: bool, slots: int) -> WidePlan:
+    width = next(w for w in WIDE_WIDTHS if w >= B)
+    tile = WIDE_TILE // 2 if dual else WIDE_TILE
+    tiles, stages = -(-rows // tile), -(-n // WIDE_K)
+    ks = 1
+    while (ks < WIDE_MAX_KS and tiles * 2 * ks * slots <= WIDE_TARGET_BLOCKS
+           and stages // (2 * ks) >= WIDE_MIN_STAGES):
+        ks *= 2
+    return WidePlan(width, ks, tiles, stages, tile, B, slots)
+
+
 def _warp_work(block: int, warp: int, ks: int, gr: int, groups, seg_rows, units: int):
     """The kernels' split of work: ``ks`` warps a group of ``gr`` rows,
     ``MV_WARPS / ks`` groups a block, the groups of segment 0, then 1, then
@@ -259,8 +354,10 @@ def _k_split(groups: int, units: int, target: int, least: int) -> int:
 
 @functools.lru_cache(maxsize=256)
 def _qmv_plan(B: int, seg_rows: tuple, n: int, dual: bool, gf4: bool, slots: int,
-              terms: int) -> QmvPlan:
+              terms: int) -> QmvPlan | WidePlan:
     wide = B > MAX_ROWS
+    if wide and wide_tma(n, gf4, terms):
+        return _wide_plan(B, seg_rows[0], n, dual, slots)
     if wide:
         nt = WIDE_NT if terms == 1 else WIDE_PREC_ROWS // 8
     else:
@@ -280,11 +377,15 @@ def _qmv_plan(B: int, seg_rows: tuple, n: int, dual: bool, gf4: bool, slots: int
 
 
 def qmv_plan(B: int, seg_rows, n: int, dual: bool = False, gf4: bool = False,
-             slots: int = 1, terms: int = 1) -> QmvPlan:
+             slots: int = 1, terms: int = 1) -> QmvPlan | WidePlan:
     """The multi-row kernels' tiling of B rows of x (1..64; the kernels
     take it from 2, one row keeps the loop of one row; past 16 rows the
-    wide path, WIDE_NT n-tiles, 32 rows a warp for one weight's launches of
-    whole 16-value steps, else 16) against segments of
+    wide path, one segment: a :class:`WidePlan` for ``wide_kernel`` where
+    :func:`wide_tma` takes k, the k of a tile split in two while the launch
+    keeps to WIDE_TARGET_BLOCKS blocks and each part WIDE_MIN_STAGES stages,
+    up to WIDE_MAX_KS; else ``mmw_kernel``'s, WIDE_NT n-tiles, 32 rows a
+    warp for one weight's launches of whole 16-value steps, else 16) against
+    segments of
     ``seg_rows`` output rows each (1-3: q/k/v side by side) and k = n (a
     multiple of 16; of 8 for ``gf4`` words, whose rows may end half-way
     through a lane's 16 values), ``dual`` for the w1/w3 launch (two
@@ -308,6 +409,8 @@ def qmv_plan(B: int, seg_rows, n: int, dual: bool = False, gf4: bool = False,
     _check(1 <= slots <= 65535 and (slots == 1 or len(seg_rows) == 1),
            f"1..65535 slots of one segment, not {slots} of {len(seg_rows)}")
     _check(terms in (1, 2), f"x takes 1 or 2 f16 terms, not {terms}")
+    _check(B <= MAX_ROWS or len(seg_rows) == 1,
+           f"past {MAX_ROWS} rows a launch takes one segment, not {len(seg_rows)}")
     return _qmv_plan(int(B), seg_rows, int(n), bool(dual), bool(gf4), int(slots),
                      int(terms) if B > MAX_ROWS else 1)
 
@@ -426,6 +529,36 @@ def gf4_f16_operand(words: torch.Tensor) -> torch.Tensor:
     return torch.stack(out, -1).reshape(*w.shape[:-1], w.shape[-1] * 8)
 
 
+def wide_perm() -> np.ndarray:
+    """``wide_kernel``'s order of k within each WIDE_K-value stage: position
+    p = 16 s + slot of the staging holds the stage's value 32 t + 4 s + j,
+    slot 2 t + j (j < 2) or 8 + 2 t + j - 2: the k of A fragment slot ``slot``
+    at step s, whose weights lane t of a quad reads as 32 contiguous values
+    (``csrc/qmm.cu`` ``wt_load``, ``wt_frag``). Returns k of each p."""
+    k = np.arange(WIDE_K)
+    t, s, j = k >> 5, (k >> 2) & 7, k & 3
+    p = 16 * s + np.where(j < 2, 2 * t + j, 6 + 2 * t + j)
+    out = np.empty(WIDE_K, np.int64)
+    out[p] = k
+    return out
+
+
+def wide_staged(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``stage_wide_kernel``'s staging of x (B, n), written out in PyTorch:
+    (B, n rounded up to WIDE_K) float16, each row's hi = f16(x 2^-e) (zeros
+    past n) with k permuted within each stage by :func:`wide_perm`, and e
+    (B,) int32 with max |x| < 2^e (0 for a row of zeros). Used by the
+    tests, not on the main path."""
+    B, n = x.shape
+    hi, _, e = wide_operand(x, 1)
+    pad = torch.zeros((B, _npad(n)), dtype=torch.float16)
+    pad[:, :n] = hi
+    k = torch.from_numpy(wide_perm())
+    nb = _npad(n) // WIDE_K
+    idx = (torch.arange(nb)[:, None] * WIDE_K + k[None, :]).reshape(-1)
+    return pad[:, idx], e
+
+
 def wide_operand(x: torch.Tensor, terms: int = 1):
     """The wide path's staging of x (B, n), written out in PyTorch in
     natural order: per row e with max |x| < 2^e (0 for a row of zeros), hi
@@ -485,15 +618,21 @@ def _cost_pass(kernel: str, values: int, extra: int = 0) -> None:
 
 
 def _wide_launches(B: int) -> list[int]:
-    """The rows of x of each launch of the wide kernel at B rows: one, or
+    """The rows of x of each launch of ``mmw_kernel`` at B rows: one, or
     under --precise one for each WIDE_PREC_ROWS (each reads the weights)."""
     step = WIDE_PREC_ROWS if x_terms() == 2 else B
     return [min(step, B - b0) for b0 in range(0, B, step)]
 
 
-def _cost_wide(fmt: str, B: int, d: int, n: int, dual: bool = False, slots=1) -> None:
-    for b in _wide_launches(B):
-        _cost_mv("mmw_kernel", fmt, b, d, n, dual=dual, slots=slots)
+def _cost_wide(fmt: str, B: int, d: int, n: int, dual: bool = False, slots=1,
+               copies: int = 1) -> None:
+    """A wide product's launches: x staged (``copies`` stagings: 1, or one
+    a slot), then ``wide_kernel``, or ``mmw_kernel`` (once, or under
+    --precise once for each WIDE_PREC_ROWS rows of x)."""
+    tma = wide_tma(n, fmt == "gf4", x_terms())
+    _cost_pass("stage_wide_kernel" if tma else "split_rows_kernel", copies * B * n)
+    for b in [B] if tma else _wide_launches(B):
+        _cost_mv("wide_kernel" if tma else "mmw_kernel", fmt, b, d, n, dual=dual, slots=slots)
 
 
 def _cost_path(path: str, fmt: str, B: int, d: int, n: int, one_row: str) -> None:
@@ -502,7 +641,6 @@ def _cost_path(path: str, fmt: str, B: int, d: int, n: int, one_row: str) -> Non
     if path == "one-row":
         _cost_mv(one_row, fmt, B, d, n)
     elif path == "wide":
-        _cost_pass("split_rows_kernel", B * n)
         _cost_wide(fmt, B, d, n)
     else:
         _cost_pass("split_kernel", B * n)
@@ -546,11 +684,12 @@ def decode_path(B: int) -> str:
     either mode: "one-row" (``qmv_kernel``, ``gf4_mv_kernel``: f32
     operands and sums) at B = 1; 2-16 rows "multi-row" (``mmv_kernel``
     on the tensor cores, x staged as f16 hi + lo, each weight read once for
-    every row); 17-64 rows "wide" (``mmw_kernel``: x staged with one scale
-    a row, one f16 term, hi + lo under --precise, each weight read once for
-    every row). The quality mode takes the same launches: from the float64
-    product they read about half an f32 matmul's distance, about twice the
-    f32 loops' (``csrc/qmm.cu``, the quality mode's note)."""
+    every row); 17-64 rows "wide" (``wide_kernel``: x staged with one
+    scale a row in one f16 term, each weight read once for every row; under
+    --precise, hi + lo, ``mmw_kernel``). The quality mode takes the same
+    launches at 2-16 rows: from the float64 product they read about half an
+    f32 matmul's distance, about twice the f32 loops' (``csrc/qmm.cu``, the
+    quality mode's note)."""
     _check(1 <= B <= MAX_MV_ROWS, f"the decode kernels take 1..{MAX_MV_ROWS} rows, not {B}")
     return "one-row" if B == 1 else "multi-row" if B <= MAX_ROWS else "wide"
 
@@ -1130,11 +1269,11 @@ def qmm_moe_dense(x: torch.Tensor, wstack: torch.Tensor, eidx: torch.Tensor,
         build.check("moe", rc)
     if cost.active():
         live = _live(cnt, A)
-        if multirow:
-            _cost_pass("split_rows_kernel" if wide else "split_kernel", Ax * B * n)
         if wide:
-            _cost_wide(fmt, B, d, n, slots=live)
+            _cost_wide(fmt, B, d, n, slots=live, copies=Ax)
         else:
+            if multirow:
+                _cost_pass("split_kernel", Ax * B * n)
             _cost_mv("mmv_kernel" if multirow else "moe_gf4_kernel" if fmt == "gf4"
                      else "moe_qmv_kernel", fmt, B, d, n, slots=live)
     qmm_moe_dense.launches += 1
@@ -1195,10 +1334,8 @@ def _moe_ffn_mr(x, w1, w3, w2, eidx, cnt, fmt: str, act_gelu: bool, dims,
     if cost.active():
         live = _live(cnt, A)
         if B > MAX_ROWS:
-            _cost_pass("split_rows_kernel", B * D)
             _cost_wide(fmt, B, H, D, dual=True, slots=live)
-            _cost_pass("split_rows_kernel", A * B * H)
-            _cost_wide(fmt, B, D, H, slots=live)
+            _cost_wide(fmt, B, D, H, slots=live, copies=A)
         else:
             _cost_pass("split_kernel", B * D)
             _cost_mv("mmv_kernel", fmt, B, H, D, dual=True, slots=live)

@@ -1,6 +1,6 @@
 """Times another tree's gf4 matvecs with this tree's checks.
 
-    python3 chip_compare.py <directory holding another checkout's calm_tpu_torch> [--mixtral | --prefill | --precise | --verify]
+    python3 chip_compare.py <directory holding another checkout's calm_tpu_torch> [--mixtral | --prefill | --precise | --verify | --wide]
 
 Puts that directory first on ``sys.path``, builds its kernels, and runs
 ``chip_smoke.multirow_kernel_rows_gf4_decode`` (K3 on the Aya 23 8B
@@ -26,7 +26,13 @@ With ``--verify`` it runs only ``chip_smoke.verify_kernel_rows`` (K13 at a
 speculative verify's T = 1-5, B = 1, 2 and 8, and the draft tree's
 attention at 10 and 13 nodes, each beside its plain version, SDPA and T
 launches of K12): on a tree without the split-S route it times the
-persistent kernel and the tree's plain attention.
+persistent kernel and the tree's plain attention. With ``--wide`` it runs
+only the products of 17-64 rows: ``chip_smoke.wide_kernel_rows`` (K2
+fp8/fp16/fp8e4 and K3 gf4 on the Mistral-7B lm-head, the expert FFN on
+Mixtral 8x7B and OLMoE widths, at 24, 40 and 64 rows), the served verify of
+the 32-layer fp8 Mistral-7B (B = 8, T = 5, replayed, against its eager
+forward bit for bit; ``chip_smoke.verify_bits``) and a 32-slot tick of it
+(``chip_smoke.tick_wide``, with the parent commit's route beside).
 Run it before and after
 ``chip_smoke.py`` in one call on the card to compare two commits there, or
 on two trees in turns (A, B, B, A). Needs a GPU.
@@ -40,7 +46,8 @@ import sys
 
 def main():
     if len(sys.argv) not in (2, 3) or sys.argv[2:] not in ([], ["--mixtral"], ["--prefill"],
-                                                            ["--precise"], ["--verify"]):
+                                                            ["--precise"], ["--verify"],
+                                                            ["--wide"]):
         sys.exit(__doc__)
     pkg = os.path.abspath(sys.argv[1])
     sys.path.insert(0, pkg)
@@ -76,6 +83,9 @@ def main():
             cfg, w, cache, prompt, device.smi_name_power())
         cs.log(json.dumps(rows))
         return
+    if sys.argv[2:] == ["--wide"]:
+        cs.log(json.dumps(wide(cs, dev, device.smi_name_power())))
+        return
     rows = cs.multirow_kernel_rows_gf4_decode(3350.0, dev)
     rows.update(cs.onerow_kernel_rows_gf4(3350.0, dev))
     rows.update(cs.moe_multirow_kernel_rows(3350.0, dev))
@@ -104,6 +114,37 @@ def mistral_fp8(cs, dev):
     gen.manual_seed(0)
     prompt = torch.randint(3, cfg.vocab_size, (1, 2048), generator=gen, device=dev)
     return cfg, w, cache, prompt
+
+
+def wide(cs, dev, smi) -> dict:
+    """The products of 17-64 rows on this tree: the wide rows (ms, library,
+    the parent's route, bound), the fp8 Mistral-7B served verify of 8 x 5
+    rows (replayed and eager ms) and its 32-slot tick (ms a step)."""
+    import numpy as np
+    import torch
+
+    from calm_tpu_torch import model as M
+    from calm_tpu_torch.config import ModelConfig
+    from calm_tpu_torch.utils.synth import synth_weights
+
+    rows = cs.wide_kernel_rows(3350.0, dev)
+    out = {k: {f: v[f] for f in ("ms", "library_ms", "route_ms", "bound_ms") if f in v}
+           for k, v in rows.items() if "ms" in v}
+    cfg = ModelConfig(**cs.MISTRAL, rope_theta=10000.0, seq_len=4096, rotary_dim=128,
+                      dtype="fp8", norm_ln=False, bos_token_id=1, eos_token_id=2)
+    w = synth_weights(cfg, seed=0, device=dev, random=True)
+    B, T = 8, cs.GAMMA + 1
+    cache = M.KVCache.create(cfg, B, torch.bfloat16, dev)
+    toks = np.random.default_rng(3).integers(3, cfg.vocab_size, (B, T))
+    v_ms, e_ms = cs.verify_bits("served verify", cfg, w, cache, toks,
+                                [300 + 400 * b for b in range(B)])
+    cs.log(f"# fp8 mistral7b served verify B={B} T={T}: replayed {v_ms:.3f} ms, eager "
+           f"{e_ms:.3f} ms, bit-equal, on {smi}")
+    out["verify"] = dict(replayed_ms=v_ms, eager_ms=e_ms)
+    del cache
+    torch.cuda.empty_cache()
+    out["tick32"] = cs.tick_wide(cfg, w, dev, smi)
+    return out
 
 
 def prefill_ms(cs, dev) -> dict:

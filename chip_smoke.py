@@ -1498,15 +1498,32 @@ def wide_took(hq, what, run, n: int = 1):
     return out
 
 
+WIDE_TWICE = []  # the wide calls held bit-equal to an identical second call
+
+
+def wide_twice(hq, what, run):
+    """run() twice on the wide path, one wide launch each: the two results
+    bit for bit the same (the k parts' sums meet in a fixed order, no
+    atomics)."""
+    a = wide_took(hq, what, run)
+    b = wide_took(hq, what, run)
+    if not torch.equal(a, b):
+        fail(f"{what}: two identical calls differ, by {(a - b).abs().max().item():.3e}")
+    WIDE_TWICE.append(what)
+    return a
+
+
 def wide_checks(dev):
     """The wide path (17-64 rows) against the plain versions on ragged
-    shapes: K2 fp16/fp8/fp8e4 and K3 gf4 (rows of an odd word count too)
-    at WIDE_CHECK_B rows, every third row 2^20 larger (each row to its own
+    shapes: K2 fp16/fp8/fp8e4 and K3 gf4 (rows of an odd word count, and
+    of n % 32 != 0, on ``mmw_kernel``; the rest on ``wide_kernel``) at
+    WIDE_CHECK_B rows, every third row 2^20 larger (each row to its own
     max, TOL_WIDE), each launch seen on ``.wide_launches``; under
     --precise at 40 rows against the plain f32 version (TOL_MV) and the
     float64 product (PRECISE_F64_LIMIT); the expert sweep (K10 with x
     shared and a slot's own, the fp8/fp8e4 expert FFN, K11) at 17, 40 and
-    64 rows over 8 slots with one dead (exactly zero)."""
+    64 rows over 8 slots with one dead (exactly zero). Every call is made
+    twice, the two results bit-equal (``wide_twice``)."""
     from calm_tpu_torch.ops import hopper_qmm as hq
     from calm_tpu_torch.ops import qmm as tqmm
 
@@ -1524,8 +1541,8 @@ def wide_checks(dev):
             sc = pow2_scales((2, 1), dev, 1) if fmt == "fp8e4" else None
             for B in WIDE_CHECK_B:
                 x = spread(B, n)
-                got = wide_took(hq, f"qmm_decode {fmt} {d}x{n} B={B}",
-                                lambda: hq.qmm_decode(x, w, fmt, 1, sc))
+                got = wide_twice(hq, f"qmm_decode {fmt} {d}x{n} B={B}",
+                                 lambda: hq.qmm_decode(x, w, fmt, 1, sc))
                 check_rows(f"qmm_decode_wide {fmt} {d}x{n} B={B}", got,
                            hq.qmm_decode_plain(x, w, fmt, 1, sc), TOL_WIDE)
     log(f"# wide path (17-64 rows) K2/K3 checks: fp16/fp8/fp8e4/gf4, B in {WIDE_CHECK_B}, "
@@ -1541,8 +1558,8 @@ def wide_checks(dev):
         x = torch.randn(B, n, device=dev)
         tqmm.enable_precise(True)
         try:
-            got = wide_took(hq, f"qmm_decode {fmt} precise B={B}",
-                            lambda: hq.qmm_decode(x, w, fmt, 0))
+            got = wide_twice(hq, f"qmm_decode {fmt} precise B={B}",
+                             lambda: hq.qmm_decode(x, w, fmt, 0))
         finally:
             tqmm.enable_precise(False)
         e = check(f"qmm_decode_wide_precise {fmt} B={B}", got,
@@ -1575,8 +1592,8 @@ def wide_checks(dev):
         for B in (17, 40, 64):
             for Ax in (1, A):
                 x = torch.randn(Ax, B, Dm, device=dev)
-                got = wide_took(hq, f"qmm_moe_dense {fmt} B={B} Ax={Ax}",
-                                lambda: hq.qmm_moe_dense(x, w1, ids, cnt, fmt, 1, scs[0]))
+                got = wide_twice(hq, f"qmm_moe_dense {fmt} B={B} Ax={Ax}",
+                                 lambda: hq.qmm_moe_dense(x, w1, ids, cnt, fmt, 1, scs[0]))
                 if got[7:].abs().max().item() != 0:
                     fail(f"qmm_moe_dense {fmt} wide B={B}: a dead slot is not zero")
                 check_rows(f"qmm_moe_dense_wide {fmt} B={B} Ax={Ax}", got[:7],
@@ -1586,13 +1603,13 @@ def wide_checks(dev):
                 continue
             x = torch.randn(B, Dm, device=dev)
             if fmt == "gf4":
-                got = wide_took(hq, f"gf4_moe_ffn B={B}",
-                                lambda: hq.gf4_moe_ffn(x, w1, w3, w2, ids, cnt, 1, False))
+                got = wide_twice(hq, f"gf4_moe_ffn B={B}",
+                                 lambda: hq.gf4_moe_ffn(x, w1, w3, w2, ids, cnt, 1, False))
                 want = hq.gf4_moe_ffn_plain(x, w1, w3, w2, ids, cnt, 1, False)
             else:
-                got = wide_took(hq, f"qmm_moe_ffn {fmt} B={B}",
-                                lambda: hq.qmm_moe_ffn(x, w1, w3, w2, ids, cnt, fmt, 1,
-                                                       True, scs))
+                got = wide_twice(hq, f"qmm_moe_ffn {fmt} B={B}",
+                                 lambda: hq.qmm_moe_ffn(x, w1, w3, w2, ids, cnt, fmt, 1,
+                                                        True, scs))
                 want = hq.qmm_moe_ffn_plain(x, w1, w3, w2, ids, cnt, fmt, 1, True, scs)
             if got[7:].abs().max().item() != 0:
                 fail(f"{fmt} expert FFN wide B={B}: a dead slot is not zero")
@@ -1602,7 +1619,9 @@ def wide_checks(dev):
     log(f"# wide path expert sweep checks: K10 fp16/fp8/fp8e4/gf4 (x shared and a slot's "
         f"own), the fp8/fp8e4 FFN (GELU), K11, B = 17, 40, 64, 7 live of 8 slots, the dead "
         f"slot zero; worst rel. to a row's max: K10 {WORST_REL.get('qmm_moe_dense_wide', 0):.3e}, "
-        f"FFN {WORST_REL.get('moe_ffn_wide', 0):.3e}")
+        f"FFN {WORST_REL.get('moe_ffn_wide', 0):.3e}; {len(WIDE_TWICE)} calls of "
+        f"qmm_decode, qmm_moe_dense, qmm_moe_ffn and gf4_moe_ffn each bit-equal to a second "
+        f"identical call")
     torch.cuda.empty_cache()
 
 
@@ -1632,35 +1651,62 @@ def grouped_library(w1, w3, w2, fmt, scales, E: int, B: int, topk: int, act_gelu
     return lib
 
 
+def widened(w, fmt, scale=None):
+    """A plane or stack in 16 bits, made beforehand for a library call
+    (not timed): fp16 as it is, the 8-bit and gf4 formats dequantized to
+    bf16 (fp8e4 times its power-of-two scale, exactly)."""
+    from calm_tpu_torch.ops.qmm import QTensor, dequant
+
+    if fmt == "fp16":
+        return w
+    wf = dequant(QTensor(w, fmt), torch.float32)
+    return (wf if scale is None else wf * scale).bfloat16()
+
+
+def moe_bmm(x, wbs, act_gelu=False):
+    """The expert FFN of every live slot in one PyTorch call a product:
+    x (B, D) against the live experts' 16-bit planes wbs = (w1, w3, w2),
+    each (live, n, d) (``torch.bmm``; the activation between)."""
+    from calm_tpu_torch.ops.hopper_qmm import act
+
+    xb = x.to(wbs[0].dtype).expand(wbs[0].shape[0], -1, -1)
+    h = act(torch.bmm(xb, wbs[0]), act_gelu) * torch.bmm(xb, wbs[1])
+    return torch.bmm(h.to(wbs[2].dtype), wbs[2])
+
+
 def wide_kernel_rows(gbps, dev):
     """The wide path's rows at WIDE_B (24, 40, 64) rows, each against its
-    plain version (TOL_WIDE) and timed beside its bound and the parent's
-    route (the library column: ``dense_matmul``, a bf16 copy of the plane
-    and ``torch.mm``; for the expert FFN ``model._moe_grouped``'s products
-    through it): K2 fp8/fp16/fp8e4 on the Mistral-7B lm-head (32000 x
-    4096), K3 gf4 there beside K4 (``qmm_prefill``) from 32 rows on the
-    lm-head, a w1 and a w2 plane (``model.mm_route``'s choice), the fp8
-    expert FFN (``qmm_moe_ffn``) and K11 on Mixtral 8x7B widths in 8 live
-    slots, and the OLMoE-width sweep (D 2048, H 1024, 64 experts, top-8)
-    at 40 rows, its slots from random routing. Two planes or layers
-    cycled. The 40-row rows go to the kernels line. Calls the wrappers
-    only (``chip_compare.py`` times the parent's tree beside)."""
-    import torch.nn.functional as F
-
+    plain version (TOL_WIDE) and timed beside its bound, the library call
+    (one PyTorch call of the same function on the planes widened to 16 bits
+    beforehand: ``torch.matmul``, for the expert FFN ``torch.bmm`` a
+    product over the live experts) and the parent's route (``route_ms``:
+    ``dense_matmul``, a bf16 copy of the plane and ``torch.mm``; for the
+    expert FFN ``model._moe_grouped``'s products through it): K2
+    fp8/fp16/fp8e4 on the Mistral-7B lm-head (32000 x 4096), K3 gf4 there
+    beside K4 (``qmm_prefill``) from 32 rows on the lm-head, a w1 and a w2
+    plane (``model.mm_route``'s choice), the fp8 expert FFN
+    (``qmm_moe_ffn``) and K11 on Mixtral 8x7B widths in 8 live slots, and
+    the OLMoE-width sweep (D 2048, H 1024, 64 experts, top-8) at 40 rows,
+    its slots from random routing. Two planes or layers cycled. The 40-row
+    rows go to the kernels line. Calls the wrappers only (``chip_compare.py
+    --wide`` times the parent's tree beside)."""
     from calm_tpu_torch import model as M
     from calm_tpu_torch.ops import hopper_qmm as hq
     from calm_tpu_torch.ops.qmm import QTensor, dense_matmul
 
     rows = {}
     V = 32000
+    keep = ("ms", "plain_ms", "library_ms", "route_ms", "bound_ms")
     for fmt, key in (("fp8", "qmm_decode_wide"), ("fp16", "qmm_decode_fp16_wide"),
                      ("fp8e4", "qmm_decode_fp8e4_wide"), ("gf4", "qmm_decode_gf4_wide")):
         gs, esz = (8, 0.5) if fmt == "gf4" else (1, 2 if fmt == "fp16" else 1)
         w = e4m3_rand((2, V, D), dev) if fmt == "fp8e4" else rand_w((2, V, D // gs), fmt, dev)
         sc = pow2_scales((2, 1), dev, 2) if fmt == "fp8e4" else None
+        wl = [widened(w[l], fmt, None if sc is None else sc[l]) for l in range(2)]
         per_b = {}
         for B in WIDE_B:
             x = torch.randn(B, D, device=dev)
+            x16 = x.to(wl[0].dtype)
             e = check(f"qmm_decode_wide {fmt} lm-head B={B}",
                       wide_took(hq, f"qmm_decode {fmt} B={B}",
                                 lambda: hq.qmm_decode(x, w, fmt, 0, sc)),
@@ -1669,14 +1715,16 @@ def wide_kernel_rows(gbps, dev):
             qs = [QTensor(w[l], fmt, None if sc is None else sc[l]) for l in range(2)]
             t = timings(lambda i: hq.qmm_decode(x, w, fmt, i % 2, sc),
                         lambda i: hq.qmm_decode_plain(x, w, fmt, i % 2, sc),
-                        lambda i: dense_matmul(x, qs[i % 2]), bound=b)
+                        lambda i: torch.matmul(x16, wl[i % 2].T), bound=b)
+            t["route_ms"] = timed(lambda i: dense_matmul(x, qs[i % 2]), floor=b)[0]
             log(f"# K{3 if fmt == 'gf4' else 2} wide {fmt} lm-head {V}x{D} B={B}: max_abs_err "
-                f"{e:.3e} (tol {TOL_WIDE:g} x max|y|); {ms_line(t)} (the parent's route: "
-                f"dense_matmul) bound_ms {b:.4f} ({by}); {share(t, b)}")
+                f"{e:.3e} (tol {TOL_WIDE:g} x max|y|); {ms_line(t)} (one {x16.dtype} matmul on "
+                f"the plane widened beforehand; the parent's route, dense_matmul, "
+                f"{t['route_ms']:.4f}) bound_ms {b:.4f} ({by}); {share(t, b)}")
             per_b[B] = dict(t, bound_ms=b, bound_by=by, max_abs_err=e)
-        rows[key] = dict(per_b[40], by_rows={B: {k: v[k] for k in (
-            "ms", "plain_ms", "library_ms", "bound_ms")} for B, v in per_b.items()})
-        del w
+        rows[key] = dict(per_b[40], by_rows={B: {k: v[k] for k in keep}
+                                             for B, v in per_b.items()})
+        del w, wl
     # gf4 from 32 rows: the wide path against K4 (model.mm_route's choice)
     for name, d, n in (("lm-head", V, D), ("w1", HID, D), ("w2", D, HID)):
         w = rand_w((2, d, n // 8), "gf4", dev)
@@ -1707,6 +1755,9 @@ def wide_kernel_rows(gbps, dev):
         else:
             fn = lambda x, l: hq.qmm_moe_ffn(x, w1, w3, w2, ids, cnt, fmt, l, False)
             plain = lambda x, l: hq.qmm_moe_ffn_plain(x, w1, w3, w2, ids, cnt, fmt, l, False)
+        # each layer's live planes widened, (live, n, d) a weight
+        wbs = [[widened(wt[l, :A], fmt).transpose(1, 2) for wt in (w1, w3, w2)]
+               for l in range(L)]
         per_b = {}
         for B in WIDE_B:
             x = torch.randn(B, D, device=dev)
@@ -1718,18 +1769,20 @@ def wide_kernel_rows(gbps, dev):
             b, by = bound_ms(nb + 4 * (B * D + A * B * D), 2 * B * A * 3 * HID * D, gbps,
                              PEAK_BF16)
             t = timings(lambda i: fn(x, i % L), lambda i: plain(x, i % L),
-                        lambda i: lib(i, x), bound=b)
+                        lambda i: moe_bmm(x, wbs[i % L]), bound=b)
+            t["route_ms"] = timed(lambda i: lib(i, x), floor=b)[0]
             log(f"# {'K11 gf4_moe_ffn' if fmt == 'gf4' else 'K10 fp8 qmm_moe_ffn'} wide "
                 f"D={D} H={HID}, {A} live slots, B={B}: max_abs_err {e:.3e} (tol "
-                f"{2 * TOL_WIDE:g} x max|z|); {ms_line(t)} (the parent's route: the grouped "
-                f"products through dense_matmul, {-(-B * 2 // E)} rows an expert) bound_ms "
+                f"{2 * TOL_WIDE:g} x max|z|); {ms_line(t)} (a bf16 bmm a product over the live "
+                f"planes widened beforehand; the parent's route, the grouped products through "
+                f"dense_matmul, {-(-B * 2 // E)} rows an expert, {t['route_ms']:.4f}) bound_ms "
                 f"{b:.4f} ({by}, {nb / 1e6:.1f} MB); {share(t, b)}")
             per_b[B] = dict(t, bound_ms=b, bound_by=by, max_abs_err=e)
             if B == 40:
                 by_kernel(lambda i: fn(x, i % L), f"{fmt} expert FFN wide B=40")
-        rows[key] = dict(per_b[40], by_rows={B: {k: v[k] for k in (
-            "ms", "plain_ms", "library_ms", "bound_ms")} for B, v in per_b.items()})
-        del w1, w3, w2
+        rows[key] = dict(per_b[40], by_rows={B: {k: v[k] for k in keep}
+                                             for B, v in per_b.items()})
+        del w1, w3, w2, wbs
         torch.cuda.empty_cache()
 
     # OLMoE widths: 64 experts, top-8 of random routing at 40 rows
@@ -1746,20 +1799,90 @@ def wide_kernel_rows(gbps, dev):
     e = check(f"moe_ffn_wide fp8 OLMoE B={B}", wide_took(hq, "OLMoE sweep", lambda: fn(1)),
               plain(1), 2 * TOL_WIDE)
     lib = grouped_library(w1, w3, w2, "fp8", (None,) * 3, Eo, B, k)
+    lids = uniq[:live].long()
+    wbs = [[widened(wt[l].index_select(0, lids), "fp8").transpose(1, 2) for wt in (w1, w3, w2)]
+           for l in range(L)]
     nb = live * 3 * Ho * Do
     b, by = bound_ms(nb + 4 * (B * Do + uniq.shape[0] * B * Do), 2 * B * live * 3 * Ho * Do,
                      gbps, PEAK_BF16)
-    t = timings(lambda i: fn(i % L), lambda i: plain(i % L), lambda i: lib(i, x), bound=b)
+    t = timings(lambda i: fn(i % L), lambda i: plain(i % L), lambda i: moe_bmm(x, wbs[i % L]),
+                bound=b)
+    t["route_ms"] = timed(lambda i: lib(i, x), floor=b)[0]
     log(f"# K10 fp8 qmm_moe_ffn wide, OLMoE widths D={Do} H={Ho}, {Eo} experts top-{k}, "
         f"B={B}: {live} live of {uniq.shape[0]} slots; max_abs_err {e:.3e} (tol "
-        f"{2 * TOL_WIDE:g} x max|z|); {ms_line(t)} (the parent's route: the grouped "
-        f"products through dense_matmul) bound_ms {b:.4f} ({by}, {nb / 1e6:.1f} MB, "
+        f"{2 * TOL_WIDE:g} x max|z|); {ms_line(t)} (a bf16 bmm a product over the live planes "
+        f"widened beforehand; the parent's route, the grouped products through dense_matmul, "
+        f"{t['route_ms']:.4f}) bound_ms {b:.4f} ({by}, {nb / 1e6:.1f} MB, "
         f"{2 * B} operations a weight byte); {share(t, b)}")
     by_kernel(lambda i: fn(i % L), "OLMoE sweep wide B=40")
     rows["qmm_moe_ffn_olmoe_wide"] = dict(t, bound_ms=b, bound_by=by, max_abs_err=e)
-    del w1, w3, w2
+    del w1, w3, w2, wbs
     torch.cuda.empty_cache()
     return rows
+
+
+def graph_call_ms(fn, n: int = 20, reps: int = 5) -> float:
+    """ms a call of ``fn(i)`` as a captured CUDA graph of ``n`` calls
+    (median of ``reps`` replays by CUDA events): the device's timeline with
+    its gaps between kernels, without the host's pace."""
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        for i in range(3):
+            fn(i)
+    torch.cuda.current_stream().wait_stream(s)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for i in range(n):
+            fn(i)
+    g.replay()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        g.replay()
+        b.record()
+        torch.cuda.synchronize()
+        ts.append(a.elapsed_time(b) / n)
+    del g
+    return statistics.median(ts)
+
+
+def wide_verify_shapes(gbps, dev) -> dict:
+    """Each product of the fp8 Mistral-7B verify (B = 8 x 5 = 40 rows) on
+    the wide path: its plan, its bound, the device us of ``wide_kernel``
+    and of its staging a call (CUPTI), and us a call as a captured graph
+    of 20 calls (staging and the gaps between kernels included); planes
+    cycled past the 50 MB L2, as a verify finds them."""
+    from calm_tpu_torch.ops import hopper_qmm as hq
+
+    B, out = 40, {}
+    for name, (d, n) in (("k/v", (KV, D)), ("q/wo", (Q, D)), ("w1/w3", (HID, D)),
+                         ("w2", (D, HID)), ("lm-head", (32000, D))):
+        P = max(2, -(-100_000_000 // (d * n)))
+        w = rand_w((P, d, n), "fp8", dev)
+        x = torch.randn(B, n, device=dev)
+        check(f"qmm_decode_wide fp8 {name} B={B}", hq.qmm_decode(x, w, "fp8", 0),
+              hq.qmm_decode_plain(x, w, "fp8", 0), TOL_WIDE)
+        b, _ = bound_ms(d * n + 4 * B * (n + d), 2 * B * d * n, gbps, PEAK_BF16)
+        prof = {k: us / cnt for us, cnt, k in
+                kernel_rows(lambda: [hq.qmm_decode(x, w, "fp8", i % P) for i in range(20)])}
+        kern = next((v for k, v in prof.items() if k.startswith("wide_kernel")), None)
+        stage = prof.get("stage_wide_kernel")
+        g = 1e3 * graph_call_ms(lambda i: hq.qmm_decode(x, w, "fp8", i % P))
+        p = hq.qmv_plan(B, (d,), n)
+        out[name] = dict(bound_us=1e3 * b, kernel_us=kern, staging_us=stage, graph_us=g,
+                         ks=p.ks, blocks=p.grid)
+        dev_us = ("not measured (the profiler saw no device time)" if kern is None or stage is None
+                  else f"wide_kernel {kern:.2f} us ({100 * 1e3 * b / kern:.1f}% of bound), its "
+                  f"staging {stage:.2f} us")
+        log(f"# wide path, fp8 mistral7b verify product {name} {d}x{n} B={B} (k parts {p.ks}, "
+            f"{p.grid} blocks): bound {1e3 * b:.2f} us; {dev_us}; a call in a captured graph "
+            f"of 20, gaps included, {g:.2f} us")
+        del w
+        torch.cuda.empty_cache()
+    return out
 
 
 # -- fp8e4 (e4m3 codes, a power-of-two scale per tensor / (layer, expert)) --
@@ -6735,7 +6858,11 @@ def main():
         f"{ptxas_each(build, 'qmm', 'mmv_kernel')}; the one-row loops <fmt, act>: "
         f"{ptxas_each(build, 'qmm', 'qmv_kernel')}; <act>: "
         f"{ptxas_each(build, 'qmm', 'gf4_row_kernel')}; {ptxas_each(build, 'gf4', 'gf4_mv_kernel')}; "
-        f"<fmt, rows> (fmt 3: e4m3): {ptxas_each(build, 'moe', 'moe_qmv_kernel')}")
+        f"<fmt, rows> (fmt 3: e4m3): {ptxas_each(build, 'moe', 'moe_qmv_kernel')}; the wide "
+        f"path <fmt, width>: {ptxas_each(build, 'qmm', 'wide_kernel')}, dynamic " + ", ".join(
+            f"{build.lib('qmm').calm_wide_smem(f, n)}" for f in range(4) for n in (32, 40, 64))
+        + f" B (fmt 0-3 x width 32/40/64); its --precise and gf4 rows of n % 32 != 0 "
+        f"<fmt, act, m-tiles, odd, moe, precise>: {ptxas_each(build, 'qmm', 'mmw_kernel')}")
     log_captures()
 
     RATES["nominal"] = gbps
@@ -6749,6 +6876,7 @@ def main():
     # the wide path: products and the expert sweep of 17-64 rows
     wide_checks(dev)
     rows.update(wide_kernel_rows(gbps, dev))
+    wide_verify_shapes(gbps, dev)
     log(f"# kernel phase done at {time.perf_counter() - t_start:.1f} s")
     # the tools' chains are K1's and K15's main path; the 3 GB rows give the
     # attainable read rate every later GB/s is also read against

@@ -28,8 +28,8 @@ from calm_tpu_torch.config import ModelConfig
 from calm_tpu_torch.container import TensorFile
 from calm_tpu_torch.ops import hopper_attn, hopper_qmm
 from calm_tpu_torch.ops import qmm as tqmm
-from calm_tpu_torch.ops.hopper_qmm import (MAX_MV_ROWS, MAX_ROWS, MV_WARPS, WIDE_NT,
-                                           WIDE_PREC_ROWS, qmv_plan)
+from calm_tpu_torch.ops.hopper_qmm import (MAX_MV_ROWS, MAX_ROWS, MV_WARPS, WIDE_K,
+                                           WIDE_NT, WIDE_PREC_ROWS, WIDE_WIDTHS, qmv_plan)
 from tests.modelgen import tiny_config, write_tiny_model
 from tests.test_torch_model import jax_leaves
 from tests.test_torch_speculative import _rand_cache, _tree_inputs, no_host_reads
@@ -42,6 +42,41 @@ FMTS = ("fp16", "fp8", "fp8e4", "gf4")
 # -- routing, as pure functions ----------------------------------------------
 
 
+def _tma_cover(p, rows):
+    """Every (output row, WIDE_K-value stage) of one slot, and every (tile,
+    row of x) stored, counted over the plan's blocks as the kernel walks
+    them; the k parts of each tile in rank order (block % ks) with their
+    stages and their rows of x."""
+    rows_k = np.zeros((rows, p.stages), np.int32)
+    stored = np.zeros((p.tiles, p.B), np.int32)
+    order = {}
+    for blk in range(p.grid):
+        r0, r1, s0, s1, b0, b1 = p.block_work(blk, rows)
+        rows_k[r0:r1, s0:s1] += 1
+        stored[blk // p.ks, b0:b1] += 1
+        order.setdefault(blk // p.ks, []).append((blk % p.ks, s0, s1))
+    return rows_k, stored, order
+
+
+def _check_tma_plan(p, B, rows, n, dual, slots=1):
+    assert isinstance(p, hopper_qmm.WidePlan)
+    assert p.width == min(w for w in WIDE_WIDTHS if w >= B) and p.B == B
+    assert p.tile == (64 if dual else 128) and p.slots == slots
+    assert p.ks in (1, 2, 4, 8) and p.stages == -(-n // WIDE_K) and p.stages // p.ks >= 1
+    assert p.args() == (p.tile // 16, p.width // 8, p.ks, p.tiles * p.ks)
+    rows_k, stored, order = _tma_cover(p, rows)
+    assert (rows_k == 1).all() and (stored == 1).all()
+    for parts in order.values():  # the sums meet in rank order, each part's k after the last
+        assert [kp for kp, _, _ in parts] == list(range(p.ks))
+        assert parts[0][1] == 0 and parts[-1][2] == p.stages
+        assert all(a[2] == b[1] for a, b in zip(parts, parts[1:]))
+    # the split stops at a block an SM, or at the parts' least stages
+    more = p.tiles * 2 * p.ks * slots <= hopper_qmm.WIDE_TARGET_BLOCKS
+    assert p.ks == 8 or not more or p.stages // (2 * p.ks) < hopper_qmm.WIDE_MIN_STAGES
+    npad = -(-n // WIDE_K) * WIDE_K
+    assert p.staging(n) == (64 * npad // 2, 64)
+
+
 @pytest.mark.parametrize("B", ROWS)
 @pytest.mark.parametrize("seg,n,dual,gf4", [((32000,), 4096, False, False),
                                             ((4096,), 14336, False, False),
@@ -51,12 +86,23 @@ FMTS = ("fp16", "fp8", "fp8e4", "gf4")
                                             ((24,), 8, True, True)])
 @pytest.mark.parametrize("terms", [1, 2])
 def test_wide_plan_covers_every_row_and_chunk_once(B, seg, n, dual, gf4, terms):
-    """Past 16 rows: WIDE_NT n-tiles (WIDE_PREC_ROWS / 8 under --precise),
-    32 rows a warp for one weight's launches of whole 16-value steps (16
-    under --precise, in the dual launch and for rows of an odd word count),
-    k split as at 2-16 rows; every (row, chunk) of every segment taken by
-    exactly one warp; the staging holds 64 row slots of `terms` terms."""
+    """Past 16 rows one segment a launch (q/k/v side by side refused). x in
+    one term on weight rows TMA reads (every format but gf4 rows of n % 32
+    != 0): ``wide_kernel``'s plan, every (row, stage) once and every row of
+    x stored once a tile. Else ``mmw_kernel``'s: WIDE_NT n-tiles
+    (WIDE_PREC_ROWS / 8 under --precise), 32 rows a warp for one weight's
+    launches of whole 16-value steps (16 under --precise, in the dual launch
+    and for rows of an odd word count), k split as at 2-16 rows; every
+    (row, chunk) of every segment taken by exactly one warp; the staging
+    holds 64 row slots of `terms` terms."""
+    if len(seg) > 1:
+        with pytest.raises(ValueError):
+            qmv_plan(B, seg, n, dual, gf4, terms=terms)
+        return
     p = qmv_plan(B, seg, n, dual, gf4, terms=terms)
+    if hopper_qmm.wide_tma(n, gf4, terms):
+        _check_tma_plan(p, B, seg[0], n, dual)
+        return
     assert p.nt == (WIDE_NT if terms == 1 else WIDE_PREC_ROWS // 8)
     assert p.mt == (2 if terms == 1 and not dual and n % 16 == 0 else 1)
     assert MV_WARPS % p.ks == 0 and 8 * WIDE_NT >= B
@@ -70,6 +116,52 @@ def test_wide_plan_covers_every_row_and_chunk_once(B, seg, n, dual, gf4, terms):
     assert all((v == 1).all() for v in seen)
     nc = -(-n // 64)
     assert p.staging(n, terms) == (nc * 4 * 64 * 4 * 2 * terms, 64)
+
+
+# (rows, n, dual, slots) of the launches the served paths make past 16 rows
+SERVED_SHAPES = {
+    "mistral7b q/wo": (4096, 4096, False, 1), "mistral7b k/v": (1024, 4096, False, 1),
+    "mistral7b w1/w3": (14336, 4096, False, 1), "mistral7b w2": (4096, 14336, False, 1),
+    "mistral7b lm-head": (32000, 4096, False, 1), "aya23-8b lm-head": (256000, 4096, False, 1),
+    "mixtral w1/w3 dual": (14336, 4096, True, 8), "mixtral w2": (4096, 14336, False, 8),
+    "olmoe w1/w3 dual": (1024, 2048, True, 64), "olmoe w2": (2048, 1024, False, 64),
+    "ragged": (1000, 1040, False, 1), "ragged dual": (1000, 1040, True, 7),
+    "ragged short k": (200, 16, False, 1), "one tile": (24, 4096, True, 1),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SERVED_SHAPES))
+def test_wide_plan_covers_the_served_shapes(name):
+    """``wide_plan`` at 17, 24, 40 and 64 rows for each launch of the
+    served paths (Mistral-7B, the Aya 23 8B lm-head, Mixtral 8x7B's and
+    OLMoE's expert sweeps, ragged rows and k): every (output row, stage) of
+    a slot once, every row of x stored once a tile, the k parts of a tile
+    in rank order covering k once (their sums meet in that order), the
+    split stopped where the plan says; the same plan from ``qmv_plan``."""
+    rows, n, dual, slots = SERVED_SHAPES[name]
+    for B in ROWS:
+        p = hopper_qmm.wide_plan(B, rows, n, dual, slots)
+        _check_tma_plan(p, B, rows, n, dual, slots)
+        assert qmv_plan(B, (rows,), n, dual, slots=slots) == p
+    # Mistral-7B's verify: a whole k where tiles fill the card, split where few
+    p = {k: hopper_qmm.wide_plan(40, *SERVED_SHAPES[k]) for k in SERVED_SHAPES}
+    assert p["mistral7b lm-head"].ks == 1 and p["mistral7b k/v"].ks == 8
+    assert p["mistral7b q/wo"].ks == 4 and p["mistral7b w2"].ks == 4
+
+
+@pytest.mark.parametrize("B", [0, 1, 2, 16, 65, 128])
+def test_wide_plan_refuses_rows_outside_17_to_64(B):
+    """The wide kernel takes 17..64 rows of x: below, the multi-row path's
+    plan (mmv_kernel); past 64 nothing (``qmv_plan`` refuses too)."""
+    with pytest.raises(ValueError):
+        hopper_qmm.wide_plan(B, 4096, 4096)
+    if 1 <= B <= MAX_ROWS:
+        assert isinstance(qmv_plan(B, (4096,), 4096), hopper_qmm.QmvPlan)
+    else:
+        with pytest.raises(ValueError):
+            qmv_plan(B, (4096,), 4096)
+    with pytest.raises(ValueError):
+        hopper_qmm.wide_plan(40, 4096, 4104)  # k off the 16-value steps
 
 
 @pytest.mark.parametrize("B", ROWS)
@@ -199,6 +291,176 @@ def test_wide_operand_keeps_each_row_to_its_scale(rng):
     assert not hi[3].any() and not lo[3].any()
     one, none, _ = hopper_qmm.wide_operand(xt, 1)
     assert none is None and torch.equal(one, hi)
+
+
+def _stage_wide_emulated(x):
+    """``stage_wide_kernel``'s writes, its index arithmetic written out:
+    the row's scale 2^e (frexp of its max), and for float4 c of the row (k
+    = 4 c; zeros past n to the stage's end), t = (k >> 5) % 4 and s = (k >>
+    2) % 8: x[k], x[k + 1] to p = (k & ~127) + 16 s + 2 t, x[k + 2], x[k +
+    3] to p + 8."""
+    B, n = x.shape
+    npad = -(-n // WIDE_K) * WIDE_K
+    _, e = torch.frexp(x.abs().amax(-1))
+    v = torch.zeros((B, npad), dtype=torch.float16)
+    v[:, :n] = torch.ldexp(x, -e[:, None].float()).half()
+    out = torch.zeros((B, npad), dtype=torch.float16)
+    for c in range(npad // 4):
+        k = 4 * c
+        t, st = (k >> 5) & 3, (k >> 2) & 7
+        p = (k & ~(WIDE_K - 1)) + 16 * st + 2 * t
+        out[:, p:p + 2] = v[:, k:k + 2]
+        out[:, p + 8:p + 10] = v[:, k + 2:k + 4]
+    return out, e.to(torch.int32)
+
+
+def _split_rows_emulated(x, terms):
+    """``split_rows_kernel``'s writes for ``mmw_kernel`` (--precise, gf4
+    rows of n % 32 != 0): float4 c of row b ({hi01, hi23}, and lo the same
+    at the second term's offset) to uint2 ((c // 16 * 4 + c % 4) 64 + b) 4 +
+    c // 4 % 4; read back as ``mmw_kernel``'s lane (g, t) reads it, x row g,
+    k = 64 chunk + 16 t + 4 s + j at step s: (hi, lo) in natural order."""
+    B, n = x.shape
+    nc = -(-n // 64)
+    _, e = torch.frexp(x.abs().amax(-1))
+    f = torch.zeros((B, nc * 64))
+    f[:, :n] = torch.ldexp(x, -e[:, None].float())
+    hi = f.half()
+    lo = (f - hi.float()).half()
+    frags = torch.zeros((terms, nc * 4 * 64 * 4, 4), dtype=torch.float16)
+    for c in range(nc * 16):
+        o = ((c // 16 * 4 + c % 4) * 64 + np.arange(B)) * 4 + c // 4 % 4
+        frags[0, o] = hi[:, 4 * c:4 * c + 4]
+        if terms == 2:
+            frags[1, o] = lo[:, 4 * c:4 * c + 4]
+    back = torch.zeros((terms, B, nc * 64), dtype=torch.float16)
+    for chunk in range(nc):
+        for t in range(4):
+            for st in range(4):
+                k = 64 * chunk + 16 * t + 4 * st
+                back[:, :, k:k + 4] = frags[:, ((chunk * 4 + st) * 64 + np.arange(B)) * 4 + t]
+    return back[0, :, :n], (back[1, :, :n] if terms == 2 else None), e.to(torch.int32)
+
+
+@pytest.mark.parametrize("n", [16, 208, 1040, 4096])
+def test_wide_staging_bytes_match_wide_operand(rng, n):
+    """The stagings' byte layouts written out from the kernels' index
+    arithmetic: ``stage_wide_kernel``'s equals ``hopper_qmm.wide_staged``,
+    and un-permuted by ``wide_perm`` (zeros past n) it is ``wide_operand``'s
+    hi with its e; ``split_rows_kernel``'s, read back in ``mmw_kernel``'s
+    lane order, is ``wide_operand``'s hi, lo and e (one and two terms).
+    Rows 2^20 apart, a row of zeros."""
+    x = rng.standard_normal((40, n)).astype(np.float32)
+    x[::3] *= 2.0 ** 20
+    x[5] = 0
+    xt = torch.from_numpy(x)
+    hi, lo, e = hopper_qmm.wide_operand(xt, 2)
+    staged, es = _stage_wide_emulated(xt)
+    got, eg = hopper_qmm.wide_staged(xt)
+    assert torch.equal(staged, got) and torch.equal(es, e) and torch.equal(eg, e)
+    npad = staged.shape[1]
+    assert npad % WIDE_K == 0 and npad - n < WIDE_K
+    back = torch.zeros_like(staged)
+    k = torch.from_numpy(hopper_qmm.wide_perm())
+    idx = (torch.arange(npad // WIDE_K)[:, None] * WIDE_K + k[None, :]).reshape(-1)
+    back[:, idx] = staged
+    assert torch.equal(back[:, :n], hi) and not back[:, n:].any()
+    assert qmv_plan(40, (64,), n).staging(n) == (64 * npad // 2, 64)
+    for terms in (1, 2):
+        h, l, ee = _split_rows_emulated(xt, terms)
+        assert torch.equal(h, hi) and torch.equal(ee, e)
+        assert (l is None) if terms == 1 else torch.equal(l, lo)
+
+
+def _lane_k(fmt: str, r: int, t: int) -> list:
+    """The stage's k of each value of lane t's words of row r, as
+    ``wt_load`` reads shared memory that TMA filled: the 128-byte swizzle
+    puts logical 16-byte chunk c of row r at chunk c ^ (r % 8) (e5m2/e4m3 128
+    bytes a row, fp16 two boxes of 128, gf4 64 bytes unswizzled); the lane
+    reads physical chunks and so gets logical ones. A word's values, k
+    ascending."""
+    words = []
+    if fmt == "gf4":  # chunk t of 64 bytes: 4 words of 8 values
+        for w in range(4):
+            words.append([8 * (4 * t + w) + j for j in range(8)])
+    elif fmt == "fp16":  # box t // 2, physical chunks (4 (t % 2) + h) ^ (r % 8)
+        for h in range(4):
+            phys = (4 * (t & 1) + h) ^ (r & 7)
+            logical = phys ^ (r & 7)
+            for w in range(4):
+                words.append([64 * (t >> 1) + 8 * logical + 2 * w + j for j in range(2)])
+    else:  # physical chunks (2 t + h) ^ (r % 8)
+        for h in range(2):
+            logical = ((2 * t + h) ^ (r & 7)) ^ (r & 7)
+            for w in range(4):
+                words.append([16 * logical + 4 * w + j for j in range(4)])
+    return words
+
+
+def _frag_k(fmt: str, words: list, s: int) -> tuple:
+    """``wt_frag``'s step s: the k of its a01 pair and its a23 pair."""
+    if fmt == "gf4":  # half s % 2 of word s // 2: codes 4 h .. 4 h + 3
+        v = words[s >> 1][4 * (s & 1):4 * (s & 1) + 4]
+        return v[:2], v[2:]
+    if fmt == "fp16":
+        return words[2 * s], words[2 * s + 1]
+    return words[s][:2], words[s][2:]
+
+
+@pytest.mark.parametrize("fmt", ["fp16", "fp8", "gf4"])
+def test_wide_fragments_read_the_staged_order(fmt):
+    """For every row of a warpgroup's 64, lane quad t and step s: the A
+    operand slots 2 t, 2 t + 1 (a01) and 8 + 2 t, 9 + 2 t (a23) that
+    ``wt_load`` and ``wt_frag`` give hold the weights of the very k that
+    the staging put at x's positions 16 s + slot (``wide_perm``), and each
+    lane's 32 values of a row are k = 32 t .. 32 t + 31 once."""
+    perm = hopper_qmm.wide_perm()
+    for r in range(64):
+        for t in range(4):
+            words = _lane_k(fmt, r, t)
+            assert sorted(k for w in words for k in w) == list(range(32 * t, 32 * t + 32))
+            for st in range(8):
+                a01, a23 = _frag_k(fmt, words, st)
+                assert list(a01) == [perm[16 * st + 2 * t], perm[16 * st + 2 * t + 1]]
+                assert list(a23) == [perm[16 * st + 8 + 2 * t], perm[16 * st + 9 + 2 * t]]
+
+
+@pytest.mark.parametrize("fmt", FMTS)
+def test_wide_k_split_emulated_matches_qmatmul(rng, fmt):
+    """The kernel's arithmetic with its k split, written out: x staged
+    (``wide_staged``, one scale a row), the weights exact in f16 in the
+    staged order, each k part's f32 sums over its stages, the parts added in
+    rank order, then the row's scale (and the fp8e4 scale): within 2^-11 of
+    sum |x| |w| of ``calm_tpu.ops.qmm.qmatmul``'s f32 path, as the unsplit
+    product (rows 2^20 apart)."""
+    B, d, n = 40, 256, 2048
+    p = hopper_qmm.wide_plan(B, d, n)
+    assert p.ks > 1
+    q, sc = _plane(rng, d, n, fmt)
+    x = rng.standard_normal((B, n)).astype(np.float32)
+    x[::3] *= 2.0 ** 20
+    want = np.asarray(jqmm.qmatmul(jnp.asarray(x), jqmm.QTensor(jnp.asarray(q), fmt,
+                                   None if sc is None else jnp.asarray(sc))), np.float32)
+    wt = _torch_plane(q, fmt)
+    wf = tqmm.dequant(tqmm.QTensor(wt, fmt), torch.float32)
+    staged, e = hopper_qmm.wide_staged(torch.from_numpy(x))
+    k = torch.from_numpy(hopper_qmm.wide_perm())
+    idx = (torch.arange(p.stages)[:, None] * WIDE_K + k[None, :]).reshape(-1)
+    wp = torch.zeros((d, p.stages * WIDE_K))
+    wp[:, :n] = wf
+    wp = wp[:, idx]  # the weights in the staged order, zeros past n
+    y = torch.zeros((B, d))
+    for blk in range(p.ks):  # tile 0's parts, rank order
+        _, _, s0, s1, _, _ = p.block_work(blk, d)
+        cols = slice(s0 * WIDE_K, s1 * WIDE_K)
+        y = y + staged[:, cols].float() @ wp[:, cols].T
+    y = y * torch.ldexp(torch.ones(()), e.float())[:, None]
+    if sc is not None:
+        y = y * torch.from_numpy(sc)
+    mag = np.abs(x).astype(np.float64) @ np.abs(wf.numpy()).T.astype(np.float64) * (
+        1.0 if sc is None else float(sc[0]))
+    row = np.abs(want).max(-1, keepdims=True)
+    assert (np.abs(y.numpy() - want) <= 2.0 ** -11 * mag + 1e-5 * row).all()
 
 
 # -- the MoE FFN at 40 rows against JAX's per-token vmap ---------------------
