@@ -7,7 +7,8 @@ Flag-compatible with the reference CLI (src/run.c:421-490):
   --kv KV cache dtype
 
 Env hooks:
-  CALM_TOKENS=1  dump prompt token ids
+  CALM_TOKENS=1  dump prompt token ids, and after each generated sequence
+                 its ids (a ``# ids:`` line on stdout)
   CALM_POSO=N    offset positions by N (late-context decode profiling)
   CALM_CPU=1     run on the CPU (plain PyTorch path); the GPU otherwise
   CALM_PRECISE=1 as --precise: the prefill's products past 64 rows in
@@ -164,6 +165,8 @@ def main(argv=None):
                 reference_sampling=args.reference_sampling,
                 on_piece=lambda s: print(s, end="", flush=True))
             print()
+            if os.environ.get("CALM_TOKENS", "0") == "1":
+                print("# ids: " + " ".join(str(t) for t in stats.ids))
             print(stats.perf_line(), file=sys.stderr)
 
 

@@ -15,6 +15,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import warnings
 from typing import Mapping, Sequence
 
 import numpy as np
@@ -177,6 +178,17 @@ def to_torch(arr: np.ndarray, tag: str, device=None) -> torch.Tensor:
     if t.dtype != want:
         t = t.view(want)
     return t.to(device) if device is not None else t
+
+
+def to_torch_view(arr: np.ndarray, tag: str) -> torch.Tensor:
+    """A container array as the torch dtype of ``tag`` without a copy: a
+    view of the same memory (a read-only memmap's pages included, which
+    the caller must not write)."""
+    with warnings.catch_warnings():  # torch warns of read-only memory
+        warnings.simplefilter("ignore", UserWarning)
+        t = torch.from_numpy(arr)
+    want = TORCH_DTYPES[tag]
+    return t if t.dtype == want else t.view(want)
 
 
 def write_tensors(path: str, tensors: Mapping[str, "np.ndarray | torch.Tensor"],

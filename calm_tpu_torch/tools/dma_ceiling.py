@@ -65,25 +65,41 @@ def time_chain(call, n: int, reps: int = 5) -> float:
     return best
 
 
+def stream_rate(gib: float, n1: int, n2: int) -> tuple[float, float]:
+    """(MB, ms a pass) of one (L, D, G) buffer of ``gib`` GiB: the slope
+    of chains of ``n1`` and ``n2`` calls."""
+    L = max(1, int(gib * (1 << 30)) // (G * 4 * D))
+    w = torch.arange(G, dtype=torch.int32, device="cuda").expand(L, D, G).contiguous()
+    mb = w.numel() * 4 / 1e6
+
+    def call(s):
+        return stream_sum(w, s)
+    per = (time_chain(call, n2) - time_chain(call, n1)) / (n2 - n1)
+    del w
+    torch.cuda.empty_cache()
+    return mb, per
+
+
+def attainable() -> float:
+    """The attainable HBM read rate in GB/s: the 3 GB buffer's line (the
+    size a 7B fp8 decode step streams), for a tool that reads its own
+    rate against it in the same process."""
+    gib, _, (n1, n2) = ROWS[-1]
+    mb, per = stream_rate(gib, n1, n2)
+    return mb / per
+
+
 def main() -> list[dict]:
     """Print one line a buffer; returns the rows (mb, td, ms, gb_s)."""
     require_gpu("dma_ceiling")
     out = []
     for gib, tds, (n1, n2) in ROWS:
-        L = max(1, int(gib * (1 << 30)) // (G * 4 * D))
-        w = torch.arange(G, dtype=torch.int32, device="cuda").expand(L, D, G).contiguous()
-        mb = w.numel() * 4 / 1e6
-
-        def call(s, w=w):
-            return stream_sum(w, s)
-        per = (time_chain(call, n2) - time_chain(call, n1)) / (n2 - n1) / 1e3
-        gb_s = mb * 1e6 / per / 1e9
+        mb, ms = stream_rate(gib, n1, n2)
+        gb_s = mb / ms
         for td in tds:
-            print(f"buf {mb:7.0f} MB td={td}: {per * 1e3:8.2f} ms/pass "
+            print(f"buf {mb:7.0f} MB td={td}: {ms:8.2f} ms/pass "
                   f"{gb_s:5.0f} GB/s", flush=True)
-            out.append(dict(mb=mb, td=td, ms=per * 1e3, gb_s=gb_s))
-        del w
-        torch.cuda.empty_cache()
+            out.append(dict(mb=mb, td=td, ms=ms, gb_s=gb_s))
     return out
 
 

@@ -14,8 +14,8 @@ share of that measured read rate too; ``tools.dma_ceiling`` measures it).
 With ``--prefill T`` it times a T-token prefill instead. With ``--trace``
 it runs once more eagerly under ``profiler.trace`` (a replayed graph runs
 no wrapper, so only the eager step's kernels carry their bytes) and prints
-``profiler.trace_table``. ``--synthetic`` takes a shape of :data:`SHAPES`
-(a copy of ``bench.py``'s) on ``utils.synth`` pattern weights. Runs on the
+``profiler.trace_table``. ``--synthetic`` takes a shape of
+``tools.bench.SHAPES`` on ``utils.synth`` pattern weights. Runs on the
 card; ``CALM_CPU=1`` runs the plain path on the CPU. Without a GPU (and
 without ``CALM_CPU=1``) it exits 1.
 """
@@ -32,27 +32,7 @@ import torch
 from calm_tpu_torch import model as M
 from calm_tpu_torch import profiler
 from calm_tpu_torch.config import ModelConfig
-
-# a copy of bench.py's SHAPES
-SHAPES = {
-    "mistral7b": dict(dim=4096, hidden_dim=14336, head_dim=128, n_layers=32,
-                      n_heads=32, n_kv_heads=8, vocab_size=32000),
-    "llama3-8b": dict(dim=4096, hidden_dim=14336, head_dim=128, n_layers=32,
-                      n_heads=32, n_kv_heads=8, vocab_size=128256),
-    "llama2-7b": dict(dim=4096, hidden_dim=11008, head_dim=128, n_layers=32,
-                      n_heads=32, n_kv_heads=32, vocab_size=32000),
-    "llama2-13b": dict(dim=5120, hidden_dim=13824, head_dim=128, n_layers=40,
-                       n_heads=40, n_kv_heads=40, vocab_size=32000),
-    "mixtral8x7b": dict(dim=4096, hidden_dim=14336, head_dim=128, n_layers=32,
-                        n_heads=32, n_kv_heads=8, vocab_size=32000,
-                        n_experts=8, n_experts_ac=2),
-    "mixtral4x7b": dict(dim=4096, hidden_dim=14336, head_dim=128, n_layers=32,
-                        n_heads=32, n_kv_heads=8, vocab_size=32000,
-                        n_experts=4, n_experts_ac=2),
-    "tiny": dict(dim=256, hidden_dim=512, head_dim=64, n_layers=2,
-                 n_heads=4, n_kv_heads=2, vocab_size=2048),
-}
-
+from calm_tpu_torch.tools.bench import SHAPES
 
 def _sync(dev: torch.device) -> None:
     if dev.type == "cuda":

@@ -94,6 +94,15 @@ Mistral-7B (its roofline report against this run's attainable rate and the
 trace table of one eager run, held to ``profiler.step_bytes``, the phase's
 first32 and the HBM rate) and on the 2-layer container's 2048-token
 prefill, and ``tools.sol`` beside the measured first32;
+runs the repo's tools on the port as a user runs them, each in its own
+process: ``tools.convert`` of a BF16 ``MistralForCausalLM`` checkpoint
+of Mistral-7B's widths at 2 layers, written with torch alone, to fp8 and
+gf4 (each container held to the CPU path), ``tools.accept`` on four tiny
+BF16 checkpoints (configs 1-4: PASS, the cross-check on the card's
+near-tie rule), ``tools.quality`` on the card's kernels, ``tools.bench``
+on the 32-layer Mistral-7B (fp8, its first32 between the full-width
+phase's first32 and last32; fp16; ``--kv fp8``; ``--prefill 2048``) and
+``tools.serve_bench`` on the 2-layer fp8 container;
 and ends with a ``kernels`` JSON line and
 ``{"ok": true, "device": ...}``. The containers' CPU side runs in a worker
 process from the start. Any failure exits non-zero before the last line;
@@ -3082,16 +3091,17 @@ def fp16_twin(w):
                      output=embed if w.output is w.embed else twin(w.output))
 
 
-def cpu_reference(path, what):
-    """The CPU plain path on a container, the reference of the card's
-    checks: (engine, a note for the log or None). A gf4 container's CPU
+def cpu_reference(path, what, context: int = 0):
+    """The CPU plain path on a container (at ``context``, 0: the
+    container's), the reference of the card's checks: (engine, a note for
+    the log or None). A gf4 container's CPU
     engine runs on ``fp16_twin`` weights: its products widen fp16 instead
     of decoding words, the same f32 values into the same f32 products,
     several times faster (held bit for bit to the gf4 engine on one step
     here)."""
     from calm_tpu_torch.engine import Engine
 
-    cpu = Engine(path, device="cpu")
+    cpu = Engine(path, context=context, device="cpu")
     if cpu.cfg.dtype != "gf4":
         return cpu, None
     t0 = time.perf_counter()
@@ -5010,6 +5020,7 @@ def rate_share(gb_s: float) -> str:
 
 RATES = {"nominal": 3350.0, "attainable": None}
 FIRST32 = {}  # full-width model -> its replayed first32 ms/tok in this run
+LAST32 = {}   # full-width model -> its replayed last32 ms/tok in this run
 
 
 def full_width_phase(fmt, dev, gbps, smi, experts: int = 0, cohere: bool = False):
@@ -5149,6 +5160,8 @@ def full_width_phase(fmt, dev, gbps, smi, experts: int = 0, cohere: bool = False
         if name == "first32":
             first = (toks[0].tolist(), logits[:, 0].float().cpu().numpy())
             FIRST32[what] = 1e3 * med / steps
+        if name == "last32":
+            LAST32[what] = 1e3 * med / steps
         spread = 100 * (max(secs) - min(secs)) / med
         read = sum(bw + kv_cache_bytes(cfg, 16, pos0 + i) for i in range(steps))
         gb_s = read / 1e9 / med
@@ -5829,6 +5842,286 @@ def profiler_phase(smi, container: str) -> dict:
         f"its SoL on {smi}")
     res["sol_tok_s"] = sol_tok
     return res
+
+
+# ---------------------------------------------------------------------------
+# The repo's tools on the port: tools.convert, accept, quality, bench and
+# serve_bench, each run as a user runs it (``python -m``, its own process)
+# ---------------------------------------------------------------------------
+
+# mistralai/Mistral-7B-v0.1's config.json, cut to 2 of its 32 layers
+HF_MISTRAL = {"architectures": ["MistralForCausalLM"], "hidden_size": 4096,
+              "intermediate_size": 14336, "num_hidden_layers": 2,
+              "num_attention_heads": 32, "num_key_value_heads": 8, "vocab_size": 32000,
+              "max_position_embeddings": 32768, "sliding_window": 4096,
+              "bos_token_id": 1, "eos_token_id": 2, "rope_theta": 10000.0,
+              "rms_norm_eps": 1e-5, "hidden_act": "silu", "tie_word_embeddings": False}
+CONVERTED = ("fp8", "gf4")  # the converter's formats checked on the card
+CONVERT_CTX = 4096  # both sides load the converted containers at this context (bf16 KV)
+# the gate's checkpoints: tools/accept.py's --selftest configs (:143-162) at
+# widths the card's kernels take (head dim 64, rows of 128-aligned widths)
+ACCEPT_DENSE = {"architectures": ["LlamaForCausalLM"], "hidden_size": 256,
+                "intermediate_size": 512, "num_hidden_layers": 2, "num_attention_heads": 4,
+                "num_key_value_heads": 2, "vocab_size": 272, "max_position_embeddings": 128,
+                "bos_token_id": 1, "eos_token_id": 2, "rope_theta": 10000.0,
+                "rms_norm_eps": 1e-5, "hidden_act": "silu", "tie_word_embeddings": False}
+ACCEPT_MOE = dict(ACCEPT_DENSE, architectures=["MixtralForCausalLM"], num_local_experts=4,
+                  num_experts_per_tok=2)
+ACCEPT_DIRS = (("tinyllama-1.1b", ACCEPT_DENSE, 11), ("mistral-7b", ACCEPT_DENSE, 12),
+               ("llama-3-8b", ACCEPT_DENSE, 13), ("mixtral-8x7b", ACCEPT_MOE, 14))
+ACCEPT_ROWS = {1: ("convert[fp16]", "hash[fp16]", "cpu-crosscheck", "ppl[fp16]", "bench[fp16]"),
+               2: tuple(f"{s}[{d}]" for d in ("fp16", "fp8")
+                        for s in ("convert", "hash", "ppl", "bench")) + ("delta[fp8]",),
+               3: tuple(f"{s}[{d}]" for d in ("fp16", "gf4")
+                        for s in ("convert", "hash", "ppl", "bench")) + ("delta[gf4]",),
+               4: ("convert[gf4]", "hash[gf4]", "ppl[gf4]", "bench[gf4]")}
+SERVE_BENCH = ["--batch", "8", "--requests", "16", "--prompt-len", "128", "--max-tokens",
+               "32", "--prefix-share", "0.5", "--prefix-cache-tokens", "8192"]
+
+
+def write_hf_inputs(tmp, dev) -> dict:
+    """The tools' inputs written with torch alone, as downloads hold them:
+    a BF16 ``MistralForCausalLM`` checkpoint of Mistral-7B's widths at 2
+    layers, and the gate's tiny BF16 checkpoints (``ACCEPT_DIRS``), each
+    ``config.json``, ``model.safetensors`` and a byte-fallback
+    ``tokenizer.json``, from seeded normal weights drawn on the card."""
+    from calm_tpu_torch.utils.modelgen import write_hf_checkpoint
+
+    t0 = time.perf_counter()
+    mistral = os.path.join(tmp, "hf-mistral-7b-2l")
+    write_hf_checkpoint(mistral, HF_MISTRAL, seed=7, device=dev)
+    root = os.path.join(tmp, "hf-accept")
+    for name, cfg, seed in ACCEPT_DIRS:
+        write_hf_checkpoint(os.path.join(root, name), cfg, seed=seed, device=dev)
+    log(f"# HF checkpoints written with torch: Mistral-7B widths at 2 layers, BF16, "
+        f"{os.path.getsize(os.path.join(mistral, 'model.safetensors')) / 1e9:.2f} GB; "
+        f"{len(ACCEPT_DIRS)} tiny ones for the gate; {time.perf_counter() - t0:.1f} s")
+    return dict(mistral=mistral, accept=root,
+                out={fmt: os.path.join(tmp, f"converted-mistral7b-2l-{fmt}.calm")
+                     for fmt in CONVERTED})
+
+
+def convert_side(hf_dir, out, fmt) -> dict:
+    """For the worker process: ``python -m calm_tpu_torch.tools.convert``
+    of the BF16 checkpoint at ``fmt`` (its seconds), then the CPU plain
+    path on the container (``cpu_reference`` at ``CONVERT_CTX``): 8 greedy
+    steps from token 1, and ``PROMPT_LONG``'s prefill with 8 steps after
+    it, as ``_cpu_checks`` computes them."""
+    try:
+        torch.set_num_threads(CPU_THREADS)
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "calm_tpu_torch.tools.convert", out,
+                            hf_dir, "--dtype", fmt], cwd=ROOT, capture_output=True,
+                           text=True, timeout=900,
+                           env=dict(os.environ, OMP_NUM_THREADS=str(CPU_THREADS)))
+        secs = time.perf_counter() - t0
+        if r.returncode:
+            raise RuntimeError(f"tools.convert --dtype {fmt} exited {r.returncode}: "
+                               f"{r.stderr[-2000:]}")
+        what = f"converted {fmt} mistral7b-width"
+        t0 = time.perf_counter()
+        cpu, note = cpu_reference(out, what, CONVERT_CTX)
+        res = dict(seconds=secs, last=r.stdout.strip().splitlines()[-1].strip(),
+                   notes=[note] if note else [])
+        with dequant_once(cpu.weights):
+            tok, steps = 1, []
+            for pos in range(8):
+                lc = cpu.step(tok, pos)
+                steps.append((tok, lc))
+                tok = int(lc.argmax())
+            res["steps"] = steps
+            toks = cpu.tokenizer.encode(PROMPT_LONG, bos=True)
+            cpu.reset()
+            lcs, ids = [cpu.prefill_tokens(toks)], []
+            for i in range(8):
+                ids.append(int(lcs[-1].argmax()))
+                lcs.append(cpu.step(ids[-1], len(toks) + i))
+            res["prefill"] = (lcs, ids)
+        res["notes"].append(f"# {what}: the CPU side in a worker process, "
+                            f"{time.perf_counter() - t0:.1f} s on {CPU_THREADS} threads")
+        return res
+    except SystemExit:  # fail() logged why; a pool's worker passes on exceptions only
+        raise RuntimeError(f"the CPU side of the converted {fmt} container failed")
+
+
+def converted_checks(hf, refs, smi) -> dict:
+    """(a) Each converted container on the card against the CPU plain
+    path on the same container (``convert_side``): 8 decode steps within
+    TOL_STEP of scale, the prefill and 8 steps after it within
+    TOL_PREFILL, greedy ids equal but at near-ties."""
+    from calm_tpu_torch.engine import Engine
+
+    out = {}
+    for fmt in CONVERTED:
+        what = f"converted {fmt} mistral7b-width"
+        t0 = time.perf_counter()
+        ref = refs[fmt].get()
+        log(f"# {what}: tools.convert --dtype {fmt} of the BF16 checkpoint in "
+            f"{ref['seconds']:.1f} s ({ref['last']}; {os.path.getsize(hf['out'][fmt]) / 1e9:.2f} "
+            f"GB), waited {time.perf_counter() - t0:.1f} s for it and the CPU side")
+        for note in ref["notes"]:
+            log(note)
+        eng = Engine(hf["out"][fmt], context=CONVERT_CTX)
+        worst, ties = 0.0, 0
+        for pos, (tok, lc) in enumerate(ref["steps"]):
+            lg = eng.step(tok, pos)
+            worst = max(worst, float(np.abs(lg - lc).max() / np.abs(lc).max()))
+            ties += not greedy_agrees(f"{what} step {pos}", int(lg.argmax()), lc, TOL_STEP)
+        if worst > TOL_STEP:
+            fail(f"{what}: decode logits differ from the CPU by {worst:.3e} > {TOL_STEP}")
+        toks = eng.tokenizer.encode(PROMPT_LONG, bos=True)
+        eng.reset()
+        lcs, ids = ref["prefill"]
+        lg, lc = eng.prefill_tokens(toks), lcs[0]
+        worst_p, ties_p = 0.0, 0
+        for i in range(9):
+            worst_p = max(worst_p, float(np.abs(lg - lc).max() / np.abs(lc).max()))
+            if i == 8:
+                break
+            ties_p += not greedy_agrees(f"{what} greedy id {i} after prefill",
+                                        int(lg.argmax()), lc, TOL_PREFILL)
+            lg, lc = eng.step(ids[i], len(toks) + i), lcs[i + 1]
+        if not worst_p <= TOL_PREFILL:
+            fail(f"{what}: logits after prefill differ from the CPU by {worst_p:.3e} "
+                 f"> {TOL_PREFILL}")
+        log(f"# {what} on the card vs cpu: 8 steps within {worst:.3e} of scale (tol "
+            f"{TOL_STEP:g}), {ties} near-ties; a {len(toks)}-token prefill and 8 steps "
+            f"within {worst_p:.3e} (tol {TOL_PREFILL:g}), {ties_p} near-ties; on {smi}")
+        out[fmt] = dict(convert_s=ref["seconds"], step_err=worst, prefill_err=worst_p)
+        del eng
+    return out
+
+
+def json_line(out: str, what: str) -> dict:
+    """The last JSON object a tool printed on its standard output."""
+    for line in reversed(out.strip().splitlines()):
+        if line.startswith("{"):
+            return json.loads(line)
+    fail(f"{what}: no JSON line in\n{out[-2000:]}")
+
+
+def tool_run(name, *args, timeout=900) -> tuple[str, str, float]:
+    """``python -m calm_tpu_torch.tools.<name>`` on the card: (standard
+    output, standard error, seconds); fails on a non-zero exit."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", f"calm_tpu_torch.tools.{name}", *args],
+                       cwd=ROOT, capture_output=True, text=True, timeout=timeout)
+    if r.returncode:
+        fail(f"tools.{name} {' '.join(args)} exited {r.returncode}: {r.stderr[-3000:]}")
+    return r.stdout, r.stderr, time.perf_counter() - t0
+
+
+def accept_check(hf, smi) -> dict:
+    """(b) The acceptance gate on the tiny BF16 checkpoints, configs 1-4,
+    on the card: PASS, the rows of ``ACCEPT_ROWS`` each ok, the
+    cpu-crosscheck on the card's rule (greedy ids of the CPU's CLI, equal
+    but at a near-tie)."""
+    jpath = os.path.join(hf["accept"], "accept.json")
+    out, _, secs = tool_run("accept", hf["accept"], "--configs", "1,2,3,4",
+                            "--ppl-chars", "2000", "--json", jpath)
+    with open(jpath) as f:
+        res = json.load(f)
+    rows = {(r["config"], r["stage"]): r for r in res["rows"]}
+    want = {(c, s) for c, stages in ACCEPT_ROWS.items() for s in stages}
+    if (res["verdict"] != "PASS" or set(rows) != want or not all(r["ok"] for r in rows.values())
+            or res["backend"] != "cuda"):
+        fail(f"tools.accept: {json.dumps(res)[-3000:]}")
+    cross = rows[(1, "cpu-crosscheck")]["detail"]
+    if "greedy ids equal" not in cross:
+        fail(f"tools.accept: the cpu-crosscheck row is not on the card's rule: {cross}")
+    log(f"# tools.accept configs 1-4 on the card in {secs:.1f} s: {res['verdict']}, "
+        f"{len(rows)} rows ok; cpu-crosscheck: {cross}; on {smi}")
+    for (c, s), r in sorted(rows.items()):
+        if s.startswith(("ppl", "delta", "bench")):
+            log(f"#   accept cfg{c} {s}: {r['detail']}")
+    return dict(seconds=secs, ppl=res["ppl"], decode=res["decode"], crosscheck=cross)
+
+
+def quality_check(smi) -> dict:
+    """(c) The quality tool on the card's kernels: every format's SNR line,
+    and each format's logit drift with argmax agreement 6/6."""
+    out, _, secs = tool_run("quality")
+    snr = re.findall(r"^ +(\w+) \( ?\d+ bpw\): SNR +([\d.]+) dB", out, re.M)
+    drift = re.findall(r"^ +(\w+): max rel logit drift +([\d.]+)%, argmax agreement (\d)/6",
+                       out, re.M)
+    if len(snr) != 4 or len(drift) != 4 or any(a != "6" for _, _, a in drift):
+        fail(f"tools.quality: {out[-3000:]}")
+    log(f"# tools.quality on the card in {secs:.1f} s: SNR dB " + ", ".join(
+        f"{f} {v}" for f, v in snr) + "; logit drift against the f32 oracle " + ", ".join(
+        f"{f} {d}% (6/6)" for f, d, _ in drift) + f" on {smi}")
+    return dict(snr=dict(snr), drift={f: float(d) for f, d, _ in drift})
+
+
+def bench_check(smi) -> dict:
+    """(d) The bench tool at full width (32-layer Mistral-7B, ctx 4096):
+    the fp8 default, whose first32 (positions 2000-2031) must lie between
+    this run's full-width first32 (from position 0) and last32; ``--dtype
+    fp16`` and ``--kv fp8``, neither timed at full width before; and
+    ``--prefill 2048`` with its share of the bf16 tensor-core peak. Each
+    run's captured steps fall in the dropped first runs (two a window),
+    none in a timed run."""
+    res = {}
+    first, last = FIRST32["fp8 mistral7b"], LAST32["fp8 mistral7b"]
+    for what, args in (("fp8", []), ("fp16", ["--dtype", "fp16"]),
+                       ("fp8 --kv fp8", ["--kv", "fp8"]), ("fp8 --prefill 2048",
+                                                          ["--prefill", "2048"])):
+        out, err, secs = tool_run("bench", *args)
+        j = json_line(out, f"tools.bench {what}")
+        if "--prefill" in args:
+            if not (j["metric"] == "prefill_tok_s_mistral7b_fp8" and "pct_mxu_peak" in j):
+                fail(f"tools.bench {what}: {j}")
+            line = [l for l in err.splitlines() if l.startswith("# prefill T=2048")]
+            log(f"# tools.bench {what} in {secs:.1f} s: {json.dumps(j)}; {line[0][2:]} on {smi}")
+            res[what] = dict(j, seconds=secs)
+            continue
+        caps = re.findall(r"# captured steps at pos0 \d+: (\d+) in the dropped first runs "
+                          r"of (\d+) lengths, (\d+) in timed runs", err)
+        wins = dict(re.findall(r"^# (first32|last32): ([\d.]+) tok/s", err, re.M))
+        keys = {"metric", "value", "unit", "vs_baseline", "spread_pct", "gb_s",
+                "attainable_ceiling_gbps", "pct_of_attainable_ceiling"}
+        if (set(j) != keys or len(caps) != 2 or any(c != ("2", "2", "0") for c in caps)
+                or set(wins) != {"first32", "last32"}):
+            fail(f"tools.bench {what}: {j}, captures {caps}, windows {wins}\n{err[-2000:]}")
+        ms = {k: 1e3 / float(v) for k, v in wins.items()}
+        if what == "fp8" and not first <= ms["first32"] <= last:
+            fail(f"tools.bench fp8: first32 {ms['first32']:.4f} ms/tok (positions 2000-2031) "
+                 f"outside the full-width phase's first32 {first:.4f} (from 0) .. last32 "
+                 f"{last:.4f}")
+        warn = [l for l in err.splitlines() if "WARNING" in l]
+        log(f"# tools.bench {what} in {secs:.1f} s: first32 {ms['first32']:.4f} ms/tok, "
+            f"last32 {ms['last32']:.4f} ms/tok; {json.dumps(j)}"
+            + (f" (full-width phase: first32 {first:.4f}, last32 {last:.4f})"
+               if what == "fp8" else "") + f"{'; ' + warn[0] if warn else ''} on {smi}")
+        res[what] = dict(j, first32_ms=ms["first32"], last32_ms=ms["last32"], seconds=secs)
+    return res
+
+
+def serve_bench_check(path, smi) -> dict:
+    """(e) serve_bench on the 2-layer Mistral-width fp8 container: 16
+    requests of 128 tokens, half of each shared, 32 tokens each, 8 slots,
+    a prefix cache: every request's 32 tokens generated, the JSON keys of
+    ``tools/serve_bench.py`` with both TTFT percentiles."""
+    out, err, secs = tool_run("serve_bench", path, *SERVE_BENCH)
+    j = json_line(out, "tools.serve_bench")
+    m = re.search(r": (\d+) tokens in ([\d.]+)s = ", err)
+    warm = [l for l in err.splitlines() if l.startswith("# prefix cache:")]
+    keys = {"metric", "value", "unit", "ttft_p50_ms", "ttft_p95_ms", "requests", "slots"}
+    if set(j) != keys or not m or int(m.group(1)) != 16 * 32 or not warm:
+        fail(f"tools.serve_bench: {j}\n{err[-2000:]}")
+    log(f"# tools.serve_bench in {secs:.1f} s: {m.group(1)} tokens (16 x 32), "
+        f"{json.dumps(j)}; {warm[0][2:]} on {smi}")
+    return dict(j, seconds=secs)
+
+
+def repo_tools_phase(hf, refs, container_fp8, smi) -> dict:
+    """(a)-(e): the converter, the acceptance gate, the quality tool, the
+    bench tool at full width and serve_bench, each as a user runs it."""
+    t0 = time.perf_counter()
+    out = dict(convert=converted_checks(hf, refs, smi), accept=accept_check(hf, smi),
+               quality=quality_check(smi), bench=bench_check(smi),
+               serve_bench=serve_bench_check(container_fp8, smi))
+    log(f"# repo tools phase {time.perf_counter() - t0:.1f} s: " + json.dumps(out))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -6825,9 +7118,16 @@ def main():
 
     ctmp = tempfile.TemporaryDirectory()
     paths = write_containers(ctmp.name, dev)
+    hf = write_hf_inputs(ctmp.name, dev)
     pool = multiprocessing.get_context("spawn").Pool(1)
     WORKERS.append(pool)
+    # first the converter on the BF16 checkpoint and the CPU side of its
+    # containers (the repo tools phase reads them at the end), then the
+    # containers' CPU sides, each done before its phase needs it
+    conv_refs = {fmt: pool.apply_async(convert_side, (hf["mistral"], hf["out"][fmt], fmt))
+                 for fmt in CONVERTED}
     refs = {key: pool.apply_async(cpu_side, (paths[key],) + key) for key in CONTAINERS}
+    pool.close()
 
     def container(fmt, experts=0, cohere=False):
         key = (fmt, experts, cohere)
@@ -6909,9 +7209,6 @@ def main():
     # one (K10's e4m3 body at one row)
     counts8e4, tok8e4, _ = container("fp8e4")
     counts8e4m, tok8e4m, _ = container("fp8e4", experts=4)
-    pool.close()
-    pool.join()
-    WORKERS.remove(pool)
     log(f"# container phases done at {time.perf_counter() - t_start:.1f} s")
     # the captured step against the eager one across the sink wrap
     graph_wrap_check(dev)
@@ -6932,9 +7229,16 @@ def main():
     # Mistral-7B's first32 above, its prefill on the 2-layer container, sol
     t0 = time.perf_counter()
     profiler_phase(smi, paths[("fp8", 0, False)])
-    ctmp.cleanup()
     log(f"# profiler phase {time.perf_counter() - t0:.1f} s, done at "
         f"{time.perf_counter() - t_start:.1f} s")
+    # the repo's tools on the port: convert (its containers against the CPU
+    # side computed in the worker), accept, quality, bench at full width
+    # (against the full-width phase's first32 and last32), serve_bench
+    repo_tools_phase(hf, conv_refs, paths[("fp8", 0, False)], smi)
+    pool.join()
+    WORKERS.remove(pool)
+    ctmp.cleanup()
+    log(f"# repo tools phase done at {time.perf_counter() - t_start:.1f} s")
     # the paged serving path: K12 in paged mode
     counts_pg = full_width_serving_phase(dev, gbps, smi)["paged"]
     log(f"# full-width serving done at {time.perf_counter() - t_start:.1f} s")

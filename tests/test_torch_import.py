@@ -29,7 +29,13 @@ MODULES = ["calm_tpu_torch", "calm_tpu_torch.config", "calm_tpu_torch.container"
            "calm_tpu_torch.parallel.mesh", "calm_tpu_torch.parallel.sharding",
            "calm_tpu_torch.parallel.pipeline", "calm_tpu_torch.profiler",
            "calm_tpu_torch.ops.cost", "calm_tpu_torch.tools.sol",
-           "calm_tpu_torch.tools.perf", "calm_tpu_torch.native"]
+           "calm_tpu_torch.tools.perf", "calm_tpu_torch.native",
+           "calm_tpu_torch.utils.modelgen", "calm_tpu_torch.utils.oracle",
+           "calm_tpu_torch.tools.convert", "calm_tpu_torch.tools.quality",
+           "calm_tpu_torch.tools.bench", "calm_tpu_torch.tools.serve_bench",
+           "calm_tpu_torch.tools.accept"]
+# the repo's own modules outside the package: its tools keep their own copies
+REPO_ONLY = ("tests", "tools", "bench")
 
 
 def test_import_leaves_jax_out():
@@ -53,6 +59,35 @@ def _py_files():
     for d, _, files in os.walk(PKG):
         out += [os.path.join(d, f) for f in files if f.endswith(".py")]
     return out
+
+
+def test_package_imports_no_repo_module():
+    """Nothing in the package imports ``tests/``, the repo's ``tools/`` or
+    ``bench.py``, and importing every module leaves them out."""
+    hits = []
+    for d, _, files in os.walk(PKG):
+        for f in files:
+            if not f.endswith(".py"):
+                continue
+            path = os.path.join(d, f)
+            for node in ast.walk(ast.parse(open(path).read(), path)):
+                names = []
+                if isinstance(node, ast.Import):
+                    names = [a.name for a in node.names]
+                elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+                    names = [node.module]
+                hits += [f"{path}: {n}" for n in names if n.split(".")[0] in REPO_ONLY]
+    assert not hits, hits
+    code = ("import importlib, sys\n"
+            f"for mod in {MODULES!r}:\n"
+            "    importlib.import_module(mod)\n"
+            f"bad = [m for m in sys.modules if m.split('.')[0] in {REPO_ONLY!r}]\n"
+            "sys.exit(f'imported {bad}' if bad else 0)\n")
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
 
 
 def test_ast_scan_finds_no_jax_import():

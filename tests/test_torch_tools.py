@@ -9,8 +9,9 @@ their sum in an SMEM scalar and start it at step 0 of grid axis 0.
 ``tools/dma_ceiling.py:39-56`` runs a 2-D (layer, tile) grid, where axis
 0 is the layer, so its scalar keeps only layer 0's last tile plus the
 other layers' tiles (every byte is still read, which is what it times);
-the port's kernel computes the whole sum. Both tools exit 1 on a machine
-without a GPU."""
+the port's kernel computes the whole sum. Both tools, and the port's tools
+that run a model unless ``CALM_CPU=1``, exit 1 on a machine without a
+GPU."""
 
 import functools
 import importlib
@@ -121,13 +122,23 @@ def test_error_bound_covers_an_f32_sum(rng):
     assert err <= hs.error_bound(float(np.abs(v).sum()), span)
 
 
-@pytest.mark.parametrize("tool", ["dma_ceiling", "gf4_bound"])
+# the model-running tools with what a user passes them on the card
+TOOL_ARGS = {"perf": ["--synthetic", "tiny"], "bench": ["--model", "tiny"],
+             "serve_bench": ["--synthetic", "tiny"], "accept": ["."]}
+
+
+@pytest.mark.parametrize("tool", ["dma_ceiling", "gf4_bound", "perf", "bench", "quality",
+                                  "serve_bench", "accept"])
 def test_tool_without_gpu_exits_1(tool):
+    """The bandwidth tools and, without ``CALM_CPU=1``, every tool that
+    runs a model."""
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the tool would run")
     env = dict(os.environ)
     env.pop("PYTHONPATH", None)
-    r = subprocess.run([sys.executable, "-m", f"calm_tpu_torch.tools.{tool}"], cwd=ROOT,
+    env.pop("CALM_CPU", None)
+    r = subprocess.run([sys.executable, "-m", f"calm_tpu_torch.tools.{tool}"]
+                       + TOOL_ARGS.get(tool, []), cwd=ROOT,
                        env=env, capture_output=True, text=True, timeout=120)
     assert r.returncode == 1 and "no CUDA GPU" in r.stderr, r.stderr
     assert not r.stdout
