@@ -17,6 +17,10 @@
   stream, as the JAX package's flag of that name (``calm_tpu/engine.py
   :182-233``); on the card both replay the cache's captured step, a chunk
   with one host sync, a host-sampled token with one logits copy;
+- ``generate`` is traced (``ops.cost.span``, only while a profiler
+  records) as ``calm.engine.generate`` over the prompt's ``prefill``
+  (``calm.model.prefill`` inside), each ``chunk``, its ``readback`` and the
+  per-token ``emit``;
 - perplexity with a running mean +- standard error (src/run.c:258-316),
   and chat with vocab-sniffed templates (src/run.c:318-419);
 - fp8 KV is chosen for contexts above 4096 (src/run.c:536-540);
@@ -53,6 +57,7 @@ from calm_tpu_torch.config import ModelConfig
 from calm_tpu_torch.container import TensorFile
 from calm_tpu_torch.device import pick
 from calm_tpu_torch.ops import qmm as _qmm
+from calm_tpu_torch.ops.cost import span
 from calm_tpu_torch.sampler import Sampler, softmax_prob
 from calm_tpu_torch.tokenizer import Tokenizer
 
@@ -212,9 +217,11 @@ class Engine:
     def _chunk(self, token: int, pos: int, n: int, sampling):
         """``n`` tokens from ``token`` at ``pos``, greedy or sampled on the
         device: (ids, per-step logits (n, 1, V) on the device)."""
-        toks, self.cache, logits = M.decode_loop(
-            self.cfg, self.weights, self._token(token), pos, self.cache, n, sampling)
-        return toks[0].tolist(), logits
+        with span("engine.chunk"):
+            toks, self.cache, logits = M.decode_loop(
+                self.cfg, self.weights, self._token(token), pos, self.cache, n, sampling)
+        with span("engine.readback"):
+            return toks[0].tolist(), logits
 
     def generate(self, prompt: str = "", steps: int = 256, *,
                  temperature: float = 1.0, minp: float = 0.1, seed: int = 42,
@@ -227,76 +234,81 @@ class Engine:
         device; ``reference_sampling=True`` samples each token on the host
         with the xorshift64* stream, bit for bit as the JAX package's
         flag."""
-        tok = self.tokenizer
-        cfg = self.cfg
-        sampler = Sampler(cfg.vocab_size, seed, temperature, minp)
-        prompt_tokens = tok.encode(prompt, bos=True)
-        if not prompt_tokens:
-            prompt_tokens = [tok.bos_id if tok.bos_id >= 0 else 0]
+        with span("engine.generate"):
+            tok = self.tokenizer
+            cfg = self.cfg
+            sampler = Sampler(cfg.vocab_size, seed, temperature, minp)
+            prompt_tokens = tok.encode(prompt, bos=True)
+            if not prompt_tokens:
+                prompt_tokens = [tok.bos_id if tok.bos_id >= 0 else 0]
 
-        out = bytearray()
-        ids: list[int] = []
+            out = bytearray()
+            ids: list[int] = []
 
-        def emit(piece: bytes):
-            out.extend(piece)
-            if on_piece:
-                on_piece(piece.decode("utf-8", errors="replace"))
+            def emit(piece: bytes):
+                out.extend(piece)
+                if on_piece:
+                    on_piece(piece.decode("utf-8", errors="replace"))
 
-        if echo and prompt_tokens[0] != tok.bos_id:
-            emit(tok.decode_piece(tok.bos_id, prompt_tokens[0]))
+            if echo and prompt_tokens[0] != tok.bos_id:
+                emit(tok.decode_piece(tok.bos_id, prompt_tokens[0]))
 
-        read_bytes = 0
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        start = time.perf_counter()
+            read_bytes = 0
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            start = time.perf_counter()
 
-        n_prompt = len(prompt_tokens)
-        pos = 0
-        if n_prompt > 1:
-            self.prefill_tokens(prompt_tokens[:-1], pos_offset)
-            read_bytes += (n_prompt - 1) * self.n_bandwidth
-            for p in range(n_prompt - 1):
-                read_bytes += kv_cache_bytes(cfg, self.kv_bits, p + pos_offset)
-                if echo and p + 1 < n_prompt:
-                    emit(tok.decode_piece(prompt_tokens[p], prompt_tokens[p + 1]))
-            pos = n_prompt - 1
+            n_prompt = len(prompt_tokens)
+            pos = 0
+            if n_prompt > 1:
+                with span("engine.prefill"):
+                    self.prefill_tokens(prompt_tokens[:-1], pos_offset)
+                read_bytes += (n_prompt - 1) * self.n_bandwidth
+                for p in range(n_prompt - 1):
+                    read_bytes += kv_cache_bytes(cfg, self.kv_bits, p + pos_offset)
+                    if echo and p + 1 < n_prompt:
+                        emit(tok.decode_piece(prompt_tokens[p], prompt_tokens[p + 1]))
+                pos = n_prompt - 1
 
-        token = prompt_tokens[-1]
-        logits_last = None
-        stops = (tok.bos_id, tok.eos_id, tok.eot_id)
-        greedy = temperature == 0.0 or minp >= 1.0
-        host = reference_sampling and not greedy
-        sampling = None if greedy or host else self._sampling(seed, temperature, minp)
+            token = prompt_tokens[-1]
+            logits_last = None
+            stops = (tok.bos_id, tok.eos_id, tok.eot_id)
+            greedy = temperature == 0.0 or minp >= 1.0
+            host = reference_sampling and not greedy
+            sampling = None if greedy or host else self._sampling(seed, temperature, minp)
 
-        stopped = False
-        while not stopped and (pos < steps or steps < 0):
-            if host:
-                logits_d = None
-                logits_last = self.step(token, pos + pos_offset)
-                chunk = [sampler.sample(logits_last)]
-            else:
-                n = self.CHUNK if steps < 0 else max(1, min(self.CHUNK, steps - pos))
-                chunk, logits_d = self._chunk(token, pos + pos_offset, n, sampling)
-            for i, nxt in enumerate(chunk):
-                read_bytes += self.n_bandwidth
-                read_bytes += kv_cache_bytes(cfg, self.kv_bits, pos + pos_offset)
-                pos += 1
-                ids.append(int(nxt))
-                last_step = i
-                if nxt in stops:
-                    stopped = True
-                    break
-                emit(tok.decode_piece(token, nxt))
-                token = nxt
-            if logits_d is not None:
-                # fingerprint at the exact position decoded last
-                logits_last = logits_d[last_step, 0].float().cpu().numpy()
+            stopped = False
+            while not stopped and (pos < steps or steps < 0):
+                if host:
+                    logits_d = None
+                    with span("engine.chunk"):
+                        logits_last = self.step(token, pos + pos_offset)
+                        chunk = [sampler.sample(logits_last)]
+                else:
+                    n = self.CHUNK if steps < 0 else max(1, min(self.CHUNK, steps - pos))
+                    chunk, logits_d = self._chunk(token, pos + pos_offset, n, sampling)
+                with span("engine.emit"):
+                    for i, nxt in enumerate(chunk):
+                        read_bytes += self.n_bandwidth
+                        read_bytes += kv_cache_bytes(cfg, self.kv_bits, pos + pos_offset)
+                        pos += 1
+                        ids.append(int(nxt))
+                        last_step = i
+                        if nxt in stops:
+                            stopped = True
+                            break
+                        emit(tok.decode_piece(token, nxt))
+                        token = nxt
+                if logits_d is not None:
+                    # fingerprint at the exact position decoded last
+                    with span("engine.readback"):
+                        logits_last = logits_d[last_step, 0].float().cpu().numpy()
 
-        seconds = time.perf_counter() - start
-        h = M.logits_hash(logits_last) if logits_last is not None else 0
-        return GenStats(tokens=pos, seconds=seconds, read_bytes=read_bytes,
-                        logits_hash=h, text=out.decode("utf-8", errors="replace"),
-                        ids=ids)
+            seconds = time.perf_counter() - start
+            h = M.logits_hash(logits_last) if logits_last is not None else 0
+            return GenStats(tokens=pos, seconds=seconds, read_bytes=read_bytes,
+                            logits_hash=h, text=out.decode("utf-8", errors="replace"),
+                            ids=ids)
 
     def perplexity(self, text: str, steps: int = 0,
                    progress: Callable[[str], None] | None = None):

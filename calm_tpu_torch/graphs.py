@@ -25,9 +25,10 @@ replays.
   wrote (each layer's kv_pos row, and the sinks under ``rolling``, whose
   rotation is not idempotent) are restored from a snapshot, so the cache
   is bit-identical afterwards.
-- Launch counts: the wrappers count launches in Python, which a replay
-  never runs. The counts a capture added are taken back and added again
-  on every replay; :attr:`StepGraph.replays` counts replays.
+- Counters (``ops.cost``): ``graph.captures`` and ``graph.capture_s``
+  (warm-up included) a capture, ``graph.replays`` a replay. The kernel
+  wrappers count launches in Python, so their counters hold a capture's
+  warm-up and its captured body, and no replay.
 
 A :class:`VerifyGraph` captures a static-shape (B, T) forward that
 returns every row's logits: the speculative verify (``model.verify_once``).
@@ -49,42 +50,14 @@ import time
 
 import torch
 
+from calm_tpu_torch.ops.cost import count, span
 from calm_tpu_torch.sampler import device_sample
-
-
-def counters() -> list[tuple[object, str]]:
-    """Every launch count of the kernel wrappers: (wrapper, attribute) for
-    each int attribute named ``*launches`` of a function in the ops
-    modules, each once."""
-    from calm_tpu_torch.ops import (hopper_attn, hopper_collectives, hopper_qmm,
-                                    hopper_stream)
-    found = {}
-    for mod in (hopper_attn, hopper_collectives, hopper_qmm, hopper_stream):
-        for f in vars(mod).values():
-            for a, v in getattr(f, "__dict__", {}).items():
-                if a.endswith("launches") and isinstance(v, int):
-                    found[(id(f), a)] = (f, a)
-    return list(found.values())
-
-
-def uncounted(fn):
-    """``fn()`` with the launches it counted taken back off the counters
-    (a capture launches nothing): (its result, [(wrapper, attribute,
-    launches)] of each count it moved)."""
-    before = [(f, a, getattr(f, a)) for f, a in counters()]
-    out = fn()
-    moved = [(f, a, getattr(f, a) - n) for f, a, n in before if getattr(f, a) != n]
-    for f, a, n in before:
-        setattr(f, a, n)
-    return out, moved
 
 
 def capture(body, device):
     """Warm ``body`` up eagerly on a side stream (it builds the kernels, sets
     their attributes and sizes their buffers, which may not happen under
-    capture), then capture it: (graph, its output, [(wrapper, attribute,
-    launches)] a replay makes, seconds)."""
-    t0 = time.perf_counter()
+    capture), then capture it: (graph, its output)."""
     side = torch.cuda.Stream(device=device)
     side.wait_stream(torch.cuda.current_stream(device))
     with torch.cuda.stream(side):
@@ -92,14 +65,21 @@ def capture(body, device):
     torch.cuda.current_stream(device).wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-        out, launches = uncounted(body)
-    return graph, out, launches, t0
+        out = body()
+    return graph, out
 
 
-def _count(launches) -> None:
-    """Add a replay's launches to the wrappers' counters."""
-    for f, a, n in launches:
-        setattr(f, a, getattr(f, a) + n)
+def _captured(g, restore, device) -> None:
+    """Capture ``g``'s body, put back what its warm-up changed
+    (``restore()``), and count the capture and its seconds."""
+    t0 = time.perf_counter()
+    with span("graph.capture"):
+        g.graph, g.logits = capture(g.body, device)
+        restore()
+        torch.cuda.synchronize(device)
+    g.capture_s = time.perf_counter() - t0
+    count("graph.captures")
+    count("graph.capture_s", g.capture_s)
 
 
 def _fill(dst: torch.Tensor, src) -> None:
@@ -122,8 +102,6 @@ class StepGraph:
     returns the function that puts them back. ``graph`` is None until
     :meth:`capture`."""
 
-    replays = 0  # replays of every graph since the count was last set
-
     def __init__(self, step, snapshot, B: int, vocab: int, device,
                  sampled: bool = False, pt: torch.Tensor | None = None, keep=()):
         self.step, self.snapshot = step, snapshot
@@ -139,7 +117,6 @@ class StepGraph:
             self.minp = torch.ones(B, dtype=torch.float32, device=device)
         self.logits = None  # the captured step's output, (B, V) f32
         self.graph = None
-        self.launches: list = []  # (wrapper, counter, launches a replay makes)
         self.capture_s = 0.0
 
     def body(self) -> torch.Tensor:
@@ -166,24 +143,23 @@ class StepGraph:
     def capture(self) -> None:
         """Warm up eagerly, capture the body, then put back the cache rows
         and the inputs the warm-up changed."""
-        restore = self.snapshot(self.pos, self.pt)
+        restore_rows = self.snapshot(self.pos, self.pt)
         token, pos = self.token.clone(), self.pos.clone()
-        self.graph, self.logits, self.launches, t0 = capture(self.body, self.token.device)
-        restore()
-        self.token.copy_(token)
-        self.pos.copy_(pos)
-        torch.cuda.synchronize(self.token.device)
-        self.capture_s = time.perf_counter() - t0
+
+        def restore():
+            restore_rows()
+            self.token.copy_(token)
+            self.pos.copy_(pos)
+        _captured(self, restore, self.token.device)
 
     def replay(self, generator: torch.Generator | None = None) -> None:
-        """One step: draw the noise from ``generator`` when sampled, replay,
-        and count the launches the replay made."""
+        """One step: draw the noise from ``generator`` when sampled, then
+        replay."""
         if self.sampled:
             torch.rand(self.noise.shape, generator=generator, device=self.noise.device,
                        out=self.noise)
         self.graph.replay()
-        _count(self.launches)
-        StepGraph.replays += 1
+        count("graph.replays")
 
 
 class VerifyGraph:
@@ -196,8 +172,6 @@ class VerifyGraph:
     saves the rows it writes and returns the function that puts them
     back."""
 
-    replays = 0  # replays of every verify graph since the count was last set
-
     def __init__(self, forward, snapshot, B: int, T: int, device, tree: bool = False,
                  keep=()):
         self.forward, self.snapshot = forward, snapshot
@@ -208,7 +182,6 @@ class VerifyGraph:
         self.tree = torch.zeros((T, T), dtype=torch.bool, device=device) if tree else None
         self.logits = None  # the captured forward's output, (B, T, V) f32
         self.graph = None
-        self.launches: list = []
         self.capture_s = 0.0
 
     def body(self) -> torch.Tensor:
@@ -228,14 +201,9 @@ class VerifyGraph:
     def capture(self) -> None:
         """Warm up eagerly, capture the forward, then put back the cache
         rows the warm-up wrote."""
-        restore = self.snapshot(self.pos0)
-        self.graph, self.logits, self.launches, t0 = capture(self.body, self.tokens.device)
-        restore()
-        torch.cuda.synchronize(self.tokens.device)
-        self.capture_s = time.perf_counter() - t0
+        _captured(self, self.snapshot(self.pos0), self.tokens.device)
 
     def replay(self) -> None:
-        """One forward, and the launches it made counted."""
+        """One forward."""
         self.graph.replay()
-        _count(self.launches)
-        VerifyGraph.replays += 1
+        count("graph.replays")

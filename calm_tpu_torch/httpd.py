@@ -7,7 +7,7 @@
 
 Endpoints:
   GET  /v1/health    -> {"status": "ok", "model": ...}
-  GET  /v1/stats     -> scheduler, prefix-cache and page-pool counters
+  GET  /v1/stats     -> scheduler, prefix-cache, page-pool and ops.cost counters
   POST /v1/generate  -> {"prompt", "max_tokens"?, "temperature"?, "min_p"?,
                          "seed"?, "timeout_s"?, "stream"?}
      stream=false (default): one JSON body when done (504 past the deadline)
@@ -26,7 +26,11 @@ rounds, emitted and acceptance, as ``calm_tpu.httpd``'s. ``--dp N`` with
 ``--page-rows`` spreads the slots over the first N devices, one paged
 decoder each (``serve.PagedGroup``; the GPUs in order, or N times the CPU
 under ``CALM_CPU=1``), and ``/v1/stats`` adds up the decoders' prefix
-caches (``calm_tpu/httpd.py:129-140``, ``:273-301``).
+caches (``calm_tpu/httpd.py:129-140``, ``:273-301``). Its ``counters``
+block is the process's ``ops.cost`` counters, into which every decoder of
+a group counts: requests submitted and admitted, their summed queue wait
+(``serve.queue_wait_s``), prompt and prefix-hit tokens, ticks and
+slot-ticks (occupancy), graph captures, capture seconds and replays.
 """
 
 from __future__ import annotations
@@ -42,6 +46,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import torch
 
+from calm_tpu_torch.ops import cost
 from calm_tpu_torch.serve import QueueFull, Server
 
 
@@ -164,6 +169,7 @@ def make_handler(sched: _Scheduler):
                         "emitted": srv.spec_emitted,
                         "acceptance": srv.spec_accepted / max(srv.spec_emitted, 1),
                     }),
+                    "counters": cost.counters(),
                 })
             else:
                 self._json(404, {"error": "not found"})

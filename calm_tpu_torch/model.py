@@ -103,6 +103,7 @@ from calm_tpu_torch.ops.hopper_qmm import (MAX_MV_ROWS, MAX_ROWS, act, gf4_ffn,
                                            qmm_prefill, qmm_prefill_w2,
                                            qx_offn_qkv, qx_offn_supported)
 from calm_tpu_torch.ops import qmm as _qmm
+from calm_tpu_torch.ops.cost import count, span
 from calm_tpu_torch.ops.norms import rmsnorm
 from calm_tpu_torch.ops.qmm import STORAGE, QTensor, dense_matmul, embed_lookup
 from calm_tpu_torch.ops.rope import apply_rope, rope_tables
@@ -616,7 +617,9 @@ def _moe_grouped(cfg: ModelConfig, lw: LayerWeights, layer: int, xb2, wts, idx,
     k = idx.shape[1]
     flat = idx.reshape(-1)
     order = torch.sort(flat, stable=True).indices
-    sizes = torch.bincount(flat, minlength=cfg.n_experts).tolist()
+    with span("model.expert_sizes"):
+        sizes = torch.bincount(flat, minlength=cfg.n_experts).tolist()
+    count("model.host_syncs")
     off, e_local = _local_experts(lw, plan, mesh)
     w_flat = wts.reshape(-1)
     out = torch.zeros_like(xb2)
@@ -1217,7 +1220,8 @@ def prefill(cfg: ModelConfig, w: Weights, tokens: torch.Tensor, pos0,
     program on its local weights and cache, as :func:`decode_step`."""
     if plan.sp is not None:
         raise ValueError("an sp plan prefills through prefill_sp")
-    return _prefill(cfg, w, tokens, pos0, cache, logits_mode, batch_off, plan, mesh)
+    with span("model.prefill"):
+        return _prefill(cfg, w, tokens, pos0, cache, logits_mode, batch_off, plan, mesh)
 
 
 def _prefill(cfg, w, tokens, pos0, cache, logits_mode, batch_off, plan, mesh,
@@ -1308,7 +1312,8 @@ def prefill_sp(cfg: ModelConfig, w: Weights, tokens: torch.Tensor, cache: KVCach
                          f"{cache.k.shape[3]} rows, {cfg.seq_len} in all")
     start = mesh.axis_index(plan.sp) * T
     kv_len = torch.full((B,), cfg.seq_len, dtype=torch.int32, device=tokens.device)
-    return _prefill(cfg, w, tokens, [start] * B, cache, "all", 0, plan, mesh, kv_len)
+    with span("model.prefill"):
+        return _prefill(cfg, w, tokens, [start] * B, cache, "all", 0, plan, mesh, kv_len)
 
 
 def _verify_snapshot(cache: KVCache, T: int):

@@ -1,5 +1,6 @@
-"""The bytes and operations of each kernel launch while a profiler trace
-is open.
+"""The port's tracing: the bytes and operations of each kernel launch
+while a profiler trace is open, spans at the layer boundaries, and
+counters.
 
 torch.profiler's kernel events carry neither the bytes a kernel moves nor
 the operations it does; XLA's carry both (``bytes_accessed``, ``flops``),
@@ -19,6 +20,19 @@ a sweep) is recorded as a function of tensors the step made anyway, and
 read once the trace has closed: recording makes no host sync and launches
 nothing. Outside a trace a wrapper pays one check. Inside a captured graph's
 replay no wrapper runs, so a trace of a replayed step records nothing.
+
+:func:`span` marks a layer boundary (the server's tick and its phases, the
+engine's generate, the model's prefill, a graph capture) with a
+``record_function`` range ``calm.<name>`` while a torch profiler records
+(or this module's recording is open): the profiler stamps both ends on
+the timeline of its device events, and a span's parent is the span it
+nests in. Otherwise a span costs one check. The Chrome export drops a
+range's argument string, so per-request spans carry no request id: the
+n-th of a name inside one ``calm.serve.admit`` is its n-th admission's.
+
+:func:`count` adds to one process-wide dict of counters, always on (the
+server's admissions, queue wait and prefix hits, graph captures and
+replays, the model's host syncs); :func:`counters` returns a copy.
 """
 
 from __future__ import annotations
@@ -28,8 +42,12 @@ import functools
 
 from torch.profiler import record_function
 
+from torch._C._autograd import _profiler_enabled
+
 _LOG: list | None = None  # [kernel, stage, bytes, ops] a launch, in launch order
 _STAGES: list[str] = []   # the wrappers running, innermost last
+_COUNTS: dict[str, float] = {}
+_OFF = contextlib.nullcontext()
 
 
 def active() -> bool:
@@ -89,3 +107,21 @@ def recording():
         yield out
     finally:
         out.extend(stop())
+
+
+def span(name: str):
+    """A ``with`` block that a recording profiler shows as ``calm.<name>``;
+    when none records, nothing."""
+    if _LOG is None and not _profiler_enabled():
+        return _OFF
+    return record_function("calm." + name)
+
+
+def count(name: str, n=1) -> None:
+    """Add ``n`` to the counter ``name``."""
+    _COUNTS[name] = _COUNTS.get(name, 0) + n
+
+
+def counters() -> dict[str, float]:
+    """A copy of every counter."""
+    return dict(_COUNTS)

@@ -47,6 +47,7 @@ import torch
 
 from calm_tpu_torch import model as M
 from calm_tpu_torch.config import ModelConfig
+from calm_tpu_torch.ops.cost import span
 
 
 def create_pool(cfg: ModelConfig, n_pages: int, page_rows: int,
@@ -341,7 +342,10 @@ class PagedDecoder:
         page. Raises RuntimeError when an active slot needs a page and the
         pool is dry (call ensure_capacity first for a gentler policy)."""
         logits = self._step()[0]
-        return logits.float().cpu().numpy() if host else logits.clone()
+        if not host:
+            return logits.clone()
+        with span("serve.readback"):
+            return logits.float().cpu().numpy()
 
     def set_token(self, b: int, tok: int):
         self.slots[b].token = tok
@@ -356,7 +360,9 @@ class PagedDecoder:
         """One decode step and min-p sampling on the device: only the (B,)
         ids reach the host. ``temps`` and ``minps`` (B,): tensors on this
         decoder's device, or host numbers."""
-        return self._step(self._sampling(generator, temps, minps))[1].tolist()
+        ids = self._step(self._sampling(generator, temps, minps))[1]
+        with span("serve.readback"):
+            return ids.tolist()
 
 
 class PagedGroup:
@@ -416,7 +422,8 @@ class PagedGroup:
         """One step of every decoder: the own slots' logits (B, V), f32 on
         the host."""
         outs = [d._step()[0] for d in self.decs]  # every decoder dispatched first
-        return np.concatenate([o.float().cpu().numpy() for o in outs], axis=0)
+        with span("serve.readback"):
+            return np.concatenate([o.float().cpu().numpy() for o in outs], axis=0)
 
     def step_sampled(self, generator: torch.Generator, temps, minps) -> list[int]:
         """One step and a min-p draw on each decoder's device, each decoder
@@ -430,4 +437,5 @@ class PagedGroup:
             gen = torch.Generator(device=d.device)
             gen.manual_seed(seed)
             outs.append(d._step(d._sampling(gen, temps[sl], minps[sl]))[1])
-        return [t for o in outs for t in o.tolist()]
+        with span("serve.readback"):
+            return [t for o in outs for t in o.tolist()]

@@ -28,6 +28,13 @@
   verify, replayed), acceptance per slot and an adaptive depth g in [1,
   gamma]; plain ticks step the draft's cache beside the target's. Dense
   only, as JAX's.
+- a tick is traced (``ops.cost.span``, only while a profiler records) as
+  ``calm.serve.tick`` over ``sweep``, ``admit`` (each admission's
+  ``tokenize``, ``prefix_copy``, ``calm.model.prefill`` and
+  ``prefix_save``), ``step``, ``readback`` and ``sample``, and counted
+  (``ops.cost.counters``, always): requests submitted and admitted, their
+  queue wait (``Request.admitted_at`` − ``submitted_at``), prompt and
+  prefix-hit tokens, ticks and the slots active in them.
 
 Prompts are prefilled at their exact length: the JAX server pads them to
 buckets so that XLA compiles once per bucket, which eager PyTorch does not
@@ -86,6 +93,7 @@ import torch.distributed as dist
 
 from calm_tpu_torch import model as M
 from calm_tpu_torch.engine import Engine
+from calm_tpu_torch.ops.cost import count, span
 from calm_tpu_torch.paged import PagedDecoder, PagedGroup
 from calm_tpu_torch.parallel.mesh import host_layout
 from calm_tpu_torch.sampler import Sampler, device_sample
@@ -120,6 +128,7 @@ class Request:
     truncated_prompt: int = 0  # prompt tokens dropped to fit the window
     out_of_pages: bool = False  # paged: finished early under pool pressure
     submitted_at: float = 0.0
+    admitted_at: float = 0.0  # taken off the queue into a slot (perf_counter)
     first_token_at: float = 0.0
     finished_at: float = 0.0
     # set once, at the terminal state; waiters block here
@@ -359,6 +368,7 @@ class Server:
         req.submitted_at = time.perf_counter()
         self._next_rid += 1
         self.pending.append(req)
+        count("serve.submitted")
         return req
 
     def cancel(self, req: Request):
@@ -565,7 +575,9 @@ class Server:
             if slot.active or not self.pending:
                 continue
             req = self.pending.popleft()
-            toks = eng.tokenizer.encode(req.prompt, bos=True)
+            req.admitted_at = time.perf_counter()
+            with span("serve.tokenize"):
+                toks = eng.tokenizer.encode(req.prompt, bos=True)
             if not toks:
                 toks = [max(eng.tokenizer.bos_id, 0)]
             if len(toks) > S - 1:
@@ -575,29 +587,31 @@ class Server:
             pre = toks[:-1]
 
             if self._paged is not None:
-                pc = self._slot_prefix_cache(b)
-                hit, pages = pc.match(pre) if pc is not None else (0, ())
-                if not self._paged.admit(b, toks, shared_pages=pages or (),
-                                         hit_rows=hit):
-                    self.pending.appendleft(req)  # pool full: retry later
-                    break
-                req.cached_prefix = min(hit, len(pre))
-                if pc is not None:  # pin the full prompt pages in place
-                    pr = self._paged.page_rows
-                    key = tuple(pre[:len(pre) // pr * pr])
-                    if key and key not in pc._entries:
-                        _, pinned = self._paged.pin_prompt(b, len(key))
-                        if pinned:
-                            pc.put(key, pinned)
+                with span("serve.prefix_copy"):
+                    pc = self._slot_prefix_cache(b)
+                    hit, pages = pc.match(pre) if pc is not None else (0, ())
+                    if not self._paged.admit(b, toks, shared_pages=pages or (),
+                                             hit_rows=hit):
+                        self.pending.appendleft(req)  # pool full: retry later
+                        break
+                    req.cached_prefix = min(hit, len(pre))
+                    if pc is not None:  # pin the full prompt pages in place
+                        pr = self._paged.page_rows
+                        key = tuple(pre[:len(pre) // pr * pr])
+                        if key and key not in pc._entries:
+                            _, pinned = self._paged.pin_prompt(b, len(key))
+                            if pinned:
+                                pc.put(key, pinned)
             elif pre:
                 hit = 0
                 if self.prefix_cache is not None:
-                    hit, kv = self.prefix_cache.match(pre)
-                    if hit:
-                        # the cached rows go in before the suffix prefill,
-                        # which attends them
-                        eng.cache.k[:, b:b + 1, :, :hit] = kv[0]
-                        eng.cache.v[:, b:b + 1, :, :hit] = kv[1]
+                    with span("serve.prefix_copy"):
+                        hit, kv = self.prefix_cache.match(pre)
+                        if hit:
+                            # the cached rows go in before the suffix
+                            # prefill, which attends them
+                            eng.cache.k[:, b:b + 1, :, :hit] = kv[0]
+                            eng.cache.v[:, b:b + 1, :, :hit] = kv[1]
                     slot._save_prefix = pre  # saved after the prefill below
                 req.cached_prefix = hit
                 if pre[hit:]:
@@ -607,6 +621,10 @@ class Server:
                     # prompt into its own slot
                     draft_pre.append((b, pre))
 
+            count("serve.admitted")
+            count("serve.queue_wait_s", req.admitted_at - req.submitted_at)
+            count("serve.prompt_tokens", len(pre))
+            count("serve.prefix_hit_tokens", req.cached_prefix)
             slot.active = True
             slot.req = req
             slot.sampler = Sampler(eng.cfg.vocab_size, req.seed,
@@ -643,13 +661,15 @@ class Server:
                 n = len(pre) // PrefixCache.GRAIN * PrefixCache.GRAIN
                 key = tuple(pre[:n])
                 if n and key not in self.prefix_cache._entries:
-                    self.prefix_cache.put(key, eng.cache.k[:, b:b + 1, :, :n].clone(),
-                                          eng.cache.v[:, b:b + 1, :, :n].clone())
+                    with span("serve.prefix_save"):
+                        self.prefix_cache.put(key, eng.cache.k[:, b:b + 1, :, :n].clone(),
+                                              eng.cache.v[:, b:b + 1, :, :n].clone())
 
     def tick(self):
         """One scheduler tick: sweep, admit, one decode step for all. Under
         a mesh or several hosts every rank calls it in lockstep."""
-        self._tick()
+        with span("serve.tick"):
+            self._tick()
         # stamped after a tick that returned only: a loop that retries a
         # raising tick must look stalled to the watchdog
         self._last_tick_at = time.monotonic()
@@ -662,10 +682,15 @@ class Server:
         return self._sampling_dev
 
     def _tick(self):
-        self._sweep()
-        self._admit()
+        count("serve.ticks")
+        with span("serve.sweep"):
+            self._sweep()
+        with span("serve.admit"):
+            self._admit()
         lo, hi = self._own_lo, self._own_hi
-        active, tokens, pos = self._global_state(any(s.active for _, s in self._own()))
+        live = sum(s.active for _, s in self._own())
+        count("serve.slot_ticks", live)
+        active, tokens, pos = self._global_state(live > 0)
         if not active:
             return
         eng = self.engine
@@ -686,45 +711,60 @@ class Server:
                 return
             # the own slots' rows: a group returns its own decoders', a
             # single decoder's batch is the own range
-            if self.device_sampling:
-                sampled = (self._paged.step_sampled(self._gen, self._temps[lo:hi],
-                                                    self._minps[lo:hi])
-                           if self._paged_group else
-                           self._paged.step_sampled(self._gen, *self._sampling_tensors()))
-            else:
-                logits = self._paged.step()
+            # the decoders read their results back inside (serve.readback)
+            with span("serve.step"):
+                if self.device_sampling:
+                    sampled = (self._paged.step_sampled(self._gen, self._temps[lo:hi],
+                                                        self._minps[lo:hi])
+                               if self._paged_group else
+                               self._paged.step_sampled(self._gen,
+                                                        *self._sampling_tensors()))
+                else:
+                    logits = self._paged.step()
         elif self._sharded:
             # eager: the step's collectives go through torch.distributed;
             # its logits are gathered to every rank
-            out, _ = self._decode_fn(eng.weights, torch.as_tensor(tokens),
-                                     torch.as_tensor(pos), eng.cache)
-            if self.device_sampling:
-                sampled = device_sample(out, self._gen, *self._sampling_tensors()
-                                        ).tolist()[lo:hi]
-            else:
-                logits = out.float().cpu().numpy()[lo:hi]
+            with span("serve.step"):
+                out, _ = self._decode_fn(eng.weights, torch.as_tensor(tokens),
+                                         torch.as_tensor(pos), eng.cache)
+                if self.device_sampling:
+                    out = device_sample(out, self._gen, *self._sampling_tensors())
+            with span("serve.readback"):
+                if self.device_sampling:
+                    sampled = out.tolist()[lo:hi]
+                else:
+                    logits = out.float().cpu().numpy()[lo:hi]
         elif self._draft is not None and self._spec_ready():
             self._tick_speculative()
             return
         else:
             rolling = bool(np.any(self._pos + 1 >= eng.cfg.seq_len))
-            out, nxt = M.decode_once(
-                eng.cfg, eng.weights, self._tokens, self._pos, eng.cache, rolling,
-                sampling=((self._gen,) + self._sampling_tensors()
-                          if self.device_sampling else None))
-            if self._draft is not None:
-                # the draft's cache steps beside the target's through plain
-                # ticks (a sampled request or the window's edge stops the
-                # rounds, not the draft); the rolling mechanics follow pos,
-                # so both caches stay consistent
-                d = self._draft
-                M.decode_once(d.cfg, d.weights, self._tokens, self._pos, d.cache, rolling)
-            if self.device_sampling:
-                sampled = nxt.tolist()
-            else:
-                logits = out.float().cpu().numpy()
+            with span("serve.step"):
+                out, nxt = M.decode_once(
+                    eng.cfg, eng.weights, self._tokens, self._pos, eng.cache, rolling,
+                    sampling=((self._gen,) + self._sampling_tensors()
+                              if self.device_sampling else None))
+                if self._draft is not None:
+                    # the draft's cache steps beside the target's through
+                    # plain ticks (a sampled request or the window's edge
+                    # stops the rounds, not the draft); the rolling
+                    # mechanics follow pos, so both caches stay consistent
+                    d = self._draft
+                    M.decode_once(d.cfg, d.weights, self._tokens, self._pos, d.cache,
+                                  rolling)
+            with span("serve.readback"):
+                if self.device_sampling:
+                    sampled = nxt.tolist()
+                else:
+                    logits = out.float().cpu().numpy()
+        with span("serve.sample"):
+            self._emit(sampled, logits)
 
-        tok = eng.tokenizer
+    def _emit(self, sampled, logits):
+        """Each own active slot's next token (``sampled``, or drawn from its
+        row of ``logits`` on the host), its text piece, and its end."""
+        lo = self._own_lo
+        tok = self.engine.tokenizer
         now = time.perf_counter()
         for b, slot in self._own():
             if not slot.active:
@@ -782,10 +822,7 @@ class Server:
         ``dynamic_update_slice`` clamps its write (its rows and logits are
         never read). Cache rows past a slot's stop are masked and written
         again later."""
-        from calm_tpu_torch.speculative import _draw, _minp_probs
-
         eng, draft, g = self.engine, self._draft, self._gamma_now
-        tok = eng.tokenizer
         S = eng.cfg.seq_len
         pos_before = self._pos.copy()
         tokens = M.upload(self._tokens, draft.device, torch.int64)
@@ -793,20 +830,43 @@ class Server:
         # 1) the draft proposes g tokens a slot (replays of its step):
         #    argmaxes, or per-slot min-p draws (parked and greedy slots have
         #    temperature 0: the argmax) with each step's logits kept for q
-        d_toks, draft.cache, d_logits = M.decode_loop(
-            draft.cfg, draft.weights, tokens, self._pos.tolist(), draft.cache, g,
-            ((self._spec_gen,) + self._sampling_tensors()) if sampled_round else None,
-            rolling=False)
-        d_logits = d_logits.float().cpu().numpy() if sampled_round else None  # (g, B, V)
-        proposal = d_toks.cpu().numpy()                                     # (B, g)
+        with span("serve.step"):
+            d_toks, draft.cache, d_logits = M.decode_loop(
+                draft.cfg, draft.weights, tokens, self._pos.tolist(), draft.cache, g,
+                ((self._spec_gen,) + self._sampling_tensors()) if sampled_round else None,
+                rolling=False)
+        with span("serve.readback"):
+            d_logits = d_logits.float().cpu().numpy() if sampled_round else None  # (g, B, V)
+            proposal = d_toks.cpu().numpy()                                     # (B, g)
         # 2) the target scores every slot's chain in one forward: row i
         #    judges proposal[i]; row g is the bonus distribution
         verify = np.concatenate([self._tokens[:, None], proposal], axis=1)
         starts = np.minimum(self._pos, S - (g + 1)).tolist()
-        t_np = M.verify_once(eng.cfg, eng.weights, verify, starts,
-                             eng.cache).float().cpu().numpy()              # (B, g+1, V)
-        t_args = t_np.argmax(-1)
+        with span("serve.step"):
+            t_dev = M.verify_once(eng.cfg, eng.weights, verify, starts, eng.cache)
+        with span("serve.readback"):
+            t_np = t_dev.float().cpu().numpy()                              # (B, g+1, V)
         # 3) acceptance per slot
+        with span("serve.sample"):
+            full_accept = self._accept(proposal, t_np, d_logits, g)
+        # 4) the draft rows the loop never wrote: a fully accepting slot's
+        #    proposal[-1] row at p0+g would stay a hole; the other slots
+        #    write their current token at its own position again, which the
+        #    next round writes the same
+        if full_accept.any():
+            bf_tok = np.where(full_accept, proposal[:, -1], self._tokens)
+            bf_pos = np.where(full_accept, pos_before + g, self._pos)
+            with span("serve.step"):
+                M.decode_once(draft.cfg, draft.weights, bf_tok.tolist(), bf_pos.tolist(),
+                              draft.cache, False)
+
+    def _accept(self, proposal, t_np, d_logits, g: int) -> np.ndarray:
+        """A round's acceptance per slot: each slot's tokens emitted, the
+        draft's depth adapted; returns which slots accepted all g."""
+        from calm_tpu_torch.speculative import _draw, _minp_probs
+
+        tok = self.engine.tokenizer
+        t_args = t_np.argmax(-1)
         now = time.perf_counter()
         self.spec_rounds += 1
         round_match = round_seen = 0
@@ -867,18 +927,10 @@ class Server:
                 slot.token = nxt
                 self._tokens[b] = nxt
                 self._pos[b] = slot.pos
-        # 4) the draft rows the loop never wrote: a fully accepting slot's
-        #    proposal[-1] row at p0+g would stay a hole; the other slots
-        #    write their current token at its own position again, which the
-        #    next round writes the same
-        if full_accept.any():
-            bf_tok = np.where(full_accept, proposal[:, -1], self._tokens)
-            bf_pos = np.where(full_accept, pos_before + g, self._pos)
-            M.decode_once(draft.cfg, draft.weights, bf_tok.tolist(), bf_pos.tolist(),
-                          draft.cache, False)
         # the draft's depth follows the round's acceptance, within [1, gamma]
         rate = round_match / max(round_seen, 1)
         if rate >= 0.8:
             self._gamma_now = min(self.gamma, self._gamma_now + 1)
         elif rate < 0.4:
             self._gamma_now = max(1, self._gamma_now - 1)
+        return full_accept

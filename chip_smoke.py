@@ -2975,9 +2975,65 @@ def counters():
     out["prefill_attention_split"] = (ha.prefill_attention, "split_launches")
     out["tree_attention"] = (getattr(ha, "tree_attention", None), "launches")
     from calm_tpu_torch.graphs import StepGraph, VerifyGraph
-    out["graph_replays"] = (StepGraph, "replays")  # replays of captured steps
-    out["verify_replays"] = (VerifyGraph, "replays")  # replays of captured verifies
+    count_replays()
+    if hasattr(StepGraph, "replays"):  # an older tree counts its replays itself
+        out["graph_replays"] = (StepGraph, "replays")
+        out["verify_replays"] = (VerifyGraph, "replays")
+    else:
+        out["graph_replays"] = (REPLAYS, "step")  # replays of captured steps
+        out["verify_replays"] = (REPLAYS, "verify")  # replays of captured verifies
     return {k: (f, a) for k, (f, a) in out.items() if hasattr(f, a)}
+
+
+class _Replays:
+    step = 0
+    verify = 0
+
+
+REPLAYS = _Replays()  # the replays count_replays() has counted
+
+
+def count_replays():
+    """Count a replay's launches on the kernel wrappers' counters, as the
+    eager step counts them, and the replays in ``REPLAYS``: the package's
+    wrappers count in Python, which a replay does not run, and its graphs
+    count a replay only in ``ops.cost``'s ``graph.replays``. A capture runs
+    its body twice (the eager warm-up, then the capture), so half of what
+    a capture counted is taken back and added again on each replay. Once a
+    process; an older tree whose graphs count their replays themselves
+    (``StepGraph.replays``) is left as it is."""
+    from calm_tpu_torch.graphs import StepGraph, VerifyGraph
+    if hasattr(StepGraph, "replays") or getattr(StepGraph, "smoke_counted", False):
+        return
+    StepGraph.smoke_counted = True
+
+    def launch_attrs():
+        return list({(id(f), a): (f, a) for f, a in counters().values()
+                     if f is not REPLAYS}.values())
+
+    def counting(cls, kind):
+        real_capture, real_replay = cls.capture, cls.replay
+
+        def capture(self):
+            attrs = launch_attrs()
+            before = [getattr(f, a) for f, a in attrs]
+            real_capture(self)
+            made = [(f, a, getattr(f, a) - n) for (f, a), n in zip(attrs, before)]
+            if any(n % 2 for _, _, n in made):
+                fail(f"a {kind} capture counted an odd number of launches: "
+                     f"{[(a, n) for _, a, n in made if n % 2]}")
+            self.smoke_launches = [(f, a, n // 2) for f, a, n in made if n]
+            for f, a, n in self.smoke_launches:
+                setattr(f, a, getattr(f, a) - n)
+
+        def replay(self, *args):
+            real_replay(self, *args)
+            for f, a, n in self.smoke_launches:
+                setattr(f, a, getattr(f, a) + n)
+            setattr(REPLAYS, kind, getattr(REPLAYS, kind) + 1)
+        cls.capture, cls.replay = capture, replay
+    counting(StepGraph, "step")
+    counting(VerifyGraph, "verify")
 
 
 def drive(run):
@@ -3866,9 +3922,10 @@ def eager_loop(cfg, w, token, pos0, cache, n, sampling=None):
 
 def log_captures():
     """Log every capture of a decode step or a verify with its time, and
-    keep it in CAPTURES."""
+    keep it in CAPTURES (after :func:`count_replays`)."""
     from calm_tpu_torch.graphs import StepGraph, VerifyGraph
 
+    count_replays()
     real, real_v = StepGraph.capture, VerifyGraph.capture
 
     def capture(self):
@@ -3877,7 +3934,7 @@ def log_captures():
         log(f"# graph capture: B={self.token.shape[0]}, "
             f"{'sampled' if self.sampled else 'greedy'}, "
             f"{'paged' if self.pt is not None else 'dense'}, "
-            f"{sum(n for _, _, n in self.launches)} wrapper launches a replay: "
+            f"{replay_launches(self)} wrapper launches a replay: "
             f"{1e3 * self.capture_s:.1f} ms (eager warm-up included)")
 
     def capture_v(self):
@@ -3885,9 +3942,15 @@ def log_captures():
         B, T = self.tokens.shape
         CAPTURES.append(("verify", B, T, self.capture_s))
         log(f"# graph capture: verify B={B} T={T}{' tree' if self.tree is not None else ''}, "
-            f"{sum(n for _, _, n in self.launches)} wrapper launches a replay: "
+            f"{replay_launches(self)} wrapper launches a replay: "
             f"{1e3 * self.capture_s:.1f} ms (eager warm-up included)")
     StepGraph.capture, VerifyGraph.capture = capture, capture_v
+
+
+def replay_launches(g) -> int:
+    """The wrapper launches one replay of ``g`` makes (an older tree keeps
+    them in ``g.launches``)."""
+    return sum(n for _, _, n in getattr(g, "smoke_launches", getattr(g, "launches", ())))
 
 
 def same_bits(what, got, want):

@@ -3,8 +3,9 @@ positions as tensors, a static ``rolling``) against calm_tpu's
 ``decode_step`` and ``paged_decode_step`` through the sink wrap, the body
 a CUDA graph captures run eagerly against ``decode_loop`` and JAX's
 ``decode_scan``, the sampling noise buffer, the warm-up's snapshot and
-restore, and the launch counts of replays. A CUDA graph itself needs the
-card: ``chip_smoke.py`` replays it there against the eager step."""
+restore, and the counters of captures and replays. A CUDA graph itself
+needs the card: ``chip_smoke.py`` replays it there against the eager
+step."""
 
 import functools
 import types
@@ -22,7 +23,7 @@ from calm_tpu_torch import graphs as G
 from calm_tpu_torch import model as TM
 from calm_tpu_torch import paged as TP
 from calm_tpu_torch.container import TensorFile
-from calm_tpu_torch.ops import hopper_attn, hopper_qmm
+from calm_tpu_torch.ops import cost, hopper_qmm
 from calm_tpu_torch.sampler import device_sample
 from tests.modelgen import tiny_config, write_tiny_model
 from tests.test_torch_model import jax_leaves
@@ -247,34 +248,36 @@ def test_snapshot_restore_leaves_the_cache_bit_identical(tmp, paged):
     assert _equal(cache, before)
 
 
-def test_replays_count_the_captured_launches():
-    """The launches counted while a body is captured are taken back, then
-    added once for each replay; each wrapper counter is listed once."""
-    names = [(f.__name__, a) for f, a in G.counters()]
-    assert len(names) == len(set(names))
-    for want in (("qmm_decode", "multirow_launches"), ("decode_attention", "paged_launches"),
-                 ("gf4_offn_qkv", "launches")):
-        assert want in names
-
+def test_replays_count_the_captured_launches(monkeypatch):
+    """A capture counts itself and its seconds, a replay counts itself in
+    ``ops.cost``'s counters; neither moves a kernel wrapper's launch
+    count (a replay runs no wrapper)."""
     def body():
         hopper_qmm.qmm_decode.launches += 3
-        hopper_attn.decode_attention.paged_launches += 2
         return "logits"
 
-    q0, p0 = hopper_qmm.qmm_decode.launches, hopper_attn.decode_attention.paged_launches
-    out, launches = G.uncounted(body)
-    assert out == "logits"
-    assert (hopper_qmm.qmm_decode.launches, hopper_attn.decode_attention.paged_launches) == (q0, p0)
-    g = G.StepGraph(None, None, 1, 8, "cpu")
-    g.launches = launches
-    g.graph = types.SimpleNamespace(replay=lambda: None)
-    r0 = G.StepGraph.replays
+    def fake_capture(b, device):  # a capture runs the body twice: warm-up, capture
+        return types.SimpleNamespace(replay=lambda: None), (b(), b())[1]
+    monkeypatch.setattr(G, "capture", fake_capture)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda device=None: None)
+    g = G.StepGraph(None, lambda pos, pt: lambda: None, 1, 8, "cpu")
+    monkeypatch.setattr(g, "body", body)
+    c0, q0 = cost.counters(), hopper_qmm.qmm_decode.launches
+    g.capture()
+    assert g.logits == "logits" and g.capture_s > 0
+    assert hopper_qmm.qmm_decode.launches == q0 + 6  # warm-up and capture, as issued
     for _ in range(5):
         g.replay()
-    assert hopper_qmm.qmm_decode.launches == q0 + 15
-    assert hopper_attn.decode_attention.paged_launches == p0 + 10
-    assert G.StepGraph.replays == r0 + 5
-    hopper_qmm.qmm_decode.launches, hopper_attn.decode_attention.paged_launches = q0, p0
+    assert hopper_qmm.qmm_decode.launches == q0 + 6
+    c = cost.counters()
+    assert c["graph.captures"] - c0.get("graph.captures", 0) == 1
+    assert c["graph.capture_s"] - c0.get("graph.capture_s", 0) == pytest.approx(g.capture_s)
+    assert c["graph.replays"] - c0.get("graph.replays", 0) == 5
+    v = G.VerifyGraph(None, lambda pos0: lambda: None, 1, 2, "cpu")
+    v.graph = types.SimpleNamespace(replay=lambda: None)
+    v.replay()
+    assert cost.counters()["graph.replays"] - c0.get("graph.replays", 0) == 6
+    hopper_qmm.qmm_decode.launches = q0
 
 
 def test_graphs_live_on_the_cache(tmp):
