@@ -336,16 +336,6 @@ __device__ __forceinline__ float dot4(float4 w, float4 x) {
   return w.x * x.x + w.y * x.y + w.z * x.z + w.w * x.w;
 }
 
-// Two e4m3 bytes (b0 low) -> f16x2 {b0, b1}, by Hopper's conversion: one
-// instruction a pair, as e5m2's byte placement. f16 holds every finite e4m3
-// value exactly (its exponent range covers e4m3's, subnormals included;
-// 0x7f / 0xff, NaN, are not weights).
-__device__ __forceinline__ uint32_t e4m3x2_f16x2(unsigned short v) {
-  uint32_t r;
-  asm("cvt.rn.f16x2.e4m3x2 %0, %1;" : "=r"(r) : "h"(v));
-  return r;
-}
-
 // FMT 0: fp16, 1: fp8 e5m2, 3: fp8 e4m3 (gf4 at one row: gf4_row_kernel). Word: the
 // load that holds PER weights; dec() turns it into Dec, dot() multiplies Dec
 // by the PER values of x held in PER / 4 float4 registers.
@@ -2038,24 +2028,6 @@ cudaError_t launch_wide_n(int N, const CUtensorMap& m0, const CUtensorMap& m1,
   return launch_wide_one<FMT, 64>(m0, m1, mx, a, grid, st);
 }
 
-// a 3-D tensor map (d0 inner, d1, d2; strides of d1 and d2 in bytes) with a
-// box (b0, b1, 1); out-of-bounds elements arrive as zeros
-cudaError_t wt_map(CUtensorMap* m, CUtensorMapDataType dt, const void* p, size_t d0, size_t d1,
-                   size_t d2, size_t st1, size_t st2, int b0, int b1, bool sw128) {
-  const EncodeTiledFn enc = encode_tiled();
-  if (enc == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[3] = {d0, d1, d2};
-  const cuuint64_t strides[2] = {st1, st2};
-  const cuuint32_t box[3] = {(cuuint32_t)b0, (cuuint32_t)b1, 1};
-  const cuuint32_t estr[3] = {1, 1, 1};
-  return enc(m, dt, 3, const_cast<void*>(p), dims, strides, box, estr,
-             CU_TENSOR_MAP_INTERLEAVE_NONE,
-             sw128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
-             ? cudaSuccess
-             : cudaErrorInvalidValue;
-}
-
 size_t row_bytes(int fmt, int n);
 
 // One launch of the TMA wide path: out (B, rows) = x . W^T, x staged at
@@ -2086,15 +2058,16 @@ cudaError_t launch_wide(int fmt, const void* w, const void* w3, const void* s0, 
     return cudaErrorInvalidValue;
   const int planes = eidx ? E : 1, box = fmt == 2 ? 64 : 128;
   const size_t plane = (size_t)rows * rb;
+  const CUtensorMapSwizzle wsw = fmt != 2 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE;
   CUtensorMap m0, m1, mx;
   cudaError_t e = wt_map(&m0, CU_TENSOR_MAP_DATA_TYPE_UINT8, w, rb, rows, planes, rb, plane, box,
-                         WT_ROWS, fmt != 2);
+                         WT_ROWS, wsw);
   if (e == cudaSuccess && dual)
     e = wt_map(&m1, CU_TENSOR_MAP_DATA_TYPE_UINT8, w3, rb, rows, planes, rb, plane, box, WT_ROWS,
-               fmt != 2);
+               wsw);
   if (e == cudaSuccess)
     e = wt_map(&mx, CU_TENSOR_MAP_DATA_TYPE_FLOAT16, xs, wt_npad(n), B, xslots, 2 * wt_npad(n),
-               2 * wt_halfs(n), 64, N, true);
+               2 * wt_halfs(n), 64, N, CU_TENSOR_MAP_SWIZZLE_128B);
   if (e != cudaSuccess) return e;
   WArgs a;
   a.out = static_cast<float*>(out);

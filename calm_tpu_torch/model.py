@@ -53,7 +53,7 @@ rows into the cache, then ``prefill_attention`` reading them back, then wo
 and the FFN per op. On the card every product and the attention go
 through the Hopper kernels (2-64 rows on the multi-row and wide
 matvec paths; past 64 rows gf4 on its matmul kernel, gf4's w2 product
-through ``qmm_prefill_w2``, fp8/fp16/fp8e4 through ``dense_matmul``); on
+through ``qmm_prefill_w2``, fp8/fp16/fp8e4 on ``qmm_mm8``); on
 the CPU the wrappers run their plain
 versions. fp8e4 weights carry a power-of-two scale per tensor (per
 (layer, expert) in MoE stacks) that the kernels read on the device.
@@ -99,7 +99,7 @@ from calm_tpu_torch.ops.hopper_qmm import (MAX_MV_ROWS, MAX_ROWS, act, gf4_ffn,
                                            gf4_offn_supported, mm_supported,
                                            moe_multirow_supported,
                                            prefill_operand, qmm_decode,
-                                           qmm_moe_dense, qmm_moe_ffn,
+                                           qmm_mm8, qmm_moe_dense, qmm_moe_ffn,
                                            qmm_prefill, qmm_prefill_w2,
                                            qx_offn_qkv, qx_offn_supported)
 from calm_tpu_torch.ops import qmm as _qmm
@@ -375,37 +375,42 @@ def _mv(x: torch.Tensor, qt: QTensor, layer=None) -> torch.Tensor:
 def mm_route(rows: int, qt: QTensor, precise: bool = False) -> str:
     """Where :func:`_mm` sends a product of ``rows`` rows: "mv" (<= 64
     rows, the matvec kernels: 2-16 rows the multi-row path, 17-64 the wide
-    one), "mm" (gf4 past 64 rows, the gf4 matmul kernel; not under
-    ``precise``, whose JAX counterpart runs these in XLA at f32,
-    ``calm_tpu/ops/qmm.py:158``) or "dense" (``dense_matmul``). gf4 at
+    one), past 64 rows "mm" (gf4, the gf4 matmul kernel) or "mm8"
+    (fp16/fp8/fp8e4, ``qmm_mm8``), and under ``precise``, whose JAX
+    counterpart runs these in XLA at f32 (``calm_tpu/ops/qmm.py:158``,
+    ``:190-197``), "dense" (``dense_matmul``'s f32 product). gf4 at
     32-64 rows, which K4 could take, keeps the wide path: on an H100 it
     timed faster than K4 on a Mistral-7B w2 (4x) and w1 and on the
     lm-head to 48 rows, slower only on the lm-head at 64 (PERF.md §6)."""
     if rows <= MAX_MV_ROWS:
         return "mv"
-    if not precise and mm_supported(rows, qt.data, qt.fmt):
-        return "mm"
-    return "dense"
+    if precise:
+        return "dense"
+    return "mm" if mm_supported(rows, qt.data, qt.fmt) else "mm8"
 
 
 def _mm(x: torch.Tensor, qt: QTensor, layer=None, w2: bool = False) -> torch.Tensor:
     """x (R, n) @ W[layer]^T for any row count, routed by
     :func:`mm_route`: <= 64 rows to the matvec kernels (JAX runs 17-64 in
-    XLA), gf4 past them to the gf4 matmul kernel (``qmm_prefill_w2`` for
-    the FFN's w2, as ``qmatmul_w2t``), the rest to ``dense_matmul``."""
+    XLA), past them gf4 to the gf4 matmul kernel (``qmm_prefill_w2`` for
+    the FFN's w2, as ``qmatmul_w2t``) and the other formats to
+    ``qmm_mm8``; under ``--precise`` to ``dense_matmul``."""
     route = mm_route(x.shape[0], qt, _qmm._PRECISE)
     if route == "mv":
         return _mv(x, qt, layer)
     if route == "mm":
         return (qmm_prefill_w2 if w2 else qmm_prefill)(x, qt.data, layer)
+    if route == "mm8":
+        return qmm_mm8(x, qt.data, qt.fmt, layer, qt.scale)
     return dense_matmul(x, qt, layer)
 
 
 def _mm_operand(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
-    """x rounded once to bf16 when :func:`_mm` will give it to the gf4
-    matmul kernel, so products that share x (wq/wk/wv, w1/w3) share one
-    cast; else x as it is."""
-    return prefill_operand(x, mm_route(x.shape[0], qt, _qmm._PRECISE) == "mm")
+    """x rounded once to bf16 when :func:`_mm` will give it to a kernel
+    that reads bf16 (the gf4 matmul kernel, ``qmm_mm8``), so products that
+    share x (wq/wk/wv, w1/w3, an expert group's w1/w3) share one cast; else
+    x as it is."""
+    return prefill_operand(x, mm_route(x.shape[0], qt, _qmm._PRECISE) in ("mm", "mm8"))
 
 
 def _embed(embed: QTensor, tokens: torch.Tensor, plan: ShardingPlan = NO_SHARDING,

@@ -39,13 +39,17 @@ NATIVE_SOURCES = ("tensors.cc", "tokenizer.cc", "sampler.cc")
 NATIVE_HEADERS = ("calm_native.h",)
 # the flags of native/Makefile
 CXXFLAGS = ["-O2", "-std=c++17", "-fPIC", "-Wall", "-Wextra", "-fno-exceptions"]
-SOURCES = ("qmm", "attn", "gf4", "moe", "stream", "ring")
+SOURCES = ("mm", "qmm", "attn", "gf4", "moe", "stream", "ring")
 ARCH = "arch=compute_90a,code=sm_90a"
 
 P, I, F, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 
 # C signatures: function name -> argtypes (all return int)
 SIGNATURES = {
+    "mm": {
+        "calm_mm8": [P] * 4 + [I] * 8 + [P],
+        "calm_mm8_smem": [I, I],
+    },
     "qmm": {
         "calm_qmm_decode": [P, P, P, I, I, I, I, P, P, P, P, I, P],
         "calm_qx_offn_qkv": [P] * 16 + [I] * 7 + [F, I, P, P, P, P],

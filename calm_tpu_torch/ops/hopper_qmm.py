@@ -25,6 +25,13 @@
 - :func:`qmm_prefill_w2` replaces ``_gf4_mmt_kernel`` (``:346``): the
   FFN's w2 product at prefill. The TPU kernel reads word-transposed w2 for
   Mosaic; on natural words it is K4's product and launches K4's kernel.
+- :func:`qmm_mm8` takes the fp16/fp8/fp8e4 products past 64 rows, which JAX
+  runs in XLA (``calm_tpu/ops/qmm.py:189-205``: the plane widened to bf16,
+  x cast to bf16, f32 sums, fp8e4 scaled after): the same arithmetic on TMA
+  and ``wgmma`` (``csrc/mm.cu``), the weights read in their stored bytes
+  and widened on chip, x rounded once to bf16 by :func:`prefill_operand`,
+  tiled by :func:`mm8_plan` (token tiles of up to 256 rows, k split in a
+  cluster where that fills the card's waves better).
 - :func:`qx_offn_qkv` replaces ``_qx_offn_qkv_kernel`` (``:942``): one
   layer's wo + residual, ffn-norm, w1/w3 + activation, w2 + residual and
   the next layer's attn-norm + q/k/v (``csrc/qmm.cu``).
@@ -79,7 +86,9 @@ its launches in ``.launches`` (:func:`qmm_decode`, :func:`qmm_decode_gf4`,
 the MoE sweep's those of the wide path, 17-64 rows, in
 ``.wide_launches``). ``MAX_ROWS`` (16) stays the limit of the fused
 epilogues K6-K9, as their JAX domain (``pallas_qmm.py:1236``);
-``MAX_MV_ROWS`` (64) is that of the products and the expert sweep. While
+``MAX_MV_ROWS`` (64) is that of the products and the expert sweep.
+:func:`qmm_mm8` counts the rows it takes in ``cost.count("qmm.mm8_rows")``
+(on the CPU they go to ``dense_matmul``'s plain product, counted there). While
 a profiler trace is open each launch's bytes and operations are recorded,
 in the order the C entry points launch their kernels (``ops/cost.py``).
 """
@@ -96,7 +105,7 @@ import torch.nn.functional as F
 from calm_tpu_torch.ops import build, cost
 from calm_tpu_torch.ops import qmm as _qmm
 from calm_tpu_torch.ops.norms import rmsnorm
-from calm_tpu_torch.ops.qmm import STORAGE, QTensor, dequant
+from calm_tpu_torch.ops.qmm import STORAGE, QTensor, dense_matmul, dequant
 
 _FMT_CODE = {"fp16": 0, "fp8": 1, "fp8e4": 3}  # qmm_decode, qmm_moe_ffn
 _OFFN_CODE = dict(_FMT_CODE, gf4=2)  # csrc/qmm.cu's products, csrc/moe.cu
@@ -130,6 +139,14 @@ WIDE_PREC_ROWS = 32  # --precise: rows of x a launch (csrc/qmm.cu WIDE_PREC_ROWS
 # its k split: about 8 warps an SM, the one block of mmw_kernel that its
 # registers allow (2112 and 4224 timed slower on an H100, PERF.md)
 WIDE_TARGET_WARPS = 8 * SMS
+# products past 64 rows of fp16/fp8/fp8e4 on TMA and wgmma (csrc/mm.cu mm8_kernel)
+MM8_K = 64  # k values a stage (MM_K)
+MM8_ROWS = 128  # weight rows a block: two warpgroups of 64 (MM_ROWS)
+MM8_WIDTHS = (128, 192, 256)  # the compiled token tiles N; one tile covers R <= 256
+MM8_MAX_KS = 8  # k parts a tile at most: the blocks of a portable cluster (MM_KS)
+MM8_MIN_STAGES = 4  # the least stages a k part keeps, where k allows
+MM8_FEW_UNITS = 16  # row x token tiles up to which k splits in MM8_MAX_KS parts
+MM8_WAVE_GAIN = 0.1  # how much fuller two parts must fill the waves to split k
 # the one-row gf4 path (csrc/qmm.cu gf4_row_kernel)
 G1_ROWS = 4  # output rows a warp, fixed in the kernel (csrc/qmm.cu G1_ROWS)
 G1_ROWS_DUAL = 2  # the same for the dual w1/w3 launch (two weights a row)
@@ -877,6 +894,142 @@ def qmm_prefill_w2(h: torch.Tensor, w2: torch.Tensor, layer=None) -> torch.Tenso
 
 
 qmm_prefill_w2.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# fp16/fp8/fp8e4 products past 64 rows (XLA in JAX): qmm_mm8
+# ---------------------------------------------------------------------------
+
+
+class Mm8Plan(NamedTuple):
+    """One launch of ``mm8_kernel``: blocks of MM8_ROWS weight rows against
+    a token tile of ``width`` rows of x, the k of a tile split into ``ks``
+    parts, the ``ks`` consecutive blocks of one cluster, which add their
+    sums in rank order (part 0 first) through distributed shared memory,
+    each for its share of the tile's tokens. Block b takes k part b % ks,
+    token tile b // ks % ttiles and row tile b // (ks ttiles): a weight
+    tile's token tiles run together, so the tile comes from L2 after the
+    first."""
+    width: int   # N, the compiled token tile (MM8_WIDTHS)
+    ttiles: int  # token tiles: (ttiles - 1) width < R <= ttiles width
+    rtiles: int  # row tiles of MM8_ROWS
+    ks: int      # k parts (1, 2, 4 or 8)
+    stages: int  # MM8_K-value stages of k
+    R: int       # rows of x
+    d: int       # output rows
+
+    @property
+    def grid(self) -> int:
+        return self.rtiles * self.ttiles * self.ks
+
+    @property
+    def units(self) -> int:
+        """Row x token tiles."""
+        return self.rtiles * self.ttiles
+
+    def args(self) -> tuple[int, int, int, int]:
+        """What ``calm_mm8`` takes: {width, ttiles, ks, grid}."""
+        return (self.width, self.ttiles, self.ks, self.grid)
+
+    def block_work(self, block: int) -> tuple[int, int, int, int, int, int, int, int]:
+        """(first row, end row, first token, end token, first stage, end
+        stage, first token stored, end token stored) of block ``block`` as
+        the kernel computes them, rows and tokens clipped to d and R: part
+        kp stores the tile's tokens [kp width / ks, (kp + 1) width / ks)."""
+        kp, tt, rt = (block % self.ks, block // self.ks % self.ttiles,
+                      block // (self.ks * self.ttiles))
+        t0 = tt * self.width
+        return (rt * MM8_ROWS, min((rt + 1) * MM8_ROWS, self.d), t0,
+                min(t0 + self.width, self.R), kp * self.stages // self.ks,
+                (kp + 1) * self.stages // self.ks,
+                min(t0 + kp * self.width // self.ks, self.R),
+                min(t0 + (kp + 1) * self.width // self.ks, self.R))
+
+
+def mm8_plan(R: int, d: int, n: int) -> Mm8Plan:
+    """``mm8_kernel``'s tiling of x (R, n) against a (d, n) plane, k = n a
+    positive multiple of 16, as an H100 timed it best (PERF.md §6). Token
+    tiles: of the splits of R into tiles of at most 256 rows, the one that
+    pads R the least, then the one with the fewest tiles (R <= 256: one
+    tile, so an expert group reads each weight tile once; 1025: six of 192).
+    The k split (a cluster's blocks): 8 parts where a launch has at most
+    MM8_FEW_UNITS row x token tiles (k/v up to 512 rows, a router's 8 rows);
+    2 where that fills the card's waves of blocks (one an SM) better by
+    MM8_WAVE_GAIN or more (w2, q and o to 256 rows, at 1025); else none.
+    Clusters of 4 timed slower than of 2 or 8 at every shape tried. Each
+    part keeps MM8_MIN_STAGES stages where k allows."""
+    _check(R >= 1 and d >= 1 and n >= 16 and n % 16 == 0,
+           f"R, d >= 1 and k a positive multiple of 16, not {R}, {d}, {n}")
+    return _mm8_plan(int(R), int(d), int(n))
+
+
+@functools.lru_cache(maxsize=256)
+def _mm8_plan(R: int, d: int, n: int) -> Mm8Plan:
+    width, ttiles = None, None
+    for t in range(-(-R // MM8_WIDTHS[-1]), -(-R // MM8_WIDTHS[0]) + 1):
+        w = next(w for w in MM8_WIDTHS if w >= -(-R // t))
+        if width is None or t * w < ttiles * width:
+            width, ttiles = w, t
+    rtiles, stages = -(-d // MM8_ROWS), -(-n // MM8_K)
+    units = rtiles * ttiles
+
+    def filled(blocks: int) -> float:  # the share of the waves' SM slots taken
+        return blocks / (-(-blocks // SMS) * SMS)
+    ks = 1
+    if units <= MM8_FEW_UNITS:
+        ks = MM8_MAX_KS
+    elif filled(2 * units) >= filled(units) + MM8_WAVE_GAIN:
+        ks = 2
+    while ks > 1 and stages // ks < MM8_MIN_STAGES:
+        ks //= 2
+    return Mm8Plan(width, ttiles, rtiles, ks, stages, R, d)
+
+
+def qmm_mm8_plain(x: torch.Tensor, w: torch.Tensor, fmt: str, layer=None,
+                  scale=None) -> torch.Tensor:
+    """The plain version: :func:`qmm_decode_plain`'s f32 product, any rows."""
+    return qmm_decode_plain(x, w, fmt, layer, scale)
+
+
+@cost.ranged
+def qmm_mm8(x: torch.Tensor, w: torch.Tensor, fmt: str, layer=None,
+            scale=None) -> torch.Tensor:
+    """x (R, n) f32 (or bf16, from :func:`prefill_operand`) @ W[layer]^T
+    for W (L, d, n) (or one plane (d, n)) in fp16/fp8/fp8e4 storage ->
+    (R, d) f32; fp8e4 times its scale (L, 1) (or (1,)), read by the kernel
+    on the device. On the card: x rounded once to bf16, the weights widened
+    exactly to bf16 (fp16 rounded to nearest even), f32 sums, as JAX's XLA
+    product (``calm_tpu/ops/qmm.py:189-205``), with no copy of the plane.
+    On the CPU: ``dense_matmul``'s plain product (:func:`qmm_mm8_plain`'s
+    function). ``model.mm_route`` sends it the products past 64 rows."""
+    if x.device.type == "cpu":
+        return dense_matmul(x, QTensor(w, fmt, scale), layer)
+    _check(fmt in _FMT_CODE, f"qmm_mm8 takes fp16/fp8/fp8e4 weights, not {fmt!r}")
+    wl = _plane(w, layer)
+    xb = prefill_operand(x).contiguous()
+    _check(xb.dtype == torch.bfloat16 and xb.ndim == 2,
+           "activations must be 2-D float32 or bfloat16")
+    _check(xb.data_ptr() % 16 == 0, "activations must be 16-byte aligned")
+    _check(wl.device == x.device, "weights and activations on different devices")
+    _check(wl.dtype == STORAGE[fmt] and wl.is_contiguous(),
+           f"{fmt} weights must be contiguous {STORAGE[fmt]}")
+    R, n = xb.shape
+    d = wl.shape[0]
+    _check(wl.shape[1] == n, f"x has {n} columns, W has {wl.shape[1]}")
+    sp = _scale_ptr(fmt, scale, w, layer, x)
+    plan = mm8_plan(R, d, n)
+    y = torch.empty((R, d), dtype=torch.float32, device=x.device)
+    rc = build.lib("mm").calm_mm8(xb.data_ptr(), wl.data_ptr(), y.data_ptr(), sp, R, d, n,
+                                  _FMT_CODE[fmt], *plan.args(), _stream(x))
+    build.check("mm", rc)
+    if cost.active():  # x in bf16, the plane once, y in f32
+        cost.record("mm8_kernel", 2 * R * n + d * n * _WBYTES[fmt] + 4 * R * d, 2 * R * d * n)
+    qmm_mm8.launches += 1
+    cost.count("qmm.mm8_rows", R)
+    return y
+
+
+qmm_mm8.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -11,14 +11,15 @@
 Layer-stacked weights are (L, d, n_packed), as in ``calm_tpu.ops.qmm``.
 The functions here are the plain f32 reference path: the CPU runs them,
 and the Hopper kernels in ``hopper_qmm`` are held against them. One more,
-:func:`dense_matmul`, is the product of many rows outside any kernel.
+:func:`dense_matmul`, is the product of many rows outside any kernel: the
+quality mode's f32 product on the card.
 
 ``_PRECISE`` is the process-wide quality mode of ``calm_tpu.ops.qmm``
 (``:110-129``): ``Engine(precise=)`` sets it, the CLI's ``--precise`` or
 ``CALM_PRECISE=1`` asks for it. Under it every product that
 ``model._mm`` routes past 64 rows takes f32 operands and f32 sums on the
-card too; 2-64 rows take the default's multi-row and wide paths with x in
-two f16 terms and f32 sums.
+card too (:func:`dense_matmul`); 2-64 rows take the default's multi-row and
+wide paths with x in two f16 terms and f32 sums.
 """
 
 from __future__ import annotations
@@ -26,6 +27,8 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+
+from calm_tpu_torch.ops.cost import count
 
 STORAGE = {"fp16": torch.float16, "fp8": torch.float8_e5m2,
            "fp8e4": torch.float8_e4m3fn, "gf4": torch.int32}
@@ -112,32 +115,26 @@ def qmatmul(x: torch.Tensor, qt: QTensor, layer: int | None = None) -> torch.Ten
 
 
 def dense_matmul(x: torch.Tensor, qt: QTensor, layer: int | None = None) -> torch.Tensor:
-    """x (R, n) f32 @ W[layer]^T -> (R, d) f32 for the products no kernel
-    takes (fp8/fp16/fp8e4 past 64 rows, and under ``_PRECISE`` every
-    product past 64 rows). On the card, the JAX fast
-    path (``calm_tpu/ops/qmm.py:189-205``): the plane dequantized to bf16
-    (exact for e5m2, e4m3 and gf4, rounded for fp16), x rounded to bf16,
-    one library product with an f32 result; under ``_PRECISE`` the plane
-    in f32 and an f32 product with TF32 off (``:190-197``). The fp8e4
-    scale multiplies the product on the device. On the CPU:
-    :func:`qmatmul`'s f32 product."""
+    """x (R, n) f32 @ W[layer]^T -> (R, d) f32 in f32 through the library:
+    on the card the products ``model.mm_route`` sends here under
+    ``_PRECISE`` (every product past 64 rows), the JAX quality mode's
+    (``calm_tpu/ops/qmm.py:190-197``): the plane dequantized to f32 and an
+    f32 product with TF32 off, the fp8e4 scale on the device after. On the
+    CPU: :func:`qmatmul`'s f32 product, which ``hopper_qmm.qmm_mm8`` takes
+    there too. Counts its rows in ``qmm.dense_rows``."""
+    count("qmm.dense_rows", x.shape[0])
     if x.device.type == "cpu":
         return qmatmul(x, qt, layer)
     data, scale = qt.data, qt.scale
     if layer is not None:
         data = data[layer]
         scale = None if scale is None else scale[layer]
-    w = QTensor(data, qt.fmt)
-    if _PRECISE:
-        was = torch.backends.cuda.matmul.allow_tf32
-        torch.backends.cuda.matmul.allow_tf32 = False
-        try:
-            out = torch.mm(x.float(), dequant(w, torch.float32).T)
-        finally:
-            torch.backends.cuda.matmul.allow_tf32 = was
-    else:
-        out = torch.mm(x.to(torch.bfloat16), dequant(w, torch.bfloat16).T,
-                       out_dtype=torch.float32)
+    was = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        out = torch.mm(x.float(), dequant(QTensor(data, qt.fmt), torch.float32).T)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = was
     return out if scale is None else out * scale
 
 

@@ -318,6 +318,7 @@ _KERNEL_STAGES = {
     "moe_qmv_kernel": ("moe expert matvec", None, "alu"),
     "moe_gf4_kernel": ("gf4 moe ffn", "gf4", "alu"),
     "gf4_mm_kernel": ("gf4 matmul", "gf4", "tc"),
+    "mm8_kernel": ("matmul", None, "tc"),
     "attn_decode_kernel": ("decode attention", None, "alu"),
     "prefill_kernel": ("prefill attention", None, "tc"),
     "verify_kernel": ("verify attention", None, "tc"),

@@ -1635,12 +1635,12 @@ def wide_checks(dev):
 
 
 def grouped_library(w1, w3, w2, fmt, scales, E: int, B: int, topk: int, act_gelu=False):
-    """The parent's route for an expert FFN of B rows (``model._moe_grouped``
-    through ``dense_matmul``: each live expert's routed rows, a bf16 copy of
-    each plane and ``torch.mm``), for routing that gives each of the E
-    experts B topk / E rows: lib(i, x) over layer i % L."""
+    """The route the wide path replaced for an expert FFN of B rows
+    (``model._moe_grouped`` through the library: each live expert's routed
+    rows, a bf16 copy of each plane and ``torch.mm``, ``library_mm``), for
+    routing that gives each of the E experts B topk / E rows: lib(i, x) over
+    layer i % L."""
     from calm_tpu_torch.ops.hopper_qmm import act
-    from calm_tpu_torch.ops.qmm import QTensor, dense_matmul
 
     L = w1.shape[0]
     per = -(-B * topk // E)
@@ -1652,10 +1652,11 @@ def grouped_library(w1, w3, w2, fmt, scales, E: int, B: int, topk: int, act_gelu
         for e in range(E):
             rows = torch.arange(e * per, (e + 1) * per, device=x.device) % B
             xe = x.index_select(0, rows)
-            q = [QTensor(w[l, e], fmt, None if s is None else s[l, e])
+            q = [(w[l, e], None if s is None else s[l, e])
                  for w, s in ((w1, s1), (w3, s3), (w2, s2))]
-            h = act(dense_matmul(xe, q[0]), act_gelu) * dense_matmul(xe, q[1])
-            out.index_add_(0, rows, dense_matmul(h, q[2]))
+            h = (act(library_mm(xe, q[0][0], fmt, None, q[0][1]), act_gelu)
+                 * library_mm(xe, q[1][0], fmt, None, q[1][1]))
+            out.index_add_(0, rows, library_mm(h, q[2][0], fmt, None, q[2][1]))
         return out
     return lib
 
@@ -1689,7 +1690,7 @@ def wide_kernel_rows(gbps, dev):
     (one PyTorch call of the same function on the planes widened to 16 bits
     beforehand: ``torch.matmul``, for the expert FFN ``torch.bmm`` a
     product over the live experts) and the parent's route (``route_ms``:
-    ``dense_matmul``, a bf16 copy of the plane and ``torch.mm``; for the
+    ``library_mm``, a bf16 copy of the plane and ``torch.mm``; for the
     expert FFN ``model._moe_grouped``'s products through it): K2
     fp8/fp16/fp8e4 on the Mistral-7B lm-head (32000 x 4096), K3 gf4 there
     beside K4 (``qmm_prefill``) from 32 rows on the lm-head, a w1 and a w2
@@ -1701,7 +1702,6 @@ def wide_kernel_rows(gbps, dev):
     --wide`` times the parent's tree beside)."""
     from calm_tpu_torch import model as M
     from calm_tpu_torch.ops import hopper_qmm as hq
-    from calm_tpu_torch.ops.qmm import QTensor, dense_matmul
 
     rows = {}
     V = 32000
@@ -1721,14 +1721,13 @@ def wide_kernel_rows(gbps, dev):
                                 lambda: hq.qmm_decode(x, w, fmt, 0, sc)),
                       hq.qmm_decode_plain(x, w, fmt, 0, sc), TOL_WIDE)
             b, by = bound_ms(V * D * esz + 4 * B * (D + V), 2 * B * V * D, gbps, PEAK_BF16)
-            qs = [QTensor(w[l], fmt, None if sc is None else sc[l]) for l in range(2)]
             t = timings(lambda i: hq.qmm_decode(x, w, fmt, i % 2, sc),
                         lambda i: hq.qmm_decode_plain(x, w, fmt, i % 2, sc),
                         lambda i: torch.matmul(x16, wl[i % 2].T), bound=b)
-            t["route_ms"] = timed(lambda i: dense_matmul(x, qs[i % 2]), floor=b)[0]
+            t["route_ms"] = timed(lambda i: library_mm(x, w, fmt, i % 2, sc), floor=b)[0]
             log(f"# K{3 if fmt == 'gf4' else 2} wide {fmt} lm-head {V}x{D} B={B}: max_abs_err "
                 f"{e:.3e} (tol {TOL_WIDE:g} x max|y|); {ms_line(t)} (one {x16.dtype} matmul on "
-                f"the plane widened beforehand; the parent's route, dense_matmul, "
+                f"the plane widened beforehand; the library route it replaced, library_mm, "
                 f"{t['route_ms']:.4f}) bound_ms {b:.4f} ({by}); {share(t, b)}")
             per_b[B] = dict(t, bound_ms=b, bound_by=by, max_abs_err=e)
         rows[key] = dict(per_b[40], by_rows={B: {k: v[k] for k in keep}
@@ -1783,8 +1782,8 @@ def wide_kernel_rows(gbps, dev):
             log(f"# {'K11 gf4_moe_ffn' if fmt == 'gf4' else 'K10 fp8 qmm_moe_ffn'} wide "
                 f"D={D} H={HID}, {A} live slots, B={B}: max_abs_err {e:.3e} (tol "
                 f"{2 * TOL_WIDE:g} x max|z|); {ms_line(t)} (a bf16 bmm a product over the live "
-                f"planes widened beforehand; the parent's route, the grouped products through "
-                f"dense_matmul, {-(-B * 2 // E)} rows an expert, {t['route_ms']:.4f}) bound_ms "
+                f"planes widened beforehand; the library route, the grouped products through "
+                f"library_mm, {-(-B * 2 // E)} rows an expert, {t['route_ms']:.4f}) bound_ms "
                 f"{b:.4f} ({by}, {nb / 1e6:.1f} MB); {share(t, b)}")
             per_b[B] = dict(t, bound_ms=b, bound_by=by, max_abs_err=e)
             if B == 40:
@@ -1820,7 +1819,7 @@ def wide_kernel_rows(gbps, dev):
     log(f"# K10 fp8 qmm_moe_ffn wide, OLMoE widths D={Do} H={Ho}, {Eo} experts top-{k}, "
         f"B={B}: {live} live of {uniq.shape[0]} slots; max_abs_err {e:.3e} (tol "
         f"{2 * TOL_WIDE:g} x max|z|); {ms_line(t)} (a bf16 bmm a product over the live planes "
-        f"widened beforehand; the parent's route, the grouped products through dense_matmul, "
+        f"widened beforehand; the library route, the grouped products through library_mm, "
         f"{t['route_ms']:.4f}) bound_ms {b:.4f} ({by}, {nb / 1e6:.1f} MB, "
         f"{2 * B} operations a weight byte); {share(t, b)}")
     by_kernel(lambda i: fn(i % L), "OLMoE sweep wide B=40")
@@ -1895,6 +1894,214 @@ def wide_verify_shapes(gbps, dev) -> dict:
 
 
 # -- fp8e4 (e4m3 codes, a power-of-two scale per tensor / (layer, expert)) --
+
+# products past 64 rows of fp16/fp8/fp8e4 (hopper_qmm.qmm_mm8, csrc/mm.cu)
+MM8_R = (65, 128, 257, 1025, 2048)  # expert groups (65-300 rows) to whole dense prefills
+MM8_SHAPES = (("q/o", Q, D), ("k/v", KV, D), ("w1/w3", HID, D), ("w2", D, HID),
+              ("lm-head", 32000, D))  # Mistral-7B; Mixtral's experts have w1/w3's and w2's
+MM8_FMTS = ("fp8", "fp8e4", "fp16")
+TOL_MM8 = 1e-2  # against the f32 plain product, as TOL_MM: x rounded once to bf16
+E5M2_FINITE = [b for b in range(256) if b & 0x7C != 0x7C]  # 0x7c-0x7f, 0xfc-0xff: inf, NaN
+
+
+def library_mm(x, w, fmt, layer=None, scale=None):
+    """The library route that ``qmm_mm8`` replaced (``dense_matmul``'s
+    former bf16 branch), the smoke's yardstick (library_ms) and never the
+    port's: the plane dequantized to a bf16 copy in device memory, x cast
+    to bf16, one ``torch.mm`` with an f32 result, the fp8e4 scale after."""
+    from calm_tpu_torch.ops.qmm import QTensor, dequant
+
+    wl = w if layer is None else w[layer]
+    out = torch.mm(x.to(torch.bfloat16), dequant(QTensor(wl, fmt), torch.bfloat16).T,
+                   out_dtype=torch.float32)
+    if scale is None:
+        return out
+    return out * (scale if layer is None else scale[layer])
+
+
+def mm8_sum_bound(x, w, fmt, layer=None, scale=None):
+    """How far two f32 sums of the same n bf16 products may lie apart in any
+    order: each product of two bf16 values is exact in f32, each sum of n
+    terms within (n - 1) 2^-24 sum |terms| of the exact one, so the two
+    within 2 n 2^-24 sum |x w| (times the power-of-two scale). The kernel
+    and the library differ only in that order."""
+    from calm_tpu_torch.ops.qmm import QTensor, dequant
+
+    wl = w if layer is None else w[layer]
+    n = x.shape[1]
+    ab = (x.to(torch.bfloat16).float().abs()
+          @ dequant(QTensor(wl, fmt), torch.bfloat16).float().abs().T)
+    b = 2.0 * n * 2.0 ** -24 * ab
+    if scale is not None:
+        b = b * (scale if layer is None else scale[layer]).abs()
+    return b
+
+
+def mm8_took(hq, what, run, R: int):
+    """run() on ``qmm_mm8``: one launch, R rows on ``qmm.mm8_rows``."""
+    from calm_tpu_torch.ops import cost
+
+    n0, r0 = hq.qmm_mm8.launches, cost.counters().get("qmm.mm8_rows", 0)
+    out = run()
+    got = (hq.qmm_mm8.launches - n0, cost.counters().get("qmm.mm8_rows", 0) - r0)
+    if got != (1, R):
+        fail(f"{what}: {got[0]} qmm_mm8 launches and {got[1]} qmm.mm8_rows, not 1 and {R}")
+    return out
+
+
+MM8_WORST = {}  # fmt -> the largest |kernel - library| / mm8_sum_bound of the checks
+
+
+def mm8_same_sums(what, fmt, got, lib, bound):
+    """The kernel against the library's bf16 product: within mm8_sum_bound
+    everywhere (the order of the f32 sums); the largest share logged."""
+    err = (got - lib).abs()
+    if not bool((err <= bound).all()):
+        i = int((err - bound).argmax())
+        fail(f"{what}: |kernel - library| {err.flatten()[i].item():.3e} > the sums' bound "
+             f"{bound.flatten()[i].item():.3e}")
+    share = (err / bound.clamp_min(1e-30)).max().item()
+    MM8_WORST[fmt] = max(MM8_WORST.get(fmt, 0.0), share)
+    return share
+
+
+def mm8_planes(shape, fmt, dev, every: bool = False):
+    """Weights for the checks: e5m2 of exponent <= 7 (``rand_w``; with
+    ``every`` any finite byte, each plane's first ones all of them in
+    order), e4m3 of any finite byte (``e4m3_rand``), fp16 small normals."""
+    if fmt == "fp8e4":
+        return e4m3_rand(shape, dev, every=True)
+    if fmt == "fp8" and every:
+        table = torch.tensor(E5M2_FINITE, dtype=torch.uint8, device=dev)
+        b = table[torch.randint(0, len(E5M2_FINITE), shape, device=dev)]
+        flat = b.reshape(-1, shape[-2] * shape[-1])
+        flat[:, :len(E5M2_FINITE)] = table
+        return b.view(torch.float8_e5m2)
+    return rand_w(shape, fmt, dev)
+
+
+def mm8_checks(dev):
+    """``qmm_mm8`` (products past 64 rows, ``csrc/mm.cu``) at MM8_R rows on
+    Mistral-7B's q/o, k/v, w1/w3, w2 and lm-head planes (Mixtral's experts
+    have w1/w3's and w2's), e5m2, e4m3 with its power-of-two scales and
+    fp16, layer 1 of a stack of 2: against the library's bf16 product
+    (``library_mm``, the former route) within the f32 sums' bound
+    (``mm8_sum_bound``) and the f32 plain product within TOL_MM8 x max|y|,
+    each call counted on the wrapper and ``qmm.mm8_rows``, the k-split
+    launches twice bit-equal; every finite e5m2 byte; Mixtral expert planes
+    as ``model._moe_grouped`` passes them (``_mm`` on ``w1[layer, e]``),
+    the shared bf16 operand; ragged d and n."""
+    from calm_tpu_torch import model as M
+    from calm_tpu_torch.ops import hopper_qmm as hq
+    from calm_tpu_torch.ops.qmm import QTensor
+
+    t0 = time.perf_counter()
+    worst_plain, twice = 0.0, 0
+    for fmt in MM8_FMTS:
+        for name, d, n in MM8_SHAPES:
+            w = mm8_planes((2, d, n), fmt, dev)
+            sc = pow2_scales((2, 1), dev, 1) if fmt == "fp8e4" else None
+            for R in MM8_R:
+                x = torch.randn(R, n, device=dev)
+                what = f"qmm_mm8 {fmt} {name} {d}x{n} R={R}"
+                got = mm8_took(hq, what, lambda: hq.qmm_mm8(x, w, fmt, 1, sc), R)
+                mm8_same_sums(what, fmt, got, library_mm(x, w, fmt, 1, sc),
+                              mm8_sum_bound(x, w, fmt, 1, sc))
+                e = check(what, got, hq.qmm_mm8_plain(x, w, fmt, 1, sc), TOL_MM8)
+                worst_plain = max(worst_plain, e / scale_of(got))
+                if hq.mm8_plan(R, d, n).ks > 1:
+                    again = mm8_took(hq, what, lambda: hq.qmm_mm8(x, w, fmt, 1, sc), R)
+                    if not torch.equal(got, again):
+                        fail(f"{what}: two identical calls differ, by "
+                             f"{(got - again).abs().max().item():.3e}")
+                    twice += 1
+            del w
+    # every finite e5m2 byte, and ragged shapes (d off the 128-row tile, k
+    # off the 64-value stage, R off the token tiles)
+    for fmt, d, n, R in (("fp8", 1024, 4096, 128), ("fp8", 1003, 1040, 100),
+                         ("fp16", 1003, 1040, 300), ("fp8e4", 1003, 1040, 777),
+                         ("fp8", 8, 4096, 515)):
+        w = mm8_planes((2, d, n), fmt, dev, every=True)
+        sc = pow2_scales((2, 1), dev, 3) if fmt == "fp8e4" else None
+        x = torch.randn(R, n, device=dev)
+        what = f"qmm_mm8 {fmt} {d}x{n} R={R} (every finite byte, ragged)"
+        got = mm8_took(hq, what, lambda: hq.qmm_mm8(x, w, fmt, 1, sc), R)
+        mm8_same_sums(what, fmt, got, library_mm(x, w, fmt, 1, sc),
+                      mm8_sum_bound(x, w, fmt, 1, sc))
+        check(what, got, hq.qmm_mm8_plain(x, w, fmt, 1, sc), TOL_MM8)
+    # Mixtral 8x7B's expert planes as the grouped MoE passes them: w1 and w2
+    # of (layer, expert), one bf16 cast of x shared by w1/w3
+    L, E = 2, EXPERTS
+    for fmt in ("fp8", "fp8e4"):
+        for name, d, n in (("w1", HID, D), ("w2", D, HID)):
+            st = QTensor(mm8_planes((L, E, d, n), fmt, dev), fmt,
+                         pow2_scales((L, E, 1), dev, 2) if fmt == "fp8e4" else None)
+            for (layer, e), R in (((1, 5), 128), ((0, 7), 300)):
+                pe = st[layer, e]
+                x = torch.randn(R, n, device=dev)
+                what = f"_mm {fmt} Mixtral expert {name} [{layer}, {e}] R={R}"
+                xb = M._mm_operand(x, pe)
+                if xb.dtype != torch.bfloat16:
+                    fail(f"{what}: the shared operand is {xb.dtype}, not bf16")
+                got = mm8_took(hq, what, lambda: M._mm(xb, pe), R)
+                mm8_same_sums(what, fmt, got, library_mm(x, pe.data, fmt, None, pe.scale),
+                              mm8_sum_bound(x, pe.data, fmt, None, pe.scale))
+                check(what, got, hq.qmm_mm8_plain(x, pe.data, fmt, None, pe.scale), TOL_MM8)
+            del st
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"# qmm_mm8 checks ({time.perf_counter() - t0:.1f} s): {len(MM8_FMTS)} formats x "
+        f"{len(MM8_SHAPES)} planes x R = {MM8_R}, ragged and expert planes; |kernel - "
+        f"library| at most " + ", ".join(f"{f} {v:.3f}" for f, v in MM8_WORST.items())
+        + f" of the f32 sums' bound; against the f32 plain product at most {worst_plain:.3e} "
+        f"x max|y| (tol {TOL_MM8:g}); {twice} k-split launches bit-equal to a second call")
+
+
+def mm8_kernel_rows(gbps, dev):
+    """``qmm_mm8`` timed beside its bound (the plane once, x in bf16, y in
+    f32; 2 R d n operations at the bf16 peak), its plain version (f32) and
+    the library route it replaced (``library_mm``: a bf16 copy of the plane,
+    then ``torch.mm``), x already bf16 as the model's shared cast gives it:
+    fp8 at every MM8_SHAPES plane and MM8_R, fp8e4 and fp16 at w1/w3 and w2
+    at 128 and 2048 rows. Two planes cycled. The kernels line takes fp8
+    w1/w3 at 2048 rows (a dense prefill, ``qmm_mm8``) and 128 (a Mixtral
+    expert group, ``qmm_mm8_expert``), each checked against its plain
+    version."""
+    from calm_tpu_torch.ops import hopper_qmm as hq
+
+    rows, table = {}, []
+    for fmt in MM8_FMTS:
+        esz = 2 if fmt == "fp16" else 1
+        shapes = MM8_SHAPES if fmt == "fp8" else MM8_SHAPES[2:4]
+        for name, d, n in shapes:
+            w = mm8_planes((2, d, n), fmt, dev)
+            sc = pow2_scales((2, 1), dev) if fmt == "fp8e4" else None
+            for R in MM8_R if fmt == "fp8" else (128, 2048):
+                x = torch.randn(R, n, device=dev)
+                xb = x.to(torch.bfloat16)
+                b, by = bound_ms(d * n * esz + 2 * R * n + 4 * R * d, 2 * R * d * n, gbps,
+                                 PEAK_BF16)
+                t = timings(lambda i: hq.qmm_mm8(xb, w, fmt, i % 2, sc),
+                            lambda i: hq.qmm_mm8_plain(x, w, fmt, i % 2, sc),
+                            lambda i: library_mm(xb, w, fmt, i % 2, sc), bound=b)
+                p = hq.mm8_plan(R, d, n)
+                log(f"# qmm_mm8 {fmt} {name} {d}x{n} R={R} (N {p.width} x {p.ttiles}, ks "
+                    f"{p.ks}, {p.grid} blocks): {ms_line(t)} (library: a bf16 copy of the "
+                    f"plane, then torch.mm) bound_ms {b:.4f} ({by}); {share(t, b)}")
+                row = dict(t, bound_ms=b, bound_by=by, fmt=fmt, plane=name, R=R)
+                table.append(row)
+                if fmt == "fp8" and name == "w1/w3" and R in (128, 2048):
+                    row["max_abs_err"] = check(f"qmm_mm8 {fmt} {name} R={R}",
+                                               hq.qmm_mm8(x, w, fmt, 1, sc),
+                                               hq.qmm_mm8_plain(x, w, fmt, 1, sc), TOL_MM8)
+                    rows["qmm_mm8" if R == 2048 else "qmm_mm8_expert"] = row
+            del w
+            torch.cuda.empty_cache()
+    log("# qmm_mm8 table (fmt plane R: kernel / bound / library ms, % of bound): " + "; ".join(
+        f"{r['fmt']} {r['plane']} {r['R']}: {r['ms']:.4f} / {r['bound_ms']:.4f} / "
+        f"{r['library_ms']:.4f}, {100 * r['bound_ms'] / r['ms']:.1f}%" for r in table))
+    return rows
+
 
 E4M3_FINITE = [b for b in range(256) if b not in (0x7F, 0xFF)]  # 0x7f / 0xff: NaN
 
@@ -2654,7 +2861,7 @@ def ragged_checks_ffn_stream(dev):
 # Tolerances, relative to max |out| unless said otherwise.
 TOL_MV = 1e-5  # f32-FMA kernels (K2, K3, K8, K9): f32 sums in another order
 TOL_DA = 1e-4  # K12, absolute (outputs are O(1)): f32, another order
-# K4, K5, K13 and dense_matmul round their activations (and q, p) once to
+# K4, K5, K13 and qmm_mm8 round their activations (and q, p) once to
 # bf16 as the TPU kernels do: 2^-9 relative per operand, ~1e-3 of max |out|
 # on random data; the JAX package's own tests hold its kernels at 3e-2.
 TOL_MM = 1e-2
@@ -2819,8 +3026,8 @@ def ragged_checks_prefill_gf4(dev):
     whose words per row are not a multiple of 4, d off the tile; K13 with T
     off the 16-query tile, two sequences at other starts, head_dim 64 with
     8 query heads per kv head, fp16 and fp8 caches. Also the products no
-    kernel takes (``dense_matmul``: fp8/fp16 past 16 rows, gf4 at 17..31)
-    against the f32 product."""
+    kernel takes under --precise (``dense_matmul``'s f32 product) against
+    the f32 product."""
     from calm_tpu_torch.ops import hopper_attn as ha
     from calm_tpu_torch.ops import hopper_qmm as hq
     from calm_tpu_torch.ops.qmm import QTensor, dense_matmul, qmatmul
@@ -2951,6 +3158,7 @@ def counters():
            "qmm_prefill_w2": hq.qmm_prefill_w2, "gf4_offn_qkv": hq.gf4_offn_qkv,
            "qmm_moe_dense": hq.qmm_moe_dense, "gf4_moe_ffn": hq.gf4_moe_ffn,
            "qmm_moe_ffn": getattr(hq, "qmm_moe_ffn", None),
+           "qmm_mm8": getattr(hq, "qmm_mm8", None),
            "gf4_ffn": hq.gf4_ffn, "gf4_offn": hq.gf4_offn,
            "stream_sum": hs.stream_sum, "gf4_decode_sum": hs.gf4_decode_sum,
            "ring_all_reduce": hc.ring_all_reduce}
@@ -4749,7 +4957,7 @@ def speculative_full_width(cfg, dev, gbps, smi, default):
     vt = torch.as_tensor(toks, device=dev)
     by_kernel(lambda i: M.verify_once(cfg, w, vt, starts, spec.engine.cache),
               f"spec serve verify B={B} T={GAMMA + 1}, replayed,", calls=5)
-    with parent_product_routes(spec.engine.cache):  # the products through dense_matmul
+    with parent_product_routes(spec.engine.cache):  # the products through library_mm
         old_ms = verify_bits("spec serve, the parent's route", cfg, w, spec.engine.cache,
                              toks, starts)[0]
     n_tok = sum(r.n_generated for r in got)
@@ -4765,7 +4973,7 @@ def speculative_full_width(cfg, dev, gbps, smi, default):
         f"plain drain's {pw:.1f} ms ({1e3 * n_tok / pw:.1f} tok/s), medians of 2; {n_rounds} "
         f"rounds; a round of all eight slots past admission {tick_ms:.3f} ms, acceptance "
         f"{acc:.3f}; verify B={B} T={GAMMA + 1} replayed {v_ms:.3f} ms, eager {e_ms:.3f} ms, "
-        f"bit-equal, the parent's route (dense_matmul) replayed {old_ms:.3f} ms; "
+        f"bit-equal, the route before the wide path (library_mm) replayed {old_ms:.3f} ms; "
         f"{counts['qmm_decode_wide']} wide products; "
         f"K13 {counts['prefill_attention_split']} split-S launches (verifies), "
         f"{counts['prefill_attention']} persistent (admissions), {counts['verify_replays']} "
@@ -4811,31 +5019,33 @@ def parent_verify_routes(cache):
 
 @contextlib.contextmanager
 def parent_product_routes(cache):
-    """The products of 17-64 rows as the parent commit ran them: fp8/fp16/
-    fp8e4 (and gf4 at 17-31) through ``dense_matmul``, the MoE FFN past 16
-    rows through the grouped products (so a MoE verify runs eagerly), by
-    the 16-row limit in place of 64. The cache's captured graphs are
-    dropped on entry and on exit, so each route captures its own."""
+    """The products of 17-64 rows as they ran before the wide path:
+    fp8/fp16/fp8e4 through the library (``library_mm``: a bf16 copy of the
+    plane, ``torch.mm``; gf4 at 32-64 on K4), the MoE FFN past 16 rows
+    through the grouped products (so a MoE verify runs eagerly), by the
+    16-row limit in place of 64. The cache's captured graphs are dropped on
+    entry and on exit, so each route captures its own."""
     from calm_tpu_torch import model as M
     from calm_tpu_torch.ops import hopper_qmm as hq
 
     def drop():
         cache.graphs.clear()
-    saved = M.MAX_MV_ROWS, hq.MAX_MV_ROWS
+    saved = M.MAX_MV_ROWS, hq.MAX_MV_ROWS, M.qmm_mm8
     drop()
     M.MAX_MV_ROWS = hq.MAX_MV_ROWS = hq.MAX_ROWS
+    M.qmm_mm8 = library_mm
     try:
         yield
     finally:
-        M.MAX_MV_ROWS, hq.MAX_MV_ROWS = saved
+        M.MAX_MV_ROWS, hq.MAX_MV_ROWS, M.qmm_mm8 = saved
         drop()
 
 
 def tick_wide(cfg, w, dev, smi, slots: int = 32, steps: int = 8, pos: int = 512) -> dict:
     """One tick of ``slots`` slots on full-width weights: the captured
     decode step of a batch of 32 (``decode_loop``, replayed) from position
-    ``pos``, its ms a step against the parent's route (``dense_matmul``
-    per op) in this call, each route's ids the other's but at near-ties;
+    ``pos``, its ms a step against the route before the wide path
+    (``library_mm`` per op) in this call, each route's ids the other's but at near-ties;
     the wide path's launches a step counted (7 products a layer and the
     lm-head)."""
     from calm_tpu_torch import model as M
@@ -4893,8 +5103,8 @@ def spec_serve_moe(cfg, w, total, bw, dev, smi) -> dict:
     with the target as its own draft, gamma 4, against the plain server on
     the same requests (ids equal but at near-ties): drain times, rounds,
     the verify of 8 x 5 rows replayed (the expert sweep on the wide path)
-    against the eager forward bit for bit and against the parent's route
-    (eager grouped products through ``dense_matmul``) in this call, and the
+    against the eager forward bit for bit and against the route before the
+    wide path (eager grouped products through ``library_mm``) in this call, and the
     launches of the drain's verifies."""
     from calm_tpu_torch.engine import Engine
     from calm_tpu_torch.serve import Server
@@ -4949,7 +5159,8 @@ def spec_serve_moe(cfg, w, total, bw, dev, smi) -> dict:
         f"of 2; {n_rounds} rounds, {counts['verify_replays']} verify replays, "
         f"{counts['qmm_moe_ffn_wide']} expert FFNs and {counts['qmm_decode_wide']} products on "
         f"the wide path; verify B={B} T={GAMMA + 1} replayed {v_ms:.3f} ms, eager {e_ms:.3f} ms, "
-        f"bit-equal; the parent's route (eager, grouped products through dense_matmul) "
+        f"bit-equal; the route before the wide path (eager, grouped products through "
+        f"library_mm) "
         f"{old_ms:.3f} ms; ids against the plain drain: "
         + "; ".join(f"{i} {r}" for i, r in enumerate(res))
         + f"; {time.perf_counter() - t0:.1f} s on {smi}")
@@ -5082,6 +5293,7 @@ def rate_share(gb_s: float) -> str:
 
 
 RATES = {"nominal": 3350.0, "attainable": None}
+PREFILL_COUNTS = {}  # what -> the launch counts of one full-width 2048-token prefill
 FIRST32 = {}  # full-width model -> its replayed first32 ms/tok in this run
 LAST32 = {}   # full-width model -> its replayed last32 ms/tok in this run
 
@@ -5143,13 +5355,13 @@ def full_width_phase(fmt, dev, gbps, smi, experts: int = 0, cohere: bool = False
             return out
         M.route = spy
         try:
-            prefill()
+            PREFILL_COUNTS[what] = drive(prefill)[1]
         finally:
             M.route = real
         log(f"# prefill {what} T={T}: layer 0 routes its {T} tokens x 2 to the "
             f"{experts} experts as {routed[0]}")
     else:
-        prefill()  # warm
+        PREFILL_COUNTS[what] = drive(prefill)[1]  # warm
     secs = []
     for _ in range(3):
         torch.cuda.synchronize()
@@ -7225,7 +7437,10 @@ def main():
         f"path <fmt, width>: {ptxas_each(build, 'qmm', 'wide_kernel')}, dynamic " + ", ".join(
             f"{build.lib('qmm').calm_wide_smem(f, n)}" for f in range(4) for n in (32, 40, 64))
         + f" B (fmt 0-3 x width 32/40/64); its --precise and gf4 rows of n % 32 != 0 "
-        f"<fmt, act, m-tiles, odd, moe, precise>: {ptxas_each(build, 'qmm', 'mmw_kernel')}")
+        f"<fmt, act, m-tiles, odd, moe, precise>: {ptxas_each(build, 'qmm', 'mmw_kernel')}; "
+        f"past 64 rows <fmt, width>: {ptxas_each(build, 'mm', 'mm8_kernel')}, dynamic " + ", ".join(
+            f"{build.lib('mm').calm_mm8_smem(f, n)}" for f in (0, 1, 3) for n in (128, 192, 256))
+        + " B (fmt 0/1/3 x width 128/192/256)")
     log_captures()
 
     RATES["nominal"] = gbps
@@ -7240,6 +7455,9 @@ def main():
     wide_checks(dev)
     rows.update(wide_kernel_rows(gbps, dev))
     wide_verify_shapes(gbps, dev)
+    # products past 64 rows: fp16/fp8/fp8e4 on mm8_kernel
+    mm8_checks(dev)
+    rows.update(mm8_kernel_rows(gbps, dev))
     log(f"# kernel phase done at {time.perf_counter() - t_start:.1f} s")
     # the tools' chains are K1's and K15's main path; the 3 GB rows give the
     # attainable read rate every later GB/s is also read against
@@ -7412,6 +7630,13 @@ def main():
                                        VERIFY_MOE_COUNTS["gf4"]),
                "qmm_moe_ffn_wide": ("calm_tpu_torch/csrc/qmm.cu",
                                     "calm_tpu/ops/pallas_qmm.py:1248", SPEC_MOE_COUNTS),
+               # past 64 rows (JAX runs these in XLA): one full-width fp8
+               # 2048-token prefill, Mistral-7B and Mixtral 8x7B (the grouped
+               # experts)
+               "qmm_mm8": ("calm_tpu_torch/csrc/mm.cu", "calm_tpu/ops/qmm.py:189",
+                           PREFILL_COUNTS["fp8 mistral7b"]),
+               "qmm_mm8_expert": ("calm_tpu_torch/csrc/mm.cu", "calm_tpu/ops/qmm.py:189",
+                                  PREFILL_COUNTS[f"fp8 mixtral{EXPERTS}x7b"], "qmm_mm8"),
                "gf4_moe_ffn_wide": ("calm_tpu_torch/csrc/qmm.cu",
                                     "calm_tpu/ops/pallas_qmm.py:1361", VERIFY_MOE_COUNTS["gf4"])}
     kernels = []

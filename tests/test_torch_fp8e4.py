@@ -122,7 +122,9 @@ def test_e4m3_decode_is_the_exact_f16_conversion(name):
     words' halves go in k order, (b0, b1) then (b2, b3), as e5m2's byte
     placement (0x1404, 0x3424) puts them."""
     src = open(os.path.join(build.CSRC, name + ".cu")).read()
-    body = src[src.index("uint32_t e4m3x2_f16x2(unsigned short v)"):]
+    defined = src if "uint32_t e4m3x2_f16x2(unsigned short v)" in src else open(
+        os.path.join(build.CSRC, "hopper.cuh")).read()  # the shared definition
+    body = defined[defined.index("uint32_t e4m3x2_f16x2(unsigned short v)"):]
     assert "cvt.rn.f16x2.e4m3x2" in body[:body.index("}")]
     halves = re.findall(r"e4m3x2_f16x2\(\(unsigned short\)\((\w+(?:\[s\])?) (& 0xffffu|>> 16)\)\)",
                         src)
@@ -430,8 +432,8 @@ def test_routing_under_precise(fmt):
     """The decisions as pure functions: ``decode_path`` keeps one row on
     its loop, sends 2-16 rows to the multi-row path and 17-64 to the wide
     one, in either mode (it takes no mode); ``mm_route`` keeps <= 64 rows
-    on the matvecs and sends gf4 past them to its matmul kernel only
-    without precise;
+    on the matvecs and sends gf4 past them to its matmul kernel and the
+    other formats to ``qmm_mm8`` only without precise;
     ``_fused`` declines the fp8/fp16 epilogue under precise (gf4's stays,
     fp8e4 has none)."""
     assert hopper_qmm.decode_path(1) == "one-row"
@@ -445,8 +447,8 @@ def test_routing_under_precise(fmt):
                          rotary_dim=64)
     qt = w.layers.w1
     for rows, want in ((1, "mv"), (16, "mv"), (17, "mv"), (31, "mv"), (32, "mv"), (64, "mv"),
-                       (65, "mm" if fmt == "gf4" else "dense"),
-                       (2048, "mm" if fmt == "gf4" else "dense")):
+                       (65, "mm" if fmt == "gf4" else "mm8"),
+                       (2048, "mm" if fmt == "gf4" else "mm8")):
         assert TM.mm_route(rows, qt) == want
         assert TM.mm_route(rows, qt, precise=True) == ("mv" if rows <= 64 else "dense")
     for B in (1, 8):

@@ -242,8 +242,8 @@ def test_qmm_prefill_w2_plain(rng, interpret):
 
 @pytest.mark.parametrize("fmt", ["fp16", "fp8", "gf4"])
 def test_dense_matmul_plain(rng, fmt):
-    """The product no kernel takes (fp8/fp16 past 16 rows, gf4 at 17..31):
-    f32 on the CPU, as calm_tpu's f32 path."""
+    """The library's product (``--precise`` past 64 rows; every product
+    ``qmm_mm8`` takes on the CPU): f32 on the CPU, as calm_tpu's f32 path."""
     w = (_gf4_stack(rng, 2, 64, 128) if fmt == "gf4"
          else _weights(rng, (2, 64, 128), fmt))
     x = rng.standard_normal((20, 128)).astype(np.float32)

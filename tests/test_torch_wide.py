@@ -193,7 +193,8 @@ def test_wide_routes(B):
 
 def test_wide_refusals_past_64():
     """65 rows: the plan and the decode path raise, ``mm_route`` goes to
-    ``dense_matmul`` (gf4: its matmul kernel), the sweep declines and the
+    ``qmm_mm8`` (gf4: its matmul kernel; ``dense_matmul`` under --precise),
+    the sweep declines and the
     MoE FFN takes the grouped products; the fused epilogues keep 16."""
     for bad in ((65, (16,), 16), (65, (16,), 8)):
         with pytest.raises(ValueError):
@@ -204,7 +205,7 @@ def test_wide_refusals_past_64():
         assert not hopper_qmm.moe_multirow_supported(fmt, 65, 4096)
         qt = tqmm.QTensor(torch.zeros((2, 64, 128 // (8 if fmt == "gf4" else 1)),
                                       dtype=tqmm.STORAGE[fmt]), fmt)
-        assert TM.mm_route(65, qt) == ("mm" if fmt == "gf4" else "dense")
+        assert TM.mm_route(65, qt) == ("mm" if fmt == "gf4" else "mm8")
         assert TM.mm_route(65, qt, precise=True) == "dense"
     shapes = (128, 256, 128, 128)
     assert hopper_qmm.qx_offn_supported("fp8", MAX_ROWS, shapes)
